@@ -5,12 +5,12 @@
 Phases, in order; any failure raises and the script exits non-zero:
 
   1. probe   — a CUDA device must exist; print its name and power limit;
-  2. build   — compile every kernel of the serving path with nvcc into
-               build/paddle_tpu_torch/ (all sources at once) and print the
-               build time and ptxas' register / spill report;
+  2. build   — compile every kernel of the serving and training paths with
+               nvcc into build/paddle_tpu_torch/ (all sources at once) and
+               print the build time and ptxas' register / spill report;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
-               at the serving path's shapes, in fp32 (TF32 off) and bf16,
-               within the tolerances stated in FLASH_TOL / PAGED_TOL; time
+               at its path's shapes and at ragged ones, in fp32 (TF32 off)
+               and bf16, within the tolerances stated below; time
                the kernel, the twin and one PyTorch library call that
                computes the same function (a yardstick the port never
                calls), beside the least time the card could take;
@@ -21,10 +21,25 @@ Phases, in order; any failure raises and the script exits non-zero:
                per admission, decode 12 x per step);
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
-               and agree on the prompts' logits.
+               and agree on the prompts' logits;
+  6. train   — GPT-2 124M (full width, random weights from seed 0, bf16,
+               dropout 0) with AdamW(multi_precision) through `TrainStep`
+               on a batch of 8 x 1024 tokens, FLAGS_use_fused_cross_entropy
+               on: first one forward and backward with the flag off and one
+               with it on must agree (loss, wte gradient); then 1 warm-up
+               and 5 measured steps, asserting the per-step launches of the
+               five training kernels, a finite first loss near ln(V) and a
+               falling loss; prints step ms, tokens/s and MFU, and one
+               more step's device time by kernel group (torch.profiler);
+  7. train parity — 3 fp32 `TrainStep`s of a 2-layer full-width GPT-2 on
+               the card and on the CPU from one state dict must agree.
 
-It then prints one JSON line with every kernel's numbers, the card's
-nvidia-smi line, and, last, ``{"ok": true, "device": {...}}``.
+The kernels phase covers the serving kernels (flash forward, paged decode)
+and the training kernels (flash backward dQ and dK/dV, fused cross-entropy
+forward and backward) within FLASH_TOL / PAGED_TOL / CE_LOSS_TOL /
+CE_GRAD_TOL. The script then prints one JSON line with every kernel's
+numbers, the card's nvidia-smi line, and, last,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -36,10 +51,16 @@ import time
 import numpy as np
 import torch
 
-from paddle_tpu_torch.incubate.models import GPTForCausalLM, gpt2_124m
-from paddle_tpu_torch.kernels import (_build, flash_attention as fa,
-                                      launch_counts, paged_attention as pa,
+from paddle_tpu_torch.framework import set_flags
+from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
+                                              GPTPretrainingCriterion,
+                                              gpt2_124m)
+from paddle_tpu_torch.jit import TrainStep
+from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
+                                      flash_attention as fa, launch_counts,
+                                      paged_attention as pa,
                                       reset_launch_counts)
+from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import LLMEngine
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the
@@ -59,6 +80,34 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 8e-3)}
 PAGED_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 8e-3)}
 # lse is fp32 on both sides whatever the input type
 LSE_TOL = (1e-4, 1e-4)
+# flash backward: both sides recompute P in fp32 from the same lse and
+# Delta and accumulate in fp32; they differ in summation order, and in
+# bf16 by one rounding of the output, as the forward
+FLASH_BWD_TOL = FLASH_TOL
+# cross-entropy loss and lse are fp32 on both sides whatever the input
+# type: one logsumexp over up to 50304 terms summed in another order
+# (~1e-6 relative of ~11)
+CE_LOSS_TOL = (5e-5, 1e-5)
+# dlogits from the same lse on both sides: exp rounding only (fp32), plus
+# one bf16 rounding of the output (bf16)
+CE_GRAD_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 8e-3)}
+# train phase, bf16: the unfused path rounds the log-softmax to bf16 per
+# element (~0.04 at ln V) and the loss to one bf16 step (0.0625 at 8-16);
+# the fused path keeps both in fp32
+TRAIN_FLAG_LOSS_ATOL = 0.1
+# relative Frobenius error of the wte gradient between the two routes:
+# the unfused path's softmax comes from bf16 log-probabilities (a few %
+# per element), averaged over 8192 rows and dominated by the exact
+# one-hot part
+TRAIN_FLAG_GRAD_RTOL = 3e-2
+TRAIN_LR = 1e-4
+# train parity, fp32 card vs CPU over 3 steps: the losses differ by
+# summation order only; an AdamW step moves an element by about
+# lr * sign(m1), so an element whose gradient is within rounding of 0 may
+# move the other way on one side: at most 2 * lr per step
+TRAIN_PARITY_LOSS_ATOL = 1e-4
+TRAIN_PARITY_STEPS = 3
+TRAIN_PARITY_PARAM_ATOL = 2 * TRAIN_LR * TRAIN_PARITY_STEPS
 # fp32 logits of GPT-2 124M on the card (TF32 off) vs the CPU: summation
 # order only, through 12 layers
 LOGITS_ATOL = 5e-4
@@ -111,11 +160,11 @@ def _close(name, got, want, tol):
 # phase 3: kernels vs plain twins
 # ---------------------------------------------------------------------------
 
-def _fused_qkv(n, dtype, seed, heads=HEADS, head_dim=HEAD_DIM):
-    """q, k, v as strided views of one [1, n, 3, H, D] tensor, the layout
+def _fused_qkv(n, dtype, seed, heads=HEADS, head_dim=HEAD_DIM, batch=1):
+    """q, k, v as strided views of one [B, n, 3, H, D] tensor, the layout
     the model's fused projection hands the flash kernel."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    qkv = torch.randn((1, n, 3, heads, head_dim), generator=g,
+    qkv = torch.randn((batch, n, 3, heads, head_dim), generator=g,
                       device="cuda").to(dtype)
     return qkv.unbind(2)
 
@@ -248,6 +297,174 @@ def check_paged():
             "shape": "S=8 H=12 D=64 bs=16 M=64, lens 1023, bf16"}
 
 
+def _strided_grad(q, seed):
+    """An output gradient laid out [B, H, N, D] and viewed as [B, N, H, D]:
+    rows contiguous, the rest strided, as a reshaped gradient can be."""
+    b, n, h, d = q.shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, h, n, d), generator=g, device="cuda") \
+        .to(q.dtype).transpose(1, 2)
+
+
+def _flash_bwd_inputs(q, k, v, causal, seed):
+    do = _strided_grad(q, seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    delta = fa.flash_attention_delta(out, do)
+    return q, k, v, do, lse, delta, causal, 1.0 / (q.shape[-1] ** 0.5)
+
+
+def _check_flash_bwd_case(tag, q, k, v, causal, seed=0):
+    args = _flash_bwd_inputs(q, k, v, causal, seed)
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    rq = fa.flash_attention_bwd_dq_reference(*args)
+    rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
+    torch.cuda.synchronize()
+    tol = FLASH_BWD_TOL[q.dtype]
+    err_dq = _close(tag + " dq", dq, rq, tol)
+    err_dkv = max(_close(tag + " dk", dk, rk, tol),
+                  _close(tag + " dv", dv, rv, tol))
+    return err_dq, err_dkv
+
+
+def _flash_bwd_bound(b, n, h, d, elem, causal, dkv):
+    """Least time of dQ (dkv=False) or dK/dV: each input read once (q, k,
+    v, dO, lse, Delta), each output written once; 6*D (dQ) or 8*D (dK/dV)
+    FLOPs per unmasked (query, key) pair at the bf16 tensor-core peak."""
+    pairs = b * h * (n * (n + 1) // 2 if causal else n * n)
+    io = b * n * h * d * elem
+    nbytes = (6 if dkv else 5) * io + 2 * b * h * n * 4
+    return _bound_ms(nbytes, (8 if dkv else 6) * d * pairs, torch.bfloat16)
+
+
+def check_flash_bwd():
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for n in (40, 1024):
+            for causal in (True, False):
+                _check_flash_bwd_case(f"flash bwd {name} n={n} causal={causal}",
+                                      *_fused_qkv(n, dtype, seed=n), causal)
+        _check_flash_bwd_case(f"flash bwd {name} n=40 causal=True D=128",
+                              *_fused_qkv(40, dtype, seed=7, heads=4,
+                                          head_dim=128), True)
+    # main-path shape: a training step's attention, bf16 causal
+    b, n, dtype = 8, 1024, torch.bfloat16
+    q, k, v = _fused_qkv(n, dtype, seed=11, batch=b)
+    err_dq, err_dkv = _check_flash_bwd_case(
+        f"flash bwd bf16 ({b}, {n}, {HEADS}, {HEAD_DIM}) causal", q, k, v,
+        True, seed=12)
+    args = _flash_bwd_inputs(q, k, v, True, seed=12)
+    # yardstick: SDPA's backward, one call for dQ, dK and dV together
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    lib_do = args[3].transpose(1, 2)
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), lib_do, retain_graph=True))
+    shape = f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"
+    rows = []
+    for dkv, fn, ref, err in (
+            (False, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dq_reference, err_dq),
+            (True, fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_reference, err_dkv)):
+        bound, by = _flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv)
+        kind = "dkv" if dkv else "dq"
+        rows.append({
+            "name": f"flash_attention_bwd_{kind}", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": ("paddle_tpu/kernels/flash_attention.py:223 "
+                         "_dkv_kernel" if dkv else
+                         "paddle_tpu/kernels/flash_attention.py:184 "
+                         "_dq_kernel"),
+            "max_abs_err": err, "ms": _cuda_ms(lambda: fn(*args)),
+            "plain_ms": _cuda_ms(lambda: ref(*args), iters=5),
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "shape": shape})
+    return rows
+
+
+def _ce_inputs(r, v, dtype, seed, pad_cols=0):
+    """logits [r, v] (a column slice of [r, v + pad_cols] when pad_cols, so
+    rows are strided and misaligned), int64 labels with some negative,
+    and a per-row upstream gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = (torch.randn((r, v + pad_cols), generator=g, device="cuda")
+              * 2).to(dtype)[:, :v]
+    labels = torch.randint(0, v, (r,), generator=g, device="cuda")
+    labels[::7] = -100
+    labels[3] = -1
+    grad = torch.randn((r,), generator=g, device="cuda")
+    return logits, labels, grad
+
+
+def _check_ce_case(tag, logits, labels, grad):
+    loss, lse = ce.cross_entropy_fwd(logits, labels)
+    r_loss, r_lse = ce.cross_entropy_fwd_reference(logits, labels)
+    dl = ce.cross_entropy_bwd(logits, labels, lse, grad)
+    r_dl = ce.cross_entropy_bwd_reference(logits, labels, lse, grad)
+    torch.cuda.synchronize()
+    err_fwd = max(_close(tag + " loss", loss, r_loss, CE_LOSS_TOL),
+                  _close(tag + " lse", lse, r_lse, CE_LOSS_TOL))
+    assert dl.dtype == logits.dtype and dl.is_contiguous()
+    err_bwd = _close(tag + " dlogits", dl, r_dl, CE_GRAD_TOL[logits.dtype])
+    return err_fwd, err_bwd
+
+
+def check_ce():
+    # R = 777 rows: not a multiple of any tile; V = 3000 and 50257 leave a
+    # ragged vocabulary tail, 50304 is the model's padded vocabulary
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for v in (3000, 50257, 50304):
+            _check_ce_case(f"ce {name} R=777 V={v}",
+                           *_ce_inputs(777, v, dtype, seed=v))
+        _check_ce_case(f"ce {name} R=777 V=50257 row stride 50262",
+                       *_ce_inputs(777, 50257, dtype, seed=1, pad_cols=5))
+    # main-path shape: the logits of 8 x 1024 tokens, bf16
+    r, v, dtype = 8192, 50304, torch.bfloat16
+    logits, labels, grad = _ce_inputs(r, v, dtype, seed=2)
+    err_fwd, err_bwd = _check_ce_case(f"ce bf16 R={r} V={v}", logits,
+                                      labels, grad)
+    _, lse = ce.cross_entropy_fwd(logits, labels)
+    # yardsticks the port never calls: F.cross_entropy(reduction="none")
+    # and its autograd backward (which refuse negative labels other than
+    # ignore_index, so those rows are ignored there)
+    lib_labels = labels.masked_fill(labels < 0, -100)
+    lib_logits = logits.detach().requires_grad_(True)
+    lib_loss = torch.nn.functional.cross_entropy(
+        lib_logits, lib_labels, reduction="none", ignore_index=-100)
+    fwd_lib = _cuda_ms(lambda: torch.nn.functional.cross_entropy(
+        logits, lib_labels, reduction="none", ignore_index=-100))
+    bwd_lib = _cuda_ms(lambda: torch.autograd.grad(
+        lib_loss, lib_logits, grad, retain_graph=True))
+    elem = logits.element_size()
+    shape = f"logits ({r}, {v}) bf16"
+    rows = []
+    for kind, fn, ref, err, lib_ms, nbytes in (
+            ("fwd", lambda: ce.cross_entropy_fwd(logits, labels),
+             lambda: ce.cross_entropy_fwd_reference(logits, labels),
+             err_fwd, fwd_lib, r * v * elem + r * 8 + 2 * r * 4),
+            ("bwd", lambda: ce.cross_entropy_bwd(logits, labels, lse, grad),
+             lambda: ce.cross_entropy_bwd_reference(logits, labels, lse,
+                                                    grad),
+             err_bwd, bwd_lib, 2 * r * v * elem + r * (8 + 4 + 4))):
+        # about 4 fp32 operations per element (max, subtract, exp, add)
+        bound, by = _bound_ms(nbytes, 4 * r * v, torch.float32)
+        rows.append({
+            "name": f"cross_entropy_{kind}", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/cross_entropy.cu",
+            "replaces": ("paddle_tpu/kernels/cross_entropy.py:77 _fwd_kernel"
+                         if kind == "fwd" else
+                         "paddle_tpu/kernels/cross_entropy.py:107 "
+                         "_bwd_kernel"),
+            "max_abs_err": err, "ms": _cuda_ms(fn),
+            "plain_ms": _cuda_ms(ref, iters=5), "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "shape": shape})
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -342,6 +559,175 @@ def parity():
           f"(atol {LOGITS_ATOL})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the training path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_KERNELS = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+                 "flash_attention_bwd_dkv": 12, "cross_entropy_fwd": 1,
+                 "cross_entropy_bwd": 1, "paged_decode": 0}
+
+
+# kernel-name substrings of each group in the profiled step's breakdown
+STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
+               ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
+               ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+               ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
+               ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
+                                  "xmma")))
+
+
+def _step_breakdown(step, ids, labels):
+    """One more training step under torch.profiler: its device time by
+    kernel group and the device's busy share of the step's wall time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, kernels = {}, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.self_device_time_total / 1e3
+        kernels.append((ms, evt.count, evt.key))
+        group = next((g for g, pats in STEP_GROUPS
+                      if any(pat in evt.key for pat in pats)), "other")
+        groups[group] = groups.get(group, 0.0) + ms
+    device_ms = sum(groups.values())
+    if device_ms == 0:
+        print("train: the profiler saw no device time; breakdown not "
+              "measured")
+        return
+    print(f"train: profiled step {wall_ms:.3f} ms wall, {device_ms:.3f} ms "
+          f"device time (busy {device_ms / wall_ms:.3f}); by group "
+          + json.dumps({g: round(ms, 3) for g, ms in
+                        sorted(groups.items(), key=lambda kv: -kv[1])}))
+    for ms, count, name in sorted(kernels, reverse=True)[:8]:
+        print(f"  {ms:9.3f} ms  {count:5d} x  {name[:100]}")
+
+
+def _loss_and_wte_grad(model, crit, ids, labels, fused):
+    set_flags({"FLAGS_use_fused_cross_entropy": fused})
+    model.zero_grad(set_to_none=True)
+    loss = crit(model(ids), labels)
+    loss.backward()
+    grad = model.gpt.wte.weight.grad.float()
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grad
+
+
+def train(batch=8, seq=1024, steps=5):
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    model.train()
+    crit = GPTPretrainingCriterion()
+    rng = np.random.default_rng(0)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                       device="cuda")
+    labels = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                          device="cuda")
+    # the same weights through the unfused and the fused cross-entropy
+    loss_off, grad_off = _loss_and_wte_grad(model, crit, ids, labels, False)
+    loss_on, grad_on = _loss_and_wte_grad(model, crit, ids, labels, True)
+    grad_rel = float((grad_on - grad_off).norm() / grad_off.norm())
+    print(f"train: flag off vs on, loss {loss_off:.5f} vs {loss_on:.5f} "
+          f"(atol {TRAIN_FLAG_LOSS_ATOL}); wte grad relative error "
+          f"{grad_rel:.3e} (rtol {TRAIN_FLAG_GRAD_RTOL})")
+    assert abs(loss_off - loss_on) <= TRAIN_FLAG_LOSS_ATOL
+    assert grad_rel <= TRAIN_FLAG_GRAD_RTOL
+    del grad_off, grad_on
+
+    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, crit, opt)
+    first = float(step(ids, labels))          # warm-up: allocator, cuBLAS
+    ln_v = float(np.log(cfg.vocab_size))
+    assert np.isfinite(first) and abs(first - ln_v) <= 0.5, (first, ln_v)
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(ids, labels)))   # float() waits for it
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    for name, per_step in TRAIN_KERNELS.items():
+        assert counts[name] == per_step * steps, (name, counts)
+    assert all(np.isfinite(losses)), losses
+    assert losses[-1] < first, (first, losses)
+    p50 = float(np.median(times))
+    tokens_per_s = batch * seq / (p50 / 1e3)
+    mfu = tokens_per_s * model.flops_per_token(seq) / PEAK_FLOPS[
+        torch.bfloat16]
+    print(f"train: GPT-2 124M bf16 AdamW(multi_precision), batch {batch} x "
+          f"{seq}; losses {first:.4f} (warm-up) -> "
+          + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"train: step ms p50 {p50:.3f} (min {min(times):.3f}, max "
+          f"{max(times):.3f}); {tokens_per_s:.1f} tokens/s; MFU {mfu:.4f} "
+          f"({model.flops_per_token(seq)} FLOPs/token vs 989e12 FLOP/s)")
+    print(f"train: launches over {steps} steps {json.dumps(counts)}")
+    _step_breakdown(step, ids, labels)
+    set_flags({"FLAGS_use_fused_cross_entropy": False})
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training, card vs CPU parity (fp32)
+# ---------------------------------------------------------------------------
+
+def _train_steps(model, ids, labels):
+    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                parameters=model.parameters())
+    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    return [float(step(ids, labels)) for _ in range(TRAIN_PARITY_STEPS)]
+
+
+def train_parity():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_124m(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    cpu_model = GPTForCausalLM(cfg, device="cpu", seed=2)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(2)
+    ids = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)))
+    labels = torch.tensor(rng.integers(0, cfg.vocab_size, (2, 128)))
+    labels[0, :5] = -100
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    reset_launch_counts()
+    gpu = _train_steps(gpu_model, ids.cuda(), labels.cuda())
+    counts = launch_counts()
+    cpu = _train_steps(cpu_model, ids, labels)
+    set_flags({"FLAGS_use_fused_cross_entropy": False})
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name] == 2 * TRAIN_PARITY_STEPS, counts
+    for name in ("cross_entropy_fwd", "cross_entropy_bwd"):
+        assert counts[name] == TRAIN_PARITY_STEPS, counts
+    loss_err = max(abs(a - b) for a, b in zip(gpu, cpu))
+    assert loss_err <= TRAIN_PARITY_LOSS_ATOL, (gpu, cpu)
+    param_err, beyond = 0.0, 0
+    for (name, pg), pc in zip(gpu_model.named_parameters(),
+                              cpu_model.parameters()):
+        diff = (pg.detach().cpu() - pc.detach()).abs()
+        param_err = max(param_err, float(diff.max()))
+        beyond += int((diff > 1e-6).sum())
+    assert param_err <= TRAIN_PARITY_PARAM_ATOL, param_err
+    total = sum(p.numel() for p in cpu_model.parameters())
+    print(f"train parity: {TRAIN_PARITY_STEPS} fp32 AdamW steps, 2-layer "
+          f"GPT-2 width, batch {ids.shape[0]} x {ids.shape[1]}, fused CE; "
+          f"losses card "
+          + ", ".join(f"{x:.6f}" for x in gpu) + " vs CPU "
+          + ", ".join(f"{x:.6f}" for x in cpu)
+          + f"; max loss err {loss_err:.3e} (atol {TRAIN_PARITY_LOSS_ATOL}); "
+          f"max param err {param_err:.3e} (atol {TRAIN_PARITY_PARAM_ATOL:g}); "
+          f"{beyond} of {total} elements differ by more than 1e-6")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
@@ -356,13 +742,26 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print("kernels vs plain twins:")
-    rows = [check_flash(), check_paged()]
-    counts = serve()
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    serve_rows = [check_flash(), check_paged()]
+    train_rows = check_flash_bwd() + check_ce()
+    serve_counts = serve()
     parity()
+    train_counts = train()
+    train_parity()
+    # each row's launches come from the path it belongs to: the serving
+    # run for the serving kernels, the measured training steps for the
+    # training kernels; both paths' counts are listed beside
+    for rows, counts in ((serve_rows, serve_counts),
+                         (train_rows, train_counts)):
+        for row in rows:
+            row["launches"] = counts[row["name"]]
+    rows = serve_rows + train_rows
+    for row in rows:
+        row["launches_by_path"] = {"serve": serve_counts[row["name"]],
+                                   "train": train_counts[row["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path")
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,47 @@
+"""Global flags of the port.
+
+Counterpart of `paddle_tpu/framework/flags.py` (`set_flags` / `get_flags`),
+holding only the flags the ported paths read, with the reference's
+defaults:
+
+- ``FLAGS_use_flash_attention`` (True): eligible attention goes through
+  the flash kernels (`nn.functional.scaled_dot_product_attention`);
+- ``FLAGS_use_fused_cross_entropy`` (False): `nn.functional.cross_entropy`
+  routes 2-D logits with a vocabulary of at least 8192 through the fused
+  cross-entropy kernels (`kernels.cross_entropy.is_eligible`).
+
+Flags are process-wide, as in the reference. Naming any other flag raises,
+so a setting the port does not read never passes silently.
+"""
+from __future__ import annotations
+
+import threading
+
+__all__ = ["set_flags", "get_flags"]
+
+_lock = threading.Lock()
+_FLAGS = {"FLAGS_use_flash_attention": True,
+          "FLAGS_use_fused_cross_entropy": False}
+
+
+def _known(name):
+    if name not in _FLAGS:
+        raise ValueError(f"unknown flag {name!r}: the port has "
+                         f"{sorted(_FLAGS)}")
+    return name
+
+
+def set_flags(flags: dict):
+    """Set each ``{name: value}``; raises ValueError on an unknown name
+    (and then sets none)."""
+    for name in flags:
+        _known(name)
+    with _lock:
+        _FLAGS.update(flags)
+
+
+def get_flags(flags):
+    """``{name: value}`` for a name or a list of names."""
+    if isinstance(flags, str):
+        flags = [flags]
+    return {_known(name): _FLAGS[name] for name in flags}

@@ -1,3 +1,3 @@
-from . import models  # noqa: F401
+from . import models, nn  # noqa: F401
 
-__all__ = ["models"]
+__all__ = ["models", "nn"]

@@ -8,8 +8,11 @@ Parameter names match the JAX model's (``gpt.wte.weight``,
 its weights across; `nn.Linear` keeps torch's ``[out, in]`` weight layout.
 
 Attention routes through `nn.functional.scaled_dot_product_attention` (the
-flash kernel for every causal prefill) and `paged_decode_attention` (the
-paged kernel for every decode step).
+flash kernels for every causal prefill and training step, forward and
+backward) and `paged_decode_attention` (the paged kernel for every decode
+step). `GPTPretrainingCriterion` is the training loss, over
+`nn.functional.cross_entropy` (the fused cross-entropy kernels under
+``FLAGS_use_fused_cross_entropy``).
 """
 from __future__ import annotations
 
@@ -22,8 +25,8 @@ from ...device import resolve_device
 from ...nn import functional as F
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
-           "GPTForCausalLM", "gpt2_124m", "gpt2_355m", "gpt3_1p3b",
-           "gpt3_6p7b"]
+           "GPTForCausalLM", "GPTPretrainingCriterion", "gpt2_124m",
+           "gpt2_355m", "gpt3_1p3b", "gpt3_6p7b"]
 
 
 @dataclass
@@ -235,3 +238,35 @@ class GPTForCausalLM(nn.Module):
             # tied: logits = hidden @ wte^T
             logits = torch.nn.functional.linear(hidden, self.gpt.wte.weight)
         return logits if caches is None else (logits, caches)
+
+    def num_params(self, include_embeddings=True):
+        """Parameter count (the tied embedding once); without the token
+        embedding when ``include_embeddings=False``."""
+        return sum(p.numel() for name, p in self.named_parameters()
+                   if include_embeddings or "wte" not in name)
+
+    def flops_per_token(self, seq_len, training=True):
+        """Model FLOPs per token, PaLM-appendix counting: training =
+        6N + 12*L*h*s (forward and backward), inference = 2N + 4*L*h*s."""
+        n = self.num_params()
+        cfg = self.config
+        attn_fwd = 4 * cfg.num_hidden_layers * cfg.hidden_size * seq_len
+        if training:
+            return 6 * n + 3 * attn_fwd
+        return 2 * n + attn_fwd
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Language-model loss: mean next-token cross-entropy of logits
+    ``[B, N, V]`` against labels ``[B, N]``, rows labelled `ignore_index`
+    left out."""
+
+    def __init__(self, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, logits, labels):
+        b, n, v = logits.shape
+        return F.cross_entropy(logits.reshape(b * n, v),
+                               labels.reshape(b * n),
+                               ignore_index=self.ignore_index)

@@ -21,7 +21,8 @@ from pathlib import Path
 
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 
-SOURCES = ("flash_attention_fwd", "paged_decode")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_decode",
+           "cross_entropy")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

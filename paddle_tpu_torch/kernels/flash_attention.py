@@ -1,15 +1,28 @@
-"""Flash attention forward: the Hopper kernel and its plain PyTorch twin.
+"""Flash attention, forward and backward: the Hopper kernels, their plain
+PyTorch twins and the autograd Function that joins them.
 
-Counterpart of `paddle_tpu/kernels/flash_attention.py` (`_fwd_kernel`,
-`_flash_fwd`). `flash_attention_fwd` takes q, k, v in the JAX package's
-``[B, N, H, D]`` layout and returns ``(out [B, N, H, D], lse [B*H, N]
-float32)``. On CUDA tensors it launches ``csrc/flash_attention_fwd.cu``
-(or raises on what that kernel does not take); on CPU tensors it runs
-`flash_attention_reference`, the same arithmetic in plain PyTorch.
+Counterpart of `paddle_tpu/kernels/flash_attention.py` (`_fwd_kernel` /
+`_flash_fwd`, `_dq_kernel` + `_dkv_kernel` / `_flash_bwd`, and the
+`custom_vjp` `flash_attention_bnhd`). Layouts are the JAX package's: q, k,
+v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
 
-Unlike the TPU kernel, no minimum length or multiple-of-128 rule applies:
-the CUDA kernel masks its own ragged edges, so every prefill bucket (8 to
-1024 tokens) runs it. The causal mask is top-left aligned, as on the TPU,
+- `flash_attention_fwd` returns ``(out, lse)``. On CUDA tensors it launches
+  ``csrc/flash_attention_fwd.cu`` (or raises on what that kernel does not
+  take); on CPU tensors it runs `flash_attention_reference`.
+- `flash_attention_bwd` returns ``(dq, dk, dv)`` from the forward's out and
+  lse: Delta = rowsum(O * dO) (`flash_attention_delta`, a plain torch
+  reduction on both devices, as the JAX `_flash_bwd` computes it outside
+  Pallas), then `flash_attention_bwd_dq` and `flash_attention_bwd_dkv`. On
+  CUDA tensors those launch the two kernels of
+  ``csrc/flash_attention_bwd.cu``; on CPU tensors they run their twins
+  `flash_attention_bwd_dq_reference` / `flash_attention_bwd_dkv_reference`.
+- `FlashAttention` / `flash_attention_bnhd` is the differentiable entry:
+  the same Function on both devices, so a CPU test sees the graph the card
+  sees.
+
+Unlike the TPU kernels, no minimum length or multiple-of-128 rule applies:
+the CUDA kernels mask their own ragged edges, so every prefill bucket (8 to
+1024 tokens) runs them. The causal mask is top-left aligned, as on the TPU,
 so causal attention requires ``n == m``.
 """
 from __future__ import annotations
@@ -22,19 +35,25 @@ import torch
 from ..device import require_hopper
 from . import _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_reference", "launches",
-           "HEAD_DIMS", "DTYPES"]
+__all__ = ["flash_attention_fwd", "flash_attention_reference",
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
+           "flash_attention_delta", "FlashAttention", "flash_attention_bnhd",
+           "launches", "HEAD_DIMS", "DTYPES"]
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 _NEG_INF = -1e30
 
-# kernel launches since import (or the last reset by the caller)
-launches = 0
+# kernel launches since import (or the last reset by the caller), by kernel
+launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
+            "flash_attention_bwd_dkv": 0}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-             + [ctypes.c_longlong] * 9
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 9
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p])
 
 
 def _check(q, k, v, causal):
@@ -49,6 +68,26 @@ def _check(q, k, v, causal):
                          f"needs n == m, got n={n}, m={k.shape[1]}")
     if n == 0 or k.shape[1] == 0:
         raise ValueError("empty sequence")
+
+
+def _check_kernel_inputs(*tensors):
+    """What the CUDA kernels take: fp32 or bf16 (all alike), head_dim in
+    HEAD_DIMS, one Hopper device, a contiguous last dimension, and at most
+    65535 (batch, head) pairs (the grid's y limit)."""
+    q = tensors[0]
+    b, _, h, d = q.shape
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"flash kernel takes {DTYPES} (all alike), got "
+                        f"{[t.dtype for t in tensors]}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash kernel inputs must be on one device")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("flash kernel needs a contiguous head dimension")
+    if b * h > 65535:
+        raise ValueError(f"batch * heads = {b * h} exceeds the grid limit")
+    require_hopper(q)
 
 
 def flash_attention_reference(q, k, v, causal, scale=None):
@@ -77,27 +116,15 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
     ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
-    global launches
     _check(q, k, v, causal)
+    _check_kernel_inputs(q, k, v)
     b, n, h, d = q.shape
     m = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash kernel takes {DTYPES} (all alike), got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k and v must be on one device")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash kernel needs a contiguous head dimension")
-    if b * h > 65535:
-        raise ValueError(f"batch * heads = {b * h} exceeds the grid limit")
-    require_hopper(q)
     lib = _build.load("flash_attention_fwd")
     fn = lib.paddle_flash_attention_fwd
-    fn.argtypes = _ARGTYPES
+    fn.argtypes = _FWD_ARGTYPES
     fn.restype = ctypes.c_int
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, n), dtype=torch.float32, device=q.device)
@@ -114,5 +141,172 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
-    launches += 1
+    launches["flash_attention_fwd"] += 1
     return out, lse
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+
+
+def flash_attention_delta(out, do):
+    """Delta = rowsum(O * dO) in fp32, as ``[B*H, N]``: a plain torch
+    reduction on both devices, as the JAX `_flash_bwd` computes it outside
+    Pallas."""
+    b, n, h, _ = out.shape
+    delta = (out.float() * do.float()).sum(-1)          # [B, N, H]
+    return delta.transpose(1, 2).reshape(b * h, n).contiguous()
+
+
+def _bwd_probs(q, k, v, do, lse, delta, causal, scale):
+    """The backward's recomputation, in fp32 ``[B, H, ...]``: scale * q,
+    k, dO, P = exp(S - lse) and dS / scale = P * (dO V^T - Delta)."""
+    _check(q, k, v, causal)
+    b, n, h, _ = q.shape
+    m = k.shape[1]
+    qt = q.transpose(1, 2).float() * scale          # [B, H, N, D]
+    kt = k.transpose(1, 2).float()
+    vt = v.transpose(1, 2).float()
+    gt = do.transpose(1, 2).float()
+    s = qt @ kt.transpose(-1, -2)                   # [B, H, N, M]
+    if causal:
+        keep = torch.ones(n, m, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~keep, _NEG_INF)
+    p = torch.exp(s - lse.reshape(b, h, n, 1))      # masked: exactly 0
+    ds = p * (gt @ vt.transpose(-1, -2) - delta.reshape(b, h, n, 1))
+    return qt, kt, gt, p, ds
+
+
+def _bnhd(t, dtype):
+    return t.transpose(1, 2).to(dtype).contiguous()
+
+
+def flash_attention_bwd_dq_reference(q, k, v, do, lse, delta, causal,
+                                     scale):
+    """Plain twin of the dQ kernel: ``dQ = dS K``, contiguous, q's dtype."""
+    _, kt, _, _, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    return _bnhd((ds @ kt) * scale, q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta, causal,
+                                      scale):
+    """Plain twin of the dK/dV kernel: ``dK = dS^T Q``, ``dV = P^T dO``."""
+    qt, _, gt, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    return (_bnhd(ds.transpose(-1, -2) @ qt, q.dtype),   # qt carries scale
+            _bnhd(p.transpose(-1, -2) @ gt, q.dtype))
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
+    _check(q, k, v, causal)
+    _check_kernel_inputs(q, k, v, do)
+    b, n, h, d = q.shape
+    if tuple(do.shape) != (b, n, h, d):
+        raise ValueError(f"do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    for label, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b * h, n) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{label} must be contiguous float32 [B*H, N] "
+                             f"= [{b * h}, {n}] on {q.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    fn = getattr(_build.load("flash_attention_bwd"),
+                 f"paddle_flash_attention_bwd_{name}")
+    fn.argtypes = (_BWD_ARGTYPES[:6] + [ctypes.c_void_p] * len(outs)
+                   + _BWD_ARGTYPES[6:])
+    fn.restype = ctypes.c_int
+    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, do)
+                                         for i in range(3)))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*(ctypes.c_void_p(t.data_ptr())
+                   for t in (q, k, v, do, lse, delta, *outs)),
+                 b, n, k.shape[1], h, d, strides, float(scale),
+                 int(bool(causal)), 0 if q.dtype == torch.float32 else 1,
+                 ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_{name} launch failed: "
+                           f"cudaError {err}")
+    launches[f"flash_attention_bwd_{name}"] += 1
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """dQ ``[B, N, H, D]`` from the forward's lse and Delta (see
+    `flash_attention_delta`); the dQ kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                causal, scale)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dq", q, k, v, do, lse, delta, (dq,), causal, scale)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """``(dK, dV)`` ``[B, M, H, D]``; the dK/dV kernel on the card."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                 causal, scale)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("dkv", q, k, v, do, lse, delta, (dk, dv), causal, scale)
+    return dk, dv
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal, scale=None):
+    """Plain PyTorch twin of the whole backward: the dQ and dK/dV twins,
+    each recomputing P in fp32 from lse, as the two kernels do."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = flash_attention_delta(out, do)
+    return (flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                             causal, scale),
+            *flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                               causal, scale))
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal, scale=None):
+    """FlashAttention-2 backward over ``[B, N, H, D]`` q, k, v, the
+    forward's out and lse ``[B*H, N]``, and the output gradient `do`.
+    Returns ``(dq, dk, dv)`` in q's dtype, contiguous: Delta, then the dQ
+    kernel and the dK/dV kernel on the card, their twins on the CPU."""
+    if out.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    delta = flash_attention_delta(out, do)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, scale))
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: `flash_attention_fwd` forward,
+    `flash_attention_bwd` backward (kernels on the card, plain twins on
+    the CPU). Saves q, k, v, out and the fp32 lse; nothing of size N x M."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            # the kernels read dO's rows in place whatever their strides,
+            # but not an expanded gradient (the gradient of a sum has
+            # stride 0 everywhere): that one is copied
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bnhd(q, k, v, causal=False, scale=None):
+    """Flash attention over ``[batch, seq, heads, head_dim]`` tensors, with
+    its gradient (the JAX package's `custom_vjp` entry of the same name)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, causal, scale)

@@ -37,8 +37,8 @@ _NEG_INF = -1e30
 _CHUNK_TARGET_BYTES = 256 * 1024
 _CHUNK_TOKENS_MAX = 512
 
-# kernel launches since import (or the last reset by the caller)
-launches = 0
+# kernel launches since import (or the last reset by the caller), by kernel
+launches = {"paged_decode": 0}
 
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
@@ -115,7 +115,6 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size):
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pool, v_pool, block_tables, lens,
                                       block_size)
-    global launches
     _check(q, k_pool, v_pool, block_tables, lens, block_size)
     s, h, d = q.shape
     m = block_tables.shape[1]
@@ -155,5 +154,5 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size):
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"paged_decode launch failed: cudaError {err}")
-    launches += 1
+    launches["paged_decode"] += 1
     return out

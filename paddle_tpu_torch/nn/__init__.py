@@ -1,3 +1,6 @@
-from . import functional  # noqa: F401
+from . import clip, functional  # noqa: F401
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                   ClipGradByValue)
 
-__all__ = ["functional"]
+__all__ = ["clip", "functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue"]

@@ -11,9 +11,10 @@ import math
 
 import torch
 
+from ...framework.flags import get_flags
 from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
-                                        flash_attention_fwd)
+                                        FlashAttention)
 from ...kernels.paged_attention import paged_attention
 
 __all__ = ["scaled_dot_product_attention", "paged_decode_attention"]
@@ -43,10 +44,13 @@ def _plain_attention(q, k, v, mask, is_causal, scale, dropout_p=0.0):
 
 
 def _flash_eligible(q, k, mask, dropout_p, is_causal):
-    """The flash route: no mask, no dropout, [B, N, H, D] with D in the
-    kernel's head dims, n == m when causal (the kernel's mask is top-left).
-    No minimum length: the kernel masks its own ragged edges."""
+    """The flash route: ``FLAGS_use_flash_attention``, no mask, no dropout,
+    [B, N, H, D] with D in the kernel's head dims, n == m when causal (the
+    kernel's mask is top-left). No minimum length: the kernels mask their
+    own ragged edges."""
     if mask is not None or dropout_p:
+        return False
+    if not get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
         return False
     if q.ndim != 4 or q.shape[-1] not in _FLASH_HEAD_DIMS \
             or q.dtype not in _FLASH_DTYPES:
@@ -58,12 +62,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True):
     """query/key/value: ``[batch, seq, num_heads, head_dim]``. Flash-eligible
-    calls go to `flash_attention_fwd` (the CUDA kernel on the card, its
-    plain twin on the CPU); the rest take the plain path."""
+    calls go through the autograd `FlashAttention` on both devices (the
+    CUDA kernels forward and backward on the card, their plain twins on the
+    CPU); the rest take the plain path."""
     scale = 1.0 / math.sqrt(query.shape[-1])
     eff_dropout = dropout_p if training else 0.0
     if _flash_eligible(query, key, attn_mask, eff_dropout, is_causal):
-        return flash_attention_fwd(query, key, value, is_causal, scale)[0]
+        return FlashAttention.apply(query, key, value, is_causal, scale)
     return _plain_attention(query, key, value, attn_mask, is_causal, scale,
                             eff_dropout)
 

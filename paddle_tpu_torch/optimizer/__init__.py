@@ -1,0 +1,4 @@
+from .optimizer import Optimizer  # noqa: F401
+from .optimizers import Adam, AdamW  # noqa: F401
+
+__all__ = ["Optimizer", "Adam", "AdamW"]

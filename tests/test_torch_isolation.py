@@ -38,6 +38,14 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
     expected = {"paddle_tpu_torch.serving.engine",
                 "paddle_tpu_torch.kernels.flash_attention",
                 "paddle_tpu_torch.kernels.paged_attention",
+                "paddle_tpu_torch.kernels.cross_entropy",
                 "paddle_tpu_torch.incubate.models.gpt",
+                "paddle_tpu_torch.incubate.nn.functional",
+                "paddle_tpu_torch.nn.functional.loss",
+                "paddle_tpu_torch.nn.clip",
+                "paddle_tpu_torch.framework.flags",
+                "paddle_tpu_torch.optimizer.optimizer",
+                "paddle_tpu_torch.optimizer.optimizers",
+                "paddle_tpu_torch.jit.train_step",
                 "paddle_tpu_torch.convert"}
     assert expected <= set(res["imported"])
