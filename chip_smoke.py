@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                nvcc into build/paddle_tpu_torch/ (all sources at once) and
                print the build time and ptxas' register / spill report;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
-               at its path's shapes and at ragged ones, in fp32 (TF32 off)
-               and bf16, within the tolerances stated below; time
+               at its paths' shapes (the flash forward at the serving and
+               the training shape) and at ragged ones, batched and not, in
+               fp32 (TF32 off) and bf16, within the tolerances stated
+               below; time
                the kernel, the twin and one PyTorch library call that
                computes the same function (a yardstick the port never
                calls), beside the least time the card could take;
@@ -32,7 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                falling loss; prints step ms, tokens/s and MFU, and one
                more step's device time by kernel group (torch.profiler);
   7. train parity — 3 fp32 `TrainStep`s of a 2-layer full-width GPT-2 on
-               the card and on the CPU from one state dict must agree.
+               the card and on the CPU from one state dict must agree:
+               losses, and parameters element by element.
 
 The kernels phase covers the serving kernels (flash forward, paged decode)
 and the training kernels (flash backward dQ and dK/dV, fused cross-entropy
@@ -74,15 +77,18 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #         (tile-wise online softmax vs one softmax and a matmul) and in
 #         exp/log rounding: ~1e-6 relative, held at 1e-4.
 #   bf16: both sides compute in fp32 from the same bf16 inputs and round
-#         the output to bf16 once; one bf16 step is 2^-8 relative, so one
-#         rounding flip is allowed (8e-3 relative, 1e-2 absolute near 0).
-FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 8e-3)}
-PAGED_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 8e-3)}
+#         the output to bf16 once, so one rounding flip is allowed: one
+#         bf16 step, at most 2^-7 of the value (rtol 8e-3); atol 1e-3 only
+#         absorbs values near 0, whose step lies far below it.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
+PAGED_TOL = FLASH_TOL
 # lse is fp32 on both sides whatever the input type
 LSE_TOL = (1e-4, 1e-4)
 # flash backward: both sides recompute P in fp32 from the same lse and
 # Delta and accumulate in fp32; they differ in summation order, and in
-# bf16 by one rounding of the output, as the forward
+# bf16 by one rounding of the output, as the forward. At the training
+# shape a typical |dQ|, |dK|, |dV| is 0.03-0.05, so the bf16 atol is a
+# few hundredths of it; the fp32 case there holds 1e-4.
 FLASH_BWD_TOL = FLASH_TOL
 # cross-entropy loss and lse are fp32 on both sides whatever the input
 # type: one logsumexp over up to 50304 terms summed in another order
@@ -101,13 +107,17 @@ TRAIN_FLAG_LOSS_ATOL = 0.1
 # one-hot part
 TRAIN_FLAG_GRAD_RTOL = 3e-2
 TRAIN_LR = 1e-4
-# train parity, fp32 card vs CPU over 3 steps: the losses differ by
-# summation order only; an AdamW step moves an element by about
-# lr * sign(m1), so an element whose gradient is within rounding of 0 may
-# move the other way on one side: at most 2 * lr per step
+# train parity, fp32 card vs CPU over 3 steps: the losses and parameters
+# differ by summation order only (1e-5, where an AdamW step moves an
+# element by about lr = 1e-4, so a skipped or mis-signed update fails).
+# An element whose gradient is within rounding of 0 may still step the
+# other way on one side, by at most 2 * lr per step: such elements may
+# make up at most TRAIN_PARITY_FLIP_SHARE of all.
 TRAIN_PARITY_LOSS_ATOL = 1e-4
 TRAIN_PARITY_STEPS = 3
-TRAIN_PARITY_PARAM_ATOL = 2 * TRAIN_LR * TRAIN_PARITY_STEPS
+TRAIN_PARITY_PARAM_ATOL = 1e-5
+TRAIN_PARITY_FLIP_ATOL = 2 * TRAIN_LR * TRAIN_PARITY_STEPS
+TRAIN_PARITY_FLIP_SHARE = 1e-5
 # fp32 logits of GPT-2 124M on the card (TF32 off) vs the CPU: summation
 # order only, through 12 layers
 LOGITS_ATOL = 5e-4
@@ -178,6 +188,27 @@ def _check_flash_case(tag, q, k, v, causal):
     return err
 
 
+def _time_flash(q, k, v, err):
+    """The forward's numbers at one causal bf16 shape: kernel, twin and
+    SDPA times, and its bound."""
+    b, n = q.shape[:2]
+    ms = _cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True),
+                        iters=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library_ms = _cuda_ms(lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True))
+    elem = q.element_size()
+    nbytes = b * (4 * n * HEADS * HEAD_DIM * elem + HEADS * n * 4)
+    pairs = n * (n + 1) // 2
+    flops = 4 * b * HEADS * HEAD_DIM * pairs
+    bound, by = _bound_ms(nbytes, flops, q.dtype)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
+
+
 def check_flash():
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -187,6 +218,14 @@ def check_flash():
                 errs[dtype, n, causal] = _check_flash_case(
                     f"flash {name} n={n} causal={causal}",
                     *_fused_qkv(n, dtype, seed=n), causal)
+        # the training path's batch 8 at its shape, and a ragged batch 3:
+        # every block past the first batch reads at its batch stride
+        errs[dtype, "train"] = _check_flash_case(
+            f"flash {name} (8, 1024, {HEADS}, {HEAD_DIM}) causal=True",
+            *_fused_qkv(1024, dtype, seed=11, batch=8), True)
+        _check_flash_case(f"flash {name} (3, 40, {HEADS}, {HEAD_DIM}) "
+                          "causal=False",
+                          *_fused_qkv(40, dtype, seed=10, batch=3), False)
         # off the serving path but compiled in: head_dim 128, and
         # non-causal attention over more keys than queries
         _check_flash_case(f"flash {name} n=40 causal=True D=128",
@@ -196,27 +235,18 @@ def check_flash():
         _, k, v = _fused_qkv(100, dtype, seed=9)
         _check_flash_case(f"flash {name} n=40 m=100 causal=False", q, k, v,
                           False)
-    # main-path shape: the 1024 prefill bucket, causal, bf16
-    n, dtype = 1024, torch.bfloat16
-    err = errs[dtype, n, True]
-    q, k, v = _fused_qkv(n, dtype, seed=n)
-    ms = _cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = _cuda_ms(lambda: torch.nn.functional
-                          .scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True))
-    elem = q.element_size()
-    nbytes = 4 * n * HEADS * HEAD_DIM * elem + HEADS * n * 4
-    pairs = n * (n + 1) // 2
-    flops = 4 * HEADS * HEAD_DIM * pairs
-    bound, by = _bound_ms(nbytes, flops, dtype)
+    # main-path shapes, bf16 causal: the serving path's 1024 prefill bucket
+    # (the row's numbers) and the training path's batch of 8 x 1024
+    # (`at_train_shape`)
+    dtype = torch.bfloat16
+    row = _time_flash(*_fused_qkv(1024, dtype, seed=1024),
+                      errs[dtype, 1024, True])
+    row["at_train_shape"] = _time_flash(
+        *_fused_qkv(1024, dtype, seed=11, batch=8), errs[dtype, "train"])
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:90 _fwd_kernel",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-            "shape": f"q,k,v (1, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
+            **row}
 
 
 def _paged_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
@@ -347,7 +377,15 @@ def check_flash_bwd():
         _check_flash_bwd_case(f"flash bwd {name} n=40 causal=True D=128",
                               *_fused_qkv(40, dtype, seed=7, heads=4,
                                           head_dim=128), True)
-    # main-path shape: a training step's attention, bf16 causal
+        _check_flash_bwd_case(f"flash bwd {name} (3, 40, {HEADS}, "
+                              f"{HEAD_DIM}) causal=False",
+                              *_fused_qkv(40, dtype, seed=10, batch=3), False)
+    # main-path shape: a training step's attention, causal; fp32 here, bf16
+    # below with the timings
+    _check_flash_bwd_case(f"flash bwd float32 (8, 1024, {HEADS}, {HEAD_DIM}) "
+                          "causal",
+                          *_fused_qkv(1024, torch.float32, seed=11, batch=8),
+                          True, seed=12)
     b, n, dtype = 8, 1024, torch.bfloat16
     q, k, v = _fused_qkv(n, dtype, seed=11, batch=b)
     err_dq, err_dkv = _check_flash_bwd_case(
@@ -710,22 +748,25 @@ def train_parity():
         assert counts[name] == TRAIN_PARITY_STEPS, counts
     loss_err = max(abs(a - b) for a, b in zip(gpu, cpu))
     assert loss_err <= TRAIN_PARITY_LOSS_ATOL, (gpu, cpu)
-    param_err, beyond = 0.0, 0
-    for (name, pg), pc in zip(gpu_model.named_parameters(),
-                              cpu_model.parameters()):
+    param_err, beyond, flipped = 0.0, 0, 0
+    for pg, pc in zip(gpu_model.parameters(), cpu_model.parameters()):
         diff = (pg.detach().cpu() - pc.detach()).abs()
         param_err = max(param_err, float(diff.max()))
         beyond += int((diff > 1e-6).sum())
-    assert param_err <= TRAIN_PARITY_PARAM_ATOL, param_err
+        flipped += int((diff > TRAIN_PARITY_PARAM_ATOL).sum())
     total = sum(p.numel() for p in cpu_model.parameters())
+    assert param_err <= TRAIN_PARITY_FLIP_ATOL, param_err
+    assert flipped <= TRAIN_PARITY_FLIP_SHARE * total, (flipped, total)
     print(f"train parity: {TRAIN_PARITY_STEPS} fp32 AdamW steps, 2-layer "
           f"GPT-2 width, batch {ids.shape[0]} x {ids.shape[1]}, fused CE; "
           f"losses card "
           + ", ".join(f"{x:.6f}" for x in gpu) + " vs CPU "
           + ", ".join(f"{x:.6f}" for x in cpu)
           + f"; max loss err {loss_err:.3e} (atol {TRAIN_PARITY_LOSS_ATOL}); "
-          f"max param err {param_err:.3e} (atol {TRAIN_PARITY_PARAM_ATOL:g}); "
-          f"{beyond} of {total} elements differ by more than 1e-6")
+          f"max param err {param_err:.3e}; {flipped} of {total} elements "
+          f"differ by more than {TRAIN_PARITY_PARAM_ATOL:g} (at most "
+          f"{TRAIN_PARITY_FLIP_SHARE:g} of them, each within "
+          f"{TRAIN_PARITY_FLIP_ATOL:g}), {beyond} by more than 1e-6")
 
 
 def main():
@@ -761,8 +802,9 @@ def main():
                                    "train": train_counts[row["name"]]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path")
-    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+            "launches_by_path", "at_train_shape")
+    print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
+                                  for row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
