@@ -20,10 +20,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                behind `LLMEngine`: 19 requests (16 greedy, 2 sampled, one
                990-token prompt so the 1024 bucket runs), more requests
                than slots; both kernels must have launched (prefill 12 x
-               per admission, decode 12 x per step);
+               per admission, decode 12 x per step); then 4 decode steps
+               of 8 full slots under torch.profiler (device time by
+               kernel group, busy share);
+  4b. serve_int8 — the same model and request mix through
+               `LLMEngine(..., kv_dtype="int8")`: the int8 paged kernel 12 x
+               per decode step and the fp one never; prints its latencies,
+               its greedy-token agreement with the bf16 run (a number, not
+               a gate) and the streams each pool admits at the bf16
+               engine's pool bytes;
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
-               and agree on the prompts' logits;
+               and agree on the prompts' logits; then the same with int8
+               KV on both sides (tokens only);
   6. train   — GPT-2 124M (full width, random weights from seed 0, bf16,
                dropout 0) with AdamW(multi_precision) through `TrainStep`
                on a batch of 8 x 1024 tokens, FLAGS_use_fused_cross_entropy
@@ -35,13 +44,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                more step's device time by kernel group (torch.profiler);
   7. train parity — 3 fp32 `TrainStep`s of a 2-layer full-width GPT-2 on
                the card and on the CPU from one state dict must agree:
-               losses, and parameters element by element.
+               losses, and parameters element by element;
+  8. fused_ln — `incubate.nn.FusedBiasDropoutResidualLayerNorm(768)` in
+               bf16 on [8, 1024, 768] activations, forward and backward
+               for some iterations, one fused_ln launch per forward; then
+               its fp32 output and five gradients on the card against the
+               CPU's.
 
-The kernels phase covers the serving kernels (flash forward, paged decode)
-and the training kernels (flash backward dQ and dK/dV, fused cross-entropy
-forward and backward) within FLASH_TOL / PAGED_TOL / CE_LOSS_TOL /
-CE_GRAD_TOL. The script then prints one JSON line with every kernel's
-numbers, the card's nvidia-smi line, and, last,
+The kernels phase covers the serving kernels (flash forward, paged decode
+with fp and with int8 pools), the training kernels (flash backward dQ and
+dK/dV, fused cross-entropy forward and backward) and the fused
+bias-residual LayerNorm within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL /
+CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL. The script then prints one JSON line
+with every kernel's numbers, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -58,13 +73,15 @@ from paddle_tpu_torch.framework import set_flags
 from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               GPTPretrainingCriterion,
                                               gpt2_124m)
+from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
-                                      flash_attention as fa, launch_counts,
-                                      paged_attention as pa,
+                                      flash_attention as fa, fused_ln as fln,
+                                      launch_counts, paged_attention as pa,
                                       reset_launch_counts)
 from paddle_tpu_torch.optimizer import AdamW
-from paddle_tpu_torch.serving import LLMEngine
+from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
+                                      pool_bytes_per_block)
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the
 # rate of each input type (bf16 on the tensor cores; fp32 off them, TF32
@@ -82,6 +99,25 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #         absorbs values near 0, whose step lies far below it.
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 PAGED_TOL = FLASH_TOL
+# int8 pools: kernel and twin dequantize the same int8 levels under the
+# same scales in fp32 (q * (scale * (1/127)), one rounding each), so the
+# rest is the fp case: summation order, and one bf16 rounding of the output
+PAGED_INT8_TOL = PAGED_TOL
+# fused LayerNorm, kernel vs twin on the same inputs: fp32 statistics on
+# both sides in another summation order, rsqrtf's 2 ulp and FMA contraction
+# (~1e-6 relative of outputs up to ~10 in fp32), plus one bf16 rounding of
+# the output in bf16 — the flash kernels' reasoning
+LN_TOL = FLASH_TOL
+# fused_ln phase, card vs CPU in fp32: the backward is the same PyTorch
+# formula on both devices, so only summation order differs. Per-element
+# gradients (x, residual, output) hold 1e-4; the bias, scale and shift
+# gradients are sums over 8192 rows of terms ~1 (~90 in size), whose
+# order-only error is ~sqrt(8192) * 2^-24 * 90 ~ 5e-4 at worst typical
+LN_GRAD_TOL = (1e-4, 1e-4)
+LN_PARAM_GRAD_TOL = (2e-3, 1e-4)
+# serve_int8: the same pool bytes must admit at least this many times the
+# bf16 engine's streams (1 byte per element against 2, less the scales)
+INT8_CAPACITY_MIN = 1.8
 # lse is fp32 on both sides whatever the input type
 LSE_TOL = (1e-4, 1e-4)
 # flash backward: both sides recompute P in fp32 from the same lse and
@@ -135,19 +171,53 @@ def _card():
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` back-to-back calls."""
+_SLEEP_CYCLES_PER_S = []
+
+
+def _sleep_cycles_per_s():
+    """Clock cycles per second of `torch.cuda._sleep`, measured once."""
+    if not _SLEEP_CYCLES_PER_S:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_S.append(1e7 / (start.elapsed_time(end) / 1e3))
+    return _SLEEP_CYCLES_PER_S[0]
+
+
+def _timed(fn, iters=20, warmup=3):
+    """``(device ms, host ms)`` per call of fn() over `iters` back-to-back
+    calls. The device first spins in a sleep kernel long enough for the
+    host to enqueue every call, so the time between the two events is the
+    calls' device work alone, not the gaps in which a device that is
+    faster than its host waits for the next launch; host ms is the time
+    the host took to enqueue one call meanwhile."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(_sleep_cycles_per_s() * (2 * iters * once_s
+                                                    + 2e-3)))
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def _cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() over `iters` back-to-back calls (`_timed`)."""
+    return _timed(fn, iters, warmup)[0]
 
 
 def _bound_ms(nbytes, flops, dtype):
@@ -192,7 +262,7 @@ def _time_flash(q, k, v, err):
     """The forward's numbers at one causal bf16 shape: kernel, twin and
     SDPA times, and its bound."""
     b, n = q.shape[:2]
-    ms = _cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True))
+    ms, host_ms = _timed(lambda: fa.flash_attention_fwd(q, k, v, True))
     plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True),
                         iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -204,8 +274,9 @@ def _time_flash(q, k, v, err):
     pairs = n * (n + 1) // 2
     flops = 4 * b * HEADS * HEAD_DIM * pairs
     bound, by = _bound_ms(nbytes, flops, q.dtype)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+    return {"max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms,
             "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
 
 
@@ -299,7 +370,7 @@ def check_paged():
             return fn(q, kp[layer], vp[layer], tables, lens_t, bs)
         return call
 
-    ms = _cuda_ms(rotating(pa.paged_attention))
+    ms, host_ms = _timed(rotating(pa.paged_attention))
     plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
     t_max = tables.shape[1] * bs
     mask = (torch.arange(t_max, device="cuda")[None, :]
@@ -322,9 +393,157 @@ def check_paged():
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
                         "_decode_kernel",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms,
             "shape": "S=8 H=12 D=64 bs=16 M=64, lens 1023, bf16"}
+
+
+def _int8_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
+                heads=HEADS, head_dim=HEAD_DIM):
+    """int8 pools with per-block-per-head fp32 scales, a query in `dtype`
+    and the dense-prefix tables of `_paged_state`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb = 1 + slots * m
+    shape = (layers, nb, bs, heads, head_dim)
+    kp, vp = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((layers, nb, heads), generator=g, device="cuda")
+              * 4 + 0.05 for _ in range(2))
+    q = torch.randn((slots, heads, head_dim), generator=g,
+                    device="cuda").to(dtype)
+    tables = (1 + torch.arange(slots * m, device="cuda",
+                               dtype=torch.int32)).reshape(slots, m)
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, kp, vp, ks, vs, tables, lens
+
+
+def check_paged_int8():
+    bs = 16
+    # the fp row's ragged lengths and inactive slot, q in fp32 and bf16
+    lens = [0, 15, 16, 17, 500, 1023, 700, 0]
+    for heads, head_dim in ((HEADS, HEAD_DIM), (4, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, ks, vs, tables, lens_t = _int8_state(
+                1, lens, dtype, seed=3, heads=heads, head_dim=head_dim)
+            tables[7] = 0                  # slot 7 is inactive
+            args = (q, kp[0], vp[0], tables, lens_t, bs, ks[0], vs[0])
+            out = pa.paged_attention(*args)
+            ref = pa.paged_decode_reference(*args)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and torch.isfinite(out.float()).all()
+            e = _close(f"paged int8 q={str(dtype)[6:]} D={head_dim} active "
+                       "slots", out[:7], ref[:7], PAGED_INT8_TOL[dtype])
+            if head_dim == HEAD_DIM and dtype == torch.bfloat16:
+                err = e
+    # main-path shape: 8 slots at a full 1024-token context, bf16 queries,
+    # int8 pools; 8 layers' pools (~100 MB, twice the L2) rotate so each
+    # launch reads cold KV, as a decode step's 12 layers do
+    dtype, layers = torch.bfloat16, 8
+    full = [1023] * 8
+    q, kp, vp, ks, vs, tables, lens_t = _int8_state(layers, full, dtype,
+                                                    seed=4)
+    it = iter(range(10 ** 9))
+
+    def rotating(fn):
+        def call():
+            layer = next(it) % layers
+            return fn(q, kp[layer], vp[layer], tables, lens_t, bs, ks[layer],
+                      vs[layer])
+        return call
+
+    ms, host_ms = _timed(rotating(pa.paged_attention))
+    plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
+    t_max = tables.shape[1] * bs
+    mask = (torch.arange(t_max, device="cuda")[None, :]
+            <= lens_t[:, None])[:, None, None, :]
+    tab = tables.long()
+
+    def library(qq, kk, vv, tab_, _lens, _bs, kss, vss):
+        # yardstick: a dequantizing gather, then SDPA in q's dtype
+        def deq(pool, sc):
+            x = pool[tab].float() * (sc[tab] * (1.0 / 127))[..., None, :,
+                                                             None]
+            return x.reshape(8, t_max, HEADS, HEAD_DIM).transpose(1, 2) \
+                .to(qq.dtype)
+        return torch.nn.functional.scaled_dot_product_attention(
+            qq[:, :, None, :], deq(kk, kss), deq(vv, vss), attn_mask=mask)
+
+    library_ms = _cuda_ms(rotating(library))
+    tokens = sum(l + 1 for l in full)
+    blocks = sum(-(-(l + 1) // bs) for l in full)
+    nbytes = (2 * tokens * HEADS * HEAD_DIM + 2 * blocks * HEADS * 4
+              + 2 * q.numel() * q.element_size() + tables.numel() * 4 + 8 * 4)
+    flops = 4 * tokens * HEADS * HEAD_DIM
+    bound, by = _bound_ms(nbytes, flops, dtype)
+    return {"name": "paged_decode_int8", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
+                        "_decode_kernel (quantized=True)",
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms,
+            "shape": "S=8 H=12 D=64 bs=16 M=64, lens 1023, q bf16, int8 "
+                     "pools + fp32 scales"}
+
+
+def _ln_inputs(r, d, dtype, seed, affine_dtype=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, res = (torch.randn((r, d), generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    bias, scale, shift = (torch.randn(d, generator=g, device="cuda")
+                          .to(affine_dtype or dtype) for _ in range(3))
+    return x, res, bias, scale, shift
+
+
+def check_fused_ln():
+    # the main-path shape in both types, a ragged R = 777, affine terms in
+    # the other type (bf16 activations under fp32 parameters, and the
+    # reverse), the narrowest width and one wider than 4096 (two groups of
+    # 4 per thread)
+    cases = [(8192, 768, torch.bfloat16, None), (8192, 768, torch.float32,
+                                                 None),
+             (777, 768, torch.bfloat16, None), (777, 768, torch.float32, None),
+             (777, 768, torch.bfloat16, torch.float32),
+             (777, 768, torch.float32, torch.bfloat16),
+             (5, 128, torch.bfloat16, None), (33, 4224, torch.float32, None)]
+    for i, (r, d, dtype, adt) in enumerate(cases):
+        args = _ln_inputs(r, d, dtype, seed=20 + i, affine_dtype=adt)
+        out = fln.fused_ln_fwd(*args)
+        ref = fln.fused_ln_reference(*args)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        e = _close(f"fused_ln {str(dtype)[6:]} ({r}, {d}) affine "
+                   f"{str(adt or dtype)[6:]}", out, ref, LN_TOL[dtype])
+        if i == 0:
+            err = e
+    # main-path shape [8192, 768] bf16; 4 input sets (x, residual and the
+    # output: 151 MB, three times the L2) rotate so each launch reads cold
+    # activations, as a layer's LayerNorm does
+    r, d, dtype, sets = 8192, 768, torch.bfloat16, 4
+    inputs = [_ln_inputs(r, d, dtype, seed=40 + i) for i in range(sets)]
+    it = iter(range(10 ** 9))
+
+    def rotating(fn):
+        return lambda: fn(*inputs[next(it) % sets])
+
+    ms, host_ms = _timed(rotating(fln.fused_ln_fwd))
+    plain_ms = _cuda_ms(rotating(fln.fused_ln_reference))
+    library_ms = _cuda_ms(rotating(
+        lambda x, res, b, sc, sh: torch.nn.functional.layer_norm(
+            x + b + res, (d,), sc, sh, 1e-5)))
+    elem = 2
+    nbytes = 3 * r * d * elem + 3 * d * elem
+    # ~10 fp32 operations per element (2 adds, mean, centre, square-add,
+    # scale, affine)
+    bound, by = _bound_ms(nbytes, 10 * r * d, torch.float32)
+    return {"name": "fused_ln", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/fused_ln.cu",
+            "replaces": "paddle_tpu/kernels/fused_ln.py:59 _kernel",
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms,
+            "shape": f"x, residual ({r}, {d}) bf16, bias/scale/shift bf16"}
 
 
 def _strided_grad(q, seed):
@@ -409,6 +628,7 @@ def check_flash_bwd():
              fa.flash_attention_bwd_dkv_reference, err_dkv)):
         bound, by = _flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv)
         kind = "dkv" if dkv else "dq"
+        ms, host_ms = _timed(lambda: fn(*args))
         rows.append({
             "name": f"flash_attention_bwd_{kind}", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -416,7 +636,7 @@ def check_flash_bwd():
                          "_dkv_kernel" if dkv else
                          "paddle_tpu/kernels/flash_attention.py:184 "
                          "_dq_kernel"),
-            "max_abs_err": err, "ms": _cuda_ms(lambda: fn(*args)),
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": _cuda_ms(lambda: ref(*args), iters=5),
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
             "shape": shape})
@@ -490,6 +710,7 @@ def check_ce():
              err_bwd, bwd_lib, 2 * r * v * elem + r * (8 + 4 + 4))):
         # about 4 fp32 operations per element (max, subtract, exp, add)
         bound, by = _bound_ms(nbytes, 4 * r * v, torch.float32)
+        ms, host_ms = _timed(fn)
         rows.append({
             "name": f"cross_entropy_{kind}", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/cross_entropy.cu",
@@ -497,7 +718,7 @@ def check_ce():
                          if kind == "fwd" else
                          "paddle_tpu/kernels/cross_entropy.py:107 "
                          "_bwd_kernel"),
-            "max_abs_err": err, "ms": _cuda_ms(fn),
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": _cuda_ms(ref, iters=5), "bound_ms": bound,
             "bound_by": by, "library_ms": lib_ms, "shape": shape})
     return rows
@@ -507,11 +728,17 @@ def check_ce():
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
 
-def serve():
+def serve(kv_dtype=None):
+    """The serving mix through `LLMEngine` (bf16 pools, or int8 with
+    ``kv_dtype="int8"``). Returns the launch counts of the run, the greedy
+    requests' tokens and the model."""
+    tag = "serve_int8" if kv_dtype else "serve"
+    paged, other = (("paged_decode_int8", "paged_decode") if kv_dtype
+                    else ("paged_decode", "paged_decode_int8"))
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
-                       max_context=1024)
+                       max_context=1024, kv_dtype=kv_dtype)
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator), outside the counted window
     engine.generate([rng.integers(0, 50257, 20).tolist()], max_new_tokens=2)
@@ -534,23 +761,78 @@ def serve():
                for r in reqs), [(r.rid, r.state) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
     layers = cfg.num_hidden_layers
-    assert counts["flash_attention_fwd"] > 0 and counts["paged_decode"] > 0, \
-        counts
-    assert counts["paged_decode"] == layers * st["steps"], (counts, st)
+    assert counts["flash_attention_fwd"] > 0 and counts[paged] > 0, counts
+    assert counts[paged] == layers * st["steps"], (counts, st)
+    assert counts[other] == 0, counts
     assert counts["flash_attention_fwd"] == layers * st["prefills"], \
         (counts, st)
     assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
-    print(f"serve: {len(reqs)} requests, {st['tokens_generated']} tokens "
+    assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
+    print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
           f"in {wall:.3f} s = {st['tokens_generated'] / wall:.1f} tok/s; "
           f"{st['steps']} decode steps, p50 {st['p50_step_ms']:.3f} ms, "
           f"p99 {st['p99_step_ms']:.3f} ms; TTFT p50 "
           f"{st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
           f"{st['evictions']} evictions; occupancy "
           f"{st['occupancy_mean']:.3f}")
-    print("serve: prefill p50 ms by bucket "
+    print(f"{tag}: prefill p50 ms by bucket "
           + json.dumps({str(b): round(v, 3)
                         for b, v in st["prefill_p50_ms"].items()}))
-    print(f"serve: launches {json.dumps(counts)}")
+    print(f"{tag}: launches {json.dumps(counts)}")
+    # after the counted window: 8 requests admitted (with the first decode
+    # step), then 4 decode steps of 8 full slots under the profiler
+    for _ in range(8):
+        engine.add_request(rng.integers(0, 50257, 200).tolist(),
+                           max_new_tokens=16)
+    engine.step()
+    _breakdown(f"{tag} decode", lambda: [engine.step() for _ in range(4)],
+               per=4)
+    engine.run()
+    greedy = [list(r.generated) for r in reqs if r.temperature == 0]
+    return counts, greedy, model
+
+
+def _admitted(model, kv_dtype, num_blocks, n=64, prompt=512):
+    """Streams a pool of `num_blocks` admits at once: requests of a
+    `prompt`-token context, admitted until the scheduler refuses (host-side
+    block accounting)."""
+    engine = LLMEngine(model, max_batch_size=n, block_size=16,
+                       max_context=1024, num_blocks=num_blocks,
+                       kv_dtype=kv_dtype)
+    rng = np.random.default_rng(5)
+    for _ in range(n):
+        engine.add_request(rng.integers(0, 50257, prompt).tolist(),
+                           max_new_tokens=24)
+    admitted = 0
+    while engine.scheduler.try_admit() is not None:
+        admitted += 1
+    assert admitted < n, "the pool never ran dry"
+    return admitted
+
+
+def serve_int8(bf16_greedy):
+    counts, greedy, model = serve(kv_dtype="int8")
+    same = sum(a == b for ga, gb in zip(greedy, bf16_greedy)
+               for a, b in zip(ga, gb))
+    total = sum(len(g) for g in greedy)
+    whole = sum(ga == gb for ga, gb in zip(greedy, bf16_greedy))
+    print(f"serve_int8: greedy tokens equal to the bf16 run's at "
+          f"{same}/{total} positions ({same / total:.4f}); {whole}/"
+          f"{len(greedy)} streams identical throughout (reported, not held)")
+    cfg = model.config
+    head_dim = cfg.hidden_size // cfg.num_attention_heads
+    geom = (cfg.num_hidden_layers, cfg.num_attention_heads, head_dim, 16)
+    # the bf16 engine's pool: its default 1 + 8 slots x 64 blocks
+    nb_bf16 = 1 + 8 * 64
+    pool_bytes = nb_bf16 * pool_bytes_per_block(*geom, torch.bfloat16)
+    nb_int8 = num_blocks_for_bytes(pool_bytes, *geom, torch.int8)
+    n_bf16 = _admitted(model, None, nb_bf16)
+    n_int8 = _admitted(model, "int8", nb_int8)
+    print(f"serve_int8: at {pool_bytes} pool bytes the bf16 pool holds "
+          f"{nb_bf16} blocks and admits {n_bf16} streams of 512 tokens, the "
+          f"int8 pool {nb_int8} blocks and {n_int8} streams "
+          f"({n_int8 / n_bf16:.3f}x; at least {INT8_CAPACITY_MIN}x)")
+    assert n_int8 >= INT8_CAPACITY_MIN * n_bf16, (n_int8, n_bf16)
     return counts
 
 
@@ -558,15 +840,20 @@ def serve():
 # phase 5: card vs CPU parity (fp32)
 # ---------------------------------------------------------------------------
 
-def _greedy(model, device, prompts, new):
+def _greedy(model, device, prompts, new, kv_dtype=None):
     engine = LLMEngine(model, max_batch_size=2, block_size=16,
-                       max_context=64, logprobs_topk=2, device=device)
+                       max_context=64, logprobs_topk=2, device=device,
+                       kv_dtype=kv_dtype)
     reqs = [engine.add_request(p, max_new_tokens=new) for p in prompts]
     engine.run()
     return reqs
 
 
-def parity():
+def parity(kv_dtype=None):
+    """fp32 GPT-2 124M on the card and on the CPU: identical greedy tokens
+    for two prompts whose top-2 margins clear MARGIN_FACTOR x LOGITS_ATOL
+    on the CPU, then (fp pools) the prompts' logits within LOGITS_ATOL.
+    With ``kv_dtype="int8"`` both engines keep int8 pools."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -578,13 +865,19 @@ def parity():
         tried += 1
         assert tried <= 12, "no prompt with clear greedy margins"
         p = rng.integers(0, 50257, 24).tolist()
-        (req,) = _greedy(cpu_model, "cpu", [p], 16)
+        (req,) = _greedy(cpu_model, "cpu", [p], 16, kv_dtype)
         margins = [a[0] - a[1] for a in req.alt_logprobs]
         if min(margins) > MARGIN_FACTOR * LOGITS_ATOL:
             prompts.append((p, req.generated))
-    gpu = _greedy(gpu_model, "cuda", [p for p, _ in prompts], 16)
+    reset_launch_counts()
+    gpu = _greedy(gpu_model, "cuda", [p for p, _ in prompts], 16, kv_dtype)
     for (p, cpu_tokens), r in zip(prompts, gpu):
         assert r.generated == cpu_tokens, (r.generated, cpu_tokens)
+    if kv_dtype:
+        assert launch_counts()["paged_decode_int8"] > 0, launch_counts()
+        print(f"parity int8: 2 prompts x 16 greedy tokens identical on card "
+              f"and CPU with int8 KV pools ({tried} prompts tried)")
+        return
     ids = torch.tensor([p for p, _ in prompts])
     with torch.no_grad():
         lc = cpu_model(ids)
@@ -603,49 +896,52 @@ def parity():
 
 TRAIN_KERNELS = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                  "flash_attention_bwd_dkv": 12, "cross_entropy_fwd": 1,
-                 "cross_entropy_bwd": 1, "paged_decode": 0}
+                 "cross_entropy_bwd": 1, "paged_decode": 0,
+                 "paged_decode_int8": 0, "fused_ln": 0}
 
 
-# kernel-name substrings of each group in the profiled step's breakdown
+# kernel-name substrings of each group in a profiled window's breakdown
 STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
+               ("paged_decode", ("paged_decode_kernel",)),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")))
 
 
-def _step_breakdown(step, ids, labels):
-    """One more training step under torch.profiler: its device time by
-    kernel group and the device's busy share of the step's wall time."""
+def _breakdown(tag, fn, per=1, top=8):
+    """fn() under torch.profiler: device time by kernel group and the
+    device's busy share of the wall time, per one of the `per` steps fn
+    runs."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        step(ids, labels)
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3 / per
     groups, kernels = {}, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = evt.self_device_time_total / 1e3
-        kernels.append((ms, evt.count, evt.key))
+        ms = evt.self_device_time_total / 1e3 / per
+        kernels.append((ms, evt.count / per, evt.key))
         group = next((g for g, pats in STEP_GROUPS
                       if any(pat in evt.key for pat in pats)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(groups.values())
     if device_ms == 0:
-        print("train: the profiler saw no device time; breakdown not "
+        print(f"{tag}: the profiler saw no device time; breakdown not "
               "measured")
         return
-    print(f"train: profiled step {wall_ms:.3f} ms wall, {device_ms:.3f} ms "
+    print(f"{tag}: profiled step {wall_ms:.3f} ms wall, {device_ms:.3f} ms "
           f"device time (busy {device_ms / wall_ms:.3f}); by group "
           + json.dumps({g: round(ms, 3) for g, ms in
                         sorted(groups.items(), key=lambda kv: -kv[1])}))
-    for ms, count, name in sorted(kernels, reverse=True)[:8]:
-        print(f"  {ms:9.3f} ms  {count:5d} x  {name[:100]}")
+    for ms, count, name in sorted(kernels, reverse=True)[:top]:
+        print(f"  {ms:9.3f} ms  {count:7.1f} x  {name[:100]}")
 
 
 def _loss_and_wte_grad(model, crit, ids, labels, fused):
@@ -708,7 +1004,7 @@ def train(batch=8, seq=1024, steps=5):
           f"{max(times):.3f}); {tokens_per_s:.1f} tokens/s; MFU {mfu:.4f} "
           f"({model.flops_per_token(seq)} FLOPs/token vs 989e12 FLOP/s)")
     print(f"train: launches over {steps} steps {json.dumps(counts)}")
-    _step_breakdown(step, ids, labels)
+    _breakdown("train", lambda: step(ids, labels))
     set_flags({"FLAGS_use_fused_cross_entropy": False})
     return counts
 
@@ -769,6 +1065,79 @@ def train_parity():
           f"{TRAIN_PARITY_FLIP_ATOL:g}), {beyond} by more than 1e-6")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fused bias-residual LayerNorm layer at GPT-2 width
+# ---------------------------------------------------------------------------
+
+LN_SHAPE = (8, 1024, 768)
+
+
+def _ln_layer(device, dtype, seed):
+    layer = FusedBiasDropoutResidualLayerNorm(LN_SHAPE[-1], dropout_rate=0.0,
+                                              device=device)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    return layer.to(dtype)
+
+
+def _ln_step(layer, x, res, g):
+    """One forward and backward; returns the output and the gradients of
+    x, residual and the layer's three parameters."""
+    layer.zero_grad(set_to_none=True)
+    x, res = (t.detach().requires_grad_(True) for t in (x, res))
+    out = layer(x, res)
+    out.backward(g)
+    return out.detach(), [x.grad, res.grad] + [p.grad for p in
+                                              layer.parameters()]
+
+
+def fused_ln_phase(iters=10):
+    gen = torch.Generator().manual_seed(7)
+    x, res, g = (torch.randn(LN_SHAPE, generator=gen) for _ in range(3))
+    layer = _ln_layer("cuda", torch.bfloat16, seed=8)
+    args = [t.to("cuda", torch.bfloat16) for t in (x, res, g)]
+    _ln_step(layer, *args)                          # warm-up
+    reset_launch_counts()
+    fwd, step = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xx, rr = (t.detach().requires_grad_(True) for t in args[:2])
+        out = layer(xx, rr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out.backward(args[2])
+        torch.cuda.synchronize()
+        fwd.append((t1 - t0) * 1e3)
+        step.append((time.perf_counter() - t0) * 1e3)
+    counts = launch_counts()
+    assert counts["fused_ln"] == iters, counts
+    assert all(n == 0 for k, n in counts.items() if k != "fused_ln"), counts
+    assert torch.isfinite(out.float()).all() and out.shape == LN_SHAPE
+    assert all(torch.isfinite(p.grad.float()).all()
+               for p in layer.parameters())
+    print(f"fused_ln: FusedBiasDropoutResidualLayerNorm(768) bf16 on "
+          f"{LN_SHAPE}, {iters} iterations: forward p50 "
+          f"{float(np.median(fwd)):.4f} ms, forward + backward p50 "
+          f"{float(np.median(step)):.4f} ms (host clock, synchronized); "
+          f"launches {json.dumps(counts)}")
+    # fp32 on the card (the kernel, then the plain formula's VJP) against
+    # the CPU (twin and the same VJP), from one set of weights and inputs
+    cpu = _ln_layer("cpu", torch.float32, seed=9)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    out_c, grads_c = _ln_step(cpu, x, res, g)
+    out_g, grads_g = _ln_step(gpu, x.cuda(), res.cuda(), g.cuda())
+    torch.cuda.synchronize()
+    _close("fused_ln fp32 card vs CPU out", out_g.cpu(), out_c, LN_GRAD_TOL)
+    for name, a, b in zip(("x", "residual", "linear_bias", "ln_scale",
+                           "ln_bias"), grads_g, grads_c):
+        tol = LN_GRAD_TOL if name in ("x", "residual") else LN_PARAM_GRAD_TOL
+        _close(f"fused_ln fp32 card vs CPU d{name}", a.cpu(), b, tol)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
@@ -783,26 +1152,34 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     print("kernels vs plain twins:")
-    serve_rows = [check_flash(), check_paged()]
-    train_rows = check_flash_bwd() + check_ce()
-    serve_counts = serve()
+    rows = {"serve": [check_flash(), check_paged()],
+            "serve_int8": [check_paged_int8()],
+            "train": check_flash_bwd() + check_ce(),
+            "fused_ln": [check_fused_ln()]}
+    paths = {}
+    paths["serve"], bf16_greedy, _ = serve()
+    paths["serve_int8"] = serve_int8(bf16_greedy)
     parity()
-    train_counts = train()
+    parity(kv_dtype="int8")
+    paths["train"] = train()
     train_parity()
-    # each row's launches come from the path it belongs to: the serving
-    # run for the serving kernels, the measured training steps for the
-    # training kernels; both paths' counts are listed beside
-    for rows, counts in ((serve_rows, serve_counts),
-                         (train_rows, train_counts)):
-        for row in rows:
-            row["launches"] = counts[row["name"]]
-    rows = serve_rows + train_rows
+    paths["fused_ln"] = fused_ln_phase()
+    # each row's launches come from the path it belongs to (the bf16
+    # serving run for flash forward and fp paged decode, the int8 serving
+    # run for int8 paged decode, the measured training steps for the
+    # training kernels, the fused_ln phase for fused_ln); every path's
+    # counts are listed beside
+    for path, path_rows in rows.items():
+        for row in path_rows:
+            row["launches"] = paths[path][row["name"]]
+    rows = [row for path_rows in rows.values() for row in path_rows]
     for row in rows:
-        row["launches_by_path"] = {"serve": serve_counts[row["name"]],
-                                   "train": train_counts[row["name"]]}
+        row["launches_by_path"] = {path: counts[row["name"]]
+                                   for path, counts in paths.items()}
+    assert len(rows) == 8 and all(row["launches"] > 0 for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path", "at_train_shape")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
+            "shape", "launches_by_path", "at_train_shape")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(card)

@@ -5,7 +5,9 @@ the JAX model's ``named_parameters()`` as numpy arrays (for example
 ``{n: np.asarray(p._value) for n, p in jax_model.named_parameters()}``)
 load into the port's module of the same structure. Names match one to one;
 only `nn.Linear` weights change layout (paddle stores ``[in, out]``, torch
-``[out, in]``).
+``[out, in]``). The modules carried so far: `GPTForCausalLM` and
+`incubate.nn.FusedBiasDropoutResidualLayerNorm` (``linear_bias``,
+``ln_scale``, ``ln_bias``).
 """
 from __future__ import annotations
 

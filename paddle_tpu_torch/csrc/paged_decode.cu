@@ -32,9 +32,20 @@
 //   * an inactive slot arrives with lens 0 and a table row of null block 0:
 //     it reads one position of block 0 and writes finite garbage that the
 //     engine never reads.
+//
+// int8 pools (the `quantized=True` branch of `_decode_kernel`,
+// quantization/kv_cache.py): pools are int8 with one fp32 scale per
+// (pool block, head), `scales[num_blocks, H]`. Each lane reads its 8
+// elements as 8 bytes (a 64-wide row is 64 bytes over 8 lanes) and
+// dequantizes them in registers as `k * (scale * (1/127))`, the order the
+// TPU kernel and the plain twin use; the scale is read once per token
+// from `scales[table[p / bs] * H + h]`. Half the bytes of bf16 pools for
+// the same softmax, so the bound halves; everything else is the fp path.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,18 +73,30 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p,
   }
 }
 
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[kVec]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < kVec; ++i) x[i] = static_cast<float>(b[i]);
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename T, int D>
+// T: the type of q and out; P: the pools' type (T, or int8_t with the
+// fp32 scales k_scales / v_scales [num_blocks, H], unused otherwise)
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                    const P* __restrict__ v_pool,
+                    const float* __restrict__ k_scales,
+                    const float* __restrict__ v_scales,
                     const int* __restrict__ tables,
                     const int* __restrict__ lens, T* __restrict__ out,
                     int heads, int max_blocks, int block_size, float scale) {
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   constexpr int kGroup = D / kVec;             // lanes per token
   constexpr int kGroups = kThreads / kGroup;   // tokens per sweep
   __shared__ float m_part[kGroups];
@@ -113,10 +136,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       const int p = base + u * kGroups + g;
       valid[u] = p <= last;
       if (valid[u]) {
-        const int64_t off = table[p / block_size] * blk_stride +
-                            (p % block_size) * tok_stride + head_off;
+        const int blk = table[p / block_size];
+        const int64_t off = blk * blk_stride + (p % block_size) * tok_stride +
+                            head_off;
         load8(k_pool + off, kx[u]);
         load8(v_pool + off, vx[u]);
+        if constexpr (kQuant) {
+          // dequantize in the load: fp K/V exist only in registers
+          const int64_t si = static_cast<int64_t>(blk) * heads + h;
+          const float ks = k_scales[si] * (1.0f / 127.0f);
+          const float vs = v_scales[si] * (1.0f / 127.0f);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            kx[u][e] *= ks;
+            vx[u][e] *= vs;
+          }
+        }
       } else {
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
@@ -181,51 +216,66 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const void* tables, const void* lens, void* out, int slots,
-                   int heads, int max_blocks, int block_size, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid(heads, slots);
-  paged_decode_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<T*>(out), heads, max_blocks,
-      block_size, scale);
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const void* k_scales;
+  const void* v_scales;
+  const void* tables;
+  const void* lens;
+  void* out;
+  int slots, heads, max_blocks, block_size;
+  float scale;
+};
+
+template <typename T, typename P, int D>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const dim3 grid(a.heads, a.slots);
+  paged_decode_kernel<T, P, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const P*>(a.k_pool),
+      static_cast<const P*>(a.v_pool), static_cast<const float*>(a.k_scales),
+      static_cast<const float*>(a.v_scales),
+      static_cast<const int*>(a.tables), static_cast<const int*>(a.lens),
+      static_cast<T*>(a.out), a.heads, a.max_blocks, a.block_size, a.scale);
   return cudaGetLastError();
+}
+
+template <typename T, typename P>
+cudaError_t launch_dim(const Args& a, int head_dim, cudaStream_t stream) {
+  if (head_dim == 64) return launch<T, P, 64>(a, stream);
+  if (head_dim == 128) return launch<T, P, 128>(a, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/out [S, H, D], pools
-// [num_blocks, block_size, H, D], tables [S, M] int32, lens [S] int32 (the
-// effective lengths: 0 for inactive slots). Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16 (q and out). quantized: 0 = pools of
+// q's dtype (scales unused, may be null), 1 = int8 pools with fp32 scales
+// [num_blocks, H]. q/out [S, H, D], pools [num_blocks, block_size, H, D],
+// tables [S, M] int32, lens [S] int32 (the effective lengths: 0 for
+// inactive slots). Returns a cudaError_t.
 extern "C" int paddle_paged_decode(const void* q, const void* k_pool,
-                                   const void* v_pool, const void* tables,
+                                   const void* v_pool, const void* k_scales,
+                                   const void* v_scales, const void* tables,
                                    const void* lens, void* out, int slots,
                                    int heads, int head_dim, int max_blocks,
                                    int block_size, float scale, int dtype,
-                                   void* stream) {
+                                   int quantized, void* stream) {
   if (slots <= 0 || slots > 65535 || heads <= 0 || max_blocks <= 0 ||
-      block_size <= 0) {
+      block_size <= 0 || (quantized && (!k_scales || !v_scales))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const Args a{q,     k_pool, v_pool, k_scales,   v_scales,   tables, lens,
+               out,   slots,  heads,  max_blocks, block_size, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) {
-    err = launch<float, 64>(q, k_pool, v_pool, tables, lens, out, slots,
-                            heads, max_blocks, block_size, scale, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch<float, 128>(q, k_pool, v_pool, tables, lens, out, slots,
-                             heads, max_blocks, block_size, scale, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch<__nv_bfloat16, 64>(q, k_pool, v_pool, tables, lens, out,
-                                    slots, heads, max_blocks, block_size,
-                                    scale, s);
-  } else if (dtype == 1 && head_dim == 128) {
-    err = launch<__nv_bfloat16, 128>(q, k_pool, v_pool, tables, lens, out,
-                                     slots, heads, max_blocks, block_size,
-                                     scale, s);
+  if (dtype == 0) {
+    err = quantized ? launch_dim<float, int8_t>(a, head_dim, s)
+                    : launch_dim<float, float>(a, head_dim, s);
+  } else if (dtype == 1) {
+    err = quantized ? launch_dim<__nv_bfloat16, int8_t>(a, head_dim, s)
+                    : launch_dim<__nv_bfloat16, __nv_bfloat16>(a, head_dim, s);
   }
   return static_cast<int>(err);
 }

@@ -8,7 +8,11 @@ defaults:
   the flash kernels (`nn.functional.scaled_dot_product_attention`);
 - ``FLAGS_use_fused_cross_entropy`` (False): `nn.functional.cross_entropy`
   routes 2-D logits with a vocabulary of at least 8192 through the fused
-  cross-entropy kernels (`kernels.cross_entropy.is_eligible`).
+  cross-entropy kernels (`kernels.cross_entropy.is_eligible`);
+- ``FLAGS_use_fused_layer_norm`` (True): eligible calls of
+  `incubate.nn.functional.fused_bias_dropout_residual_layer_norm` go
+  through the fused bias-residual LayerNorm kernel
+  (`kernels.fused_ln.is_eligible`).
 
 Flags are process-wide, as in the reference. Naming any other flag raises,
 so a setting the port does not read never passes silently.
@@ -21,7 +25,8 @@ __all__ = ["set_flags", "get_flags"]
 
 _lock = threading.Lock()
 _FLAGS = {"FLAGS_use_flash_attention": True,
-          "FLAGS_use_fused_cross_entropy": False}
+          "FLAGS_use_fused_cross_entropy": False,
+          "FLAGS_use_fused_layer_norm": True}
 
 
 def _known(name):

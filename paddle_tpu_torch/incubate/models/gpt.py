@@ -108,17 +108,21 @@ class GPTAttention(nn.Module):
 
     def _paged_decode_step(self, q, k, v, cache, b, n):
         """Single-token attention against the paged block pool: write this
-        step's K/V at each slot's write position (in place), attend over
-        positions <= seq_len through the paged kernel."""
+        step's K/V at each slot's write position (in place; requantizing
+        the write block with int8 pools), attend over positions <= seq_len
+        through the paged kernel."""
         if n != 1:
             raise ValueError(
                 "paged decode is single-token; prefill goes through the "
                 f"dynamic-cache path (got a {n}-token chunk)")
-        out, k_pool, v_pool = F.paged_decode_attention(
+        # int8 KV: the view's scales are written in place with the pools
+        # and handed back out beside them
+        out, *pools = F.paged_decode_attention(
             q, k, v, cache.k_pool, cache.v_pool, cache.block_tables,
-            cache.seq_lens, cache.active, cache.block_size)
+            cache.seq_lens, cache.active, cache.block_size,
+            k_scales=cache.k_scales, v_scales=cache.v_scales)
         out = self.out_proj(out.reshape(b, n, self.hidden_size))
-        return out, cache.updated(k_pool, v_pool)
+        return out, cache.updated(*pools)
 
 
 class GPTMLP(nn.Module):

@@ -1,3 +1,4 @@
 from . import functional  # noqa: F401
+from .fused_transformer import FusedBiasDropoutResidualLayerNorm  # noqa: F401
 
-__all__ = ["functional"]
+__all__ = ["functional", "FusedBiasDropoutResidualLayerNorm"]

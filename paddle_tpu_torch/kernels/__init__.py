@@ -7,12 +7,12 @@ Each kernel module counts its own kernels' launches in a module-level dict
 """
 from __future__ import annotations
 
-from . import cross_entropy, flash_attention, paged_attention
+from . import cross_entropy, flash_attention, fused_ln, paged_attention
 
-__all__ = ["cross_entropy", "flash_attention", "paged_attention",
+__all__ = ["cross_entropy", "flash_attention", "fused_ln", "paged_attention",
            "launch_counts", "reset_launch_counts"]
 
-_MODULES = (flash_attention, paged_attention, cross_entropy)
+_MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln)
 
 
 def launch_counts():

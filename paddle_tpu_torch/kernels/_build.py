@@ -22,7 +22,7 @@ from pathlib import Path
 __all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_decode",
-           "cross_entropy")
+           "cross_entropy", "fused_ln")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

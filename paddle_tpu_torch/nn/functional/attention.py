@@ -16,6 +16,7 @@ from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
                                         FlashAttention)
 from ...kernels.paged_attention import paged_attention
+from ...quantization.kv_cache import dequantize, quantize_block_write
 
 __all__ = ["scaled_dot_product_attention", "paged_decode_attention"]
 
@@ -74,14 +75,21 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 def _dense_gather_attention(qh, k_pool, v_pool, block_tables, lens,
-                            block_size):
+                            block_size, k_scales=None, v_scales=None):
     """The oracle: gather by block table into a dense ``[S, T, H, D]``
-    context, full fp32 softmax; only the output casts back."""
+    context (int8 pools dequantized under their scales), full fp32
+    softmax; only the output casts back."""
     s, h, d = qh.shape
     t_max = block_tables.shape[1] * block_size
     tables = block_tables.long()
-    keys = k_pool[tables].float().reshape(s, t_max, h, d)
-    vals = v_pool[tables].float().reshape(s, t_max, h, d)
+    if k_scales is not None:
+        keys = dequantize(k_pool[tables], k_scales[tables])
+        vals = dequantize(v_pool[tables], v_scales[tables])
+    else:
+        keys = k_pool[tables].float()
+        vals = v_pool[tables].float()
+    keys = keys.reshape(s, t_max, h, d)
+    vals = vals.reshape(s, t_max, h, d)
     scores = torch.einsum("shd,sthd->sht", qh.float(), keys) / math.sqrt(d)
     valid = torch.arange(t_max, device=qh.device)[None, :] \
         <= lens.long()[:, None]
@@ -91,21 +99,26 @@ def _dense_gather_attention(qh, k_pool, v_pool, block_tables, lens,
 
 
 def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
-                           seq_lens, active, block_size):
+                           seq_lens, active, block_size, k_scales=None,
+                           v_scales=None):
     """One decode step of attention against one layer's paged block pool.
 
     q/k_new/v_new: ``[S, 1, H, D]`` this step's projections for every slot.
-    k_pool/v_pool: ``[num_blocks, block_size, H, D]``. block_tables:
+    k_pool/v_pool: ``[num_blocks, block_size, H, D]``, fp or int8 with
+    per-block-per-head `k_scales`/`v_scales` ``[num_blocks, H]``
+    (quantization/kv_cache.py). block_tables:
     ``[S, M]`` int32 dense-prefix tables padded with null block 0.
     seq_lens: ``[S]`` int32 cached tokens per slot; the new token is written
     at position ``seq_lens[s]`` and attended to. active: ``[S]`` bool;
     inactive slots write into null block 0 and their outputs are garbage
     the engine never reads.
 
-    The new K/V are written INTO the pools in place (``index_put_``): the
-    JAX function returns fresh pools, the port edits the engine's pools,
-    which saves a copy of every layer's pool per step. Returns
-    ``(out [S, 1, H, D], k_pool, v_pool)``.
+    The new K/V are written INTO the pools in place (``index_put_``, or
+    `quantize_block_write` for int8 pools, which requantizes the write
+    block and updates its scales in place too): the JAX function returns
+    fresh pools, the port edits the engine's pools, which saves a copy of
+    every layer's pool per step. Returns ``(out [S, 1, H, D], k_pool,
+    v_pool)``, plus ``(k_scales, v_scales)`` with int8 pools.
     """
     s = q.shape[0]
     lens = torch.where(active, seq_lens, torch.zeros_like(seq_lens)) \
@@ -117,9 +130,20 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
     write_block = torch.where(active, block_tables[rows, lens_l // block_size]
                               .long(), torch.zeros_like(lens_l))
     write_off = lens_l % block_size
-    k_pool.index_put_((write_block, write_off), k_new[:, 0].to(k_pool.dtype))
-    v_pool.index_put_((write_block, write_off), v_new[:, 0].to(v_pool.dtype))
+    quantized = k_scales is not None
+    if quantized:
+        quantize_block_write(k_pool, k_scales, k_new[:, 0], write_block,
+                             write_off)
+        quantize_block_write(v_pool, v_scales, v_new[:, 0], write_block,
+                             write_off)
+    else:
+        k_pool.index_put_((write_block, write_off),
+                          k_new[:, 0].to(k_pool.dtype))
+        v_pool.index_put_((write_block, write_off),
+                          v_new[:, 0].to(v_pool.dtype))
     out = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
                           block_tables.to(torch.int32).contiguous(), lens,
-                          block_size)
+                          block_size, k_scales, v_scales)
+    if quantized:
+        return out[:, None], k_pool, v_pool, k_scales, v_scales
     return out[:, None], k_pool, v_pool

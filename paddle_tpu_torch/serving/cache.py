@@ -11,15 +11,18 @@ Block 0 is the reserved null block: inactive slots and padded table
 entries point at it, so gathers and scatters need no branch; its content
 is garbage by design and is always masked out of attention.
 
-The port keeps floating-point pools only; the JAX package's int8 pools
-are not ported yet. The allocator and sizing are copied as they are (pure
-Python).
+``dtype=torch.int8`` is the quantized KV mode (quantization/kv_cache.py):
+int8 pools plus fp32 per-block-per-head scales ``[L, num_blocks, H]``
+(`k_scales` / `v_scales`), one byte per cached element. The allocator and
+sizing are copied as they are (pure Python).
 """
 from __future__ import annotations
 
 from collections import deque
 
 import torch
+
+from ..quantization.kv_cache import quantize_scatter
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView",
            "scatter_prefill", "NULL_BLOCK", "pool_bytes_per_block",
@@ -110,57 +113,79 @@ class PagedCacheView:
     the layer's pools (views into the engine's stacked pools, written in
     place) plus the batch's block tables / lengths / active mask as device
     tensors. `GPTAttention` detects this view by its `block_tables`
-    attribute and routes to the paged decode path."""
+    attribute and routes to the paged decode path. In int8 mode it also
+    carries the layer's scales ``[num_blocks, H]`` (`k_scales` /
+    `v_scales`), written in place with the pools."""
 
     __slots__ = ("k_pool", "v_pool", "block_tables", "seq_lens", "active",
-                 "block_size")
+                 "block_size", "k_scales", "v_scales")
 
     def __init__(self, k_pool, v_pool, block_tables, seq_lens, active,
-                 block_size):
+                 block_size, k_scales=None, v_scales=None):
         self.k_pool = k_pool
         self.v_pool = v_pool
         self.block_tables = block_tables
         self.seq_lens = seq_lens
         self.active = active
         self.block_size = int(block_size)
+        self.k_scales = k_scales
+        self.v_scales = v_scales
 
-    def updated(self, k_pool, v_pool):
+    def updated(self, k_pool, v_pool, k_scales=None, v_scales=None):
         return PagedCacheView(k_pool, v_pool, self.block_tables,
-                              self.seq_lens, self.active, self.block_size)
+                              self.seq_lens, self.active, self.block_size,
+                              k_scales=k_scales, v_scales=v_scales)
 
 
-def _check_fp(dtype):
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            f"paddle_tpu_torch keeps floating-point KV pools only; "
-            f"{dtype} pools (the JAX package's int8 KV) are not ported")
+def is_int8(dtype):
+    """Does `dtype` (``"int8"`` or ``torch.int8``) name the quantized KV
+    mode?"""
+    return dtype in ("int8", torch.int8)
+
+
+def _check_dtype(dtype):
+    if not (is_int8(dtype) or dtype.is_floating_point):
+        raise ValueError(f"KV pools are floating point or int8, got {dtype}")
 
 
 class PagedKVCache:
     """The device pools + the allocator, sized once at engine start.
-    Pools are ``[L, num_blocks, block_size, H, D]`` on `device`."""
+    Pools are ``[L, num_blocks, block_size, H, D]`` on `device`; with
+    ``dtype=torch.int8`` they are int8 and `k_scales` / `v_scales` hold
+    fp32 ``[L, num_blocks, H]`` (else None)."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_blocks,
                  block_size, dtype=torch.float32, device="cpu"):
-        _check_fp(dtype)
+        _check_dtype(dtype)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.num_blocks = int(num_blocks)
         self.block_size = int(block_size)
-        self.dtype = dtype
+        self.quantized = is_int8(dtype)
+        self.dtype = torch.int8 if self.quantized else dtype
         shape = (self.num_layers, self.num_blocks, self.block_size,
                  self.num_heads, self.head_dim)
-        self.k_pools = torch.zeros(shape, dtype=dtype, device=device)
-        self.v_pools = torch.zeros(shape, dtype=dtype, device=device)
+        self.k_pools = torch.zeros(shape, dtype=self.dtype, device=device)
+        self.v_pools = torch.zeros(shape, dtype=self.dtype, device=device)
+        self.k_scales = self.v_scales = None
+        if self.quantized:
+            sshape = (self.num_layers, self.num_blocks, self.num_heads)
+            self.k_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
+            self.v_scales = torch.zeros(sshape, dtype=torch.float32,
+                                        device=device)
         self.allocator = BlockAllocator(self.num_blocks)
 
 
 def pool_bytes_per_block(num_layers, num_heads, head_dim, block_size,
                          dtype=torch.float32):
-    """Device bytes ONE pool block costs across k+v over every layer — the
-    unit of the serving capacity math."""
-    _check_fp(dtype)
+    """Device bytes ONE pool block costs across k+v (and the int8 scales)
+    over every layer — the unit of the serving capacity math."""
+    _check_dtype(dtype)
+    if is_int8(dtype):
+        payload = block_size * num_heads * head_dim         # 1 byte/elem
+        return 2 * num_layers * (payload + num_heads * 4)
     itemsize = torch.empty((), dtype=dtype).element_size()
     return 2 * num_layers * block_size * num_heads * head_dim * itemsize
 
@@ -174,7 +199,7 @@ def num_blocks_for_bytes(budget_bytes, num_layers, num_heads, head_dim,
 
 
 def scatter_prefill(k_pools, v_pools, k_layers, v_layers, block_row,
-                    length, block_size):
+                    length, block_size, k_scales=None, v_scales=None):
     """Bulk-insert a prefilled prompt's K/V into the pools, in place.
 
     k_layers/v_layers: per-layer ``[T_bucket, H, D]`` prompt K/V from the
@@ -182,7 +207,11 @@ def scatter_prefill(k_pools, v_pools, k_layers, v_layers, block_row,
     ``[max_blocks]`` int32 device tensor, the sequence's block table.
     length: true prompt length; padded positions are routed to the null
     block (garbage by construction, never read: attention masks by
-    length). Returns the pools.
+    length). With int8 pools pass the scales ``[L, num_blocks, H]``: each
+    layer's tokens quantize under freshly computed per-block-per-head
+    scales (`quantize_scatter`), and the call returns
+    ``(k_pools, v_pools, k_scales, v_scales)``. Otherwise returns the
+    pools.
     """
     t_bucket = k_layers[0].shape[0]
     pidx = torch.arange(t_bucket, device=k_pools.device)
@@ -190,6 +219,13 @@ def scatter_prefill(k_pools, v_pools, k_layers, v_layers, block_row,
                          block_row.long()[pidx // block_size],
                          torch.full_like(pidx, NULL_BLOCK))
     offs = pidx % block_size
+    if k_scales is not None:
+        for layer, (k, v) in enumerate(zip(k_layers, v_layers)):
+            quantize_scatter(k_pools[layer], k_scales[layer], k, blocks, offs,
+                             block_row, length)
+            quantize_scatter(v_pools[layer], v_scales[layer], v, blocks, offs,
+                             block_row, length)
+        return k_pools, v_pools, k_scales, v_scales
     for layer, (k, v) in enumerate(zip(k_layers, v_layers)):
         k_pools[layer].index_put_((blocks, offs), k.to(k_pools.dtype))
         v_pools[layer].index_put_((blocks, offs), v.to(v_pools.dtype))

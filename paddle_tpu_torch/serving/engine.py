@@ -9,16 +9,19 @@ numpy: the fixed slot layout ``tokens [S]``, ``tables [S, M]``,
 ``lens [S]``, ``active [S]`` and the per-slot sampler config.
 
 The device side runs eagerly on ``device``: the only device state is the
-two pools ``[L, num_blocks, block_size, H, D]``, which every prefill and
-decode step edits in place. A prefill runs the prompt (right-padded to a
-power-of-two bucket) through the model's dynamic-cache path — causal
-attention through the flash kernel — and scatters its K/V into the pools;
+two pools ``[L, num_blocks, block_size, H, D]`` (with ``kv_dtype="int8"``,
+int8 pools and their fp32 scales ``[L, num_blocks, H]``), which every
+prefill and decode step edits in place. A prefill runs the prompt
+(right-padded to a power-of-two bucket) through the model's dynamic-cache
+path — causal attention through the flash kernel — and scatters its K/V
+into the pools (quantizing them with int8 pools);
 a decode step runs one token per slot through the paged path — the paged
 kernel in every layer — and samples the next tokens.
 
 Left out of the port, and refused with NotImplementedError when a
 constructor argument asks for them: tenancy (prefix cache, adapters,
-weight hot-swap), int8 KV, a kernel variant switch and pipelined decode.
+weight hot-swap), a float ``kv_dtype`` other than the model's, a kernel
+variant switch and pipelined decode.
 The hung-step watchdog with its eager fallback, AOT warm start,
 crash-resume and the telemetry plane are not ported either.
 """
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .cache import PagedCacheView, PagedKVCache, scatter_prefill
+from .cache import PagedCacheView, PagedKVCache, is_int8, scatter_prefill
 from .resilience import ServeRefusal
 from .sampling import default_seed, sample_tokens, validate_sampler
 from .scheduler import (Request, Scheduler, RUNNING, FINISHED, FAILED,
@@ -162,7 +165,9 @@ class LLMEngine:
     ``device=None`` means ``cuda`` and raises where there is no card; the
     model's parameters must already live on that device. Greedy decoding
     (temperature 0, the default) is exact; the pools take the model's
-    parameter dtype.
+    parameter dtype, or int8 with ``kv_dtype="int8"`` (or ``torch.int8``):
+    one byte per cached element, dequantized inside the paged kernel, so
+    the same pool bytes admit about twice the streams of bf16.
     """
 
     def __init__(self, model, max_batch_size=8, block_size=16,
@@ -172,8 +177,7 @@ class LLMEngine:
                  attention_kernel=None, enable_prefix_cache=False,
                  max_adapters=0, hot_swap=False, logprobs_topk=0,
                  pipeline_decode=False, device=None):
-        asked = {"kv_dtype": kv_dtype is not None,
-                 "attention_kernel": attention_kernel is not None,
+        asked = {"attention_kernel": attention_kernel is not None,
                  "enable_prefix_cache": bool(enable_prefix_cache),
                  "max_adapters": bool(max_adapters),
                  "hot_swap": bool(hot_swap),
@@ -182,10 +186,16 @@ class LLMEngine:
         if unported:
             raise NotImplementedError(
                 f"paddle_tpu_torch's LLMEngine does not port {unported} "
-                "(int8 KV, kernel variants, tenancy and pipelined decode "
-                "stay in the JAX package for now)")
+                "(kernel variants, tenancy and pipelined decode stay in "
+                "the JAX package for now)")
         device = resolve_device(device)
         param = next(model.parameters())
+        if kv_dtype is not None and not is_int8(kv_dtype) \
+                and kv_dtype != param.dtype:
+            raise NotImplementedError(
+                f"kv_dtype {kv_dtype!r}: the port keeps the pools in the "
+                f"model's dtype ({param.dtype}) or int8; other float pools "
+                "are ROADMAP.md Queue 1 item 3")
         if param.device.type != device.type or (
                 device.index is not None
                 and param.device.index != device.index):
@@ -212,7 +222,9 @@ class LLMEngine:
         self.cache = PagedKVCache(cfg.num_hidden_layers,
                                   cfg.num_attention_heads, head_dim,
                                   num_blocks, self.block_size,
-                                  dtype=param.dtype, device=self.device)
+                                  dtype=(torch.int8 if is_int8(kv_dtype)
+                                         else param.dtype),
+                                  device=self.device)
         self.scheduler = Scheduler(self.max_batch_size,
                                    self.cache.allocator, self.block_size,
                                    watermark_blocks,
@@ -239,6 +251,8 @@ class LLMEngine:
         self._history = np.zeros((s, self.max_context), np.int32)
         self._k_pools = self.cache.k_pools
         self._v_pools = self.cache.v_pools
+        self._k_scales = self.cache.k_scales       # None unless int8 KV
+        self._v_scales = self.cache.v_scales
         self._next_rid = 0
         # rid -> Request: the id registry; terminal handles stay until the
         # caller drains them with pop_finished()
@@ -577,7 +591,8 @@ class LLMEngine:
         scatter_prefill(self._k_pools, self._v_pools,
                         [k[0] for k, _ in caches], [v[0] for _, v in caches],
                         torch.from_numpy(row).to(self.device), length,
-                        self.block_size)
+                        self.block_size, k_scales=self._k_scales,
+                        v_scales=self._v_scales)
         valid = (np.arange(bucket) < length)[None, :]
         return sample_tokens(
             logits[0, length - 1][None, :],
@@ -599,8 +614,11 @@ class LLMEngine:
         tables = torch.from_numpy(self._tables).to(dev)
         lens = torch.from_numpy(self._lens).to(dev)
         active = torch.from_numpy(self._active).to(dev)
+        quant = self._k_scales is not None
         views = [PagedCacheView(self._k_pools[l], self._v_pools[l], tables,
-                                lens, active, self.block_size)
+                                lens, active, self.block_size,
+                                k_scales=self._k_scales[l] if quant else None,
+                                v_scales=self._v_scales[l] if quant else None)
                  for l in range(self._k_pools.shape[0])]
         logits, _ = self._model(tokens[:, None], caches=views)
         # the input token enters the context at index `lens`

@@ -47,5 +47,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.optimizer.optimizers",
                 "paddle_tpu_torch.jit.train_step",
-                "paddle_tpu_torch.convert"}
+                "paddle_tpu_torch.convert",
+                "paddle_tpu_torch.quantization.kv_cache",
+                "paddle_tpu_torch.kernels.fused_ln",
+                "paddle_tpu_torch.incubate.nn.fused_transformer"}
     assert expected <= set(res["imported"])

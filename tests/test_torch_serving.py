@@ -186,7 +186,7 @@ def test_refusals_cancel_expiry_and_tokenizer(models):
     assert set(engine.pop_finished()) == {a.rid, b.rid, c.rid}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_pool_sizing_matches_jax(dtype):
     for budget in (1 << 20, 1 << 30):
         assert pool_bytes_per_block(12, 12, 64, 16, getattr(torch, dtype)) \
@@ -372,7 +372,7 @@ def test_engine_without_device_raises_here(models):
         LLMEngine(models[1])
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
+@pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16),
                                 dict(enable_prefix_cache=True),
                                 dict(max_adapters=2), dict(hot_swap=True),
                                 dict(pipeline_decode=True),
