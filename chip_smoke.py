@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. probe   — a CUDA device must exist; print its name and power limit;
   2. build   — compile every kernel of the serving and training paths with
                nvcc into build/paddle_tpu_torch/ (all sources at once) and
-               print the build time and ptxas' register / spill report;
+               print the build time and ptxas' register / spill report,
+               and the flash forward's count of HGMMA (wgmma) and UTMALDG
+               (TMA load) instructions in its SASS where cuobjdump exists;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
                at its paths' shapes (the flash forward at the serving and
                the training shape) and at ragged ones, batched and not, in
@@ -15,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                below; time
                the kernel, the twin and one PyTorch library call that
                computes the same function (a yardstick the port never
-               calls), beside the least time the card could take;
+               calls), beside the least time the card could take; the
+               bf16 flash forward also at both tile configurations (64
+               and 128 query rows per CTA);
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`: 19 requests (16 greedy, 2 sampled, one
                990-token prompt so the 1024 bucket runs), more requests
@@ -98,6 +102,30 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #         bf16 step, at most 2^-7 of the value (rtol 8e-3); atol 1e-3 only
 #         absorbs values near 0, whose step lies far below it.
 FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
+# flash forward, bf16 (the tensor-core design): the kernel rounds P =
+# exp(S - m) to bf16 and multiplies it on the tensor cores (O += P V) where
+# the twin keeps P in fp32. Each P entry moves by at most 2^-9 of itself
+# and the p_j / l sum to 1, so O moves by at most 2^-9 max|v|; then one bf16
+# rounding of the output (rtol 8e-3, as FLASH_TOL). atol is twice that
+# bound, 2^-8 max|v| of the case. A loose atol could hide a systematic
+# error, so the relative Frobenius error is held as well: on random data
+# the two roundings give about 2e-3 (each about 2^-9 / sqrt(3) rms); 4e-3.
+# fp32 inputs keep FLASH_TOL's (1e-4, 1e-4): that kernel rounds nothing
+# to bf16. This constant is the forward's alone.
+FLASH_FWD_BF16_ATOL_PER_V = 2.0 ** -8
+FLASH_FWD_BF16_RTOL = 8e-3
+FLASH_FWD_BF16_FRO_RTOL = 4e-3
+# The bf16 flash forward before the tensor-core design (PR 3's fp32-FMA
+# kernel): device ms per launch at the two main-path shapes, runs 2 / 3 / 4
+# of PR 3 (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W). Written in,
+# not measured again.
+FLASH_FWD_PREV_MS = {"serve (1, 1024, 12, 64)": [0.3275, 0.3262, 0.3279],
+                     "train (8, 1024, 12, 64)": [1.2638, 1.2653, 1.2724],
+                     "source": "PERF.md section 6, chip_smoke.py runs 2-4 of "
+                               "PR 3, NVIDIA H100 80GB HBM3, 700 W"}
+# the training step's flash_attention_fwd group then (PR 3 run 3, the same
+# card): device ms per step
+TRAIN_FWD_GROUP_PREV_MS = 15.175
 PAGED_TOL = FLASH_TOL
 # int8 pools: kernel and twin dequantize the same int8 levels under the
 # same scales in fp32 (q * (scale * (1/127)), one rounding each), so the
@@ -164,6 +192,23 @@ MARGIN_FACTOR = 4
 HEADS, HEAD_DIM = 12, 64
 
 
+def _sass_counts(name, ops):
+    """Count the SASS lines of library `name` that hold each instruction in
+    `ops`, to show what the binary runs on; each must be there. Prints "not
+    available" where the toolkit has no cuobjdump."""
+    tool = _build.toolkit_tool("cuobjdump")
+    if tool is None:
+        print(f"build: SASS of {name}: not available (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    counts = {op: sum(op in line for line in sass) for op in ops}
+    print(f"build: SASS of {name}: " + ", ".join(
+        f"{n} lines with {op}" for op, n in counts.items()))
+    assert all(counts.values()), counts
+
+
 def _card():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -227,6 +272,21 @@ def _bound_ms(nbytes, flops, dtype):
                                        else "operations")
 
 
+def flash_fwd_tol(v):
+    """(atol, rtol) of the flash forward against its fp32 twin, for inputs
+    of v's type (see FLASH_FWD_BF16_ATOL_PER_V)."""
+    if v.dtype == torch.bfloat16:
+        return (FLASH_FWD_BF16_ATOL_PER_V * float(v.float().abs().max()),
+                FLASH_FWD_BF16_RTOL)
+    return FLASH_TOL[v.dtype]
+
+
+def rel_fro(got, want):
+    """||got - want||_F / ||want||_F, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
 def _close(name, got, want, tol):
     atol, rtol = tol
     err = (got.float() - want.float()).abs().max().item()
@@ -249,18 +309,50 @@ def _fused_qkv(n, dtype, seed, heads=HEADS, head_dim=HEAD_DIM, batch=1):
     return qkv.unbind(2)
 
 
-def _check_flash_case(tag, q, k, v, causal):
-    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+def _check_flash_case(tag, q, k, v, causal, block_q=None):
+    """The forward (at `block_q` query rows per CTA, or the wrapper's
+    choice) against its twin: out within `flash_fwd_tol`, in bf16 also
+    within FLASH_FWD_BF16_FRO_RTOL, lse within LSE_TOL."""
+    if block_q is None:
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    else:
+        out, lse = fa.launch_flash_attention_fwd(q, k, v, causal, None,
+                                                 block_q)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
     torch.cuda.synchronize()
-    err = _close(tag + " out", out, ref, FLASH_TOL[q.dtype])
+    err = _close(tag + " out", out, ref, flash_fwd_tol(v))
+    if q.dtype == torch.bfloat16:
+        fro = rel_fro(out, ref)
+        print(f"  {tag} out: relative Frobenius error {fro:.3e} (at most "
+              f"{FLASH_FWD_BF16_FRO_RTOL})")
+        assert fro <= FLASH_FWD_BF16_FRO_RTOL, (tag, fro)
     _close(tag + " lse", lse, ref_lse, LSE_TOL)
     return err
 
 
+def _offset_qkv(n, seed, heads=HEADS, head_dim=HEAD_DIM):
+    """q, k, v as views of one bf16 buffer whose rows are 3 * H * D + 16
+    elements: q at offset 0, k at H * D + 8 and v at 2 * H * D + 16
+    elements, so k and v start 16-byte aligned but off the buffer's own
+    alignment."""
+    width = heads * head_dim
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    buf = torch.randn((1, n, 3 * width + 16), generator=g,
+                      device="cuda").to(torch.bfloat16)
+    return tuple(buf[..., off:off + width].view(1, n, heads, head_dim)
+                 for off in (0, width + 8, 2 * width + 16))
+
+
+def _flash_flops(b, n):
+    """4 * D FLOPs per unmasked (query, key) pair, causal, H heads."""
+    return 4 * b * HEADS * HEAD_DIM * (n * (n + 1) // 2)
+
+
 def _time_flash(q, k, v, err):
-    """The forward's numbers at one causal bf16 shape: kernel, twin and
-    SDPA times, and its bound."""
+    """The forward's numbers at one causal bf16 shape: kernel (the
+    wrapper's tile choice), twin and SDPA times, its bound and achieved
+    TFLOP/s, and the kernel at each tile configuration (timed in turns:
+    64, 128, 128, 64)."""
     b, n = q.shape[:2]
     ms, host_ms = _timed(lambda: fa.flash_attention_fwd(q, k, v, True))
     plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, True),
@@ -269,14 +361,19 @@ def _time_flash(q, k, v, err):
     library_ms = _cuda_ms(lambda: torch.nn.functional
                           .scaled_dot_product_attention(qt, kt, vt,
                                                         is_causal=True))
+    tile_ms = {str(bq): [] for bq in fa.BLOCK_Q}
+    for bq in fa.BLOCK_Q + fa.BLOCK_Q[::-1]:
+        tile_ms[str(bq)].append(_cuda_ms(
+            lambda: fa.launch_flash_attention_fwd(q, k, v, True, None, bq)))
     elem = q.element_size()
     nbytes = b * (4 * n * HEADS * HEAD_DIM * elem + HEADS * n * 4)
-    pairs = n * (n + 1) // 2
-    flops = 4 * b * HEADS * HEAD_DIM * pairs
+    flops = _flash_flops(b, n)
     bound, by = _bound_ms(nbytes, flops, q.dtype)
     return {"max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+            "block_q": fa.choose_block_q(b, n, HEADS), "tile_ms": tile_ms,
             "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
 
 
@@ -306,14 +403,31 @@ def check_flash():
         _, k, v = _fused_qkv(100, dtype, seed=9)
         _check_flash_case(f"flash {name} n=40 m=100 causal=False", q, k, v,
                           False)
+    dtype = torch.bfloat16
+    # bf16 tile edges and a length that is no power of two: TMA's zero
+    # fill past n and the diagonal mask at every offset within a tile
+    for n in (8, 64, 65, 1000):
+        for causal in (True, False):
+            _check_flash_case(f"flash bfloat16 n={n} causal={causal}",
+                              *_fused_qkv(n, dtype, seed=30 + n), causal)
+    # k and v at 16-byte aligned, non-zero offsets into a wider buffer
+    _check_flash_case("flash bfloat16 n=200 causal=True k, v offset views",
+                      *_offset_qkv(200, seed=31), True)
+    # both tile configurations at both main-path shapes, before timing them
+    for bq in fa.BLOCK_Q:
+        for b in (1, 8):
+            _check_flash_case(f"flash bfloat16 ({b}, 1024, {HEADS}, "
+                              f"{HEAD_DIM}) causal=True block_q={bq}",
+                              *_fused_qkv(1024, dtype, seed=11, batch=b),
+                              True, block_q=bq)
     # main-path shapes, bf16 causal: the serving path's 1024 prefill bucket
     # (the row's numbers) and the training path's batch of 8 x 1024
     # (`at_train_shape`)
-    dtype = torch.bfloat16
     row = _time_flash(*_fused_qkv(1024, dtype, seed=1024),
                       errs[dtype, 1024, True])
     row["at_train_shape"] = _time_flash(
         *_fused_qkv(1024, dtype, seed=11, batch=8), errs[dtype, "train"])
+    row["prev_design_ms"] = FLASH_FWD_PREV_MS
     return {"name": "flash_attention_fwd", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
             "replaces": "paddle_tpu/kernels/flash_attention.py:90 _fwd_kernel",
@@ -913,7 +1027,8 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
 def _breakdown(tag, fn, per=1, top=8):
     """fn() under torch.profiler: device time by kernel group and the
     device's busy share of the wall time, per one of the `per` steps fn
-    runs."""
+    runs. Returns the groups' ms per step (None where the profiler saw no
+    device time)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -935,13 +1050,14 @@ def _breakdown(tag, fn, per=1, top=8):
     if device_ms == 0:
         print(f"{tag}: the profiler saw no device time; breakdown not "
               "measured")
-        return
+        return None
     print(f"{tag}: profiled step {wall_ms:.3f} ms wall, {device_ms:.3f} ms "
           f"device time (busy {device_ms / wall_ms:.3f}); by group "
           + json.dumps({g: round(ms, 3) for g, ms in
                         sorted(groups.items(), key=lambda kv: -kv[1])}))
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms  {count:7.1f} x  {name[:100]}")
+    return groups
 
 
 def _loss_and_wte_grad(model, crit, ids, labels, fused):
@@ -1004,7 +1120,12 @@ def train(batch=8, seq=1024, steps=5):
           f"{max(times):.3f}); {tokens_per_s:.1f} tokens/s; MFU {mfu:.4f} "
           f"({model.flops_per_token(seq)} FLOPs/token vs 989e12 FLOP/s)")
     print(f"train: launches over {steps} steps {json.dumps(counts)}")
-    _breakdown("train", lambda: step(ids, labels))
+    groups = _breakdown("train", lambda: step(ids, labels))
+    if groups:
+        print(f"train: flash_attention_fwd group "
+              f"{groups.get('flash_attention_fwd', 0.0):.3f} ms device time "
+              f"per step (PR 3's fp32-FMA forward: {TRAIN_FWD_GROUP_PREV_MS} "
+              "ms, PR 3 run 3)")
     set_flags({"FLAGS_use_fused_cross_entropy": False})
     return counts
 
@@ -1151,6 +1272,7 @@ def main():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
     print("kernels vs plain twins:")
     rows = {"serve": [check_flash(), check_paged()],
             "serve_int8": [check_paged_int8()],
@@ -1179,7 +1301,8 @@ def main():
     assert len(rows) == 8 and all(row["launches"] > 0 for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
-            "shape", "launches_by_path", "at_train_shape")
+            "shape", "launches_by_path", "tflops", "block_q", "tile_ms",
+            "at_train_shape", "prev_design_ms")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(card)

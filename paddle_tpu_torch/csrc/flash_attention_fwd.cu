@@ -1,42 +1,73 @@
-// FlashAttention-2 forward for Hopper (sm_90a), plain C interface for ctypes.
+// FlashAttention forward for Hopper (sm_90a), plain C interface for ctypes.
 //
 // Replaces: paddle_tpu/kernels/flash_attention.py `_fwd_kernel` (driven by
-// `_flash_fwd`), the Pallas TPU kernel behind F.scaled_dot_product_attention.
-// Computes O = softmax(scale * Q K^T [top-left causal mask]) V and the fp32
-// per-row logsumexp over q, k, v laid out [B, N, H, D] (any strides with a
-// contiguous last dim, so the q/k/v slices of the fused qkv projection are
-// read in place), O written contiguous [B, N, H, D] in the input type, lse
-// [B*H, N] fp32.
+// `_flash_fwd`, `pallas_call` at :163), the Pallas TPU kernel behind
+// F.scaled_dot_product_attention. Computes O = softmax(scale * Q K^T
+// [top-left causal mask]) V and the fp32 natural-log logsumexp per row over
+// q, k, v laid out [B, N, H, D] (any strides with a contiguous last dim, so
+// the q/k/v slices of the fused qkv projection are read in place); O is
+// written contiguous [B, N, H, D] in the input type, lse [B*H, N] fp32 (the
+// backward kernels read it).
 //
-// What bounds it on an H100: at the serving prefill shape (B=1, N<=1024,
-// H=12, D=64, bf16) the work is ~1.6 GFLOP and ~6 MB, a couple of
-// microseconds at the card's peaks, so the kernel is bound by launch
-// latency and by how well 12 heads x N/64 tiles fill 132 SMs. This first
-// version does its products in fp32 FMA (no wgmma/TMA): the design keeps
-// every tile product in shared memory and registers so nothing of size
-// N x N reaches device memory, and leaves the tensor-core path to a later
-// change.
+// What bounds it on an H100: each input read once and each output written
+// once is 15.1 MB at the training shape (B=8, N=1024, H=12, D=64, bf16,
+// causal: 0.01514 ms at 3.35 TB/s) and 1.9 MB at the serving prefill shape
+// (B=1: 0.00189 ms); the 4*D FLOPs per unmasked (query, key) pair are 12.9
+// and 1.6 GFLOP, 0.013 and 0.0016 ms at the 989 TFLOP/s bf16 tensor-core
+// peak. So both products have to run on the tensor cores, and the kernel
+// has to keep them fed: the serving shape is 12 heads x 16 tiles of 64 rows,
+// barely more tiles than the card has SMs, so each tile's latency counts.
 //
-// Design:
-//   * one thread block per (b*h, 64-row q tile): blocks carry nothing
-//     across each other, so the TPU's sequential grid over k blocks
-//     becomes a loop inside the block;
-//   * 4 threads per q row (256 threads); each owns a quarter of the head
-//     dimension (interleaved float4 chunks) of q and of the fp32
-//     accumulator, and a 2-step shuffle sums the partial dot products;
-//   * K/V stream through shared memory in 32-key tiles, converted to fp32
-//     once on load; a tile's scores stay in registers; the running max,
-//     sum and accumulator are fp32 and rescaled once per tile;
-//   * top-left causal: the key loop stops at the tile's last row, and
-//     keys past a row's position get probability exactly 0;
-//   * ragged edges (N, M not multiples of 64/32) are masked here: rows past
-//     N are computed but never stored, keys past M are zero-filled and
-//     masked.
+// Design of the bf16 kernel (`flash_fwd_kernel_wgmma`):
+//   * one CTA per ((b, h), 64 or 128 query rows): one or two consumer
+//     warpgroups of 64 rows each, plus one producer warp. The q-tile index
+//     runs in reverse of blockIdx.y, which varies slowest, so the causal
+//     triangle's longest tiles start first;
+//   * the producer issues TMA loads (cp.async.bulk.tensor, 4-D tensor maps
+//     [D, H, N, B] built per call from the caller's strides, 128-byte
+//     swizzle, 64 x 64 boxes): Q once, then K and V tiles of 64 keys into a
+//     two-stage ring guarded by full and empty mbarriers. TMA zero-fills
+//     rows past N or M, so ragged prefill buckets need no masked loads;
+//   * S = Q K^T is wgmma m64n64k16 from shared memory (both operands
+//     K-major), fp32 accumulate. The online softmax runs on the accumulator
+//     registers in the log2 domain (scale * log2 e folded into S, exp2f),
+//     row max and sum over the 4 lanes that share a row. P is rounded to
+//     bf16 in registers and is the register A operand of O += P V (wgmma
+//     m64n{D}k16, V MN-major in shared memory, transpose bit set), so the
+//     score tile never leaves registers;
+//   * causal: a consumer stops at its diagonal tile and masks only that
+//     tile (and the tile holding key M-1); masked keys get probability
+//     exactly 0, never exp(-inf - -inf);
+//   * epilogue: O / l rounded to bf16, stored for rows < N as bf16 pairs;
+//     lse = m * ln 2 + ln l.
+// What the design leaves for later: the next tile's S is not issued while
+// this tile's softmax runs (no ping-pong between warpgroups or within one),
+// and O is stored with 4-byte stores rather than through shared memory.
+//
+// fp32 inputs keep the first design (`flash_fwd_kernel`, fp32 FMA on the
+// CUDA cores, K/V staged in shared memory as fp32): the fp32 checks on the
+// card (greedy parity and training parity against the CPU, the backward's
+// fp32 cases) need products rounded nowhere but in fp32, which bf16
+// tensor-core operands would not give.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32: one thread block per (b*h, 64-row q tile), fp32 FMA
+// ---------------------------------------------------------------------------
+//   * 4 threads per q row (256 threads); each owns a quarter of the head
+//     dimension (interleaved float4 chunks) of q and of the fp32
+//     accumulator, and a 2-step shuffle sums the partial dot products;
+//   * K/V stream through shared memory in 32-key tiles; a tile's scores
+//     stay in registers; the running max, sum and accumulator are rescaled
+//     once per tile;
+//   * top-left causal: the key loop stops at the tile's last row, and keys
+//     past a row's position get probability exactly 0; rows past N are
+//     computed but never stored, keys past M are zero-filled and masked.
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 32;
@@ -44,19 +75,10 @@ constexpr int kLanes = 4;
 constexpr int kThreads = kBlockQ * kLanes;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T, int D, bool kCausal>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int n, int m, int heads,
                  int64_t q_sb, int64_t q_sn, int64_t q_sh,
                  int64_t k_sb, int64_t k_sn, int64_t k_sh,
@@ -75,9 +97,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + row;
   const bool row_valid = qi < n;
 
-  const T* q_row = q + b * q_sb + h * q_sh + static_cast<int64_t>(qi) * q_sn;
-  const T* k_base = k + b * k_sb + h * k_sh;
-  const T* v_base = v + b * v_sb + h * v_sh;
+  const float* q_row =
+      q + b * q_sb + h * q_sh + static_cast<int64_t>(qi) * q_sn;
+  const float* k_base = k + b * k_sb + h * k_sh;
+  const float* v_base = v + b * v_sb + h * v_sh;
 
   // chunk c of this thread covers dims 4 * (lane + kLanes * c) .. +3
   float4 q_reg[kChunks];
@@ -86,10 +109,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < kChunks; ++c) {
     const int d = 4 * (lane + kLanes * c);
     if (row_valid) {
-      q_reg[c] = make_float4(to_float(q_row[d]) * scale,
-                             to_float(q_row[d + 1]) * scale,
-                             to_float(q_row[d + 2]) * scale,
-                             to_float(q_row[d + 3]) * scale);
+      q_reg[c] = make_float4(q_row[d] * scale, q_row[d + 1] * scale,
+                             q_row[d + 2] * scale, q_row[d + 3] * scale);
     } else {
       q_reg[c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
@@ -108,8 +129,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + j;
       float kx = 0.f, vx = 0.f;
       if (kj < m) {
-        kx = to_float(k_base[static_cast<int64_t>(kj) * k_sn + d]);
-        vx = to_float(v_base[static_cast<int64_t>(kj) * v_sn + d]);
+        kx = k_base[static_cast<int64_t>(kj) * k_sn + d];
+        vx = v_base[static_cast<int64_t>(kj) * v_sn + d];
       }
       k_tile[j][d] = kx;
       v_tile[j][d] = vx;
@@ -167,14 +188,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (row_valid) {
     const float l_safe = fmaxf(l_run, 1e-30f);
-    T* o_row = o + ((static_cast<int64_t>(b) * n + qi) * heads + h) * D;
+    float* o_row = o + ((static_cast<int64_t>(b) * n + qi) * heads + h) * D;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
       const int d = 4 * (lane + kLanes * c);
-      store(o_row + d, acc[c].x / l_safe);
-      store(o_row + d + 1, acc[c].y / l_safe);
-      store(o_row + d + 2, acc[c].z / l_safe);
-      store(o_row + d + 3, acc[c].w / l_safe);
+      o_row[d] = acc[c].x / l_safe;
+      o_row[d + 1] = acc[c].y / l_safe;
+      o_row[d + 2] = acc[c].z / l_safe;
+      o_row[d + 3] = acc[c].w / l_safe;
     }
     if (lane == 0) {
       lse[static_cast<int64_t>(bh) * n + qi] = m_run + logf(l_safe);
@@ -182,59 +203,552 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int batch, int n, int m, int heads,
-                   const int64_t* st, float scale, int causal,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int batch, int n, int m, int heads,
+                        const int64_t* st, float scale, int causal,
+                        cudaStream_t stream) {
   const dim3 grid((n + kBlockQ - 1) / kBlockQ, batch * heads);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* op = static_cast<float*>(o);
   float* lp = static_cast<float*>(lse);
   if (causal) {
-    flash_fwd_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
+    flash_fwd_kernel<D, true><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, op, lp, n, m, heads, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], scale);
   } else {
-    flash_fwd_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
+    flash_fwd_kernel<D, false><<<grid, kThreads, 0, stream>>>(
         qp, kp, vp, op, lp, n, m, heads, st[0], st[1], st[2], st[3], st[4],
         st[5], st[6], st[7], st[8], scale);
   }
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: wgmma products fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;        // q rows per consumer warpgroup = keys per tile
+constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzle line
+constexpr int kStages = 2;       // K/V ring depth
+constexpr uint32_t kPanelBytes = kRows * kPanel * 2;   // 8 KB, one TMA box
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of one CTA. Every tile is a stack of 64-column panels of
+// 64 rows x 128 B, written by TMA in the 128-byte swizzle: the layout the
+// wgmma descriptors below name. Panels start on 1 KB boundaries (the
+// swizzle repeats every 8 rows = 1 KB).
+template <int D, int kConsumers>
+struct __align__(1024) FwdSmem {
+  static constexpr int kPanels = D / kPanel;
+  __nv_bfloat16 q[kConsumers][kPanels][kRows * kPanel];
+  __nv_bfloat16 k[kStages][kPanels][kRows * kPanel];
+  __nv_bfloat16 v[kStages][kPanels][kRows * kPanel];
+  uint64_t q_full;
+  uint64_t k_full[kStages];
+  uint64_t v_full[kStages];
+  uint64_t empty[kStages];
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+// one arrival that also tells the barrier how many bytes TMA will bring
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the barrier's phase `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of `map` into shared memory,
+// completing `bytes` of the barrier's expected transaction count
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in
+// bytes: `lbo` the stride between 64-column blocks along M/N (MN-major
+// operands only), `sbo` the stride between 8-row groups.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// after wgmma_wait_all: registers an asynchronous wgmma wrote are read only
+// from here on (the compiler may not hoist their uses above the wait)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d (+)= A B, 64 x 64 x 16: A and B from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d += A B, 64 x N x 16: A (4 registers of bf16 pairs) from registers, B
+// from shared memory, MN-major (transposed)
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    static_assert(N == 128, "head_dim 64 or 128");
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D, bool kCausal, int kConsumers>
+__global__ void __launch_bounds__(128 * kConsumers + 32,
+                                  kConsumers == 1 ? 2 : 1)
+flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int n, int m, int heads,
+                       float scale_log2) {
+  using Smem = FwdSmem<D, kConsumers>;
+  constexpr int kPanels = Smem::kPanels;
+  constexpr uint32_t kTileBytes = kPanels * kPanelBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // heaviest causal tiles first: blockIdx.y varies slowest
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * (kRows * kConsumers);
+  // warpgroups with at least one row < n; the others only exit
+  const int active = min(kConsumers, (n - q0 + kRows - 1) / kRows);
+  const int kv_end = kCausal ? min(m, q0 + kRows * active) : m;
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.empty[s], 4 * active);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {
+    // producer warp: one lane issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(&sm.q_full, active * kTileBytes);
+      for (int c = 0; c < active; ++c) {
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sm.q[c][p], &q_map, &sm.q_full, p * kPanel, h,
+                   q0 + c * kRows, b);
+        }
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) {
+          // the consumers have released the tile this stage held
+          mbar_wait(&sm.empty[s], ((j / kStages) + 1) & 1);
+        }
+        mbar_expect_tx(&sm.k_full[s], kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sm.k[s][p], &k_map, &sm.k_full[s], p * kPanel, h,
+                   j * kRows, b);
+        }
+        mbar_expect_tx(&sm.v_full[s], kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sm.v[s][p], &v_map, &sm.v_full[s], p * kPanel, h,
+                   j * kRows, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: q rows r_base .. r_base + 63
+  const int wg = warp / 4;
+  const int r_base = q0 + wg * kRows;
+  if (wg >= active) return;
+  // this thread's two rows in the wgmma accumulator layout: row0, row0 + 8
+  const int row0 = r_base + 16 * (warp % 4) + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  // tiles this warpgroup needs; with two warpgroups under a causal mask the
+  // first needs one tile fewer than the CTA loads. It never releases that
+  // last tile, which is fine: the producer waits on no release of a CTA's
+  // last tile.
+  const int need =
+      kCausal ? (min(m, r_base + kRows) + kRows - 1) / kRows : n_tiles;
+
+  float o_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  // running max (log2 domain, scaled) and this thread's partial sum, rows
+  // row0 and row0 + 8
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = smem_u32(sm.q[wg][0]);
+  mbar_wait(&sm.q_full, 0);
+
+  for (int j = 0; j < need; ++j) {
+    const int s = j % kStages;
+    const uint32_t parity = (j / kStages) & 1;
+
+    // S = Q K^T over D in steps of 16: +32 B within a panel, next panel
+    // every 4 steps
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    mbar_wait(&sm.k_full[s], parity);
+    const uint32_t k_addr = smem_u32(sm.k[s][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss_n64(sc, smem_desc(q_addr + off, 16, 1024),
+                   smem_desc(k_addr + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2), key
+    // j * 64 + 8 * (i / 4) + col0 + i % 2
+    const int key0 = j * kRows;
+    const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > r_base);
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float t = sc[i] * scale_log2;
+      if (edge) {
+        const int row = row0 + 8 * ((i / 2) % 2);
+        const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
+        if (key >= m || (kCausal && key > row)) t = -INFINITY;
+      }
+      sc[i] = t;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], t);
+    }
+    float base[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // the 4 lanes of a row are adjacent
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // a row with no unmasked key yet keeps p = 0 and alpha = 0 without
+      // evaluating -inf - -inf
+      base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
+      alpha[r] = exp2f(m_run[r] - base[r]);
+      m_run[r] = mx[r];
+    }
+    float rs[2] = {0.f, 0.f};
+    uint32_t pa[16];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int r = (i / 2) % 2;
+      const float p0 = exp2f(sc[i] - base[r]);      // masked: exp2(-inf) = 0
+      const float p1 = exp2f(sc[i + 1] - base[r]);
+      rs[r] += p0 + p1;
+      pa[i / 2] = pack_bf16(p0, p1);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+
+    // O += P V over the tile's 64 keys in steps of 16 (2 KB of V rows):
+    // P's registers for keys 16 kk .. 16 kk + 15 are pa[4 kk .. 4 kk + 3],
+    // the wgmma A-fragment layout
+    mbar_wait(&sm.v_full[s], parity);
+    const uint32_t v_addr = smem_u32(sm.v[s][0]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      wgmma_rs<D>(o_acc, a, smem_desc(v_addr + kk * 2048, kPanelBytes, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o_acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+  // epilogue: rows row0 and row0 + 8, columns 8 jj + col0, + 1
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = row0 + 8 * r;
+    if (row >= n) continue;
+    const float l_safe = fmaxf(l, 1e-30f);
+    const float inv = 1.f / l_safe;
+    __nv_bfloat16* o_row =
+        o + ((static_cast<int64_t>(b) * n + row) * heads + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * jj + col0) =
+          __floats2bfloat162_rn(o_acc[4 * jj + 2 * r] * inv,
+                                o_acc[4 * jj + 2 * r + 1] * inv);
+    }
+    if (lane % 4 == 0) {
+      lse[static_cast<int64_t>(bh) * n + row] = m_run[r] * kLn2 + logf(l_safe);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against libcuda
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// Error codes of the bf16 entry beyond cudaError_t's range.
+constexpr int kErrNoEncoder = 100000;       // no cuTensorMapEncodeTiled
+constexpr int kErrEncode = 200000;          // + CUresult of a failed encode
+
+// A 4-D map [D, H, rows, B] (innermost first) over bf16 data at `ptr`, with
+// the caller's element strides (batch, seq, head): 64 x 1 x 64 x 1 boxes,
+// 128-byte swizzle, zero fill out of bounds.
+int encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int rows,
+               int batch, int64_t s_b, int64_t s_n, int64_t s_h) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(s_h) * 2,
+                                 static_cast<cuuint64_t>(s_n) * 2,
+                                 static_cast<cuuint64_t>(s_b) * 2};
+  const cuuint32_t box[4] = {kPanel, 1, kRows, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                          const_cast<void*>(ptr), dims, strides, box,
+                          elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                          CU_TENSOR_MAP_SWIZZLE_128B,
+                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
+}
+
+template <int D, bool kCausal, int kConsumers>
+cudaError_t launch_wgmma_kernel(const CUtensorMap* maps, void* o, void* lse,
+                                int batch, int n, int m, int heads,
+                                float scale, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(FwdSmem<D, kConsumers>)) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel_wgmma<D, kCausal, kConsumers>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int rows = kRows * kConsumers;
+  const dim3 grid(batch * heads, (n + rows - 1) / rows);
+  flash_fwd_kernel_wgmma<D, kCausal, kConsumers>
+      <<<grid, 128 * kConsumers + 32, smem, stream>>>(
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), n, m, heads, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(const CUtensorMap* maps, void* o, void* lse,
+                         int batch, int n, int m, int heads, float scale,
+                         int causal, int block_q, cudaStream_t stream) {
+  if (block_q == 64) {
+    return causal ? launch_wgmma_kernel<D, true, 1>(maps, o, lse, batch, n, m,
+                                                    heads, scale, stream)
+                  : launch_wgmma_kernel<D, false, 1>(maps, o, lse, batch, n,
+                                                     m, heads, scale, stream);
+  }
+  if (block_q == 128) {
+    return causal ? launch_wgmma_kernel<D, true, 2>(maps, o, lse, batch, n, m,
+                                                    heads, scale, stream)
+                  : launch_wgmma_kernel<D, false, 2>(maps, o, lse, batch, n,
+                                                     m, heads, scale, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
-// (q: batch, seq, head), (k: ...), (v: ...). Returns a cudaError_t.
+// dtype: 0 = float32 (fp32 FMA kernel), 1 = bfloat16 (wgmma + TMA kernel,
+// `block_q` = 64 or 128 query rows per CTA; bf16 strides must be multiples
+// of 8 elements and the bases 16-byte aligned, which the caller checks).
+// Strides are in elements, in the order (q: batch, seq, head), (k: ...),
+// (v: ...). Returns a cudaError_t, or for bf16 100000 when the driver has
+// no cuTensorMapEncodeTiled and 200000 + its CUresult when an encode fails.
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n, int m, int heads, int head_dim,
     long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
-    float scale, int causal, int dtype, void* stream) {
+    float scale, int causal, int dtype, int block_q, void* stream) {
   if (n <= 0 || m <= 0 || batch <= 0 || heads <= 0 ||
       batch * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) {
-    err = launch<float, 64>(q, k, v, o, lse, batch, n, m, heads, st, scale,
+  if (dtype == 0) {
+    const int64_t st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
+                           v_sb, v_sn, v_sh};
+    cudaError_t err = cudaErrorInvalidValue;
+    if (head_dim == 64) {
+      err = launch_fp32<64>(q, k, v, o, lse, batch, n, m, heads, st, scale,
                             causal, s);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch<float, 128>(q, k, v, o, lse, batch, n, m, heads, st, scale,
+    } else if (head_dim == 128) {
+      err = launch_fp32<128>(q, k, v, o, lse, batch, n, m, heads, st, scale,
                              causal, s);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch<__nv_bfloat16, 64>(q, k, v, o, lse, batch, n, m, heads, st,
-                                    scale, causal, s);
-  } else if (dtype == 1 && head_dim == 128) {
-    err = launch<__nv_bfloat16, 128>(q, k, v, o, lse, batch, n, m, heads, st,
-                                     scale, causal, s);
+    }
+    return static_cast<int>(err);
   }
-  return static_cast<int>(err);
+  if (dtype != 1 || (head_dim != 64 && head_dim != 128)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  CUtensorMap maps[3];
+  int err = encode_map(&maps[0], q, head_dim, heads, n, batch, q_sb, q_sn,
+                       q_sh);
+  if (err == 0) {
+    err = encode_map(&maps[1], k, head_dim, heads, m, batch, k_sb, k_sn, k_sh);
+  }
+  if (err == 0) {
+    err = encode_map(&maps[2], v, head_dim, heads, m, batch, v_sb, v_sn, v_sh);
+  }
+  if (err != 0) return err;
+  const cudaError_t launched =
+      head_dim == 64
+          ? launch_wgmma<64>(maps, o, lse, batch, n, m, heads, scale, causal,
+                             block_q, s)
+          : launch_wgmma<128>(maps, o, lse, batch, n, m, heads, scale, causal,
+                              block_q, s);
+  return static_cast<int>(launched);
 }

@@ -19,7 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "BUILD_DIR", "build_all", "load"]
+__all__ = ["SOURCES", "BUILD_DIR", "build_all", "lib_path", "load",
+           "toolkit_tool"]
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_decode",
            "cross_entropy", "fused_ln")
@@ -48,11 +49,26 @@ def _nvcc():
                        "to build the paddle_tpu_torch kernels")
 
 
+def toolkit_tool(tool):
+    """Path of another program of nvcc's toolkit (``cuobjdump``, say), or
+    None where the toolkit has none."""
+    try:
+        found = Path(_nvcc()).parent / tool
+    except RuntimeError:
+        return None
+    return str(found) if found.exists() else shutil.which(tool)
+
+
 def _lib_path(name, extra):
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(_FLAGS + extra).encode()).hexdigest()
     return src, BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def lib_path(name):
+    """Where the library built from source `name` lives (or will)."""
+    return _lib_path(name, ())[1]
 
 
 def build_all(names=SOURCES, ptxas_info=False):

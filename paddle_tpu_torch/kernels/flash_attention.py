@@ -8,7 +8,10 @@ v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
 
 - `flash_attention_fwd` returns ``(out, lse)``. On CUDA tensors it launches
   ``csrc/flash_attention_fwd.cu`` (or raises on what that kernel does not
-  take); on CPU tensors it runs `flash_attention_reference`.
+  take); on CPU tensors it runs `flash_attention_reference`. bf16 inputs
+  go to the tensor-core kernel (wgmma products, TMA loads), which needs
+  16-byte aligned bases and strides (`_tma_compatible`); fp32 inputs go to
+  the fp32 FMA kernel, which keeps every product in fp32.
 - `flash_attention_bwd` returns ``(dq, dk, dv)`` from the forward's out and
   lse: Delta = rowsum(O * dO) (`flash_attention_delta`, a plain torch
   reduction on both devices, as the JAX `_flash_bwd` computes it outside
@@ -36,6 +39,7 @@ from ..device import require_hopper
 from . import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
+           "launch_flash_attention_fwd", "choose_block_q", "BLOCK_Q",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -52,8 +56,18 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 9
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
+# query rows per CTA of the bf16 forward kernel: one or two consumer
+# warpgroups of 64 rows
+BLOCK_Q = (64, 128)
+# TMA's limits on a tensor map: a 16-byte aligned base, byte strides that
+# are multiples of 16 and below 2**40
+_TMA_ALIGN = 16
+_TMA_MAX_STRIDE = 1 << 40
+# the bf16 kernel's error codes beyond cudaError_t
+_ERR_NO_ENCODER = 100000
+_ERR_ENCODE = 200000
 
 
 def _check(q, k, v, causal):
@@ -111,17 +125,88 @@ def flash_attention_reference(q, k, v, causal, scale=None):
     return out.contiguous(), lse.reshape(b * h, n)
 
 
+def _tma_compatible(t, name):
+    """None when TMA can read `t` as a ``[B, N, H, D]`` operand of the bf16
+    forward kernel; else why not, naming the tensor `name`. TMA needs a
+    16-byte aligned base and byte strides that are multiples of 16 (so a
+    multiple of 8 bf16 elements), each below 2**40; a size-1 dimension's
+    stride is never used. The fused-qkv views of the model qualify: a row
+    stride of 3 * hidden elements, k and v offset by hidden and 2 * hidden."""
+    if t.stride(-1) != 1:
+        return f"{name}: the head dimension must be contiguous (stride " \
+               f"{t.stride(-1)})"
+    if t.data_ptr() % _TMA_ALIGN:
+        return (f"{name}: base address {t.data_ptr():#x} (storage offset "
+                f"{t.storage_offset()} elements) is not {_TMA_ALIGN}-byte "
+                "aligned")
+    for dim, label in enumerate(("batch", "sequence", "head")):
+        stride = t.stride(dim) * t.element_size()
+        if t.shape[dim] == 1:
+            continue
+        if stride <= 0 or stride % _TMA_ALIGN or stride >= _TMA_MAX_STRIDE:
+            return (f"{name}: {label} stride {t.stride(dim)} elements "
+                    f"({stride} B) is not a positive multiple of "
+                    f"{_TMA_ALIGN} bytes below 2**40")
+    return None
+
+
+def _tma_strides(t):
+    """`t`'s (batch, seq, head) element strides for its tensor map, with
+    the stride of a size-1 dimension (never used, but checked by the
+    driver) replaced by the extent of the dimensions inside it."""
+    strides = []
+    inner = t.shape[-1]
+    for dim in (2, 1, 0):
+        stride = t.stride(dim)
+        if t.shape[dim] == 1:
+            stride = -(-inner // 8) * 8
+        strides.append(stride)
+        inner = max(inner, stride * t.shape[dim])
+    return strides[::-1]
+
+
+def choose_block_q(batch, n, heads):
+    """Query rows per CTA of the bf16 forward: 128 (two consumer
+    warpgroups sharing each K/V tile) once the grid of 128-row CTAs covers
+    the card twice, else 64 (twice the CTAs, to fill the SMs at small
+    batch)."""
+    tiles = batch * heads * -(-n // BLOCK_Q[1])
+    return BLOCK_Q[1] if tiles >= 2 * 132 else BLOCK_Q[0]
+
+
 def flash_attention_fwd(q, k, v, causal, scale=None):
-    """FlashAttention-2 forward over ``[B, N, H, D]`` q, k, v. Returns
+    """FlashAttention forward over ``[B, N, H, D]`` q, k, v. Returns
     ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
+    b, n, h, _ = q.shape
+    return launch_flash_attention_fwd(q, k, v, causal, scale,
+                                      choose_block_q(b, n, h))
+
+
+def launch_flash_attention_fwd(q, k, v, causal, scale=None, block_q=64):
+    """The forward kernel on CUDA tensors, with `block_q` (one of
+    `BLOCK_Q`) query rows per CTA for bf16 inputs; fp32 inputs take the
+    fp32 kernel, which ignores it. `flash_attention_fwd` picks `block_q`
+    by shape."""
     _check(q, k, v, causal)
     _check_kernel_inputs(q, k, v)
+    if block_q not in BLOCK_Q:
+        raise ValueError(f"block_q must be one of {BLOCK_Q}, got {block_q}")
     b, n, h, d = q.shape
     m = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            why = _tma_compatible(t, name)
+            if why is not None:
+                raise ValueError("flash forward: the bf16 kernel loads "
+                                 f"through TMA and cannot read {why}")
+        strides = [s for t in (q, k, v) for s in _tma_strides(t)]
+    else:
+        strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
     lib = _build.load("flash_attention_fwd")
     fn = lib.paddle_flash_attention_fwd
     fn.argtypes = _FWD_ARGTYPES
@@ -132,13 +217,15 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                  ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                 ctypes.c_void_p(lse.data_ptr()), b, n, m, h, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 float(scale), int(bool(causal)),
-                 0 if q.dtype == torch.float32 else 1,
+                 ctypes.c_void_p(lse.data_ptr()), b, n, m, h, d, *strides,
+                 float(scale), int(bool(causal)), int(bf16), block_q,
                  ctypes.c_void_p(stream))
+    if err >= _ERR_ENCODE:
+        raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "
+                           f"failed with CUresult {err - _ERR_ENCODE}")
+    if err == _ERR_NO_ENCODER:
+        raise RuntimeError("flash_attention_fwd: the CUDA driver offers no "
+                           "cuTensorMapEncodeTiled")
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     launches["flash_attention_fwd"] += 1

@@ -10,6 +10,14 @@ to both.
 Tolerance: 2e-5 absolute and relative on O and lse, fp32 — the two sides
 sum the same products in different orders (blockwise online softmax vs one
 dense softmax), which moves the last few bits only.
+
+The bf16 kernel on the card rounds P to bf16 before O += P V on the tensor
+cores; `chip_smoke.py` holds it to its twin under the forward's own bf16
+criteria (`flash_fwd_tol`, `FLASH_FWD_BF16_FRO_RTOL`). The tests below
+emulate that rounding in plain torch and show the criteria pass with margin
+against the JAX package, and fail when P is rounded coarser. The kernel
+loads through TMA, whose alignment rule `_tma_compatible` states; it is
+tested here on CPU tensors.
 """
 from __future__ import annotations
 
@@ -24,8 +32,11 @@ import jax.numpy as jnp
 from paddle_tpu.kernels import flash_attention as jfa
 from paddle_tpu.nn.functional.attention import _plain_attention
 
+from paddle_tpu_torch.incubate.models import GPTForCausalLM, gpt2_124m
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+
+import chip_smoke
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -103,3 +114,119 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
         tfa.flash_attention_fwd(q, k[:, :4], v[:, :4], True)
     with pytest.raises(ValueError, match="mismatched"):
         tfa.flash_attention_fwd(q, k[..., :32], v, False)
+
+
+def _round_bf16(p):
+    return p.to(torch.bfloat16).float()
+
+
+def _round_e4m3_like(p):
+    """p with 3 mantissa bits kept (truncated), as an fp8 e4m3 value keeps;
+    no exponent limit (only the mantissa's coarseness matters here)."""
+    mant, exp = torch.frexp(p)                  # mant in [0.5, 1)
+    return torch.ldexp(torch.floor(mant * 16) / 16, exp)
+
+
+def _tensor_core_forward(q, k, v, causal, scale, round_p):
+    """The bf16 kernel's arithmetic in plain torch: fp32 S from bf16 q, k;
+    p = exp(s - rowmax) and l = sum p in fp32; O = round_p(p) @ v / l,
+    rounded to bf16 once."""
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    s = (qt @ kt.transpose(-1, -2)) * scale
+    if causal:
+        n, m = s.shape[-2:]
+        keep = torch.ones(n, m, dtype=torch.bool).tril()
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))   # masked: exactly 0
+    out = (round_p(p) @ vt) / p.sum(-1, keepdim=True)
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def _bf16_criteria(out, ref, v):
+    """The forward's two bf16 criteria as ratios to their limits (<= 1
+    passes): max over elements of |out - ref| / (atol + rtol |ref|), and
+    the relative Frobenius error over FLASH_FWD_BF16_FRO_RTOL."""
+    atol, rtol = chip_smoke.flash_fwd_tol(v)
+    excess = ((out.float() - ref.float()).abs()
+              / (atol + rtol * ref.float().abs())).max().item()
+    return excess, (chip_smoke.rel_fro(out, ref)
+                    / chip_smoke.FLASH_FWD_BF16_FRO_RTOL)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [8, 40, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_tolerance_bites_on_p_rounding(n, d, causal):
+    """P rounded to bf16 (the kernel's design) passes both criteria with
+    margin against the JAX package's fp32 attention on the same
+    bf16-representable inputs. P rounded to 3 mantissa bits fails the
+    Frobenius criterion everywhere, and the max-abs one where causal rows
+    sit on few keys; non-causal rows over many keys average its error
+    below the max-abs limit, which is why the Frobenius check is there."""
+    b, h = 1, 2
+    rng = np.random.default_rng(100 + n + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = (jnp.asarray(t.float().numpy()) for t in (q, k, v))
+    if n % 128 == 0:
+        ref, _ = jfa._flash_fwd(jq, jk, jv, causal, scale, block_q=128,
+                                block_k=128, interpret=True)
+    else:
+        ref = _plain_attention(jq, jk, jv, None, causal, scale)
+    ref = torch.from_numpy(np.array(ref, dtype=np.float32))
+    good = _tensor_core_forward(q, k, v, causal, scale, _round_bf16)
+    coarse = _tensor_core_forward(q, k, v, causal, scale, _round_e4m3_like)
+    excess, fro = _bf16_criteria(good, ref, v)
+    assert excess <= 0.5 and fro <= 0.75, (excess, fro)
+    excess, fro = _bf16_criteria(coarse, ref, v)
+    assert fro > 1 and (excess > 1 or not causal), (excess, fro)
+
+
+def _bf16_buffer(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_tma_rule_accepts_the_models_fused_qkv_views():
+    """GPT-2's attention hands the kernel q, k, v as views of the fused
+    projection [B, N, 3, 12, 64]: row stride 3 * 768 elements (4608 B), k
+    and v at 1536 and 3072 B. All three pass, at batch 1 and 2."""
+    cfg = gpt2_124m()
+    heads = cfg.num_attention_heads
+    head_dim = cfg.hidden_size // heads
+    for batch in (1, 2):
+        qkv = _bf16_buffer(batch, 24, 3, heads, head_dim)
+        for name, t in zip("qkv", qkv.unbind(2)):
+            assert tfa._tma_compatible(t, name) is None
+            strides = tfa._tma_strides(t)
+            assert all(s > 0 and s % 8 == 0 for s in strides), strides
+    model = GPTForCausalLM(gpt2_124m(num_hidden_layers=1), device="cpu")
+    x = torch.zeros((2, 16, cfg.hidden_size))
+    proj = model.gpt.h[0].attn.qkv_proj(x).to(torch.bfloat16)
+    for name, t in zip("qkv", proj.view(2, 16, 3, heads, head_dim)
+                       .unbind(2)):
+        assert tfa._tma_compatible(t, name) is None
+
+
+def test_tma_rule_rejects_misaligned_views_naming_the_tensor():
+    width = 12 * 64
+    # a view 2 bytes past a 16-byte boundary
+    buf = _bf16_buffer(1, 16, 3 * width + 8)
+    k = buf[..., 1:1 + width].view(1, 16, 12, 64)
+    why = tfa._tma_compatible(k, "k")
+    assert why is not None and why.startswith("k:") and "aligned" in why
+    # rows 3 * width + 4 elements apart: not a multiple of 8 bf16
+    buf = _bf16_buffer(1, 16, 3 * width + 4)
+    v = buf[..., width:2 * width].view(1, 16, 12, 64)
+    why = tfa._tma_compatible(v, "v")
+    assert why is not None and why.startswith("v:") and "sequence" in why
+    # a size-1 dimension's stride is never used, so it never disqualifies
+    q = buf[:, :1, :width].view(1, 1, 12, 64)
+    assert tfa._tma_compatible(q, "q") is None
+    assert tfa._tma_strides(q)[1] % 8 == 0
+
+
+def test_block_q_choice_is_a_tile_configuration():
+    for b, n in ((1, 8), (1, 1024), (8, 1024), (64, 4096)):
+        assert tfa.choose_block_q(b, n, 12) in tfa.BLOCK_Q
