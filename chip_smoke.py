@@ -373,7 +373,7 @@ def _time_flash(q, k, v, err):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms,
             "tflops": flops / (ms * 1e-3) / 1e12,
-            "block_q": fa.choose_block_q(b, n, HEADS), "tile_ms": tile_ms,
+            "block_q": fa.BLOCK_Q[0], "tile_ms": tile_ms,
             "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
 
 

@@ -26,23 +26,26 @@
 //   * the producer issues TMA loads (cp.async.bulk.tensor, 4-D tensor maps
 //     [D, H, N, B] built per call from the caller's strides, 128-byte
 //     swizzle, 64 x 64 boxes): Q once, then K and V tiles of 64 keys into a
-//     two-stage ring guarded by full and empty mbarriers. TMA zero-fills
+//     four-stage ring guarded by full and empty mbarriers. TMA zero-fills
 //     rows past N or M, so ragged prefill buckets need no masked loads;
 //   * S = Q K^T is wgmma m64n64k16 from shared memory (both operands
 //     K-major), fp32 accumulate. The online softmax runs on the accumulator
-//     registers in the log2 domain (scale * log2 e folded into S, exp2f),
+//     registers in the log2 domain (scale * log2 e folded into S, ex2),
 //     row max and sum over the 4 lanes that share a row. P is rounded to
 //     bf16 in registers and is the register A operand of O += P V (wgmma
 //     m64n{D}k16, V MN-major in shared memory, transpose bit set), so the
 //     score tile never leaves registers;
+//   * each warpgroup pipelines its own tiles: S_j is issued together with
+//     P_{j-1} V_{j-1}, and tile j's softmax runs while that product is on
+//     the tensor cores; O is rescaled for tile j after it lands;
 //   * causal: a consumer stops at its diagonal tile and masks only that
 //     tile (and the tile holding key M-1); masked keys get probability
 //     exactly 0, never exp(-inf - -inf);
 //   * epilogue: O / l rounded to bf16, stored for rows < N as bf16 pairs;
 //     lse = m * ln 2 + ln l.
-// What the design leaves for later: the next tile's S is not issued while
-// this tile's softmax runs (no ping-pong between warpgroups or within one),
-// and O is stored with 4-byte stores rather than through shared memory.
+// What the design leaves for later: no ping-pong between two consumer
+// warpgroups (one's softmax under the other's products), and O is stored
+// with 4-byte stores rather than through shared memory and TMA.
 //
 // fp32 inputs keep the first design (`flash_fwd_kernel`, fp32 FMA on the
 // CUDA cores, K/V staged in shared memory as fp32): the fp32 checks on the
@@ -232,7 +235,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
 
 constexpr int kRows = 64;        // q rows per consumer warpgroup = keys per tile
 constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzle line
-constexpr int kStages = 2;       // K/V ring depth
+constexpr int kStages = 4;       // K/V ring depth
 constexpr uint32_t kPanelBytes = kRows * kPanel * 2;   // 8 KB, one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -316,11 +319,13 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N committed wgmma groups are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
-// after wgmma_wait_all: registers an asynchronous wgmma wrote are read only
+// after wgmma_wait: registers an asynchronous wgmma wrote are read only
 // from here on (the compiler may not hoist their uses above the wait)
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
@@ -390,6 +395,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
   }
+}
+
+// 2^x in one MUFU.EX2 (exp2f adds range and denormal fix-ups); 2^-inf = 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -492,34 +504,52 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   // row0 and row0 + 8
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
+  float sc[32];        // S of the newest tile, then its P in fp32
+  uint32_t pa[16];     // P of the tile whose P V is next, bf16 pairs
 
   const uint32_t q_addr = smem_u32(sm.q[wg][0]);
-  mbar_wait(&sm.q_full, 0);
 
-  for (int j = 0; j < need; ++j) {
-    const int s = j % kStages;
-    const uint32_t parity = (j / kStages) & 1;
-
-    // S = Q K^T over D in steps of 16: +32 B within a panel, next panel
-    // every 4 steps
-    float sc[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
-    mbar_wait(&sm.k_full[s], parity);
-    const uint32_t k_addr = smem_u32(sm.k[s][0]);
-    wgmma_fence();
+  // tile j's K, or V, has landed. Waited for before wgmma_fence: a spin
+  // loop between the fence and the wgmmas makes ptxas serialize them.
+  auto wait_k = [&](int j) {
+    mbar_wait(&sm.k_full[j % kStages], (j / kStages) & 1);
+  };
+  auto wait_v = [&](int j) {
+    mbar_wait(&sm.v_full[j % kStages], (j / kStages) & 1);
+  };
+  // S_j = Q K_j^T over D in steps of 16: +32 B within a panel, next panel
+  // every 4 steps (issued, not committed)
+  auto issue_s = [&](int j) {
+    const uint32_t k_addr = smem_u32(sm.k[j % kStages][0]);
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
       wgmma_ss_n64(sc, smem_desc(q_addr + off, 16, 1024),
                    smem_desc(k_addr + off, 16, 1024), kk > 0);
     }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(sc);
-
-    // accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2), key
-    // j * 64 + 8 * (i / 4) + col0 + i % 2
+  };
+  // O += P_j V_j over the tile's 64 keys in steps of 16 (2 KB of V rows):
+  // P's registers for keys 16 kk .. 16 kk + 15 are pa[4 kk .. 4 kk + 3],
+  // the wgmma A-fragment layout (issued, not committed)
+  auto issue_pv = [&](int j) {
+    const uint32_t v_addr = smem_u32(sm.v[j % kStages][0]);
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                             pa[4 * kk + 3]};
+      wgmma_rs<D>(o_acc, a, smem_desc(v_addr + kk * 2048, kPanelBytes, 1024));
+    }
+  };
+  // tile j's K and V may be overwritten
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
+  };
+  // online softmax of tile j on sc, in place: sc becomes P (fp32), the
+  // running max and sums move on; returns the factor O must be rescaled by
+  // in alpha. Accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2),
+  // key j * 64 + 8 * (i / 4) + col0 + i % 2.
+  auto softmax = [&](int j, float (&alpha)[2]) {
     const int key0 = j * kRows;
     const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > r_base);
     float mx[2] = {m_run[0], m_run[1]};
@@ -534,7 +564,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       sc[i] = t;
       mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], t);
     }
-    float base[2], alpha[2];
+    float base[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       // the 4 lanes of a row are adjacent
@@ -543,42 +573,66 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       // a row with no unmasked key yet keeps p = 0 and alpha = 0 without
       // evaluating -inf - -inf
       base[r] = mx[r] == -INFINITY ? 0.f : mx[r];
-      alpha[r] = exp2f(m_run[r] - base[r]);
+      alpha[r] = ex2(m_run[r] - base[r]);
       m_run[r] = mx[r];
     }
     float rs[2] = {0.f, 0.f};
-    uint32_t pa[16];
 #pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int r = (i / 2) % 2;
-      const float p0 = exp2f(sc[i] - base[r]);      // masked: exp2(-inf) = 0
-      const float p1 = exp2f(sc[i + 1] - base[r]);
-      rs[r] += p0 + p1;
-      pa[i / 2] = pack_bf16(p0, p1);
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = ex2(sc[i] - base[(i / 2) % 2]);   // masked: 2^-inf = 0
+      rs[(i / 2) % 2] += sc[i];
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+  };
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+  };
+
+  // Software pipeline within the warpgroup: S_j is issued together with
+  // P_{j-1} V_{j-1}, and tile j's softmax runs while that product is still
+  // on the tensor cores. Only then is O rescaled for tile j.
+  float alpha[2];
+  mbar_wait(&sm.q_full, 0);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  wait_k(0);
+  wgmma_fence();
+  issue_s(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax(0, alpha);
+  pack_p();
+  for (int j = 1; j < need; ++j) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wait_k(j);
+    wait_v(j - 1);
+    wgmma_fence();
+    issue_s(j);
+    wgmma_commit();
+    issue_pv(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();           // S_j is in; P_{j-1} V_{j-1} may still run
+    fence_regs(sc);
+    softmax(j, alpha);
+    wgmma_wait<0>();
+    fence_regs(o_acc);
+    fence_regs(sc);            // pa is rewritten only after the wait
+    release(j - 1);
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
-
-    // O += P V over the tile's 64 keys in steps of 16 (2 KB of V rows):
-    // P's registers for keys 16 kk .. 16 kk + 15 are pa[4 kk .. 4 kk + 3],
-    // the wgmma A-fragment layout
-    mbar_wait(&sm.v_full[s], parity);
-    const uint32_t v_addr = smem_u32(sm.v[s][0]);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kRows / 16; ++kk) {
-      const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                             pa[4 * kk + 3]};
-      wgmma_rs<D>(o_acc, a, smem_desc(v_addr + kk * 2048, kPanelBytes, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o_acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&sm.empty[s]);
+    pack_p();
   }
+  wait_v(need - 1);
+  wgmma_fence();
+  issue_pv(need - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o_acc);
+  release(need - 1);
 
   // epilogue: rows row0 and row0 + 8, columns 8 jj + col0, + 1
 #pragma unroll

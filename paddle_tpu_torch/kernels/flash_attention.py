@@ -39,7 +39,7 @@ from ..device import require_hopper
 from . import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
-           "launch_flash_attention_fwd", "choose_block_q", "BLOCK_Q",
+           "launch_flash_attention_fwd", "BLOCK_Q",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -59,7 +59,9 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
 # query rows per CTA of the bf16 forward kernel: one or two consumer
-# warpgroups of 64 rows
+# warpgroups of 64 rows. The first is faster at both main-path shapes
+# (PERF.md section 6), so `flash_attention_fwd` always takes it;
+# chip_smoke.py times both.
 BLOCK_Q = (64, 128)
 # TMA's limits on a tensor map: a 16-byte aligned base, byte strides that
 # are multiples of 16 and below 2**40
@@ -165,30 +167,19 @@ def _tma_strides(t):
     return strides[::-1]
 
 
-def choose_block_q(batch, n, heads):
-    """Query rows per CTA of the bf16 forward: 128 (two consumer
-    warpgroups sharing each K/V tile) once the grid of 128-row CTAs covers
-    the card twice, else 64 (twice the CTAs, to fill the SMs at small
-    batch)."""
-    tiles = batch * heads * -(-n // BLOCK_Q[1])
-    return BLOCK_Q[1] if tiles >= 2 * 132 else BLOCK_Q[0]
-
-
 def flash_attention_fwd(q, k, v, causal, scale=None):
     """FlashAttention forward over ``[B, N, H, D]`` q, k, v. Returns
     ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
-    b, n, h, _ = q.shape
-    return launch_flash_attention_fwd(q, k, v, causal, scale,
-                                      choose_block_q(b, n, h))
+    return launch_flash_attention_fwd(q, k, v, causal, scale)
 
 
-def launch_flash_attention_fwd(q, k, v, causal, scale=None, block_q=64):
+def launch_flash_attention_fwd(q, k, v, causal, scale=None,
+                               block_q=BLOCK_Q[0]):
     """The forward kernel on CUDA tensors, with `block_q` (one of
     `BLOCK_Q`) query rows per CTA for bf16 inputs; fp32 inputs take the
-    fp32 kernel, which ignores it. `flash_attention_fwd` picks `block_q`
-    by shape."""
+    fp32 kernel, which ignores it."""
     _check(q, k, v, causal)
     _check_kernel_inputs(q, k, v)
     if block_q not in BLOCK_Q:

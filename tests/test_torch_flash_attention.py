@@ -225,8 +225,3 @@ def test_tma_rule_rejects_misaligned_views_naming_the_tensor():
     q = buf[:, :1, :width].view(1, 1, 12, 64)
     assert tfa._tma_compatible(q, "q") is None
     assert tfa._tma_strides(q)[1] % 8 == 0
-
-
-def test_block_q_choice_is_a_tile_configuration():
-    for b, n in ((1, 8), (1, 1024), (8, 1024), (64, 4096)):
-        assert tfa.choose_block_q(b, n, 12) in tfa.BLOCK_Q
