@@ -154,7 +154,7 @@ def _tma_compatible(t, name):
 
 def _tma_strides(t):
     """`t`'s (batch, seq, head) element strides for its tensor map, with
-    the stride of a size-1 dimension (never used, but checked by the
+    the stride of a size-1 dimension (never used, but checked by the CUDA
     driver) replaced by the extent of the dimensions inside it."""
     strides = []
     inner = t.shape[-1]
