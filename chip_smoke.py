@@ -115,16 +115,17 @@ FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
 FLASH_FWD_BF16_ATOL_PER_V = 2.0 ** -8
 FLASH_FWD_BF16_RTOL = 8e-3
 FLASH_FWD_BF16_FRO_RTOL = 4e-3
-# The bf16 flash forward before the tensor-core design (PR 3's fp32-FMA
-# kernel): device ms per launch at the two main-path shapes, runs 2 / 3 / 4
-# of PR 3 (PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W). Written in,
-# not measured again.
+# The bf16 flash forward before the tensor-core design (the fp32-FMA
+# kernel of commit b9d5dfc): device ms per launch at the two main-path
+# shapes in three runs of this script (PERF.md section 6, row #1's figures
+# in brackets; NVIDIA H100 80GB HBM3, 700 W). Written in, not measured
+# again.
 FLASH_FWD_PREV_MS = {"serve (1, 1024, 12, 64)": [0.3275, 0.3262, 0.3279],
                      "train (8, 1024, 12, 64)": [1.2638, 1.2653, 1.2724],
-                     "source": "PERF.md section 6, chip_smoke.py runs 2-4 of "
-                               "PR 3, NVIDIA H100 80GB HBM3, 700 W"}
-# the training step's flash_attention_fwd group then (PR 3 run 3, the same
-# card): device ms per step
+                     "source": "fp32-FMA forward of commit b9d5dfc, PERF.md "
+                               "section 6, NVIDIA H100 80GB HBM3, 700 W"}
+# the training step's flash_attention_fwd group with that kernel (PERF.md
+# section 5, the same card): device ms per step
 TRAIN_FWD_GROUP_PREV_MS = 15.175
 PAGED_TOL = FLASH_TOL
 # int8 pools: kernel and twin dequantize the same int8 levels under the
@@ -1124,8 +1125,8 @@ def train(batch=8, seq=1024, steps=5):
     if groups:
         print(f"train: flash_attention_fwd group "
               f"{groups.get('flash_attention_fwd', 0.0):.3f} ms device time "
-              f"per step (PR 3's fp32-FMA forward: {TRAIN_FWD_GROUP_PREV_MS} "
-              "ms, PR 3 run 3)")
+              f"per step (the fp32-FMA forward of commit b9d5dfc: "
+              f"{TRAIN_FWD_GROUP_PREV_MS} ms)")
     set_flags({"FLAGS_use_fused_cross_entropy": False})
     return counts
 

@@ -233,7 +233,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
 // bf16: wgmma products fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;        // q rows per consumer warpgroup = keys per tile
+constexpr int kRows = 64;        // q rows per warpgroup, and keys per tile
 constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzle line
 constexpr int kStages = 4;       // K/V ring depth
 constexpr uint32_t kPanelBytes = kRows * kPanel * 2;   // 8 KB, one TMA box
@@ -758,8 +758,9 @@ cudaError_t launch_wgmma(const CUtensorMap* maps, void* o, void* lse,
 // `block_q` = 64 or 128 query rows per CTA; bf16 strides must be multiples
 // of 8 elements and the bases 16-byte aligned, which the caller checks).
 // Strides are in elements, in the order (q: batch, seq, head), (k: ...),
-// (v: ...). Returns a cudaError_t, or for bf16 100000 when the driver has
-// no cuTensorMapEncodeTiled and 200000 + its CUresult when an encode fails.
+// (v: ...). Returns a cudaError_t; for bf16 also 100000 when the CUDA
+// driver has no cuTensorMapEncodeTiled, and 200000 + its CUresult when an
+// encode fails.
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n, int m, int heads, int head_dim,
