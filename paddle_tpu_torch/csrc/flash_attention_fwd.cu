@@ -19,10 +19,11 @@
 // barely more tiles than the card has SMs, so each tile's latency counts.
 //
 // Design of the bf16 kernel (`flash_fwd_kernel_wgmma`):
-//   * one CTA per ((b, h), 64 or 128 query rows): one or two consumer
-//     warpgroups of 64 rows each, plus one producer warp. The q-tile index
-//     runs in reverse of blockIdx.y, which varies slowest, so the causal
-//     triangle's longest tiles start first;
+//   * one CTA per ((b, h), 64 query rows): one consumer warpgroup and one
+//     producer warp (two consumer warpgroups, 128 rows, were slower at both
+//     main-path shapes; PERF.md section 6). The q-tile index runs in
+//     reverse of blockIdx.y, which varies slowest, so the causal triangle's
+//     longest tiles start first;
 //   * the producer issues TMA loads (cp.async.bulk.tensor, 4-D tensor maps
 //     [D, H, N, B] built per call from the caller's strides, 128-byte
 //     swizzle, 64 x 64 boxes): Q once, then K and V tiles of 64 keys into a
@@ -35,17 +36,17 @@
 //     bf16 in registers and is the register A operand of O += P V (wgmma
 //     m64n{D}k16, V MN-major in shared memory, transpose bit set), so the
 //     score tile never leaves registers;
-//   * each warpgroup pipelines its own tiles: S_j is issued together with
+//   * the warpgroup pipelines its tiles: S_j is issued together with
 //     P_{j-1} V_{j-1}, and tile j's softmax runs while that product is on
 //     the tensor cores; O is rescaled for tile j after it lands;
-//   * causal: a consumer stops at its diagonal tile and masks only that
+//   * causal: the consumer stops at its diagonal tile and masks only that
 //     tile (and the tile holding key M-1); masked keys get probability
 //     exactly 0, never exp(-inf - -inf);
 //   * epilogue: O / l rounded to bf16, stored for rows < N as bf16 pairs;
 //     lse = m * ln 2 + ln l.
-// What the design leaves for later: no ping-pong between two consumer
-// warpgroups (one's softmax under the other's products), and O is stored
-// with 4-byte stores rather than through shared memory and TMA.
+// What the design leaves for later: no second consumer warpgroup to
+// ping-pong with (one's softmax under the other's products), and O is
+// stored with 4-byte stores rather than through shared memory and TMA.
 //
 // fp32 inputs keep the first design (`flash_fwd_kernel`, fp32 FMA on the
 // CUDA cores, K/V staged in shared memory as fp32): the fp32 checks on the
@@ -244,10 +245,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 // 64 rows x 128 B, written by TMA in the 128-byte swizzle: the layout the
 // wgmma descriptors below name. Panels start on 1 KB boundaries (the
 // swizzle repeats every 8 rows = 1 KB).
-template <int D, int kConsumers>
+template <int D>
 struct __align__(1024) FwdSmem {
   static constexpr int kPanels = D / kPanel;
-  __nv_bfloat16 q[kConsumers][kPanels][kRows * kPanel];
+  __nv_bfloat16 q[kPanels][kRows * kPanel];
   __nv_bfloat16 k[kStages][kPanels][kRows * kPanel];
   __nv_bfloat16 v[kStages][kPanels][kRows * kPanel];
   uint64_t q_full;
@@ -409,16 +410,18 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D, bool kCausal, int kConsumers>
-__global__ void __launch_bounds__(128 * kConsumers + 32,
-                                  kConsumers == 1 ? 2 : 1)
+// one consumer warpgroup and one producer warp
+constexpr int kWgmmaThreads = 128 + 32;
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWgmmaThreads, 2)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
                        __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int n, int m, int heads,
                        float scale_log2) {
-  using Smem = FwdSmem<D, kConsumers>;
+  using Smem = FwdSmem<D>;
   constexpr int kPanels = Smem::kPanels;
   constexpr uint32_t kTileBytes = kPanels * kPanelBytes;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -429,10 +432,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   const int b = bh / heads;
   const int h = bh - b * heads;
   // heaviest causal tiles first: blockIdx.y varies slowest
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * (kRows * kConsumers);
-  // warpgroups with at least one row < n; the others only exit
-  const int active = min(kConsumers, (n - q0 + kRows - 1) / kRows);
-  const int kv_end = kCausal ? min(m, q0 + kRows * active) : m;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int kv_end = kCausal ? min(m, q0 + kRows) : m;
   const int n_tiles = (kv_end + kRows - 1) / kRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -443,22 +444,19 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.k_full[s], 1);
       mbar_init(&sm.v_full[s], 1);
-      mbar_init(&sm.empty[s], 4 * active);   // lane 0 of each consumer warp
+      mbar_init(&sm.empty[s], 4);   // lane 0 of each consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (warp == 4 * kConsumers) {
+  if (warp == 4) {
     // producer warp: one lane issues every copy
     if (lane == 0) {
-      mbar_expect_tx(&sm.q_full, active * kTileBytes);
-      for (int c = 0; c < active; ++c) {
+      mbar_expect_tx(&sm.q_full, kTileBytes);
 #pragma unroll
-        for (int p = 0; p < kPanels; ++p) {
-          tma_load(sm.q[c][p], &q_map, &sm.q_full, p * kPanel, h,
-                   q0 + c * kRows, b);
-        }
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(sm.q[p], &q_map, &sm.q_full, p * kPanel, h, q0, b);
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % kStages;
@@ -483,19 +481,10 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     return;
   }
 
-  // consumer warpgroup wg: q rows r_base .. r_base + 63
-  const int wg = warp / 4;
-  const int r_base = q0 + wg * kRows;
-  if (wg >= active) return;
-  // this thread's two rows in the wgmma accumulator layout: row0, row0 + 8
-  const int row0 = r_base + 16 * (warp % 4) + lane / 4;
+  // the consumer warpgroup: q rows q0 .. q0 + 63; this thread's two rows
+  // in the wgmma accumulator layout are row0 and row0 + 8
+  const int row0 = q0 + 16 * warp + lane / 4;
   const int col0 = 2 * (lane % 4);
-  // tiles this warpgroup needs; with two warpgroups under a causal mask the
-  // first needs one tile fewer than the CTA loads. It never releases that
-  // last tile, which is fine: the producer waits on no release of a CTA's
-  // last tile.
-  const int need =
-      kCausal ? (min(m, r_base + kRows) + kRows - 1) / kRows : n_tiles;
 
   float o_acc[D / 2];
 #pragma unroll
@@ -507,7 +496,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   float sc[32];        // S of the newest tile, then its P in fp32
   uint32_t pa[16];     // P of the tile whose P V is next, bf16 pairs
 
-  const uint32_t q_addr = smem_u32(sm.q[wg][0]);
+  const uint32_t q_addr = smem_u32(sm.q[0]);
 
   // tile j's K, or V, has landed. Waited for before wgmma_fence: a spin
   // loop between the fence and the wgmmas makes ptxas serialize them.
@@ -551,7 +540,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   // key j * 64 + 8 * (i / 4) + col0 + i % 2.
   auto softmax = [&](int j, float (&alpha)[2]) {
     const int key0 = j * kRows;
-    const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > r_base);
+    const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > q0);
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
@@ -605,7 +594,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   fence_regs(sc);
   softmax(0, alpha);
   pack_p();
-  for (int j = 1; j < need; ++j) {
+  for (int j = 1; j < n_tiles; ++j) {
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] = 0.f;
     wait_k(j);
@@ -626,13 +615,13 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
     pack_p();
   }
-  wait_v(need - 1);
+  wait_v(n_tiles - 1);
   wgmma_fence();
-  issue_pv(need - 1);
+  issue_pv(n_tiles - 1);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o_acc);
-  release(need - 1);
+  release(n_tiles - 1);
 
   // epilogue: rows row0 and row0 + 8, columns 8 jj + col0, + 1
 #pragma unroll
@@ -715,19 +704,17 @@ int encode_map(CUtensorMap* map, const void* ptr, int d, int heads, int rows,
   return res == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(res);
 }
 
-template <int D, bool kCausal, int kConsumers>
+template <int D, bool kCausal>
 cudaError_t launch_wgmma_kernel(const CUtensorMap* maps, void* o, void* lse,
                                 int batch, int n, int m, int heads,
                                 float scale, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(FwdSmem<D, kConsumers>)) + 1024;
+  const int smem = static_cast<int>(sizeof(FwdSmem<D>)) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_wgmma<D, kCausal, kConsumers>,
+      flash_fwd_kernel_wgmma<D, kCausal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int rows = kRows * kConsumers;
-  const dim3 grid(batch * heads, (n + rows - 1) / rows);
-  flash_fwd_kernel_wgmma<D, kCausal, kConsumers>
-      <<<grid, 128 * kConsumers + 32, smem, stream>>>(
+  const dim3 grid(batch * heads, (n + kRows - 1) / kRows);
+  flash_fwd_kernel_wgmma<D, kCausal><<<grid, kWgmmaThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), n, m, heads, scale * kLog2e);
   return cudaGetLastError();
@@ -736,27 +723,18 @@ cudaError_t launch_wgmma_kernel(const CUtensorMap* maps, void* o, void* lse,
 template <int D>
 cudaError_t launch_wgmma(const CUtensorMap* maps, void* o, void* lse,
                          int batch, int n, int m, int heads, float scale,
-                         int causal, int block_q, cudaStream_t stream) {
-  if (block_q == 64) {
-    return causal ? launch_wgmma_kernel<D, true, 1>(maps, o, lse, batch, n, m,
-                                                    heads, scale, stream)
-                  : launch_wgmma_kernel<D, false, 1>(maps, o, lse, batch, n,
-                                                     m, heads, scale, stream);
-  }
-  if (block_q == 128) {
-    return causal ? launch_wgmma_kernel<D, true, 2>(maps, o, lse, batch, n, m,
-                                                    heads, scale, stream)
-                  : launch_wgmma_kernel<D, false, 2>(maps, o, lse, batch, n,
-                                                     m, heads, scale, stream);
-  }
-  return cudaErrorInvalidValue;
+                         int causal, cudaStream_t stream) {
+  return causal ? launch_wgmma_kernel<D, true>(maps, o, lse, batch, n, m,
+                                               heads, scale, stream)
+                : launch_wgmma_kernel<D, false>(maps, o, lse, batch, n, m,
+                                                heads, scale, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (fp32 FMA kernel), 1 = bfloat16 (wgmma + TMA kernel,
-// `block_q` = 64 or 128 query rows per CTA; bf16 strides must be multiples
-// of 8 elements and the bases 16-byte aligned, which the caller checks).
+// dtype: 0 = float32 (fp32 FMA kernel), 1 = bfloat16 (wgmma + TMA kernel;
+// bf16 strides must be multiples of 8 elements and the bases 16-byte
+// aligned, which the caller checks).
 // Strides are in elements, in the order (q: batch, seq, head), (k: ...),
 // (v: ...). Returns a cudaError_t; for bf16 also 100000 when the CUDA
 // driver has no cuTensorMapEncodeTiled, and 200000 + its CUresult when an
@@ -767,7 +745,7 @@ extern "C" int paddle_flash_attention_fwd(
     long long q_sb, long long q_sn, long long q_sh,
     long long k_sb, long long k_sn, long long k_sh,
     long long v_sb, long long v_sn, long long v_sh,
-    float scale, int causal, int dtype, int block_q, void* stream) {
+    float scale, int causal, int dtype, void* stream) {
   if (n <= 0 || m <= 0 || batch <= 0 || heads <= 0 ||
       batch * heads > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -802,8 +780,8 @@ extern "C" int paddle_flash_attention_fwd(
   const cudaError_t launched =
       head_dim == 64
           ? launch_wgmma<64>(maps, o, lse, batch, n, m, heads, scale, causal,
-                             block_q, s)
+                             s)
           : launch_wgmma<128>(maps, o, lse, batch, n, m, heads, scale, causal,
-                              block_q, s);
+                              s);
   return static_cast<int>(launched);
 }

@@ -39,7 +39,9 @@ from ..device import require_hopper
 from . import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
-           "launch_flash_attention_fwd", "BLOCK_Q",
+           "flash_fwd_bf16_tol", "rel_fro",
+           "FLASH_FWD_BF16_ATOL_PER_V", "FLASH_FWD_BF16_RTOL",
+           "FLASH_FWD_BF16_FRO_RTOL",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -56,13 +58,21 @@ launches = {"flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
 
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                  + [ctypes.c_longlong] * 9
-                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p])
-# query rows per CTA of the bf16 forward kernel: one or two consumer
-# warpgroups of 64 rows. The first is faster at both main-path shapes
-# (PERF.md section 6), so `flash_attention_fwd` always takes it;
-# chip_smoke.py times both.
-BLOCK_Q = (64, 128)
+# The bf16 forward against its fp32 twin: the kernel rounds P = exp(S - m)
+# to bf16 and multiplies it on the tensor cores (O += P V) where the twin
+# keeps P in fp32. Each P entry moves by at most 2^-9 of itself and the
+# p_j / l sum to 1, so O moves by at most 2^-9 max|v|; then one bf16
+# rounding of the output (one bf16 step, at most 2^-7 of the value: rtol
+# 8e-3). atol is twice that bound, 2^-8 max|v| of the case. A loose atol
+# could hide a systematic error, so the relative Frobenius error is held as
+# well: on random data the two roundings give about 2e-3 (each about 2^-9 /
+# sqrt(3) rms); 4e-3. fp32 inputs run a kernel that rounds nothing to bf16
+# and keep the tight fp32 tolerance of the other kernels.
+FLASH_FWD_BF16_ATOL_PER_V = 2.0 ** -8
+FLASH_FWD_BF16_RTOL = 8e-3
+FLASH_FWD_BF16_FRO_RTOL = 4e-3
 # TMA's limits on a tensor map: a 16-byte aligned base, byte strides that
 # are multiples of 16 and below 2**40
 _TMA_ALIGN = 16
@@ -127,6 +137,21 @@ def flash_attention_reference(q, k, v, causal, scale=None):
     return out.contiguous(), lse.reshape(b * h, n)
 
 
+def flash_fwd_bf16_tol(v):
+    """(atol, rtol) of the bf16 forward against `flash_attention_reference`
+    for the value tensor `v` of the case (see FLASH_FWD_BF16_ATOL_PER_V);
+    the relative Frobenius error is held to FLASH_FWD_BF16_FRO_RTOL
+    besides (`rel_fro`)."""
+    return (FLASH_FWD_BF16_ATOL_PER_V * float(v.float().abs().max()),
+            FLASH_FWD_BF16_RTOL)
+
+
+def rel_fro(got, want):
+    """||got - want||_F / ||want||_F, in float64."""
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm())
+
+
 def _tma_compatible(t, name):
     """None when TMA can read `t` as a ``[B, N, H, D]`` operand of the bf16
     forward kernel; else why not, naming the tensor `name`. TMA needs a
@@ -172,18 +197,8 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
     ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal, scale)
-    return launch_flash_attention_fwd(q, k, v, causal, scale)
-
-
-def launch_flash_attention_fwd(q, k, v, causal, scale=None,
-                               block_q=BLOCK_Q[0]):
-    """The forward kernel on CUDA tensors, with `block_q` (one of
-    `BLOCK_Q`) query rows per CTA for bf16 inputs; fp32 inputs take the
-    fp32 kernel, which ignores it."""
     _check(q, k, v, causal)
     _check_kernel_inputs(q, k, v)
-    if block_q not in BLOCK_Q:
-        raise ValueError(f"block_q must be one of {BLOCK_Q}, got {block_q}")
     b, n, h, d = q.shape
     m = k.shape[1]
     if scale is None:
@@ -209,7 +224,7 @@ def launch_flash_attention_fwd(q, k, v, causal, scale=None,
         err = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                  ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                  ctypes.c_void_p(lse.data_ptr()), b, n, m, h, d, *strides,
-                 float(scale), int(bool(causal)), int(bf16), block_q,
+                 float(scale), int(bool(causal)), int(bf16),
                  ctypes.c_void_p(stream))
     if err >= _ERR_ENCODE:
         raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "

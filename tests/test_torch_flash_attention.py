@@ -13,7 +13,8 @@ dense softmax), which moves the last few bits only.
 
 The bf16 kernel on the card rounds P to bf16 before O += P V on the tensor
 cores; `chip_smoke.py` holds it to its twin under the forward's own bf16
-criteria (`flash_fwd_tol`, `FLASH_FWD_BF16_FRO_RTOL`). The tests below
+criteria (`flash_fwd_bf16_tol`, `FLASH_FWD_BF16_FRO_RTOL`, kept beside the
+kernel's wrapper). The tests below
 emulate that rounding in plain torch and show the criteria pass with margin
 against the JAX package, and fail when P is rounded coarser. The kernel
 loads through TMA, whose alignment rule `_tma_compatible` states; it is
@@ -35,8 +36,6 @@ from paddle_tpu.nn.functional.attention import _plain_attention
 from paddle_tpu_torch.incubate.models import GPTForCausalLM, gpt2_124m
 from paddle_tpu_torch.kernels import flash_attention as tfa
 from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
-
-import chip_smoke
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -146,11 +145,10 @@ def _bf16_criteria(out, ref, v):
     """The forward's two bf16 criteria as ratios to their limits (<= 1
     passes): max over elements of |out - ref| / (atol + rtol |ref|), and
     the relative Frobenius error over FLASH_FWD_BF16_FRO_RTOL."""
-    atol, rtol = chip_smoke.flash_fwd_tol(v)
+    atol, rtol = tfa.flash_fwd_bf16_tol(v)
     excess = ((out.float() - ref.float()).abs()
               / (atol + rtol * ref.float().abs())).max().item()
-    return excess, (chip_smoke.rel_fro(out, ref)
-                    / chip_smoke.FLASH_FWD_BF16_FRO_RTOL)
+    return excess, tfa.rel_fro(out, ref) / tfa.FLASH_FWD_BF16_FRO_RTOL
 
 
 @pytest.mark.parametrize("d", [64, 128])
