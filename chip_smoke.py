@@ -8,8 +8,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build   — compile every kernel of the serving and training paths with
                nvcc into build/paddle_tpu_torch/ (all sources at once) and
                print the build time and ptxas' register / spill report,
-               and the flash forward's count of HGMMA (wgmma) and UTMALDG
-               (TMA load) instructions in its SASS where cuobjdump exists;
+               and the flash forward's and backward's counts of HGMMA
+               (wgmma) and UTMALDG (TMA load) instructions in their SASS
+               where cuobjdump exists;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
                at its paths' shapes (the flash forward at the serving and
                the training shape) and at ragged ones, batched and not, in
@@ -17,9 +18,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                below; time
                the kernel, the twin and one PyTorch library call that
                computes the same function (a yardstick the port never
-               calls), beside the least time the card could take; the
-               bf16 flash forward also at both tile configurations (64
-               and 128 query rows per CTA);
+               calls), beside the least time the card could take; a bf16
+               flash backward whose dO TMA cannot read must raise;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`: 19 requests (16 greedy, 2 sampled, one
                990-token prompt so the 1024 bucket runs), more requests
@@ -59,8 +59,10 @@ The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools), the training kernels (flash backward dQ and
 dK/dV, fused cross-entropy forward and backward) and the fused
 bias-residual LayerNorm within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL /
-CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL. The script then prints one JSON line
-with every kernel's numbers, the card's nvidia-smi line, and, last,
+CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL, and the bf16 flash forward and
+backward within their own stated criteria (kept beside the kernels in
+`paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
+JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -120,6 +122,17 @@ FLASH_FWD_PREV_MS = {"serve (1, 1024, 12, 64)": [0.3275, 0.3262, 0.3279],
 # the training step's flash_attention_fwd group with that kernel (PERF.md
 # section 5, the same card): device ms per step
 TRAIN_FWD_GROUP_PREV_MS = 15.175
+# The bf16 flash backward before the tensor-core design (the fp32-FMA
+# kernels of commit 6391f68): device ms per launch at the training shape
+# in three runs of this script, and the training step's two groups (PERF.md
+# sections 5 and 6; NVIDIA H100 80GB HBM3, 700 W). Written in and printed
+# on a line of their own, never in the kernels line: not measured again.
+FLASH_BWD_PREV_MS = {"dq (8, 1024, 12, 64)": [1.4927, 1.5029, 1.4982],
+                     "dkv (8, 1024, 12, 64)": [1.6448, 1.6379, 1.6435],
+                     "source": "fp32-FMA backward of commit 6391f68, PERF.md "
+                               "section 6, NVIDIA H100 80GB HBM3, 700 W"}
+TRAIN_BWD_GROUPS_PREV_MS = {"flash_attention_bwd_dq": 18.115,
+                            "flash_attention_bwd_dkv": 19.775}
 PAGED_TOL = FLASH_TOL
 # int8 pools: kernel and twin dequantize the same int8 levels under the
 # same scales in fp32 (q * (scale * (1/127)), one rounding each), so the
@@ -142,11 +155,15 @@ LN_PARAM_GRAD_TOL = (2e-3, 1e-4)
 INT8_CAPACITY_MIN = 1.8
 # lse is fp32 on both sides whatever the input type
 LSE_TOL = (1e-4, 1e-4)
-# flash backward: both sides recompute P in fp32 from the same lse and
-# Delta and accumulate in fp32; they differ in summation order, and in
-# bf16 by one rounding of the output, as the forward. At the training
-# shape a typical |dQ|, |dK|, |dV| is 0.03-0.05, so the bf16 atol is a
-# few hundredths of it; the fp32 case there holds 1e-4.
+# flash backward, fp32: the FMA kernels and the twins recompute P in fp32
+# from the same lse and Delta and accumulate in fp32; they differ only in
+# summation order (1e-4). bf16 (the tensor-core design): P and dS are
+# rounded to bf16 as tensor-core operands, so the bf16 backward has its own
+# criteria, kept beside the kernels (`fa.flash_bwd_bf16_tol`: atol twice
+# the largest rounding bound of each of dQ, dK, dV, rtol 8e-3; and the
+# relative Frobenius error of each at most `fa.FLASH_BWD_BF16_FRO_RTOL`,
+# 5e-3) and shared with its CPU tests. FLASH_BWD_TOL is not widened; its
+# bf16 entry is no longer used.
 FLASH_BWD_TOL = FLASH_TOL
 # cross-entropy loss and lse are fp32 on both sides whatever the input
 # type: one logsumexp over up to 50304 terms summed in another order
@@ -648,17 +665,49 @@ def _flash_bwd_inputs(q, k, v, causal, seed):
 
 
 def _check_flash_bwd_case(tag, q, k, v, causal, seed=0):
+    """dQ, dK, dV against their twins: fp32 within FLASH_BWD_TOL, bf16
+    within `fa.flash_bwd_bf16_tol` and, each, a relative Frobenius error
+    of at most fa.FLASH_BWD_BF16_FRO_RTOL."""
     args = _flash_bwd_inputs(q, k, v, causal, seed)
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     rq = fa.flash_attention_bwd_dq_reference(*args)
     rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
     torch.cuda.synchronize()
-    tol = FLASH_BWD_TOL[q.dtype]
-    err_dq = _close(tag + " dq", dq, rq, tol)
-    err_dkv = max(_close(tag + " dk", dk, rk, tol),
-                  _close(tag + " dv", dv, rv, tol))
-    return err_dq, err_dkv
+    bf16 = q.dtype == torch.bfloat16
+    tols = (fa.flash_bwd_bf16_tol(*args) if bf16 else
+            dict.fromkeys(("dq", "dk", "dv"), FLASH_BWD_TOL[q.dtype]))
+    errs = {}
+    for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        errs[name] = _close(f"{tag} {name}", got, want, tols[name])
+        if bf16:
+            fro = fa.rel_fro(got, want)
+            print(f"  {tag} {name}: relative Frobenius error {fro:.3e} (at "
+                  f"most {fa.FLASH_BWD_BF16_FRO_RTOL})")
+            assert fro <= fa.FLASH_BWD_BF16_FRO_RTOL, (tag, name, fro)
+    return errs["dq"], max(errs["dk"], errs["dv"])
+
+
+def _check_flash_bwd_refuses_misaligned_do():
+    """A bf16 dO 2 bytes off a 16-byte boundary: TMA cannot read it, so
+    both backward wrappers raise, naming it, and launch nothing."""
+    q, k, v = _fused_qkv(40, torch.bfloat16, seed=13)
+    width = HEADS * HEAD_DIM
+    buf = torch.zeros((1, 40, width + 8), dtype=torch.bfloat16, device="cuda")
+    do = buf[..., 1:1 + width].view(1, 40, HEADS, HEAD_DIM)
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = fa.flash_attention_delta(out, do)
+    before = launch_counts()
+    for fn in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        try:
+            fn(q, k, v, do, lse, delta, True, 0.125)
+        except ValueError as exc:
+            assert "cannot read do:" in str(exc), exc
+            print(f"  flash bwd bf16 misaligned dO: {fn.__name__} raised "
+                  f"ValueError ({exc})")
+        else:
+            raise AssertionError(f"{fn.__name__} took a misaligned dO")
+    assert launch_counts() == before, (before, launch_counts())
 
 
 def _flash_bwd_bound(b, n, h, d, elem, causal, dkv):
@@ -684,6 +733,24 @@ def check_flash_bwd():
         _check_flash_bwd_case(f"flash bwd {name} (3, 40, {HEADS}, "
                               f"{HEAD_DIM}) causal=False",
                               *_fused_qkv(40, dtype, seed=10, batch=3), False)
+        q = _fused_qkv(40, dtype, seed=8)[0]
+        _, k, v = _fused_qkv(100, dtype, seed=9)
+        _check_flash_bwd_case(f"flash bwd {name} n=40 m=100 causal=False", q,
+                              k, v, False)
+    dtype = torch.bfloat16
+    # bf16 tile edges and a length that is no power of two: TMA's zero
+    # fill past n, the masks of the diagonal and edge tiles, D = 128 at a
+    # ragged length, k and v at 16-byte aligned offsets into a wider buffer
+    for n in (8, 64, 65, 1000):
+        for causal in (True, False):
+            _check_flash_bwd_case(f"flash bwd bfloat16 n={n} causal={causal}",
+                                  *_fused_qkv(n, dtype, seed=30 + n), causal)
+    _check_flash_bwd_case("flash bwd bfloat16 n=200 causal=False D=128",
+                          *_fused_qkv(200, dtype, seed=32, heads=4,
+                                      head_dim=128), False)
+    _check_flash_bwd_case("flash bwd bfloat16 n=200 causal=True k, v offset "
+                          "views", *_offset_qkv(200, seed=31), True)
+    _check_flash_bwd_refuses_misaligned_do()
     # main-path shape: a training step's attention, causal; fp32 here, bf16
     # below with the timings
     _check_flash_bwd_case(f"flash bwd float32 (8, 1024, {HEADS}, {HEAD_DIM}) "
@@ -705,6 +772,7 @@ def check_flash_bwd():
     library_ms = _cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), lib_do, retain_graph=True))
     shape = f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"
+    pairs = b * HEADS * (n * (n + 1) // 2)
     rows = []
     for dkv, fn, ref, err in (
             (False, fa.flash_attention_bwd_dq,
@@ -714,6 +782,7 @@ def check_flash_bwd():
         bound, by = _flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv)
         kind = "dkv" if dkv else "dq"
         ms, host_ms = _timed(lambda: fn(*args))
+        flops = (8 if dkv else 6) * HEAD_DIM * pairs
         rows.append({
             "name": f"flash_attention_bwd_{kind}", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -724,7 +793,18 @@ def check_flash_bwd():
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": _cuda_ms(lambda: ref(*args), iters=5),
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "tflops": flops / (ms * 1e-3) / 1e12,
+            "tile": "64 rows per CTA (1 consumer warpgroup) x 64-row "
+                    "streamed tiles, 3-stage ring",
             "shape": shape})
+    pair_ms = rows[0]["ms"] + rows[1]["ms"]
+    print(f"  flash bwd bf16 pair at the training shape: dq "
+          f"{rows[0]['ms']:.4f} + dkv {rows[1]['ms']:.4f} = {pair_ms:.4f} ms; "
+          f"SDPA's backward (dQ, dK, dV in one call) {library_ms:.4f} ms: "
+          f"{pair_ms / library_ms:.3f}x")
+    print("  flash bwd bf16, the earlier design, written in, not measured in "
+          f"this run: {json.dumps(FLASH_BWD_PREV_MS)}; per training step "
+          f"{json.dumps(TRAIN_BWD_GROUPS_PREV_MS)}")
     return rows
 
 
@@ -1097,6 +1177,10 @@ def train(batch=8, seq=1024, steps=5):
               f"{groups.get('flash_attention_fwd', 0.0):.3f} ms device time "
               f"per step (the fp32-FMA forward of commit b9d5dfc: "
               f"{TRAIN_FWD_GROUP_PREV_MS} ms)")
+        print("train: flash backward groups " + ", ".join(
+            f"{g} {groups.get(g, 0.0):.3f}" for g in TRAIN_BWD_GROUPS_PREV_MS)
+            + " ms device time per step (the fp32-FMA backward of commit "
+            f"6391f68, written in: {json.dumps(TRAIN_BWD_GROUPS_PREV_MS)})")
     set_flags({"FLAGS_use_fused_cross_entropy": False})
     return counts
 
@@ -1244,6 +1328,7 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
     _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
+    _sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
     print("kernels vs plain twins:")
     rows = {"serve": [check_flash(), check_paged()],
             "serve_int8": [check_paged_int8()],

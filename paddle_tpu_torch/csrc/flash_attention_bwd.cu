@@ -13,13 +13,57 @@
 //
 // What bounds it on an H100: at the training shape (B=8, N=1024, H=12, D=64,
 // bf16, causal) dQ does 6*D and dK/dV 8*D FLOPs per unmasked (query, key)
-// pair, ~19 and ~26 GFLOP: ~0.02 and ~0.026 ms at the bf16 tensor-core
-// peak, above the ~0.02 ms its ~63 MB of traffic takes. This first version
-// does its products in fp32 FMA (no wgmma/TMA), so it is bound by the fp32
-// FMA rate and the shuffles of its row dot products; the tensor-core path is
-// later work.
+// pair, ~19 and ~26 GFLOP: ~0.020 and ~0.026 ms at the 989 TFLOP/s bf16
+// tensor-core peak, just above the ~0.019 and ~0.023 ms their bytes (each
+// input read once, each output written once) take at 3.35 TB/s. So every
+// product has to run on the tensor cores. Each 64 x 64 tile also takes 4096
+// exponentials (16 a clock on an SM's MUFU pipe: 256 clocks) against 384
+// (dQ) or 512 (dK/dV) clocks of its products at D = 64: the elementwise
+// work is as large as the products, and the warpgroup's pipeline and the
+// other CTAs on the SM have to hide it.
 //
-// Design, as the TPU decomposition: two kernels and no atomics.
+// Design, as the TPU decomposition: two kernels and no atomics, so the
+// result is deterministic.
+//
+// bf16 (`flash_bwd_dq_kernel_wgmma`, `flash_bwd_dkv_kernel_wgmma`): one CTA
+// per ((b, h), 64 rows) of one consumer warpgroup and one producer warp, as
+// the forward. The producer issues TMA loads (the forward's 4-D tensor maps
+// [D, H, N, B], 128-byte swizzle, 64 x 64 boxes; hopper_sm90.cuh) of the
+// CTA's own tiles once and of the streamed tiles into a three-stage ring
+// guarded by full and empty mbarriers.
+//   * dQ: the CTA owns 64 query rows (Q and dO) and streams K/V tiles of 64
+//     keys up to the diagonal, the longest q tiles first. Per tile, S = Q K^T
+//     and dP = dO V^T are wgmma from shared memory (all K-major); P =
+//     exp2(S * scale * log2 e - lse * log2 e), the P the forward's lse (a
+//     natural log) was made from, and dS = P (dP - Delta) are computed on
+//     the accumulator registers; dS is packed to bf16 in place and is the
+//     register A operand of dQ += dS K (K read MN-major from the same tile:
+//     the forward's P V). dQ is scaled and stored from the accumulator.
+//   * dK/dV: the CTA owns 64 key rows (K and V) and streams Q/dO tiles of 64
+//     queries from the diagonal down, the longest key tiles first. It
+//     computes the transposed scores S^T = K Q^T and dP^T = V dO^T, so that
+//     P^T and dS^T come out in the register A-fragment layout: dV += P^T dO
+//     and dK += dS^T Q are wgmma with A from registers and dO, Q read
+//     MN-major from the tiles the first two products read K-major. lse and
+//     Delta are indexed by column there: the producer warp stores the
+//     tile's 64 values (lse already times log2 e) beside it in shared
+//     memory, and its 32 lanes arrive on the tile's full barrier.
+//   * Each warpgroup pipelines its tiles: tile j's first two products are
+//     issued together with tile j-1's accumulating ones, and tile j's
+//     elementwise work runs while those are on the tensor cores.
+//   * Masking: TMA zero-fills rows past N or M, but a zero row still gives
+//     P = exp(-lse) != 0, so probability is set to exactly 0 for keys past
+//     M, queries past N and above the causal diagonal, on the diagonal tile
+//     and the edge tiles only. dQ is stored for rows < N, dK/dV for rows
+//     < M.
+//   * P (for dV) and dS (for dQ and dK) are rounded to bf16 as tensor-core
+//     operands; the stated criteria for that are in
+//     paddle_tpu_torch/kernels/flash_attention.py (FLASH_BWD_BF16_*).
+//
+// fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): the first design,
+// products in fp32 FMA on the CUDA cores, kept by design: the fp32 checks on
+// the card (training parity against the CPU, the backward's fp32 cases)
+// need products rounded nowhere but in fp32.
 //   * dQ: one thread block per (b*h, tile of query rows). It loops over
 //     32-key tiles of K and V (staged in shared memory as fp32) up to the
 //     diagonal; each query row's dQ accumulates in registers.
@@ -34,24 +78,27 @@
 //     past the end are zero-filled and their probability is exactly 0.
 //     Q is pre-scaled by `scale` as in the forward kernel, so S (and with it
 //     P against the forward's lse) is computed the same way in both.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_sm90.cuh"
+
 namespace {
+
+using namespace sm90;
+
+// ---------------------------------------------------------------------------
+// fp32: FMA on the CUDA cores
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kTile = 32;    // keys (dQ) or queries (dK/dV) per inner tile
 constexpr int kChunks = 4;   // float4 chunks of a row owned by one thread
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 struct Geometry {
@@ -268,41 +315,546 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(bool dkv, const void* q, const void* k, const void* v,
-                   const void* g, const void* lse, const void* delta,
-                   void* out0, void* out1, int batch, int n, int m, int heads,
-                   const Strides& st, float scale, int causal,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fp32(bool dkv, const void* q, const void* k, const void* v,
+                        const void* g, const void* lse, const void* delta,
+                        void* out0, void* out1, int batch, int n, int m,
+                        int heads, const Strides& st, float scale, int causal,
+                        cudaStream_t stream) {
   constexpr int R = Geometry<D>::kRows;
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  const T* gp = static_cast<const T*>(g);
+  const float* qp = static_cast<const float*>(q);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  const float* gp = static_cast<const float*>(g);
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
-  T* o0 = static_cast<T*>(out0);
-  T* o1 = static_cast<T*>(out1);
+  float* o0 = static_cast<float*>(out0);
+  float* o1 = static_cast<float*>(out1);
   if (dkv) {
     const dim3 grid((m + R - 1) / R, batch * heads);
     if (causal) {
-      flash_bwd_dkv_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
+      flash_bwd_dkv_kernel<float, D, true><<<grid, kThreads, 0, stream>>>(
           qp, kp, vp, gp, lp, dp, o0, o1, n, m, heads, st, scale);
     } else {
-      flash_bwd_dkv_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
+      flash_bwd_dkv_kernel<float, D, false><<<grid, kThreads, 0, stream>>>(
           qp, kp, vp, gp, lp, dp, o0, o1, n, m, heads, st, scale);
     }
   } else {
     const dim3 grid((n + R - 1) / R, batch * heads);
     if (causal) {
-      flash_bwd_dq_kernel<T, D, true><<<grid, kThreads, 0, stream>>>(
+      flash_bwd_dq_kernel<float, D, true><<<grid, kThreads, 0, stream>>>(
           qp, kp, vp, gp, lp, dp, o0, n, m, heads, st, scale);
     } else {
-      flash_bwd_dq_kernel<T, D, false><<<grid, kThreads, 0, stream>>>(
+      flash_bwd_dq_kernel<float, D, false><<<grid, kThreads, 0, stream>>>(
           qp, kp, vp, gp, lp, dp, o0, n, m, heads, st, scale);
     }
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma products fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;                  // depth of the streamed-tile ring
+constexpr int kWgmmaThreads = 128 + 32;     // one consumer warpgroup + producer
+
+// Shared memory of a dQ CTA: its Q and dO tiles, and the K/V ring.
+template <int D>
+struct __align__(1024) DqSmem {
+  static constexpr int kPanels = D / kPanel;
+  __nv_bfloat16 q[kPanels][kRows * kPanel];
+  __nv_bfloat16 g[kPanels][kRows * kPanel];
+  __nv_bfloat16 k[kStages][kPanels][kRows * kPanel];
+  __nv_bfloat16 v[kStages][kPanels][kRows * kPanel];
+  uint64_t qg_full;
+  uint64_t kv_full[kStages];
+  uint64_t empty[kStages];
+};
+
+// Shared memory of a dK/dV CTA: its K and V tiles, and the ring of Q/dO
+// tiles with their queries' lse (times log2 e) and Delta.
+template <int D>
+struct __align__(1024) DkvSmem {
+  static constexpr int kPanels = D / kPanel;
+  __nv_bfloat16 k[kPanels][kRows * kPanel];
+  __nv_bfloat16 v[kPanels][kRows * kPanel];
+  __nv_bfloat16 q[kStages][kPanels][kRows * kPanel];
+  __nv_bfloat16 g[kStages][kPanels][kRows * kPanel];
+  float lse2[kStages][kRows];
+  float delta[kStages][kRows];
+  uint64_t kv_full;
+  uint64_t qg_full[kStages];
+  uint64_t empty[kStages];
+};
+
+// acc (=) A B^T over D: A and B two 64-row tiles at shared addresses
+// `a_addr` and `b_addr`, both K-major, in steps of 16 columns (+32 B within
+// a panel, the next panel every 4 steps); the first step overwrites acc
+// (issued, not committed)
+template <int D>
+__device__ __forceinline__ void issue_ss(float (&acc)[32], uint32_t a_addr,
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+    wgmma_ss_n64(acc, smem_desc(a_addr + off, 16, 1024),
+                 smem_desc(b_addr + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc += A B over 64 rows of B: A in registers (a[4 kk .. 4 kk + 3] for
+// B's rows 16 kk .. 16 kk + 15), B the 64-row tile at `b_addr` read
+// MN-major, 2 KB of rows a step (issued, not committed)
+template <int D>
+__device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
+                                         const uint32_t (&a)[16],
+                                         uint32_t b_addr) {
+#pragma unroll
+  for (int kk = 0; kk < kRows / 16; ++kk) {
+    const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
+                           a[4 * kk + 3]};
+    wgmma_rs<D>(acc, f, smem_desc(b_addr + kk * 2048, kPanelBytes, 1024));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.f;
+}
+
+// fp32 pairs to bf16 pairs, in order: an accumulator tile becomes the
+// register A operand of the next product
+__device__ __forceinline__ void pack(uint32_t (&dst)[16],
+                                     const float (&src)[32]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) dst[i] = pack_bf16(src[2 * i], src[2 * i + 1]);
+}
+
+// rows `row0` and `row0 + 8` of a 64 x D accumulator, times `mul`, as bf16
+// into the contiguous [B, rows, H, D] output whose row `row0` starts at
+// `out` (rows >= `rows` are not stored)
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
+                                           const float (&acc)[D / 2],
+                                           int row0, int rows, int heads,
+                                           int col0, float mul) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row0 + 8 * r >= rows) continue;
+    __nv_bfloat16* o = out + static_cast<int64_t>(8 * r) * heads * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * jj + col0) =
+          __floats2bfloat162_rn(acc[4 * jj + 2 * r] * mul,
+                                acc[4 * jj + 2 * r + 1] * mul);
+    }
+  }
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWgmmaThreads, 2)
+flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap g_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          __nv_bfloat16* __restrict__ dq, int n, int m,
+                          int heads, float scale) {
+  using Smem = DqSmem<D>;
+  constexpr int kPanels = Smem::kPanels;
+  constexpr uint32_t kTileBytes = kPanels * kPanelBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // heaviest causal tiles first: blockIdx.y varies slowest
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int kv_end = kCausal ? min(m, q0 + kRows) : m;
+  const int n_tiles = (kv_end + kRows - 1) / kRows;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qg_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.kv_full[s], 1);
+      mbar_init(&sm.empty[s], 4);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer warp: one lane issues every copy
+    if (lane == 0) {
+      mbar_expect_tx(&sm.qg_full, 2 * kTileBytes);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(sm.q[p], &q_map, &sm.qg_full, p * kPanel, h, q0, b);
+        tma_load(sm.g[p], &g_map, &sm.qg_full, p * kPanel, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) {
+          // the consumers have released the tile this stage held
+          mbar_wait(&sm.empty[s], ((j / kStages) + 1) & 1);
+        }
+        mbar_expect_tx(&sm.kv_full[s], 2 * kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sm.k[s][p], &k_map, &sm.kv_full[s], p * kPanel, h,
+                   j * kRows, b);
+          tma_load(sm.v[s][p], &v_map, &sm.kv_full[s], p * kPanel, h,
+                   j * kRows, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: q rows q0 .. q0 + 63; this thread's two rows
+  // in the wgmma accumulator layout are row0 and row0 + 8
+  const int row0 = q0 + 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], dlt[2];     // lse * log2 e and Delta of the two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const int64_t at = static_cast<int64_t>(bh) * n + row;
+    lse2[r] = row < n ? lse[at] * kLog2e : 0.f;
+    dlt[r] = row < n ? delta[at] : 0.f;
+  }
+
+  float dq_acc[D / 2];
+  zero(dq_acc);
+  float sc[32];        // S of the newest tile, then its dS in fp32
+  float dp[32];        // dP of the newest tile
+  uint32_t da[16];     // dS of the tile whose dS K is next, bf16 pairs
+  const uint32_t q_addr = smem_u32(sm.q[0]);
+  const uint32_t g_addr = smem_u32(sm.g[0]);
+
+  // tile j's K and V have landed. Waited for before wgmma_fence: a spin
+  // loop between the fence and the wgmmas makes ptxas serialize them.
+  auto wait_kv = [&](int j) {
+    mbar_wait(&sm.kv_full[j % kStages], (j / kStages) & 1);
+  };
+  auto issue_scores = [&](int j) {
+    issue_ss<D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));
+    issue_ss<D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));
+  };
+  auto issue_dq = [&](int j) {
+    issue_rs<D>(dq_acc, da, smem_u32(sm.k[j % kStages][0]));
+  };
+  // tile j's K and V may be overwritten
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
+  };
+  // sc becomes dS / scale = P (dP - Delta) of tile j, in place.
+  // Accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2), key
+  // j * 64 + 8 * (i / 4) + col0 + i % 2.
+  auto grad_scores = [&](int j) {
+    const int key0 = j * kRows;
+    const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+      if (edge) {
+        const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
+        if (key >= m || (kCausal && key > row0 + 8 * r)) p = 0.f;
+      }
+      sc[i] = p * (dp[i] - dlt[r]);
+    }
+  };
+
+  // Software pipeline within the warpgroup: S_j and dP_j are issued
+  // together with dS_{j-1} K_{j-1}, and tile j's dS is computed while that
+  // product is still on the tensor cores.
+  mbar_wait(&sm.qg_full, 0);
+  zero(sc);
+  zero(dp);
+  wait_kv(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  grad_scores(0);
+  pack(da, sc);
+  for (int j = 1; j < n_tiles; ++j) {
+    zero(sc);
+    zero(dp);
+    wait_kv(j);
+    wgmma_fence();
+    issue_scores(j);
+    wgmma_commit();
+    issue_dq(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();           // S_j, dP_j are in; dS_{j-1} K_{j-1} may run
+    fence_regs(sc);
+    fence_regs(dp);
+    grad_scores(j);
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_regs(sc);            // da is rewritten only after the wait
+    release(j - 1);
+    pack(da, sc);
+  }
+  wgmma_fence();
+  issue_dq(n_tiles - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dq_acc);
+  release(n_tiles - 1);
+
+  store_rows<D>(dq + ((static_cast<int64_t>(b) * n + row0) * heads + h) * D,
+                dq_acc, row0, n, heads, col0, scale);
+}
+
+// dK/dV: up to 64 + 64 accumulator registers each at D = 128, so that
+// instantiation may use every register of an SM's share for one CTA
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kWgmmaThreads, D == 64 ? 2 : 1)
+flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap g_map,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int n, int m,
+                           int heads, float scale) {
+  using Smem = DkvSmem<D>;
+  constexpr int kPanels = Smem::kPanels;
+  constexpr uint32_t kTileBytes = kPanels * kPanelBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  // heaviest causal tiles (the first keys) first: blockIdx.y varies slowest
+  const int k0 = blockIdx.y * kRows;
+  // causal (n == m): no query tile above this key tile's diagonal attends
+  const int t_begin = kCausal ? blockIdx.y : 0;
+  const int n_tiles = (n + kRows - 1) / kRows - t_begin;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.qg_full[s], 1 + 32);   // TMA's bytes + the lse/Delta
+      mbar_init(&sm.empty[s], 4);          // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // producer warp: lane 0 issues every copy, the 32 lanes store the
+    // tile's lse and Delta (0 past n) and arrive on its full barrier
+    if (lane == 0) {
+      mbar_expect_tx(&sm.kv_full, 2 * kTileBytes);
+#pragma unroll
+      for (int p = 0; p < kPanels; ++p) {
+        tma_load(sm.k[p], &k_map, &sm.kv_full, p * kPanel, h, k0, b);
+        tma_load(sm.v[p], &v_map, &sm.kv_full, p * kPanel, h, k0, b);
+      }
+    }
+    const float* lse_row = lse + static_cast<int64_t>(bh) * n;
+    const float* delta_row = delta + static_cast<int64_t>(bh) * n;
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % kStages;
+      const int t0 = (t_begin + j) * kRows;
+      if (j >= kStages) {
+        // the consumers have released the tile this stage held
+        mbar_wait(&sm.empty[s], ((j / kStages) + 1) & 1);
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&sm.qg_full[s], 2 * kTileBytes);
+#pragma unroll
+        for (int p = 0; p < kPanels; ++p) {
+          tma_load(sm.q[s][p], &q_map, &sm.qg_full[s], p * kPanel, h, t0, b);
+          tma_load(sm.g[s][p], &g_map, &sm.qg_full[s], p * kPanel, h, t0, b);
+        }
+      }
+#pragma unroll
+      for (int r = lane; r < kRows; r += 32) {
+        const bool ok = t0 + r < n;
+        sm.lse2[s][r] = ok ? lse_row[t0 + r] * kLog2e : 0.f;
+        sm.delta[s][r] = ok ? delta_row[t0 + r] : 0.f;
+      }
+      mbar_arrive(&sm.qg_full[s]);
+    }
+    return;
+  }
+
+  // the consumer warpgroup: key rows k0 .. k0 + 63; this thread's two rows
+  // in the wgmma accumulator layout are row0 and row0 + 8
+  const int row0 = k0 + 16 * warp + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const float scale_log2 = scale * kLog2e;
+
+  float dk_acc[D / 2], dv_acc[D / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  float sc[32];        // S^T of the newest tile, then its P^T in fp32
+  float dp[32];        // dP^T of the newest tile, then its dS^T / scale
+  uint32_t pa[16];     // P^T of the tile whose products are next, bf16
+  uint32_t da[16];     // dS^T / scale of that tile, bf16
+  const uint32_t k_addr = smem_u32(sm.k[0]);
+  const uint32_t v_addr = smem_u32(sm.v[0]);
+
+  // tile j's Q, dO, lse and Delta have landed (waited for before
+  // wgmma_fence, as in the dQ kernel)
+  auto wait_qg = [&](int j) {
+    mbar_wait(&sm.qg_full[j % kStages], (j / kStages) & 1);
+  };
+  auto issue_scores = [&](int j) {
+    issue_ss<D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
+  };
+  auto issue_dkv = [&](int j) {
+    issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
+    issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
+  };
+  // tile j's Q, dO, lse and Delta may be overwritten
+  auto release = [&](int j) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
+  };
+  // sc becomes P^T and dp dS^T / scale of tile j, in place. Accumulator
+  // layout: element i is key row0 + 8 * ((i / 2) % 2), query
+  // t0 + 8 * (i / 4) + col0 + i % 2: lse and Delta by column.
+  auto grad_scores = [&](int j) {
+    const int s = j % kStages;
+    const int t0 = (t_begin + j) * kRows;
+    const bool edge = t0 + kRows > n || k0 + kRows > m ||
+                      (kCausal && t0 < k0 + kRows);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      float p = ex2(fmaf(sc[i], scale_log2, -sm.lse2[s][col]));
+      if (edge) {
+        const int key = row0 + 8 * ((i / 2) % 2);
+        const int query = t0 + col;
+        if (query >= n || key >= m || (kCausal && query < key)) p = 0.f;
+      }
+      sc[i] = p;
+      dp[i] = p * (dp[i] - sm.delta[s][col]);
+    }
+  };
+
+  // Software pipeline, as the dQ kernel: S^T_j and dP^T_j are issued
+  // together with tile j-1's dV and dK products.
+  mbar_wait(&sm.kv_full, 0);
+  zero(sc);
+  zero(dp);
+  wait_qg(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  grad_scores(0);
+  pack(pa, sc);
+  pack(da, dp);
+  for (int j = 1; j < n_tiles; ++j) {
+    zero(sc);
+    zero(dp);
+    wait_qg(j);
+    wgmma_fence();
+    issue_scores(j);
+    wgmma_commit();
+    issue_dkv(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();           // S^T_j, dP^T_j are in; tile j-1's may run
+    fence_regs(sc);
+    fence_regs(dp);
+    grad_scores(j);
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(sc);            // pa and da are rewritten only after the wait
+    fence_regs(dp);
+    release(j - 1);
+    pack(pa, sc);
+    pack(da, dp);
+  }
+  wgmma_fence();
+  issue_dkv(n_tiles - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
+  release(n_tiles - 1);
+
+  const int64_t out = ((static_cast<int64_t>(b) * m + row0) * heads + h) * D;
+  store_rows<D>(dk + out, dk_acc, row0, m, heads, col0, scale);
+  store_rows<D>(dv + out, dv_acc, row0, m, heads, col0, 1.f);
+}
+
+template <int D, bool kCausal>
+cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
+                                const float* lse, const float* delta,
+                                void* out0, void* out1, int batch, int n,
+                                int m, int heads, float scale,
+                                cudaStream_t stream) {
+  const int smem = static_cast<int>(dkv ? sizeof(DkvSmem<D>)
+                                        : sizeof(DqSmem<D>)) + 1024;
+  const dim3 grid(batch * heads, ((dkv ? m : n) + kRows - 1) / kRows);
+  __nv_bfloat16* o0 = static_cast<__nv_bfloat16*>(out0);
+  __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(out1);
+  cudaError_t err;
+  if (dkv) {
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<D, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dkv_kernel_wgmma<D, kCausal>
+        <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                maps[3], lse, delta, o0, o1,
+                                                n, m, heads, scale);
+  } else {
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<D, kCausal>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_kernel_wgmma<D, kCausal>
+        <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                maps[3], lse, delta, o0, n,
+                                                m, heads, scale);
+  }
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_wgmma(bool dkv, const CUtensorMap* maps, const void* lse,
+                         const void* delta, void* out0, void* out1,
+                         int batch, int n, int m, int heads, float scale,
+                         int causal, cudaStream_t stream) {
+  const float* lp = static_cast<const float*>(lse);
+  const float* dp = static_cast<const float*>(delta);
+  return causal ? launch_wgmma_kernel<D, true>(dkv, maps, lp, dp, out0, out1,
+                                               batch, n, m, heads, scale,
+                                               stream)
+                : launch_wgmma_kernel<D, false>(dkv, maps, lp, dp, out0,
+                                                out1, batch, n, m, heads,
+                                                scale, stream);
 }
 
 int dispatch(bool dkv, const void* q, const void* k, const void* v,
@@ -311,36 +863,49 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
              const long long* s, float scale, int causal, int dtype,
              void* stream) {
   if (n <= 0 || m <= 0 || batch <= 0 || heads <= 0 ||
-      batch * heads > 65535 || (causal && n != m)) {
+      batch * heads > 65535 || (causal && n != m) ||
+      (head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Strides st{s[0], s[1], s[2], s[3], s[4],  s[5],
-                   s[6], s[7], s[8], s[9], s[10], s[11]};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && head_dim == 64) {
-    err = launch<float, 64>(dkv, q, k, v, g, lse, delta, out0, out1, batch,
-                            n, m, heads, st, scale, causal, cs);
-  } else if (dtype == 0 && head_dim == 128) {
-    err = launch<float, 128>(dkv, q, k, v, g, lse, delta, out0, out1, batch,
-                             n, m, heads, st, scale, causal, cs);
-  } else if (dtype == 1 && head_dim == 64) {
-    err = launch<__nv_bfloat16, 64>(dkv, q, k, v, g, lse, delta, out0, out1,
-                                    batch, n, m, heads, st, scale, causal,
-                                    cs);
-  } else if (dtype == 1 && head_dim == 128) {
-    err = launch<__nv_bfloat16, 128>(dkv, q, k, v, g, lse, delta, out0, out1,
-                                     batch, n, m, heads, st, scale, causal,
-                                     cs);
+  if (dtype == 0) {
+    const Strides st{s[0], s[1], s[2], s[3], s[4],  s[5],
+                     s[6], s[7], s[8], s[9], s[10], s[11]};
+    const cudaError_t err =
+        head_dim == 64
+            ? launch_fp32<64>(dkv, q, k, v, g, lse, delta, out0, out1, batch,
+                              n, m, heads, st, scale, causal, cs)
+            : launch_fp32<128>(dkv, q, k, v, g, lse, delta, out0, out1,
+                               batch, n, m, heads, st, scale, causal, cs);
+    return static_cast<int>(err);
   }
-  return static_cast<int>(err);
+  // bf16: maps over q, k, v, dO (rows n, m, m, n)
+  const void* ptrs[4] = {q, k, v, g};
+  const int rows[4] = {n, m, m, n};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int err = encode_map(&maps[i], ptrs[i], head_dim, heads, rows[i],
+                               batch, s[3 * i], s[3 * i + 1], s[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  const cudaError_t launched =
+      head_dim == 64
+          ? launch_wgmma<64>(dkv, maps, lse, delta, out0, out1, batch, n, m,
+                             heads, scale, causal, cs)
+          : launch_wgmma<128>(dkv, maps, lse, delta, out0, out1, batch, n, m,
+                              heads, scale, causal, cs);
+  return static_cast<int>(launched);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `strides` holds 12 element strides in
+// dtype: 0 = float32 (fp32 FMA kernels), 1 = bfloat16 (wgmma + TMA kernels;
+// bf16 strides must be multiples of 8 elements and the bases 16-byte
+// aligned, which the caller checks). `strides` holds 12 element strides in
 // the order (q: batch, seq, head), (k: ...), (v: ...), (dO: ...). lse and
-// delta are contiguous [batch*heads, n] fp32. Returns a cudaError_t.
+// delta are contiguous [batch*heads, n] fp32. Returns a cudaError_t; for
+// bf16 also 100000 when the CUDA driver has no cuTensorMapEncodeTiled, and
+// 200000 + its CUresult when an encode fails.
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, int batch, int n, int m,

@@ -5,9 +5,10 @@ Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared library
 with a plain C interface under ``build/paddle_tpu_torch/`` beside the
 package, and loaded with ctypes. No PyTorch header is included, so a build
 takes seconds, not minutes. The library's file name carries a hash of its
-source and flags, so an edited source never loads a stale build. Builds
-happen at first use (or all at once through `build_all`, one nvcc process
-per source, all started together), never at import.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header never loads a stale build. Builds happen at first use (or
+all at once through `build_all`, one nvcc process per source, all started
+together), never at import.
 """
 from __future__ import annotations
 
@@ -60,10 +61,15 @@ def toolkit_tool(tool):
 
 
 def _lib_path(name, extra):
+    """The source of `name` and its library's path, whose hash covers the
+    source, every shared header in csrc/ (any source may include one) and
+    the flags."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(_FLAGS + extra).encode()).hexdigest()
-    return src, BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(_FLAGS + extra).encode())
+    return src, BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def lib_path(name):

@@ -19,6 +19,10 @@ v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
   CUDA tensors those launch the two kernels of
   ``csrc/flash_attention_bwd.cu``; on CPU tensors they run their twins
   `flash_attention_bwd_dq_reference` / `flash_attention_bwd_dkv_reference`.
+  As in the forward, bf16 inputs go to the tensor-core kernels (wgmma, TMA;
+  q, k, v and dO must pass `_tma_compatible`) and fp32 inputs to the fp32
+  FMA kernels; the bf16 criteria are `flash_bwd_bf16_tol` and
+  `FLASH_BWD_BF16_FRO_RTOL`.
 - `FlashAttention` / `flash_attention_bnhd` is the differentiable entry:
   the same Function on both devices, so a CPU test sees the graph the card
   sees.
@@ -41,7 +45,9 @@ from . import _build
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "flash_fwd_bf16_tol", "rel_fro",
            "FLASH_FWD_BF16_ATOL_PER_V", "FLASH_FWD_BF16_RTOL",
-           "FLASH_FWD_BF16_FRO_RTOL",
+           "FLASH_FWD_BF16_FRO_RTOL", "flash_bwd_bf16_tol",
+           "FLASH_BWD_BF16_ATOL_FACTOR", "FLASH_BWD_BF16_RTOL",
+           "FLASH_BWD_BF16_FRO_RTOL",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -73,6 +79,29 @@ _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
 FLASH_FWD_BF16_ATOL_PER_V = 2.0 ** -8
 FLASH_FWD_BF16_RTOL = 8e-3
 FLASH_FWD_BF16_FRO_RTOL = 4e-3
+# The bf16 backward against its fp32 twin: the kernels round two operands
+# to bf16 for the tensor cores where the twin keeps them in fp32, P (the A
+# operand of dV += P^T dO) and dS (of dQ += dS K and dK += dS^T Q); S, dP
+# and every sum stay fp32 on both sides, up to summation order. Each
+# rounded element moves by at most 2^-9 of itself, so element by element
+#   |dV - dV'| <= 2^-9 P^T |dO|,   |dQ - dQ'| <= 2^-9 scale |dS| |K|,
+#   |dK - dK'| <= 2^-9 scale |dS|^T |Q|.
+# atol is twice the largest of these bounds over the case's elements
+# (FLASH_BWD_BF16_ATOL_FACTOR = 2 * 2^-9 times it, from the twin's P and
+# dS); then one bf16 rounding of the output, at most 2^-8 of the value,
+# held by rtol 8e-3 as in the forward. So the kernels' arithmetic uses at
+# most half of each term. A loose atol could hide a systematic error, so
+# the relative Frobenius error of each of dQ, dK and dV is held as well:
+# one bf16 rounding is at most 2^-7 / sqrt(12) ~ 2.3e-3 rms of the value
+# (~1.6e-3 averaged over mantissas), and the kernel against its twin sees
+# three (the operand's, and the output's on each side), about 2.8e-3 in
+# quadrature on random data. The limit is 5e-3, under twice that, and
+# ten times below what a 3-mantissa-bit rounding of P and dS gives. fp32
+# inputs run the fp32 FMA kernels, which round nothing to bf16, and keep
+# the tight fp32 tolerance.
+FLASH_BWD_BF16_ATOL_FACTOR = 2 * 2.0 ** -9
+FLASH_BWD_BF16_RTOL = 8e-3
+FLASH_BWD_BF16_FRO_RTOL = 5e-3
 # TMA's limits on a tensor map: a 16-byte aligned base, byte strides that
 # are multiples of 16 and below 2**40
 _TMA_ALIGN = 16
@@ -146,6 +175,23 @@ def flash_fwd_bf16_tol(v):
             FLASH_FWD_BF16_RTOL)
 
 
+def flash_bwd_bf16_tol(q, k, v, do, lse, delta, causal, scale):
+    """``{"dq": (atol, rtol), "dk": ..., "dv": ...}`` of the bf16 backward
+    against its fp32 twins for one case (the twins' arguments): atol is
+    FLASH_BWD_BF16_ATOL_FACTOR times the largest rounding bound of each
+    output, from the twin's P and dS (see FLASH_BWD_BF16_ATOL_FACTOR); the
+    relative Frobenius error of each is held to FLASH_BWD_BF16_FRO_RTOL
+    besides (`rel_fro`)."""
+    qt, kt, gt, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    ds = ds.abs()
+    bounds = {"dq": (ds @ kt.abs()) * scale,            # qt carries scale
+              "dk": ds.transpose(-1, -2) @ qt.abs(),
+              "dv": p.transpose(-1, -2) @ gt.abs()}
+    return {name: (FLASH_BWD_BF16_ATOL_FACTOR * float(bound.max()),
+                   FLASH_BWD_BF16_RTOL)
+            for name, bound in bounds.items()}
+
+
 def rel_fro(got, want):
     """||got - want||_F / ||want||_F, in float64."""
     got, want = got.double(), want.double()
@@ -154,7 +200,7 @@ def rel_fro(got, want):
 
 def _tma_compatible(t, name):
     """None when TMA can read `t` as a ``[B, N, H, D]`` operand of the bf16
-    forward kernel; else why not, naming the tensor `name`. TMA needs a
+    kernels; else why not, naming the tensor `name`. TMA needs a
     16-byte aligned base and byte strides that are multiples of 16 (so a
     multiple of 8 bf16 elements), each below 2**40; a size-1 dimension's
     stride is never used. The fused-qkv views of the model qualify: a row
@@ -177,6 +223,16 @@ def _tma_compatible(t, name):
     return None
 
 
+def _require_tma(what, **tensors):
+    """Raise ValueError naming the first of `tensors` (name=tensor) that
+    TMA cannot read (`_tma_compatible`); `what` names the caller."""
+    for name, t in tensors.items():
+        why = _tma_compatible(t, name)
+        if why is not None:
+            raise ValueError(f"{what}: the bf16 kernel loads through TMA "
+                             f"and cannot read {why}")
+
+
 def _tma_strides(t):
     """`t`'s (batch, seq, head) element strides for its tensor map, with
     the stride of a size-1 dimension (never used, but checked by the CUDA
@@ -192,6 +248,19 @@ def _tma_strides(t):
     return strides[::-1]
 
 
+def _raise_for(err, name):
+    """Raise for a kernel entry's nonzero return: a cudaError_t, or one of
+    the bf16 entries' tensor-map codes."""
+    if err >= _ERR_ENCODE:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {err - _ERR_ENCODE}")
+    if err == _ERR_NO_ENCODER:
+        raise RuntimeError(f"{name}: the CUDA driver offers no "
+                           "cuTensorMapEncodeTiled")
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
 def flash_attention_fwd(q, k, v, causal, scale=None):
     """FlashAttention forward over ``[B, N, H, D]`` q, k, v. Returns
     ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
@@ -205,11 +274,7 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
         scale = 1.0 / math.sqrt(d)
     bf16 = q.dtype == torch.bfloat16
     if bf16:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            why = _tma_compatible(t, name)
-            if why is not None:
-                raise ValueError("flash forward: the bf16 kernel loads "
-                                 f"through TMA and cannot read {why}")
+        _require_tma("flash forward", q=q, k=k, v=v)
         strides = [s for t in (q, k, v) for s in _tma_strides(t)]
     else:
         strides = [t.stride(i) for t in (q, k, v) for i in range(3)]
@@ -226,14 +291,7 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
                  ctypes.c_void_p(lse.data_ptr()), b, n, m, h, d, *strides,
                  float(scale), int(bool(causal)), int(bf16),
                  ctypes.c_void_p(stream))
-    if err >= _ERR_ENCODE:
-        raise RuntimeError("flash_attention_fwd: cuTensorMapEncodeTiled "
-                           f"failed with CUresult {err - _ERR_ENCODE}")
-    if err == _ERR_NO_ENCODER:
-        raise RuntimeError("flash_attention_fwd: the CUDA driver offers no "
-                           "cuTensorMapEncodeTiled")
-    if err != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
+    _raise_for(err, "flash_attention_fwd")
     launches["flash_attention_fwd"] += 1
     return out, lse
 
@@ -303,23 +361,25 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
             raise ValueError(f"{label} must be contiguous float32 [B*H, N] "
                              f"= [{b * h}, {n}] on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        _require_tma(f"flash_attention_bwd_{name}", q=q, k=k, v=v, do=do)
+        strides = [s for t in (q, k, v, do) for s in _tma_strides(t)]
+    else:
+        strides = [t.stride(i) for t in (q, k, v, do) for i in range(3)]
     fn = getattr(_build.load("flash_attention_bwd"),
                  f"paddle_flash_attention_bwd_{name}")
     fn.argtypes = (_BWD_ARGTYPES[:6] + [ctypes.c_void_p] * len(outs)
                    + _BWD_ARGTYPES[6:])
     fn.restype = ctypes.c_int
-    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, do)
-                                         for i in range(3)))
+    strides = (ctypes.c_longlong * 12)(*strides)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(*(ctypes.c_void_p(t.data_ptr())
                    for t in (q, k, v, do, lse, delta, *outs)),
                  b, n, k.shape[1], h, d, strides, float(scale),
-                 int(bool(causal)), 0 if q.dtype == torch.float32 else 1,
-                 ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_{name} launch failed: "
-                           f"cudaError {err}")
+                 int(bool(causal)), int(bf16), ctypes.c_void_p(stream))
+    _raise_for(err, f"flash_attention_bwd_{name}")
     launches[f"flash_attention_bwd_{name}"] += 1
 
 
@@ -387,10 +447,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1:
+        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+                                  and _tma_compatible(do, "do") is not None):
             # the kernels read dO's rows in place whatever their strides,
             # but not an expanded gradient (the gradient of a sum has
-            # stride 0 everywhere): that one is copied
+            # stride 0 everywhere), nor in bf16 one that TMA cannot read:
+            # this Function owns the gradient, so it copies those
             do = do.contiguous()
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale)

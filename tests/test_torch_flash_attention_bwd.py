@@ -137,3 +137,101 @@ def test_bwd_wrapper_rejects_what_the_kernels_cannot_take():
         tfa.flash_attention_bwd(q, k[:, :4], v[:, :4], out, lse, g, True)
     assert get_flags("FLAGS_use_flash_attention") == {
         "FLAGS_use_flash_attention": True}
+
+
+def _round_bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _round_e4m3_like(x):
+    """x with 3 mantissa bits kept (truncated), as an fp8 e4m3 value keeps;
+    no exponent limit (only the mantissa's coarseness matters here)."""
+    mant, exp = torch.frexp(x)                  # |mant| in [0.5, 1)
+    return torch.ldexp(torch.trunc(mant * 16) / 16, exp)
+
+
+def _tensor_core_backward(q, k, v, do, lse, delta, causal, scale, round_op):
+    """The bf16 kernels' arithmetic in plain torch: fp32 S and dP from bf16
+    q, k, v, dO; P = exp(scale S - lse) and dS = P (dP - Delta) in fp32; P
+    and dS rounded by `round_op` before their products (dV = P^T dO, dQ =
+    scale dS K, dK = scale dS^T Q), fp32 sums, one bf16 rounding of each
+    output."""
+    qt, kt, vt, gt = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    b, h, n, _ = qt.shape
+    m = kt.shape[2]
+    p = torch.exp((qt @ kt.transpose(-1, -2)) * scale
+                  - lse.reshape(b, h, n, 1))
+    if causal:
+        p = p.masked_fill(~torch.ones(n, m, dtype=torch.bool).tril(), 0.0)
+    ds = p * (gt @ vt.transpose(-1, -2) - delta.reshape(b, h, n, 1))
+    grads = ((round_op(ds) @ kt) * scale,
+             (round_op(ds).transpose(-1, -2) @ qt) * scale,
+             round_op(p).transpose(-1, -2) @ gt)
+    return [g.transpose(1, 2).to(torch.bfloat16) for g in grads]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n", [8, 40, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_backward_criteria_bite_on_operand_rounding(n, d, causal):
+    """P and dS rounded to bf16 (the kernels' design) pass both bf16
+    backward criteria (`flash_bwd_bf16_tol`, FLASH_BWD_BF16_FRO_RTOL) with
+    margin against the JAX package's fp32 backward on the same
+    bf16-representable inputs, for each of dQ, dK and dV; P and dS rounded
+    to 3 mantissa bits fail both."""
+    b, h = 1, 2
+    rng = np.random.default_rng(200 + n + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    if n % 128 == 0:
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, causal, scale, block_q=128,
+                                      block_k=128, interpret=True)
+        ref = jfa._flash_bwd(jq, jk, jv, j_out, j_lse, jg, causal, scale,
+                             block_q=128, block_k=128, interpret=True)
+    else:
+        _, vjp = jax.vjp(
+            lambda qq, kk, vv: _plain_attention(qq, kk, vv, None, causal,
+                                                scale), jq, jk, jv)
+        ref = vjp(jg)
+    ref = [torch.from_numpy(np.array(r, dtype=np.float32)) for r in ref]
+    # the kernels' lse and Delta inputs, from the fp32 forward
+    out, lse = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal, scale)
+    delta = tfa.flash_attention_delta(out, do.float())
+    args = (q, k, v, do, lse, delta, causal, scale)
+    tols = tfa.flash_bwd_bf16_tol(*args)
+    good = _tensor_core_backward(*args, _round_bf16)
+    coarse = _tensor_core_backward(*args, _round_e4m3_like)
+    for name, g, c, r in zip(("dq", "dk", "dv"), good, coarse, ref):
+        atol, rtol = tols[name]
+        limit = atol + rtol * r.abs()
+        excess = ((g.float() - r).abs() / limit).max().item()
+        fro = tfa.rel_fro(g, r) / tfa.FLASH_BWD_BF16_FRO_RTOL
+        assert excess <= 0.5 and fro <= 0.75, (name, excess, fro)
+        excess = ((c.float() - r).abs() / limit).max().item()
+        fro = tfa.rel_fro(c, r) / tfa.FLASH_BWD_BF16_FRO_RTOL
+        assert excess > 1 and fro > 1, (name, excess, fro)
+
+
+def test_bwd_tma_rule_takes_strided_do_and_fused_views_names_do():
+    """The bf16 backward kernels read q, k, v and dO through TMA: the fused
+    qkv views of GPT-2's projection ([B, N, 3, 12, 64]) and a gradient laid
+    out [B, H, N, D] and viewed as [B, N, H, D] (the strided dO the card
+    check uses) pass; a dO 2 bytes off a 16-byte boundary is refused,
+    naming it."""
+    b, n, heads, head_dim = 2, 24, 12, 64
+    qkv = torch.zeros((b, n, 3, heads, head_dim), dtype=torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    do = torch.zeros((b, heads, n, head_dim),
+                     dtype=torch.bfloat16).transpose(1, 2)
+    tfa._require_tma("flash_attention_bwd_dq", q=q, k=k, v=v, do=do)
+    for t in (q, k, v, do):
+        assert all(s > 0 and s % 8 == 0 for s in tfa._tma_strides(t))
+    width = heads * head_dim
+    buf = torch.zeros((b, n, width + 8), dtype=torch.bfloat16)
+    bad = buf[..., 1:1 + width].view(b, n, heads, head_dim)
+    with pytest.raises(ValueError, match=r"cannot read do: base address"):
+        tfa._require_tma("flash_attention_bwd_dkv", q=q, k=k, v=v, do=bad)
