@@ -48,9 +48,11 @@
 //     Delta are indexed by column there: the producer warp stores the
 //     tile's 64 values (lse already times log2 e) beside it in shared
 //     memory, and its 32 lanes arrive on the tile's full barrier.
-//   * Each warpgroup pipelines its tiles: tile j's first two products are
-//     issued together with tile j-1's accumulating ones, and tile j's
-//     elementwise work runs while those are on the tensor cores.
+//   * The dQ warpgroup pipelines its tiles: tile j's first two products
+//     are issued together with tile j-1's dQ product, and tile j's
+//     elementwise work runs while that is on the tensor cores. The dK/dV
+//     warpgroup runs its tiles in sequence (pipelined, it needs too many
+//     registers; see there), and two CTAs on an SM overlap each other.
 //   * Masking: TMA zero-fills rows past N or M, but a zero row still gives
 //     P = exp(-lse) != 0, so probability is set to exactly 0 for keys past
 //     M, queries past N and above the causal diagonal, on the diagonal tile
@@ -454,7 +456,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
 }
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kWgmmaThreads, 2)
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -621,10 +623,8 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                 dq_acc, row0, n, heads, col0, scale);
 }
 
-// dK/dV: up to 64 + 64 accumulator registers each at D = 128, so that
-// instantiation may use every register of an SM's share for one CTA
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kWgmmaThreads, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
@@ -711,10 +711,10 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   float dk_acc[D / 2], dv_acc[D / 2];
   zero(dk_acc);
   zero(dv_acc);
-  float sc[32];        // S^T of the newest tile, then its P^T in fp32
-  float dp[32];        // dP^T of the newest tile, then its dS^T / scale
-  uint32_t pa[16];     // P^T of the tile whose products are next, bf16
-  uint32_t da[16];     // dS^T / scale of that tile, bf16
+  float sc[32];        // S^T of the tile, then its P^T in fp32
+  float dp[32];        // dP^T of the tile, then its dS^T / scale
+  uint32_t pa[16];     // P^T, bf16 pairs
+  uint32_t da[16];     // dS^T / scale, bf16 pairs
   const uint32_t k_addr = smem_u32(sm.k[0]);
   const uint32_t v_addr = smem_u32(sm.v[0]);
 
@@ -758,50 +758,34 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
   };
 
-  // Software pipeline, as the dQ kernel: S^T_j and dP^T_j are issued
-  // together with tile j-1's dV and dK products.
+  // The tiles run in sequence. Pipelined as in the dQ kernel, P^T, dS^T,
+  // the next tile's scores and both accumulators are live at once: ptxas
+  // then spills or serializes the wgmmas at D = 64, or leaves room for one
+  // CTA an SM, and each lost on the card to this order with two CTAs an
+  // SM overlapping each other's elementwise work and products (PERF.md
+  // section 6; tools/torch_flash_bwd_variants.py).
   mbar_wait(&sm.kv_full, 0);
-  zero(sc);
-  zero(dp);
-  wait_qg(0);
-  wgmma_fence();
-  issue_scores(0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  fence_regs(dp);
-  grad_scores(0);
-  pack(pa, sc);
-  pack(da, dp);
-  for (int j = 1; j < n_tiles; ++j) {
+  for (int j = 0; j < n_tiles; ++j) {
     zero(sc);
     zero(dp);
     wait_qg(j);
     wgmma_fence();
     issue_scores(j);
     wgmma_commit();
-    issue_dkv(j - 1);
-    wgmma_commit();
-    wgmma_wait<1>();           // S^T_j, dP^T_j are in; tile j-1's may run
+    wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
     grad_scores(j);
+    pack(pa, sc);
+    pack(da, dp);
+    wgmma_fence();
+    issue_dkv(j);
+    wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk_acc);
     fence_regs(dv_acc);
-    fence_regs(sc);            // pa and da are rewritten only after the wait
-    fence_regs(dp);
-    release(j - 1);
-    pack(pa, sc);
-    pack(da, dp);
+    release(j);
   }
-  wgmma_fence();
-  issue_dkv(n_tiles - 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(dk_acc);
-  fence_regs(dv_acc);
-  release(n_tiles - 1);
 
   const int64_t out = ((static_cast<int64_t>(b) * m + row0) * heads + h) * D;
   store_rows<D>(dk + out, dk_acc, row0, m, heads, col0, scale);

@@ -7,19 +7,21 @@ Builds variants of ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` side by
 side with nvcc under ``build/flash_bwd_variants/`` and prints what ptxas
 says of their wgmma kernels (registers, spills, serialized wgmma):
 
-  bounds2    dQ under ``__launch_bounds__(160, 2)``, dK/dV under (160, 2)
-             at D = 64 and (160, 1) at D = 128;
-  bounds1    both kernels under (160, 1);
-  unpiped    as bounds1, with the dK/dV kernel's tiles in sequence (no
-             pipelining of tile j's first products with tile j-1's
-             accumulating ones).
+  source     the file as it is: both kernels under
+             ``__launch_bounds__(160, 1)``, dK/dV tiles in sequence;
+  piped2     dK/dV pipelined as the dQ kernel is (tile j's S^T and dP^T
+             issued with tile j-1's dV and dK products), dQ under (160, 2),
+             dK/dV under (160, 2) at D = 64 and (160, 1) at D = 128;
+  piped1     dK/dV pipelined, both kernels under (160, 1);
+  split      dK/dV tiles in sequence, S^T and dP^T committed apart so that
+             P^T's exponentials run while dP^T is on the tensor cores.
 
 Each variant is held against the plain twins with `chip_smoke.py`'s bf16
 criteria, then dQ and dK/dV are timed at the training shape (8, 1024, 12,
-64) bf16 causal in turns (bounds2, bounds1, unpiped, unpiped, bounds1,
-bounds2) within one process, and at D = 128 ((8, 1024, 6, 128)) once
-each. The card's name and power limit come first. Needs a Hopper card,
-nvcc and the repository's root as the working directory.
+64) bf16 causal in turns (each variant, then in reverse) within one
+process, and at D = 128 ((8, 1024, 6, 128)) once each. The card's name and
+power limit come first. Needs a Hopper card, nvcc and the repository's
+root as the working directory.
 """
 from __future__ import annotations
 
@@ -42,21 +44,85 @@ CSRC = ROOT / "paddle_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "flash_bwd_variants"
 _BOUNDS = re.compile(r"__launch_bounds__\(kWgmmaThreads, [^)]*\)\n"
                      r"(flash_bwd_(dq|dkv)_kernel_wgmma)")
-_PIPELINE = re.compile(
-    r"  // Software pipeline, as the dQ kernel:.*?release\(n_tiles - 1\);\n",
-    re.S)
-_SEQUENTIAL = """  mbar_wait(&sm.kv_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
+_LOOP = re.compile(r"  // The tiles run in sequence\..*?    release\(j\);\n  }\n",
+                   re.S)
+_PIPELINED = """  mbar_wait(&sm.kv_full, 0);
+  zero(sc);
+  zero(dp);
+  wait_qg(0);
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  fence_regs(dp);
+  grad_scores(0);
+  pack(pa, sc);
+  pack(da, dp);
+  for (int j = 1; j < n_tiles; ++j) {
     zero(sc);
     zero(dp);
     wait_qg(j);
     wgmma_fence();
     issue_scores(j);
     wgmma_commit();
-    wgmma_wait<0>();
+    issue_dkv(j - 1);
+    wgmma_commit();
+    wgmma_wait<1>();
     fence_regs(sc);
     fence_regs(dp);
     grad_scores(j);
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_regs(sc);
+    fence_regs(dp);
+    release(j - 1);
+    pack(pa, sc);
+    pack(da, dp);
+  }
+  wgmma_fence();
+  issue_dkv(n_tiles - 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(dk_acc);
+  fence_regs(dv_acc);
+  release(n_tiles - 1);
+"""
+_SPLIT = """  mbar_wait(&sm.kv_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int t0 = (t_begin + j) * kRows;
+    const bool edge = t0 + kRows > n || k0 + kRows > m ||
+                      (kCausal && t0 < k0 + kRows);
+    zero(sc);
+    zero(dp);
+    wait_qg(j);
+    wgmma_fence();
+    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));
+    wgmma_commit();
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      float p = ex2(fmaf(sc[i], scale_log2, -sm.lse2[s][col]));
+      if (edge) {
+        const int key = row0 + 8 * ((i / 2) % 2);
+        const int query = t0 + col;
+        if (query >= n || key >= m || (kCausal && query < key)) p = 0.f;
+      }
+      sc[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+    }
     pack(pa, sc);
     pack(da, dp);
     wgmma_fence();
@@ -79,13 +145,19 @@ def _bounds(src, dq, dkv):
     return out
 
 
+def _loop(src, loop):
+    out, count = _LOOP.subn(lambda _: loop, src)
+    assert count == 1, count
+    return out
+
+
 def variants():
     src = (CSRC / "flash_attention_bwd.cu").read_text()
-    bounds1 = _bounds(src, "1", "1")
-    unpiped, count = _PIPELINE.subn(lambda _: _SEQUENTIAL, bounds1)
-    assert count == 1, count
-    return {"bounds2": _bounds(src, "2", "D == 64 ? 2 : 1"),
-            "bounds1": bounds1, "unpiped": unpiped}
+    piped1 = _loop(_bounds(src, "1", "1"), _PIPELINED)
+    return {"source": src,
+            "piped2": _bounds(piped1, "2", "D == 64 ? 2 : 1"),
+            "piped1": piped1,
+            "split": _loop(src, _SPLIT)}
 
 
 def build(sources):
