@@ -52,7 +52,8 @@
 //     are issued together with tile j-1's dQ product, and tile j's
 //     elementwise work runs while that is on the tensor cores. The dK/dV
 //     warpgroup runs its tiles in sequence (pipelined, it needs too many
-//     registers; see there), and two CTAs on an SM overlap each other.
+//     registers; see there), P^T's exponentials under the dP^T product,
+//     and two CTAs on an SM overlap each other.
 //   * Masking: TMA zero-fills rows past N or M, but a zero row still gives
 //     P = exp(-lse) != 0, so probability is set to exactly 0 for keys past
 //     M, queries past N and above the causal diagonal, on the diagonal tile
@@ -723,10 +724,6 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto wait_qg = [&](int j) {
     mbar_wait(&sm.qg_full[j % kStages], (j / kStages) & 1);
   };
-  auto issue_scores = [&](int j) {
-    issue_ss<D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
-  };
   auto issue_dkv = [&](int j) {
     issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
     issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
@@ -736,10 +733,10 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
   };
-  // sc becomes P^T and dp dS^T / scale of tile j, in place. Accumulator
-  // layout: element i is key row0 + 8 * ((i / 2) % 2), query
-  // t0 + 8 * (i / 4) + col0 + i % 2: lse and Delta by column.
-  auto grad_scores = [&](int j) {
+  // sc becomes P^T of tile j, in place. Accumulator layout: element i is
+  // key row0 + 8 * ((i / 2) % 2), query t0 + 8 * (i / 4) + col0 + i % 2:
+  // lse (and Delta) by column.
+  auto probs = [&](int j) {
     const int s = j % kStages;
     const int t0 = (t_begin + j) * kRows;
     const bool edge = t0 + kRows > n || k0 + kRows > m ||
@@ -754,28 +751,42 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
         if (query >= n || key >= m || (kCausal && query < key)) p = 0.f;
       }
       sc[i] = p;
-      dp[i] = p * (dp[i] - sm.delta[s][col]);
+    }
+  };
+  // dp becomes dS^T / scale = P^T (dP^T - Delta) of tile j, in place
+  auto grads = [&](int j) {
+    const float* dlt = sm.delta[j % kStages];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      dp[i] = sc[i] * (dp[i] - dlt[8 * (i / 4) + col0 + (i % 2)]);
     }
   };
 
-  // The tiles run in sequence. Pipelined as in the dQ kernel, P^T, dS^T,
-  // the next tile's scores and both accumulators are live at once: ptxas
-  // then spills or serializes the wgmmas at D = 64, or leaves room for one
-  // CTA an SM, and each lost on the card to this order with two CTAs an
-  // SM overlapping each other's elementwise work and products (PERF.md
-  // section 6; tools/torch_flash_bwd_variants.py).
+  // The tiles run in sequence; within one, S^T and dP^T are committed
+  // apart, so that P^T's exponentials run while dP^T is still on the
+  // tensor cores. Pipelined across tiles as in the dQ kernel, P^T, dS^T,
+  // the next tile's scores and both accumulators are live at once, and
+  // ptxas then spills and serializes the wgmmas at D = 64 or leaves room
+  // for one CTA an SM: each such variant lost on the card to this order,
+  // in which two CTAs an SM overlap each other's elementwise work and
+  // products (PERF.md section 6; tools/torch_flash_bwd_variants.py).
   mbar_wait(&sm.kv_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
     zero(sc);
     zero(dp);
     wait_qg(j);
     wgmma_fence();
-    issue_scores(j);
+    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));      // S^T = K Q^T
     wgmma_commit();
-    wgmma_wait<0>();
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));      // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<1>();
     fence_regs(sc);
+    probs(j);
+    wgmma_wait<0>();
     fence_regs(dp);
-    grad_scores(j);
+    grads(j);
     pack(pa, sc);
     pack(da, dp);
     wgmma_fence();
