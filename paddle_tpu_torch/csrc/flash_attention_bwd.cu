@@ -48,12 +48,13 @@
 //     Delta are indexed by column there: the producer warp stores the
 //     tile's 64 values (lse already times log2 e) beside it in shared
 //     memory, and its 32 lanes arrive on the tile's full barrier.
-//   * The dQ warpgroup pipelines its tiles: tile j's first two products
-//     are issued together with tile j-1's dQ product, and tile j's
-//     elementwise work runs while that is on the tensor cores. The dK/dV
-//     warpgroup runs its tiles in sequence (pipelined, it needs too many
-//     registers; see there), P^T's exponentials under the dP^T product,
-//     and two CTAs on an SM overlap each other.
+//   * Each warpgroup takes its tiles in sequence, and commits the tile's
+//     two score products apart, so that P's exponentials run while the
+//     second product (dP, or dP^T) is still on the tensor cores; the other
+//     CTAs on the SM fill the rest. Pipelining across tiles (tile j's
+//     scores issued with tile j-1's accumulating products) and a dV
+//     product issued before dS^T was computed each lost on the card
+//     (PERF.md section 6, tools/torch_flash_bwd_variants.py).
 //   * Masking: TMA zero-fills rows past N or M, but a zero row still gives
 //     P = exp(-lse) != 0, so probability is set to exactly 0 for keys past
 //     M, queries past N and above the causal diagonal, on the diagonal tile
@@ -538,9 +539,9 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 
   float dq_acc[D / 2];
   zero(dq_acc);
-  float sc[32];        // S of the newest tile, then its dS in fp32
-  float dp[32];        // dP of the newest tile
-  uint32_t da[16];     // dS of the tile whose dS K is next, bf16 pairs
+  float sc[32];        // S of the tile, then P, then dS / scale, in fp32
+  float dp[32];        // dP of the tile
+  uint32_t da[16];     // dS / scale, bf16 pairs
   const uint32_t q_addr = smem_u32(sm.q[0]);
   const uint32_t g_addr = smem_u32(sm.g[0]);
 
@@ -549,10 +550,7 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto wait_kv = [&](int j) {
     mbar_wait(&sm.kv_full[j % kStages], (j / kStages) & 1);
   };
-  auto issue_scores = [&](int j) {
-    issue_ss<D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));
-    issue_ss<D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));
-  };
+  // dQ += dS K_j
   auto issue_dq = [&](int j) {
     issue_rs<D>(dq_acc, da, smem_u32(sm.k[j % kStages][0]));
   };
@@ -561,12 +559,25 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
   };
-  // sc becomes dS / scale = P (dP - Delta) of tile j, in place.
-  // Accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2), key
-  // j * 64 + 8 * (i / 4) + col0 + i % 2.
-  auto grad_scores = [&](int j) {
+
+  // Tile by tile: S and dP are committed apart, so that P's exponentials
+  // run while dP is still on the tensor cores; other CTAs on the SM fill
+  // the rest. Accumulator layout: sc[i] is row row0 + 8 * ((i / 2) % 2),
+  // key j * 64 + 8 * (i / 4) + col0 + i % 2.
+  mbar_wait(&sm.qg_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
     const int key0 = j * kRows;
     const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > q0);
+    zero(sc);
+    zero(dp);
+    wait_kv(j);
+    wgmma_fence();
+    issue_ss<D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));   // S = Q K^T
+    wgmma_commit();
+    issue_ss<D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));   // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = (i / 2) % 2;
@@ -575,50 +586,20 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
         const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
         if (key >= m || (kCausal && key > row0 + 8 * r)) p = 0.f;
       }
-      sc[i] = p * (dp[i] - dlt[r]);
+      sc[i] = p;
     }
-  };
-
-  // Software pipeline within the warpgroup: S_j and dP_j are issued
-  // together with dS_{j-1} K_{j-1}, and tile j's dS is computed while that
-  // product is still on the tensor cores.
-  mbar_wait(&sm.qg_full, 0);
-  zero(sc);
-  zero(dp);
-  wait_kv(0);
-  wgmma_fence();
-  issue_scores(0);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(sc);
-  fence_regs(dp);
-  grad_scores(0);
-  pack(da, sc);
-  for (int j = 1; j < n_tiles; ++j) {
-    zero(sc);
-    zero(dp);
-    wait_kv(j);
-    wgmma_fence();
-    issue_scores(j);
-    wgmma_commit();
-    issue_dq(j - 1);
-    wgmma_commit();
-    wgmma_wait<1>();           // S_j, dP_j are in; dS_{j-1} K_{j-1} may run
-    fence_regs(sc);
+    wgmma_wait<0>();
     fence_regs(dp);
-    grad_scores(j);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
+    pack(da, sc);
+    wgmma_fence();
+    issue_dq(j);
+    wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq_acc);
-    fence_regs(sc);            // da is rewritten only after the wait
-    release(j - 1);
-    pack(da, sc);
+    release(j);
   }
-  wgmma_fence();
-  issue_dq(n_tiles - 1);
-  wgmma_commit();
-  wgmma_wait<0>();
-  fence_regs(dq_acc);
-  release(n_tiles - 1);
 
   store_rows<D>(dq + ((static_cast<int64_t>(b) * n + row0) * heads + h) * D,
                 dq_acc, row0, n, heads, col0, scale);
@@ -724,6 +705,7 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   auto wait_qg = [&](int j) {
     mbar_wait(&sm.qg_full[j % kStages], (j / kStages) & 1);
   };
+  // dV += P^T dO_j, dK += dS^T Q_j
   auto issue_dkv = [&](int j) {
     issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
     issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
@@ -733,14 +715,31 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[j % kStages]);
   };
-  // sc becomes P^T of tile j, in place. Accumulator layout: element i is
-  // key row0 + 8 * ((i / 2) % 2), query t0 + 8 * (i / 4) + col0 + i % 2:
-  // lse (and Delta) by column.
-  auto probs = [&](int j) {
+
+  // Tile by tile, as the dQ kernel: S^T and dP^T are committed apart, so
+  // that P^T's exponentials run while dP^T is still on the tensor cores.
+  // Accumulator layout: element i is key row0 + 8 * ((i / 2) % 2), query
+  // t0 + 8 * (i / 4) + col0 + i % 2: lse and Delta by column. Pipelined
+  // across tiles, P^T, dS^T, the next tile's scores and both accumulators
+  // are live at once, and ptxas then spills and serializes the wgmmas at
+  // D = 64 or leaves room for one CTA an SM: each such variant lost on the
+  // card to this order (PERF.md section 6; tools/torch_flash_bwd_variants.py).
+  mbar_wait(&sm.kv_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
     const int s = j % kStages;
     const int t0 = (t_begin + j) * kRows;
     const bool edge = t0 + kRows > n || k0 + kRows > m ||
                       (kCausal && t0 < k0 + kRows);
+    zero(sc);
+    zero(dp);
+    wait_qg(j);
+    wgmma_fence();
+    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));      // S^T = K Q^T
+    wgmma_commit();
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));      // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int col = 8 * (i / 4) + col0 + (i % 2);
@@ -752,41 +751,13 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       }
       sc[i] = p;
     }
-  };
-  // dp becomes dS^T / scale = P^T (dP^T - Delta) of tile j, in place
-  auto grads = [&](int j) {
-    const float* dlt = sm.delta[j % kStages];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      dp[i] = sc[i] * (dp[i] - dlt[8 * (i / 4) + col0 + (i % 2)]);
-    }
-  };
-
-  // The tiles run in sequence; within one, S^T and dP^T are committed
-  // apart, so that P^T's exponentials run while dP^T is still on the
-  // tensor cores. Pipelined across tiles as in the dQ kernel, P^T, dS^T,
-  // the next tile's scores and both accumulators are live at once, and
-  // ptxas then spills and serializes the wgmmas at D = 64 or leaves room
-  // for one CTA an SM: each such variant lost on the card to this order,
-  // in which two CTAs an SM overlap each other's elementwise work and
-  // products (PERF.md section 6; tools/torch_flash_bwd_variants.py).
-  mbar_wait(&sm.kv_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % kStages;
-    zero(sc);
-    zero(dp);
-    wait_qg(j);
-    wgmma_fence();
-    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));      // S^T = K Q^T
-    wgmma_commit();
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));      // dP^T = V dO^T
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(sc);
-    probs(j);
     wgmma_wait<0>();
     fence_regs(dp);
-    grads(j);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+    }
     pack(pa, sc);
     pack(da, dp);
     wgmma_fence();

@@ -8,18 +8,18 @@ side with nvcc under ``build/flash_bwd_variants/`` and prints what ptxas
 says of their wgmma kernels (registers, spills, serialized wgmma):
 
   source     the file as it is: both kernels under
-             ``__launch_bounds__(160, 1)``; dK/dV tiles in sequence, S^T
-             and dP^T committed apart so that P^T's exponentials run while
-             dP^T is on the tensor cores;
-  sequence   dK/dV tiles in sequence, S^T and dP^T waited for together;
-  piped2     dK/dV pipelined as the dQ kernel is (tile j's S^T and dP^T
-             issued with tile j-1's dV and dK products), dQ under (160, 2),
-             dK/dV under (160, 2) at D = 64 and (160, 1) at D = 128;
-  piped1     dK/dV pipelined, both kernels under (160, 1);
+             ``__launch_bounds__(160, 1)`` take their tiles in sequence and
+             commit the two score products apart, so that P's exponentials
+             run while the second product is on the tensor cores;
+  piped2     the first design: each kernel pipelined across tiles (tile j's
+             score products issued with tile j-1's accumulating ones), dQ
+             under (160, 2), dK/dV under (160, 2) at D = 64 and (160, 1) at
+             D = 128;
+  piped1     the first design under (160, 1);
+  sequence   tiles in sequence, the two score products waited for
+             together;
   dv_early   as source, with dV += P^T dO issued as soon as P^T is packed,
-             so that dS^T is computed while it runs;
-  dq_split   dQ tiles in sequence (no pipelining across tiles), S and dP
-             committed apart so that P's exponentials run under dP.
+             so that dS^T is computed while it runs.
 
 Each variant is held against the plain twins with `chip_smoke.py`'s bf16
 criteria, then dQ and dK/dV are timed at the training shape (8, 1024, 12,
@@ -49,147 +49,165 @@ CSRC = ROOT / "paddle_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "flash_bwd_variants"
 _BOUNDS = re.compile(r"__launch_bounds__\(kWgmmaThreads, [^)]*\)\n"
                      r"(flash_bwd_(dq|dkv)_kernel_wgmma)")
-_LOOP = re.compile(r"  // The tiles run in sequence.*?    release\(j\);\n  }\n",
-                   re.S)
-_DQ_LOOP = re.compile(r"  // Software pipeline within the warpgroup:.*?"
-                      r"  release\(n_tiles - 1\);\n", re.S)
-_SCORES = """    issue_ss<D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
+_DQ_LOOP = re.compile(r"  // Tile by tile: S and dP are committed apart.*?"
+                      r"    release\(j\);\n  }\n", re.S)
+_DKV_LOOP = re.compile(r"  // Tile by tile, as the dQ kernel:.*?"
+                       r"    release\(j\);\n  }\n", re.S)
+
+
+def _dq_scores(j):
+    """Issue tile `j`'s S and dP (not committed)."""
+    return f"""    issue_ss<D>(sc, q_addr, smem_u32(sm.k[({j}) % kStages][0]));
+    issue_ss<D>(dp, g_addr, smem_u32(sm.v[({j}) % kStages][0]));
 """
-_PIPELINED = """  mbar_wait(&sm.kv_full, 0);
+
+
+def _dq_grad(j):
+    """sc becomes tile `j`'s dS / scale from S and dP."""
+    return f"""    {{
+      const int key0 = ({j}) * kRows;
+      const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > q0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {{
+        const int r = (i / 2) % 2;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
+        if (edge) {{
+          const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
+          if (key >= m || (kCausal && key > row0 + 8 * r)) p = 0.f;
+        }}
+        sc[i] = p * (dp[i] - dlt[r]);
+      }}
+    }}
+"""
+
+
+def _dkv_scores(j):
+    """Issue tile `j`'s S^T and dP^T (not committed)."""
+    return f"""    issue_ss<D>(sc, k_addr, smem_u32(sm.q[({j}) % kStages][0]));
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[({j}) % kStages][0]));
+"""
+
+
+def _dkv_probs(j):
+    """sc becomes tile `j`'s P^T."""
+    return f"""    {{
+      const int s = ({j}) % kStages;
+      const int t0 = (t_begin + ({j})) * kRows;
+      const bool edge = t0 + kRows > n || k0 + kRows > m ||
+                        (kCausal && t0 < k0 + kRows);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {{
+        const int col = 8 * (i / 4) + col0 + (i % 2);
+        float p = ex2(fmaf(sc[i], scale_log2, -sm.lse2[s][col]));
+        if (edge) {{
+          const int key = row0 + 8 * ((i / 2) % 2);
+          const int query = t0 + col;
+          if (query >= n || key >= m || (kCausal && query < key)) p = 0.f;
+        }}
+        sc[i] = p;
+      }}
+    }}
+"""
+
+
+def _dkv_grads(j):
+    """dp becomes tile `j`'s dS^T / scale from P^T and dP^T."""
+    return f"""#pragma unroll
+    for (int i = 0; i < 32; ++i) {{
+      dp[i] = sc[i] * (dp[i] - sm.delta[({j}) % kStages][8 * (i / 4) + col0 +
+                                                        (i % 2)]);
+    }}
+"""
+
+
+def _pipelined(wait, scores, elementwise, pack, accumulate, fences):
+    """One kernel's consumer loop pipelined across tiles."""
+    return f"""  {wait}
   zero(sc);
   zero(dp);
-  {
-    const int j = 0;
-    wait_qg(0);
-    wgmma_fence();
-""" + _SCORES + """    wgmma_commit();
-  }
+  {scores[0]}(0);
+  wgmma_fence();
+{scores[1]("0")}  wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
   fence_regs(dp);
-  probs(0);
-  grads(0);
-  pack(pa, sc);
-  pack(da, dp);
-  for (int j = 1; j < n_tiles; ++j) {
+{elementwise("0")}{pack}  for (int j = 1; j < n_tiles; ++j) {{
     zero(sc);
     zero(dp);
-    wait_qg(j);
+    {scores[0]}(j);
     wgmma_fence();
-""" + _SCORES + """    wgmma_commit();
-    issue_dkv(j - 1);
+{scores[1]("j")}    wgmma_commit();
+    {accumulate}(j - 1);
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
     fence_regs(dp);
-    probs(j);
-    grads(j);
-    wgmma_wait<0>();
-    fence_regs(dk_acc);
-    fence_regs(dv_acc);
-    fence_regs(sc);
+{elementwise("j")}    wgmma_wait<0>();
+{fences}    fence_regs(sc);
     fence_regs(dp);
     release(j - 1);
-    pack(pa, sc);
-    pack(da, dp);
-  }
+{pack}  }}
   wgmma_fence();
-  issue_dkv(n_tiles - 1);
+  {accumulate}(n_tiles - 1);
   wgmma_commit();
   wgmma_wait<0>();
-  fence_regs(dk_acc);
-  fence_regs(dv_acc);
-  release(n_tiles - 1);
+{fences}  release(n_tiles - 1);
 """
-_SEQUENCE = """  mbar_wait(&sm.kv_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
+
+
+def _sequence(wait, scores, elementwise, pack, accumulate, fences):
+    """One kernel's consumer loop, tiles in sequence, the two score
+    products waited for together."""
+    return f"""  {wait}
+  for (int j = 0; j < n_tiles; ++j) {{
     zero(sc);
     zero(dp);
-    wait_qg(j);
+    {scores[0]}(j);
     wgmma_fence();
-""" + _SCORES + """    wgmma_commit();
+{scores[1]("j")}    wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
     fence_regs(dp);
-    probs(j);
-    grads(j);
-    pack(pa, sc);
-    pack(da, dp);
-    wgmma_fence();
-    issue_dkv(j);
+{elementwise("j")}{pack}    wgmma_fence();
+    {accumulate}(j);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(dk_acc);
-    fence_regs(dv_acc);
-    release(j);
-  }
+{fences}    release(j);
+  }}
 """
+
+
+_DQ = ("mbar_wait(&sm.qg_full, 0);", ("wait_kv", _dq_scores), _dq_grad,
+       "    pack(da, sc);\n", "issue_dq", "    fence_regs(dq_acc);\n")
+_DKV = ("mbar_wait(&sm.kv_full, 0);", ("wait_qg", _dkv_scores),
+        lambda j: _dkv_probs(j) + _dkv_grads(j),
+        "    pack(pa, sc);\n    pack(da, dp);\n", "issue_dkv",
+        "    fence_regs(dk_acc);\n    fence_regs(dv_acc);\n")
 _DV_EARLY = """  mbar_wait(&sm.kv_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % kStages;
     zero(sc);
     zero(dp);
     wait_qg(j);
     wgmma_fence();
-    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));
+    issue_ss<D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
     wgmma_commit();
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));
+    issue_ss<D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
-    probs(j);
-    pack(pa, sc);
+""" + _dkv_probs("j") + """    pack(pa, sc);
     wgmma_wait<0>();
     fence_regs(dp);
     wgmma_fence();
-    issue_rs<D>(dv_acc, pa, smem_u32(sm.g[s][0]));
+    issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
     wgmma_commit();
-    grads(j);
-    pack(da, dp);
+""" + _dkv_grads("j") + """    pack(da, dp);
     wgmma_fence();
-    issue_rs<D>(dk_acc, da, smem_u32(sm.q[s][0]));
+    issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk_acc);
     fence_regs(dv_acc);
-    release(j);
-  }
-"""
-_DQ_SPLIT = """  mbar_wait(&sm.qg_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int key0 = j * kRows;
-    const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > q0);
-    zero(sc);
-    zero(dp);
-    wait_kv(j);
-    wgmma_fence();
-    issue_ss<D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));
-    wgmma_commit();
-    issue_ss<D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));
-    wgmma_commit();
-    wgmma_wait<1>();
-    fence_regs(sc);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i / 2) % 2;
-      float p = ex2(fmaf(sc[i], scale_log2, -lse2[r]));
-      if (edge) {
-        const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
-        if (key >= m || (kCausal && key > row0 + 8 * r)) p = 0.f;
-      }
-      sc[i] = p;
-    }
-    wgmma_wait<0>();
-    fence_regs(dp);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
-    pack(da, sc);
-    wgmma_fence();
-    issue_dq(j);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dq_acc);
     release(j);
   }
 """
@@ -210,15 +228,20 @@ def _sub(pattern, src, text):
     return out
 
 
+def _loops(src, kind):
+    """`src` with both consumer loops written by `kind` (_pipelined or
+    _sequence)."""
+    return _sub(_DKV_LOOP, _sub(_DQ_LOOP, src, kind(*_DQ)), kind(*_DKV))
+
+
 def variants():
     src = (CSRC / "flash_attention_bwd.cu").read_text()
-    piped1 = _sub(_LOOP, src, _PIPELINED)
+    piped1 = _loops(src, _pipelined)
     return {"source": src,
-            "sequence": _sub(_LOOP, src, _SEQUENCE),
             "piped2": _bounds(piped1, "2", "D == 64 ? 2 : 1"),
             "piped1": piped1,
-            "dv_early": _sub(_LOOP, src, _DV_EARLY),
-            "dq_split": _sub(_DQ_LOOP, src, _DQ_SPLIT)}
+            "sequence": _loops(src, _sequence),
+            "dv_early": _sub(_DKV_LOOP, src, _DV_EARLY)}
 
 
 def build(sources):
