@@ -451,9 +451,10 @@ class FlashAttention(torch.autograd.Function):
                                   and _tma_compatible(do, "do") is not None):
             # the kernels read dO's rows in place whatever their strides,
             # but not an expanded gradient (the gradient of a sum has
-            # stride 0 everywhere), nor in bf16 one that TMA cannot read:
-            # this Function owns the gradient, so it copies those
-            do = do.contiguous()
+            # stride 0 everywhere), nor in bf16 one that TMA cannot read
+            # (a misaligned one may be contiguous already): this Function
+            # owns the gradient, so it copies those into fresh storage
+            do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,
                                          ctx.scale)
         return dq, dk, dv, None, None

@@ -235,3 +235,37 @@ def test_bwd_tma_rule_takes_strided_do_and_fused_views_names_do():
     bad = buf[..., 1:1 + width].view(b, n, heads, head_dim)
     with pytest.raises(ValueError, match=r"cannot read do: base address"):
         tfa._require_tma("flash_attention_bwd_dkv", q=q, k=k, v=v, do=bad)
+
+
+def test_backward_copies_only_a_do_the_kernels_cannot_read(monkeypatch):
+    """`FlashAttention.backward` hands the kernels a bf16 dO that is 2 bytes
+    off a 16-byte boundary (contiguous all the same) as a fresh copy that
+    TMA can read, with the same gradients; a strided but aligned dO (laid
+    out [B, H, N, D]) goes through in place."""
+    seen = []
+    real = tfa.flash_attention_bwd
+
+    def spy(q, k, v, out, lse, do, causal, scale):
+        seen.append(do)
+        return real(q, k, v, out, lse, do, causal, scale)
+
+    monkeypatch.setattr(tfa, "flash_attention_bwd", spy)
+    b, n, h, d = 1, 16, 2, 64
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays((b, n, h, d), seed=7))
+    buf = torch.zeros(b * n * h * d + 8, dtype=torch.bfloat16)
+    bad = buf[1:1 + b * n * h * d].view(b, n, h, d)
+    bad.copy_(g)
+    strided = g.transpose(1, 2).contiguous().transpose(1, 2)
+    grads = []
+    for do in (bad, strided, g):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        tfa.flash_attention_bnhd(*leaves, causal=True).backward(do)
+        grads.append([t.grad for t in leaves])
+    assert bad.is_contiguous() and tfa._tma_compatible(bad, "do")
+    assert seen[0].data_ptr() != bad.data_ptr()
+    assert tfa._tma_compatible(seen[0], "do") is None
+    assert seen[1].data_ptr() == strided.data_ptr()
+    for got, want in zip(grads[:2], [grads[2]] * 2):
+        for a, e in zip(got, want):
+            torch.testing.assert_close(a, e, rtol=0, atol=0)
