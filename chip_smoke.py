@@ -8,9 +8,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build   — compile every kernel of the serving and training paths with
                nvcc into build/paddle_tpu_torch/ (all sources at once) and
                print the build time and ptxas' register / spill report,
-               and the flash forward's and backward's counts of HGMMA
+               the flash forward's and backward's counts of HGMMA
                (wgmma) and UTMALDG (TMA load) instructions in their SASS
-               where cuobjdump exists;
+               and the paged decode kernels' count of LDGSTS (cp.async,
+               the 16-byte copies its design keeps in flight) where
+               cuobjdump exists;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
                at its paths' shapes (the flash forward at the serving and
                the training shape) and at ragged ones, batched and not, in
@@ -19,7 +21,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                the kernel, the twin and one PyTorch library call that
                computes the same function (a yardstick the port never
                calls), beside the least time the card could take; a bf16
-               flash backward whose dO TMA cannot read must raise;
+               flash backward whose dO TMA cannot read must raise; paged
+               decode also at lengths around its split boundaries and
+               timed at the serve mix's ragged lengths;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`: 19 requests (16 greedy, 2 sampled, one
                990-token prompt so the 1024 bucket runs), more requests
@@ -133,6 +137,21 @@ FLASH_BWD_PREV_MS = {"dq (8, 1024, 12, 64)": [1.4927, 1.5029, 1.4982],
                                "section 6, NVIDIA H100 80GB HBM3, 700 W"}
 TRAIN_BWD_GROUPS_PREV_MS = {"flash_attention_bwd_dq": 18.115,
                             "flash_attention_bwd_dkv": 19.775}
+# The paged decode kernel before the split-K design (one CTA per (head,
+# slot), commit 3dd19f6): device ms per launch of rows #4 (bf16 pools) and
+# #4b (int8 pools) at S=8, lens 1023, H=12, D=64, bs=16 in three runs of
+# this script (PERF.md section 6; NVIDIA H100 80GB HBM3, 700 W). Written in
+# and printed on a line of its own, never in the kernels line: not
+# measured again here (tools/torch_paged_decode_variants.py times both
+# designs in turns).
+PAGED_PREV_MS = {"paged_decode": [0.02881, 0.02865, 0.02869],
+                 "paged_decode_int8": [0.02966, 0.02960, 0.02961],
+                 "source": "one CTA per (head, slot), commit 3dd19f6, "
+                           "PERF.md section 6, NVIDIA H100 80GB HBM3, 700 W"}
+# the serve mix's ragged lengths (an empty history, one position before /
+# at / after a block boundary, a long and a full context, an inactive
+# slot), checked and timed beside the full 1024-token contexts
+PAGED_RAGGED_LENS = [0, 15, 16, 17, 500, 1023, 700, 0]
 PAGED_TOL = FLASH_TOL
 # int8 pools: kernel and twin dequantize the same int8 levels under the
 # same scales in fp32 (q * (scale * (1/127)), one rounding each), so the
@@ -437,68 +456,104 @@ def _paged_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
     return q, kp, vp, tables, lens
 
 
-def check_paged():
-    bs = 16
-    # an empty history, one position before / at / after a block boundary,
-    # a long and a full context, and an inactive slot (lens 0 after the
-    # where(active, ...) and a table of null block 0)
-    lens = [0, 15, 16, 17, 500, 1023, 700, 0]
-    # head_dim 64 is the serving path's; 128 is compiled in as well
+def _split_lens(heads, slots=8, bs=16, m=64):
+    """Lengths around the kernel's split boundaries at these shapes. The
+    n_split CTAs of a slot share its positions in whole table entries, so
+    a span grows by one entry each time the length passes a multiple of
+    n_split * bs: one position before, at and after the first and the
+    fourth such boundary, a slot at M * bs - 1, a slot of bs + 1
+    positions (two live splits, the later ones empty) and an inactive
+    slot (slot 7)."""
+    unit = pa.split_plan(slots, heads, m, bs)[1] * bs
+    return [unit - 1, unit, unit + 1, 4 * unit - 1, 4 * unit, m * bs - 1,
+            bs, 0]
+
+
+def _paged_cases():
+    """(tag, heads, head_dim, q dtype, lens) of the correctness checks:
+    D = 64 (the serving path's) and 128 (compiled in as well), fp32 and
+    bf16 queries, the ragged serve lengths and the split boundaries."""
     for heads, head_dim in ((HEADS, HEAD_DIM), (4, 128)):
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, tables, lens_t = _paged_state(
-                1, lens, dtype, seed=1, heads=heads, head_dim=head_dim)
-            tables[7] = 0                  # slot 7 is inactive
-            out = pa.paged_attention(q, kp[0], vp[0], tables, lens_t, bs)
-            ref = pa.paged_decode_reference(q, kp[0], vp[0], tables, lens_t,
-                                            bs)
-            torch.cuda.synchronize()
-            assert torch.isfinite(out.float()).all(), "non-finite output"
-            e = _close(f"paged {str(dtype)[6:]} D={head_dim} active slots",
-                       out[:7], ref[:7], PAGED_TOL[dtype])
-            if head_dim == HEAD_DIM and dtype == torch.bfloat16:
-                err = e
+            yield "ragged", heads, head_dim, dtype, PAGED_RAGGED_LENS
+            yield "split", heads, head_dim, dtype, _split_lens(heads)
+
+
+def _paged_work(lens, q, tables, int8, bs=16):
+    """``(bytes, flops)`` one call needs: the K and V rows of the positions
+    the lengths attend (p <= lens, one position for an empty slot), their
+    int8 scales, q, out, the tables and the lengths; 4 FLOPs per element
+    of K (q.k and p.v)."""
+    tokens = sum(l + 1 for l in lens)
+    blocks = sum(-(-(l + 1) // bs) for l in lens)
+    row = HEADS * HEAD_DIM * (1 if int8 else q.element_size())
+    scales = 2 * blocks * HEADS * 4 if int8 else 0
+    nbytes = (2 * tokens * row + scales + 2 * q.numel() * q.element_size()
+              + tables.numel() * 4 + len(lens) * 4)
+    return nbytes, 4 * tokens * HEADS * HEAD_DIM
+
+
+def check_paged():
+    bs = 16
+    err = None
+    for tag, heads, head_dim, dtype, lens in _paged_cases():
+        q, kp, vp, tables, lens_t = _paged_state(
+            1, lens, dtype, seed=1, heads=heads, head_dim=head_dim)
+        tables[7] = 0                  # slot 7 is inactive
+        out = pa.paged_attention(q, kp[0], vp[0], tables, lens_t, bs)
+        ref = pa.paged_decode_reference(q, kp[0], vp[0], tables, lens_t, bs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), "non-finite output"
+        e = _close(f"paged {str(dtype)[6:]} D={head_dim} {tag} lens {lens} "
+                   "active slots", out[:7], ref[:7], PAGED_TOL[dtype])
+        if (head_dim, dtype, tag) == (HEAD_DIM, torch.bfloat16, "ragged"):
+            err = e
     # main-path shape: 8 slots at a full 1024-token context, bf16; 4 layers'
     # pools (~100 MB, twice the L2) rotate so each launch reads cold KV, as
-    # a decode step's 12 layers do
+    # a decode step's 12 layers do; then the serve mix's ragged lengths
     dtype, layers = torch.bfloat16, 4
-    full = [1023] * 8
-    q, kp, vp, tables, lens_t = _paged_state(layers, full, dtype, seed=2)
-    it = iter(range(10 ** 9))
+    row = {}
+    for lens in ([1023] * 8, PAGED_RAGGED_LENS):
+        q, kp, vp, tables, lens_t = _paged_state(layers, lens, dtype, seed=2)
+        it = iter(range(10 ** 9))
 
-    def rotating(fn):
-        def call():
-            layer = next(it) % layers
-            return fn(q, kp[layer], vp[layer], tables, lens_t, bs)
-        return call
+        def rotating(fn):
+            def call():
+                layer = next(it) % layers
+                return fn(q, kp[layer], vp[layer], tables, lens_t, bs)
+            return call
 
-    ms, host_ms = _timed(rotating(pa.paged_attention))
-    plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
-    t_max = tables.shape[1] * bs
-    mask = (torch.arange(t_max, device="cuda")[None, :]
-            <= lens_t[:, None])[:, None, None, :]
+        ms, host_ms = _timed(rotating(pa.paged_attention))
+        plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
+        t_max = tables.shape[1] * bs
+        mask = (torch.arange(t_max, device="cuda")[None, :]
+                <= lens_t[:, None])[:, None, None, :]
 
-    def library(qq, kk, vv, tab, _lens, _bs):
-        kg = kk[tab.long()].reshape(8, t_max, HEADS, HEAD_DIM).transpose(1, 2)
-        vg = vv[tab.long()].reshape(8, t_max, HEADS, HEAD_DIM).transpose(1, 2)
-        return torch.nn.functional.scaled_dot_product_attention(
-            qq[:, :, None, :], kg, vg, attn_mask=mask)
+        def library(qq, kk, vv, tab, _lens, _bs):
+            kg = kk[tab.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                .transpose(1, 2)
+            vg = vv[tab.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                .transpose(1, 2)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qq[:, :, None, :], kg, vg, attn_mask=mask)
 
-    library_ms = _cuda_ms(rotating(library))
-    elem = q.element_size()
-    tokens = sum(l + 1 for l in full)
-    nbytes = (2 * tokens * HEADS * HEAD_DIM * elem
-              + 2 * q.numel() * elem + tables.numel() * 4 + 8 * 4)
-    flops = 4 * tokens * HEADS * HEAD_DIM
-    bound, by = _bound_ms(nbytes, flops, dtype)
+        library_ms = _cuda_ms(rotating(library))
+        bound, by = _bound_ms(*_paged_work(lens, q, tables, False), dtype)
+        numbers = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": library_ms}
+        if not row:
+            row.update(numbers, shape="S=8 H=12 D=64 bs=16 M=64, lens 1023, "
+                                      "bf16")
+        else:
+            row["at_ragged_lens"] = dict(numbers,
+                                         shape=f"lens {lens}, otherwise "
+                                               "the same")
     return {"name": "paged_decode", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
                         "_decode_kernel",
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library_ms,
-            "shape": "S=8 H=12 D=64 bs=16 M=64, lens 1023, bf16"}
+            "max_abs_err": err, **row}
 
 
 def _int8_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
@@ -522,71 +577,82 @@ def _int8_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
 
 def check_paged_int8():
     bs = 16
-    # the fp row's ragged lengths and inactive slot, q in fp32 and bf16
-    lens = [0, 15, 16, 17, 500, 1023, 700, 0]
-    for heads, head_dim in ((HEADS, HEAD_DIM), (4, 128)):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, ks, vs, tables, lens_t = _int8_state(
-                1, lens, dtype, seed=3, heads=heads, head_dim=head_dim)
-            tables[7] = 0                  # slot 7 is inactive
-            args = (q, kp[0], vp[0], tables, lens_t, bs, ks[0], vs[0])
-            out = pa.paged_attention(*args)
-            ref = pa.paged_decode_reference(*args)
-            torch.cuda.synchronize()
-            assert out.dtype == dtype and torch.isfinite(out.float()).all()
-            e = _close(f"paged int8 q={str(dtype)[6:]} D={head_dim} active "
-                       "slots", out[:7], ref[:7], PAGED_INT8_TOL[dtype])
-            if head_dim == HEAD_DIM and dtype == torch.bfloat16:
-                err = e
+    err = None
+    for tag, heads, head_dim, dtype, lens in _paged_cases():
+        q, kp, vp, ks, vs, tables, lens_t = _int8_state(
+            1, lens, dtype, seed=3, heads=heads, head_dim=head_dim)
+        tables[7] = 0                  # slot 7 is inactive
+        args = (q, kp[0], vp[0], tables, lens_t, bs, ks[0], vs[0])
+        out = pa.paged_attention(*args)
+        ref = pa.paged_decode_reference(*args)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and torch.isfinite(out.float()).all()
+        e = _close(f"paged int8 q={str(dtype)[6:]} D={head_dim} {tag} lens "
+                   f"{lens} active slots", out[:7], ref[:7],
+                   PAGED_INT8_TOL[dtype])
+        if (head_dim, dtype, tag) == (HEAD_DIM, torch.bfloat16, "ragged"):
+            err = e
     # main-path shape: 8 slots at a full 1024-token context, bf16 queries,
     # int8 pools; 8 layers' pools (~100 MB, twice the L2) rotate so each
-    # launch reads cold KV, as a decode step's 12 layers do
+    # launch reads cold KV, as a decode step's 12 layers do; then the serve
+    # mix's ragged lengths
     dtype, layers = torch.bfloat16, 8
-    full = [1023] * 8
-    q, kp, vp, ks, vs, tables, lens_t = _int8_state(layers, full, dtype,
-                                                    seed=4)
-    it = iter(range(10 ** 9))
+    row = {}
+    for lens in ([1023] * 8, PAGED_RAGGED_LENS):
+        q, kp, vp, ks, vs, tables, lens_t = _int8_state(layers, lens, dtype,
+                                                        seed=4)
+        it = iter(range(10 ** 9))
 
-    def rotating(fn):
-        def call():
-            layer = next(it) % layers
-            return fn(q, kp[layer], vp[layer], tables, lens_t, bs, ks[layer],
-                      vs[layer])
-        return call
+        def rotating(fn):
+            def call():
+                layer = next(it) % layers
+                return fn(q, kp[layer], vp[layer], tables, lens_t, bs,
+                          ks[layer], vs[layer])
+            return call
 
-    ms, host_ms = _timed(rotating(pa.paged_attention))
-    plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
-    t_max = tables.shape[1] * bs
-    mask = (torch.arange(t_max, device="cuda")[None, :]
-            <= lens_t[:, None])[:, None, None, :]
-    tab = tables.long()
+        ms, host_ms = _timed(rotating(pa.paged_attention))
+        plain_ms = _cuda_ms(rotating(pa.paged_decode_reference))
+        t_max = tables.shape[1] * bs
+        mask = (torch.arange(t_max, device="cuda")[None, :]
+                <= lens_t[:, None])[:, None, None, :]
+        tab = tables.long()
 
-    def library(qq, kk, vv, tab_, _lens, _bs, kss, vss):
-        # yardstick: a dequantizing gather, then SDPA in q's dtype
-        def deq(pool, sc):
-            x = pool[tab].float() * (sc[tab] * (1.0 / 127))[..., None, :,
-                                                             None]
-            return x.reshape(8, t_max, HEADS, HEAD_DIM).transpose(1, 2) \
-                .to(qq.dtype)
-        return torch.nn.functional.scaled_dot_product_attention(
-            qq[:, :, None, :], deq(kk, kss), deq(vv, vss), attn_mask=mask)
+        def library(qq, kk, vv, tab_, _lens, _bs, kss, vss):
+            # yardstick: a dequantizing gather, then SDPA in q's dtype
+            def deq(pool, sc):
+                x = pool[tab].float() * (sc[tab] * (1.0 / 127))[..., None, :,
+                                                                 None]
+                return x.reshape(8, t_max, HEADS, HEAD_DIM).transpose(1, 2) \
+                    .to(qq.dtype)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qq[:, :, None, :], deq(kk, kss), deq(vv, vss), attn_mask=mask)
 
-    library_ms = _cuda_ms(rotating(library))
-    tokens = sum(l + 1 for l in full)
-    blocks = sum(-(-(l + 1) // bs) for l in full)
-    nbytes = (2 * tokens * HEADS * HEAD_DIM + 2 * blocks * HEADS * 4
-              + 2 * q.numel() * q.element_size() + tables.numel() * 4 + 8 * 4)
-    flops = 4 * tokens * HEADS * HEAD_DIM
-    bound, by = _bound_ms(nbytes, flops, dtype)
+        library_ms = _cuda_ms(rotating(library))
+        bound, by = _bound_ms(*_paged_work(lens, q, tables, True), dtype)
+        numbers = {"ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound, "bound_by": by,
+                   "library_ms": library_ms}
+        if not row:
+            row.update(numbers, shape="S=8 H=12 D=64 bs=16 M=64, lens 1023, "
+                                      "q bf16, int8 pools + fp32 scales")
+        else:
+            row["at_ragged_lens"] = dict(numbers,
+                                         shape=f"lens {lens}, otherwise "
+                                               "the same")
     return {"name": "paged_decode_int8", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
                         "_decode_kernel (quantized=True)",
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library_ms,
-            "shape": "S=8 H=12 D=64 bs=16 M=64, lens 1023, q bf16, int8 "
-                     "pools + fp32 scales"}
+            "max_abs_err": err, **row}
+
+
+def _paged_prev_line(fp_row, int8_row):
+    print(f"  paged decode ms at lens 1023: bf16 pools {fp_row['ms']:.5f}, "
+          f"int8 pools {int8_row['ms']:.5f}; at the ragged lens "
+          f"{fp_row['at_ragged_lens']['ms']:.5f}, "
+          f"{int8_row['at_ragged_lens']['ms']:.5f}; the earlier design, "
+          f"written in, not measured in this run: PAGED_PREV_MS "
+          f"{json.dumps(PAGED_PREV_MS)}")
 
 
 def _ln_inputs(r, d, dtype, seed, affine_dtype=None):
@@ -1070,7 +1136,8 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
-               ("paged_decode", ("paged_decode_kernel",)),
+               ("paged_decode", ("paged_decode_split_kernel",
+                                 "paged_decode_combine_kernel")),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")))
 
@@ -1329,9 +1396,12 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}")
     _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
     _sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
+    _sass_counts("paged_decode", ("LDGSTS",))
     print("kernels vs plain twins:")
-    rows = {"serve": [check_flash(), check_paged()],
-            "serve_int8": [check_paged_int8()],
+    paged, paged_int8 = check_paged(), check_paged_int8()
+    _paged_prev_line(paged, paged_int8)
+    rows = {"serve": [check_flash(), paged],
+            "serve_int8": [paged_int8],
             "train": check_flash_bwd() + check_ce(),
             "fused_ln": [check_fused_ln()]}
     paths = {}
@@ -1357,7 +1427,8 @@ def main():
     assert len(rows) == 8 and all(row["launches"] > 0 for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
-            "shape", "launches_by_path", "tflops", "tile", "at_train_shape")
+            "shape", "launches_by_path", "tflops", "tile", "at_train_shape",
+            "at_ragged_lens")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(card)

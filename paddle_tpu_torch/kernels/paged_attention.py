@@ -16,8 +16,13 @@ in the load (``k * (scale * (1 / 127))``, quantization/kv_cache.py), so
 fp K/V exist only per chunk (twin) or in registers (kernel).
 
 On CUDA tensors `paged_attention` launches ``csrc/paged_decode.cu`` or
-raises; on CPU tensors it runs `paged_decode_reference`. Launches count
-under ``paged_decode`` (fp pools) and ``paged_decode_int8``.
+raises; on CPU tensors it runs `paged_decode_reference`. The kernel splits
+each slot's context across the CTAs of one cluster: `split_plan` chooses,
+from shapes alone, how many table entries each CTA takes, and the first
+CTA of the cluster combines their partial softmaxes from shared memory.
+Nothing is read back from the device and nothing is allocated beside the
+output, so a decode step stays free of host syncs. Launches count once
+per call under ``paged_decode`` (fp pools) and ``paged_decode_int8``.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ from ..device import require_hopper
 from ..quantization.kv_cache import dequantize
 from . import _build
 
-__all__ = ["paged_attention", "paged_decode_reference", "launches",
-           "HEAD_DIMS", "DTYPES"]
+__all__ = ["paged_attention", "paged_decode_reference", "split_plan",
+           "launches", "HEAD_DIMS", "DTYPES", "MAX_SPLITS",
+           "MAX_SPAN_BLOCKS"]
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -45,7 +51,23 @@ _CHUNK_TOKENS_MAX = 512
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"paged_decode": 0, "paged_decode_int8": 0}
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+# the kernel's split: the CTAs of one (slot, head) share its live positions
+# in whole table entries, each at most about SPAN_TOKENS of a full table,
+# so n_split = ceil(M / (SPAN_TOKENS / bs)); they form one cluster, at
+# most MAX_SPLITS CTAs where every Hopper launch accepts it (longer
+# tables take longer spans), and a span holds at most MAX_SPAN_BLOCKS
+# entries (staged in shared memory)
+SPAN_TOKENS = 256
+MAX_SPLITS = 8
+MAX_SPAN_BLOCKS = 512
+# CTAs that fill an H100 (132 SMs) many times over: past this, longer
+# spans rather than more partials to combine
+_GRID_ENOUGH = 16 * 132
+
+# q, k_pool, v_pool, k_scales, v_scales, tables, lens, out; slots, heads,
+# head_dim, max_blocks, block_size, span_blocks, n_split; scale; dtype,
+# quantized; stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 
@@ -76,6 +98,27 @@ def _check(q, k_pool, v_pool, block_tables, lens, block_size, k_scales,
             raise ValueError(f"scales [num_blocks, H] = {want} expected, "
                              f"got {tuple(k_scales.shape)}, "
                              f"{tuple(v_scales.shape)}")
+
+
+def split_plan(slots, heads, max_blocks, block_size):
+    """How the kernel splits each slot's context, from shapes alone:
+    ``(span_blocks, n_split)``: ``n_split = ceil(max_blocks / span_blocks)``
+    (at most MAX_SPLITS) CTAs per (slot, head), each taking at most
+    `span_blocks` table entries. It never sees the lengths: on the device
+    split i of slot s takes entries ``[i e, (i + 1) e)`` with ``e =
+    min(span_blocks, ceil(ceil((lens[s] + 1) / n_split) / block_size))``,
+    and a split starting past lens[s] does no loads."""
+    if max_blocks > MAX_SPLITS * MAX_SPAN_BLOCKS:
+        raise ValueError(f"paged kernel takes at most {MAX_SPLITS} x "
+                         f"{MAX_SPAN_BLOCKS} table entries, got {max_blocks}")
+    span = min(max(1, SPAN_TOKENS // block_size, -(-max_blocks // MAX_SPLITS)),
+               max_blocks)
+    n_split = -(-max_blocks // span)
+    while (n_split > 1 and slots * heads * n_split > _GRID_ENOUGH
+           and 2 * span <= MAX_SPAN_BLOCKS):
+        span = min(2 * span, max_blocks)
+        n_split = -(-max_blocks // span)
+    return span, n_split
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_tables, lens, block_size,
@@ -134,9 +177,11 @@ def paged_decode_reference(q, k_pool, v_pool, block_tables, lens, block_size,
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
-                    k_scales=None, v_scales=None):
+                    k_scales=None, v_scales=None, span_blocks=None):
     """One decode step of attention over the paged pool (see the module
-    docstring for the contract)."""
+    docstring for the contract). `span_blocks` overrides `split_plan`'s
+    table entries per CTA (design comparisons); the plain twin ignores
+    it."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pool, v_pool, block_tables, lens,
                                       block_size, k_scales, v_scales)
@@ -171,6 +216,14 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
         if t.data_ptr() % 16:
             raise ValueError(f"paged kernel needs 16-byte aligned {name}")
     require_hopper(q)
+    span, n_split = split_plan(s, h, m, int(block_size))
+    if span_blocks is not None:
+        span = int(span_blocks)
+        n_split = -(-m // span) if span > 0 else 0
+        if not (1 <= n_split <= MAX_SPLITS and span <= MAX_SPAN_BLOCKS):
+            raise ValueError(f"span_blocks {span} gives {n_split} splits of "
+                             f"{m} table entries; 1 to {MAX_SPLITS} splits "
+                             f"of at most {MAX_SPAN_BLOCKS} allowed")
     lib = _build.load("paged_decode")
     fn = lib.paddle_paged_decode
     fn.argtypes = _ARGTYPES
@@ -186,7 +239,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
                  ctypes.c_void_p(block_tables.data_ptr()),
                  ctypes.c_void_p(lens.data_ptr()),
                  ctypes.c_void_p(out.data_ptr()),
-                 s, h, d, m, int(block_size), 1.0 / math.sqrt(d),
+                 s, h, d, m, int(block_size), span, n_split,
+                 1.0 / math.sqrt(d),
                  0 if q.dtype == torch.float32 else 1, int(quantized),
                  ctypes.c_void_p(stream))
     name = "paged_decode_int8" if quantized else "paged_decode"

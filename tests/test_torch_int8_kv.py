@@ -9,7 +9,8 @@
     kernel in interpret mode (and the dense oracle): 1e-5 (fp32; both
     dequantize the same levels in fp32 and differ only in summation
     order), and one whole decode step (int8 write + attention) against
-    the JAX `paged_decode_attention`;
+    the JAX `paged_decode_attention`; the kernel's split-K arithmetic
+    (partials per span, merged in split order) against the same step;
   * the port's int8 `LLMEngine(device="cpu")` is token-identical to the
     JAX int8 engine on the same converted weights, including a tight pool
     that evicts and re-prefills (mirrors tests/test_kernel_tier.py's
@@ -286,6 +287,54 @@ def test_int8_decode_step_matches_jax(variant):
     for got, want in ((t_ks, j_ks), (t_vs, j_vs)):
         np.testing.assert_allclose(got.numpy()[1:], np.asarray(want)[1:],
                                    rtol=SCALE_RTOL, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split-K arithmetic with int8 pools (test_torch_paged_attention
+# `split_emulation`: a partial per split, merged in split order) against the
+# JAX decode step
+# ---------------------------------------------------------------------------
+
+# fp32: the emulation dequantizes the same levels under the same scales as
+# the Pallas kernel and the blockwise reference (k * (scale * (1/127))) and
+# sums the same fp32 terms in another order only
+SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("variant", ["pallas", "blockwise"])
+@pytest.mark.parametrize("seq_lens, active", [
+    ((47, 48, 49), (True, True, True)),      # spans of 1 entry, then 2
+    ((511, 639, 40), (True, True, True)),    # all M blocks (3 x 14 entries)
+    ((300, 0, 512), (True, False, True)),    # an inactive slot, null table
+])
+def test_int8_split_emulation_matches_jax(variant, seq_lens, active):
+    """int8 pools at the serving head dim (D = 64, bs 16): 3 splits of at
+    most 16 table entries in M = 40, sharing each slot's positions evenly.
+    One JAX decode step (the int8 block write, then attention); the
+    emulation runs on the pools and scales after that write."""
+    from test_torch_paged_attention import split_emulation
+    from paddle_tpu_torch.kernels.paged_attention import split_plan
+    s, h, d, bs, m = 3, 2, 64, 16, 40
+    assert split_plan(s, h, m, bs) == (16, 3)
+    rng = np.random.default_rng(sum(seq_lens))
+    q, kp, vp, tables, _, ks, vs = _quant_state(s=s, h=h, d=d, bs=bs, m=m,
+                                                seed=sum(seq_lens) + 1)
+    active = np.asarray(active)
+    tables[~active] = 0
+    lens = np.asarray(seq_lens, np.int32)
+    kn, vn = (rng.standard_normal((s, 1, h, d)).astype(np.float32)
+              for _ in range(2))
+    j_out, j_k, j_v, j_ks, j_vs = j_paged(
+        *(jnp.asarray(a) for a in (q[:, None], kn, vn, kp, vp, tables, lens,
+                                   active)),
+        bs, k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs),
+        kernel=variant, interpret=variant == "pallas")
+    emu = split_emulation(_t(q), *(_t(np.array(a)) for a in (j_k, j_v)),
+                          _t(tables), _t(np.where(active, lens, 0)), bs,
+                          *(_t(np.array(a)) for a in (j_ks, j_vs)))
+    assert np.isfinite(emu.numpy()).all()
+    np.testing.assert_allclose(emu.numpy()[active],
+                               np.asarray(j_out)[active][:, 0], **SPLIT_TOL)
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ places).
 """
 from __future__ import annotations
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ from paddle_tpu.nn.functional.attention import \
     paged_decode_attention as j_paged
 
 from paddle_tpu_torch.kernels.paged_attention import (
-    paged_attention, paged_decode_reference)
+    MAX_SPAN_BLOCKS, MAX_SPLITS, SPAN_TOKENS, paged_attention,
+    paged_decode_reference, split_plan)
 from paddle_tpu_torch.nn.functional import paged_decode_attention as t_paged
 from paddle_tpu_torch.nn.functional.attention import _dense_gather_attention
 
@@ -139,3 +142,186 @@ def test_bf16_tracks_fp32():
     assert out16.dtype == torch.bfloat16
     np.testing.assert_allclose(out16.float().numpy(), out32.numpy(),
                                rtol=0.0, atol=2e-2)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split of each slot's context across CTAs (split-K) and the
+# combine of their partial softmaxes, emulated in plain torch
+# ---------------------------------------------------------------------------
+
+# fp32: the emulation sums the same fp32 terms as the Pallas kernel and the
+# blockwise reference, per span and then across spans, so only the
+# summation order differs (~1e-7 relative at these sizes), held at 1e-5
+SPLIT_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def split_emulation(q, k_pool, v_pool, tables, lens, bs, k_scales=None,
+                    v_scales=None):
+    """The kernel's arithmetic in plain torch: `split_plan`'s n_split CTAs
+    per (slot, head), split i taking table entries [i e, (i + 1) e) with e
+    = min(span_blocks, ceil(ceil((lens[s] + 1) / n_split) / bs)); one
+    partial (max, sum, acc) per split holding a position p <= lens[s]
+    (later splits are never read), merged in split order as split 0 does.
+    q ``[S, H, D]``; int8 pools with their scales are dequantized as
+    ``k * (scale * (1 / 127))``."""
+    s, h, d = q.shape
+    m = tables.shape[1]
+    span_blocks, n_split = split_plan(s, h, m, bs)
+    q32 = q.float() * (1.0 / np.sqrt(d))
+    out = torch.empty((s, h, d), dtype=torch.float32)
+    for si in range(s):
+        last = min(max(int(lens[si]), 0), m * bs - 1)
+        per_split = -(-(last + 1) // n_split)
+        span = min(span_blocks, -(-per_split // bs)) * bs
+        n_live = last // span + 1
+        assert n_live <= n_split
+        parts = []
+        for sp in range(n_live):
+            pos = torch.arange(sp * span, min(last, (sp + 1) * span - 1) + 1)
+            blk = tables[si, pos // bs].long()
+            off = pos % bs
+            kx, vx = k_pool[blk, off].float(), v_pool[blk, off].float()
+            if k_scales is not None:
+                kx = kx * (k_scales[blk] * (1.0 / 127))[..., None]
+                vx = vx * (v_scales[blk] * (1.0 / 127))[..., None]
+            sc = torch.einsum("hd,thd->ht", q32[si], kx)
+            mx = sc.amax(dim=-1)
+            p = torch.exp(sc - mx[:, None])
+            parts.append((mx, p.sum(dim=-1), torch.einsum("ht,thd->hd", p,
+                                                          vx)))
+        m_all = parts[0][0]
+        for mx, _, _ in parts[1:]:
+            m_all = torch.maximum(m_all, mx)
+        l_all = torch.zeros(h)
+        acc = torch.zeros(h, d)
+        for mx, l, a in parts:
+            w = torch.exp(mx - m_all)
+            l_all = l_all + l * w
+            acc = acc + a * w[:, None]
+        out[si] = acc / torch.clamp(l_all, min=1e-30)[:, None]
+    return out.to(q.dtype)
+
+
+SPLIT_VARIANTS = ("pallas", "blockwise")
+
+
+def _split_parity(st, bs, variant):
+    """JAX's decode step (write, then attention) against the emulation on
+    the pools after the write, and against the port on CPU tensors."""
+    j_out, j_k, j_v = _jax(st, bs, variant)
+    act = st["active"]
+    emu = split_emulation(torch.from_numpy(st["q"][:, 0]),
+                          torch.from_numpy(np.array(j_k)),
+                          torch.from_numpy(np.array(j_v)),
+                          torch.from_numpy(st["tables"]),
+                          torch.from_numpy(np.where(act, st["lens"], 0)), bs)
+    assert np.isfinite(emu.numpy()).all()
+    np.testing.assert_allclose(emu.numpy()[act], j_out[act][:, 0],
+                               **SPLIT_TOL)
+    _assert_parity(st, bs, variant)
+
+
+# bs 4, M = 160: 3 splits of at most 64 entries (256 tokens). A slot's
+# live positions are shared evenly in whole entries, so the boundaries
+# move with the length: 3 live splits from lens 8 on (9 positions, spans
+# of 1 entry), spans growing by an entry every 12 positions, to 54
+# entries at lens 639
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+@pytest.mark.parametrize("lens", [
+    (7, 8, 9),             # 2 live splits, then 3 (1 position in the last)
+    (11, 12, 13),          # spans of 1 entry, then of 2
+    (383, 384, 385),       # spans of 32 entries, then of 33
+    (10, 639, 0),          # all M blocks (3 x 54 entries); lens 0
+])
+def test_split_boundaries_match_jax(variant, lens):
+    assert split_plan(3, 1, 160, 4) == (64, 3)
+    st = _paged_state(S=3, H=1, D=16, bs=4, M=160, lens=lens,
+                      active=(True, True, True), seed=sum(lens))
+    _split_parity(st, 4, variant)
+
+
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+def test_split_inactive_slot_with_null_table(variant):
+    """lens 0 with a null table row: one live split reading block 0,
+    finite garbage out."""
+    st = _paged_state(S=3, H=1, D=16, bs=4, M=160, lens=(300, 0, 639),
+                      active=(True, False, True), seed=7)
+    st["tables"][1] = 0
+    _split_parity(st, 4, variant)
+
+
+@pytest.mark.parametrize("variant", SPLIT_VARIANTS)
+def test_split_head_dim_128(variant):
+    """D = 128, the other head dim the kernel is built for, at bs 16:
+    3 splits of at most 16 entries in M = 40."""
+    assert split_plan(2, 1, 40, 16) == (16, 3)
+    st = _paged_state(S=2, H=1, D=128, bs=16, M=40, lens=(95, 639),
+                      active=(True, True), seed=12)
+    _split_parity(st, 16, variant)
+
+
+@pytest.mark.parametrize("shape", [
+    (8, 12, 64, 16),        # the serving path: 4 spans of 16 entries
+    (4, 4, 64, 16),         # fewer (slot, head) pairs, the same split
+    (3, 2, 7, 4),           # a span longer than the table: one split
+    (2, 3, 50, 3),          # a block size that divides no span
+    (8, 12, 2048, 16),      # a 32K context: 8 spans of 256 entries
+    (64, 32, 256, 16),      # a grid past _GRID_ENOUGH: longer spans
+    (64, 32, 4096, 16),     # the longest table: 8 spans of 512 entries
+])
+def test_split_plan_covers_each_position_once(shape):
+    """Every position 0 .. M * bs - 1 falls in exactly one span of whole
+    table entries, at most MAX_SPLITS spans (one cluster) of at most
+    MAX_SPAN_BLOCKS entries, and the plan comes from shapes alone."""
+    slots, heads, m, bs = shape
+    span, n_split = split_plan(*shape)
+    assert 1 <= span <= min(m, MAX_SPAN_BLOCKS)
+    assert 1 <= n_split <= MAX_SPLITS and n_split == -(-m // span)
+    owner = torch.arange(m * bs) // (span * bs)
+    assert owner.min() == 0 and owner.max() == n_split - 1
+    assert torch.bincount(owner).sum() == m * bs
+    assert (n_split - 1) * span < m <= n_split * span
+    # SPAN_TOKENS a CTA, unless the table needs longer spans for one
+    # cluster, or that many CTAs would fill the card many times over
+    base = min(m, max(1, SPAN_TOKENS // bs, -(-m // MAX_SPLITS)))
+    if slots * heads * -(-m // base) <= 16 * 132:
+        assert span == base
+    else:
+        assert span > base or span == MAX_SPAN_BLOCKS
+
+
+def test_split_plan_refuses_tables_past_its_spans():
+    with pytest.raises(ValueError):
+        split_plan(8, 12, MAX_SPLITS * MAX_SPAN_BLOCKS + 1, 16)
+
+
+def test_split_plan_needs_no_lengths():
+    """The plan's inputs are shapes only, and the wrapper's launch path
+    reads nothing back from the device (no sync a CUDA graph could not
+    capture)."""
+    assert list(inspect.signature(split_plan).parameters) == [
+        "slots", "heads", "max_blocks", "block_size"]
+    src = inspect.getsource(paged_attention) + inspect.getsource(split_plan)
+    for read in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lens",
+                 "synchronize("):
+        assert read not in src, read
+
+
+def test_split_emulation_matches_twin_at_the_serving_shape():
+    """The emulation against the port's plain twin at the serving path's
+    split (bs 16, 4 splits of at most 256 tokens, D = 64), bf16 pools,
+    ragged lengths: a full context, 216 positions (4 spans of 4 entries)
+    and 64 / 65 positions (spans of 1 entry, then 2)."""
+    st = _paged_state(S=4, H=2, D=64, bs=16, M=64,
+                      lens=(1023, 215, 63, 64), seed=9)
+    args = [torch.from_numpy(st[k][:, 0] if k == "q" else st[k])
+            for k in ("q", "kp", "vp", "tables", "lens")]
+    args = [a.to(torch.bfloat16) if a.is_floating_point() else a
+            for a in args]
+    assert split_plan(4, 2, 64, 16) == (16, 4)
+    emu = split_emulation(*args, 16)
+    twin = paged_decode_reference(*args, 16)
+    # both compute in fp32 from the same bf16 inputs and round the output
+    # to bf16 once: one bf16 step (rtol 2^-7) apart at most
+    np.testing.assert_allclose(emu.float().numpy(), twin.float().numpy(),
+                               rtol=8e-3, atol=1e-3)
