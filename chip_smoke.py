@@ -456,7 +456,7 @@ def _paged_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
     return q, kp, vp, tables, lens
 
 
-def _split_lens(heads, slots=8, bs=16, m=64):
+def _split_lens(bs=16, m=64):
     """Lengths around the kernel's split boundaries at these shapes. The
     n_split CTAs of a slot share its positions in whole table entries, so
     a span grows by one entry each time the length passes a multiple of
@@ -464,7 +464,7 @@ def _split_lens(heads, slots=8, bs=16, m=64):
     fourth such boundary, a slot at M * bs - 1, a slot of bs + 1
     positions (two live splits, the later ones empty) and an inactive
     slot (slot 7)."""
-    unit = pa.split_plan(slots, heads, m, bs)[1] * bs
+    unit = pa.split_plan(m, bs)[1] * bs
     return [unit - 1, unit, unit + 1, 4 * unit - 1, 4 * unit, m * bs - 1,
             bs, 0]
 
@@ -476,7 +476,7 @@ def _paged_cases():
     for heads, head_dim in ((HEADS, HEAD_DIM), (4, 128)):
         for dtype in (torch.float32, torch.bfloat16):
             yield "ragged", heads, head_dim, dtype, PAGED_RAGGED_LENS
-            yield "split", heads, head_dim, dtype, _split_lens(heads)
+            yield "split", heads, head_dim, dtype, _split_lens()
 
 
 def _paged_work(lens, q, tables, int8, bs=16):

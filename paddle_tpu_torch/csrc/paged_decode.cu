@@ -49,8 +49,9 @@
 //     bit -- and writes out. No workspace, no second kernel;
 //   * a split whose span starts past lens[s] (a context shorter than
 //     n_split entries) copies and writes nothing; split 0 merges only the
-//     live splits.
-//     Masked positions carry the sentinel -1e30, not -inf: split 0 always
+//     live splits, and writes out at once, with no barrier, where it is
+//     the only one;
+//   * masked positions carry the sentinel -1e30, not -inf: split 0 always
 //     holds position 0, so every max is finite and empty groups weigh
 //     exp(-1e30 - max) = exactly 0. Copies past the length are zero-filled;
 //   * an inactive slot arrives with lens 0 and a table row of null block 0:
@@ -80,7 +81,8 @@ constexpr int kMaxEntries = 512;       // table entries of one CTA's span
 constexpr float kNegInf = -1e30f;
 // the ring: per stage, K then V, each kCopies x kThreads 16-byte pieces,
 // every piece written (by cp.async) and read by the same thread
-constexpr int kRingBytes = kStages * 2 * kCopies * kThreads * 16;
+constexpr int kRingPieces = kStages * 2 * kCopies * kThreads;
+static_assert(kRingPieces * 16 <= 32 * 1024, "static shared memory");
 
 // n / d for 0 <= n < 2^31 by a multiply and a shift (the divisor's magic
 // number is computed once on the host)
@@ -198,9 +200,8 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-// (m, l, acc) <- the merge of two online-softmax partials; the same sums
-// in the same order whichever of the two is "ours", so every lane of a
-// shuffle pair ends with identical values
+// (m, l, acc) <- the merge of two online-softmax partials, in a fixed
+// order of operations, so a result repeats bit for bit from run to run
 template <int N>
 __device__ __forceinline__ void merge(float& m, float& l, float (&acc)[N],
                                       float m_o, float l_o,
@@ -241,7 +242,7 @@ paged_decode_split_kernel(const Args a) {
   constexpr int kStageTok = kPass * kCopies;  // tokens per stage
   static_assert(kGroup <= 32 && 32 % kGroup == 0, "a row within a warp");
   static_assert(D <= kThreads, "one thread per output element");
-  extern __shared__ __align__(16) uint4 ring[];  // [stage][K, V][copy][thread]
+  __shared__ uint4 ring[kRingPieces];  // [stage][K, V][copy][thread]
   __shared__ int tbl[kMaxEntries];
   __shared__ float ksc[kQuant ? kMaxEntries : 1];
   __shared__ float vsc[kQuant ? kMaxEntries : 1];
@@ -438,7 +439,7 @@ paged_decode_split_kernel(const Args a) {
         const float o_w[1] = {warp_acc[w][d]};
         merge(m, l, o, warp_m[w], warp_l[w], o_w);
       }
-      if (a.n_split == 1) {
+      if (n_live == 1) {
         store(static_cast<T*>(a.out) + sh * D + d, o[0] / fmaxf(l, 1e-30f));
       } else {
         store_cluster(cluster_addr(&part_acc[split][d], 0), o[0]);
@@ -449,7 +450,7 @@ paged_decode_split_kernel(const Args a) {
       }
     }
   }
-  if (a.n_split == 1) return;
+  if (n_live == 1) return;  // split 0 alone held positions: out is written
 
   // split 0 combines the live splits in split order: out = sum_i acc_i
   // e^(m_i - M) / sum_i l_i e^(m_i - M). It always holds position 0, so M
@@ -475,7 +476,6 @@ cudaError_t launch(const Args& a, int slots, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_split, a.heads, slots);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = kRingBytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -484,10 +484,6 @@ cudaError_t launch(const Args& a, int slots, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      paged_decode_split_kernel<T, P, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kRingBytes);
-  if (attr_err != cudaSuccess) return attr_err;
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, paged_decode_split_kernel<T, P, D>, a);
   if (err != cudaSuccess) return err;

@@ -60,10 +60,6 @@ launches = {"paged_decode": 0, "paged_decode_int8": 0}
 SPAN_TOKENS = 256
 MAX_SPLITS = 8
 MAX_SPAN_BLOCKS = 512
-# CTAs that fill an H100 (132 SMs) many times over: past this, longer
-# spans rather than more partials to combine
-_GRID_ENOUGH = 16 * 132
-
 # q, k_pool, v_pool, k_scales, v_scales, tables, lens, out; slots, heads,
 # head_dim, max_blocks, block_size, span_blocks, n_split; scale; dtype,
 # quantized; stream
@@ -100,9 +96,9 @@ def _check(q, k_pool, v_pool, block_tables, lens, block_size, k_scales,
                              f"{tuple(v_scales.shape)}")
 
 
-def split_plan(slots, heads, max_blocks, block_size):
-    """How the kernel splits each slot's context, from shapes alone:
-    ``(span_blocks, n_split)``: ``n_split = ceil(max_blocks / span_blocks)``
+def split_plan(max_blocks, block_size):
+    """How the kernel splits each slot's context, from the table's shape
+    alone: ``(span_blocks, n_split)``: ``n_split = ceil(max_blocks / span_blocks)``
     (at most MAX_SPLITS) CTAs per (slot, head), each taking at most
     `span_blocks` table entries. It never sees the lengths: on the device
     split i of slot s takes entries ``[i e, (i + 1) e)`` with ``e =
@@ -113,12 +109,7 @@ def split_plan(slots, heads, max_blocks, block_size):
                          f"{MAX_SPAN_BLOCKS} table entries, got {max_blocks}")
     span = min(max(1, SPAN_TOKENS // block_size, -(-max_blocks // MAX_SPLITS)),
                max_blocks)
-    n_split = -(-max_blocks // span)
-    while (n_split > 1 and slots * heads * n_split > _GRID_ENOUGH
-           and 2 * span <= MAX_SPAN_BLOCKS):
-        span = min(2 * span, max_blocks)
-        n_split = -(-max_blocks // span)
-    return span, n_split
+    return span, -(-max_blocks // span)
 
 
 def paged_decode_reference(q, k_pool, v_pool, block_tables, lens, block_size,
@@ -177,11 +168,9 @@ def paged_decode_reference(q, k_pool, v_pool, block_tables, lens, block_size,
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
-                    k_scales=None, v_scales=None, span_blocks=None):
+                    k_scales=None, v_scales=None):
     """One decode step of attention over the paged pool (see the module
-    docstring for the contract). `span_blocks` overrides `split_plan`'s
-    table entries per CTA (design comparisons); the plain twin ignores
-    it."""
+    docstring for the contract)."""
     if q.device.type == "cpu":
         return paged_decode_reference(q, k_pool, v_pool, block_tables, lens,
                                       block_size, k_scales, v_scales)
@@ -216,14 +205,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
         if t.data_ptr() % 16:
             raise ValueError(f"paged kernel needs 16-byte aligned {name}")
     require_hopper(q)
-    span, n_split = split_plan(s, h, m, int(block_size))
-    if span_blocks is not None:
-        span = int(span_blocks)
-        n_split = -(-m // span) if span > 0 else 0
-        if not (1 <= n_split <= MAX_SPLITS and span <= MAX_SPAN_BLOCKS):
-            raise ValueError(f"span_blocks {span} gives {n_split} splits of "
-                             f"{m} table entries; 1 to {MAX_SPLITS} splits "
-                             f"of at most {MAX_SPAN_BLOCKS} allowed")
+    span, n_split = split_plan(m, int(block_size))
     lib = _build.load("paged_decode")
     fn = lib.paddle_paged_decode
     fn.argtypes = _ARGTYPES

@@ -315,7 +315,7 @@ def test_int8_split_emulation_matches_jax(variant, seq_lens, active):
     from test_torch_paged_attention import split_emulation
     from paddle_tpu_torch.kernels.paged_attention import split_plan
     s, h, d, bs, m = 3, 2, 64, 16, 40
-    assert split_plan(s, h, m, bs) == (16, 3)
+    assert split_plan(m, bs) == (16, 3)
     rng = np.random.default_rng(sum(seq_lens))
     q, kp, vp, tables, _, ks, vs = _quant_state(s=s, h=h, d=d, bs=bs, m=m,
                                                 seed=sum(seq_lens) + 1)

@@ -166,7 +166,7 @@ def split_emulation(q, k_pool, v_pool, tables, lens, bs, k_scales=None,
     ``k * (scale * (1 / 127))``."""
     s, h, d = q.shape
     m = tables.shape[1]
-    span_blocks, n_split = split_plan(s, h, m, bs)
+    span_blocks, n_split = split_plan(m, bs)
     q32 = q.float() * (1.0 / np.sqrt(d))
     out = torch.empty((s, h, d), dtype=torch.float32)
     for si in range(s):
@@ -234,7 +234,7 @@ def _split_parity(st, bs, variant):
     (10, 639, 0),          # all M blocks (3 x 54 entries); lens 0
 ])
 def test_split_boundaries_match_jax(variant, lens):
-    assert split_plan(3, 1, 160, 4) == (64, 3)
+    assert split_plan(160, 4) == (64, 3)
     st = _paged_state(S=3, H=1, D=16, bs=4, M=160, lens=lens,
                       active=(True, True, True), seed=sum(lens))
     _split_parity(st, 4, variant)
@@ -254,26 +254,25 @@ def test_split_inactive_slot_with_null_table(variant):
 def test_split_head_dim_128(variant):
     """D = 128, the other head dim the kernel is built for, at bs 16:
     3 splits of at most 16 entries in M = 40."""
-    assert split_plan(2, 1, 40, 16) == (16, 3)
+    assert split_plan(40, 16) == (16, 3)
     st = _paged_state(S=2, H=1, D=128, bs=16, M=40, lens=(95, 639),
                       active=(True, True), seed=12)
     _split_parity(st, 16, variant)
 
 
 @pytest.mark.parametrize("shape", [
-    (8, 12, 64, 16),        # the serving path: 4 spans of 16 entries
-    (4, 4, 64, 16),         # fewer (slot, head) pairs, the same split
-    (3, 2, 7, 4),           # a span longer than the table: one split
-    (2, 3, 50, 3),          # a block size that divides no span
-    (8, 12, 2048, 16),      # a 32K context: 8 spans of 256 entries
-    (64, 32, 256, 16),      # a grid past _GRID_ENOUGH: longer spans
-    (64, 32, 4096, 16),     # the longest table: 8 spans of 512 entries
+    (64, 16),       # the serving path: 4 splits of at most 16 entries
+    (7, 4),         # a span longer than the table: one split
+    (50, 3),        # a block size that divides no span
+    (2048, 16),     # a 32K context: 8 splits of 256 entries
+    (4096, 16),     # the longest table: 8 splits of 512 entries
 ])
 def test_split_plan_covers_each_position_once(shape):
     """Every position 0 .. M * bs - 1 falls in exactly one span of whole
     table entries, at most MAX_SPLITS spans (one cluster) of at most
-    MAX_SPAN_BLOCKS entries, and the plan comes from shapes alone."""
-    slots, heads, m, bs = shape
+    MAX_SPAN_BLOCKS entries, SPAN_TOKENS a span where MAX_SPLITS of those
+    cover the table."""
+    m, bs = shape
     span, n_split = split_plan(*shape)
     assert 1 <= span <= min(m, MAX_SPAN_BLOCKS)
     assert 1 <= n_split <= MAX_SPLITS and n_split == -(-m // span)
@@ -281,18 +280,12 @@ def test_split_plan_covers_each_position_once(shape):
     assert owner.min() == 0 and owner.max() == n_split - 1
     assert torch.bincount(owner).sum() == m * bs
     assert (n_split - 1) * span < m <= n_split * span
-    # SPAN_TOKENS a CTA, unless the table needs longer spans for one
-    # cluster, or that many CTAs would fill the card many times over
-    base = min(m, max(1, SPAN_TOKENS // bs, -(-m // MAX_SPLITS)))
-    if slots * heads * -(-m // base) <= 16 * 132:
-        assert span == base
-    else:
-        assert span > base or span == MAX_SPAN_BLOCKS
+    assert span == min(m, max(1, SPAN_TOKENS // bs, -(-m // MAX_SPLITS)))
 
 
 def test_split_plan_refuses_tables_past_its_spans():
     with pytest.raises(ValueError):
-        split_plan(8, 12, MAX_SPLITS * MAX_SPAN_BLOCKS + 1, 16)
+        split_plan(MAX_SPLITS * MAX_SPAN_BLOCKS + 1, 16)
 
 
 def test_split_plan_needs_no_lengths():
@@ -300,7 +293,7 @@ def test_split_plan_needs_no_lengths():
     reads nothing back from the device (no sync a CUDA graph could not
     capture)."""
     assert list(inspect.signature(split_plan).parameters) == [
-        "slots", "heads", "max_blocks", "block_size"]
+        "max_blocks", "block_size"]
     src = inspect.getsource(paged_attention) + inspect.getsource(split_plan)
     for read in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lens",
                  "synchronize("):
@@ -318,7 +311,7 @@ def test_split_emulation_matches_twin_at_the_serving_shape():
             for k in ("q", "kp", "vp", "tables", "lens")]
     args = [a.to(torch.bfloat16) if a.is_floating_point() else a
             for a in args]
-    assert split_plan(4, 2, 64, 16) == (16, 4)
+    assert split_plan(64, 16) == (16, 4)
     emu = split_emulation(*args, 16)
     twin = paged_decode_reference(*args, 16)
     # both compute in fp32 from the same bf16 inputs and round the output

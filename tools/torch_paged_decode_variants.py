@@ -86,24 +86,25 @@ def _sub(src, old, new):
 
 
 def variants():
-    """name -> (source text, span multiplier); None for one_cta."""
+    """name -> (source text, span tokens); None for one_cta."""
     src = (CSRC / "paged_decode.cu").read_text()
     unstaged = _sub(src, _STAGE, "")
     for old, new in _UNSTAGED:
         unstaged = _sub(unstaged, old, new)
+    tokens = pa.SPAN_TOKENS
     return {"one_cta": ((ROOT / "tools" / "torch_paged_decode_one_cta.cu")
                         .read_text(), None),
-            "source": (src, 1.0),
-            "span_128": (src, 0.5),
-            "span_512": (src, 2.0),
+            "source": (src, tokens),
+            "span_128": (src, tokens // 2),
+            "span_512": (src, tokens * 2),
             "static": (_sub(src, _DYNAMIC,
                             "  const int span_blocks = a.span_blocks;\n"),
-                       1.0),
-            "unstaged": (unstaged, 1.0),
+                       tokens),
+            "unstaged": (unstaged, tokens),
             "ring_4x2": (_sub(src, "constexpr int kStages = 2;",
-                              "constexpr int kStages = 4;"), 1.0),
+                              "constexpr int kStages = 4;"), tokens),
             "ring_2x1": (_sub(src, "constexpr int kCopies = 2;",
-                              "constexpr int kCopies = 1;"), 1.0)}
+                              "constexpr int kCopies = 1;"), tokens)}
 
 
 _COMPUTE = re.compile(
@@ -123,14 +124,14 @@ _PROLOGUE_END = ("  const int64_t tok_stride = "
 
 
 def probes():
-    """name -> (source text, span multiplier) of the fixed-cost probes."""
+    """name -> (source text, span tokens) of the fixed-cost probes."""
     src = (CSRC / "paged_decode.cu").read_text()
     copies_only, count = _COMPUTE.subn(lambda _: _XOR, src)
     assert count == 1, count
     return {"empty": (_sub(src, _PROLOGUE_END,
                            "  if (last_pos >= 0) return;\n" + _PROLOGUE_END),
-                      1.0),
-            "copies_only": (copies_only, 1.0)}
+                      pa.SPAN_TOKENS),
+            "copies_only": (copies_only, pa.SPAN_TOKENS)}
 
 
 def build(sources):
@@ -193,17 +194,16 @@ def _one_cta(lib):
     return call
 
 
-def _split(lib, mult):
-    """A caller of a split-design library at `mult` times the planned
-    span."""
-    def call(q, k_pool, v_pool, tables, lens, bs, k_scales=None,
-             v_scales=None):
-        s, h, _ = q.shape
-        m = tables.shape[1]
-        span = max(1, min(m, int(pa.split_plan(s, h, m, bs)[0] * mult)))
+def _split(lib, tokens):
+    """A caller of a split-design library whose plan takes spans of
+    `tokens` positions (`paged_attention.SPAN_TOKENS`)."""
+    def call(*args):
         _build._LIBS["paged_decode"] = lib
-        return pa.paged_attention(q, k_pool, v_pool, tables, lens, bs,
-                                  k_scales, v_scales, span_blocks=span)
+        planned, pa.SPAN_TOKENS = pa.SPAN_TOKENS, tokens
+        try:
+            return pa.paged_attention(*args)
+        finally:
+            pa.SPAN_TOKENS = planned
     return call
 
 
@@ -265,9 +265,9 @@ def main():
     checked = list(sources)
     sources.update(probes())
     libs = build(sources)
-    calls = {name: (_one_cta(libs[name]) if mult is None
-                    else _split(libs[name], mult))
-             for name, (_, mult) in sources.items()}
+    calls = {name: (_one_cta(libs[name]) if tokens is None
+                    else _split(libs[name], tokens))
+             for name, (_, tokens) in sources.items()}
     for name in checked:
         _check(name, calls[name])
     bf16 = torch.bfloat16
