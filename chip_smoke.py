@@ -23,17 +23,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                calls), beside the least time the card could take; a bf16
                flash backward whose dO TMA cannot read must raise; paged
                decode also at lengths around its split boundaries and
-               timed at the serve mix's ragged lengths;
+               timed at the serve mix's ragged lengths; the decode step's
+               KV append (fp and int8 pools) equal to its twin bit for bit
+               on every block but null block 0, at write offsets 0, 1, 15
+               and mid-block, with inactive slots and reused blocks;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
-               behind `LLMEngine`: 19 requests (16 greedy, 2 sampled, one
-               990-token prompt so the 1024 bucket runs), more requests
-               than slots; both kernels must have launched (prefill 12 x
-               per admission, decode 12 x per step); then 4 decode steps
-               of 8 full slots under torch.profiler (device time by
-               kernel group, busy share);
+               behind `LLMEngine`, whose decode step is one CUDA graph
+               replay: one build of it (decode_compiles) in the warm-up,
+               none in the counted window of 19 requests (16 greedy, 2
+               sampled, one 990-token prompt so the 1024 bucket runs),
+               more requests than slots; prefill launches the flash kernel
+               12 x per admission, each replay the paged kernel and the KV
+               append 12 x each (counted per replay); then the decode
+               graph against the eager step: a second engine stepping
+               `_decode_step_eager`, both in turns for 20 steps over 8
+               requests, with equal greedy tokens at every step (the
+               logits' difference and both step p50s printed), and 4
+               decode steps of 8 full slots of each engine under
+               torch.profiler (device time by kernel group, busy share);
   4b. serve_int8 — the same model and request mix through
-               `LLMEngine(..., kv_dtype="int8")`: the int8 paged kernel 12 x
-               per decode step and the fp one never; prints its latencies,
+               `LLMEngine(..., kv_dtype="int8")`: the int8 paged kernel and
+               the int8 KV append 12 x per replay and the fp ones never,
+               the same graph-vs-eager check; prints its latencies,
                its greedy-token agreement with the bf16 run (a number, not
                a gate) and the streams each pool admits at the bf16
                engine's pool bytes;
@@ -60,11 +71,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                CPU's.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
-with fp and with int8 pools), the training kernels (flash backward dQ and
-dK/dV, fused cross-entropy forward and backward) and the fused
-bias-residual LayerNorm within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL /
-CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL, and the bf16 flash forward and
-backward within their own stated criteria (kept beside the kernels in
+with fp and with int8 pools, the KV append with fp and int8 pools), the
+training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
+and backward) and the fused bias-residual LayerNorm within FLASH_TOL /
+PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the KV
+append exactly), and the bf16 flash forward and backward within their own
+stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
 JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
 ``{"ok": true, "device": {...}}``.
@@ -87,8 +99,10 @@ from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
-                                      launch_counts, paged_attention as pa,
+                                      kv_append as kva, launch_counts,
+                                      paged_attention as pa,
                                       reset_launch_counts)
+from paddle_tpu_torch.quantization.kv_cache import dequantize
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
                                       pool_bytes_per_block)
@@ -655,6 +669,179 @@ def _paged_prev_line(fp_row, int8_row):
           f"{json.dumps(PAGED_PREV_MS)}")
 
 
+# the KV append's cases, one decode step of 8 slots: write offsets 0, 1,
+# 15, 0 (a new block), mid-block (8) and 15 again for the active slots; an
+# inactive slot with a live table row and length (the kernel must skip
+# it), and one with a cleared row. The pools hold a previous tenant's
+# data: stale levels past every offset, under scales that are mostly
+# larger than the new vectors (which are scaled by KV_APPEND_GAIN per
+# slot, so some blocks' scales shrink and some grow)
+KV_APPEND_LENS = [0, 1, 15, 16, 200, 1023, 500, 37]
+KV_APPEND_ACTIVE = [True, True, True, True, True, True, False, False]
+KV_APPEND_GAIN = [0.01, 0.5, 1.0, 3.0, 0.1, 10.0, 1.0, 1.0]
+
+
+def _kv_append_state(layers, pool_dtype, new_dtype, seed, slots=8, bs=16,
+                     m=64, heads=HEADS, head_dim=HEAD_DIM):
+    """k_new, v_new (strided views of one [S, 3, H, D] projection, the
+    fused QKV layout), pools of `layers` layers (int8 with fp32 scales, or
+    `pool_dtype`), tables, lens and active of KV_APPEND_*."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    nb = 1 + slots * m
+    shape = (layers, nb, bs, heads, head_dim)
+    gain = torch.tensor(KV_APPEND_GAIN, device="cuda")[:, None, None, None]
+    qkv = (torch.randn((slots, 3, heads, head_dim), generator=g,
+                       device="cuda") * gain).to(new_dtype)
+    if pool_dtype == torch.int8:
+        kp, vp = (torch.randint(-127, 128, shape, generator=g, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((layers, nb, heads), generator=g, device="cuda")
+                  * 4 + 0.05 for _ in range(2))
+    else:
+        kp, vp = (torch.randn(shape, generator=g, device="cuda")
+                  .to(pool_dtype) for _ in range(2))
+        ks = vs = None
+    tables = (1 + torch.arange(slots * m, device="cuda",
+                               dtype=torch.int32)).reshape(slots, m)
+    tables[7] = 0                          # slot 7: a cleared row
+    lens = torch.tensor(KV_APPEND_LENS, dtype=torch.int32, device="cuda")
+    active = torch.tensor(KV_APPEND_ACTIVE, device="cuda")
+    return qkv[:, 1], qkv[:, 2], kp, vp, ks, vs, tables, lens, active
+
+
+def _kv_append_work(int8, elem, bs=16, heads=HEADS, head_dim=HEAD_DIM):
+    """``(bytes, flops)`` one call needs, for the active slots (inactive
+    slots write nothing): fp pools read each new row and write it; int8
+    pools read the levels before the offset, the scale and the new row,
+    and write the block's bs x D levels and its scale, per head; plus the
+    lengths, the active flags and one table entry per active slot. About
+    8 fp32 operations per int8 element (dequantize, abs, max, multiply,
+    round, clamp)."""
+    live = [l for l, a in zip(KV_APPEND_LENS, KV_APPEND_ACTIVE) if a]
+    row = heads * head_dim
+    n = len(KV_APPEND_LENS)
+    nbytes = n * 4 + n + 4 * len(live)
+    flops = 0
+    for l in live:
+        off = l % bs
+        if int8:
+            nbytes += 2 * heads * (off * head_dim + head_dim * elem + 4
+                                   + bs * head_dim + 4)
+            flops += 2 * 8 * bs * row
+        else:
+            nbytes += 2 * 2 * row * elem
+    return nbytes, flops
+
+
+def _deq_err(got_p, got_s, want_p, want_s):
+    """Max abs difference of two int8 pools' dequantized values, block 0
+    left out."""
+    return (dequantize(got_p[1:], got_s[1:])
+            - dequantize(want_p[1:], want_s[1:])).abs().max().item()
+
+
+def check_kv_append():
+    """`kv_append` against its twin on copies of the same pools: fp pools
+    exactly equal, int8 levels and scales bit for bit, every block but
+    null block 0 (the twin writes inactive slots' garbage there, the
+    kernel skips them). Returns the fp (bf16 pools) and int8 (bf16 new
+    rows) rows, timed at the serving path's shape."""
+    bs = 16
+    errs = {}
+    for pool_dtype, new_dtype in ((torch.bfloat16, torch.bfloat16),
+                                  (torch.float32, torch.float32),
+                                  (torch.int8, torch.bfloat16),
+                                  (torch.int8, torch.float32)):
+        k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
+            1, pool_dtype, new_dtype, seed=5)
+        int8 = ks is not None
+        got = [t[0].clone() for t in ((kp, vp, ks, vs) if int8 else (kp, vp))]
+        want = [t[0].clone() for t in ((kp, vp, ks, vs) if int8 else (kp, vp))]
+        before = launch_counts()
+        kva.kv_append(k, v, got[0], got[1], tables, lens, active, bs,
+                      *got[2:])
+        kva.kv_append_reference(k, v, want[0], want[1], tables, lens, active,
+                                bs, *want[2:])
+        torch.cuda.synchronize()
+        name = "kv_append_int8" if int8 else "kv_append"
+        assert launch_counts()[name] == before[name] + 1, launch_counts()
+        tag = (f"{name} pools {str(pool_dtype)[6:]}, new rows "
+               f"{str(new_dtype)[6:]}, lens {KV_APPEND_LENS}, active "
+               f"{KV_APPEND_ACTIVE}")
+        for g_t, w_t in zip(got, want):
+            assert torch.equal(g_t[1:], w_t[1:]), f"{tag}: not bit-identical"
+        # the kernel leaves block 0 alone: the inactive slots write nothing
+        orig = (kp, vp, ks, vs) if int8 else (kp, vp)
+        assert all(torch.equal(g_t[0], o[0][0]) for g_t, o in zip(got, orig))
+        if int8:
+            err = max(_deq_err(got[0], got[2], want[0], want[2]),
+                      _deq_err(got[1], got[3], want[1], want[3]))
+        else:
+            err = max((g_t[1:].float() - w_t[1:].float()).abs().max().item()
+                      for g_t, w_t in zip(got, want))
+        print(f"  {tag}: bit-identical to the twin on blocks 1.. (max_abs_err "
+              f"{err:.3e}); block 0 untouched")
+        errs[pool_dtype, new_dtype] = err
+    # main-path shape, bf16 rows: 4 layers' pools rotate, as a decode
+    # step's 12 layers write 12 pools
+    rows, layers = [], 4
+    for pool_dtype in (torch.bfloat16, torch.int8):
+        k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
+            layers, pool_dtype, torch.bfloat16, seed=6)
+        int8 = ks is not None
+        it = iter(range(10 ** 9))
+
+        def rotating(fn):
+            def call():
+                layer = next(it) % layers
+                scales = (ks[layer], vs[layer]) if int8 else ()
+                return fn(k, v, kp[layer], vp[layer], tables, lens, active,
+                          bs, *scales)
+            return call
+
+        ms, host_ms = _timed(rotating(kva.kv_append))
+        plain_ms = _cuda_ms(rotating(kva.kv_append_reference))
+        if int8:
+            # no single PyTorch call requantizes a block
+            library_ms = None
+        else:
+            # yardstick: the pair of index_put_ calls the fp write was,
+            # with the write positions computed beforehand
+            eff = torch.where(active, lens, 0).long()
+            wb = torch.where(active, tables[torch.arange(8, device="cuda"),
+                                            eff // bs].long(), 0)
+            wo = eff % bs
+
+            def library(kk, vv, kpl, vpl, *_):
+                kpl.index_put_((wb, wo), kk)
+                vpl.index_put_((wb, wo), vv)
+
+            library_ms = _cuda_ms(rotating(library))
+        bound, by = _bound_ms(*_kv_append_work(int8, 2), torch.float32)
+        name = "kv_append_int8" if int8 else "kv_append"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/kv_append.cu",
+            "replaces": ("paddle_tpu/quantization/kv_cache.py:62 "
+                         "quantize_block_write, the int8 write of "
+                         "paddle_tpu/nn/functional/attention.py:253-271 "
+                         "(XLA ops, no Pallas kernel)" if int8 else
+                         "paddle_tpu/nn/functional/attention.py:253-271, "
+                         "the fp decode write .at[write_block, "
+                         "write_off].set (XLA ops, no Pallas kernel)"),
+            "max_abs_err": errs[pool_dtype, torch.bfloat16], "ms": ms,
+            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms,
+            "shape": (f"S=8 H=12 D=64 bs=16, 513 blocks, lens "
+                      f"{KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}, bf16 "
+                      "rows into " + ("int8 pools + fp32 scales; "
+                                      "library_ms null: no one PyTorch call "
+                                      "requantizes a block" if int8 else
+                                      "bf16 pools; library_ms: two "
+                                      "index_put_"))})
+    return rows
+
+
 def _ln_inputs(r, d, dtype, seed, affine_dtype=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
     x, res = (torch.randn((r, d), generator=g, device="cuda").to(dtype)
@@ -961,18 +1148,26 @@ def check_ce():
 
 def serve(kv_dtype=None):
     """The serving mix through `LLMEngine` (bf16 pools, or int8 with
-    ``kv_dtype="int8"``). Returns the launch counts of the run, the greedy
-    requests' tokens and the model."""
+    ``kv_dtype="int8"``), whose decode step is one CUDA graph replay: one
+    build (decode_compiles) in the warm-up, none in the counted window,
+    and every kernel of the step counted once per replay. Then the decode
+    graph against the eager step (`_graph_vs_eager`). Returns the launch
+    counts of the counted window, the greedy requests' tokens and the
+    model."""
     tag = "serve_int8" if kv_dtype else "serve"
     paged, other = (("paged_decode_int8", "paged_decode") if kv_dtype
                     else ("paged_decode", "paged_decode_int8"))
+    append, other_append = (("kv_append_int8", "kv_append") if kv_dtype
+                            else ("kv_append", "kv_append_int8"))
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
                        max_context=1024, kv_dtype=kv_dtype)
     rng = np.random.default_rng(0)
-    # warm-up (cuBLAS handles, allocator), outside the counted window
+    # warm-up (cuBLAS handles, allocator, the decode graph's capture),
+    # outside the counted window
     engine.generate([rng.integers(0, 50257, 20).tolist()], max_new_tokens=2)
+    assert engine.stats()["decode_compiles"] == 1, engine.stats()
     engine.reset_stats()
     lens = list(rng.integers(16, 961, 16)) + [990]
     prompts = [rng.integers(0, 50257, int(n)).tolist() for n in lens]
@@ -992,35 +1187,103 @@ def serve(kv_dtype=None):
                for r in reqs), [(r.rid, r.state) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
     layers = cfg.num_hidden_layers
+    assert st["decode_compiles"] == 0, st
     assert counts["flash_attention_fwd"] > 0 and counts[paged] > 0, counts
     assert counts[paged] == layers * st["steps"], (counts, st)
-    assert counts[other] == 0, counts
+    assert counts[append] == layers * st["steps"], (counts, st)
+    assert counts[other] == 0 and counts[other_append] == 0, counts
     assert counts["flash_attention_fwd"] == layers * st["prefills"], \
         (counts, st)
     assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
     assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
     print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
           f"in {wall:.3f} s = {st['tokens_generated'] / wall:.1f} tok/s; "
-          f"{st['steps']} decode steps, p50 {st['p50_step_ms']:.3f} ms, "
-          f"p99 {st['p99_step_ms']:.3f} ms; TTFT p50 "
-          f"{st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
+          f"{st['steps']} decode steps (graph replays; {st['decode_compiles']}"
+          f" decode builds in the window, 1 in the warm-up), p50 "
+          f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms; TTFT "
+          f"p50 {st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
           f"{st['evictions']} evictions; occupancy "
           f"{st['occupancy_mean']:.3f}")
     print(f"{tag}: prefill p50 ms by bucket "
           + json.dumps({str(b): round(v, 3)
                         for b, v in st["prefill_p50_ms"].items()}))
     print(f"{tag}: launches {json.dumps(counts)}")
-    # after the counted window: 8 requests admitted (with the first decode
-    # step), then 4 decode steps of 8 full slots under the profiler
-    for _ in range(8):
-        engine.add_request(rng.integers(0, 50257, 200).tolist(),
-                           max_new_tokens=16)
-    engine.step()
-    _breakdown(f"{tag} decode", lambda: [engine.step() for _ in range(4)],
-               per=4)
-    engine.run()
+    _graph_vs_eager(tag, model, engine, kv_dtype, rng)
     greedy = [list(r.generated) for r in reqs if r.temperature == 0]
     return counts, greedy, model
+
+
+# the decode graph against the eager step: steps of each, in turns
+GRAPH_VS_EAGER_STEPS = 20
+
+
+def _graph_vs_eager(tag, model, engine, kv_dtype, rng):
+    """`engine` (its decode graph built) and a second engine on the same
+    model whose steps run `_decode_step_eager`, stepped in turns over the
+    same 8 requests of 200-token prompts: the greedy tokens must be equal
+    after every step; the logits' max abs difference is reported (equal
+    bit for bit is expected; cuBLAS may choose another algorithm under
+    capture). Prints both engines' step p50 and the replay's device time
+    (CUDA events around the slot copy and the replay). Then 4 steps of 8
+    full slots of each engine under torch.profiler: the eager engine's
+    window names every kernel; the graph's names them too where the
+    profiler traces graph nodes (it did on the H100 runs of PERF.md), else
+    it shows one graph launch."""
+    eager = LLMEngine(model, max_batch_size=8, block_size=16,
+                      max_context=1024, kv_dtype=kv_dtype)
+    eager._decode_step = eager._decode_step_eager
+    logits, replay_ms = {}, []
+
+    def recording(name, fn):
+        def call():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            logits[name] = (out[:, -1].float().clone(), start, end)
+            return out
+        return call
+
+    engine._decode_logits = recording("graph", engine._decode_logits)
+    eager._decode_logits_eager = recording("eager",
+                                           eager._decode_logits_eager)
+    engine.reset_stats()
+    prompts = [rng.integers(0, 50257, 200).tolist() for _ in range(8)]
+    g_reqs = [engine.add_request(p, max_new_tokens=32) for p in prompts]
+    e_reqs = [eager.add_request(p, max_new_tokens=32) for p in prompts]
+    err = 0.0
+    for i in range(GRAPH_VS_EAGER_STEPS):
+        engine.step()
+        eager.step()
+        g_toks = [list(r.generated) for r in g_reqs]
+        e_toks = [list(r.generated) for r in e_reqs]
+        assert g_toks == e_toks, (tag, i, g_toks, e_toks)
+        (g_lg, start, end), (e_lg, _, _) = logits["graph"], logits["eager"]
+        err = max(err, (g_lg - e_lg).abs().max().item())
+        replay_ms.append(start.elapsed_time(end))
+    g_st, e_st = engine.stats(), eager.stats()
+    assert g_st["decode_compiles"] == 0 and e_st["decode_compiles"] == 0, \
+        (g_st, e_st)
+    assert all(len(r.generated) == GRAPH_VS_EAGER_STEPS + 1
+               for r in g_reqs), [len(r.generated) for r in g_reqs]
+    print(f"{tag}: decode graph vs eager, {GRAPH_VS_EAGER_STEPS} steps each "
+          f"in turns, 8 slots of 200-token prompts: greedy tokens identical "
+          f"at every step; logits max_abs_err {err:.3e} ("
+          f"{'bit-identical' if err == 0 else 'not bit-identical'}; "
+          f"reported, not held); step p50 graph {g_st['p50_step_ms']:.3f} ms, "
+          f"eager {e_st['p50_step_ms']:.3f} ms; replay device time p50 "
+          f"{float(np.median(replay_ms)):.4f} ms (min {min(replay_ms):.4f}, "
+          f"CUDA events around the slot copy and the replay)")
+    _breakdown(f"{tag} decode, eager engine", lambda: [eager.step()
+                                                       for _ in range(4)],
+               per=4)
+    _breakdown(f"{tag} decode, graph replay", lambda: [engine.step()
+                                                       for _ in range(4)],
+               per=4)
+    engine.run()
+    eager.run()
+    del engine._decode_logits
 
 
 def _admitted(model, kv_dtype, num_blocks, n=64, prompt=512):
@@ -1128,7 +1391,8 @@ def parity(kv_dtype=None):
 TRAIN_KERNELS = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                  "flash_attention_bwd_dkv": 12, "cross_entropy_fwd": 1,
                  "cross_entropy_bwd": 1, "paged_decode": 0,
-                 "paged_decode_int8": 0, "fused_ln": 0}
+                 "paged_decode_int8": 0, "kv_append": 0,
+                 "kv_append_int8": 0, "fused_ln": 0}
 
 
 # kernel-name substrings of each group in a profiled window's breakdown
@@ -1138,6 +1402,7 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
                ("paged_decode", ("paged_decode_split_kernel",
                                  "paged_decode_combine_kernel")),
+               ("kv_append", ("kv_append_kernel", "kv_append_int8_kernel")),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")))
 
@@ -1400,8 +1665,9 @@ def main():
     print("kernels vs plain twins:")
     paged, paged_int8 = check_paged(), check_paged_int8()
     _paged_prev_line(paged, paged_int8)
-    rows = {"serve": [check_flash(), paged],
-            "serve_int8": [paged_int8],
+    append, append_int8 = check_kv_append()
+    rows = {"serve": [check_flash(), paged, append],
+            "serve_int8": [paged_int8, append_int8],
             "train": check_flash_bwd() + check_ce(),
             "fused_ln": [check_fused_ln()]}
     paths = {}
@@ -1413,8 +1679,8 @@ def main():
     train_parity()
     paths["fused_ln"] = fused_ln_phase()
     # each row's launches come from the path it belongs to (the bf16
-    # serving run for flash forward and fp paged decode, the int8 serving
-    # run for int8 paged decode, the measured training steps for the
+    # serving run for flash forward, fp paged decode and the fp KV append,
+    # the int8 serving run for int8 paged decode and the int8 append, the measured training steps for the
     # training kernels, the fused_ln phase for fused_ln); every path's
     # counts are listed beside
     for path, path_rows in rows.items():
@@ -1424,7 +1690,7 @@ def main():
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
-    assert len(rows) == 8 and all(row["launches"] > 0 for row in rows), rows
+    assert len(rows) == 10 and all(row["launches"] > 0 for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
             "shape", "launches_by_path", "tflops", "tile", "at_train_shape",

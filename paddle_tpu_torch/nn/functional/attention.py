@@ -15,8 +15,9 @@ from ...framework.flags import get_flags
 from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
                                         FlashAttention)
+from ...kernels.kv_append import kv_append
 from ...kernels.paged_attention import paged_attention
-from ...quantization.kv_cache import dequantize, quantize_block_write
+from ...quantization.kv_cache import dequantize
 
 __all__ = ["scaled_dot_product_attention", "paged_decode_attention"]
 
@@ -110,40 +111,24 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
     ``[S, M]`` int32 dense-prefix tables padded with null block 0.
     seq_lens: ``[S]`` int32 cached tokens per slot; the new token is written
     at position ``seq_lens[s]`` and attended to. active: ``[S]`` bool;
-    inactive slots write into null block 0 and their outputs are garbage
-    the engine never reads.
+    inactive slots write nothing into a live block (the CPU twin sends
+    them to null block 0, the kernel skips them) and their outputs are
+    garbage the engine never reads.
 
-    The new K/V are written INTO the pools in place (``index_put_``, or
-    `quantize_block_write` for int8 pools, which requantizes the write
-    block and updates its scales in place too): the JAX function returns
-    fresh pools, the port edits the engine's pools, which saves a copy of
-    every layer's pool per step. Returns ``(out [S, 1, H, D], k_pool,
-    v_pool)``, plus ``(k_scales, v_scales)`` with int8 pools.
+    The new K/V are written INTO the pools in place by `kv_append` (one
+    launch a layer for both pools on the card; int8 pools requantize the
+    write block and update its scales in place too): the JAX function
+    returns fresh pools, the port edits the engine's pools, which saves a
+    copy of every layer's pool per step. Returns ``(out [S, 1, H, D],
+    k_pool, v_pool)``, plus ``(k_scales, v_scales)`` with int8 pools.
     """
-    s = q.shape[0]
-    lens = torch.where(active, seq_lens, torch.zeros_like(seq_lens)) \
-        .to(torch.int32)
-    rows = torch.arange(s, device=q.device)
-    lens_l = lens.long()
-    # write the new token's K/V at (table[len // bs], len % bs); inactive
-    # slots all target the null block (its content is never unmasked)
-    write_block = torch.where(active, block_tables[rows, lens_l // block_size]
-                              .long(), torch.zeros_like(lens_l))
-    write_off = lens_l % block_size
-    quantized = k_scales is not None
-    if quantized:
-        quantize_block_write(k_pool, k_scales, k_new[:, 0], write_block,
-                             write_off)
-        quantize_block_write(v_pool, v_scales, v_new[:, 0], write_block,
-                             write_off)
-    else:
-        k_pool.index_put_((write_block, write_off),
-                          k_new[:, 0].to(k_pool.dtype))
-        v_pool.index_put_((write_block, write_off),
-                          v_new[:, 0].to(v_pool.dtype))
-    out = paged_attention(q[:, 0].contiguous(), k_pool, v_pool,
-                          block_tables.to(torch.int32).contiguous(), lens,
-                          block_size, k_scales, v_scales)
-    if quantized:
+    kv_append(k_new[:, 0], v_new[:, 0], k_pool, v_pool, block_tables,
+              seq_lens, active, block_size, k_scales, v_scales)
+    # the paged kernel's effective lengths: 0 for inactive slots (kv_append
+    # has held the tables and lengths to contiguous int32)
+    lens = torch.where(active, seq_lens, 0)
+    out = paged_attention(q[:, 0].contiguous(), k_pool, v_pool, block_tables,
+                          lens, block_size, k_scales, v_scales)
+    if k_scales is not None:
         return out[:, None], k_pool, v_pool, k_scales, v_scales
     return out[:, None], k_pool, v_pool

@@ -8,15 +8,29 @@ deadlines, cancellation and structured refusals. Host state stays in
 numpy: the fixed slot layout ``tokens [S]``, ``tables [S, M]``,
 ``lens [S]``, ``active [S]`` and the per-slot sampler config.
 
-The device side runs eagerly on ``device``: the only device state is the
-two pools ``[L, num_blocks, block_size, H, D]`` (with ``kv_dtype="int8"``,
-int8 pools and their fp32 scales ``[L, num_blocks, H]``), which every
-prefill and decode step edits in place. A prefill runs the prompt
-(right-padded to a power-of-two bucket) through the model's dynamic-cache
-path — causal attention through the flash kernel — and scatters its K/V
-into the pools (quantizing them with int8 pools);
-a decode step runs one token per slot through the paged path — the paged
-kernel in every layer — and samples the next tokens.
+The device side lives on ``device``: the two pools ``[L, num_blocks,
+block_size, H, D]`` (with ``kv_dtype="int8"``, int8 pools and their fp32
+scales ``[L, num_blocks, H]``), which every prefill and decode step edits
+in place, and the decode program's slot buffers. A prefill runs eagerly:
+the prompt (right-padded to a power-of-two bucket) goes through the
+model's dynamic-cache path — causal attention through the flash kernel —
+and its K/V are scattered into the pools (quantized with int8 pools).
+
+The decode step is one program, built once per engine at its first
+decode step (`ServeStats.decode_compiles`, the reference's count of decode
+traces) and run for every token of every stream, as the reference's one
+``jax.jit`` is. Its inputs are static device buffers — tokens ``[S]``,
+tables ``[S, M]``, lens ``[S]``, active ``[S]``, packed in one buffer that
+one copy fills each step from the host mirrors — and twelve
+`PagedCacheView`s over them and the pools, made once. On the card the
+program is one CUDA graph of the whole decode forward (embeddings, every
+layer with its KV append and paged kernel, ``ln_f``, the LM head), captured
+after one eager warm-up step and replayed into static logits ``[S, 1,
+V]``; on the CPU the same forward runs over the same buffers without
+capture. The sampler stays outside the program (its stochastic rows draw
+from per-slot host-seeded generators) and reads the logits before the
+next step. A capture or replay that fails raises: there is no eager
+fallback.
 
 Left out of the port, and refused with NotImplementedError when a
 constructor argument asks for them: tenancy (prefix cache, adapters,
@@ -35,6 +49,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import add_launches, captured_launches
 from .cache import PagedCacheView, PagedKVCache, is_int8, scatter_prefill
 from .resilience import ServeRefusal
 from .sampling import default_seed, sample_tokens, validate_sampler
@@ -52,6 +67,22 @@ _MIN_BUCKET = 8
 _SAMPLES = 4096
 
 
+def _slot_buffer(s, m, device, pin=False):
+    """The decode program's slot state, zeroed (every slot inactive):
+    tokens, tables and lens (int32) and active (bool) packed in one byte
+    buffer, so that one copy moves all four (`_slot_views`)."""
+    return torch.zeros(4 * s * (m + 2) + s, dtype=torch.uint8, device=device,
+                       pin_memory=pin)
+
+
+def _slot_views(buf, s, m):
+    """``(tokens [S], tables [S, M], lens [S], active [S])`` views of a
+    buffer from `_slot_buffer`."""
+    i, t, l = 4 * s, 4 * s * (m + 1), 4 * s * (m + 2)
+    return (buf[:i].view(torch.int32), buf[i:t].view(torch.int32).view(s, m),
+            buf[t:l].view(torch.int32), buf[l:l + s].view(torch.bool))
+
+
 def _pct(samples, p):
     return float(np.percentile(np.asarray(samples), p)) if samples else 0.0
 
@@ -61,15 +92,19 @@ class ServeStats:
     `_SAMPLES` observations of each kind (bounded memory however long the
     engine runs). Times are host-clock seconds around work that ends in a
     device-to-host copy of the sampled tokens, so they include the
-    device's time."""
+    device's time. `decode_compiles` counts builds of the decode program
+    (a CUDA graph capture on the card, the buffers' views on the CPU): 1
+    for an engine's life, however requests join, leave or are evicted."""
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        """Zero the counters and drop the samples (a fresh measurement
-        window; the pools and the running requests are untouched)."""
+        """Zero the counters IN PLACE and drop the samples (a fresh
+        measurement window; the pools, the running requests and the built
+        decode program are untouched)."""
         self.steps = 0
+        self.decode_compiles = 0
         self.tokens_generated = 0
         self.prefills = 0
         self.admitted = 0
@@ -117,6 +152,7 @@ class ServeStats:
             elapsed = self.wall_t1 - self.wall_t0
         return {
             "steps": self.steps,
+            "decode_compiles": self.decode_compiles,
             "tokens_generated": self.tokens_generated,
             "prefills": self.prefills,
             "admitted": self.admitted,
@@ -249,6 +285,17 @@ class LLMEngine:
         # per-slot context history for the repetition penalty; positions
         # <= lens are valid
         self._history = np.zeros((s, self.max_context), np.int32)
+        # the decode program's inputs on the device, and a staging copy of
+        # the host mirrors (pinned on the card) that one copy_ a step moves
+        # there; the program itself is built at the first decode step
+        self._slots_dev = _slot_buffer(s, m, self.device)
+        self._slots_host = _slot_buffer(s, m, torch.device("cpu"),
+                                        pin=self.device.type == "cuda")
+        self._slots_staged = [v.numpy() for v in
+                              _slot_views(self._slots_host, s, m)]
+        # runs the program once: a graph replay on the card, the forward
+        # on the CPU
+        self._decode_program = None
         self._k_pools = self.cache.k_pools
         self._v_pools = self.cache.v_pools
         self._k_scales = self.cache.k_scales       # None unless int8 KV
@@ -604,23 +651,96 @@ class LLMEngine:
             np.array([length], np.int64), padded, valid,
             logprobs_topk=self._logprobs_topk)
 
-    @torch.no_grad()
     def _decode_step(self):
-        """One token for every slot through the paged path (inactive slots
-        compute garbage into the null block). Returns the sampler's numpy
+        """One token for every slot through the decode program (inactive
+        slots compute garbage nobody reads). Returns the sampler's numpy
         outputs."""
+        return self._sample_decode(self._decode_logits())
+
+    def _decode_step_eager(self):
+        """The decode step without the program: four host-to-device
+        copies, twelve fresh views and the forward's launches one by one.
+        No entry point reaches it; it stays to time the program against."""
+        return self._sample_decode(self._decode_logits_eager())
+
+    def _paged_views(self, tables, lens, active):
+        quant = self._k_scales is not None
+        return [PagedCacheView(self._k_pools[l], self._v_pools[l], tables,
+                               lens, active, self.block_size,
+                               k_scales=self._k_scales[l] if quant else None,
+                               v_scales=self._v_scales[l] if quant else None)
+                for l in range(self._k_pools.shape[0])]
+
+    @torch.no_grad()
+    def _build_decode(self):
+        """Build the decode program, once: the paged views over the static
+        slot buffers and the pools; on the card, one eager warm-up step on
+        a side stream (it loads cuBLAS and the kernels' libraries and
+        modules before capture), then one CUDA graph capture of the
+        forward. Runs before the first step's copy into the buffers, so
+        the warm-up sees every slot inactive and writes no live block."""
+        tokens, tables, lens, active = _slot_views(
+            self._slots_dev, self.max_batch_size, self.max_blocks_per_seq)
+        views = self._paged_views(tables, lens, active)
+
+        def forward():
+            return self._model(tokens[:, None], caches=views)[0]
+
+        self._stats.decode_compiles += 1
+        if self.device.type != "cuda":
+            self._decode_program = forward
+            return
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            forward()
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph):
+                return forward()
+
+        logits, launched = captured_launches(capture)
+
+        def replay():
+            graph.replay()
+            add_launches(launched)
+            return logits
+
+        self._decode_program = replay
+
+    @torch.no_grad()
+    def _decode_logits(self):
+        """This step's logits ``[S, 1, V]`` from the decode program: the
+        host mirrors go to the static buffers in one copy, then the graph
+        replays (on the CPU, the forward runs). The logits are the graph's
+        static output: read them before the next step."""
+        if self._decode_program is None:
+            self._build_decode()
+        # the staging buffer is rewritten only here, after the previous
+        # step's sampled tokens reached the host, so its last copy is done
+        for staged, mirror in zip(self._slots_staged,
+                                  (self._tokens, self._tables, self._lens,
+                                   self._active)):
+            np.copyto(staged, mirror)
+        self._slots_dev.copy_(self._slots_host, non_blocking=True)
+        return self._decode_program()
+
+    @torch.no_grad()
+    def _decode_logits_eager(self):
         dev = self.device
         tokens = torch.from_numpy(self._tokens).to(dev)
-        tables = torch.from_numpy(self._tables).to(dev)
-        lens = torch.from_numpy(self._lens).to(dev)
-        active = torch.from_numpy(self._active).to(dev)
-        quant = self._k_scales is not None
-        views = [PagedCacheView(self._k_pools[l], self._v_pools[l], tables,
-                                lens, active, self.block_size,
-                                k_scales=self._k_scales[l] if quant else None,
-                                v_scales=self._v_scales[l] if quant else None)
-                 for l in range(self._k_pools.shape[0])]
-        logits, _ = self._model(tokens[:, None], caches=views)
+        views = self._paged_views(torch.from_numpy(self._tables).to(dev),
+                                  torch.from_numpy(self._lens).to(dev),
+                                  torch.from_numpy(self._active).to(dev))
+        return self._model(tokens[:, None], caches=views)[0]
+
+    @torch.no_grad()
+    def _sample_decode(self, logits):
+        """The sampler over a decode step's logits ``[S, 1, V]``; its
+        device-to-host copy of the tokens ends the step."""
         # the input token enters the context at index `lens`
         rows = np.arange(self.max_batch_size)
         hist = self._history.copy()

@@ -157,7 +157,10 @@ def sample_tokens(logits, temperature, top_k, top_p, repetition_penalty,
     context (``history``, ``valid`` ``[S, C]``) are host numpy arrays.
     Returns numpy ``(next_token [S] int32, chosen_logprob [S] float32,
     alt_ids [S, K] int32, alt_logprobs [S, K] float32)`` with K =
-    ``logprobs_topk``; the chosen logprob is under the RAW distribution."""
+    ``logprobs_topk``; the chosen logprob is under the RAW distribution.
+    Every read of `logits` is done when it returns (the outputs come back
+    to the host), so `logits` may be a view of a CUDA graph's static
+    output that the graph's next replay overwrites."""
     logits = logits.float()
     device = logits.device
     nxt = torch.argmax(logits, dim=-1)
