@@ -7,7 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. probe   — a CUDA device must exist; print its name and power limit;
   2. build   — compile every kernel of the serving and training paths with
                nvcc into build/paddle_tpu_torch/ (all sources at once) and
-               print the build time and ptxas' register / spill report,
+               print the build time and ptxas' register / spill report by
+               kernel entry (the paged decode kernel with and without the
+               decode write),
                the flash forward's and backward's counts of HGMMA
                (wgmma) and UTMALDG (TMA load) instructions in their SASS
                and the paged decode kernels' count of LDGSTS (cp.async,
@@ -23,27 +25,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                calls), beside the least time the card could take; a bf16
                flash backward whose dO TMA cannot read must raise; paged
                decode also at lengths around its split boundaries and
-               timed at the serve mix's ragged lengths; the decode step's
-               KV append (fp and int8 pools) equal to its twin bit for bit
-               on every block but null block 0, at write offsets 0, 1, 15
-               and mid-block, with inactive slots and reused blocks;
+               timed at the serve mix's ragged lengths; the fused decode
+               step (the paged kernel writing this step's K and V rows
+               before it attends, fp and int8 pools) against its twin
+               composition over 50 launches: pools (int8 levels and
+               scales) bit for bit on every block but null block 0, block
+               0 untouched, the output within PAGED_TOL and bit for bit
+               the paged kernel's alone, at write offsets 0, 1, 15 and
+               mid-block, the table's end, with inactive slots and reused
+               blocks; timed in turns with the paged kernel alone;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
                none in the counted window of 19 requests (16 greedy, 2
                sampled, one 990-token prompt so the 1024 bucket runs),
                more requests than slots; prefill launches the flash kernel
-               12 x per admission, each replay the paged kernel and the KV
-               append 12 x each (counted per replay); then the decode
+               12 x per admission, each replay the fused paged kernel
+               (write + attention) 12 x and the paged kernel alone never
+               (counted per replay); then the decode
                graph against the eager step: a second engine stepping
                `_decode_step_eager`, both in turns for 20 steps over 8
                requests, with equal greedy tokens at every step (the
                logits' difference and both step p50s printed), and 4
                decode steps of 8 full slots of each engine under
-               torch.profiler (device time by kernel group, busy share);
+               torch.profiler (device time by kernel group, kernels a
+               step, busy share);
   4b. serve_int8 — the same model and request mix through
-               `LLMEngine(..., kv_dtype="int8")`: the int8 paged kernel and
-               the int8 KV append 12 x per replay and the fp ones never,
+               `LLMEngine(..., kv_dtype="int8")`: the fused int8 paged
+               kernel 12 x per replay and the fp one never,
                the same graph-vs-eager check; prints its latencies,
                its greedy-token agreement with the bf16 run (a number, not
                a gate) and the streams each pool admits at the bf16
@@ -71,11 +80,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                CPU's.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
-with fp and with int8 pools, the KV append with fp and int8 pools), the
+with fp and with int8 pools, alone and with the decode write), the
 training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
 and backward) and the fused bias-residual LayerNorm within FLASH_TOL /
-PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the KV
-append exactly), and the bf16 flash forward and backward within their own
+PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the
+decode write exactly), and the bf16 flash forward and backward within their own
 stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
 JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
@@ -85,6 +94,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import time
 
@@ -99,10 +109,9 @@ from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
-                                      kv_append as kva, launch_counts,
-                                      paged_attention as pa,
+                                      launch_counts, paged_attention as pa,
                                       reset_launch_counts)
-from paddle_tpu_torch.quantization.kv_cache import dequantize
+from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
                                       pool_bytes_per_block)
@@ -669,21 +678,27 @@ def _paged_prev_line(fp_row, int8_row):
           f"{json.dumps(PAGED_PREV_MS)}")
 
 
-# the KV append's cases, one decode step of 8 slots: write offsets 0, 1,
-# 15, 0 (a new block), mid-block (8) and 15 again for the active slots; an
-# inactive slot with a live table row and length (the kernel must skip
-# it), and one with a cleared row. The pools hold a previous tenant's
-# data: stale levels past every offset, under scales that are mostly
-# larger than the new vectors (which are scaled by KV_APPEND_GAIN per
-# slot, so some blocks' scales shrink and some grow)
+# the fused decode step's cases, one step of 8 slots: write offsets 0, 1,
+# 15, 0 (a new block), mid-block (8) and 15 at the table's last position
+# for the active slots, whose contexts lie within one table entry (lens 0,
+# 1, 15: the write is split 0's), span 2 entries (16: split 1's) or all 4
+# splits (200, 1023: split 3's); an inactive slot with a live table row
+# and length (the kernel must skip it), and one with a cleared row. The
+# pools hold a previous tenant's data: stale levels past every offset,
+# under scales that are mostly larger than the new vectors (which are
+# scaled by KV_APPEND_GAIN per slot, so some blocks' scales shrink and
+# some grow)
 KV_APPEND_LENS = [0, 1, 15, 16, 200, 1023, 500, 37]
 KV_APPEND_ACTIVE = [True, True, True, True, True, True, False, False]
 KV_APPEND_GAIN = [0.01, 0.5, 1.0, 3.0, 0.1, 10.0, 1.0, 1.0]
+# launches of the fused kernel held against the twin, each on fresh copies
+# of the state, so that a write racing the span's reads would show
+APPEND_REPEATS = 50
 
 
 def _kv_append_state(layers, pool_dtype, new_dtype, seed, slots=8, bs=16,
                      m=64, heads=HEADS, head_dim=HEAD_DIM):
-    """k_new, v_new (strided views of one [S, 3, H, D] projection, the
+    """q, k_new, v_new (strided views of one [S, 3, H, D] projection, the
     fused QKV layout), pools of `layers` layers (int8 with fp32 scales, or
     `pool_dtype`), tables, lens and active of KV_APPEND_*."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -706,17 +721,18 @@ def _kv_append_state(layers, pool_dtype, new_dtype, seed, slots=8, bs=16,
     tables[7] = 0                          # slot 7: a cleared row
     lens = torch.tensor(KV_APPEND_LENS, dtype=torch.int32, device="cuda")
     active = torch.tensor(KV_APPEND_ACTIVE, device="cuda")
-    return qkv[:, 1], qkv[:, 2], kp, vp, ks, vs, tables, lens, active
+    return (qkv[:, 0], qkv[:, 1], qkv[:, 2], kp, vp, ks, vs, tables, lens,
+            active)
 
 
 def _kv_append_work(int8, elem, bs=16, heads=HEADS, head_dim=HEAD_DIM):
-    """``(bytes, flops)`` one call needs, for the active slots (inactive
-    slots write nothing): fp pools read each new row and write it; int8
-    pools read the levels before the offset, the scale and the new row,
-    and write the block's bs x D levels and its scale, per head; plus the
-    lengths, the active flags and one table entry per active slot. About
-    8 fp32 operations per int8 element (dequantize, abs, max, multiply,
-    round, clamp)."""
+    """``(bytes, flops)`` the decode write needs, for the active slots
+    (inactive slots write nothing): fp pools read each new row and write
+    it; int8 pools read the levels before the offset, the scale and the
+    new row, and write the block's bs x D levels and its scale, per head;
+    plus the lengths, the active flags and one table entry per active
+    slot. About 8 fp32 operations per int8 element (dequantize, abs, max,
+    multiply, round, clamp)."""
     live = [l for l, a in zip(KV_APPEND_LENS, KV_APPEND_ACTIVE) if a]
     row = heads * head_dim
     n = len(KV_APPEND_LENS)
@@ -733,112 +749,168 @@ def _kv_append_work(int8, elem, bs=16, heads=HEADS, head_dim=HEAD_DIM):
     return nbytes, flops
 
 
-def _deq_err(got_p, got_s, want_p, want_s):
-    """Max abs difference of two int8 pools' dequantized values, block 0
-    left out."""
-    return (dequantize(got_p[1:], got_s[1:])
-            - dequantize(want_p[1:], want_s[1:])).abs().max().item()
-
-
-def check_kv_append():
-    """`kv_append` against its twin on copies of the same pools: fp pools
-    exactly equal, int8 levels and scales bit for bit, every block but
-    null block 0 (the twin writes inactive slots' garbage there, the
-    kernel skips them). Returns the fp (bf16 pools) and int8 (bf16 new
-    rows) rows, timed at the serving path's shape."""
-    bs = 16
-    errs = {}
-    for pool_dtype, new_dtype in ((torch.bfloat16, torch.bfloat16),
-                                  (torch.float32, torch.float32),
-                                  (torch.int8, torch.bfloat16),
-                                  (torch.int8, torch.float32)):
-        k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
-            1, pool_dtype, new_dtype, seed=5)
-        int8 = ks is not None
-        got = [t[0].clone() for t in ((kp, vp, ks, vs) if int8 else (kp, vp))]
-        want = [t[0].clone() for t in ((kp, vp, ks, vs) if int8 else (kp, vp))]
-        before = launch_counts()
-        kva.kv_append(k, v, got[0], got[1], tables, lens, active, bs,
-                      *got[2:])
-        kva.kv_append_reference(k, v, want[0], want[1], tables, lens, active,
-                                bs, *want[2:])
-        torch.cuda.synchronize()
-        name = "kv_append_int8" if int8 else "kv_append"
-        assert launch_counts()[name] == before[name] + 1, launch_counts()
-        tag = (f"{name} pools {str(pool_dtype)[6:]}, new rows "
-               f"{str(new_dtype)[6:]}, lens {KV_APPEND_LENS}, active "
-               f"{KV_APPEND_ACTIVE}")
+def _check_append_case(pool_dtype, new_dtype, bs=16):
+    """`paged_decode_append` against the twin composition on copies of one
+    state, APPEND_REPEATS times: pools (int8: levels and scales) equal bit
+    for bit on every block but null block 0, block 0 untouched (the twin
+    writes the inactive slots' rows there, the kernel skips them), the
+    active slots' output within PAGED_TOL of the twin's and equal bit for
+    bit to the paged kernel's alone on the twin's pools. Returns the
+    output's max abs error against the twin."""
+    q, k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
+        1, pool_dtype, new_dtype, seed=5)
+    int8 = ks is not None
+    orig = [t[0] for t in ((kp, vp, ks, vs) if int8 else (kp, vp))]
+    want = [t.clone() for t in orig]
+    kva.kv_append_reference(k, v, want[0], want[1], tables, lens, active, bs,
+                            *want[2:])
+    eff = torch.where(active, lens, 0)
+    want_out = pa.paged_decode_reference(q, want[0], want[1], tables, eff, bs,
+                                         *want[2:])
+    alone = pa.paged_attention(q.contiguous(), want[0], want[1], tables, eff,
+                               bs, *want[2:])
+    name = "paged_decode_append_int8" if int8 else "paged_decode_append"
+    tag = (f"{name} pools {str(pool_dtype)[6:]}, rows {str(new_dtype)[6:]}, "
+           f"lens {KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}")
+    act = torch.tensor(KV_APPEND_ACTIVE, device="cuda")
+    atol, rtol = PAGED_TOL[new_dtype]
+    before = launch_counts()
+    err = 0.0
+    for i in range(APPEND_REPEATS):
+        got = [t.clone() for t in orig]
+        out = pa.paged_decode_append(q, k, v, got[0], got[1], tables, lens,
+                                     active, bs, *got[2:])
         for g_t, w_t in zip(got, want):
-            assert torch.equal(g_t[1:], w_t[1:]), f"{tag}: not bit-identical"
-        # the kernel leaves block 0 alone: the inactive slots write nothing
-        orig = (kp, vp, ks, vs) if int8 else (kp, vp)
-        assert all(torch.equal(g_t[0], o[0][0]) for g_t, o in zip(got, orig))
-        if int8:
-            err = max(_deq_err(got[0], got[2], want[0], want[2]),
-                      _deq_err(got[1], got[3], want[1], want[3]))
-        else:
-            err = max((g_t[1:].float() - w_t[1:].float()).abs().max().item()
-                      for g_t, w_t in zip(got, want))
-        print(f"  {tag}: bit-identical to the twin on blocks 1.. (max_abs_err "
-              f"{err:.3e}); block 0 untouched")
-        errs[pool_dtype, new_dtype] = err
-    # main-path shape, bf16 rows: 4 layers' pools rotate, as a decode
-    # step's 12 layers write 12 pools
-    rows, layers = [], 4
+            assert torch.equal(g_t[1:], w_t[1:]), \
+                f"{tag}, launch {i}: pools not bit-identical"
+        assert all(torch.equal(g_t[0], o[0]) for g_t, o in zip(got, orig)), \
+            f"{tag}, launch {i}: block 0 written"
+        o, w = out[act].float(), want_out[act].float()
+        torch.testing.assert_close(o, w, atol=atol, rtol=rtol,
+                                   msg=lambda m: f"{tag}, launch {i}: {m}")
+        assert torch.equal(out[act], alone[act]), \
+            f"{tag}, launch {i}: out differs from the paged kernel alone"
+        err = max(err, (o - w).abs().max().item())
+    assert launch_counts()[name] == before[name] + APPEND_REPEATS, \
+        launch_counts()
+    print(f"  {tag}: {APPEND_REPEATS} launches, each with pools bit-identical "
+          f"to the twin's on blocks 1.. and block 0 untouched; out of the "
+          f"active slots max_abs_err {err:.3e} (atol {atol}, rtol {rtol}), "
+          f"bit-identical to the paged kernel alone on the twin's pools")
+    return err
+
+
+def check_paged_append():
+    """The fused decode step (`paged_decode_append`: the write, then the
+    attention, one launch) against its twin composition (`_check_append_
+    case`) for fp32 and bf16 pools and int8 pools with bf16 and fp32 rows.
+    Returns the fp (bf16 pools) and int8 (bf16 rows) rows, timed at the
+    serving path's shape in turns with the paged kernel alone on the same
+    state (fused, paged, paged, fused): their difference is what the
+    write adds to the launch."""
+    bs = 16
+    errs = {pair: _check_append_case(*pair)
+            for pair in ((torch.bfloat16, torch.bfloat16),
+                         (torch.float32, torch.float32),
+                         (torch.int8, torch.bfloat16),
+                         (torch.int8, torch.float32))}
+    # main-path shape, bf16 rows: 12 layers' pools rotate, as a decode
+    # step's 12 layers read and write 12 pools
+    rows, layers = [], 12
+    eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
+                                              KV_APPEND_ACTIVE)]
     for pool_dtype in (torch.bfloat16, torch.int8):
-        k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
+        q, k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
             layers, pool_dtype, torch.bfloat16, seed=6)
         int8 = ks is not None
+        eff = torch.where(active, lens, 0)
+        q_alone = q.contiguous()
         it = iter(range(10 ** 9))
 
         def rotating(fn):
             def call():
                 layer = next(it) % layers
                 scales = (ks[layer], vs[layer]) if int8 else ()
-                return fn(k, v, kp[layer], vp[layer], tables, lens, active,
-                          bs, *scales)
+                return fn(kp[layer], vp[layer], *scales)
             return call
 
-        ms, host_ms = _timed(rotating(kva.kv_append))
-        plain_ms = _cuda_ms(rotating(kva.kv_append_reference))
+        def fused(kpl, vpl, *scales):
+            return pa.paged_decode_append(q, k, v, kpl, vpl, tables, lens,
+                                          active, bs, *scales)
+
+        def alone(kpl, vpl, *scales):
+            return pa.paged_attention(q_alone, kpl, vpl, tables, eff, bs,
+                                      *scales)
+
+        def twin(kpl, vpl, *scales):
+            kva.kv_append_reference(k, v, kpl, vpl, tables, lens, active, bs,
+                                    *scales)
+            return pa.paged_decode_reference(q, kpl, vpl, tables, eff, bs,
+                                             *scales)
+
+        f1, host_1 = _timed(rotating(fused))
+        p1, _ = _timed(rotating(alone))
+        p2, _ = _timed(rotating(alone))
+        f2, host_2 = _timed(rotating(fused))
+        plain_ms = _cuda_ms(rotating(twin))
         if int8:
             # no single PyTorch call requantizes a block
             library_ms = None
         else:
-            # yardstick: the pair of index_put_ calls the fp write was,
-            # with the write positions computed beforehand
-            eff = torch.where(active, lens, 0).long()
+            # yardstick: the two index_put_ calls of the fp write, with the
+            # write positions computed beforehand, then a gather and SDPA
             wb = torch.where(active, tables[torch.arange(8, device="cuda"),
-                                            eff // bs].long(), 0)
-            wo = eff % bs
+                                            eff.long() // bs].long(), 0)
+            wo = eff.long() % bs
+            t_max = tables.shape[1] * bs
+            mask = (torch.arange(t_max, device="cuda")[None, :]
+                    <= eff[:, None])[:, None, None, :]
 
-            def library(kk, vv, kpl, vpl, *_):
-                kpl.index_put_((wb, wo), kk)
-                vpl.index_put_((wb, wo), vv)
+            def library(kpl, vpl):
+                kpl.index_put_((wb, wo), k)
+                vpl.index_put_((wb, wo), v)
+                kg = kpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                    .transpose(1, 2)
+                vg = vpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                    .transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None, :], kg, vg, attn_mask=mask)
 
             library_ms = _cuda_ms(rotating(library))
-        bound, by = _bound_ms(*_kv_append_work(int8, 2), torch.float32)
-        name = "kv_append_int8" if int8 else "kv_append"
+        paged_b = _paged_work(eff_lens, q, tables, int8)
+        append_b = _kv_append_work(int8, 2)
+        bound, by = _bound_ms(paged_b[0] + append_b[0],
+                              paged_b[1] + append_b[1], torch.bfloat16)
+        name = "paged_decode_append_int8" if int8 else "paged_decode_append"
+        ms, alone_ms = (f1 + f2) / 2, (p1 + p2) / 2
+        print(f"  {name} in turns (fused, paged alone, paged alone, fused): "
+              f"{f1:.5f} / {p1:.5f} / {p2:.5f} / {f2:.5f} ms; the write adds "
+              f"{ms - alone_ms:.5f} ms to the launch")
         rows.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/kv_append.cu",
-            "replaces": ("paddle_tpu/quantization/kv_cache.py:62 "
-                         "quantize_block_write, the int8 write of "
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": ("paddle_tpu/kernels/pallas/paged_attention.py:167 "
+                         "_decode_kernel (quantized=True) with the decode "
+                         "write before it, paddle_tpu/quantization/"
+                         "kv_cache.py:62 quantize_block_write (XLA ops, no "
+                         "Pallas kernel)" if int8 else
+                         "paddle_tpu/kernels/pallas/paged_attention.py:167 "
+                         "_decode_kernel with the decode write before it, "
                          "paddle_tpu/nn/functional/attention.py:253-271 "
-                         "(XLA ops, no Pallas kernel)" if int8 else
-                         "paddle_tpu/nn/functional/attention.py:253-271, "
-                         "the fp decode write .at[write_block, "
-                         "write_off].set (XLA ops, no Pallas kernel)"),
+                         ".at[write_block, write_off].set (XLA ops, no "
+                         "Pallas kernel)"),
             "max_abs_err": errs[pool_dtype, torch.bfloat16], "ms": ms,
-            "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": library_ms,
-            "shape": (f"S=8 H=12 D=64 bs=16, 513 blocks, lens "
+            "host_ms": (host_1 + host_2) / 2, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+            "alone_ms": alone_ms, "append_ms": ms - alone_ms,
+            "turns_ms": [f1, p1, p2, f2],
+            "shape": (f"S=8 H=12 D=64 bs=16 M=64, 513 blocks, lens "
                       f"{KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}, bf16 "
-                      "rows into " + ("int8 pools + fp32 scales; "
-                                      "library_ms null: no one PyTorch call "
-                                      "requantizes a block" if int8 else
-                                      "bf16 pools; library_ms: two "
-                                      "index_put_"))})
+                      "q and rows, " + (
+                          "int8 pools + fp32 scales; library_ms null: no "
+                          "one PyTorch call requantizes a block" if int8 else
+                          "bf16 pools; library_ms: two index_put_, a "
+                          "gather and SDPA"))})
     return rows
 
 
@@ -1155,10 +1227,9 @@ def serve(kv_dtype=None):
     counts of the counted window, the greedy requests' tokens and the
     model."""
     tag = "serve_int8" if kv_dtype else "serve"
-    paged, other = (("paged_decode_int8", "paged_decode") if kv_dtype
-                    else ("paged_decode", "paged_decode_int8"))
-    append, other_append = (("kv_append_int8", "kv_append") if kv_dtype
-                            else ("kv_append", "kv_append_int8"))
+    paged, other = (("paged_decode_append_int8", "paged_decode_append")
+                    if kv_dtype else ("paged_decode_append",
+                                      "paged_decode_append_int8"))
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
@@ -1189,9 +1260,11 @@ def serve(kv_dtype=None):
     layers = cfg.num_hidden_layers
     assert st["decode_compiles"] == 0, st
     assert counts["flash_attention_fwd"] > 0 and counts[paged] > 0, counts
+    # one launch a layer writes and attends: the paged kernel alone
+    # (kAppend off) never runs on this path
     assert counts[paged] == layers * st["steps"], (counts, st)
-    assert counts[append] == layers * st["steps"], (counts, st)
-    assert counts[other] == 0 and counts[other_append] == 0, counts
+    assert counts[other] == 0 and counts["paged_decode"] == 0 \
+        and counts["paged_decode_int8"] == 0, counts
     assert counts["flash_attention_fwd"] == layers * st["prefills"], \
         (counts, st)
     assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
@@ -1367,8 +1440,9 @@ def parity(kv_dtype=None):
     gpu = _greedy(gpu_model, "cuda", [p for p, _ in prompts], 16, kv_dtype)
     for (p, cpu_tokens), r in zip(prompts, gpu):
         assert r.generated == cpu_tokens, (r.generated, cpu_tokens)
+    fused = "paged_decode_append_int8" if kv_dtype else "paged_decode_append"
+    assert launch_counts()[fused] > 0, launch_counts()
     if kv_dtype:
-        assert launch_counts()["paged_decode_int8"] > 0, launch_counts()
         print(f"parity int8: 2 prompts x 16 greedy tokens identical on card "
               f"and CPU with int8 KV pools ({tried} prompts tried)")
         return
@@ -1391,8 +1465,8 @@ def parity(kv_dtype=None):
 TRAIN_KERNELS = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                  "flash_attention_bwd_dkv": 12, "cross_entropy_fwd": 1,
                  "cross_entropy_bwd": 1, "paged_decode": 0,
-                 "paged_decode_int8": 0, "kv_append": 0,
-                 "kv_append_int8": 0, "fused_ln": 0}
+                 "paged_decode_int8": 0, "paged_decode_append": 0,
+                 "paged_decode_append_int8": 0, "fused_ln": 0}
 
 
 # kernel-name substrings of each group in a profiled window's breakdown
@@ -1400,9 +1474,9 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
-               ("paged_decode", ("paged_decode_split_kernel",
-                                 "paged_decode_combine_kernel")),
-               ("kv_append", ("kv_append_kernel", "kv_append_int8_kernel")),
+               # the serving path's paged kernel writes this step's K and
+               # V rows and attends in one launch (paged_decode_append)
+               ("paged_decode_append", ("paged_decode_split_kernel",)),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")))
 
@@ -1410,8 +1484,8 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
 def _breakdown(tag, fn, per=1, top=8):
     """fn() under torch.profiler: device time by kernel group and the
     device's busy share of the wall time, per one of the `per` steps fn
-    runs. Returns the groups' ms per step (None where the profiler saw no
-    device time)."""
+    runs, and the kernels (and copies) it launched per step. Returns the
+    groups' ms per step (None where the profiler saw no device time)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -1430,12 +1504,16 @@ def _breakdown(tag, fn, per=1, top=8):
                       if any(pat in evt.key for pat in pats)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(groups.values())
+    n_copies = sum(count for _, count, name in kernels
+                   if name.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(count for _, count, _ in kernels) - n_copies
     if device_ms == 0:
         print(f"{tag}: the profiler saw no device time; breakdown not "
               "measured")
         return None
     print(f"{tag}: profiled step {wall_ms:.3f} ms wall, {device_ms:.3f} ms "
-          f"device time (busy {device_ms / wall_ms:.3f}); by group "
+          f"device time (busy {device_ms / wall_ms:.3f}); {n_kernels:.1f} "
+          f"kernels and {n_copies:.1f} copies a step; by group "
           + json.dumps({g: round(ms, 3) for g, ms in
                         sorted(groups.items(), key=lambda kv: -kv[1])}))
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
@@ -1656,18 +1734,26 @@ def main():
     secs, logs = _build.build_all(ptxas_info=True)
     print(f"build: {secs:.2f} s for {', '.join(_build.SOURCES)}")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {name} {entry}: {line.strip()}")
     _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
     _sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
     _sass_counts("paged_decode", ("LDGSTS",))
     print("kernels vs plain twins:")
     paged, paged_int8 = check_paged(), check_paged_int8()
     _paged_prev_line(paged, paged_int8)
-    append, append_int8 = check_kv_append()
-    rows = {"serve": [check_flash(), paged, append],
-            "serve_int8": [paged_int8, append_int8],
+    fused, fused_int8 = check_paged_append()
+    for row in (paged, paged_int8):
+        row["note"] = ("the serving path runs this kernel with the decode "
+                       "write folded in (paged_decode_append); this row "
+                       "times it alone, and its launches there are 0")
+    rows = {"serve": [check_flash(), paged, fused],
+            "serve_int8": [paged_int8, fused_int8],
             "train": check_flash_bwd() + check_ce(),
             "fused_ln": [check_fused_ln()]}
     paths = {}
@@ -1679,10 +1765,11 @@ def main():
     train_parity()
     paths["fused_ln"] = fused_ln_phase()
     # each row's launches come from the path it belongs to (the bf16
-    # serving run for flash forward, fp paged decode and the fp KV append,
-    # the int8 serving run for int8 paged decode and the int8 append, the measured training steps for the
-    # training kernels, the fused_ln phase for fused_ln); every path's
-    # counts are listed beside
+    # serving run for flash forward and the fp paged decode, alone and
+    # fused with the write, the int8 serving run for the int8 paged decode,
+    # alone and fused, the measured training steps for the training
+    # kernels, the fused_ln phase for fused_ln); every path's counts are
+    # listed beside
     for path, path_rows in rows.items():
         for row in path_rows:
             row["launches"] = paths[path][row["name"]]
@@ -1690,11 +1777,13 @@ def main():
     for row in rows:
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
-    assert len(rows) == 10 and all(row["launches"] > 0 for row in rows), rows
+    alone = ("paged_decode", "paged_decode_int8")
+    assert len(rows) == 10 and all(
+        (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
-            "shape", "launches_by_path", "tflops", "tile", "at_train_shape",
-            "at_ragged_lens")
+            "alone_ms", "append_ms", "turns_ms", "shape", "launches_by_path",
+            "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))
     print(card)

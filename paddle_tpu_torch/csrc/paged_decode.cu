@@ -1,19 +1,29 @@
-// Paged decode attention for Hopper (sm_90a), plain C interface for ctypes.
+// Paged decode attention for Hopper (sm_90a), with the decode step's KV
+// append folded in, plain C interface for ctypes.
 //
 // Replaces: paddle_tpu/kernels/pallas/paged_attention.py `_decode_kernel`
 // (driven by `pallas_paged_attention`), the TPU kernel of one serving decode
 // step: each slot's single query token attends over its KV history, which
 // lives in a block pool [num_blocks, block_size, H, D] addressed through the
 // slot's block table [S, M]; position p of slot s sits at
-// (table[s, p / bs], p % bs) and attends iff p <= lens[s].
+// (table[s, p / bs], p % bs) and attends iff p <= lens[s]. With kAppend it
+// also replaces the decode write that precedes it in the reference's one
+// compiled step (paddle_tpu/nn/functional/attention.py:253-271: fp pools
+// `.at[write_block, write_off].set`, int8 pools
+// paddle_tpu/quantization/kv_cache.py:62 `quantize_block_write`; XLA ops,
+// no Pallas kernel): this step's K and V row of every active slot goes to
+// position lens[s] before that position is attended.
 //
-// What bounds it on an H100: bytes. One decode step reads every cached K
-// and V element of its layer once (S=8 slots x ~1024 positions x 12 heads x
-// 64 dims x 2 B x 2 = ~25 MB a layer, ~7.5 us at 3.35 TB/s; half that with
-// int8 pools) and does ~2 FLOP per byte, far below the ~295 FLOP/B where the
-// tensor cores would matter. So the design is about keeping bytes in flight
-// on every SM from the first microsecond to the last, and about the fixed
-// costs around them: a launch, a table read, the merge of partial softmaxes.
+// What bounds it on an H100: bytes, and launches. One decode step reads
+// every cached K and V element of its layer once (S=8 slots x ~1024
+// positions x 12 heads x 64 dims x 2 B x 2 = ~25 MB a layer, ~7.5 us at
+// 3.35 TB/s; half that with int8 pools) and does ~2 FLOP per byte, far
+// below the ~295 FLOP/B where the tensor cores would matter. The write
+// moves ~0.4 MB at most (an int8 block-head per slot and pool), ~0.1 us of
+// bytes against a few microseconds to launch any grid. So the design is
+// about keeping bytes in flight on every SM from the first microsecond to
+// the last, and about the fixed costs around them: launches, a table read,
+// the merge of partial softmaxes.
 //
 // The TPU kernel runs its grid (S*H, M) in order on one core and carries
 // the running max, sum and accumulator from one table entry to the next in
@@ -58,6 +68,48 @@
 //     it reads one position of block 0 and writes finite garbage that the
 //     engine never reads.
 //
+// The decode write (kAppend). A write of its own was one more launch a
+// layer (plus the two small kernels that fed this one: the effective
+// lengths and a contiguous q), and a launch costs hundreds of times the
+// write's bytes. The write fits inside this grid as it stands: spans are
+// whole table entries, so exactly one CTA of each (slot, head) -- the last
+// live split, whose span holds position lens[s] -- holds the write block,
+// and no other CTA reads that block. That CTA writes its head's rows first
+// (a prologue), then attends as any split does. It also takes q, k_new and
+// v_new by strides (the views of the fused QKV projection, no copy) and
+// computes the effective length `active[s] ? lens[s] : 0` itself.
+//   * It writes only for an active slot whose position lies inside its
+//     table and whose block lies inside the pool (the engine's decode build
+//     warms up with every slot inactive; int8 requantization is not
+//     idempotent, so a write there would corrupt a live block).
+//   * fp pools: the head's D-element K and V rows are stored at
+//     (table[s, len / bs], len % bs).
+//   * int8 pools: the head's block slice of bs x D levels is rewritten for
+//     each pool in the reference's order of operations, so levels and
+//     scales come out bit for bit as the plain twin's:
+//       x = p < off ? level * (scale * c) : p == off ? new : 0, with
+//           c = (float)(1.0 / 127.0), the fp32 value torch and jnp make of
+//           the Python scalar 1.0 / QMAX;
+//       new_sc = max(max |x|, (float)1e-8)  (a max is exact in any order);
+//       r = 127.0f / new_sc, one correctly rounded division (this file is
+//           built without --use_fast_math, so `/` is IEEE);
+//       level = clamp(rintf(x * r), -127, 127)  (rintf rounds half to
+//           even, as torch.round and jnp.round do).
+//     In one pass: each thread loads its 8-level pieces of both pools once
+//     (kLvChunks pieces a pool at most, so bs x D <= 2048), keeps the raw
+//     bytes in registers and computes x from them for the amax (shuffles,
+//     then one slot per warp in shared memory) and again, after the one
+//     barrier, for the new levels. The new scale times 1/127 goes straight
+//     into the span's staged scales, so the block's scale is not read back.
+//   * Ordering: the prologue's global stores are read back by other
+//     threads of the same CTA through the span's cp.async.cg copies (L2).
+//     Those copies are generic-proxy reads (only the bulk copies use the
+//     async proxy), so the PTX memory model orders them after the stores
+//     by a CTA-scope fence in the writers and the CTA barrier between
+//     (fence.cta; bar.sync in the writer, bar.sync before the copy in the
+//     reader). No other CTA reads the write block, so the cluster barrier
+//     stays as it is and no GPU-scope fence is needed.
+//
 // int8 pools (the `quantized=True` branch of `_decode_kernel`,
 // quantization/kv_cache.py): one fp32 scale per (pool block, head),
 // `scales[num_blocks, H]`. A lane copies 16 int8 elements in one 16-byte
@@ -79,6 +131,12 @@ constexpr int kStages = 2;             // stages of the ring in flight
 constexpr int kMaxSplits = 8;          // CTAs of one (slot, head): a cluster
 constexpr int kMaxEntries = 512;       // table entries of one CTA's span
 constexpr float kNegInf = -1e30f;
+// the int8 decode write: 8-level pieces a thread per pool, at most
+constexpr int kLvChunks = 2;
+constexpr int kMaxAppendLevels = kLvChunks * 8 * kThreads;  // bs x D
+constexpr float kQmax = 127.0f;
+constexpr float kInvQmax = static_cast<float>(1.0 / 127.0);
+constexpr float kScaleEps = static_cast<float>(1e-8);
 // the ring: per stage, K then V, each kCopies x kThreads 16-byte pieces,
 // every piece written (by cp.async) and read by the same thread
 constexpr int kRingPieces = kStages * 2 * kCopies * kThreads;
@@ -200,6 +258,11 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // (m, l, acc) <- the merge of two online-softmax partials, in a fixed
 // order of operations, so a result repeats bit for bit from run to run
 template <int N>
@@ -229,12 +292,150 @@ struct Args {
   float scale;
 };
 
+// The decode write's arguments beside the attention's (kAppend). The
+// kernel writes the pools and scales that Args holds const for the
+// attention half.
+struct AppendArgs : Args {
+  const void* k_new;
+  const void* v_new;
+  const bool* active;
+  int64_t q_stride[2];       // q's (slot, head) strides; its dim stride is 1
+  int64_t new_stride[2][3];  // (K, V) x (slot, head, dim)
+  int num_blocks;
+};
+
+// The decode write of head h of slot s into block `blk` at offset `off`,
+// by the CTA whose span holds that position (span entry `entry`): fp pools
+// take the rows as they are; int8 pools requantize the block slice in one
+// pass and stage the new scales (times 1/127) in ksc / vsc[entry]. `red`:
+// one amax slot per (pool, warp).
+template <typename T, typename P, int D>
+__device__ __forceinline__ void append_rows(const AppendArgs& a, int s, int h,
+                                            int blk, int off, int entry,
+                                            float* ksc, float* vsc,
+                                            float (*red)[kWarps]) {
+  const int bs = static_cast<int>(a.bs.d);
+  const int64_t tok = static_cast<int64_t>(a.heads) * D;
+  // element (p, d) of the block slice of head h sits at base + p * tok + d
+  const int64_t base = static_cast<int64_t>(blk) * bs * tok +
+                       static_cast<int64_t>(h) * D;
+  const T* src[2] = {static_cast<const T*>(a.k_new),
+                     static_cast<const T*>(a.v_new)};
+  P* pool[2] = {static_cast<P*>(const_cast<void*>(a.k_pool)),
+                static_cast<P*>(const_cast<void*>(a.v_pool))};
+  if constexpr (!std::is_same<P, int8_t>::value) {
+    // the pool index stays a compile-time constant (an array indexed at
+    // run time would live in local memory)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int64_t* st = a.new_stride[i];
+      for (int d = threadIdx.x; d < D; d += kThreads) {
+        pool[i][base + off * tok + d] =
+            src[i][s * st[0] + h * st[1] + d * st[2]];
+      }
+    }
+  } else {
+    constexpr int kRow = D / 8;  // 8-level pieces of a row
+    const int n_chunks = bs * kRow;
+    float* scales[2] = {const_cast<float*>(a.k_scales),
+                        const_cast<float*>(a.v_scales)};
+    const int64_t si = static_cast<int64_t>(blk) * a.heads + h;
+    // every load of both pools in flight at once: the old scales, the
+    // levels before the offset, the new row at it
+    float deq[2];
+    uint2 raw[2][kLvChunks];
+    float row[2][8] = {};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      deq[i] = scales[i][si] * kInvQmax;
+      const int64_t* st = a.new_stride[i];
+#pragma unroll
+      for (int u = 0; u < kLvChunks; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        const int p = c / kRow;
+        const int d0 = (c % kRow) * 8;
+        raw[i][u] = make_uint2(0u, 0u);
+        if (c < n_chunks && p < off) {
+          raw[i][u] = *reinterpret_cast<const uint2*>(pool[i] + base +
+                                                      p * tok + d0);
+        }
+        if (c < n_chunks && p == off) {  // one piece a thread at most
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            row[i][e] =
+                to_float(src[i][s * st[0] + h * st[1] + (d0 + e) * st[2]]);
+          }
+        }
+      }
+    }
+    // x of element e of piece u of pool i, from the registers alone
+    auto value = [&](int i, int u, int e) -> float {
+      const int p = (threadIdx.x + u * kThreads) / kRow;
+      if (p < off) {
+        const uint32_t w = e < 4 ? raw[i][u].x : raw[i][u].y;
+        return static_cast<float>(static_cast<int8_t>(w >> (8 * (e % 4)))) *
+               deq[i];
+      }
+      return p == off ? row[i][e] : 0.f;
+    };
+    float amax[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int u = 0; u < kLvChunks; ++u) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          amax[i] = fmaxf(amax[i], fabsf(value(i, u, e)));
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        amax[i] = fmaxf(amax[i], __shfl_xor_sync(0xffffffffu, amax[i], o));
+      }
+      if (threadIdx.x % 32 == 0) red[i][threadIdx.x / 32] = amax[i];
+    }
+    // every thread has read its levels and the old scales before this
+    // barrier; it rewrites only the pieces it read
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = red[i][0];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[i][w]);
+      const float new_sc = fmaxf(m, kScaleEps);
+      const float r = kQmax / new_sc;
+#pragma unroll
+      for (int u = 0; u < kLvChunks; ++u) {
+        const int c = threadIdx.x + u * kThreads;
+        if (c >= n_chunks) continue;
+        uint32_t w[2] = {0u, 0u};
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float q = fminf(fmaxf(rintf(value(i, u, e) * r), -kQmax),
+                                kQmax);
+          w[e / 4] |= (static_cast<uint32_t>(static_cast<int>(q)) & 0xffu)
+                      << (8 * (e % 4));
+        }
+        *reinterpret_cast<uint2*>(pool[i] + base + (c / kRow) * tok +
+                                  (c % kRow) * 8) = make_uint2(w[0], w[1]);
+      }
+      if (threadIdx.x == 0) {
+        scales[i][si] = new_sc;
+        (i == 0 ? ksc : vsc)[entry] = new_sc * (1.0f / 127.0f);
+      }
+    }
+  }
+}
+
 // One CTA per (split, head, slot), the splits of one (slot, head) one
 // cluster. T: the type of q and out; P: the pools' type (T, or int8_t with
-// the fp32 scales k_scales / v_scales [num_blocks, H], unused otherwise)
-template <typename T, typename P, int D>
+// the fp32 scales k_scales / v_scales [num_blocks, H], unused otherwise).
+// kAppend: the CTA whose span holds position lens[s] first writes this
+// step's K and V rows there (AppendArgs); without it, Args alone.
+template <typename T, typename P, int D, bool kAppend>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const Args a) {
+paged_decode_split_kernel(
+    const typename std::conditional<kAppend, AppendArgs, Args>::type a) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   constexpr int kVec = 16 / sizeof(P);        // elements per lane per token
   constexpr int kGroup = D / kVec;            // lanes per token row
@@ -253,6 +454,8 @@ paged_decode_split_kernel(const Args a) {
   __shared__ float part_m[kMaxSplits];
   __shared__ float part_l[kMaxSplits];
   __shared__ __align__(16) float part_acc[kMaxSplits][D];
+  // the int8 decode write's amax, one slot per (pool, warp)
+  __shared__ float red[kAppend && kQuant ? 2 : 1][kWarps];
 
   const int split = blockIdx.x;
   const int h = blockIdx.y;
@@ -261,12 +464,22 @@ paged_decode_split_kernel(const Args a) {
   const int g = threadIdx.x / kGroup;
   const int lane = threadIdx.x % kGroup;
 
-  // the length and q in flight together
-  const int len = a.lens[s];
+  // the length and q in flight together (with the append, the slot's
+  // active flag too: an inactive slot attends as one of length 0)
+  int len = a.lens[s];
+  bool act = true;
   float qv[kVec];
-  load_q(static_cast<const T*>(a.q) +
-             (static_cast<int64_t>(s) * a.heads + h) * D + lane * kVec,
-         qv);
+  if constexpr (kAppend) {
+    act = a.active[s];
+    if (!act) len = 0;
+    load_q(static_cast<const T*>(a.q) + s * a.q_stride[0] +
+               h * a.q_stride[1] + lane * kVec,
+           qv);
+  } else {
+    load_q(static_cast<const T*>(a.q) +
+               (static_cast<int64_t>(s) * a.heads + h) * D + lane * kVec,
+           qv);
+  }
   // the slot's live positions, shared as evenly as whole table entries
   // allow by its n_split CTAs: a short context is split as finely as a
   // long one. At most a.span_blocks entries a CTA (n_split of those cover
@@ -289,6 +502,28 @@ paged_decode_split_kernel(const Args a) {
 #pragma unroll
   for (int e = 0; e < kVec; ++e) qv[e] *= a.scale;
   __syncthreads();
+
+  // the decode write, by the split whose span holds position len (the
+  // last live one), for an active slot whose position lies inside its
+  // table (len == last_pos) and whose block lies inside the pool; the
+  // conditions are uniform over the CTA, so its barriers are too
+  int staged = -1;  // the span entry whose scales the write staged
+  if constexpr (kAppend) {
+    if (act && len >= 0 && len == last_pos && split == n_live - 1) {
+      const int blk_i = a.bs.div(len);
+      const int entry = blk_i - split * span_blocks;
+      const int blk = tbl[entry];
+      if (blk >= 0 && blk < a.num_blocks) {
+        append_rows<T, P, D>(a, s, h, blk, len - blk_i * bs, entry, ksc, vsc,
+                             red);
+        if (kQuant) staged = entry;
+      }
+      // the stores before the span's copies read them (see the note at
+      // the top): a CTA-scope fence, then the barrier
+      __threadfence_block();
+      __syncthreads();
+    }
+  }
 
   const int64_t tok_stride = static_cast<int64_t>(a.heads) * D;
   const int64_t blk_stride = static_cast<int64_t>(bs) * tok_stride;
@@ -336,6 +571,7 @@ paged_decode_split_kernel(const Args a) {
       // are in flight
       const int n = a.bs.div(n_tok - 1) + 1;
       for (int j = threadIdx.x; j < n; j += kThreads) {
+        if (kAppend && j == staged) continue;  // staged by the write
         const int64_t si = static_cast<int64_t>(tbl[j]) * a.heads + h;
         ksc[j] = a.k_scales[si] * (1.0f / 127.0f);
         vsc[j] = a.v_scales[si] * (1.0f / 127.0f);
@@ -471,8 +707,8 @@ paged_decode_split_kernel(const Args a) {
   }
 }
 
-template <typename T, typename P, int D>
-cudaError_t launch(const Args& a, int slots, cudaStream_t stream) {
+template <typename T, typename P, int D, bool kAppend, typename A>
+cudaError_t launch(const A& a, int slots, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.n_split, a.heads, slots);
   cfg.blockDim = dim3(kThreads);
@@ -484,18 +720,69 @@ cudaError_t launch(const Args& a, int slots, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, paged_decode_split_kernel<T, P, D>, a);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, paged_decode_split_kernel<T, P, D, kAppend>, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-template <typename T, typename P>
-cudaError_t launch_dim(const Args& a, int slots, int head_dim,
-                       cudaStream_t stream) {
-  if (head_dim == 64) return launch<T, P, 64>(a, slots, stream);
-  if (head_dim == 128) return launch<T, P, 128>(a, slots, stream);
+// the instantiation for dtype (0 = float32, 1 = bfloat16), quantized and
+// head_dim
+template <bool kAppend, typename A>
+cudaError_t dispatch(const A& a, int slots, int head_dim, int dtype,
+                     int quantized, cudaStream_t s) {
+  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
+  const bool d64 = head_dim == 64;
+  if (dtype == 0) {
+    if (quantized) {
+      return d64 ? launch<float, int8_t, 64, kAppend>(a, slots, s)
+                 : launch<float, int8_t, 128, kAppend>(a, slots, s);
+    }
+    return d64 ? launch<float, float, 64, kAppend>(a, slots, s)
+               : launch<float, float, 128, kAppend>(a, slots, s);
+  }
+  if (dtype == 1) {
+    using B = __nv_bfloat16;
+    if (quantized) {
+      return d64 ? launch<B, int8_t, 64, kAppend>(a, slots, s)
+                 : launch<B, int8_t, 128, kAppend>(a, slots, s);
+    }
+    return d64 ? launch<B, B, 64, kAppend>(a, slots, s)
+               : launch<B, B, 128, kAppend>(a, slots, s);
+  }
   return cudaErrorInvalidValue;
+}
+
+// the attention's arguments, or false where the plan or shapes are out of
+// the kernel's range
+bool make_args(Args* a, const void* q, const void* k_pool,
+               const void* v_pool, const void* k_scales, const void* v_scales,
+               const void* tables, const void* lens, void* out, int slots,
+               int heads, int max_blocks, int block_size, int span_blocks,
+               int n_split, float scale, int quantized) {
+  if (slots <= 0 || slots > 65535 || heads <= 0 || heads > 65535 ||
+      max_blocks <= 0 || block_size <= 0 || span_blocks <= 0 ||
+      span_blocks > kMaxEntries || n_split > kMaxSplits ||
+      n_split != (max_blocks + span_blocks - 1) / span_blocks ||
+      static_cast<int64_t>(max_blocks) * block_size > INT32_MAX ||
+      (quantized && (!k_scales || !v_scales))) {
+    return false;
+  }
+  *a = Args{q,
+            k_pool,
+            v_pool,
+            static_cast<const float*>(k_scales),
+            static_cast<const float*>(v_scales),
+            static_cast<const int*>(tables),
+            static_cast<const int*>(lens),
+            out,
+            heads,
+            max_blocks,
+            span_blocks,
+            n_split,
+            make_fast_div(static_cast<uint32_t>(block_size)),
+            scale};
+  return true;
 }
 
 }  // namespace
@@ -515,38 +802,50 @@ extern "C" int paddle_paged_decode(const void* q, const void* k_pool,
                                    int block_size, int span_blocks,
                                    int n_split, float scale, int dtype,
                                    int quantized, void* stream) {
-  if (slots <= 0 || slots > 65535 || heads <= 0 || heads > 65535 ||
-      max_blocks <= 0 || block_size <= 0 || span_blocks <= 0 ||
-      span_blocks > kMaxEntries || n_split > kMaxSplits ||
-      n_split != (max_blocks + span_blocks - 1) / span_blocks ||
-      static_cast<int64_t>(max_blocks) * block_size > INT32_MAX ||
-      (quantized && (!k_scales || !v_scales))) {
+  Args a;
+  if (!make_args(&a, q, k_pool, v_pool, k_scales, v_scales, tables, lens,
+                 out, slots, heads, max_blocks, block_size, span_blocks,
+                 n_split, scale, quantized)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q,
-               k_pool,
-               v_pool,
-               static_cast<const float*>(k_scales),
-               static_cast<const float*>(v_scales),
-               static_cast<const int*>(tables),
-               static_cast<const int*>(lens),
-               out,
-               heads,
-               max_blocks,
-               span_blocks,
-               n_split,
-               make_fast_div(static_cast<uint32_t>(block_size)),
-               scale};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = quantized ? launch_dim<float, int8_t>(a, slots, head_dim, s)
-                    : launch_dim<float, float>(a, slots, head_dim, s);
-  } else if (dtype == 1) {
-    err = quantized
-              ? launch_dim<__nv_bfloat16, int8_t>(a, slots, head_dim, s)
-              : launch_dim<__nv_bfloat16, __nv_bfloat16>(a, slots, head_dim,
-                                                         s);
+  return static_cast<int>(dispatch<false>(a, slots, head_dim, dtype,
+                                          quantized,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// The decode step of one layer in one launch: the write of this step's K
+// and V rows (k_new, v_new) of every active slot at position lens[s] of
+// its table, in place (int8 pools: levels and scales of the write block),
+// then paged_decode's attention with the effective lengths
+// `active[s] ? lens[s] : 0`. q, k_new and v_new [S, H, D] at the element
+// strides `strides` = (q slot, q head, K slot, K head, K dim, V slot, V
+// head, V dim), q's dim stride 1 and its rows 16-byte aligned; k_new and
+// v_new of q's dtype; active [S] bool; num_blocks the pools' blocks. With
+// int8 pools block_size x head_dim is at most 2048. The rest as
+// paddle_paged_decode. Returns a cudaError_t.
+extern "C" int paddle_paged_decode_append(
+    const void* q, const void* k_new, const void* v_new, void* k_pool,
+    void* v_pool, void* k_scales, void* v_scales, const void* tables,
+    const void* lens, const void* active, void* out, const int64_t* strides,
+    int slots, int heads, int head_dim, int max_blocks, int block_size,
+    int num_blocks, int span_blocks, int n_split, float scale, int dtype,
+    int quantized, void* stream) {
+  AppendArgs a;
+  if (!make_args(&a, q, k_pool, v_pool, k_scales, v_scales, tables, lens,
+                 out, slots, heads, max_blocks, block_size, span_blocks,
+                 n_split, scale, quantized) ||
+      num_blocks <= 0 || !active ||
+      (quantized &&
+       static_cast<int64_t>(block_size) * head_dim > kMaxAppendLevels)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(err);
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.active = static_cast<const bool*>(active);
+  a.q_stride[0] = strides[0];
+  a.q_stride[1] = strides[1];
+  for (int i = 0; i < 6; ++i) a.new_stride[i / 3][i % 3] = strides[2 + i];
+  a.num_blocks = num_blocks;
+  return static_cast<int>(dispatch<true>(a, slots, head_dim, dtype, quantized,
+                                         static_cast<cudaStream_t>(stream)));
 }

@@ -10,15 +10,13 @@ launches nothing), and `add_launches` adds that record once per replay.
 """
 from __future__ import annotations
 
-from . import (cross_entropy, flash_attention, fused_ln, kv_append,
-               paged_attention)
+from . import cross_entropy, flash_attention, fused_ln, paged_attention
 
-__all__ = ["cross_entropy", "flash_attention", "fused_ln", "kv_append",
+__all__ = ["cross_entropy", "flash_attention", "fused_ln",
            "paged_attention", "launch_counts", "reset_launch_counts",
            "captured_launches", "add_launches"]
 
-_MODULES = (flash_attention, paged_attention, kv_append, cross_entropy,
-            fused_ln)
+_MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln)
 
 
 def launch_counts():

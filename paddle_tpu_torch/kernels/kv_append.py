@@ -1,22 +1,26 @@
-"""The decode step's KV append: the Hopper kernel and its plain PyTorch twin.
+"""The decode step's KV append: the plain PyTorch version of the write
+that the fused paged decode kernel makes before it attends.
 
 Counterpart of the write half of `paddle_tpu/nn/functional/attention.py`
 `paged_decode_attention` (the fp ``pool.at[write_block, write_off].set``)
 and of `paddle_tpu/quantization/kv_cache.py` `quantize_block_write` (int8
 pools). The reference leaves both to XLA, which fuses them into its one
-compiled decode step; there is no Pallas kernel.
+compiled decode step; there is no Pallas kernel. On the card the write is
+the prologue of ``csrc/paged_decode.cu``'s kernel (`paged_attention.
+paged_decode_append`, one launch a layer for the write and the
+attention); `kv_append_reference` is its write half's twin, and the CPU
+route of `paged_decode_append` runs it.
 
-Contract (shared by both): k_new / v_new ``[S, H, D]`` this step's K and V
-of every slot, any strides (the kernel reads the strided views of the
-fused QKV projection as they are); k_pool / v_pool ``[num_blocks, bs, H,
-D]`` one layer's pools, of k_new's dtype or int8 with fp32 scales
-``[num_blocks, H]`` (`k_scales` / `v_scales`); block_tables ``[S, M]``
-int32, seq_lens ``[S]`` int32, active ``[S]`` bool. Slot s writes at
-position ``seq_lens[s]``: block ``block_tables[s, seq_lens[s] // bs]``,
-offset ``seq_lens[s] % bs``. With int8 pools the write block is
-dequantized, the new vector inserted, the offsets after it zeroed and the
-block requantized under its new per-head amax (`quantize_block_write`).
-The pools and scales are written in place; nothing is returned.
+Contract: k_new / v_new ``[S, H, D]`` this step's K and V of every slot,
+any strides; k_pool / v_pool ``[num_blocks, bs, H, D]`` one layer's pools,
+of k_new's dtype or int8 with fp32 scales ``[num_blocks, H]`` (`k_scales`
+/ `v_scales`); block_tables ``[S, M]`` int32, seq_lens ``[S]`` int32,
+active ``[S]`` bool. Slot s writes at position ``seq_lens[s]``: block
+``block_tables[s, seq_lens[s] // bs]``, offset ``seq_lens[s] % bs``. With
+int8 pools the write block is dequantized, the new vector inserted, the
+offsets after it zeroed and the block requantized under its new per-head
+amax (`quantize_block_write`). The pools and scales are written in place;
+nothing is returned.
 
 Inactive slots: the twin writes their vectors into null block 0 (with
 duplicate targets, as the reference does); the kernel skips them. Block
@@ -24,35 +28,14 @@ duplicate targets, as the reference does); the kernel skips them. Block
 comparison leaves block 0 out. Active slots never share a write block
 (each slot owns its blocks: the port has no prefix cache), so the kernel
 has no write race.
-
-On CUDA tensors `kv_append` launches ``csrc/kv_append.cu`` once for both
-pools or raises; on CPU tensors it runs `kv_append_reference`. The int8
-kernel gives the twin's levels and scales bit for bit. Launches count
-once per call under ``kv_append`` (fp pools) and ``kv_append_int8``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..device import require_hopper
 from ..quantization.kv_cache import quantize_block_write
-from . import _build
 
-__all__ = ["kv_append", "kv_append_reference", "launches", "DTYPES"]
-
-# the types of k_new / v_new (and of fp pools) the kernel takes
-DTYPES = (torch.float32, torch.bfloat16)
-
-# kernel launches since import (or the last reset by the caller), by kernel
-launches = {"kv_append": 0, "kv_append_int8": 0}
-
-# k_new, v_new, k_pool, v_pool, k_scales, v_scales, tables, lens, active,
-# new_strides; slots, heads, head_dim, max_blocks, block_size, num_blocks,
-# dtype, quantized; stream
-_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-             + [ctypes.c_void_p])
+__all__ = ["kv_append_reference"]
 
 
 def _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
@@ -133,44 +116,3 @@ def kv_append_reference(k_new, v_new, k_pool, v_pool, block_tables,
         k_pool.index_put_((write_block, write_off), k_new)
         v_pool.index_put_((write_block, write_off), v_new)
 
-
-def kv_append(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
-              block_size, k_scales=None, v_scales=None):
-    """Write this step's K and V of every active slot into one layer's
-    pools, in place (see the module docstring for the contract)."""
-    if k_pool.device.type == "cpu":
-        kv_append_reference(k_new, v_new, k_pool, v_pool, block_tables,
-                            seq_lens, active, block_size, k_scales, v_scales)
-        return
-    _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
-           block_size, k_scales, v_scales)
-    if k_new.dtype not in DTYPES:
-        raise TypeError(f"kv_append takes k_new and v_new in {DTYPES}, got "
-                        f"{k_new.dtype}")
-    require_hopper(k_pool)
-    quantized = k_scales is not None
-    s, h, d = k_new.shape
-    strides = (ctypes.c_int64 * 6)(*k_new.stride(), *v_new.stride())
-    lib = _build.load("kv_append")
-    fn = lib.paddle_kv_append
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(k_pool.device):
-        stream = torch.cuda.current_stream(k_pool.device).cuda_stream
-        err = fn(ctypes.c_void_p(k_new.data_ptr()),
-                 ctypes.c_void_p(v_new.data_ptr()),
-                 ctypes.c_void_p(k_pool.data_ptr()),
-                 ctypes.c_void_p(v_pool.data_ptr()),
-                 ctypes.c_void_p(k_scales.data_ptr() if quantized else 0),
-                 ctypes.c_void_p(v_scales.data_ptr() if quantized else 0),
-                 ctypes.c_void_p(block_tables.data_ptr()),
-                 ctypes.c_void_p(seq_lens.data_ptr()),
-                 ctypes.c_void_p(active.data_ptr()),
-                 ctypes.cast(strides, ctypes.c_void_p),
-                 s, h, d, block_tables.shape[1], int(block_size),
-                 k_pool.shape[0], 0 if k_new.dtype == torch.float32 else 1,
-                 int(quantized), ctypes.c_void_p(stream))
-    name = "kv_append_int8" if quantized else "kv_append"
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1

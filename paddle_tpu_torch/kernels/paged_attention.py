@@ -23,6 +23,14 @@ CTA of the cluster combines their partial softmaxes from shared memory.
 Nothing is read back from the device and nothing is allocated beside the
 output, so a decode step stays free of host syncs. Launches count once
 per call under ``paged_decode`` (fp pools) and ``paged_decode_int8``.
+
+`paged_decode_append` is the serving decode step's entry: the same kernel
+built with the decode write folded in (one launch a layer writes this
+step's K and V rows of every active slot, then attends). It takes q, k_new
+and v_new as the strided views of the fused QKV projection and the active
+flags beside the lengths; its plain twin is `kv_append_reference` then
+`paged_decode_reference` with ``where(active, seq_lens, 0)``. Launches
+count under ``paged_decode_append`` and ``paged_decode_append_int8``.
 """
 from __future__ import annotations
 
@@ -34,10 +42,13 @@ import torch
 from ..device import require_hopper
 from ..quantization.kv_cache import dequantize
 from . import _build
+from .kv_append import _check as _check_write
+from .kv_append import kv_append_reference
 
-__all__ = ["paged_attention", "paged_decode_reference", "split_plan",
-           "launches", "HEAD_DIMS", "DTYPES", "MAX_SPLITS",
-           "MAX_SPAN_BLOCKS"]
+__all__ = ["paged_attention", "paged_decode_append",
+           "paged_decode_reference", "split_plan", "launches", "HEAD_DIMS",
+           "DTYPES", "MAX_SPLITS", "MAX_SPAN_BLOCKS",
+           "MAX_INT8_BLOCK_LEVELS"]
 
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -49,7 +60,8 @@ _CHUNK_TARGET_BYTES = 256 * 1024
 _CHUNK_TOKENS_MAX = 512
 
 # kernel launches since import (or the last reset by the caller), by kernel
-launches = {"paged_decode": 0, "paged_decode_int8": 0}
+launches = {"paged_decode": 0, "paged_decode_int8": 0,
+            "paged_decode_append": 0, "paged_decode_append_int8": 0}
 
 # the kernel's split: the CTAs of one (slot, head) share its live positions
 # in whole table entries, each at most about SPAN_TOKENS of a full table,
@@ -65,6 +77,15 @@ MAX_SPAN_BLOCKS = 512
 # quantized; stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+# q, k_new, v_new, k_pool, v_pool, k_scales, v_scales, tables, lens,
+# active, out, strides; slots, heads, head_dim, max_blocks, block_size,
+# num_blocks, span_blocks, n_split; scale; dtype, quantized; stream
+_APPEND_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+# the fused write keeps an int8 block slice (block_size x head_dim levels a
+# pool) in registers, 16 a thread of 128 at most
+MAX_INT8_BLOCK_LEVELS = 2048
 
 
 def _check(q, k_pool, v_pool, block_tables, lens, block_size, k_scales,
@@ -226,6 +247,112 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
                  0 if q.dtype == torch.float32 else 1, int(quantized),
                  ctypes.c_void_p(stream))
     name = "paged_decode_int8" if quantized else "paged_decode"
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    launches[name] += 1
+    return out
+
+
+def _check_append(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
+                  active, block_size, k_scales, v_scales):
+    """The fused entry's contract, on both routes: the write's (`kv_append`
+    `_check`), the attention's, and one float type for q, k_new and
+    v_new."""
+    _check_write(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
+                 block_size, k_scales, v_scales)
+    _check(q, k_pool, v_pool, block_tables, seq_lens, block_size, k_scales,
+           v_scales)
+    if q.dtype != k_new.dtype:
+        raise TypeError(f"q, k_new and v_new must share one float type, got "
+                        f"{q.dtype}, {k_new.dtype}, {v_new.dtype}")
+
+
+def _check_append_launch(q, k_new, v_new, k_pool, v_pool, block_size,
+                         quantized):
+    """What the fused kernel takes beyond the contract: its types and head
+    dims, q on the pools' device by rows of unit stride at 16-byte aligned
+    addresses (its 16-byte loads), 16-byte aligned pools, and with int8
+    pools at most MAX_INT8_BLOCK_LEVELS levels a block slice."""
+    d = q.shape[2]
+    if q.dtype not in DTYPES:
+        raise TypeError(f"paged kernel takes q in {DTYPES}, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if q.device != k_pool.device:
+        raise ValueError(f"q is on {q.device}, k_pool on {k_pool.device}")
+    if q.stride(2) != 1:
+        raise ValueError(f"paged kernel reads q by rows of unit stride, got "
+                         f"strides {q.stride()}")
+    elem = q.element_size()
+    if q.data_ptr() % 16 or (q.stride(0) * elem) % 16 \
+            or (q.stride(1) * elem) % 16:
+        raise ValueError(f"paged kernel needs q's rows 16-byte aligned, got "
+                         f"strides {q.stride()} at offset "
+                         f"{q.data_ptr() % 16} of 16")
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged kernel needs 16-byte aligned {name}")
+    if quantized and block_size * d > MAX_INT8_BLOCK_LEVELS:
+        raise ValueError(f"the fused int8 write takes block_size x head_dim "
+                         f"<= {MAX_INT8_BLOCK_LEVELS}, got {block_size} x {d}")
+
+
+def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
+                        seq_lens, active, block_size, k_scales=None,
+                        v_scales=None):
+    """One layer's decode step: write this step's K and V rows of every
+    active slot at position ``seq_lens[s]`` of its table into the pools (in
+    place; int8 pools requantize the write block and its scales, as
+    `quantize_block_write` does), then attend over positions ``<=
+    seq_lens[s]`` (0 for inactive slots). q, k_new, v_new: ``[S, H, D]``
+    of one float type, any strides on the CPU; the rest as `paged_attention`
+    and `kv_append_reference`. Returns out ``[S, H, D]`` in q's dtype.
+
+    On CUDA tensors it launches ``paddle_paged_decode_append`` once or
+    raises; on CPU tensors it runs the plain composition. The kernel skips
+    inactive slots where the twin writes their rows into null block 0;
+    block 0 is never read unmasked."""
+    _check_append(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
+                  active, block_size, k_scales, v_scales)
+    if q.device.type == "cpu":
+        kv_append_reference(k_new, v_new, k_pool, v_pool, block_tables,
+                            seq_lens, active, block_size, k_scales, v_scales)
+        return paged_decode_reference(q, k_pool, v_pool, block_tables,
+                                      torch.where(active, seq_lens, 0),
+                                      block_size, k_scales, v_scales)
+    quantized = k_scales is not None
+    _check_append_launch(q, k_new, v_new, k_pool, v_pool, int(block_size),
+                         quantized)
+    require_hopper(q)
+    s, h, d = q.shape
+    m = block_tables.shape[1]
+    span, n_split = split_plan(m, int(block_size))
+    lib = _build.load("paged_decode")
+    fn = lib.paddle_paged_decode_append
+    fn.argtypes = _APPEND_ARGTYPES
+    fn.restype = ctypes.c_int
+    strides = (ctypes.c_int64 * 8)(*q.stride()[:2], *k_new.stride(),
+                                   *v_new.stride())
+    out = torch.empty((s, h, d), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(ctypes.c_void_p(q.data_ptr()),
+                 ctypes.c_void_p(k_new.data_ptr()),
+                 ctypes.c_void_p(v_new.data_ptr()),
+                 ctypes.c_void_p(k_pool.data_ptr()),
+                 ctypes.c_void_p(v_pool.data_ptr()),
+                 ctypes.c_void_p(k_scales.data_ptr() if quantized else 0),
+                 ctypes.c_void_p(v_scales.data_ptr() if quantized else 0),
+                 ctypes.c_void_p(block_tables.data_ptr()),
+                 ctypes.c_void_p(seq_lens.data_ptr()),
+                 ctypes.c_void_p(active.data_ptr()),
+                 ctypes.c_void_p(out.data_ptr()),
+                 ctypes.cast(strides, ctypes.c_void_p),
+                 s, h, d, m, int(block_size), k_pool.shape[0], span, n_split,
+                 1.0 / math.sqrt(d),
+                 0 if q.dtype == torch.float32 else 1, int(quantized),
+                 ctypes.c_void_p(stream))
+    name = "paged_decode_append_int8" if quantized else "paged_decode_append"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1

@@ -15,8 +15,7 @@ from ...framework.flags import get_flags
 from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
                                         FlashAttention)
-from ...kernels.kv_append import kv_append
-from ...kernels.paged_attention import paged_attention
+from ...kernels.paged_attention import paged_decode_append
 from ...quantization.kv_cache import dequantize
 
 __all__ = ["scaled_dot_product_attention", "paged_decode_attention"]
@@ -112,23 +111,21 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
     seq_lens: ``[S]`` int32 cached tokens per slot; the new token is written
     at position ``seq_lens[s]`` and attended to. active: ``[S]`` bool;
     inactive slots write nothing into a live block (the CPU twin sends
-    them to null block 0, the kernel skips them) and their outputs are
-    garbage the engine never reads.
+    them to null block 0, the kernel skips them) and attend as slots of
+    length 0: their outputs are garbage the engine never reads.
 
-    The new K/V are written INTO the pools in place by `kv_append` (one
-    launch a layer for both pools on the card; int8 pools requantize the
-    write block and update its scales in place too): the JAX function
-    returns fresh pools, the port edits the engine's pools, which saves a
-    copy of every layer's pool per step. Returns ``(out [S, 1, H, D],
-    k_pool, v_pool)``, plus ``(k_scales, v_scales)`` with int8 pools.
+    One call of `paged_decode_append` a layer writes the new K/V INTO the
+    pools in place and attends (on the card one launch: the paged decode
+    kernel with the write as its prologue, reading q, k_new and v_new as
+    the views they are; int8 pools requantize the write block and update
+    its scales in place too): the JAX function returns fresh pools, the
+    port edits the engine's pools, which saves a copy of every layer's pool
+    per step. Returns ``(out [S, 1, H, D], k_pool, v_pool)``, plus
+    ``(k_scales, v_scales)`` with int8 pools.
     """
-    kv_append(k_new[:, 0], v_new[:, 0], k_pool, v_pool, block_tables,
-              seq_lens, active, block_size, k_scales, v_scales)
-    # the paged kernel's effective lengths: 0 for inactive slots (kv_append
-    # has held the tables and lengths to contiguous int32)
-    lens = torch.where(active, seq_lens, 0)
-    out = paged_attention(q[:, 0].contiguous(), k_pool, v_pool, block_tables,
-                          lens, block_size, k_scales, v_scales)
+    out = paged_decode_append(q[:, 0], k_new[:, 0], v_new[:, 0], k_pool,
+                              v_pool, block_tables, seq_lens, active,
+                              block_size, k_scales, v_scales)
     if k_scales is not None:
         return out[:, None], k_pool, v_pool, k_scales, v_scales
     return out[:, None], k_pool, v_pool

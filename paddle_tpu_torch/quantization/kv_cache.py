@@ -17,15 +17,17 @@ its fp path does):
     slot's write block is dequantized, the new token inserted, offsets
     past it zeroed, and the block requantized under its new per-head amax
     (exact while the scale does not grow). It is the plain twin of the
-    int8 `kernels.kv_append` kernel, which the decode step runs.
+    int8 write the decode step's fused paged decode kernel makes
+    (`kernels.paged_attention.paged_decode_append`).
 
 The order of operations is the reference's (``vals * (QMAX / scale)``,
 then round half to even and clip; dequantization ``q * (scale / QMAX)``
 as ``q * (scale * (1 / QMAX))``), so on the same fp32 inputs the int8
 levels match the JAX package's bit for bit. These are plain tensor ops in
-the reference too (XLA, no Pallas kernel); the port runs the decode write
-as one kernel a layer (`kernels.kv_append`) and dequantizes in the paged
-decode kernel's loads.
+the reference too (XLA, no Pallas kernel); on the card the port writes
+the decode token in the paged decode kernel's prologue, in the same launch
+that attends (`kernels.paged_attention.paged_decode_append`), and
+dequantizes in that kernel's loads.
 """
 from __future__ import annotations
 

@@ -1,17 +1,20 @@
-"""Port parity: the decode step's KV append (`kernels.kv_append`).
+"""Port parity: the decode step's KV append, the write half of the fused
+paged decode kernel (`kernels.paged_attention.paged_decode_append`),
+whose plain version is `kernels.kv_append.kv_append_reference`.
 
-  * the wrapper's CPU route (the twin) against the JAX package's decode
-    write on the same numpy inputs, bit for bit on every block but null
-    block 0: `paged_decode_attention`'s fp ``.at[write_block,
+  * the fused entry's CPU route (`fused_write`: `paged_decode_append`
+    called for its write, which the twin makes) against the JAX package's
+    decode write on the same numpy inputs, bit for bit on every block but
+    null block 0: `paged_decode_attention`'s fp ``.at[write_block,
     write_off].set`` (fp32 and bf16 pools) and its int8 leg,
     `quantize_block_write` (levels AND scales);
   * `kernel_emulation`, a loop per (slot, pool, head) in the CUDA
     kernel's order of operations with inactive slots skipped (the kernel
     writes nothing for them), against the batched twin, bit for bit on
     every block but 0, with block 0 left as it was: the arithmetic the
-    card's `chip_smoke.py` row then holds the kernel to;
-  * the contract's refusals (dtype, shape, contiguity), shared by both
-    routes, and strided new rows read as they are.
+    card's `chip_smoke.py` check then holds the kernel to;
+  * the contract's refusals (dtype, shape, contiguity), shared by the
+    fused entry and the twin, and strided new rows read as they are.
 
 Block 0 is left out of every comparison: the twin writes inactive slots'
 vectors there (duplicate targets, as the reference), the kernel skips
@@ -28,8 +31,8 @@ import jax.numpy as jnp
 from paddle_tpu.nn.functional.attention import \
     paged_decode_attention as j_paged
 
-from paddle_tpu_torch.kernels.kv_append import (kv_append,
-                                                kv_append_reference)
+from paddle_tpu_torch.kernels.kv_append import kv_append_reference
+from paddle_tpu_torch.kernels.paged_attention import paged_decode_append
 
 S, H, D, BS, M = 4, 2, 64, 16, 7
 NB = 1 + S * M
@@ -101,6 +104,14 @@ def _call(fn, t):
        t["lens"], t["active"], BS, t.get("k_scales"), t.get("v_scales"))
 
 
+def fused_write(k_new, v_new, k_pool, v_pool, tables, lens, active, bs,
+                k_scales=None, v_scales=None):
+    """`paged_decode_append` called for its write: q a zero tensor of the
+    rows' type, shape and strides; its output is not read."""
+    paged_decode_append(torch.zeros_like(k_new), k_new, v_new, k_pool,
+                        v_pool, tables, lens, active, bs, k_scales, v_scales)
+
+
 def _outputs(t):
     keys = ("k_pool", "v_pool", "k_scales", "v_scales")
     return [t[k].float().numpy() for k in keys if k in t]
@@ -131,8 +142,8 @@ def _jax_write(st, kind):
 
 def kernel_emulation(k_new, v_new, k_pool, v_pool, tables, lens, active,
                      bs, k_scales=None, v_scales=None):
-    """The CUDA kernel's arithmetic in numpy fp32, one (slot, pool, head)
-    at a time, in place: inactive slots write nothing; fp pools take the
+    """The fused CUDA kernel's write arithmetic in numpy fp32, one (slot,
+    pool, head) at a time, in place: inactive slots write nothing; fp pools take the
     row as it is; an int8 block is dequantized as ``level * (scale * c)``
     (c = fp32 1/127), the new row inserted at the offset, later offsets
     zeroed, ``new_sc = max(max |x|, fp32 1e-8)``, ``r = 127 / new_sc``
@@ -166,7 +177,7 @@ def test_cpu_route_matches_jax_write(case, kind):
     st = _state(case, kind, seed=len(case))
     t = _torch_args(st, kind)
     pools = [t[k] for k in ("k_pool", "v_pool")]
-    _call(kv_append, t)
+    _call(fused_write, t)
     assert t["k_pool"] is pools[0] and t["v_pool"] is pools[1]
     for got, want in zip(_outputs(t), _jax_write(st, kind)):
         np.testing.assert_array_equal(got[1:], want[1:])
@@ -202,7 +213,7 @@ def test_int8_scale_shrinks_and_grows_and_stale_offsets_zeroed():
     large one)."""
     st = _state("offsets_0_1_15_mid", "int8_f32_rows", seed=3)
     t = _torch_args(st, "int8_f32_rows")
-    _call(kv_append, t)
+    _call(fused_write, t)
     tables, lens = st["tables"], st["lens"]
     for s, off in enumerate(lens % BS):
         blk = tables[s, lens[s] // BS]
@@ -223,8 +234,8 @@ def test_strided_rows_read_as_they_are(kind):
                        b["v_new"]], dim=1)
     b["k_new"], b["v_new"] = qkv[:, 1], qkv[:, 2]
     assert not b["k_new"].is_contiguous()
-    _call(kv_append, a)
-    _call(kv_append, b)
+    _call(fused_write, a)
+    _call(fused_write, b)
     for x, y in zip(_outputs(a), _outputs(b)):
         np.testing.assert_array_equal(x, y)
 
@@ -270,7 +281,7 @@ INT8_REFUSALS = {
 }
 
 
-@pytest.mark.parametrize("fn", [kv_append, kv_append_reference],
+@pytest.mark.parametrize("fn", [fused_write, kv_append_reference],
                          ids=["wrapper", "twin"])
 @pytest.mark.parametrize("name", sorted(REFUSALS) + sorted(INT8_REFUSALS))
 def test_refusals(name, fn):

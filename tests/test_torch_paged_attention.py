@@ -27,7 +27,7 @@ from paddle_tpu.nn.functional.attention import \
 
 from paddle_tpu_torch.kernels.paged_attention import (
     MAX_SPAN_BLOCKS, MAX_SPLITS, SPAN_TOKENS, paged_attention,
-    paged_decode_reference, split_plan)
+    paged_decode_append, paged_decode_reference, split_plan)
 from paddle_tpu_torch.nn.functional import paged_decode_attention as t_paged
 from paddle_tpu_torch.nn.functional.attention import _dense_gather_attention
 
@@ -289,12 +289,13 @@ def test_split_plan_refuses_tables_past_its_spans():
 
 
 def test_split_plan_needs_no_lengths():
-    """The plan's inputs are shapes only, and the wrapper's launch path
-    reads nothing back from the device (no sync a CUDA graph could not
-    capture)."""
+    """The plan's inputs are shapes only, and the wrappers' launch paths
+    (the kernel alone, and with the decode write) read nothing back from
+    the device (no sync a CUDA graph could not capture)."""
     assert list(inspect.signature(split_plan).parameters) == [
         "max_blocks", "block_size"]
-    src = inspect.getsource(paged_attention) + inspect.getsource(split_plan)
+    src = (inspect.getsource(paged_attention) + inspect.getsource(split_plan)
+           + inspect.getsource(paged_decode_append))
     for read in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(lens",
                  "synchronize("):
         assert read not in src, read

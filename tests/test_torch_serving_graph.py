@@ -158,9 +158,9 @@ def test_captured_launches_count_once_per_replay(replays):
     `captured_launches` takes them back out and returns them, and each
     `add_launches(record)` adds them once."""
     kernels.reset_launch_counts()
-    mods = {"paged_decode": kernels.paged_attention,
-            "kv_append": kernels.kv_append}
-    mods["kv_append"].launches["kv_append"] = 5      # launched eagerly
+    mods = {"paged_decode_append": kernels.paged_attention,
+            "fused_ln": kernels.fused_ln}
+    mods["fused_ln"].launches["fused_ln"] = 5        # launched eagerly
 
     def capture():
         for name, mod in mods.items():
@@ -169,14 +169,14 @@ def test_captured_launches_count_once_per_replay(replays):
 
     out, record = kernels.captured_launches(capture)
     assert out == "graph"
-    assert record == {"paged_decode": 2, "kv_append": 2}
-    assert kernels.launch_counts()["paged_decode"] == 0
-    assert kernels.launch_counts()["kv_append"] == 5
+    assert record == {"paged_decode_append": 2, "fused_ln": 2}
+    assert kernels.launch_counts()["paged_decode_append"] == 0
+    assert kernels.launch_counts()["fused_ln"] == 5
     for _ in range(replays):
         kernels.add_launches(record)
     counts = kernels.launch_counts()
-    assert counts["paged_decode"] == 2 * replays
-    assert counts["kv_append"] == 5 + 2 * replays
+    assert counts["paged_decode_append"] == 2 * replays
+    assert counts["fused_ln"] == 5 + 2 * replays
     assert all(n == 0 for name, n in counts.items()
                if name not in record)
     kernels.reset_launch_counts()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time design variants of the paged decode kernel on one card.
 
-    python3 tools/torch_paged_decode_variants.py
+    python3 tools/torch_paged_decode_variants.py [--against FILE]
 
 Builds variants of ``paddle_tpu_torch/csrc/paged_decode.cu`` side by side
 with nvcc under ``build/paged_decode_variants/`` and prints what ptxas says
@@ -22,7 +22,10 @@ of their kernels (registers, spills):
   unstaged   each copy reads its table entry from global memory instead of
              the span's entries staged in shared memory first;
   ring_4x2   a ring of 4 stages: twice the bytes in flight a CTA;
-  ring_2x1   one copy a lane per stage: half the bytes in flight a CTA.
+  ring_2x1   one copy a lane per stage: half the bytes in flight a CTA;
+  against    with ``--against FILE``, another version of the source (an
+             earlier commit's ``paged_decode.cu``, say), built, checked
+             and timed as the others are.
 
 Two probes of the source's fixed costs are timed beside them, and not
 checked (their outputs are wrong by construction):
@@ -47,6 +50,7 @@ the repository's root as the working directory.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import math
 import re
@@ -85,14 +89,18 @@ def _sub(src, old, new):
     return src.replace(old, new)
 
 
-def variants():
-    """name -> (source text, span tokens); None for one_cta."""
+def variants(against=None):
+    """name -> (source text, span tokens); None for one_cta. `against`:
+    the path of another version of the source, built as "against"."""
     src = (CSRC / "paged_decode.cu").read_text()
     unstaged = _sub(src, _STAGE, "")
     for old, new in _UNSTAGED:
         unstaged = _sub(unstaged, old, new)
     tokens = pa.SPAN_TOKENS
-    return {"one_cta": ((ROOT / "tools" / "torch_paged_decode_one_cta.cu")
+    extra = {"against": (Path(against).read_text(), tokens)} if against \
+        else {}
+    return {**extra,
+            "one_cta": ((ROOT / "tools" / "torch_paged_decode_one_cta.cu")
                         .read_text(), None),
             "source": (src, tokens),
             "span_128": (src, tokens // 2),
@@ -257,11 +265,17 @@ def _summing(tensors):
 
 
 def main():
+    ap = argparse.ArgumentParser(description="Time design variants of the "
+                                 "paged decode kernel on one card.")
+    ap.add_argument("--against", default=None,
+                    help="another version of csrc/paged_decode.cu to build, "
+                         "check and time beside the variants")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(f"card: {cs._card()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
-    sources = variants()
+    sources = variants(args.against)
     checked = list(sources)
     sources.update(probes())
     libs = build(sources)
