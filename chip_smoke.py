@@ -33,7 +33,13 @@ Phases, in order; any failure raises and the script exits non-zero:
                0 untouched, the output within PAGED_TOL and bit for bit
                the paged kernel's alone, at write offsets 0, 1, 15 and
                mid-block, the table's end, with inactive slots and reused
-               blocks; timed in turns with the paged kernel alone;
+               blocks; timed in turns with the paged kernel alone; the
+               sampler's keyed draw at S=8, V=50257 and V=50304 over
+               rounds of fresh seeds and positions, greedy and sampled
+               slots: random bits and noise bit for bit, and the tokens
+               of a debug launch and of the decode step's launch equal
+               the twin's at every slot (the twin runs on the CPU on
+               copies of the inputs);
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -50,6 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                decode steps of 8 full slots of each engine under
                torch.profiler (device time by kernel group, kernels a
                step, busy share);
+               Each decode step samples inside its graphs (the keyed draw
+               once a replay and once a prefill): the full sampler head
+               where a slot samples, the greedy head (no sort) elsewhere,
+               and both must run in the counted window;
   4b. serve_int8 — the same model and request mix through
                `LLMEngine(..., kv_dtype="int8")`: the fused int8 paged
                kernel 12 x per replay and the fp one never,
@@ -57,6 +67,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                its greedy-token agreement with the bf16 run (a number, not
                a gate) and the streams each pool admits at the bf16
                engine's pool bytes;
+  4c. serve_pipelined — `LLMEngine(pipeline_decode=True)` against an
+               unpipelined engine on the serve mix, bf16 pools, then int8
+               pools: greedy and sampled tokens bitwise equal, one decode
+               build each, no rollback on a clean drain, the keyed draw
+               once a replay; a cancel between launch and commit rolls
+               back one token and leaks none; then both engines in turns
+               (step p50/p99, decode tok/s) and the sampler's share of a
+               replayed step;
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
                and agree on the prompts' logits; then the same with int8
@@ -80,7 +98,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                CPU's.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
-with fp and with int8 pools, alone and with the decode write), the
+with fp and with int8 pools, alone and with the decode write, the keyed
+draw), the
 training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
 and backward) and the fused bias-residual LayerNorm within FLASH_TOL /
 PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the
@@ -111,10 +130,13 @@ from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
                                       launch_counts, paged_attention as pa,
                                       reset_launch_counts)
+from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
                                       pool_bytes_per_block)
+from paddle_tpu_torch.serving.engine import _slot_views
+from paddle_tpu_torch.serving.sampling import sample_tokens
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the
 # rate of each input type (bf16 on the tensor cores; fp32 off them, TF32
@@ -195,6 +217,15 @@ LN_PARAM_GRAD_TOL = (2e-3, 1e-4)
 # serve_int8: the same pool bytes must admit at least this many times the
 # bf16 engine's streams (1 byte per element against 2, less the scales)
 INT8_CAPACITY_MIN = 1.8
+# the keyed draw against its twin: the random bits and the noise must be
+# bit-identical (both evaluate XLA's float32 log with single roundings and
+# the same fused multiply-adds), so the scores are too, and every token
+# must be equal (both take the first index of the largest score). The
+# slots whose winning margin (best minus second-best score) is at most
+# KEYED_MARGIN are counted and printed, and held all the same
+KEYED_MARGIN = 1e-4
+KEYED_ROUNDS = 6
+KEYED_SLOTS, KEYED_VOCABS = 8, (50257, 50304)
 # lse is fp32 on both sides whatever the input type
 LSE_TOL = (1e-4, 1e-4)
 # flash backward, fp32: the FMA kernels and the twins recompute P in fp32
@@ -1214,9 +1245,137 @@ def check_ce():
     return rows
 
 
+def _keyed_state(s, v, seed, sampled):
+    """Raw fp32 logits [s, v] (scale of GPT-2's), a filtered copy with the
+    entries below each row's 40th largest masked to -1e30 (top-k's
+    threshold), temperatures (slots in `sampled` at 0.8, the rest greedy),
+    uint32 seeds as int32 bits and positions in [1, 1024]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    raw = 4.0 * torch.randn(s, v, device="cuda", generator=g)
+    kth = raw.topk(40, dim=-1).values[:, -1:]
+    filtered = raw.masked_fill(raw < kth, -1e30)
+    temps = torch.zeros(s, device="cuda")
+    temps[list(sampled)] = 0.8
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (s,), device="cuda",
+                          dtype=torch.int32, generator=g)
+    positions = torch.randint(1, 1025, (s,), device="cuda",
+                              dtype=torch.int32, generator=g)
+    return raw, filtered, temps, seeds, positions
+
+
+def check_keyed_draw():
+    """The keyed draw (`csrc/keyed_draw.cu`) against its twin, which runs on
+    the CPU on copies of the same inputs: KEYED_ROUNDS rounds of 8 slots
+    (greedy and sampled) at each of V = 50257 and the serving model's
+    padded V = 50304, fresh seeds and positions each. Each round launches
+    the kernel twice on the same inputs: with the debug output (every
+    index's bits and noise, which must equal the twin's bit for bit) and
+    as the decode step launches it; both launches' tokens must equal the
+    twin's at every slot. Then timed at the serving path's shape (8 slots,
+    V = 50304: the serve mix's 2 sampled slots, and all 8 sampled) with
+    the launch queue filled ahead. There is no single PyTorch call for the
+    draw (library_ms null)."""
+    s = KEYED_SLOTS
+    noise_err, slots, near = 0.0, 0, 0
+    for v in KEYED_VOCABS:
+        for r in range(KEYED_ROUNDS):
+            sampled = range(r % 3, s, 1 + r % 3)
+            raw, filtered, temps, seeds, pos = _keyed_state(
+                s, v, 100 * v + r, sampled)
+            bits = torch.empty((s, v), dtype=torch.int32, device="cuda")
+            noise = torch.empty((s, v), device="cuda")
+            debug = kd.keyed_draw(raw, filtered, temps, seeds, pos,
+                                  debug=(bits, noise))
+            out = torch.full((s,), -1, dtype=torch.int32, device="cuda")
+            feedback = torch.full_like(out, -1)
+            kd.keyed_draw(raw, filtered, temps, seeds, pos, out=out,
+                          feedback=feedback)
+            torch.cuda.synchronize()
+            cpu = [t.cpu() for t in (raw, filtered, temps, seeds, pos)]
+            k0, k1 = kd.slot_keys(cpu[3], cpu[4])
+            want_bits = kd.random_bits(k0, k1, v).to(torch.int32)
+            assert torch.equal(bits.cpu(), want_bits), \
+                f"V={v} round {r}: bits differ"
+            want_noise = -kd.xla_log(-kd.xla_log(kd.uniform(
+                want_bits.to(torch.int64) & 0xFFFFFFFF)))
+            got_noise = noise.cpu()
+            noise_err = max(noise_err,
+                            (got_noise - want_noise).abs().max().item())
+            differ = int((got_noise.view(torch.int32)
+                          != want_noise.view(torch.int32)).sum())
+            assert differ == 0, \
+                f"V={v} round {r}: {differ} noise values differ"
+            want = kd.keyed_draw_reference(*cpu)
+            for name, got in (("debug", debug), ("decode", out),
+                              ("feedback", feedback)):
+                assert torch.equal(got.cpu(), want), \
+                    (v, r, name, got.tolist(), want.tolist())
+            scores = torch.where(cpu[2][:, None] > 0, want_noise + cpu[1],
+                                 cpu[0])
+            top2 = scores.topk(2, dim=-1).values
+            near += int(((top2[:, 0] - top2[:, 1]) <= KEYED_MARGIN).sum())
+            slots += s
+    print(f"  keyed_draw S={s} V={'/'.join(map(str, KEYED_VOCABS))}: "
+          f"{KEYED_ROUNDS} rounds x {s} slots each (greedy and sampled): "
+          f"random bits and noise bit-identical to the twin (max_abs_err "
+          f"{noise_err:.3e}); tokens of the debug launch and of the decode "
+          f"step's launch (out and feedback) equal the twin's at all "
+          f"{slots} slots ({near} with a winning margin <= {KEYED_MARGIN})")
+    # main-path shape: the padded vocabulary, the serve mix's 2 sampled
+    # slots of 8, then all 8 sampled
+    v = 50304
+    row = {}
+    for sampled, key in (((6, 7), "ms"), (range(s), "all_sampled_ms"),
+                         ((), "greedy_ms")):
+        raw, filtered, temps, seeds, pos = _keyed_state(s, v, 7, sampled)
+        out = torch.empty(s, dtype=torch.int32, device="cuda")
+        feedback = torch.empty_like(out)
+        ms, host_ms = _timed(lambda: kd.keyed_draw(
+            raw, filtered, temps, seeds, pos, out=out, feedback=feedback))
+        row[key] = ms
+        if key == "ms":
+            row["host_ms"] = host_ms
+            cpu = [t.cpu() for t in (raw, filtered, temps, seeds, pos)]
+            t0 = time.perf_counter()
+            kd.keyed_draw_reference(*cpu)
+            row["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    # each slot reads one fp32 row (raw if greedy, filtered if sampled)
+    bound, by = _bound_ms(s * v * 4, 0, torch.float32)
+    print(f"  keyed_draw S={s} V={v}: {row['ms']:.5f} ms (2 slots sampled), "
+          f"{row['all_sampled_ms']:.5f} ms (8 sampled), "
+          f"{row['greedy_ms']:.5f} ms (none sampled); bound {bound:.5f} ms "
+          f"({by}); twin on the CPU {row['plain_ms']:.1f} ms")
+    return {"name": "keyed_draw", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/keyed_draw.cu",
+            "replaces": "no Pallas counterpart: the draw of "
+                        "paddle_tpu/serving/sampling.py:168-171 "
+                        "(jax.random.categorical under fold_in keys, XLA "
+                        "ops)",
+            "max_abs_err": noise_err, **row, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "shape": "S=8 V=50304 fp32 logits, 2 of 8 slots sampled "
+                     "(all_sampled_ms: 8 of 8; greedy_ms: none, as the "
+                     "greedy head launches it); max_abs_err: the noise, "
+                     "kernel vs twin, at V=50257 and V=50304",
+            "note": "plain_ms is the twin's host time on the CPU: the twin "
+                    "never takes a CUDA tensor"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
+
+def _serve_mix(rng):
+    """The serve phases' requests, ``[(prompt, add_request kwargs)]``: 16
+    greedy prompts of 16-960 tokens and one of 990 (so the 1024 bucket
+    runs), then 2 sampled ones (temperature 0.8, top-k 40, top-p 0.95)."""
+    lens = list(rng.integers(16, 961, 16)) + [990]
+    mix = [(rng.integers(0, 50257, int(n)).tolist(), {}) for n in lens]
+    for i in range(2):
+        mix.append((rng.integers(0, 50257, 64 + 32 * i).tolist(),
+                    dict(temperature=0.8, top_k=40, top_p=0.95, seed=i)))
+    return mix
+
 
 def serve(kv_dtype=None):
     """The serving mix through `LLMEngine` (bf16 pools, or int8 with
@@ -1240,20 +1399,26 @@ def serve(kv_dtype=None):
     engine.generate([rng.integers(0, 50257, 20).tolist()], max_new_tokens=2)
     assert engine.stats()["decode_compiles"] == 1, engine.stats()
     engine.reset_stats()
-    lens = list(rng.integers(16, 961, 16)) + [990]
-    prompts = [rng.integers(0, 50257, int(n)).tolist() for n in lens]
+    mix = _serve_mix(rng)
+    heads = []
+
+    def samples(active, orig=engine._samples):
+        heads.append(orig(active))
+        return heads[-1]
+
+    engine._samples = samples
     reset_launch_counts()
     t0 = time.perf_counter()
-    reqs = [engine.add_request(p, max_new_tokens=24) for p in prompts]
-    for i in range(2):
-        reqs.append(engine.add_request(
-            rng.integers(0, 50257, 64 + 32 * i).tolist(), max_new_tokens=24,
-            temperature=0.8, top_k=40, top_p=0.95, seed=i))
+    reqs = [engine.add_request(p, max_new_tokens=24, **kw) for p, kw in mix]
     engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    del engine._samples
     st = engine.stats()
+    # the steps with a sampling slot ran the full head, the rest the greedy
+    assert len(heads) == st["steps"] and 0 < sum(heads) < len(heads), \
+        (len(heads), sum(heads), st["steps"])
     assert all(r.state == "FINISHED" and len(r.generated) == 24
                for r in reqs), [(r.rid, r.state) for r in reqs]
     assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
@@ -1267,12 +1432,16 @@ def serve(kv_dtype=None):
         and counts["paged_decode_int8"] == 0, counts
     assert counts["flash_attention_fwd"] == layers * st["prefills"], \
         (counts, st)
+    # the sampler's draw: one launch in each replay and each prefill
+    assert counts["keyed_draw"] == st["steps"] + st["prefills"], (counts, st)
     assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
     assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
     print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
           f"in {wall:.3f} s = {st['tokens_generated'] / wall:.1f} tok/s; "
           f"{st['steps']} decode steps (graph replays; {st['decode_compiles']}"
-          f" decode builds in the window, 1 in the warm-up), p50 "
+          f" decode builds in the window, 1 in the warm-up; {sum(heads)} "
+          f"with the full sampler head, {len(heads) - sum(heads)} with the "
+          f"greedy head), p50 "
           f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms; TTFT "
           f"p50 {st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
           f"{st['evictions']} evictions; occupancy "
@@ -1297,30 +1466,31 @@ def _graph_vs_eager(tag, model, engine, kv_dtype, rng):
     after every step; the logits' max abs difference is reported (equal
     bit for bit is expected; cuBLAS may choose another algorithm under
     capture). Prints both engines' step p50 and the replay's device time
-    (CUDA events around the slot copy and the replay). Then 4 steps of 8
+    (CUDA events around the replay, the sampler in it). Then 4 steps of 8
     full slots of each engine under torch.profiler: the eager engine's
     window names every kernel; the graph's names them too where the
     profiler traces graph nodes (it did on the H100 runs of PERF.md), else
-    it shows one graph launch."""
+    it shows one graph launch. Both steps sample inside (the graph's
+    sampler is captured with it)."""
     eager = LLMEngine(model, max_batch_size=8, block_size=16,
                       max_context=1024, kv_dtype=kv_dtype)
     eager._decode_step = eager._decode_step_eager
     logits, replay_ms = {}, []
 
     def recording(name, fn):
-        def call():
+        def call(*args):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            out = fn()
+            out = fn(*args)
             end.record()
             logits[name] = (out[:, -1].float().clone(), start, end)
             return out
         return call
 
-    engine._decode_logits = recording("graph", engine._decode_logits)
-    eager._decode_logits_eager = recording("eager",
-                                           eager._decode_logits_eager)
+    program = engine._decode_program
+    engine._decode_program = recording("graph", program)
+    eager._decode_code = recording("eager", eager._decode_code)
     engine.reset_stats()
     prompts = [rng.integers(0, 50257, 200).tolist() for _ in range(8)]
     g_reqs = [engine.add_request(p, max_new_tokens=32) for p in prompts]
@@ -1347,7 +1517,7 @@ def _graph_vs_eager(tag, model, engine, kv_dtype, rng):
           f"reported, not held); step p50 graph {g_st['p50_step_ms']:.3f} ms, "
           f"eager {e_st['p50_step_ms']:.3f} ms; replay device time p50 "
           f"{float(np.median(replay_ms)):.4f} ms (min {min(replay_ms):.4f}, "
-          f"CUDA events around the slot copy and the replay)")
+          f"CUDA events around the replay, sampler included)")
     _breakdown(f"{tag} decode, eager engine", lambda: [eager.step()
                                                        for _ in range(4)],
                per=4)
@@ -1356,7 +1526,188 @@ def _graph_vs_eager(tag, model, engine, kv_dtype, rng):
                per=4)
     engine.run()
     eager.run()
-    del engine._decode_logits
+    engine._decode_program = program
+
+
+# pipelined against unpipelined, in turns: steps of 8 slots of 200-token
+# prompts (6 greedy, 2 sampled)
+PIPELINE_TURNS = ("plain", "piped", "piped", "plain", "plain", "piped")
+PIPELINE_TURN_TOKENS = 33
+
+
+def serve_pipelined(model, kv_dtype=None):
+    """`LLMEngine(pipeline_decode=True)` on the serve mix of `serve`
+    against an unpipelined engine on the same model and requests: every
+    greedy and sampled token bitwise equal, one decode build each (in the
+    warm-up, none in the window), no rollback on a clean drain, the paged
+    kernel 12 x and the keyed draw once a replay (and once a prefill).
+    Then a cancel between launch and commit rolls back (one rollback, no
+    token leaked, the other streams equal the unpipelined engine's), and
+    the two engines in turns (`_pipelined_vs_plain`). Returns the
+    pipelined run's launch counts."""
+    tag = "serve_pipelined_int8" if kv_dtype else "serve_pipelined"
+    paged = "paged_decode_append_int8" if kv_dtype else "paged_decode_append"
+    layers = model.config.num_hidden_layers
+    engines = {name: LLMEngine(model, max_batch_size=8, block_size=16,
+                               max_context=1024, kv_dtype=kv_dtype,
+                               pipeline_decode=name == "piped")
+               for name in ("plain", "piped")}
+    rng = np.random.default_rng(3)
+    warm = rng.integers(0, 50257, 20).tolist()
+    for engine in engines.values():
+        engine.generate([warm], max_new_tokens=3)
+        assert engine.stats()["decode_compiles"] == 1, engine.stats()
+        engine.reset_stats()
+    mix = _serve_mix(rng)
+    streams, counts = {}, {}
+    for name, engine in engines.items():
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        reqs = [engine.add_request(p, max_new_tokens=24, **kw)
+                for p, kw in mix]
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = launch_counts()
+        st = engine.stats()
+        assert all(r.state == "FINISHED" and len(r.generated) == 24
+                   for r in reqs), [(r.rid, r.state) for r in reqs]
+        assert st["decode_compiles"] == 0 and st["commit_rollbacks"] == 0, st
+        assert counts[name][paged] == layers * st["steps"], (counts, st)
+        assert counts[name]["keyed_draw"] == st["steps"] + st["prefills"], \
+            (counts, st)
+        streams[name] = [list(r.generated) for r in reqs]
+        print(f"{tag}: {name} engine, {len(reqs)} requests, "
+              f"{st['tokens_generated']} tokens in {wall:.3f} s = "
+              f"{st['tokens_generated'] / wall:.1f} tok/s; {st['steps']} "
+              f"decode steps, p50 {st['p50_step_ms']:.3f} ms, p99 "
+              f"{st['p99_step_ms']:.3f} ms; keyed_draw launches "
+              f"{counts[name]['keyed_draw']} = steps + prefills; "
+              f"{st['commit_rollbacks']} rollbacks")
+    assert streams["piped"] == streams["plain"], tag
+    n_sampled = sum(1 for _, kw in mix if kw)
+    print(f"{tag}: greedy ({len(mix) - n_sampled} streams) and sampled "
+          f"({n_sampled}) tokens of the pipelined engine bitwise equal to "
+          f"the unpipelined engine's; 1 decode build each (warm-up), 0 in "
+          f"the window")
+    # a cancel between launch and commit
+    prompts = [rng.integers(0, 50257, n).tolist() for n in (100, 80, 90)]
+    cfgs = [dict(temperature=0.9, top_k=40, seed=500 + i) for i in range(3)]
+    runs = {}
+    for name, engine in engines.items():
+        engine.reset_stats()
+        runs[name] = [engine.add_request(p, max_new_tokens=16, **c)
+                      for p, c in zip(prompts, cfgs)]
+    engines["plain"].run()
+    piped = engines["piped"]
+    for _ in range(4):
+        piped.step()
+    assert piped._inflight is not None
+    victim = runs["piped"][1]
+    n_before = len(victim.generated)
+    piped.cancel(victim.rid)
+    piped.run()
+    st = piped.stats()
+    assert victim.state == "CANCELLED" and len(victim.generated) == n_before
+    assert st["commit_rollbacks"] == 1 and st["decode_compiles"] == 0, st
+    for i in (0, 2):
+        assert runs["piped"][i].generated == runs["plain"][i].generated, i
+    print(f"{tag}: a cancel between launch and commit rolled back 1 token "
+          f"(none leaked: {n_before} tokens before and after); the other "
+          f"streams equal the unpipelined engine's")
+    _pipelined_vs_plain(tag, engines, rng)
+    return counts["piped"]
+
+
+def _pipelined_vs_plain(tag, engines, rng):
+    """The pipelined and the unpipelined engine in turns (PIPELINE_TURNS),
+    each turn 8 requests of 200-token prompts (6 greedy, 2 sampled) admitted
+    in one step, then PIPELINE_TURN_TOKENS - 1 decode steps timed: step
+    p50 / p99 (host clock, `stats()`) and decode tok/s (tokens over the
+    wall time of the steps, to the last token); every turn's streams must
+    equal. Then the sampler's share of a replayed step: `sample_tokens`
+    alone at the decode shape (CUDA events, queue filled ahead) against
+    the replay's device time (CUDA events around it)."""
+    prompts = [rng.integers(0, 50257, 200).tolist() for _ in range(8)]
+    cfgs = [{}] * 6 + [dict(temperature=0.8, top_k=40, top_p=0.95,
+                            seed=900 + i) for i in range(2)]
+    results = {"plain": [], "piped": []}
+    streams = []
+    replay_ms = []
+    piped = engines["piped"]
+    program = piped._decode_program
+
+    def timed_replay(sampled):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = program(sampled)
+        end.record()
+        replay_ms.append((start, end))
+        return out
+
+    piped._decode_program = timed_replay
+    for name in PIPELINE_TURNS:
+        engine = engines[name]
+        reqs = [engine.add_request(p, max_new_tokens=PIPELINE_TURN_TOKENS,
+                                   **c) for p, c in zip(prompts, cfgs)]
+        engine.step()                       # admission, prefill, 1st launch
+        engine.reset_stats()
+        t0 = time.perf_counter()
+        engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = engine.stats()
+        assert st["decode_compiles"] == 0 and st["commit_rollbacks"] == 0, st
+        results[name].append((st["p50_step_ms"], st["p99_step_ms"],
+                              st["tokens_generated"] / wall))
+        streams.append([list(r.generated) for r in reqs])
+    piped._decode_program = program
+    assert all(s == streams[0] for s in streams), tag
+    torch.cuda.synchronize()
+    replay = float(np.median([a.elapsed_time(b) for a, b in replay_ms]))
+
+    def fmt(i):
+        return {n: [round(r[i], 4 if i < 2 else 1) for r in rs]
+                for n, rs in results.items()}
+
+    print(f"{tag}: in turns {'/'.join(PIPELINE_TURNS)}, 8 slots of 200-token "
+          f"prompts (6 greedy, 2 sampled), {PIPELINE_TURN_TOKENS - 1} decode "
+          f"steps a turn, streams equal in every turn: step p50 ms "
+          f"{json.dumps(fmt(0))}, p99 ms {json.dumps(fmt(1))}, decode tok/s "
+          f"{json.dumps(fmt(2))}")
+    # the sampler alone at the decode shape, on the engine's own buffers
+    s, v = 8, piped._model.config.vocab_size
+    slots = _slot_views(piped._slots_dev, s, piped.max_blocks_per_seq)
+    logits = torch.randn(s, v, device="cuda").to(torch.bfloat16)
+    lens = torch.full((s,), 230, dtype=torch.int32, device="cuda")
+    valid = piped._positions[None, :] <= lens[:, None]
+    temps = torch.tensor([0.0] * 6 + [0.8] * 2, device="cuda")
+    top_k = torch.full((s,), 40, dtype=torch.int32, device="cuda")
+    top_p = torch.full((s,), 0.95, device="cuda")
+    penalty = torch.ones(s, device="cuda")
+    seeds = slots[8]
+    out = [t.clone() for t in piped._out_views]
+    feedback = piped._feedback.clone()
+
+    def sampler(greedy_only=False):
+        return sample_tokens(logits, temps, top_k, top_p, penalty, seeds,
+                             lens + 1, piped._history, valid,
+                             piped._logprobs_topk, out=out, feedback=feedback,
+                             greedy_only=greedy_only)
+
+    sampler_ms, _ = _timed(sampler)
+    greedy_ms, _ = _timed(lambda: sampler(True))
+    _breakdown(f"{tag} sampler alone", lambda: [sampler() for _ in range(4)],
+               per=4)
+    _breakdown(f"{tag} greedy head alone",
+               lambda: [sampler(True) for _ in range(4)], per=4)
+    print(f"{tag}: sampler alone {sampler_ms:.4f} ms a step at S=8 V={v} "
+          f"(every row sorted; CUDA events, launch queue filled ahead) = "
+          f"{sampler_ms / replay:.3f} of the pipelined replay's device time "
+          f"p50 {replay:.4f} ms (CUDA events around the replay, 2 slots "
+          f"sampled: the full head); the greedy head alone (no slot "
+          f"sampled, no sort) {greedy_ms:.4f} ms")
 
 
 def _admitted(model, kv_dtype, num_blocks, n=64, prompt=512):
@@ -1478,7 +1829,13 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                # V rows and attends in one launch (paged_decode_append)
                ("paged_decode_append", ("paged_decode_split_kernel",)),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
-                                  "xmma")))
+                                  "xmma")),
+               # the sampler's draw; cub's radix sort (the sampler's one
+               # sort, the embedding backward's index sort) and scans (the
+               # sampler's top-p cumulative sum)
+               ("keyed_draw", ("keyed_draw_kernel",)),
+               ("radix sort", ("RadixSort",)),
+               ("scan", ("scan",)))
 
 
 def _breakdown(tag, fn, per=1, top=8):
@@ -1752,13 +2109,16 @@ def main():
         row["note"] = ("the serving path runs this kernel with the decode "
                        "write folded in (paged_decode_append); this row "
                        "times it alone, and its launches there are 0")
-    rows = {"serve": [check_flash(), paged, fused],
+    rows = {"serve": [check_flash(), paged, fused, check_keyed_draw()],
             "serve_int8": [paged_int8, fused_int8],
             "train": check_flash_bwd() + check_ce(),
             "fused_ln": [check_fused_ln()]}
     paths = {}
-    paths["serve"], bf16_greedy, _ = serve()
+    paths["serve"], bf16_greedy, model = serve()
     paths["serve_int8"] = serve_int8(bf16_greedy)
+    paths["serve_pipelined"] = serve_pipelined(model)
+    paths["serve_pipelined_int8"] = serve_pipelined(model, kv_dtype="int8")
+    del model
     parity()
     parity(kv_dtype="int8")
     paths["train"] = train()
@@ -1778,11 +2138,12 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 10 and all(
+    assert len(rows) == 11 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
-            "alone_ms", "append_ms", "turns_ms", "shape", "launches_by_path",
+            "alone_ms", "append_ms", "turns_ms", "all_sampled_ms", "shape",
+            "launches_by_path",
             "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}
                                   for row in rows]}))

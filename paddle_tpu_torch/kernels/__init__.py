@@ -10,13 +10,15 @@ launches nothing), and `add_launches` adds that record once per replay.
 """
 from __future__ import annotations
 
-from . import cross_entropy, flash_attention, fused_ln, paged_attention
+from . import (cross_entropy, flash_attention, fused_ln, keyed_draw,
+               paged_attention)
 
-__all__ = ["cross_entropy", "flash_attention", "fused_ln",
+__all__ = ["cross_entropy", "flash_attention", "fused_ln", "keyed_draw",
            "paged_attention", "launch_counts", "reset_launch_counts",
            "captured_launches", "add_launches"]
 
-_MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln)
+_MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln,
+            keyed_draw)
 
 
 def launch_counts():

@@ -6,41 +6,60 @@ free-block watermark (serving/scheduler.py), LIFO preempt-resume by
 block-table edits, bucketed prefill, streaming `on_token` callbacks,
 deadlines, cancellation and structured refusals. Host state stays in
 numpy: the fixed slot layout ``tokens [S]``, ``tables [S, M]``,
-``lens [S]``, ``active [S]`` and the per-slot sampler config.
+``lens [S]``, ``active [S]``, the per-slot sampler config and the
+override mask of pipelined decode.
 
 The device side lives on ``device``: the two pools ``[L, num_blocks,
 block_size, H, D]`` (with ``kv_dtype="int8"``, int8 pools and their fp32
 scales ``[L, num_blocks, H]``), which every prefill and decode step edits
-in place, and the decode program's slot buffers. A prefill runs eagerly:
-the prompt (right-padded to a power-of-two bucket) goes through the
-model's dynamic-cache path — causal attention through the flash kernel —
-and its K/V are scattered into the pools (quantized with int8 pools).
+in place, each slot's context history ``[S, max_context]`` (the
+repetition penalty's), and the decode program's buffers. A prefill runs
+eagerly: the prompt (right-padded to a power-of-two bucket) goes through
+the model's dynamic-cache path — causal attention through the flash
+kernel — its K/V are scattered into the pools (quantized with int8
+pools) and its ids become the slot's history row.
 
 The decode step is one program, built once per engine at its first
 decode step (`ServeStats.decode_compiles`, the reference's count of decode
 traces) and run for every token of every stream, as the reference's one
-``jax.jit`` is. Its inputs are static device buffers — tokens ``[S]``,
-tables ``[S, M]``, lens ``[S]``, active ``[S]``, packed in one buffer that
-one copy fills each step from the host mirrors — and twelve
-`PagedCacheView`s over them and the pools, made once. On the card the
-program is one CUDA graph of the whole decode forward (embeddings, every
-layer with its KV append and paged kernel, ``ln_f``, the LM head), captured
-after one eager warm-up step and replayed into static logits ``[S, 1,
-V]``; on the CPU the same forward runs over the same buffers without
-capture. The sampler stays outside the program (its stochastic rows draw
-from per-slot host-seeded generators) and reads the logits before the
-next step. A capture or replay that fails raises: there is no eager
-fallback.
+``jax.jit`` is. Its inputs are static device buffers — tokens, tables,
+lens, active, the sampler config and the override mask, packed in one
+buffer that one copy fills each step from the host mirrors — and twelve
+`PagedCacheView`s over them and the pools, made once. The program takes
+each slot's input token from the host's copy where ``override`` is set
+and from the device feedback buffer (the previous step's sampled token)
+elsewhere, runs the decode forward (embeddings, every layer with its
+fused KV write and paged attention, ``ln_f``, the LM head), writes the
+input token into the history at ``lens`` and samples (`sample_tokens`:
+the processors, then the keyed draw kernel, which writes the next token
+into the output and feedback buffers). A step in which no launched slot
+samples takes the greedy head instead: every row's raw argmax, without
+the processors' sort, its outputs on greedy rows those of the full head
+bit for bit. On the card the program is three CUDA graphs (the forward,
+the full head, the greedy head), captured in one build after one eager
+warm-up step; a step replays the forward's and one head's. On the CPU
+the same code runs over the same buffers without capture. Each launch's
+outputs go to a pinned host buffer of its own, with an event. A capture or replay
+that fails raises: there is no eager fallback.
+
+With ``pipeline_decode=True`` step N+1 is launched on the fed-back tokens
+before step N's tokens are committed (streamed, retired), so the host's
+commit overlaps the device's step, as the reference's `_step_pipelined`
+does; the streams are bitwise those of the unpipelined engine. No host
+buffer a queued launch still reads is rewritten: the staging copy and
+the output copy each alternate between two pinned buffers, and a buffer
+is written again only after the event of its last copy.
 
 Left out of the port, and refused with NotImplementedError when a
 constructor argument asks for them: tenancy (prefix cache, adapters,
-weight hot-swap), a float ``kv_dtype`` other than the model's, a kernel
-variant switch and pipelined decode.
-The hung-step watchdog with its eager fallback, AOT warm start,
-crash-resume and the telemetry plane are not ported either.
+weight hot-swap), a float ``kv_dtype`` other than the model's and a
+kernel variant switch. The hung-step watchdog with its eager fallback,
+AOT warm start, crash-resume and the telemetry plane are not ported
+either.
 """
 from __future__ import annotations
 
+import functools
 import math
 import time
 from collections import deque
@@ -68,19 +87,51 @@ _SAMPLES = 4096
 
 
 def _slot_buffer(s, m, device, pin=False):
-    """The decode program's slot state, zeroed (every slot inactive):
-    tokens, tables and lens (int32) and active (bool) packed in one byte
-    buffer, so that one copy moves all four (`_slot_views`)."""
-    return torch.zeros(4 * s * (m + 2) + s, dtype=torch.uint8, device=device,
-                       pin_memory=pin)
+    """The decode program's slot state, zeroed (every slot inactive): the
+    4-byte fields of `_slot_views` and the two bool masks packed in one
+    byte buffer, so that one copy moves them all."""
+    return torch.zeros(4 * s * (m + 7) + 2 * s, dtype=torch.uint8,
+                       device=device, pin_memory=pin)
 
 
 def _slot_views(buf, s, m):
-    """``(tokens [S], tables [S, M], lens [S], active [S])`` views of a
-    buffer from `_slot_buffer`."""
-    i, t, l = 4 * s, 4 * s * (m + 1), 4 * s * (m + 2)
-    return (buf[:i].view(torch.int32), buf[i:t].view(torch.int32).view(s, m),
-            buf[t:l].view(torch.int32), buf[l:l + s].view(torch.bool))
+    """``(tokens [S], tables [S, M], lens [S], active [S], temperature [S],
+    top_k [S], top_p [S], repetition_penalty [S], seeds [S], override
+    [S])`` views of a buffer from `_slot_buffer`: int32 tokens, tables,
+    lens, top-k and seeds (the uint32 seed's bits), float32 temperature,
+    top-p and penalty, bool active and override."""
+    words = 4 * s * (m + 7)
+    i32 = buf[:words].view(torch.int32)
+    f32 = buf[:words].view(torch.float32)
+    flags = buf[words:].view(torch.bool)
+    o = s * (m + 2)
+    return (i32[:s], i32[s:s * (m + 1)].view(s, m), i32[s * (m + 1):o],
+            flags[:s], f32[o:o + s], i32[o + s:o + 2 * s],
+            f32[o + 2 * s:o + 3 * s], f32[o + 3 * s:o + 4 * s],
+            i32[o + 4 * s:o + 5 * s], flags[s:])
+
+
+def _host_slot_views(buf, s, m):
+    """`_slot_views` of a host buffer as numpy arrays, the seeds as uint32
+    (the host mirror's type)."""
+    views = [v.numpy() for v in _slot_views(buf, s, m)]
+    views[8] = views[8].view(np.uint32)
+    return views
+
+
+def _out_buffer(s, k, device, pin=False):
+    """A decode step's outputs packed in one byte buffer (`_out_views`)."""
+    return torch.zeros(8 * s * (1 + k), dtype=torch.uint8, device=device,
+                       pin_memory=pin)
+
+
+def _out_views(buf, s, k):
+    """``(next_token [S] int32, chosen_logprob [S] float32, alt_ids [S, K]
+    int32, alt_logprobs [S, K] float32)`` views of `_out_buffer`."""
+    i32, f32 = buf.view(torch.int32), buf.view(torch.float32)
+    a = 2 * s + s * k
+    return (i32[:s], f32[s:2 * s], i32[2 * s:a].view(s, k),
+            f32[a:a + s * k].view(s, k))
 
 
 def _pct(samples, p):
@@ -91,10 +142,15 @@ class ServeStats:
     """Engine counters + latency samples. Percentiles read the last
     `_SAMPLES` observations of each kind (bounded memory however long the
     engine runs). Times are host-clock seconds around work that ends in a
-    device-to-host copy of the sampled tokens, so they include the
-    device's time. `decode_compiles` counts builds of the decode program
-    (a CUDA graph capture on the card, the buffers' views on the CPU): 1
-    for an engine's life, however requests join, leave or are evicted."""
+    device-to-host copy of sampled tokens, so they include the device's
+    time (pipelined: launch N+1, then wait for step N's tokens and commit
+    them). `decode_compiles` counts builds of the decode program (its
+    three CUDA graph captures on the card, the buffers' views on the CPU,
+    whatever the slots sample): 1 for an engine's life, however requests
+    join, leave or are evicted.
+    `commit_rollbacks` counts speculative tokens a pipelined commit
+    discarded because the slot's request was cancelled, expired, preempted
+    or finished between launch and commit."""
 
     def __init__(self):
         self.reset()
@@ -120,6 +176,7 @@ class ServeStats:
         self.saturated_steps = 0
         self.saturated_occupancy_sum = 0.0
         self.sampled_tokens = 0
+        self.commit_rollbacks = 0
         # recent raw samples only (the admission wait estimate averages
         # the tail)
         self.step_times_s = []
@@ -165,6 +222,7 @@ class ServeStats:
             "cancelled": self.cancelled,
             "expired": self.expired,
             "sampled_tokens": self.sampled_tokens,
+            "commit_rollbacks": self.commit_rollbacks,
             "occupancy_mean": (self.occupancy_sum / self.steps
                                if self.steps else 0.0),
             "occupancy_saturated": (
@@ -216,14 +274,13 @@ class LLMEngine:
         asked = {"attention_kernel": attention_kernel is not None,
                  "enable_prefix_cache": bool(enable_prefix_cache),
                  "max_adapters": bool(max_adapters),
-                 "hot_swap": bool(hot_swap),
-                 "pipeline_decode": bool(pipeline_decode)}
+                 "hot_swap": bool(hot_swap)}
         unported = [name for name, on in asked.items() if on]
         if unported:
             raise NotImplementedError(
                 f"paddle_tpu_torch's LLMEngine does not port {unported} "
-                "(kernel variants, tenancy and pipelined decode stay in "
-                "the JAX package for now)")
+                "(kernel variants and tenancy stay in the JAX package for "
+                "now)")
         device = resolve_device(device)
         param = next(model.parameters())
         if kv_dtype is not None and not is_int8(kv_dtype) \
@@ -282,19 +339,43 @@ class LLMEngine:
         self._topps = np.ones(s, np.float32)
         self._rpens = np.ones(s, np.float32)
         self._seeds = np.zeros(s, np.uint32)
-        # per-slot context history for the repetition penalty; positions
-        # <= lens are valid
-        self._history = np.zeros((s, self.max_context), np.int32)
-        # the decode program's inputs on the device, and a staging copy of
-        # the host mirrors (pinned on the card) that one copy_ a step moves
-        # there; the program itself is built at the first decode step
+        # per-slot context history for the repetition penalty, on the
+        # device: a prefill writes the slot's row, each decode step its
+        # input token at `lens`; positions <= lens are valid
+        self._history = torch.zeros((s, self.max_context), dtype=torch.int32,
+                                    device=self.device)
+        # -- pipelined decode: launch step N+1 on device-fed tokens while
+        # step N's host commit runs. `_inflight` holds the uncommitted
+        # launch, `_feedback` each slot's last sampled token on the device,
+        # and `_override[slot]` marks slots whose HOST token (admission)
+        # must win over the feedback; the unpipelined engine keeps every
+        # override set
+        self._pipeline = bool(pipeline_decode)
+        self._inflight = None
+        self._override = np.ones(s, bool)
+        self._feedback = torch.zeros(s, dtype=torch.int32, device=self.device)
+        # the decode program's inputs and outputs on the device; the host
+        # side of each copy alternates between two (pinned on the card)
+        # buffers, each written again only after the event of its last
+        # copy (None on the CPU, where copies are synchronous); the program
+        # itself is built at the first decode step
+        cpu, cuda = torch.device("cpu"), self.device.type == "cuda"
         self._slots_dev = _slot_buffer(s, m, self.device)
-        self._slots_host = _slot_buffer(s, m, torch.device("cpu"),
-                                        pin=self.device.type == "cuda")
-        self._slots_staged = [v.numpy() for v in
-                              _slot_views(self._slots_host, s, m)]
-        # runs the program once: a graph replay on the card, the forward
-        # on the CPU
+        self._out_dev = _out_buffer(s, self._logprobs_topk, self.device)
+        self._staging = []
+        self._outputs = []
+        for _ in range(2):
+            host = _slot_buffer(s, m, cpu, pin=cuda)
+            self._staging.append([host, _host_slot_views(host, s, m), None])
+            host = _out_buffer(s, self._logprobs_topk, cpu, pin=cuda)
+            self._outputs.append(
+                (host, [v.numpy() for v in
+                        _out_views(host, s, self._logprobs_topk)]))
+        self._out_views = _out_views(self._out_dev, s, self._logprobs_topk)
+        self._positions = torch.arange(self.max_context, device=self.device)
+        self._launches = 0
+        # runs the program once: a graph replay on the card, the decode
+        # code on the CPU; returns the step's logits [S, 1, V]
         self._decode_program = None
         self._k_pools = self.cache.k_pools
         self._v_pools = self.cache.v_pools
@@ -495,6 +576,7 @@ class LLMEngine:
                 break
             self._admit(req)
         if not sched.running:
+            self._flush_inflight()
             self._stats.wall_t1 = time.perf_counter()
             return bool(sched.waiting)
         # -- KV growth, preempting (newest first) when the pool is dry --
@@ -518,8 +600,12 @@ class LLMEngine:
                 self._fail(req, "kv_exhausted")
                 break
         if not sched.running:
+            self._flush_inflight()
             self._stats.wall_t1 = time.perf_counter()
             return bool(sched.waiting)
+        # -- software-pipelined tail: launch N+1, commit N (lag 1) -----
+        if self._pipeline:
+            return self._step_pipelined()
         # -- one decode step over the fixed slot layout ----------------
         demand = sched.demand
         n_active = len(sched.running)
@@ -536,13 +622,117 @@ class LLMEngine:
             self._lens[slot] = req.cached_len
             tok = int(toks[slot])
             self._tokens[slot] = tok
-            if req.cached_len < self.max_context:
-                self._history[slot, req.cached_len] = tok
             self._emit_token(req, tok, logp=float(logps[slot]),
                              alts=((aids[slot], alps[slot])
                                    if self._logprobs_topk else None))
         self._stats.wall_t1 = time.perf_counter()
         return bool(sched.running or sched.waiting)
+
+    # ------------------------------------------------------------------
+    # software-pipelined decode: launch N+1, commit N at lag 1
+    # ------------------------------------------------------------------
+    def _step_pipelined(self):
+        """Pipelined tail of one iteration: LAUNCH this step's decode on
+        device-fed tokens (the previous launch's sampled ids feed back
+        through the device buffer, no host round trip), then COMMIT the
+        previous launch's host work (callbacks, retirement) while the
+        device runs the new one. Steady-state step time is max(device,
+        host commit) instead of their sum."""
+        sched = self.scheduler
+        demand = sched.demand
+        n_active = len(sched.running)
+        t0 = time.perf_counter()
+        launched = self._launch_decode()
+        try:
+            self._commit_inflight()
+        finally:
+            # also when a streaming callback raised mid-commit: the new
+            # launch stays in flight and the next step commits it
+            self._inflight = launched
+        if launched is not None:
+            self._stats.observe_step(n_active, self.max_batch_size, demand,
+                                     time.perf_counter() - t0)
+        self._stats.wall_t1 = time.perf_counter()
+        return bool(sched.running or sched.waiting
+                    or self._inflight is not None)
+
+    def _launch_decode(self):
+        """Launch one decode step without waiting for it. Structural state
+        (cached_len, lens) advances HERE, since the KV write at position
+        `lens` is certain whatever token the launch samples; the
+        token-dependent state (generated, callbacks, finish) waits for the
+        lag-1 commit. Returns the in-flight record, or None when no slot
+        can take another token."""
+        sched = self.scheduler
+        if not sched.running:
+            return None
+        launch_active = self._active.copy()
+        plan = []
+        for req in list(sched.running):
+            if req.state != RUNNING or req.slot is None:
+                continue
+            slot = req.slot
+            pending = 1 if self._has_pending(req, slot) else 0
+            if len(req.generated) + pending >= req.max_new_tokens:
+                # every remaining token is committed or in flight:
+                # launching this slot could only overshoot max_new_tokens
+                launch_active[slot] = False
+                continue
+            plan.append((req, slot))
+        if not plan:
+            return None
+        out = self._launch(launch_active)
+        records = []
+        for req, slot in plan:
+            req.cached_len += 1
+            self._lens[slot] = req.cached_len
+            records.append((req, slot, req.admit_seq))
+            self._override[slot] = False
+        return {"out": out, "records": records}
+
+    def _commit_inflight(self):
+        """Commit the PREVIOUS launch: wait for its outputs, then stream
+        its tokens through the normal emission path. A record whose
+        request was cancelled, expired, preempted or finished since the
+        launch is discarded (`_rollback`): each departed stream loses
+        exactly its one speculative token."""
+        inf, self._inflight = self._inflight, None
+        if inf is None:
+            return
+        toks, logps, aids, alps = self._read_outputs(inf["out"])
+        for req, slot, aseq in inf["records"]:
+            if (req.state != RUNNING or req.slot != slot
+                    or req.admit_seq != aseq):
+                self._rollback()
+                continue
+            tok = int(toks[slot])
+            self._tokens[slot] = tok
+            self._emit_token(req, tok, logp=float(logps[slot]),
+                             alts=((aids[slot], alps[slot])
+                                   if self._logprobs_topk else None))
+
+    def _has_pending(self, req, slot):
+        inf = self._inflight
+        if inf is None:
+            return False
+        return any(r is req and s == slot for r, s, _ in inf["records"])
+
+    def _rollback(self):
+        """One speculative token discarded at the lag-1 boundary."""
+        self._stats.commit_rollbacks += 1
+
+    def _flush_inflight(self):
+        """Commit (or roll back) the pending pipelined launch now. At a
+        drain point no speculative token may stay in flight; afterwards
+        the host token mirror is authoritative for every slot. A no-op
+        when nothing is pending (always, for the unpipelined engine)."""
+        if self._inflight is not None:
+            self._commit_inflight()
+        self._reset_pipeline()
+
+    def _reset_pipeline(self):
+        self._inflight = None
+        self._override[:] = True
 
     def run(self, max_steps=None):
         """Drive step() until every request drains (or `max_steps`)."""
@@ -616,10 +806,10 @@ class LLMEngine:
         req.cached_len = len(ctx)
         self._sync_slot(req)
         tok = int(nxt[0])
-        # the prefill's sampled token is the next decode step's input
+        # the prefill's sampled token is the next decode step's input, from
+        # the host's copy
         self._tokens[req.slot] = tok
-        if req.cached_len < self.max_context:
-            self._history[req.slot, req.cached_len] = tok
+        self._override[req.slot] = True
         self._emit_token(req, tok, logp=float(logp[0]),
                          alts=((aids[0], alps[0]) if self._logprobs_topk
                                else None))
@@ -628,40 +818,54 @@ class LLMEngine:
     def _prefill(self, ctx, bucket, row, req):
         """Run the padded context through the dynamic-cache forward (causal
         attention over the bucket: padded positions never reach a real
-        row), scatter its K/V into the pools and sample the next token at
-        position len(ctx)."""
+        row), scatter its K/V into the pools, make the context the slot's
+        history row and sample the next token at position len(ctx)."""
         length = len(ctx)
+        dev = self.device
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :length] = ctx
-        ids = torch.from_numpy(padded).to(self.device)
+        ids = torch.from_numpy(padded).to(dev)
         logits, caches = self._model(ids, caches=self._model.gen_caches(1))
         scatter_prefill(self._k_pools, self._v_pools,
                         [k[0] for k, _ in caches], [v[0] for _, v in caches],
-                        torch.from_numpy(row).to(self.device), length,
+                        torch.from_numpy(row).to(dev), length,
                         self.block_size, k_scales=self._k_scales,
                         v_scales=self._v_scales)
-        valid = (np.arange(bucket) < length)[None, :]
-        return sample_tokens(
-            logits[0, length - 1][None, :],
-            np.array([req.temperature], np.float32),
-            np.array([req.top_k], np.int32),
-            np.array([req.top_p], np.float32),
-            np.array([req.repetition_penalty], np.float32),
-            np.array([req.seed or 0], np.uint32),
-            np.array([length], np.int64), padded, valid,
-            logprobs_topk=self._logprobs_topk)
+        # queued on the stream behind any launch still reading the row
+        self._history[req.slot].zero_()
+        self._history[req.slot, :bucket].copy_(ids[0])
+        floats = torch.tensor([req.temperature, req.top_p,
+                               req.repetition_penalty]).to(dev)
+        seed = int(np.uint32(req.seed or 0).view(np.int32))
+        ints = torch.tensor([req.top_k, seed, length],
+                            dtype=torch.int32).to(dev)
+        valid = (torch.arange(bucket, device=dev) < length)[None, :]
+        out = sample_tokens(logits[0, length - 1][None, :], floats[0:1],
+                            ints[0:1], floats[1:2], floats[2:3], ints[1:2],
+                            ints[2:3], ids, valid,
+                            logprobs_topk=self._logprobs_topk,
+                            greedy_only=req.temperature <= 0)
+        return tuple(t.cpu().numpy() for t in out)
 
     def _decode_step(self):
         """One token for every slot through the decode program (inactive
-        slots compute garbage nobody reads). Returns the sampler's numpy
-        outputs."""
-        return self._sample_decode(self._decode_logits())
+        slots compute garbage nobody reads); waits for the step's outputs
+        and returns them as numpy arrays."""
+        return self._read_outputs(self._launch(self._active))
 
+    @torch.no_grad()
     def _decode_step_eager(self):
-        """The decode step without the program: four host-to-device
-        copies, twelve fresh views and the forward's launches one by one.
-        No entry point reaches it; it stays to time the program against."""
-        return self._sample_decode(self._decode_logits_eager())
+        """The decode step without the program: the slot state staged into
+        a fresh host buffer, copied to a fresh device buffer, fresh views
+        over it, and the step's launches one by one. No entry point reaches
+        it; it stays to time the program against."""
+        s, m = self.max_batch_size, self.max_blocks_per_seq
+        host = _slot_buffer(s, m, torch.device("cpu"))
+        self._stage(_host_slot_views(host, s, m), self._active)
+        slots = _slot_views(host.to(self.device), s, m)
+        self._decode_code(slots, self._paged_views(*slots[1:4]),
+                          self._samples(self._active))
+        return tuple(v.cpu().numpy() for v in self._out_views)
 
     def _paged_views(self, tables, lens, active):
         quant = self._k_scales is not None
@@ -671,86 +875,153 @@ class LLMEngine:
                                v_scales=self._v_scales[l] if quant else None)
                 for l in range(self._k_pools.shape[0])]
 
+    def _decode_forward(self, slots, views):
+        """The decode step's model part over slot-state views (`_slot_views`)
+        and paged views over them: the input tokens (the host's where
+        ``override`` is set, else the fed-back ones), the forward, and the
+        input token into each active slot's history at ``lens``. Returns
+        the logits ``[S, 1, V]``."""
+        tokens, _, lens, active, *_, override = slots
+        tokens = torch.where(override, tokens, self._feedback)
+        logits = self._model(tokens[:, None], caches=views)[0]
+        at = lens.long().clamp(0, self.max_context - 1)[:, None]
+        hist = self._history
+        hist.scatter_(1, at, torch.where(active[:, None], tokens[:, None],
+                                         hist.gather(1, at)))
+        return logits
+
+    def _decode_head(self, slots, logits, sampled):
+        """The decode step's sampler over `_decode_forward`'s logits, at
+        position ``lens + 1``, writing into the output and feedback
+        buffers. With ``sampled`` False (no launched slot samples) every
+        row takes its raw argmax without the processors' sort: the outputs
+        of each greedy row are those of the full head, bit for bit."""
+        _, _, lens, _, temps, top_k, top_p, penalty, seeds, _ = slots
+        valid = self._positions[None, :] <= lens[:, None]
+        sample_tokens(logits[:, -1, :], temps, top_k, top_p, penalty, seeds,
+                      lens + 1, self._history, valid, self._logprobs_topk,
+                      out=self._out_views, feedback=self._feedback,
+                      greedy_only=not sampled)
+
+    def _decode_code(self, slots, views, sampled):
+        """`_decode_forward`, then `_decode_head`; returns the logits."""
+        logits = self._decode_forward(slots, views)
+        self._decode_head(slots, logits, sampled)
+        return logits
+
     @torch.no_grad()
     def _build_decode(self):
         """Build the decode program, once: the paged views over the static
         slot buffers and the pools; on the card, one eager warm-up step on
         a side stream (it loads cuBLAS and the kernels' libraries and
-        modules before capture), then one CUDA graph capture of the
-        forward. Runs before the first step's copy into the buffers, so
-        the warm-up sees every slot inactive and writes no live block."""
-        tokens, tables, lens, active = _slot_views(
-            self._slots_dev, self.max_batch_size, self.max_blocks_per_seq)
-        views = self._paged_views(tables, lens, active)
-
-        def forward():
-            return self._model(tokens[:, None], caches=views)[0]
-
+        modules before capture), then three CUDA graph captures: the
+        forward (`_decode_forward`) and, over its logits, the sampler head
+        (`_decode_head`) with and without the processors. The program
+        replays the forward's graph, then the full head's where a launched
+        slot samples and the greedy head's elsewhere. Runs before the first
+        step's copy into the buffers, so the warm-up sees every slot
+        inactive and writes no live block and no history."""
+        slots = _slot_views(self._slots_dev, self.max_batch_size,
+                            self.max_blocks_per_seq)
+        views = self._paged_views(*slots[1:4])
         self._stats.decode_compiles += 1
         if self.device.type != "cuda":
-            self._decode_program = forward
+            self._decode_program = functools.partial(self._decode_code, slots,
+                                                     views)
             return
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            forward()
+            logits = self._decode_forward(slots, views)
+            for sampled in (True, False):
+                self._decode_head(slots, logits, sampled)
         main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
 
-        def capture():
-            with torch.cuda.graph(graph):
-                return forward()
+        def captured(fn):
+            graph = torch.cuda.CUDAGraph()
 
-        logits, launched = captured_launches(capture)
+            def capture():
+                with torch.cuda.graph(graph):
+                    return fn()
 
-        def replay():
-            graph.replay()
-            add_launches(launched)
+            out, launched = captured_launches(capture)
+            return graph, launched, out
+
+        forward, fwd_launched, logits = captured(
+            functools.partial(self._decode_forward, slots, views))
+        heads = {sampled: captured(functools.partial(
+            self._decode_head, slots, logits, sampled))[:2]
+            for sampled in (True, False)}
+
+        def replay(sampled):
+            head, head_launched = heads[sampled]
+            forward.replay()
+            head.replay()
+            add_launches(fwd_launched)
+            add_launches(head_launched)
             return logits
 
         self._decode_program = replay
 
+    def _event(self):
+        """An event recorded on the current stream (None on the CPU, where
+        every copy is done when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _samples(self, active):
+        """Whether any of the `active` slots samples (temperature > 0): the
+        step then runs the full sampler head."""
+        return bool((self._temps[active] > 0).any())
+
+    def _stage(self, staged, active):
+        """Copy the host mirrors (with `active`, the slots a launch decodes)
+        into the numpy views of a host slot buffer (`_host_slot_views`)."""
+        for dst, src in zip(staged, (self._tokens, self._tables, self._lens,
+                                     active, self._temps, self._topks,
+                                     self._topps, self._rpens, self._seeds,
+                                     self._override), strict=True):
+            np.copyto(dst, src)
+
     @torch.no_grad()
-    def _decode_logits(self):
-        """This step's logits ``[S, 1, V]`` from the decode program: the
-        host mirrors go to the static buffers in one copy, then the graph
-        replays (on the CPU, the forward runs). The logits are the graph's
-        static output: read them before the next step."""
+    def _launch(self, active):
+        """Launch one decode step: stage the host mirrors (with `active`,
+        the slots it decodes) into this turn's host buffer, copy them to the
+        device in one copy, run the decode program, and copy the outputs to
+        this turn's host buffer. Returns that buffer's ``(numpy views,
+        event)``; the event follows the output copy. The host buffers take
+        turns: a launch rewrites one only after the event of its last copy,
+        and the output buffer of launch N is read (committed) before launch
+        N + 2."""
         if self._decode_program is None:
             self._build_decode()
-        # the staging buffer is rewritten only here, after the previous
-        # step's sampled tokens reached the host, so its last copy is done
-        for staged, mirror in zip(self._slots_staged,
-                                  (self._tokens, self._tables, self._lens,
-                                   self._active)):
-            np.copyto(staged, mirror)
-        self._slots_dev.copy_(self._slots_host, non_blocking=True)
-        return self._decode_program()
+        turn = self._launches % 2
+        self._launches += 1
+        staging = self._staging[turn]
+        host, staged, copied = staging
+        if copied is not None:
+            copied.synchronize()
+        self._stage(staged, active)
+        self._slots_dev.copy_(host, non_blocking=True)
+        staging[2] = self._event()
+        self._decode_program(self._samples(active))
+        out_host, views = self._outputs[turn]
+        out_host.copy_(self._out_dev, non_blocking=True)
+        return views, self._event()
 
-    @torch.no_grad()
-    def _decode_logits_eager(self):
-        dev = self.device
-        tokens = torch.from_numpy(self._tokens).to(dev)
-        views = self._paged_views(torch.from_numpy(self._tables).to(dev),
-                                  torch.from_numpy(self._lens).to(dev),
-                                  torch.from_numpy(self._active).to(dev))
-        return self._model(tokens[:, None], caches=views)[0]
-
-    @torch.no_grad()
-    def _sample_decode(self, logits):
-        """The sampler over a decode step's logits ``[S, 1, V]``; its
-        device-to-host copy of the tokens ends the step."""
-        # the input token enters the context at index `lens`
-        rows = np.arange(self.max_batch_size)
-        hist = self._history.copy()
-        hist[rows, np.clip(self._lens, 0, hist.shape[1] - 1)] = self._tokens
-        valid = np.arange(hist.shape[1])[None, :] <= self._lens[:, None]
-        # sampling position = known context tokens = lens + 1
-        return sample_tokens(
-            logits[:, -1, :], self._temps, self._topks, self._topps,
-            self._rpens, self._seeds, self._lens.astype(np.int64) + 1, hist,
-            valid, logprobs_topk=self._logprobs_topk)
+    @staticmethod
+    def _read_outputs(out):
+        """Wait for a launch's outputs (`_launch`) and return copies of
+        them: ``(next_token [S], chosen_logprob [S], alt_ids [S, K],
+        alt_logprobs [S, K])``."""
+        views, event = out
+        if event is not None:
+            event.synchronize()
+        return tuple(v.copy() for v in views)
 
     def _sync_slot(self, req):
         slot = req.slot
@@ -764,10 +1035,6 @@ class LLMEngine:
         self._topps[slot] = req.top_p
         self._rpens[slot] = req.repetition_penalty
         self._seeds[slot] = req.seed or 0
-        ctx = req.prompt + req.generated
-        self._history[slot] = 0
-        n = min(len(ctx), self.max_context)
-        self._history[slot, :n] = ctx[:n]
 
     def _clear_slot(self, slot):
         self._tables[slot] = 0
@@ -779,7 +1046,7 @@ class LLMEngine:
         self._topps[slot] = 1.0
         self._rpens[slot] = 1.0
         self._seeds[slot] = 0
-        self._history[slot] = 0
+        self._override[slot] = True
 
     # ------------------------------------------------------------------
     # token delivery / retirement

@@ -12,20 +12,22 @@ post-temperature logits and are applied together, as in the JAX
 `sample_tokens` (top-p is measured on the full distribution, not on the
 top-k survivors).
 
-The draw: each stochastic slot gets its own `torch.Generator` seeded from
-``(seed, position)``, where ``position`` is the count of known context
-tokens at sampling time. Replays (preemption re-prefill) restore the same
-positions, so a given (seed, prompt, sampler config) reproduces its token
-stream byte-identically. The bits are PyTorch's (Philox on the card), not
-JAX's threefry: streams replay themselves, they do not match the JAX
-package's.
+The draw is the reference's: each stochastic slot draws Gumbel-max noise
+keyed by ``fold_in(PRNGKey(seed), position)``, where ``position`` is the
+count of known context tokens at sampling time (`kernels/keyed_draw.py`:
+one kernel on the card, its twin on the CPU, bit for bit with
+`jax.random`). Replays (preemption re-prefill) restore the same positions,
+so a given (seed, prompt, sampler config) reproduces its token stream
+byte-identically, and the stream is the JAX engine's wherever the two
+packages' logits rank the same.
 """
 from __future__ import annotations
 
 import zlib
 
-import numpy as np
 import torch
+
+from ..kernels.keyed_draw import keyed_draw
 
 __all__ = ["validate_sampler", "default_seed", "apply_repetition_penalty",
            "apply_temperature", "apply_top_k", "apply_top_p", "filter_logits",
@@ -128,68 +130,46 @@ def filter_logits(logits, temperature, top_k, top_p, repetition_penalty,
     return lg.masked_fill(lg < thresh, _NEG_INF)
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def _stream_seed(seed, position):
-    """splitmix64 of (seed, position): every bit of the generator seed
-    depends on both (the CPU generator keeps only the low 32 bits)."""
-    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(position) & 0xFFFFFFFF))
-    z = (z + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return z ^ (z >> 31)
-
-
-def _gumbel(seed, position, vocab, device):
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_stream_seed(seed, position))
-    u = torch.rand(vocab, generator=gen, device=device)
-    u = u.clamp(min=torch.finfo(torch.float32).tiny)
-    return -torch.log(-torch.log(u))
-
-
 def sample_tokens(logits, temperature, top_k, top_p, repetition_penalty,
-                  seeds, positions, history, valid, logprobs_topk=0):
-    """The sampler head over ``[S, V]`` logits on the engine's device. The
-    per-slot config (``temperature``, ``top_k``, ``top_p``,
-    ``repetition_penalty``, ``seeds``, ``positions`` ``[S]``) and the
-    context (``history``, ``valid`` ``[S, C]``) are host numpy arrays.
-    Returns numpy ``(next_token [S] int32, chosen_logprob [S] float32,
-    alt_ids [S, K] int32, alt_logprobs [S, K] float32)`` with K =
-    ``logprobs_topk``; the chosen logprob is under the RAW distribution.
-    Every read of `logits` is done when it returns (the outputs come back
-    to the host), so `logits` may be a view of a CUDA graph's static
-    output that the graph's next replay overwrites."""
-    logits = logits.float()
-    device = logits.device
-    nxt = torch.argmax(logits, dim=-1)
-    rows = np.flatnonzero(np.asarray(temperature) > 0)
-    if rows.size:
-        # only stochastic slots pay for the sort and the draw
-        idx = torch.as_tensor(rows, device=device)
-
-        def sel(a, dtype):
-            return torch.as_tensor(np.asarray(a)[rows], dtype=dtype,
-                                   device=device)
-
-        lg = filter_logits(
-            logits[idx], sel(temperature, torch.float32),
-            sel(top_k, torch.int64), sel(top_p, torch.float32),
-            sel(repetition_penalty, torch.float32),
-            sel(history, torch.int64), sel(valid, torch.bool))
-        noise = torch.stack([_gumbel(seeds[r], positions[r], lg.shape[-1],
-                                     device) for r in rows])
-        nxt[idx] = torch.argmax(lg + noise, dim=-1)
+                  seeds, positions, history, valid, logprobs_topk=0,
+                  out=None, feedback=None, greedy_only=False):
+    """The sampler head over ``[S, V]`` logits. Every input is a tensor on
+    the logits' device: the per-slot config (``temperature``, ``top_k``,
+    ``top_p``, ``repetition_penalty``, ``seeds`` (int32 holding the uint32
+    seed) and ``positions`` ``[S]``) and the context (``history``,
+    ``valid`` ``[S, C]``). Every row is computed (no data-dependent shape,
+    no host read), so the head runs inside the decode step's CUDA graph;
+    a greedy row (temperature 0) takes the argmax of the raw logits.
+    Returns device tensors ``(next_token [S] int32, chosen_logprob [S]
+    float32, alt_ids [S, K] int32, alt_logprobs [S, K] float32)``, K =
+    ``logprobs_topk``, the logprobs under the RAW distribution. With
+    `out`, a tuple of four such tensors, the results are written there
+    (the token by the keyed draw itself) and `out` is returned;
+    `feedback` ``[S]`` int32 also receives the token. With `greedy_only`
+    (the caller knows no row samples) every row is decided greedily and
+    the processors' sort is skipped; each greedy row's outputs are those
+    of the full head, bit for bit."""
+    logits = logits.float().contiguous()
+    if greedy_only:
+        temperature = torch.zeros_like(temperature)
+        filtered = logits
+    else:
+        filtered = filter_logits(logits, temperature, top_k, top_p,
+                                 repetition_penalty, history, valid)
+    nxt = keyed_draw(logits, filtered, temperature, seeds, positions,
+                     out=None if out is None else out[0], feedback=feedback)
     logp = torch.log_softmax(logits, dim=-1)
-    chosen = logp.gather(-1, nxt[:, None])[:, 0]
+    chosen = logp.gather(-1, nxt.long()[:, None])[:, 0]
     k = int(logprobs_topk)
     if k > 0:
         alt_lps, alt_ids = torch.topk(logp, k, dim=-1)
+        alt_ids = alt_ids.to(torch.int32)
     else:
         alt_lps = logp.new_zeros((logits.shape[0], 0))
         alt_ids = nxt.new_zeros((logits.shape[0], 0))
-    return (nxt.to(torch.int32).cpu().numpy(),
-            chosen.cpu().numpy().astype(np.float32),
-            alt_ids.to(torch.int32).cpu().numpy(),
-            alt_lps.cpu().numpy().astype(np.float32))
+    if out is None:
+        return nxt, chosen, alt_ids, alt_lps
+    for dst, src in zip(out[1:], (chosen, alt_ids, alt_lps)):
+        if dst.numel():
+            dst.copy_(src)
+    return out

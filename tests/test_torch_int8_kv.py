@@ -43,6 +43,8 @@ from paddle_tpu_torch.quantization import kv_cache as tq
 from paddle_tpu_torch.serving import (LLMEngine, PagedKVCache,
                                       num_blocks_for_bytes, scatter_prefill)
 
+from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
+
 # fp32 attention outputs: blockwise online softmax vs the kernel's per-block
 # recurrence or a dense softmax, over the same dequantized values
 TOL = dict(rtol=1e-5, atol=1e-5)

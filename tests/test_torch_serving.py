@@ -6,7 +6,8 @@
     than slots, a pool small enough to force preemption, and EOS;
   * the sampling processors compute the JAX masks on the same logits
     (1e-6, fp32: the same elementwise arithmetic), and a stochastic stream
-    replays itself byte-identically (its bits are PyTorch's, not JAX's);
+    replays itself byte-identically (its draw is keyed as the JAX
+    engine's: tests/test_torch_sampling_keyed.py holds the two equal);
   * the scheduler policy cases of tests/test_serving.py, on the port's
     own copy of the scheduler;
   * entry points default to cuda and raise here, where there is no card.
@@ -47,6 +48,19 @@ CFG = dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
            num_attention_heads=1, intermediate_size=128,
            max_position_embeddings=64, hidden_dropout_prob=0.0,
            attention_probs_dropout_prob=0.0)
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """Run each test on one torch intra-op thread. pytest-xdist's workers
+    share the machine's cores, and torch's default of a thread per core in
+    every worker oversubscribes them: these small-tensor tests then run
+    many times slower and load the machine for every other test. The
+    other port test files that run engines import this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -242,12 +256,14 @@ def test_processors_match_jax():
 def test_greedy_head_is_raw_argmax_with_logprobs():
     lg = _logits(seed=2)
     s = lg.shape[0]
+    t = torch.from_numpy
     out = tsamp.sample_tokens(
-        torch.from_numpy(lg), np.zeros(s, np.float32), np.zeros(s, np.int32),
-        np.ones(s, np.float32), np.ones(s, np.float32),
-        np.zeros(s, np.uint32), np.ones(s, np.int64),
-        np.zeros((s, 1), np.int32), np.zeros((s, 1), bool), logprobs_topk=3)
-    nxt, chosen, alt_ids, alt_lps = out
+        t(lg), t(np.zeros(s, np.float32)), t(np.zeros(s, np.int32)),
+        t(np.ones(s, np.float32)), t(np.ones(s, np.float32)),
+        t(np.zeros(s, np.int32)), t(np.ones(s, np.int32)),
+        t(np.zeros((s, 1), np.int32)), t(np.zeros((s, 1), bool)),
+        logprobs_topk=3)
+    nxt, chosen, alt_ids, alt_lps = (o.numpy() for o in out)
     np.testing.assert_array_equal(nxt, lg.argmax(-1))
     logp = lg - np.log(np.exp(lg - lg.max(-1, keepdims=True)).sum(-1,
                        keepdims=True)) - lg.max(-1, keepdims=True)
@@ -375,7 +391,6 @@ def test_engine_without_device_raises_here(models):
 @pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16),
                                 dict(enable_prefix_cache=True),
                                 dict(max_adapters=2), dict(hot_swap=True),
-                                dict(pipeline_decode=True),
                                 dict(attention_kernel="pallas")])
 def test_unported_options_raise(models, kw):
     with pytest.raises(NotImplementedError):

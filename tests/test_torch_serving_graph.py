@@ -10,8 +10,10 @@ buffers without capture. These tests hold the CPU side:
   * ``decode_compiles`` is 1 across churn and eviction, 0 after
     `reset_stats()` and for an engine that never decoded (as
     tests/test_serving.py holds the reference's);
-  * the static slot buffers keep their storage across steps and
-    admissions, and hold the host mirrors after each step's one copy;
+  * the static slot buffers (with the sampler config and the override
+    mask), the output, history and feedback buffers and the host buffers
+    keep their storage across steps and admissions, and the slot buffer
+    holds the host mirrors after each step's one copy;
   * `kernels.captured_launches` takes a capture's counts back out and
     `add_launches` adds them once per replay;
   * a sampled stream replays byte for byte after preemption, and the
@@ -36,6 +38,8 @@ from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.incubate.models import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.serving import LLMEngine
 from paddle_tpu_torch.serving.engine import _slot_views
+
+from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB = 128
 CFG = dict(vocab_size=VOCAB, hidden_size=64, num_hidden_layers=2,
@@ -117,7 +121,13 @@ def test_decode_compiles_counts_builds_and_resets(models, kv_dtype):
 def test_static_buffers_keep_storage_and_hold_the_mirrors(models):
     _, tm = models
     engine = LLMEngine(tm, device="cpu", **TIGHT)
-    ptrs = (engine._slots_dev.data_ptr(), engine._slots_host.data_ptr())
+
+    def storage():
+        return [engine._slots_dev.data_ptr(), engine._out_dev.data_ptr(),
+                engine._history.data_ptr(), engine._feedback.data_ptr()] \
+            + [b[0].data_ptr() for b in engine._staging + engine._outputs]
+
+    ptrs = storage()
     views = _slot_views(engine._slots_dev, engine.max_batch_size,
                         engine.max_blocks_per_seq)
     view_ptrs = [v.data_ptr() for v in views]
@@ -131,22 +141,25 @@ def test_static_buffers_keep_storage_and_hold_the_mirrors(models):
                 engine.add_request(_prompt(n, 1), max_new_tokens=10)
         mirrors = None
 
-        def snapshot(orig=engine._decode_logits):
-            out = orig()
+        def snapshot(active, orig=engine._launch):
+            out = orig(active)
             nonlocal mirrors
             mirrors = [engine._tokens.copy(), engine._tables.copy(),
-                       engine._lens.copy(), engine._active.copy()]
+                       engine._lens.copy(), active.copy(),
+                       engine._temps.copy(), engine._topks.copy(),
+                       engine._topps.copy(), engine._rpens.copy(),
+                       engine._seeds.view(np.int32).copy(),
+                       engine._override.copy()]
             return out
 
-        engine._decode_logits = snapshot
+        engine._launch = snapshot
         engine.step()
-        del engine._decode_logits
-        assert (engine._slots_dev.data_ptr(),
-                engine._slots_host.data_ptr()) == ptrs
+        del engine._launch
+        assert storage() == ptrs
         assert [v.data_ptr() for v in views] == view_ptrs
         if mirrors is not None:
             seen += 1
-            for view, mirror in zip(views, mirrors):
+            for view, mirror in zip(views, mirrors, strict=True):
                 np.testing.assert_array_equal(view.numpy(), mirror)
     assert seen >= steps + 3
     assert engine.stats()["decode_compiles"] == 1

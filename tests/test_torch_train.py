@@ -43,6 +43,8 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nn import clip as tclip
 from paddle_tpu_torch.optimizer import Adam, AdamW
 
+from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
+
 LR = 1e-4
 STEPS = 10
 LOSS_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -9,10 +9,12 @@ Imports `paddle_tpu_torch` from DIR (default: this checkout), builds GPT-2
 124M (full width, random weights from seed 0, bf16) behind
 `LLMEngine(max_batch_size=8, block_size=16, max_context=1024)`, fills the
 8 slots with 200-token prompts, lets the engine build its decode graph and
-take 4 steps, then runs `--steps` decode steps under torch.profiler and
+take 4 steps, then runs `--steps` decode steps of greedy slots (a tree
+with a greedy sampler head replays that head) under torch.profiler and
 prints one JSON line: the card's name and power limit, the device kernels
 and copies a step, device ms a step, and ms and launches a step by kernel
-(names cut to 90 characters). The same seeds give both checkouts the same
+(names cut to 90 characters; kernels whose names agree that far add
+up). The same seeds give both checkouts the same
 model, prompts and tokens. Run it on two checkouts in turns (parent,
 change, change, parent) to compare their replays within one call. Needs a
 CUDA card and nvcc.
@@ -75,8 +77,11 @@ def main():
             copies += n
         else:
             kernels += n
-        by_kernel[evt.key[:90]] = [round(evt.self_device_time_total / 1e3
-                                         / per, 5), n]
+        # kernels whose names agree in their first 90 characters (one
+        # template's instances) add up under that name
+        ms, count = by_kernel.get(evt.key[:90], (0.0, 0.0))
+        by_kernel[evt.key[:90]] = (
+            ms + evt.self_device_time_total / 1e3 / per, count + n)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     assert device_ms > 0, "the profiler saw no device time"
     print(json.dumps({
@@ -84,8 +89,8 @@ def main():
         "steps": per, "kernels_per_step": kernels,
         "copies_per_step": copies, "device_ms_per_step": device_ms,
         "wall_ms_per_step": wall_ms,
-        "by_kernel": dict(sorted(by_kernel.items(),
-                                 key=lambda kv: -kv[1][0]))}))
+        "by_kernel": {name: [round(ms, 5), n] for name, (ms, n) in
+                      sorted(by_kernel.items(), key=lambda kv: -kv[1][0])}}))
 
 
 if __name__ == "__main__":
