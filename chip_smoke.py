@@ -11,10 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel entry (the paged decode kernel with and without the
                decode write),
                the flash forward's and backward's counts of HGMMA
-               (wgmma) and UTMALDG (TMA load) instructions in their SASS
-               and the paged decode kernels' count of LDGSTS (cp.async,
-               the 16-byte copies its design keeps in flight) where
-               cuobjdump exists;
+               (wgmma) and UTMALDG (TMA load) instructions in their SASS,
+               the paged decode kernels' count of LDGSTS (cp.async,
+               the 16-byte copies its design keeps in flight) and the
+               keyed draw's INT32 instructions where cuobjdump exists;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
                at its paths' shapes (the flash forward at the serving and
                the training shape) and at ragged ones, batched and not, in
@@ -39,7 +39,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                slots: random bits and noise bit for bit, and the tokens
                of a debug launch and of the decode step's launch equal
                the twin's at every slot (the twin runs on the CPU on
-               copies of the inputs);
+               copies of the inputs), timed in turns with the first
+               design (commit e4c03f5,
+               tools/torch_keyed_draw_one_cta.cu); the sampler's filter
+               (penalty, temperature, top-k and top-p thresholds) at S=8,
+               V=50257 and 50304 on the serve mix's configs and a ragged
+               set: greedy rows untouched, sampled rows bit for bit with
+               the twin (on the CPU, on copies) outside the stated top-p
+               margin, and inside it (the rows counted, at most a
+               quarter) the row cut at a threshold the margin allows;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -57,9 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                torch.profiler (device time by kernel group, kernels a
                step, busy share);
                Each decode step samples inside its graphs (the keyed draw
-               once a replay and once a prefill): the full sampler head
-               where a slot samples, the greedy head (no sort) elsewhere,
-               and both must run in the counted window;
+               once a replay and once a prefill, the filter once a
+               full-head replay and once a sampled prefill): the full
+               sampler head where a slot samples, the greedy head
+               elsewhere, and both must run in the counted window;
   4b. serve_int8 — the same model and request mix through
                `LLMEngine(..., kv_dtype="int8")`: the fused int8 paged
                kernel 12 x per replay and the fp one never,
@@ -74,7 +83,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                once a replay; a cancel between launch and commit rolls
                back one token and leaks none; then both engines in turns
                (step p50/p99, decode tok/s) and the sampler's share of a
-               replayed step;
+               replayed step: the full head alone timed in turns with PR
+               10's (the sort-based filter and the one-CTA draw) and
+               profiled, with no radix sort and no scan kernel;
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
                and agree on the prompts' logits; then the same with int8
@@ -99,7 +110,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
-draw), the
+draw, the sampler's filter), the
 training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
 and backward) and the fused bias-residual LayerNorm within FLASH_TOL /
 PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the
@@ -112,10 +123,12 @@ JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
 from __future__ import annotations
 
 import copy
+import ctypes
 import json
 import re
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -132,7 +145,9 @@ from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
                                       reset_launch_counts)
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
+from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.serving import sampling as tsamp
 from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
                                       pool_bytes_per_block)
 from paddle_tpu_torch.serving.engine import _slot_views
@@ -291,6 +306,35 @@ def _sass_counts(name, ops):
     print(f"build: SASS of {name}: " + ", ".join(
         f"{n} lines with {op}" for op, n in counts.items()))
     assert all(counts.values()), counts
+
+
+def _sass_int_ops(name, entry):
+    """The INT32 instructions in the SASS of kernel `entry` (a substring of
+    its mangled name) of library `name`, by mnemonic, and the funnel
+    shifts (SHF.L.W: one a threefry round, so their count over 20 is the
+    threefry copies the code holds). Prints "not available" where the
+    toolkit has no cuobjdump."""
+    tool = _build.toolkit_tool("cuobjdump")
+    if tool is None:
+        print(f"build: SASS of {name}: not available (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    body = next(part for part in sass.split("Function :")[1:]
+                if entry in part.splitlines()[0])
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     body)
+    ints = {}
+    for op in ops:
+        base = op.split(".")[0]
+        if base in ("IADD3", "LOP3", "SHF", "IMAD", "ISETP", "LEA", "SEL",
+                    "IABS", "IMNMX", "PRMT", "SGXT"):
+            ints[base] = ints.get(base, 0) + 1
+    rounds = sum(op.startswith("SHF.L.W") for op in ops)
+    print(f"build: SASS of {name} {entry}: {len(ops)} instructions, INT32 "
+          f"{sum(ints.values())} ({json.dumps(ints)}), {rounds} SHF.L.W "
+          f"(threefry rounds: {rounds / 20:.1f} copies of 20)")
 
 
 def _card():
@@ -1322,43 +1366,254 @@ def check_keyed_draw():
           f"step's launch (out and feedback) equal the twin's at all "
           f"{slots} slots ({near} with a winning margin <= {KEYED_MARGIN})")
     # main-path shape: the padded vocabulary, the serve mix's 2 sampled
-    # slots of 8, then all 8 sampled
+    # slots of 8, then all 8 sampled, then none (the greedy head's
+    # launch); each timed in turns with the first design (one CTA of 1024
+    # threads a slot, commit e4c03f5): first, this, this, first
     v = 50304
-    row = {}
+    one_cta = _one_cta_draw()
+    row, turns = {}, {}
     for sampled, key in (((6, 7), "ms"), (range(s), "all_sampled_ms"),
                          ((), "greedy_ms")):
         raw, filtered, temps, seeds, pos = _keyed_state(s, v, 7, sampled)
         out = torch.empty(s, dtype=torch.int32, device="cuda")
         feedback = torch.empty_like(out)
-        ms, host_ms = _timed(lambda: kd.keyed_draw(
-            raw, filtered, temps, seeds, pos, out=out, feedback=feedback))
-        row[key] = ms
+        args = (raw, filtered, temps, seeds, pos)
+        times = [_timed(lambda: (one_cta if first else kd.keyed_draw)(
+            *args, out=out, feedback=feedback)) for first in TURNS]
+        turns[key] = [round(t[0], 5) for t in times]
+        row[key] = float(np.mean([t[0] for t, first in zip(times, TURNS)
+                                  if not first]))
         if key == "ms":
-            row["host_ms"] = host_ms
-            cpu = [t.cpu() for t in (raw, filtered, temps, seeds, pos)]
+            row["host_ms"] = times[1][1]
+            cpu = [t.cpu() for t in args]
             t0 = time.perf_counter()
             kd.keyed_draw_reference(*cpu)
             row["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    # each slot reads one fp32 row (raw if greedy, filtered if sampled)
-    bound, by = _bound_ms(s * v * 4, 0, torch.float32)
+    # bytes: each slot reads one fp32 row (raw if greedy, filtered if
+    # sampled); operations: threefry's INT32 instructions at every index of
+    # a sampled slot, over the card's INT32 issue rate
+    int_rate = _int32_ops_per_s()
+    t_bytes = s * v * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * v * THREEFRY_INT_OPS / int_rate * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    all_ops = s * v * THREEFRY_INT_OPS / int_rate * 1e3
     print(f"  keyed_draw S={s} V={v}: {row['ms']:.5f} ms (2 slots sampled), "
           f"{row['all_sampled_ms']:.5f} ms (8 sampled), "
           f"{row['greedy_ms']:.5f} ms (none sampled); bound {bound:.5f} ms "
-          f"({by}); twin on the CPU {row['plain_ms']:.1f} ms")
+          f"({by}; bytes {t_bytes:.5f}, INT32 issue {t_ops:.5f} at "
+          f"{int_rate / 1e12:.3f} T/s; 8 sampled: {max(t_bytes, all_ops):.5f})"
+          f"; twin on the CPU {row['plain_ms']:.1f} ms")
+    print(f"KEYED_DRAW_TURNS_MS (first design, this, this, first design; "
+          f"the first design is commit e4c03f5's, "
+          f"tools/torch_keyed_draw_one_cta.cu): "
+          + json.dumps(turns))
     return {"name": "keyed_draw", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/keyed_draw.cu",
             "replaces": "no Pallas counterpart: the draw of "
                         "paddle_tpu/serving/sampling.py:168-171 "
                         "(jax.random.categorical under fold_in keys, XLA "
                         "ops)",
-            "max_abs_err": noise_err, **row, "bound_ms": bound,
-            "bound_by": by, "library_ms": None,
+            "max_abs_err": noise_err, **row, "turns_ms": turns,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bytes_bound_ms": t_bytes, "int32_bound_ms": t_ops,
+            "int32_bound_all_sampled_ms": all_ops,
             "shape": "S=8 V=50304 fp32 logits, 2 of 8 slots sampled "
                      "(all_sampled_ms: 8 of 8; greedy_ms: none, as the "
                      "greedy head launches it); max_abs_err: the noise, "
                      "kernel vs twin, at V=50257 and V=50304",
             "note": "plain_ms is the twin's host time on the CPU: the twin "
-                    "never takes a CUDA tensor"}
+                    "never takes a CUDA tensor; turns_ms: the one-CTA "
+                    "design (commit e4c03f5), this, this, the one-CTA"}
+
+
+# INT32 instructions of one threefry2x32 (csrc/keyed_draw.cu): 20 rounds of
+# add, funnel-shift rotate and xor, 5 key injections of two adds, one
+# initial add; the build phase prints the kernel's SASS counts beside it
+THREEFRY_INT_OPS = 72
+# in turns: the earlier design (True) around this one
+TURNS = (True, False, False, True)
+
+
+def _int32_ops_per_s():
+    """The card's INT32 issue rate: 64 lanes per SM per clock x the SMs x
+    the largest SM clock nvidia-smi reports."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 64 * sms * mhz * 1e6
+
+
+_ONE_CTA = []
+
+
+def _one_cta_draw():
+    """The first keyed draw (commit e4c03f5;
+    tools/torch_keyed_draw_one_cta.cu, the same C interface), built once
+    into build/, as a function of the wrapper's arguments (no launch
+    count): the yardstick the redesign is timed against."""
+    if not _ONE_CTA:
+        src = Path(__file__).resolve().parent / "tools" \
+            / "torch_keyed_draw_one_cta.cu"
+        lib = _build.BUILD_DIR / "libkeyed_draw_one_cta.so"
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", str(lib),
+                        str(src)], check=True, capture_output=True,
+                       timeout=600)
+        fn = ctypes.CDLL(str(lib)).paddle_keyed_draw
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def draw(raw, filtered, temps, seeds, pos, out=None, feedback=None):
+            if out is None:
+                out = torch.empty(raw.shape[0], dtype=torch.int32,
+                                  device=raw.device)
+            ptrs = [ctypes.c_void_p(None if t is None else t.data_ptr())
+                    for t in (raw, filtered, temps, seeds, pos, out,
+                              feedback)]
+            err = fn(*ptrs, None, None, raw.shape[0], raw.shape[1],
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            assert err == 0, err
+            return out
+
+        _ONE_CTA.append(draw)
+    return _ONE_CTA[0]
+
+
+# sampler_filter's row configs (temperature, top_k, top_p, penalty): the
+# serve mix's sampled requests (top-k 40, top-p 0.95) with and without a
+# penalty, then the ragged set: greedy rows, k = 1, k beyond V, a tiny
+# top-p, top-p 1, penalties below and above 1
+FILTER_MAIN = [(0.0, 0, 1.0, 1.0)] * 6 + [(0.8, 40, 0.95, 1.0),
+                                          (0.8, 40, 0.95, 1.3)]
+FILTER_RAGGED = [(0.8, 40, 0.95, 1.0), (0.0, 40, 0.95, 1.3),
+                 (1.0, 1, 1.0, 1.0), (0.9, 10 ** 6, 0.9, 0.7),
+                 (1.5, 0, 1e-6, 1.0), (0.7, 5, 1.0, 2.0),
+                 (1.1, 0, 0.5, 0.9), (1.0, 100, 0.99, 1.2)]
+FILTER_ROUNDS = 4
+FILTER_CONTEXT = 1024
+# the most of the sampled rows whose cut the margin leaves open (more than
+# one allowed): a row falls there only when tokens of probability below
+# ~2 x MARGIN sit at its top-p boundary and its top-k cut is not above
+# them; the same rounds drawn on the CPU give none of 72
+FILTER_MARGIN_SHARE = 0.125
+
+
+def _filter_state(v, seed, rows, ties=False):
+    """Raw fp32 logits [S, v] (scale of GPT-2's; rounded to integers with
+    `ties`, a third of them masked to -1e30 in odd rounds), each row's
+    config from `rows`, and a history [S, 1024] of ids with 1 to 1024 valid
+    positions."""
+    s = len(rows)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    raw = 4.0 * torch.randn(s, v, device="cuda", generator=g)
+    if ties:
+        raw = raw.round()
+    if seed % 2:
+        raw[:, ::3] = -1e30
+    cfg = torch.tensor(rows, dtype=torch.float64, device="cuda").T
+    history = torch.randint(0, v, (s, FILTER_CONTEXT), device="cuda",
+                            dtype=torch.int32, generator=g)
+    lens = torch.randint(1, FILTER_CONTEXT + 1, (s, 1), device="cuda",
+                         generator=g)
+    valid = torch.arange(FILTER_CONTEXT, device="cuda")[None, :] < lens
+    return (raw, cfg[0].float(), cfg[1].to(torch.int32), cfg[2].float(),
+            cfg[3].float(), history, valid)
+
+
+def check_sampler_filter():
+    """The filter kernel (`csrc/sampler_filter.cu`) against its twin, which
+    runs on the CPU on copies of the same inputs: FILTER_ROUNDS rounds of
+    the serve mix's configs (6 greedy rows, 2 sampled: top-k 40, top-p
+    0.95, one with a repetition penalty) and of the ragged set, at V =
+    50257 and 50304, fresh logits and histories each (ties in some rounds,
+    -1e30 entries in others). The output buffer is filled with a sentinel
+    first: greedy rows must keep it; every sampled row must equal the
+    twin's bit for bit unless some top-p mass of it lies within
+    `sf.MARGIN` of top_p (`sf.margin_cuts` allows more than one cut):
+    such a row, and the twin's, must be the row cut at one of the
+    thresholds it allows, and those rows are counted, printed and held
+    to at most FILTER_MARGIN_SHARE of the sampled rows. Then timed at the
+    serving shape with the launch queue filled ahead; the twin (the
+    sort-based filter) on the card is its plain time. No single PyTorch
+    call computes the thresholds (library_ms null)."""
+    rows_checked, inside, err, where = 0, 0, 0.0, []
+    for v in KEYED_VOCABS:
+        for r in range(FILTER_ROUNDS):
+            for name, rows in (("main", FILTER_MAIN),
+                               ("ragged", FILTER_RAGGED)):
+                args = _filter_state(v, 1000 * v + r, rows, ties=r % 2 == 0)
+                out = torch.full(args[0].shape, 7.0, device="cuda")
+                sf.sampler_filter(*args, out=out)
+                torch.cuda.synchronize()
+                cpu = [t.cpu() for t in args]
+                want = sf.sampler_filter_reference(*cpu)
+                lg, cuts = sf.margin_cuts(*cpu)
+                got = out.cpu()
+                for row in range(len(rows)):
+                    if not cpu[1][row] > 0:
+                        assert torch.all(got[row] == 7.0), (v, r, name, row)
+                        continue
+                    rows_checked += 1
+                    allowed = [lg[row].masked_fill(lg[row] < c, -1e30)
+                               .view(torch.int32) for c in cuts[row]]
+                    for tag, t in (("kernel", got[row]), ("twin", want[row])):
+                        assert any(torch.equal(t.view(torch.int32), a)
+                                   for a in allowed), \
+                            (v, r, name, row, tag, cuts[row])
+                    if len(cuts[row]) > 1:
+                        inside += 1
+                        where.append(f"V={v} round {r} {name} row {row} "
+                                     f"({len(cuts[row])} cuts)")
+                        continue
+                    same = torch.equal(got[row].view(torch.int32),
+                                       want[row].view(torch.int32))
+                    assert same, (v, r, name, row, int(
+                        (got[row] != want[row]).sum()))
+                    err = max(err, (got[row] - want[row]).abs().max().item())
+    assert inside <= FILTER_MARGIN_SHARE * rows_checked, (inside,
+                                                          rows_checked)
+    print(f"  sampler_filter V={'/'.join(map(str, KEYED_VOCABS))}: "
+          f"{FILTER_ROUNDS} rounds of the serve mix's and the ragged configs: "
+          f"{rows_checked} sampled rows, bit for bit with the twin outside "
+          f"the margin; {inside} rows with an exclusive mass within "
+          f"{sf.MARGIN} of top_p (SAMPLER_FILTER_MARGIN_ROWS {inside}), each "
+          f"cut at a threshold the margin allows, as the twin's; greedy rows "
+          f"untouched")
+    print("SAMPLER_FILTER_MARGIN_WHERE: " + json.dumps(where))
+    # main-path shape: 2 of 8 rows sampled, as the serve mix's full head
+    v = 50304
+    args = _filter_state(v, 8, FILTER_MAIN)
+    out = torch.empty(args[0].shape, device="cuda")
+    ms, host_ms = _timed(lambda: sf.sampler_filter(*args, out=out))
+    plain_ms = _cuda_ms(lambda: sf.sampler_filter_reference(*args), iters=5)
+    all_rows = [FILTER_MAIN[-1]] * 8
+    all_args = _filter_state(v, 8, all_rows)
+    all_ms, _ = _timed(lambda: sf.sampler_filter(*all_args, out=out))
+    # each sampled row's logits read and its output written once, its
+    # history (int32) and valid flags (bool) read once
+    sampled = sum(1 for row in FILTER_MAIN if row[0] > 0)
+    nbytes = sampled * (v * 8 + FILTER_CONTEXT * 5)
+    bound, by = _bound_ms(nbytes, 0, torch.float32)
+    print(f"  sampler_filter S=8 V={v}: {ms:.5f} ms (2 rows sampled), "
+          f"{all_ms:.5f} ms (8 sampled); bound {bound:.5f} ms ({by}); twin "
+          f"(sort, softmax, cumsum) on the card {plain_ms:.5f} ms")
+    return {"name": "sampler_filter", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/sampler_filter.cu",
+            "replaces": "no Pallas counterpart: the filter of "
+                        "paddle_tpu/serving/sampling.py:141-166 (sort, "
+                        "softmax, cumsum, thresholds; XLA ops)",
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "all_sampled_ms": all_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "margin_rows": inside,
+            "shape": "S=8 V=50304 fp32 logits, 2 of 8 rows sampled (top-k "
+                     "40, top-p 0.95, penalty 1 and 1.3 over 1024 history "
+                     "positions; all_sampled_ms: 8 of 8)"}
 
 
 # ---------------------------------------------------------------------------
@@ -1375,6 +1630,25 @@ def _serve_mix(rng):
         mix.append((rng.integers(0, 50257, 64 + 32 * i).tolist(),
                     dict(temperature=0.8, top_k=40, top_p=0.95, seed=i)))
     return mix
+
+
+def _watch_heads(engine):
+    """Record, on `engine`'s instance, each decode launch's head (True:
+    the full sampler head) and each prefill's (True: the request samples);
+    returns the two lists. `del engine._samples, engine._prefill` stops."""
+    heads, prefills = [], []
+
+    def samples(active, orig=engine._samples):
+        heads.append(orig(active))
+        return heads[-1]
+
+    def prefill(ctx, bucket, row, req, orig=engine._prefill):
+        prefills.append(req.temperature > 0)
+        return orig(ctx, bucket, row, req)
+
+    engine._samples = samples
+    engine._prefill = prefill
+    return heads, prefills
 
 
 def serve(kv_dtype=None):
@@ -1400,13 +1674,7 @@ def serve(kv_dtype=None):
     assert engine.stats()["decode_compiles"] == 1, engine.stats()
     engine.reset_stats()
     mix = _serve_mix(rng)
-    heads = []
-
-    def samples(active, orig=engine._samples):
-        heads.append(orig(active))
-        return heads[-1]
-
-    engine._samples = samples
+    heads, prefills = _watch_heads(engine)
     reset_launch_counts()
     t0 = time.perf_counter()
     reqs = [engine.add_request(p, max_new_tokens=24, **kw) for p, kw in mix]
@@ -1414,7 +1682,7 @@ def serve(kv_dtype=None):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    del engine._samples
+    del engine._samples, engine._prefill
     st = engine.stats()
     # the steps with a sampling slot ran the full head, the rest the greedy
     assert len(heads) == st["steps"] and 0 < sum(heads) < len(heads), \
@@ -1432,8 +1700,11 @@ def serve(kv_dtype=None):
         and counts["paged_decode_int8"] == 0, counts
     assert counts["flash_attention_fwd"] == layers * st["prefills"], \
         (counts, st)
-    # the sampler's draw: one launch in each replay and each prefill
+    # the sampler's draw: one launch in each replay and each prefill; its
+    # filter: one in each full-head replay and each sampled prefill
     assert counts["keyed_draw"] == st["steps"] + st["prefills"], (counts, st)
+    assert counts["sampler_filter"] == sum(heads) + sum(prefills) > 0, \
+        (counts, sum(heads), sum(prefills))
     assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
     assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
     print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
@@ -1441,7 +1712,8 @@ def serve(kv_dtype=None):
           f"{st['steps']} decode steps (graph replays; {st['decode_compiles']}"
           f" decode builds in the window, 1 in the warm-up; {sum(heads)} "
           f"with the full sampler head, {len(heads) - sum(heads)} with the "
-          f"greedy head), p50 "
+          f"greedy head; sampler_filter launches {counts['sampler_filter']} "
+          f"= full-head replays + {sum(prefills)} sampled prefills), p50 "
           f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms; TTFT "
           f"p50 {st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
           f"{st['evictions']} evictions; occupancy "
@@ -1561,6 +1833,7 @@ def serve_pipelined(model, kv_dtype=None):
     mix = _serve_mix(rng)
     streams, counts = {}, {}
     for name, engine in engines.items():
+        heads, prefills = _watch_heads(engine)
         reset_launch_counts()
         t0 = time.perf_counter()
         reqs = [engine.add_request(p, max_new_tokens=24, **kw)
@@ -1569,7 +1842,10 @@ def serve_pipelined(model, kv_dtype=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[name] = launch_counts()
+        del engine._samples, engine._prefill
         st = engine.stats()
+        assert counts[name]["sampler_filter"] == sum(heads) + sum(prefills) \
+            > 0, (counts, sum(heads), sum(prefills))
         assert all(r.state == "FINISHED" and len(r.generated) == 24
                    for r in reqs), [(r.rid, r.state) for r in reqs]
         assert st["decode_compiles"] == 0 and st["commit_rollbacks"] == 0, st
@@ -1582,7 +1858,9 @@ def serve_pipelined(model, kv_dtype=None):
               f"{st['tokens_generated'] / wall:.1f} tok/s; {st['steps']} "
               f"decode steps, p50 {st['p50_step_ms']:.3f} ms, p99 "
               f"{st['p99_step_ms']:.3f} ms; keyed_draw launches "
-              f"{counts[name]['keyed_draw']} = steps + prefills; "
+              f"{counts[name]['keyed_draw']} = steps + prefills, "
+              f"sampler_filter {counts[name]['sampler_filter']} = full-head "
+              f"launches + sampled prefills; "
               f"{st['commit_rollbacks']} rollbacks")
     assert streams["piped"] == streams["plain"], tag
     n_sampled = sum(1 for _, kw in mix if kw)
@@ -1694,20 +1972,48 @@ def _pipelined_vs_plain(tag, engines, rng):
         return sample_tokens(logits, temps, top_k, top_p, penalty, seeds,
                              lens + 1, piped._history, valid,
                              piped._logprobs_topk, out=out, feedback=feedback,
-                             greedy_only=greedy_only)
+                             greedy_only=greedy_only,
+                             filtered=piped._filtered)
 
-    sampler_ms, _ = _timed(sampler)
+    one_cta = _one_cta_draw()
+
+    def first_sampler():
+        """The first full head (commit e4c03f5): the sort-based filter
+        (the twin) and the one-CTA draw, around the same shared ops."""
+        kernels = tsamp.sampler_filter, tsamp.keyed_draw
+        tsamp.sampler_filter = lambda *a, out=None: \
+            sf.sampler_filter_reference(*a)
+        tsamp.keyed_draw = one_cta
+        try:
+            return sampler()
+        finally:
+            tsamp.sampler_filter, tsamp.keyed_draw = kernels
+
+    full = [_timed(first_sampler if first else sampler)[0]
+            for first in TURNS]
+    sampler_ms = float(np.mean([t for t, first in zip(full, TURNS)
+                                if not first]))
     greedy_ms, _ = _timed(lambda: sampler(True))
-    _breakdown(f"{tag} sampler alone", lambda: [sampler() for _ in range(4)],
-               per=4)
+    groups = _breakdown(f"{tag} sampler alone",
+                        lambda: [sampler() for _ in range(4)], per=4)
+    assert groups is not None, "the profiler saw no device time"
+    # the full head sorts and scans nothing since the filter kernel
+    assert "radix sort" not in groups and "scan" not in groups, groups
+    assert "sampler_filter" in groups and "keyed_draw" in groups, groups
+    _breakdown(f"{tag} the first full head alone",
+               lambda: [first_sampler() for _ in range(4)], per=4)
     _breakdown(f"{tag} greedy head alone",
                lambda: [sampler(True) for _ in range(4)], per=4)
     print(f"{tag}: sampler alone {sampler_ms:.4f} ms a step at S=8 V={v} "
-          f"(every row sorted; CUDA events, launch queue filled ahead) = "
+          f"(2 rows sampled: the filter kernel and the keyed draw; CUDA "
+          f"events, launch queue filled ahead) = "
           f"{sampler_ms / replay:.3f} of the pipelined replay's device time "
           f"p50 {replay:.4f} ms (CUDA events around the replay, 2 slots "
           f"sampled: the full head); the greedy head alone (no slot "
-          f"sampled, no sort) {greedy_ms:.4f} ms")
+          f"sampled) {greedy_ms:.4f} ms")
+    print(f"{tag}: FULL_HEAD_TURNS_MS (the first head, commit e4c03f5: "
+          f"sort-based filter and one-CTA draw; this head; this; the first) "
+          + json.dumps([round(t, 5) for t in full]))
 
 
 def _admitted(model, kv_dtype, num_blocks, n=64, prompt=512):
@@ -1830,9 +2136,10 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("paged_decode_append", ("paged_decode_split_kernel",)),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")),
-               # the sampler's draw; cub's radix sort (the sampler's one
-               # sort, the embedding backward's index sort) and scans (the
-               # sampler's top-p cumulative sum)
+               # the sampler's filter and draw; cub's radix sort (the first
+               # sampler's one sort, the embedding backward's index sort)
+               # and scans (the first sampler's top-p cumulative sum)
+               ("sampler_filter", ("sampler_filter_kernel",)),
                ("keyed_draw", ("keyed_draw_kernel",)),
                ("radix sort", ("RadixSort",)),
                ("scan", ("scan",)))
@@ -2101,6 +2408,7 @@ def main():
     _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
     _sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
     _sass_counts("paged_decode", ("LDGSTS",))
+    _sass_int_ops("keyed_draw", "keyed_draw_kernel")
     print("kernels vs plain twins:")
     paged, paged_int8 = check_paged(), check_paged_int8()
     _paged_prev_line(paged, paged_int8)
@@ -2109,7 +2417,8 @@ def main():
         row["note"] = ("the serving path runs this kernel with the decode "
                        "write folded in (paged_decode_append); this row "
                        "times it alone, and its launches there are 0")
-    rows = {"serve": [check_flash(), paged, fused, check_keyed_draw()],
+    rows = {"serve": [check_flash(), paged, fused, check_keyed_draw(),
+                      check_sampler_filter()],
             "serve_int8": [paged_int8, fused_int8],
             "train": check_flash_bwd() + check_ce(),
             "fused_ln": [check_fused_ln()]}
@@ -2138,11 +2447,13 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 11 and all(
+    assert len(rows) == 12 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
-            "alone_ms", "append_ms", "turns_ms", "all_sampled_ms", "shape",
+            "alone_ms", "append_ms", "turns_ms", "all_sampled_ms",
+            "greedy_ms", "bytes_bound_ms", "int32_bound_ms",
+            "int32_bound_all_sampled_ms", "margin_rows", "shape",
             "launches_by_path",
             "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

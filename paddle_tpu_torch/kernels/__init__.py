@@ -11,14 +11,14 @@ launches nothing), and `add_launches` adds that record once per replay.
 from __future__ import annotations
 
 from . import (cross_entropy, flash_attention, fused_ln, keyed_draw,
-               paged_attention)
+               paged_attention, sampler_filter)
 
 __all__ = ["cross_entropy", "flash_attention", "fused_ln", "keyed_draw",
-           "paged_attention", "launch_counts", "reset_launch_counts",
-           "captured_launches", "add_launches"]
+           "paged_attention", "sampler_filter", "launch_counts",
+           "reset_launch_counts", "captured_launches", "add_launches"]
 
 _MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln,
-            keyed_draw)
+            keyed_draw, sampler_filter)
 
 
 def launch_counts():

@@ -22,8 +22,9 @@ logit instead (the greedy path). The twin is written in int64 arithmetic
 with 32-bit masks, on the CPU; its bits and its noise are equal to
 `jax.random`'s (tests/test_torch_sampling_keyed.py).
 
-On CUDA tensors `keyed_draw` launches ``csrc/keyed_draw.cu`` (one CTA a
-slot) or raises; on CPU tensors it runs `keyed_draw_reference`. The kernel
+On CUDA tensors `keyed_draw` launches ``csrc/keyed_draw.cu`` (a thread
+block cluster a slot, each CTA a slice of the vocabulary) or raises; on
+CPU tensors it runs `keyed_draw_reference`. The kernel
 writes the token straight into the caller's buffers (the engine's output
 and device feedback buffers). Launches count under ``keyed_draw``.
 """

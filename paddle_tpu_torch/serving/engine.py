@@ -31,13 +31,14 @@ and from the device feedback buffer (the previous step's sampled token)
 elsewhere, runs the decode forward (embeddings, every layer with its
 fused KV write and paged attention, ``ln_f``, the LM head), writes the
 input token into the history at ``lens`` and samples (`sample_tokens`:
-the processors, then the keyed draw kernel, which writes the next token
-into the output and feedback buffers). A step in which no launched slot
-samples takes the greedy head instead: every row's raw argmax, without
-the processors' sort, its outputs on greedy rows those of the full head
-bit for bit. On the card the program is three CUDA graphs (the forward,
-the full head, the greedy head), captured in one build after one eager
-warm-up step; a step replays the forward's and one head's. On the CPU
+the filter kernel, which writes the sampled rows' processed logits into
+a buffer allocated once, then the keyed draw kernel, which writes the
+next token into the output and feedback buffers). A step in which no
+launched slot samples takes the greedy head instead: every row's raw
+argmax, without the processors, its outputs on greedy rows those of the
+full head bit for bit. On the card the program is three CUDA graphs (the
+forward, the full head, the greedy head), captured in one build after
+one eager warm-up step; a step replays the forward's and one head's. On the CPU
 the same code runs over the same buffers without capture. Each launch's
 outputs go to a pinned host buffer of its own, with an event. A capture or replay
 that fails raises: there is no eager fallback.
@@ -362,6 +363,10 @@ class LLMEngine:
         cpu, cuda = torch.device("cpu"), self.device.type == "cuda"
         self._slots_dev = _slot_buffer(s, m, self.device)
         self._out_dev = _out_buffer(s, self._logprobs_topk, self.device)
+        # the full sampler head's filtered logits (its sampled rows; the
+        # keyed draw reads raw logits for the others)
+        self._filtered = torch.zeros((s, model.config.vocab_size),
+                                     dtype=torch.float32, device=self.device)
         self._staging = []
         self._outputs = []
         for _ in range(2):
@@ -695,11 +700,15 @@ class LLMEngine:
         its tokens through the normal emission path. A record whose
         request was cancelled, expired, preempted or finished since the
         launch is discarded (`_rollback`): each departed stream loses
-        exactly its one speculative token."""
+        exactly its one speculative token. A streaming callback that raises
+        does not stop the commit: the launch after this one already took
+        every record's token from the feedback buffer, so each is emitted,
+        and the first exception is raised once all are."""
         inf, self._inflight = self._inflight, None
         if inf is None:
             return
         toks, logps, aids, alps = self._read_outputs(inf["out"])
+        raised = None
         for req, slot, aseq in inf["records"]:
             if (req.state != RUNNING or req.slot != slot
                     or req.admit_seq != aseq):
@@ -707,9 +716,15 @@ class LLMEngine:
                 continue
             tok = int(toks[slot])
             self._tokens[slot] = tok
-            self._emit_token(req, tok, logp=float(logps[slot]),
-                             alts=((aids[slot], alps[slot])
-                                   if self._logprobs_topk else None))
+            try:
+                self._emit_token(req, tok, logp=float(logps[slot]),
+                                 alts=((aids[slot], alps[slot])
+                                       if self._logprobs_topk else None))
+            except Exception as exc:     # raised by a streaming callback
+                if raised is None:
+                    raised = exc
+        if raised is not None:
+            raise raised
 
     def _has_pending(self, req, slot):
         inf = self._inflight
@@ -842,7 +857,8 @@ class LLMEngine:
         valid = (torch.arange(bucket, device=dev) < length)[None, :]
         out = sample_tokens(logits[0, length - 1][None, :], floats[0:1],
                             ints[0:1], floats[1:2], floats[2:3], ints[1:2],
-                            ints[2:3], ids, valid,
+                            ints[2:3], self._history[req.slot:req.slot + 1,
+                                                     :bucket], valid,
                             logprobs_topk=self._logprobs_topk,
                             greedy_only=req.temperature <= 0)
         return tuple(t.cpu().numpy() for t in out)
@@ -901,7 +917,7 @@ class LLMEngine:
         sample_tokens(logits[:, -1, :], temps, top_k, top_p, penalty, seeds,
                       lens + 1, self._history, valid, self._logprobs_topk,
                       out=self._out_views, feedback=self._feedback,
-                      greedy_only=not sampled)
+                      greedy_only=not sampled, filtered=self._filtered)
 
     def _decode_code(self, slots, views, sampled):
         """`_decode_forward`, then `_decode_head`; returns the logits."""
@@ -1071,16 +1087,20 @@ class LLMEngine:
             self._stats.inter_token_s.append((now - req.last_token_ns) / 1e9)
         req.last_token_ns = now
         req.token_ns.append(now)
-        if req.on_token is not None:
-            text = None
-            if self._tokenizer is not None:
-                text = self._tokenizer.decode([tok])
-            req.on_token(req, tok, text)
-        done = len(req.generated) >= req.max_new_tokens
-        if req.eos_token_id is not None and tok == req.eos_token_id:
-            done = True
-        if done:
-            self._finish(req)
+        try:
+            if req.on_token is not None:
+                text = None
+                if self._tokenizer is not None:
+                    text = self._tokenizer.decode([tok])
+                req.on_token(req, tok, text)
+        finally:
+            # also when the callback raised: a stream that reached its
+            # last token retires, whichever engine emitted it
+            done = len(req.generated) >= req.max_new_tokens
+            if req.eos_token_id is not None and tok == req.eos_token_id:
+                done = True
+            if done:
+                self._finish(req)
 
     def _finish(self, req):
         slot = req.slot

@@ -7,10 +7,11 @@ logits. ``top_k=0`` and ``top_p>=1`` are exact no-ops, and a slot with
 ``temperature=0`` returns ``argmax`` of the RAW logits — the greedy path
 is exact.
 
-Top-k and top-p thresholds come from one descending sort of the
+Top-k and top-p thresholds are those of one descending sort of the
 post-temperature logits and are applied together, as in the JAX
 `sample_tokens` (top-p is measured on the full distribution, not on the
-top-k survivors).
+top-k survivors): `kernels/sampler_filter.py`, one kernel on the card (no
+sort: radix select), its sort-based twin on the CPU.
 
 The draw is the reference's: each stochastic slot draws Gumbel-max noise
 keyed by ``fold_in(PRNGKey(seed), position)``, where ``position`` is the
@@ -28,9 +29,9 @@ import zlib
 import torch
 
 from ..kernels.keyed_draw import keyed_draw
+from ..kernels.sampler_filter import sampler_filter
 
-__all__ = ["validate_sampler", "default_seed", "apply_repetition_penalty",
-           "apply_temperature", "apply_top_k", "apply_top_p", "filter_logits",
+__all__ = ["validate_sampler", "default_seed", "apply_top_k", "apply_top_p",
            "sample_tokens"]
 
 _NEG_INF = -1e30
@@ -56,27 +57,6 @@ def validate_sampler(temperature, top_k, top_p, repetition_penalty):
     if not (r > 0.0) or r == float("inf"):
         raise ValueError(
             f"repetition_penalty must be finite and > 0, got {repetition_penalty}")
-
-
-def apply_repetition_penalty(logits, history, valid, penalty):
-    """Divide positive / multiply negative logits of already-seen tokens by
-    ``penalty`` (the CTRL rule). ``history`` ``[S, C]`` context ids,
-    ``valid`` ``[S, C]`` bool, ``penalty`` ``[S]`` with 1.0 the no-op."""
-    v = logits.shape[-1]
-    ids = history.long().clamp(0, v - 1)
-    seen = torch.zeros(logits.shape, dtype=torch.float32,
-                       device=logits.device)
-    seen.scatter_add_(1, ids, valid.to(torch.float32))
-    pen = penalty[:, None].to(logits.dtype)
-    penalized = torch.where(logits > 0, logits / pen, logits * pen)
-    return torch.where(seen > 0, penalized, logits)
-
-
-def apply_temperature(logits, temperature):
-    """Scale by 1/T with a safe divisor (T=0 slots are decided by the
-    greedy argmax, never by these values)."""
-    t = torch.clamp(temperature, min=1e-6)[:, None].to(logits.dtype)
-    return logits / t
 
 
 def apply_top_k(logits, top_k):
@@ -105,34 +85,9 @@ def apply_top_p(logits, top_p):
     return logits.masked_fill(~keep, _NEG_INF)
 
 
-def filter_logits(logits, temperature, top_k, top_p, repetition_penalty,
-                  history, valid):
-    """The processors in order on ``[S, V]`` fp32 logits: repetition
-    penalty, temperature, then top-k and top-p from ONE descending sort,
-    both thresholds applied together."""
-    lg = apply_repetition_penalty(logits, history, valid, repetition_penalty)
-    lg = apply_temperature(lg, temperature)
-    v = lg.shape[-1]
-    desc = torch.sort(lg, dim=-1, descending=True).values
-    kth = desc.gather(-1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
-    k_thresh = torch.where((top_k > 0)[:, None], kth,
-                           torch.full_like(kth, _NEG_INF))
-    # softmax over the sorted row IS the sorted distribution: the
-    # exclusive-mass prefix maps straight back to a logit threshold
-    p_desc = torch.softmax(desc, dim=-1)
-    exclusive = torch.cumsum(p_desc, dim=-1) - p_desc
-    keep_sorted = exclusive < top_p[:, None]
-    n_keep = keep_sorted.sum(dim=-1).clamp(min=1)
-    pth = desc.gather(-1, (n_keep - 1)[:, None])
-    p_thresh = torch.where((top_p < 1.0)[:, None], pth,
-                           torch.full_like(pth, _NEG_INF))
-    thresh = torch.maximum(k_thresh, p_thresh)
-    return lg.masked_fill(lg < thresh, _NEG_INF)
-
-
 def sample_tokens(logits, temperature, top_k, top_p, repetition_penalty,
                   seeds, positions, history, valid, logprobs_topk=0,
-                  out=None, feedback=None, greedy_only=False):
+                  out=None, feedback=None, greedy_only=False, filtered=None):
     """The sampler head over ``[S, V]`` logits. Every input is a tensor on
     the logits' device: the per-slot config (``temperature``, ``top_k``,
     ``top_p``, ``repetition_penalty``, ``seeds`` (int32 holding the uint32
@@ -145,17 +100,21 @@ def sample_tokens(logits, temperature, top_k, top_p, repetition_penalty,
     ``logprobs_topk``, the logprobs under the RAW distribution. With
     `out`, a tuple of four such tensors, the results are written there
     (the token by the keyed draw itself) and `out` is returned;
-    `feedback` ``[S]`` int32 also receives the token. With `greedy_only`
-    (the caller knows no row samples) every row is decided greedily and
-    the processors' sort is skipped; each greedy row's outputs are those
-    of the full head, bit for bit."""
+    `feedback` ``[S]`` int32 also receives the token; `filtered`, an
+    ``[S, V]`` fp32 buffer, receives the processors' output (a fresh
+    tensor when None). With `greedy_only` (the caller knows no row
+    samples) every row is decided greedily and the processors are
+    skipped; each greedy row's outputs are those of the full head, bit for
+    bit. On the card the full head is two kernels (`sampler_filter`, then
+    `keyed_draw`) besides the ops both heads share."""
     logits = logits.float().contiguous()
     if greedy_only:
         temperature = torch.zeros_like(temperature)
         filtered = logits
     else:
-        filtered = filter_logits(logits, temperature, top_k, top_p,
-                                 repetition_penalty, history, valid)
+        filtered = sampler_filter(logits, temperature, top_k, top_p,
+                                  repetition_penalty, history, valid,
+                                  out=filtered)
     nxt = keyed_draw(logits, filtered, temperature, seeds, positions,
                      out=None if out is None else out[0], feedback=feedback)
     logp = torch.log_softmax(logits, dim=-1)

@@ -13,9 +13,11 @@ and the JAX `sample_tokens`.
     (float32, the same log-softmax written twice), and its greedy head
     (`greedy_only`, no sort) gives every greedy row the full head's
     outputs bit for bit;
-  * the block reduction of ``csrc/keyed_draw.cu`` (strided per-thread
-    bests, warp shuffles, one warp over the warps) picks the first argmax,
-    ties and NaN included (a numpy emulation of its order of work);
+  * the reduction of ``csrc/keyed_draw.cu`` (a cluster of CTAs a slot,
+    each a slice of the row: strided per-thread bests, warp shuffles, one
+    warp over the warps, then rank 0 over the CTAs' pairs) picks the first
+    argmax, ties and NaN included (a numpy emulation of its order of
+    work);
   * the CPU wrapper writes the output, feedback and debug buffers, and the
     kernel route refuses what the kernel does not take (meta tensors:
     shapes and types without storage).
@@ -242,47 +244,66 @@ def _beats(av, ai, bv, bi):
 
 
 def _kernel_argmax(values, threads=1024):
-    """The kernel's reduction in its order: each thread's best over indices
-    tid, tid + 1024, ...; then shuffles down by 16, 8, 4, 2, 1 within each
-    warp; then warp 0 does the same over the 32 warps' bests."""
+    """The kernel's reduction in its order: the row split over the CTAs
+    of a cluster (one for every 1024 indices, at most 8), each a
+    contiguous slice of ceil(V / CTAs); in each CTA, each thread's best
+    over its slice's indices lo + tid, lo + tid + 1024, ...; then shuffles
+    down by 16, 8, 4, 2, 1 within each warp; then warp 0 does the same
+    over the warps' bests; then rank 0 merges the CTAs' pairs in rank
+    order."""
     v = len(values)
-    best = []
-    for tid in range(threads):
-        b = (-np.inf, v)
-        for i in range(tid, v, threads):
-            if _beats(values[i], i, *b):
-                b = (values[i], i)
-        best.append(b)
+    ctas = min(8, -(-v // threads))
+    chunk = -(-v // ctas)
 
     def warp(lanes):
         # every lane reads lane + off (its own value past lane 31) before
         # any lane writes
+        lanes = lanes + [(-np.inf, v)] * (32 - len(lanes))
         for off in (16, 8, 4, 2, 1):
             lanes = [lanes[l + off] if l + off < 32 and _beats(
                 *lanes[l + off], *lanes[l]) else lanes[l]
                 for l in range(32)]
         return lanes[0]
 
-    return warp([warp(best[w * 32:(w + 1) * 32]) for w in range(32)])[1]
+    parts = []
+    for rank in range(ctas):
+        lo, hi = min(v, rank * chunk), min(v, (rank + 1) * chunk)
+        best = []
+        for tid in range(threads):
+            b = (-np.inf, v)
+            for i in range(lo + tid, hi, threads):
+                if _beats(values[i], i, *b):
+                    b = (values[i], i)
+            best.append(b)
+        parts.append(warp([warp(best[w * 32:(w + 1) * 32])
+                           for w in range(threads // 32)]))
+    b = parts[0]
+    for p in parts[1:]:
+        if _beats(*p, *b):
+            b = p
+    return b[1]
 
 
 @pytest.mark.parametrize("case", ["ties", "all_equal", "nan", "masked",
                                   "short_row"])
 def test_kernel_reduction_is_first_argmax(case):
-    rng = np.random.default_rng(3)
-    v = 3000
-    values = rng.integers(0, 5, v).astype(np.float32)   # many ties
-    if case == "all_equal":
-        values[:] = -1e30
-    elif case == "nan":
-        values[[2500, 1700]] = np.nan
-    elif case == "masked":
-        values[:] = -np.inf
-        values[2999] = -1e30
-    elif case == "short_row":
-        values = values[:5]
-    got = _kernel_argmax(values.tolist())
-    assert got == int(torch.argmax(torch.from_numpy(values)))
+    # 3 CTAs of 1000 at V = 3000; 8 at V = 8500, slices of 1063 and a
+    # ragged last one of 1059; one CTA for a short row
+    for v in (3000, 8500):
+        rng = np.random.default_rng(3)
+        values = rng.integers(0, 5, v).astype(np.float32)   # many ties
+        if case == "all_equal":
+            values[:] = -1e30
+        elif case == "nan":
+            values[[2500, 1700]] = np.nan
+        elif case == "masked":
+            values[:] = -np.inf
+            values[v - 1] = -1e30
+        elif case == "short_row":
+            values = values[:5]
+        want = int(torch.argmax(torch.from_numpy(values)))
+        got = _kernel_argmax(values.tolist())
+        assert got == want, v
 
 
 def test_cpu_wrapper_fills_debug_buffers():

@@ -41,6 +41,7 @@ from paddle_tpu_torch.serving import (BlockAllocator, CANCELLED, EXPIRED,
                                       QUEUED, RUNNING, Request, Scheduler,
                                       ServeRefusal, num_blocks_for_bytes,
                                       pool_bytes_per_block)
+from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.serving import sampling as tsamp
 
 VOCAB = 128
@@ -230,9 +231,9 @@ def test_processors_match_jax():
     t = torch.from_numpy
     j = jnp.asarray
     pairs = [
-        (tsamp.apply_repetition_penalty(t(lg), t(hist), t(valid), t(pen)),
+        (sf.apply_repetition_penalty(t(lg), t(hist), t(valid), t(pen)),
          jsamp.apply_repetition_penalty(j(lg), j(hist), j(valid), j(pen))),
-        (tsamp.apply_temperature(t(lg), t(temp)),
+        (sf.apply_temperature(t(lg), t(temp)),
          jsamp.apply_temperature(j(lg), j(temp))),
         (tsamp.apply_top_k(t(lg), t(topk)), jsamp.apply_top_k(j(lg), j(topk))),
         (tsamp.apply_top_p(t(lg), t(topp)), jsamp.apply_top_p(j(lg), j(topp))),
@@ -242,8 +243,8 @@ def test_processors_match_jax():
                                    rtol=1e-6, atol=1e-6)
     # the engine's combined filter keeps exactly the tokens both JAX
     # filters keep, computed on the same post-temperature logits
-    got = tsamp.filter_logits(t(lg), t(temp + 0.1), t(topk), t(topp),
-                              t(pen), t(hist), t(valid)).numpy()
+    got = sf.sampler_filter(t(lg), t(temp + 0.1), t(topk), t(topp),
+                            t(pen), t(hist), t(valid)).numpy()
     pre = jsamp.apply_temperature(
         jsamp.apply_repetition_penalty(j(lg), j(hist), j(valid), j(pen)),
         j(temp + 0.1))

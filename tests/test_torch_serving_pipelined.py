@@ -20,7 +20,12 @@ one runs. It must change WHEN tokens are committed, never WHICH:
     the commit reads them, and the staging copies alternate buffers;
   * a step in which no launched slot samples takes the greedy head, and
     the streams equal an engine's that takes the full head every step,
-    pipelined and not.
+    pipelined and not;
+  * a streaming callback that raises mid-commit loses no token: the
+    commit emits every record of its launch before the exception leaves
+    `step()`, and each stream equals the unpipelined engine's under the
+    same raise; raised on a stream's last token (max_new_tokens or EOS),
+    it still retires the stream there, in both engines.
 
 The model is tests/test_torch_serving.py's tiny GPT (vocab 128, hidden
 64, one head of 64, two layers), CPU on both sides.
@@ -276,6 +281,102 @@ def test_greedy_only_steps_take_the_greedy_head(models, pipeline):
     assert runs[0] == runs[1]
     assert True in heads and False in heads
     assert heads.index(False) > heads.index(True)
+
+
+class _CallbackError(RuntimeError):
+    pass
+
+
+def _raising_runs(tm, kv_dtype, raise_on, first=None, eos=None):
+    """Both engines (unpipelined, then pipelined) over 4 slots and 4
+    requests of 8 tokens, 2 of them sampled, where request 0's callback
+    raises once, on the token `raise_on(req, tok)` picks (never when
+    None), and the caller catches it and keeps stepping (at most 64
+    steps: a stream that never retires fails the run). Request 0 stops at
+    `eos`; it is greedy, or samples with `first`'s config (the sampled
+    pair is then requests 0 and 3). Returns each engine's streams
+    (tokens and logprobs) and stats."""
+    prompts = [_prompt(n, seed=75) for n in (9, 6, 11, 7)]
+    cfgs = [dict(first or {}, eos_token_id=eos),
+            {} if first else dict(SAMPLERS[4]), {}, dict(SAMPLERS[3])]
+    runs = []
+    for pipelined in (False, True):
+        engine = LLMEngine(tm, max_batch_size=4, block_size=4,
+                           kv_dtype=kv_dtype, pipeline_decode=pipelined,
+                           device="cpu")
+        raised = []
+
+        def on_token(req, tok, text):
+            if not raised and raise_on is not None \
+                    and raise_on(req, tok):
+                raised.append(tok)
+                raise _CallbackError("callback failed")
+
+        reqs = [engine.add_request(p, max_new_tokens=8,
+                                   on_token=on_token if i == 0 else None,
+                                   **c)
+                for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        caught = 0
+        for _ in range(64):
+            try:
+                if not engine.step():
+                    break
+            except _CallbackError:
+                caught += 1
+        else:
+            raise AssertionError(f"pipelined={pipelined}: still stepping "
+                                 f"after 64 steps, states "
+                                 f"{[r.state for r in reqs]}")
+        assert caught == len(raised) == (raise_on is not None)
+        assert all(r.state == FINISHED for r in reqs)
+        runs.append(([(list(r.generated), list(r.token_logprobs))
+                      for r in reqs], engine.stats()))
+    return runs
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_raising_callback_loses_no_token(models, kv_dtype):
+    """4 slots, 4 requests of 8 tokens (2 sampled). The callback of the
+    request committed first raises once, at its third token (a decode
+    step's commit, with the records of the other slots after it); the
+    caller catches it and keeps stepping. Every stream, logprobs
+    included, equals the unpipelined engine's under the same raise, and
+    no token is rolled back."""
+    (plain, _), (piped, st) = _raising_runs(
+        models[1], kv_dtype, lambda req, tok: len(req.generated) == 3)
+    assert st["commit_rollbacks"] == 0 and st["decode_compiles"] == 1
+    assert piped == plain
+    assert all(len(toks) == 8 for toks, _ in piped)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+@pytest.mark.parametrize("last", ["max_new_tokens", "eos"])
+def test_raising_callback_on_the_last_token_retires_the_stream(
+        models, kv_dtype, last):
+    """The callback raises on request 0's last token: its 8th (the
+    max_new_tokens cut) or its EOS (a token it draws at a decode step
+    when nothing stops it, which stops it there); it samples, so its
+    stream does not repeat one token. Both engines still
+    retire the request on that token, none runs past it, and the
+    pipelined streams equal the unpipelined ones. Each engine rolls back
+    as many tokens as it does without the raise."""
+    tm = models[1]
+    first = dict(SAMPLERS[4])
+    eos, n = None, 8
+    if last == "eos":
+        (free, _), _ = _raising_runs(tm, kv_dtype, None, first)
+        toks = free[0][0]
+        # the first token whose first draw is a decode step's (index >= 3)
+        eos = next(t for i, t in enumerate(toks) if i >= 3
+                   and toks.index(t) == i)
+        n = toks.index(eos) + 1
+    (_, _), (_, calm) = _raising_runs(tm, kv_dtype, None, first, eos)
+    (plain, _), (piped, st) = _raising_runs(
+        tm, kv_dtype, lambda req, tok: len(req.generated) == n, first, eos)
+    assert piped == plain
+    assert len(piped[0][0]) == n
+    assert st["commit_rollbacks"] == calm["commit_rollbacks"]
+    assert st["decode_compiles"] == 1
 
 
 def test_pipelined_engine_defaults_to_cuda(models):
