@@ -48,6 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                the twin (on the CPU, on copies) outside the stated top-p
                margin, and inside it (the rows counted, at most a
                quarter) the row cut at a threshold the margin allows;
+               the multi-tensor AdamW update at GPT-2 124M's 148 tensors
+               (bf16 parameters, fp32 masters and moments) and on ragged
+               lists (fp32 and bf16 without masters, aligned and
+               misaligned, a decay-skip set): parameters, masters and
+               moments bit for bit with the twin over 3 steps, timed
+               beside PyTorch's fused AdamW (another formula);
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -94,14 +100,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                dropout 0) with AdamW(multi_precision) through `TrainStep`
                on a batch of 8 x 1024 tokens, FLAGS_use_fused_cross_entropy
                on: first one forward and backward with the flag off and one
-               with it on must agree (loss, wte gradient); then 1 warm-up
-               and 5 measured steps, asserting the per-step launches of the
-               five training kernels, a finite first loss near ln(V) and a
-               falling loss; prints step ms, tokens/s and MFU, and one
-               more step's device time by kernel group (torch.profiler);
+               with it on must agree (loss, wte gradient); then two models
+               from one seed, one replaying the step's CUDA graph, one
+               stepping `_step_eager`: 3 steps each with equal losses and
+               every parameter, master and moment bit for bit; 4 steps
+               under LinearWarmup(CosineAnnealingDecay), lr changing every
+               replay, one graph build, losses still equal; 5 measured
+               graph steps asserting each kernel's launches a step (the
+               update once), a finite first loss near ln(V) and a falling
+               loss; then graph and eager in turns (step p50, device time
+               a step, tokens/s, MFU), each one's peak memory and a
+               profiled step of each (device time by kernel group, kernels
+               a step);
   7. train parity — 3 fp32 `TrainStep`s of a 2-layer full-width GPT-2 on
-               the card and on the CPU from one state dict must agree:
-               losses, and parameters element by element;
+               the card (one graph build, replayed) and on the CPU from one
+               state dict must agree: losses, and parameters element by
+               element;
   8. fused_ln — `incubate.nn.FusedBiasDropoutResidualLayerNorm(768)` in
                bf16 on [8, 1024, 768] activations, forward and backward
                for some iterations, one fused_ln launch per forward; then
@@ -112,9 +126,10 @@ The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
 draw, the sampler's filter), the
 training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
-and backward) and the fused bias-residual LayerNorm within FLASH_TOL /
-PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL / LN_TOL (the
-decode write exactly), and the bf16 flash forward and backward within their own
+and backward, the AdamW update) and the fused bias-residual LayerNorm
+within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL /
+LN_TOL (the decode write and the update exactly), and the bf16 flash
+forward and backward within their own
 stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
 JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
@@ -143,10 +158,12 @@ from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
                                       launch_counts, paged_attention as pa,
                                       reset_launch_counts)
+from paddle_tpu_torch.kernels import adam_update as au
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.serving import sampling as tsamp
 from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
                                       pool_bytes_per_block)
@@ -281,6 +298,12 @@ TRAIN_PARITY_STEPS = 3
 TRAIN_PARITY_PARAM_ATOL = 1e-5
 TRAIN_PARITY_FLIP_ATOL = 2 * TRAIN_LR * TRAIN_PARITY_STEPS
 TRAIN_PARITY_FLIP_SHARE = 1e-5
+# the update kernel against its twin: the same fp32 operations in the same
+# order, none contracted into an FMA, and powf on both sides, so parameters,
+# masters and moments must be equal bit for bit
+ADAM_TOL = 0.0
+# the lr of the check's three steps (a warm-up ramp)
+ADAM_LRS = (1e-5, 5e-5, 1e-4)
 # fp32 logits of GPT-2 124M on the card (TF32 off) vs the CPU: summation
 # order only, through 12 layers
 LOGITS_ATOL = 5e-4
@@ -1289,6 +1312,121 @@ def check_ce():
     return rows
 
 
+
+def _adam_state(shapes, dtype, masters, seed, offset=0):
+    """Parameters of `shapes` in `dtype` (each a view `offset` elements into
+    its storage, so offset 1 misaligns every vector access), their grads,
+    fp32 moments and, with `masters`, fp32 masters, from a seed: grads
+    ~1e-2, m1 ~1e-3, m2 in [0, 1e-5) (the scale of a trained moment)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(shape, scale, dt, positive=False):
+        n = int(np.prod(shape))
+        flat = (torch.rand if positive else torch.randn)(
+            n + offset, generator=g, device="cuda") * scale
+        return flat.to(dt)[offset:].view(shape)
+
+    params = [make(s, 1.0, dtype) for s in shapes]
+    grads = [make(s, 1e-2, dtype) for s in shapes]
+    m1 = [make(s, 1e-3, torch.float32) for s in shapes]
+    m2 = [make(s, 1e-5, torch.float32, positive=True) for s in shapes]
+    mw = [p.float() + make(s, 1e-3, torch.float32) if masters else None
+          for p, s in zip(params, shapes)]
+    return params, grads, m1, m2, mw
+
+
+def _adam_steps(fn, state, decays, lr, t, lrs, coeff):
+    """Three updates by fn (the kernel's wrapper or the twin) with the lr
+    of each step filled into the device scalars."""
+    params, grads, m1, m2, mw = state
+    for step, value in enumerate(lrs, 1):
+        lr.fill_(value)
+        t.fill_(step)
+        fn(params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8, coeff)
+
+
+def _check_adam_case(tag, shapes, dtype, masters, decays, offset=0):
+    """Kernel vs twin over 3 steps from one state: parameters, masters and
+    moments bit for bit (ADAM_TOL). Returns the max error and the kernel's
+    state."""
+    lr, t = (torch.zeros((), device="cuda") for _ in range(2))
+    kern = _adam_state(shapes, dtype, masters, seed=3, offset=offset)
+    twin = [[None if x is None else x.clone() for x in xs] for xs in kern]
+    _adam_steps(au.adam_update, kern, decays, lr, t, ADAM_LRS, 0.01)
+    _adam_steps(au.adam_update_reference, twin, decays, lr, t, ADAM_LRS,
+                0.01)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("params", "grads", "moment1", "moment2",
+                           "master"), kern, twin):
+        if name == "grads" or a[0] is None:
+            continue
+        diff = max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+        assert diff <= ADAM_TOL, (tag, name, diff)
+        err = max(err, diff)
+    print(f"  adam_update {tag}: 3 steps, params, masters and moments "
+          f"max_abs_err {err:.3e} (atol {ADAM_TOL})")
+    return err, kern
+
+
+def check_adam_update():
+    """The multi-tensor AdamW update at GPT-2 124M's 148 tensors (bf16
+    params with fp32 masters, every tensor decaying, as the train phase
+    runs it), plus fp32 without masters and bf16 without masters on
+    ragged shapes with a decay-skip set, aligned and misaligned."""
+    model = GPTForCausalLM(gpt2_124m(), device="cuda", seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    ragged = [(7, 13), (768,), (5,), (3, 4, 5), (1,), (2, 8195)]
+    skip = [i % 2 == 0 for i in range(len(ragged))]
+    for dtype in (torch.float32, torch.bfloat16):
+        for offset in (0, 1):
+            _check_adam_case(f"{str(dtype)[6:]} no masters, ragged shapes, "
+                             f"offset {offset}", ragged, dtype, False, skip,
+                             offset)
+    _check_adam_case("bf16 + masters, ragged shapes", ragged,
+                     torch.bfloat16, True, skip)
+    decays = [True] * len(shapes)
+    err, state = _check_adam_case(
+        f"bf16 + masters, GPT-2 124M ({len(shapes)} tensors, "
+        f"{sum(int(np.prod(s)) for s in shapes)} elements)", shapes,
+        torch.bfloat16, True, decays)
+    params, grads, m1, m2, mw = state
+    lr = torch.full((), TRAIN_LR, device="cuda")
+    t = torch.full((), 4.0, device="cuda")
+    args = (params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8,
+            0.01)
+    nbytes = au.update_bytes(params, mw)
+    # ~15 fp32 operations an element (two moments, decay, sqrt, divide)
+    bound, by = _bound_ms(nbytes, 15 * sum(p.numel() for p in params),
+                          torch.float32)
+    ms, host_ms = _timed(lambda: au.adam_update(*args))
+    plain_ms = _cuda_ms(lambda: au.adam_update_reference(*args), iters=5)
+    # a yardstick of PyTorch's own fused AdamW at the same shapes: another
+    # formula (epsilon after the bias correction), so not library_ms
+    steps = [torch.full((), 4.0, device="cuda") for _ in params]
+    grads32 = [g.float() for g in grads]
+    other_ms = _cuda_ms(lambda: torch._fused_adamw_(
+        mw, grads32, m1, m2, [], steps, lr=TRAIN_LR,
+        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False))
+    return {"name": "adam_update", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/adam_update.cu",
+            "replaces": ("no Pallas counterpart: the jitted batch update of "
+                         "paddle_tpu/optimizer/optimizer.py:131-197 over "
+                         "the rule of paddle_tpu/optimizer/optimizers.py:"
+                         "76-148 (XLA ops)"),
+            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "bytes": nbytes,
+            "shape": (f"GPT-2 124M's {len(params)} tensors, bf16 params + "
+                      f"fp32 masters and moments, every tensor decaying"),
+            "note": ("library_ms null: no PyTorch call computes Paddle's "
+                     "formula (torch._fused_adamw_ adds epsilon after the "
+                     f"bias correction); that call at the same shapes, "
+                     f"fp32 grads: {other_ms:.4f} ms, another formula")}
+
 def _keyed_state(s, v, seed, sampled):
     """Raw fp32 logits [s, v] (scale of GPT-2's), a filtered copy with the
     entries below each row's 40th largest masked to -1e30 (top-k's
@@ -2121,9 +2259,15 @@ def parity(kv_dtype=None):
 
 TRAIN_KERNELS = {"flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
                  "flash_attention_bwd_dkv": 12, "cross_entropy_fwd": 1,
-                 "cross_entropy_bwd": 1, "paged_decode": 0,
+                 "cross_entropy_bwd": 1, "adam_update": 1, "paged_decode": 0,
                  "paged_decode_int8": 0, "paged_decode_append": 0,
                  "paged_decode_append_int8": 0, "fused_ln": 0}
+# steps of the graph and of the eager step compared bit for bit, steps
+# under the schedule, and the order of the timed turns
+TRAIN_BITWISE_STEPS = 3
+TRAIN_SCHED_STEPS = 4
+TRAIN_TURNS = ("graph", "eager", "eager", "graph", "graph", "eager", "eager",
+               "graph")
 
 
 # kernel-name substrings of each group in a profiled window's breakdown
@@ -2131,6 +2275,7 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("flash_attention_bwd_dq", ("flash_bwd_dq_kernel",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
+               ("adam_update", ("adam_update_kernel",)),
                # the serving path's paged kernel writes this step's K and
                # V rows and attends in one launch (paged_decode_append)
                ("paged_decode_append", ("paged_decode_split_kernel",)),
@@ -2195,10 +2340,56 @@ def _loss_and_wte_grad(model, crit, ids, labels, fused):
     return float(loss.detach()), grad
 
 
+def _train_pair(cfg):
+    """Two GPT-2 124M models from seed 0 (bf16, dropout 0), each with its
+    AdamW(multi_precision) and TrainStep: the first replays its graph, the
+    second runs `_step_eager`."""
+    out = []
+    for _ in range(2):
+        model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+        model.train()
+        opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                    parameters=model.parameters(), multi_precision=True)
+        out.append((model, opt, TrainStep(model, GPTPretrainingCriterion(),
+                                          opt)))
+    return out
+
+
+def _differing(a, b):
+    """Elements that differ between the two models' parameters, masters and
+    moments, and their count."""
+    (ma, oa, _), (mb, ob, _) = a, b
+    n, total = 0, 0
+    for pa, pb in zip(ma.parameters(), mb.parameters()):
+        pairs = [(pa.detach(), pb.detach())] + [
+            (oa._accumulators[k][pa], ob._accumulators[k][pb])
+            for k in oa._accumulators if pa in oa._accumulators[k]]
+        for x, y in pairs:
+            n += int((x != y).sum())
+            total += x.numel()
+    return n, total
+
+
+def _turn(tag, fn, steps, tokens, flops_per_token):
+    """One turn of `steps` training steps: step ms p50 (host clock, each
+    step ending in float(loss)), then device ms a step over as many steps
+    enqueued behind a sleep (`_timed`), tokens/s and MFU from the p50."""
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(fn())
+        times.append((time.perf_counter() - t0) * 1e3)
+    device_ms, host_ms = _timed(fn, iters=steps, warmup=0)
+    p50 = float(np.median(times))
+    return {"turn": tag, "p50_ms": p50, "device_ms": device_ms,
+            "host_ms": host_ms, "tokens_per_s": tokens / (p50 / 1e3),
+            "mfu": tokens / (p50 / 1e3) * flops_per_token
+            / PEAK_FLOPS[torch.bfloat16]}
+
+
 def train(batch=8, seq=1024, steps=5):
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
-    model.train()
     crit = GPTPretrainingCriterion()
     rng = np.random.default_rng(0)
     ids = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
@@ -2206,6 +2397,7 @@ def train(batch=8, seq=1024, steps=5):
     labels = torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
                           device="cuda")
     # the same weights through the unfused and the fused cross-entropy
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
     loss_off, grad_off = _loss_and_wte_grad(model, crit, ids, labels, False)
     loss_on, grad_on = _loss_and_wte_grad(model, crit, ids, labels, True)
     grad_rel = float((grad_on - grad_off).norm() / grad_off.norm())
@@ -2214,38 +2406,116 @@ def train(batch=8, seq=1024, steps=5):
           f"{grad_rel:.3e} (rtol {TRAIN_FLAG_GRAD_RTOL})")
     assert abs(loss_off - loss_on) <= TRAIN_FLAG_LOSS_ATOL
     assert grad_rel <= TRAIN_FLAG_GRAD_RTOL
-    del grad_off, grad_on
+    del model, grad_off, grad_on
 
-    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
-                parameters=model.parameters(), multi_precision=True)
-    step = TrainStep(model, crit, opt)
-    first = float(step(ids, labels))          # warm-up: allocator, cuBLAS
+    graph, eager = _train_pair(cfg)
+    g_model, g_opt, g_step = graph
+    e_model, e_opt, e_step = eager
+    run_graph = lambda: g_step(ids, labels)            # noqa: E731
+    run_eager = lambda: e_step._step_eager(ids, labels)  # noqa: E731
+    # the first call builds the graph (one eager warm-up, one capture)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    first = float(run_graph())
+    build_s = time.perf_counter() - t0
+    build_gib = (torch.cuda.memory_reserved() - reserved) / 2**30
+    first_eager = float(run_eager())
     ln_v = float(np.log(cfg.vocab_size))
     assert np.isfinite(first) and abs(first - ln_v) <= 0.5, (first, ln_v)
+    losses = [(first, first_eager)] + [
+        (float(run_graph()), float(run_eager()))
+        for _ in range(TRAIN_BITWISE_STEPS - 1)]
+    differ, total = _differing(graph, eager)
+    print(f"train: graph build {build_s:.2f} s (warm-up + capture), "
+          f"{build_gib:.3f} GiB more reserved (the graph's pool and the "
+          f"warm-up's cached blocks); "
+          f"{TRAIN_BITWISE_STEPS} steps of the graph and of the eager step "
+          f"from one seed: losses " + ", ".join(
+              f"{a:.6f}/{b:.6f}" for a, b in losses)
+          + f"; {differ} of {total} elements of parameters, masters and "
+          f"moments differ")
+    assert all(a == b for a, b in losses), losses
+    assert differ == 0, (differ, total)
+
+    # the schedule through the graph: lr changes on every replay, the graph
+    # is not rebuilt, and the losses stay the eager step's
+    sched_losses, lrs = [], []
+    for opt in (g_opt, e_opt):
+        opt.set_lr_scheduler(LinearWarmup(
+            CosineAnnealingDecay(TRAIN_LR, T_max=TRAIN_SCHED_STEPS),
+            warmup_steps=2, start_lr=TRAIN_LR / 10, end_lr=TRAIN_LR))
+    for _ in range(TRAIN_SCHED_STEPS):
+        lrs.append(g_opt.get_lr())
+        sched_losses.append((float(run_graph()), float(run_eager())))
+        for opt in (g_opt, e_opt):
+            opt._learning_rate.step()
+    print(f"train: LinearWarmup(CosineAnnealingDecay) through the graph, "
+          f"lr " + ", ".join(f"{x:.4e}" for x in lrs) + "; losses "
+          + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in sched_losses)
+          + f"; graph builds {g_step._builds}")
+    assert len(set(lrs)) == len(lrs), lrs
+    assert all(a == b for a, b in sched_losses), sched_losses
+    assert g_step._builds == 1, g_step._builds
+    for opt in (g_opt, e_opt):     # back to the constant lr
+        opt._learning_rate = TRAIN_LR
+
     reset_launch_counts()
     losses, times = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(float(step(ids, labels)))   # float() waits for it
+        losses.append(float(run_graph()))   # float() waits for it
         times.append((time.perf_counter() - t0) * 1e3)
     counts = launch_counts()
     for name, per_step in TRAIN_KERNELS.items():
         assert counts[name] == per_step * steps, (name, counts)
+    assert g_step._builds == 1, g_step._builds
     assert all(np.isfinite(losses)), losses
     assert losses[-1] < first, (first, losses)
+    tokens = batch * seq
+    flops = g_model.flops_per_token(seq)
     p50 = float(np.median(times))
-    tokens_per_s = batch * seq / (p50 / 1e3)
-    mfu = tokens_per_s * model.flops_per_token(seq) / PEAK_FLOPS[
-        torch.bfloat16]
     print(f"train: GPT-2 124M bf16 AdamW(multi_precision), batch {batch} x "
-          f"{seq}; losses {first:.4f} (warm-up) -> "
+          f"{seq}, one graph replay a step; losses {first:.4f} (first) -> "
           + ", ".join(f"{x:.4f}" for x in losses))
     print(f"train: step ms p50 {p50:.3f} (min {min(times):.3f}, max "
-          f"{max(times):.3f}); {tokens_per_s:.1f} tokens/s; MFU {mfu:.4f} "
-          f"({model.flops_per_token(seq)} FLOPs/token vs 989e12 FLOP/s)")
+          f"{max(times):.3f}); {tokens / (p50 / 1e3):.1f} tokens/s; MFU "
+          f"{tokens / (p50 / 1e3) * flops / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"({flops} FLOPs/token vs 989e12 FLOP/s)")
     print(f"train: launches over {steps} steps {json.dumps(counts)}")
-    groups = _breakdown("train", lambda: step(ids, labels))
+
+    # graph against eager in turns, in this process
+    turns = []
+    for kind in TRAIN_TURNS:
+        fn = run_graph if kind == "graph" else run_eager
+        turns.append(_turn(kind, fn, steps, tokens, flops))
+    for kind in ("graph", "eager"):
+        mine = [t for t in turns if t["turn"] == kind]
+        print(f"train turns, {kind}: step p50 " + " / ".join(
+            f"{t['p50_ms']:.3f}" for t in mine) + " ms; device " + " / ".join(
+            f"{t['device_ms']:.3f}" for t in mine) + " ms a step; host "
+            + " / ".join(f"{t['host_ms']:.3f}" for t in mine)
+            + " ms to enqueue one (behind a sleep; the eager step's ~600 "
+            "launches fill the launch queue, so its figure includes "
+            "waits); tokens/s " + " / ".join(
+                f"{t['tokens_per_s']:.1f}" for t in mine) + "; MFU "
+            + " / ".join(f"{t['mfu']:.4f}" for t in mine))
+    print("train turns: " + json.dumps(turns))
+    for kind, fn in (("graph", run_graph), ("eager", run_eager)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        float(fn())
+        peak = torch.cuda.max_memory_allocated()
+        print(f"train {kind}: max_memory_allocated {peak / 2**30:.3f} GiB "
+              f"over a step, {(peak - before) / 2**30:.3f} GiB above the "
+              f"{before / 2**30:.3f} allocated before it; reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (both models "
+              f"and the graph's pool live; the graph's activations sit in "
+              f"its pool, reserved at the build, not allocated a step)")
+    groups = _breakdown("train graph", run_graph)
+    _breakdown("train eager", run_eager)
     if groups:
         print(f"train: flash_attention_fwd group "
               f"{groups.get('flash_attention_fwd', 0.0):.3f} ms device time "
@@ -2255,6 +2525,22 @@ def train(batch=8, seq=1024, steps=5):
             f"{g} {groups.get(g, 0.0):.3f}" for g in TRAIN_BWD_GROUPS_PREV_MS)
             + " ms device time per step (the fp32-FMA backward of commit "
             f"6391f68, written in: {json.dumps(TRAIN_BWD_GROUPS_PREV_MS)})")
+    # the loss a call returns is its own: the next replay leaves it alone
+    kept = run_graph()
+    value = float(kept)
+    other = run_graph()
+    assert float(kept) == value != float(other), (value, float(other))
+    # a parameter whose storage moved, then a new input signature, each
+    # build the graph again
+    wpe = g_model.gpt.wpe.weight
+    wpe.data = wpe.data.clone()
+    moved = float(run_graph())
+    half = float(g_step(ids[:batch // 2], labels[:batch // 2]))
+    print(f"train: a returned loss keeps its value ({value:.6f}) after the "
+          f"next replay ({float(other):.6f}); graph builds 1 -> "
+          f"{g_step._builds} after a moved parameter (loss {moved:.6f}) and "
+          f"a batch of {batch // 2} (loss {half:.6f})")
+    assert g_step._builds == 3 and np.isfinite([moved, half]).all()
     set_flags({"FLAGS_use_fused_cross_entropy": False})
     return counts
 
@@ -2264,10 +2550,13 @@ def train(batch=8, seq=1024, steps=5):
 # ---------------------------------------------------------------------------
 
 def _train_steps(model, ids, labels):
+    """TRAIN_PARITY_STEPS TrainStep calls (one graph on the card, eager on
+    the CPU); returns the losses and the graph builds."""
     opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
                 parameters=model.parameters())
     step = TrainStep(model, GPTPretrainingCriterion(), opt)
-    return [float(step(ids, labels)) for _ in range(TRAIN_PARITY_STEPS)]
+    losses = [float(step(ids, labels)) for _ in range(TRAIN_PARITY_STEPS)]
+    return losses, step._builds
 
 
 def train_parity():
@@ -2283,15 +2572,18 @@ def train_parity():
     labels[0, :5] = -100
     set_flags({"FLAGS_use_fused_cross_entropy": True})
     reset_launch_counts()
-    gpu = _train_steps(gpu_model, ids.cuda(), labels.cuda())
+    gpu, builds = _train_steps(gpu_model, ids.cuda(), labels.cuda())
     counts = launch_counts()
-    cpu = _train_steps(cpu_model, ids, labels)
+    cpu, _ = _train_steps(cpu_model, ids, labels)
     set_flags({"FLAGS_use_fused_cross_entropy": False})
+    # the build's eager warm-up launches each kernel as one step does (the
+    # update on a scratch element), then each replay does
+    assert builds == 1, builds
     for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv"):
-        assert counts[name] == 2 * TRAIN_PARITY_STEPS, counts
-    for name in ("cross_entropy_fwd", "cross_entropy_bwd"):
-        assert counts[name] == TRAIN_PARITY_STEPS, counts
+        assert counts[name] == 2 * (TRAIN_PARITY_STEPS + 1), counts
+    for name in ("cross_entropy_fwd", "cross_entropy_bwd", "adam_update"):
+        assert counts[name] == TRAIN_PARITY_STEPS + 1, counts
     loss_err = max(abs(a - b) for a, b in zip(gpu, cpu))
     assert loss_err <= TRAIN_PARITY_LOSS_ATOL, (gpu, cpu)
     param_err, beyond, flipped = 0.0, 0, 0
@@ -2303,7 +2595,8 @@ def train_parity():
     total = sum(p.numel() for p in cpu_model.parameters())
     assert param_err <= TRAIN_PARITY_FLIP_ATOL, param_err
     assert flipped <= TRAIN_PARITY_FLIP_SHARE * total, (flipped, total)
-    print(f"train parity: {TRAIN_PARITY_STEPS} fp32 AdamW steps, 2-layer "
+    print(f"train parity: {TRAIN_PARITY_STEPS} fp32 AdamW steps (card: "
+          f"one graph build, replayed), 2-layer "
           f"GPT-2 width, batch {ids.shape[0]} x {ids.shape[1]}, fused CE; "
           f"losses card "
           + ", ".join(f"{x:.6f}" for x in gpu) + " vs CPU "
@@ -2420,7 +2713,7 @@ def main():
     rows = {"serve": [check_flash(), paged, fused, check_keyed_draw(),
                       check_sampler_filter()],
             "serve_int8": [paged_int8, fused_int8],
-            "train": check_flash_bwd() + check_ce(),
+            "train": check_flash_bwd() + check_ce() + [check_adam_update()],
             "fused_ln": [check_fused_ln()]}
     paths = {}
     paths["serve"], bf16_greedy, model = serve()
@@ -2447,7 +2740,7 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 12 and all(
+    assert len(rows) == 13 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",

@@ -1,17 +1,35 @@
-"""TrainStep: one training step, run eagerly.
+"""TrainStep: one training step as one program.
 
-Counterpart of `paddle_tpu/jit/train_step.py` (`TrainStep`). Each call runs
-the forward ``model(*args[:-1])``, ``loss_fn(out, args[-1])``, the
-backward, and the optimizer's per-parameter update rule over every
-parameter of the model that requires grad (one with no gradient is updated
-with a zero gradient, as the reference's traced step does), and returns the
-detached loss. Gradients go straight from autograd to the update, so no
-``.grad`` is left behind. With ``loss_fn=None`` the model returns the loss
-from all of `args`.
+Counterpart of `paddle_tpu/jit/train_step.py` (`TrainStep`), which compiles
+forward, backward and update into one XLA executable with `jax.jit`. Each
+call runs the forward ``model(*args[:-1])``, ``loss_fn(out, args[-1])``,
+the backward, and the optimizer's update over every parameter of the model
+that requires grad (one with no gradient is updated with a zero gradient,
+as the reference's traced step does), and returns the loss as a fresh
+tensor. Gradients go straight from autograd to the update, so no ``.grad``
+is left behind. With ``loss_fn=None`` the model returns the loss from all
+of `args`.
 
-The reference compiles the step with `jax.jit` and donates buffers; PyTorch
-runs it eagerly and the update writes the parameters in place, so there is
-no `donate` option.
+On the card the step is one CUDA graph replay. The first call with an
+input signature (shapes, dtypes, device) builds it: static input buffers,
+one eager warm-up of the forward and backward on a side stream (it loads
+cuBLAS and the kernels' libraries before capture; the update then runs on
+one scratch element of each parameter dtype, so nothing of the model
+moves), and one
+capture of forward, loss, `torch.autograd.grad` and the optimizer's
+update. Each call then copies the inputs into the buffers, counts the step
+and fills the optimizer's lr and step scalars by value
+(`Optimizer._begin_step`), replays, and returns a clone of the static
+loss, which the next replay overwrites. A new signature builds a new graph,
+as the reference's `jax.jit` retraces; so does a parameter whose storage
+moved since the build (``p.data = ...``, ``model.to(...)``), since the
+graph holds its address (the optimizer's accumulators are made once and
+updated in place, so theirs stay). `_builds` counts builds. Values read
+while capturing (flags such as ``FLAGS_use_fused_cross_entropy``) are
+baked in, as the reference's trace bakes them. A failed capture raises
+with its cause; there is no eager fallback. On the CPU the same step code
+runs eagerly (`_step_eager`, which the card's smoke also times against the
+graph).
 
 The reference's step applies neither the optimizer's gradient clip nor its
 regularizer, while its `Optimizer.step` applies both (ROADMAP.md Queue 3).
@@ -21,6 +39,8 @@ raises NotImplementedError; the port's optimizers take no regularizer yet.
 from __future__ import annotations
 
 import torch
+
+from ..kernels import add_launches, captured_launches
 
 __all__ = ["TrainStep"]
 
@@ -36,14 +56,92 @@ class TrainStep:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self._params = [p for p in model.parameters() if p.requires_grad]
+        self._builds = 0
+        self._key = None
+        self._graph = None
+
+    def _loss(self, args):
+        if self.loss_fn is not None:
+            return self.loss_fn(self.model(*args[:-1]), args[-1])
+        return self.model(*args)
+
+    def _grads(self, loss):
+        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        return [(p, torch.zeros_like(p) if g is None else g)
+                for p, g in zip(self._params, grads)]
+
+    def _step_code(self, args):
+        """Forward, loss, gradients and the optimizer's update from the
+        scalars it holds; returns the detached loss."""
+        loss = self._loss(args)
+        self.optimizer._update(self._grads(loss))
+        return loss.detach()
+
+    def _step_eager(self, *args):
+        """One step without a graph (the CPU's step)."""
+        opt = self.optimizer
+        opt._create_accumulators(self._params)
+        opt._begin_step({p.device for p in self._params})
+        return self._step_code(args)
 
     def __call__(self, *args):
-        if self.loss_fn is not None:
-            loss = self.loss_fn(self.model(*args[:-1]), args[-1])
-        else:
-            loss = self.model(*args)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
-        self.optimizer._apply_optimize(
-            [(p, torch.zeros_like(p) if g is None else g)
-             for p, g in zip(self._params, grads)])
-        return loss.detach()
+        if not self._params or self._params[0].device.type != "cuda":
+            return self._step_eager(*args)
+        device = self._params[0].device
+        args = [torch.as_tensor(a, device=device) for a in args]
+        opt = self.optimizer
+        opt._create_accumulators(self._params)
+        key = (tuple((a.shape, a.dtype) for a in args),
+               tuple(p.data_ptr() for p in self._params))
+        if key != self._key:
+            self._build(args)
+            self._key = key
+        for buf, a in zip(self._static, args):
+            buf.copy_(a)
+        opt._begin_step((device,))
+        self._graph.replay()
+        add_launches(self._record)
+        return self._static_loss.clone()
+
+    def _build(self, args):
+        """Capture forward, backward and update over static copies of
+        `args` (see the module docstring)."""
+        self._graph = self._static_loss = None
+        self._builds += 1
+        device = self._params[0].device
+        if len({p.device for p in self._params}) != 1:
+            raise NotImplementedError("a TrainStep graph takes parameters on "
+                                      "one device")
+        opt = self.optimizer
+        opt._device_scalars(device)
+        self._static = [a.clone() for a in args]
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._grads(self._loss(self._static))
+            # the update on one scratch element of each parameter dtype:
+            # loads its library and kernels without moving the model
+            scratch = [torch.zeros(1, dtype=dtype, device=device)
+                       for dtype in {p.dtype for p in self._params}]
+            opt._create_accumulators(scratch)
+            try:
+                opt._update([(s, torch.zeros_like(s)) for s in scratch])
+            finally:
+                for slot in opt._accumulators.values():
+                    for s in scratch:
+                        slot.pop(s, None)
+        main.wait_stream(side)
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph):
+                return self._step_code(self._static)
+
+        try:
+            self._static_loss, self._record = captured_launches(capture)
+        except Exception as err:
+            raise RuntimeError(f"TrainStep: capturing the training step in "
+                               f"a CUDA graph failed: {err}") from err
+        self._graph = graph

@@ -8,17 +8,23 @@ before bias correction, which goes into the step size instead,
     p   -= lr_t * m1 / (sqrt(m2) + epsilon)
 
 and AdamW's decoupled decay scales the fp32 base first,
-``base * (1 - lr * coeff)``. Moments are fp32 whatever the parameter's
-dtype; with ``multi_precision=True`` every non-fp32 parameter also keeps an
-fp32 master copy, updated in fp32 and written back cast to the parameter's
-dtype.
+``base * (1 - lr * coeff)``. All of it is fp32, with lr and the step t as
+fp32 scalars, as the reference's jitted update computes it
+(`kernels.adam_update.adam_rule`, the per-tensor rule `_single_update`
+applies). Moments are fp32 whatever the parameter's dtype; with
+``multi_precision=True`` every non-fp32 parameter also keeps an fp32 master
+copy, updated in fp32 and written back cast to the parameter's dtype.
+
+An update over a list (`_update`) groups the pairs by device and parameter
+dtype and makes one `kernels.adam_update.adam_update` call per group: one
+kernel launch on the card (per 512 tensors), the rule tensor by tensor on
+the CPU.
 """
 from __future__ import annotations
 
-import math
-
 import torch
 
+from ..kernels.adam_update import adam_rule, adam_update
 from .optimizer import Optimizer
 
 __all__ = ["Adam", "AdamW"]
@@ -34,36 +40,50 @@ class Adam(Optimizer):
         self._epsilon = epsilon
         self._multi_precision = multi_precision
 
+    # AdamW's decoupled decay (0: none)
+    _coeff = 0.0
+
     def _create_accumulators(self, params):
         for p in params:
             if p in self._accumulators["moment1"]:
                 continue
             self._accumulators["moment1"][p] = torch.zeros_like(
-                p, dtype=torch.float32)
+                p, dtype=torch.float32, memory_format=torch.contiguous_format)
             self._accumulators["moment2"][p] = torch.zeros_like(
-                p, dtype=torch.float32)
+                p, dtype=torch.float32, memory_format=torch.contiguous_format)
             if self._multi_precision and p.dtype != torch.float32:
                 self._accumulators["master_weight"][p] = \
-                    p.detach().to(torch.float32)
+                    p.detach().to(torch.float32).contiguous()
 
-    def _adam_core(self, p, g, m1, m2, lr, step, master=None):
-        gf = g.to(torch.float32)
-        b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        m1n = b1 * m1 + (1 - b1) * gf
-        m2n = b2 * m2 + (1 - b2) * gf * gf
-        lr_t = lr * math.sqrt(1 - b2 ** step) / (1 - b1 ** step)
-        base = master if master is not None else p.to(torch.float32)
-        new_master = base - lr_t * m1n / (torch.sqrt(m2n) + eps)
-        return new_master.to(p.dtype), m1n, m2n, new_master
+    def _decays(self, p):
+        """Whether AdamW's decay applies to parameter `p`."""
+        return False
 
     def _single_update(self, p, g, accs, lr, step):
-        master = accs.get("master_weight")
-        new_p, m1, m2, new_master = self._adam_core(
-            p, g, accs["moment1"], accs["moment2"], lr, step, master)
+        new_p, m1, m2, new_master = adam_rule(
+            p, g, accs["moment1"], accs["moment2"],
+            accs.get("master_weight"), lr, step, self._beta1, self._beta2,
+            self._epsilon, self._coeff, self._decays(p))
         out = {"moment1": m1, "moment2": m2}
-        if master is not None:
+        if new_master is not None:
             out["master_weight"] = new_master
         return new_p, out
+
+    def _update(self, params_grads):
+        accs = self._accumulators
+        groups = {}
+        for p, g in params_grads:
+            groups.setdefault((p.device, p.dtype), []).append((p, g))
+        for (device, _), pairs in groups.items():
+            lr, t = self._device_scalars(device)
+            adam_update(
+                [p.detach() for p, _ in pairs],
+                [g.to(p.dtype).contiguous() for p, g in pairs],
+                [accs["moment1"][p] for p, _ in pairs],
+                [accs["moment2"][p] for p, _ in pairs],
+                [accs["master_weight"].get(p) for p, _ in pairs],
+                [self._decays(p) for p, _ in pairs], lr, t, self._beta1,
+                self._beta2, self._epsilon, self._coeff)
 
 
 class AdamW(Adam):
@@ -86,22 +106,5 @@ class AdamW(Adam):
             self._decay_skip = {p for p in self._parameter_list
                                 if not apply_decay_param_fun(self._names[p])}
 
-    def _update_args(self, p):
-        return {"decay": p not in self._decay_skip}
-
-    def _single_update(self, p, g, accs, lr, step, decay=True):
-        master = accs.get("master_weight")
-        base = master if master is not None else p.to(torch.float32)
-        decayed = base * (1.0 - lr * self._coeff) if decay and self._coeff \
-            else base
-        if master is not None:
-            new_p, m1, m2, new_master = self._adam_core(
-                p, g, accs["moment1"], accs["moment2"], lr, step, decayed)
-        else:
-            new_p, m1, m2, new_master = self._adam_core(
-                decayed.to(p.dtype), g, accs["moment1"], accs["moment2"], lr,
-                step)
-        out = {"moment1": m1, "moment2": m2}
-        if master is not None:
-            out["master_weight"] = new_master
-        return new_p, out
+    def _decays(self, p):
+        return bool(self._coeff) and p not in self._decay_skip

@@ -7,6 +7,12 @@
   ``FLAGS_use_fused_cross_entropy`` off (V = 128) and on (V = 8192, the
   fused route; the JAX package takes its unfused path off the TPU, which
   has the same semantics).
+- The same trajectory under a learning-rate schedule
+  (`LinearWarmup(CosineAnnealingDecay)`, stepped after every step on both
+  sides) against the JAX `TrainStep(donate="all")`; an eager
+  `Optimizer.step` after three TrainStep steps, continuing from the same
+  accumulators on both sides; the losses a TrainStep returns stay what
+  they were.
 - One AdamW `_single_update` with ``multi_precision`` on a bf16 parameter.
 - An eager `Optimizer.step` with `ClipGradByGlobalNorm`, and each clip
   against the reference's on the same arrays.
@@ -34,6 +40,7 @@ from paddle_tpu.incubate.models import \
     GPTPretrainingCriterion as JGPTPretrainingCriterion
 from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.nn import clip as jclip
+from paddle_tpu.optimizer import lr as jlr
 
 from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.framework import set_flags
@@ -42,6 +49,7 @@ from paddle_tpu_torch.incubate.models import (GPTConfig, GPTForCausalLM,
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nn import clip as tclip
 from paddle_tpu_torch.optimizer import Adam, AdamW
+from paddle_tpu_torch.optimizer import lr as tlr
 
 from test_torch_serving import one_torch_thread  # noqa: F401 (autouse)
 
@@ -128,6 +136,120 @@ def test_train_step_trajectory_matches_jax(heads, fused_ce):
     for name, tp in tm.named_parameters():
         np.testing.assert_allclose(tp.detach().numpy(), want[name], rtol=0,
                                    atol=PARAM_ATOL, err_msg=name)
+
+
+def _schedule(mod):
+    return mod.LinearWarmup(mod.CosineAnnealingDecay(LR, T_max=STEPS),
+                            warmup_steps=3, start_lr=LR / 10, end_lr=LR)
+
+
+def _adamw_scheduled(jm, tm):
+    """AdamW on both sides, every tensor decaying, lr from the schedule."""
+    j_sched, t_sched = _schedule(jlr), _schedule(tlr)
+    jopt = paddle.optimizer.AdamW(learning_rate=j_sched,
+                                  parameters=jm.parameters(),
+                                  weight_decay=0.01)
+    topt = AdamW(learning_rate=t_sched, parameters=tm.parameters(),
+                 weight_decay=0.01)
+    return (jopt, j_sched), (topt, t_sched)
+
+
+def _assert_params_match(jm, tm):
+    want = _jax_params(jm, tm)
+    for name, tp in tm.named_parameters():
+        np.testing.assert_allclose(tp.detach().numpy(), want[name], rtol=0,
+                                   atol=PARAM_ATOL, err_msg=name)
+
+
+@pytest.mark.parametrize("heads", [4, 1])
+def test_train_step_trajectory_under_a_schedule_matches_jax(heads):
+    """lr changes at every step; the JAX side donates everything, as the
+    reference's benchmark step does."""
+    jm, tm = _pair(128, heads)
+    (jopt, j_sched), (topt, t_sched) = _adamw_scheduled(jm, tm)
+    jcrit, tcrit = JGPTPretrainingCriterion(), GPTPretrainingCriterion()
+    jstep = JTrainStep(jm, lambda o, y: jcrit(o, y), jopt, donate="all")
+    tstep = TrainStep(tm, tcrit, topt)
+    ids, labels = _batch(128, seed=3)
+    jx, jy = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    t_losses, j_losses, lrs = [], [], []
+    for _ in range(STEPS):
+        lrs.append(topt.get_lr())
+        assert lrs[-1] == jopt.get_lr()
+        t_losses.append(float(tstep(torch.from_numpy(ids),
+                                    torch.from_numpy(labels))))
+        j_losses.append(float(jstep(jx, jy)))
+        t_sched.step()
+        j_sched.step()
+    assert len(set(lrs)) == STEPS
+    np.testing.assert_allclose(t_losses, j_losses, **LOSS_TOL)
+    assert t_losses[-1] < t_losses[0]
+    assert topt._step_count == jopt._step_count == STEPS
+    _assert_params_match(jm, tm)
+
+
+def test_eager_step_after_train_steps_continues_like_jax():
+    """Three TrainStep steps, then loss.backward() and an eager
+    Optimizer.step(): the eager update starts from the accumulators (and
+    step count) the TrainStep left, on both sides."""
+    jm, tm = _pair(128, 4)
+    (jopt, _), (topt, _) = _adamw_scheduled(jm, tm)
+    jcrit, tcrit = JGPTPretrainingCriterion(), GPTPretrainingCriterion()
+    jstep = JTrainStep(jm, lambda o, y: jcrit(o, y), jopt)
+    tstep = TrainStep(tm, tcrit, topt)
+    ids, labels = _batch(128, seed=4)
+    jx, jy = paddle.to_tensor(ids), paddle.to_tensor(labels)
+    tx, ty = torch.from_numpy(ids), torch.from_numpy(labels)
+    for _ in range(3):
+        tstep(tx, ty)
+        jstep(jx, jy)
+    moments = {id(p): topt._accumulators["moment1"][p]
+               for p in tm.parameters()}
+    jloss = jcrit(jm(jx), jy)
+    jloss.backward()
+    jopt.step()
+    tloss = tcrit(tm(tx), ty)
+    tloss.backward()
+    topt.step()
+    topt.clear_grad()
+    np.testing.assert_allclose(float(tloss.detach()), float(jloss),
+                               **LOSS_TOL)
+    assert topt._step_count == jopt._step_count == 4
+    _assert_params_match(jm, tm)
+    linear = {f"{n}.weight" for n, m in tm.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    for (name, tp), jp in zip(tm.named_parameters(), jm.parameters()):
+        # updated in place: the TrainStep's moment tensors carried on
+        assert topt._accumulators["moment1"][tp] is moments[id(tp)]
+        # the moments average gradients that the two packages sum in
+        # another order (the losses' 1e-5): each is held to 1e-5 of its
+        # tensor's largest entry, since an element near 0 is a
+        # cancellation of such gradients
+        for acc in ("moment1", "moment2"):
+            want = np.asarray(jopt._accumulators[acc][jp.name])
+            want = want.T if name in linear else want
+            np.testing.assert_allclose(
+                topt._accumulators[acc][tp].numpy(), want, rtol=1e-5,
+                atol=1e-5 * float(np.abs(want).max()),
+                err_msg=f"{name} {acc}")
+
+
+def test_train_step_returns_a_fresh_loss_each_call():
+    """Each call's loss is its own tensor and keeps its value after the
+    next call (on the card the graph's static loss is overwritten by every
+    replay, so the step returns a clone)."""
+    _, tm = _pair(128, 4)
+    tstep = TrainStep(tm, GPTPretrainingCriterion(),
+                      AdamW(learning_rate=1e-3, parameters=tm.parameters()))
+    ids, labels = _batch(128, seed=5)
+    x, y = torch.from_numpy(ids), torch.from_numpy(labels)
+    first = tstep(x, y)
+    value = float(first)
+    second = tstep(x, y)
+    assert first is not second
+    assert first.data_ptr() != second.data_ptr()
+    assert float(first) == value != float(second)
+    assert not first.requires_grad and first.shape == ()
 
 
 def test_adamw_single_update_multi_precision_bf16():
@@ -227,7 +349,9 @@ def test_not_ported_options_raise():
                         grad_clip=tclip.ClipGradByGlobalNorm(1.0)))
     with pytest.raises(NotImplementedError, match="regularizers"):
         Adam(parameters=tm.parameters(), weight_decay=0.01)
-    with pytest.raises(NotImplementedError, match="schedulers"):
+    # a schedule must be an LRScheduler (ported); any other callable is
+    # refused when the optimizer is made
+    with pytest.raises(TypeError, match="LRScheduler"):
         AdamW(learning_rate=lambda step: 1e-3, parameters=tm.parameters())
     with pytest.raises(ValueError, match="named_parameters"):
         AdamW(parameters=tm.parameters(), apply_decay_param_fun=_decays)
