@@ -53,23 +53,42 @@ Phases, in order; any failure raises and the script exits non-zero:
                lists (fp32 and bf16 without masters, aligned and
                misaligned, a decay-skip set): parameters, masters and
                moments bit for bit with the twin over 3 steps, timed
-               beside PyTorch's fused AdamW (another formula);
+               beside PyTorch's fused AdamW (another formula); the
+               prompt's K/V scatter (every layer in one launch, fp and
+               int8 pools) at buckets 16, 128 and 1024 with the forward's
+               strided views, lengths 1, 15, 16, 17, 128, 990 and 1024, a
+               block row with spare and null entries over pools that hold
+               a previous tenant's bytes and scales: pools and scales bit
+               for bit on every block but 0, block 0 untouched, timed at
+               a full 1024 bucket;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
                none in the counted window of 19 requests (16 greedy, 2
                sampled, one 990-token prompt so the 1024 bucket runs),
-               more requests than slots; prefill launches the flash kernel
-               12 x per admission, each replay the fused paged kernel
-               (write + attention) 12 x and the paged kernel alone never
-               (counted per replay); then the decode
+               more requests than slots, then the same mix again (the
+               warm pass); each prefill is one replay of its bucket's CUDA
+               graph (the flash kernel 12 x, the K/V scatter once) and one
+               of a sampler head's, each bucket built at its first prompt
+               (prefill_compiles: one a bucket the pass reached first,
+               none in the warm pass; a build's eager warm-up launches
+               the bucket's kernels once more), each decode replay the
+               fused paged kernel (write + attention) 12 x and the paged
+               kernel alone never (counted per replay); the prefill
+               graphs' reserved memory; then the decode
                graph against the eager step: a second engine stepping
                `_decode_step_eager`, both in turns for 20 steps over 8
                requests, with equal greedy tokens at every step (the
                logits' difference and both step p50s printed), and 4
                decode steps of 8 full slots of each engine under
                torch.profiler (device time by kernel group, kernels a
-               step, busy share);
+               step, busy share); then the prefill graphs against the
+               eager prefill (`_prefill_eager`) on a second engine, in
+               turns at each bucket 16-1024, 20 prompts a bucket a turn:
+               sampled tokens, logprobs and pools (levels and scales)
+               equal on every block but 0, the logits' difference and
+               both prefill p50s printed, and 4 prefills of each engine
+               at buckets 16 and 1024 under torch.profiler;
                Each decode step samples inside its graphs (the keyed draw
                once a replay and once a prefill, the filter once a
                full-head replay and once a sampled prefill): the full
@@ -124,12 +143,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
-draw, the sampler's filter), the
+draw, the sampler's filter, the prompt's K/V scatter), the
 training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
 and backward, the AdamW update) and the fused bias-residual LayerNorm
 within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL /
-LN_TOL (the decode write and the update exactly), and the bf16 flash
-forward and backward within their own
+LN_TOL (the decode write, the scatter and the update exactly), and the
+bf16 flash forward and backward within their own
 stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
 JSON line with every kernel's numbers, the card's nvidia-smi line, and, last,
@@ -161,11 +180,13 @@ from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
 from paddle_tpu_torch.kernels import adam_update as au
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
+from paddle_tpu_torch.kernels import prefill_scatter as ps
 from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.serving import sampling as tsamp
-from paddle_tpu_torch.serving import (LLMEngine, num_blocks_for_bytes,
+from paddle_tpu_torch.serving import (LLMEngine, Request,
+                                      num_blocks_for_bytes,
                                       pool_bytes_per_block)
 from paddle_tpu_torch.serving.engine import _slot_views
 from paddle_tpu_torch.serving.sampling import sample_tokens
@@ -538,8 +559,9 @@ def check_flash():
                           False)
     dtype = torch.bfloat16
     # bf16 tile edges and a length that is no power of two: TMA's zero
-    # fill past n and the diagonal mask at every offset within a tile
-    for n in (8, 64, 65, 1000):
+    # fill past n and the diagonal mask at every offset within a tile (8,
+    # 16: the smallest prefill buckets)
+    for n in (8, 16, 17, 64, 65, 1000):
         for causal in (True, False):
             _check_flash_case(f"flash bfloat16 n={n} causal={causal}",
                               *_fused_qkv(n, dtype, seed=30 + n), causal)
@@ -1009,6 +1031,145 @@ def check_paged_append():
                           "one PyTorch call requantizes a block" if int8 else
                           "bf16 pools; library_ms: two index_put_, a "
                           "gather and SDPA"))})
+    return rows
+
+
+# the prompt's K/V scatter against its twin (bit for bit on every block but
+# null block 0, block 0 untouched): buckets, and lengths of one token, a
+# block less one, a block, a block and one, the serve mix's longest prompt
+# and a full bucket; the bucket of 1024 is timed at a full bucket
+SCATTER_CASES = ((16, (1, 15, 16)), (128, (1, 15, 16, 17, 128)),
+                 (1024, (17, 990, 1024)))
+SCATTER_LAYERS, SCATTER_M = 12, 64
+
+
+def _scatter_state(bucket, dtype, int8, seed, bs=16):
+    """Per-layer K/V rows as strided views of one [bucket, 3, H, D]
+    projection a layer (the forward's layout), pools of 1 + 2 M blocks
+    that hold a previous tenant's bytes (int8: levels and scales), and a
+    block row of M shuffled block ids: the prompt's blocks, then spare
+    blocks past it, the last 4 entries null where the bucket leaves them
+    free."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gain = torch.rand((bucket, 1, 1, 1), generator=g, device="cuda") * 4 \
+        + 0.05
+    qkv = [(torch.randn((bucket, 3, HEADS, HEAD_DIM), generator=g,
+                        device="cuda") * gain).to(dtype)
+           for _ in range(SCATTER_LAYERS)]
+    nb = 1 + 2 * SCATTER_M
+    shape = (SCATTER_LAYERS, nb, bs, HEADS, HEAD_DIM)
+    if int8:
+        pools = [torch.randint(-127, 128, shape, generator=g, device="cuda",
+                               dtype=torch.int8) for _ in range(2)]
+        scales = [torch.rand((SCATTER_LAYERS, nb, HEADS), generator=g,
+                             device="cuda") * 4 + 0.5 for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for _ in range(2)]
+        scales = [None, None]
+    row = (1 + torch.randperm(nb - 1, generator=g, device="cuda")
+           [:SCATTER_M]).to(torch.int32)
+    if bucket <= (SCATTER_M - 4) * bs:
+        row[-4:] = 0
+    return [x[:, 1] for x in qkv], [x[:, 2] for x in qkv], pools, scales, row
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def _check_scatter_case(bucket, length, dtype, int8):
+    """One scatter against its twin on copies of one state."""
+    k, v, pools, scales, row = _scatter_state(bucket, dtype, int8,
+                                              seed=bucket + length)
+    orig = [t for t in (*pools, *scales) if t is not None]
+    want = [t.clone() for t in orig]
+    got = [t.clone() for t in orig]
+    n = torch.full((), length, dtype=torch.int32, device="cuda")
+    ps.prefill_scatter_reference(want[0], want[1], k, v, row, n, 16,
+                                 *want[2:])
+    ps.prefill_scatter(got[0], got[1], k, v, row, n, 16, *got[2:])
+    torch.cuda.synchronize()
+    tag = (f"prefill_scatter{'_int8' if int8 else ''} {str(dtype)[6:]} "
+           f"rows, bucket {bucket}, length {length}")
+    for g_t, w_t, o_t in zip(got, want, orig):
+        assert torch.equal(_bits(g_t[:, 1:]), _bits(w_t[:, 1:])), \
+            f"{tag}: not bit-identical to the twin"
+        assert torch.equal(_bits(g_t[:, 0]), _bits(o_t[:, 0])), \
+            f"{tag}: block 0 written"
+    return tag
+
+
+def check_prefill_scatter():
+    """The prompt's K/V scatter (one launch for every layer, K and V)
+    against its twin, bit for bit on every block but 0 and block 0
+    untouched, at SCATTER_CASES for bf16 rows (the serving path's) and at
+    bucket 128 for fp32 rows, fp and int8 pools. Returns the two rows,
+    timed at a full 1024-token bucket with bf16 rows."""
+    bs = 16
+    tags = []
+    for int8 in (False, True):
+        for bucket, lengths in SCATTER_CASES:
+            for length in lengths:
+                tags.append(_check_scatter_case(bucket, length,
+                                                torch.bfloat16, int8))
+        for length in SCATTER_CASES[1][1]:
+            tags.append(_check_scatter_case(128, length, torch.float32,
+                                            int8))
+    print(f"  prefill_scatter: {len(tags)} cases bit-identical to the twin "
+          f"on blocks 1.. and block 0 untouched (buckets and lengths "
+          f"{json.dumps(SCATTER_CASES)} in bf16, bucket 128 in fp32, fp "
+          "and int8 pools)")
+    rows = []
+    bucket = length = 1024
+    for int8 in (False, True):
+        k, v, pools, scales, row = _scatter_state(bucket, torch.bfloat16,
+                                                  int8, seed=7)
+        n = torch.full((), length, dtype=torch.int32, device="cuda")
+        args = (*pools, k, v, row, n, bs, *scales)
+        ms, host_ms = _timed(lambda: ps.prefill_scatter(*args))
+        plain_ms = _cuda_ms(lambda: ps.prefill_scatter_reference(*args),
+                            iters=5)
+        if int8:
+            library_ms = None
+        else:
+            # the nearest calls: two index_put_ a layer, the positions
+            # computed beforehand
+            pos = torch.arange(length, device="cuda")
+            blocks, offs = row.long()[pos // bs], pos % bs
+
+            def library():
+                for layer in range(SCATTER_LAYERS):
+                    pools[0][layer].index_put_((blocks, offs), k[layer])
+                    pools[1][layer].index_put_((blocks, offs), v[layer])
+
+            library_ms = _cuda_ms(library)
+        used = int((row != 0).sum())        # blocks whose scales it writes
+        nbytes = ps.scatter_bytes(length, SCATTER_LAYERS, HEADS, HEAD_DIM, 2,
+                                  int8, used)
+        # int8: about 6 fp32 operations an element (abs, max, multiply,
+        # round, two clamps)
+        flops = 6 * 2 * SCATTER_LAYERS * length * HEADS * HEAD_DIM if int8 \
+            else 0
+        bound, by = _bound_ms(nbytes, flops, torch.float32)
+        name = "prefill_scatter_int8" if int8 else "prefill_scatter"
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/prefill_scatter.cu",
+            "replaces": ("no Pallas counterpart: paddle_tpu/serving/cache.py"
+                         ":237 scatter_prefill over paddle_tpu/quantization/"
+                         "kv_cache.py:90 quantize_scatter (XLA ops)" if int8
+                         else "no Pallas counterpart: paddle_tpu/serving/"
+                         "cache.py:237 scatter_prefill (XLA ops)"),
+            "max_abs_err": 0.0, "ms": ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "bytes": nbytes,
+            "shape": (f"12 layers of bf16 rows [1024, 12, 64] (strided views "
+                      f"of [1024, 3, 12, 64]), length {length}, bs=16, a "
+                      f"block row of 64, " + (
+                          "int8 pools + fp32 scales; library_ms null: no one "
+                          "PyTorch call quantizes a block" if int8 else
+                          "bf16 pools; library_ms: two index_put_ a layer"))})
     return rows
 
 
@@ -1789,29 +1950,29 @@ def _watch_heads(engine):
     return heads, prefills
 
 
-def serve(kv_dtype=None):
-    """The serving mix through `LLMEngine` (bf16 pools, or int8 with
-    ``kv_dtype="int8"``), whose decode step is one CUDA graph replay: one
-    build (decode_compiles) in the warm-up, none in the counted window,
-    and every kernel of the step counted once per replay. Then the decode
-    graph against the eager step (`_graph_vs_eager`). Returns the launch
-    counts of the counted window, the greedy requests' tokens and the
-    model."""
-    tag = "serve_int8" if kv_dtype else "serve"
-    paged, other = (("paged_decode_append_int8", "paged_decode_append")
-                    if kv_dtype else ("paged_decode_append",
-                                      "paged_decode_append_int8"))
-    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
-    engine = LLMEngine(model, max_batch_size=8, block_size=16,
-                       max_context=1024, kv_dtype=kv_dtype)
-    rng = np.random.default_rng(0)
-    # warm-up (cuBLAS handles, allocator, the decode graph's capture),
-    # outside the counted window
-    engine.generate([rng.integers(0, 50257, 20).tolist()], max_new_tokens=2)
-    assert engine.stats()["decode_compiles"] == 1, engine.stats()
+def _measure_captures(engine):
+    """Record, on `engine`'s instance, the device memory each prefill graph
+    capture reserves (the prefill programs' shared pool grows by it):
+    returns the list of deltas in bytes."""
+    deltas = []
+
+    def captured(fn, orig=engine._captured):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
+        out = orig(fn)
+        deltas.append(torch.cuda.memory_reserved() - before)
+        return out
+
+    engine._captured = captured
+    return deltas
+
+
+def _serve_window(engine, mix):
+    """The mix through `engine` from zeroed counts and stats: returns the
+    requests, the launch counts, the window's stats, the heads of its
+    decode launches, its prefills' sampled flags and its wall time."""
     engine.reset_stats()
-    mix = _serve_mix(rng)
     heads, prefills = _watch_heads(engine)
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -1821,48 +1982,114 @@ def serve(kv_dtype=None):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     del engine._samples, engine._prefill
+    return reqs, counts, engine.stats(), heads, prefills, wall
+
+
+def serve(kv_dtype=None):
+    """The serving mix through `LLMEngine` (bf16 pools, or int8 with
+    ``kv_dtype="int8"``), whose decode step is one CUDA graph replay and
+    whose prefill is one replay of its bucket's graph and one of a sampler
+    head's: one decode build (decode_compiles) and the first bucket's
+    prefill build in the warm-up, one prefill build for each bucket the
+    mix reaches first in the counted window (whose warm-ups launch the
+    bucket's kernels once more), none in a second, warm pass of the mix,
+    and every kernel counted once per replay. Then the decode graph
+    against the eager step (`_graph_vs_eager`) and the prefill graphs
+    against the eager prefill (`_prefill_vs_eager`). Returns the launch
+    counts of the warm pass, the greedy requests' tokens of the first
+    window and the model."""
+    tag = "serve_int8" if kv_dtype else "serve"
+    paged, other = (("paged_decode_append_int8", "paged_decode_append")
+                    if kv_dtype else ("paged_decode_append",
+                                      "paged_decode_append_int8"))
+    scatter, other_scatter = (("prefill_scatter_int8", "prefill_scatter")
+                              if kv_dtype else ("prefill_scatter",
+                                                "prefill_scatter_int8"))
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    engine = LLMEngine(model, max_batch_size=8, block_size=16,
+                       max_context=1024, kv_dtype=kv_dtype)
+    captures = _measure_captures(engine)
+    rng = np.random.default_rng(0)
+    # warm-up (cuBLAS handles, allocator, the decode graph's capture, the
+    # first prefill bucket's and the sampler heads'), outside the window
+    engine.generate([rng.integers(0, 50257, 20).tolist()], max_new_tokens=2)
     st = engine.stats()
-    # the steps with a sampling slot ran the full head, the rest the greedy
-    assert len(heads) == st["steps"] and 0 < sum(heads) < len(heads), \
-        (len(heads), sum(heads), st["steps"])
-    assert all(r.state == "FINISHED" and len(r.generated) == 24
-               for r in reqs), [(r.rid, r.state) for r in reqs]
-    assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+    assert st["decode_compiles"] == 1 and st["prefill_compiles"] == 1, st
+    warm_buckets = set(engine._prefill_fns)
+    mix = _serve_mix(rng)
     layers = cfg.num_hidden_layers
-    assert st["decode_compiles"] == 0, st
-    assert counts["flash_attention_fwd"] > 0 and counts[paged] > 0, counts
-    # one launch a layer writes and attends: the paged kernel alone
-    # (kAppend off) never runs on this path
-    assert counts[paged] == layers * st["steps"], (counts, st)
-    assert counts[other] == 0 and counts["paged_decode"] == 0 \
-        and counts["paged_decode_int8"] == 0, counts
-    assert counts["flash_attention_fwd"] == layers * st["prefills"], \
-        (counts, st)
-    # the sampler's draw: one launch in each replay and each prefill; its
-    # filter: one in each full-head replay and each sampled prefill
-    assert counts["keyed_draw"] == st["steps"] + st["prefills"], (counts, st)
-    assert counts["sampler_filter"] == sum(heads) + sum(prefills) > 0, \
-        (counts, sum(heads), sum(prefills))
-    assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
-    assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
-    print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
-          f"in {wall:.3f} s = {st['tokens_generated'] / wall:.1f} tok/s; "
-          f"{st['steps']} decode steps (graph replays; {st['decode_compiles']}"
-          f" decode builds in the window, 1 in the warm-up; {sum(heads)} "
-          f"with the full sampler head, {len(heads) - sum(heads)} with the "
-          f"greedy head; sampler_filter launches {counts['sampler_filter']} "
-          f"= full-head replays + {sum(prefills)} sampled prefills), p50 "
-          f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms; TTFT "
-          f"p50 {st['ttft_p50_ms']:.3f} ms; {st['prefills']} prefills, "
-          f"{st['evictions']} evictions; occupancy "
-          f"{st['occupancy_mean']:.3f}")
-    print(f"{tag}: prefill p50 ms by bucket "
-          + json.dumps({str(b): round(v, 3)
-                        for b, v in st["prefill_p50_ms"].items()}))
-    print(f"{tag}: launches {json.dumps(counts)}")
+    passes = {}
+    for name in ("first", "warm"):
+        reqs, counts, st, heads, prefills, wall = _serve_window(engine, mix)
+        passes[name] = counts, st
+        buckets = set(st["prefill_p50_ms"])
+        new = buckets - warm_buckets
+        warm_buckets |= buckets
+        # one build for each bucket this pass reached first: none warm
+        assert st["prefill_compiles"] == len(new), (name, st, new)
+        assert bool(new) == (name == "first"), (name, new)
+        builds = st["prefill_compiles"]
+        # the steps with a sampling slot ran the full head, the rest the
+        # greedy
+        assert len(heads) == st["steps"] and 0 < sum(heads) < len(heads), \
+            (len(heads), sum(heads), st["steps"])
+        assert all(r.state == "FINISHED" and len(r.generated) == 24
+                   for r in reqs), [(r.rid, r.state) for r in reqs]
+        assert all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated)
+        assert st["decode_compiles"] == 0, st
+        assert counts["flash_attention_fwd"] > 0 and counts[paged] > 0, counts
+        # one launch a layer writes and attends: the paged kernel alone
+        # (kAppend off) never runs on this path
+        assert counts[paged] == layers * st["steps"], (counts, st)
+        assert counts[other] == 0 and counts["paged_decode"] == 0 \
+            and counts["paged_decode_int8"] == 0, counts
+        # each prefill replays its bucket's graph: the flash kernel a layer
+        # and the scatter once; each build's eager warm-up launches them
+        # once more
+        assert counts["flash_attention_fwd"] == layers * (
+            st["prefills"] + builds), (counts, st)
+        assert counts[scatter] == st["prefills"] + builds > 0, (counts, st)
+        assert counts[other_scatter] == 0, counts
+        # the sampler's draw: one launch in each replay and each prefill;
+        # its filter: one in each full-head replay and each sampled prefill
+        assert counts["keyed_draw"] == st["steps"] + st["prefills"], \
+            (counts, st)
+        assert counts["sampler_filter"] == sum(heads) + sum(prefills) > 0, \
+            (counts, sum(heads), sum(prefills))
+        assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
+        assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
+        print(f"{tag} ({name} pass): {len(reqs)} requests, "
+              f"{st['tokens_generated']} tokens in {wall:.3f} s = "
+              f"{st['tokens_generated'] / wall:.1f} tok/s; {st['steps']} "
+              f"decode steps (graph replays; {st['decode_compiles']} decode "
+              f"builds in the window, 1 in the warm-up; {sum(heads)} with "
+              f"the full sampler head, {len(heads) - sum(heads)} with the "
+              f"greedy head; sampler_filter launches "
+              f"{counts['sampler_filter']} = full-head replays + "
+              f"{sum(prefills)} sampled prefills), p50 "
+              f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms; "
+              f"TTFT p50 {st['ttft_p50_ms']:.3f} ms, p99 "
+              f"{st['ttft_p99_ms']:.3f} ms; {st['prefills']} prefills, "
+              f"{builds} prefill builds (buckets first reached: "
+              f"{sorted(new)}), {st['evictions']} evictions; "
+              f"{scatter} launches {counts[scatter]} = prefills + builds; "
+              f"occupancy {st['occupancy_mean']:.3f}")
+        print(f"{tag} ({name} pass): prefill p50 ms by bucket (host clock, "
+              f"a build included where the pass built the bucket) "
+              + json.dumps({str(b): round(v, 3)
+                            for b, v in st["prefill_p50_ms"].items()}))
+        print(f"{tag} ({name} pass): launches {json.dumps(counts)}")
+        if name == "first":
+            greedy = [list(r.generated) for r in reqs if r.temperature == 0]
+    print(f"{tag}: prefill graphs, {len(captures)} captures ("
+          f"{len(engine._prefill_fns)} buckets and 2 sampler heads) "
+          f"reserved {sum(captures) / 2**20:.1f} MiB in their shared pool "
+          f"(by capture, MiB: "
+          f"{json.dumps([round(d / 2**20, 1) for d in captures])})")
     _graph_vs_eager(tag, model, engine, kv_dtype, rng)
-    greedy = [list(r.generated) for r in reqs if r.temperature == 0]
-    return counts, greedy, model
+    _prefill_vs_eager(tag, model, kv_dtype, rng)
+    return passes["warm"][0], greedy, model
 
 
 # the decode graph against the eager step: steps of each, in turns
@@ -1937,6 +2164,125 @@ def _graph_vs_eager(tag, model, engine, kv_dtype, rng):
     engine.run()
     eager.run()
     engine._decode_program = program
+
+
+# the prefill graphs against the eager prefill: prompts a bucket a turn,
+# in turns
+PREFILL_VS_EAGER = 20
+PREFILL_TURNS = ("graph", "eager", "eager", "graph")
+PREFILL_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+
+
+class _Recorded:
+    """A model whose calls keep the logits row each prompt samples from
+    while `lengths` lists the prompts' lengths, in order: the eager
+    prefill's forward, read where it happens."""
+
+    def __init__(self, model):
+        self.model, self.gen_caches = model, model.gen_caches
+        self.lengths, self.rows = [], []
+
+    def __call__(self, ids, caches):
+        logits, kv = self.model(ids, caches=caches)
+        if self.lengths:
+            self.rows.append(logits[0, self.lengths.pop(0) - 1].float())
+        return logits, kv
+
+
+def _prefill_vs_eager(tag, model, kv_dtype, rng):
+    """The prefill program (`_prefill`: one bucket replay and one head
+    replay) against `_prefill_eager` on a second engine, in turns
+    (PREFILL_TURNS) at each of PREFILL_BUCKETS, PREFILL_VS_EAGER prompts a
+    bucket a turn (lengths in the bucket's upper half, every fourth
+    sampled), each prompt into a block row of its own: the sampled tokens
+    and logprobs must be equal, and the pools (int8: levels and scales)
+    equal on every block but 0, after each turn pair. Prints the last-row
+    logits' max difference (reported), both engines' prefill p50 by bucket
+    (host clock around `_prefill`, which ends in the wait for its outputs)
+    and a profiled window of each at buckets 16 and 1024 (device time by
+    kernel group, kernels a prefill)."""
+    n, m = PREFILL_VS_EAGER, 64
+    engines = {name: LLMEngine(model, max_batch_size=8, block_size=16,
+                               max_context=1024, kv_dtype=kv_dtype,
+                               num_blocks=1 + n * m)
+               for name in ("graph", "eager")}
+    eager = engines["eager"]
+    eager._prefill = eager._prefill_eager
+    recorded = eager._model = _Recorded(model)
+    times = {name: {b: [] for b in PREFILL_BUCKETS} for name in engines}
+    for bucket in PREFILL_BUCKETS:         # built ahead: the turns time
+        engines["graph"]._build_prefill(bucket)        # replays alone
+    err = 0.0
+    for bucket in PREFILL_BUCKETS:
+        reqs = []
+        for i in range(n):
+            length = int(rng.integers(bucket // 2 + 1, bucket + 1))
+            kw = (dict(temperature=0.8, top_k=40, top_p=0.95, seed=i)
+                  if i % 4 == 3 else {})
+            req = Request(f"p{i}", rng.integers(0, 50257, length).tolist(),
+                          1, **kw)
+            req.slot = i % 8
+            row = np.zeros(m, np.int32)
+            used = -(-length // 16)
+            row[:used] = 1 + i * m + np.arange(used)
+            reqs.append((req, row))
+        outs, logits = {}, []
+        for turn, name in enumerate(PREFILL_TURNS):
+            engine, got = engines[name], []
+            if turn == 1:
+                recorded.lengths = [len(req.prompt) for req, _ in reqs]
+            for req, row in reqs:
+                t0 = time.perf_counter()
+                got.append(engine._prefill(req.prompt, bucket, row, req))
+                times[name][bucket].append(time.perf_counter() - t0)
+                if turn == 0:
+                    logits.append(engine._pf_logits[0].float().clone())
+            outs.setdefault(name, got)
+            assert all(all(np.array_equal(a, b) for a, b in zip(g, w))
+                       for g, w in zip(got, outs[name])), (tag, bucket, name)
+            if turn in (1, 3):
+                for (req, _), g, e in zip(reqs, outs["graph"],
+                                          outs["eager"]):
+                    assert all(np.array_equal(a, b) for a, b in zip(g, e)), \
+                        (tag, bucket, req.rid, g, e)
+                for a, b in zip(*(_cache_tensors(engines[x])
+                                  for x in ("graph", "eager"))):
+                    assert torch.equal(_bits(a[:, 1:]), _bits(b[:, 1:])), \
+                        (tag, bucket, "pools differ")
+        assert len(recorded.rows) == n, len(recorded.rows)
+        for g_row, e_row in zip(logits, recorded.rows):
+            err = max(err, (g_row - e_row).abs().max().item())
+        del recorded.rows[:]
+    assert engines["graph"].stats()["prefill_compiles"] \
+        == len(PREFILL_BUCKETS) and eager.stats()["prefill_compiles"] == 0
+    p50 = {name: {b: float(np.median(ts)) * 1e3 for b, ts in by.items()}
+           for name, by in times.items()}
+    print(f"{tag}: prefill graphs vs the eager prefill, {n} prompts a "
+          f"bucket a turn in turns {'/'.join(PREFILL_TURNS)}: sampled tokens "
+          f"and logprobs equal, pools equal on blocks 1.. after each turn "
+          f"pair; last-row logits max_abs_err {err:.3e} ("
+          f"{'bit-identical' if err == 0 else 'not bit-identical'}; "
+          f"reported, not held); prefill p50 ms by bucket, graph "
+          + json.dumps({str(b): round(v, 4) for b, v in p50["graph"].items()})
+          + ", eager "
+          + json.dumps({str(b): round(v, 4) for b, v in p50["eager"].items()})
+          + "; eager / graph "
+          + json.dumps({str(b): round(p50["eager"][b] / p50["graph"][b], 2)
+                        for b in PREFILL_BUCKETS}))
+    for bucket in (16, 1024):
+        req, row = Request("q", rng.integers(0, 50257, bucket).tolist(),
+                           1), np.arange(1, m + 1, dtype=np.int32)
+        req.slot = 0
+        for name, engine in engines.items():
+            _breakdown(f"{tag} prefill bucket {bucket}, {name}",
+                       lambda: [engine._prefill(req.prompt, bucket, row, req)
+                                for _ in range(4)], per=4)
+
+
+def _cache_tensors(engine):
+    cache = engine.cache
+    return [t for t in (cache.k_pools, cache.v_pools, cache.k_scales,
+                        cache.v_scales) if t is not None]
 
 
 # pipelined against unpipelined, in turns: steps of 8 slots of 200-token
@@ -2276,6 +2622,7 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("flash_attention_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                ("cross_entropy", ("ce_fwd_kernel", "ce_bwd_kernel")),
                ("adam_update", ("adam_update_kernel",)),
+               ("prefill_scatter", ("prefill_scatter_kernel",)),
                # the serving path's paged kernel writes this step's K and
                # V rows and attends in one launch (paged_decode_append)
                ("paged_decode_append", ("paged_decode_split_kernel",)),
@@ -2706,13 +3053,14 @@ def main():
     paged, paged_int8 = check_paged(), check_paged_int8()
     _paged_prev_line(paged, paged_int8)
     fused, fused_int8 = check_paged_append()
+    scatter, scatter_int8 = check_prefill_scatter()
     for row in (paged, paged_int8):
         row["note"] = ("the serving path runs this kernel with the decode "
                        "write folded in (paged_decode_append); this row "
                        "times it alone, and its launches there are 0")
     rows = {"serve": [check_flash(), paged, fused, check_keyed_draw(),
-                      check_sampler_filter()],
-            "serve_int8": [paged_int8, fused_int8],
+                      check_sampler_filter(), scatter],
+            "serve_int8": [paged_int8, fused_int8, scatter_int8],
             "train": check_flash_bwd() + check_ce() + [check_adam_update()],
             "fused_ln": [check_fused_ln()]}
     paths = {}
@@ -2740,7 +3088,7 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 13 and all(
+    assert len(rows) == 15 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",

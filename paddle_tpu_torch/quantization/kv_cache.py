@@ -12,7 +12,10 @@ its fp path does):
 
   * `quantize_scatter` — a prefilled prompt's bulk write: the touched
     blocks' scales are reset, scatter-maxed from the written tokens'
-    per-head amax, and every token quantizes under its block's scale;
+    per-head amax, and every token quantizes under its block's scale. It
+    is the plain twin of the int8 leg of the prefill's scatter kernel
+    (`kernels.prefill_scatter`, every layer in one launch); `length` may
+    be a device tensor, and no line reads it on the host;
   * `quantize_block_write` — the decode step's one-token append: the
     slot's write block is dequantized, the new token inserted, offsets
     past it zeroed, and the block requantized under its new per-head amax
@@ -25,9 +28,10 @@ then round half to even and clip; dequantization ``q * (scale / QMAX)``
 as ``q * (scale * (1 / QMAX))``), so on the same fp32 inputs the int8
 levels match the JAX package's bit for bit. These are plain tensor ops in
 the reference too (XLA, no Pallas kernel); on the card the port writes
-the decode token in the paged decode kernel's prologue, in the same launch
-that attends (`kernels.paged_attention.paged_decode_append`), and
-dequantizes in that kernel's loads.
+a prompt with the prefill's scatter kernel, the decode token in the paged
+decode kernel's prologue, in the same launch that attends
+(`kernels.paged_attention.paged_decode_append`), and dequantizes in that
+kernel's loads.
 """
 from __future__ import annotations
 
@@ -96,7 +100,8 @@ def quantize_scatter(pool, scales, tok_vals, blocks, offs, block_row,
     null block); block_row: ``[max_blocks]``, the sequence's block table,
     whose blocks get their scales RESET before the scatter-max (a freed
     block keeps its previous tenant's scale otherwise); length: the true
-    prompt length. Returns ``(pool, scales)``.
+    prompt length, an int or a 0-dim tensor on the pool's device (compared
+    on the device, never read back). Returns ``(pool, scales)``.
     """
     t = tok_vals.shape[0]
     blocks = blocks.long()
@@ -106,7 +111,7 @@ def quantize_scatter(pool, scales, tok_vals, blocks, offs, block_row,
     # divides by; padded tokens contribute nothing
     real = torch.arange(t, device=vals.device) < length
     amax = torch.where(real[:, None], torch.clamp_min(amax, SCALE_EPS), 0.0)
-    scales[block_row.long()] = 0.0
+    scales.index_fill_(0, block_row.long(), 0.0)
     # scatter-max over duplicate block ids: every token of a block folds
     # into its scale, deterministically (index_put_ would keep one of them)
     scales.scatter_reduce_(0, blocks[:, None].expand_as(amax), amax, "amax")

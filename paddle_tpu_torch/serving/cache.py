@@ -22,7 +22,8 @@ from collections import deque
 
 import torch
 
-from ..quantization.kv_cache import quantize_scatter
+from ..device import resolve_device
+from ..kernels.prefill_scatter import prefill_scatter
 
 __all__ = ["BlockAllocator", "PagedKVCache", "PagedCacheView",
            "scatter_prefill", "NULL_BLOCK", "pool_bytes_per_block",
@@ -150,13 +151,15 @@ def _check_dtype(dtype):
 
 class PagedKVCache:
     """The device pools + the allocator, sized once at engine start.
-    Pools are ``[L, num_blocks, block_size, H, D]`` on `device`; with
+    Pools are ``[L, num_blocks, block_size, H, D]`` on `device`
+    (``None``: ``cuda``, raising where there is no card); with
     ``dtype=torch.int8`` they are int8 and `k_scales` / `v_scales` hold
     fp32 ``[L, num_blocks, H]`` (else None)."""
 
     def __init__(self, num_layers, num_heads, head_dim, num_blocks,
-                 block_size, dtype=torch.float32, device="cpu"):
+                 block_size, dtype=torch.float32, device=None):
         _check_dtype(dtype)
+        device = resolve_device(device)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -204,29 +207,19 @@ def scatter_prefill(k_pools, v_pools, k_layers, v_layers, block_row,
 
     k_layers/v_layers: per-layer ``[T_bucket, H, D]`` prompt K/V from the
     bucketed prefill (right-padded to the bucket). block_row:
-    ``[max_blocks]`` int32 device tensor, the sequence's block table.
-    length: true prompt length; padded positions are routed to the null
-    block (garbage by construction, never read: attention masks by
-    length). With int8 pools pass the scales ``[L, num_blocks, H]``: each
-    layer's tokens quantize under freshly computed per-block-per-head
-    scales (`quantize_scatter`), and the call returns
+    ``[max_blocks]`` int32 tensor, the sequence's block table. length:
+    the true prompt length, an int or a 0-dim int32 tensor on the pools'
+    device; padded positions are never written into a real block
+    (attention masks by length). With int8 pools pass the scales ``[L,
+    num_blocks, H]``: each layer's tokens quantize under freshly computed
+    per-block-per-head scales (`quantize_scatter`), and the call returns
     ``(k_pools, v_pools, k_scales, v_scales)``. Otherwise returns the
-    pools.
+    pools. On the card every layer's write is one kernel launch
+    (`kernels.prefill_scatter`); on the CPU its twin runs, which routes
+    the padded positions to the null block.
     """
-    t_bucket = k_layers[0].shape[0]
-    pidx = torch.arange(t_bucket, device=k_pools.device)
-    blocks = torch.where(pidx < length,
-                         block_row.long()[pidx // block_size],
-                         torch.full_like(pidx, NULL_BLOCK))
-    offs = pidx % block_size
+    prefill_scatter(k_pools, v_pools, k_layers, v_layers, block_row, length,
+                    block_size, k_scales=k_scales, v_scales=v_scales)
     if k_scales is not None:
-        for layer, (k, v) in enumerate(zip(k_layers, v_layers)):
-            quantize_scatter(k_pools[layer], k_scales[layer], k, blocks, offs,
-                             block_row, length)
-            quantize_scatter(v_pools[layer], v_scales[layer], v, blocks, offs,
-                             block_row, length)
         return k_pools, v_pools, k_scales, v_scales
-    for layer, (k, v) in enumerate(zip(k_layers, v_layers)):
-        k_pools[layer].index_put_((blocks, offs), k.to(k_pools.dtype))
-        v_pools[layer].index_put_((blocks, offs), v.to(v_pools.dtype))
     return k_pools, v_pools

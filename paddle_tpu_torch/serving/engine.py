@@ -13,11 +13,29 @@ The device side lives on ``device``: the two pools ``[L, num_blocks,
 block_size, H, D]`` (with ``kv_dtype="int8"``, int8 pools and their fp32
 scales ``[L, num_blocks, H]``), which every prefill and decode step edits
 in place, each slot's context history ``[S, max_context]`` (the
-repetition penalty's), and the decode program's buffers. A prefill runs
-eagerly: the prompt (right-padded to a power-of-two bucket) goes through
-the model's dynamic-cache path — causal attention through the flash
-kernel — its K/V are scattered into the pools (quantized with int8
-pools) and its ids become the slot's history row.
+repetition penalty's), and the prefill and decode programs' buffers.
+
+A prefill runs one program per power-of-two bucket (capped at
+``max_context``), built at the first prompt that lands in the bucket and
+never again (`ServeStats.prefill_compiles`, the reference's count of
+prefill traces; a new sampler config never rebuilds one). Its inputs are
+static device buffers — the prompt's ids (a ``[max_context]`` row, zero
+past the prompt), the block row, the length, the slot and the sampler
+config, packed in one buffer that one copy fills from a pinned host
+buffer — and the program runs the prompt (right-padded to the bucket)
+through the model's dynamic-cache path (causal attention through the
+flash kernel), scatters its K/V into the pools (one kernel launch for
+every layer, quantized with int8 pools), picks the last real row's logits
+by a device index and writes the ids into the slot's history row through
+a device slot index. A sampler head over those logits, with the ids row
+as history, samples the first token at position ``length``: the full head
+for a sampled request, the greedy head otherwise, each built once. On the
+card each bucket's program is one CUDA graph and each head another, all in
+one memory pool of their own, captured after one eager warm-up that
+writes nothing live (an all-null block row, length 0, and the spare
+history row ``S``); a prefill is one staging copy, the bucket's replay,
+one head's replay and one copy out. On the CPU the same code runs over
+the same buffers without capture. A capture or replay that fails raises.
 
 The decode step is one program, built once per engine at its first
 decode step (`ServeStats.decode_compiles`, the reference's count of decode
@@ -121,7 +139,8 @@ def _host_slot_views(buf, s, m):
 
 
 def _out_buffer(s, k, device, pin=False):
-    """A decode step's outputs packed in one byte buffer (`_out_views`)."""
+    """The outputs of `s` rows (a decode step's slots, or a prefill's one
+    row) packed in one byte buffer (`_out_views`)."""
     return torch.zeros(8 * s * (1 + k), dtype=torch.uint8, device=device,
                        pin_memory=pin)
 
@@ -133,6 +152,33 @@ def _out_views(buf, s, k):
     a = 2 * s + s * k
     return (i32[:s], f32[s:2 * s], i32[2 * s:a].view(s, k),
             f32[a:a + s * k].view(s, k))
+
+
+def _prefill_buffer(c, m, device, pin=False):
+    """A prefill program's inputs packed in one byte buffer
+    (`_prefill_views`), zeroed."""
+    return torch.zeros(4 * (c + m + 7), dtype=torch.uint8, device=device,
+                       pin_memory=pin)
+
+
+def _prefill_views(buf, c, m):
+    """``(ids [C], block_row [M], length [1], slot [1], top_k [1], seed [1]
+    int32 (the uint32 seed's bits), temperature [1], top_p [1],
+    repetition_penalty [1] float32)`` views of a buffer from
+    `_prefill_buffer`."""
+    i32, f32 = buf.view(torch.int32), buf.view(torch.float32)
+    o = c + m
+    return (i32[:c], i32[c:o], i32[o:o + 1], i32[o + 1:o + 2],
+            i32[o + 2:o + 3], i32[o + 3:o + 4], f32[o + 4:o + 5],
+            f32[o + 5:o + 6], f32[o + 6:o + 7])
+
+
+def _copies(views, event):
+    """Wait for `event` (None: nothing to wait for) and return copies of
+    the numpy `views` of a host output buffer."""
+    if event is not None:
+        event.synchronize()
+    return tuple(v.copy() for v in views)
 
 
 def _pct(samples, p):
@@ -148,7 +194,9 @@ class ServeStats:
     them). `decode_compiles` counts builds of the decode program (its
     three CUDA graph captures on the card, the buffers' views on the CPU,
     whatever the slots sample): 1 for an engine's life, however requests
-    join, leave or are evicted.
+    join, leave or are evicted. `prefill_compiles` counts builds of
+    bucket prefill programs: one per distinct bucket for an engine's life,
+    0 in a window whose buckets were all built before it.
     `commit_rollbacks` counts speculative tokens a pipelined commit
     discarded because the slot's request was cancelled, expired, preempted
     or finished between launch and commit."""
@@ -159,9 +207,10 @@ class ServeStats:
     def reset(self):
         """Zero the counters IN PLACE and drop the samples (a fresh
         measurement window; the pools, the running requests and the built
-        decode program are untouched)."""
+        decode and prefill programs are untouched)."""
         self.steps = 0
         self.decode_compiles = 0
+        self.prefill_compiles = 0
         self.tokens_generated = 0
         self.prefills = 0
         self.admitted = 0
@@ -211,6 +260,7 @@ class ServeStats:
         return {
             "steps": self.steps,
             "decode_compiles": self.decode_compiles,
+            "prefill_compiles": self.prefill_compiles,
             "tokens_generated": self.tokens_generated,
             "prefills": self.prefills,
             "admitted": self.admitted,
@@ -342,9 +392,12 @@ class LLMEngine:
         self._seeds = np.zeros(s, np.uint32)
         # per-slot context history for the repetition penalty, on the
         # device: a prefill writes the slot's row, each decode step its
-        # input token at `lens`; positions <= lens are valid
-        self._history = torch.zeros((s, self.max_context), dtype=torch.int32,
-                                    device=self.device)
+        # input token at `lens`; positions <= lens are valid. Row S is
+        # spare: a prefill program's warm-up writes there
+        self._history_rows = torch.zeros((s + 1, self.max_context),
+                                         dtype=torch.int32,
+                                         device=self.device)
+        self._history = self._history_rows[:s]
         # -- pipelined decode: launch step N+1 on device-fed tokens while
         # step N's host commit runs. `_inflight` holds the uncommitted
         # launch, `_feedback` each slot's last sampled token on the device,
@@ -378,6 +431,34 @@ class LLMEngine:
                         _out_views(host, s, self._logprobs_topk)]))
         self._out_views = _out_views(self._out_dev, s, self._logprobs_topk)
         self._positions = torch.arange(self.max_context, device=self.device)
+        # the prefill programs (bucket -> program, each built at the
+        # bucket's first prompt) and the two sampler heads they share,
+        # built with the first; their inputs (`_prefill_views`), staged in
+        # one pinned host buffer whose copy's event is `_pf_copied`, the
+        # last real row's logits, the full head's filtered logits and the
+        # outputs, with one pinned host buffer for them
+        c = self.max_context
+        self._prefill_fns = {}
+        self._prefill_heads = None
+        self._pf_pool = None
+        self._pf_dev = _prefill_buffer(c, m, self.device)
+        self._pf_views = _prefill_views(self._pf_dev, c, m)
+        self._pf_host = _prefill_buffer(c, m, cpu, pin=cuda)
+        self._pf_staged = [v.numpy() for v in _prefill_views(self._pf_host,
+                                                             c, m)]
+        self._pf_staged[5] = self._pf_staged[5].view(np.uint32)
+        self._pf_copied = None
+        self._pf_logits = torch.zeros((1, cfg.vocab_size), dtype=param.dtype,
+                                      device=self.device)
+        self._pf_filtered = torch.zeros((1, cfg.vocab_size),
+                                        dtype=torch.float32,
+                                        device=self.device)
+        self._pf_out_dev = _out_buffer(1, self._logprobs_topk, self.device)
+        self._pf_out_views = _out_views(self._pf_out_dev, 1,
+                                        self._logprobs_topk)
+        self._pf_out_host = _out_buffer(1, self._logprobs_topk, cpu, pin=cuda)
+        self._pf_outputs = [v.numpy() for v in _out_views(
+            self._pf_out_host, 1, self._logprobs_topk)]
         self._launches = 0
         # runs the program once: a graph replay on the card, the decode
         # code on the CPU; returns the step's logits [S, 1, V]
@@ -831,10 +912,29 @@ class LLMEngine:
 
     @torch.no_grad()
     def _prefill(self, ctx, bucket, row, req):
-        """Run the padded context through the dynamic-cache forward (causal
-        attention over the bucket: padded positions never reach a real
-        row), scatter its K/V into the pools, make the context the slot's
-        history row and sample the next token at position len(ctx)."""
+        """Prefill `ctx` through its bucket's program (built here at the
+        bucket's first prompt): stage the inputs into the pinned host
+        buffer, copy them in, run the program (the bucket's replay, then
+        the full head's for a sampled request, else the greedy head's),
+        copy the outputs out and wait for them. Returns ``(next_token [1],
+        chosen_logprob [1], alt_ids [1, K], alt_logprobs [1, K])``."""
+        program = self._prefill_fns.get(bucket)
+        if program is None:
+            program = self._build_prefill(bucket)
+        self._stage_prefill(ctx, row, req.slot, req.temperature, req.top_k,
+                            req.top_p, req.repetition_penalty, req.seed or 0)
+        program(req.temperature > 0)
+        self._pf_out_host.copy_(self._pf_out_dev, non_blocking=True)
+        return _copies(self._pf_outputs, self._event())
+
+    @torch.no_grad()
+    def _prefill_eager(self, ctx, bucket, row, req):
+        """The prefill without a program: fresh host-to-device copies of
+        the ids, the block row and the sampler config, the padded context
+        through the dynamic-cache forward, the K/V scatter, the context as
+        the slot's history row and the sampler head at position len(ctx),
+        launch by launch. No entry point reaches it; it stays to time the
+        program against."""
         length = len(ctx)
         dev = self.device
         padded = np.zeros((1, bucket), np.int64)
@@ -862,6 +962,124 @@ class LLMEngine:
                             logprobs_topk=self._logprobs_topk,
                             greedy_only=req.temperature <= 0)
         return tuple(t.cpu().numpy() for t in out)
+
+    def _stage_prefill(self, ids, row, slot, temperature, top_k, top_p,
+                       penalty, seed):
+        """Write a prefill's inputs into the pinned host buffer (once the
+        copy that last read it is done) and copy them to the device
+        buffer in one copy."""
+        if self._pf_copied is not None:
+            self._pf_copied.synchronize()
+        staged = self._pf_staged
+        n = len(ids)
+        staged[0][:n] = ids
+        staged[0][n:] = 0
+        staged[1][:] = row
+        for view, value in zip(staged[2:], (n, slot, top_k, seed,
+                                            temperature, top_p, penalty)):
+            view[0] = value
+        self._pf_dev.copy_(self._pf_host, non_blocking=True)
+        self._pf_copied = self._event()
+
+    def _prefill_forward(self, bucket, caches):
+        """A bucket program's model part over the static inputs: the ids
+        through the dynamic-cache forward (`caches`: empty per-layer K/V),
+        the K/V scatter into the pools, the last real row's logits into
+        `_pf_logits` (row ``length - 1``, by a device index; row 0 when
+        length is 0) and the ids row into history row ``slot``."""
+        ids, row, length, slot = self._pf_views[:4]
+        logits, kv = self._model(ids[:bucket][None], caches=caches)
+        scatter_prefill(self._k_pools, self._v_pools, [k[0] for k, _ in kv],
+                        [v[0] for _, v in kv], row, length[0],
+                        self.block_size, k_scales=self._k_scales,
+                        v_scales=self._v_scales)
+        last = (length.long() - 1).clamp(min=0)
+        self._pf_logits.copy_(logits[0].index_select(0, last))
+        self._history_rows.index_copy_(0, slot.long(), ids[None])
+
+    def _prefill_head(self, sampled):
+        """A prefill's sampler head over `_pf_logits` and the ids row as
+        history (positions < length valid), at position ``length``,
+        writing into `_pf_out_dev`: the full head, or with ``sampled``
+        False the greedy head (the raw argmax, no processors)."""
+        ids, _, length, _, top_k, seed, temp, top_p, penalty = \
+            self._pf_views
+        valid = self._positions[None, :] < length[:, None]
+        sample_tokens(self._pf_logits, temp, top_k, top_p, penalty, seed,
+                      length, ids[None], valid, self._logprobs_topk,
+                      out=self._pf_out_views, greedy_only=not sampled,
+                      filtered=self._pf_filtered)
+
+    @torch.no_grad()
+    def _build_prefill(self, bucket):
+        """Build the prefill program of `bucket`, once, and with the first
+        bucket the two sampler heads. The inputs are staged for a warm-up
+        that writes nothing live (an all-null block row, length 0, the
+        spare history row) and the program runs once eagerly, on a side
+        stream on the card, where it loads cuBLAS at the bucket's shapes
+        and the kernels' modules before capture; then the bucket's program
+        (`_prefill_forward`) and, the first time, each head
+        (`_prefill_head`) is captured in a CUDA graph of the prefill
+        programs' shared memory pool. A build waits for the work in
+        flight (a capture starts with a device synchronize). Returns the
+        program: ``program(sampled)`` replays the bucket's graph, then the
+        full head's (``sampled``) or the greedy head's."""
+        self._stats.prefill_compiles += 1
+        caches = self._model.gen_caches(1)
+        forward = functools.partial(self._prefill_forward, bucket, caches)
+        head_fns = {} if self._prefill_heads is not None else {
+            sampled: functools.partial(self._prefill_head, sampled)
+            for sampled in (True, False)}
+        self._stage_prefill((), np.zeros(self.max_blocks_per_seq, np.int32),
+                            self.max_batch_size, 0.0, 0, 1.0, 1.0, 0)
+        if self.device.type != "cuda":
+            for fn in (forward, *head_fns.values()):
+                fn()
+            run, built = forward, head_fns
+        else:
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                for fn in (forward, *head_fns.values()):
+                    fn()
+            main.wait_stream(side)
+            if self._pf_pool is None:
+                self._pf_pool = torch.cuda.graph_pool_handle()
+            run = self._captured(forward)
+            built = {sampled: self._captured(fn)
+                     for sampled, fn in head_fns.items()}
+        if self._prefill_heads is None:
+            self._prefill_heads = built
+        heads = self._prefill_heads
+
+        def program(sampled):
+            run()
+            heads[sampled]()
+
+        self._prefill_fns[bucket] = program
+        return program
+
+    def _captured(self, fn):
+        """Capture fn() in a CUDA graph of the prefill programs' memory
+        pool; returns a function that replays it and adds its launches.
+        The pool holds only the graphs' temporaries (each one's results
+        go to buffers made outside it, and the next replay reads them
+        from there), so the graphs may replay in any order, one at a
+        time."""
+        graph = torch.cuda.CUDAGraph()
+
+        def capture():
+            with torch.cuda.graph(graph, pool=self._pf_pool):
+                fn()
+
+        _, launched = captured_launches(capture)
+
+        def replay():
+            graph.replay()
+            add_launches(launched)
+
+        return replay
 
     def _decode_step(self):
         """One token for every slot through the decode program (inactive
@@ -1034,10 +1252,7 @@ class LLMEngine:
         """Wait for a launch's outputs (`_launch`) and return copies of
         them: ``(next_token [S], chosen_logprob [S], alt_ids [S, K],
         alt_logprobs [S, K])``."""
-        views, event = out
-        if event is not None:
-            event.synchronize()
-        return tuple(v.copy() for v in views)
+        return _copies(*out)
 
     def _sync_slot(self, req):
         slot = req.slot

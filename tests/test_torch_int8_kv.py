@@ -194,15 +194,16 @@ def test_scatter_prefill_int8_leg_matches_jax():
 
 
 def test_int8_cache_layout():
-    cache = PagedKVCache(2, 3, 8, 5, 4, dtype=torch.int8)
+    cache = PagedKVCache(2, 3, 8, 5, 4, dtype=torch.int8, device="cpu")
     assert cache.quantized and cache.k_pools.dtype == torch.int8
     assert tuple(cache.k_scales.shape) == (2, 5, 3)
     assert cache.k_scales.dtype == torch.float32
-    assert PagedKVCache(2, 3, 8, 5, 4, dtype="int8").dtype == torch.int8
-    fp = PagedKVCache(2, 3, 8, 5, 4)
+    assert PagedKVCache(2, 3, 8, 5, 4, dtype="int8",
+                        device="cpu").dtype == torch.int8
+    fp = PagedKVCache(2, 3, 8, 5, 4, device="cpu")
     assert fp.k_scales is None and not fp.quantized
     with pytest.raises(ValueError):
-        PagedKVCache(2, 3, 8, 5, 4, dtype=torch.int32)
+        PagedKVCache(2, 3, 8, 5, 4, dtype=torch.int32, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.optimizer.optimizers",
                 "paddle_tpu_torch.optimizer.lr",
                 "paddle_tpu_torch.kernels.adam_update",
+                "paddle_tpu_torch.kernels.prefill_scatter",
                 "paddle_tpu_torch.jit.train_step",
                 "paddle_tpu_torch.convert",
                 "paddle_tpu_torch.quantization.kv_cache",
