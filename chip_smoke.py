@@ -6,7 +6,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. probe   — a CUDA device must exist; print its name and power limit;
   2. build   — compile every kernel of the serving and training paths with
-               nvcc into build/paddle_tpu_torch/ (all sources at once) and
+               nvcc into build/paddle_tpu_torch/ (all sources at once,
+               the earlier designs kept in tools/ beside them) and
                print the build time and ptxas' register / spill report by
                kernel entry (the paged decode kernel with and without the
                decode write),
@@ -43,11 +44,17 @@ Phases, in order; any failure raises and the script exits non-zero:
                design (commit e4c03f5,
                tools/torch_keyed_draw_one_cta.cu); the sampler's filter
                (penalty, temperature, top-k and top-p thresholds) at S=8,
-               V=50257 and 50304 on the serve mix's configs and a ragged
-               set: greedy rows untouched, sampled rows bit for bit with
-               the twin (on the CPU, on copies) outside the stated top-p
-               margin, and inside it (the rows counted, at most a
-               quarter) the row cut at a threshold the margin allows;
+               V=50257 and 50304 on the serve mix's configs, a ragged
+               set and a set whose candidates overflow: greedy rows
+               untouched, sampled rows bit for bit with the twin (on the
+               CPU, on copies) outside the stated top-p margin, and
+               inside it (the rows counted, at most an eighth) the row
+               cut at a threshold the margin allows, each row's route
+               (candidates, overflow, radix) the one `filter_routes`
+               gives, every route reached; timed in turns with the
+               first design (commit c3b6374,
+               tools/torch_sampler_filter_radix.cu) at 2 and 8 of 8 rows
+               sampled and on top-p-only rows;
                the multi-tensor AdamW update at GPT-2 124M's 148 tensors
                (bf16 parameters, fp32 masters and moments) and on ragged
                lists (fp32 and bf16 without masters, aligned and
@@ -58,9 +65,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                int8 pools) at buckets 16, 128 and 1024 with the forward's
                strided views, lengths 1, 15, 16, 17, 128, 990 and 1024, a
                block row with spare and null entries over pools that hold
-               a previous tenant's bytes and scales: pools and scales bit
-               for bit on every block but 0, block 0 untouched, timed at
-               a full 1024 bucket;
+               a previous tenant's bytes and scales, and int8 pools at
+               head_dim 128 and 32-token blocks: pools and scales bit for
+               bit on every block but 0, block 0 untouched, timed at a
+               full 1024 bucket in turns with the first design (commit
+               c3b6374, tools/torch_prefill_scatter_twopass.cu);
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -1041,9 +1050,13 @@ def check_paged_append():
 SCATTER_CASES = ((16, (1, 15, 16)), (128, (1, 15, 16, 17, 128)),
                  (1024, (17, 990, 1024)))
 SCATTER_LAYERS, SCATTER_M = 12, 64
+# int8 pools of wider heads and blocks: head_dim 128, 32-token blocks, at
+# a 128-token bucket (bf16 rows hold a head's block in registers, fp32
+# rows read the half past them twice)
+SCATTER_WIDE = (128, 32, (1, 31, 32, 33, 128))
 
 
-def _scatter_state(bucket, dtype, int8, seed, bs=16):
+def _scatter_state(bucket, dtype, int8, seed, bs=16, head_dim=HEAD_DIM):
     """Per-layer K/V rows as strided views of one [bucket, 3, H, D]
     projection a layer (the forward's layout), pools of 1 + 2 M blocks
     that hold a previous tenant's bytes (int8: levels and scales), and a
@@ -1053,11 +1066,11 @@ def _scatter_state(bucket, dtype, int8, seed, bs=16):
     g = torch.Generator(device="cuda").manual_seed(seed)
     gain = torch.rand((bucket, 1, 1, 1), generator=g, device="cuda") * 4 \
         + 0.05
-    qkv = [(torch.randn((bucket, 3, HEADS, HEAD_DIM), generator=g,
+    qkv = [(torch.randn((bucket, 3, HEADS, head_dim), generator=g,
                         device="cuda") * gain).to(dtype)
            for _ in range(SCATTER_LAYERS)]
     nb = 1 + 2 * SCATTER_M
-    shape = (SCATTER_LAYERS, nb, bs, HEADS, HEAD_DIM)
+    shape = (SCATTER_LAYERS, nb, bs, HEADS, head_dim)
     if int8:
         pools = [torch.randint(-127, 128, shape, generator=g, device="cuda",
                                dtype=torch.int8) for _ in range(2)]
@@ -1078,20 +1091,23 @@ def _bits(t):
     return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
 
 
-def _check_scatter_case(bucket, length, dtype, int8):
+def _check_scatter_case(bucket, length, dtype, int8, bs=16,
+                        head_dim=HEAD_DIM):
     """One scatter against its twin on copies of one state."""
     k, v, pools, scales, row = _scatter_state(bucket, dtype, int8,
-                                              seed=bucket + length)
+                                              seed=bucket + length, bs=bs,
+                                              head_dim=head_dim)
     orig = [t for t in (*pools, *scales) if t is not None]
     want = [t.clone() for t in orig]
     got = [t.clone() for t in orig]
     n = torch.full((), length, dtype=torch.int32, device="cuda")
-    ps.prefill_scatter_reference(want[0], want[1], k, v, row, n, 16,
+    ps.prefill_scatter_reference(want[0], want[1], k, v, row, n, bs,
                                  *want[2:])
-    ps.prefill_scatter(got[0], got[1], k, v, row, n, 16, *got[2:])
+    ps.prefill_scatter(got[0], got[1], k, v, row, n, bs, *got[2:])
     torch.cuda.synchronize()
     tag = (f"prefill_scatter{'_int8' if int8 else ''} {str(dtype)[6:]} "
-           f"rows, bucket {bucket}, length {length}")
+           f"rows, bucket {bucket}, length {length}, head_dim {head_dim}, "
+           f"bs {bs}")
     for g_t, w_t, o_t in zip(got, want, orig):
         assert torch.equal(_bits(g_t[:, 1:]), _bits(w_t[:, 1:])), \
             f"{tag}: not bit-identical to the twin"
@@ -1104,8 +1120,11 @@ def check_prefill_scatter():
     """The prompt's K/V scatter (one launch for every layer, K and V)
     against its twin, bit for bit on every block but 0 and block 0
     untouched, at SCATTER_CASES for bf16 rows (the serving path's) and at
-    bucket 128 for fp32 rows, fp and int8 pools. Returns the two rows,
-    timed at a full 1024-token bucket with bf16 rows."""
+    bucket 128 for fp32 rows, fp and int8 pools, and with int8 pools at
+    SCATTER_WIDE (head_dim 128, 32-token blocks; bf16 and fp32 rows).
+    Returns the two rows, timed at a full 1024-token bucket with bf16
+    rows, in turns with the first design (commit c3b6374,
+    tools/torch_prefill_scatter_twopass.cu: int8 blocks read twice)."""
     bs = 16
     tags = []
     for int8 in (False, True):
@@ -1116,18 +1135,38 @@ def check_prefill_scatter():
         for length in SCATTER_CASES[1][1]:
             tags.append(_check_scatter_case(128, length, torch.float32,
                                             int8))
+    wide_bucket, wide_bs, wide_lengths = SCATTER_WIDE
+    for dtype in (torch.bfloat16, torch.float32):
+        for length in wide_lengths:
+            tags.append(_check_scatter_case(wide_bucket, length, dtype, True,
+                                            bs=wide_bs, head_dim=128))
     print(f"  prefill_scatter: {len(tags)} cases bit-identical to the twin "
           f"on blocks 1.. and block 0 untouched (buckets and lengths "
           f"{json.dumps(SCATTER_CASES)} in bf16, bucket 128 in fp32, fp "
-          "and int8 pools)")
+          f"and int8 pools; int8 pools at head_dim 128, bs {wide_bs}, "
+          f"bucket {wide_bucket}, lengths {list(wide_lengths)}, bf16 and "
+          "fp32 rows)")
     rows = []
     bucket = length = 1024
+    twopass = _TOOL_LIBS["torch_prefill_scatter_twopass"] \
+        .paddle_prefill_scatter
+    turns = {}
     for int8 in (False, True):
         k, v, pools, scales, row = _scatter_state(bucket, torch.bfloat16,
                                                   int8, seed=7)
         n = torch.full((), length, dtype=torch.int32, device="cuda")
         args = (*pools, k, v, row, n, bs, *scales)
-        ms, host_ms = _timed(lambda: ps.prefill_scatter(*args))
+
+        def first():
+            assert ps.run(twopass, *args) == 0
+
+        times = [_timed(first if old else
+                        lambda: ps.prefill_scatter(*args))
+                 for old in TURNS]
+        turns["int8" if int8 else "fp"] = [round(t[0], 5) for t in times]
+        ms = float(np.mean([t[0] for t, old in zip(times, TURNS)
+                            if not old]))
+        host_ms = times[1][1]
         plain_ms = _cuda_ms(lambda: ps.prefill_scatter_reference(*args),
                             iters=5)
         if int8:
@@ -1162,6 +1201,7 @@ def check_prefill_scatter():
                          else "no Pallas counterpart: paddle_tpu/serving/"
                          "cache.py:237 scatter_prefill (XLA ops)"),
             "max_abs_err": 0.0, "ms": ms, "host_ms": host_ms,
+            "turns_ms": turns["int8" if int8 else "fp"],
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
             "library_ms": library_ms, "bytes": nbytes,
             "shape": (f"12 layers of bf16 rows [1024, 12, 64] (strided views "
@@ -1169,7 +1209,12 @@ def check_prefill_scatter():
                       f"block row of 64, " + (
                           "int8 pools + fp32 scales; library_ms null: no one "
                           "PyTorch call quantizes a block" if int8 else
-                          "bf16 pools; library_ms: two index_put_ a layer"))})
+                          "bf16 pools; library_ms: two index_put_ a layer")),
+            "note": "turns_ms: the first design (commit c3b6374), this, "
+                    "this, the first"})
+    print("PREFILL_SCATTER_TURNS_MS (first design, this, this, first design; "
+          "the first design is commit c3b6374's, "
+          "tools/torch_prefill_scatter_twopass.cu): " + json.dumps(turns))
     return rows
 
 
@@ -1746,23 +1791,46 @@ def _int32_ops_per_s():
     return 64 * sms * mhz * 1e6
 
 
+# earlier designs kept in tools/ with their kernels' C interfaces, built
+# by `_start_tool_builds` beside the port's sources and timed in turns
+TOOL_SOURCES = ("torch_keyed_draw_one_cta", "torch_sampler_filter_radix",
+                "torch_prefill_scatter_twopass")
+_TOOL_LIBS = {}
+
+
+def _start_tool_builds():
+    """One nvcc process for each of TOOL_SOURCES, all started at once
+    (`_finish_tool_builds` waits for them)."""
+    root = Path(__file__).resolve().parent
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in TOOL_SOURCES:
+        lib = _build.BUILD_DIR / f"lib{name}.so"
+        procs[name] = (subprocess.Popen(
+            [_build._nvcc(), *_build._FLAGS,
+             f"-I{root / 'paddle_tpu_torch' / 'csrc'}", "-o", str(lib),
+             str(root / "tools" / f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), lib)
+    return procs
+
+
+def _finish_tool_builds(procs):
+    for name, (proc, lib) in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, f"{name}: nvcc failed\n{log}"
+        _TOOL_LIBS[name] = ctypes.CDLL(str(lib))
+
+
 _ONE_CTA = []
 
 
 def _one_cta_draw():
     """The first keyed draw (commit e4c03f5;
-    tools/torch_keyed_draw_one_cta.cu, the same C interface), built once
-    into build/, as a function of the wrapper's arguments (no launch
-    count): the yardstick the redesign is timed against."""
+    tools/torch_keyed_draw_one_cta.cu, the same C interface) as a function
+    of the wrapper's arguments (no launch count): the yardstick the
+    redesign is timed against."""
     if not _ONE_CTA:
-        src = Path(__file__).resolve().parent / "tools" \
-            / "torch_keyed_draw_one_cta.cu"
-        lib = _build.BUILD_DIR / "libkeyed_draw_one_cta.so"
-        lib.parent.mkdir(parents=True, exist_ok=True)
-        subprocess.run([_build._nvcc(), *_build._FLAGS, "-o", str(lib),
-                        str(src)], check=True, capture_output=True,
-                       timeout=600)
-        fn = ctypes.CDLL(str(lib)).paddle_keyed_draw
+        fn = _TOOL_LIBS["torch_keyed_draw_one_cta"].paddle_keyed_draw
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -1786,13 +1854,22 @@ def _one_cta_draw():
 # sampler_filter's row configs (temperature, top_k, top_p, penalty): the
 # serve mix's sampled requests (top-k 40, top-p 0.95) with and without a
 # penalty, then the ragged set: greedy rows, k = 1, k beyond V, a tiny
-# top-p, top-p 1, penalties below and above 1
+# top-p, top-p 1, penalties below and above 1; then the set that overflows
+# the candidates over logits of few values (k = 200 and 256: ties at the
+# bound), beside candidates (k = 1, 40) and radix rows (k = 0, 300)
 FILTER_MAIN = [(0.0, 0, 1.0, 1.0)] * 6 + [(0.8, 40, 0.95, 1.0),
                                           (0.8, 40, 0.95, 1.3)]
 FILTER_RAGGED = [(0.8, 40, 0.95, 1.0), (0.0, 40, 0.95, 1.3),
                  (1.0, 1, 1.0, 1.0), (0.9, 10 ** 6, 0.9, 0.7),
                  (1.5, 0, 1e-6, 1.0), (0.7, 5, 1.0, 2.0),
                  (1.1, 0, 0.5, 0.9), (1.0, 100, 0.99, 1.2)]
+FILTER_OVERFLOW = [(1.0, 200, 0.9, 1.0), (1.0, 256, 1.0, 1.0),
+                   (0.9, 200, 1.0, 1.2), (0.8, 40, 0.95, 1.0),
+                   (0.0, 40, 0.95, 1.0), (1.0, 0, 0.9, 1.0),
+                   (1.1, 300, 0.9, 1.0), (0.7, 1, 0.5, 1.0)]
+# top-p only (top-k 0, top-p 0.9): the radix route, timed in turns
+FILTER_TOP_P = [(0.0, 0, 1.0, 1.0)] * 6 + [(0.8, 0, 0.9, 1.0),
+                                           (0.8, 0, 0.9, 1.3)]
 FILTER_ROUNDS = 4
 FILTER_CONTEXT = 1024
 # the most of the sampled rows whose cut the margin leaves open (more than
@@ -1804,13 +1881,15 @@ FILTER_MARGIN_SHARE = 0.125
 
 def _filter_state(v, seed, rows, ties=False):
     """Raw fp32 logits [S, v] (scale of GPT-2's; rounded to integers with
-    `ties`, a third of them masked to -1e30 in odd rounds), each row's
-    config from `rows`, and a history [S, 1024] of ids with 1 to 1024 valid
-    positions."""
+    `ties`, rounded to integers of N(0, 1) with ``ties="few"``; a third
+    of them masked to -1e30 in odd rounds), each row's config from `rows`,
+    and a history [S, 1024] of ids with 1 to 1024 valid positions."""
     s = len(rows)
     g = torch.Generator(device="cuda").manual_seed(seed)
     raw = 4.0 * torch.randn(s, v, device="cuda", generator=g)
-    if ties:
+    if ties == "few":
+        raw = (raw / 4).round()
+    elif ties:
         raw = raw.round()
     if seed % 2:
         raw[:, ::3] = -1e30
@@ -1828,30 +1907,46 @@ def check_sampler_filter():
     """The filter kernel (`csrc/sampler_filter.cu`) against its twin, which
     runs on the CPU on copies of the same inputs: FILTER_ROUNDS rounds of
     the serve mix's configs (6 greedy rows, 2 sampled: top-k 40, top-p
-    0.95, one with a repetition penalty) and of the ragged set, at V =
-    50257 and 50304, fresh logits and histories each (ties in some rounds,
-    -1e30 entries in others). The output buffer is filled with a sentinel
-    first: greedy rows must keep it; every sampled row must equal the
-    twin's bit for bit unless some top-p mass of it lies within
-    `sf.MARGIN` of top_p (`sf.margin_cuts` allows more than one cut):
-    such a row, and the twin's, must be the row cut at one of the
-    thresholds it allows, and those rows are counted, printed and held
-    to at most FILTER_MARGIN_SHARE of the sampled rows. Then timed at the
-    serving shape with the launch queue filled ahead; the twin (the
-    sort-based filter) on the card is its plain time. No single PyTorch
-    call computes the thresholds (library_ms null)."""
+    0.95, one with a repetition penalty), of the ragged set and of the
+    overflow set (logits of few values), at V = 50257 and 50304, fresh
+    logits and histories each (ties in some rounds, -1e30 entries in
+    others). The output buffer is filled with a sentinel first: greedy
+    rows must keep it; every sampled row must equal the twin's bit for
+    bit unless some top-p mass of it lies within `sf.MARGIN` of top_p
+    (`sf.margin_cuts` allows more than one cut): such a row, and the
+    twin's, must be the row cut at one of the thresholds it allows, and
+    those rows are counted, printed and held to at most
+    FILTER_MARGIN_SHARE of the sampled rows. Each launch reports its
+    rows' routes, which must be `sf.filter_routes`' (the kernel's rule on
+    the CPU); the rows of each route are counted, and the candidates,
+    overflow and radix routes must each be reached. Then timed at the
+    serving shape with the launch queue filled ahead, 2 and 8 of 8 rows
+    sampled, and on top-p-only rows, in turns with the first design
+    (commit c3b6374, tools/torch_sampler_filter_radix.cu: radix select
+    for every row); the twin (the sort-based filter) on the card is its
+    plain time. No single PyTorch call computes the thresholds
+    (library_ms null)."""
     rows_checked, inside, err, where = 0, 0, 0.0, []
+    by_route = dict.fromkeys(sf.ROUTES, 0)
     for v in KEYED_VOCABS:
         for r in range(FILTER_ROUNDS):
-            for name, rows in (("main", FILTER_MAIN),
-                               ("ragged", FILTER_RAGGED)):
-                args = _filter_state(v, 1000 * v + r, rows, ties=r % 2 == 0)
+            for name, rows, ties in (("main", FILTER_MAIN, r % 2 == 0),
+                                     ("ragged", FILTER_RAGGED, r % 2 == 0),
+                                     ("overflow", FILTER_OVERFLOW, "few")):
+                args = _filter_state(v, 1000 * v + r, rows, ties=ties)
                 out = torch.full(args[0].shape, 7.0, device="cuda")
-                sf.sampler_filter(*args, out=out)
+                routes = torch.full((len(rows),), -1, dtype=torch.int32,
+                                    device="cuda")
+                sf.sampler_filter(*args, out=out, routes=routes)
                 torch.cuda.synchronize()
                 cpu = [t.cpu() for t in args]
                 want = sf.sampler_filter_reference(*cpu)
                 lg, cuts = sf.margin_cuts(*cpu)
+                want_routes = sf.filter_routes(*cpu)
+                assert torch.equal(routes.cpu(), want_routes), \
+                    (v, r, name, routes.tolist(), want_routes.tolist())
+                for code in want_routes.tolist():
+                    by_route[sf.ROUTES[code]] += 1
                 got = out.cpu()
                 for row in range(len(rows)):
                     if not cpu[1][row] > 0:
@@ -1867,7 +1962,8 @@ def check_sampler_filter():
                     if len(cuts[row]) > 1:
                         inside += 1
                         where.append(f"V={v} round {r} {name} row {row} "
-                                     f"({len(cuts[row])} cuts)")
+                                     f"({len(cuts[row])} cuts, route "
+                                     f"{sf.ROUTES[want_routes[row]]})")
                         continue
                     same = torch.equal(got[row].view(torch.int32),
                                        want[row].view(torch.int32))
@@ -1876,43 +1972,71 @@ def check_sampler_filter():
                     err = max(err, (got[row] - want[row]).abs().max().item())
     assert inside <= FILTER_MARGIN_SHARE * rows_checked, (inside,
                                                           rows_checked)
+    assert all(by_route[k] > 0 for k in ("candidates", "overflow", "radix")), \
+        by_route
     print(f"  sampler_filter V={'/'.join(map(str, KEYED_VOCABS))}: "
-          f"{FILTER_ROUNDS} rounds of the serve mix's and the ragged configs: "
-          f"{rows_checked} sampled rows, bit for bit with the twin outside "
-          f"the margin; {inside} rows with an exclusive mass within "
-          f"{sf.MARGIN} of top_p (SAMPLER_FILTER_MARGIN_ROWS {inside}), each "
-          f"cut at a threshold the margin allows, as the twin's; greedy rows "
-          f"untouched")
+          f"{FILTER_ROUNDS} rounds of the serve mix's, the ragged and the "
+          f"overflow configs: {rows_checked} sampled rows, bit for bit with "
+          f"the twin outside the margin; {inside} rows with an exclusive "
+          f"mass within {sf.MARGIN} of top_p (SAMPLER_FILTER_MARGIN_ROWS "
+          f"{inside}), each cut at a threshold the margin allows, as the "
+          f"twin's; greedy rows untouched; routes as filter_routes', rows "
+          f"by route {json.dumps(by_route)}")
     print("SAMPLER_FILTER_MARGIN_WHERE: " + json.dumps(where))
-    # main-path shape: 2 of 8 rows sampled, as the serve mix's full head
+    # main-path shape: 2 of 8 rows sampled, as the serve mix's full head,
+    # then 8 of 8, then top-p-only rows (the radix route), each timed in
+    # turns with the first design: first, this, this, first
     v = 50304
-    args = _filter_state(v, 8, FILTER_MAIN)
-    out = torch.empty(args[0].shape, device="cuda")
-    ms, host_ms = _timed(lambda: sf.sampler_filter(*args, out=out))
-    plain_ms = _cuda_ms(lambda: sf.sampler_filter_reference(*args), iters=5)
-    all_rows = [FILTER_MAIN[-1]] * 8
-    all_args = _filter_state(v, 8, all_rows)
-    all_ms, _ = _timed(lambda: sf.sampler_filter(*all_args, out=out))
+    radix = _TOOL_LIBS["torch_sampler_filter_radix"]
+    sets = {"ms": FILTER_MAIN, "all_sampled_ms": [FILTER_MAIN[-1]] * 8,
+            "top_p_only_ms": FILTER_TOP_P,
+            "top_p_only_all_sampled_ms": [FILTER_TOP_P[-1]] * 8}
+    row, turns = {}, {}
+    out = torch.empty((8, v), device="cuda")
+    for key, rows in sets.items():
+        args = _filter_state(v, 8, rows)
+
+        def first():
+            assert sf.run(radix, *args, out) == 0
+
+        times = [_timed(first if old else
+                        lambda: sf.sampler_filter(*args, out=out))
+                 for old in TURNS]
+        turns[key] = [round(t[0], 5) for t in times]
+        row[key] = float(np.mean([t[0] for t, old in zip(times, TURNS)
+                                  if not old]))
+        if key == "ms":
+            row["host_ms"] = times[1][1]
+            row["plain_ms"] = _cuda_ms(
+                lambda: sf.sampler_filter_reference(*args), iters=5)
     # each sampled row's logits read and its output written once, its
     # history (int32) and valid flags (bool) read once
-    sampled = sum(1 for row in FILTER_MAIN if row[0] > 0)
+    sampled = sum(1 for cfg in FILTER_MAIN if cfg[0] > 0)
     nbytes = sampled * (v * 8 + FILTER_CONTEXT * 5)
     bound, by = _bound_ms(nbytes, 0, torch.float32)
-    print(f"  sampler_filter S=8 V={v}: {ms:.5f} ms (2 rows sampled), "
-          f"{all_ms:.5f} ms (8 sampled); bound {bound:.5f} ms ({by}); twin "
-          f"(sort, softmax, cumsum) on the card {plain_ms:.5f} ms")
+    print(f"  sampler_filter S=8 V={v}: {row['ms']:.5f} ms (2 rows "
+          f"sampled), {row['all_sampled_ms']:.5f} ms (8 sampled); top-p "
+          f"only {row['top_p_only_ms']:.5f} / "
+          f"{row['top_p_only_all_sampled_ms']:.5f} ms; bound {bound:.5f} ms "
+          f"({by}); twin (sort, softmax, cumsum) on the card "
+          f"{row['plain_ms']:.5f} ms")
+    print("SAMPLER_FILTER_TURNS_MS (first design, this, this, first design; "
+          "the first design is commit c3b6374's, "
+          "tools/torch_sampler_filter_radix.cu): " + json.dumps(turns))
     return {"name": "sampler_filter", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/sampler_filter.cu",
             "replaces": "no Pallas counterpart: the filter of "
                         "paddle_tpu/serving/sampling.py:141-166 (sort, "
                         "softmax, cumsum, thresholds; XLA ops)",
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "all_sampled_ms": all_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, **row, "turns_ms": turns,
             "bound_ms": bound, "bound_by": by, "library_ms": None,
-            "margin_rows": inside,
+            "margin_rows": inside, "routes": by_route,
             "shape": "S=8 V=50304 fp32 logits, 2 of 8 rows sampled (top-k "
                      "40, top-p 0.95, penalty 1 and 1.3 over 1024 history "
-                     "positions; all_sampled_ms: 8 of 8)"}
+                     "positions; all_sampled_ms: 8 of 8; top_p_only_ms: "
+                     "top-k 0, top-p 0.9, 2 and 8 of 8)",
+            "note": "turns_ms: the first design (commit c3b6374, radix "
+                    "select for every row), this, this, the first"}
 
 
 # ---------------------------------------------------------------------------
@@ -3035,8 +3159,11 @@ def main():
     card = _card()
     print(f"card: {card}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}")
+    tools = _start_tool_builds()
     secs, logs = _build.build_all(ptxas_info=True)
-    print(f"build: {secs:.2f} s for {', '.join(_build.SOURCES)}")
+    _finish_tool_builds(tools)
+    print(f"build: {secs:.2f} s for {', '.join(_build.SOURCES)} (and "
+          f"{', '.join(TOOL_SOURCES)} from tools/ beside them)")
     for name, log in logs.items():
         entry = ""
         for line in log.splitlines():
@@ -3094,7 +3221,8 @@ def main():
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
             "alone_ms", "append_ms", "turns_ms", "all_sampled_ms",
             "greedy_ms", "bytes_bound_ms", "int32_bound_ms",
-            "int32_bound_all_sampled_ms", "margin_rows", "shape",
+            "int32_bound_all_sampled_ms", "top_p_only_ms",
+            "top_p_only_all_sampled_ms", "margin_rows", "routes", "shape",
             "launches_by_path",
             "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")
     print(json.dumps({"kernels": [{k: row[k] for k in keys if k in row}

@@ -30,6 +30,16 @@ __device__ __forceinline__ void store(uint32_t a, int32_t x) {
                : "memory");
 }
 
+// atomically add x to the uint32 at `a`; returns the old value
+__device__ __forceinline__ uint32_t atomic_add(uint32_t a, uint32_t x) {
+  uint32_t old;
+  asm volatile("atom.shared::cluster.add.u32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "r"(a), "r"(x)
+               : "memory");
+  return old;
+}
+
 __device__ __forceinline__ uint32_t load_u32(uint32_t a) {
   uint32_t x;
   asm volatile("ld.shared::cluster.u32 %0, [%1];\n" : "=r"(x) : "r"(a)

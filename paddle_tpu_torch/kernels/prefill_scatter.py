@@ -42,7 +42,7 @@ from ..quantization.kv_cache import quantize_scatter
 from . import _build
 
 __all__ = ["prefill_scatter", "prefill_scatter_reference", "scatter_bytes",
-           "launches", "DTYPES", "MAX_LAYERS", "MAX_HEADS"]
+           "run", "launches", "DTYPES", "MAX_LAYERS", "MAX_HEADS"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the source's kMaxLayers and kMaxHeads (checked when the library loads)
@@ -193,10 +193,7 @@ def _lib_fn():
             if fn() != want:
                 raise RuntimeError(f"{name}() is {fn()}, the wrapper "
                                    f"expects {want}")
-        fn = lib.paddle_prefill_scatter
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _LIB.append(fn)
+        _LIB.append(lib.paddle_prefill_scatter)
     return _LIB[0]
 
 
@@ -221,25 +218,36 @@ def prefill_scatter(k_pools, v_pools, k_layers, v_layers, block_row, length,
     _check_launch(k_pools, v_pools, k_layers, v_layers, block_row, length,
                   k_scales, v_scales)
     require_hopper(k_pools)
-    fn = _lib_fn()
-    n_layers, num_blocks, _, h, d = k_pools.shape
-    quantized = k_scales is not None
-    ptrs = ctypes.c_void_p * n_layers
-    with torch.cuda.device(k_pools.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(n_layers, ptrs(*[x.data_ptr() for x in k_layers]),
-                 ptrs(*[x.data_ptr() for x in v_layers]),
-                 ctypes.c_void_p(k_pools.data_ptr()),
-                 ctypes.c_void_p(v_pools.data_ptr()),
-                 ctypes.c_void_p(k_scales.data_ptr() if quantized else 0),
-                 ctypes.c_void_p(v_scales.data_ptr() if quantized else 0),
-                 ctypes.c_void_p(block_row.data_ptr()),
-                 ctypes.c_void_p(length.data_ptr()), block_row.shape[0],
-                 k_layers[0].shape[0], h, d, block_size, num_blocks,
-                 k_layers[0].stride(0),
-                 0 if k_layers[0].dtype == torch.float32 else 1,
-                 ctypes.c_void_p(stream))
-    name = "prefill_scatter_int8" if quantized else "prefill_scatter"
+    err = run(_lib_fn(), k_pools, v_pools, k_layers, v_layers, block_row,
+              length, block_size, k_scales, v_scales)
+    name = "prefill_scatter_int8" if k_scales is not None \
+        else "prefill_scatter"
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+
+
+def run(fn, k_pools, v_pools, k_layers, v_layers, block_row, length,
+        block_size, k_scales=None, v_scales=None):
+    """One launch of `fn` (``paddle_prefill_scatter`` of this source or
+    another of the same C interface) on checked CUDA tensors, counting
+    nothing: its cudaError."""
+    n_layers, num_blocks, _, h, d = k_pools.shape
+    quantized = k_scales is not None
+    ptrs = ctypes.c_void_p * n_layers
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(k_pools.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        return fn(n_layers, ptrs(*[x.data_ptr() for x in k_layers]),
+                  ptrs(*[x.data_ptr() for x in v_layers]),
+                  ctypes.c_void_p(k_pools.data_ptr()),
+                  ctypes.c_void_p(v_pools.data_ptr()),
+                  ctypes.c_void_p(k_scales.data_ptr() if quantized else 0),
+                  ctypes.c_void_p(v_scales.data_ptr() if quantized else 0),
+                  ctypes.c_void_p(block_row.data_ptr()),
+                  ctypes.c_void_p(length.data_ptr()), block_row.shape[0],
+                  k_layers[0].shape[0], h, d, block_size, num_blocks,
+                  k_layers[0].stride(0),
+                  0 if k_layers[0].dtype == torch.float32 else 1,
+                  ctypes.c_void_p(stream))

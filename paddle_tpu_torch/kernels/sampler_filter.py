@@ -9,11 +9,14 @@ kernel for it.
 
 `sampler_filter_reference`, the twin, is that sort-based filter in
 PyTorch. On CUDA tensors `sampler_filter` launches
-``csrc/sampler_filter.cu`` or raises: the same function without a sort or a
-scan (radix select over a cluster of CTAs a row, the top-p mass in fixed
-point), which writes only the rows that sample (temperature > 0) and
-leaves the others as they were; on CPU tensors it runs the twin, which
-computes every row. The two agree bit for bit on every written element
+``csrc/sampler_filter.cu`` or raises: the same function without a full
+sort or a scan (a cluster of CTAs a row; a row with top-k ranks only the
+candidates at or above a bound on its k-th largest value, other rows take
+a radix select; top-p masses in fixed point), which writes only the rows
+that sample (temperature > 0) and leaves the others as they were; on CPU
+tensors it runs the twin, which computes every row. `filter_routes` is
+the kernel's choice of route for each row, by its own rule, in plain
+PyTorch. The two agree bit for bit on every written element
 except where an exclusive mass of the sorted row lies within the kernel's
 fixed-point margin of top_p: there the kernel's row is the twin's cut at
 one of the thresholds `margin_cuts` allows.
@@ -30,7 +33,8 @@ from . import _build
 
 __all__ = ["sampler_filter", "sampler_filter_reference",
            "apply_repetition_penalty", "apply_temperature", "margin_cuts",
-           "launches", "MAX_VOCAB", "MARGIN"]
+           "filter_routes", "run", "launches", "MAX_VOCAB", "MARGIN",
+           "ROUTES"]
 
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"sampler_filter": 0}
@@ -39,19 +43,30 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_void_p,
                                       ctypes.c_longlong, ctypes.c_int,
                                       ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_void_p])
+# paddle_sampler_filter_routes: the same and the routes buffer before the
+# stream
+_ROUTES_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+
+# the source's grid (kThreads, kMaxCtas) and its candidates' cap (kMaxCand)
+THREADS, MAX_CTAS = 1024, 8
+MAX_CANDIDATES = THREADS
+# what the kernel did with a row, by the code it reports
+ROUTES = ("greedy", "uncut", "candidates", "overflow", "radix")
 
 _NEG_INF = -1e30
 
 # the kernel keeps a CTA's slice of a row (ceil(V / 8) elements, 8 bytes
-# and a bit each) in shared memory
+# and a bit each) in shared memory beside its radix histograms
 MAX_VOCAB = 8 * 24576
 
 
 # Kernel and twin may choose different top-p thresholds only where an
 # exclusive mass of the sorted row lies within MARGIN of top_p. The
 # kernel's mass is each probability rounded to a multiple of 2^-32 (at most
-# 2^-33 each, 5.9e-6 over 50304 terms) and expf's 2 ulp (relative 2.4e-7),
-# normalised by an fp64 sum; the twin's is the float32 softmax and cumsum
+# 2^-33 each, 5.9e-6 over 50304 terms) and exp's ulps (two expf's of 2
+# ulp each, relative 4.8e-7, in the radix route; fp64 in the candidates'),
+# over a normaliser summed in float32 over a warp's elements (relative
+# ~1e-6) and in fp64 beyond; the twin's is the float32 softmax and cumsum
 # of the sorted row (rounded once each: relative ~1e-7 of the prefix)
 MARGIN = 1e-5
 
@@ -143,17 +158,79 @@ def margin_cuts(logits, temperature, top_k, top_p, repetition_penalty,
     return lg, cuts
 
 
+def plan(vocab):
+    """The kernel's CTAs a row: one for every THREADS indices, at most
+    MAX_CTAS (a cluster)."""
+    return min(MAX_CTAS, -(-vocab // THREADS))
+
+
+def candidate_bound(lg, k):
+    """The kernel's lower bound w on the k-th largest value of the row
+    `lg` ``[V]`` (1 <= k <= the row's warps): the least, over the CTAs, of
+    each CTA's ceil(k / P)-th largest warp maximum, where thread j of a
+    CTA takes indices j, j + THREADS, ... of its slice and a warp 32
+    consecutive threads. Each CTA has that many warps whose maximum is
+    >= w, and warps share no element, so at least k elements are >= w."""
+    v = lg.shape[0]
+    ctas = plan(v)
+    chunk = -(-v // ctas)
+    width = -(-chunk // THREADS) * THREADS
+    quota = -(-k // ctas)
+    bound = float("inf")
+    for r in range(ctas):
+        part = lg[min(v, r * chunk):min(v, (r + 1) * chunk)]
+        pad = part.new_full((width,), float("-inf"))
+        pad[:part.shape[0]] = part
+        warp_max = pad.view(-1, THREADS // 32, 32).amax(dim=(0, 2))
+        bound = min(bound, float(warp_max.sort(descending=True)
+                                 .values[quota - 1]))
+    return bound
+
+
+def filter_routes(logits, temperature, top_k, top_p, repetition_penalty,
+                  history, valid):
+    """The route the kernel takes for each row, as codes into ROUTES
+    (int32 ``[S]``): greedy (temperature <= 0: not written), uncut (no
+    top-k and top-p >= 1), candidates (0 < min(k, V) <= the row's warps
+    and at most MAX_CANDIDATES values >= `candidate_bound`), overflow
+    (more: the radix select), radix (no top-k with top-p < 1, or k above
+    the warps)."""
+    lg = apply_temperature(apply_repetition_penalty(
+        logits, history, valid, repetition_penalty), temperature)
+    s, v = lg.shape
+    warps = plan(v) * THREADS // 32
+    routes = torch.zeros(s, dtype=torch.int32)
+    for r in range(s):
+        k, p = min(int(top_k[r]), v), float(top_p[r])
+        if not temperature[r] > 0:
+            code = "greedy"
+        elif k <= 0:
+            code = "radix" if p < 1.0 else "uncut"
+        elif k > warps:
+            code = "radix"
+        else:
+            taken = int((lg[r] >= candidate_bound(lg[r], k)).sum())
+            code = "candidates" if taken <= MAX_CANDIDATES else "overflow"
+        routes[r] = ROUTES.index(code)
+    return routes
+
+
 def sampler_filter(logits, temperature, top_k, top_p, repetition_penalty,
-                   history, valid, out=None):
+                   history, valid, out=None, routes=None):
     """The filtered logits ``[S, V]`` fp32 of `logits` ``[S, V]`` fp32
     under each slot's temperature, top-k (int32), top-p and repetition
     penalty ``[S]`` and its context ``history`` (int32) and ``valid``
     (bool) ``[S, C]``, written into `out` (a fresh tensor when None) and
     returned. On the card only the rows with temperature > 0 are written;
-    the others keep what `out` held (the keyed draw never reads them)."""
+    the others keep what `out` held (the keyed draw never reads them).
+    `routes`, an int32 ``[S]`` tensor on the logits' device, receives each
+    row's route (codes into ROUTES; on the CPU `filter_routes`')."""
     if logits.device.type == "cpu":
         res = sampler_filter_reference(logits, temperature, top_k, top_p,
                                        repetition_penalty, history, valid)
+        if routes is not None:
+            routes.copy_(filter_routes(logits, temperature, top_k, top_p,
+                                       repetition_penalty, history, valid))
         if out is None:
             return res
         return out.copy_(res)
@@ -184,27 +261,46 @@ def sampler_filter(logits, temperature, top_k, top_p, repetition_penalty,
                              f"{'row-major' if rows_only else 'contiguous'} "
                              f"{dtype} {shape} on {logits.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    if routes is not None and (routes.device != logits.device
+                               or routes.dtype != torch.int32
+                               or tuple(routes.shape) != (s,)
+                               or not routes.is_contiguous()):
+        raise ValueError(f"sampler filter kernel needs routes as a "
+                         f"contiguous int32 ({s},) on {logits.device}")
     if v > MAX_VOCAB:
         raise ValueError(f"vocabulary of {v} exceeds the kernel's "
                          f"{MAX_VOCAB}")
     require_hopper(logits)
     if s == 0:
         return out
-    fn = _build.load("sampler_filter").paddle_sampler_filter
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(logits.device):
-        stream = torch.cuda.current_stream(logits.device).cuda_stream
-        err = fn(ctypes.c_void_p(logits.data_ptr()),
-                 ctypes.c_void_p(temperature.data_ptr()),
-                 ctypes.c_void_p(top_k.data_ptr()),
-                 ctypes.c_void_p(top_p.data_ptr()),
-                 ctypes.c_void_p(repetition_penalty.data_ptr()),
-                 ctypes.c_void_p(history.data_ptr()), history.stride(0),
-                 ctypes.c_void_p(valid.data_ptr()), valid.stride(0), c,
-                 ctypes.c_void_p(out.data_ptr()), s, v,
-                 ctypes.c_void_p(stream))
+    err = run(_build.load("sampler_filter"), logits, temperature, top_k,
+              top_p, repetition_penalty, history, valid, out, routes)
     if err != 0:
         raise RuntimeError(f"sampler_filter launch failed: cudaError {err}")
     launches["sampler_filter"] += 1
     return out
+
+
+def run(lib, logits, temperature, top_k, top_p, repetition_penalty,
+        history, valid, out, routes=None):
+    """One launch of the filter in the loaded library `lib` (this source
+    or another of the same C interface) on checked CUDA tensors, counting
+    nothing: its cudaError. `routes` needs the library's
+    ``paddle_sampler_filter_routes``."""
+    name = "paddle_sampler_filter" + ("" if routes is None else "_routes")
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES if routes is None else _ROUTES_ARGTYPES
+    fn.restype = ctypes.c_int
+    tail = () if routes is None else (ctypes.c_void_p(routes.data_ptr()),)
+    with torch.cuda.device(logits.device):
+        stream = torch.cuda.current_stream(logits.device).cuda_stream
+        return fn(ctypes.c_void_p(logits.data_ptr()),
+                  ctypes.c_void_p(temperature.data_ptr()),
+                  ctypes.c_void_p(top_k.data_ptr()),
+                  ctypes.c_void_p(top_p.data_ptr()),
+                  ctypes.c_void_p(repetition_penalty.data_ptr()),
+                  ctypes.c_void_p(history.data_ptr()), history.stride(0),
+                  ctypes.c_void_p(valid.data_ptr()), valid.stride(0),
+                  history.shape[1], ctypes.c_void_p(out.data_ptr()),
+                  logits.shape[0], logits.shape[1], *tail,
+                  ctypes.c_void_p(stream))

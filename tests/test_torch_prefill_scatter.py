@@ -10,10 +10,14 @@ and refusals, on the CPU.
     scales in the pools;
   * a numpy emulation of the kernel's order of work (one CTA per entry of
     the block row, layer and pool: skip null entries, copy the block's
-    real rows, or for int8 the per-head amax, the scale, 127 / scale as
-    one division and the levels) gives the twin's bytes on every block
-    but 0, fp32 and bf16 rows, fp and int8 pools, and leaves block 0 as
-    it was;
+    real rows, or for int8 a warp's heads read into its lanes' registers
+    once, each head's amax folded over the lanes, the scale, 127 / scale
+    as one division and the levels from the registers) gives the twin's
+    bytes on every block but 0, fp32 and bf16 rows, fp and int8 pools,
+    leaves block 0 as it was and reads each value once where a head's
+    block fits the registers (twice past them);
+  * at head_dim 128 and 32-token blocks the twin's int8 pools and scales
+    equal the JAX `quantize_scatter`'s, and the emulation the twin's;
   * the kernel route's refusals, reached with meta tensors (shapes,
     strides and offsets without storage): a well-formed call passes them;
   * CPU tensors never count a launch.
@@ -26,6 +30,7 @@ import torch
 
 import jax.numpy as jnp
 
+from paddle_tpu.quantization.kv_cache import quantize_scatter
 from paddle_tpu.serving.cache import scatter_prefill as j_scatter
 
 from paddle_tpu_torch import kernels
@@ -96,52 +101,101 @@ def _raw(t):
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
 
+def _per_lane(bs, d, vec):
+    """The kernel's kPV: the fewest 16-byte vectors a lane a head (a power
+    of two, at most 16) that hold a full block's head."""
+    need = -(-bs * (d // vec) // 32)
+    return next(pv for pv in (1, 2, 4, 8, 16) if pv >= need or pv == 16)
+
+
 def kernel_emulation(k_pools, v_pools, k_rows, v_rows, row, length, bs,
-                     k_scales=None, v_scales=None):
-    """The kernel's order of work in numpy, in place: one CTA per (entry of
-    the block row, layer, K or V). Rows are ``[L, T, H, D]``: raw bytes of
-    the pools' type for fp pools, float32 values for int8 pools."""
+                     k_scales=None, v_scales=None, vec=4, reads=None):
+    """The kernel's order of work in numpy, in place: one CTA of 4 warps
+    per (entry of the block row, layer, K or V). Rows are ``[L, T, H,
+    D]``: raw bytes of the pools' type for fp pools, float32 values for
+    int8 pools, whose rows held `vec` values a 16-byte vector. int8: warp
+    w takes heads w, w + 4, ..., max(1, 12 // kPV) at a time; vector v of a
+    head's block (token v // (D // vec)) is lane v % 32's, and a lane's
+    first kPV vectors a head are read into its registers for the whole
+    batch before any is used, the rest read again for the levels; the
+    head's scale is the lanes' maxima folded, the levels come from the
+    registers. `reads`, an array of the rows' shape, counts each value's
+    reads."""
     f32 = np.float32
-    n_layers, t = k_rows.shape[:2]
+    n_layers, t, h, d = k_rows.shape
     length = min(length, t)
+    hv = d // vec
+    pv = _per_lane(bs, d, vec)
+    hb = max(1, 12 // pv)
     for entry, blk in enumerate(row):
         for layer in range(n_layers):
-            for pools, scales, rows in ((k_pools, k_scales, k_rows),
-                                        (v_pools, v_scales, v_rows)):
+            for side, (pools, scales, rows) in enumerate(
+                    ((k_pools, k_scales, k_rows),
+                     (v_pools, v_scales, v_rows))):
                 if blk == 0:
                     continue                    # the null block
                 first = entry * bs
                 n = max(0, min(bs, length - first))
-                vals = rows[layer, first:first + n]
                 if scales is None:
-                    pools[layer, blk, :n] = vals
+                    pools[layer, blk, :n] = rows[layer, first:first + n]
                     continue
                 if n == 0:
                     scales[layer, blk] = 0      # a spare block of the row
                     continue
-                sc = np.maximum(np.abs(vals).max(axis=(0, 2)), f32(1e-8))
-                scales[layer, blk] = sc
-                ratio = f32(127.0) / sc          # one division a head
-                pools[layer, blk, :n] = np.clip(
-                    np.rint(vals * ratio[None, :, None]), -127, 127) \
-                    .astype(np.int8)
+
+                def at(head, v):
+                    tok, c = first + v // hv, v % hv
+                    return (layer, tok, head, slice(c * vec, (c + 1) * vec))
+
+                def read(head, v):
+                    if reads is not None:
+                        reads[side][at(head, v)] += 1
+                    return rows[at(head, v)]
+
+                per_head = n * hv
+                for warp in range(4):
+                    for h0 in range(warp, h, 4 * hb):
+                        heads = [x for x in range(h0, h0 + 4 * hb, 4)
+                                 if x < h]
+                        regs = {(x, v): read(x, v) for x in heads
+                                for v in range(min(per_head, 32 * pv))}
+                        for x in heads:
+                            lane_max = np.zeros(32, f32)
+                            for v in range(per_head):
+                                vals = regs[x, v] if v < 32 * pv \
+                                    else read(x, v)
+                                lane_max[v % 32] = max(lane_max[v % 32],
+                                                       np.abs(vals).max())
+                            sc = max(lane_max.max(), f32(1e-8))
+                            scales[layer, blk, x] = sc
+                            ratio = f32(127.0) / sc   # one division
+                            for v in range(per_head):
+                                vals = regs[x, v] if v < 32 * pv \
+                                    else read(x, v)
+                                tok, c = v // hv, v % hv
+                                pools[layer, blk, tok, x,
+                                      c * vec:(c + 1) * vec] = np.clip(
+                                    np.rint(vals * ratio), -127, 127)
 
 
-@pytest.mark.parametrize("length", LENGTHS)
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_emulation_matches_twin(dtype, int8, length):
-    k_rows, v_rows, pools, scales = _state(dtype, int8, seed=50 + length)
-    row = torch.tensor(ROW, dtype=torch.int32)
+def _emulate_and_compare(k_rows, v_rows, pools, scales, row, length, bs,
+                         vec):
+    """The emulation against the twin on copies of one state: every block
+    but 0 equal, block 0 as it was. Returns the emulation's read counts
+    (int8 pools: each value's reads)."""
+    int8 = scales[0] is not None
     emu_pools = [_raw(p).copy() for p in pools]
     emu_scales = [None if s is None else s.numpy().copy() for s in scales]
     before = [p.copy() for p in emu_pools]
     rows = [np.stack([_raw((x.float() if int8 else x).contiguous())
                       for x in side]) for side in (k_rows, v_rows)]
-    ps.prefill_scatter_reference(*pools, k_rows, v_rows, row,
-                                 torch.tensor(length, dtype=torch.int32), BS,
+    reads = [np.zeros(r.shape, np.int64) for r in rows]
+    ps.prefill_scatter_reference(*pools, k_rows, v_rows,
+                                 torch.tensor(row, dtype=torch.int32),
+                                 torch.tensor(length, dtype=torch.int32), bs,
                                  *scales)
-    kernel_emulation(*emu_pools, *rows, ROW, length, BS, *emu_scales)
+    kernel_emulation(*emu_pools, *rows, row, length, bs, *emu_scales,
+                     vec=vec, reads=reads)
     for got, want in zip(emu_pools, pools):
         np.testing.assert_array_equal(got[:, 1:], _raw(want)[:, 1:])
     for got, want in zip(emu_pools, before):
@@ -149,6 +203,95 @@ def test_kernel_emulation_matches_twin(dtype, int8, length):
     if int8:
         for got, want in zip(emu_scales, scales):
             np.testing.assert_array_equal(got[:, 1:], want.numpy()[:, 1:])
+    return reads
+
+
+@pytest.mark.parametrize("length", LENGTHS)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_emulation_matches_twin(dtype, int8, length):
+    k_rows, v_rows, pools, scales = _state(dtype, int8, seed=50 + length)
+    reads = _emulate_and_compare(k_rows, v_rows, pools, scales, ROW, length,
+                                 BS, vec=16 // k_rows[0].element_size())
+    if int8:
+        # each real token's values read once: the block's heads fit in
+        # the lanes' registers
+        for r in reads:
+            assert np.all(r[:, :length] == 1)
+            assert np.all(r[:, length:] == 0)
+
+
+# int8 pools at head_dim 128 and 32-token blocks: K/V rows of one layer
+# [T2, H, D2], a block row of the prompt's two blocks, a spare one and a
+# null entry
+T2, D2, BS2 = 64, 128, 32
+ROW2 = [3, 1, 4, 0]
+NB2 = 6
+LENGTHS2 = (1, 31, 32, 33, 64)
+
+
+def _state_wide(dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    gain = torch.rand((T2, 1, 1, 1), generator=g) * 4 + 0.05
+    qkv = [(torch.randn((T2, 3, H, D2), generator=g) * gain).to(dtype)
+           for _ in range(2)]
+    shape = (2, NB2, BS2, H, D2)
+    pools = [torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand((2, NB2, H), generator=g) * 4 + 0.5
+              for _ in range(2)]
+    return [x[:, 1] for x in qkv], [x[:, 2] for x in qkv], pools, scales
+
+
+@pytest.mark.parametrize("length", LENGTHS2)
+def test_twin_matches_jax_quantize_scatter_wide_heads(length):
+    """head_dim 128, 32-token blocks: the twin's int8 pools and scales
+    equal the JAX `quantize_scatter`'s, layer by layer, on every block
+    but 0."""
+    k_rows, v_rows, pools, scales = _state_wide(torch.float32, seed=length)
+    row = torch.tensor(ROW2, dtype=torch.int32)
+    pidx = np.arange(T2)
+    blocks = np.where(pidx < length, np.asarray(ROW2)[pidx // BS2], 0) \
+        .astype(np.int32)
+    offs = (pidx % BS2).astype(np.int32)
+    want = []
+    for rows, pool, scale in zip((k_rows, v_rows), pools, scales):
+        for layer in range(2):
+            want.append(quantize_scatter(
+                jnp.asarray(pool[layer].numpy()),
+                jnp.asarray(scale[layer].numpy()),
+                jnp.asarray(rows[layer].contiguous().numpy()),
+                jnp.asarray(blocks), jnp.asarray(offs),
+                jnp.asarray(np.asarray(ROW2, np.int32)), jnp.int32(length)))
+    ps.prefill_scatter_reference(*pools, k_rows, v_rows, row,
+                                 torch.tensor(length, dtype=torch.int32),
+                                 BS2, *scales)
+    for side, (pool, scale) in enumerate(zip(pools, scales)):
+        for layer in range(2):
+            w_pool, w_scale = want[2 * side + layer]
+            np.testing.assert_array_equal(pool[layer, 1:].numpy(),
+                                          np.asarray(w_pool)[1:])
+            np.testing.assert_array_equal(scale[layer, 1:].numpy(),
+                                          np.asarray(w_scale)[1:])
+
+
+@pytest.mark.parametrize("length", LENGTHS2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_emulation_matches_twin_wide_heads(dtype, length):
+    """head_dim 128, 32-token blocks, int8 pools: bf16 rows (16 vectors a
+    lane a head, all in registers) are read once; fp32 rows (32 vectors a
+    lane a head, 16 in registers) read the rest twice."""
+    k_rows, v_rows, pools, scales = _state_wide(dtype, seed=70 + length)
+    vec = 16 // k_rows[0].element_size()
+    assert _per_lane(BS2, D2, vec) == 16
+    reads = _emulate_and_compare(k_rows, v_rows, pools, scales, ROW2, length,
+                                 BS2, vec)
+    in_regs = 32 * 16 * vec // D2              # tokens a head's registers hold
+    for r in reads:
+        for tok in range(length):
+            want = 1 if tok % BS2 < in_regs else 2
+            assert np.all(r[:, tok] == want), (tok, np.unique(r[:, tok]))
+        assert np.all(r[:, length:] == 0)
 
 
 def test_cpu_route_counts_no_launch():

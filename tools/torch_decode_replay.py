@@ -3,14 +3,16 @@
 port on one card.
 
     python3 tools/torch_decode_replay.py [--root DIR] [--kv-dtype int8]
-                                         [--steps 4]
+                                         [--steps 4] [--sampled N]
 
 Imports `paddle_tpu_torch` from DIR (default: this checkout), builds GPT-2
 124M (full width, random weights from seed 0, bf16) behind
 `LLMEngine(max_batch_size=8, block_size=16, max_context=1024)`, fills the
 8 slots with 200-token prompts, lets the engine build its decode graph and
 take 4 steps, then runs `--steps` decode steps of greedy slots (a tree
-with a greedy sampler head replays that head) under torch.profiler and
+with a greedy sampler head replays that head; with `--sampled N` the
+first N requests sample, temperature 0.8, top-k 40, top-p 0.95, so each
+step replays the full sampler head) under torch.profiler and
 prints one JSON line: the card's name and power limit, the device kernels
 and copies a step, device ms a step, and ms and launches a step by kernel
 (names cut to 90 characters; kernels whose names agree that far add
@@ -34,6 +36,7 @@ def main():
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--sampled", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -53,9 +56,11 @@ def main():
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
                        max_context=1024, kv_dtype=args.kv_dtype)
     rng = np.random.default_rng(0)
-    for _ in range(8):
+    for i in range(8):
+        sampling = dict(temperature=0.8, top_k=40, top_p=0.95, seed=i) \
+            if i < args.sampled else {}
         engine.add_request(rng.integers(0, 50257, 200).tolist(),
-                           max_new_tokens=32)
+                           max_new_tokens=32, **sampling)
     for _ in range(5):             # prefills, the graph's build, 4 replays
         engine.step()
     torch.cuda.synchronize()
@@ -86,7 +91,7 @@ def main():
     assert device_ms > 0, "the profiler saw no device time"
     print(json.dumps({
         "root": args.root, "card": card, "kv_dtype": args.kv_dtype or "bf16",
-        "steps": per, "kernels_per_step": kernels,
+        "sampled": args.sampled, "steps": per, "kernels_per_step": kernels,
         "copies_per_step": copies, "device_ms_per_step": device_ms,
         "wall_ms_per_step": wall_ms,
         "by_kernel": {name: [round(ms, 5), n] for name, (ms, n) in

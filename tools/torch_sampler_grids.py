@@ -13,8 +13,10 @@ ceil(V / kThreads))`` CTAs:
   8x1024   the source as it is (8 CTAs of 1024 threads a row);
   4x1024   clusters of at most 4 CTAs;
   8x512    CTAs of 512 threads;
-  8x256    CTAs of 256 threads (the keyed draw only: the filter merges
-           its two histograms with 512 threads a CTA).
+  8x256    CTAs of 256 threads (the keyed draw only);
+  8x1024/d11  the filter with 11-bit digits in its radix route (3 passes,
+           2048 bins, one histogram copy a CTA) in place of 8-bit digits
+           in 4 passes (``kDigitBits``).
 
 Clusters of more than 8 CTAs need the non-portable cluster attribute,
 which the port does not set, and are not built.
@@ -22,11 +24,13 @@ which the port does not set, and are not built.
 Each variant is checked first at the serving shape (S = 8, V = 50304):
 the draw's tokens equal the twin's (on the CPU, on copies), and each
 filtered row is one that `sampler_filter.margin_cuts` allows. Then each
-is timed with 2 and with 8 of 8 rows sampled, with the launch queue
-filled ahead (`chip_smoke._timed`), in turns: every variant, then every
-variant in reverse, in one process. The card's name and power limit come
-first; the last line is one JSON object of the times. Needs a Hopper
-card, nvcc and the repository's root as the working directory.
+is timed with 2 and with 8 of 8 rows sampled (the filter also on
+top-p-only rows, top-k 0 and top-p 0.9: its radix route), with the
+launch queue filled ahead (`chip_smoke._timed`), in turns: every
+variant, then every variant in reverse, in one process. The card's name
+and power limit come first; the last line is one JSON object of the
+times. Needs a Hopper card, nvcc and the repository's root as the
+working directory.
 """
 from __future__ import annotations
 
@@ -51,15 +55,20 @@ OUT = ROOT / "build" / "sampler_grids"
 V = 50304
 S = 8
 GRIDS = {"keyed_draw": ("8x1024", "4x1024", "8x512", "8x256"),
-         "sampler_filter": ("8x1024", "4x1024", "8x512")}
+         "sampler_filter": ("8x1024", "4x1024", "8x512", "8x1024/d11")}
 
 
 def _variant(src, grid):
+    grid, _, digits = grid.partition("/d")
     ctas, threads = grid.split("x")
-    for old, new in (("constexpr int kThreads = 1024;",
-                      f"constexpr int kThreads = {threads};"),
-                     ("constexpr int kMaxCtas = 8;",
-                      f"constexpr int kMaxCtas = {ctas};")):
+    edits = [("constexpr int kThreads = 1024;",
+              f"constexpr int kThreads = {threads};"),
+             ("constexpr int kMaxCtas = 8;",
+              f"constexpr int kMaxCtas = {ctas};")]
+    if digits:
+        edits.append(("constexpr int kDigitBits = 8;",
+                      f"constexpr int kDigitBits = {digits};"))
+    for old, new in edits:
         assert src.count(old) == 1, old
         src = src.replace(old, new)
     return src
@@ -72,9 +81,10 @@ def build():
     for name, grids in GRIDS.items():
         src = (CSRC / f"{name}.cu").read_text()
         for grid in grids:
-            path = OUT / f"{name}_{grid}.cu"
+            tag = grid.replace("/", "_")
+            path = OUT / f"{name}_{tag}.cu"
             path.write_text(_variant(src, grid))
-            lib = OUT / f"lib{name}_{grid}.so"
+            lib = OUT / f"lib{name}_{tag}.so"
             cmd = [_build._nvcc(), *_build._FLAGS, f"-I{CSRC}", "-o",
                    str(lib), str(path)]
             procs[name, grid] = (subprocess.Popen(
@@ -113,17 +123,8 @@ def draw_caller(lib):
 
 def filter_caller(lib):
     """A variant of the filter as a function of its inputs."""
-    fn = lib.paddle_sampler_filter
-    fn.argtypes = [ctypes.c_void_p] * 6 + [
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def call(logits, temps, top_k, top_p, pen, history, valid, out):
-        err = fn(*map(_ptr, (logits, temps, top_k, top_p, pen, history)),
-                 history.stride(0), _ptr(valid), valid.stride(0),
-                 history.shape[1], _ptr(out), logits.shape[0],
-                 logits.shape[1], _stream())
+    def call(*args):
+        err = sf.run(lib, *args)
         assert err == 0, err
     return call
 
@@ -140,7 +141,7 @@ def check_draw(grid, call):
 
 
 def check_filter(grid, call):
-    for rows in (cs.FILTER_MAIN, cs.FILTER_RAGGED):
+    for rows in (cs.FILTER_MAIN, cs.FILTER_RAGGED, cs.FILTER_TOP_P):
         args = cs._filter_state(V, 13, rows)
         out = torch.full(args[0].shape, 7.0, device="cuda")
         call(*args, out)
@@ -173,22 +174,22 @@ def main():
         print(f"{name} {grid}: checked at S={S} V={V}")
     for n_sampled, sampled in ((2, (6, 7)), (8, range(S))):
         args = cs._keyed_state(S, V, 7, sampled)
-        states["keyed_draw", n_sampled] = (
+        states["keyed_draw", f"{n_sampled} of 8 sampled"] = (
             *args, torch.empty(S, dtype=torch.int32, device="cuda"))
-        rows = cs.FILTER_MAIN if n_sampled == 2 else [cs.FILTER_MAIN[-1]] * S
-        args = cs._filter_state(V, 8, rows)
-        states["sampler_filter", n_sampled] = (*args,
-                                               torch.empty_like(args[0]))
+        for tag, cfgs in (("", cs.FILTER_MAIN),
+                          ("top-p only, ", cs.FILTER_TOP_P)):
+            rows = cfgs if n_sampled == 2 else [cfgs[-1]] * S
+            args = cs._filter_state(V, 8, rows)
+            states["sampler_filter", f"{tag}{n_sampled} of 8 sampled"] = (
+                *args, torch.empty_like(args[0]))
     times = {}
-    for name, grids in GRIDS.items():
-        for n_sampled in (2, 8):
-            state = states[name, n_sampled]
-            for grid in grids + grids[::-1]:
-                call = calls[name, grid]
-                ms, _ = cs._timed(lambda: call(*state))
-                times.setdefault(name, {}).setdefault(
-                    f"{n_sampled} of 8 sampled", {}).setdefault(
-                        grid, []).append(round(ms, 5))
+    for (name, load), state in states.items():
+        grids = GRIDS[name]
+        for grid in grids + grids[::-1]:
+            call = calls[name, grid]
+            ms, _ = cs._timed(lambda: call(*state))
+            times.setdefault(name, {}).setdefault(load, {}).setdefault(
+                grid, []).append(round(ms, 5))
     for name, by_load in times.items():
         for load, by_grid in by_load.items():
             print(f"{name} {load}: " + ", ".join(
