@@ -70,6 +70,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                bit on every block but 0, block 0 untouched, timed at a
                full 1024 bucket in turns with the first design (commit
                c3b6374, tools/torch_prefill_scatter_twopass.cu);
+               the batched adapter delta (one launch a projection, in
+               place) at the decode shape (8 slots of adapters 0, 1, 2)
+               and the prefill shape (1024 rows of one slot, a base
+               bucket, a ragged prompt), both projections' widths, bf16
+               and fp32, within `lora_delta_tol`, base rows bit for bit,
+               timed in turns with the reference's op sequence;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -120,6 +126,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                replayed step: the full head alone timed in turns with PR
                10's (the sort-based filter and the one-CTA draw) and
                profiled, with no radix sort and no scan kernel;
+  4d. serve_tenancy — GPT-2 124M bf16 behind `LLMEngine(...,
+               enable_prefix_cache=True, max_adapters=2, adapter_rank=16,
+               hot_swap=True)` on 16 requests sharing a 512-token system
+               prompt and an identical pair (tenants base / a / b, 2
+               sampled): prefills equal to the prefix misses, copy-on-write
+               copies, 24 `lora_delta` launches a replay and a prefill;
+               base tenants bit for bit with engines without adapters
+               (with and without the prefix cache), adapter streams equal
+               pipelined and unpipelined and unlike their base stream, int8
+               pools, fp32 greedy streams equal with the prefix cache off;
+               a mid-run hot-swap exact at the cut with no rebuild; TTFT of
+               hits and misses, a replayed decode step with adapters armed
+               (179 kernels) against one without (155), the copy-on-write
+               copy's and the swap's time;
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
                and agree on the prompts' logits; then the same with int8
@@ -152,11 +172,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
-draw, the sampler's filter, the prompt's K/V scatter), the
-training kernels (flash backward dQ and dK/dV, fused cross-entropy forward
-and backward, the AdamW update) and the fused bias-residual LayerNorm
-within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL / CE_GRAD_TOL /
-LN_TOL (the decode write, the scatter and the update exactly), and the
+draw, the sampler's filter, the prompt's K/V scatter, the adapter delta),
+the training kernels (flash backward dQ and dK/dV, fused cross-entropy
+forward and backward, the AdamW update) and the fused bias-residual
+LayerNorm within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL /
+CE_GRAD_TOL / LN_TOL / `lora_delta_tol` (the decode write, the scatter and
+the update exactly), and the
 bf16 flash forward and backward within their own
 stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
@@ -189,6 +210,7 @@ from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
 from paddle_tpu_torch.kernels import adam_update as au
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
+from paddle_tpu_torch.kernels import lora_delta as ld
 from paddle_tpu_torch.kernels import prefill_scatter as ps
 from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.optimizer import AdamW
@@ -2039,6 +2061,161 @@ def check_sampler_filter():
                     "select for every row), this, this, the first"}
 
 
+# the batched adapter delta at the serve_tenancy phase's shapes: GPT-2
+# 124M's projections (qkv 768 -> 2304, out 768 -> 768), rank 16, the base
+# and two adapters (K = 3), 12 layers; decode rows are the 8 slots, prefill
+# rows one request's bucket
+LORA_RANK = 16
+LORA_DECODE_SLOTS = [0, 1, 2, 1, 0, 2, 2, 1]
+LORA_PREFILL_ROWS = 1024
+
+
+def _lora_state(n, d_out, dtype, seed, d_in=768):
+    """y [n, out], x [n, in], A [3, 12, in, r] and B [3, 12, r, out] (slot
+    0 zero, std 0.05 as the seeded adapters draw) and scale [3]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, d_in), generator=g, device="cuda").to(dtype)
+    y = (torch.randn((n, d_out), generator=g, device="cuda") * 0.5).to(dtype)
+    a = (torch.randn((3, 12, d_in, LORA_RANK), generator=g, device="cuda")
+         * 0.05).to(dtype)
+    b = (torch.randn((3, 12, LORA_RANK, d_out), generator=g, device="cuda")
+         * 0.05).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    scale = torch.tensor([0.0, 1.0, 0.5], device="cuda")
+    return y, x, a, b, scale
+
+
+def _lora_idx(form, n):
+    if form == "decode":
+        return torch.tensor(LORA_DECODE_SLOTS, dtype=torch.int32,
+                            device="cuda")
+    slot = {"prefill": 2, "prefill_base": 0, "prefill_ragged": 1}[form]
+    return torch.full((1,), slot, dtype=torch.int32,
+                      device="cuda").expand(n)
+
+
+def _check_lora_case(form, d_out, dtype, layer=3):
+    n = {"decode": len(LORA_DECODE_SLOTS), "prefill": LORA_PREFILL_ROWS,
+         "prefill_base": LORA_PREFILL_ROWS, "prefill_ragged": 37}[form]
+    y, x, a, b, scale = _lora_state(n, d_out, dtype,
+                                    seed=n + d_out + len(str(dtype)))
+    idx = _lora_idx(form, n)
+    args = (x, a, b, scale, idx, layer)
+    got, want = y.clone(), y.clone()
+    out = ld.lora_delta(got, *args)
+    ld.lora_delta_reference(want, *args)
+    tol = ld.lora_delta_tol(y, *args)
+    torch.cuda.synchronize()
+    assert out is got and torch.isfinite(got.float()).all()
+    diff = (got.float() - want.float()).abs()
+    over = float((diff - tol).max())
+    assert over <= 0, (form, d_out, dtype, over)
+    base = idx == 0
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got[base].view(bits), y[base].view(bits)), form
+    if not bool(base.all()):
+        assert float((got.float() - y.float())[~base].abs().max()) > 1e-3
+    err = float(diff.max())
+    print(f"  lora_delta {form} {str(dtype)[6:]} ({n}, 768 -> {d_out}) rank "
+          f"{LORA_RANK}: max_abs_err {err:.3e} within lora_delta_tol "
+          f"(largest |diff| - bound {over:.3e}); base rows bit for bit")
+    return err
+
+
+def check_lora_delta():
+    """The batched adapter delta (one launch a projection, in place)
+    against its twin at the decode shape (8 slots, adapters 0/1/2 mixed)
+    and the prefill shape (1024 rows of one slot, the index read with
+    stride 0; a base-tenant bucket; a ragged 37-row prompt), both
+    projections' widths, bf16 and fp32, within `lora_delta_tol` (each of
+    x @ A, the delta and the sum may round the other way once) and base
+    rows bit for bit. Timed at the decode and the prefill shape (qkv, bf16)
+    in turns with the op sequence the reference's einsums become in
+    PyTorch (gathers of A and B, two bmm, the scale's gather, a multiply
+    and an add), the yardstick of `library_ms`."""
+    t_check = time.perf_counter()
+    err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for d_out in (2304, 768):
+            for form in ("decode", "prefill", "prefill_base",
+                         "prefill_ragged"):
+                e = _check_lora_case(form, d_out, dtype)
+                if err is None:
+                    err = e
+    layer = 3
+    shapes = {}
+    for form in ("decode", "prefill"):
+        n = len(LORA_DECODE_SLOTS) if form == "decode" else LORA_PREFILL_ROWS
+        y, x, a, b, scale = _lora_state(n, 2304, torch.bfloat16, seed=11)
+        idx = _lora_idx(form, n)
+
+        def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
+            if form == "decode":
+                # the reference's decode form: each row gathers its factors
+                sel = idx.long()
+                t = torch.bmm(x[:, None, :], a[sel, layer])
+                u = torch.bmm(t, b[sel, layer])[:, 0]
+                y.add_(u * scale[sel].to(y.dtype)[:, None])
+            else:
+                # its prefill form: one slot, read on the device
+                sel = idx[:1].long()
+                u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
+                y.add_(u * scale[sel].to(y.dtype))
+
+        def kernel(y=y, x=x, a=a, b=b, scale=scale, idx=idx):
+            ld.lora_delta(y, x, a, b, scale, idx, layer)
+
+        times = [_timed(ops if old else kernel) for old in TURNS]
+        plain_ms = _cuda_ms(lambda: ld.lora_delta_reference(
+            y, x, a, b, scale, idx, layer), iters=5)
+        used = sorted(set(idx.tolist()) - {0})
+        nonzero = int((idx != 0).sum())
+        # bytes: x read, y read and written for the rows whose slot is not
+        # 0 (a base row's CTA returns before it loads them), A, B and the
+        # scale of each distinct non-zero adapter, and the index (one
+        # scalar when it is read with stride 0)
+        idx_bytes = 4 * (idx.stride(0) * (n - 1) + 1)
+        nbytes = 2 * (nonzero * 768 + 2 * nonzero * 2304
+                      + len(used) * (768 + 2304) * LORA_RANK) \
+            + idx_bytes + 4 * len(used)
+        flops = 2 * nonzero * (768 + 2304) * LORA_RANK
+        bound, by = _bound_ms(nbytes, flops, torch.float32)
+        shapes[form] = dict(
+            ms=float(np.mean([t[0] for t, old in zip(times, TURNS)
+                              if not old])),
+            host_ms=times[1][1],
+            library_ms=float(np.mean([t[0] for t, old in zip(times, TURNS)
+                                      if old])),
+            turns_ms=[round(t[0], 5) for t in times], plain_ms=plain_ms,
+            bound_ms=bound, bound_by=by, bytes=nbytes)
+        print(f"  lora_delta {form} ({n}, 768 -> 2304) bf16 rank "
+              f"{LORA_RANK}: {shapes[form]['ms'] * 1e3:.2f} us a launch, "
+              f"op sequence {shapes[form]['library_ms'] * 1e3:.2f} us, twin "
+              f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+              f"({by}); turns (ops, kernel, kernel, ops) ms "
+              f"{json.dumps(shapes[form]['turns_ms'])}")
+    dec, pre = shapes["decode"], shapes["prefill"]
+    print(f"  lora_delta check: {time.perf_counter() - t_check:.2f} s wall")
+    return {"name": "lora_delta", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/lora_delta.cu",
+            "replaces": "no Pallas counterpart: paddle_tpu/serving/"
+                        "tenancy.py:526 _adapter_forward (XLA einsums)",
+            "max_abs_err": err, "ms": dec["ms"], "host_ms": dec["host_ms"],
+            "turns_ms": dec["turns_ms"], "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "library_ms": dec["library_ms"], "prefill_ms": pre["ms"],
+            "prefill_library_ms": pre["library_ms"],
+            "prefill_bound_ms": pre["bound_ms"],
+            "shape": f"decode: 8 slots (adapters {LORA_DECODE_SLOTS}), x "
+                     f"[8, 768] -> y [8, 2304] bf16, rank {LORA_RANK}, "
+                     f"K = 3; prefill_*: {LORA_PREFILL_ROWS} rows of slot "
+                     f"2 (stride-0 index); library_ms: the reference's op "
+                     f"sequence (decode: gathers, two bmm, multiply, add; "
+                     f"prefill: two matmuls, multiply, add) timed in turns",
+            "note": "turns_ms: op sequence, kernel, kernel, op sequence"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving path at full width
 # ---------------------------------------------------------------------------
@@ -2669,6 +2846,380 @@ def serve_int8(bf16_greedy):
 
 
 # ---------------------------------------------------------------------------
+# phase 4d: multi-tenant serving at full width
+# ---------------------------------------------------------------------------
+
+TENANT_PREFIX = 512        # the shared system prompt: 32 aligned blocks
+TENANT_NEW = 24
+TENANT_CUT = 6             # decode steps before the mid-run hot-swap
+TENANT_ENGINE = dict(max_batch_size=8, block_size=16, max_context=1024)
+TENANTS = (None, "a", "b")
+TENANT_SAMPLED = {3: 0, 10: 1}     # request -> seed of the sampled ones
+TENANT_SAMPLER = dict(temperature=0.8, top_k=40, top_p=0.95,
+                      repetition_penalty=1.3)
+
+
+def _tenant_mix(rng):
+    """``[(prompt, add_request kwargs)]``: 16 requests sharing a 512-token
+    system prompt with distinct 4-24-token tails, then two with one
+    identical 300-token prompt of their own, both on adapter a (the first
+    misses and publishes its blocks, tail included; the second is a full
+    alias, a hit of len - 1 tokens, and both then write inside the shared
+    tail block); the first 16 rotate tenants base, a, b (the prefix index
+    is per adapter: each tenant's first request misses); requests 3 and 10
+    sample (temperature 0.8, top-k 40, top-p 0.95, repetition penalty
+    1.3), the rest are greedy."""
+    system = rng.integers(0, 50257, TENANT_PREFIX).tolist()
+    tails = [rng.integers(0, 50257, int(n)).tolist()
+             for n in rng.integers(4, 25, 16)]
+    alias = rng.integers(0, 50257, 300).tolist()
+    prompts = [system + t for t in tails] + [alias, list(alias)]
+    mix = []
+    for i, p in enumerate(prompts):
+        kw = dict(adapter=TENANTS[i % 3] if i < 16 else "a")
+        if i in TENANT_SAMPLED:
+            kw.update(TENANT_SAMPLER, seed=TENANT_SAMPLED[i])
+        mix.append((list(p), kw))
+    return mix
+
+
+def _tenant_engine(model, warm, kv_dtype=None, adapters=True, prefix=True,
+                   hot_swap=True, pipelined=False, logprobs_topk=0):
+    """An engine with the phase's tenancy options (adapters "a" and "b"
+    registered from seeds 1 and 2, scale 4), its decode graph and the
+    buckets the mix reaches (512, 1024) built by warm-up requests of
+    `warm` outside any counted window, so a miss's TTFT holds no build.
+    The top-2
+    logprobs (``logprobs_topk=2``) give a cold run's margins; they change
+    no token and no chosen logprob."""
+    engine = LLMEngine(model, kv_dtype=kv_dtype, pipeline_decode=pipelined,
+                       logprobs_topk=logprobs_topk,
+                       enable_prefix_cache=prefix,
+                       max_adapters=2 if adapters else 0,
+                       adapter_rank=LORA_RANK, hot_swap=hot_swap,
+                       **TENANT_ENGINE)
+    if adapters:
+        # scale 4: the delta's rows are then about twice the projections'
+        # (factors of std 0.05 against weights of std 0.02), so it bites
+        engine.register_adapter("a", seed=1, scale=4.0)
+        engine.register_adapter("b", seed=2, scale=4.0)
+    engine.generate(warm, max_new_tokens=2)
+    return engine
+
+
+def _tenant_window(engine, mix):
+    """The mix through `engine` from zeroed counts and stats (requests of
+    an adapter tenant go to an engine without adapters as base ones):
+    returns the requests, the launch counts, the stats and the wall
+    time."""
+    engine.reset_stats()
+    reset_launch_counts()
+    has_adapters = engine._adapters is not None
+    t0 = time.perf_counter()
+    reqs = [engine.add_request(
+        p, max_new_tokens=TENANT_NEW,
+        **{k: v for k, v in kw.items() if k != "adapter" or has_adapters})
+        for p, kw in mix]
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(r.state == "FINISHED" and len(r.generated) == TENANT_NEW
+               for r in reqs), [(r.rid, r.state) for r in reqs]
+    return reqs, launch_counts(), engine.stats(), wall
+
+
+def _streams(reqs, which=None):
+    return [(list(r.generated), list(r.token_logprobs))
+            for i, r in enumerate(reqs) if which is None or i in which]
+
+
+def _first_difference(got, cold):
+    """Position of the first differing greedy token between two runs of
+    one stream, with the cold run's top-two logprob (= logit) margin
+    there; None when the streams agree."""
+    for pos, (a, b) in enumerate(zip(got.generated, cold.generated)):
+        if a != b:
+            top = cold.alt_logprobs[pos]
+            return pos, top[0] - top[1]
+    return None
+
+
+def _tenant_ttft(reqs):
+    """TTFT p50 in ms of prefix hits and misses, from enqueue and from
+    admission (a hit's first token comes after its chew steps)."""
+    out = {}
+    for name, group in (("hit", [r for r in reqs if r.prefix_hit]),
+                        ("miss", [r for r in reqs if not r.prefix_hit])):
+        out[name] = dict(
+            n=len(group),
+            from_enqueue=float(np.median([(r.first_token_ns - r.enqueue_ns)
+                                          / 1e6 for r in group])),
+            from_admission=float(np.median([(r.first_token_ns - r.admit_ns)
+                                            / 1e6 for r in group])))
+    return out
+
+
+def serve_tenancy():
+    """Multi-tenant serving at full width: GPT-2 124M (random weights from
+    seed 0, bf16) behind `LLMEngine(max_batch_size=8, block_size=16,
+    max_context=1024, enable_prefix_cache=True, max_adapters=2,
+    adapter_rank=16, hot_swap=True)` on `_tenant_mix`, unpipelined (the
+    counted window), pipelined and with int8 pools, then in fp32.
+    Holds: base tenants bit for bit (tokens and logprobs) with an engine
+    without adapters (prefix cache on, the same hits) and, with the prefix
+    cache off on both, with an engine built with no tenancy options;
+    adapter streams equal across the unpipelined and pipelined runs and
+    different from the base stream of their prompt; prefills equal to the
+    prefix misses, hit tokens, copy-on-write copies >= 1, no decode or
+    bucket rebuild; `lora_delta` launched 24 times a decode replay and a
+    prefill; fp32 greedy streams equal to the
+    same engine with the prefix cache off; a mid-run hot-swap whose
+    tokens before the cut are the old weights' and after it those of an
+    engine on the new weights continuing from prompt + old tokens, the
+    parameters' storage kept, the continuation on a fresh engine built on
+    the new model. Reports bf16 prefix-vs-cold agreement, TTFT
+    of hits and misses, a replayed decode step with adapters armed
+    against one without, the copy-on-write copy's time and the swap's host
+    time. Returns the counted window's launch counts."""
+    tag = "serve_tenancy"
+    t_phase = time.perf_counter()
+    laps = {}     # part -> its wall seconds
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    layers = cfg.num_hidden_layers
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    rng = np.random.default_rng(3)
+    mix = _tenant_mix(rng)
+    warm = [rng.integers(0, 50257, n).tolist() for n in (400, 600)]
+    base_ix = {i for i, (_, kw) in enumerate(mix) if kw["adapter"] is None}
+    adapter_ix = set(range(len(mix))) - base_ix
+    greedy_ix = set(range(len(mix))) - set(TENANT_SAMPLED)
+    ptrs = [p.data_ptr() for p in model.parameters()]
+
+    # -- the counted window: the tenancy engine, unpipelined, bf16 ---------
+    tenant = _tenant_engine(model, warm)
+    stacks = tenant._adapters
+    stack_ptrs = [t.data_ptr() for t in (*stacks.a.values(),
+                                         *stacks.b.values(), stacks.scale)]
+    reqs, counts, st, wall = _tenant_window(tenant, mix)
+    misses = sum(not r.prefix_hit for r in reqs)
+    assert st["decode_compiles"] == st["prefill_compiles"] == 0, st
+    assert st["evictions"] == 0, st
+    assert st["prefills"] == misses and 0 < misses < len(mix), (st, misses)
+    assert st["prefix_hit_tokens"] > 0 and st["cow_copies"] >= 1, st
+    assert reqs[-1].prefix_hit == len(mix[-1][0]) - 1, reqs[-1].prefix_hit
+    assert st["adapter_switches"] >= 2, st
+    # one delta launch a projection (2 a layer) in every decode replay and
+    # prefill replay
+    assert counts["lora_delta"] == 2 * layers * (
+        st["steps"] + st["prefills"]), (counts, st)
+    assert counts["paged_decode_append"] == layers * st["steps"], counts
+    assert counts["prefill_scatter"] == st["prefills"], counts
+    assert counts["keyed_draw"] == st["steps"] + st["prefills"], counts
+    ttft = _tenant_ttft(reqs)
+    print(f"{tag}: {len(reqs)} requests ({len(adapter_ix)} on adapters a/b, "
+          f"2 sampled), {st['tokens_generated']} tokens in {wall:.3f} s; "
+          f"{st['prefills']} prefills = {misses} prefix misses, "
+          f"{st['admitted'] - st['prefills']} prefix hits, "
+          f"prefix_hit_tokens {st['prefix_hit_tokens']} (hit rate "
+          f"{st['prefix_hit_rate']:.4f}), cow_copies {st['cow_copies']}, "
+          f"prefix_evictions {st['prefix_evictions']}, adapter_switches "
+          f"{st['adapter_switches']}, {st['steps']} decode steps (no decode "
+          f"or bucket build in the window: the warm-up built them), step "
+          f"p50 {st['p50_step_ms']:.3f} ms; lora_delta launches "
+          f"{counts['lora_delta']} = 24 x (steps + prefills)")
+    print(f"{tag}: TTFT p50 ms (host clock; enqueue -> first token, and "
+          f"admission -> first token, a hit's chew steps included): "
+          + json.dumps({k: {kk: (round(vv, 3) if isinstance(vv, float)
+                                 else vv) for kk, vv in v.items()}
+                        for k, v in ttft.items()}))
+    print(f"{tag}: launches {json.dumps(counts)}")
+    lap("counted window")
+
+    # -- base tenants bit for bit against engines without adapters --------
+    prefix_only = _tenant_engine(model, warm, adapters=False,
+                                 hot_swap=False)
+    p_reqs, _, _, _ = _tenant_window(prefix_only, mix)
+    assert [p_reqs[i].prefix_hit for i in base_ix] == \
+        [reqs[i].prefix_hit for i in base_ix]
+    assert _streams(reqs, base_ix) == _streams(p_reqs, base_ix), \
+        "base tenants differ from the adapter-free engine's"
+    differ = [reqs[i].generated != p_reqs[i].generated
+              for i in sorted(adapter_ix)]
+    assert all(differ), [i for i, d in zip(sorted(adapter_ix), differ) if not d]
+    no_prefix = _tenant_engine(model, warm, prefix=False, logprobs_topk=2)
+    a_reqs, _, _, _ = _tenant_window(no_prefix, mix)
+    plain = _tenant_engine(model, warm, adapters=False, prefix=False,
+                           hot_swap=False)
+    n_reqs, _, _, _ = _tenant_window(plain, mix)
+    assert _streams(a_reqs, base_ix) == _streams(n_reqs, base_ix), \
+        "base tenants differ from the engine with no tenancy options"
+    print(f"{tag}: {len(base_ix)} base-tenant streams bit for bit (tokens "
+          f"and logprobs) with an engine without adapters (prefix cache on, "
+          f"the same hits) and, prefix cache off on both, with an engine "
+          f"built with no tenancy options; all {len(adapter_ix)} adapter "
+          f"streams differ from their prompt's base stream")
+    # bf16 prefix hits against cold prefills (reported, not held)
+    first = [(i, _first_difference(reqs[i], a_reqs[i]))
+             for i in sorted(greedy_ix)
+             if reqs[i].generated != a_reqs[i].generated]
+    print(f"{tag}: bf16 prefix cache on vs off (same adapters): "
+          f"{len(greedy_ix) - len(first)}/{len(greedy_ix)} greedy streams "
+          f"identical; first "
+          f"differences (request, (position, cold run's top-two logprob "
+          f"margin there)): {json.dumps(first[:6])} (reported, not held)")
+    lap("base tenants")
+
+    # -- the same engine pipelined: every stream equal -------------------
+    piped = _tenant_engine(model, warm, pipelined=True)
+    q_reqs, _, q_st, _ = _tenant_window(piped, mix)
+    assert _streams(q_reqs) == _streams(reqs), "pipelined streams differ"
+    assert {k: q_st[k] for k in ("prefills", "prefix_hit_tokens",
+                                 "cow_copies")} == \
+        {k: st[k] for k in ("prefills", "prefix_hit_tokens", "cow_copies")}
+    print(f"{tag} (pipelined): all {len(reqs)} streams (adapter ones "
+          f"included) equal to the unpipelined run's, tokens and logprobs; "
+          f"step p50 {q_st['p50_step_ms']:.3f} ms, {q_st['commit_rollbacks']} "
+          f"rollbacks")
+    lap("pipelined")
+
+    # -- int8 pools ------------------------------------------------------
+    quant = _tenant_engine(model, warm, kv_dtype="int8")
+    i_reqs, i_counts, i_st, _ = _tenant_window(quant, mix)
+    assert i_st["prefills"] == sum(not r.prefix_hit for r in i_reqs), i_st
+    assert i_st["cow_copies"] >= 1 and i_st["decode_compiles"] == 0, i_st
+    assert i_counts["paged_decode_append_int8"] == layers * i_st["steps"]
+    agree = sum(a == b for ra, rb in zip(i_reqs, reqs)
+                for a, b in zip(ra.generated, rb.generated))
+    print(f"{tag} (int8 pools): prefills {i_st['prefills']}, "
+          f"prefix_hit_tokens {i_st['prefix_hit_tokens']}, cow_copies "
+          f"{i_st['cow_copies']}; tokens equal to the bf16 run's at "
+          f"{agree}/{len(reqs) * TENANT_NEW} positions (reported)")
+    lap("int8 pools")
+
+    # -- the copy-on-write copy's time, on free blocks --------------------
+    cow = {}
+    for name, engine in (("bf16", plain), ("int8", quant)):
+        free = list(engine.cache.allocator._free)[:2]
+        cow[name] = _cuda_ms(lambda e=engine, f=free: e._copy_block(*f))
+    print(f"{tag}: copy-on-write block copy, 12 layers (bf16: K and V, "
+          f"2 copies; int8: K, V and the scale rows, 4 copies), device ms: "
+          + json.dumps({k: round(v, 5) for k, v in cow.items()}))
+
+    # -- a replayed decode step, adapters armed vs none ------------------
+    replay = {}
+    for name, engine in (("adapters armed", tenant), ("no tenancy", plain)):
+        rr = [engine.add_request(
+            rng.integers(0, 50257, 200).tolist(), max_new_tokens=32,
+            **({"adapter": TENANTS[i % 3]} if engine._adapters else {}))
+            for i in range(8)]
+        for _ in range(5):
+            engine.step()
+        totals = {}
+        _breakdown(f"{tag} decode replay ({name})",
+                   lambda e=engine: [e.step() for _ in range(4)], per=4,
+                   totals=totals)
+        replay[name] = totals
+        engine.run()
+        assert all(r.state == "FINISHED" for r in rr)
+    if replay["no tenancy"].get("device_ms"):
+        # one delta launch more a projection with adapters armed (the
+        # profiler files an event under kernels or copies by its name, and
+        # one moved between them across processes: their sum is held)
+        armed, none = (replay[k]["kernels"] + replay[k]["copies"]
+                       for k in ("adapters armed", "no tenancy"))
+        assert round(armed) == round(none) + 2 * layers, replay
+    print(f"{tag}: replayed greedy decode step, 8 slots: "
+          + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+                        for k, v in replay.items()}))
+    lap("copy and replay")
+
+    # -- mid-run hot-swap on the tenancy engine --------------------------
+    swap_prompts = [rng.integers(0, 50257, n).tolist() for n in (40, 70)]
+    old = [prefix_only.add_request(p, max_new_tokens=TENANT_NEW)
+           for p in swap_prompts]
+    prefix_only.run()
+    new_model = GPTForCausalLM(cfg, device="cuda", seed=1).to(torch.bfloat16)
+    values = [p.detach() for p in new_model.parameters()]
+    tenant.reset_stats()
+    programs = (tenant._decode_program, dict(tenant._prefill_fns))
+    live = [tenant.add_request(p, max_new_tokens=TENANT_NEW)
+            for p in swap_prompts]
+    for _ in range(TENANT_CUT):
+        tenant.step()
+    marks = [len(r.generated) for r in live]
+    assert all(0 < k < TENANT_NEW for k in marks), marks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch = tenant.swap_weights(values)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    tenant.run()
+    s_st = tenant.stats()
+    assert epoch == tenant.weight_epoch == s_st["weight_epoch"] == 1
+    assert s_st["evictions"] == 0 and s_st["decode_compiles"] == 0, s_st
+    assert s_st["weight_swaps"] == 1, s_st
+    assert tenant._decode_program is programs[0]
+    assert all(tenant._prefill_fns[b] is fn for b, fn in programs[1].items())
+    assert [p.data_ptr() for p in model.parameters()] == ptrs
+    assert all(torch.equal(p, v) for p, v in zip(model.parameters(), values))
+    assert [t.data_ptr() for t in (*stacks.a.values(), *stacks.b.values(),
+                                   stacks.scale)] == stack_ptrs
+    # the tokens after the cut against a fresh engine with no tenancy
+    # options on the new model itself: its graphs are captured on the new
+    # weights in their own storage, so whatever the swapped engine's graphs
+    # serve is held against an independent capture
+    fresh = LLMEngine(new_model, **TENANT_ENGINE)
+    cont = [fresh.add_request(p + o.generated[:k],
+                              max_new_tokens=TENANT_NEW - k)
+            for p, o, k in zip(swap_prompts, old, marks)]
+    fresh.run()
+    for r, o, c, k in zip(live, old, cont, marks):
+        assert r.generated[:k] == o.generated[:k], "tokens before the cut"
+        assert r.generated[k:] == c.generated, "tokens after the cut"
+        assert r.preemptions >= 1
+    del fresh, new_model, values
+    print(f"{tag}: hot-swap after {TENANT_CUT} steps ({marks} tokens "
+          f"out): tokens before the cut equal the old weights' stream, "
+          f"after it a fresh engine on the new model (its own graphs and "
+          f"storage) continuing from prompt + old tokens; weight_epoch 1, "
+          f"0 evictions, no "
+          f"decode or bucket rebuild, parameters' data_ptr unchanged; "
+          f"swap_weights host time {swap_ms:.3f} ms (CRC of the new set, "
+          f"staging on the card, preempting 2 streams, copying "
+          f"{sum(p.numel() for p in model.parameters())} parameters)")
+    lap("hot-swap")
+
+    # -- fp32: prefix hits hold the cold path's greedy tokens exactly -----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    del tenant, prefix_only, no_prefix, plain, piped, quant, model
+    fp32 = GPTForCausalLM(cfg, device="cuda", seed=0)
+    f_reqs, _, f_st, _ = _tenant_window(_tenant_engine(fp32, warm), mix)
+    g_reqs, _, _, _ = _tenant_window(_tenant_engine(fp32, warm, prefix=False,
+                                                    logprobs_topk=2), mix)
+    assert f_st["prefix_hit_tokens"] > 0 and f_st["cow_copies"] >= 1
+    for i in sorted(greedy_ix):
+        assert f_reqs[i].generated == g_reqs[i].generated, (
+            i, _first_difference(f_reqs[i], g_reqs[i]))
+    sampled_same = sum(f_reqs[i].generated == g_reqs[i].generated
+                       for i in TENANT_SAMPLED)
+    print(f"{tag} (fp32): all {len(greedy_ix)} greedy streams (adapter "
+          f"ones included) equal to the same engine with the prefix cache "
+          f"off ({f_st['prefix_hit_tokens']} hit tokens, "
+          f"{f_st['cow_copies']} copies); sampled streams equal "
+          f"{sampled_same}/{len(TENANT_SAMPLED)} (reported)")
+    lap("fp32")
+    print(f"{tag}: phase wall time {time.perf_counter() - t_phase:.2f} s, "
+          f"by part (s): "
+          f"{json.dumps({k: round(v, 2) for k, v in laps.items()})}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 5: card vs CPU parity (fp32)
 # ---------------------------------------------------------------------------
 
@@ -2755,17 +3306,19 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                # the sampler's filter and draw; cub's radix sort (the first
                # sampler's one sort, the embedding backward's index sort)
                # and scans (the first sampler's top-p cumulative sum)
+               ("lora_delta", ("lora_delta_kernel",)),
                ("sampler_filter", ("sampler_filter_kernel",)),
                ("keyed_draw", ("keyed_draw_kernel",)),
                ("radix sort", ("RadixSort",)),
                ("scan", ("scan",)))
 
 
-def _breakdown(tag, fn, per=1, top=8):
+def _breakdown(tag, fn, per=1, top=8, totals=None):
     """fn() under torch.profiler: device time by kernel group and the
     device's busy share of the wall time, per one of the `per` steps fn
     runs, and the kernels (and copies) it launched per step. Returns the
-    groups' ms per step (None where the profiler saw no device time)."""
+    groups' ms per step (None where the profiler saw no device time); a
+    `totals` dict gets the step's kernels and device ms."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2787,6 +3340,9 @@ def _breakdown(tag, fn, per=1, top=8):
     n_copies = sum(count for _, count, name in kernels
                    if name.startswith(("Memcpy", "Memset")))
     n_kernels = sum(count for _, count, _ in kernels) - n_copies
+    if totals is not None:
+        totals.update(kernels=n_kernels, copies=n_copies,
+                      device_ms=device_ms)
     if device_ms == 0:
         print(f"{tag}: the profiler saw no device time; breakdown not "
               "measured")
@@ -3189,13 +3745,15 @@ def main():
                       check_sampler_filter(), scatter],
             "serve_int8": [paged_int8, fused_int8, scatter_int8],
             "train": check_flash_bwd() + check_ce() + [check_adam_update()],
-            "fused_ln": [check_fused_ln()]}
+            "fused_ln": [check_fused_ln()],
+            "serve_tenancy": [check_lora_delta()]}
     paths = {}
     paths["serve"], bf16_greedy, model = serve()
     paths["serve_int8"] = serve_int8(bf16_greedy)
     paths["serve_pipelined"] = serve_pipelined(model)
     paths["serve_pipelined_int8"] = serve_pipelined(model, kv_dtype="int8")
     del model
+    paths["serve_tenancy"] = serve_tenancy()
     parity()
     parity(kv_dtype="int8")
     paths["train"] = train()
@@ -3215,13 +3773,14 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 15 and all(
+    assert len(rows) == 16 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
             "alone_ms", "append_ms", "turns_ms", "all_sampled_ms",
             "greedy_ms", "bytes_bound_ms", "int32_bound_ms",
             "int32_bound_all_sampled_ms", "top_p_only_ms",
+            "prefill_ms", "prefill_library_ms", "prefill_bound_ms",
             "top_p_only_all_sampled_ms", "margin_rows", "routes", "shape",
             "launches_by_path",
             "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")

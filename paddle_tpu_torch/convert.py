@@ -15,14 +15,15 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_state"]
+__all__ = ["load_jax_state", "jax_state_values"]
 
 
-def load_jax_state(model: nn.Module, arrays):
-    """Copy `arrays` (``{name: np.ndarray}``) into `model`'s parameters, in
-    place, casting to each parameter's dtype and device. Raises KeyError on
-    a missing or extra name and ValueError on a shape mismatch; nothing is
-    copied unless every name and shape checks out."""
+def jax_state_values(model: nn.Module, arrays):
+    """`arrays` (``{name: np.ndarray}``, the JAX model's named parameters)
+    as a list in `model`'s ``parameters()`` order and layout (Linear
+    weights transposed to ``[out, in]``), the form `LLMEngine.stage_weights`
+    takes. Raises KeyError on a missing or extra name and ValueError on a
+    shape mismatch."""
     linear_weights = {f"{name}.weight" if name else "weight"
                       for name, mod in model.named_modules()
                       if isinstance(mod, nn.Linear)}
@@ -42,7 +43,16 @@ def load_jax_state(model: nn.Module, arrays):
                              + (" after transposing [in, out] -> [out, in]"
                                 if name in linear_weights else ""))
         staged[name] = arr
+    return [staged[name] for name in params]
+
+
+def load_jax_state(model: nn.Module, arrays):
+    """Copy `arrays` (``{name: np.ndarray}``) into `model`'s parameters, in
+    place, casting to each parameter's dtype and device. Raises KeyError on
+    a missing or extra name and ValueError on a shape mismatch; nothing is
+    copied unless every name and shape checks out."""
+    values = jax_state_values(model, arrays)
     with torch.no_grad():
-        for name, p in params.items():
-            p.copy_(torch.tensor(staged[name]))
+        for p, arr in zip(model.parameters(), values):
+            p.copy_(torch.tensor(arr))
     return model

@@ -11,15 +11,17 @@ launches nothing), and `add_launches` adds that record once per replay.
 from __future__ import annotations
 
 from . import (adam_update, cross_entropy, flash_attention, fused_ln,
-               keyed_draw, paged_attention, prefill_scatter, sampler_filter)
+               keyed_draw, lora_delta, paged_attention, prefill_scatter,
+               sampler_filter)
 
 __all__ = ["adam_update", "cross_entropy", "flash_attention", "fused_ln",
-           "keyed_draw", "paged_attention", "prefill_scatter",
+           "keyed_draw", "lora_delta", "paged_attention", "prefill_scatter",
            "sampler_filter", "launch_counts",
            "reset_launch_counts", "captured_launches", "add_launches"]
 
 _MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln,
-            keyed_draw, sampler_filter, adam_update, prefill_scatter)
+            keyed_draw, sampler_filter, adam_update, prefill_scatter,
+            lora_delta)
 
 
 def launch_counts():

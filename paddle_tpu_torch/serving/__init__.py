@@ -3,7 +3,9 @@
 Counterpart of `paddle_tpu/serving` for the parts ported: `LLMEngine`
 (serving/engine.py), `Scheduler` and `Request` (serving/scheduler.py),
 `PagedKVCache` and its helpers (serving/cache.py), `ServeRefusal`
-(serving/resilience.py) and the sampler (serving/sampling.py).
+(serving/resilience.py), the sampler (serving/sampling.py) and the
+multi-tenant primitives `PrefixCache` and `AdapterSet`
+(serving/tenancy.py).
 
 Quick start::
 
@@ -21,10 +23,12 @@ from .cache import (BlockAllocator, PagedKVCache, PagedCacheView,  # noqa: F401
 from .scheduler import (Request, Scheduler, QUEUED, RUNNING,  # noqa: F401
                         FINISHED, FAILED, CANCELLED, EXPIRED)
 from .resilience import ServeRefusal  # noqa: F401
+from .tenancy import PrefixCache, AdapterSet  # noqa: F401
 from .engine import LLMEngine, ServeStats  # noqa: F401
 
 __all__ = ["LLMEngine", "ServeStats", "Request", "Scheduler",
            "PagedKVCache", "PagedCacheView", "BlockAllocator",
            "scatter_prefill", "NULL_BLOCK", "QUEUED", "RUNNING",
            "FINISHED", "FAILED", "CANCELLED", "EXPIRED",
-           "ServeRefusal", "pool_bytes_per_block", "num_blocks_for_bytes"]
+           "ServeRefusal", "pool_bytes_per_block", "num_blocks_for_bytes",
+           "PrefixCache", "AdapterSet"]

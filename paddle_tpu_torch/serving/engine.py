@@ -69,18 +69,52 @@ buffer a queued launch still reads is rewritten: the staging copy and
 the output copy each alternate between two pinned buffers, and a buffer
 is written again only after the event of its last copy.
 
+Multi-tenant serving (serving/tenancy.py), as the reference's:
+
+  * ``enable_prefix_cache=True`` indexes every prefilled prompt's blocks by
+    content (`PrefixCache`), per adapter: a prompt's K and V depend on the
+    adapter its qkv projection ran under, so a stream aliases only blocks
+    prefilled under its own adapter (the reference shares them across
+    adapters). An admission whose context hits the index
+    aliases the cached blocks (refcounted), runs no prefill, joins the
+    decode batch at ``cached_len = hit`` and "chews" the known suffix: each
+    decode step feeds its next context token (host-authored, ``override``
+    set) and emits nothing, until the last one's step samples. Its history
+    row is written by one stream-ordered copy at admission. Before each
+    launch a copy-on-write sweep gives every stream whose write block is
+    still shared (refcount > 1) a private copy of it (`_copy_block`: every
+    layer's K and V, and the int8 scale rows), so the fused paged kernel,
+    which writes and requantizes its write block in place, never writes a
+    block another owner reads. Cold index entries are reclaimed before any
+    stream is preempted.
+  * ``max_adapters=K`` (``adapter_rank=r``) builds an `AdapterSet`, whose
+    stacks live on the device, allocated once, and hooks its delta into
+    every layer's ``qkv_proj`` and ``out_proj``. The per-slot adapter index
+    joins the decode slot buffer and the prefill's adapter slot the
+    prefill buffer, so registering, unregistering and routing tenants
+    changes values, never a captured graph (`add_request(adapter=name)`,
+    `register_adapter`, `unregister_adapter`).
+  * ``hot_swap=True``: `stage_weights` / `swap_weights` take one array per
+    ``model.parameters()`` entry (the port's order and ``[out, in]``
+    layout; `convert.jax_state_values` turns the JAX model's arrays into
+    that) and, at the next iteration boundary, preempt every running
+    stream (no eviction counted), empty the prefix index and copy the
+    values into the parameters' own storage, so the captured graphs serve
+    the new weights without a recapture.
+
 Left out of the port, and refused with NotImplementedError when a
-constructor argument asks for them: tenancy (prefix cache, adapters,
-weight hot-swap), a float ``kv_dtype`` other than the model's and a
-kernel variant switch. The hung-step watchdog with its eager fallback,
-AOT warm start, crash-resume and the telemetry plane are not ported
-either.
+constructor argument asks for them: a float ``kv_dtype`` other than the
+model's and a kernel variant switch. The hung-step watchdog with its eager
+fallback, AOT warm start, crash-resume and the telemetry plane are not
+ported either.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import time
+import zlib
 from collections import deque
 
 import numpy as np
@@ -93,6 +127,7 @@ from .resilience import ServeRefusal
 from .sampling import default_seed, sample_tokens, validate_sampler
 from .scheduler import (Request, Scheduler, RUNNING, FINISHED, FAILED,
                         CANCELLED, EXPIRED)
+from .tenancy import AdapterSet, PrefixCache
 
 __all__ = ["LLMEngine", "ServeStats"]
 
@@ -109,17 +144,18 @@ def _slot_buffer(s, m, device, pin=False):
     """The decode program's slot state, zeroed (every slot inactive): the
     4-byte fields of `_slot_views` and the two bool masks packed in one
     byte buffer, so that one copy moves them all."""
-    return torch.zeros(4 * s * (m + 7) + 2 * s, dtype=torch.uint8,
+    return torch.zeros(4 * s * (m + 8) + 2 * s, dtype=torch.uint8,
                        device=device, pin_memory=pin)
 
 
 def _slot_views(buf, s, m):
     """``(tokens [S], tables [S, M], lens [S], active [S], temperature [S],
     top_k [S], top_p [S], repetition_penalty [S], seeds [S], override
-    [S])`` views of a buffer from `_slot_buffer`: int32 tokens, tables,
-    lens, top-k and seeds (the uint32 seed's bits), float32 temperature,
-    top-p and penalty, bool active and override."""
-    words = 4 * s * (m + 7)
+    [S], adapter [S])`` views of a buffer from `_slot_buffer`: int32
+    tokens, tables, lens, top-k, seeds (the uint32 seed's bits) and
+    adapter slots, float32 temperature, top-p and penalty, bool active and
+    override."""
+    words = 4 * s * (m + 8)
     i32 = buf[:words].view(torch.int32)
     f32 = buf[:words].view(torch.float32)
     flags = buf[words:].view(torch.bool)
@@ -127,7 +163,7 @@ def _slot_views(buf, s, m):
     return (i32[:s], i32[s:s * (m + 1)].view(s, m), i32[s * (m + 1):o],
             flags[:s], f32[o:o + s], i32[o + s:o + 2 * s],
             f32[o + 2 * s:o + 3 * s], f32[o + 3 * s:o + 4 * s],
-            i32[o + 4 * s:o + 5 * s], flags[s:])
+            i32[o + 4 * s:o + 5 * s], flags[s:], i32[o + 5 * s:o + 6 * s])
 
 
 def _host_slot_views(buf, s, m):
@@ -157,20 +193,20 @@ def _out_views(buf, s, k):
 def _prefill_buffer(c, m, device, pin=False):
     """A prefill program's inputs packed in one byte buffer
     (`_prefill_views`), zeroed."""
-    return torch.zeros(4 * (c + m + 7), dtype=torch.uint8, device=device,
+    return torch.zeros(4 * (c + m + 8), dtype=torch.uint8, device=device,
                        pin_memory=pin)
 
 
 def _prefill_views(buf, c, m):
     """``(ids [C], block_row [M], length [1], slot [1], top_k [1], seed [1]
     int32 (the uint32 seed's bits), temperature [1], top_p [1],
-    repetition_penalty [1] float32)`` views of a buffer from
-    `_prefill_buffer`."""
+    repetition_penalty [1] float32, adapter [1] int32)`` views of a buffer
+    from `_prefill_buffer`."""
     i32, f32 = buf.view(torch.int32), buf.view(torch.float32)
     o = c + m
     return (i32[:c], i32[c:o], i32[o:o + 1], i32[o + 1:o + 2],
             i32[o + 2:o + 3], i32[o + 3:o + 4], f32[o + 4:o + 5],
-            f32[o + 5:o + 6], f32[o + 6:o + 7])
+            f32[o + 5:o + 6], f32[o + 6:o + 7], i32[o + 7:o + 8])
 
 
 def _copies(views, event):
@@ -179,6 +215,12 @@ def _copies(views, event):
     if event is not None:
         event.synchronize()
     return tuple(v.copy() for v in views)
+
+
+def _host_bytes(t):
+    """Tensor `t`'s bytes as a numpy uint8 array (copied to the host)."""
+    return t.detach().to("cpu").contiguous().reshape(-1).view(
+        torch.uint8).numpy()
 
 
 def _pct(samples, p):
@@ -199,7 +241,12 @@ class ServeStats:
     0 in a window whose buckets were all built before it.
     `commit_rollbacks` counts speculative tokens a pipelined commit
     discarded because the slot's request was cancelled, expired, preempted
-    or finished between launch and commit."""
+    or finished between launch and commit. The tenancy counters are the
+    reference's: `prefix_hit_tokens` over `prefix_prompt_tokens` (every
+    admitted context token that could have hit the prefix index) is the
+    hit rate; `prefix_evictions` counts index entries reclaimed under pool
+    pressure, `cow_copies` private block copies, `adapter_switches` changes
+    of a slot's adapter index, `weight_swaps` committed hot-swaps."""
 
     def __init__(self):
         self.reset()
@@ -227,6 +274,12 @@ class ServeStats:
         self.saturated_occupancy_sum = 0.0
         self.sampled_tokens = 0
         self.commit_rollbacks = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_prompt_tokens = 0
+        self.prefix_evictions = 0
+        self.cow_copies = 0
+        self.adapter_switches = 0
+        self.weight_swaps = 0
         # recent raw samples only (the admission wait estimate averages
         # the tail)
         self.step_times_s = []
@@ -274,6 +327,14 @@ class ServeStats:
             "expired": self.expired,
             "sampled_tokens": self.sampled_tokens,
             "commit_rollbacks": self.commit_rollbacks,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_hit_rate": (self.prefix_hit_tokens
+                                / self.prefix_prompt_tokens
+                                if self.prefix_prompt_tokens else 0.0),
+            "prefix_evictions": self.prefix_evictions,
+            "cow_copies": self.cow_copies,
+            "adapter_switches": self.adapter_switches,
+            "weight_swaps": self.weight_swaps,
             "occupancy_mean": (self.occupancy_sum / self.steps
                                if self.steps else 0.0),
             "occupancy_saturated": (
@@ -313,6 +374,11 @@ class LLMEngine:
     parameter dtype, or int8 with ``kv_dtype="int8"`` (or ``torch.int8``):
     one byte per cached element, dequantized inside the paged kernel, so
     the same pool bytes admit about twice the streams of bf16.
+    ``enable_prefix_cache=True`` shares prompt KV blocks across streams
+    with copy-on-write, ``max_adapters=K`` serves per-tenant low-rank
+    adapters (``add_request(..., adapter=name)``) and ``hot_swap=True``
+    lets `swap_weights` replace the weights between steps; none of them
+    rebuilds a captured graph (module docstring).
     """
 
     def __init__(self, model, max_batch_size=8, block_size=16,
@@ -320,18 +386,13 @@ class LLMEngine:
                  tokenizer=None, max_queue_depth=None,
                  aging_max_preemptions=3, kv_dtype=None,
                  attention_kernel=None, enable_prefix_cache=False,
-                 max_adapters=0, hot_swap=False, logprobs_topk=0,
-                 pipeline_decode=False, device=None):
-        asked = {"attention_kernel": attention_kernel is not None,
-                 "enable_prefix_cache": bool(enable_prefix_cache),
-                 "max_adapters": bool(max_adapters),
-                 "hot_swap": bool(hot_swap)}
-        unported = [name for name, on in asked.items() if on]
-        if unported:
+                 max_adapters=0, adapter_rank=4, hot_swap=False,
+                 logprobs_topk=0, pipeline_decode=False, device=None):
+        if attention_kernel is not None:
             raise NotImplementedError(
-                f"paddle_tpu_torch's LLMEngine does not port {unported} "
-                "(kernel variants and tenancy stay in the JAX package for "
-                "now)")
+                "paddle_tpu_torch's LLMEngine does not port "
+                "attention_kernel= (the kernel variant switch stays in the "
+                "JAX package for now)")
         device = resolve_device(device)
         param = next(model.parameters())
         if kv_dtype is not None and not is_int8(kv_dtype) \
@@ -376,12 +437,28 @@ class LLMEngine:
                                    aging_max_preemptions=
                                    aging_max_preemptions)
         self._stats = ServeStats()
+        # -- multi-tenant layer (serving/tenancy.py) ---------------------
+        self._prefix = (PrefixCache(self.cache.allocator, self.block_size)
+                        if enable_prefix_cache else None)
+        self._adapters = None
+        if max_adapters > 0:
+            self._adapters = AdapterSet(model, max_adapters, adapter_rank)
+            self._adapters.install()
+        self._hot_swap = bool(hot_swap)
+        self._weight_epoch = 0
+        self._pending_weights = None
+        self._weights_crc = self._params_crc() if self._hot_swap else None
         # fixed slot-layout state every decode step consumes
         s, m = self.max_batch_size, self.max_blocks_per_seq
         self._tables = np.zeros((s, m), np.int32)
         self._lens = np.zeros(s, np.int32)
         self._active = np.zeros(s, bool)
         self._tokens = np.zeros(s, np.int32)
+        # per-slot adapter index into the stacks (0 = base), staged with the
+        # slot state; deliberately NOT reset by _clear_slot, as in the
+        # reference: a stale index on an inactive slot is masked out, and
+        # clearing it would count a spurious switch at the next admission
+        self._aslots = np.zeros(s, np.int32)
         # per-slot sampler config; the no-op values of a cleared slot keep
         # it on the greedy path
         self._logprobs_topk = int(logprobs_topk)
@@ -487,16 +564,16 @@ class LLMEngine:
         ``temperature=0`` (the default) is greedy; otherwise `top_k`,
         `top_p` and `repetition_penalty` shape the distribution and `seed`
         (default: a stable hash of the request id) makes the stream replay
-        byte-identically. `ttl_s` arms a deadline.
+        byte-identically. `ttl_s` arms a deadline. `adapter` names the
+        registered adapter the stream decodes under (None: the base
+        weights).
 
         Raises `ServeRefusal` (a ValueError) for doomed work:
-        `sampler_mismatch`, `queue_full`, `kv_exhausted` (the peak KV
-        footprint can never fit) or `deadline_infeasible`. Plain
-        validation errors stay ValueError.
+        `sampler_mismatch`, `adapter_mismatch` (the adapter is not
+        registered, or the engine has none), `queue_full`, `kv_exhausted`
+        (the peak KV footprint can never fit) or `deadline_infeasible`.
+        Plain validation errors stay ValueError.
         """
-        if adapter is not None:
-            raise NotImplementedError(
-                "adapters (multi-tenant serving) are not ported")
         prompt = [int(t) for t in np.asarray(prompt_ids).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -512,8 +589,9 @@ class LLMEngine:
                 f"request id {rid!r} is already queued/running; ids may "
                 "only be reused after the previous request finishes")
         req = Request(rid, prompt, max_new_tokens, eos_token_id, on_token,
-                      ttl_s=ttl_s, temperature=temperature, top_k=top_k,
-                      top_p=top_p, repetition_penalty=repetition_penalty,
+                      ttl_s=ttl_s, adapter=adapter, temperature=temperature,
+                      top_k=top_k, top_p=top_p,
+                      repetition_penalty=repetition_penalty,
                       seed=(default_seed(rid) if seed is None
                             else int(seed) & 0xFFFFFFFF))
         try:
@@ -528,6 +606,17 @@ class LLMEngine:
                 f"request {rid}: prompt ({len(prompt)}) + max_new_tokens "
                 f"({req.max_new_tokens}) exceeds max_context "
                 f"({self.max_context})")
+        if adapter is not None and (
+                self._adapters is None
+                or not self._adapters.is_registered(adapter)):
+            self._refuse(req, "adapter_mismatch",
+                         f"request {rid}: adapter {adapter!r} is not "
+                         "registered with this engine; register it (or "
+                         "build the engine with max_adapters > 0) before "
+                         "routing its tenant here",
+                         {"adapter": adapter,
+                          "registered": ([] if self._adapters is None
+                                         else self._adapters.names())})
         self._admission_policy(req)
         self.scheduler.enqueue(req)
         self.requests[rid] = req
@@ -546,7 +635,13 @@ class LLMEngine:
                           "max_queue_depth": sched.max_queue_depth})
         peak = sched.max_blocks_of(req)
         budget = sched.block_budget()
-        if not sched.can_ever_fit(req):
+        shared = 0
+        if self._prefix is not None:
+            # aliasing credit: blocks this prompt would inherit by
+            # reference (advisory: no references are taken)
+            shared, _ = self._prefix.probe(req.prompt + req.generated,
+                                           namespace=req.adapter)
+        if not sched.can_ever_fit(req, shared_blocks=shared):
             self._refuse(req, "kv_exhausted",
                          f"request {req.rid}: needs {peak} KV blocks at "
                          f"peak but the pool only ever has {budget} "
@@ -652,13 +747,27 @@ class LLMEngine:
 
     def _step_locked(self):
         sched = self.scheduler
+        # -- weight hot-swap cutover (an exact iteration boundary) -------
+        if self._pending_weights is not None:
+            self._commit_swap()
         self._boundary_housekeeping()
+        hook = self._prefix_hook if self._prefix is not None else None
         while True:
             # expire a dead head BEFORE admission assigns it a slot
             while sched.waiting and sched.waiting[0].expired():
                 self._expire(sched.waiting[0])
-            req = sched.try_admit()
+            req = sched.try_admit(prefix_hook=hook)
             if req is None:
+                # the pool may be dry only because the prefix index hoards
+                # cold entries: release those and retry (only with a slot
+                # free: batch pressure is not block pressure)
+                if (self._prefix is not None and sched.waiting
+                        and None in sched.slots
+                        and self._reclaim_prefix(
+                            sched.blocks_needed(
+                                sched.waiting[0].context_len)
+                            + sched.watermark_blocks)):
+                    continue
                 break
             self._admit(req)
         if not sched.running:
@@ -671,20 +780,11 @@ class LLMEngine:
                 continue
             need = sched.blocks_needed(req.cached_len)
             while len(req.blocks) < need and req.state == RUNNING:
-                if sched.grow(req):
+                if self._take_block(req, lambda r=req: sched.grow(r)):
                     self._sync_slot(req)
-                    continue
-                victim = sched.preempt_victim(exclude=req)
-                if victim is not None:
-                    self._evict(victim)
-                    continue
-                if not sched.protected(req):
-                    # aging guard: every other tenant is protected — the
-                    # grower steps aside (requeued, not failed)
-                    self._evict(req)
-                    break
-                self._fail(req, "kv_exhausted")
-                break
+        # -- copy-on-write boundary: privatize shared write blocks ------
+        if self._prefix is not None:
+            self._cow_sweep()
         if not sched.running:
             self._flush_inflight()
             self._stats.wall_t1 = time.perf_counter()
@@ -706,6 +806,12 @@ class LLMEngine:
             slot = req.slot
             req.cached_len += 1
             self._lens[slot] = req.cached_len
+            if req.chew:
+                # prefix-hit warm-up: the next context token is KNOWN; feed
+                # it as the next input and drop the prediction (made from
+                # a mid-context position, it is no output token)
+                self._tokens[slot] = req.chew.pop(0)
+                continue
             tok = int(toks[slot])
             self._tokens[slot] = tok
             self._emit_token(req, tok, logp=float(logps[slot]),
@@ -759,7 +865,8 @@ class LLMEngine:
                 continue
             slot = req.slot
             pending = 1 if self._has_pending(req, slot) else 0
-            if len(req.generated) + pending >= req.max_new_tokens:
+            if (not req.chew
+                    and len(req.generated) + pending >= req.max_new_tokens):
                 # every remaining token is committed or in flight:
                 # launching this slot could only overshoot max_new_tokens
                 launch_active[slot] = False
@@ -772,6 +879,13 @@ class LLMEngine:
         for req, slot in plan:
             req.cached_len += 1
             self._lens[slot] = req.cached_len
+            if req.chew:
+                # a chew launch emits nothing, so it leaves no record; the
+                # next known context token is the slot's next input, from
+                # the host (override stays set)
+                self._tokens[slot] = req.chew.pop(0)
+                self._override[slot] = True
+                continue
             records.append((req, slot, req.admit_seq))
             self._override[slot] = False
         return {"out": out, "records": records}
@@ -858,6 +972,12 @@ class LLMEngine:
         snap["block_size"] = self.block_size
         snap["kv_dtype"] = str(self.cache.dtype).replace("torch.", "")
         snap["device"] = str(self.device)
+        if self._prefix is not None:
+            snap["prefix_entries"] = self._prefix.entries
+        if self._hot_swap or self._adapters is not None:
+            snap["weight_epoch"] = self._weight_epoch
+            snap["adapters"] = ([] if self._adapters is None
+                                else self._adapters.names())
         return snap
 
     def reset_stats(self):
@@ -883,17 +1003,20 @@ class LLMEngine:
     def _admit(self, req):
         """Bucketed prefill of prompt + already-generated tokens (the
         resume case) into the request's freshly assigned blocks, then join
-        the decode batch."""
+        the decode batch. A prefix-hit admission (try_admit aliased cached
+        blocks) skips the prefill (`_admit_prefix_hit`)."""
         ctx = req.prompt + req.generated
+        if req.prefix_hit > 0:
+            self._admit_prefix_hit(req, ctx)
+            return
+        if self._prefix is not None:
+            self._stats.prefix_prompt_tokens += len(ctx)
         # capped at max_context: padded positions stay inside the
         # position table and the block table
         bucket = min(self._bucket_for(len(ctx)), self.max_context)
         self._stats.admitted += 1
         self._stats.prefills += 1
-        now = time.perf_counter_ns()
-        if req.admit_ns is None:
-            req.admit_ns = now
-            self._stats.queue_wait_s.append((now - req.enqueue_ns) / 1e9)
+        self._note_admission(req)
         row = np.zeros(self.max_blocks_per_seq, np.int32)
         row[:len(req.blocks)] = req.blocks
         t0 = time.perf_counter()
@@ -901,6 +1024,14 @@ class LLMEngine:
         self._stats.observe_prefill(bucket, time.perf_counter() - t0)
         req.cached_len = len(ctx)
         self._sync_slot(req)
+        self._set_adapter_slot(req)
+        if self._prefix is not None:
+            # index this prompt's blocks for the NEXT stream sharing it; a
+            # resume's partial tail holds generated-token KV, which must
+            # never be served as prompt KV
+            self._prefix.publish(ctx, req.blocks,
+                                 include_tail=not req.generated,
+                                 namespace=req.adapter)
         tok = int(nxt[0])
         # the prefill's sampled token is the next decode step's input, from
         # the host's copy
@@ -909,6 +1040,60 @@ class LLMEngine:
         self._emit_token(req, tok, logp=float(logp[0]),
                          alts=((aids[0], alps[0]) if self._logprobs_topk
                                else None))
+
+    def _note_admission(self, req):
+        now = time.perf_counter_ns()
+        if req.admit_ns is None:
+            req.admit_ns = now
+            self._stats.queue_wait_s.append((now - req.enqueue_ns) / 1e9)
+
+    @torch.no_grad()
+    def _admit_prefix_hit(self, req, ctx):
+        """Prefix-hit admission: the aliased blocks already hold the first
+        `prefix_hit` tokens' KV, so there is NO prefill. The stream joins
+        the decode batch at ``cached_len = hit`` with ``ctx[hit]`` as its
+        input, and the decode steps chew the rest of the known context
+        (one token a step, nothing emitted) before sampling. Its history
+        row (the repetition penalty's) is ``ctx[:hit]`` and zeros, written
+        by one copy queued on the stream behind every launch that may still
+        read the row; the decode steps write each input token at ``lens``
+        after it."""
+        hit = req.prefix_hit
+        self._stats.admitted += 1
+        self._stats.prefix_hit_tokens += hit
+        self._stats.prefix_prompt_tokens += len(ctx)
+        self._note_admission(req)
+        req.cached_len = hit
+        self._sync_slot(req)
+        self._set_adapter_slot(req)
+        self._stage_prefill(ctx[:hit], self._tables[req.slot], req.slot, 0.0,
+                            0, 1.0, 1.0, 0, 0)
+        ids, _, _, slot = self._pf_views[:4]
+        self._history_rows.index_copy_(0, slot.long(), ids[None])
+        self._tokens[req.slot] = int(ctx[hit])
+        self._override[req.slot] = True
+        req.chew = [int(t) for t in ctx[hit + 1:]]
+
+    def _set_adapter_slot(self, req):
+        """Point the request's batch slot at its tenant's adapter index
+        (0 = base); a change of index counts as an adapter switch."""
+        if self._adapters is None:
+            return
+        idx = self._adapters.slot_of(req.adapter)
+        if idx != int(self._aslots[req.slot]):
+            self._stats.adapter_switches += 1
+        self._aslots[req.slot] = idx
+
+    def _adapter_index(self, req):
+        return 0 if self._adapters is None else \
+            self._adapters.slot_of(req.adapter)
+
+    def _armed(self, idx):
+        """A context arming the adapter hooks with the rows' adapter slots
+        `idx` (a no-op context for an engine without adapters)."""
+        if self._adapters is None:
+            return contextlib.nullcontext()
+        return self._adapters.arm(idx)
 
     @torch.no_grad()
     def _prefill(self, ctx, bucket, row, req):
@@ -922,7 +1107,8 @@ class LLMEngine:
         if program is None:
             program = self._build_prefill(bucket)
         self._stage_prefill(ctx, row, req.slot, req.temperature, req.top_k,
-                            req.top_p, req.repetition_penalty, req.seed or 0)
+                            req.top_p, req.repetition_penalty, req.seed or 0,
+                            self._adapter_index(req))
         program(req.temperature > 0)
         self._pf_out_host.copy_(self._pf_out_dev, non_blocking=True)
         return _copies(self._pf_outputs, self._event())
@@ -940,7 +1126,11 @@ class LLMEngine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :length] = ctx
         ids = torch.from_numpy(padded).to(dev)
-        logits, caches = self._model(ids, caches=self._model.gen_caches(1))
+        adapter = torch.tensor([self._adapter_index(req)], dtype=torch.int32,
+                               device=dev)
+        with self._armed(adapter):
+            logits, caches = self._model(ids,
+                                         caches=self._model.gen_caches(1))
         scatter_prefill(self._k_pools, self._v_pools,
                         [k[0] for k, _ in caches], [v[0] for _, v in caches],
                         torch.from_numpy(row).to(dev), length,
@@ -964,7 +1154,7 @@ class LLMEngine:
         return tuple(t.cpu().numpy() for t in out)
 
     def _stage_prefill(self, ids, row, slot, temperature, top_k, top_p,
-                       penalty, seed):
+                       penalty, seed, adapter=0):
         """Write a prefill's inputs into the pinned host buffer (once the
         copy that last read it is done) and copy them to the device
         buffer in one copy."""
@@ -976,7 +1166,8 @@ class LLMEngine:
         staged[0][n:] = 0
         staged[1][:] = row
         for view, value in zip(staged[2:], (n, slot, top_k, seed,
-                                            temperature, top_p, penalty)):
+                                            temperature, top_p, penalty,
+                                            adapter), strict=True):
             view[0] = value
         self._pf_dev.copy_(self._pf_host, non_blocking=True)
         self._pf_copied = self._event()
@@ -988,7 +1179,8 @@ class LLMEngine:
         `_pf_logits` (row ``length - 1``, by a device index; row 0 when
         length is 0) and the ids row into history row ``slot``."""
         ids, row, length, slot = self._pf_views[:4]
-        logits, kv = self._model(ids[:bucket][None], caches=caches)
+        with self._armed(self._pf_views[9]):
+            logits, kv = self._model(ids[:bucket][None], caches=caches)
         scatter_prefill(self._k_pools, self._v_pools, [k[0] for k, _ in kv],
                         [v[0] for _, v in kv], row, length[0],
                         self.block_size, k_scales=self._k_scales,
@@ -1003,7 +1195,7 @@ class LLMEngine:
         writing into `_pf_out_dev`: the full head, or with ``sampled``
         False the greedy head (the raw argmax, no processors)."""
         ids, _, length, _, top_k, seed, temp, top_p, penalty = \
-            self._pf_views
+            self._pf_views[:9]
         valid = self._positions[None, :] < length[:, None]
         sample_tokens(self._pf_logits, temp, top_k, top_p, penalty, seed,
                       length, ids[None], valid, self._logprobs_topk,
@@ -1031,7 +1223,7 @@ class LLMEngine:
             sampled: functools.partial(self._prefill_head, sampled)
             for sampled in (True, False)}
         self._stage_prefill((), np.zeros(self.max_blocks_per_seq, np.int32),
-                            self.max_batch_size, 0.0, 0, 1.0, 1.0, 0)
+                            self.max_batch_size, 0.0, 0, 1.0, 1.0, 0, 0)
         if self.device.type != "cuda":
             for fn in (forward, *head_fns.values()):
                 fn()
@@ -1115,9 +1307,10 @@ class LLMEngine:
         ``override`` is set, else the fed-back ones), the forward, and the
         input token into each active slot's history at ``lens``. Returns
         the logits ``[S, 1, V]``."""
-        tokens, _, lens, active, *_, override = slots
-        tokens = torch.where(override, tokens, self._feedback)
-        logits = self._model(tokens[:, None], caches=views)[0]
+        tokens, _, lens, active = slots[:4]
+        tokens = torch.where(slots[9], tokens, self._feedback)
+        with self._armed(slots[10]):
+            logits = self._model(tokens[:, None], caches=views)[0]
         at = lens.long().clamp(0, self.max_context - 1)[:, None]
         hist = self._history
         hist.scatter_(1, at, torch.where(active[:, None], tokens[:, None],
@@ -1130,7 +1323,7 @@ class LLMEngine:
         buffers. With ``sampled`` False (no launched slot samples) every
         row takes its raw argmax without the processors' sort: the outputs
         of each greedy row are those of the full head, bit for bit."""
-        _, _, lens, _, temps, top_k, top_p, penalty, seeds, _ = slots
+        _, _, lens, _, temps, top_k, top_p, penalty, seeds = slots[:9]
         valid = self._positions[None, :] <= lens[:, None]
         sample_tokens(logits[:, -1, :], temps, top_k, top_p, penalty, seeds,
                       lens + 1, self._history, valid, self._logprobs_topk,
@@ -1218,7 +1411,8 @@ class LLMEngine:
         for dst, src in zip(staged, (self._tokens, self._tables, self._lens,
                                      active, self._temps, self._topks,
                                      self._topps, self._rpens, self._seeds,
-                                     self._override), strict=True):
+                                     self._override, self._aslots),
+                            strict=True):
             np.copyto(dst, src)
 
     @torch.no_grad()
@@ -1278,6 +1472,205 @@ class LLMEngine:
         self._rpens[slot] = 1.0
         self._seeds[slot] = 0
         self._override[slot] = True
+
+    # ------------------------------------------------------------------
+    # multi-tenant serving (serving/tenancy.py)
+    # ------------------------------------------------------------------
+    def _prefix_hook(self, req):
+        """try_admit's shared-prefix acquisition: the longest cached block
+        run matching the head's context among blocks prefilled under the
+        same adapter (its KV depends on the adapter), increfed for the
+        admission (the scheduler frees it again when the admission
+        fails)."""
+        return self._prefix.acquire(req.prompt + req.generated,
+                                    namespace=req.adapter)
+
+    def _reclaim_prefix(self, num_free_target):
+        """Drop cold prefix-index entries (leaf first, least popular first)
+        until the allocator can serve `num_free_target` free blocks. True
+        when anything was freed."""
+        dropped = self._prefix.reclaim(num_free_target)
+        self._stats.prefix_evictions += dropped
+        return dropped > 0
+
+    def _take_block(self, req, take):
+        """Claim one block for `req` by `take()` (truthy once it got one),
+        climbing the pool-pressure ladder while the pool is dry: cold
+        prefix entries go first, then the newest other stream is
+        preempted; with neither left, `req` steps aside (requeued) unless
+        every other tenant is protected (the aging guard), and then fails
+        with kv_exhausted. Returns take()'s result, or None when `req` no
+        longer runs. KV growth and the copy-on-write target share it."""
+        sched = self.scheduler
+        while True:
+            got = take()
+            if got:
+                return got
+            if self._prefix is not None and self._reclaim_prefix(1):
+                continue
+            victim = sched.preempt_victim(exclude=req)
+            if victim is not None:
+                self._evict(victim)
+                continue
+            if not sched.protected(req):
+                self._evict(req)
+            else:
+                self._fail(req, "kv_exhausted")
+            return None
+
+    def _cow_sweep(self):
+        """Copy-on-write boundary: before the next launch writes each
+        stream's KV at position ``cached_len`` (in pipelined mode the
+        previous launch already moved ``cached_len``, so this is the block
+        the NEXT launch writes), any stream whose write block is still
+        shared (refcount > 1: a prefix entry or another stream owns it
+        too) gets a private copy: the copy, a table edit that the next
+        launch's staging copy carries, a decref of the original. The fused
+        paged kernel writes (and with int8 pools requantizes) its write
+        block in place, so it must never see a shared one."""
+        sched = self.scheduler
+        alloc = self.cache.allocator
+        for req in sorted(list(sched.running), key=lambda r: r.admit_seq):
+            if req.state != RUNNING:
+                continue      # evicted or failed by an earlier copy's ladder
+            wi = req.cached_len // self.block_size
+            if wi >= len(req.blocks):
+                continue
+            src = req.blocks[wi]
+            if alloc.refcount(src) <= 1:
+                continue
+            got = self._take_block(req, lambda: alloc.allocate(1))
+            if got is None:
+                continue
+            dst = got[0]
+            self._copy_block(src, dst)
+            # the decref leaves src with its other owners (its refcount
+            # was > 1), so no later allocation can hand it out while a
+            # launch queued before this copy may still read it
+            alloc.free([src])
+            req.blocks[wi] = dst
+            self._sync_slot(req)
+            self._stats.cow_copies += 1
+
+    @torch.no_grad()
+    def _copy_block(self, src, dst):
+        """Copy pool block `src` into `dst`: every layer's K and V and, with
+        int8 pools, the scale rows. The copies are queued on the current
+        stream, so they read `src` after every launch queued before them
+        wrote it and before the next launch writes `dst`."""
+        for pool in (self._k_pools, self._v_pools, self._k_scales,
+                     self._v_scales):
+            if pool is not None:
+                pool[:, dst].copy_(pool[:, src])
+
+    def register_adapter(self, name, weights=None, scale=1.0, seed=None):
+        """Install a tenant's adapter into a free slot of the stacks (in
+        place: no graph is rebuilt). See `tenancy.AdapterSet.register` for
+        the weights' layout."""
+        if self._adapters is None:
+            raise ValueError(
+                "engine was built with max_adapters=0; adapters need "
+                "max_adapters > 0 at construction (the stacks' shapes are "
+                "fixed with the captured graphs)")
+        return self._adapters.register(name, weights=weights, scale=scale,
+                                       seed=seed)
+
+    def unregister_adapter(self, name):
+        """Free a departed tenant's slot and drop the prefix entries
+        prefilled under it. Refuses while a live stream still decodes
+        under the adapter."""
+        if self._adapters is None:
+            raise ValueError("engine was built with max_adapters=0")
+        live = [r.rid for r in (list(self.scheduler.waiting)
+                                + list(self.scheduler.running))
+                if r.adapter == name]
+        if live:
+            raise ValueError(
+                f"adapter {name!r} still serves live requests {live}; "
+                "drain or cancel them first")
+        slot = self._adapters.unregister(name)
+        if self._prefix is not None:
+            self._prefix.invalidate(name)
+        return slot
+
+    def _params_crc(self):
+        """CRC over every parameter's bytes: the identity of the serving
+        weight set."""
+        crc = 0
+        for p in self._model.parameters():
+            crc = zlib.crc32(_host_bytes(p), crc)
+        return crc
+
+    def stage_weights(self, values):
+        """Stage a live weight hot-swap: `values` (one array or tensor per
+        ``model.parameters()`` entry, in the port's order and layout;
+        `convert.jax_state_values` gives them from the JAX model's arrays)
+        replace the weights at the next iteration boundary, so every token
+        is produced under one weight set or the other. Returns True when
+        staged, False when the set is byte-identical to the serving one."""
+        if not self._hot_swap:
+            raise ValueError(
+                "engine was built without hot_swap=True; build it with "
+                "hot_swap=True to swap its weights")
+        params = list(self._model.parameters())
+        if len(values) != len(params):
+            raise ValueError(f"stage_weights: got {len(values)} arrays for "
+                             f"{len(params)} parameters")
+        vals, crc = [], 0
+        for p, v in zip(params, values):
+            t = (v.detach() if torch.is_tensor(v)
+                 else torch.tensor(np.asarray(v))).to("cpu", p.dtype)
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"stage_weights: shape {tuple(t.shape)} "
+                                 f"does not match parameter shape "
+                                 f"{tuple(p.shape)}")
+            crc = zlib.crc32(_host_bytes(t), crc)
+            vals.append(t)
+        if crc == self._weights_crc and self._pending_weights is None:
+            return False
+        self._pending_weights = ([t.to(self.device, copy=True)
+                                  for t in vals], crc)
+        return True
+
+    def swap_weights(self, values):
+        """Stage and commit a hot-swap: between steps the cutover happens
+        at once; from inside a streaming callback it commits at the next
+        iteration boundary. Returns the serving weight epoch."""
+        if self.stage_weights(values) and not self._stepping:
+            self._commit_swap()
+        return self._weight_epoch
+
+    @torch.no_grad()
+    def _commit_swap(self):
+        """The cutover: commit a pipelined launch in flight (issued under
+        the old weights), preempt every running stream (they re-prefill
+        under the new weights and continue from their emitted tokens; a
+        planned cutover, so no eviction is counted), empty the prefix
+        index (cached KV is a function of the weights), copy the staged
+        values into each parameter's existing storage (the captured
+        graphs read the parameters by address: rebinding them would leave
+        the graphs on the old weights) and bump the epoch."""
+        self._flush_inflight()
+        values, crc = self._pending_weights
+        self._pending_weights = None
+        sched = self.scheduler
+        for req in list(sched.running):
+            slot = req.slot
+            sched.preempt(req)
+            if slot is not None:
+                self._clear_slot(slot)
+        if self._prefix is not None:
+            self._prefix.invalidate()
+        for p, v in zip(self._model.parameters(), values):
+            p.copy_(v)
+        self._weight_epoch += 1
+        self._weights_crc = crc
+        self._stats.weight_swaps += 1
+
+    @property
+    def weight_epoch(self):
+        """Serving weight-set generation (0 = the construction weights)."""
+        return self._weight_epoch
 
     # ------------------------------------------------------------------
     # token delivery / retirement

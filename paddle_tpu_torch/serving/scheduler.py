@@ -2,8 +2,8 @@
 
 A copy of `paddle_tpu/serving/scheduler.py` (pure host Python): the port
 keeps its own so that it imports nothing of the JAX package. `Request` and
-`Scheduler` behave exactly as there; the prefix-hook and adapter fields
-stay for that reason even though the port's engine leaves tenancy out.
+`Scheduler` behave exactly as there, the prefix hook and the adapter and
+chew fields included (serving/tenancy.py and the engine use them).
 
 Reference analog: the reference serves through a pool of
 `AnalysisPredictor` workers, one request per predictor run — batch

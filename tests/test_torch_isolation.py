@@ -53,5 +53,7 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.convert",
                 "paddle_tpu_torch.quantization.kv_cache",
                 "paddle_tpu_torch.kernels.fused_ln",
-                "paddle_tpu_torch.incubate.nn.fused_transformer"}
+                "paddle_tpu_torch.incubate.nn.fused_transformer",
+                "paddle_tpu_torch.serving.tenancy",
+                "paddle_tpu_torch.kernels.lora_delta"}
     assert expected <= set(res["imported"])

@@ -390,9 +390,20 @@ def test_engine_without_device_raises_here(models):
 
 
 @pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16),
-                                dict(enable_prefix_cache=True),
-                                dict(max_adapters=2), dict(hot_swap=True),
                                 dict(attention_kernel="pallas")])
 def test_unported_options_raise(models, kw):
     with pytest.raises(NotImplementedError):
         LLMEngine(models[1], device="cpu", **kw)
+
+
+def test_adapter_request_without_adapters_refused(models):
+    """An engine built without adapters refuses every adapter request as
+    `adapter_mismatch`, as the reference's does."""
+    engine = LLMEngine(models[1], device="cpu", max_batch_size=2,
+                       block_size=4)
+    with pytest.raises(ServeRefusal) as ei:
+        engine.add_request(_prompt(5, seed=34), max_new_tokens=4,
+                           adapter="anyone")
+    assert ei.value.reason == "adapter_mismatch"
+    assert ei.value.detail["registered"] == []
+    assert engine.scheduler.waiting == [] and engine.requests == {}

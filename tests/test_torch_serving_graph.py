@@ -149,7 +149,7 @@ def test_static_buffers_keep_storage_and_hold_the_mirrors(models):
                        engine._temps.copy(), engine._topks.copy(),
                        engine._topps.copy(), engine._rpens.copy(),
                        engine._seeds.view(np.int32).copy(),
-                       engine._override.copy()]
+                       engine._override.copy(), engine._aslots.copy()]
             return out
 
         engine._launch = snapshot

@@ -4,6 +4,7 @@ port on one card.
 
     python3 tools/torch_decode_replay.py [--root DIR] [--kv-dtype int8]
                                          [--steps 4] [--sampled N]
+                                         [--adapters N] [--prefix]
 
 Imports `paddle_tpu_torch` from DIR (default: this checkout), builds GPT-2
 124M (full width, random weights from seed 0, bf16) behind
@@ -12,7 +13,12 @@ Imports `paddle_tpu_torch` from DIR (default: this checkout), builds GPT-2
 take 4 steps, then runs `--steps` decode steps of greedy slots (a tree
 with a greedy sampler head replays that head; with `--sampled N` the
 first N requests sample, temperature 0.8, top-k 40, top-p 0.95, so each
-step replays the full sampler head) under torch.profiler and
+step replays the full sampler head; with `--adapters N` the engine has N
+adapters of rank 16, registered from seeds 1..N with scale 4, and
+request i decodes under adapter i mod N, so every slot's delta runs;
+with `--prefix` the prefix cache is on and the 8 prompts share their
+first 128 tokens, so all but each adapter's first are prefix hits, which
+chew their tails before the profiled steps) under torch.profiler and
 prints one JSON line: the card's name and power limit, the device kernels
 and copies a step, device ms a step, and ms and launches a step by kernel
 (names cut to 90 characters; kernels whose names agree that far add
@@ -37,6 +43,8 @@ def main():
     ap.add_argument("--kv-dtype", default=None)
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--sampled", type=int, default=0)
+    ap.add_argument("--adapters", type=int, default=0)
+    ap.add_argument("--prefix", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -53,15 +61,32 @@ def main():
                           text=True, timeout=60, check=True).stdout.strip()
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    # tenancy options only where asked, so a checkout without them runs
+    tenancy = {}
+    if args.adapters:
+        tenancy.update(max_adapters=args.adapters, adapter_rank=16)
+    if args.prefix:
+        tenancy["enable_prefix_cache"] = True
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
-                       max_context=1024, kv_dtype=args.kv_dtype)
+                       max_context=1024, kv_dtype=args.kv_dtype, **tenancy)
+    names = [f"t{i}" for i in range(1, args.adapters + 1)]
+    for i, name in enumerate(names):
+        engine.register_adapter(name, seed=i + 1, scale=4.0)
     rng = np.random.default_rng(0)
+    shared = np.random.default_rng(1).integers(0, 50257, 128).tolist()
     for i in range(8):
         sampling = dict(temperature=0.8, top_k=40, top_p=0.95, seed=i) \
             if i < args.sampled else {}
-        engine.add_request(rng.integers(0, 50257, 200).tolist(),
-                           max_new_tokens=32, **sampling)
-    for _ in range(5):             # prefills, the graph's build, 4 replays
+        if names:
+            sampling["adapter"] = names[i % len(names)]
+        prompt = rng.integers(0, 50257, 200).tolist()
+        if args.prefix:
+            prompt[:128] = shared
+        engine.add_request(prompt, max_new_tokens=150 if args.prefix else 32,
+                           **sampling)
+    # prefills, the graph's build, the prefix hits' 72 chew steps, then 4
+    # plain replays
+    for _ in range(77 if args.prefix else 5):
         engine.step()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -91,7 +116,8 @@ def main():
     assert device_ms > 0, "the profiler saw no device time"
     print(json.dumps({
         "root": args.root, "card": card, "kv_dtype": args.kv_dtype or "bf16",
-        "sampled": args.sampled, "steps": per, "kernels_per_step": kernels,
+        "sampled": args.sampled, "adapters": args.adapters,
+        "prefix": args.prefix, "steps": per, "kernels_per_step": kernels,
         "copies_per_step": copies, "device_ms_per_step": device_ms,
         "wall_ms_per_step": wall_ms,
         "by_kernel": {name: [round(ms, 5), n] for name, (ms, n) in
