@@ -71,11 +71,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                full 1024 bucket in turns with the first design (commit
                c3b6374, tools/torch_prefill_scatter_twopass.cu);
                the batched adapter delta (one launch a projection, in
-               place) at the decode shape (8 slots of adapters 0, 1, 2)
-               and the prefill shape (1024 rows of one slot, a base
-               bucket, a ragged prompt), both projections' widths, bf16
-               and fp32, within `lora_delta_tol`, base rows bit for bit,
-               timed in turns with the reference's op sequence;
+               place) in its row form at the decode shape (8 slots of
+               adapters 0, 1, 2) and its tile form at the prefill shape
+               (1024 rows of one slot, a base bucket, a ragged prompt),
+               both projections' widths, bf16 and fp32, ranks 16 and 4,
+               within `lora_delta_tol`, base rows bit for bit (against
+               the same arithmetic with fp64 sums where the twin's own
+               fp32 sums leave the bound), each case's form printed,
+               timed in turns with the first design (commit
+               17bc302, tools/torch_lora_delta_pr15.cu) and the
+               reference's op sequence;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -1816,7 +1821,7 @@ def _int32_ops_per_s():
 # earlier designs kept in tools/ with their kernels' C interfaces, built
 # by `_start_tool_builds` beside the port's sources and timed in turns
 TOOL_SOURCES = ("torch_keyed_draw_one_cta", "torch_sampler_filter_radix",
-                "torch_prefill_scatter_twopass")
+                "torch_prefill_scatter_twopass", "torch_lora_delta_pr15")
 _TOOL_LIBS = {}
 
 
@@ -2062,23 +2067,30 @@ def check_sampler_filter():
 
 
 # the batched adapter delta at the serve_tenancy phase's shapes: GPT-2
-# 124M's projections (qkv 768 -> 2304, out 768 -> 768), rank 16, the base
-# and two adapters (K = 3), 12 layers; decode rows are the 8 slots, prefill
-# rows one request's bucket
+# 124M's projections (qkv 768 -> 2304, out 768 -> 768), the base and two
+# adapters (K = 3), 12 layers; decode rows are the 8 slots (the row form),
+# prefill rows one request's bucket (the tile form); rank 16 (the phase's
+# engine) and 4 (`LLMEngine`'s default, 8 bytes a row of A in bf16)
 LORA_RANK = 16
+LORA_RANKS = (16, 4)
 LORA_DECODE_SLOTS = [0, 1, 2, 1, 0, 2, 2, 1]
 LORA_PREFILL_ROWS = 1024
+LORA_ROWS = {"decode": len(LORA_DECODE_SLOTS), "prefill": LORA_PREFILL_ROWS,
+             "prefill_base": LORA_PREFILL_ROWS, "prefill_ragged": 37}
+# in turns: the reference's op sequence, the first design, the form, the
+# form, the first design, the op sequence
+LORA_TURNS = ("ops", "first", "form", "form", "first", "ops")
 
 
-def _lora_state(n, d_out, dtype, seed, d_in=768):
+def _lora_state(n, d_out, dtype, seed, d_in=768, rank=LORA_RANK):
     """y [n, out], x [n, in], A [3, 12, in, r] and B [3, 12, r, out] (slot
     0 zero, std 0.05 as the seeded adapters draw) and scale [3]."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((n, d_in), generator=g, device="cuda").to(dtype)
     y = (torch.randn((n, d_out), generator=g, device="cuda") * 0.5).to(dtype)
-    a = (torch.randn((3, 12, d_in, LORA_RANK), generator=g, device="cuda")
+    a = (torch.randn((3, 12, d_in, rank), generator=g, device="cuda")
          * 0.05).to(dtype)
-    b = (torch.randn((3, 12, LORA_RANK, d_out), generator=g, device="cuda")
+    b = (torch.randn((3, 12, rank, d_out), generator=g, device="cuda")
          * 0.05).to(dtype)
     a[0] = 0
     b[0] = 0
@@ -2095,107 +2107,179 @@ def _lora_idx(form, n):
                       device="cuda").expand(n)
 
 
-def _check_lora_case(form, d_out, dtype, layer=3):
-    n = {"decode": len(LORA_DECODE_SLOTS), "prefill": LORA_PREFILL_ROWS,
-         "prefill_base": LORA_PREFILL_ROWS, "prefill_ragged": 37}[form]
+_LORA_FIRST = []
+
+
+def _first_delta():
+    """The first design of the delta (commit 17bc302,
+    tools/torch_lora_delta_pr15.cu: one CTA of 256 threads a row, its C
+    interface without a form) as a function of the wrapper's arguments,
+    counting nothing: the yardstick both forms are timed against."""
+    if not _LORA_FIRST:
+        fn = _TOOL_LIBS["torch_lora_delta_pr15"].paddle_lora_delta
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def delta(y, x, a, b, scale, idx, layer):
+            err = fn(*(ctypes.c_void_p(t.data_ptr())
+                       for t in (y, x, a, b, scale, idx)),
+                     y.shape[0], a.shape[2], y.shape[1], a.shape[3], layer,
+                     a.shape[1], y.stride(0), x.stride(0), idx.stride(0),
+                     0 if y.dtype == torch.float32 else 1,
+                     ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            assert err == 0, err
+
+        _LORA_FIRST.append(delta)
+    return _LORA_FIRST[0]
+
+
+def _check_lora_case(form, d_out, dtype, rank, layer=3):
+    """One case against the twin within `lora_delta_tol`. Where the twin
+    itself leaves the bound of the same arithmetic with fp64 sums
+    (`lora_delta_exact`: its fp32 x @ A lands on the other side of a
+    rounding step than the exact sum, and the bound does not cover the
+    step of the final sum that follows, ROADMAP Queue 3), the case is
+    held against that instead, and both counts are printed. Returns
+    (max |kernel - twin|, the reference held to)."""
+    n = LORA_ROWS[form]
     y, x, a, b, scale = _lora_state(n, d_out, dtype,
-                                    seed=n + d_out + len(str(dtype)))
+                                    seed=n + d_out + len(str(dtype)),
+                                    rank=rank)
     idx = _lora_idx(form, n)
+    assert ld.lora_form(idx) == ("row" if form == "decode" else "tile")
     args = (x, a, b, scale, idx, layer)
-    got, want = y.clone(), y.clone()
+    got, want, first = y.clone(), y.clone(), y.clone()
     out = ld.lora_delta(got, *args)
     ld.lora_delta_reference(want, *args)
+    _first_delta()(first, *args)
+    exact = ld.lora_delta_exact(y, *args)
     tol = ld.lora_delta_tol(y, *args)
     torch.cuda.synchronize()
     assert out is got and torch.isfinite(got.float()).all()
-    diff = (got.float() - want.float()).abs()
+
+    def past(v, ref):
+        return int(((v.float() - ref.float()).abs() > tol).sum())
+
+    twin_past = past(want, exact)
+    ref, held = (want, "twin") if twin_past == 0 else (exact, "fp64 sums")
+    diff = (got.float() - ref.float()).abs()
     over = float((diff - tol).max())
-    assert over <= 0, (form, d_out, dtype, over)
+    assert over <= 0, (form, d_out, dtype, rank, held, over)
     base = idx == 0
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got[base].view(bits), y[base].view(bits)), form
     if not bool(base.all()):
         assert float((got.float() - y.float())[~base].abs().max()) > 1e-3
-    err = float(diff.max())
+    err = float((got.float() - want.float()).abs().max())
+    note = "" if held == "twin" else (
+        f" (the twin leaves the bound of fp64 sums at {twin_past} elements; "
+        f"this kernel the twin's at {past(got, want)}, the first design at "
+        f"{past(first, want)})")
     print(f"  lora_delta {form} {str(dtype)[6:]} ({n}, 768 -> {d_out}) rank "
-          f"{LORA_RANK}: max_abs_err {err:.3e} within lora_delta_tol "
-          f"(largest |diff| - bound {over:.3e}); base rows bit for bit")
-    return err
+          f"{rank}, {ld.lora_form(idx)} form: held to the "
+          f"{held}{note}: largest |diff| - bound {over:.3e}; max_abs_err "
+          f"to the twin {err:.3e}, the first design past it at "
+          f"{past(first, ref)}; base rows bit for bit; vs the first design "
+          f"max |diff| {float((got.float() - first.float()).abs().max()):.3e}")
+    return err, held
+
+
+def _lora_bound(idx, n, d_out, rank):
+    """(bytes, bound ms, bound_by) of one delta: x read, y read and written
+    for the rows whose slot is not 0 (a base row's CTAs return before they
+    load them), A, B and the scale of each distinct non-zero adapter, and
+    the index (one scalar when it is read with stride 0)."""
+    used = sorted(set(idx.tolist()) - {0})
+    nonzero = int((idx != 0).sum())
+    idx_bytes = 4 * (idx.stride(0) * (n - 1) + 1)
+    nbytes = 2 * (nonzero * 768 + 2 * nonzero * d_out
+                  + len(used) * (768 + d_out) * rank) \
+        + idx_bytes + 4 * len(used)
+    flops = 2 * nonzero * (768 + d_out) * rank
+    return (nbytes, *_bound_ms(nbytes, flops, torch.float32))
 
 
 def check_lora_delta():
     """The batched adapter delta (one launch a projection, in place)
-    against its twin at the decode shape (8 slots, adapters 0/1/2 mixed)
-    and the prefill shape (1024 rows of one slot, the index read with
-    stride 0; a base-tenant bucket; a ragged 37-row prompt), both
-    projections' widths, bf16 and fp32, within `lora_delta_tol` (each of
-    x @ A, the delta and the sum may round the other way once) and base
-    rows bit for bit. Timed at the decode and the prefill shape (qkv, bf16)
-    in turns with the op sequence the reference's einsums become in
-    PyTorch (gathers of A and B, two bmm, the scale's gather, a multiply
-    and an add), the yardstick of `library_ms`."""
+    against its twin in both forms: the row form at the decode shape (8
+    slots, adapters 0/1/2 mixed) and the tile form at the prefill shape
+    (1024 rows of one slot, the index read with stride 0; a base-tenant
+    bucket; a ragged 37-row prompt), both projections' widths, bf16 and
+    fp32, ranks 16 and 4, within `lora_delta_tol` (each of x @ A, the
+    delta and the sum may round the other way once) and base rows bit for
+    bit (against the same arithmetic with fp64 sums where the twin itself
+    leaves that bound: `_check_lora_case`); each case's form and its
+    distance from the first design printed. Timed (bf16, rank 16, both
+    widths) in turns with the first design (commit 17bc302,
+    tools/torch_lora_delta_pr15.cu) and the op sequence the reference's
+    einsums become in PyTorch (gathers of A and B, two bmm, the scale's
+    gather, a multiply and an add), the yardstick of `library_ms`."""
     t_check = time.perf_counter()
     err = None
+    held = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for d_out in (2304, 768):
-            for form in ("decode", "prefill", "prefill_base",
-                         "prefill_ragged"):
-                e = _check_lora_case(form, d_out, dtype)
-                if err is None:
-                    err = e
+        for rank in LORA_RANKS:
+            for d_out in (2304, 768):
+                for form in ("decode", "prefill", "prefill_base",
+                             "prefill_ragged"):
+                    e, ref = _check_lora_case(form, d_out, dtype, rank)
+                    held[ref] = held.get(ref, 0) + 1
+                    if err is None:
+                        err = e
+    print(f"  lora_delta: cases held to each reference {json.dumps(held)}")
     layer = 3
     shapes = {}
-    for form in ("decode", "prefill"):
-        n = len(LORA_DECODE_SLOTS) if form == "decode" else LORA_PREFILL_ROWS
-        y, x, a, b, scale = _lora_state(n, 2304, torch.bfloat16, seed=11)
-        idx = _lora_idx(form, n)
+    first = _first_delta()
+    for d_out in (2304, 768):
+        for form in ("decode", "prefill"):
+            n = LORA_ROWS[form]
+            y, x, a, b, scale = _lora_state(n, d_out, torch.bfloat16,
+                                            seed=11)
+            idx = _lora_idx(form, n)
+            args = (y, x, a, b, scale, idx, layer)
 
-        def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
-            if form == "decode":
-                # the reference's decode form: each row gathers its factors
-                sel = idx.long()
-                t = torch.bmm(x[:, None, :], a[sel, layer])
-                u = torch.bmm(t, b[sel, layer])[:, 0]
-                y.add_(u * scale[sel].to(y.dtype)[:, None])
-            else:
-                # its prefill form: one slot, read on the device
-                sel = idx[:1].long()
-                u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
-                y.add_(u * scale[sel].to(y.dtype))
+            def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
+                if form == "decode":
+                    # the reference's decode form: each row gathers its
+                    # factors
+                    sel = idx.long()
+                    t = torch.bmm(x[:, None, :], a[sel, layer])
+                    u = torch.bmm(t, b[sel, layer])[:, 0]
+                    y.add_(u * scale[sel].to(y.dtype)[:, None])
+                else:
+                    # its prefill form: one slot, read on the device
+                    sel = idx[:1].long()
+                    u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
+                    y.add_(u * scale[sel].to(y.dtype))
 
-        def kernel(y=y, x=x, a=a, b=b, scale=scale, idx=idx):
-            ld.lora_delta(y, x, a, b, scale, idx, layer)
+            calls = {"ops": ops, "first": lambda args=args: first(*args),
+                     "form": lambda args=args: ld.lora_delta(*args)}
+            times = [_timed(calls[who]) for who in LORA_TURNS]
 
-        times = [_timed(ops if old else kernel) for old in TURNS]
-        plain_ms = _cuda_ms(lambda: ld.lora_delta_reference(
-            y, x, a, b, scale, idx, layer), iters=5)
-        used = sorted(set(idx.tolist()) - {0})
-        nonzero = int((idx != 0).sum())
-        # bytes: x read, y read and written for the rows whose slot is not
-        # 0 (a base row's CTA returns before it loads them), A, B and the
-        # scale of each distinct non-zero adapter, and the index (one
-        # scalar when it is read with stride 0)
-        idx_bytes = 4 * (idx.stride(0) * (n - 1) + 1)
-        nbytes = 2 * (nonzero * 768 + 2 * nonzero * 2304
-                      + len(used) * (768 + 2304) * LORA_RANK) \
-            + idx_bytes + 4 * len(used)
-        flops = 2 * nonzero * (768 + 2304) * LORA_RANK
-        bound, by = _bound_ms(nbytes, flops, torch.float32)
-        shapes[form] = dict(
-            ms=float(np.mean([t[0] for t, old in zip(times, TURNS)
-                              if not old])),
-            host_ms=times[1][1],
-            library_ms=float(np.mean([t[0] for t, old in zip(times, TURNS)
-                                      if old])),
-            turns_ms=[round(t[0], 5) for t in times], plain_ms=plain_ms,
-            bound_ms=bound, bound_by=by, bytes=nbytes)
-        print(f"  lora_delta {form} ({n}, 768 -> 2304) bf16 rank "
-              f"{LORA_RANK}: {shapes[form]['ms'] * 1e3:.2f} us a launch, "
-              f"op sequence {shapes[form]['library_ms'] * 1e3:.2f} us, twin "
-              f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
-              f"({by}); turns (ops, kernel, kernel, ops) ms "
-              f"{json.dumps(shapes[form]['turns_ms'])}")
-    dec, pre = shapes["decode"], shapes["prefill"]
+            def mean(who, times=times):
+                return float(np.mean([t[0] for t, w in zip(times, LORA_TURNS)
+                                      if w == who]))
+
+            plain_ms = _cuda_ms(lambda args=args: ld.lora_delta_reference(
+                *args), iters=5)
+            nbytes, bound, by = _lora_bound(idx, n, d_out, LORA_RANK)
+            tag = f"{form} {d_out}"
+            shapes[tag] = dict(
+                form=ld.lora_form(idx), ms=mean("form"),
+                host_ms=times[2][1], first_ms=mean("first"),
+                library_ms=mean("ops"),
+                turns_ms=[round(t[0], 5) for t in times], plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, bytes=nbytes)
+            row = shapes[tag]
+            print(f"  lora_delta {form} ({n}, 768 -> {d_out}) bf16 rank "
+                  f"{LORA_RANK}, {row['form']} form: {row['ms'] * 1e3:.2f} "
+                  f"us a launch, the first design {row['first_ms'] * 1e3:.2f} "
+                  f"us, op sequence {row['library_ms'] * 1e3:.2f} us, twin "
+                  f"{plain_ms * 1e3:.2f} us, bound {bound * 1e3:.3f} us "
+                  f"({by}); turns ({', '.join(LORA_TURNS)}) ms "
+                  f"{json.dumps(row['turns_ms'])}")
+    dec, pre = shapes["decode 2304"], shapes["prefill 2304"]
     print(f"  lora_delta check: {time.perf_counter() - t_check:.2f} s wall")
     return {"name": "lora_delta", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/lora_delta.cu",
@@ -2204,16 +2288,24 @@ def check_lora_delta():
             "max_abs_err": err, "ms": dec["ms"], "host_ms": dec["host_ms"],
             "turns_ms": dec["turns_ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": dec["library_ms"], "prefill_ms": pre["ms"],
+            "library_ms": dec["library_ms"], "first_ms": dec["first_ms"],
+            "prefill_ms": pre["ms"], "prefill_first_ms": pre["first_ms"],
             "prefill_library_ms": pre["library_ms"],
             "prefill_bound_ms": pre["bound_ms"],
-            "shape": f"decode: 8 slots (adapters {LORA_DECODE_SLOTS}), x "
-                     f"[8, 768] -> y [8, 2304] bf16, rank {LORA_RANK}, "
-                     f"K = 3; prefill_*: {LORA_PREFILL_ROWS} rows of slot "
-                     f"2 (stride-0 index); library_ms: the reference's op "
-                     f"sequence (decode: gathers, two bmm, multiply, add; "
-                     f"prefill: two matmuls, multiply, add) timed in turns",
-            "note": "turns_ms: op sequence, kernel, kernel, op sequence"}
+            "by_shape": {tag: {k: v for k, v in row.items()
+                               if k not in ("host_ms", "bytes")}
+                         for tag, row in shapes.items()},
+            "shape": f"decode (row form): 8 slots (adapters "
+                     f"{LORA_DECODE_SLOTS}), x [8, 768] -> y [8, 2304] "
+                     f"bf16, rank {LORA_RANK}, K = 3; prefill_* (tile "
+                     f"form): {LORA_PREFILL_ROWS} rows of slot 2 (stride-0 "
+                     f"index); by_shape: both widths; library_ms: the "
+                     f"reference's op sequence (decode: gathers, two bmm, "
+                     f"multiply, add; prefill: two matmuls, multiply, add) "
+                     f"timed in turns; first_ms: the first design in the same "
+                     f"turns",
+            "note": "turns_ms: op sequence, the first design (commit "
+                    "17bc302), this, this, the first design, op sequence"}
 
 
 # ---------------------------------------------------------------------------
@@ -2779,8 +2871,14 @@ def _pipelined_vs_plain(tag, engines, rng):
     sampler_ms = float(np.mean([t for t, first in zip(full, TURNS)
                                 if not first]))
     greedy_ms, _ = _timed(lambda: sampler(True))
-    groups = _breakdown(f"{tag} sampler alone",
-                        lambda: [sampler() for _ in range(4)], per=4)
+    groups = None
+    for _ in range(2):
+        # now and then the profiler hands back no device activity for a
+        # window of these few short kernels; then the same window again
+        groups = _breakdown(f"{tag} sampler alone",
+                            lambda: [sampler() for _ in range(4)], per=4)
+        if groups is not None:
+            break
     assert groups is not None, "the profiler saw no device time"
     # the full head sorts and scans nothing since the filter kernel
     assert "radix sort" not in groups and "scan" not in groups, groups
@@ -3303,10 +3401,11 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("paged_decode_append", ("paged_decode_split_kernel",)),
                ("cuBLAS matmul", ("gemm", "Gemm", "nvjet", "cutlass",
                                   "xmma")),
+               # both forms and the first design's one-CTA-a-row kernel
+               ("lora_delta", ("lora_delta_",)),
                # the sampler's filter and draw; cub's radix sort (the first
                # sampler's one sort, the embedding backward's index sort)
                # and scans (the first sampler's top-p cumulative sum)
-               ("lora_delta", ("lora_delta_kernel",)),
                ("sampler_filter", ("sampler_filter_kernel",)),
                ("keyed_draw", ("keyed_draw_kernel",)),
                ("radix sort", ("RadixSort",)),
@@ -3780,7 +3879,8 @@ def main():
             "alone_ms", "append_ms", "turns_ms", "all_sampled_ms",
             "greedy_ms", "bytes_bound_ms", "int32_bound_ms",
             "int32_bound_all_sampled_ms", "top_p_only_ms",
-            "prefill_ms", "prefill_library_ms", "prefill_bound_ms",
+            "first_ms", "prefill_ms", "prefill_first_ms",
+            "prefill_library_ms", "prefill_bound_ms", "by_shape",
             "top_p_only_all_sampled_ms", "margin_rows", "routes", "shape",
             "launches_by_path",
             "tflops", "tile", "at_train_shape", "at_ragged_lens", "note")
