@@ -75,12 +75,23 @@ Phases, in order; any failure raises and the script exits non-zero:
                adapters 0, 1, 2) and its tile form at the prefill shape
                (1024 rows of one slot, a base bucket, a ragged prompt),
                both projections' widths, bf16 and fp32, ranks 16 and 4,
-               within `lora_delta_tol`, base rows bit for bit (against
-               the same arithmetic with fp64 sums where the twin's own
-               fp32 sums leave the bound), each case's form printed,
-               timed in turns with the first design (commit
-               17bc302, tools/torch_lora_delta_pr15.cu) and the
-               reference's op sequence;
+               and on the timing data, every case within
+               `lora_delta_tol` of the twin (the bound derived from both
+               computations' roundings), base rows bit for bit, each
+               case's distance from fp64 sums printed, timed in turns
+               with the first design (commit 17bc302,
+               tools/torch_lora_delta_pr15.cu) and the reference's op
+               sequence;
+  3b. kernels of the serving remainder — the fused paged decode over
+               pools of the other float type (fp32 q over bf16 pools,
+               bf16 q over fp32 pools; the write's cast bit for bit with
+               the twin's, 50 launches each, outputs within PAGED_TOL),
+               the prompt scatter casting into such pools (bit for bit,
+               buckets 128 and 1024), the keyed draw with a row stride
+               (generate's draw of [8, 50304] under one key: bits, noise
+               and tokens bit for bit with the twin); each timed at the
+               main path's shape beside its twin, bound and library
+               yardstick;
   4. serve   — GPT-2 124M (full width, random weights from a seed, bf16)
                behind `LLMEngine`, whose decode step is one CUDA graph
                replay: one build of it (decode_compiles) in the warm-up,
@@ -145,6 +156,32 @@ Phases, in order; any failure raises and the script exits non-zero:
                hits and misses, a replayed decode step with adapters armed
                (179 kernels) against one without (155), the copy-on-write
                copy's and the swap's time;
+  4e. serve_kv_mixed — the serve mix on an fp32 GPT-2 124M with bf16
+               pools and on a bf16 one with fp32 pools: the cast #4+ 12 x
+               a replay, the cast scatter once a prefill, step p50 beside
+               an engine with the model's own pools (greedy agreement
+               printed), the streams each admits at equal pool bytes;
+               greedy tokens card vs CPU (fp32 model over bf16 pools
+               held; bf16 over fp32 reported);
+  4f. generate — `GPTForCausalLM.generate` on 8 prompts of 128 tokens,
+               64 new, fp32 and bf16: one build a signature, tokens equal
+               to the engine's streams (fp32 held, bf16 reported) and to
+               the eager loop's, ms per generated token of the graph
+               against the eager loop in turns; sampled: the keyed draw
+               with a row stride once a token;
+  4g. serve_resilience — fp32 GPT-2 124M, serial then pipelined, held to
+               an unfaulted engine's streams: injected hangs (rung 1 no
+               rebuild; 2: one rebuild, or pipelined the active requests
+               fail; 3: they fail with step_hang, a new request served),
+               a real device stall (a sleep kernel ahead of a replay, the
+               StepHang from the event poll within the budget plus one
+               poll interval), a poisoned decode finished through
+               `generate` (adapter tenants too); step p50 with the
+               watchdog armed against disarmed, in turns;
+  4h. serve_resume — a child process serving with a ServeCheckpointer
+               tick a step is killed (SIGKILL), a fresh one restores and
+               finishes: streams equal to an uninterrupted run's (fp32
+               held, bf16 reported); a torn_swap refusal after a swap;
   5. parity  — the same fp32 model on the card and on the CPU (the plain
                twins) must give identical greedy tokens for two prompts
                and agree on the prompts' logits; then the same with int8
@@ -203,6 +240,7 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.framework import set_flags
+from paddle_tpu_torch.incubate.checkpoint import ServeCheckpointer
 from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               GPTPretrainingCriterion,
                                               gpt2_124m)
@@ -218,11 +256,12 @@ from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.kernels import lora_delta as ld
 from paddle_tpu_torch.kernels import prefill_scatter as ps
 from paddle_tpu_torch.kernels import sampler_filter as sf
+from paddle_tpu_torch.ops import guardian
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.serving import sampling as tsamp
-from paddle_tpu_torch.serving import (LLMEngine, Request,
-                                      num_blocks_for_bytes,
+from paddle_tpu_torch.serving import (LLMEngine, Request, ServeRefusal,
+                                      StepHang, num_blocks_for_bytes,
                                       pool_bytes_per_block)
 from paddle_tpu_torch.serving.engine import _slot_views
 from paddle_tpu_torch.serving.sampling import sample_tokens
@@ -658,14 +697,14 @@ def _paged_cases():
             yield "split", heads, head_dim, dtype, _split_lens()
 
 
-def _paged_work(lens, q, tables, int8, bs=16):
+def _paged_work(lens, q, tables, int8, bs=16, elem=None):
     """``(bytes, flops)`` one call needs: the K and V rows of the positions
-    the lengths attend (p <= lens, one position for an empty slot), their
-    int8 scales, q, out, the tables and the lengths; 4 FLOPs per element
-    of K (q.k and p.v)."""
+    the lengths attend (p <= lens, one position for an empty slot; `elem`
+    bytes a value, q's when None), their int8 scales, q, out, the tables
+    and the lengths; 4 FLOPs per element of K (q.k and p.v)."""
     tokens = sum(l + 1 for l in lens)
     blocks = sum(-(-(l + 1) // bs) for l in lens)
-    row = HEADS * HEAD_DIM * (1 if int8 else q.element_size())
+    row = HEADS * HEAD_DIM * (1 if int8 else (elem or q.element_size()))
     scales = 2 * blocks * HEADS * 4 if int8 else 0
     nbytes = (2 * tokens * row + scales + 2 * q.numel() * q.element_size()
               + tables.numel() * 4 + len(lens) * 4)
@@ -925,7 +964,7 @@ def _check_append_case(pool_dtype, new_dtype, bs=16):
                                          *want[2:])
     alone = pa.paged_attention(q.contiguous(), want[0], want[1], tables, eff,
                                bs, *want[2:])
-    name = "paged_decode_append_int8" if int8 else "paged_decode_append"
+    name = pa.append_name(new_dtype, pool_dtype)
     tag = (f"{name} pools {str(pool_dtype)[6:]}, rows {str(new_dtype)[6:]}, "
            f"lens {KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}")
     act = torch.tensor(KV_APPEND_ACTIVE, device="cuda")
@@ -1083,13 +1122,14 @@ SCATTER_LAYERS, SCATTER_M = 12, 64
 SCATTER_WIDE = (128, 32, (1, 31, 32, 33, 128))
 
 
-def _scatter_state(bucket, dtype, int8, seed, bs=16, head_dim=HEAD_DIM):
+def _scatter_state(bucket, dtype, int8, seed, bs=16, head_dim=HEAD_DIM,
+                   pool_dtype=None):
     """Per-layer K/V rows as strided views of one [bucket, 3, H, D]
     projection a layer (the forward's layout), pools of 1 + 2 M blocks
     that hold a previous tenant's bytes (int8: levels and scales), and a
     block row of M shuffled block ids: the prompt's blocks, then spare
     blocks past it, the last 4 entries null where the bucket leaves them
-    free."""
+    free. fp pools are of `pool_dtype` (the rows' dtype when None)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     gain = torch.rand((bucket, 1, 1, 1), generator=g, device="cuda") * 4 \
         + 0.05
@@ -1104,8 +1144,8 @@ def _scatter_state(bucket, dtype, int8, seed, bs=16, head_dim=HEAD_DIM):
         scales = [torch.rand((SCATTER_LAYERS, nb, HEADS), generator=g,
                              device="cuda") * 4 + 0.5 for _ in range(2)]
     else:
-        pools = [torch.randn(shape, generator=g, device="cuda").to(dtype)
-                 for _ in range(2)]
+        pools = [torch.randn(shape, generator=g, device="cuda")
+                 .to(pool_dtype or dtype) for _ in range(2)]
         scales = [None, None]
     row = (1 + torch.randperm(nb - 1, generator=g, device="cuda")
            [:SCATTER_M]).to(torch.int32)
@@ -1119,11 +1159,12 @@ def _bits(t):
 
 
 def _check_scatter_case(bucket, length, dtype, int8, bs=16,
-                        head_dim=HEAD_DIM):
+                        head_dim=HEAD_DIM, pool_dtype=None):
     """One scatter against its twin on copies of one state."""
     k, v, pools, scales, row = _scatter_state(bucket, dtype, int8,
                                               seed=bucket + length, bs=bs,
-                                              head_dim=head_dim)
+                                              head_dim=head_dim,
+                                              pool_dtype=pool_dtype)
     orig = [t for t in (*pools, *scales) if t is not None]
     want = [t.clone() for t in orig]
     got = [t.clone() for t in orig]
@@ -1132,7 +1173,7 @@ def _check_scatter_case(bucket, length, dtype, int8, bs=16,
                                  *want[2:])
     ps.prefill_scatter(got[0], got[1], k, v, row, n, bs, *got[2:])
     torch.cuda.synchronize()
-    tag = (f"prefill_scatter{'_int8' if int8 else ''} {str(dtype)[6:]} "
+    tag = (f"{ps.scatter_name(dtype, pools[0].dtype)} {str(dtype)[6:]} "
            f"rows, bucket {bucket}, length {length}, head_dim {head_dim}, "
            f"bs {bs}")
     for g_t, w_t, o_t in zip(got, want, orig):
@@ -2134,18 +2175,18 @@ def _first_delta():
     return _LORA_FIRST[0]
 
 
-def _check_lora_case(form, d_out, dtype, rank, layer=3):
-    """One case against the twin within `lora_delta_tol`. Where the twin
-    itself leaves the bound of the same arithmetic with fp64 sums
-    (`lora_delta_exact`: its fp32 x @ A lands on the other side of a
-    rounding step than the exact sum, and the bound does not cover the
-    step of the final sum that follows, ROADMAP Queue 3), the case is
-    held against that instead, and both counts are printed. Returns
-    (max |kernel - twin|, the reference held to)."""
+def _check_lora_case(form, d_out, dtype, rank, layer=3, seed=None):
+    """One case against the twin within `lora_delta_tol` (derived from the
+    roundings both make: every element, no exception) and base rows bit
+    for bit. The same arithmetic with fp64 sums (`lora_delta_exact`) is a
+    second yardstick: how many elements of the kernel, the twin and the
+    first design lie past the bound from it is printed. `seed` None: the
+    case's own seed. Returns (max |kernel - twin|, elements past the bound
+    from the fp64 sums: kernel, twin)."""
     n = LORA_ROWS[form]
-    y, x, a, b, scale = _lora_state(n, d_out, dtype,
-                                    seed=n + d_out + len(str(dtype)),
-                                    rank=rank)
+    y, x, a, b, scale = _lora_state(
+        n, d_out, dtype, seed=n + d_out + len(str(dtype))
+        if seed is None else seed, rank=rank)
     idx = _lora_idx(form, n)
     assert ld.lora_form(idx) == ("row" if form == "decode" else "tile")
     args = (x, a, b, scale, idx, layer)
@@ -2161,28 +2202,25 @@ def _check_lora_case(form, d_out, dtype, rank, layer=3):
     def past(v, ref):
         return int(((v.float() - ref.float()).abs() > tol).sum())
 
-    twin_past = past(want, exact)
-    ref, held = (want, "twin") if twin_past == 0 else (exact, "fp64 sums")
-    diff = (got.float() - ref.float()).abs()
+    diff = (got.float() - want.float()).abs()
     over = float((diff - tol).max())
-    assert over <= 0, (form, d_out, dtype, rank, held, over)
+    assert over <= 0, (form, d_out, dtype, rank, seed, past(got, want), over)
     base = idx == 0
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     assert torch.equal(got[base].view(bits), y[base].view(bits)), form
     if not bool(base.all()):
         assert float((got.float() - y.float())[~base].abs().max()) > 1e-3
-    err = float((got.float() - want.float()).abs().max())
-    note = "" if held == "twin" else (
-        f" (the twin leaves the bound of fp64 sums at {twin_past} elements; "
-        f"this kernel the twin's at {past(got, want)}, the first design at "
-        f"{past(first, want)})")
+    err = float(diff.max())
+    from_exact = (past(got, exact), past(want, exact))
     print(f"  lora_delta {form} {str(dtype)[6:]} ({n}, 768 -> {d_out}) rank "
-          f"{rank}, {ld.lora_form(idx)} form: held to the "
-          f"{held}{note}: largest |diff| - bound {over:.3e}; max_abs_err "
-          f"to the twin {err:.3e}, the first design past it at "
-          f"{past(first, ref)}; base rows bit for bit; vs the first design "
-          f"max |diff| {float((got.float() - first.float()).abs().max()):.3e}")
-    return err, held
+          f"{rank}{'' if seed is None else f' seed {seed}'}, "
+          f"{ld.lora_form(idx)} form: within the bound of the twin "
+          f"(largest |diff| - bound {over:.3e}, max_abs_err {err:.3e}); "
+          f"past the bound from fp64 sums: this {from_exact[0]}, the twin "
+          f"{from_exact[1]}, the first design {past(first, exact)}; base "
+          f"rows bit for bit; vs the first design max |diff| "
+          f"{float((got.float() - first.float()).abs().max()):.3e}")
+    return err, from_exact
 
 
 def _lora_bound(idx, n, d_out, rank):
@@ -2206,28 +2244,35 @@ def check_lora_delta():
     slots, adapters 0/1/2 mixed) and the tile form at the prefill shape
     (1024 rows of one slot, the index read with stride 0; a base-tenant
     bucket; a ragged 37-row prompt), both projections' widths, bf16 and
-    fp32, ranks 16 and 4, within `lora_delta_tol` (each of x @ A, the
-    delta and the sum may round the other way once) and base rows bit for
-    bit (against the same arithmetic with fp64 sums where the twin itself
-    leaves that bound: `_check_lora_case`); each case's form and its
-    distance from the first design printed. Timed (bf16, rank 16, both
+    fp32, ranks 16 and 4, and the timing data, within `lora_delta_tol`
+    (derived from both computations' roundings) and base rows bit for bit
+    (`_check_lora_case`, which prints each case's distance from fp64 sums
+    and from the first design). Timed (bf16, rank 16, both
     widths) in turns with the first design (commit 17bc302,
     tools/torch_lora_delta_pr15.cu) and the op sequence the reference's
     einsums become in PyTorch (gathers of A and B, two bmm, the scale's
     gather, a multiply and an add), the yardstick of `library_ms`."""
     t_check = time.perf_counter()
     err = None
-    held = {}
+    from_exact = [0, 0]
     for dtype in (torch.bfloat16, torch.float32):
         for rank in LORA_RANKS:
             for d_out in (2304, 768):
                 for form in ("decode", "prefill", "prefill_base",
                              "prefill_ragged"):
-                    e, ref = _check_lora_case(form, d_out, dtype, rank)
-                    held[ref] = held.get(ref, 0) + 1
+                    e, ex = _check_lora_case(form, d_out, dtype, rank)
+                    from_exact = [a + b for a, b in zip(from_exact, ex)]
                     if err is None:
                         err = e
-    print(f"  lora_delta: cases held to each reference {json.dumps(held)}")
+    # the timing data below (seed 11), where the earlier bound (one
+    # rounding of 2^-8 a step) saw the tile form past it at 3 elements
+    for form in ("decode", "prefill"):
+        for d_out in (2304, 768):
+            _check_lora_case(form, d_out, torch.bfloat16, LORA_RANK,
+                             seed=11)
+    print(f"  lora_delta: every case within lora_delta_tol of the twin; "
+          f"elements past it from the fp64 sums over the cases: this "
+          f"{from_exact[0]}, the twin {from_exact[1]}")
     layer = 3
     shapes = {}
     first = _first_delta()
@@ -2306,6 +2351,247 @@ def check_lora_delta():
                      f"turns",
             "note": "turns_ms: op sequence, the first design (commit "
                     "17bc302), this, this, the first design, op sequence"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving remainder's kernels: #4+ and the prompt scatter over
+# pools of the other float type, the keyed draw with a row stride
+# ---------------------------------------------------------------------------
+
+# (pools, q and rows): fp32 q over bf16 pools (an fp32 model's engine with
+# kv_dtype bf16), bf16 q over fp32 pools (a bf16 model's with kv_dtype fp32)
+CAST_PAIRS = ((torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16))
+
+
+def _cast_tag(pool_dtype, q_dtype):
+    return f"{str(q_dtype)[6:]} q over {str(pool_dtype)[6:]} pools"
+
+
+def check_append_cast():
+    """#4+ over pools of the other float type: `_check_append_case` for
+    both pairs (pools bit for bit with the twin's cast write on every
+    block but 0, block 0 untouched, the active slots' output within
+    PAGED_TOL of the twin and bit-identical to the paged kernel alone on
+    the twin's pools), each APPEND_REPEATS launches; then each timed at the
+    serving path's shape (12 layers' pools rotating) beside its twin, the
+    library yardstick (the cast write by two index_put_, then SDPA over the
+    gathered pools cast to q's type) and its bound (the pools' bytes)."""
+    bs, layers, rows = 16, 12, []
+    eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
+                                              KV_APPEND_ACTIVE)]
+    for pool_dtype, q_dtype in CAST_PAIRS:
+        err = _check_append_case(pool_dtype, q_dtype)
+        q, k, v, kp, vp, _, _, tables, lens, active = _kv_append_state(
+            layers, pool_dtype, q_dtype, seed=6)
+        eff = torch.where(active, lens, 0)
+        it = iter(range(10 ** 9))
+
+        def rotating(fn):
+            def call():
+                layer = next(it) % layers
+                return fn(kp[layer], vp[layer])
+            return call
+
+        def fused(kpl, vpl):
+            return pa.paged_decode_append(q, k, v, kpl, vpl, tables, lens,
+                                          active, bs)
+
+        def twin(kpl, vpl):
+            kva.kv_append_reference(k, v, kpl, vpl, tables, lens, active, bs)
+            return pa.paged_decode_reference(q, kpl, vpl, tables, eff, bs)
+
+        wb = torch.where(active, tables[torch.arange(8, device="cuda"),
+                                        eff.long() // bs].long(), 0)
+        wo = eff.long() % bs
+        t_max = tables.shape[1] * bs
+        mask = (torch.arange(t_max, device="cuda")[None, :]
+                <= eff[:, None])[:, None, None, :]
+
+        def library(kpl, vpl):
+            kpl.index_put_((wb, wo), k.to(pool_dtype))
+            vpl.index_put_((wb, wo), v.to(pool_dtype))
+            kg = kpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                .transpose(1, 2).to(q_dtype)
+            vg = vpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                .transpose(1, 2).to(q_dtype)
+            return torch.nn.functional.scaled_dot_product_attention(
+                q[:, :, None, :], kg, vg, attn_mask=mask)
+
+        f1, host_1 = _timed(rotating(fused))
+        lib_ms = _cuda_ms(rotating(library))
+        f2, host_2 = _timed(rotating(fused))
+        plain_ms = _cuda_ms(rotating(twin))
+        p_elem = torch.empty((), dtype=pool_dtype).element_size()
+        q_elem = torch.empty((), dtype=q_dtype).element_size()
+        paged_b = _paged_work(eff_lens, q, tables, False, elem=p_elem)
+        append_b = _kv_append_work(False, (p_elem + q_elem) / 2)
+        bound, by = _bound_ms(paged_b[0] + append_b[0],
+                              paged_b[1] + append_b[1], torch.float32)
+        name = pa.append_name(q_dtype, pool_dtype)
+        ms = (f1 + f2) / 2
+        print(f"  {name} ({_cast_tag(pool_dtype, q_dtype)}) at the serving "
+              f"shape: {f1:.5f} / {f2:.5f} ms (two runs), library "
+              f"yardstick {lib_ms:.5f} ms, twin {plain_ms:.5f} ms, bound "
+              f"{bound:.5f} ms ({by})")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/paged_decode.cu",
+            "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
+                        "_decode_kernel over pools of another float type, "
+                        "with the decode write before it, paddle_tpu/nn/"
+                        "functional/attention.py:268-271 .astype(k_pool."
+                        "dtype) (XLA ops, no Pallas kernel)",
+            "max_abs_err": err, "ms": ms, "host_ms": (host_1 + host_2) / 2,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "turns_ms": [f1, f2],
+            "shape": (f"S=8 H=12 D=64 bs=16 M=64, 513 blocks, lens "
+                      f"{KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}, "
+                      f"{_cast_tag(pool_dtype, q_dtype)}; library_ms: two "
+                      f"index_put_ of the cast rows, a gather cast to q's "
+                      f"type and SDPA")})
+    return rows
+
+
+def check_scatter_cast():
+    """The prompt scatter into pools of the other float type, both pairs,
+    bit for bit with the twin's cast (`_check_scatter_case`) on every block
+    but 0 at buckets 128 and 1024; then each timed at a full 1024-token
+    bucket beside its twin and the library yardstick (two index_put_ a
+    layer of the cast rows)."""
+    bs, rows, tags = 16, [], []
+    for pool_dtype, row_dtype in CAST_PAIRS:
+        for bucket, lengths in SCATTER_CASES[1:]:
+            for length in lengths:
+                tags.append(_check_scatter_case(bucket, length, row_dtype,
+                                                False,
+                                                pool_dtype=pool_dtype))
+        bucket = length = 1024
+        k, v, pools, _, row = _scatter_state(bucket, row_dtype, False,
+                                             seed=7, pool_dtype=pool_dtype)
+        n = torch.full((), length, dtype=torch.int32, device="cuda")
+        args = (*pools, k, v, row, n, bs)
+        t1, host_1 = _timed(lambda: ps.prefill_scatter(*args))
+        pos = torch.arange(length, device="cuda")
+        blocks, offs = row.long()[pos // bs], pos % bs
+
+        def library():
+            for layer in range(SCATTER_LAYERS):
+                pools[0][layer].index_put_((blocks, offs),
+                                           k[layer].to(pool_dtype))
+                pools[1][layer].index_put_((blocks, offs),
+                                           v[layer].to(pool_dtype))
+
+        lib_ms = _cuda_ms(library)
+        t2, host_2 = _timed(lambda: ps.prefill_scatter(*args))
+        plain_ms = _cuda_ms(lambda: ps.prefill_scatter_reference(*args),
+                            iters=5)
+        nbytes = ps.scatter_bytes(
+            length, SCATTER_LAYERS, HEADS, HEAD_DIM,
+            torch.empty((), dtype=row_dtype).element_size(), False,
+            int((row != 0).sum()),
+            pool_elem=torch.empty((), dtype=pool_dtype).element_size())
+        bound, by = _bound_ms(nbytes, 0, torch.float32)
+        name = ps.scatter_name(row_dtype, pool_dtype)
+        print(f"  {name} ({str(row_dtype)[6:]} rows into "
+              f"{str(pool_dtype)[6:]} pools), bucket 1024: {t1:.5f} / "
+              f"{t2:.5f} ms (two runs), library yardstick {lib_ms:.5f} ms, "
+              f"twin {plain_ms:.5f} ms, bound {bound:.5f} ms ({by})")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/prefill_scatter.cu",
+            "replaces": "no Pallas counterpart: paddle_tpu/serving/cache.py"
+                        ":279-281 scatter_prefill's .astype(k_pools.dtype) "
+                        "(XLA ops)",
+            "max_abs_err": 0.0, "ms": (t1 + t2) / 2,
+            "host_ms": (host_1 + host_2) / 2, "turns_ms": [t1, t2],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "bytes": nbytes,
+            "shape": (f"12 layers of {str(row_dtype)[6:]} rows [1024, 12, "
+                      f"64] (strided views of [1024, 3, 12, 64]) into "
+                      f"{str(pool_dtype)[6:]} pools, length 1024, bs=16, a "
+                      f"block row of 64; library_ms: two index_put_ a layer "
+                      f"of the cast rows")})
+    print(f"  prefill_scatter cast: {len(tags)} cases bit-identical to the "
+          f"twin on blocks 1.. and block 0 untouched (fp32 rows into bf16 "
+          f"pools and bf16 rows into fp32 pools, buckets 128 and 1024)")
+    return rows
+
+
+# generate's draw: its batch of 8 rows, the padded vocabulary, one key
+GEN_B, GEN_P, GEN_N = 8, 128, 64
+KEYED_ROW_ROUNDS = 3
+
+
+def check_keyed_draw_rows():
+    """The keyed draw with a row stride (`generate`'s: every row under one
+    key, row b at counters b V + v) against its twin on the CPU: each
+    round's bits and noise bit for bit (the debug launch), and the tokens
+    of the debug and the plain launch, at GEN_B rows of V = 50304; then
+    timed with every row sampled, its bound the bytes of the rows and
+    threefry's INT32 instructions at every index."""
+    s, v = GEN_B, 50304
+    noise_err = 0.0
+    for r in range(KEYED_ROW_ROUNDS):
+        raw, filtered, _, seeds, pos = _keyed_state(s, v, 900 + r, range(s))
+        seeds.fill_(int(seeds[0]))
+        pos.fill_(r + 1)
+        temps = torch.ones(s, device="cuda")
+        bits = torch.empty((s, v), dtype=torch.int32, device="cuda")
+        noise = torch.empty((s, v), device="cuda")
+        debug = kd.keyed_draw(filtered, filtered, temps, seeds, pos,
+                              debug=(bits, noise), row_stride=v)
+        out = kd.keyed_draw(filtered, filtered, temps, seeds, pos,
+                            row_stride=v)
+        torch.cuda.synchronize()
+        cpu = [t.cpu() for t in (filtered, filtered, temps, seeds, pos)]
+        k0, k1 = kd.slot_keys(cpu[3], cpu[4])
+        want_bits = kd.random_bits(k0, k1, v, row_stride=v).to(torch.int32)
+        assert torch.equal(bits.cpu(), want_bits), f"round {r}: bits differ"
+        want_noise = -kd.xla_log(-kd.xla_log(kd.uniform(
+            want_bits.to(torch.int64) & 0xFFFFFFFF)))
+        assert torch.equal(noise.cpu().view(torch.int32),
+                           want_noise.view(torch.int32)), \
+            f"round {r}: noise differs"
+        noise_err = max(noise_err,
+                        (noise.cpu() - want_noise).abs().max().item())
+        want = kd.keyed_draw_reference(*cpu, row_stride=v)
+        for name, got in (("debug", debug), ("plain", out)):
+            assert torch.equal(got.cpu(), want), (r, name, got.tolist(),
+                                                  want.tolist())
+    raw, filtered, _, seeds, pos = _keyed_state(s, v, 7, range(s))
+    temps = torch.ones(s, device="cuda")
+    args = (filtered, filtered, temps, seeds, pos)
+    t1, host_1 = _timed(lambda: kd.keyed_draw(*args, row_stride=v))
+    t2, host_2 = _timed(lambda: kd.keyed_draw(*args, row_stride=v))
+    cpu = [t.cpu() for t in args]
+    t0 = time.perf_counter()
+    kd.keyed_draw_reference(*cpu, row_stride=v)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    int_rate = _int32_ops_per_s()
+    t_bytes = s * v * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = s * v * THREEFRY_INT_OPS / int_rate * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    print(f"  keyed_draw_rows S={s} V={v} row_stride {v}: "
+          f"{KEYED_ROW_ROUNDS} rounds of bits, noise and tokens "
+          f"bit-identical to the twin; {t1:.5f} / {t2:.5f} ms (two runs, "
+          f"all rows sampled), bound {bound:.5f} ms ({by}); twin on the CPU "
+          f"{plain_ms:.1f} ms")
+    return {"name": "keyed_draw_rows", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/keyed_draw.cu",
+            "replaces": "no Pallas counterpart: generate's draw, "
+                        "paddle_tpu/incubate/models/gpt.py:462-463 "
+                        "jax.random.categorical(fold_in(key, i), [B, V]) "
+                        "(XLA ops)",
+            "max_abs_err": noise_err, "ms": (t1 + t2) / 2,
+            "host_ms": (host_1 + host_2) / 2, "turns_ms": [t1, t2],
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "bytes_bound_ms": t_bytes,
+            "int32_bound_ms": t_ops,
+            "shape": f"S={s} rows of V={v} fp32 logits under one key "
+                     f"(row_stride {v}), every row sampled",
+            "note": "plain_ms is the twin's host time on the CPU; the same "
+                    "kernel as keyed_draw, launched with a row stride"}
 
 
 # ---------------------------------------------------------------------------
@@ -3318,6 +3604,591 @@ def serve_tenancy():
 
 
 # ---------------------------------------------------------------------------
+# phase 4e: the serving remainder at full width: pools of the other float
+# type, generate, the watchdog's ladder and the eager fallback, crash-resume
+# ---------------------------------------------------------------------------
+
+# (model dtype, pools' dtype) of the mixed-pool serve runs
+KV_MIXED = ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32))
+
+
+def _gpt(dtype, seed=0):
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    return GPTForCausalLM(cfg, device="cuda", seed=seed).to(dtype)
+
+
+def _agreement(got, want):
+    """(equal positions, positions, identical streams) of two lists of
+    token streams."""
+    same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+    return (same, sum(len(w) for w in want),
+            sum(g == w for g, w in zip(got, want)))
+
+
+def serve_kv_mixed():
+    """The serve mix on GPT-2 124M with pools of the other float type: an
+    fp32 model over bf16 pools and a bf16 model over fp32 pools. Every
+    decode replay runs the cast instantiation of #4+ once a layer and
+    every prefill the cast scatter once; the same mix on an engine with
+    the model's own pools gives the step p50 beside it and the streams'
+    agreement (printed); at the bytes of the default same-dtype pool the
+    bf16 pools hold twice the blocks and admit more streams, the fp32 pools
+    half. The fp32 model's greedy tokens are held card against CPU by
+    `parity(kv_dtype=bfloat16)`, the bf16 model's compared there and
+    reported. Returns the launch counts of each mixed run, by path."""
+    paths = {}
+    rng = np.random.default_rng(0)
+    mix = _serve_mix(rng)
+    for model_dtype, kv in KV_MIXED:
+        tag = (f"serve_kv_mixed ({str(model_dtype)[6:]} model, "
+               f"{str(kv)[6:]} pools)")
+        model = _gpt(model_dtype)
+        cfg = model.config
+        layers = cfg.num_hidden_layers
+        engines = {}
+        for name, kv_dtype in (("mixed", kv), ("same", None)):
+            engine = LLMEngine(model, max_batch_size=8, block_size=16,
+                               max_context=1024, kv_dtype=kv_dtype)
+            engine.generate([rng.integers(0, 50257, 20).tolist()],
+                            max_new_tokens=2)
+            engines[name] = (engine, *_serve_window(engine, mix))
+        engine, reqs, counts, st, heads, prefills, wall = engines["mixed"]
+        fused = pa.append_name(model_dtype, kv)
+        scatter = ps.scatter_name(model_dtype, kv)
+        builds = st["prefill_compiles"]
+        assert all(r.state == "FINISHED" and len(r.generated) == 24
+                   for r in reqs), [(r.rid, r.state) for r in reqs]
+        assert st["kv_dtype"] == str(kv)[6:], st
+        assert engine.cache.k_pools.dtype == kv
+        assert counts[fused] == layers * st["steps"] > 0, (counts, st)
+        for other in ("paged_decode_append", "paged_decode_append_int8",
+                      "paged_decode", "prefill_scatter"):
+            assert counts[other] == 0, counts
+        assert counts[scatter] == st["prefills"] + builds > 0, (counts, st)
+        assert counts["keyed_draw"] == st["steps"] + st["prefills"], counts
+        same = engines["same"]
+        greedy = [list(r.generated) for r in reqs if r.temperature == 0]
+        greedy_same = [list(r.generated) for r in same[1]
+                       if r.temperature == 0]
+        eq, total, whole = _agreement(greedy, greedy_same)
+        head_dim = cfg.hidden_size // cfg.num_attention_heads
+        geom = (layers, cfg.num_attention_heads, head_dim, 16)
+        nb_same = 1 + 8 * 64
+        pool_bytes = nb_same * pool_bytes_per_block(*geom, model_dtype)
+        nb_mixed = num_blocks_for_bytes(pool_bytes, *geom, kv)
+        expect = 2 * nb_same if kv == torch.bfloat16 else nb_same // 2
+        assert nb_mixed == expect, (nb_mixed, nb_same)
+        n_same = _admitted(model, None, nb_same)
+        n_mixed = _admitted(model, kv, nb_mixed)
+        if kv == torch.bfloat16:
+            assert n_mixed >= 1.8 * n_same, (n_mixed, n_same)
+        else:
+            assert n_mixed < n_same, (n_mixed, n_same)
+        print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
+              f"in {wall:.3f} s; {st['steps']} decode steps, p50 "
+              f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms "
+              f"(the model's own pools: p50 {same[3]['p50_step_ms']:.3f} "
+              f"ms, p99 {same[3]['p99_step_ms']:.3f} ms); {fused} launches "
+              f"{counts[fused]} = 12 x steps, {scatter} launches "
+              f"{counts[scatter]} = prefills + builds; greedy tokens equal "
+              f"to the model's own pools' run at {eq}/{total} positions, "
+              f"{whole}/{len(greedy)} streams identical (reported); at "
+              f"{pool_bytes} pool bytes the {str(kv)[6:]} pools hold "
+              f"{nb_mixed} blocks and admit {n_mixed} streams of 512 "
+              f"tokens, the model's own {nb_same} blocks and {n_same}")
+        print(f"{tag}: launches {json.dumps(counts)}")
+        paths[f"serve_kv_mixed_{str(kv)[6:]}"] = counts
+        del engines, engine, same, model
+    parity(kv_dtype=torch.bfloat16)
+    parity_bf16_model()
+    return paths
+
+
+def parity_bf16_model():
+    """A bf16 GPT-2 124M over fp32 pools, card against CPU: greedy tokens
+    of two prompts, their agreement reported (bf16 logits round apart on
+    the two devices, so near-ties may part)."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cpu_model = GPTForCausalLM(cfg, device="cpu", seed=1).to(torch.bfloat16)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 50257, 24).tolist() for _ in range(2)]
+    cpu = _greedy(cpu_model, "cpu", prompts, 16, torch.float32)
+    reset_launch_counts()
+    gpu = _greedy(gpu_model, "cuda", prompts, 16, torch.float32)
+    name = pa.append_name(torch.bfloat16, torch.float32)
+    assert launch_counts()[name] > 0, launch_counts()
+    eq, total, whole = _agreement([r.generated for r in gpu],
+                                  [r.generated for r in cpu])
+    print(f"parity bf16 model, fp32 pools: greedy tokens equal on card and "
+          f"CPU at {eq}/{total} positions, {whole}/2 streams identical "
+          f"(reported); {name} launches {launch_counts()[name]}")
+
+
+def generate_phase():
+    """`GPTForCausalLM.generate` on GPT-2 124M, GEN_B prompts of GEN_P tokens,
+    GEN_N new ones, fp32 then bf16: one program build for the signature across
+    calls; greedy tokens equal to the engine's streams for the same prompts
+    (fp32: held; bf16: reported) and to the eager loop's; ms per generated
+    token, the graph's replays against the eager loop in turns (graph, eager,
+    eager, graph), host clock around synchronized calls, then each under
+    torch.profiler (device time a generated token by kernel group, the device's
+    busy share); sampled (temperature 0.8, top-k 40, top-p 0.95): GEN_N
+    keyed-draw launches with a row stride a call, the graph's tokens equal the
+    eager loop's and repeat call to call. Returns the launch counts of one
+    sampled fp32 call."""
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, 50257, (GEN_B, GEN_P))
+    sampler = dict(do_sample=True, top_k=40, top_p=0.95, temperature=0.8,
+                   seed=5)
+    counts = None
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"generate ({str(dtype)[6:]})"
+        model = _gpt(dtype)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = model.generate(ids, max_new_tokens=GEN_N).cpu()
+        first_s = time.perf_counter() - t0
+        first_counts = launch_counts()
+        assert model.gen_builds == 1 and tuple(out.shape) == (GEN_B, GEN_N)
+        # the first call: one eager prefill (flash a layer), then the build's
+        # warm-up step and GEN_N - 1 replays, no keyed draw (greedy)
+        assert first_counts["flash_attention_fwd"] == 12, first_counts
+        assert first_counts["keyed_draw_rows"] == 0, first_counts
+        times = {"graph": [], "eager": []}
+        for turn in ("graph", "eager", "eager", "graph"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = model._generate(ids, max_new_tokens=GEN_N,
+                                    eager=turn == "eager").cpu()
+            times[turn].append((time.perf_counter() - t0) * 1e3 / GEN_N)
+            assert torch.equal(again, out), f"{tag}: {turn} call differs"
+        assert model.gen_builds == 1, model.gen_builds
+        for how in ("graph", "eager"):
+            _breakdown(f"{tag}: {how}, a generated token",
+                       lambda: model._generate(ids, max_new_tokens=GEN_N,
+                                               eager=how == "eager"),
+                       per=GEN_N)
+        engine = LLMEngine(model, max_batch_size=GEN_B, block_size=16,
+                           max_context=1024)
+        streams = engine.generate(ids.tolist(), max_new_tokens=GEN_N)
+        eq, total, whole = _agreement(out.tolist(), streams)
+        if dtype == torch.float32:
+            assert out.tolist() == streams, f"{tag}: differs from the engine"
+        del engine
+        reset_launch_counts()
+        s1 = model.generate(ids, max_new_tokens=GEN_N, **sampler).cpu()
+        build_counts = launch_counts()
+        reset_launch_counts()
+        s2 = model.generate(ids, max_new_tokens=GEN_N, **sampler).cpu()
+        sampled_counts = launch_counts()
+        s3 = model._generate(ids, max_new_tokens=GEN_N, eager=True,
+                             **sampler).cpu()
+        assert torch.equal(s1, s2) and torch.equal(s1, s3), tag
+        assert model.gen_builds == 2, model.gen_builds
+        assert sampled_counts["keyed_draw_rows"] == GEN_N, sampled_counts
+        assert build_counts["keyed_draw_rows"] == GEN_N + 1, build_counts
+        assert sampled_counts["keyed_draw"] == 0, sampled_counts
+        assert bool((s1 != out).any()) and int(s1.min()) >= 0 \
+            and int(s1.max()) < model.config.vocab_size
+        graph_ms = float(np.mean(times["graph"]))
+        eager_ms = float(np.mean(times["eager"]))
+        print(f"{tag}: {GEN_B} prompts x {GEN_P} tokens, {GEN_N} new: first "
+              f"call {first_s:.3f} s (one build); ms per generated token, "
+              f"turns (graph, eager, eager, graph) "
+              f"{json.dumps([round(t, 4) for t in times['graph'][:1] + times['eager'] + times['graph'][1:]])}"
+              f": graph {graph_ms:.4f}, eager {eager_ms:.4f} "
+              f"({eager_ms / graph_ms:.2f}x); greedy tokens equal to the "
+              f"engine's streams at {eq}/{total} positions, {whole}/{GEN_B} "
+              f"streams identical ({'held' if dtype == torch.float32 else 'reported'}); "
+              f"sampled: keyed_draw_rows launches {GEN_N} a call (+1 in the "
+              f"build's warm-up), graph = eager = repeat; builds "
+              f"{model.gen_builds} (one a signature)")
+        if dtype == torch.float32:
+            counts = sampled_counts
+        del model
+    return counts
+
+
+RESILIENCE_NEW = 24
+RESILIENCE_BUDGET_MS = 2000      # injected hangs raise at once
+STALL_BUDGET_MS = 50             # the real stall: 80 ms of sleep
+STALL_SLEEP_MS = 80
+WEDGE_SLEEP_MS = 200             # past the ladder's three budgets
+WATCHDOG_TURNS = ("off", "on", "on", "off")
+
+
+def _resilience_mix(rng):
+    """8 greedy prompts of 64-256 tokens and 2 sampled ones."""
+    mix = [(rng.integers(0, 50257, int(n)).tolist(), {})
+           for n in rng.integers(64, 257, 8)]
+    for i in range(2):
+        mix.append((rng.integers(0, 50257, 96).tolist(),
+                    dict(temperature=0.8, top_k=40, top_p=0.95, seed=i)))
+    return mix
+
+
+def _resilience_run(engine, mix, fault=None, times=1, at=3, adapters=None):
+    """The mix through `engine` with streaming callbacks; `fault` injected
+    at the decode site after `at` steps. Returns (streams, streamed
+    tokens, the requests, stats)."""
+    streamed = {}
+    reqs = [engine.add_request(
+        p, max_new_tokens=RESILIENCE_NEW,
+        adapter=None if adapters is None else adapters[i % len(adapters)],
+        on_token=lambda r, tok, text: streamed.setdefault(r.rid,
+                                                          []).append(tok),
+        **kw) for i, (p, kw) in enumerate(mix)]
+    for _ in range(at):
+        engine.step()
+    if fault is not None:
+        guardian.inject_fault(fault, op="serve.decode", times=times)
+    try:
+        engine.run()
+    finally:
+        guardian.clear_faults()
+    torch.cuda.synchronize()
+    return ([list(r.generated) for r in reqs],
+            [streamed.get(r.rid, []) for r in reqs], reqs, engine.stats())
+
+
+def _stalled_once(engine, cycles):
+    """Make the engine's next decode replay queue behind a sleep kernel of
+    `cycles` on its stream, and time each StepHang its monitored wait
+    raises (seconds from the wait's start)."""
+    hangs, state = [], {"armed": True}
+    program, wait = engine._decode_program, engine._monitor.wait
+
+    def stalled(*args):
+        if state["armed"]:
+            state["armed"] = False
+            torch.cuda._sleep(cycles)
+        return program(*args)
+
+    def timed_wait(event, phase, attempt=1):
+        t0 = time.perf_counter()
+        try:
+            return wait(event, phase, attempt)
+        except StepHang:
+            hangs.append(time.perf_counter() - t0)
+            raise
+
+    engine._decode_program = stalled
+    engine._monitor.wait = timed_wait
+    return hangs
+
+
+def _wedged(model, mix, kw, piped, want):
+    """A replay queued behind a sleep of WEDGE_SLEEP_MS, past the ladder's
+    budgets of STALL_BUDGET_MS: the active requests fail with step_hang
+    after three StepHangs (pipelined: the commit's two), each from the
+    event poll within its budget plus the poll's slack, with no rebuild
+    while the sleep runs (a capture would wait for it); once it has
+    ended, one rebuild and a new request with the unfaulted stream
+    `want` of ``mix[0]``."""
+    set_flags({"FLAGS_serve_step_timeout_ms": STALL_BUDGET_MS})
+    try:
+        engine = LLMEngine(model, pipeline_decode=piped, **kw)
+        engine.generate([mix[0][0]], max_new_tokens=2)        # built
+        hangs = _stalled_once(engine, int(_sleep_cycles_per_s()
+                                          * WEDGE_SLEEP_MS / 1e3))
+        _, _, reqs, st = _resilience_run(engine, mix[:4], at=0)
+        rungs = 2 if piped else 3
+        budget = STALL_BUDGET_MS / 1e3
+        assert len(hangs) == rungs and st["hangs"] == rungs, (hangs, st)
+        assert all(budget <= h <= budget + 0.005 for h in hangs), hangs
+        assert all(r.state == "FAILED" and r.error == "step_hang"
+                   for r in reqs), [(r.state, r.error) for r in reqs]
+        assert st["decode_compiles"] == 1, st
+        fresh = engine.add_request(mix[0][0], max_new_tokens=RESILIENCE_NEW)
+        engine.run()
+        assert fresh.state == "FINISHED" and fresh.generated == want
+        assert engine.stats()["decode_compiles"] == 2, engine.stats()
+    finally:
+        set_flags({"FLAGS_serve_step_timeout_ms": RESILIENCE_BUDGET_MS})
+    return (f"a {WEDGE_SLEEP_MS} ms wedge: {rungs} StepHangs at "
+            f"{json.dumps([round(h * 1e3, 3) for h in hangs])} ms, the "
+            f"{len(reqs)} active requests failed with step_hang "
+            f"{sum(hangs) * 1e3:.3f} ms into the step's waits, no rebuild "
+            f"during it, then one rebuild and a new request served")
+
+
+def serve_resilience():
+    """The watchdog's ladder and the eager fallback on fp32 GPT-2 124M, serial
+    then pipelined, each held to an unfaulted engine's streams (fp32: tokens
+    must be equal): an injected hang (rung 1: hangs 1, no rebuild); two
+    (serial: one counted rebuild; pipelined: the commit fails the active
+    requests at its second hang); three (serial: the active requests fail with
+    step_hang, and a new request is served); a real device stall (a sleep
+    kernel of STALL_SLEEP_MS queued ahead of a replay, the budget
+    STALL_BUDGET_MS: StepHang from the event poll within the budget plus one
+    poll interval, the streams equal); a wedge (a sleep of WEDGE_SLEEP_MS, past
+    every rung's budget: the active requests fail with step_hang within three
+    budgets serial, two pipelined, no rebuild while the sleep runs, then one
+    rebuild and a new request served); a poisoned decode (the eager fallback
+    through `generate`, streams and callbacks equal, an adapter tenant's
+    included). Then the step p50 of the mix with the watchdog armed against
+    disarmed, in turns. Returns the launch counts of the serial fallback
+    run."""
+    model = _gpt(torch.float32)
+    rng = np.random.default_rng(11)
+    mix = _resilience_mix(rng)
+    kw = dict(max_batch_size=8, block_size=16, max_context=1024)
+    ref, _, _, _ = _resilience_run(LLMEngine(model, **kw), mix)
+    adapters = (None, "a")
+    akw = dict(kw, max_adapters=2, adapter_rank=16)
+
+    def adapter_engine(**more):
+        engine = LLMEngine(model, **akw, **more)
+        engine.register_adapter("a", seed=1, scale=4.0)
+        return engine
+
+    ref_a, _, _, _ = _resilience_run(adapter_engine(), mix,
+                                     adapters=adapters)
+    set_flags({"FLAGS_serve_step_timeout_ms": RESILIENCE_BUDGET_MS})
+    counts = None
+    try:
+        for piped in (False, True):
+            mode = "pipelined" if piped else "serial"
+            # rung 1
+            got, streamed, _, st = _resilience_run(
+                LLMEngine(model, pipeline_decode=piped, **kw), mix,
+                fault="hang")
+            assert got == ref and streamed == ref, mode
+            assert st["hangs"] == 1 and st["decode_compiles"] == 1, st
+            line = [f"hang x1 ok (hangs 1, decode_compiles 1)"]
+            # two hangs
+            engine = LLMEngine(model, pipeline_decode=piped, **kw)
+            got, _, reqs, st = _resilience_run(engine, mix, fault="hang",
+                                               times=2)
+            if piped:
+                assert st["hangs"] == 2 and all(
+                    r.error == "step_hang" for r in reqs
+                    if r.state == "FAILED") and st["failed"] > 0, st
+                line.append(f"hang x2 fails the {st['failed']} active "
+                            f"requests at the commit's second hang")
+            else:
+                assert got == ref and st["hangs"] == 2 \
+                    and st["decode_compiles"] == 2, st
+                line.append("hang x2 ok (one rebuild: decode_compiles 2)")
+                engine = LLMEngine(model, **kw)
+                _, _, reqs, st = _resilience_run(engine, mix, fault="hang",
+                                                 times=3)
+                failed = [r for r in reqs if r.state == "FAILED"]
+                assert st["hangs"] == 3 and failed and all(
+                    r.error == "step_hang" for r in failed), st
+                line.append(f"hang x3 fails the {len(failed)} active "
+                            f"requests with step_hang")
+            fresh = engine.add_request(mix[0][0],
+                                       max_new_tokens=RESILIENCE_NEW)
+            engine.run()
+            assert fresh.state == "FINISHED" and fresh.generated == ref[0]
+            line.append("a new request served after it")
+            # the real stall
+            set_flags({"FLAGS_serve_step_timeout_ms": STALL_BUDGET_MS})
+            engine = LLMEngine(model, pipeline_decode=piped, **kw)
+            engine.generate([mix[0][0]], max_new_tokens=2)    # built
+            hangs = _stalled_once(engine, int(_sleep_cycles_per_s()
+                                              * STALL_SLEEP_MS / 1e3))
+            got, streamed, _, st = _resilience_run(engine, mix, at=0)
+            set_flags({"FLAGS_serve_step_timeout_ms": RESILIENCE_BUDGET_MS})
+            assert got == ref and streamed == ref, mode
+            assert len(hangs) == 1 and st["hangs"] == 1, (hangs, st)
+            budget = STALL_BUDGET_MS / 1e3
+            assert budget <= hangs[0] <= budget + 0.001 + 0.004, hangs
+            line.append(f"a real {STALL_SLEEP_MS} ms stall: StepHang from "
+                        f"the event poll {hangs[0] * 1e3:.3f} ms into a "
+                        f"{STALL_BUDGET_MS} ms budget, streams equal")
+            line.append(_wedged(model, mix, kw, piped, ref[0]))
+            # the poisoned decode, with an adapter tenant among the streams
+            reset_launch_counts()
+            engine = LLMEngine(model, pipeline_decode=piped, **kw)
+            got, streamed, reqs, st = _resilience_run(engine, mix,
+                                                      fault="nan_output")
+            assert got == ref and streamed == ref, mode
+            assert st["eager_fallbacks"] > 0 \
+                and st["decode_compiles"] == 1, st
+            if not piped:
+                counts = launch_counts()
+            got, streamed, _, st_a = _resilience_run(
+                adapter_engine(pipeline_decode=piped), mix,
+                fault="nan_output", adapters=adapters)
+            eq, total, whole = _agreement(got, ref_a)
+            assert got == ref_a and streamed == ref_a, (mode, eq, total)
+            line.append(f"nan_output: {st['eager_fallbacks']} streams "
+                        f"finished through generate, streams and callbacks "
+                        f"equal; with adapter tenants "
+                        f"{st_a['eager_fallbacks']}, equal too")
+            print(f"serve_resilience ({mode}, fp32 GPT-2 124M, "
+                  f"{len(mix)} requests x {RESILIENCE_NEW} tokens): "
+                  + "; ".join(line))
+        # the watchdog's cost: one warm engine, the mix in turns
+        engine = LLMEngine(model, **kw)
+        _resilience_run(engine, mix)
+        p50 = {"on": [], "off": []}
+        for turn in WATCHDOG_TURNS:
+            set_flags({"FLAGS_serve_step_timeout_ms":
+                       RESILIENCE_BUDGET_MS if turn == "on" else 0})
+            engine.reset_stats()
+            got, _, _, st = _resilience_run(engine, mix)
+            assert got == ref and st["hangs"] == 0
+            p50[turn].append(st["p50_step_ms"])
+        print(f"serve_resilience: step p50 ms with the watchdog armed "
+              f"(budget {RESILIENCE_BUDGET_MS} ms) against disarmed, turns "
+              f"{json.dumps(list(WATCHDOG_TURNS))}: on "
+              f"{json.dumps([round(x, 4) for x in p50['on']])}, off "
+              f"{json.dumps([round(x, 4) for x in p50['off']])}")
+    finally:
+        set_flags({"FLAGS_serve_step_timeout_ms": 0})
+        guardian.clear_faults()
+    return counts
+
+
+RESUME_KILL_STEP = 8
+
+
+def _resume_mix():
+    return _resilience_mix(np.random.default_rng(13))
+
+
+def _resume_engine(dtype):
+    return LLMEngine(_gpt(dtype), max_batch_size=8, block_size=16,
+                     max_context=1024)
+
+
+def resume_child(mode, directory, dtype_name):
+    """A child process of `serve_resume`: ``serve`` runs the resume mix
+    with a `ServeCheckpointer` tick every step and, after RESUME_KILL_STEP
+    steps, prints ``KILL-ME`` and waits to be killed; ``restore`` loads
+    the newest snapshot into a fresh engine, finishes it and writes the
+    streams and its times to result.json."""
+    dtype = getattr(torch, dtype_name)
+    t_start = time.perf_counter()
+    engine = _resume_engine(dtype)
+    ck = ServeCheckpointer(directory, save_every_n_steps=1)
+    if mode == "serve":
+        for p, kw in _resume_mix():
+            engine.add_request(p, max_new_tokens=RESILIENCE_NEW, **kw)
+        n = 0
+        while engine.step():
+            n += 1
+            ck.tick(n, engine.state_payload())
+            if n == RESUME_KILL_STEP:
+                print("KILL-ME", flush=True)
+                time.sleep(600)
+        raise SystemExit("the mix drained before the kill")
+    t0 = time.perf_counter()
+    restored = engine.restore_state(ck.restore())
+    t_restored = time.perf_counter()
+    first = {}
+    for r in restored:
+        r.on_token = (lambda req, tok, text:
+                      first.setdefault(req.rid, time.perf_counter()))
+    engine.run()
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    with open(Path(directory) / "result.json", "w") as f:
+        json.dump({"streams": {r.rid: r.generated for r in restored},
+                   "states": {r.rid: r.state for r in restored},
+                   "resumed": engine.stats()["resumed"],
+                   "start_to_ready_s": t0 - t_start,
+                   "restore_s": t_restored - t0,
+                   "first_token_s": (min(first.values()) - t_restored
+                                     if first else None),
+                   "finish_s": t_end - t_restored}, f)
+
+
+def serve_resume():
+    """Crash-resume on the card: a child process serves the resume mix
+    (8 greedy, 2 sampled requests) with a ServeCheckpointer tick every
+    step and is killed with SIGKILL after RESUME_KILL_STEP steps; a fresh
+    process restores the newest snapshot and finishes. Its streams must
+    equal an uninterrupted run's (this process), fp32 exactly, bf16 with
+    the agreement printed; then a snapshot taken before a weight swap is
+    refused by the swapped engine (torn_swap)."""
+    import shutil
+    import signal
+    import sys
+    import tempfile
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        engine = _resume_engine(dtype)
+        reqs = [engine.add_request(p, max_new_tokens=RESILIENCE_NEW, **kw)
+                for p, kw in _resume_mix()]
+        engine.run()
+        want = {r.rid: r.generated for r in reqs}
+        del engine
+        directory = tempfile.mkdtemp(prefix="serve_resume_",
+                                     dir=Path(__file__).resolve().parent
+                                     / "build")
+        try:
+            cmd = [sys.executable, str(Path(__file__).resolve()),
+                   "--resume-child"]
+            t0 = time.perf_counter()
+            child = subprocess.Popen(cmd + ["serve", directory, name],
+                                     stdout=subprocess.PIPE, text=True)
+            try:
+                for line in child.stdout:
+                    if line.strip() == "KILL-ME":
+                        break
+                else:
+                    raise AssertionError("the serving child ended unkilled")
+                child.send_signal(signal.SIGKILL)
+            finally:
+                child.kill()
+                child.wait(timeout=60)
+            killed_s = time.perf_counter() - t0
+            assert child.returncode == -signal.SIGKILL, child.returncode
+            t0 = time.perf_counter()
+            subprocess.run(cmd + ["restore", directory, name], check=True,
+                           timeout=600)
+            restore_wall = time.perf_counter() - t0
+            with open(Path(directory) / "result.json") as f:
+                res = json.load(f)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+        got = res["streams"]
+        assert res["resumed"] == len(got) > 0, res
+        assert all(state == "FINISHED" for state in res["states"].values())
+        eq, total, whole = _agreement([got[k] for k in sorted(got)],
+                                      [want[k] for k in sorted(got)])
+        if dtype == torch.float32:
+            assert all(got[k] == want[k] for k in got), (got, want)
+        print(f"serve_resume ({name}): killed (SIGKILL) after "
+              f"{RESUME_KILL_STEP} steps ({killed_s:.2f} s from spawn); "
+              f"a fresh process restored {res['resumed']} requests and "
+              f"finished them: streams equal to the uninterrupted run's at "
+              f"{eq}/{total} positions, {whole}/{len(got)} identical "
+              f"({'held' if dtype == torch.float32 else 'reported'}); "
+              f"restore_state {res['restore_s'] * 1e3:.3f} ms after "
+              f"{res['start_to_ready_s']:.3f} s of start-up in the child, "
+              f"first token {res['first_token_s'] * 1e3:.3f} ms after the "
+              f"restore, finish {res['finish_s']:.3f} s; the restoring "
+              f"process {restore_wall:.2f} s wall")
+    # torn swap: a snapshot of the first weights, refused after a swap
+    model = _gpt(torch.float32)
+    engine = LLMEngine(model, max_batch_size=8, block_size=16,
+                       max_context=1024, hot_swap=True)
+    for p, kw in _resume_mix()[:3]:
+        engine.add_request(p, max_new_tokens=4, **kw)
+    engine.step()
+    payload = engine.state_payload()
+    swapped = LLMEngine(_gpt(torch.float32, seed=0), max_batch_size=8,
+                        block_size=16, max_context=1024, hot_swap=True)
+    values = [p.detach() * 1.01 for p in swapped._model.parameters()]
+    assert swapped.swap_weights(values) == 1
+    try:
+        swapped.restore_state(payload)
+    except ServeRefusal as e:
+        assert e.reason == "torn_swap", e.reason
+    else:
+        raise AssertionError("a torn swap was restored")
+    assert swapped.requests == {}
+    print("serve_resume: a snapshot taken under the first weights is "
+          "refused (torn_swap) by an engine that swapped them")
+
+
+# ---------------------------------------------------------------------------
 # phase 5: card vs CPU parity (fp32)
 # ---------------------------------------------------------------------------
 
@@ -3333,8 +4204,9 @@ def _greedy(model, device, prompts, new, kv_dtype=None):
 def parity(kv_dtype=None):
     """fp32 GPT-2 124M on the card and on the CPU: identical greedy tokens
     for two prompts whose top-2 margins clear MARGIN_FACTOR x LOGITS_ATOL
-    on the CPU, then (fp pools) the prompts' logits within LOGITS_ATOL.
-    With ``kv_dtype="int8"`` both engines keep int8 pools."""
+    on the CPU, then (fp pools of the model's dtype) the prompts' logits
+    within LOGITS_ATOL. With ``kv_dtype="int8"`` (or bf16) both engines
+    keep int8 (bf16) pools."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
@@ -3354,11 +4226,15 @@ def parity(kv_dtype=None):
     gpu = _greedy(gpu_model, "cuda", [p for p, _ in prompts], 16, kv_dtype)
     for (p, cpu_tokens), r in zip(prompts, gpu):
         assert r.generated == cpu_tokens, (r.generated, cpu_tokens)
-    fused = "paged_decode_append_int8" if kv_dtype else "paged_decode_append"
+    pools = torch.int8 if kv_dtype == "int8" else (kv_dtype
+                                                    or torch.float32)
+    fused = pa.append_name(torch.float32, pools)
     assert launch_counts()[fused] > 0, launch_counts()
     if kv_dtype:
-        print(f"parity int8: 2 prompts x 16 greedy tokens identical on card "
-              f"and CPU with int8 KV pools ({tried} prompts tried)")
+        print(f"parity {str(pools)[6:]}: 2 prompts x 16 greedy tokens "
+              f"identical on card and CPU with {str(pools)[6:]} KV pools "
+              f"under the fp32 model ({tried} prompts tried; {fused} "
+              f"launches {launch_counts()[fused]})")
         return
     ids = torch.tensor([p for p, _ in prompts])
     with torch.no_grad():
@@ -3840,12 +4716,16 @@ def main():
         row["note"] = ("the serving path runs this kernel with the decode "
                        "write folded in (paged_decode_append); this row "
                        "times it alone, and its launches there are 0")
+    append_cast, scatter_cast = check_append_cast(), check_scatter_cast()
     rows = {"serve": [check_flash(), paged, fused, check_keyed_draw(),
                       check_sampler_filter(), scatter],
             "serve_int8": [paged_int8, fused_int8, scatter_int8],
             "train": check_flash_bwd() + check_ce() + [check_adam_update()],
             "fused_ln": [check_fused_ln()],
-            "serve_tenancy": [check_lora_delta()]}
+            "serve_tenancy": [check_lora_delta()],
+            "serve_kv_mixed_bfloat16": [append_cast[0], scatter_cast[0]],
+            "serve_kv_mixed_float32": [append_cast[1], scatter_cast[1]],
+            "generate": [check_keyed_draw_rows()]}
     paths = {}
     paths["serve"], bf16_greedy, model = serve()
     paths["serve_int8"] = serve_int8(bf16_greedy)
@@ -3853,6 +4733,10 @@ def main():
     paths["serve_pipelined_int8"] = serve_pipelined(model, kv_dtype="int8")
     del model
     paths["serve_tenancy"] = serve_tenancy()
+    paths.update(serve_kv_mixed())
+    paths["generate"] = generate_phase()
+    paths["serve_resilience"] = serve_resilience()
+    serve_resume()
     parity()
     parity(kv_dtype="int8")
     paths["train"] = train()
@@ -3872,7 +4756,7 @@ def main():
         row["launches_by_path"] = {path: counts[row["name"]]
                                    for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 16 and all(
+    assert len(rows) == 21 and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
@@ -3893,4 +4777,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    if sys.argv[1:2] == ["--resume-child"]:
+        resume_child(*sys.argv[2:5])
+    else:
+        main()

@@ -116,6 +116,16 @@
 // piece, converts them exactly (the byte into the mantissa of 2^23: one
 // PRMT and one FADD each) and dequantizes in registers as
 // `k * (scale * (1/127))`, the order the TPU kernel and the plain twin use.
+//
+// Pools of the other float type (an engine whose `kv_dtype` is fp32 under a
+// bf16 model, or bf16 under an fp32 one): the same kernel with P the pools'
+// type and T q's. The write casts the new rows to P as the reference does
+// (attention.py:268-271 `.astype(k_pool.dtype)`: fp32 -> bf16 round to
+// nearest even, bf16 -> fp32 exact); the copies read rows of P (16 / sizeof
+// P elements a lane), q is read in that many elements of T (8 bytes a lane
+// for bf16 q over fp32 pools), and scores, softmax and accumulator stay
+// fp32. The bytes a step reads are those of P, so fp32 pools under a bf16
+// model read twice what bf16 pools would.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -239,17 +249,29 @@ __device__ __forceinline__ void unpack(const uint4& r,
   }
 }
 
-// N elements of q's type T at p (16-byte aligned) -> floats
+// N elements of q's type T at p -> floats: 16-byte loads (p 16-byte
+// aligned), or one 8-byte load where N elements are 8 bytes (bf16 q over
+// fp32 pools: 4 elements a lane; p 8-byte aligned)
 template <typename T, int N>
 __device__ __forceinline__ void load_q(const T* p, float (&x)[N]) {
   constexpr int kPer = 16 / sizeof(T);
+  if constexpr (N < kPer) {
+    static_assert(std::is_same<T, __nv_bfloat16>::value && N == 4,
+                  "q by 8 bytes: 4 bf16");
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(r.x << 16);
+    x[1] = __uint_as_float(r.x & 0xffff0000u);
+    x[2] = __uint_as_float(r.y << 16);
+    x[3] = __uint_as_float(r.y & 0xffff0000u);
+  } else {
 #pragma unroll
-  for (int c = 0; c < N / kPer; ++c) {
-    const uint4 r = load16(p + c * kPer);
-    float y[kPer];
-    unpack<T>(r, y);
+    for (int c = 0; c < N / kPer; ++c) {
+      const uint4 r = load16(p + c * kPer);
+      float y[kPer];
+      unpack<T>(r, y);
 #pragma unroll
-    for (int e = 0; e < kPer; ++e) x[c * kPer + e] = y[e];
+      for (int e = 0; e < kPer; ++e) x[c * kPer + e] = y[e];
+    }
   }
 }
 
@@ -261,6 +283,20 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// a new K/V element of q's type T as the pools' float type P: a copy where
+// they agree, else the cast the reference makes (`.astype(pool.dtype)`):
+// bf16 -> fp32 exact, fp32 -> bf16 rounded to nearest even
+template <typename P, typename T>
+__device__ __forceinline__ P to_pool(T v) {
+  if constexpr (std::is_same<P, T>::value) {
+    return v;
+  } else if constexpr (std::is_same<P, float>::value) {
+    return __bfloat162float(v);
+  } else {
+    return __float2bfloat16_rn(v);
+  }
 }
 
 // (m, l, acc) <- the merge of two online-softmax partials, in a fixed
@@ -331,7 +367,7 @@ __device__ __forceinline__ void append_rows(const AppendArgs& a, int s, int h,
       const int64_t* st = a.new_stride[i];
       for (int d = threadIdx.x; d < D; d += kThreads) {
         pool[i][base + off * tok + d] =
-            src[i][s * st[0] + h * st[1] + d * st[2]];
+            to_pool<P>(src[i][s * st[0] + h * st[1] + d * st[2]]);
       }
     }
   } else {
@@ -428,8 +464,10 @@ __device__ __forceinline__ void append_rows(const AppendArgs& a, int s, int h,
 }
 
 // One CTA per (split, head, slot), the splits of one (slot, head) one
-// cluster. T: the type of q and out; P: the pools' type (T, or int8_t with
-// the fp32 scales k_scales / v_scales [num_blocks, H], unused otherwise).
+// cluster. T: the type of q and out; P: the pools' type (T, the other float
+// type, or int8_t with the fp32 scales k_scales / v_scales [num_blocks, H],
+// unused otherwise). Scores, the softmax and the accumulator are fp32
+// whatever P is.
 // kAppend: the CTA whose span holds position lens[s] first writes this
 // step's K and V rows there (AppendArgs); without it, Args alone.
 template <typename T, typename P, int D, bool kAppend>
@@ -726,26 +764,34 @@ cudaError_t launch(const A& a, int slots, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the instantiation for dtype (0 = float32, 1 = bfloat16), quantized and
-// head_dim
+// the instantiation for dtype (0 = float32, 1 = bfloat16), the pools'
+// kind (0 = q's dtype, 1 = int8, 2 = the other float type) and head_dim
 template <bool kAppend, typename A>
 cudaError_t dispatch(const A& a, int slots, int head_dim, int dtype,
-                     int quantized, cudaStream_t s) {
+                     int pools, cudaStream_t s) {
   if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
   const bool d64 = head_dim == 64;
+  using B = __nv_bfloat16;
   if (dtype == 0) {
-    if (quantized) {
+    if (pools == 1) {
       return d64 ? launch<float, int8_t, 64, kAppend>(a, slots, s)
                  : launch<float, int8_t, 128, kAppend>(a, slots, s);
+    }
+    if (pools == 2) {
+      return d64 ? launch<float, B, 64, kAppend>(a, slots, s)
+                 : launch<float, B, 128, kAppend>(a, slots, s);
     }
     return d64 ? launch<float, float, 64, kAppend>(a, slots, s)
                : launch<float, float, 128, kAppend>(a, slots, s);
   }
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    if (quantized) {
+    if (pools == 1) {
       return d64 ? launch<B, int8_t, 64, kAppend>(a, slots, s)
                  : launch<B, int8_t, 128, kAppend>(a, slots, s);
+    }
+    if (pools == 2) {
+      return d64 ? launch<B, float, 64, kAppend>(a, slots, s)
+                 : launch<B, float, 128, kAppend>(a, slots, s);
     }
     return d64 ? launch<B, B, 64, kAppend>(a, slots, s)
                : launch<B, B, 128, kAppend>(a, slots, s);
@@ -765,7 +811,8 @@ bool make_args(Args* a, const void* q, const void* k_pool,
       span_blocks > kMaxEntries || n_split > kMaxSplits ||
       n_split != (max_blocks + span_blocks - 1) / span_blocks ||
       static_cast<int64_t>(max_blocks) * block_size > INT32_MAX ||
-      (quantized && (!k_scales || !v_scales))) {
+      quantized < 0 || quantized > 2 ||
+      (quantized == 1 && (!k_scales || !v_scales))) {
     return false;
   }
   *a = Args{q,
@@ -787,9 +834,10 @@ bool make_args(Args* a, const void* q, const void* k_pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out). quantized: 0 = pools of
-// q's dtype (scales unused, may be null), 1 = int8 pools with fp32 scales
-// [num_blocks, H]. q/out [S, H, D], pools [num_blocks, block_size, H, D],
+// dtype: 0 = float32, 1 = bfloat16 (q and out). quantized, the pools'
+// kind: 0 = pools of q's dtype (scales unused, may be null), 1 = int8
+// pools with fp32 scales [num_blocks, H], 2 = pools of the other float
+// type. q/out [S, H, D], pools [num_blocks, block_size, H, D],
 // tables [S, M] int32, lens [S] int32 (the effective lengths: 0 for
 // inactive slots). Each CTA takes `span_blocks` table entries; n_split =
 // ceil(M / span_blocks) CTAs, at most 8, form one cluster per (slot,
@@ -820,8 +868,10 @@ extern "C" int paddle_paged_decode(const void* q, const void* k_pool,
 // `active[s] ? lens[s] : 0`. q, k_new and v_new [S, H, D] at the element
 // strides `strides` = (q slot, q head, K slot, K head, K dim, V slot, V
 // head, V dim), q's dim stride 1 and its rows 16-byte aligned; k_new and
-// v_new of q's dtype; active [S] bool; num_blocks the pools' blocks. With
-// int8 pools block_size x head_dim is at most 2048. The rest as
+// v_new of q's dtype (written into pools of the other float type cast to
+// it, fp32 -> bf16 rounded to nearest even); active [S] bool; num_blocks
+// the pools' blocks. With int8 pools block_size x head_dim is at most
+// 2048. The rest as
 // paddle_paged_decode. Returns a cudaError_t.
 extern "C" int paddle_paged_decode_append(
     const void* q, const void* k_new, const void* v_new, void* k_pool,
@@ -835,7 +885,7 @@ extern "C" int paddle_paged_decode_append(
                  out, slots, heads, max_blocks, block_size, span_blocks,
                  n_split, scale, quantized) ||
       num_blocks <= 0 || !active ||
-      (quantized &&
+      (quantized == 1 &&
        static_cast<int64_t>(block_size) * head_dim > kMaxAppendLevels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,7 +6,12 @@
 // pools, paddle_tpu/quantization/kv_cache.py `quantize_scatter`, and XLA
 // fuses those ops into the program. Token p < length of layer l goes to
 // pool block block_row[p / bs], offset p % bs, of layer l's K and V pools:
-//   * fp pools: the row is copied as it is (pool and rows of one type);
+//   * fp pools: the row is copied as it is (pool and rows of one type),
+//     or cast to the pools' type where they differ (an engine whose
+//     kv_dtype is the other float type than its model's), as the
+//     reference's `.astype(k_pools.dtype)` (cache.py:279-281): fp32 ->
+//     bf16 rounded to nearest even, bf16 -> fp32 exact; 8 values a
+//     thread a step (one 16-byte side, two on the other);
 //   * int8 pools: each block of the row first gets scale 0 (a spare block
 //     past length keeps 0); a block holding real tokens gets, per head,
 //     s = max(amax over its tokens' values, SCALE_EPS), and each value
@@ -150,6 +155,46 @@ __device__ __forceinline__ float amax_value(const __nv_bfloat162& m) {
 
 __device__ __forceinline__ float amax_value(float m) { return m; }
 
+// 8 values of a row (16-byte aligned) -> floats, and floats -> 8 values of
+// a pool row, for the fp pools of the other type (the cast's two sides)
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  to_floats(*reinterpret_cast<const uint4*>(p), v);
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  float a[4], b[4];
+  to_floats(*reinterpret_cast<const uint4*>(p), a);
+  to_floats(*reinterpret_cast<const uint4*>(p + 4), b);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = a[e];
+    v[4 + e] = b[e];
+  }
+}
+
+__device__ __forceinline__ void store8(__nv_bfloat16* p,
+                                       const float (&v)[8]) {
+  uint4 out;
+  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // .x (the lower address) from the first value; each rounded to nearest
+    // even, as torch's .to(bfloat16)
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  *reinterpret_cast<uint4*>(p) = out;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+template <typename T>
+using OtherFloat = typename std::conditional<std::is_same<T, float>::value,
+                                             __nv_bfloat16, float>::type;
+
 // one block of int8 pools: warp w quantizes heads w, w + kWarps, ..., kHB
 // of them at a time from registers (kPV vectors a lane a head)
 template <typename T, int kPV>
@@ -244,9 +289,10 @@ __device__ __forceinline__ void quantize_block(const T* s, int8_t* d,
   }
 }
 
-// T: the rows' type (float or __nv_bfloat16); kPV: 0 for pools of the
-// rows' type, else int8 pools + scales with kPV vectors a lane a head
-template <typename T, int kPV>
+// T: the rows' type (float or __nv_bfloat16); P: the pools' type (T, the
+// other float type, or int8_t); kPV: 0 for fp pools, else int8 pools +
+// scales with kPV vectors a lane a head
+template <typename T, typename P, int kPV>
 __global__ void __launch_bounds__(kThreads)
 prefill_scatter_kernel(const __grid_constant__ Layers src, void* k_pool,
                        void* v_pool, float* k_scales, float* v_scales,
@@ -267,7 +313,7 @@ prefill_scatter_kernel(const __grid_constant__ Layers src, void* k_pool,
   const long long at = layer * g.pool_layer
                        + static_cast<long long>(blk) * g.block_size * row;
 
-  if constexpr (kPV == 0) {
+  if constexpr (kPV == 0 && std::is_same<T, P>::value) {
     const int cols = row / kVec;             // vectors a token
     T* d = static_cast<T*>(is_v ? v_pool : k_pool) + at;
     for (int i = threadIdx.x; i < n * cols; i += kThreads) {
@@ -275,6 +321,15 @@ prefill_scatter_kernel(const __grid_constant__ Layers src, void* k_pool,
       *reinterpret_cast<uint4*>(d + static_cast<long long>(t) * row
                                 + c * kVec) =
           *reinterpret_cast<const uint4*>(s + t * g.row_stride + c * kVec);
+    }
+  } else if constexpr (kPV == 0) {
+    const int cols = row / 8;                // groups of 8 values a token
+    P* d = static_cast<P*>(is_v ? v_pool : k_pool) + at;
+    for (int i = threadIdx.x; i < n * cols; i += kThreads) {
+      const int t = i / cols, c = i - t * cols;
+      float v[8];
+      load8(s + t * g.row_stride + c * 8, v);
+      store8(d + static_cast<long long>(t) * row + c * 8, v);
     }
   } else {
     float* scale = (is_v ? v_scales : k_scales)
@@ -292,27 +347,30 @@ prefill_scatter_kernel(const __grid_constant__ Layers src, void* k_pool,
 template <typename T>
 void launch(const Layers& src, void* k_pool, void* v_pool, float* k_scales,
             float* v_scales, const int* block_row, const int* length,
-            const Geometry& g, int max_blocks, int layers, cudaStream_t s) {
+            const Geometry& g, int max_blocks, int layers, bool cast,
+            cudaStream_t s) {
   const dim3 grid(max_blocks, layers, 2);
   // int8: the fewest vectors a lane a head (a power of two) that hold a
   // full block's head, at most kRegs
   const int per_lane = (g.block_size * (g.head_dim / (16 / sizeof(T))) + 31)
                        / 32;
-#define PADDLE_SCATTER(PV)                                                  \
-  prefill_scatter_kernel<T, PV><<<grid, kThreads, 0, s>>>(                  \
+#define PADDLE_SCATTER(P, PV)                                               \
+  prefill_scatter_kernel<T, P, PV><<<grid, kThreads, 0, s>>>(               \
       src, k_pool, v_pool, k_scales, v_scales, block_row, length, g)
-  if (k_scales == nullptr) {
-    PADDLE_SCATTER(0);
+  if (k_scales == nullptr && cast) {
+    PADDLE_SCATTER(OtherFloat<T>, 0);
+  } else if (k_scales == nullptr) {
+    PADDLE_SCATTER(T, 0);
   } else if (per_lane <= 1) {
-    PADDLE_SCATTER(1);
+    PADDLE_SCATTER(int8_t, 1);
   } else if (per_lane <= 2) {
-    PADDLE_SCATTER(2);
+    PADDLE_SCATTER(int8_t, 2);
   } else if (per_lane <= 4) {
-    PADDLE_SCATTER(4);
+    PADDLE_SCATTER(int8_t, 4);
   } else if (per_lane <= 8) {
-    PADDLE_SCATTER(8);
+    PADDLE_SCATTER(int8_t, 8);
   } else {
-    PADDLE_SCATTER(16);
+    PADDLE_SCATTER(int8_t, 16);
   }
 #undef PADDLE_SCATTER
 }
@@ -330,8 +388,11 @@ extern "C" int paddle_prefill_scatter_max_heads() { return kMaxHeads; }
 // [layers, num_blocks, block_size, heads, head_dim], of the rows' type
 // (k_scales null) or int8 with fp32 scales [layers, num_blocks, heads].
 // block_row: max_blocks int32 on the device, max_blocks * block_size >=
-// tokens; length: one int32 on the device. dtype: 0 = float32, 1 =
-// bfloat16 (the rows). Returns a cudaError_t.
+// tokens; length: one int32 on the device. dtype: the rows' type and, for
+// fp pools, the pools': 0 = float32 rows, 1 = bfloat16 rows (pools of the
+// rows' type or int8), 2 = float32 rows into bfloat16 pools, 3 = bfloat16
+// rows into float32 pools (cast on the write; heads x head_dim a multiple
+// of 8). Returns a cudaError_t.
 extern "C" int paddle_prefill_scatter(
     int layers, const void* const* k_src, const void* const* v_src,
     void* k_pool, void* v_pool, float* k_scales, float* v_scales,
@@ -354,12 +415,16 @@ extern "C" int paddle_prefill_scatter(
                        * head_dim,
                    tokens, heads, head_dim, block_size, num_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  const bool cast = dtype >= 2;
+  if (cast && (k_scales != nullptr || (heads * head_dim) % 8 != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0 || dtype == 2) {
     launch<float>(src, k_pool, v_pool, k_scales, v_scales, block_row, length,
-                  g, max_blocks, layers, s);
-  } else if (dtype == 1) {
+                  g, max_blocks, layers, cast, s);
+  } else if (dtype == 1 || dtype == 3) {
     launch<__nv_bfloat16>(src, k_pool, v_pool, k_scales, v_scales,
-                          block_row, length, g, max_blocks, layers, s);
+                          block_row, length, g, max_blocks, layers, cast, s);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

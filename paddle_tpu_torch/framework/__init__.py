@@ -1,4 +1,4 @@
-from . import flags  # noqa: F401
+from . import flags, io  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401
 
-__all__ = ["flags", "get_flags", "set_flags"]
+__all__ = ["flags", "io", "get_flags", "set_flags"]

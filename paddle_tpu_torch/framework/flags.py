@@ -12,7 +12,10 @@ defaults:
 - ``FLAGS_use_fused_layer_norm`` (True): eligible calls of
   `incubate.nn.functional.fused_bias_dropout_residual_layer_norm` go
   through the fused bias-residual LayerNorm kernel
-  (`kernels.fused_ln.is_eligible`).
+  (`kernels.fused_ln.is_eligible`);
+- ``FLAGS_serve_step_timeout_ms`` (0): the serving engine's hung-step
+  watchdog budget for one decode or prefill step, in milliseconds; 0
+  disarms it (`serving.resilience.watchdog_budget_s`).
 
 Flags are process-wide, as in the reference. Naming any other flag raises,
 so a setting the port does not read never passes silently.
@@ -26,7 +29,8 @@ __all__ = ["set_flags", "get_flags"]
 _lock = threading.Lock()
 _FLAGS = {"FLAGS_use_flash_attention": True,
           "FLAGS_use_fused_cross_entropy": False,
-          "FLAGS_use_fused_layer_norm": True}
+          "FLAGS_use_fused_layer_norm": True,
+          "FLAGS_serve_step_timeout_ms": 0}
 
 
 def _known(name):

@@ -1,3 +1,4 @@
-from . import models, nn  # noqa: F401
+from . import checkpoint, models, nn  # noqa: F401
+from .checkpoint import ServeCheckpointer  # noqa: F401
 
-__all__ = ["models", "nn"]
+__all__ = ["checkpoint", "models", "nn", "ServeCheckpointer"]

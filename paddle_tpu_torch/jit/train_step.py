@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import add_launches, captured_launches
+from ..kernels import add_launches, capture_graph, warm_up
 
 __all__ = ["TrainStep"]
 
@@ -115,10 +115,8 @@ class TrainStep:
         opt = self.optimizer
         opt._device_scalars(device)
         self._static = [a.clone() for a in args]
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
+
+        def warm():
             self._grads(self._loss(self._static))
             # the update on one scratch element of each parameter dtype:
             # loads its library and kernels without moving the model
@@ -131,16 +129,12 @@ class TrainStep:
                 for slot in opt._accumulators.values():
                     for s in scratch:
                         slot.pop(s, None)
-        main.wait_stream(side)
+
+        warm_up(warm, device)
         torch.cuda.synchronize(device)
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(graph):
-                return self._step_code(self._static)
-
         try:
-            self._static_loss, self._record = captured_launches(capture)
+            graph, self._static_loss, self._record = capture_graph(
+                lambda: self._step_code(self._static))
         except Exception as err:
             raise RuntimeError(f"TrainStep: capturing the training step in "
                                f"a CUDA graph failed: {err}") from err

@@ -7,8 +7,13 @@ Each kernel module counts its own kernels' launches in a module-level dict
 Python, so no wrapper counts it: `captured_launches` records what a
 capture's wrappers counted (and takes it back out, since a capture
 launches nothing), and `add_launches` adds that record once per replay.
+`warm_up` and `capture_graph` are the port's one way to build a graph
+program (the serving engine's decode and prefill programs, `TrainStep`,
+`generate`): an eager run on a side stream, then one capture.
 """
 from __future__ import annotations
+
+import torch
 
 from . import (adam_update, cross_entropy, flash_attention, fused_ln,
                keyed_draw, lora_delta, paged_attention, prefill_scatter,
@@ -17,7 +22,8 @@ from . import (adam_update, cross_entropy, flash_attention, fused_ln,
 __all__ = ["adam_update", "cross_entropy", "flash_attention", "fused_ln",
            "keyed_draw", "lora_delta", "paged_attention", "prefill_scatter",
            "sampler_filter", "launch_counts",
-           "reset_launch_counts", "captured_launches", "add_launches"]
+           "reset_launch_counts", "captured_launches", "add_launches",
+           "warm_up", "capture_graph"]
 
 _MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln,
             keyed_draw, sampler_filter, adam_update, prefill_scatter,
@@ -55,3 +61,33 @@ def captured_launches(capture):
               if n != before[name]}
     add_launches({name: -n for name, n in record.items()})
     return out, record
+
+
+def warm_up(fn, device=None):
+    """Run fn() once on a side stream that starts after the current
+    stream's work and that the current stream then waits for: the eager
+    run before a capture, which loads cuBLAS and the kernels' modules at
+    the capture's shapes. Returns fn's result."""
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    return out
+
+
+def capture_graph(fn, pool=None):
+    """Capture fn() in a new CUDA graph (in memory pool `pool`, a private
+    one when None) and return ``(graph, fn's result, record)``, `record`
+    the launches its wrappers counted (`captured_launches`): each
+    ``graph.replay()`` runs them once, counted by ``add_launches(record)``.
+    The capture waits for the device first (``torch.cuda.graph``)."""
+    graph = torch.cuda.CUDAGraph()
+
+    def capture():
+        with torch.cuda.graph(graph, pool=pool):
+            return fn()
+
+    out, record = captured_launches(capture)
+    return graph, out, record

@@ -18,7 +18,14 @@ installed jax 0.9.0) the draw for one slot is, bit for bit:
   * the token: the first index of the largest ``noise + filtered``.
 
 A slot with ``temperature <= 0`` takes the first index of the largest raw
-logit instead (the greedy path). The twin is written in int64 arithmetic
+logit instead (the greedy path).
+
+``row_stride`` (0 for the engine) moves each row's counters: row s draws
+index i at counter ``s * row_stride + i``. `GPTForCausalLM.generate`'s
+sampled pick is ``jax.random.categorical(fold_in(PRNGKey(seed), step),
+logits [B, V])``, one key over the batch, whose element (b, v) takes
+counter ``b * V + v`` (partitionable threefry counts the flattened
+index): it passes every row that key and ``row_stride=V``. The twin is written in int64 arithmetic
 with 32-bit masks, on the CPU; its bits and its noise are equal to
 `jax.random`'s (tests/test_torch_sampling_keyed.py).
 
@@ -26,7 +33,8 @@ On CUDA tensors `keyed_draw` launches ``csrc/keyed_draw.cu`` (a thread
 block cluster a slot, each CTA a slice of the vocabulary) or raises; on
 CPU tensors it runs `keyed_draw_reference`. The kernel
 writes the token straight into the caller's buffers (the engine's output
-and device feedback buffers). Launches count under ``keyed_draw``.
+and device feedback buffers). Launches count under ``keyed_draw``, or
+``keyed_draw_rows`` with a row stride (`generate`'s draw).
 """
 from __future__ import annotations
 
@@ -42,9 +50,9 @@ __all__ = ["keyed_draw", "keyed_draw_reference", "threefry2x32",
            "launches"]
 
 # kernel launches since import (or the last reset by the caller), by kernel
-launches = {"keyed_draw": 0}
+launches = {"keyed_draw": 0, "keyed_draw_rows": 0}
 
-_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -100,12 +108,15 @@ def slot_keys(seeds, positions):
     return threefry2x32(zero, seeds, zero, positions)
 
 
-def random_bits(k0, k1, vocab):
+def random_bits(k0, k1, vocab, row_stride=0):
     """The 32 random bits of each index of a ``[vocab]`` draw under each
-    slot's key: int64 ``[S, vocab]`` holding uint32 values."""
+    slot's key, row s at counters ``s * row_stride + i``: int64 ``[S,
+    vocab]`` holding uint32 values."""
     index = torch.arange(vocab, dtype=torch.int64, device=k0.device)[None, :]
-    y0, y1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(index),
-                          index)
+    rows = torch.arange(k0.shape[0], dtype=torch.int64, device=k0.device)
+    counter = (index + rows[:, None] * int(row_stride)) & _M32
+    y0, y1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(counter),
+                          counter)
     return y0 ^ y1
 
 
@@ -158,11 +169,14 @@ def xla_log(x):
     return torch.where((x < 0) | torch.isnan(x), _f32(float("nan")), r)
 
 
-def gumbel(seeds, positions, vocab):
+def gumbel(seeds, positions, vocab, row_stride=0):
     """Each slot's Gumbel noise ``[S, vocab]`` float32: the reference's
-    ``jax.random.gumbel(fold_in(PRNGKey(seed), position), (vocab,))``."""
+    ``jax.random.gumbel(fold_in(PRNGKey(seed), position), (vocab,))``
+    (row_stride 0), or row s of a ``[S, vocab]`` draw under one key
+    (row_stride vocab)."""
     k0, k1 = slot_keys(seeds, positions)
-    return -xla_log(-xla_log(uniform(random_bits(k0, k1, vocab))))
+    return -xla_log(-xla_log(uniform(random_bits(k0, k1, vocab,
+                                                 row_stride))))
 
 
 def _check(raw, filtered, temperature, seeds, positions):
@@ -177,32 +191,35 @@ def _check(raw, filtered, temperature, seeds, positions):
             raise ValueError(f"{name} must be [{s}], got {tuple(t.shape)}")
 
 
-def keyed_draw_reference(raw, filtered, temperature, seeds, positions):
+def keyed_draw_reference(raw, filtered, temperature, seeds, positions,
+                         row_stride=0):
     """Plain PyTorch twin: each slot's token, int32 ``[S]``: the first
     argmax of ``gumbel + filtered`` where ``temperature > 0``, else of the
     raw logits."""
     _check(raw, filtered, temperature, seeds, positions)
-    noise = gumbel(seeds, positions, raw.shape[1])
+    noise = gumbel(seeds, positions, raw.shape[1], row_stride)
     sampled = torch.argmax(noise + filtered.float(), dim=-1)
     greedy = torch.argmax(raw.float(), dim=-1)
     return torch.where(temperature > 0, sampled, greedy).to(torch.int32)
 
 
 def keyed_draw(raw, filtered, temperature, seeds, positions, out=None,
-               feedback=None, debug=None):
+               feedback=None, debug=None, row_stride=0):
     """Each slot's next token (int32 ``[S]``) from raw and filtered fp32
     logits ``[S, V]``, temperatures, seeds (int32 holding uint32 bits) and
     positions ``[S]``; written into `out` (a fresh tensor when None) and,
     when given, into `feedback` too. `debug`, a pair of ``[S, V]`` int32
     and float32 tensors, receives every index's random bits and noise (the
     card's check against the twin; the kernel then draws them for greedy
-    slots too). Returns `out`."""
+    slots too). `row_stride`: row s draws at counters ``s * row_stride +
+    i`` (module docstring). Returns `out`."""
+    row_stride = int(row_stride)
     if raw.device.type == "cpu":
         nxt = keyed_draw_reference(raw, filtered, temperature, seeds,
-                                   positions)
+                                   positions, row_stride)
         if debug is not None:
             k0, k1 = slot_keys(seeds, positions)
-            bits = random_bits(k0, k1, raw.shape[1])
+            bits = random_bits(k0, k1, raw.shape[1], row_stride)
             debug[0].copy_(bits.to(torch.int32))
             debug[1].copy_(-xla_log(-xla_log(uniform(bits))))
         if out is None:
@@ -235,6 +252,9 @@ def keyed_draw(raw, filtered, temperature, seeds, positions, out=None,
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if v >= 2 ** 31:
         raise ValueError(f"vocabulary of {v} exceeds the kernel's indices")
+    if row_stride < 0 or (s - 1) * row_stride + v > 2 ** 32 - 1:
+        raise ValueError(f"row_stride {row_stride} over {s} rows of {v} "
+                         f"takes counters past 32 bits")
     require_hopper(raw)
     if s == 0:
         return out
@@ -251,8 +271,8 @@ def keyed_draw(raw, filtered, temperature, seeds, positions, out=None,
                  ptr(positions), ptr(out), ptr(feedback),
                  ptr(None if debug is None else debug[0]),
                  ptr(None if debug is None else debug[1]), s, v,
-                 ctypes.c_void_p(stream))
+                 row_stride, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"keyed_draw launch failed: cudaError {err}")
-    launches["keyed_draw"] += 1
+    launches["keyed_draw_rows" if row_stride else "keyed_draw"] += 1
     return out

@@ -13,7 +13,8 @@ route of `paged_decode_append` runs it.
 
 Contract: k_new / v_new ``[S, H, D]`` this step's K and V of every slot,
 any strides; k_pool / v_pool ``[num_blocks, bs, H, D]`` one layer's pools,
-of k_new's dtype or int8 with fp32 scales ``[num_blocks, H]`` (`k_scales`
+of a float type (the new rows are cast to it, as the reference's
+``.astype(k_pool.dtype)``: round to nearest even) or int8 with fp32 scales ``[num_blocks, H]`` (`k_scales`
 / `v_scales`); block_tables ``[S, M]`` int32, seq_lens ``[S]`` int32,
 active ``[S]`` bool. Slot s writes at position ``seq_lens[s]``: block
 ``block_tables[s, seq_lens[s] // bs]``, offset ``seq_lens[s] % bs``. With
@@ -36,6 +37,10 @@ import torch
 from ..quantization.kv_cache import quantize_block_write
 
 __all__ = ["kv_append_reference"]
+
+# the float types a write may cast between (an engine's pools of the other
+# float type than its model's)
+_CASTS = {torch.float32, torch.bfloat16}
 
 
 def _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
@@ -79,12 +84,18 @@ def _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
             raise TypeError(f"k_new and v_new must share one float type, got "
                             f"{k_new.dtype}, {v_new.dtype}")
         scales = (("k_scales", k_scales), ("v_scales", v_scales))
-    elif not (k_pool.dtype == v_pool.dtype == k_new.dtype == v_new.dtype
-              and k_pool.dtype.is_floating_point):
+    elif k_pool.dtype == torch.float16 and k_new.dtype != torch.float16:
+        raise NotImplementedError(
+            "float16 KV pools under another model dtype (ROADMAP Queue 1 "
+            "item 3(g))")
+    elif not (k_pool.dtype == v_pool.dtype and k_new.dtype == v_new.dtype
+              and k_pool.dtype.is_floating_point
+              and (k_new.dtype == k_pool.dtype
+                   or {k_new.dtype, k_pool.dtype} <= _CASTS)):
         raise TypeError(f"fp pools take k_new and v_new of their own float "
-                        f"type (the append copies, it never converts), got "
-                        f"{k_new.dtype}, {v_new.dtype} into {k_pool.dtype}, "
-                        f"{v_pool.dtype}")
+                        f"type, or fp32 and bf16 each other's (cast on the "
+                        f"write), got {k_new.dtype}, {v_new.dtype} into "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
     for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pool", k_pool),
                     ("v_pool", v_pool), ("block_tables", block_tables),
                     ("seq_lens", seq_lens), ("active", active), *scales):
@@ -113,6 +124,6 @@ def kv_append_reference(k_new, v_new, k_pool, v_pool, block_tables,
         quantize_block_write(k_pool, k_scales, k_new, write_block, write_off)
         quantize_block_write(v_pool, v_scales, v_new, write_block, write_off)
     else:
-        k_pool.index_put_((write_block, write_off), k_new)
-        v_pool.index_put_((write_block, write_off), v_new)
+        k_pool.index_put_((write_block, write_off), k_new.to(k_pool.dtype))
+        v_pool.index_put_((write_block, write_off), v_new.to(v_pool.dtype))
 

@@ -100,8 +100,9 @@ def lora_delta_exact(y, x, a, b, scale, idx, layer):
     """The twin's arithmetic with fp64 sums: each of t, u = t @ B, the
     scaled delta and the sum rounded to y's dtype once from the exact
     value (through fp32, as the kernel rounds). A new tensor; y is read
-    only. Where the twin's own fp32 sums leave `lora_delta_tol` of this,
-    a check holds the kernel against this instead."""
+    only. A second yardstick beside the twin: the card's check prints how
+    far the kernel and the twin each lie from it; both must lie within
+    `lora_delta_tol` of each other."""
     _check(y, x, a, b, scale, idx, layer)
     sel = idx.long()
     t = torch.bmm(x.double()[:, None, :], a[sel, layer].double())
@@ -111,21 +112,85 @@ def lora_delta_exact(y, x, a, b, scale, idx, layer):
     return torch.where((sel != 0)[:, None], y + d, y)
 
 
+def _gamma(n, unit):
+    """gamma_n = n u / (1 - n u): the relative bound of a sum of n terms
+    in round-to-nearest arithmetic of unit roundoff u, whatever the order
+    of the additions (and with or without fused multiply-adds)."""
+    return n * unit / (1.0 - n * unit)
+
+
+# unit roundoffs: fp32, fp64, and what one rounding to T may add below the
+# normal range (bf16 and fp32 share fp32's exponent range)
+_U32 = 2.0 ** -24
+_U64 = 2.0 ** -53
+_ETA = 2.0 ** -149
+
+
 def lora_delta_tol(y, x, a, b, scale, idx, layer):
     """Per-element bound on |kernel - twin| for these inputs (y before the
-    delta): the two sum in other orders, so in bf16 each of t, the delta
-    and the sum may round the other way once (2^-8 of its magnitude:
-    |t| @ |B| x |scale| for t's, |y| + |delta| for the last two); in fp32
-    the same with 2^-20 (in + r fp32 terms summed in another order)."""
-    eps = 2.0 ** -8 if y.dtype == torch.bfloat16 else 2.0 ** -20
+    delta), derived from the roundings both make; 0 on base rows.
+
+    Model. One rounding to nearest of a value v is off by at most half a
+    unit in the last place of the result, at most u |v| + eta with u =
+    2^-8 for bf16 (8 significant bits), 2^-24 for fp32, and eta covering
+    results below the normal range. A sum of n terms in fp32 with
+    rounding to nearest (any order, fused multiply-adds or not; fp64 sums
+    are better still) is off its exact value by at most gamma_n sum|term|,
+    gamma_n = n 2^-24 / (1 - n 2^-24). Both computations take the same
+    steps in the model's dtype T, sums in fp32 or better:
+
+      t = R_T(sum_i x_i A_i)          (in terms)
+      w = R_T(sum_r t_r B_r)          (rank terms)
+      d = R_T(w sigma),  sigma = R_T(scale) (exact, the same for both)
+      y' = R_T(y + d)                  (y + d formed in fp32 first)
+
+    Against the exact values t* = x A, w* = t* B, d* = w* sigma, each
+    step's error of one computation is, element by element (fp64 sums of
+    the magnitudes, their own error folded in by gamma at 2^-53):
+
+      e1 = gamma_in |x| |A|           E_t = e1 + u (|t*| + e1)
+      e2 = E_t |B| + gamma_rank (|t*| + E_t) |B|
+                                       E_w = e2 + u (|w*| + e2)
+      E_d = E_w |sigma| + u (|d*| + E_w |sigma|)
+      E_y = E_d + (2^-24 + u (1 + 2^-24)) (|y + d*| + E_d)
+
+    (the last: an fp32 rounding of y + d, then one to T). The kernel and
+    the twin are each within E_y of y + d*, so they differ by at most 2
+    E_y: one bf16 step of t (up to 2^-7 of a value just above a power of
+    two) is inside 2 u |t*|, and an fp32 sum's error scales with sum|x| |A|,
+    not with |t|, as it must. For fp32 T the R_T of t and w are exact in
+    the twin and one fp32 rounding of an fp64 sum in the kernel's tile
+    form: u = 2^-24 covers both. The bound is tight enough to see a wrong
+    delta: a dropped rank column, or the scale off by 2^-5, leaves it
+    (tests/test_torch_lora_delta.py)."""
+    u = 2.0 ** -8 if y.dtype == torch.bfloat16 else _U32
     sel = idx.long()
-    t = torch.bmm(x.float()[:, None, :], a[sel, layer].float())
-    b_rows = b[sel, layer].float()
-    sc = scale[sel].float().abs()[:, None]
-    d = torch.bmm(t, b_rows)[:, 0] * sc
-    mag = torch.bmm(t.abs(), b_rows.abs())[:, 0] * sc
-    bound = eps * (2 * mag + y.float().abs() + d.abs()) + 1e-30
-    return torch.where((sel != 0)[:, None], bound, torch.zeros_like(bound))
+    d_in, rank = a.shape[2], a.shape[3]
+    g_in = _gamma(d_in, _U32) + _gamma(d_in, _U64)
+    g_r = _gamma(rank, _U32) + _gamma(rank, _U64)
+    bound = torch.zeros(y.shape, dtype=torch.float32, device=y.device)
+    # one slot at a time: its rows share A and B (no per-row copies)
+    for slot in sorted(set(sel.tolist()) - {0}):
+        rows = torch.nonzero(sel == slot)[:, 0]
+        xs = x[rows].double()
+        a_s, b_s = a[slot, layer].double(), b[slot, layer].double()
+        t = xs @ a_s                                          # [n, r]
+        p1 = (xs.abs() @ a_s.abs()) * (1 + _gamma(d_in, _U64))
+        e1 = g_in * p1
+        e_t = e1 + u * (t.abs() + e1) + _ETA
+        b_abs = b_s.abs()
+        w = t @ b_s                                           # [n, out]
+        mag_w = (t.abs() @ b_abs) * (1 + _gamma(rank, _U64))
+        prop = e_t @ b_abs
+        e2 = prop + g_r * (mag_w + prop)
+        e_w = e2 + u * (w.abs() + e2) + _ETA
+        sigma = abs(float(scale[slot].to(y.dtype)))
+        d = w * float(scale[slot].to(y.dtype))
+        e_d = e_w * sigma + u * (d.abs() + e_w * sigma) + _ETA
+        z = y[rows].double() + d
+        e_y = e_d + (_U32 + u * (1 + _U32)) * (z.abs() + e_d) + 2 * _ETA
+        bound[rows] = (2 * e_y).float()
+    return bound
 
 
 def lora_form(idx):

@@ -24,13 +24,23 @@ Nothing is read back from the device and nothing is allocated beside the
 output, so a decode step stays free of host syncs. Launches count once
 per call under ``paged_decode`` (fp pools) and ``paged_decode_int8``.
 
+Pools may be of the other float type than q (fp32 pools under a bf16
+model, bf16 under fp32: an engine's float ``kv_dtype`` other than the
+model's): both versions read them as fp32 for the scores and the softmax
+and return q's dtype; the decode write casts the new rows to the pools'
+type (round to nearest even), as the reference's ``.astype`` does. The
+kernel takes fp32 and bf16 pools; float16 pools raise NotImplementedError
+on the card (ROADMAP Queue 1 item 3(g)).
+
 `paged_decode_append` is the serving decode step's entry: the same kernel
 built with the decode write folded in (one launch a layer writes this
 step's K and V rows of every active slot, then attends). It takes q, k_new
 and v_new as the strided views of the fused QKV projection and the active
 flags beside the lengths; its plain twin is `kv_append_reference` then
 `paged_decode_reference` with ``where(active, seq_lens, 0)``. Launches
-count under ``paged_decode_append`` and ``paged_decode_append_int8``.
+count under ``paged_decode_append``, ``paged_decode_append_int8`` and, over
+pools of the other float type, ``paged_decode_append_to_bf16`` /
+``paged_decode_append_to_fp32`` (`append_name`).
 """
 from __future__ import annotations
 
@@ -45,7 +55,7 @@ from . import _build
 from .kv_append import _check as _check_write
 from .kv_append import kv_append_reference
 
-__all__ = ["paged_attention", "paged_decode_append",
+__all__ = ["paged_attention", "paged_decode_append", "append_name",
            "paged_decode_reference", "split_plan", "launches", "HEAD_DIMS",
            "DTYPES", "MAX_SPLITS", "MAX_SPAN_BLOCKS",
            "MAX_INT8_BLOCK_LEVELS"]
@@ -61,7 +71,9 @@ _CHUNK_TOKENS_MAX = 512
 
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"paged_decode": 0, "paged_decode_int8": 0,
-            "paged_decode_append": 0, "paged_decode_append_int8": 0}
+            "paged_decode_append": 0, "paged_decode_append_int8": 0,
+            "paged_decode_append_to_bf16": 0,
+            "paged_decode_append_to_fp32": 0}
 
 # the kernel's split: the CTAs of one (slot, head) share its live positions
 # in whole table entries, each at most about SPAN_TOKENS of a full table,
@@ -115,6 +127,41 @@ def _check(q, k_pool, v_pool, block_tables, lens, block_size, k_scales,
             raise ValueError(f"scales [num_blocks, H] = {want} expected, "
                              f"got {tuple(k_scales.shape)}, "
                              f"{tuple(v_scales.shape)}")
+
+
+def _pool_kind(q, k_pool, v_pool, quantized):
+    """The kernel's code for the pools' type beside q's: 0 q's dtype, 1
+    int8 (with scales), 2 the other float type of DTYPES. Raises
+    TypeError for what the kernel does not take, NotImplementedError for
+    float16 pools."""
+    if q.dtype not in DTYPES:
+        raise TypeError(f"paged kernel takes q in {DTYPES}, got {q.dtype}")
+    if quantized:
+        return 1
+    if k_pool.dtype != v_pool.dtype:
+        raise TypeError(f"K and V pools of one type, got {k_pool.dtype}, "
+                        f"{v_pool.dtype}")
+    if k_pool.dtype == torch.float16:
+        raise NotImplementedError(
+            "float16 KV pools: the paged kernel takes fp32, bf16 and int8 "
+            "pools (ROADMAP Queue 1 item 3(g))")
+    if k_pool.dtype not in DTYPES:
+        raise TypeError(f"paged kernel takes pools in {DTYPES} or int8, got "
+                        f"{k_pool.dtype}")
+    return 0 if k_pool.dtype == q.dtype else 2
+
+
+def append_name(q_dtype, pool_dtype):
+    """The launch counter of `paged_decode_append` for q over pools of
+    `pool_dtype`: ``paged_decode_append`` (q's dtype),
+    ``paged_decode_append_int8``, or ``paged_decode_append_to_bf16`` /
+    ``_to_fp32`` (pools of the other float type)."""
+    if pool_dtype == torch.int8:
+        return "paged_decode_append_int8"
+    if pool_dtype == q_dtype:
+        return "paged_decode_append"
+    return ("paged_decode_append_to_bf16" if pool_dtype == torch.bfloat16
+            else "paged_decode_append_to_fp32")
 
 
 def split_plan(max_blocks, block_size):
@@ -200,11 +247,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
     s, h, d = q.shape
     m = block_tables.shape[1]
     quantized = k_scales is not None
-    if q.dtype not in DTYPES or (not quantized and (
-            k_pool.dtype != q.dtype or v_pool.dtype != q.dtype)):
-        raise TypeError(f"paged kernel takes q in {DTYPES} with pools of "
-                        f"q's dtype or int8, got {q.dtype}, {k_pool.dtype}, "
-                        f"{v_pool.dtype}")
+    kind = _pool_kind(q, k_pool, v_pool, quantized)
     if block_tables.dtype != torch.int32 or lens.dtype != torch.int32:
         raise TypeError("block_tables and lens must be int32")
     if quantized and (k_scales.dtype != torch.float32
@@ -244,7 +287,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
                  ctypes.c_void_p(out.data_ptr()),
                  s, h, d, m, int(block_size), span, n_split,
                  1.0 / math.sqrt(d),
-                 0 if q.dtype == torch.float32 else 1, int(quantized),
+                 0 if q.dtype == torch.float32 else 1, kind,
                  ctypes.c_void_p(stream))
     name = "paged_decode_int8" if quantized else "paged_decode"
     if err != 0:
@@ -269,13 +312,12 @@ def _check_append(q, k_new, v_new, k_pool, v_pool, block_tables, seq_lens,
 
 def _check_append_launch(q, k_new, v_new, k_pool, v_pool, block_size,
                          quantized):
-    """What the fused kernel takes beyond the contract: its types and head
-    dims, q on the pools' device by rows of unit stride at 16-byte aligned
+    """What the fused kernel takes beyond the contract: its types (returns
+    `_pool_kind`'s code) and head dims, q on the pools' device by rows of unit stride at 16-byte aligned
     addresses (its 16-byte loads), 16-byte aligned pools, and with int8
     pools at most MAX_INT8_BLOCK_LEVELS levels a block slice."""
     d = q.shape[2]
-    if q.dtype not in DTYPES:
-        raise TypeError(f"paged kernel takes q in {DTYPES}, got {q.dtype}")
+    kind = _pool_kind(q, k_pool, v_pool, quantized)
     if d not in HEAD_DIMS:
         raise ValueError(f"paged kernel takes head_dim in {HEAD_DIMS}, got {d}")
     if q.device != k_pool.device:
@@ -295,6 +337,7 @@ def _check_append_launch(q, k_new, v_new, k_pool, v_pool, block_size,
     if quantized and block_size * d > MAX_INT8_BLOCK_LEVELS:
         raise ValueError(f"the fused int8 write takes block_size x head_dim "
                          f"<= {MAX_INT8_BLOCK_LEVELS}, got {block_size} x {d}")
+    return kind
 
 
 def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
@@ -321,8 +364,8 @@ def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                                       torch.where(active, seq_lens, 0),
                                       block_size, k_scales, v_scales)
     quantized = k_scales is not None
-    _check_append_launch(q, k_new, v_new, k_pool, v_pool, int(block_size),
-                         quantized)
+    kind = _check_append_launch(q, k_new, v_new, k_pool, v_pool,
+                                int(block_size), quantized)
     require_hopper(q)
     s, h, d = q.shape
     m = block_tables.shape[1]
@@ -350,9 +393,9 @@ def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                  ctypes.cast(strides, ctypes.c_void_p),
                  s, h, d, m, int(block_size), k_pool.shape[0], span, n_split,
                  1.0 / math.sqrt(d),
-                 0 if q.dtype == torch.float32 else 1, int(quantized),
+                 0 if q.dtype == torch.float32 else 1, kind,
                  ctypes.c_void_p(stream))
-    name = "paged_decode_append_int8" if quantized else "paged_decode_append"
+    name = append_name(q.dtype, k_pool.dtype)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1

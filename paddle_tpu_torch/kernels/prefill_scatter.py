@@ -6,12 +6,18 @@ Counterpart of the reference's prefill write, which is no Pallas kernel:
 pools, `paddle_tpu/quantization/kv_cache.py` `quantize_scatter`, both
 inside the jitted prefill program, where XLA fuses them. On the card
 ``csrc/prefill_scatter.cu`` writes every layer's K and V in one launch
-(counted under ``prefill_scatter``, or ``prefill_scatter_int8`` with int8
-pools); `prefill_scatter_reference` is its twin, the route CPU tensors
+(counted under ``prefill_scatter``, ``prefill_scatter_int8`` with int8
+pools, or ``prefill_scatter_to_bf16`` / ``_to_fp32`` into pools of the
+other float type: `scatter_name`); `prefill_scatter_reference` is its twin, the route CPU tensors
 take.
 
-Contract: k_pools / v_pools ``[L, num_blocks, bs, H, D]``, of the rows'
-float type or int8 with fp32 scales ``[L, num_blocks, H]`` (`k_scales` /
+Contract: k_pools / v_pools ``[L, num_blocks, bs, H, D]``, of a float
+type (the rows' or, for an engine whose ``kv_dtype`` is the other float
+type than its model's, fp32 for bf16 rows and bf16 for fp32 rows: the rows
+are cast on the write, round to nearest even, as the reference's
+``.astype(k_pools.dtype)``; the kernel takes those two, float16 pools
+raise NotImplementedError on the card, ROADMAP Queue 1 item 3(g)) or int8
+with fp32 scales ``[L, num_blocks, H]`` (`k_scales` /
 `v_scales`); k_layers / v_layers: L per-layer ``[T, H, D]`` K and V of a
 prompt right-padded to its bucket T (on the engine's path, strided views
 of each layer's fused qkv output, read in place); block_row ``[M]``
@@ -42,6 +48,7 @@ from ..quantization.kv_cache import quantize_scatter
 from . import _build
 
 __all__ = ["prefill_scatter", "prefill_scatter_reference", "scatter_bytes",
+           "scatter_name",
            "run", "launches", "DTYPES", "MAX_LAYERS", "MAX_HEADS"]
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -50,7 +57,8 @@ MAX_LAYERS = 128
 MAX_HEADS = 256
 
 # kernel launches since import (or the last reset by the caller), by kernel
-launches = {"prefill_scatter": 0, "prefill_scatter_int8": 0}
+launches = {"prefill_scatter": 0, "prefill_scatter_int8": 0,
+            "prefill_scatter_to_bf16": 0, "prefill_scatter_to_fp32": 0}
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -79,15 +87,29 @@ def prefill_scatter_reference(k_pools, v_pools, k_layers, v_layers,
         v_pools[layer].index_put_((blocks, offs), v.to(v_pools.dtype))
 
 
-def scatter_bytes(length, layers, heads, head_dim, elem, int8, blocks):
+def scatter_bytes(length, layers, heads, head_dim, elem, int8, blocks,
+                  pool_elem=None):
     """Bytes one scatter must move: each real token's K and V row of every
-    layer read once (`elem` bytes a value) and written once (a byte a value
-    with int8 pools, plus an fp32 scale a layer, pool, head and block of
-    the row, `blocks` being the row's non-null entries), and the row."""
+    layer read once (`elem` bytes a value) and written once (`pool_elem`
+    bytes a value, `elem` when None; a byte a value with int8 pools, plus
+    an fp32 scale a layer, pool, head and block of the row, `blocks` being
+    the row's non-null entries), and the row."""
     values = 2 * layers * length * heads * head_dim
-    written = values * (1 if int8 else elem)
+    written = values * (1 if int8 else (pool_elem or elem))
     scales = 2 * layers * blocks * heads * 4 if int8 else 0
     return values * elem + written + scales + blocks * 4 + 4
+
+
+def scatter_name(row_dtype, pool_dtype):
+    """The launch counter for rows of `row_dtype` into pools of
+    `pool_dtype`: ``prefill_scatter``, ``prefill_scatter_int8``, or
+    ``prefill_scatter_to_bf16`` / ``_to_fp32`` (the other float type)."""
+    if pool_dtype == torch.int8:
+        return "prefill_scatter_int8"
+    if pool_dtype == row_dtype:
+        return "prefill_scatter"
+    return ("prefill_scatter_to_bf16" if pool_dtype == torch.bfloat16
+            else "prefill_scatter_to_fp32")
 
 
 def _check(k_pools, v_pools, k_layers, v_layers, block_row, block_size,
@@ -127,8 +149,9 @@ def _check_launch(k_pools, v_pools, k_layers, v_layers, block_row, length,
                   k_scales, v_scales):
     """What the kernel takes beyond the contract: rows in DTYPES of one
     row stride with contiguous 16-byte aligned [H, D] rows and head_dim a
-    whole number of 16-byte vectors, pools of the rows' type (or int8 with
-    fp32 scales), contiguous; an int32 block row and length on the
+    whole number of 16-byte vectors, fp pools in DTYPES (of the other
+    type: heads x head_dim a multiple of 8) or int8 with fp32 scales,
+    contiguous; an int32 block row and length on the
     pools' device; at most MAX_LAYERS layers and MAX_HEADS heads."""
     quantized = k_scales is not None
     dtype, dev = k_layers[0].dtype, k_pools.device
@@ -136,9 +159,20 @@ def _check_launch(k_pools, v_pools, k_layers, v_layers, block_row, length,
     if dtype not in DTYPES:
         raise TypeError(f"prefill_scatter kernel takes rows in {DTYPES}, got "
                         f"{dtype}")
-    if not quantized and k_pools.dtype != dtype:
-        raise TypeError(f"prefill_scatter kernel takes pools of the rows' "
-                        f"type ({dtype}) or int8, got {k_pools.dtype}")
+    if k_pools.dtype != v_pools.dtype:
+        raise TypeError(f"K and V pools of one type, got {k_pools.dtype}, "
+                        f"{v_pools.dtype}")
+    if not quantized and k_pools.dtype == torch.float16:
+        raise NotImplementedError(
+            "float16 KV pools: the prefill scatter kernel takes fp32, bf16 "
+            "and int8 pools (ROADMAP Queue 1 item 3(g))")
+    if not quantized and k_pools.dtype not in DTYPES:
+        raise TypeError(f"prefill_scatter kernel takes pools in {DTYPES} or "
+                        f"int8, got {k_pools.dtype}")
+    if not quantized and k_pools.dtype != dtype and (h * d) % 8:
+        raise ValueError(f"prefill_scatter kernel casts rows to the other "
+                         f"float type 8 values at a time: heads x head_dim "
+                         f"a multiple of 8, got {h} x {d}")
     if quantized and (k_scales.dtype != torch.float32
                       or v_scales.dtype != torch.float32):
         raise TypeError(f"scales must be float32, got {k_scales.dtype}, "
@@ -220,8 +254,7 @@ def prefill_scatter(k_pools, v_pools, k_layers, v_layers, block_row, length,
     require_hopper(k_pools)
     err = run(_lib_fn(), k_pools, v_pools, k_layers, v_layers, block_row,
               length, block_size, k_scales, v_scales)
-    name = "prefill_scatter_int8" if k_scales is not None \
-        else "prefill_scatter"
+    name = scatter_name(k_layers[0].dtype, k_pools.dtype)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
@@ -248,6 +281,14 @@ def run(fn, k_pools, v_pools, k_layers, v_layers, block_row, length,
                   ctypes.c_void_p(block_row.data_ptr()),
                   ctypes.c_void_p(length.data_ptr()), block_row.shape[0],
                   k_layers[0].shape[0], h, d, block_size, num_blocks,
-                  k_layers[0].stride(0),
-                  0 if k_layers[0].dtype == torch.float32 else 1,
+                  k_layers[0].stride(0), _dtype_code(k_pools, k_layers),
                   ctypes.c_void_p(stream))
+
+
+def _dtype_code(k_pools, k_layers):
+    """The C interface's dtype: the rows' type (0 fp32, 1 bf16), plus 2
+    where fp pools are of the other float type."""
+    rows = k_layers[0].dtype
+    code = 0 if rows == torch.float32 else 1
+    cast = k_pools.dtype != torch.int8 and k_pools.dtype != rows
+    return code + 2 * cast

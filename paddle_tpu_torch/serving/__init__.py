@@ -2,7 +2,8 @@
 
 Counterpart of `paddle_tpu/serving` for the parts ported: `LLMEngine`
 (serving/engine.py), `Scheduler` and `Request` (serving/scheduler.py),
-`PagedKVCache` and its helpers (serving/cache.py), `ServeRefusal`
+`PagedKVCache` and its helpers (serving/cache.py), `ServeRefusal`, the
+watchdog (`StepHang`, `MonitoredWait`) and the crash-resume payloads
 (serving/resilience.py), the sampler (serving/sampling.py) and the
 multi-tenant primitives `PrefixCache` and `AdapterSet`
 (serving/tenancy.py).
@@ -22,7 +23,9 @@ from .cache import (BlockAllocator, PagedKVCache, PagedCacheView,  # noqa: F401
                     num_blocks_for_bytes)
 from .scheduler import (Request, Scheduler, QUEUED, RUNNING,  # noqa: F401
                         FINISHED, FAILED, CANCELLED, EXPIRED)
-from .resilience import ServeRefusal  # noqa: F401
+from .resilience import (ServeRefusal, StepHang, MonitoredWait,  # noqa: F401
+                         watchdog_budget_s, request_payload,
+                         payload_request)
 from .tenancy import PrefixCache, AdapterSet  # noqa: F401
 from .engine import LLMEngine, ServeStats  # noqa: F401
 
@@ -30,5 +33,6 @@ __all__ = ["LLMEngine", "ServeStats", "Request", "Scheduler",
            "PagedKVCache", "PagedCacheView", "BlockAllocator",
            "scatter_prefill", "NULL_BLOCK", "QUEUED", "RUNNING",
            "FINISHED", "FAILED", "CANCELLED", "EXPIRED",
-           "ServeRefusal", "pool_bytes_per_block", "num_blocks_for_bytes",
-           "PrefixCache", "AdapterSet"]
+           "ServeRefusal", "StepHang", "MonitoredWait", "watchdog_budget_s",
+           "request_payload", "payload_request", "pool_bytes_per_block",
+           "num_blocks_for_bytes", "PrefixCache", "AdapterSet"]

@@ -58,8 +58,9 @@ full head bit for bit. On the card the program is three CUDA graphs (the
 forward, the full head, the greedy head), captured in one build after
 one eager warm-up step; a step replays the forward's and one head's. On the CPU
 the same code runs over the same buffers without capture. Each launch's
-outputs go to a pinned host buffer of its own, with an event. A capture or replay
-that fails raises: there is no eager fallback.
+outputs go to a pinned host buffer of its own, with an event. A capture
+that fails raises; a decode step whose replay or completion reports an
+error takes the fault path of the watchdog's paragraph below.
 
 With ``pipeline_decode=True`` step N+1 is launched on the fed-back tokens
 before step N's tokens are committed (streamed, retired), so the host's
@@ -102,11 +103,63 @@ Multi-tenant serving (serving/tenancy.py), as the reference's:
     values into the parameters' own storage, so the captured graphs serve
     the new weights without a recapture.
 
-Left out of the port, and refused with NotImplementedError when a
-constructor argument asks for them: a float ``kv_dtype`` other than the
-model's and a kernel variant switch. The hung-step watchdog with its eager
-fallback, AOT warm start, crash-resume and the telemetry plane are not
-ported either.
+Pools of another float type (``kv_dtype`` fp32 under a bf16 model, bf16
+under an fp32 one) hold the reference's ``.astype``: every write casts the
+model's K/V to the pools' type (round to nearest even) and the paged
+kernel reads them into fp32 scores. The admission budget counts the pools'
+own bytes (`pool_bytes_per_block`). float16 pools and the kernel variant
+switch (``attention_kernel=``) are refused with NotImplementedError
+(ROADMAP Queue 1 item 3).
+
+The hung-step watchdog (``FLAGS_serve_step_timeout_ms``, 0 = disarmed)
+bounds every decode and prefill: the host waits on the step's output
+event through `MonitoredWait` (`event.query()` polls, never a blocking
+synchronize) and a wait past the budget raises `StepHang` into the
+reference's recovery ladder. A launched CUDA graph cannot be withdrawn,
+and a second replay of the same step is not the same step (the fused
+write requantizes an int8 block again; a pipelined launch reads the
+feedback its first replay wrote), so no rung relaunches:
+
+  * decode, rung 1 (`hangs` 1): wait again for the same launch;
+  * rung 2: ask for a rebuild of the decode program, then wait again for
+    the same launch. A capture waits for the whole device, so the rebuild
+    runs only once the last launch has completed (at once if it has, else
+    at the first later launch that finds it so; `decode_compiles` counts
+    it then, and launches until then replay the old graphs): the old
+    graphs are never freed in flight, and a step that never completes
+    cannot block the ladder;
+  * rung 3: fail every running request with ``step_hang``, ask for the
+    rebuild, and keep serving queued and new work;
+  * pipelined commit: wait again once, then fail every running request
+    (both outstanding launches sit behind a wedged device), discarding
+    both launches' records, and ask for the rebuild;
+  * prefill: wait again once, then fail that request with ``step_hang``.
+
+The launch a ladder gives up on stays queued on the device; whatever it
+writes lands before any later work on the stream, into blocks and rows
+whose owners have left. A device that never comes back fails each later
+step within three budgets; recovery from it is crash-resume's (below).
+A decode whose outputs are poisoned (an injected ``nan_output``) is
+discarded, not rebuilt: every running stream finishes through
+`GPTForCausalLM.generate` from its prompt and emitted tokens, through the
+normal `on_token` path (`stats()["eager_fallbacks"]`), an adapter
+tenant's under `AdapterSet.merged`. An error that a step's event or
+output copy reports fails every running request with ``decode_fault``
+and is raised, for the supervisor to restart from the last snapshot; no
+stream finishes on another path. A device synchronize tells a sticky
+error (the context is lost) from one the process survives; after the
+latter the pools are zeroed and the program rebuilt, so the engine can
+serve on. An error from building or launching the program (a kernel
+build, a capture, a wrapper's launch) is not a device fault: it is raised
+as it is, and fails no request. The engine is `degraded` from a hang or
+fault until its next clean decode step.
+
+Crash-resume: `state_payload()` is the reference's JSON-able snapshot of
+every live request (no device state); `restore_state(payload)` in a fresh
+process re-admits them in arrival order, each re-prefilling prompt +
+emitted tokens and continuing byte-identically
+(`incubate.checkpoint.ServeCheckpointer` saves one every step). AOT warm
+start and the telemetry plane are not ported.
 """
 from __future__ import annotations
 
@@ -121,9 +174,12 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import add_launches, captured_launches
-from .cache import PagedCacheView, PagedKVCache, is_int8, scatter_prefill
-from .resilience import ServeRefusal
+from ..kernels import add_launches, capture_graph, warm_up
+from .cache import (BlockAllocator, PagedCacheView, PagedKVCache, is_int8,
+                    scatter_prefill)
+from ..ops import guardian
+from .resilience import (MonitoredWait, ServeRefusal, StepHang,
+                         payload_request, request_payload)
 from .sampling import default_seed, sample_tokens, validate_sampler
 from .scheduler import (Request, Scheduler, RUNNING, FINISHED, FAILED,
                         CANCELLED, EXPIRED)
@@ -227,6 +283,23 @@ def _pct(samples, p):
     return float(np.percentile(np.asarray(samples), p)) if samples else 0.0
 
 
+def _pool_dtype(kv_dtype, model_dtype):
+    """The pools' dtype for the engine's `kv_dtype` (None: the model's;
+    ``"int8"`` / ``torch.int8``; float32 or bfloat16 as a torch dtype or
+    its name). float16 and other types raise NotImplementedError."""
+    if kv_dtype is None:
+        return model_dtype
+    if is_int8(kv_dtype):
+        return torch.int8
+    dtype = getattr(torch, kv_dtype) if isinstance(kv_dtype, str) \
+        else kv_dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(
+            f"kv_dtype {kv_dtype!r}: the port's pools are float32, bfloat16 "
+            "or int8; float16 pools are ROADMAP.md Queue 1 item 3(g)")
+    return dtype
+
+
 class ServeStats:
     """Engine counters + latency samples. Percentiles read the last
     `_SAMPLES` observations of each kind (bounded memory however long the
@@ -246,7 +319,10 @@ class ServeStats:
     admitted context token that could have hit the prefix index) is the
     hit rate; `prefix_evictions` counts index entries reclaimed under pool
     pressure, `cow_copies` private block copies, `adapter_switches` changes
-    of a slot's adapter index, `weight_swaps` committed hot-swaps."""
+    of a slot's adapter index, `weight_swaps` committed hot-swaps. The
+    resilience counters are the reference's: `hangs` watchdog firings,
+    `eager_fallbacks` streams finished through `generate` after a decode
+    fault, `resumed` requests re-admitted by `restore_state`."""
 
     def __init__(self):
         self.reset()
@@ -269,6 +345,9 @@ class ServeStats:
         self.refused_deadline = 0
         self.cancelled = 0
         self.expired = 0
+        self.hangs = 0
+        self.eager_fallbacks = 0
+        self.resumed = 0
         self.occupancy_sum = 0.0
         self.saturated_steps = 0
         self.saturated_occupancy_sum = 0.0
@@ -325,6 +404,9 @@ class ServeStats:
             "refused_deadline": self.refused_deadline,
             "cancelled": self.cancelled,
             "expired": self.expired,
+            "hangs": self.hangs,
+            "eager_fallbacks": self.eager_fallbacks,
+            "resumed": self.resumed,
             "sampled_tokens": self.sampled_tokens,
             "commit_rollbacks": self.commit_rollbacks,
             "prefix_hit_tokens": self.prefix_hit_tokens,
@@ -371,9 +453,11 @@ class LLMEngine:
     ``device=None`` means ``cuda`` and raises where there is no card; the
     model's parameters must already live on that device. Greedy decoding
     (temperature 0, the default) is exact; the pools take the model's
-    parameter dtype, or int8 with ``kv_dtype="int8"`` (or ``torch.int8``):
-    one byte per cached element, dequantized inside the paged kernel, so
-    the same pool bytes admit about twice the streams of bf16.
+    parameter dtype, the other float type with ``kv_dtype=torch.float32``
+    or ``torch.bfloat16``, or int8 with ``kv_dtype="int8"`` (or
+    ``torch.int8``): one byte per cached element, dequantized inside the
+    paged kernel, so the same pool bytes admit about twice the streams of
+    bf16.
     ``enable_prefix_cache=True`` shares prompt KV blocks across streams
     with copy-on-write, ``max_adapters=K`` serves per-tenant low-rank
     adapters (``add_request(..., adapter=name)``) and ``hot_swap=True``
@@ -395,12 +479,7 @@ class LLMEngine:
                 "JAX package for now)")
         device = resolve_device(device)
         param = next(model.parameters())
-        if kv_dtype is not None and not is_int8(kv_dtype) \
-                and kv_dtype != param.dtype:
-            raise NotImplementedError(
-                f"kv_dtype {kv_dtype!r}: the port keeps the pools in the "
-                f"model's dtype ({param.dtype}) or int8; other float pools "
-                "are ROADMAP.md Queue 1 item 3")
+        kv = _pool_dtype(kv_dtype, param.dtype)
         if param.device.type != device.type or (
                 device.index is not None
                 and param.device.index != device.index):
@@ -424,11 +503,10 @@ class LLMEngine:
             # default: every slot can reach max_context (+ null block)
             num_blocks = 1 + self.max_batch_size * self.max_blocks_per_seq
         head_dim = cfg.hidden_size // cfg.num_attention_heads
+        self._num_blocks = int(num_blocks)
         self.cache = PagedKVCache(cfg.num_hidden_layers,
                                   cfg.num_attention_heads, head_dim,
-                                  num_blocks, self.block_size,
-                                  dtype=(torch.int8 if is_int8(kv_dtype)
-                                         else param.dtype),
+                                  num_blocks, self.block_size, dtype=kv,
                                   device=self.device)
         self.scheduler = Scheduler(self.max_batch_size,
                                    self.cache.allocator, self.block_size,
@@ -445,6 +523,8 @@ class LLMEngine:
             self._adapters = AdapterSet(model, max_adapters, adapter_rank)
             self._adapters.install()
         self._hot_swap = bool(hot_swap)
+        # the tenant half of state_payload (the reference's `_tenant`)
+        self._tenant = self._hot_swap or self._adapters is not None
         self._weight_epoch = 0
         self._pending_weights = None
         self._weights_crc = self._params_crc() if self._hot_swap else None
@@ -540,6 +620,10 @@ class LLMEngine:
         # runs the program once: a graph replay on the card, the decode
         # code on the CPU; returns the step's logits [S, 1, V]
         self._decode_program = None
+        # a rebuild the watchdog asked for and the last launch's output
+        # event, which it waits for (`_rebuild_decode`)
+        self._decode_stale = False
+        self._last_event = None
         self._k_pools = self.cache.k_pools
         self._v_pools = self.cache.v_pools
         self._k_scales = self.cache.k_scales       # None unless int8 KV
@@ -551,6 +635,12 @@ class LLMEngine:
         # True while step() edits the slot arrays: a cancel() from inside
         # a streaming callback then defers to the next boundary
         self._stepping = False
+        # the hung-step watchdog (module docstring): its monitored wait,
+        # the degraded latch (set by a hang or fault, cleared by the next
+        # clean decode step) and its last transition
+        self._monitor = MonitoredWait()
+        self.degraded = False
+        self.degrade_reason = None
 
     # ------------------------------------------------------------------
     # public API
@@ -796,9 +886,16 @@ class LLMEngine:
         demand = sched.demand
         n_active = len(sched.running)
         t0 = time.perf_counter()
-        toks, logps, aids, alps = self._decode_step()
+        out = self._decode_step()
+        if out is None:
+            # the ladder's last rung or the eager fallback retired the
+            # batch; queued and new work is served as before
+            self._stats.wall_t1 = time.perf_counter()
+            return bool(sched.running or sched.waiting)
+        toks, logps, aids, alps = out
         dt = time.perf_counter() - t0
         self._stats.observe_step(n_active, self.max_batch_size, demand, dt)
+        self._recovered()
         # -- stream + retire -------------------------------------------
         for req in list(sched.running):
             if req.finished or req.slot is None:
@@ -836,14 +933,25 @@ class LLMEngine:
         t0 = time.perf_counter()
         launched = self._launch_decode()
         try:
-            self._commit_inflight()
-        finally:
-            # also when a streaming callback raised mid-commit: the new
-            # launch stays in flight and the next step commits it
+            ok = self._commit_inflight()
+        except BaseException:
+            # a streaming callback raised mid-commit: the new launch stays
+            # in flight and the next step commits it
             self._inflight = launched
+            raise
+        if not ok:
+            # the ladder or the fallback retired the batch: the launch
+            # just issued read state that no longer holds
+            if launched is not None:
+                self._discard_records(launched)
+            self._reset_pipeline()
+            self._stats.wall_t1 = time.perf_counter()
+            return bool(sched.running or sched.waiting)
+        self._inflight = launched
         if launched is not None:
             self._stats.observe_step(n_active, self.max_batch_size, demand,
                                      time.perf_counter() - t0)
+            self._recovered()
         self._stats.wall_t1 = time.perf_counter()
         return bool(sched.running or sched.waiting
                     or self._inflight is not None)
@@ -891,18 +999,55 @@ class LLMEngine:
         return {"out": out, "records": records}
 
     def _commit_inflight(self):
-        """Commit the PREVIOUS launch: wait for its outputs, then stream
-        its tokens through the normal emission path. A record whose
-        request was cancelled, expired, preempted or finished since the
-        launch is discarded (`_rollback`): each departed stream loses
+        """Commit the PREVIOUS launch: the monitored wait for its outputs,
+        then stream its tokens through the normal emission path. A record
+        whose request was cancelled, expired, preempted or finished since
+        the launch is discarded (`_rollback`): each departed stream loses
         exactly its one speculative token. A streaming callback that raises
         does not stop the commit: the launch after this one already took
         every record's token from the feedback buffer, so each is emitted,
-        and the first exception is raised once all are."""
+        and the first exception is raised once all are. Returns False when
+        the ladder (a second hang: every running request fails) or a
+        poisoned launch (the eager fallback) retired the batch; a device
+        fault is raised (`_device_fault`)."""
         inf, self._inflight = self._inflight, None
         if inf is None:
-            return
-        toks, logps, aids, alps = self._read_outputs(inf["out"])
+            return True
+        out = inf["out"]
+        attempt = 1
+        while True:
+            try:
+                outputs = self._completed(out, attempt)
+                break
+            except StepHang:
+                self._stats.hangs += 1
+                if attempt >= 2:
+                    # a wedged device holds both outstanding launches
+                    self._degrade("step_hang", {"rung": "fail_active",
+                                                "phase": "commit"})
+                    self._discard_records(inf)
+                    for req in list(self.scheduler.running):
+                        self._fail(req, "step_hang")
+                    self._reset_pipeline()
+                    self._rebuild_decode()
+                    return False
+                self._degrade("step_hang", {"rung": "retry",
+                                            "phase": "commit"})
+                attempt += 1
+            except RuntimeError:
+                # a device fault (`_device_fault` failed every running
+                # request): this launch's tokens are never committed
+                self._discard_records(inf)
+                self._reset_pipeline()
+                raise
+        if guardian.poll_fault("serve.decode",
+                               ("nan_output", "raise")) is not None:
+            self._degrade("decode_fault", {"injected": True})
+            self._discard_records(inf)
+            self._reset_pipeline()
+            self._recover_with_fallback()
+            return False
+        toks, logps, aids, alps = outputs
         raised = None
         for req, slot, aseq in inf["records"]:
             if (req.state != RUNNING or req.slot != slot
@@ -920,6 +1065,7 @@ class LLMEngine:
                     raised = exc
         if raised is not None:
             raise raised
+        return True
 
     def _has_pending(self, req, slot):
         inf = self._inflight
@@ -930,6 +1076,11 @@ class LLMEngine:
     def _rollback(self):
         """One speculative token discarded at the lag-1 boundary."""
         self._stats.commit_rollbacks += 1
+
+    def _discard_records(self, inf):
+        """Roll back every record of an in-flight launch."""
+        for _ in inf["records"]:
+            self._rollback()
 
     def _flush_inflight(self):
         """Commit (or roll back) the pending pipelined launch now. At a
@@ -1020,7 +1171,11 @@ class LLMEngine:
         row = np.zeros(self.max_blocks_per_seq, np.int32)
         row[:len(req.blocks)] = req.blocks
         t0 = time.perf_counter()
-        nxt, logp, aids, alps = self._prefill(ctx, bucket, row, req)
+        res = self._prefill(ctx, bucket, row, req)
+        if res is None:
+            self._fail(req, "step_hang")      # the watchdog gave up on it
+            return
+        nxt, logp, aids, alps = res
         self._stats.observe_prefill(bucket, time.perf_counter() - t0)
         req.cached_len = len(ctx)
         self._sync_slot(req)
@@ -1101,7 +1256,8 @@ class LLMEngine:
         bucket's first prompt): stage the inputs into the pinned host
         buffer, copy them in, run the program (the bucket's replay, then
         the full head's for a sampled request, else the greedy head's),
-        copy the outputs out and wait for them. Returns ``(next_token [1],
+        copy the outputs out and wait for them (monitored: a second hang
+        gives up, returning None). Returns ``(next_token [1],
         chosen_logprob [1], alt_ids [1, K], alt_logprobs [1, K])``."""
         program = self._prefill_fns.get(bucket)
         if program is None:
@@ -1111,7 +1267,24 @@ class LLMEngine:
                             self._adapter_index(req))
         program(req.temperature > 0)
         self._pf_out_host.copy_(self._pf_out_dev, non_blocking=True)
-        return _copies(self._pf_outputs, self._event())
+        event = self._event()
+        attempt = 1
+        while True:
+            try:
+                self._monitor.wait(event, "prefill", attempt)
+                break
+            except StepHang:
+                # one tenant: wait again once, then fail the request
+                self._stats.hangs += 1
+                if attempt >= 2:
+                    self._degrade("step_hang", {"rung": "fail_request",
+                                                "phase": "prefill",
+                                                "rid": req.rid})
+                    return None
+                self._degrade("step_hang", {"rung": "retry",
+                                            "phase": "prefill"})
+                attempt += 1
+        return _copies(self._pf_outputs, event)
 
     @torch.no_grad()
     def _prefill_eager(self, ctx, bucket, row, req):
@@ -1229,13 +1402,8 @@ class LLMEngine:
                 fn()
             run, built = forward, head_fns
         else:
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                for fn in (forward, *head_fns.values()):
-                    fn()
-            main.wait_stream(side)
+            warm_up(lambda: [fn() for fn in (forward, *head_fns.values())],
+                    self.device)
             if self._pf_pool is None:
                 self._pf_pool = torch.cuda.graph_pool_handle()
             run = self._captured(forward)
@@ -1259,13 +1427,7 @@ class LLMEngine:
         go to buffers made outside it, and the next replay reads them
         from there), so the graphs may replay in any order, one at a
         time."""
-        graph = torch.cuda.CUDAGraph()
-
-        def capture():
-            with torch.cuda.graph(graph, pool=self._pf_pool):
-                fn()
-
-        _, launched = captured_launches(capture)
+        graph, _, launched = capture_graph(fn, self._pf_pool)
 
         def replay():
             graph.replay()
@@ -1275,9 +1437,43 @@ class LLMEngine:
 
     def _decode_step(self):
         """One token for every slot through the decode program (inactive
-        slots compute garbage nobody reads); waits for the step's outputs
-        and returns them as numpy arrays."""
-        return self._read_outputs(self._launch(self._active))
+        slots compute garbage nobody reads), through the monitored wait
+        and its ladder (module docstring); returns the step's outputs as
+        numpy arrays, or None when the ladder's last rung or a poisoned
+        launch's eager fallback retired the batch. A device fault is
+        raised (`_device_fault`)."""
+        out = self._launch(self._active)
+        attempt = 1
+        while True:
+            try:
+                outputs = self._completed(out, attempt)
+                break
+            except StepHang:
+                if not self._on_hang(attempt):
+                    return None
+                attempt += 1
+        if guardian.poll_fault("serve.decode",
+                               ("nan_output", "raise")) is not None:
+            # poisoned outputs: commit nothing from this launch; the
+            # program itself is sound, so no rebuild
+            self._degrade("decode_fault", {"injected": True})
+            self._recover_with_fallback()
+            return None
+        return outputs
+
+    def _completed(self, out, attempt):
+        """The monitored wait for a launch's outputs (`_launch`), then
+        copies of them (`_read_outputs`). `StepHang` goes to the caller's
+        ladder; any other error here is one the step's event or output copy
+        reported, and goes to `_device_fault`, which raises it."""
+        try:
+            self._monitor.wait(out[1], "decode", attempt)
+            return self._read_outputs(out)
+        except StepHang:
+            raise
+        except RuntimeError as exc:
+            self._device_fault(exc)
+            raise
 
     @torch.no_grad()
     def _decode_step_eager(self):
@@ -1337,7 +1533,7 @@ class LLMEngine:
         return logits
 
     @torch.no_grad()
-    def _build_decode(self):
+    def _build_decode(self, warm=True):
         """Build the decode program, once: the paged views over the static
         slot buffers and the pools; on the card, one eager warm-up step on
         a side stream (it loads cuBLAS and the kernels' libraries and
@@ -1347,7 +1543,9 @@ class LLMEngine:
         replays the forward's graph, then the full head's where a launched
         slot samples and the greedy head's elsewhere. Runs before the first
         step's copy into the buffers, so the warm-up sees every slot
-        inactive and writes no live block and no history."""
+        inactive and writes no live block and no history. A rebuild
+        (``warm=False``, the watchdog's) captures without the warm-up,
+        which would run the live slots' step again."""
         slots = _slot_views(self._slots_dev, self.max_batch_size,
                             self.max_blocks_per_seq)
         views = self._paged_views(*slots[1:4])
@@ -1356,33 +1554,21 @@ class LLMEngine:
             self._decode_program = functools.partial(self._decode_code, slots,
                                                      views)
             return
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            logits = self._decode_forward(slots, views)
-            for sampled in (True, False):
-                self._decode_head(slots, logits, sampled)
-        main.wait_stream(side)
+        if warm:
+            def step():
+                logits = self._decode_forward(slots, views)
+                for sampled in (True, False):
+                    self._decode_head(slots, logits, sampled)
 
-        def captured(fn):
-            graph = torch.cuda.CUDAGraph()
-
-            def capture():
-                with torch.cuda.graph(graph):
-                    return fn()
-
-            out, launched = captured_launches(capture)
-            return graph, launched, out
-
-        forward, fwd_launched, logits = captured(
+            warm_up(step, self.device)
+        forward, logits, fwd_launched = capture_graph(
             functools.partial(self._decode_forward, slots, views))
-        heads = {sampled: captured(functools.partial(
-            self._decode_head, slots, logits, sampled))[:2]
+        heads = {sampled: capture_graph(functools.partial(
+            self._decode_head, slots, logits, sampled))
             for sampled in (True, False)}
 
         def replay(sampled):
-            head, head_launched = heads[sampled]
+            head, _, head_launched = heads[sampled]
             forward.replay()
             head.replay()
             add_launches(fwd_launched)
@@ -1427,6 +1613,8 @@ class LLMEngine:
         N + 2."""
         if self._decode_program is None:
             self._build_decode()
+        elif self._decode_stale:
+            self._rebuild_if_idle()
         turn = self._launches % 2
         self._launches += 1
         staging = self._staging[turn]
@@ -1439,7 +1627,8 @@ class LLMEngine:
         self._decode_program(self._samples(active))
         out_host, views = self._outputs[turn]
         out_host.copy_(self._out_dev, non_blocking=True)
-        return views, self._event()
+        self._last_event = self._event()
+        return views, self._last_event
 
     @staticmethod
     def _read_outputs(out):
@@ -1671,6 +1860,215 @@ class LLMEngine:
     def weight_epoch(self):
         """Serving weight-set generation (0 = the construction weights)."""
         return self._weight_epoch
+
+    # ------------------------------------------------------------------
+    # watchdog and degraded-mode recovery (serving/resilience.py)
+    # ------------------------------------------------------------------
+    def _degrade(self, reason, detail):
+        """Enter (or deepen) degraded mode; `degrade_reason` keeps the
+        transition (the reference emits it as a ``serve.degrade``
+        event)."""
+        self.degraded = True
+        self.degrade_reason = (reason, dict(detail))
+
+    def _recovered(self):
+        """A clean decode step: leave degraded mode."""
+        self.degraded = False
+
+    def _on_hang(self, attempt):
+        """One watchdog firing on the serial decode step: climb the
+        ladder. True: wait again for the same launch (rung 1, or rung 2
+        after asking for a rebuild); False after rung 3 (every running
+        request failed with ``step_hang``, a rebuild asked for)."""
+        self._stats.hangs += 1
+        if attempt >= 3:
+            self._degrade("step_hang", {"rung": "fail_active"})
+            for req in list(self.scheduler.running):
+                self._fail(req, "step_hang")
+            self._rebuild_decode()
+            return False
+        if attempt == 1:
+            self._degrade("step_hang", {"rung": "retry"})
+        else:
+            self._degrade("step_hang", {"rung": "rebuild"})
+            self._rebuild_decode()
+        return True
+
+    def _rebuild_decode(self):
+        """Ask for a recapture of the decode program (counted in
+        `decode_compiles` when it runs), without a warm-up. A capture waits
+        for the whole device (`kernels.capture_graph`), so it runs only
+        once the last launch has completed: now if it has, else at the
+        first `_launch` that finds it completed; launches until then
+        replay the old graphs. So a device that never finishes the step
+        never blocks the ladder, and the old graphs, let go when the new
+        program replaces them, are never freed while a replay of them may
+        still run."""
+        if self._decode_program is not None:
+            self._decode_stale = True
+            self._rebuild_if_idle()
+
+    def _rebuild_if_idle(self):
+        """The rebuild `_rebuild_decode` asked for, if the last launch has
+        completed (on the CPU, always)."""
+        last = self._last_event
+        if last is None or last.query():
+            self._decode_stale = False
+            self._build_decode(warm=False)
+
+    def _device_fault(self, exc):
+        """An error that a decode step's event or output copy reported:
+        every running request fails with ``decode_fault``, and the caller
+        raises `exc` (recovery is a restart from the last `state_payload`
+        snapshot). Nothing finishes on another path. A device synchronize
+        tells a sticky error (the context is lost: it raises again) from
+        one the process survives; after the latter the pools, which the
+        step may have written in part, are zeroed (`_reset_kv_state`) and
+        the program is rebuilt, so that a caller who goes on stepping
+        serves queued and new work."""
+        sticky = False
+        if self.device.type == "cuda":
+            try:
+                torch.cuda.synchronize(self.device)
+            except RuntimeError:
+                sticky = True
+        self._degrade("decode_fault", {"organic": True, "sticky": sticky,
+                                       "error": str(exc)[:200]})
+        for req in list(self.scheduler.running):
+            self._fail(req, "decode_fault")
+        if not sticky:
+            self._reset_kv_state()
+            self._rebuild_decode()
+
+    def _recover_with_fallback(self):
+        """Finish every running stream through the model's `generate`
+        (`_fallback_eager`) after a poisoned launch (an injected
+        ``nan_output``); the pools and the program stay as they are."""
+        for req in list(self.scheduler.running):
+            self._fallback_eager(req)
+
+    @torch.no_grad()
+    def _fallback_eager(self, req):
+        """Finish one request through ``model.generate`` (greedy) from its
+        prompt and emitted tokens, streamed through the normal emission
+        path; an adapter tenant's under its merged weights."""
+        self._stats.eager_fallbacks += 1
+        remaining = req.remaining_tokens
+        if remaining > 0:
+            ctx = np.asarray([req.prompt + req.generated], np.int64)
+            merged = (self._adapters.merged(req.adapter)
+                      if self._adapters is not None
+                      and req.adapter is not None
+                      else contextlib.nullcontext())
+            with merged:
+                out = self._model.generate(ctx, max_new_tokens=remaining,
+                                           do_sample=False)
+            for tok in out[0].tolist():
+                if req.finished:
+                    break
+                self._emit_token(req, int(tok))
+        if not req.finished:
+            self._finish(req)
+
+    @torch.no_grad()
+    def _reset_kv_state(self):
+        """A fresh block pool and slot state after the pools stopped being
+        trustworthy. Only with no running stream (the callers retire them
+        first); queued requests hold no blocks and re-prefill. The pools
+        are zeroed in place (the captured graphs read them by address), the
+        allocator is new, and the prefix index forgets its entries."""
+        if self.scheduler.running:
+            raise RuntimeError("KV reset with running streams would "
+                               "corrupt them")
+        for pool in (self._k_pools, self._v_pools, self._k_scales,
+                     self._v_scales):
+            if pool is not None:
+                pool.zero_()
+        self.cache.allocator = BlockAllocator(self._num_blocks)
+        self.scheduler.allocator = self.cache.allocator
+        for slot in range(self.max_batch_size):
+            self._clear_slot(slot)
+        self._aslots[:] = 0
+        self._history_rows.zero_()
+        self._reset_pipeline()
+        if self._prefix is not None:
+            self._prefix.reset(self.cache.allocator)
+
+    # ------------------------------------------------------------------
+    # crash-resume (serving/resilience.py, incubate.ServeCheckpointer)
+    # ------------------------------------------------------------------
+    def state_payload(self):
+        """JSON-able snapshot of every live request (prompt, emitted
+        tokens, arrival order, remaining TTL, adapter, sampler), never
+        the KV pool, which re-prefills token-identically on resume; with
+        tenancy (hot swap or adapters) the weight epoch and CRC and the
+        registered adapters too. The reference's dict: a JAX engine's
+        snapshot restores here and this one there."""
+        now = time.perf_counter_ns()
+        live = sorted(list(self.scheduler.waiting)
+                      + list(self.scheduler.running),
+                      key=lambda r: (r.arrival_seq
+                                     if r.arrival_seq is not None else -1))
+        payload = {"version": 1, "kind": "serve_state",
+                   "next_rid": self._next_rid,
+                   "requests": [request_payload(r, now) for r in live]}
+        if self._tenant:
+            payload["weight_epoch"] = self._weight_epoch
+            payload["weights_crc"] = self._weights_crc
+            payload["swap_pending"] = self._pending_weights is not None
+            payload["adapters"] = ([] if self._adapters is None
+                                   else self._adapters.names())
+        return payload
+
+    def restore_state(self, payload, on_token=None):
+        """Re-admit every request of a `state_payload()` snapshot in its
+        arrival order, each QUEUED with its emitted tokens: its first
+        admission re-prefills prompt + emitted tokens and the stream
+        continues byte-identically. `on_token`: None, one callable for
+        every request, or ``{request_id: callable}``. Refuses
+        (`ServeRefusal`) with ``torn_swap`` when a hot-swap engine serves
+        another weight set than the snapshot's, ``adapter_mismatch`` for a
+        request whose adapter is not registered here; ValueError for a
+        request id live in this engine. Returns the restored Requests."""
+        if not payload:
+            return []
+        crc = payload.get("weights_crc")
+        if self._hot_swap and crc is not None and crc != self._weights_crc:
+            raise ServeRefusal(
+                "torn_swap",
+                f"state snapshot was taken under weights_crc {crc:#x} but "
+                f"this engine serves {self._weights_crc:#x}; load the "
+                "matching weight set before restoring",
+                {"payload_crc": crc, "engine_crc": self._weights_crc})
+        restored = []
+        for rp in sorted(payload.get("requests", ()),
+                         key=lambda p: p.get("arrival_seq") or 0):
+            rid = rp["rid"]
+            ad = rp.get("adapter")
+            if ad is not None and (self._adapters is None
+                                   or not self._adapters.is_registered(ad)):
+                raise ServeRefusal(
+                    "adapter_mismatch",
+                    f"restore_state: request {rid!r} decodes under adapter "
+                    f"{ad!r}, which is not registered in this engine; "
+                    "re-register every tenant before restoring",
+                    {"rid": rid, "adapter": ad})
+            prev = self.requests.get(rid)
+            if prev is not None and not prev.finished:
+                raise ValueError(f"restore_state: request id {rid!r} is "
+                                 "already live in this engine")
+            cb = (on_token.get(rid) if isinstance(on_token, dict)
+                  else on_token)
+            req = payload_request(rp, cb)
+            self.scheduler.enqueue(req)
+            self.requests[rid] = req
+            self._stats.resumed += 1
+            restored.append(req)
+        self._next_rid = max(self._next_rid,
+                             int(payload.get("next_rid") or 0))
+        self._weight_epoch = max(self._weight_epoch,
+                                 int(payload.get("weight_epoch") or 0))
+        return restored
 
     # ------------------------------------------------------------------
     # token delivery / retirement

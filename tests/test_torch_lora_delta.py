@@ -10,9 +10,15 @@ arithmetic is compared:
 
   * decode form (``[S, 1, in]``, a slot index a row, base rows among
     them) and prefill form (``[1, n, in]``, one slot), the qkv and out
-    widths, fp32 and bf16: within `lora_delta_tol` (bf16: each of x @ A,
-    the delta and the sum may round the other way once; fp32: 2^-20 of
-    the same magnitudes, the sums taken in another order);
+    widths, fp32 and bf16: within `lora_delta_tol` (the bound derived in
+    its docstring from the roundings both computations make);
+  * the bound's repair: at a 1024-row prefill of rank 4 where the twin's
+    fp32 x @ A sums cross a rounding step that fp64 sums do not (elements
+    the earlier rule of one 2^-8 (bf16) / 2^-20 (fp32) rounding per
+    step missed), fp64 sums stay within the bound of the twin; and the bound
+    still sees a wrong delta: the twin's delta with one rank column
+    dropped, or its scale times (1 + 2^-5), leaves it at the decode and
+    the prefill shapes;
   * rows of slot 0 are bit for bit the projection's output, -0.0
     included, whatever the other rows do;
   * on CPU tensors `lora_delta` is the twin and launches nothing; on other
@@ -208,3 +214,73 @@ def test_well_formed_kernel_call_needs_a_card(dtype):
     with pytest.raises(RuntimeError, match="CUDA"):
         ld.lora_delta(**_meta(dtype))
     assert kernels.launch_counts()["lora_delta"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the bound: where the earlier rule failed, and a wrong delta
+# ---------------------------------------------------------------------------
+
+def _card_state(n, d_out, dtype, seed, rank):
+    """The card check's distribution (chip_smoke.py `_lora_state`): x ~
+    N(0, 1), y ~ N(0, 0.25), adapters std 0.05, 12 layers, K = 3."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((n, 768), generator=g).to(dtype)
+    y = (torch.randn((n, d_out), generator=g) * 0.5).to(dtype)
+    a = (torch.randn((3, 12, 768, rank), generator=g) * 0.05).to(dtype)
+    b = (torch.randn((3, 12, rank, d_out), generator=g) * 0.05).to(dtype)
+    a[0] = 0
+    b[0] = 0
+    return y, x, a, b, torch.tensor([0.0, 1.0, 0.5])
+
+
+def _one_rounding_tol(y, x, a, b, scale, idx, layer):
+    """The earlier rule: each of t, the delta and the sum rounding the other
+    way once by 2^-8 (bf16) / 2^-20 (fp32) of its magnitude."""
+    eps = 2.0 ** -8 if y.dtype == torch.bfloat16 else 2.0 ** -20
+    sel = idx.long()
+    t = torch.bmm(x.float()[:, None, :], a[sel, layer].float())
+    b_rows = b[sel, layer].float()
+    sc = scale[sel].float().abs()[:, None]
+    d = torch.bmm(t, b_rows)[:, 0] * sc
+    mag = torch.bmm(t.abs(), b_rows.abs())[:, 0] * sc
+    return eps * (2 * mag + y.float().abs() + d.abs()) + 1e-30
+
+
+@pytest.mark.parametrize("dtype, d_out, seed", [(torch.bfloat16, 2304, 8),
+                                                (torch.float32, 768, 1)])
+def test_bound_holds_where_a_sum_crosses_a_rounding_step(dtype, d_out,
+                                                         seed):
+    """Rank 4, 1024 rows of one slot (the tile form's shape): the twin's
+    fp32 sums and fp64 sums land on the two sides of a rounding step at
+    some elements, past the earlier rule; the derived bound holds them all."""
+    n = 1024
+    y, x, a, b, scale = _card_state(n, d_out, dtype, seed, rank=4)
+    args = (x, a, b, scale, torch.tensor([2], dtype=torch.int32).expand(n),
+            3)
+    twin = ld.lora_delta_reference(y.clone(), *args)
+    exact = ld.lora_delta_exact(y, *args)
+    diff = (twin.float() - exact.float()).abs()
+    assert int((diff > _one_rounding_tol(y, *args)).sum()) > 0
+    assert bool((diff <= ld.lora_delta_tol(y, *args)).all())
+
+
+@pytest.mark.parametrize("mutation", ["rank_column_dropped",
+                                      "scale_off_by_2^-5"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["decode", "prefill"])
+def test_bound_sees_a_wrong_delta(form, dtype, mutation):
+    n = 8 if form == "decode" else 1024
+    y, x, a, b, scale = _card_state(n, 2304, dtype, seed=5, rank=16)
+    idx = torch.tensor([1, 0, 2, 1, 2, 2, 1, 0], dtype=torch.int32) \
+        if form == "decode" else \
+        torch.tensor([2], dtype=torch.int32).expand(n)
+    layer = 3
+    tol = ld.lora_delta_tol(y, x, a, b, scale, idx, layer)
+    twin = ld.lora_delta_reference(y.clone(), x, a, b, scale, idx, layer)
+    if mutation == "rank_column_dropped":
+        a = a.clone()
+        a[:, layer, :, 5] = 0
+    else:
+        scale = scale * (1 + 2.0 ** -5)
+    wrong = ld.lora_delta_reference(y.clone(), x, a, b, scale, idx, layer)
+    assert int(((wrong.float() - twin.float()).abs() > tol).sum()) > 0

@@ -19,10 +19,9 @@ rows with stride 0 (prefill). These tests hold, on the CPU:
   * the twin against the reference's `_adapter_forward` at ranks 4, 8, 12
     and 16, fp32 and bf16, in the decode and prefill forms, within
     `lora_delta_tol`, base rows bit for bit;
-  * `lora_delta_exact` (the twin's arithmetic with fp64 sums, which the
-    card's check holds a kernel to where the twin's own fp32 sums leave
-    the bound): equal to the twin where every sum is exact, within the
-    bound of it otherwise.
+  * `lora_delta_exact` (the twin's arithmetic with fp64 sums, the card
+    check's second yardstick): equal to the twin where every sum is
+    exact, within the bound of it otherwise.
 """
 from __future__ import annotations
 

@@ -110,13 +110,13 @@ def _stream():
 def draw_caller(lib):
     """A variant of the keyed draw as a function of its inputs."""
     fn = lib.paddle_keyed_draw
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
     def call(raw, filtered, temps, seeds, pos, out):
         err = fn(*map(_ptr, (raw, filtered, temps, seeds, pos, out)), None,
-                 None, None, raw.shape[0], raw.shape[1], _stream())
+                 None, None, raw.shape[0], raw.shape[1], 0, _stream())
         assert err == 0, err
     return call
 
