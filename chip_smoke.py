@@ -206,6 +206,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                the card (one graph build, replayed) and on the CPU from one
                state dict must agree: losses, and parameters element by
                element;
+  7b. the training remainder, GPT-2 124M at full width, batch 8 x 1024,
+               fused CE: train_amp — AdamW + ClipGradByGlobalNorm(1.0)
+               under auto_cast(bf16), O1 over fp32 weights and O2 over
+               `decorate`d bf16 weights with AdamW(multi_precision), the
+               TrainStep graph and its eager step bit for bit after 3
+               steps with the clip binding (a global norm above 1.0),
+               then both in turns (step p50, device ms, MFU) and
+               profiled (kernels a step), and auto_cast(float16) refused
+               at the flash kernel; train_optimizers — each of SGD,
+               Momentum, Lamb, RMSProp, Adagrad, Adadelta, Adamax, Lars,
+               Adam + L2Decay and AdamW over bf16 weights, 3 graph steps
+               bit for bit with 3 eager ones, then its update alone in a
+               graph (device ms a step, kernels a replay) beside AdamW's
+               kernel row; train_scaler — an eager GradScaler loop under
+               O1: an inf in one gradient moves no parameter or
+               accumulator, the loss scale follows the reference's
+               transition at every step; train_resume — a child process
+               trains 4 steps under a StepCheckpointer and is killed
+               (SIGKILL), a fresh one restores and runs steps 5-8: losses
+               and parameters bit for bit with an uninterrupted run;
   8. fused_ln — `incubate.nn.FusedBiasDropoutResidualLayerNorm(768)` in
                bf16 on [8, 1024, 768] activations, forward and backward
                for some iterations, one fused_ln launch per forward; then
@@ -231,6 +251,7 @@ from __future__ import annotations
 import copy
 import ctypes
 import json
+import os
 import re
 import subprocess
 import time
@@ -239,25 +260,31 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from paddle_tpu_torch.framework import set_flags
-from paddle_tpu_torch.incubate.checkpoint import ServeCheckpointer
+from paddle_tpu_torch import amp
+from paddle_tpu_torch.framework import io, set_flags
+from paddle_tpu_torch.incubate.checkpoint import (ServeCheckpointer,
+                                                  StepCheckpointer)
 from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               GPTPretrainingCriterion,
                                               gpt2_124m)
 from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.kernels import (_build, cross_entropy as ce,
+from paddle_tpu_torch.kernels import (_build, capture_graph,
+                                      cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
                                       launch_counts, paged_attention as pa,
-                                      reset_launch_counts)
+                                      reset_launch_counts, warm_up)
 from paddle_tpu_torch.kernels import adam_update as au
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.kernels import lora_delta as ld
 from paddle_tpu_torch.kernels import prefill_scatter as ps
 from paddle_tpu_torch.kernels import sampler_filter as sf
+from paddle_tpu_torch.nn import ClipGradByGlobalNorm
 from paddle_tpu_torch.ops import guardian
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,
+                                        AdamW, L2Decay, Lamb, Lars, Momentum,
+                                        RMSProp)
 from paddle_tpu_torch.optimizer.lr import CosineAnnealingDecay, LinearWarmup
 from paddle_tpu_torch.serving import sampling as tsamp
 from paddle_tpu_torch.serving import (LLMEngine, Request, ServeRefusal,
@@ -467,15 +494,23 @@ _SLEEP_CYCLES_PER_S = []
 
 
 def _sleep_cycles_per_s():
-    """Clock cycles per second of `torch.cuda._sleep`, measured once."""
+    """Clock cycles per second of `torch.cuda._sleep`, measured once: the
+    fastest of three timings after a warm-up sleep that lifts an idle
+    card's clock, so that a sleep of n cycles, meant to outlast a budget
+    (serve_resilience's stall and wedge), does not come out short when
+    the card's clock is higher later than it was at the timing."""
     if not _SLEEP_CYCLES_PER_S:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(10 ** 7)
-        end.record()
-        end.synchronize()
-        _SLEEP_CYCLES_PER_S.append(1e7 / (start.elapsed_time(end) / 1e3))
+        torch.cuda._sleep(10 ** 8)
+        rates = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            torch.cuda._sleep(10 ** 7)
+            end.record()
+            end.synchronize()
+            rates.append(1e7 / (start.elapsed_time(end) / 1e3))
+        _SLEEP_CYCLES_PER_S.append(max(rates))
     return _SLEEP_CYCLES_PER_S[0]
 
 
@@ -4361,14 +4396,23 @@ def _differing(a, b):
     """Elements that differ between the two models' parameters, masters and
     moments, and their count."""
     (ma, oa, _), (mb, ob, _) = a, b
-    n, total = 0, 0
-    for pa, pb in zip(ma.parameters(), mb.parameters()):
-        pairs = [(pa.detach(), pb.detach())] + [
-            (oa._accumulators[k][pa], ob._accumulators[k][pb])
-            for k in oa._accumulators if pa in oa._accumulators[k]]
-        for x, y in pairs:
-            n += int((x != y).sum())
-            total += x.numel()
+    return _count_differing(_state_bits(ma, oa), _state_bits(mb, ob))
+
+
+def _state_bits(model, opt):
+    """Every parameter and accumulator tensor of `model` under `opt`."""
+    return [p.detach() for p in model.parameters()] + [
+        slot[p] for slot in opt._accumulators.values()
+        for p in model.parameters() if p in slot]
+
+
+def _count_differing(a, b):
+    """Elements that differ between the tensors of lists `a` and `b`, and
+    their count."""
+    n = total = 0
+    for x, y in zip(a, b):
+        n += int((x != y).sum())
+        total += x.numel()
     return n, total
 
 
@@ -4611,6 +4655,486 @@ def train_parity():
 
 
 # ---------------------------------------------------------------------------
+# phase 7b: the training remainder at full width: amp, every optimizer,
+# the GradScaler, and a killed run resumed from its StepCheckpointer
+# ---------------------------------------------------------------------------
+
+# graph and eager steps compared bit for bit, steps a timed turn, the
+# turns' order, and the global-norm clip the amp and resume runs take
+AMP_BITWISE_STEPS = 3
+AMP_TURN_STEPS = 5
+AMP_TURNS = ("graph", "eager", "eager", "graph")
+AMP_CLIP_NORM = 1.0
+# the optimizers of train_optimizers, each over a bf16 model (Lamb and
+# Lars exclude the 0-/1-D parameters from their decay)
+OPTIMIZER_RUNS = (
+    ("SGD", lambda ps, **kw: SGD(learning_rate=1e-2, parameters=ps, **kw)),
+    ("Momentum", lambda ps, **kw: Momentum(
+        learning_rate=1e-3, momentum=0.9, use_nesterov=True, parameters=ps,
+        **kw)),
+    ("Lamb", lambda ps, **kw: Lamb(
+        learning_rate=1e-3, parameters=ps,
+        exclude_from_weight_decay_fn=lambda p: p.ndim <= 1, **kw)),
+    ("RMSProp", lambda ps, **kw: RMSProp(
+        learning_rate=1e-4, momentum=0.9, centered=True, parameters=ps,
+        **kw)),
+    ("Adagrad", lambda ps, **kw: Adagrad(
+        learning_rate=1e-3, parameters=ps, initial_accumulator_value=0.1,
+        **kw)),
+    ("Adadelta", lambda ps, **kw: Adadelta(learning_rate=1.0, parameters=ps,
+                                           **kw)),
+    ("Adamax", lambda ps, **kw: Adamax(learning_rate=1e-4, parameters=ps,
+                                       **kw)),
+    ("Lars", lambda ps, **kw: Lars(learning_rate=1.0, parameters=ps,
+                                   exclude_from_weight_decay=["bias"], **kw)),
+    ("Adam+L2Decay", lambda ps, **kw: Adam(
+        learning_rate=1e-4, parameters=ps, weight_decay=L2Decay(1e-4),
+        **kw)),
+    ("AdamW(multi_precision)", lambda ps, **kw: AdamW(
+        learning_rate=TRAIN_LR, weight_decay=0.01, parameters=ps,
+        multi_precision=True, **kw)),
+)
+OPTIMIZER_STEPS = 3
+SCALER_STEPS = 6
+SCALER_INF_STEP = 3
+SCALER_KW = dict(init_loss_scaling=2.0 ** 15, incr_every_n_steps=2,
+                 decr_every_n_nan_or_inf=1)
+TRAIN_RESUME_STEPS = 8
+TRAIN_RESUME_KILL = 4
+
+
+def _train_batch(cfg, seed=0, batch=8, seq=1024):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.integers(0, cfg.vocab_size, (batch, seq)),
+                              device="cuda") for _ in range(2))
+
+
+def _amp_pair(cfg, level):
+    """Two GPT-2 124M models from seed 0 (fp32 weights; O2 decorated to
+    bf16), each with AdamW and its own ClipGradByGlobalNorm, and a
+    TrainStep: the first replays its graph, the second steps eagerly."""
+    out = []
+    for _ in range(2):
+        model = GPTForCausalLM(cfg, device="cuda", seed=0)
+        if level == "O2":
+            amp.decorate(model, level="O2", dtype="bfloat16")
+        model.train()
+        clip = ClipGradByGlobalNorm(AMP_CLIP_NORM)
+        opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                    parameters=model.parameters(), grad_clip=clip,
+                    multi_precision=level == "O2")
+        out.append((model, opt, TrainStep(model, GPTPretrainingCriterion(),
+                                          opt), clip))
+    return out
+
+
+def train_amp(batch=8, seq=1024):
+    """GPT-2 124M under auto_cast(bf16): O1 over fp32 weights, O2 over
+    `decorate`d bf16 weights with AdamW(multi_precision); AdamW with a
+    global-norm clip and the fused cross-entropy, through TrainStep's
+    graph and its eager step (bit for bit after AMP_BITWISE_STEPS, the
+    clip binding), then both timed in turns and profiled."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = _train_batch(cfg)
+    tokens = batch * seq
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    counts, out = {}, {}
+    try:
+        for level in ("O1", "O2"):
+            graph, eager = _amp_pair(cfg, level)
+            g_model, g_opt, g_step, g_clip = graph
+            e_model, e_opt, e_step, e_clip = eager
+            flops = g_model.flops_per_token(seq)
+            with amp.auto_cast(level=level, dtype="bfloat16"):
+                run_graph = lambda: g_step(ids, labels)  # noqa: E731
+                run_eager = lambda: e_step._step_eager(  # noqa: E731
+                    ids, labels)
+                losses, norms = [], []
+                for _ in range(AMP_BITWISE_STEPS):
+                    losses.append((float(run_graph()), float(run_eager())))
+                    norms.append((float(g_clip.global_norm),
+                                  float(e_clip.global_norm)))
+                differ, total = _count_differing(
+                    _state_bits(g_model, g_opt), _state_bits(e_model, e_opt))
+                print(f"train_amp {level}: {AMP_BITWISE_STEPS} steps of the "
+                      f"graph and of the eager step (AdamW, "
+                      f"ClipGradByGlobalNorm({AMP_CLIP_NORM}), fused CE, "
+                      f"{'fp32 weights' if level == 'O1' else 'bf16 weights, fp32 masters'}): "
+                      f"losses " + ", ".join(f"{a:.6f}/{b:.6f}"
+                                             for a, b in losses)
+                      + "; global norms before the clip " + ", ".join(
+                          f"{a:.4f}/{b:.4f}" for a, b in norms)
+                      + f"; {differ} of {total} elements of parameters and "
+                      f"accumulators differ")
+                assert all(a == b for a, b in losses), losses
+                assert differ == 0, (differ, total)
+                assert max(a for a, _ in norms) > AMP_CLIP_NORM, norms
+                assert np.isfinite(losses).all()
+                reset_launch_counts()
+                for _ in range(AMP_TURN_STEPS):
+                    run_graph()
+                torch.cuda.synchronize()
+                counts[level] = launch_counts()
+                for name, per_step in TRAIN_KERNELS.items():
+                    assert counts[level][name] == per_step * AMP_TURN_STEPS, \
+                        (level, name, counts[level])
+                turns = [_turn(kind, run_graph if kind == "graph"
+                               else run_eager, AMP_TURN_STEPS, tokens, flops)
+                         for kind in AMP_TURNS]
+                profiled = {}
+                for kind, fn in (("graph", run_graph), ("eager", run_eager)):
+                    totals = {}
+                    _breakdown(f"train_amp {level} {kind}", fn, top=6,
+                               totals=totals)
+                    profiled[kind] = totals
+            for kind in ("graph", "eager"):
+                mine = [t for t in turns if t["turn"] == kind]
+                print(f"train_amp {level} {kind}: step p50 " + " / ".join(
+                    f"{t['p50_ms']:.3f}" for t in mine) + " ms; device "
+                    + " / ".join(f"{t['device_ms']:.3f}" for t in mine)
+                    + " ms a step; MFU " + " / ".join(
+                        f"{t['mfu']:.4f}" for t in mine)
+                    + f"; {profiled[kind].get('kernels', 0):.1f} kernels "
+                    f"and {profiled[kind].get('copies', 0):.1f} copies a "
+                    f"step (profiled)")
+            out[level] = {"turns": turns, "profiled": profiled}
+            del graph, eager, g_model, e_model, g_opt, e_opt, g_step, e_step
+            torch.cuda.empty_cache()
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+    print("train_amp: " + json.dumps(out))
+    # float16 reaches the flash kernel, which takes fp32 and bf16: it
+    # raises there (ROADMAP.md item 3(g)) instead of taking another path
+    model = GPTForCausalLM(gpt2_124m(num_hidden_layers=1,
+                                     hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0),
+                           device="cuda")
+    try:
+        with amp.auto_cast(level="O1", dtype="float16"):
+            model(ids[:1, :128])
+    except NotImplementedError as e:
+        print(f"train_amp: auto_cast(dtype='float16') raises at the first "
+              f"kernel: {e}")
+    else:
+        raise AssertionError("a float16 forward ran on the card")
+    return counts["O1"]
+
+
+def _update_program(opt, params):
+    """The optimizer's update over `params` (fixed gradients) captured
+    alone in a CUDA graph: returns a function that replays it once."""
+    grads = [torch.full_like(p, 1e-3) for p in params]
+    pairs = list(zip(params, grads))
+    opt._create_accumulators(params)
+    opt._begin_step({params[0].device})
+
+    def update():
+        with torch.no_grad(), amp.suspended():
+            opt._update(pairs)
+
+    warm_up(update)
+    torch.cuda.synchronize()
+    graph, _, _ = capture_graph(update)
+    return graph.replay
+
+
+def train_optimizers(adamw_row_ms, batch=8, seq=1024):
+    """Each optimizer of OPTIMIZER_RUNS (a global-norm clip on top) over
+    two bf16 GPT-2 124M models from seed 0: OPTIMIZER_STEPS graph steps
+    against as many eager ones, every parameter and accumulator bit for
+    bit; then the update alone, captured in a graph over the real
+    parameters: its device ms a step (`_timed`) and its kernels a replay
+    (torch.profiler), beside AdamW's kernel row (`adamw_row_ms`, this
+    run's)."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = _train_batch(cfg, seed=1)
+    models = [GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+              for _ in range(2)]
+    start = [p.detach().clone() for p in models[0].parameters()]
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    rows = []
+    try:
+        for name, make in OPTIMIZER_RUNS:
+            for model in models:
+                with torch.no_grad():
+                    for p, s in zip(model.parameters(), start):
+                        p.copy_(s)
+            opts = [make(m.parameters(),
+                         grad_clip=ClipGradByGlobalNorm(AMP_CLIP_NORM))
+                    for m in models]
+            steps = [TrainStep(m, GPTPretrainingCriterion(), o)
+                     for m, o in zip(models, opts)]
+            losses = [(float(steps[0](ids, labels)),
+                       float(steps[1]._step_eager(ids, labels)))
+                      for _ in range(OPTIMIZER_STEPS)]
+            differ, total = _count_differing(_state_bits(models[0], opts[0]),
+                                             _state_bits(models[1], opts[1]))
+            moved = max(float((p.detach().float() - s.float()).abs().max())
+                        for p, s in zip(models[0].parameters(), start))
+            assert all(a == b for a, b in losses), (name, losses)
+            assert differ == 0, (name, differ, total)
+            assert np.isfinite(losses).all() and moved > 0, (name, losses)
+            del steps
+            torch.cuda.empty_cache()
+            replay = _update_program(opts[0], list(models[0].parameters()))
+            device_ms, host_ms = _timed(replay, iters=10, warmup=2)
+            totals = {}
+            _breakdown(f"train_optimizers {name} update", replay, top=3,
+                       totals=totals)
+            # a profiler that saw less than 90% of the events' device time
+            # dropped kernels (seen late in a long run): no count then
+            kernels = totals.get("kernels") if totals.get(
+                "device_ms", 0.0) >= 0.9 * device_ms else None
+            row = {"optimizer": name, "losses": [a for a, _ in losses],
+                   "differing": differ, "elements": total,
+                   "update_device_ms": device_ms,
+                   "update_host_ms": host_ms,
+                   "update_kernels": kernels,
+                   "update_profiled_ms": totals.get("device_ms"),
+                   "accumulator_bytes": sum(
+                       t.numel() * t.element_size()
+                       for slot in opts[0]._accumulators.values()
+                       for t in slot.values())}
+            rows.append(row)
+            counted = (f"{kernels:.0f} kernels a replay" if kernels is not None
+                       else f"kernels not counted: the profiler saw "
+                       f"{totals.get('device_ms', 0.0):.4f} ms")
+            print(f"train_optimizers {name}: {OPTIMIZER_STEPS} graph steps "
+                  f"= eager steps bit for bit ({total} elements); losses "
+                  + ", ".join(f"{x:.6f}" for x in row["losses"])
+                  + f"; the update alone {device_ms:.4f} ms device a step "
+                  f"({counted}, {host_ms:.4f} ms host to enqueue a "
+                  f"replay), AdamW's kernel row {adamw_row_ms:.4f} ms")
+            del opts, replay
+            torch.cuda.empty_cache()
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+    print("train_optimizers: " + json.dumps(rows))
+    return rows
+
+
+def _scaler_rule(state, found_inf, kw=SCALER_KW):
+    """The reference's loss-scale transition
+    (`paddle_tpu/ops/guardian.py` `update_scaler_state`) on Python
+    numbers: ``(scale, good, bad)`` after one update."""
+    scale, good, bad = state
+    bad = bad + 1 if found_inf else 0
+    good = 0 if found_inf else good + 1
+    if found_inf and bad >= kw["decr_every_n_nan_or_inf"]:
+        return max(scale * 0.5, 1.0), good, 0
+    if not found_inf and good >= kw["incr_every_n_steps"]:
+        return scale * 2.0, 0, bad
+    return scale, good, bad
+
+
+def train_scaler(batch=8, seq=1024):
+    """An eager GradScaler loop over fp32 GPT-2 124M under
+    auto_cast(O1, bf16) with AdamW: an inf in one gradient at
+    SCALER_INF_STEP leaves every parameter and accumulator bit for bit as
+    it was and skips the step; the scale, good and bad counts follow the
+    reference's transition at every step."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = _train_batch(cfg, seed=2)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                parameters=model.parameters())
+    scaler = amp.GradScaler(**SCALER_KW)
+    crit = GPTPretrainingCriterion()
+    want = (SCALER_KW["init_loss_scaling"], 0, 0)
+    seq_got, times = [], []
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    reset_launch_counts()
+    try:
+        for step in range(1, SCALER_STEPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = crit(model(ids), labels)
+            scaler.scale(loss).backward()
+            inject = step == SCALER_INF_STEP
+            if inject:
+                model.gpt.h[-1].mlp.fc_in.weight.grad[3, 7] = float("inf")
+                before = [t.clone() for t in _state_bits(model, opt)]
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if inject:
+                differ, total = _count_differing(before,
+                                                 _state_bits(model, opt))
+                assert differ == 0, (differ, total)
+                del before
+            got = scaler.state_dict()
+            got = (got["scale"], got["good_steps"], got["bad_steps"])
+            want = _scaler_rule(want, inject)
+            seq_got.append(got)
+            assert got == want, (step, got, want)
+            assert np.isfinite(float(loss.detach()))
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+    counts = launch_counts()
+    assert opt._step_count == SCALER_STEPS - 1, opt._step_count
+    assert counts["flash_attention_fwd"] == 12 * SCALER_STEPS, counts
+    print(f"train_scaler: eager GradScaler loop, fp32 GPT-2 124M under O1 "
+          f"bf16, AdamW, batch {batch} x {seq}: (scale, good, bad) "
+          + ", ".join(str(t) for t in seq_got) + f" = the reference's "
+          f"transition at every step; the inf at step {SCALER_INF_STEP} "
+          f"moved none of the parameters and accumulators; step p50 "
+          f"{float(np.median(times)):.3f} ms (host clock, each synchronized)")
+    return counts
+
+
+def _resume_trainer():
+    """bf16 GPT-2 124M from seed 0 with AdamW(multi_precision), a
+    global-norm clip and a warm-up schedule, and its TrainStep."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    sched = LinearWarmup(CosineAnnealingDecay(TRAIN_LR,
+                                              T_max=TRAIN_RESUME_STEPS),
+                         warmup_steps=2, start_lr=TRAIN_LR / 10,
+                         end_lr=TRAIN_LR)
+    opt = AdamW(learning_rate=sched, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True,
+                grad_clip=ClipGradByGlobalNorm(AMP_CLIP_NORM))
+    return cfg, model, opt, sched, TrainStep(model,
+                                             GPTPretrainingCriterion(), opt)
+
+
+def _resume_steps(first, last, trainer, ck=None):
+    """Steps first..last (step i on batch i); returns the losses."""
+    cfg, model, opt, sched, step = trainer
+    losses = []
+    for i in range(first, last + 1):
+        losses.append(float(step(*_train_batch(cfg, seed=100 + i))))
+        sched.step()
+        if ck is not None:
+            ck.tick(i, model=model, optimizer=opt)
+    return losses
+
+
+def train_resume_child(mode, directory):
+    """A child process of `train_resume`: ``train`` runs steps 1 to
+    TRAIN_RESUME_KILL with a StepCheckpointer(save_every_n_steps=2), then
+    prints ``KILL-ME`` and waits to be killed; ``restore`` restores into
+    fresh objects, runs the steps after it and saves its losses and
+    parameters into `directory`."""
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    trainer = _resume_trainer()
+    ck = StepCheckpointer(directory, save_every_n_steps=2)
+    if mode == "train":
+        _resume_steps(1, TRAIN_RESUME_KILL, trainer, ck)
+        torch.cuda.synchronize()
+        print("KILL-ME", flush=True)
+        time.sleep(600)
+        raise SystemExit("the training child was not killed")
+    t0 = time.perf_counter()
+    at = ck.restore(model=trainer[1], optimizer=trainer[2])
+    restore_s = time.perf_counter() - t0
+    losses = _resume_steps(at + 1, TRAIN_RESUME_STEPS, trainer)
+    io.save({"at": at, "losses": losses, "restore_s": restore_s,
+             "params": trainer[1].state_dict()},
+            Path(directory) / "result.pt")
+
+
+def train_resume():
+    """A child process trains TRAIN_RESUME_KILL steps under a
+    StepCheckpointer and is killed with SIGKILL; a fresh process restores
+    the newest snapshot and runs the rest. Its losses and parameters must
+    equal an uninterrupted run's (this process) bit for bit; so must this
+    process's, restoring the snapshot into a TrainStep whose graph was
+    built before the load."""
+    import shutil
+    import signal
+    import sys
+    import tempfile
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    reset_launch_counts()
+    try:
+        trainer = _resume_trainer()
+        want = _resume_steps(1, TRAIN_RESUME_STEPS, trainer)
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+    counts = launch_counts()
+    want_params = {k: v.cpu() for k, v in trainer[1].state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix="train_resume_",
+                                 dir=Path(__file__).resolve().parent
+                                 / "build")
+    try:
+        cmd = [sys.executable, str(Path(__file__).resolve()),
+               "--train-resume-child"]
+        t0 = time.perf_counter()
+        child = subprocess.Popen(cmd + ["train", directory],
+                                 stdout=subprocess.PIPE, text=True)
+        try:
+            for line in child.stdout:
+                if line.strip() == "KILL-ME":
+                    break
+            else:
+                raise AssertionError("the training child ended unkilled")
+            child.send_signal(signal.SIGKILL)
+        finally:
+            child.kill()
+            child.wait(timeout=60)
+        killed_s = time.perf_counter() - t0
+        assert child.returncode == -signal.SIGKILL, child.returncode
+        snapshots = sorted(os.listdir(Path(directory) / "default_steps"))
+        t0 = time.perf_counter()
+        subprocess.run(cmd + ["restore", directory], check=True,
+                       timeout=600)
+        restore_wall = time.perf_counter() - t0
+        res = io.load(Path(directory) / "result.pt")
+        # the same snapshot into a TrainStep whose graph was built (and
+        # replayed once) before the load: the graph replays from it
+        set_flags({"FLAGS_use_fused_cross_entropy": True})
+        try:
+            trainer = _resume_trainer()
+            _resume_steps(1, 1, trainer)
+            at = StepCheckpointer(directory, save_every_n_steps=2).restore(
+                model=trainer[1], optimizer=trainer[2])
+            built = _resume_steps(at + 1, TRAIN_RESUME_STEPS, trainer)
+        finally:
+            set_flags({"FLAGS_use_fused_cross_entropy": False})
+        built_differ, _ = _count_differing(
+            [p.detach().cpu() for p in trainer[1].state_dict().values()],
+            list(want_params.values()))
+        builds = trainer[4]._builds
+        del trainer
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    differ, total = _count_differing(
+        [res["params"][k] for k in want_params], list(want_params.values()))
+    print(f"train_resume: bf16 GPT-2 124M, AdamW(multi_precision) + clip + "
+          f"LinearWarmup(CosineAnnealingDecay), a TrainStep graph, batch "
+          f"i on step i; the child killed (SIGKILL) after step "
+          f"{TRAIN_RESUME_KILL} ({killed_s:.2f} s from spawn; snapshots "
+          f"{snapshots}); a fresh process restored step {res['at']} "
+          f"({res['restore_s']:.3f} s) and ran steps {res['at'] + 1}-"
+          f"{TRAIN_RESUME_STEPS} ({restore_wall:.2f} s wall): losses "
+          + ", ".join(f"{x:.6f}" for x in res["losses"]) + " vs the "
+          f"uninterrupted run's " + ", ".join(
+              f"{x:.6f}" for x in want[res["at"]:])
+          + f"; {differ} of {total} parameter elements differ (a "
+          f"difference would name a kernel that is not deterministic "
+          f"across processes: the flash pair, cross-entropy or the AdamW "
+          f"update)")
+    print(f"train_resume: the snapshot loaded into a TrainStep whose graph "
+          f"was built before the load ({builds} build): steps "
+          f"{at + 1}-{TRAIN_RESUME_STEPS} losses " + ", ".join(
+              f"{x:.6f}" for x in built) + f"; {built_differ} parameter "
+          f"elements differ from the uninterrupted run's")
+    assert res["at"] == TRAIN_RESUME_KILL, res["at"]
+    assert res["losses"] == want[TRAIN_RESUME_KILL:], (res["losses"], want)
+    assert differ == 0, (differ, total)
+    assert at == TRAIN_RESUME_KILL and builds == 1, (at, builds)
+    assert built == want[TRAIN_RESUME_KILL:], (built, want)
+    assert built_differ == 0, built_differ
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the fused bias-residual LayerNorm layer at GPT-2 width
 # ---------------------------------------------------------------------------
 
@@ -4741,6 +5265,12 @@ def main():
     parity(kv_dtype="int8")
     paths["train"] = train()
     train_parity()
+    paths["train_amp"] = train_amp()
+    adamw_row = next(row for row in rows["train"]
+                     if row["name"] == "adam_update")
+    train_optimizers(adamw_row["ms"])
+    paths["train_scaler"] = train_scaler()
+    paths["train_resume"] = train_resume()
     paths["fused_ln"] = fused_ln_phase()
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and
@@ -4780,5 +5310,7 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--resume-child"]:
         resume_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--train-resume-child"]:
+        train_resume_child(*sys.argv[2:4])
     else:
         main()

@@ -7,7 +7,9 @@ load into the port's module of the same structure. Names match one to one;
 only `nn.Linear` weights change layout (paddle stores ``[in, out]``, torch
 ``[out, in]``). The modules carried so far: `GPTForCausalLM` and
 `incubate.nn.FusedBiasDropoutResidualLayerNorm` (``linear_bias``,
-``ln_scale``, ``ln_bias``).
+``ln_scale``, ``ln_bias``). `load_jax_optimizer_state` carries a JAX
+optimizer's accumulators and step count the same way, so a parity run can
+continue from one state on both sides.
 """
 from __future__ import annotations
 
@@ -15,7 +17,13 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["load_jax_state", "jax_state_values"]
+__all__ = ["load_jax_state", "jax_state_values", "load_jax_optimizer_state"]
+
+
+def _linear_weights(model):
+    return {f"{name}.weight" if name else "weight"
+            for name, mod in model.named_modules()
+            if isinstance(mod, nn.Linear)}
 
 
 def jax_state_values(model: nn.Module, arrays):
@@ -24,9 +32,7 @@ def jax_state_values(model: nn.Module, arrays):
     weights transposed to ``[out, in]``), the form `LLMEngine.stage_weights`
     takes. Raises KeyError on a missing or extra name and ValueError on a
     shape mismatch."""
-    linear_weights = {f"{name}.weight" if name else "weight"
-                      for name, mod in model.named_modules()
-                      if isinstance(mod, nn.Linear)}
+    linear_weights = _linear_weights(model)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(arrays))
     extra = sorted(set(arrays) - set(params))
@@ -56,3 +62,38 @@ def load_jax_state(model: nn.Module, arrays):
         for p, arr in zip(model.parameters(), values):
             p.copy_(torch.tensor(arr))
     return model
+
+
+def load_jax_optimizer_state(topt, tmodel: nn.Module, jopt, jmodel):
+    """Copy the JAX optimizer `jopt`'s accumulators (over `jmodel`'s
+    parameters) and step count into the port's optimizer `topt` (over
+    `tmodel`'s), in place. The JAX side keys its accumulators by parameter
+    name (``param_<n>``), so parameters pair by position in the two
+    models' ``parameters()`` orders; accumulators of Linear weights are
+    transposed as the weights are. Raises ValueError where the models'
+    parameter counts or an accumulator's shape disagree, and KeyError
+    where `topt` has an accumulator the JAX side lacks."""
+    tparams = list(tmodel.named_parameters())
+    jparams = list(jmodel.parameters())
+    if len(tparams) != len(jparams):
+        raise ValueError(f"{len(tparams)} parameters in the port's model, "
+                         f"{len(jparams)} in the JAX model")
+    linear_weights = _linear_weights(tmodel)
+    topt._create_accumulators([p for _, p in tparams])
+    with torch.no_grad():
+        for acc, per_param in topt._accumulators.items():
+            for (name, tp), jp in zip(tparams, jparams):
+                if tp not in per_param:
+                    continue
+                arr = np.asarray(jopt._accumulators[acc][jp.name])
+                if name in linear_weights:
+                    arr = arr.T
+                if tuple(arr.shape) != tuple(per_param[tp].shape):
+                    raise ValueError(f"{name} {acc}: expected shape "
+                                     f"{tuple(per_param[tp].shape)}, got "
+                                     f"{tuple(arr.shape)}")
+                # through fp32, which holds a bf16 value exactly
+                per_param[tp].copy_(torch.from_numpy(
+                    np.ascontiguousarray(arr, dtype=np.float32)))
+    topt._step_count = int(getattr(jopt, "_step_count", 0))
+    return topt

@@ -1,27 +1,37 @@
-"""Atomic, CRC-checked files of a JSON-able payload.
+"""Atomic, CRC-checked checkpoint files: tensors and state dicts (`save` /
+`load`) and JSON-able payloads (`save_json` / `load_json`).
 
-Counterpart of the integrity half of `paddle_tpu/framework/io.py` (`save` /
-`load` with an atomic replace and a CRC trailer, `CheckpointCorruptError`),
-for what the port stores so far: crash-resume snapshots of the serving
-engine (`incubate.checkpoint.ServeCheckpointer`). The file format is the
-port's own: the payload as UTF-8 JSON, then a 24-byte trailer of three
-little-endian uint64s (magic, payload length, CRC-32 of the payload). A
-save writes a temporary file beside the target, flushes and fsyncs it, and
-renames it over the target, so a reader sees the old file or the new one,
-never half of one. A load that finds a short file, another magic, a length
-or CRC that does not match, or bytes that are not JSON raises
-`CheckpointCorruptError`.
+Counterpart of `paddle_tpu/framework/io.py` (`save` / `load` with an atomic
+replace and a CRC trailer, `CheckpointCorruptError`; `:72-98`,
+`:181-241`). The file formats are the port's own: the payload (for `save`,
+`torch.save`'s bytes of the object with every tensor moved to the CPU;
+for `save_json`, UTF-8 JSON), then a 24-byte trailer of three
+little-endian uint64s (magic, payload length, CRC-32 of the payload), one
+magic for each format. A save writes a temporary file beside the target,
+flushes and fsyncs it, and renames it over the target, so a reader sees
+the old file or the new one, never half of one. A load that finds a short
+file, another magic, a length or CRC that does not match, or a payload
+that does not parse raises `CheckpointCorruptError`. `load` unpickles
+with ``weights_only=True``: tensors, numbers, strings and containers of
+them, nothing that runs code. `async_save` is not ported (ROADMAP.md
+Queue 1 item 5).
 """
 from __future__ import annotations
 
+import io
 import json
 import os
+import pickle
 import struct
 import zlib
 
-__all__ = ["save_json", "load_json", "CheckpointCorruptError"]
+import torch
 
-_MAGIC = 0x4E4F534A54505450  # "PTPTJSON"
+__all__ = ["save", "load", "save_json", "load_json",
+           "CheckpointCorruptError"]
+
+_MAGIC_JSON = 0x4E4F534A54505450   # "PTPTJSON"
+_MAGIC_TORCH = 0x484352544F545450  # "PTTORTCH"
 _TRAILER = struct.Struct("<QQQ")
 
 
@@ -31,17 +41,17 @@ class CheckpointCorruptError(IOError):
     one instead of resuming on partial state."""
 
 
-def save_json(payload, path):
-    """Write `payload` (JSON-able) to `path` atomically with its CRC
-    trailer; makes the directory. Returns `path`."""
-    data = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+def _write_atomic(data, path, magic):
+    """`data` and its trailer to `path` by a temporary file and a rename;
+    makes the directory. Returns `path`."""
+    path = os.fspath(path)
     directory = os.path.dirname(os.path.abspath(path))
     os.makedirs(directory, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
         with open(tmp, "wb") as f:
             f.write(data)
-            f.write(_TRAILER.pack(_MAGIC, len(data), zlib.crc32(data)))
+            f.write(_TRAILER.pack(magic, len(data), zlib.crc32(data)))
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, path)
@@ -57,24 +67,68 @@ def save_json(payload, path):
     return path
 
 
-def load_json(path):
-    """The payload `save_json` wrote at `path`; `CheckpointCorruptError`
-    where the file fails its integrity check."""
+def _read_verified(path, magic):
+    """The payload of the file at `path`, its trailer checked."""
     with open(path, "rb") as f:
         blob = f.read()
     if len(blob) < _TRAILER.size:
         raise CheckpointCorruptError(f"{path}: {len(blob)} bytes, shorter "
                                      f"than the {_TRAILER.size}-byte "
                                      "trailer")
-    magic, length, crc = _TRAILER.unpack(blob[-_TRAILER.size:])
+    found, length, crc = _TRAILER.unpack(blob[-_TRAILER.size:])
     data = blob[:-_TRAILER.size]
-    if magic != _MAGIC or length != len(data):
+    if found != magic or length != len(data):
         raise CheckpointCorruptError(f"{path}: trailer does not match the "
                                      "file (truncated or not a checkpoint)")
     if zlib.crc32(data) != crc:
         raise CheckpointCorruptError(f"{path}: CRC mismatch")
+    return data
+
+
+def save_json(payload, path):
+    """Write `payload` (JSON-able) to `path` atomically with its CRC
+    trailer; makes the directory. Returns `path`."""
+    data = json.dumps(payload, separators=(",", ":")).encode("utf-8")
+    return _write_atomic(data, path, _MAGIC_JSON)
+
+
+def load_json(path):
+    """The payload `save_json` wrote at `path`; `CheckpointCorruptError`
+    where the file fails its integrity check."""
+    data = _read_verified(path, _MAGIC_JSON)
     try:
         return json.loads(data.decode("utf-8"))
     except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise CheckpointCorruptError(f"{path}: payload does not parse "
+                                     f"({e})") from e
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_cpu(v) for v in obj)
+    return obj
+
+
+def save(obj, path):
+    """Write `obj` (tensors, numbers, strings, None, and dicts, lists and
+    tuples of them, such as a state dict) to `path` atomically with its
+    CRC trailer; every tensor is saved as a CPU copy. Returns `path`."""
+    buf = io.BytesIO()
+    torch.save(_to_cpu(obj), buf)
+    return _write_atomic(buf.getvalue(), path, _MAGIC_TORCH)
+
+
+def load(path, map_location="cpu"):
+    """The object `save` wrote at `path`, its tensors on `map_location`;
+    `CheckpointCorruptError` where the file fails its integrity check."""
+    data = _read_verified(path, _MAGIC_TORCH)
+    try:
+        return torch.load(io.BytesIO(data), map_location=map_location,
+                          weights_only=True)
+    except (pickle.UnpicklingError, EOFError, RuntimeError) as e:
         raise CheckpointCorruptError(f"{path}: payload does not parse "
                                      f"({e})") from e

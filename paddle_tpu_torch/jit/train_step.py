@@ -3,12 +3,16 @@
 Counterpart of `paddle_tpu/jit/train_step.py` (`TrainStep`), which compiles
 forward, backward and update into one XLA executable with `jax.jit`. Each
 call runs the forward ``model(*args[:-1])``, ``loss_fn(out, args[-1])``,
-the backward, and the optimizer's update over every parameter of the model
+the backward, and the optimizer's step over every parameter of the model
 that requires grad (one with no gradient is updated with a zero gradient,
 as the reference's traced step does), and returns the loss as a fresh
-tensor. Gradients go straight from autograd to the update, so no ``.grad``
-is left behind. With ``loss_fn=None`` the model returns the loss from all
-of `args`.
+tensor. The step is the optimizer's own, as its eager `step` runs it: the
+regularizer, then the gradient clip (a global norm stays on the device),
+then the multi-tensor update (`Optimizer._prepare`, `_update`), outside
+any `amp.auto_cast` the call is made in (the forward runs under it).
+Gradients go straight from autograd to the update, so no ``.grad`` is left
+behind. With ``loss_fn=None`` the model returns the loss from all of
+`args`.
 
 On the card the step is one CUDA graph replay. The first call with an
 input signature (shapes, dtypes, device) builds it: static input buffers,
@@ -24,22 +28,25 @@ loss, which the next replay overwrites. A new signature builds a new graph,
 as the reference's `jax.jit` retraces; so does a parameter whose storage
 moved since the build (``p.data = ...``, ``model.to(...)``), since the
 graph holds its address (the optimizer's accumulators are made once and
-updated in place, so theirs stay). `_builds` counts builds. Values read
+updated in place, and `Optimizer.set_state_dict` copies into them, so
+theirs stay). `_builds` counts builds. Values read
 while capturing (flags such as ``FLAGS_use_fused_cross_entropy``) are
 baked in, as the reference's trace bakes them. A failed capture raises
 with its cause; there is no eager fallback. On the CPU the same step code
 runs eagerly (`_step_eager`, which the card's smoke also times against the
 graph).
 
-The reference's step applies neither the optimizer's gradient clip nor its
-regularizer, while its `Optimizer.step` applies both (ROADMAP.md Queue 3).
-Until that is settled, a TrainStep over an optimizer with a gradient clip
-raises NotImplementedError; the port's optimizers take no regularizer yet.
+The reference's `TrainStep` applies neither the optimizer's clip nor its
+regularizer, while its `Optimizer.step` applies both; ``grad_clip=`` means
+the optimizer clips wherever it updates, so the port applies both here
+and is held to the reference's eager loop (ROADMAP.md Queue 3 logs the
+reference's step as a fault).
 """
 from __future__ import annotations
 
 import torch
 
+from .. import amp
 from ..kernels import add_launches, capture_graph, warm_up
 
 __all__ = ["TrainStep"]
@@ -47,11 +54,6 @@ __all__ = ["TrainStep"]
 
 class TrainStep:
     def __init__(self, model, loss_fn, optimizer):
-        if optimizer._grad_clip is not None:
-            raise NotImplementedError(
-                "TrainStep with a gradient clip: the reference's TrainStep "
-                "ignores it while its Optimizer.step applies it (ROADMAP.md "
-                "Queue 3); call loss.backward() and optimizer.step() instead")
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer
@@ -70,11 +72,18 @@ class TrainStep:
         return [(p, torch.zeros_like(p) if g is None else g)
                 for p, g in zip(self._params, grads)]
 
+    def _apply(self, params_grads):
+        """The optimizer's regularizer, clip and update over
+        `params_grads`, from the scalars it holds."""
+        opt = self.optimizer
+        with torch.no_grad(), amp.suspended():
+            opt._update(opt._prepare(params_grads))
+
     def _step_code(self, args):
-        """Forward, loss, gradients and the optimizer's update from the
-        scalars it holds; returns the detached loss."""
+        """Forward, loss, gradients and the optimizer's step; returns the
+        detached loss."""
         loss = self._loss(args)
-        self.optimizer._update(self._grads(loss))
+        self._apply(self._grads(loss))
         return loss.detach()
 
     def _step_eager(self, *args):
@@ -124,7 +133,8 @@ class TrainStep:
                        for dtype in {p.dtype for p in self._params}]
             opt._create_accumulators(scratch)
             try:
-                opt._update([(s, torch.zeros_like(s)) for s in scratch])
+                with torch.no_grad(), amp.suspended():
+                    opt._update([(s, torch.zeros_like(s)) for s in scratch])
             finally:
                 for slot in opt._accumulators.values():
                     for s in scratch:

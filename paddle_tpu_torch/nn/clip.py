@@ -58,17 +58,23 @@ class ClipGradByNorm(ClipGradBase):
 
 class ClipGradByGlobalNorm(ClipGradBase):
     """Scale all clippable gradients by one factor so their joint L2 norm
-    is at most `clip_norm`."""
+    is at most `clip_norm`. The norm stays on the device (no host sync, so
+    a CUDA graph captures the clip); `global_norm` holds the last call's,
+    a 0-d fp32 tensor (inside a graph, the one each replay rewrites)."""
 
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
+        self.global_norm = None
 
     def __call__(self, params_grads):
-        grads = [g for p, g in params_grads if _clippable(p, g)]
-        if not grads:
+        # each gradient cast to fp32 once (a no-op for fp32 ones)
+        f32 = {i: g.float() for i, (p, g) in enumerate(params_grads)
+               if _clippable(p, g)}
+        if not f32:
             return params_grads
-        total = sum((g.float() * g.float()).sum() for g in grads)
-        scale = self.clip_norm / torch.clamp(torch.sqrt(total),
+        total = sum((g * g).sum() for g in f32.values())
+        self.global_norm = torch.sqrt(total)
+        scale = self.clip_norm / torch.clamp(self.global_norm,
                                              min=self.clip_norm)
-        return [(p, (g.float() * scale).to(g.dtype)) if _clippable(p, g)
-                else (p, g) for p, g in params_grads]
+        return [(p, (f32[i] * scale).to(g.dtype)) if i in f32 else (p, g)
+                for i, (p, g) in enumerate(params_grads)]

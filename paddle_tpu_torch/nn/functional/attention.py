@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ... import amp
 from ...framework.flags import get_flags
 from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
@@ -29,13 +30,15 @@ def _plain_attention(q, k, v, mask, is_causal, scale, dropout_p=0.0):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     scores = (qt @ kt.transpose(-1, -2)) * scale            # [B, H, N, M]
     n, m = scores.shape[-2], scores.shape[-1]
+    # -1e30 in the scores' dtype, as the reference's: -inf in float16
+    neg = float(torch.tensor(_NEG_INF).to(scores.dtype))
     if is_causal:
         q_pos = torch.arange(n, device=q.device)[:, None] + (m - n)
         k_pos = torch.arange(m, device=q.device)[None, :]
-        scores = scores.masked_fill(q_pos < k_pos, _NEG_INF)
+        scores = scores.masked_fill(q_pos < k_pos, neg)
     if mask is not None:
         if mask.dtype == torch.bool:
-            scores = scores.masked_fill(~mask, _NEG_INF)
+            scores = scores.masked_fill(~mask, neg)
         else:
             scores = scores + mask.to(scores.dtype)
     probs = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
@@ -48,15 +51,22 @@ def _flash_eligible(q, k, mask, dropout_p, is_causal):
     """The flash route: ``FLAGS_use_flash_attention``, no mask, no dropout,
     [B, N, H, D] with D in the kernel's head dims, n == m when causal (the
     kernel's mask is top-left). No minimum length: the kernels mask their
-    own ragged edges."""
+    own ragged edges. A float16 call that is otherwise eligible raises on
+    a CUDA tensor (the kernels take fp32 and bf16: ROADMAP.md item 3(g))
+    and takes the plain path on the CPU."""
     if mask is not None or dropout_p:
         return False
     if not get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
         return False
     if q.ndim != 4 or q.shape[-1] not in _FLASH_HEAD_DIMS \
-            or q.dtype not in _FLASH_DTYPES:
+            or (is_causal and q.shape[1] != k.shape[1]):
         return False
-    return not (is_causal and q.shape[1] != k.shape[1])
+    if q.dtype == torch.float16 and q.is_cuda:
+        raise NotImplementedError(
+            "flash attention on the card takes fp32 and bf16; float16 "
+            "(auto_cast(dtype='float16'), a float16 model) is not ported "
+            "yet (ROADMAP.md Queue 1 item 3(g))")
+    return q.dtype in _FLASH_DTYPES
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
@@ -65,13 +75,21 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """query/key/value: ``[batch, seq, num_heads, head_dim]``. Flash-eligible
     calls go through the autograd `FlashAttention` on both devices (the
     CUDA kernels forward and backward on the card, their plain twins on the
-    CPU); the rest take the plain path."""
+    CPU); the rest take the plain path. Under `amp.auto_cast` the call is
+    one op, the reference's ``scaled_dot_product_attention``: its inputs
+    are cast by the policy, its body is not."""
+    inputs = [query, key, value] + ([attn_mask] if attn_mask is not None
+                                    else [])
+    query, key, value, *mask = amp.amp_cast_inputs(
+        "scaled_dot_product_attention", inputs)
+    attn_mask = mask[0] if mask else None
     scale = 1.0 / math.sqrt(query.shape[-1])
     eff_dropout = dropout_p if training else 0.0
-    if _flash_eligible(query, key, attn_mask, eff_dropout, is_causal):
-        return FlashAttention.apply(query, key, value, is_causal, scale)
-    return _plain_attention(query, key, value, attn_mask, is_causal, scale,
-                            eff_dropout)
+    with amp.suspended():
+        if _flash_eligible(query, key, attn_mask, eff_dropout, is_causal):
+            return FlashAttention.apply(query, key, value, is_causal, scale)
+        return _plain_attention(query, key, value, attn_mask, is_causal,
+                                scale, eff_dropout)
 
 
 def _dense_gather_attention(qh, k_pool, v_pool, block_tables, lens,

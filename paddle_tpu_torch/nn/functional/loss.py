@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import amp
 from ...kernels.cross_entropy import (fused_softmax_cross_entropy,
                                       is_eligible, masked_reduce)
 
@@ -38,10 +39,22 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
     """Softmax cross-entropy of `input` (logits over `axis`) against `label`
-    (class ids, or a distribution with ``soft_label=True``)."""
+    (class ids, or a distribution with ``soft_label=True``). Under
+    `amp.auto_cast` the call is one op, the reference's ``cross_entropy``
+    (black-listed: float inputs go to fp32), its body uncast."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
                          f"{reduction!r}")
+    inputs = [input, label] + ([weight] if weight is not None else [])
+    input, label, *weight = amp.amp_cast_inputs("cross_entropy", inputs)
+    with amp.suspended():
+        return _cross_entropy(input, label, weight[0] if weight else None,
+                              ignore_index, reduction, soft_label, axis,
+                              use_softmax, label_smoothing)
+
+
+def _cross_entropy(input, label, weight, ignore_index, reduction, soft_label,
+                   axis, use_softmax, label_smoothing):
     n_classes = input.shape[axis]
     if soft_label:
         loss = -(label * _log_probs(input, axis, use_softmax)).sum(dim=axis)

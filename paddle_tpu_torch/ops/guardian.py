@@ -2,8 +2,10 @@
 
 Counterpart of the fault-injection part of `paddle_tpu/ops/guardian.py`
 (`ChaosFault`, `inject_fault`, `clear_faults`, `faults_armed`,
-`poll_fault`), copied. The rest of the reference's guardian (the numeric
-guard of the fused tiers and its statistics) belongs to ROADMAP Queue 1
+`poll_fault`), copied, and `update_scaler_state`, the dynamic loss-scale
+transition `amp.GradScaler.update` runs on the device. The rest of the
+reference's guardian (the numeric guard of the fused tiers,
+``FLAGS_check_numerics`` and its statistics) belongs to ROADMAP Queue 1
 item 5 and is not ported; nothing here dispatches operators, so only
 `poll_fault` fires an injector.
 
@@ -24,8 +26,10 @@ clears them (`clear_faults`) when it is done.
 """
 from __future__ import annotations
 
+import torch
+
 __all__ = ["ChaosFault", "inject_fault", "clear_faults", "faults_armed",
-           "poll_fault", "KINDS"]
+           "poll_fault", "update_scaler_state", "KINDS"]
 
 KINDS = ("nan_output", "raise", "hang", "stall")
 
@@ -91,3 +95,21 @@ def poll_fault(name, kinds):
         inj.fired += 1
         return inj.kind
     return None
+
+
+def update_scaler_state(scale, good, bad, found_inf, incr_ratio,
+                        decr_ratio, incr_every_n_steps,
+                        decr_every_n_nan_or_inf):
+    """The dynamic loss-scale transition, the reference's
+    (`paddle_tpu/ops/guardian.py` `update_scaler_state`), on device
+    tensors: `scale` fp32, `good` and `bad` int32, `found_inf` bool, all
+    0-d. Returns ``(scale, good, bad)`` after the step; nothing syncs."""
+    bad2 = torch.where(found_inf, bad + 1, 0)
+    good2 = torch.where(found_inf, 0, good + 1)
+    shrink = found_inf & (bad2 >= decr_every_n_nan_or_inf)
+    grow = ~found_inf & (good2 >= incr_every_n_steps)
+    scale2 = torch.where(
+        shrink, torch.clamp(scale * decr_ratio, min=1.0),
+        torch.where(grow, scale * incr_ratio, scale))
+    return (scale2, torch.where(grow, 0, good2),
+            torch.where(shrink, 0, bad2))

@@ -55,5 +55,12 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.kernels.fused_ln",
                 "paddle_tpu_torch.incubate.nn.fused_transformer",
                 "paddle_tpu_torch.serving.tenancy",
-                "paddle_tpu_torch.kernels.lora_delta"}
+                "paddle_tpu_torch.kernels.lora_delta",
+                "paddle_tpu_torch.optimizer.regularizer",
+                "paddle_tpu_torch.amp",
+                "paddle_tpu_torch.amp.auto_cast",
+                "paddle_tpu_torch.amp.grad_scaler",
+                "paddle_tpu_torch.ops.guardian",
+                "paddle_tpu_torch.framework.io",
+                "paddle_tpu_torch.incubate.checkpoint"}
     assert expected <= set(res["imported"])

@@ -16,7 +16,8 @@
 - One AdamW `_single_update` with ``multi_precision`` on a bf16 parameter.
 - An eager `Optimizer.step` with `ClipGradByGlobalNorm`, and each clip
   against the reference's on the same arrays.
-- What is not ported raises.
+- What is not ported raises (the clip inside TrainStep and the
+  regularizers now build).
 
 Tolerances, fp32: losses 1e-5 relative and absolute (the same sums in
 another order, through 10 steps). Parameters after 10 steps: 1e-5
@@ -42,6 +43,7 @@ from paddle_tpu.jit import TrainStep as JTrainStep
 from paddle_tpu.nn import clip as jclip
 from paddle_tpu.optimizer import lr as jlr
 
+from paddle_tpu_torch import amp
 from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.framework import set_flags
 from paddle_tpu_torch.incubate.models import (GPTConfig, GPTForCausalLM,
@@ -342,13 +344,20 @@ def test_eager_step_with_global_norm_clip_matches_jax():
 
 
 def test_not_ported_options_raise():
+    """What still raises. A TrainStep over an optimizer with a clip and a
+    float ``weight_decay`` (L2Decay) raised until they were ported; both
+    now build (`tests/test_torch_optimizers.py` holds them to the
+    reference)."""
     _, tm = _pair(128, 4)
-    with pytest.raises(NotImplementedError, match="Queue 3"):
-        TrainStep(tm, GPTPretrainingCriterion(),
-                  AdamW(parameters=tm.parameters(),
-                        grad_clip=tclip.ClipGradByGlobalNorm(1.0)))
-    with pytest.raises(NotImplementedError, match="regularizers"):
-        Adam(parameters=tm.parameters(), weight_decay=0.01)
+    TrainStep(tm, GPTPretrainingCriterion(),
+              AdamW(parameters=tm.parameters(),
+                    grad_clip=tclip.ClipGradByGlobalNorm(1.0)))
+    assert Adam(parameters=tm.parameters(),
+                weight_decay=0.01).regularization.coeff == 0.01
+    # float16 reaches the card's kernels only to raise there (ROADMAP.md
+    # item 3(g)); amp takes bf16 and float16 only
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        amp.auto_cast(dtype="int8")
     # a schedule must be an LRScheduler (ported); any other callable is
     # refused when the optimizer is made
     with pytest.raises(TypeError, match="LRScheduler"):

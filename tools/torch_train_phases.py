@@ -1,0 +1,39 @@
+"""Run the training-remainder phases of `chip_smoke.py` alone on the card:
+
+    python3 tools/torch_train_phases.py [phase ...]
+
+phases: train_amp, train_optimizers, train_scaler, train_resume (all of
+them, in that order, by default). Builds the kernels, checks the AdamW
+update kernel against its twin (its time is train_optimizers' yardstick),
+then runs each phase as `chip_smoke.py` does and prints its wall time
+(~100 s of command time for all four on an H100). A fresh process, so
+the profiler counts every kernel of the updates, which late in a full
+`chip_smoke.py` run it may not.
+"""
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke as cs  # noqa: E402
+
+
+def main():
+    print(cs._card())
+    t0 = time.perf_counter()
+    secs, _ = cs._build.build_all()
+    print(f"build {secs:.1f} s")
+    row = cs.check_adam_update()
+    phases = {"train_amp": cs.train_amp,
+              "train_optimizers": lambda: cs.train_optimizers(row["ms"]),
+              "train_scaler": cs.train_scaler,
+              "train_resume": cs.train_resume}
+    for name in sys.argv[1:] or list(phases):
+        t = time.perf_counter()
+        phases[name]()
+        print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - t0:.1f} s")
+
+
+if __name__ == "__main__":
+    main()
