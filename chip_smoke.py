@@ -230,7 +230,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                bf16 on [8, 1024, 768] activations, forward and backward
                for some iterations, one fused_ln launch per forward; then
                its fp32 output and five gradients on the card against the
-               CPU's.
+               CPU's;
+  9. float16 — every kernel's float16 instantiation against its twin at
+               the main paths' shapes (run with phase 3; the flash pair
+               within `flash_fwd_f16_tol` / `flash_bwd_f16_tol` and their
+               Frobenius limits, also where a large dO drives |dS| past
+               65504 and the fp32 gradients fit: no inf or NaN; pools,
+               scatters and the update bit for bit), each timed beside
+               its twin and one library call (rows `<counter>:fp16`, and
+               `:fp32` / `:bf16` for the casts into f16 pools);
+               serve_fp16 — `serve` and `serve_int8` on an f16 GPT-2 124M
+               (graph replays counted, graph = eager tokens, int8 streams
+               admitted at equal pool bytes, step, TTFT and prefill p50
+               beside the bf16 runs'), f16 card vs CPU parity, two
+               adapters, `generate`, an fp32 or bf16 model over f16 pools
+               and the f16 model over fp32 or bf16 pools; train_fp16 —
+               `train_amp` and `train_scaler` under float16 (O1 and O2
+               through `TrainStep`'s graph, bit for bit with the eager
+               step, MFU, peak memory; the eager O1 loop under
+               GradScaler, an inf at step 3, (scale, good, bad) by the
+               reference's rule, the global norms), a plain f16 model
+               with the fused CE; fused_ln in f16.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
@@ -275,6 +295,7 @@ from paddle_tpu_torch.kernels import (_build, capture_graph,
                                       launch_counts, paged_attention as pa,
                                       reset_launch_counts, warm_up)
 from paddle_tpu_torch.kernels import adam_update as au
+from paddle_tpu_torch.kernels._dtype import SHORT_NAMES
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
 from paddle_tpu_torch.kernels import lora_delta as ld
@@ -297,7 +318,8 @@ from paddle_tpu_torch.serving.sampling import sample_tokens
 # rate of each input type (bf16 on the tensor cores; fp32 off them, TF32
 # being off)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
+              torch.float32: 67e12}
 
 # (atol, rtol) of kernel vs plain twin on the card, same inputs.
 #   fp32: both sides compute in fp32 and differ only in summation order
@@ -307,7 +329,9 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #         the output to bf16 once, so one rounding flip is allowed: one
 #         bf16 step, at most 2^-7 of the value (rtol 8e-3); atol 1e-3 only
 #         absorbs values near 0, whose step lies far below it.
-FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3)}
+#   f16:  the same with f16's step, at most 2^-10 of the value (rtol 2e-3).
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 8e-3),
+             torch.float16: (1e-3, 2e-3)}
 # flash forward, bf16 (the tensor-core design): P is rounded to bf16 on
 # the tensor cores, so the forward has its own bf16 criteria, kept beside
 # the kernel (`fa.flash_fwd_bf16_tol`, atol 2^-8 max|v| and rtol 8e-3, and
@@ -399,7 +423,8 @@ FLASH_BWD_TOL = FLASH_TOL
 CE_LOSS_TOL = (5e-5, 1e-5)
 # dlogits from the same lse on both sides: exp rounding only (fp32), plus
 # one bf16 rounding of the output (bf16)
-CE_GRAD_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 8e-3)}
+CE_GRAD_TOL = {torch.float32: (1e-6, 1e-5), torch.bfloat16: (1e-6, 8e-3),
+               torch.float16: (1e-6, 2e-3)}
 # train phase, bf16: the unfused path rounds the log-softmax to bf16 per
 # element (~0.04 at ln V) and the loss to one bf16 step (0.0625 at 8-16);
 # the fused path keeps both in fp32
@@ -435,6 +460,14 @@ LOGITS_ATOL = 5e-4
 MARGIN_FACTOR = 4
 
 HEADS, HEAD_DIM = 12, 64
+# each serve run's stats of its warm pass, by tag
+SERVE_STATS = {}
+
+
+def _row_name(counter, dtype):
+    """The kernels line's name of an instantiation added by the float16
+    slice: its launch counter's name and its input type."""
+    return f"{counter}:{SHORT_NAMES[dtype]}"
 
 
 def _sass_counts(name, ops):
@@ -556,10 +589,8 @@ def _bound_ms(nbytes, flops, dtype):
 
 def flash_fwd_tol(v):
     """(atol, rtol) of the flash forward against its fp32 twin, for inputs
-    of v's type: the bf16 kernel's own criterion, else FLASH_TOL."""
-    if v.dtype == torch.bfloat16:
-        return fa.flash_fwd_bf16_tol(v)
-    return FLASH_TOL[v.dtype]
+    of v's type: the bf16 or f16 kernel's own criterion, else FLASH_TOL."""
+    return fa.flash_fwd_tol(v) or FLASH_TOL[v.dtype]
 
 
 def _close(name, got, want, tol):
@@ -586,29 +617,32 @@ def _fused_qkv(n, dtype, seed, heads=HEADS, head_dim=HEAD_DIM, batch=1):
 
 def _check_flash_case(tag, q, k, v, causal):
     """The forward against its twin: out within `flash_fwd_tol`, in bf16
-    also within fa.FLASH_FWD_BF16_FRO_RTOL, lse within LSE_TOL."""
+    and f16 also within their relative Frobenius limit
+    (`fa.flash_fro_rtol`), lse within LSE_TOL."""
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
     torch.cuda.synchronize()
     err = _close(tag + " out", out, ref, flash_fwd_tol(v))
-    if q.dtype == torch.bfloat16:
+    limit = fa.flash_fro_rtol(q.dtype)
+    if limit is not None:
         fro = fa.rel_fro(out, ref)
         print(f"  {tag} out: relative Frobenius error {fro:.3e} (at most "
-              f"{fa.FLASH_FWD_BF16_FRO_RTOL})")
-        assert fro <= fa.FLASH_FWD_BF16_FRO_RTOL, (tag, fro)
+              f"{limit})")
+        assert fro <= limit, (tag, fro)
     _close(tag + " lse", lse, ref_lse, LSE_TOL)
     return err
 
 
-def _offset_qkv(n, seed, heads=HEADS, head_dim=HEAD_DIM):
-    """q, k, v as views of one bf16 buffer whose rows are 3 * H * D + 16
+def _offset_qkv(n, seed, heads=HEADS, head_dim=HEAD_DIM,
+                dtype=torch.bfloat16):
+    """q, k, v as views of one 2-byte buffer whose rows are 3 * H * D + 16
     elements: q at offset 0, k at H * D + 8 and v at 2 * H * D + 16
     elements, so k and v start 16-byte aligned but off the buffer's own
     alignment."""
     width = heads * head_dim
     g = torch.Generator(device="cuda").manual_seed(seed)
     buf = torch.randn((1, n, 3 * width + 16), generator=g,
-                      device="cuda").to(torch.bfloat16)
+                      device="cuda").to(dtype)
     return tuple(buf[..., off:off + width].view(1, n, heads, head_dim)
                  for off in (0, width + 8, 2 * width + 16))
 
@@ -638,7 +672,8 @@ def _time_flash(q, k, v, err):
             "library_ms": library_ms,
             "tflops": flops / (ms * 1e-3) / 1e12,
             "tile": "64 q rows (1 consumer warpgroup) x 64-key K/V tiles",
-            "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"}
+            "shape": f"q,k,v ({b}, {n}, {HEADS}, {HEAD_DIM}) "
+                     f"{str(q.dtype)[6:]} causal"}
 
 
 def check_flash():
@@ -1190,7 +1225,8 @@ def _scatter_state(bucket, dtype, int8, seed, bs=16, head_dim=HEAD_DIM,
 
 
 def _bits(t):
-    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return t.view(torch.int16) if t.dtype in (torch.bfloat16, torch.float16) \
+        else t
 
 
 def _check_scatter_case(bucket, length, dtype, int8, bs=16,
@@ -1380,52 +1416,55 @@ def check_fused_ln():
             "shape": f"x, residual ({r}, {d}) bf16, bias/scale/shift bf16"}
 
 
-def _strided_grad(q, seed):
+def _strided_grad(q, seed, gain=1.0):
     """An output gradient laid out [B, H, N, D] and viewed as [B, N, H, D]:
-    rows contiguous, the rest strided, as a reshaped gradient can be."""
+    rows contiguous, the rest strided, as a reshaped gradient can be;
+    normal values times `gain`."""
     b, n, h, d = q.shape
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return torch.randn((b, h, n, d), generator=g, device="cuda") \
+    return (torch.randn((b, h, n, d), generator=g, device="cuda") * gain) \
         .to(q.dtype).transpose(1, 2)
 
 
-def _flash_bwd_inputs(q, k, v, causal, seed):
-    do = _strided_grad(q, seed)
+def _flash_bwd_inputs(q, k, v, causal, seed, gain=1.0):
+    do = _strided_grad(q, seed, gain)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     delta = fa.flash_attention_delta(out, do)
     return q, k, v, do, lse, delta, causal, 1.0 / (q.shape[-1] ** 0.5)
 
 
-def _check_flash_bwd_case(tag, q, k, v, causal, seed=0):
+def _check_flash_bwd_case(tag, q, k, v, causal, seed=0, gain=1.0):
     """dQ, dK, dV against their twins: fp32 within FLASH_BWD_TOL, bf16
-    within `fa.flash_bwd_bf16_tol` and, each, a relative Frobenius error
-    of at most fa.FLASH_BWD_BF16_FRO_RTOL."""
-    args = _flash_bwd_inputs(q, k, v, causal, seed)
+    and f16 within `fa.flash_bwd_tol` (`flash_bwd_bf16_tol`,
+    `flash_bwd_f16_tol`) and, each, a relative Frobenius error of at most
+    the type's limit (`fa.flash_fro_rtol`). `gain` scales dO."""
+    args = _flash_bwd_inputs(q, k, v, causal, seed, gain)
     dq = fa.flash_attention_bwd_dq(*args)
     dk, dv = fa.flash_attention_bwd_dkv(*args)
     rq = fa.flash_attention_bwd_dq_reference(*args)
     rk, rv = fa.flash_attention_bwd_dkv_reference(*args)
     torch.cuda.synchronize()
-    bf16 = q.dtype == torch.bfloat16
-    tols = (fa.flash_bwd_bf16_tol(*args) if bf16 else
+    limit = fa.flash_fro_rtol(q.dtype, backward=True)
+    tols = (fa.flash_bwd_tol(*args) if limit is not None else
             dict.fromkeys(("dq", "dk", "dv"), FLASH_BWD_TOL[q.dtype]))
     errs = {}
     for name, got, want in (("dq", dq, rq), ("dk", dk, rk), ("dv", dv, rv)):
+        assert bool(torch.isfinite(got.float()).all()), (tag, name)
         errs[name] = _close(f"{tag} {name}", got, want, tols[name])
-        if bf16:
+        if limit is not None:
             fro = fa.rel_fro(got, want)
             print(f"  {tag} {name}: relative Frobenius error {fro:.3e} (at "
-                  f"most {fa.FLASH_BWD_BF16_FRO_RTOL})")
-            assert fro <= fa.FLASH_BWD_BF16_FRO_RTOL, (tag, name, fro)
+                  f"most {limit})")
+            assert fro <= limit, (tag, name, fro)
     return errs["dq"], max(errs["dk"], errs["dv"])
 
 
-def _check_flash_bwd_refuses_misaligned_do():
-    """A bf16 dO 2 bytes off a 16-byte boundary: TMA cannot read it, so
-    both backward wrappers raise, naming it, and launch nothing."""
-    q, k, v = _fused_qkv(40, torch.bfloat16, seed=13)
+def _check_flash_bwd_refuses_misaligned_do(dtype=torch.bfloat16):
+    """A bf16 (f16) dO 2 bytes off a 16-byte boundary: TMA cannot read
+    it, so both backward wrappers raise, naming it, and launch nothing."""
+    q, k, v = _fused_qkv(40, dtype, seed=13)
     width = HEADS * HEAD_DIM
-    buf = torch.zeros((1, 40, width + 8), dtype=torch.bfloat16, device="cuda")
+    buf = torch.zeros((1, 40, width + 8), dtype=dtype, device="cuda")
     do = buf[..., 1:1 + width].view(1, 40, HEADS, HEAD_DIM)
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     delta = fa.flash_attention_delta(out, do)
@@ -1435,8 +1474,8 @@ def _check_flash_bwd_refuses_misaligned_do():
             fn(q, k, v, do, lse, delta, True, 0.125)
         except ValueError as exc:
             assert "cannot read do:" in str(exc), exc
-            print(f"  flash bwd bf16 misaligned dO: {fn.__name__} raised "
-                  f"ValueError ({exc})")
+            print(f"  flash bwd {str(dtype)[6:]} misaligned dO: "
+                  f"{fn.__name__} raised ValueError ({exc})")
         else:
             raise AssertionError(f"{fn.__name__} took a misaligned dO")
     assert launch_counts() == before, (before, launch_counts())
@@ -2228,7 +2267,10 @@ def _check_lora_case(form, d_out, dtype, rank, layer=3, seed=None):
     got, want, first = y.clone(), y.clone(), y.clone()
     out = ld.lora_delta(got, *args)
     ld.lora_delta_reference(want, *args)
-    _first_delta()(first, *args)
+    # the first design has no f16 instantiation
+    has_first = dtype != torch.float16
+    if has_first:
+        _first_delta()(first, *args)
     exact = ld.lora_delta_exact(y, *args)
     tol = ld.lora_delta_tol(y, *args)
     torch.cuda.synchronize()
@@ -2241,7 +2283,7 @@ def _check_lora_case(form, d_out, dtype, rank, layer=3, seed=None):
     over = float((diff - tol).max())
     assert over <= 0, (form, d_out, dtype, rank, seed, past(got, want), over)
     base = idx == 0
-    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    bits = torch.int16 if y.element_size() == 2 else torch.int32
     assert torch.equal(got[base].view(bits), y[base].view(bits)), form
     if not bool(base.all()):
         assert float((got.float() - y.float())[~base].abs().max()) > 1e-3
@@ -2252,9 +2294,11 @@ def _check_lora_case(form, d_out, dtype, rank, layer=3, seed=None):
           f"{ld.lora_form(idx)} form: within the bound of the twin "
           f"(largest |diff| - bound {over:.3e}, max_abs_err {err:.3e}); "
           f"past the bound from fp64 sums: this {from_exact[0]}, the twin "
-          f"{from_exact[1]}, the first design {past(first, exact)}; base "
-          f"rows bit for bit; vs the first design max |diff| "
-          f"{float((got.float() - first.float()).abs().max()):.3e}")
+          f"{from_exact[1]}" + (
+              f", the first design {past(first, exact)}; base rows bit for "
+              f"bit; vs the first design max |diff| "
+              f"{float((got.float() - first.float()).abs().max()):.3e}"
+              if has_first else "; base rows bit for bit"))
     return err, from_exact
 
 
@@ -2402,9 +2446,9 @@ def _cast_tag(pool_dtype, q_dtype):
     return f"{str(q_dtype)[6:]} q over {str(pool_dtype)[6:]} pools"
 
 
-def check_append_cast():
-    """#4+ over pools of the other float type: `_check_append_case` for
-    both pairs (pools bit for bit with the twin's cast write on every
+def check_append_cast(pairs=CAST_PAIRS, suffix=False):
+    """#4+ over pools of another float type: `_check_append_case` for
+    each (pools, q) pair of `pairs` (CAST_PAIRS: both of fp32 and bf16) (pools bit for bit with the twin's cast write on every
     block but 0, block 0 untouched, the active slots' output within
     PAGED_TOL of the twin and bit-identical to the paged kernel alone on
     the twin's pools), each APPEND_REPEATS launches; then each timed at the
@@ -2414,7 +2458,7 @@ def check_append_cast():
     bs, layers, rows = 16, 12, []
     eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
                                               KV_APPEND_ACTIVE)]
-    for pool_dtype, q_dtype in CAST_PAIRS:
+    for pool_dtype, q_dtype in pairs:
         err = _check_append_case(pool_dtype, q_dtype)
         q, k, v, kp, vp, _, _, tables, lens, active = _kv_append_state(
             layers, pool_dtype, q_dtype, seed=6)
@@ -2462,14 +2506,15 @@ def check_append_cast():
         append_b = _kv_append_work(False, (p_elem + q_elem) / 2)
         bound, by = _bound_ms(paged_b[0] + append_b[0],
                               paged_b[1] + append_b[1], torch.float32)
-        name = pa.append_name(q_dtype, pool_dtype)
+        counter = pa.append_name(q_dtype, pool_dtype)
+        name = _row_name(counter, q_dtype) if suffix else counter
         ms = (f1 + f2) / 2
         print(f"  {name} ({_cast_tag(pool_dtype, q_dtype)}) at the serving "
               f"shape: {f1:.5f} / {f2:.5f} ms (two runs), library "
               f"yardstick {lib_ms:.5f} ms, twin {plain_ms:.5f} ms, bound "
               f"{bound:.5f} ms ({by})")
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "counter": counter, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/paged_decode.cu",
             "replaces": "paddle_tpu/kernels/pallas/paged_attention.py:167 "
                         "_decode_kernel over pools of another float type, "
@@ -2487,14 +2532,15 @@ def check_append_cast():
     return rows
 
 
-def check_scatter_cast():
-    """The prompt scatter into pools of the other float type, both pairs,
+def check_scatter_cast(pairs=CAST_PAIRS, suffix=False):
+    """The prompt scatter into pools of another float type, each (pools,
+    rows) pair of `pairs`,
     bit for bit with the twin's cast (`_check_scatter_case`) on every block
     but 0 at buckets 128 and 1024; then each timed at a full 1024-token
     bucket beside its twin and the library yardstick (two index_put_ a
     layer of the cast rows)."""
     bs, rows, tags = 16, [], []
-    for pool_dtype, row_dtype in CAST_PAIRS:
+    for pool_dtype, row_dtype in pairs:
         for bucket, lengths in SCATTER_CASES[1:]:
             for length in lengths:
                 tags.append(_check_scatter_case(bucket, length, row_dtype,
@@ -2526,13 +2572,14 @@ def check_scatter_cast():
             int((row != 0).sum()),
             pool_elem=torch.empty((), dtype=pool_dtype).element_size())
         bound, by = _bound_ms(nbytes, 0, torch.float32)
-        name = ps.scatter_name(row_dtype, pool_dtype)
+        counter = ps.scatter_name(row_dtype, pool_dtype)
+        name = _row_name(counter, row_dtype) if suffix else counter
         print(f"  {name} ({str(row_dtype)[6:]} rows into "
               f"{str(pool_dtype)[6:]} pools), bucket 1024: {t1:.5f} / "
               f"{t2:.5f} ms (two runs), library yardstick {lib_ms:.5f} ms, "
               f"twin {plain_ms:.5f} ms, bound {bound:.5f} ms ({by})")
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "counter": counter, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/prefill_scatter.cu",
             "replaces": "no Pallas counterpart: paddle_tpu/serving/cache.py"
                         ":279-281 scatter_prefill's .astype(k_pools.dtype) "
@@ -2547,8 +2594,9 @@ def check_scatter_cast():
                       f"block row of 64; library_ms: two index_put_ a layer "
                       f"of the cast rows")})
     print(f"  prefill_scatter cast: {len(tags)} cases bit-identical to the "
-          f"twin on blocks 1.. and block 0 untouched (fp32 rows into bf16 "
-          f"pools and bf16 rows into fp32 pools, buckets 128 and 1024)")
+          f"twin on blocks 1.. and block 0 untouched ((pools, rows) "
+          f"{[(str(a)[6:], str(b)[6:]) for a, b in pairs]}, buckets 128 and "
+          f"1024)")
     return rows
 
 
@@ -2699,7 +2747,7 @@ def _serve_window(engine, mix):
     return reqs, counts, engine.stats(), heads, prefills, wall
 
 
-def serve(kv_dtype=None):
+def serve(kv_dtype=None, dtype=torch.bfloat16, prefill_turns=True):
     """The serving mix through `LLMEngine` (bf16 pools, or int8 with
     ``kv_dtype="int8"``), whose decode step is one CUDA graph replay and
     whose prefill is one replay of its bucket's graph and one of a sampler
@@ -2712,7 +2760,8 @@ def serve(kv_dtype=None):
     against the eager prefill (`_prefill_vs_eager`). Returns the launch
     counts of the warm pass, the greedy requests' tokens of the first
     window and the model."""
-    tag = "serve_int8" if kv_dtype else "serve"
+    tag = ("serve_int8" if kv_dtype else "serve") + (
+        "" if dtype == torch.bfloat16 else f"_{SHORT_NAMES[dtype]}")
     paged, other = (("paged_decode_append_int8", "paged_decode_append")
                     if kv_dtype else ("paged_decode_append",
                                       "paged_decode_append_int8"))
@@ -2720,7 +2769,7 @@ def serve(kv_dtype=None):
                               if kv_dtype else ("prefill_scatter",
                                                 "prefill_scatter_int8"))
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
-    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(dtype)
     engine = LLMEngine(model, max_batch_size=8, block_size=16,
                        max_context=1024, kv_dtype=kv_dtype)
     captures = _measure_captures(engine)
@@ -2772,7 +2821,8 @@ def serve(kv_dtype=None):
         assert counts["sampler_filter"] == sum(heads) + sum(prefills) > 0, \
             (counts, sum(heads), sum(prefills))
         assert 1024 in st["prefill_p50_ms"], st["prefill_p50_ms"]
-        assert st["kv_dtype"] == ("int8" if kv_dtype else "bfloat16"), st
+        assert st["kv_dtype"] == ("int8" if kv_dtype
+                                  else str(dtype)[6:]), st
         print(f"{tag} ({name} pass): {len(reqs)} requests, "
               f"{st['tokens_generated']} tokens in {wall:.3f} s = "
               f"{st['tokens_generated'] / wall:.1f} tok/s; {st['steps']} "
@@ -2801,8 +2851,10 @@ def serve(kv_dtype=None):
           f"reserved {sum(captures) / 2**20:.1f} MiB in their shared pool "
           f"(by capture, MiB: "
           f"{json.dumps([round(d / 2**20, 1) for d in captures])})")
+    SERVE_STATS[tag] = passes["warm"][1]
     _graph_vs_eager(tag, model, engine, kv_dtype, rng)
-    _prefill_vs_eager(tag, model, kv_dtype, rng)
+    if prefill_turns:
+        _prefill_vs_eager(tag, model, kv_dtype, rng)
     return passes["warm"][0], greedy, model
 
 
@@ -3238,27 +3290,34 @@ def _admitted(model, kv_dtype, num_blocks, n=64, prompt=512):
     return admitted
 
 
-def serve_int8(bf16_greedy):
-    counts, greedy, model = serve(kv_dtype="int8")
+def serve_int8(bf16_greedy, dtype=torch.bfloat16, prefill_turns=True):
+    """`serve` over int8 pools under a model of `dtype` (bf16 or f16):
+    greedy agreement with the model's own pools' run (reported), and at
+    the bytes of its own default pool the int8 pool admits at least
+    INT8_CAPACITY_MIN times its streams."""
+    counts, greedy, model = serve(kv_dtype="int8", dtype=dtype,
+                                  prefill_turns=prefill_turns)
+    tag = "serve_int8" + ("" if dtype == torch.bfloat16
+                          else f"_{SHORT_NAMES[dtype]}")
     same = sum(a == b for ga, gb in zip(greedy, bf16_greedy)
                for a, b in zip(ga, gb))
     total = sum(len(g) for g in greedy)
     whole = sum(ga == gb for ga, gb in zip(greedy, bf16_greedy))
-    print(f"serve_int8: greedy tokens equal to the bf16 run's at "
-          f"{same}/{total} positions ({same / total:.4f}); {whole}/"
+    print(f"{tag}: greedy tokens equal to the {str(dtype)[6:]} pools' run's "
+          f"at {same}/{total} positions ({same / total:.4f}); {whole}/"
           f"{len(greedy)} streams identical throughout (reported, not held)")
     cfg = model.config
     head_dim = cfg.hidden_size // cfg.num_attention_heads
     geom = (cfg.num_hidden_layers, cfg.num_attention_heads, head_dim, 16)
-    # the bf16 engine's pool: its default 1 + 8 slots x 64 blocks
+    # the model's own engine's pool: its default 1 + 8 slots x 64 blocks
     nb_bf16 = 1 + 8 * 64
-    pool_bytes = nb_bf16 * pool_bytes_per_block(*geom, torch.bfloat16)
+    pool_bytes = nb_bf16 * pool_bytes_per_block(*geom, dtype)
     nb_int8 = num_blocks_for_bytes(pool_bytes, *geom, torch.int8)
     n_bf16 = _admitted(model, None, nb_bf16)
     n_int8 = _admitted(model, "int8", nb_int8)
-    print(f"serve_int8: at {pool_bytes} pool bytes the bf16 pool holds "
-          f"{nb_bf16} blocks and admits {n_bf16} streams of 512 tokens, the "
-          f"int8 pool {nb_int8} blocks and {n_int8} streams "
+    print(f"{tag}: at {pool_bytes} pool bytes the {str(dtype)[6:]} pool "
+          f"holds {nb_bf16} blocks and admits {n_bf16} streams of 512 "
+          f"tokens, the int8 pool {nb_int8} blocks and {n_int8} streams "
           f"({n_int8 / n_bf16:.3f}x; at least {INT8_CAPACITY_MIN}x)")
     assert n_int8 >= INT8_CAPACITY_MIN * n_bf16, (n_int8, n_bf16)
     return counts
@@ -3660,7 +3719,7 @@ def _agreement(got, want):
             sum(g == w for g, w in zip(got, want)))
 
 
-def serve_kv_mixed():
+def serve_kv_mixed(pairs=KV_MIXED, keys=None, parities=True):
     """The serve mix on GPT-2 124M with pools of the other float type: an
     fp32 model over bf16 pools and a bf16 model over fp32 pools. Every
     decode replay runs the cast instantiation of #4+ once a layer and
@@ -3670,11 +3729,14 @@ def serve_kv_mixed():
     bf16 pools hold twice the blocks and admit more streams, the fp32 pools
     half. The fp32 model's greedy tokens are held card against CPU by
     `parity(kv_dtype=bfloat16)`, the bf16 model's compared there and
-    reported. Returns the launch counts of each mixed run, by path."""
+    reported. `pairs`: (model, pools) dtypes (KV_MIXED by default);
+    `keys`: each pair's path name (serve_kv_mixed_<pools> by default);
+    `parities`: run those card-vs-CPU checks. Returns the launch counts of
+    each mixed run, by path."""
     paths = {}
     rng = np.random.default_rng(0)
     mix = _serve_mix(rng)
-    for model_dtype, kv in KV_MIXED:
+    for model_dtype, kv in pairs:
         tag = (f"serve_kv_mixed ({str(model_dtype)[6:]} model, "
                f"{str(kv)[6:]} pools)")
         model = _gpt(model_dtype)
@@ -3711,14 +3773,18 @@ def serve_kv_mixed():
         nb_same = 1 + 8 * 64
         pool_bytes = nb_same * pool_bytes_per_block(*geom, model_dtype)
         nb_mixed = num_blocks_for_bytes(pool_bytes, *geom, kv)
-        expect = 2 * nb_same if kv == torch.bfloat16 else nb_same // 2
+        m_elem = torch.empty((), dtype=model_dtype).element_size()
+        kv_elem = torch.empty((), dtype=kv).element_size()
+        expect = nb_same * m_elem // kv_elem
         assert nb_mixed == expect, (nb_mixed, nb_same)
         n_same = _admitted(model, None, nb_same)
         n_mixed = _admitted(model, kv, nb_mixed)
-        if kv == torch.bfloat16:
+        if kv_elem < m_elem:
             assert n_mixed >= 1.8 * n_same, (n_mixed, n_same)
-        else:
+        elif kv_elem > m_elem:
             assert n_mixed < n_same, (n_mixed, n_same)
+        else:
+            assert n_mixed == n_same, (n_mixed, n_same)
         print(f"{tag}: {len(reqs)} requests, {st['tokens_generated']} tokens "
               f"in {wall:.3f} s; {st['steps']} decode steps, p50 "
               f"{st['p50_step_ms']:.3f} ms, p99 {st['p99_step_ms']:.3f} ms "
@@ -3732,10 +3798,13 @@ def serve_kv_mixed():
               f"{nb_mixed} blocks and admit {n_mixed} streams of 512 "
               f"tokens, the model's own {nb_same} blocks and {n_same}")
         print(f"{tag}: launches {json.dumps(counts)}")
-        paths[f"serve_kv_mixed_{str(kv)[6:]}"] = counts
+        key = keys(model_dtype, kv) if keys else \
+            f"serve_kv_mixed_{str(kv)[6:]}"
+        paths[key] = counts
         del engines, engine, same, model
-    parity(kv_dtype=torch.bfloat16)
-    parity_bf16_model()
+    if parities:
+        parity(kv_dtype=torch.bfloat16)
+        parity_bf16_model()
     return paths
 
 
@@ -3760,7 +3829,7 @@ def parity_bf16_model():
           f"(reported); {name} launches {launch_counts()[name]}")
 
 
-def generate_phase():
+def generate_phase(dtypes=(torch.float32, torch.bfloat16)):
     """`GPTForCausalLM.generate` on GPT-2 124M, GEN_B prompts of GEN_P tokens,
     GEN_N new ones, fp32 then bf16: one program build for the signature across
     calls; greedy tokens equal to the engine's streams for the same prompts
@@ -3771,13 +3840,13 @@ def generate_phase():
     busy share); sampled (temperature 0.8, top-k 40, top-p 0.95): GEN_N
     keyed-draw launches with a row stride a call, the graph's tokens equal the
     eager loop's and repeat call to call. Returns the launch counts of one
-    sampled fp32 call."""
+    sampled call of the first of `dtypes` (fp32 then bf16 by default)."""
     rng = np.random.default_rng(3)
     ids = rng.integers(0, 50257, (GEN_B, GEN_P))
     sampler = dict(do_sample=True, top_k=40, top_p=0.95, temperature=0.8,
                    seed=5)
     counts = None
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         tag = f"generate ({str(dtype)[6:]})"
         model = _gpt(dtype)
         reset_launch_counts()
@@ -3839,7 +3908,7 @@ def generate_phase():
               f"sampled: keyed_draw_rows launches {GEN_N} a call (+1 in the "
               f"build's warm-up), graph = eager = repeat; builds "
               f"{model.gen_builds} (one a signature)")
-        if dtype == torch.float32:
+        if counts is None:
             counts = sampled_counts
         del model
     return counts
@@ -4709,15 +4778,15 @@ def _train_batch(cfg, seed=0, batch=8, seq=1024):
                               device="cuda") for _ in range(2))
 
 
-def _amp_pair(cfg, level):
+def _amp_pair(cfg, level, dtype="bfloat16"):
     """Two GPT-2 124M models from seed 0 (fp32 weights; O2 decorated to
-    bf16), each with AdamW and its own ClipGradByGlobalNorm, and a
+    `dtype`), each with AdamW and its own ClipGradByGlobalNorm, and a
     TrainStep: the first replays its graph, the second steps eagerly."""
     out = []
     for _ in range(2):
         model = GPTForCausalLM(cfg, device="cuda", seed=0)
         if level == "O2":
-            amp.decorate(model, level="O2", dtype="bfloat16")
+            amp.decorate(model, level="O2", dtype=dtype)
         model.train()
         clip = ClipGradByGlobalNorm(AMP_CLIP_NORM)
         opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
@@ -4728,9 +4797,10 @@ def _amp_pair(cfg, level):
     return out
 
 
-def train_amp(batch=8, seq=1024):
-    """GPT-2 124M under auto_cast(bf16): O1 over fp32 weights, O2 over
-    `decorate`d bf16 weights with AdamW(multi_precision); AdamW with a
+def train_amp(batch=8, seq=1024, dtype="bfloat16"):
+    """GPT-2 124M under auto_cast(`dtype`, bf16 or float16): O1 over fp32
+    weights, O2 over `decorate`d weights of `dtype` with
+    AdamW(multi_precision), peak memory of each; AdamW with a
     global-norm clip and the fused cross-entropy, through TrainStep's
     graph and its eager step (bit for bit after AMP_BITWISE_STEPS, the
     clip binding), then both timed in turns and profiled."""
@@ -4739,13 +4809,16 @@ def train_amp(batch=8, seq=1024):
     tokens = batch * seq
     set_flags({"FLAGS_use_fused_cross_entropy": True})
     counts, out = {}, {}
+    tag = "train_amp" if dtype == "bfloat16" else "train_fp16"
     try:
         for level in ("O1", "O2"):
-            graph, eager = _amp_pair(cfg, level)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            graph, eager = _amp_pair(cfg, level, dtype)
             g_model, g_opt, g_step, g_clip = graph
             e_model, e_opt, e_step, e_clip = eager
             flops = g_model.flops_per_token(seq)
-            with amp.auto_cast(level=level, dtype="bfloat16"):
+            with amp.auto_cast(level=level, dtype=dtype):
                 run_graph = lambda: g_step(ids, labels)  # noqa: E731
                 run_eager = lambda: e_step._step_eager(  # noqa: E731
                     ids, labels)
@@ -4756,10 +4829,12 @@ def train_amp(batch=8, seq=1024):
                                   float(e_clip.global_norm)))
                 differ, total = _count_differing(
                     _state_bits(g_model, g_opt), _state_bits(e_model, e_opt))
-                print(f"train_amp {level}: {AMP_BITWISE_STEPS} steps of the "
+                weights = ("fp32 weights" if level == "O1" else
+                           f"{dtype} weights, fp32 masters")
+                print(f"{tag} {level}: {AMP_BITWISE_STEPS} steps of the "
                       f"graph and of the eager step (AdamW, "
                       f"ClipGradByGlobalNorm({AMP_CLIP_NORM}), fused CE, "
-                      f"{'fp32 weights' if level == 'O1' else 'bf16 weights, fp32 masters'}): "
+                      f"{weights}): "
                       f"losses " + ", ".join(f"{a:.6f}/{b:.6f}"
                                              for a, b in losses)
                       + "; global norms before the clip " + ", ".join(
@@ -4784,40 +4859,29 @@ def train_amp(batch=8, seq=1024):
                 profiled = {}
                 for kind, fn in (("graph", run_graph), ("eager", run_eager)):
                     totals = {}
-                    _breakdown(f"train_amp {level} {kind}", fn, top=6,
+                    _breakdown(f"{tag} {level} {kind}", fn, top=6,
                                totals=totals)
                     profiled[kind] = totals
+            peak = torch.cuda.max_memory_allocated()
             for kind in ("graph", "eager"):
                 mine = [t for t in turns if t["turn"] == kind]
-                print(f"train_amp {level} {kind}: step p50 " + " / ".join(
+                print(f"{tag} {level} {kind}: step p50 " + " / ".join(
                     f"{t['p50_ms']:.3f}" for t in mine) + " ms; device "
                     + " / ".join(f"{t['device_ms']:.3f}" for t in mine)
                     + " ms a step; MFU " + " / ".join(
                         f"{t['mfu']:.4f}" for t in mine)
                     + f"; {profiled[kind].get('kernels', 0):.1f} kernels "
                     f"and {profiled[kind].get('copies', 0):.1f} copies a "
-                    f"step (profiled)")
-            out[level] = {"turns": turns, "profiled": profiled}
+                    f"step (profiled); peak memory of the phase "
+                    f"{peak / 2**30:.2f} GiB (both models)")
+            out[level] = {"turns": turns, "profiled": profiled,
+                          "peak_bytes": peak}
             del graph, eager, g_model, e_model, g_opt, e_opt, g_step, e_step
             torch.cuda.empty_cache()
     finally:
         set_flags({"FLAGS_use_fused_cross_entropy": False})
-    print("train_amp: " + json.dumps(out))
-    # float16 reaches the flash kernel, which takes fp32 and bf16: it
-    # raises there (ROADMAP.md item 3(g)) instead of taking another path
-    model = GPTForCausalLM(gpt2_124m(num_hidden_layers=1,
-                                     hidden_dropout_prob=0.0,
-                                     attention_probs_dropout_prob=0.0),
-                           device="cuda")
-    try:
-        with amp.auto_cast(level="O1", dtype="float16"):
-            model(ids[:1, :128])
-    except NotImplementedError as e:
-        print(f"train_amp: auto_cast(dtype='float16') raises at the first "
-              f"kernel: {e}")
-    else:
-        raise AssertionError("a float16 forward ran on the card")
-    return counts["O1"]
+    print(f"{tag}: " + json.dumps(out))
+    return counts
 
 
 def _update_program(opt, params):
@@ -4927,12 +4991,14 @@ def _scaler_rule(state, found_inf, kw=SCALER_KW):
     return scale, good, bad
 
 
-def train_scaler(batch=8, seq=1024):
+def train_scaler(batch=8, seq=1024, dtype="bfloat16"):
     """An eager GradScaler loop over fp32 GPT-2 124M under
-    auto_cast(O1, bf16) with AdamW: an inf in one gradient at
+    auto_cast(O1, `dtype`) with AdamW: an inf in one gradient at
     SCALER_INF_STEP leaves every parameter and accumulator bit for bit as
     it was and skips the step; the scale, good and bad counts follow the
-    reference's transition at every step."""
+    reference's transition at every step, its found-inf whatever made a
+    gradient non-finite (the inf, or an f16 overflow of the scaled
+    backward); the global norm of the unscaled gradients is printed."""
     cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     ids, labels = _train_batch(cfg, seed=2)
     model = GPTForCausalLM(cfg, device="cuda", seed=0)
@@ -4941,47 +5007,60 @@ def train_scaler(batch=8, seq=1024):
     scaler = amp.GradScaler(**SCALER_KW)
     crit = GPTPretrainingCriterion()
     want = (SCALER_KW["init_loss_scaling"], 0, 0)
-    seq_got, times = [], []
+    seq_got, times, norms, skipped = [], [], [], 0
     set_flags({"FLAGS_use_fused_cross_entropy": True})
     reset_launch_counts()
     try:
         for step in range(1, SCALER_STEPS + 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with amp.auto_cast(level="O1", dtype="bfloat16"):
+            with amp.auto_cast(level="O1", dtype=dtype):
                 loss = crit(model(ids), labels)
             scaler.scale(loss).backward()
             inject = step == SCALER_INF_STEP
             if inject:
                 model.gpt.h[-1].mlp.fc_in.weight.grad[3, 7] = float("inf")
+            scaler.unscale_(opt)
+            grads = [p.grad for p in model.parameters()]
+            norm = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads])))
+            found = not np.isfinite(norm)
+            norms.append(norm)
+            if found:
+                skipped += 1
                 before = [t.clone() for t in _state_bits(model, opt)]
             scaler.step(opt)
             scaler.update()
             opt.clear_grad()
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            if inject:
+            assert found or not inject, (step, norm)
+            if found:
                 differ, total = _count_differing(before,
                                                  _state_bits(model, opt))
                 assert differ == 0, (differ, total)
                 del before
             got = scaler.state_dict()
             got = (got["scale"], got["good_steps"], got["bad_steps"])
-            want = _scaler_rule(want, inject)
+            want = _scaler_rule(want, found)
             seq_got.append(got)
             assert got == want, (step, got, want)
             assert np.isfinite(float(loss.detach()))
     finally:
         set_flags({"FLAGS_use_fused_cross_entropy": False})
     counts = launch_counts()
-    assert opt._step_count == SCALER_STEPS - 1, opt._step_count
+    assert opt._step_count == SCALER_STEPS - skipped, opt._step_count
     assert counts["flash_attention_fwd"] == 12 * SCALER_STEPS, counts
-    print(f"train_scaler: eager GradScaler loop, fp32 GPT-2 124M under O1 "
-          f"bf16, AdamW, batch {batch} x {seq}: (scale, good, bad) "
+    tag = "train_scaler" if dtype == "bfloat16" else "train_fp16 scaler"
+    print(f"{tag}: eager GradScaler loop, fp32 GPT-2 124M under O1 "
+          f"{dtype}, AdamW, batch {batch} x {seq}: (scale, good, bad) "
           + ", ".join(str(t) for t in seq_got) + f" = the reference's "
-          f"transition at every step; the inf at step {SCALER_INF_STEP} "
-          f"moved none of the parameters and accumulators; step p50 "
-          f"{float(np.median(times)):.3f} ms (host clock, each synchronized)")
+          f"transition at every step; global norms of the unscaled "
+          f"gradients " + ", ".join(f"{n:.4f}" for n in norms)
+          + f"; the inf at step {SCALER_INF_STEP} (and {skipped - 1} "
+          f"overflows of its own) moved none of the parameters and "
+          f"accumulators; step p50 {float(np.median(times)):.3f} ms (host "
+          f"clock, each synchronized)")
     return counts
 
 
@@ -5162,11 +5241,11 @@ def _ln_step(layer, x, res, g):
                                               layer.parameters()]
 
 
-def fused_ln_phase(iters=10):
+def fused_ln_phase(iters=10, dtype=torch.bfloat16):
     gen = torch.Generator().manual_seed(7)
     x, res, g = (torch.randn(LN_SHAPE, generator=gen) for _ in range(3))
-    layer = _ln_layer("cuda", torch.bfloat16, seed=8)
-    args = [t.to("cuda", torch.bfloat16) for t in (x, res, g)]
+    layer = _ln_layer("cuda", dtype, seed=8)
+    args = [t.to("cuda", dtype) for t in (x, res, g)]
     _ln_step(layer, *args)                          # warm-up
     reset_launch_counts()
     fwd, step = [], []
@@ -5187,11 +5266,14 @@ def fused_ln_phase(iters=10):
     assert torch.isfinite(out.float()).all() and out.shape == LN_SHAPE
     assert all(torch.isfinite(p.grad.float()).all()
                for p in layer.parameters())
-    print(f"fused_ln: FusedBiasDropoutResidualLayerNorm(768) bf16 on "
+    print(f"fused_ln: FusedBiasDropoutResidualLayerNorm(768) "
+          f"{str(dtype)[6:]} on "
           f"{LN_SHAPE}, {iters} iterations: forward p50 "
           f"{float(np.median(fwd)):.4f} ms, forward + backward p50 "
           f"{float(np.median(step)):.4f} ms (host clock, synchronized); "
           f"launches {json.dumps(counts)}")
+    if dtype != torch.bfloat16:
+        return counts
     # fp32 on the card (the kernel, then the plain formula's VJP) against
     # the CPU (twin and the same VJP), from one set of weights and inputs
     cpu = _ln_layer("cpu", torch.float32, seed=9)
@@ -5205,6 +5287,664 @@ def fused_ln_phase(iters=10):
         tol = LN_GRAD_TOL if name in ("x", "residual") else LN_PARAM_GRAD_TOL
         _close(f"fused_ln fp32 card vs CPU d{name}", a.cpu(), b, tol)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 9: float16 — every kernel's f16 instantiation against its twin at
+# the main paths' shapes, then serving and training in float16 at GPT-2
+# 124M's full width
+# ---------------------------------------------------------------------------
+
+F16 = torch.float16
+# (pools, q or rows) of the cast instantiations with f16 on one side
+F16_CAST_PAIRS = ((F16, torch.float32), (F16, torch.bfloat16),
+                  (torch.float32, F16), (torch.bfloat16, F16))
+# (model, pools) of the float16 serve runs over pools of another type
+F16_KV_MIXED = ((torch.float32, F16), (F16, torch.float32),
+                (torch.bfloat16, F16), (F16, torch.bfloat16))
+# the f16 backward's large-dO cases at [1, 128, 12, 64]: q, k, v from one
+# numpy generator (seed 21), q and k scaled so rows peak, dO ~ N(0, 1) from
+# seed 22 times the gain, by causal: (q's, k's, dO's factor). |dP - Delta|
+# passes 10^4 in both; non-causal, |dS| passes 65504 (74072 in the CPU's
+# fp32 arithmetic) while the fp32 gradients fit in f16 (48736 at most), so
+# the kernels' dS factor has to act; causal it stays idle (|dS| 46261).
+# At the training shape a dO gain that takes |dP - Delta| past 10^3
+F16_LARGE_DO = {True: (2.0, 1.0, 6000.0), False: (1.5, 1.4, 11000.0)}
+F16_TRAIN_DO_GAIN = 300.0
+# card vs CPU, f16 GPT-2 124M: a greedy token counts as decided when its
+# top-2 margin on the CPU exceeds 4 f16 steps of logits of 8-16 (2^-7)
+F16_MARGIN = 4 * 2.0 ** -7
+F16_OUT = dict(route="cuda")
+
+
+def _f16_numpy(shape, seed, count, gain=1.0):
+    """`count` f16 tensors of normal values times `gain` from one numpy
+    generator, on the card."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy((rng.standard_normal(shape) * gain)
+                             .astype(np.float32)).to(F16).cuda()
+            for _ in range(count)]
+
+
+def _f16_row(name, counter, source, replaces, kernel, twin, library, nbytes,
+             flops, err, shape, note=None, bound=None):
+    """A kernels-line row of an f16 instantiation: the kernel's device ms
+    (and host ms), the twin's, the library call's (None: no one PyTorch
+    call computes it) and the bound, `(ms, by)` or from `nbytes` and
+    `flops` at the fp32 peak."""
+    ms, host_ms = _timed(kernel)
+    plain_ms = _cuda_ms(twin, iters=5)
+    library_ms = _cuda_ms(library) if library is not None else None
+    bound, by = bound or _bound_ms(nbytes, flops, torch.float32)
+    print(f"  {name}: {ms:.5f} ms (host {host_ms:.5f}), twin {plain_ms:.5f} "
+          f"ms, library "
+          f"{'null' if library_ms is None else f'{library_ms:.5f} ms'}, "
+          f"bound {bound:.5f} ms ({by})")
+    row = {"name": name, "counter": counter, "route": "cuda",
+           "source": source, "replaces": replaces, "max_abs_err": err,
+           "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+           "shape": shape}
+    if note:
+        row["note"] = note
+    return row
+
+
+def _check_f16_flash():
+    """The f16 flash forward and backward against their fp32 twins
+    (`flash_fwd_f16_tol`, `flash_bwd_f16_tol` and the Frobenius limits)
+    over the bf16 kernels' cases, the large-dO cases, and timed at the
+    serving and training shapes beside SDPA in f16."""
+    errs = {}
+    for n in (8, 40, 65, 1024):
+        for causal in (True, False):
+            errs[n, causal] = _check_flash_case(
+                f"flash float16 n={n} causal={causal}",
+                *_fused_qkv(n, F16, seed=60 + n), causal)
+    errs["train"] = _check_flash_case(
+        f"flash float16 (8, 1024, {HEADS}, {HEAD_DIM}) causal=True",
+        *_fused_qkv(1024, F16, seed=11, batch=8), True)
+    _check_flash_case("flash float16 n=40 causal=True D=128",
+                      *_fused_qkv(40, F16, seed=7, heads=4, head_dim=128),
+                      True)
+    q = _fused_qkv(40, F16, seed=8)[0]
+    _, k, v = _fused_qkv(100, F16, seed=9)
+    _check_flash_case("flash float16 n=40 m=100 causal=False", q, k, v, False)
+    _check_flash_case("flash float16 n=200 causal=True k, v offset views",
+                      *_offset_qkv(200, seed=31, dtype=F16), True)
+    fwd = _time_flash(*_fused_qkv(1024, F16, seed=1024), errs[1024, True])
+    fwd["at_train_shape"] = _time_flash(
+        *_fused_qkv(1024, F16, seed=11, batch=8), errs["train"])
+    fwd.update(name=_row_name("flash_attention_fwd", F16),
+               counter="flash_attention_fwd",
+               source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+               replaces="paddle_tpu/kernels/flash_attention.py:90 "
+                        "_fwd_kernel", route="cuda")
+    print(f"  flash float16 fwd ms: serve {fwd['ms']:.4f}, train "
+          f"{fwd['at_train_shape']['ms']:.4f}")
+    for n in (40, 1024):
+        for causal in (True, False):
+            _check_flash_bwd_case(f"flash bwd float16 n={n} causal={causal}",
+                                  *_fused_qkv(n, F16, seed=n), causal)
+    _check_flash_bwd_case("flash bwd float16 n=40 causal=True D=128",
+                          *_fused_qkv(40, F16, seed=7, heads=4,
+                                      head_dim=128), True)
+    _check_flash_bwd_case(f"flash bwd float16 (3, 40, {HEADS}, {HEAD_DIM}) "
+                          "causal=False",
+                          *_fused_qkv(40, F16, seed=10, batch=3), False)
+    _check_flash_bwd_case("flash bwd float16 n=200 causal=True k, v offset "
+                          "views", *_offset_qkv(200, seed=31, dtype=F16),
+                          True)
+    _check_flash_bwd_refuses_misaligned_do(F16)
+    for causal, (q_gain, k_gain, gain) in F16_LARGE_DO.items():
+        shape = (1, 128, HEADS, HEAD_DIM)
+        q, k, v = _f16_numpy(shape, 21, 3)
+        q, k = (q.float() * q_gain).to(F16), (k.float() * k_gain).to(F16)
+        (do,) = _f16_numpy(shape, 22, 1, gain)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = fa.flash_attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal, 0.125)
+        _, _, _, p_, ds = fa._bwd_probs(*args)
+        dp_delta = float((ds.abs() / p_.clamp_min(1e-30))[p_ > 1e-3].max())
+        ds_max = float(ds.abs().max())
+        del p_, ds
+        refs = [fa.flash_attention_bwd_dq_reference(*args),
+                *fa.flash_attention_bwd_dkv_reference(*args)]
+        fits = all(float(r.float().abs().max()) < 65504.0 for r in refs)
+        print(f"  flash bwd float16 large dO (q x {q_gain}, k x {k_gain}, "
+              f"dO x {gain}, causal={causal}): max |dP - Delta| "
+              f"{dp_delta:.1f}, max |dS| {ds_max:.1f} (f16's largest "
+              f"65504); the fp32 twin's dQ, dK, dV "
+              f"{'fit' if fits else 'do not fit'} in f16")
+        assert dp_delta >= 1e4 and fits, (dp_delta, fits)
+        assert causal or ds_max > 65504.0, ds_max
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        tols = fa.flash_bwd_f16_tol(*args)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            tag = f"flash bwd float16 large dO causal={causal} {name}"
+            assert bool(torch.isfinite(got.float()).all()), tag
+            _close(tag, got, want, tols[name])
+            fro = fa.rel_fro(got, want)
+            print(f"  {tag}: relative Frobenius error {fro:.3e} (at most "
+                  f"{fa.FLASH_BWD_F16_FRO_RTOL})")
+            assert fro <= fa.FLASH_BWD_F16_FRO_RTOL, (tag, fro)
+    b, n = 8, 1024
+    q, k, v = _fused_qkv(n, F16, seed=11, batch=b)
+    _check_flash_bwd_case(f"flash bwd float16 ({b}, {n}) causal, dO gain "
+                          f"{F16_TRAIN_DO_GAIN}", q, k, v, True, seed=12,
+                          gain=F16_TRAIN_DO_GAIN)
+    err_dq, err_dkv = _check_flash_bwd_case(
+        f"flash bwd float16 ({b}, {n}, {HEADS}, {HEAD_DIM}) causal", q, k, v,
+        True, seed=12)
+    args = _flash_bwd_inputs(q, k, v, True, seed=12)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    lib_do = args[3].transpose(1, 2)
+    library_ms = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), lib_do, retain_graph=True))
+    pairs = b * HEADS * (n * (n + 1) // 2)
+    rows = [fwd]
+    for dkv, fn, ref, err in (
+            (False, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dq_reference, err_dq),
+            (True, fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_reference, err_dkv)):
+        counter = f"flash_attention_bwd_{'dkv' if dkv else 'dq'}"
+        row = _f16_row(
+            _row_name(counter, F16), counter,
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/kernels/flash_attention.py:" + (
+                "223 _dkv_kernel" if dkv else "184 _dq_kernel"),
+            lambda fn=fn: fn(*args), lambda ref=ref: ref(*args), None, 0, 0,
+            err, f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) float16 causal",
+            note="library_ms: SDPA's backward in f16 (dQ, dK and dV in one "
+                 "call)",
+            bound=_flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv))
+        row["library_ms"] = library_ms
+        row["tflops"] = (8 if dkv else 6) * HEAD_DIM * pairs \
+            / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
+    return rows
+
+
+def _check_f16_paged():
+    """The fused decode step in f16: f16 q over f16 pools and over int8
+    pools against the twin (`_check_append_case`: pools bit for bit, 50
+    launches each), timed at the serving shape (12 layers' pools rotating)
+    beside the twin and the library yardstick; the four cast pairs by
+    `check_append_cast`. Returns {path: rows}."""
+    bs, layers = 16, 12
+    eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
+                                              KV_APPEND_ACTIVE)]
+    out = {}
+    for pool_dtype, path in ((F16, "serve_fp16"),
+                             (torch.int8, "serve_int8_fp16")):
+        err = _check_append_case(pool_dtype, F16)
+        q, k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
+            layers, pool_dtype, F16, seed=6)
+        int8 = ks is not None
+        eff = torch.where(active, lens, 0)
+        it = iter(range(10 ** 9))
+
+        def rotating(fn):
+            def call():
+                layer = next(it) % layers
+                scales = (ks[layer], vs[layer]) if int8 else ()
+                return fn(kp[layer], vp[layer], *scales)
+            return call
+
+        def fused(kpl, vpl, *scales):
+            return pa.paged_decode_append(q, k, v, kpl, vpl, tables, lens,
+                                          active, bs, *scales)
+
+        def twin(kpl, vpl, *scales):
+            kva.kv_append_reference(k, v, kpl, vpl, tables, lens, active, bs,
+                                    *scales)
+            return pa.paged_decode_reference(q, kpl, vpl, tables, eff, bs,
+                                             *scales)
+
+        library = None
+        if not int8:
+            wb = torch.where(active, tables[torch.arange(8, device="cuda"),
+                                            eff.long() // bs].long(), 0)
+            wo = eff.long() % bs
+            t_max = tables.shape[1] * bs
+            mask = (torch.arange(t_max, device="cuda")[None, :]
+                    <= eff[:, None])[:, None, None, :]
+
+            def lib(kpl, vpl):
+                kpl.index_put_((wb, wo), k)
+                vpl.index_put_((wb, wo), v)
+                kg = kpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                    .transpose(1, 2)
+                vg = vpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
+                    .transpose(1, 2)
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None, :], kg, vg, attn_mask=mask)
+
+            library = rotating(lib)
+        paged_b = _paged_work(eff_lens, q, tables, int8)
+        append_b = _kv_append_work(int8, 2)
+        counter = pa.append_name(F16, pool_dtype)
+        out[path] = [_f16_row(
+            _row_name(counter, F16), counter,
+            "paddle_tpu_torch/csrc/paged_decode.cu",
+            "paddle_tpu/kernels/pallas/paged_attention.py:167 _decode_kernel"
+            + (" (quantized=True)" if int8 else "")
+            + " with the decode write before it (XLA ops, no Pallas kernel)",
+            rotating(fused), rotating(twin), library,
+            paged_b[0] + append_b[0], paged_b[1] + append_b[1], err,
+            f"S=8 H=12 D=64 bs=16 M=64, 513 blocks, lens {KV_APPEND_LENS}, "
+            f"active {KV_APPEND_ACTIVE}, f16 q and rows, "
+            + ("int8 pools + fp32 scales; library_ms null: no one PyTorch "
+               "call requantizes a block" if int8 else
+               "f16 pools; library_ms: two index_put_, a gather and SDPA"))]
+    for row, (pool_dtype, q_dtype) in zip(
+            check_append_cast(F16_CAST_PAIRS, suffix=True), F16_CAST_PAIRS):
+        out.setdefault(f"serve_kv_{SHORT_NAMES[q_dtype]}_{SHORT_NAMES[pool_dtype]}",
+                       []).append(row)
+    return out
+
+
+def _check_f16_scatter():
+    """The prompt scatter of f16 rows against its twin, bit for bit on
+    every block but 0: SCATTER_CASES into f16 and int8 pools, int8 pools at
+    SCATTER_WIDE; timed at a full 1024 bucket beside the twin and (f16
+    pools) two index_put_ a layer; the four cast pairs by
+    `check_scatter_cast`. Returns {path: rows}."""
+    bs, n_cases = 16, 0
+    for int8 in (False, True):
+        for bucket, lengths in SCATTER_CASES:
+            for length in lengths:
+                _check_scatter_case(bucket, length, F16, int8)
+                n_cases += 1
+    wide_bucket, wide_bs, wide_lengths = SCATTER_WIDE
+    for length in wide_lengths:
+        _check_scatter_case(wide_bucket, length, F16, True, bs=wide_bs,
+                            head_dim=128)
+        n_cases += 1
+    print(f"  prefill_scatter float16 rows: {n_cases} cases bit-identical "
+          f"to the twin on blocks 1.. and block 0 untouched")
+    out = {}
+    bucket = length = 1024
+    for int8, path in ((False, "serve_fp16"), (True, "serve_int8_fp16")):
+        k, v, pools, scales, row = _scatter_state(bucket, F16, int8, seed=7)
+        n = torch.full((), length, dtype=torch.int32, device="cuda")
+        args = (*pools, k, v, row, n, bs, *scales)
+        library = None
+        if not int8:
+            pos = torch.arange(length, device="cuda")
+            blocks, offs = row.long()[pos // bs], pos % bs
+
+            def library():
+                for layer in range(SCATTER_LAYERS):
+                    pools[0][layer].index_put_((blocks, offs), k[layer])
+                    pools[1][layer].index_put_((blocks, offs), v[layer])
+
+        used = int((row != 0).sum())
+        nbytes = ps.scatter_bytes(length, SCATTER_LAYERS, HEADS, HEAD_DIM, 2,
+                                  int8, used)
+        flops = 6 * 2 * SCATTER_LAYERS * length * HEADS * HEAD_DIM if int8 \
+            else 0
+        counter = ps.scatter_name(F16, torch.int8 if int8 else F16)
+        out[path] = [_f16_row(
+            _row_name(counter, F16), counter,
+            "paddle_tpu_torch/csrc/prefill_scatter.cu",
+            "no Pallas counterpart: paddle_tpu/serving/cache.py:237 "
+            "scatter_prefill" + (" over paddle_tpu/quantization/kv_cache.py"
+                                 ":90 quantize_scatter" if int8 else "")
+            + " (XLA ops)", lambda: ps.prefill_scatter(*args),
+            lambda: ps.prefill_scatter_reference(*args), library, nbytes,
+            flops, 0.0,
+            f"12 layers of f16 rows [1024, 12, 64] (strided views of "
+            f"[1024, 3, 12, 64]), length 1024, bs=16, a block row of 64, "
+            + ("int8 pools + fp32 scales; library_ms null: no one PyTorch "
+               "call quantizes a block" if int8 else
+               "f16 pools; library_ms: two index_put_ a layer"))]
+    for row, (pool_dtype, row_dtype) in zip(
+            check_scatter_cast(F16_CAST_PAIRS, suffix=True), F16_CAST_PAIRS):
+        out.setdefault(f"serve_kv_{SHORT_NAMES[row_dtype]}_{SHORT_NAMES[pool_dtype]}",
+                       []).append(row)
+    return out
+
+
+def _check_f16_ce():
+    for v in (3000, 50257, 50304):
+        _check_ce_case(f"ce float16 R=777 V={v}",
+                       *_ce_inputs(777, v, F16, seed=v))
+    _check_ce_case("ce float16 R=777 V=50257 row stride 50262",
+                   *_ce_inputs(777, 50257, F16, seed=1, pad_cols=5))
+    r, v = 8192, 50304
+    logits, labels, grad = _ce_inputs(r, v, F16, seed=2)
+    err_fwd, err_bwd = _check_ce_case(f"ce float16 R={r} V={v}", logits,
+                                      labels, grad)
+    _, lse = ce.cross_entropy_fwd(logits, labels)
+    lib_labels = labels.masked_fill(labels < 0, -100)
+    lib_logits = logits.detach().requires_grad_(True)
+    lib_loss = torch.nn.functional.cross_entropy(
+        lib_logits, lib_labels, reduction="none", ignore_index=-100)
+    rows = []
+    for kind, fn, ref, lib, err, nbytes in (
+            ("fwd", lambda: ce.cross_entropy_fwd(logits, labels),
+             lambda: ce.cross_entropy_fwd_reference(logits, labels),
+             lambda: torch.nn.functional.cross_entropy(
+                 logits, lib_labels, reduction="none", ignore_index=-100),
+             err_fwd, r * v * 2 + r * 8 + 2 * r * 4),
+            ("bwd", lambda: ce.cross_entropy_bwd(logits, labels, lse, grad),
+             lambda: ce.cross_entropy_bwd_reference(logits, labels, lse,
+                                                    grad),
+             lambda: torch.autograd.grad(lib_loss, lib_logits, grad,
+                                         retain_graph=True),
+             err_bwd, 2 * r * v * 2 + r * (8 + 4 + 4))):
+        counter = f"cross_entropy_{kind}"
+        rows.append(_f16_row(
+            _row_name(counter, F16), counter,
+            "paddle_tpu_torch/csrc/cross_entropy.cu",
+            "paddle_tpu/kernels/cross_entropy.py:" + (
+                "77 _fwd_kernel" if kind == "fwd" else "107 _bwd_kernel"),
+            fn, ref, lib, nbytes, 4 * r * v, err,
+            f"logits ({r}, {v}) float16; library_ms: F.cross_entropy "
+            f"(reduction none" + (")" if kind == "fwd" else
+                                  ") and its autograd backward")))
+    return rows
+
+
+def _check_f16_ln():
+    cases = [(8192, 768, None), (777, 768, None), (777, 768, torch.float32),
+             (5, 128, None), (33, 4224, None)]
+    for i, (r, d, adt) in enumerate(cases):
+        args = _ln_inputs(r, d, F16, seed=50 + i, affine_dtype=adt)
+        out = fln.fused_ln_fwd(*args)
+        ref = fln.fused_ln_reference(*args)
+        torch.cuda.synchronize()
+        assert out.dtype == F16 and torch.isfinite(out.float()).all()
+        e = _close(f"fused_ln float16 ({r}, {d}) affine "
+                   f"{str(adt or F16)[6:]}", out, ref, LN_TOL[F16])
+        if i == 0:
+            err = e
+    r, d, sets = 8192, 768, 4
+    inputs = [_ln_inputs(r, d, F16, seed=60 + i) for i in range(sets)]
+    it = iter(range(10 ** 9))
+
+    def rotating(fn):
+        return lambda: fn(*inputs[next(it) % sets])
+
+    return _f16_row(
+        _row_name("fused_ln", F16), "fused_ln",
+        "paddle_tpu_torch/csrc/fused_ln.cu",
+        "paddle_tpu/kernels/fused_ln.py:59 _kernel",
+        rotating(fln.fused_ln_fwd), rotating(fln.fused_ln_reference),
+        rotating(lambda x, res, b, sc, sh: torch.nn.functional.layer_norm(
+            x + b + res, (d,), sc, sh, 1e-5)),
+        3 * r * d * 2 + 3 * d * 2, 10 * r * d, err,
+        f"x, residual ({r}, {d}) float16, bias/scale/shift float16; "
+        f"library_ms: F.layer_norm(x + bias + residual)")
+
+
+def _check_f16_adam():
+    model = GPTForCausalLM(gpt2_124m(), device="cuda", seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    ragged = [(7, 13), (768,), (5,), (3, 4, 5), (1,), (2, 8195)]
+    skip = [i % 2 == 0 for i in range(len(ragged))]
+    for offset in (0, 1):
+        _check_adam_case(f"float16 no masters, ragged shapes, offset "
+                         f"{offset}", ragged, F16, False, skip, offset)
+    _check_adam_case("float16 + masters, ragged shapes", ragged, F16, True,
+                     skip)
+    decays = [True] * len(shapes)
+    err, state = _check_adam_case(
+        f"float16 + masters, GPT-2 124M ({len(shapes)} tensors)", shapes,
+        F16, True, decays)
+    params, grads, m1, m2, mw = state
+    lr = torch.full((), TRAIN_LR, device="cuda")
+    t = torch.full((), 4.0, device="cuda")
+    args = (params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8,
+            0.01)
+    nbytes = au.update_bytes(params, mw)
+    steps = [torch.full((), 4.0, device="cuda") for _ in params]
+    m1h, m2h = [m.half() for m in m1], [m.half() for m in m2]
+    params_h = [p.clone() for p in params]
+    other_ms = _cuda_ms(lambda: torch._fused_adamw_(
+        params_h, grads, m1h, m2h, [], steps, lr=TRAIN_LR, beta1=0.9,
+        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+        maximize=False))
+    return _f16_row(
+        _row_name("adam_update", F16), "adam_update",
+        "paddle_tpu_torch/csrc/adam_update.cu",
+        "no Pallas counterpart: the jitted batch update of paddle_tpu/"
+        "optimizer/optimizer.py:131-197 (XLA ops)",
+        lambda: au.adam_update(*args),
+        lambda: au.adam_update_reference(*args), None, nbytes,
+        15 * sum(p.numel() for p in params), err,
+        f"GPT-2 124M's {len(params)} tensors, f16 params + fp32 masters "
+        f"and moments, every tensor decaying",
+        note=f"library_ms null: no PyTorch call computes Paddle's formula; "
+             f"torch._fused_adamw_ at f16 (params, grads and moments f16, "
+             f"another formula): {other_ms:.4f} ms")
+
+
+def _check_f16_lora():
+    err = None
+    for rank in LORA_RANKS:
+        for d_out in (2304, 768):
+            for form in ("decode", "prefill", "prefill_base",
+                         "prefill_ragged"):
+                e, _ = _check_lora_case(form, d_out, F16, rank)
+                if err is None:
+                    err = e
+    layer, rows = 3, {}
+    for form in ("decode", "prefill"):
+        n = LORA_ROWS[form]
+        y, x, a, b, scale = _lora_state(n, 2304, F16, seed=11)
+        idx = _lora_idx(form, n)
+        args = (y, x, a, b, scale, idx, layer)
+
+        def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
+            if form == "decode":
+                sel = idx.long()
+                t = torch.bmm(x[:, None, :], a[sel, layer])
+                u = torch.bmm(t, b[sel, layer])[:, 0]
+                y.add_(u * scale[sel].to(y.dtype)[:, None])
+            else:
+                sel = idx[:1].long()
+                u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
+                y.add_(u * scale[sel].to(y.dtype))
+
+        nbytes, _, _ = _lora_bound(idx, n, 2304, LORA_RANK)
+        flops = 2 * int((idx != 0).sum()) * (768 + 2304) * LORA_RANK
+        rows[form] = _f16_row(
+            _row_name("lora_delta", F16), "lora_delta",
+            "paddle_tpu_torch/csrc/lora_delta.cu",
+            "no Pallas counterpart: paddle_tpu/serving/tenancy.py:526 "
+            "_adapter_forward (XLA einsums)",
+            lambda args=args: ld.lora_delta(*args),
+            lambda args=args: ld.lora_delta_reference(*args), ops, nbytes,
+            flops, err,
+            f"{form} ({ld.lora_form(idx)} form): x [{n}, 768] -> y "
+            f"[{n}, 2304] f16, rank {LORA_RANK}, K = 3; library_ms: the "
+            f"reference's op sequence")
+    row = rows["decode"]
+    pre = rows["prefill"]
+    row.update(prefill_ms=pre["ms"], prefill_library_ms=pre["library_ms"],
+               prefill_bound_ms=pre["bound_ms"])
+    return row
+
+
+def check_float16():
+    """Every f16 instantiation against its twin and timed (phase 9's
+    kernels). Returns {path: rows}, each row's launches to be read from
+    that path's run."""
+    t0 = time.perf_counter()
+    flash = _check_f16_flash()
+    rows = {"serve_fp16": [flash[0]], "train_fp16": flash[1:]}
+    for part in (_check_f16_paged(), _check_f16_scatter()):
+        for path, more in part.items():
+            rows.setdefault(path, []).extend(more)
+    rows["train_fp16_ce"] = _check_f16_ce()
+    rows["train_fp16"].append(_check_f16_adam())
+    rows["fused_ln_fp16"] = [_check_f16_ln()]
+    rows["serve_tenancy_fp16"] = [_check_f16_lora()]
+    print(f"  float16 kernels: {time.perf_counter() - t0:.1f} s wall")
+    return rows
+
+
+def _print_beside(tag, base):
+    """serve_fp16's step p50, TTFT p50 and prefill p50 by bucket beside
+    the bf16 run's (`base`), both warm passes of the same mix."""
+    a, b = SERVE_STATS[tag], SERVE_STATS[base]
+    print(f"{tag} beside {base} (warm pass of the same mix): step p50 "
+          f"{a['p50_step_ms']:.3f} / {b['p50_step_ms']:.3f} ms, TTFT p50 "
+          f"{a['ttft_p50_ms']:.3f} / {b['ttft_p50_ms']:.3f} ms; prefill p50 "
+          f"by bucket, ms " + json.dumps(
+              {str(k): [round(v, 3), round(b['prefill_p50_ms'].get(k, 0), 3)]
+               for k, v in a["prefill_p50_ms"].items()}))
+
+
+def parity_fp16():
+    """f16 GPT-2 124M on the card and on the CPU (f16 twins there): greedy
+    tokens equal for two prompts whose every top-2 margin on the CPU
+    clears F16_MARGIN."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cpu_model = GPTForCausalLM(cfg, device="cpu", seed=1).to(F16)
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    rng = np.random.default_rng(4)
+    prompts, tried = [], 0
+    while len(prompts) < 2:
+        tried += 1
+        assert tried <= 12, "no prompt with clear greedy margins"
+        p = rng.integers(0, 50257, 24).tolist()
+        (req,) = _greedy(cpu_model, "cpu", [p], 8)
+        margins = [a[0] - a[1] for a in req.alt_logprobs]
+        if min(margins) > F16_MARGIN:
+            prompts.append((p, req.generated))
+    reset_launch_counts()
+    gpu = _greedy(gpu_model, "cuda", [p for p, _ in prompts], 8)
+    for (p, cpu_tokens), r in zip(prompts, gpu):
+        assert r.generated == cpu_tokens, (r.generated, cpu_tokens)
+    assert launch_counts()["paged_decode_append"] > 0, launch_counts()
+    print(f"parity fp16: 2 prompts x 8 greedy tokens identical on card and "
+          f"CPU, f16 model and pools ({tried} prompts tried; every CPU "
+          f"top-2 margin above {F16_MARGIN})")
+
+
+def _tenancy_fp16(model):
+    """Two adapters through the f16 model's engine (decode graph, prefix
+    cache off): base tenants' streams bit for bit with an adapter-free
+    engine's, each adapter's streams moved off them; lora_delta launched
+    in the window. Returns the window's launch counts."""
+    rng = np.random.default_rng(6)
+    warm = [rng.integers(0, 50257, 20).tolist()]
+    prompts = [rng.integers(0, 50257, int(n)).tolist()
+               for n in rng.integers(64, 300, 6)]
+    plan = [None, "a", "b", None, "a", "b"]
+    engine = LLMEngine(model, max_batch_size=8, block_size=16,
+                       max_context=1024, max_adapters=2, adapter_rank=16)
+    engine.register_adapter("a", seed=1, scale=4.0)
+    engine.register_adapter("b", seed=2, scale=4.0)
+    engine.generate(warm, max_new_tokens=2)
+    plain = LLMEngine(model, max_batch_size=8, block_size=16,
+                      max_context=1024)
+    reset_launch_counts()
+    reqs = [engine.add_request(p, max_new_tokens=16, adapter=ad)
+            for p, ad in zip(prompts, plan)]
+    engine.run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    base = plain.generate(prompts, max_new_tokens=16)
+    st = engine.stats()
+    assert counts["lora_delta"] > 0, counts
+    moved = 0
+    for r, ad, want in zip(reqs, plan, base):
+        assert r.state == "FINISHED" and len(r.generated) == 16, r.state
+        if ad is None:
+            assert list(r.generated) == want, (r.generated, want)
+        else:
+            moved += list(r.generated) != want
+    assert moved > 0, "no adapter moved its stream"
+    print(f"serve_tenancy_fp16: 6 requests (2 base, 2 of adapter a, 2 of "
+          f"b) through the f16 engine: base streams equal to an "
+          f"adapter-free engine's, {moved}/4 adapter streams moved off "
+          f"them; step p50 {st['p50_step_ms']:.3f} ms; lora_delta launches "
+          f"{counts['lora_delta']}")
+    return counts
+
+
+def serve_fp16():
+    """Serving in float16 at GPT-2 124M's full width: the serve mix over
+    f16 pools and over int8 pools (`serve` and `serve_int8` on an f16
+    model: graph replays counted, graph = eager greedy tokens, int8
+    admission at equal pool bytes), card vs CPU parity, two tenants'
+    adapters, `generate`, and pools of another float type each way with
+    fp32 and bf16 models (`serve_kv_mixed`). Returns {path: counts}."""
+    t0 = time.perf_counter()
+    paths = {}
+    paths["serve_fp16"], greedy, model = serve(dtype=F16,
+                                               prefill_turns=False)
+    _print_beside("serve_fp16", "serve")
+    paths["serve_int8_fp16"] = serve_int8(greedy, dtype=F16,
+                                          prefill_turns=False)
+    _print_beside("serve_int8_fp16", "serve_int8")
+    paths["serve_tenancy_fp16"] = _tenancy_fp16(model)
+    del model
+    parity_fp16()
+    paths["generate_fp16"] = generate_phase(dtypes=(F16,))
+    paths.update(serve_kv_mixed(
+        F16_KV_MIXED, keys=lambda m, kv: f"serve_kv_{SHORT_NAMES[m]}_{SHORT_NAMES[kv]}",
+        parities=False))
+    print(f"serve_fp16: {time.perf_counter() - t0:.1f} s wall")
+    return paths
+
+
+def _plain_fp16_fused_ce(batch=8, seq=1024, steps=3):
+    """A plain float16 GPT-2 124M (no amp, AdamW with fp32 masters), the
+    fused cross-entropy on: TrainStep's graph, f16 logits into the CE
+    kernels once a step each; losses finite and falling. Returns the
+    measured steps' launch counts."""
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = _train_batch(cfg, seed=4)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(F16)
+    opt = AdamW(learning_rate=1e-3, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    try:
+        first = float(step(ids, labels))
+        reset_launch_counts()
+        losses = [float(step(ids, labels)) for _ in range(steps)]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+    assert np.isfinite([first] + losses).all() and losses[-1] < first, \
+        (first, losses)
+    for name, per in (("cross_entropy_fwd", 1), ("cross_entropy_bwd", 1),
+                      ("flash_attention_fwd", 12), ("adam_update", 1)):
+        assert counts[name] == per * steps, (name, counts)
+    print(f"train_fp16 plain f16 model, fused CE: losses {first:.4f} then "
+          + ", ".join(f"{x:.4f}" for x in losses) + f"; launches "
+          f"{json.dumps(counts)}")
+    return counts
+
+
+def train_fp16(batch=8, seq=1024):
+    """Training in float16 at GPT-2 124M's full width: O1 and O2 float16
+    through TrainStep's graph and its eager step (`train_amp`: bit for
+    bit, timed in turns, MFU, profiled, peak memory), the eager O1 float16
+    loop under GradScaler (`train_scaler`: the reference's transition at
+    every step, the global norms), and a plain f16 model with the fused
+    CE. Returns {path: counts}: train_fp16 the O2 graph's measured steps
+    (f16 flash, f16 update), train_fp16_ce the plain model's."""
+    t0 = time.perf_counter()
+    counts = train_amp(batch, seq, dtype="float16")
+    train_scaler(batch, seq, dtype="float16")
+    paths = {"train_fp16": counts["O2"],
+             "train_fp16_ce": _plain_fp16_fused_ce(batch, seq)}
+    print(f"train_fp16: {time.perf_counter() - t0:.1f} s wall")
+    return paths
 
 
 def main():
@@ -5250,6 +5990,8 @@ def main():
             "serve_kv_mixed_bfloat16": [append_cast[0], scatter_cast[0]],
             "serve_kv_mixed_float32": [append_cast[1], scatter_cast[1]],
             "generate": [check_keyed_draw_rows()]}
+    for path, more in check_float16().items():
+        rows.setdefault(path, []).extend(more)
     paths = {}
     paths["serve"], bf16_greedy, model = serve()
     paths["serve_int8"] = serve_int8(bf16_greedy)
@@ -5265,30 +6007,38 @@ def main():
     parity(kv_dtype="int8")
     paths["train"] = train()
     train_parity()
-    paths["train_amp"] = train_amp()
+    paths["train_amp"] = train_amp()["O1"]
     adamw_row = next(row for row in rows["train"]
                      if row["name"] == "adam_update")
     train_optimizers(adamw_row["ms"])
     paths["train_scaler"] = train_scaler()
     paths["train_resume"] = train_resume()
     paths["fused_ln"] = fused_ln_phase()
+    paths.update(serve_fp16())
+    paths.update(train_fp16())
+    paths["fused_ln_fp16"] = fused_ln_phase(dtype=F16)
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and
     # fused with the write, the int8 serving run for the int8 paged decode,
     # alone and fused, the measured training steps for the training
-    # kernels, the fused_ln phase for fused_ln); every path's counts are
-    # listed beside
+    # kernels, the fused_ln phase for fused_ln; an f16 instantiation's from
+    # its float16 path), read under the row's launch counter (its name, or
+    # `counter` where the name adds the input type); every path's counts
+    # are listed beside
     for path, path_rows in rows.items():
         for row in path_rows:
-            row["launches"] = paths[path][row["name"]]
+            row["launches"] = paths[path][row.get("counter", row["name"])]
     rows = [row for path_rows in rows.values() for row in path_rows]
     for row in rows:
-        row["launches_by_path"] = {path: counts[row["name"]]
-                                   for path, counts in paths.items()}
+        row["launches_by_path"] = {
+            path: counts[row.get("counter", row["name"])]
+            for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
-    assert len(rows) == 21 and all(
+    names = [row["name"] for row in rows]
+    assert len(rows) == 41 and len(set(names)) == len(names) and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+    keys = ("name", "counter", "route", "source", "replaces", "launches",
+            "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "host_ms",
             "alone_ms", "append_ms", "turns_ms", "all_sampled_ms",
             "greedy_ms", "bytes_bound_ms", "int32_bound_ms",

@@ -201,10 +201,9 @@ class _AmpMode(TorchFunctionMode):
 class auto_cast:
     """``with auto_cast(level="O1", dtype="bfloat16"):`` runs the block
     under the policy (see the module docstring); `custom_white_list` /
-    `custom_black_list` move reference op names between the lists. The
-    port's kernels take fp32 and bf16: under ``dtype="float16"`` the first
-    kernel a CUDA tensor reaches raises (ROADMAP.md item 3(g)); CPU
-    tensors take the kernels' plain twins."""
+    `custom_black_list` move reference op names between the lists. Every
+    kernel of the port has a bf16 and a float16 instantiation, so both
+    dtypes run on the card; CPU tensors take the kernels' plain twins."""
 
     def __init__(self, enable=True, custom_white_list=None,
                  custom_black_list=None, level="O1", dtype="bfloat16"):

@@ -19,9 +19,9 @@
 // so a CUDA graph replay sees the values the host set before it.
 //
 // What bounds it on an H100: bytes. Each element reads g, m1, m2 and the
-// master (or p) and writes m1, m2, the master and p: 28 bytes for bf16
-// parameters with fp32 masters, 28 for fp32 parameters, 22 for bf16 without
-// masters, against ~12 flops. GPT-2 124M's 124,475,904 elements are 3.49 GB,
+// master (or p) and writes m1, m2, the master and p: 28 bytes for bf16 or
+// f16 parameters with fp32 masters, 28 for fp32 parameters, 22 for bf16 or
+// f16 without masters, against ~12 flops. GPT-2 124M's 124,475,904 elements are 3.49 GB,
 // ~1.04 ms at 3.35 TB/s. So the design is one streaming pass:
 //   * a table of the tensors (pointers, sizes, flags, the first chunk of
 //     each) travels in the kernel's parameters (`__grid_constant__`, read
@@ -32,7 +32,7 @@
 //     found by a binary search over the first chunks (the same for every
 //     thread of the CTA);
 //   * each thread moves 4 elements at a time, with 16-byte (fp32) and
-//     8-byte (bf16) vector accesses where every pointer of the tensor is
+//     8-byte (bf16, f16) vector accesses where every pointer of the tensor is
 //     aligned for them, element by element otherwise and at the tail;
 //   * the bias corrections are computed once per thread from the device
 //     scalars.
@@ -40,6 +40,7 @@
 // contracted into an FMA: the kernel gives the plain PyTorch twin's values
 // bit for bit (powf is the function PyTorch's pow calls).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -96,7 +97,24 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p,
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+  const float2 a = __half22float2(h2[0]);
+  const float2 b = __half22float2(h2[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  uint2 raw;
+  __half2* h2 = reinterpret_cast<__half2*>(&raw);
+  h2[0] = __floats2half2_rn(v[0], v[1]);
+  h2[1] = __floats2half2_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -108,6 +126,10 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // the step's per-launch scalars, from the device scalars lr and t
@@ -206,7 +228,8 @@ extern "C" int paddle_adam_update_max_tensors() { return kMaxTensors; }
 extern "C" int paddle_adam_update_chunk() { return kChunk; }
 
 // One launch over n tensors (1 <= n <= kMaxTensors, none empty). dtype: 0 =
-// float32, 1 = bfloat16 (every param and grad); m1, m2 and masters are
+// float32, 1 = bfloat16, 2 = float16 (every param and grad; another code
+// returns cudaErrorInvalidValue); m1, m2 and masters are
 // fp32 of each tensor's numel, masters[i] null where tensor i has none.
 // first_chunk has n + 1 entries: tensor i owns chunks [first_chunk[i],
 // first_chunk[i + 1]) of kChunk elements. flags: bit 0 decay, bit 1
@@ -242,6 +265,8 @@ extern "C" int paddle_adam_update(
   } else if (dtype == 1) {
     adam_update_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(tab, lr, t,
                                                                 c);
+  } else if (dtype == 2) {
+    adam_update_kernel<__half><<<grid, kThreads, 0, s>>>(tab, lr, t, c);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -3,8 +3,8 @@
 //
 // Replaces: paddle_tpu/kernels/cross_entropy.py `_fwd_kernel` (driven by
 // `_fwd`) and `_bwd_kernel` (driven by `_bwd`), the Pallas TPU kernels behind
-// `fused_softmax_cross_entropy`. For logits x [R, V] (fp32 or bf16, any row
-// stride, contiguous rows) and int64 labels [R]:
+// `fused_softmax_cross_entropy`. For logits x [R, V] (fp32, bf16 or f16, any
+// row stride, contiguous rows) and int64 labels [R]:
 //   forward:  lse[r] = log sum_c exp(x[r, c]),  loss[r] = lse[r] - x[r, label]
 //             (fp32; a label outside [0, V) picks nothing: loss = lse);
 //   backward: dx[r, c] = (exp(x[r, c] - lse[r]) - [c == label]) * g[r],
@@ -17,7 +17,7 @@
 //
 // Design:
 //   * one thread block per row; the row is read with 16-byte loads (8 bf16
-//     or 4 fp32 values a thread), neighbouring threads on neighbouring
+//     or f16, or 4 fp32 values a thread), neighbouring threads on neighbouring
 //     addresses. The TPU kernel pads the vocabulary with -1e30 and rows to
 //     128; here nothing is padded: a row's unaligned head and its tail past
 //     the last whole vector are read one element at a time, so any V (50257,
@@ -29,6 +29,7 @@
 //   * backward: an elementwise pass; a row whose input and output are not
 //     equally aligned takes the element-at-a-time path whole.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -45,6 +46,10 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
+}
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 // one 16-byte vector of T, unpacked to / packed from fp32
@@ -86,6 +91,27 @@ struct Vec<__nv_bfloat16> {
       w[i] = *reinterpret_cast<const unsigned*>(&two);
     }
     return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+template <>
+struct Vec<__half> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void unpack(const uint4& u, float* f) {
+    const __half2* h = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 two = __half22float2(h[i]);
+      f[2 * i] = two.x;
+      f[2 * i + 1] = two.y;
+    }
+  }
+  __device__ __forceinline__ static uint4 pack(const float* f) {
+    uint4 u;
+    __half2* h = reinterpret_cast<__half2*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2half2_rn(f[2 * i], f[2 * i + 1]);
+    return u;
   }
 };
 
@@ -203,9 +229,10 @@ ce_bwd_kernel(const T* __restrict__ logits, const int64_t* __restrict__ labels,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. `row_stride` is the logits' row stride in
-// elements (each row itself contiguous); labels are int64. Returns a
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (another code returns
+// cudaErrorInvalidValue). `row_stride` is the logits' row stride in
+// elements (each row itself contiguous); labels are int64. loss and lse are
+// fp32 whatever the logits' type. Returns a cudaError_t.
 extern "C" int paddle_cross_entropy_fwd(const void* logits,
                                         const void* labels, void* loss,
                                         void* lse, int rows, int v,
@@ -223,6 +250,9 @@ extern "C" int paddle_cross_entropy_fwd(const void* logits,
     ce_fwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), lab, lo, ls, v,
         row_stride);
+  } else if (dtype == 2) {
+    ce_fwd_kernel<__half><<<rows, kThreads, 0, s>>>(
+        static_cast<const __half*>(logits), lab, lo, ls, v, row_stride);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -249,6 +279,10 @@ extern "C" int paddle_cross_entropy_bwd(const void* logits,
     ce_bwd_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(logits), lab, ls, gp,
         static_cast<__nv_bfloat16*>(dlogits), v, row_stride);
+  } else if (dtype == 2) {
+    ce_bwd_kernel<__half><<<rows, kThreads, 0, s>>>(
+        static_cast<const __half*>(logits), lab, ls, gp,
+        static_cast<__half*>(dlogits), v, row_stride);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,8 @@
 // Design, as the TPU decomposition: two kernels and no atomics, so the
 // result is deterministic.
 //
-// bf16 (`flash_bwd_dq_kernel_wgmma`, `flash_bwd_dkv_kernel_wgmma`): one CTA
+// bf16 and f16 (`flash_bwd_dq_kernel_wgmma<T>`, `flash_bwd_dkv_kernel_wgmma<T>`,
+// one source, the element type T a template parameter): one CTA
 // per ((b, h), 64 rows) of one consumer warpgroup and one producer warp, as
 // the forward. The producer issues TMA loads (the forward's 4-D tensor maps
 // [D, H, N, B], 128-byte swizzle, 64 x 64 boxes; hopper_sm90.cuh) of the
@@ -36,7 +37,7 @@
 //     and dP = dO V^T are wgmma from shared memory (all K-major); P =
 //     exp2(S * scale * log2 e - lse * log2 e), the P the forward's lse (a
 //     natural log) was made from, and dS = P (dP - Delta) are computed on
-//     the accumulator registers; dS is packed to bf16 in place and is the
+//     the accumulator registers; dS is packed to T in place and is the
 //     register A operand of dQ += dS K (K read MN-major from the same tile:
 //     the forward's P V). dQ is scaled and stored from the accumulator.
 //   * dK/dV: the CTA owns 64 key rows (K and V) and streams Q/dO tiles of 64
@@ -60,9 +61,19 @@
 //     M, queries past N and above the causal diagonal, on the diagonal tile
 //     and the edge tiles only. dQ is stored for rows < N, dK/dV for rows
 //     < M.
-//   * P (for dV) and dS (for dQ and dK) are rounded to bf16 as tensor-core
+//   * P (for dV) and dS (for dQ and dK) are rounded to T as tensor-core
 //     operands; the stated criteria for that are in
-//     paddle_tpu_torch/kernels/flash_attention.py (FLASH_BWD_BF16_*).
+//     paddle_tpu_torch/kernels/flash_attention.py (FLASH_BWD_BF16_*,
+//     FLASH_BWD_F16_*).
+//   * f16 only: |dS / scale| = P |dP - Delta| <= |dP - Delta| passes f16's
+//     largest value (65504) where dO is large (a GradScaler's loss scale
+//     reaches dO) while dQ and dK still fit. So each accumulator row (a
+//     query of dQ, a key of dK) keeps a power of two `ds_mul`, 1 until a
+//     tile's |dS| of that row passes kDsMax (2^15): dS is multiplied by it
+//     before the rounding, the row's accumulator is rescaled when it
+//     drops, and the row's output is divided by it. Powers of two are
+//     exact, so where no row passes kDsMax the result is that of the plain
+//     rounding (`fit_f16`). bf16 has fp32's range and skips it.
 //
 // fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): the first design,
 // products in fp32 FMA on the CUDA cores, kept by design: the fp32 checks on
@@ -84,6 +95,7 @@
 //     P against the forward's lse) is computed the same way in both.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -357,20 +369,21 @@ cudaError_t launch_fp32(bool dkv, const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma products fed by TMA
+// bf16 and f16: wgmma products fed by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;                  // depth of the streamed-tile ring
 constexpr int kWgmmaThreads = 128 + 32;     // one consumer warpgroup + producer
 
-// Shared memory of a dQ CTA: its Q and dO tiles, and the K/V ring.
+// Shared memory of a dQ CTA: its Q and dO tiles, and the K/V ring, of
+// 2-byte words of either type (only TMA and wgmma read them).
 template <int D>
 struct __align__(1024) DqSmem {
   static constexpr int kPanels = D / kPanel;
-  __nv_bfloat16 q[kPanels][kRows * kPanel];
-  __nv_bfloat16 g[kPanels][kRows * kPanel];
-  __nv_bfloat16 k[kStages][kPanels][kRows * kPanel];
-  __nv_bfloat16 v[kStages][kPanels][kRows * kPanel];
+  uint16_t q[kPanels][kRows * kPanel];
+  uint16_t g[kPanels][kRows * kPanel];
+  uint16_t k[kStages][kPanels][kRows * kPanel];
+  uint16_t v[kStages][kPanels][kRows * kPanel];
   uint64_t qg_full;
   uint64_t kv_full[kStages];
   uint64_t empty[kStages];
@@ -381,10 +394,10 @@ struct __align__(1024) DqSmem {
 template <int D>
 struct __align__(1024) DkvSmem {
   static constexpr int kPanels = D / kPanel;
-  __nv_bfloat16 k[kPanels][kRows * kPanel];
-  __nv_bfloat16 v[kPanels][kRows * kPanel];
-  __nv_bfloat16 q[kStages][kPanels][kRows * kPanel];
-  __nv_bfloat16 g[kStages][kPanels][kRows * kPanel];
+  uint16_t k[kPanels][kRows * kPanel];
+  uint16_t v[kPanels][kRows * kPanel];
+  uint16_t q[kStages][kPanels][kRows * kPanel];
+  uint16_t g[kStages][kPanels][kRows * kPanel];
   float lse2[kStages][kRows];
   float delta[kStages][kRows];
   uint64_t kv_full;
@@ -396,13 +409,13 @@ struct __align__(1024) DkvSmem {
 // `a_addr` and `b_addr`, both K-major, in steps of 16 columns (+32 B within
 // a panel, the next panel every 4 steps); the first step overwrites acc
 // (issued, not committed)
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_ss(float (&acc)[32], uint32_t a_addr,
                                          uint32_t b_addr) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-    wgmma_ss_n64(acc, smem_desc(a_addr + off, 16, 1024),
+    wgmma_ss_n64<T>(acc, smem_desc(a_addr + off, 16, 1024),
                  smem_desc(b_addr + off, 16, 1024), kk > 0);
   }
 }
@@ -410,7 +423,7 @@ __device__ __forceinline__ void issue_ss(float (&acc)[32], uint32_t a_addr,
 // acc += A B over 64 rows of B: A in registers (a[4 kk .. 4 kk + 3] for
 // B's rows 16 kk .. 16 kk + 15), B the 64-row tile at `b_addr` read
 // MN-major, 2 KB of rows a step (issued, not committed)
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
                                          const uint32_t (&a)[16],
                                          uint32_t b_addr) {
@@ -418,7 +431,7 @@ __device__ __forceinline__ void issue_rs(float (&acc)[D / 2],
   for (int kk = 0; kk < kRows / 16; ++kk) {
     const uint32_t f[4] = {a[4 * kk], a[4 * kk + 1], a[4 * kk + 2],
                            a[4 * kk + 3]};
-    wgmma_rs<D>(acc, f, smem_desc(b_addr + kk * 2048, kPanelBytes, 1024));
+    wgmma_rs<T, D>(acc, f, smem_desc(b_addr + kk * 2048, kPanelBytes, 1024));
   }
 }
 
@@ -428,36 +441,74 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// fp32 pairs to bf16 pairs, in order: an accumulator tile becomes the
+// fp32 pairs to T pairs, in order: an accumulator tile becomes the
 // register A operand of the next product
+template <typename T>
 __device__ __forceinline__ void pack(uint32_t (&dst)[16],
                                      const float (&src)[32]) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = pack_bf16(src[2 * i], src[2 * i + 1]);
+  for (int i = 0; i < 16; ++i) {
+    dst[i] = Elem<T>::pack(src[2 * i], src[2 * i + 1]);
+  }
 }
 
-// rows `row0` and `row0 + 8` of a 64 x D accumulator, times `mul`, as bf16
-// into the contiguous [B, rows, H, D] output whose row `row0` starts at
-// `out` (rows >= `rows` are not stored)
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out,
-                                           const float (&acc)[D / 2],
+// f16's dS ceiling: a row's |dS| times its ds_mul stays at most this
+constexpr float kDsMax = 32768.f;
+
+// f16 only: this thread's values of a 64 x 64 tile of dS (rows row0 and
+// row0 + 8: element i is row (i / 2) % 2, the accumulator layout; the 4
+// lanes of a row are adjacent) times each row's power of two mul[r],
+// which drops first, with the row of the 64 x N accumulator `acc`, where
+// the tile's |dS| of that row times mul[r] passes kDsMax
+template <int N>
+__device__ __forceinline__ void fit_f16(float (&ds)[32], float (&mul)[2],
+                                        float (&acc)[N]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], fabsf(ds[i]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float big = mx[r] * mul[r];
+    if (big > kDsMax) {        // the same in the row's 4 lanes
+      int e;
+      frexpf(big / kDsMax, &e);            // big / kDsMax <= 2^e
+      const float f = ldexpf(1.f, -e);
+      mul[r] *= f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if ((i / 2) % 2 == r) acc[i] *= f;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ds[i] *= mul[(i / 2) % 2];
+}
+
+// rows `row0` and `row0 + 8` of a 64 x D accumulator, times mul[0] and
+// mul[1], as T into the contiguous [B, rows, H, D] output whose row `row0`
+// starts at `out` (rows >= `rows` are not stored)
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
                                            int row0, int rows, int heads,
-                                           int col0, float mul) {
+                                           int col0, const float (&mul)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row0 + 8 * r >= rows) continue;
-    __nv_bfloat16* o = out + static_cast<int64_t>(8 * r) * heads * D;
+    T* o = out + static_cast<int64_t>(8 * r) * heads * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * jj + col0) =
-          __floats2bfloat162_rn(acc[4 * jj + 2 * r] * mul,
-                                acc[4 * jj + 2 * r + 1] * mul);
+      *reinterpret_cast<uint32_t*>(o + 8 * jj + col0) =
+          Elem<T>::pack(acc[4 * jj + 2 * r] * mul[r],
+                        acc[4 * jj + 2 * r + 1] * mul[r]);
     }
   }
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -465,7 +516,7 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap g_map,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dq, int n, int m,
+                          T* __restrict__ dq, int n, int m,
                           int heads, float scale) {
   using Smem = DqSmem<D>;
   constexpr int kPanels = Smem::kPanels;
@@ -541,7 +592,8 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   zero(dq_acc);
   float sc[32];        // S of the tile, then P, then dS / scale, in fp32
   float dp[32];        // dP of the tile
-  uint32_t da[16];     // dS / scale, bf16 pairs
+  uint32_t da[16];     // dS / scale (times ds_mul), T pairs
+  float ds_mul[2] = {1.f, 1.f};   // f16: the rows' dS factors (fit_f16)
   const uint32_t q_addr = smem_u32(sm.q[0]);
   const uint32_t g_addr = smem_u32(sm.g[0]);
 
@@ -552,7 +604,7 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   };
   // dQ += dS K_j
   auto issue_dq = [&](int j) {
-    issue_rs<D>(dq_acc, da, smem_u32(sm.k[j % kStages][0]));
+    issue_rs<T, D>(dq_acc, da, smem_u32(sm.k[j % kStages][0]));
   };
   // tile j's K and V may be overwritten
   auto release = [&](int j) {
@@ -572,9 +624,9 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     zero(dp);
     wait_kv(j);
     wgmma_fence();
-    issue_ss<D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));   // S = Q K^T
+    issue_ss<T, D>(sc, q_addr, smem_u32(sm.k[j % kStages][0]));  // S = Q K^T
     wgmma_commit();
-    issue_ss<D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));   // dP = dO V^T
+    issue_ss<T, D>(dp, g_addr, smem_u32(sm.v[j % kStages][0]));  // dP = dO V^T
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
@@ -592,7 +644,8 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     fence_regs(dp);
 #pragma unroll
     for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
-    pack(da, sc);
+    if constexpr (kIsHalf<T>) fit_f16(sc, ds_mul, dq_acc);
+    pack<T>(da, sc);
     wgmma_fence();
     issue_dq(j);
     wgmma_commit();
@@ -601,11 +654,12 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     release(j);
   }
 
-  store_rows<D>(dq + ((static_cast<int64_t>(b) * n + row0) * heads + h) * D,
-                dq_acc, row0, n, heads, col0, scale);
+  const float mul[2] = {scale / ds_mul[0], scale / ds_mul[1]};
+  store_rows<T, D>(dq + ((static_cast<int64_t>(b) * n + row0) * heads + h) * D,
+                   dq_acc, row0, n, heads, col0, mul);
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kWgmmaThreads, 1)
 flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -613,8 +667,8 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap g_map,
                            const float* __restrict__ lse,
                            const float* __restrict__ delta,
-                           __nv_bfloat16* __restrict__ dk,
-                           __nv_bfloat16* __restrict__ dv, int n, int m,
+                           T* __restrict__ dk, T* __restrict__ dv, int n,
+                           int m,
                            int heads, float scale) {
   using Smem = DkvSmem<D>;
   constexpr int kPanels = Smem::kPanels;
@@ -695,8 +749,9 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   zero(dv_acc);
   float sc[32];        // S^T of the tile, then its P^T in fp32
   float dp[32];        // dP^T of the tile, then its dS^T / scale
-  uint32_t pa[16];     // P^T, bf16 pairs
-  uint32_t da[16];     // dS^T / scale, bf16 pairs
+  uint32_t pa[16];     // P^T, T pairs
+  uint32_t da[16];     // dS^T / scale (times ds_mul), T pairs
+  float ds_mul[2] = {1.f, 1.f};   // f16: the key rows' dS factors
   const uint32_t k_addr = smem_u32(sm.k[0]);
   const uint32_t v_addr = smem_u32(sm.v[0]);
 
@@ -707,8 +762,8 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   };
   // dV += P^T dO_j, dK += dS^T Q_j
   auto issue_dkv = [&](int j) {
-    issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
-    issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
+    issue_rs<T, D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
+    issue_rs<T, D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
   };
   // tile j's Q, dO, lse and Delta may be overwritten
   auto release = [&](int j) {
@@ -734,9 +789,9 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     zero(dp);
     wait_qg(j);
     wgmma_fence();
-    issue_ss<D>(sc, k_addr, smem_u32(sm.q[s][0]));      // S^T = K Q^T
+    issue_ss<T, D>(sc, k_addr, smem_u32(sm.q[s][0]));   // S^T = K Q^T
     wgmma_commit();
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[s][0]));      // dP^T = V dO^T
+    issue_ss<T, D>(dp, v_addr, smem_u32(sm.g[s][0]));   // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
@@ -758,8 +813,9 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
       const int col = 8 * (i / 4) + col0 + (i % 2);
       dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
     }
-    pack(pa, sc);
-    pack(da, dp);
+    if constexpr (kIsHalf<T>) fit_f16(dp, ds_mul, dk_acc);
+    pack<T>(pa, sc);
+    pack<T>(da, dp);
     wgmma_fence();
     issue_dkv(j);
     wgmma_commit();
@@ -770,11 +826,13 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 
   const int64_t out = ((static_cast<int64_t>(b) * m + row0) * heads + h) * D;
-  store_rows<D>(dk + out, dk_acc, row0, m, heads, col0, scale);
-  store_rows<D>(dv + out, dv_acc, row0, m, heads, col0, 1.f);
+  const float dk_mul[2] = {scale / ds_mul[0], scale / ds_mul[1]};
+  const float one[2] = {1.f, 1.f};
+  store_rows<T, D>(dk + out, dk_acc, row0, m, heads, col0, dk_mul);
+  store_rows<T, D>(dv + out, dv_acc, row0, m, heads, col0, one);
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
                                 const float* lse, const float* delta,
                                 void* out0, void* out1, int batch, int n,
@@ -783,24 +841,24 @@ cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
   const int smem = static_cast<int>(dkv ? sizeof(DkvSmem<D>)
                                         : sizeof(DqSmem<D>)) + 1024;
   const dim3 grid(batch * heads, ((dkv ? m : n) + kRows - 1) / kRows);
-  __nv_bfloat16* o0 = static_cast<__nv_bfloat16*>(out0);
-  __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(out1);
+  T* o0 = static_cast<T*>(out0);
+  T* o1 = static_cast<T*>(out1);
   cudaError_t err;
   if (dkv) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<D, kCausal>,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel_wgmma<D, kCausal>
+    flash_bwd_dkv_kernel_wgmma<T, D, kCausal>
         <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
                                                 maps[3], lse, delta, o0, o1,
                                                 n, m, heads, scale);
   } else {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<D, kCausal>,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel_wgmma<D, kCausal>
+    flash_bwd_dq_kernel_wgmma<T, D, kCausal>
         <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
                                                 maps[3], lse, delta, o0, n,
                                                 m, heads, scale);
@@ -808,19 +866,42 @@ cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_wgmma(bool dkv, const CUtensorMap* maps, const void* lse,
                          const void* delta, void* out0, void* out1,
                          int batch, int n, int m, int heads, float scale,
                          int causal, cudaStream_t stream) {
   const float* lp = static_cast<const float*>(lse);
   const float* dp = static_cast<const float*>(delta);
-  return causal ? launch_wgmma_kernel<D, true>(dkv, maps, lp, dp, out0, out1,
-                                               batch, n, m, heads, scale,
-                                               stream)
-                : launch_wgmma_kernel<D, false>(dkv, maps, lp, dp, out0,
-                                                out1, batch, n, m, heads,
-                                                scale, stream);
+  return causal ? launch_wgmma_kernel<T, D, true>(dkv, maps, lp, dp, out0,
+                                                  out1, batch, n, m, heads,
+                                                  scale, stream)
+                : launch_wgmma_kernel<T, D, false>(dkv, maps, lp, dp, out0,
+                                                   out1, batch, n, m, heads,
+                                                   scale, stream);
+}
+
+// the maps over q, k, v, dO (rows n, m, m, n), then the instantiation
+template <typename T>
+int launch_tc(bool dkv, const void* const (&ptrs)[4], const void* lse,
+              const void* delta, void* out0, void* out1, int batch, int n,
+              int m, int heads, int head_dim, const long long* s,
+              float scale, int causal, cudaStream_t cs) {
+  const int rows[4] = {n, m, m, n};
+  CUtensorMap maps[4];
+  for (int i = 0; i < 4; ++i) {
+    const int err = encode_map(&maps[i], Elem<T>::kMap, ptrs[i], head_dim,
+                               heads, rows[i], batch, s[3 * i],
+                               s[3 * i + 1], s[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  const cudaError_t launched =
+      head_dim == 64
+          ? launch_wgmma<T, 64>(dkv, maps, lse, delta, out0, out1, batch, n,
+                                m, heads, scale, causal, cs)
+          : launch_wgmma<T, 128>(dkv, maps, lse, delta, out0, out1, batch,
+                                 n, m, heads, scale, causal, cs);
+  return static_cast<int>(launched);
 }
 
 int dispatch(bool dkv, const void* q, const void* k, const void* v,
@@ -830,7 +911,7 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
              void* stream) {
   if (n <= 0 || m <= 0 || batch <= 0 || heads <= 0 ||
       batch * heads > 65535 || (causal && n != m) ||
-      (head_dim != 64 && head_dim != 128) || (dtype != 0 && dtype != 1)) {
+      (head_dim != 64 && head_dim != 128) || dtype < 0 || dtype > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
@@ -845,32 +926,24 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
                                batch, n, m, heads, st, scale, causal, cs);
     return static_cast<int>(err);
   }
-  // bf16: maps over q, k, v, dO (rows n, m, m, n)
-  const void* ptrs[4] = {q, k, v, g};
-  const int rows[4] = {n, m, m, n};
-  CUtensorMap maps[4];
-  for (int i = 0; i < 4; ++i) {
-    const int err = encode_map(&maps[i], ptrs[i], head_dim, heads, rows[i],
-                               batch, s[3 * i], s[3 * i + 1], s[3 * i + 2]);
-    if (err != 0) return err;
-  }
-  const cudaError_t launched =
-      head_dim == 64
-          ? launch_wgmma<64>(dkv, maps, lse, delta, out0, out1, batch, n, m,
-                             heads, scale, causal, cs)
-          : launch_wgmma<128>(dkv, maps, lse, delta, out0, out1, batch, n, m,
-                              heads, scale, causal, cs);
-  return static_cast<int>(launched);
+  const void* const ptrs[4] = {q, k, v, g};
+  return dtype == 1
+             ? launch_tc<__nv_bfloat16>(dkv, ptrs, lse, delta, out0, out1,
+                                        batch, n, m, heads, head_dim, s,
+                                        scale, causal, cs)
+             : launch_tc<__half>(dkv, ptrs, lse, delta, out0, out1, batch,
+                                 n, m, heads, head_dim, s, scale, causal, cs);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (fp32 FMA kernels), 1 = bfloat16 (wgmma + TMA kernels;
-// bf16 strides must be multiples of 8 elements and the bases 16-byte
-// aligned, which the caller checks). `strides` holds 12 element strides in
+// dtype: 0 = float32 (fp32 FMA kernels), 1 = bfloat16, 2 = float16 (wgmma +
+// TMA kernels of that type; strides must be multiples of 8 elements and the
+// bases 16-byte aligned, which the caller checks); another code returns
+// cudaErrorInvalidValue. `strides` holds 12 element strides in
 // the order (q: batch, seq, head), (k: ...), (v: ...), (dO: ...). lse and
 // delta are contiguous [batch*heads, n] fp32. Returns a cudaError_t; for
-// bf16 also 100000 when the CUDA driver has no cuTensorMapEncodeTiled, and
+// bf16 and f16 also 100000 when the CUDA driver has no cuTensorMapEncodeTiled, and
 // 200000 + its CUresult when an encode fails.
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,

@@ -18,7 +18,8 @@
 // has to keep them fed: the serving shape is 12 heads x 16 tiles of 64 rows,
 // barely more tiles than the card has SMs, so each tile's latency counts.
 //
-// Design of the bf16 kernel (`flash_fwd_kernel_wgmma`):
+// Design of the tensor-core kernel (`flash_fwd_kernel_wgmma<T>`, T bf16 or
+// f16: one source, the element type a template parameter):
 //   * one CTA per ((b, h), 64 query rows): one consumer warpgroup and one
 //     producer warp (two consumer warpgroups, 128 rows, were slower at both
 //     main-path shapes; PERF.md section 6). The q-tile index runs in
@@ -32,8 +33,10 @@
 //   * S = Q K^T is wgmma m64n64k16 from shared memory (both operands
 //     K-major), fp32 accumulate. The online softmax runs on the accumulator
 //     registers in the log2 domain (scale * log2 e folded into S, ex2),
-//     row max and sum over the 4 lanes that share a row. P is rounded to
-//     bf16 in registers and is the register A operand of O += P V (wgmma
+//     row max and sum over the 4 lanes that share a row. The row sum l
+//     adds P in fp32, before any rounding: the reference's P (its Pallas
+//     body keeps P in fp32). P is then rounded to T in registers and is
+//     the register A operand of O += P V (wgmma
 //     m64n{D}k16, V MN-major in shared memory, transpose bit set), so the
 //     score tile never leaves registers;
 //   * the warpgroup pipelines its tiles: S_j is issued together with
@@ -42,8 +45,11 @@
 //   * causal: the consumer stops at its diagonal tile and masks only that
 //     tile (and the tile holding key M-1); masked keys get probability
 //     exactly 0, never exp(-inf - -inf);
-//   * epilogue: O / l rounded to bf16, stored for rows < N as bf16 pairs;
+//   * epilogue: O / l rounded to T, stored for rows < N as T pairs;
 //     lse = m * ln 2 + ln l.
+// In f16, P below 2^-14 rounds to a subnormal and below 2^-24 to 0 (bf16
+// keeps fp32's range); the tolerance against the fp32 twin counts that
+// (kernels/flash_attention.py `flash_fwd_f16_tol`).
 // What the design leaves for later: no second consumer warpgroup to
 // ping-pong with (one's softmax under the other's products), and O is
 // stored with 4-byte stores rather than through shared memory and TMA.
@@ -51,10 +57,11 @@
 // fp32 inputs keep the first design (`flash_fwd_kernel`, fp32 FMA on the
 // CUDA cores, K/V staged in shared memory as fp32): the fp32 checks on the
 // card (greedy parity and training parity against the CPU, the backward's
-// fp32 cases) need products rounded nowhere but in fp32, which bf16
+// fp32 cases) need products rounded nowhere but in fp32, which 2-byte
 // tensor-core operands would not give.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -235,7 +242,7 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* o,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma products fed by TMA
+// bf16 and f16: wgmma products fed by TMA
 // ---------------------------------------------------------------------------
 
 // kRows (64): q rows per warpgroup, and keys per tile (hopper_sm90.cuh)
@@ -244,13 +251,14 @@ constexpr int kStages = 4;       // K/V ring depth
 // Shared memory of one CTA. Every tile is a stack of 64-column panels of
 // 64 rows x 128 B, written by TMA in the 128-byte swizzle: the layout the
 // wgmma descriptors of hopper_sm90.cuh name. Panels start on 1 KB
-// boundaries (the swizzle repeats every 8 rows = 1 KB).
+// boundaries (the swizzle repeats every 8 rows = 1 KB). Elements are 2-byte
+// words of either type: only TMA and wgmma read them.
 template <int D>
 struct __align__(1024) FwdSmem {
   static constexpr int kPanels = D / kPanel;
-  __nv_bfloat16 q[kPanels][kRows * kPanel];
-  __nv_bfloat16 k[kStages][kPanels][kRows * kPanel];
-  __nv_bfloat16 v[kStages][kPanels][kRows * kPanel];
+  uint16_t q[kPanels][kRows * kPanel];
+  uint16_t k[kStages][kPanels][kRows * kPanel];
+  uint16_t v[kStages][kPanels][kRows * kPanel];
   uint64_t q_full;
   uint64_t k_full[kStages];
   uint64_t v_full[kStages];
@@ -260,12 +268,12 @@ struct __align__(1024) FwdSmem {
 // one consumer warpgroup and one producer warp
 constexpr int kWgmmaThreads = 128 + 32;
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 __global__ void __launch_bounds__(kWgmmaThreads, 2)
 flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map,
-                       __nv_bfloat16* __restrict__ o,
+                       T* __restrict__ o,
                        float* __restrict__ lse, int n, int m, int heads,
                        float scale_log2) {
   using Smem = FwdSmem<D>;
@@ -341,7 +349,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
   float sc[32];        // S of the newest tile, then its P in fp32
-  uint32_t pa[16];     // P of the tile whose P V is next, bf16 pairs
+  uint32_t pa[16];     // P of the tile whose P V is next, T pairs
 
   const uint32_t q_addr = smem_u32(sm.q[0]);
 
@@ -360,7 +368,7 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss_n64(sc, smem_desc(q_addr + off, 16, 1024),
+      wgmma_ss_n64<T>(sc, smem_desc(q_addr + off, 16, 1024),
                    smem_desc(k_addr + off, 16, 1024), kk > 0);
     }
   };
@@ -373,7 +381,8 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     for (int kk = 0; kk < kRows / 16; ++kk) {
       const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
                              pa[4 * kk + 3]};
-      wgmma_rs<D>(o_acc, a, smem_desc(v_addr + kk * 2048, kPanelBytes, 1024));
+      wgmma_rs<T, D>(o_acc, a,
+                     smem_desc(v_addr + kk * 2048, kPanelBytes, 1024));
     }
   };
   // tile j's K and V may be overwritten
@@ -423,7 +432,9 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   };
   auto pack_p = [&]() {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    for (int i = 0; i < 16; ++i) {
+      pa[i] = Elem<T>::pack(sc[2 * i], sc[2 * i + 1]);
+    }
   };
 
   // Software pipeline within the warpgroup: S_j is issued together with
@@ -480,13 +491,12 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     if (row >= n) continue;
     const float l_safe = fmaxf(l, 1e-30f);
     const float inv = 1.f / l_safe;
-    __nv_bfloat16* o_row =
-        o + ((static_cast<int64_t>(b) * n + row) * heads + h) * D;
+    T* o_row = o + ((static_cast<int64_t>(b) * n + row) * heads + h) * D;
 #pragma unroll
     for (int jj = 0; jj < D / 8; ++jj) {
-      *reinterpret_cast<__nv_bfloat162*>(o_row + 8 * jj + col0) =
-          __floats2bfloat162_rn(o_acc[4 * jj + 2 * r] * inv,
-                                o_acc[4 * jj + 2 * r + 1] * inv);
+      *reinterpret_cast<uint32_t*>(o_row + 8 * jj + col0) =
+          Elem<T>::pack(o_acc[4 * jj + 2 * r] * inv,
+                        o_acc[4 * jj + 2 * r + 1] * inv);
     }
     if (lane % 4 == 0) {
       lse[static_cast<int64_t>(bh) * n + row] = m_run[r] * kLn2 + logf(l_safe);
@@ -494,41 +504,63 @@ flash_fwd_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-template <int D, bool kCausal>
+template <typename T, int D, bool kCausal>
 cudaError_t launch_wgmma_kernel(const CUtensorMap* maps, void* o, void* lse,
                                 int batch, int n, int m, int heads,
                                 float scale, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(FwdSmem<D>)) + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel_wgmma<D, kCausal>,
+      flash_fwd_kernel_wgmma<T, D, kCausal>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(batch * heads, (n + kRows - 1) / kRows);
-  flash_fwd_kernel_wgmma<D, kCausal><<<grid, kWgmmaThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), n, m, heads, scale * kLog2e);
+  flash_fwd_kernel_wgmma<T, D, kCausal>
+      <<<grid, kWgmmaThreads, smem, stream>>>(
+          maps[0], maps[1], maps[2], static_cast<T*>(o),
+          static_cast<float*>(lse), n, m, heads, scale * kLog2e);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_wgmma(const CUtensorMap* maps, void* o, void* lse,
-                         int batch, int n, int m, int heads, float scale,
-                         int causal, cudaStream_t stream) {
-  return causal ? launch_wgmma_kernel<D, true>(maps, o, lse, batch, n, m,
-                                               heads, scale, stream)
-                : launch_wgmma_kernel<D, false>(maps, o, lse, batch, n, m,
-                                                heads, scale, stream);
+// the maps over q, k and v, then the instantiation for causal and D
+template <typename T>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 void* lse, int batch, int n, int m, int heads, int head_dim,
+                 const int64_t* st, float scale, int causal,
+                 cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {n, m, m};
+  for (int i = 0; i < 3; ++i) {
+    const int err = encode_map(&maps[i], Elem<T>::kMap, ptrs[i], head_dim,
+                               heads, rows[i], batch, st[3 * i],
+                               st[3 * i + 1], st[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  cudaError_t launched;
+  if (head_dim == 64) {
+    launched = causal ? launch_wgmma_kernel<T, 64, true>(
+                            maps, o, lse, batch, n, m, heads, scale, stream)
+                      : launch_wgmma_kernel<T, 64, false>(
+                            maps, o, lse, batch, n, m, heads, scale, stream);
+  } else {
+    launched = causal ? launch_wgmma_kernel<T, 128, true>(
+                            maps, o, lse, batch, n, m, heads, scale, stream)
+                      : launch_wgmma_kernel<T, 128, false>(
+                            maps, o, lse, batch, n, m, heads, scale, stream);
+  }
+  return static_cast<int>(launched);
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (fp32 FMA kernel), 1 = bfloat16 (wgmma + TMA kernel;
-// bf16 strides must be multiples of 8 elements and the bases 16-byte
-// aligned, which the caller checks).
+// dtype: 0 = float32 (fp32 FMA kernel), 1 = bfloat16, 2 = float16 (wgmma +
+// TMA kernel of that type; strides must be multiples of 8 elements and the
+// bases 16-byte aligned, which the caller checks); another code returns
+// cudaErrorInvalidValue.
 // Strides are in elements, in the order (q: batch, seq, head), (k: ...),
-// (v: ...). Returns a cudaError_t; for bf16 also 100000 when the CUDA
-// driver has no cuTensorMapEncodeTiled, and 200000 + its CUresult when an
-// encode fails.
+// (v: ...). Returns a cudaError_t; for bf16 and f16 also 100000 when the
+// CUDA driver has no cuTensorMapEncodeTiled, and 200000 + its CUresult when
+// an encode fails.
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n, int m, int heads, int head_dim,
@@ -537,41 +569,27 @@ extern "C" int paddle_flash_attention_fwd(
     long long v_sb, long long v_sn, long long v_sh,
     float scale, int causal, int dtype, void* stream) {
   if (n <= 0 || m <= 0 || batch <= 0 || heads <= 0 ||
-      batch * heads > 65535) {
+      batch * heads > 65535 || (head_dim != 64 && head_dim != 128)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
+                         v_sb, v_sn, v_sh};
   if (dtype == 0) {
-    const int64_t st[9] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh,
-                           v_sb, v_sn, v_sh};
-    cudaError_t err = cudaErrorInvalidValue;
-    if (head_dim == 64) {
-      err = launch_fp32<64>(q, k, v, o, lse, batch, n, m, heads, st, scale,
-                            causal, s);
-    } else if (head_dim == 128) {
-      err = launch_fp32<128>(q, k, v, o, lse, batch, n, m, heads, st, scale,
-                             causal, s);
-    }
+    const cudaError_t err =
+        head_dim == 64 ? launch_fp32<64>(q, k, v, o, lse, batch, n, m, heads,
+                                         st, scale, causal, s)
+                       : launch_fp32<128>(q, k, v, o, lse, batch, n, m,
+                                          heads, st, scale, causal, s);
     return static_cast<int>(err);
   }
-  if (dtype != 1 || (head_dim != 64 && head_dim != 128)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    return launch_wgmma<__nv_bfloat16>(q, k, v, o, lse, batch, n, m, heads,
+                                       head_dim, st, scale, causal, s);
   }
-  CUtensorMap maps[3];
-  int err = encode_map(&maps[0], q, head_dim, heads, n, batch, q_sb, q_sn,
-                       q_sh);
-  if (err == 0) {
-    err = encode_map(&maps[1], k, head_dim, heads, m, batch, k_sb, k_sn, k_sh);
+  if (dtype == 2) {
+    return launch_wgmma<__half>(q, k, v, o, lse, batch, n, m, heads,
+                                head_dim, st, scale, causal, s);
   }
-  if (err == 0) {
-    err = encode_map(&maps[2], v, head_dim, heads, m, batch, v_sb, v_sn, v_sh);
-  }
-  if (err != 0) return err;
-  const cudaError_t launched =
-      head_dim == 64
-          ? launch_wgmma<64>(maps, o, lse, batch, n, m, heads, scale, causal,
-                             s)
-          : launch_wgmma<128>(maps, o, lse, batch, n, m, heads, scale, causal,
-                              s);
-  return static_cast<int>(launched);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,7 +20,7 @@
 //     padding); a block has T = min(1024, d/4) threads and each thread
 //     holds N groups of 4 elements in registers (N = 1 for d <= 4096, so
 //     d = 768 is 192 threads of one group each);
-//   * a group is one 16-byte (fp32) or 8-byte (bf16) load of x and of
+//   * a group is one 16-byte (fp32) or 8-byte (bf16, f16) load of x and of
 //     residual, neighbouring threads on neighbouring groups;
 //   * z = (x + bias) + residual in fp32, the row mean by a block
 //     reduction (warp shuffles, then one warp over the warps' sums), then
@@ -28,6 +28,7 @@
 //     passes over registers, not over memory), rsqrtf(var + eps), the
 //     affine terms and one store in x's dtype.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +50,14 @@ __device__ __forceinline__ void load4(const __nv_bfloat16* p,
   v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
 }
 
+__device__ __forceinline__ void load4(const __half* p, float (&v)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+  const float2 a = __half22float2(h2[0]);
+  const float2 b = __half22float2(h2[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
@@ -58,6 +67,14 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
   __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
   h2[0] = __floats2bfloat162_rn(v[0], v[1]);
   h2[1] = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  uint2 raw;
+  __half2* h2 = reinterpret_cast<__half2*>(&raw);
+  h2[0] = __floats2half2_rn(v[0], v[1]);
+  h2[1] = __floats2half2_rn(v[2], v[3]);
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
@@ -180,12 +197,22 @@ cudaError_t launch_groups(const Args& a, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+template <typename T>
+cudaError_t launch_affine(const Args& a, int affine_dtype, cudaStream_t s) {
+  switch (affine_dtype) {
+    case 0: return launch_groups<T, float>(a, s);
+    case 1: return launch_groups<T, __nv_bfloat16>(a, s);
+    case 2: return launch_groups<T, __half>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, residual and out); affine_dtype the
-// same for bias, scale and shift. x, residual, out [rows, d] contiguous,
-// bias / scale / shift [d]; d % 128 == 0 and d <= 65536. Returns a
-// cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, residual and out);
+// affine_dtype the same for bias, scale and shift (another code returns
+// cudaErrorInvalidValue). x, residual, out [rows, d] contiguous, bias /
+// scale / shift [d]; d % 128 == 0 and d <= 65536. Returns a cudaError_t.
 extern "C" int paddle_fused_ln(const void* x, const void* res,
                                const void* bias, const void* scale,
                                const void* shift, void* out, int rows, int d,
@@ -197,14 +224,12 @@ extern "C" int paddle_fused_ln(const void* x, const void* res,
   const Args a{x, res, bias, scale, shift, out, rows, d, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0 && affine_dtype == 0) {
-    err = launch_groups<float, float>(a, s);
-  } else if (dtype == 0 && affine_dtype == 1) {
-    err = launch_groups<float, __nv_bfloat16>(a, s);
-  } else if (dtype == 1 && affine_dtype == 0) {
-    err = launch_groups<__nv_bfloat16, float>(a, s);
-  } else if (dtype == 1 && affine_dtype == 1) {
-    err = launch_groups<__nv_bfloat16, __nv_bfloat16>(a, s);
+  if (dtype == 0) {
+    err = launch_affine<float>(a, affine_dtype, s);
+  } else if (dtype == 1) {
+    err = launch_affine<__nv_bfloat16>(a, affine_dtype, s);
+  } else if (dtype == 2) {
+    err = launch_affine<__half>(a, affine_dtype, s);
   }
   return static_cast<int>(err);
 }

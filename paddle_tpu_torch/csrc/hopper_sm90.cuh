@@ -8,24 +8,57 @@
 //
 // wgmma's fp32 accumulator of a 64 x N tile, per thread of the warpgroup
 // (warp w, lane l): element i is row 16 w + l / 4 + 8 ((i / 2) % 2), column
-// 8 (i / 4) + 2 (l % 4) + i % 2. Packed to bf16 pairs in order, the 32
+// 8 (i / 4) + 2 (l % 4) + i % 2. Packed to 16-bit pairs in order, the 32
 // registers of a 64 x 64 tile are exactly the register A fragments of four
 // m64k16 steps (registers 4 kk .. 4 kk + 3 for columns 16 kk .. 16 kk + 15),
 // so a score tile feeds the next product without leaving registers.
+//
+// The element type T of the tiles is bf16 or f16 (`Elem<T>`): both are 2
+// bytes with one wgmma rate and one layout, and differ only in the PTX type
+// of the products, the tensor map's data type and the fp32 conversions.
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace sm90 {
 
 constexpr int kRows = 64;        // rows of a wgmma tile, and of a TMA box
-constexpr int kPanel = 64;       // bf16 columns in one 128-byte swizzle line
+constexpr int kPanel = 64;       // 2-byte columns in one 128-byte swizzle line
 constexpr uint32_t kPanelBytes = kRows * kPanel * 2;   // 8 KB, one TMA box
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The 2-byte element types of the tensor-core kernels
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // two fp32 values rounded to nearest even, lo in the low half
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
+};
+
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -104,69 +137,104 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// d (+)= A B, 64 x 64 x 16: A and B from shared memory, both K-major
+#define D32_OUTS \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),           \
+    "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),           \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),           \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+#define D64_OUTS \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+    "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),  \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),           \
+    "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),           \
+    "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),           \
+    "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),          \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),           \
+    "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),           \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),           \
+    "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),           \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),           \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),           \
+    "+f"(d[62]), "+f"(d[63])
+
+// The products below, written once for both element types: AB is the PTX
+// type of A and B ("bf16" or "f16"), the accumulator is fp32.
+#define SM90_WGMMA_SS_N64(AB)                                                  \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"                          \
+      : D32_OUTS                                                               \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
+#define SM90_WGMMA_RS_N64(AB)                                                  \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"            \
+      : D32_OUTS                                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+#define SM90_WGMMA_RS_N128(AB)                                                 \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, "  \
+      "1, 1;\n}\n"                                                             \
+      : D64_OUTS                                                               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1))
+
+// d (+)= A B, 64 x 64 x 16: A and B (of type T) from shared memory, both
+// K-major
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
                                              uint64_t desc_b,
                                              int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kIsHalf<T>) {
+    SM90_WGMMA_SS_N64("f16");
+  } else {
+    SM90_WGMMA_SS_N64("bf16");
+  }
 }
 
-// d += A B, 64 x N x 16: A (4 registers of bf16 pairs) from registers, B
+// d += A B, 64 x N x 16: A (4 registers of T pairs) from registers, B
 // from shared memory, MN-major (transposed)
-template <int N>
+template <typename T, int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
   if constexpr (N == 64) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    if constexpr (kIsHalf<T>) {
+      SM90_WGMMA_RS_N64("f16");
+    } else {
+      SM90_WGMMA_RS_N64("bf16");
+    }
   } else {
     static_assert(N == 128, "head_dim 64 or 128");
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+    if constexpr (kIsHalf<T>) {
+      SM90_WGMMA_RS_N128("f16");
+    } else {
+      SM90_WGMMA_RS_N128("bf16");
+    }
   }
 }
+
+#undef SM90_WGMMA_SS_N64
+#undef SM90_WGMMA_RS_N64
+#undef SM90_WGMMA_RS_N128
+#undef D32_OUTS
+#undef D64_OUTS
 
 // 2^x in one MUFU.EX2 (exp2f adds range and denormal fix-ups); 2^-inf = 0
 __device__ __forceinline__ float ex2(float x) {
@@ -175,10 +243,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against libcuda
@@ -208,16 +272,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Error codes of the bf16 entries beyond cudaError_t's range.
+// Error codes of the tensor-core entries beyond cudaError_t's range.
 constexpr int kErrNoEncoder = 100000;       // no cuTensorMapEncodeTiled
 constexpr int kErrEncode = 200000;          // + CUresult of a failed encode
 
-// A 4-D map [D, H, rows, B] (innermost first) over bf16 data at `ptr`, with
-// the caller's element strides (batch, seq, head): 64 x 1 x 64 x 1 boxes,
-// 128-byte swizzle, zero fill out of bounds.
-inline int encode_map(CUtensorMap* map, const void* ptr, int d, int heads,
-                      int rows, int batch, int64_t s_b, int64_t s_n,
-                      int64_t s_h) {
+// A 4-D map [D, H, rows, B] (innermost first) over 2-byte data of type
+// `type` (`Elem<T>::kMap`) at `ptr`, with the caller's element strides
+// (batch, seq, head): 64 x 1 x 64 x 1 boxes, 128-byte swizzle, zero fill
+// out of bounds.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                      const void* ptr, int d, int heads, int rows, int batch,
+                      int64_t s_b, int64_t s_n, int64_t s_h) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -229,7 +294,7 @@ inline int encode_map(CUtensorMap* map, const void* ptr, int d, int heads,
                                  static_cast<cuuint64_t>(s_b) * 2};
   const cuuint32_t box[4] = {kPanel, 1, kRows, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  const CUresult res = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  const CUresult res = fn(map, type, 4,
                           const_cast<void*>(ptr), dims, strides, box,
                           elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                           CU_TENSOR_MAP_SWIZZLE_128B,

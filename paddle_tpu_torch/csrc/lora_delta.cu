@@ -15,8 +15,8 @@
 //       d = round_T(round_T(t @ B[s, layer]) * round_T(scale[s]))
 //       y[n, :] = round_T(y[n, :] + d)                (B [K, L, r, out])
 //
-// with fp32 sums and round_T the rounding to the model's type (bf16 or
-// fp32), where the plain twin `lora_delta_reference` and the reference
+// with fp32 sums and round_T the rounding to the model's type (bf16, f16
+// or fp32), where the plain twin `lora_delta_reference` and the reference
 // round. Rows of slot 0 (the base adapter, all zeros) are not touched, so
 // a base tenant stays bit for bit with an adapter-free engine: their CTAs
 // return before any other load. Sums are taken in a fixed order (no
@@ -42,20 +42,24 @@
 //   grid of 16-row tiles x column tiles (up to 1152 columns a CTA), chosen
 //   for at least 128 CTAs at 1024 rows; 256 threads. A CTA reads the slot,
 //   returns at slot 0, and computes T = round_T(X_tile @ A), the warps
-//   splitting `in`: bf16 on the tensor cores (mma.sync m16n8k16, each
+//   splitting `in`: bf16 and f16 on the tensor cores (mma.sync m16n8k16 of
+//   the type, each
 //   k-step's 16 products summed from zero and added up in fp64; A read by
 //   pairs along the rank and turned into B operands by movmatrix), fp32 on
 //   the FMA units in fp64 (TF32 would round the operands); the warps'
-//   parts summed in a fixed order. In bf16 U = T @ B is a tensor-core
+//   parts summed in a fixed order. In bf16 and f16 U = T @ B is a tensor-core
 //   product too, warp by warp over 8-column tiles, y and B read by pairs
 //   in the fragments' layout and issued right after T's first operands;
 //   in fp32 each thread takes 2 columns of the 16 rows with B's rank rows
 //   in registers. A and B are read once a tile, not once a row. T is
 //   summed this closely so that where the twin's own fp32 sum of x @ A
-//   rounds across a bf16 step, the kernel still holds against the same
+//   rounds across a bf16 or f16 step, the kernel still holds against the same
 //   arithmetic with fp64 sums (`lora_delta_exact`).
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 #include <stdint.h>
 
 namespace {
@@ -69,7 +73,7 @@ constexpr int kTileRows = 16;       // tile form: rows a CTA (mma's M)
 constexpr int kTileThreads = 256;   // tile form: threads a CTA
 constexpr int kTileWarps = kTileThreads / 32;
 constexpr int kTileMinCtas = 128;
-constexpr int kKBatch = 6;          // tile form, bf16: k-steps loaded at once
+constexpr int kKBatch = 6;          // tile form, 2-byte: k-steps loaded at once
 constexpr int kFBatch = 8;          // tile form, fp32: k loaded at once
 constexpr size_t kSmemLimit = 48 * 1024;
 
@@ -77,6 +81,7 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -85,6 +90,23 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
+}
+
+// the 16 bits of v rounded to the 2-byte type T
+template <typename T>
+__device__ __forceinline__ unsigned short bits_of(float v) {
+  const T t = from_float<T>(v);
+  return *reinterpret_cast<const unsigned short*>(&t);
+}
+
+// the 2-byte T with bits `b`, as a float
+template <typename T>
+__device__ __forceinline__ float from_bits(unsigned short b) {
+  return to_float(*reinterpret_cast<const T*>(&b));
 }
 
 // v rounded to T and back: the rounding the twin's dtype casts make
@@ -143,7 +165,7 @@ struct Params {
   const int* idx;
   int rows, in, out, rank, layer, num_layers;
   long long y_stride, x_stride, idx_stride;
-  int fast;     // tile: x and A read as aligned pairs (bf16) or 16-byte
+  int fast;     // tile: x and A read as aligned pairs (2-byte) or 16-byte
                 // vectors (fp32)
   int tile_cols;  // tile: output columns a CTA
 };
@@ -299,13 +321,23 @@ __device__ __forceinline__ unsigned int pair(unsigned short lo,
   return static_cast<unsigned int>(lo) | (static_cast<unsigned int>(hi) << 16);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned int (&a)[4],
-                                         unsigned int b0, unsigned int b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c += a b, m16n8k16, operands of the 2-byte type T, fp32 sums
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const unsigned int (&a)[4],
+                                      unsigned int b0, unsigned int b1) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // the warp's 8 x 8 matrix of b16 pairs (lane l: row l / 4, columns
@@ -321,7 +353,8 @@ __device__ __forceinline__ unsigned int ldg_pair(const unsigned short* q) {
   return __ldg(reinterpret_cast<const unsigned int*>(q));
 }
 
-// the lane's pair of bf16 at q and q + step, 0 where not ok / not ok2
+// the lane's pair of 2-byte values at q and q + step, 0 where not ok / not
+// ok2
 __device__ __forceinline__ unsigned int ldg_two(const unsigned short* q,
                                                 int64_t step, bool ok,
                                                 bool ok2) {
@@ -329,18 +362,17 @@ __device__ __forceinline__ unsigned int ldg_two(const unsigned short* q,
               ok2 ? __ldg(q + step) : static_cast<unsigned short>(0));
 }
 
-// this warp's part of T[16][kb .. kb + 16) = X_tile @ A, bf16 operands on
-// the tensor cores, over the k-steps warp, warp + nw, ...: kKBatch k-steps'
+// this warp's part of T[16][kb .. kb + 16) = X_tile @ A, operands of the
+// 2-byte type H on the tensor cores, over the k-steps warp, warp + nw, ...: kKBatch k-steps'
 // operands are loaded before the first product; each k-step's 16 products
 // are summed from zero and added up in fp64, so T is the exact sum but for
 // the tensor core's rounding of 16 products. kPairs: x and A read as
 // aligned element pairs (A by pairs along the rank, turned into the B
 // operand by movmatrix); else element by element. then() runs once, right
 // after the first batch's loads are issued. Into part_w [16][16].
-template <bool kPairs, typename Then>
-__device__ __forceinline__ void tile_xa(double* part_w,
-                                        const __nv_bfloat16* x0_,
-                                        const __nv_bfloat16* A_,
+template <typename H, bool kPairs, typename Then>
+__device__ __forceinline__ void tile_xa16(double* part_w, const H* x0_,
+                                          const H* A_,
                                         const Params& p, int kb, int nrows,
                                         int warp, int nw, int lane,
                                         Then&& then) {
@@ -400,7 +432,7 @@ __device__ __forceinline__ void tile_xa(double* part_w,
         const unsigned int b1 =
             kPairs ? transpose8(ab[q][2 * nt + 1]) : ab[q][2 * nt + 1];
         float c[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(c, xa[q], b0, b1);
+        mma16<H>(c, xa[q], b0, b1);
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[nt][j] += c[j];
       }
@@ -484,19 +516,20 @@ __device__ __forceinline__ void tile_xa(double* part_w, const float* x0,
   for (int cc = 0; cc < 8; ++cc) part_w[row * kRankBlock + 8 * h + cc] = acc[cc];
 }
 
-// U on the tensor cores (bf16, 4-column vectors of y and B): warp w takes
+// U on the tensor cores (2-byte, 4-column vectors of y and B): warp w takes
 // the 8-column n-tiles w, w + 8, ... of the CTA's columns, at most
 // kWarpTiles of them, so a CTA takes at most kMmaCols columns
 constexpr int kWarpTiles = 18;
 constexpr int kMmaCols = kTileWarps * kWarpTiles * 8;
 
-// T's 16 x 16 block of ranks kb.. as the A fragment (its values are bf16
-// already, so the packing is exact)
+// T's 16 x 16 block of ranks kb.. as the A fragment of type H (its values
+// are of type H already, so the packing is exact)
+template <typename H>
 __device__ __forceinline__ void t_fragment(unsigned int (&a)[4], const float* ts,
                                            int kb, int lane) {
   const int gid = lane >> 2, t4 = lane & 3;
   const float* t = ts + (kb + 2 * t4) * kTileRows + gid;
-  auto bf = [](float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); };
+  auto bf = [](float v) { return bits_of<H>(v); };
   a[0] = pair(bf(t[0]), bf(t[kTileRows]));
   a[1] = pair(bf(t[8]), bf(t[kTileRows + 8]));
   a[2] = pair(bf(t[8 * kTileRows]), bf(t[9 * kTileRows]));
@@ -515,17 +548,15 @@ __device__ __forceinline__ void b_pairs(unsigned int (&b)[2],
   b[1] = ok && kb + 8 + gid < p.rank ? ldg_pair(q + 8 * p.out) : 0u;
 }
 
-// y + round_T(round_T(u) * sc) for a pair of bf16 outputs, rounded
+// y + round_T(round_T(u) * sc) for a pair of outputs of the 2-byte type
+// H, rounded
+template <typename H>
 __device__ __forceinline__ unsigned int add_pair(unsigned int y, float u0,
                                                  float u1, float sc) {
-  const float y0 = __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(y & 0xffffu)));
-  const float y1 = __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(y >> 16)));
-  return pair(__bfloat16_as_ushort(__float2bfloat16_rn(
-                  add_delta<__nv_bfloat16>(y0, u0, sc))),
-              __bfloat16_as_ushort(__float2bfloat16_rn(
-                  add_delta<__nv_bfloat16>(y1, u1, sc))));
+  const float y0 = from_bits<H>(static_cast<unsigned short>(y & 0xffffu));
+  const float y1 = from_bits<H>(static_cast<unsigned short>(y >> 16));
+  return pair(bits_of<H>(add_delta<H>(y0, u0, sc)),
+              bits_of<H>(add_delta<H>(y1, u1, sc)));
 }
 
 // grid (ceil(rows / 16), column tiles of p.tile_cols), kTileThreads
@@ -535,7 +566,7 @@ template <typename T, int CW>
 __global__ void __launch_bounds__(kTileThreads)
 lora_delta_tile_kernel(const Params p) {
   extern __shared__ __align__(16) float smem[];
-  // bf16 with 4-column vectors of y and B: U on the tensor cores; else on
+  // bf16 or f16 with 4-column vectors of y and B: U on the tensor cores; else on
   // the FMA units, a thread's CW columns of every row
   constexpr bool kMma = sizeof(T) == 2 && CW == 4;
   constexpr int nw = kTileWarps;
@@ -593,7 +624,13 @@ lora_delta_tile_kernel(const Params p) {
   for (int kb = 0; kb < r; kb += kRankBlock) {
     double* part_w = part + warp * kTileRows * kRankBlock;
     auto then = [&]() { if (kb == 0) prefetch(); };
-    if (p.fast) {
+    if constexpr (sizeof(T) == 2) {
+      if (p.fast) {
+        tile_xa16<T, true>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
+      } else {
+        tile_xa16<T, false>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
+      }
+    } else if (p.fast) {
       tile_xa<true>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
     } else {
       tile_xa<false>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
@@ -613,27 +650,27 @@ lora_delta_tile_kernel(const Params p) {
     unsigned short* yb = reinterpret_cast<unsigned short*>(y0);
     const unsigned short* Bb = reinterpret_cast<const unsigned short*>(B);
     unsigned int a0[4];
-    t_fragment(a0, ts, 0, lane);
+    t_fragment<T>(a0, ts, 0, lane);
 #pragma unroll
     for (int j = 0; j < kWarpTiles; ++j) {
       if ((warp + j * nw) * 8 >= ncols) break;     // warp-uniform
       const int n = (warp + j * nw) * 8 + 2 * t4;
       float c[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(c, a0, transpose8(bp[j][0]), transpose8(bp[j][1]));
+      mma16<T>(c, a0, transpose8(bp[j][0]), transpose8(bp[j][1]));
       for (int kb = kRankBlock; kb < r; kb += kRankBlock) {
         unsigned int a[4], b[2];
-        t_fragment(a, ts, kb, lane);
+        t_fragment<T>(a, ts, kb, lane);
         b_pairs(b, Bb, p, kb, col0 + n, n < ncols, gid);
-        mma_bf16(c, a, transpose8(b[0]), transpose8(b[1]));
+        mma16<T>(c, a, transpose8(b[0]), transpose8(b[1]));
       }
       if (n < ncols) {
         unsigned short* q = yb + gid * p.y_stride + col0 + n;
         if (gid < nrows) {
-          *reinterpret_cast<unsigned int*>(q) = add_pair(yp[j][0], c[0], c[1], sc);
+          *reinterpret_cast<unsigned int*>(q) = add_pair<T>(yp[j][0], c[0], c[1], sc);
         }
         if (gid + 8 < nrows) {
           *reinterpret_cast<unsigned int*>(q + 8 * p.y_stride) =
-              add_pair(yp[j][1], c[2], c[3], sc);
+              add_pair<T>(yp[j][1], c[2], c[3], sc);
         }
       }
     }
@@ -767,7 +804,7 @@ bool make_plan(Plan* pl, int form, int dtype, int rows, int in, int out,
   }
   if (form != 1 || idx_stride != 0) return false;
   if (tile_smem(rank) > kSmemLimit) return false;
-  // 8-byte vectors of y and B (bf16: the tensor-core path, by pairs), or
+  // 8-byte vectors of y and B (bf16, f16: the tensor-core path, by pairs), or
   // one element (the FMA path)
   const int cw_max = static_cast<int>(8 / elem);
   pl->w = 0;
@@ -775,7 +812,7 @@ bool make_plan(Plan* pl, int form, int dtype, int rows, int in, int out,
   // columns a CTA: at most what its warps' n-tiles (tensor-core path) or
   // threads (FMA path) cover; at least a warp's worth; the fewest column
   // tiles that give kTileMinCtas CTAs within those limits
-  const bool mma = dtype == 1 && pl->wb == 4;
+  const bool mma = dtype != 0 && pl->wb == 4;
   const int unit = mma ? 8 : pl->wb;
   const long long most = mma ? kMmaCols : static_cast<long long>(kTileThreads) * pl->wb;
   const long long least = mma ? kTileWarps * 8 : 32LL * pl->wb;
@@ -829,14 +866,14 @@ cudaError_t launch(const Plan& pl, const Params& p, cudaStream_t s) {
 bool valid_args(int rows, int in, int out, int rank, int layer,
                 int num_layers, int dtype) {
   return rows > 0 && in > 0 && out > 0 && rank > 0 && layer >= 0 &&
-         layer < num_layers && (dtype == 0 || dtype == 1);
+         layer < num_layers && dtype >= 0 && dtype <= 2;
 }
 
 }  // namespace
 
 // form: 0 = row form (any idx_stride), 1 = tile form (idx_stride 0: every
-// row has the slot idx[0]). dtype: 0 = float32, 1 = bfloat16 (y, x, a and
-// b). y [rows, out] and x [rows, in] with unit inner stride and row strides
+// row has the slot idx[0]). dtype: 0 = float32, 1 = bfloat16, 2 = float16
+// (y, x, a and b; another code returns cudaErrorInvalidValue). y [rows, out] and x [rows, in] with unit inner stride and row strides
 // y_stride, x_stride (elements); a [K, num_layers, in, rank] and
 // b [K, num_layers, rank, out] contiguous; scale [K] float32; idx int32,
 // row n's slot at idx[n * idx_stride]. Shared memory: the row form's
@@ -871,7 +908,7 @@ extern "C" int paddle_lora_delta(void* y, const void* x, const void* a,
   p.y_stride = y_stride;
   p.x_stride = x_stride;
   p.idx_stride = idx_stride;
-  // bf16: pairs of 4 bytes; fp32: vectors of 16
+  // bf16, f16: pairs of 4 bytes; fp32: vectors of 16
   const int w = dtype == 0 ? 4 : 2;
   const uintptr_t bytes = dtype == 0 ? 16 : 4;
   p.tile_cols = pl.tile_cols;
@@ -879,6 +916,8 @@ extern "C" int paddle_lora_delta(void* y, const void* x, const void* a,
            reinterpret_cast<uintptr_t>(x) % bytes == 0 &&
            reinterpret_cast<uintptr_t>(a) % bytes == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 0 ? launch<float>(pl, p, s)
-                                     : launch<__nv_bfloat16>(pl, p, s));
+  const cudaError_t err = dtype == 0   ? launch<float>(pl, p, s)
+                          : dtype == 1 ? launch<__nv_bfloat16>(pl, p, s)
+                                       : launch<__half>(pl, p, s);
+  return static_cast<int>(err);
 }

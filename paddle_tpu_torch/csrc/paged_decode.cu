@@ -117,16 +117,19 @@
 // PRMT and one FADD each) and dequantizes in registers as
 // `k * (scale * (1/127))`, the order the TPU kernel and the plain twin use.
 //
-// Pools of the other float type (an engine whose `kv_dtype` is fp32 under a
-// bf16 model, or bf16 under an fp32 one): the same kernel with P the pools'
-// type and T q's. The write casts the new rows to P as the reference does
-// (attention.py:268-271 `.astype(k_pool.dtype)`: fp32 -> bf16 round to
-// nearest even, bf16 -> fp32 exact); the copies read rows of P (16 / sizeof
-// P elements a lane), q is read in that many elements of T (8 bytes a lane
-// for bf16 q over fp32 pools), and scores, softmax and accumulator stay
-// fp32. The bytes a step reads are those of P, so fp32 pools under a bf16
-// model read twice what bf16 pools would.
+// Float types: q (and out) T and the pools P each fp32, bf16 or f16, every
+// pair instantiated (an engine's `kv_dtype` may be another float type than
+// its model's). The write casts the new rows to P as the reference does
+// (attention.py:268-271 `.astype(k_pool.dtype)`): through fp32, which every
+// one of the three holds exactly, then one rounding to nearest even into
+// P, so a value past f16's largest (65504) becomes inf in f16 pools, as
+// there. The copies read rows of P (16 / sizeof P elements a lane), q is
+// read in that many elements of T (8 bytes a lane for 2-byte q over fp32
+// pools), and scores, softmax and accumulator stay fp32. The bytes a step
+// reads are those of P, so fp32 pools under a 2-byte model read twice what
+// 2-byte pools would.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -233,6 +236,13 @@ __device__ __forceinline__ void unpack(const uint4& r,
       x[2 * i] = __uint_as_float(w[i] << 16);
       x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
+  } else if constexpr (std::is_same<P, __half>::value) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
   } else {
     // int8 b -> the fp32 2^23 + (b + 128) (the biased byte in the low
     // mantissa bits), minus 2^23 + 128: exact, no I2F
@@ -250,19 +260,18 @@ __device__ __forceinline__ void unpack(const uint4& r,
 }
 
 // N elements of q's type T at p -> floats: 16-byte loads (p 16-byte
-// aligned), or one 8-byte load where N elements are 8 bytes (bf16 q over
-// fp32 pools: 4 elements a lane; p 8-byte aligned)
+// aligned), or one 8-byte load where N elements are 8 bytes (bf16 or f16 q
+// over fp32 pools: 4 elements a lane; p 8-byte aligned)
 template <typename T, int N>
 __device__ __forceinline__ void load_q(const T* p, float (&x)[N]) {
   constexpr int kPer = 16 / sizeof(T);
   if constexpr (N < kPer) {
-    static_assert(std::is_same<T, __nv_bfloat16>::value && N == 4,
-                  "q by 8 bytes: 4 bf16");
+    static_assert(sizeof(T) == 2 && N == 4, "q by 8 bytes: 4 2-byte values");
     const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-    x[0] = __uint_as_float(r.x << 16);
-    x[1] = __uint_as_float(r.x & 0xffff0000u);
-    x[2] = __uint_as_float(r.y << 16);
-    x[3] = __uint_as_float(r.y & 0xffff0000u);
+    float y[8];
+    unpack<T>(make_uint4(r.x, r.y, 0u, 0u), y);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = y[e];
   } else {
 #pragma unroll
     for (int c = 0; c < N / kPer; ++c) {
@@ -279,23 +288,29 @@ __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
+__device__ __forceinline__ void store(__half* p, float x) {
+  *p = __float2half_rn(x);
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 // a new K/V element of q's type T as the pools' float type P: a copy where
 // they agree, else the cast the reference makes (`.astype(pool.dtype)`):
-// bf16 -> fp32 exact, fp32 -> bf16 rounded to nearest even
+// to fp32 (exact), then rounded to nearest even into P
 template <typename P, typename T>
 __device__ __forceinline__ P to_pool(T v) {
   if constexpr (std::is_same<P, T>::value) {
     return v;
   } else if constexpr (std::is_same<P, float>::value) {
-    return __bfloat162float(v);
+    return to_float(v);
+  } else if constexpr (std::is_same<P, __half>::value) {
+    return __float2half_rn(to_float(v));
   } else {
-    return __float2bfloat16_rn(v);
+    return __float2bfloat16_rn(to_float(v));
   }
 }
 
@@ -464,9 +479,9 @@ __device__ __forceinline__ void append_rows(const AppendArgs& a, int s, int h,
 }
 
 // One CTA per (split, head, slot), the splits of one (slot, head) one
-// cluster. T: the type of q and out; P: the pools' type (T, the other float
-// type, or int8_t with the fp32 scales k_scales / v_scales [num_blocks, H],
-// unused otherwise). Scores, the softmax and the accumulator are fp32
+// cluster. T: the type of q and out (float, bf16 or f16); P: the pools'
+// type (any of those three, or int8_t with the fp32 scales k_scales /
+// v_scales [num_blocks, H], unused otherwise). Scores, the softmax and the accumulator are fp32
 // whatever P is.
 // kAppend: the CTA whose span holds position lens[s] first writes this
 // step's K and V rows there (AppendArgs); without it, Args alone.
@@ -764,39 +779,46 @@ cudaError_t launch(const A& a, int slots, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the instantiation for dtype (0 = float32, 1 = bfloat16), the pools'
-// kind (0 = q's dtype, 1 = int8, 2 = the other float type) and head_dim
+// the instantiation for q's type T, the pools' type (0 = float32, 1 =
+// bfloat16, 2 = float16, 3 = int8) and head_dim
+template <typename T, bool kAppend, typename A>
+cudaError_t dispatch_pools(const A& a, int slots, bool d64, int pools,
+                           cudaStream_t s) {
+  switch (pools) {
+    case 0:
+      return d64 ? launch<T, float, 64, kAppend>(a, slots, s)
+                 : launch<T, float, 128, kAppend>(a, slots, s);
+    case 1:
+      return d64 ? launch<T, __nv_bfloat16, 64, kAppend>(a, slots, s)
+                 : launch<T, __nv_bfloat16, 128, kAppend>(a, slots, s);
+    case 2:
+      return d64 ? launch<T, __half, 64, kAppend>(a, slots, s)
+                 : launch<T, __half, 128, kAppend>(a, slots, s);
+    case 3:
+      return d64 ? launch<T, int8_t, 64, kAppend>(a, slots, s)
+                 : launch<T, int8_t, 128, kAppend>(a, slots, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// the instantiation for dtype (q and out: 0 = float32, 1 = bfloat16, 2 =
+// float16), the pools' type and head_dim
 template <bool kAppend, typename A>
 cudaError_t dispatch(const A& a, int slots, int head_dim, int dtype,
                      int pools, cudaStream_t s) {
   if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
   const bool d64 = head_dim == 64;
-  using B = __nv_bfloat16;
-  if (dtype == 0) {
-    if (pools == 1) {
-      return d64 ? launch<float, int8_t, 64, kAppend>(a, slots, s)
-                 : launch<float, int8_t, 128, kAppend>(a, slots, s);
-    }
-    if (pools == 2) {
-      return d64 ? launch<float, B, 64, kAppend>(a, slots, s)
-                 : launch<float, B, 128, kAppend>(a, slots, s);
-    }
-    return d64 ? launch<float, float, 64, kAppend>(a, slots, s)
-               : launch<float, float, 128, kAppend>(a, slots, s);
+  switch (dtype) {
+    case 0:
+      return dispatch_pools<float, kAppend>(a, slots, d64, pools, s);
+    case 1:
+      return dispatch_pools<__nv_bfloat16, kAppend>(a, slots, d64, pools, s);
+    case 2:
+      return dispatch_pools<__half, kAppend>(a, slots, d64, pools, s);
+    default:
+      return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    if (pools == 1) {
-      return d64 ? launch<B, int8_t, 64, kAppend>(a, slots, s)
-                 : launch<B, int8_t, 128, kAppend>(a, slots, s);
-    }
-    if (pools == 2) {
-      return d64 ? launch<B, float, 64, kAppend>(a, slots, s)
-                 : launch<B, float, 128, kAppend>(a, slots, s);
-    }
-    return d64 ? launch<B, B, 64, kAppend>(a, slots, s)
-               : launch<B, B, 128, kAppend>(a, slots, s);
-  }
-  return cudaErrorInvalidValue;
 }
 
 // the attention's arguments, or false where the plan or shapes are out of
@@ -805,14 +827,13 @@ bool make_args(Args* a, const void* q, const void* k_pool,
                const void* v_pool, const void* k_scales, const void* v_scales,
                const void* tables, const void* lens, void* out, int slots,
                int heads, int max_blocks, int block_size, int span_blocks,
-               int n_split, float scale, int quantized) {
+               int n_split, float scale, int pools) {
   if (slots <= 0 || slots > 65535 || heads <= 0 || heads > 65535 ||
       max_blocks <= 0 || block_size <= 0 || span_blocks <= 0 ||
       span_blocks > kMaxEntries || n_split > kMaxSplits ||
       n_split != (max_blocks + span_blocks - 1) / span_blocks ||
       static_cast<int64_t>(max_blocks) * block_size > INT32_MAX ||
-      quantized < 0 || quantized > 2 ||
-      (quantized == 1 && (!k_scales || !v_scales))) {
+      pools < 0 || pools > 3 || (pools == 3 && (!k_scales || !v_scales))) {
     return false;
   }
   *a = Args{q,
@@ -834,10 +855,11 @@ bool make_args(Args* a, const void* q, const void* k_pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q and out). quantized, the pools'
-// kind: 0 = pools of q's dtype (scales unused, may be null), 1 = int8
-// pools with fp32 scales [num_blocks, H], 2 = pools of the other float
-// type. q/out [S, H, D], pools [num_blocks, block_size, H, D],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q and out). pools, the
+// pools' own type: 0 = float32, 1 = bfloat16, 2 = float16 (scales unused,
+// may be null), 3 = int8 with fp32 scales [num_blocks, H]. Another code
+// returns cudaErrorInvalidValue. q/out [S, H, D], pools [num_blocks,
+// block_size, H, D],
 // tables [S, M] int32, lens [S] int32 (the effective lengths: 0 for
 // inactive slots). Each CTA takes `span_blocks` table entries; n_split =
 // ceil(M / span_blocks) CTAs, at most 8, form one cluster per (slot,
@@ -849,15 +871,14 @@ extern "C" int paddle_paged_decode(const void* q, const void* k_pool,
                                    int heads, int head_dim, int max_blocks,
                                    int block_size, int span_blocks,
                                    int n_split, float scale, int dtype,
-                                   int quantized, void* stream) {
+                                   int pools, void* stream) {
   Args a;
   if (!make_args(&a, q, k_pool, v_pool, k_scales, v_scales, tables, lens,
                  out, slots, heads, max_blocks, block_size, span_blocks,
-                 n_split, scale, quantized)) {
+                 n_split, scale, pools)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(dispatch<false>(a, slots, head_dim, dtype,
-                                          quantized,
+  return static_cast<int>(dispatch<false>(a, slots, head_dim, dtype, pools,
                                           static_cast<cudaStream_t>(stream)));
 }
 
@@ -868,8 +889,8 @@ extern "C" int paddle_paged_decode(const void* q, const void* k_pool,
 // `active[s] ? lens[s] : 0`. q, k_new and v_new [S, H, D] at the element
 // strides `strides` = (q slot, q head, K slot, K head, K dim, V slot, V
 // head, V dim), q's dim stride 1 and its rows 16-byte aligned; k_new and
-// v_new of q's dtype (written into pools of the other float type cast to
-// it, fp32 -> bf16 rounded to nearest even); active [S] bool; num_blocks
+// v_new of q's dtype (written into pools of another float type cast to
+// it, rounded to nearest even); active [S] bool; num_blocks
 // the pools' blocks. With int8 pools block_size x head_dim is at most
 // 2048. The rest as
 // paddle_paged_decode. Returns a cudaError_t.
@@ -879,13 +900,13 @@ extern "C" int paddle_paged_decode_append(
     const void* lens, const void* active, void* out, const int64_t* strides,
     int slots, int heads, int head_dim, int max_blocks, int block_size,
     int num_blocks, int span_blocks, int n_split, float scale, int dtype,
-    int quantized, void* stream) {
+    int pools, void* stream) {
   AppendArgs a;
   if (!make_args(&a, q, k_pool, v_pool, k_scales, v_scales, tables, lens,
                  out, slots, heads, max_blocks, block_size, span_blocks,
-                 n_split, scale, quantized) ||
+                 n_split, scale, pools) ||
       num_blocks <= 0 || !active ||
-      (quantized == 1 &&
+      (pools == 3 &&
        static_cast<int64_t>(block_size) * head_dim > kMaxAppendLevels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -896,6 +917,6 @@ extern "C" int paddle_paged_decode_append(
   a.q_stride[1] = strides[1];
   for (int i = 0; i < 6; ++i) a.new_stride[i / 3][i % 3] = strides[2 + i];
   a.num_blocks = num_blocks;
-  return static_cast<int>(dispatch<true>(a, slots, head_dim, dtype, quantized,
+  return static_cast<int>(dispatch<true>(a, slots, head_dim, dtype, pools,
                                          static_cast<cudaStream_t>(stream)));
 }

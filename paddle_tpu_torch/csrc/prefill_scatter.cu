@@ -8,10 +8,11 @@
 // pool block block_row[p / bs], offset p % bs, of layer l's K and V pools:
 //   * fp pools: the row is copied as it is (pool and rows of one type),
 //     or cast to the pools' type where they differ (an engine whose
-//     kv_dtype is the other float type than its model's), as the
-//     reference's `.astype(k_pools.dtype)` (cache.py:279-281): fp32 ->
-//     bf16 rounded to nearest even, bf16 -> fp32 exact; 8 values a
-//     thread a step (one 16-byte side, two on the other);
+//     kv_dtype is another float type than its model's; rows and pools
+//     each fp32, bf16 or f16), as the reference's `.astype(k_pools.dtype)`
+//     (cache.py:279-281): to fp32 (exact), then rounded to nearest even
+//     into the pools' type (a value past 65504 becomes inf in f16 pools);
+//     8 values a thread a step (one 16-byte side, two on the other);
 //   * int8 pools: each block of the row first gets scale 0 (a spare block
 //     past length keeps 0); a block holding real tokens gets, per head,
 //     s = max(amax over its tokens' values, SCALE_EPS), and each value
@@ -38,7 +39,8 @@
 //     (`__grid_constant__`), so a CUDA graph capture records them by value;
 //   * the block row and length are read from device memory when the kernel
 //     runs, so a replay follows what the host staged before it;
-//   * 16-byte vector loads (8 bf16 or 4 fp32 values, never across a head);
+//   * 16-byte vector loads (8 bf16 or f16, or 4 fp32 values, never across a
+//     head);
 //   * int8: each row byte is read once. Warp w takes heads w, w + 4, ...;
 //     a head's n x head_dim values of the block are its lanes' vectors
 //     (vector v of the head: token v / (head_dim / vec), lane v % 32),
@@ -49,13 +51,15 @@
 //     warp's 3 heads in one batch, 12 vectors a lane). The head's amax
 //     (bf16: on the packed pairs, exact) is the lanes' maxima folded by
 //     shuffles (max is exact, so the order does not matter), then the
-//     levels are computed from the registers and stored: a product, a
+//     levels are computed from the registers and stored (f16: the amax
+//     on packed f16 pairs, exact too): a product, a
 //     clamp, and an add of 1.5 x 2^23 that rounds half to even, whose low
 //     byte is the level. No shared memory and no barrier. A head of more
 //     than 32 x 16 vectors (a block of 64 tokens of 128 bf16 values, say)
 //     reads the vectors past the registers twice, for its amax and its
 //     levels.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,19 +91,26 @@ struct Geometry {
   int num_blocks;
 };
 
-__device__ __forceinline__ void to_floats(const uint4& raw, float (&v)[8]) {
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+// a 16-byte vector of T (8 bf16 or f16, or 4 fp32 values) -> floats
+template <typename T>
+__device__ __forceinline__ void to_floats(const uint4& raw,
+                                          float (&v)[16 / sizeof(T)]) {
+  if constexpr (std::is_same<T, float>::value) {
+    const float4 f = *reinterpret_cast<const float4*>(&raw);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h2[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+    for (int i = 0; i < 4; ++i) {
+      float2 f;
+      if constexpr (std::is_same<T, __half>::value) {
+        f = __half22float2(reinterpret_cast<const __half2*>(&raw)[i]);
+      } else {
+        f = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(&raw)[i]);
+      }
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
+    }
   }
-}
-
-__device__ __forceinline__ void to_floats(const uint4& raw, float (&v)[4]) {
-  const float4 f = *reinterpret_cast<const float4*>(&raw);
-  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
 }
 
 // four levels in a word: each x becomes clamp(rint(x * r), -127, 127).
@@ -116,25 +127,23 @@ __device__ __forceinline__ uint32_t levels4(float a, float b, float c,
                      __byte_perm(level(c), level(d), 0x0040), 0x5410);
 }
 
-// the levels of a 16-byte vector of 8 bf16 or 4 fp32 values, stored
+// the levels of a 16-byte vector of T, stored
+template <typename T>
 __device__ __forceinline__ void store_levels(int8_t* dst, const uint4& raw,
-                                             float r, __nv_bfloat16) {
-  float v[8];
-  to_floats(raw, v);
-  *reinterpret_cast<uint2*>(dst) =
-      make_uint2(levels4(v[0], v[1], v[2], v[3], r),
-                 levels4(v[4], v[5], v[6], v[7], r));
+                                             float r) {
+  float v[16 / sizeof(T)];
+  to_floats<T>(raw, v);
+  if constexpr (sizeof(T) == 2) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(levels4(v[0], v[1], v[2], v[3], r),
+                   levels4(v[4], v[5], v[6], v[7], r));
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = levels4(v[0], v[1], v[2], v[3], r);
+  }
 }
 
-__device__ __forceinline__ void store_levels(int8_t* dst, const uint4& raw,
-                                             float r, float) {
-  float v[4];
-  to_floats(raw, v);
-  *reinterpret_cast<uint32_t*>(dst) = levels4(v[0], v[1], v[2], v[3], r);
-}
-
-// the largest |value| of a 16-byte vector, folded into m (bf16: on the
-// packed pairs, exact, converted once by `amax_value`)
+// the largest |value| of a 16-byte vector, folded into m (bf16 and f16: on
+// the packed pairs, exact, converted once by `amax_value`)
 __device__ __forceinline__ void fold_amax(__nv_bfloat162& m,
                                           const uint4& raw) {
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -142,9 +151,15 @@ __device__ __forceinline__ void fold_amax(__nv_bfloat162& m,
   for (int i = 0; i < 4; ++i) m = __hmax2(m, __habs2(h2[i]));
 }
 
+__device__ __forceinline__ void fold_amax(__half2& m, const uint4& raw) {
+  const __half2* h2 = reinterpret_cast<const __half2*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m = __hmax2(m, __habs2(h2[i]));
+}
+
 __device__ __forceinline__ void fold_amax(float& m, const uint4& raw) {
   float v[4];
-  to_floats(raw, v);
+  to_floats<float>(raw, v);
 #pragma unroll
   for (int e = 0; e < 4; ++e) m = fmaxf(m, fabsf(v[e]));
 }
@@ -153,47 +168,71 @@ __device__ __forceinline__ float amax_value(const __nv_bfloat162& m) {
   return fmaxf(__low2float(m), __high2float(m));
 }
 
+__device__ __forceinline__ float amax_value(const __half2& m) {
+  return fmaxf(__low2float(m), __high2float(m));
+}
+
 __device__ __forceinline__ float amax_value(float m) { return m; }
 
-// 8 values of a row (16-byte aligned) -> floats, and floats -> 8 values of
-// a pool row, for the fp pools of the other type (the cast's two sides)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
-  to_floats(*reinterpret_cast<const uint4*>(p), v);
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  float a[4], b[4];
-  to_floats(*reinterpret_cast<const uint4*>(p), a);
-  to_floats(*reinterpret_cast<const uint4*>(p + 4), b);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    v[e] = a[e];
-    v[4 + e] = b[e];
-  }
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p,
-                                       const float (&v)[8]) {
-  uint4 out;
-  uint32_t* w = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // .x (the lower address) from the first value; each rounded to nearest
-    // even, as torch's .to(bfloat16)
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = out;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
+// the amax accumulator of rows of T, and its zero
+template <typename T>
+using AmaxAcc = typename std::conditional<
+    std::is_same<T, __nv_bfloat16>::value, __nv_bfloat162,
+    typename std::conditional<std::is_same<T, __half>::value, __half2,
+                              float>::type>::type;
 
 template <typename T>
-using OtherFloat = typename std::conditional<std::is_same<T, float>::value,
-                                             __nv_bfloat16, float>::type;
+__device__ __forceinline__ AmaxAcc<T> amax_zero() {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __float2bfloat162_rn(0.f);
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __float2half2_rn(0.f);
+  } else {
+    return 0.f;
+  }
+}
+
+// 8 values of a row (16-byte aligned) -> floats, and floats -> 8 values of
+// a pool row, for the fp pools of another type (the cast's two sides)
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, float (&v)[8]) {
+  if constexpr (sizeof(T) == 2) {
+    to_floats<T>(*reinterpret_cast<const uint4*>(p), v);
+  } else {
+    float a[4], b[4];
+    to_floats<float>(*reinterpret_cast<const uint4*>(p), a);
+    to_floats<float>(*reinterpret_cast<const uint4*>(p + 4), b);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = a[e];
+      v[4 + e] = b[e];
+    }
+  }
+}
+
+template <typename P>
+__device__ __forceinline__ void store8(P* p, const float (&v)[8]) {
+  if constexpr (sizeof(P) == 2) {
+    uint4 out;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // .x (the lower address) from the first value; each rounded to
+      // nearest even, as torch's .to(bfloat16) and .to(float16)
+      if constexpr (std::is_same<P, __half>::value) {
+        const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+        w[i] = *reinterpret_cast<const uint32_t*>(&h);
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = out;
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+}
 
 // one block of int8 pools: warp w quantizes heads w, w + kWarps, ..., kHB
 // of them at a time from registers (kPV vectors a lane a head)
@@ -203,9 +242,8 @@ __device__ __forceinline__ void quantize_block(const T* s, int8_t* d,
                                                const Geometry& g) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kHB = kRegs / kPV > 0 ? kRegs / kPV : 1;  // heads at once
-  // the amax accumulator: packed bf16 pairs, or a float
-  using Acc = typename std::conditional<sizeof(T) == 2, __nv_bfloat162,
-                                        float>::type;
+  // the amax accumulator: packed bf16 or f16 pairs, or a float
+  using Acc = AmaxAcc<T>;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int hv = g.head_dim / kVec;          // vectors of a head's row
   const int per_head = n * hv;               // vectors of a head's block
@@ -255,12 +293,7 @@ __device__ __forceinline__ void quantize_block(const T* s, int8_t* d,
     for (int b = 0; b < kHB; ++b) {
       const int h = h0 + b * kWarps;
       if (h >= g.heads) break;               // the same in every lane
-      Acc acc;
-      if constexpr (sizeof(T) == 2) {
-        acc = __float2bfloat162_rn(0.f);
-      } else {
-        acc = 0.f;
-      }
+      Acc acc = amax_zero<T>();
 #pragma unroll
       for (int j = 0; j < kPV; ++j) {
         if (lane + 32 * j < per_head) fold_amax(acc, raw[b][j]);
@@ -279,18 +312,18 @@ __device__ __forceinline__ void quantize_block(const T* s, int8_t* d,
 #pragma unroll
       for (int j = 0; j < kPV; ++j) {
         if (lane + 32 * j < per_head) {
-          store_levels(d + h * g.head_dim + dst_at[j], raw[b][j], r, T());
+          store_levels<T>(d + h * g.head_dim + dst_at[j], raw[b][j], r);
         }
       }
       for (int v = lane + 32 * kPV; v < per_head; v += 32) {
-        store_levels(dst(h, v), *src(h, v), r, T());
+        store_levels<T>(dst(h, v), *src(h, v), r);
       }
     }
   }
 }
 
-// T: the rows' type (float or __nv_bfloat16); P: the pools' type (T, the
-// other float type, or int8_t); kPV: 0 for fp pools, else int8 pools +
+// T: the rows' type (float, __nv_bfloat16 or __half); P: the pools' type
+// (T, another of those three, or int8_t); kPV: 0 for fp pools, else int8 pools +
 // scales with kPV vectors a lane a head
 template <typename T, typename P, int kPV>
 __global__ void __launch_bounds__(kThreads)
@@ -344,10 +377,12 @@ prefill_scatter_kernel(const __grid_constant__ Layers src, void* k_pool,
   }
 }
 
+// pools: the fp pools' type code (0 float, 1 bf16, 2 f16) where it is not
+// the rows', else -1 (pools of the rows' type, or int8 with scales)
 template <typename T>
 void launch(const Layers& src, void* k_pool, void* v_pool, float* k_scales,
             float* v_scales, const int* block_row, const int* length,
-            const Geometry& g, int max_blocks, int layers, bool cast,
+            const Geometry& g, int max_blocks, int layers, int pools,
             cudaStream_t s) {
   const dim3 grid(max_blocks, layers, 2);
   // int8: the fewest vectors a lane a head (a power of two) that hold a
@@ -357,8 +392,12 @@ void launch(const Layers& src, void* k_pool, void* v_pool, float* k_scales,
 #define PADDLE_SCATTER(P, PV)                                               \
   prefill_scatter_kernel<T, P, PV><<<grid, kThreads, 0, s>>>(               \
       src, k_pool, v_pool, k_scales, v_scales, block_row, length, g)
-  if (k_scales == nullptr && cast) {
-    PADDLE_SCATTER(OtherFloat<T>, 0);
+  if (pools == 0) {
+    PADDLE_SCATTER(float, 0);
+  } else if (pools == 1) {
+    PADDLE_SCATTER(__nv_bfloat16, 0);
+  } else if (pools == 2) {
+    PADDLE_SCATTER(__half, 0);
   } else if (k_scales == nullptr) {
     PADDLE_SCATTER(T, 0);
   } else if (per_lane <= 1) {
@@ -388,11 +427,11 @@ extern "C" int paddle_prefill_scatter_max_heads() { return kMaxHeads; }
 // [layers, num_blocks, block_size, heads, head_dim], of the rows' type
 // (k_scales null) or int8 with fp32 scales [layers, num_blocks, heads].
 // block_row: max_blocks int32 on the device, max_blocks * block_size >=
-// tokens; length: one int32 on the device. dtype: the rows' type and, for
-// fp pools, the pools': 0 = float32 rows, 1 = bfloat16 rows (pools of the
-// rows' type or int8), 2 = float32 rows into bfloat16 pools, 3 = bfloat16
-// rows into float32 pools (cast on the write; heads x head_dim a multiple
-// of 8). Returns a cudaError_t.
+// tokens; length: one int32 on the device. dtype: the rows' type r (0 =
+// float32, 1 = bfloat16, 2 = float16) where the pools are of that type or
+// int8; 3 + 3 p + r for fp pools of another float type p (same codes; cast
+// on the write; heads x head_dim a multiple of 8). Another code returns
+// cudaErrorInvalidValue. Returns a cudaError_t.
 extern "C" int paddle_prefill_scatter(
     int layers, const void* const* k_src, const void* const* v_src,
     void* k_pool, void* v_pool, float* k_scales, float* v_scales,
@@ -415,18 +454,22 @@ extern "C" int paddle_prefill_scatter(
                        * head_dim,
                    tokens, heads, head_dim, block_size, num_blocks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool cast = dtype >= 2;
-  if (cast && (k_scales != nullptr || (heads * head_dim) % 8 != 0)) {
+  if (dtype < 0 || dtype >= 12) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = dtype < 3 ? dtype : (dtype - 3) % 3;
+  const int pools = dtype < 3 ? -1 : (dtype - 3) / 3;
+  if (pools == rows ||
+      (pools >= 0 && (k_scales != nullptr || (heads * head_dim) % 8 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == 0 || dtype == 2) {
+  if (rows == 0) {
     launch<float>(src, k_pool, v_pool, k_scales, v_scales, block_row, length,
-                  g, max_blocks, layers, cast, s);
-  } else if (dtype == 1 || dtype == 3) {
+                  g, max_blocks, layers, pools, s);
+  } else if (rows == 1) {
     launch<__nv_bfloat16>(src, k_pool, v_pool, k_scales, v_scales,
-                          block_row, length, g, max_blocks, layers, cast, s);
+                          block_row, length, g, max_blocks, layers, pools, s);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    launch<__half>(src, k_pool, v_pool, k_scales, v_scales, block_row,
+                   length, g, max_blocks, layers, pools, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

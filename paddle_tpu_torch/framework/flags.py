@@ -15,7 +15,11 @@ defaults:
   (`kernels.fused_ln.is_eligible`);
 - ``FLAGS_serve_step_timeout_ms`` (0): the serving engine's hung-step
   watchdog budget for one decode or prefill step, in milliseconds; 0
-  disarms it (`serving.resilience.watchdog_budget_s`).
+  disarms it (`serving.resilience.watchdog_budget_s`);
+- ``FLAGS_serve_attention_kernel`` ("blockwise"): the serving engine's
+  paged attention variant when ``LLMEngine(attention_kernel=None)``, one
+  of ``("pallas", "blockwise", "reference")``
+  (`nn.functional.attention.resolve_paged_kernel`).
 
 Flags are process-wide, as in the reference. Naming any other flag raises,
 so a setting the port does not read never passes silently.
@@ -30,7 +34,8 @@ _lock = threading.Lock()
 _FLAGS = {"FLAGS_use_flash_attention": True,
           "FLAGS_use_fused_cross_entropy": False,
           "FLAGS_use_fused_layer_norm": True,
-          "FLAGS_serve_step_timeout_ms": 0}
+          "FLAGS_serve_step_timeout_ms": 0,
+          "FLAGS_serve_attention_kernel": "blockwise"}
 
 
 def _known(name):

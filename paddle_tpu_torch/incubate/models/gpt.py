@@ -150,7 +150,9 @@ class GPTAttention(nn.Module):
         root = float(torch.tensor(float(self.head_dim), dtype=q.dtype).sqrt())
         scores = (qh @ k_buf.permute(0, 2, 3, 1)) / root
         valid = torch.arange(t, device=q.device)[None, :] <= rows[:, None]
-        scores = scores.masked_fill(~valid, -1e9)
+        # -1e9 in q's dtype, as the reference's: -inf in float16
+        neg = float(torch.tensor(-1e9).to(scores.dtype))
+        scores = scores.masked_fill(~valid, neg)
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         out = probs @ v_buf.permute(0, 2, 1, 3).to(q.dtype)  # [B, H, n, D]
         out = self.out_proj(out.transpose(1, 2).reshape(b, n,
@@ -171,7 +173,8 @@ class GPTAttention(nn.Module):
         out, *pools = F.paged_decode_attention(
             q, k, v, cache.k_pool, cache.v_pool, cache.block_tables,
             cache.seq_lens, cache.active, cache.block_size,
-            k_scales=cache.k_scales, v_scales=cache.v_scales)
+            k_scales=cache.k_scales, v_scales=cache.v_scales,
+            kernel=cache.kernel)
         out = self.out_proj(out.reshape(b, n, self.hidden_size))
         return out, cache.updated(*pools)
 

@@ -36,12 +36,13 @@ import torch
 
 from ..device import require_hopper
 from . import _build
+from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["adam_update", "adam_update_reference", "adam_rule",
            "chunk_plan", "update_bytes", "launches", "DTYPES", "CHUNK",
            "MAX_TENSORS"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 # elements a CTA takes, and tensors a launch; the same as the source's
 # kChunk and kMaxTensors (checked when the library loads)
 CHUNK = 16384
@@ -159,7 +160,7 @@ def _check(params, grads, m1s, m2s, masters, decays, lr, t):
 
 def _aligned(p, g, m1, m2, master):
     """Whether every pointer of a tensor allows the kernel's vector
-    accesses (4 elements: 8 bytes of bf16, 16 of fp32)."""
+    accesses (4 elements: 8 bytes of bf16 or f16, 16 of fp32)."""
     width = 4 * p.element_size()
     return (p.data_ptr() % width == 0 and g.data_ptr() % width == 0
             and all(x.data_ptr() % 16 == 0 for x in (m1, m2, master)
@@ -189,7 +190,7 @@ def _lib_fn():
 @torch.no_grad()
 def adam_update(params, grads, m1s, m2s, masters, decays, lr, t, beta1,
                 beta2, epsilon, coeff):
-    """Update every ``params[i]`` (fp32 or bf16, one dtype), its fp32
+    """Update every ``params[i]`` (fp32, bf16 or f16, one dtype), its fp32
     moments ``m1s[i]``, ``m2s[i]`` and master ``masters[i]`` (None for
     none) in place from ``grads[i]`` (the params' dtype), with AdamW's
     decay ``coeff`` where ``decays[i]``; lr and t are one-element fp32
@@ -205,7 +206,7 @@ def adam_update(params, grads, m1s, m2s, masters, decays, lr, t, beta1,
     live = [i for i, p in enumerate(params) if p.numel()]
     consts = (_f32(beta1), _f32(beta2), _f32(1 - beta1), _f32(1 - beta2),
               _f32(epsilon), _f32(coeff))
-    dtype = 0 if params[0].dtype == torch.float32 else 1
+    dtype = dtype_code(params[0].dtype)
     with torch.cuda.device(params[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         for at in range(0, len(live), MAX_TENSORS):

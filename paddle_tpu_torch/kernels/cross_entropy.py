@@ -5,8 +5,8 @@ Counterpart of `paddle_tpu/kernels/cross_entropy.py` (`_fwd_kernel` /
 `_fwd`, `_bwd_kernel` / `_bwd`, the `custom_vjp`
 `fused_softmax_cross_entropy`, `is_eligible` and `masked_reduce`).
 
-Contract (shared by kernels and twins): logits ``[R, V]`` float32 or
-bfloat16, integer labels ``[R]``. The forward gives the per-row loss and
+Contract (shared by kernels and twins): logits ``[R, V]`` float32,
+bfloat16 or float16, integer labels ``[R]``. The forward gives the per-row loss and
 logsumexp, both ``[R]`` float32: ``loss = lse - logits[r, label]``; a label
 outside ``[0, V)`` (a negative ignore_index) picks nothing, so its loss is
 ``lse`` and the caller masks it. The backward gives
@@ -27,6 +27,7 @@ import torch
 from ..device import require_hopper
 from ..framework.flags import get_flags
 from . import _build
+from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["fused_softmax_cross_entropy", "FusedSoftmaxCrossEntropy",
            "cross_entropy_fwd", "cross_entropy_fwd_reference",
@@ -34,7 +35,7 @@ __all__ = ["fused_softmax_cross_entropy", "FusedSoftmaxCrossEntropy",
            "is_eligible", "masked_reduce", "launches", "DTYPES",
            "MIN_VOCAB"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 # below this vocabulary the unfused path is used unless forced, as in the
 # reference's routing rule
 MIN_VOCAB = 8192
@@ -155,8 +156,7 @@ def cross_entropy_fwd(logits, labels):
                  ctypes.c_void_p(lab.data_ptr()),
                  ctypes.c_void_p(loss.data_ptr()),
                  ctypes.c_void_p(lse.data_ptr()), r, v, logits.stride(0),
-                 0 if logits.dtype == torch.float32 else 1,
-                 ctypes.c_void_p(stream))
+                 dtype_code(logits.dtype), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cross_entropy_fwd launch failed: cudaError {err}")
     launches["cross_entropy_fwd"] += 1
@@ -188,8 +188,7 @@ def cross_entropy_bwd(logits, labels, lse, g):
                  ctypes.c_void_p(lse32.data_ptr()),
                  ctypes.c_void_p(g32.data_ptr()),
                  ctypes.c_void_p(dlogits.data_ptr()), r, v, logits.stride(0),
-                 0 if logits.dtype == torch.float32 else 1,
-                 ctypes.c_void_p(stream))
+                 dtype_code(logits.dtype), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"cross_entropy_bwd launch failed: cudaError {err}")
     launches["cross_entropy_bwd"] += 1

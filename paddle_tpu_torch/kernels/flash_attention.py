@@ -8,10 +8,11 @@ v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
 
 - `flash_attention_fwd` returns ``(out, lse)``. On CUDA tensors it launches
   ``csrc/flash_attention_fwd.cu`` (or raises on what that kernel does not
-  take); on CPU tensors it runs `flash_attention_reference`. bf16 inputs
-  go to the tensor-core kernel (wgmma products, TMA loads), which needs
-  16-byte aligned bases and strides (`_tma_compatible`); fp32 inputs go to
-  the fp32 FMA kernel, which keeps every product in fp32.
+  take); on CPU tensors it runs `flash_attention_reference`. bf16 and f16
+  inputs go to the tensor-core kernel of their type (wgmma products, TMA
+  loads), which needs 16-byte aligned bases and strides
+  (`_tma_compatible`); fp32 inputs go to the fp32 FMA kernel, which keeps
+  every product in fp32.
 - `flash_attention_bwd` returns ``(dq, dk, dv)`` from the forward's out and
   lse: Delta = rowsum(O * dO) (`flash_attention_delta`, a plain torch
   reduction on both devices, as the JAX `_flash_bwd` computes it outside
@@ -19,10 +20,11 @@ v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
   CUDA tensors those launch the two kernels of
   ``csrc/flash_attention_bwd.cu``; on CPU tensors they run their twins
   `flash_attention_bwd_dq_reference` / `flash_attention_bwd_dkv_reference`.
-  As in the forward, bf16 inputs go to the tensor-core kernels (wgmma, TMA;
-  q, k, v and dO must pass `_tma_compatible`) and fp32 inputs to the fp32
-  FMA kernels; the bf16 criteria are `flash_bwd_bf16_tol` and
-  `FLASH_BWD_BF16_FRO_RTOL`.
+  As in the forward, bf16 and f16 inputs go to the tensor-core kernels
+  (wgmma, TMA; q, k, v and dO must pass `_tma_compatible`) and fp32 inputs
+  to the fp32 FMA kernels; the criteria against the fp32 twins are
+  `flash_bwd_bf16_tol` / `FLASH_BWD_BF16_FRO_RTOL` and `flash_bwd_f16_tol`
+  / `FLASH_BWD_F16_FRO_RTOL`.
 - `FlashAttention` / `flash_attention_bnhd` is the differentiable entry:
   the same Function on both devices, so a CPU test sees the graph the card
   sees.
@@ -41,13 +43,18 @@ import torch
 
 from ..device import require_hopper
 from . import _build
+from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "flash_fwd_bf16_tol", "rel_fro",
            "FLASH_FWD_BF16_ATOL_PER_V", "FLASH_FWD_BF16_RTOL",
            "FLASH_FWD_BF16_FRO_RTOL", "flash_bwd_bf16_tol",
            "FLASH_BWD_BF16_ATOL_FACTOR", "FLASH_BWD_BF16_RTOL",
-           "FLASH_BWD_BF16_FRO_RTOL",
+           "FLASH_BWD_BF16_FRO_RTOL", "flash_fwd_f16_tol",
+           "FLASH_FWD_F16_RTOL", "FLASH_FWD_F16_FRO_RTOL",
+           "flash_bwd_f16_tol", "FLASH_BWD_F16_RTOL",
+           "FLASH_BWD_F16_FRO_RTOL", "F16_U", "F16_TINY",
+           "flash_fwd_tol", "flash_bwd_tol", "flash_fro_rtol",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_bwd_dq", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_reference",
@@ -55,7 +62,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_reference",
            "launches", "HEAD_DIMS", "DTYPES"]
 
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 _NEG_INF = -1e30
 
 # kernel launches since import (or the last reset by the caller), by kernel
@@ -102,11 +109,35 @@ FLASH_FWD_BF16_FRO_RTOL = 4e-3
 FLASH_BWD_BF16_ATOL_FACTOR = 2 * 2.0 ** -9
 FLASH_BWD_BF16_RTOL = 8e-3
 FLASH_BWD_BF16_FRO_RTOL = 5e-3
+# The f16 kernels, by the same reasoning with f16's unit roundoff u = 2^-11
+# (F16_U) in place of bf16's 2^-9, and one addition: f16 has 5 exponent
+# bits, so a value below 2^-14 rounds to a subnormal, whose step is 2^-24:
+# an absolute error of at most F16_TINY = 2^-25, where bf16 (fp32's range)
+# keeps the relative one. So a rounded P or dS moves by at most
+# u |x| + 2^-25 = u (|x| + 2^-14).
+#   forward: O moves by at most sum_j (u p_j + 2^-25) |v_j| / l
+#            <= (u + M 2^-25) max|v| (l >= 1, M keys); atol is twice that;
+#            one f16 rounding of the output, 2^-10 of the value: rtol
+#            2e-3; relative Frobenius error 1e-3 (bf16's 4e-3 scaled by
+#            its u over f16's, 4).
+#   backward: the bf16 bounds with |P| + 2^-14 and |dS| + 2^-14 s in place
+#            of |P| and |dS|, s the kernels' dS factor at most (a power
+#            of two, max(1, max|dS| / 2^14), see fit_f16 in
+#            csrc/flash_attention_bwd.cu: dS is multiplied by 1 / s before
+#            its rounding, so its subnormal step is 2^-24 s); atol twice
+#            that (FACTOR 2 u); rtol 2e-3; relative Frobenius error 1.25e-3
+#            (bf16's 5e-3 over 4).
+F16_U = 2.0 ** -11
+F16_TINY = 2.0 ** -25
+FLASH_FWD_F16_RTOL = 2e-3
+FLASH_FWD_F16_FRO_RTOL = 1e-3
+FLASH_BWD_F16_RTOL = 2e-3
+FLASH_BWD_F16_FRO_RTOL = 1.25e-3
 # TMA's limits on a tensor map: a 16-byte aligned base, byte strides that
 # are multiples of 16 and below 2**40
 _TMA_ALIGN = 16
 _TMA_MAX_STRIDE = 1 << 40
-# the bf16 kernel's error codes beyond cudaError_t
+# the tensor-core kernels' error codes beyond cudaError_t
 _ERR_NO_ENCODER = 100000
 _ERR_ENCODE = 200000
 
@@ -126,7 +157,7 @@ def _check(q, k, v, causal):
 
 
 def _check_kernel_inputs(*tensors):
-    """What the CUDA kernels take: fp32 or bf16 (all alike), head_dim in
+    """What the CUDA kernels take: fp32, bf16 or f16 (all alike), head_dim in
     HEAD_DIMS, one Hopper device, a contiguous last dimension, and at most
     65535 (batch, head) pairs (the grid's y limit)."""
     q = tensors[0]
@@ -175,6 +206,37 @@ def flash_fwd_bf16_tol(v):
             FLASH_FWD_BF16_RTOL)
 
 
+def flash_fwd_f16_tol(v):
+    """(atol, rtol) of the f16 forward against `flash_attention_reference`
+    for the value tensor `v` ``[B, M, H, D]`` of the case (see F16_U): atol
+    twice ``(u + M 2^-25) max|v|``; the relative Frobenius error is held to
+    FLASH_FWD_F16_FRO_RTOL besides (`rel_fro`)."""
+    m = v.shape[1]
+    return (2 * (F16_U + m * F16_TINY) * float(v.float().abs().max()),
+            FLASH_FWD_F16_RTOL)
+
+
+def flash_fwd_tol(v):
+    """(atol, rtol) of the forward against its fp32 twin for inputs of
+    v's type: `flash_fwd_bf16_tol`, `flash_fwd_f16_tol`, or None for fp32
+    (the caller's own fp32 tolerance: that kernel rounds nothing)."""
+    if v.dtype == torch.bfloat16:
+        return flash_fwd_bf16_tol(v)
+    if v.dtype == torch.float16:
+        return flash_fwd_f16_tol(v)
+    return None
+
+
+def flash_fro_rtol(dtype, backward=False):
+    """The relative Frobenius limit of a 2-byte type's flash kernels
+    against their fp32 twins (None for fp32)."""
+    if dtype == torch.bfloat16:
+        return FLASH_BWD_BF16_FRO_RTOL if backward else FLASH_FWD_BF16_FRO_RTOL
+    if dtype == torch.float16:
+        return FLASH_BWD_F16_FRO_RTOL if backward else FLASH_FWD_F16_FRO_RTOL
+    return None
+
+
 def flash_bwd_bf16_tol(q, k, v, do, lse, delta, causal, scale):
     """``{"dq": (atol, rtol), "dk": ..., "dv": ...}`` of the bf16 backward
     against its fp32 twins for one case (the twins' arguments): atol is
@@ -192,6 +254,30 @@ def flash_bwd_bf16_tol(q, k, v, do, lse, delta, causal, scale):
             for name, bound in bounds.items()}
 
 
+def flash_bwd_f16_tol(q, k, v, do, lse, delta, causal, scale):
+    """``{"dq": (atol, rtol), "dk": ..., "dv": ...}`` of the f16 backward
+    against its fp32 twins for one case: `flash_bwd_bf16_tol`'s bounds with
+    u = F16_U and each rounded P or dS entry x counted as |x| + 2^-14 (its
+    subnormal floor; dS's times the kernels' dS factor s, see F16_U)."""
+    qt, kt, gt, p, ds = _bwd_probs(q, k, v, do, lse, delta, causal, scale)
+    ds = ds.abs()
+    s = max(1.0, float(ds.max()) / 2.0 ** 14)
+    p = p + 2.0 ** -14
+    ds = ds + 2.0 ** -14 * s
+    bounds = {"dq": (ds @ kt.abs()) * scale,            # qt carries scale
+              "dk": ds.transpose(-1, -2) @ qt.abs(),
+              "dv": p.transpose(-1, -2) @ gt.abs()}
+    return {name: (2 * F16_U * float(bound.max()), FLASH_BWD_F16_RTOL)
+            for name, bound in bounds.items()}
+
+
+def flash_bwd_tol(q, k, v, do, lse, delta, causal, scale):
+    """The backward's per-output tolerances for q's 2-byte type
+    (`flash_bwd_bf16_tol` or `flash_bwd_f16_tol`)."""
+    fn = flash_bwd_f16_tol if q.dtype == torch.float16 else flash_bwd_bf16_tol
+    return fn(q, k, v, do, lse, delta, causal, scale)
+
+
 def rel_fro(got, want):
     """||got - want||_F / ||want||_F, in float64."""
     got, want = got.double(), want.double()
@@ -200,9 +286,9 @@ def rel_fro(got, want):
 
 def _tma_compatible(t, name):
     """None when TMA can read `t` as a ``[B, N, H, D]`` operand of the bf16
-    kernels; else why not, naming the tensor `name`. TMA needs a
+    or f16 kernels; else why not, naming the tensor `name`. TMA needs a
     16-byte aligned base and byte strides that are multiples of 16 (so a
-    multiple of 8 bf16 elements), each below 2**40; a size-1 dimension's
+    multiple of 8 2-byte elements), each below 2**40; a size-1 dimension's
     stride is never used. The fused-qkv views of the model qualify: a row
     stride of 3 * hidden elements, k and v offset by hidden and 2 * hidden."""
     if t.stride(-1) != 1:
@@ -229,8 +315,8 @@ def _require_tma(what, **tensors):
     for name, t in tensors.items():
         why = _tma_compatible(t, name)
         if why is not None:
-            raise ValueError(f"{what}: the bf16 kernel loads through TMA "
-                             f"and cannot read {why}")
+            raise ValueError(f"{what}: the {t.dtype} kernel loads through "
+                             f"TMA and cannot read {why}")
 
 
 def _tma_strides(t):
@@ -250,7 +336,7 @@ def _tma_strides(t):
 
 def _raise_for(err, name):
     """Raise for a kernel entry's nonzero return: a cudaError_t, or one of
-    the bf16 entries' tensor-map codes."""
+    the tensor-core entries' tensor-map codes."""
     if err >= _ERR_ENCODE:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
                            f"CUresult {err - _ERR_ENCODE}")
@@ -272,8 +358,8 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
     m = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    code = dtype_code(q.dtype)
+    if code:
         _require_tma("flash forward", q=q, k=k, v=v)
         strides = [s for t in (q, k, v) for s in _tma_strides(t)]
     else:
@@ -289,7 +375,7 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
         err = fn(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                  ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                  ctypes.c_void_p(lse.data_ptr()), b, n, m, h, d, *strides,
-                 float(scale), int(bool(causal)), int(bf16),
+                 float(scale), int(bool(causal)), code,
                  ctypes.c_void_p(stream))
     _raise_for(err, "flash_attention_fwd")
     launches["flash_attention_fwd"] += 1
@@ -361,8 +447,8 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
             raise ValueError(f"{label} must be contiguous float32 [B*H, N] "
                              f"= [{b * h}, {n}] on {q.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
+    code = dtype_code(q.dtype)
+    if code:
         _require_tma(f"flash_attention_bwd_{name}", q=q, k=k, v=v, do=do)
         strides = [s for t in (q, k, v, do) for s in _tma_strides(t)]
     else:
@@ -378,7 +464,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
         err = fn(*(ctypes.c_void_p(t.data_ptr())
                    for t in (q, k, v, do, lse, delta, *outs)),
                  b, n, k.shape[1], h, d, strides, float(scale),
-                 int(bool(causal)), int(bf16), ctypes.c_void_p(stream))
+                 int(bool(causal)), code, ctypes.c_void_p(stream))
     _raise_for(err, f"flash_attention_bwd_{name}")
     launches[f"flash_attention_bwd_{name}"] += 1
 
@@ -447,12 +533,12 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if do.stride(-1) != 1 or (do.dtype == torch.bfloat16
+        if do.stride(-1) != 1 or (do.dtype != torch.float32
                                   and _tma_compatible(do, "do") is not None):
             # the kernels read dO's rows in place whatever their strides,
             # but not an expanded gradient (the gradient of a sum has
-            # stride 0 everywhere), nor in bf16 one that TMA cannot read
-            # (a misaligned one may be contiguous already): this Function
+            # stride 0 everywhere), nor in bf16 or f16 one that TMA cannot
+            # read (a misaligned one may be contiguous already): this Function
             # owns the gradient, so it copies those into fresh storage
             do = do.clone(memory_format=torch.contiguous_format)
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, ctx.causal,

@@ -4,8 +4,8 @@ twin and the autograd Function that joins them.
 Counterpart of `paddle_tpu/kernels/fused_ln.py` (`_kernel` / `_run`, the
 `custom_vjp` `fused_bias_residual_layer_norm`, `_reference` and
 `is_eligible`). Contract (shared by kernel and twin): x and residual
-``[R, d]`` of one dtype (float32 or bfloat16), bias / scale / shift ``[d]``
-(float32 or bfloat16); returns
+``[R, d]`` of one dtype (float32, bfloat16 or float16), bias / scale /
+shift ``[d]`` (float32, bfloat16 or float16); returns
 
     y = LayerNorm(x + bias + residual) * scale + shift
 
@@ -27,12 +27,13 @@ import torch
 from ..device import require_hopper
 from ..framework.flags import get_flags
 from . import _build
+from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["fused_bias_residual_layer_norm", "FusedBiasResidualLayerNorm",
            "fused_ln_fwd", "fused_ln_reference", "is_eligible", "launches",
            "DTYPES"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"fused_ln": 0}
@@ -98,8 +99,8 @@ def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
         raise TypeError(f"bias, scale and shift must be in {DTYPES}, got "
                         f"{[t.dtype for t in affine]}")
     if len({t.dtype for t in affine}) > 1:
-        # one type for the three (bf16 -> fp32 is exact, and the kernel
-        # reads both as fp32)
+        # one type for the three (bf16 or f16 -> fp32 is exact, and the
+        # kernel reads each as fp32)
         affine = tuple(t.float() for t in affine)
     if d % 128 or d > 65536:
         raise ValueError(f"fused LayerNorm kernel takes d % 128 == 0 and "
@@ -127,8 +128,8 @@ def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*(ctypes.c_void_p(t.data_ptr())
                    for t in (x, residual, *affine, out)),
-                 r, d, float(eps), 0 if x.dtype == torch.float32 else 1,
-                 0 if affine[0].dtype == torch.float32 else 1,
+                 r, d, float(eps), dtype_code(x.dtype),
+                 dtype_code(affine[0].dtype),
                  ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused_ln launch failed: cudaError {err}")

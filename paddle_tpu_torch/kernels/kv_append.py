@@ -38,9 +38,9 @@ from ..quantization.kv_cache import quantize_block_write
 
 __all__ = ["kv_append_reference"]
 
-# the float types a write may cast between (an engine's pools of the other
+# the float types a write may cast between (an engine's pools of another
 # float type than its model's)
-_CASTS = {torch.float32, torch.bfloat16}
+_CASTS = {torch.float32, torch.bfloat16, torch.float16}
 
 
 def _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
@@ -84,17 +84,13 @@ def _check(k_new, v_new, k_pool, v_pool, block_tables, seq_lens, active,
             raise TypeError(f"k_new and v_new must share one float type, got "
                             f"{k_new.dtype}, {v_new.dtype}")
         scales = (("k_scales", k_scales), ("v_scales", v_scales))
-    elif k_pool.dtype == torch.float16 and k_new.dtype != torch.float16:
-        raise NotImplementedError(
-            "float16 KV pools under another model dtype (ROADMAP Queue 1 "
-            "item 3(g))")
     elif not (k_pool.dtype == v_pool.dtype and k_new.dtype == v_new.dtype
               and k_pool.dtype.is_floating_point
               and (k_new.dtype == k_pool.dtype
                    or {k_new.dtype, k_pool.dtype} <= _CASTS)):
         raise TypeError(f"fp pools take k_new and v_new of their own float "
-                        f"type, or fp32 and bf16 each other's (cast on the "
-                        f"write), got {k_new.dtype}, {v_new.dtype} into "
+                        f"type, or another of fp32, bf16 and fp16 (cast on "
+                        f"the write), got {k_new.dtype}, {v_new.dtype} into "
                         f"{k_pool.dtype}, {v_pool.dtype}")
     for name, t in (("k_new", k_new), ("v_new", v_new), ("k_pool", k_pool),
                     ("v_pool", v_pool), ("block_tables", block_tables),

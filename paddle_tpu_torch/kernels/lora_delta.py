@@ -11,8 +11,8 @@ on the projection's output:
     y[n] += round_T(round_T(round_T(x[n] @ A[s, layer]) @ B[s, layer])
                     * round_T(scale[s]))          for s = idx[n] != 0
 
-with A ``[K, L, in, r]``, B ``[K, L, r, out]`` (the model's dtype, float32
-or bfloat16), scale ``[K]`` float32 and idx int32 (``[N]``, or one slot
+with A ``[K, L, in, r]``, B ``[K, L, r, out]`` (the model's dtype, float32,
+bfloat16 or float16), scale ``[K]`` float32 and idx int32 (``[N]``, or one slot
 expanded over the rows with stride 0); rows of slot 0, the base adapter,
 are left untouched. The twin's sums are fp32 (the kernel's tile form sums
 x @ A in fp64, `lora_delta_exact`); round_T rounds to the model's dtype,
@@ -29,7 +29,8 @@ stays right whatever slots it later reads):
     output columns;
   * ``"tile"`` (prefill: one slot expanded over the rows with stride 0):
     16-row tiles x column tiles; each CTA computes its tile's
-    ``X @ A`` once (bf16 on the tensor cores, fp32 on the FMA units) and
+    ``X @ A`` once (bf16 and f16 on the tensor cores, fp32 on the FMA
+    units) and
     reads A and B once a tile.
 """
 from __future__ import annotations
@@ -40,12 +41,13 @@ import torch
 
 from ..device import require_hopper
 from . import _build
+from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["lora_delta", "lora_delta_reference", "lora_delta_exact",
            "lora_delta_tol", "lora_form", "smem_bytes", "run", "launches",
            "DTYPES", "FORMS"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"lora_delta": 0}
@@ -120,10 +122,15 @@ def _gamma(n, unit):
 
 
 # unit roundoffs: fp32, fp64, and what one rounding to T may add below the
-# normal range (bf16 and fp32 share fp32's exponent range)
+# normal range (bf16 and fp32 share fp32's exponent range, 2^-149 half its
+# subnormal step; f16's subnormal step is 2^-24)
 _U32 = 2.0 ** -24
 _U64 = 2.0 ** -53
 _ETA = 2.0 ** -149
+# T's unit roundoff u and its eta (see lora_delta_tol)
+_ROUNDING = {torch.bfloat16: (2.0 ** -8, _ETA),
+             torch.float16: (2.0 ** -11, 2.0 ** -25),
+             torch.float32: (_U32, _ETA)}
 
 
 def lora_delta_tol(y, x, a, b, scale, idx, layer):
@@ -132,8 +139,10 @@ def lora_delta_tol(y, x, a, b, scale, idx, layer):
 
     Model. One rounding to nearest of a value v is off by at most half a
     unit in the last place of the result, at most u |v| + eta with u =
-    2^-8 for bf16 (8 significant bits), 2^-24 for fp32, and eta covering
-    results below the normal range. A sum of n terms in fp32 with
+    2^-8 for bf16 (8 significant bits), 2^-11 for f16 (11 significant
+    bits), 2^-24 for fp32, and eta covering results below the normal range
+    (half the subnormal step: 2^-25 for f16, whose normal range ends at
+    2^-14; 2^-149 for bf16 and fp32). A sum of n terms in fp32 with
     rounding to nearest (any order, fused multiply-adds or not; fp64 sums
     are better still) is off its exact value by at most gamma_n sum|term|,
     gamma_n = n 2^-24 / (1 - n 2^-24). Both computations take the same
@@ -157,13 +166,13 @@ def lora_delta_tol(y, x, a, b, scale, idx, layer):
     (the last: an fp32 rounding of y + d, then one to T). The kernel and
     the twin are each within E_y of y + d*, so they differ by at most 2
     E_y: one bf16 step of t (up to 2^-7 of a value just above a power of
-    two) is inside 2 u |t*|, and an fp32 sum's error scales with sum|x| |A|,
+    two; an f16 step, 2^-10) is inside 2 u |t*|, and an fp32 sum's error scales with sum|x| |A|,
     not with |t|, as it must. For fp32 T the R_T of t and w are exact in
     the twin and one fp32 rounding of an fp64 sum in the kernel's tile
     form: u = 2^-24 covers both. The bound is tight enough to see a wrong
     delta: a dropped rank column, or the scale off by 2^-5, leaves it
     (tests/test_torch_lora_delta.py)."""
-    u = 2.0 ** -8 if y.dtype == torch.bfloat16 else _U32
+    u, eta = _ROUNDING[y.dtype]
     sel = idx.long()
     d_in, rank = a.shape[2], a.shape[3]
     g_in = _gamma(d_in, _U32) + _gamma(d_in, _U64)
@@ -177,18 +186,18 @@ def lora_delta_tol(y, x, a, b, scale, idx, layer):
         t = xs @ a_s                                          # [n, r]
         p1 = (xs.abs() @ a_s.abs()) * (1 + _gamma(d_in, _U64))
         e1 = g_in * p1
-        e_t = e1 + u * (t.abs() + e1) + _ETA
+        e_t = e1 + u * (t.abs() + e1) + eta
         b_abs = b_s.abs()
         w = t @ b_s                                           # [n, out]
         mag_w = (t.abs() @ b_abs) * (1 + _gamma(rank, _U64))
         prop = e_t @ b_abs
         e2 = prop + g_r * (mag_w + prop)
-        e_w = e2 + u * (w.abs() + e2) + _ETA
+        e_w = e2 + u * (w.abs() + e2) + eta
         sigma = abs(float(scale[slot].to(y.dtype)))
         d = w * float(scale[slot].to(y.dtype))
-        e_d = e_w * sigma + u * (d.abs() + e_w * sigma) + _ETA
+        e_d = e_w * sigma + u * (d.abs() + e_w * sigma) + eta
         z = y[rows].double() + d
-        e_y = e_d + (_U32 + u * (1 + _U32)) * (z.abs() + e_d) + 2 * _ETA
+        e_y = e_d + (_U32 + u * (1 + _U32)) * (z.abs() + e_d) + 2 * eta
         bound[rows] = (2 * e_y).float()
     return bound
 
@@ -223,7 +232,7 @@ def run(fn, y, x, a, b, scale, idx, layer, form):
                 for t in (y, x, a, b, scale, idx)),
               n, d_in, d_out, rank, layer, num_layers, y.stride(0),
               x.stride(0), idx.stride(0), FORMS.index(form),
-              0 if y.dtype == torch.float32 else 1, ctypes.c_void_p(stream))
+              dtype_code(y.dtype), ctypes.c_void_p(stream))
 
 
 def lora_delta(y, x, a, b, scale, idx, layer):

@@ -24,13 +24,13 @@ Nothing is read back from the device and nothing is allocated beside the
 output, so a decode step stays free of host syncs. Launches count once
 per call under ``paged_decode`` (fp pools) and ``paged_decode_int8``.
 
-Pools may be of the other float type than q (fp32 pools under a bf16
-model, bf16 under fp32: an engine's float ``kv_dtype`` other than the
-model's): both versions read them as fp32 for the scores and the softmax
-and return q's dtype; the decode write casts the new rows to the pools'
-type (round to nearest even), as the reference's ``.astype`` does. The
-kernel takes fp32 and bf16 pools; float16 pools raise NotImplementedError
-on the card (ROADMAP Queue 1 item 3(g)).
+q and the pools are each float32, bfloat16 or float16, in any pair (an
+engine's float ``kv_dtype`` other than the model's): both versions read the
+pools as fp32 for the scores and the softmax and return q's dtype; the
+decode write casts the new rows to the pools' type (round to nearest even;
+past 65504 to inf in float16 pools), as the reference's ``.astype`` does.
+The kernel has an instantiation for every pair (and for int8 pools under
+each q type); the C entry takes the pools' own type code (`_dtype`).
 
 `paged_decode_append` is the serving decode step's entry: the same kernel
 built with the decode write folded in (one launch a layer writes this
@@ -39,8 +39,8 @@ and v_new as the strided views of the fused QKV projection and the active
 flags beside the lengths; its plain twin is `kv_append_reference` then
 `paged_decode_reference` with ``where(active, seq_lens, 0)``. Launches
 count under ``paged_decode_append``, ``paged_decode_append_int8`` and, over
-pools of the other float type, ``paged_decode_append_to_bf16`` /
-``paged_decode_append_to_fp32`` (`append_name`).
+pools of another float type, ``paged_decode_append_to_bf16`` /
+``_to_fp32`` / ``_to_fp16`` (`append_name`).
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ import torch
 from ..device import require_hopper
 from ..quantization.kv_cache import dequantize
 from . import _build
+from ._dtype import FLOAT_DTYPES, SHORT_NAMES, dtype_code, pool_code
 from .kv_append import _check as _check_write
 from .kv_append import kv_append_reference
 
@@ -61,7 +62,7 @@ __all__ = ["paged_attention", "paged_decode_append", "append_name",
            "MAX_INT8_BLOCK_LEVELS"]
 
 HEAD_DIMS = (64, 128)
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 _NEG_INF = -1e30
 
 # blockwise chunking of the plain version, as in the JAX twin: chunks of
@@ -73,7 +74,8 @@ _CHUNK_TOKENS_MAX = 512
 launches = {"paged_decode": 0, "paged_decode_int8": 0,
             "paged_decode_append": 0, "paged_decode_append_int8": 0,
             "paged_decode_append_to_bf16": 0,
-            "paged_decode_append_to_fp32": 0}
+            "paged_decode_append_to_fp32": 0,
+            "paged_decode_append_to_fp16": 0}
 
 # the kernel's split: the CTAs of one (slot, head) share its live positions
 # in whole table entries, each at most about SPAN_TOKENS of a full table,
@@ -86,12 +88,12 @@ MAX_SPLITS = 8
 MAX_SPAN_BLOCKS = 512
 # q, k_pool, v_pool, k_scales, v_scales, tables, lens, out; slots, heads,
 # head_dim, max_blocks, block_size, span_blocks, n_split; scale; dtype,
-# quantized; stream
+# pools (the pools' type code); stream
 _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 # q, k_new, v_new, k_pool, v_pool, k_scales, v_scales, tables, lens,
 # active, out, strides; slots, heads, head_dim, max_blocks, block_size,
-# num_blocks, span_blocks, n_split; scale; dtype, quantized; stream
+# num_blocks, span_blocks, n_split; scale; dtype, pools; stream
 _APPEND_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                     + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p])
@@ -130,38 +132,32 @@ def _check(q, k_pool, v_pool, block_tables, lens, block_size, k_scales,
 
 
 def _pool_kind(q, k_pool, v_pool, quantized):
-    """The kernel's code for the pools' type beside q's: 0 q's dtype, 1
-    int8 (with scales), 2 the other float type of DTYPES. Raises
-    TypeError for what the kernel does not take, NotImplementedError for
-    float16 pools."""
+    """The kernel's code for the pools' own type (`_dtype.pool_code`: 0
+    fp32, 1 bf16, 2 f16, 3 int8 with scales). Raises TypeError for what
+    the kernel does not take."""
     if q.dtype not in DTYPES:
         raise TypeError(f"paged kernel takes q in {DTYPES}, got {q.dtype}")
-    if quantized:
-        return 1
     if k_pool.dtype != v_pool.dtype:
         raise TypeError(f"K and V pools of one type, got {k_pool.dtype}, "
                         f"{v_pool.dtype}")
-    if k_pool.dtype == torch.float16:
-        raise NotImplementedError(
-            "float16 KV pools: the paged kernel takes fp32, bf16 and int8 "
-            "pools (ROADMAP Queue 1 item 3(g))")
+    if quantized:
+        return pool_code(torch.int8)
     if k_pool.dtype not in DTYPES:
         raise TypeError(f"paged kernel takes pools in {DTYPES} or int8, got "
                         f"{k_pool.dtype}")
-    return 0 if k_pool.dtype == q.dtype else 2
+    return pool_code(k_pool.dtype)
 
 
 def append_name(q_dtype, pool_dtype):
     """The launch counter of `paged_decode_append` for q over pools of
     `pool_dtype`: ``paged_decode_append`` (q's dtype),
     ``paged_decode_append_int8``, or ``paged_decode_append_to_bf16`` /
-    ``_to_fp32`` (pools of the other float type)."""
+    ``_to_fp32`` / ``_to_fp16`` (pools of another float type)."""
     if pool_dtype == torch.int8:
         return "paged_decode_append_int8"
     if pool_dtype == q_dtype:
         return "paged_decode_append"
-    return ("paged_decode_append_to_bf16" if pool_dtype == torch.bfloat16
-            else "paged_decode_append_to_fp32")
+    return "paged_decode_append_to_" + SHORT_NAMES[pool_dtype]
 
 
 def split_plan(max_blocks, block_size):
@@ -286,8 +282,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
                  ctypes.c_void_p(lens.data_ptr()),
                  ctypes.c_void_p(out.data_ptr()),
                  s, h, d, m, int(block_size), span, n_split,
-                 1.0 / math.sqrt(d),
-                 0 if q.dtype == torch.float32 else 1, kind,
+                 1.0 / math.sqrt(d), dtype_code(q.dtype), kind,
                  ctypes.c_void_p(stream))
     name = "paged_decode_int8" if quantized else "paged_decode"
     if err != 0:
@@ -392,8 +387,7 @@ def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
                  ctypes.c_void_p(out.data_ptr()),
                  ctypes.cast(strides, ctypes.c_void_p),
                  s, h, d, m, int(block_size), k_pool.shape[0], span, n_split,
-                 1.0 / math.sqrt(d),
-                 0 if q.dtype == torch.float32 else 1, kind,
+                 1.0 / math.sqrt(d), dtype_code(q.dtype), kind,
                  ctypes.c_void_p(stream))
     name = append_name(q.dtype, k_pool.dtype)
     if err != 0:

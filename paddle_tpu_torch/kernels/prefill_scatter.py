@@ -7,17 +7,16 @@ pools, `paddle_tpu/quantization/kv_cache.py` `quantize_scatter`, both
 inside the jitted prefill program, where XLA fuses them. On the card
 ``csrc/prefill_scatter.cu`` writes every layer's K and V in one launch
 (counted under ``prefill_scatter``, ``prefill_scatter_int8`` with int8
-pools, or ``prefill_scatter_to_bf16`` / ``_to_fp32`` into pools of the
-other float type: `scatter_name`); `prefill_scatter_reference` is its twin, the route CPU tensors
-take.
+pools, or ``prefill_scatter_to_bf16`` / ``_to_fp32`` / ``_to_fp16`` into
+pools of another float type: `scatter_name`); `prefill_scatter_reference`
+is its twin, the route CPU tensors take.
 
 Contract: k_pools / v_pools ``[L, num_blocks, bs, H, D]``, of a float
-type (the rows' or, for an engine whose ``kv_dtype`` is the other float
-type than its model's, fp32 for bf16 rows and bf16 for fp32 rows: the rows
-are cast on the write, round to nearest even, as the reference's
-``.astype(k_pools.dtype)``; the kernel takes those two, float16 pools
-raise NotImplementedError on the card, ROADMAP Queue 1 item 3(g)) or int8
-with fp32 scales ``[L, num_blocks, H]`` (`k_scales` /
+type (the rows' or, for an engine whose ``kv_dtype`` is another float type
+than its model's, any other of fp32, bf16 and fp16: the rows are cast on
+the write, round to nearest even, as the reference's
+``.astype(k_pools.dtype)``) or int8 with fp32 scales ``[L, num_blocks, H]``
+(`k_scales` /
 `v_scales`); k_layers / v_layers: L per-layer ``[T, H, D]`` K and V of a
 prompt right-padded to its bucket T (on the engine's path, strided views
 of each layer's fused qkv output, read in place); block_row ``[M]``
@@ -46,19 +45,21 @@ import torch
 from ..device import require_hopper
 from ..quantization.kv_cache import quantize_scatter
 from . import _build
+from ._dtype import FLOAT_DTYPES, SHORT_NAMES, dtype_code
 
 __all__ = ["prefill_scatter", "prefill_scatter_reference", "scatter_bytes",
            "scatter_name",
            "run", "launches", "DTYPES", "MAX_LAYERS", "MAX_HEADS"]
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = FLOAT_DTYPES
 # the source's kMaxLayers and kMaxHeads (checked when the library loads)
 MAX_LAYERS = 128
 MAX_HEADS = 256
 
 # kernel launches since import (or the last reset by the caller), by kernel
 launches = {"prefill_scatter": 0, "prefill_scatter_int8": 0,
-            "prefill_scatter_to_bf16": 0, "prefill_scatter_to_fp32": 0}
+            "prefill_scatter_to_bf16": 0, "prefill_scatter_to_fp32": 0,
+            "prefill_scatter_to_fp16": 0}
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -103,13 +104,13 @@ def scatter_bytes(length, layers, heads, head_dim, elem, int8, blocks,
 def scatter_name(row_dtype, pool_dtype):
     """The launch counter for rows of `row_dtype` into pools of
     `pool_dtype`: ``prefill_scatter``, ``prefill_scatter_int8``, or
-    ``prefill_scatter_to_bf16`` / ``_to_fp32`` (the other float type)."""
+    ``prefill_scatter_to_bf16`` / ``_to_fp32`` / ``_to_fp16`` (another float
+    type)."""
     if pool_dtype == torch.int8:
         return "prefill_scatter_int8"
     if pool_dtype == row_dtype:
         return "prefill_scatter"
-    return ("prefill_scatter_to_bf16" if pool_dtype == torch.bfloat16
-            else "prefill_scatter_to_fp32")
+    return "prefill_scatter_to_" + SHORT_NAMES[pool_dtype]
 
 
 def _check(k_pools, v_pools, k_layers, v_layers, block_row, block_size,
@@ -149,7 +150,7 @@ def _check_launch(k_pools, v_pools, k_layers, v_layers, block_row, length,
                   k_scales, v_scales):
     """What the kernel takes beyond the contract: rows in DTYPES of one
     row stride with contiguous 16-byte aligned [H, D] rows and head_dim a
-    whole number of 16-byte vectors, fp pools in DTYPES (of the other
+    whole number of 16-byte vectors, fp pools in DTYPES (of another
     type: heads x head_dim a multiple of 8) or int8 with fp32 scales,
     contiguous; an int32 block row and length on the
     pools' device; at most MAX_LAYERS layers and MAX_HEADS heads."""
@@ -162,15 +163,11 @@ def _check_launch(k_pools, v_pools, k_layers, v_layers, block_row, length,
     if k_pools.dtype != v_pools.dtype:
         raise TypeError(f"K and V pools of one type, got {k_pools.dtype}, "
                         f"{v_pools.dtype}")
-    if not quantized and k_pools.dtype == torch.float16:
-        raise NotImplementedError(
-            "float16 KV pools: the prefill scatter kernel takes fp32, bf16 "
-            "and int8 pools (ROADMAP Queue 1 item 3(g))")
     if not quantized and k_pools.dtype not in DTYPES:
         raise TypeError(f"prefill_scatter kernel takes pools in {DTYPES} or "
                         f"int8, got {k_pools.dtype}")
     if not quantized and k_pools.dtype != dtype and (h * d) % 8:
-        raise ValueError(f"prefill_scatter kernel casts rows to the other "
+        raise ValueError(f"prefill_scatter kernel casts rows to another "
                          f"float type 8 values at a time: heads x head_dim "
                          f"a multiple of 8, got {h} x {d}")
     if quantized and (k_scales.dtype != torch.float32
@@ -286,9 +283,10 @@ def run(fn, k_pools, v_pools, k_layers, v_layers, block_row, length,
 
 
 def _dtype_code(k_pools, k_layers):
-    """The C interface's dtype: the rows' type (0 fp32, 1 bf16), plus 2
-    where fp pools are of the other float type."""
+    """The C interface's dtype: the rows' code r (`_dtype.dtype_code`)
+    where the pools are of the rows' type or int8, else ``3 + 3 p + r``
+    with p the fp pools' code."""
     rows = k_layers[0].dtype
-    code = 0 if rows == torch.float32 else 1
-    cast = k_pools.dtype != torch.int8 and k_pools.dtype != rows
-    return code + 2 * cast
+    if k_pools.dtype in (torch.int8, rows):
+        return dtype_code(rows)
+    return 3 + 3 * dtype_code(k_pools.dtype) + dtype_code(rows)

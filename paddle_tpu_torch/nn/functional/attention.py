@@ -2,8 +2,9 @@
 
 Counterpart of `paddle_tpu/nn/functional/attention.py`
 (`_plain_attention`, `scaled_dot_product_attention`,
-`_dense_gather_attention`, `paged_decode_attention`). Layouts are the JAX
-package's: q, k, v ``[batch, seq, heads, head_dim]``.
+`_dense_gather_attention`, `paged_decode_attention`, `PAGED_KERNELS` and
+`resolve_paged_kernel`). Layouts are the JAX package's: q, k, v ``[batch,
+seq, heads, head_dim]``.
 """
 from __future__ import annotations
 
@@ -16,10 +17,18 @@ from ...framework.flags import get_flags
 from ...kernels.flash_attention import (DTYPES as _FLASH_DTYPES,
                                         HEAD_DIMS as _FLASH_HEAD_DIMS,
                                         FlashAttention)
+from ...kernels.kv_append import kv_append_reference
 from ...kernels.paged_attention import paged_decode_append
 from ...quantization.kv_cache import dequantize
 
-__all__ = ["scaled_dot_product_attention", "paged_decode_attention"]
+__all__ = ["scaled_dot_product_attention", "paged_decode_attention",
+           "PAGED_KERNELS", "resolve_paged_kernel"]
+
+# the serving attention variants, by the reference's names: "pallas" and
+# "blockwise" both run the hand-written paged kernel (the reference's
+# blockwise path is the plain twin of its Pallas kernel, the same streaming
+# math), "reference" the dense-gather oracle
+PAGED_KERNELS = ("pallas", "blockwise", "reference")
 
 _NEG_INF = -1e30
 
@@ -51,9 +60,7 @@ def _flash_eligible(q, k, mask, dropout_p, is_causal):
     """The flash route: ``FLAGS_use_flash_attention``, no mask, no dropout,
     [B, N, H, D] with D in the kernel's head dims, n == m when causal (the
     kernel's mask is top-left). No minimum length: the kernels mask their
-    own ragged edges. A float16 call that is otherwise eligible raises on
-    a CUDA tensor (the kernels take fp32 and bf16: ROADMAP.md item 3(g))
-    and takes the plain path on the CPU."""
+    own ragged edges. fp32, bf16 and float16 each have their kernel."""
     if mask is not None or dropout_p:
         return False
     if not get_flags("FLAGS_use_flash_attention")["FLAGS_use_flash_attention"]:
@@ -61,11 +68,6 @@ def _flash_eligible(q, k, mask, dropout_p, is_causal):
     if q.ndim != 4 or q.shape[-1] not in _FLASH_HEAD_DIMS \
             or (is_causal and q.shape[1] != k.shape[1]):
         return False
-    if q.dtype == torch.float16 and q.is_cuda:
-        raise NotImplementedError(
-            "flash attention on the card takes fp32 and bf16; float16 "
-            "(auto_cast(dtype='float16'), a float16 model) is not ported "
-            "yet (ROADMAP.md Queue 1 item 3(g))")
     return q.dtype in _FLASH_DTYPES
 
 
@@ -116,9 +118,21 @@ def _dense_gather_attention(qh, k_pool, v_pool, block_tables, lens,
     return torch.einsum("sht,sthd->shd", probs, vals).to(qh.dtype)
 
 
+def resolve_paged_kernel(kernel=None):
+    """The serving attention variant: `kernel`, or
+    ``FLAGS_serve_attention_kernel`` when None, one of PAGED_KERNELS (else
+    ValueError). Nothing falls back: each name runs what it names."""
+    req = kernel or str(get_flags("FLAGS_serve_attention_kernel")
+                        ["FLAGS_serve_attention_kernel"] or "blockwise")
+    if req not in PAGED_KERNELS:
+        raise ValueError(f"unknown paged attention kernel {req!r}; expected "
+                         f"one of {PAGED_KERNELS}")
+    return req
+
+
 def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
                            seq_lens, active, block_size, k_scales=None,
-                           v_scales=None):
+                           v_scales=None, kernel="blockwise"):
     """One decode step of attention against one layer's paged block pool.
 
     q/k_new/v_new: ``[S, 1, H, D]`` this step's projections for every slot.
@@ -140,10 +154,24 @@ def paged_decode_attention(q, k_new, v_new, k_pool, v_pool, block_tables,
     port edits the engine's pools, which saves a copy of every layer's pool
     per step. Returns ``(out [S, 1, H, D], k_pool, v_pool)``, plus
     ``(k_scales, v_scales)`` with int8 pools.
+
+    `kernel` (PAGED_KERNELS; the engine resolves it once): ``"pallas"`` and
+    ``"blockwise"`` take that path; ``"reference"`` writes with the plain
+    write (`kv_append_reference`) and attends with the dense-gather oracle
+    `_dense_gather_attention`, PyTorch ops on both devices, reached only
+    when named.
     """
-    out = paged_decode_append(q[:, 0], k_new[:, 0], v_new[:, 0], k_pool,
-                              v_pool, block_tables, seq_lens, active,
-                              block_size, k_scales, v_scales)
+    if resolve_paged_kernel(kernel) == "reference":
+        kv_append_reference(k_new[:, 0], v_new[:, 0], k_pool, v_pool,
+                            block_tables, seq_lens, active, block_size,
+                            k_scales, v_scales)
+        out = _dense_gather_attention(q[:, 0], k_pool, v_pool, block_tables,
+                                      torch.where(active, seq_lens, 0),
+                                      block_size, k_scales, v_scales)
+    else:
+        out = paged_decode_append(q[:, 0], k_new[:, 0], v_new[:, 0], k_pool,
+                                  v_pool, block_tables, seq_lens, active,
+                                  block_size, k_scales, v_scales)
     if k_scales is not None:
         return out[:, None], k_pool, v_pool, k_scales, v_scales
     return out[:, None], k_pool, v_pool

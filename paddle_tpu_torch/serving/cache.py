@@ -116,13 +116,15 @@ class PagedCacheView:
     tensors. `GPTAttention` detects this view by its `block_tables`
     attribute and routes to the paged decode path. In int8 mode it also
     carries the layer's scales ``[num_blocks, H]`` (`k_scales` /
-    `v_scales`), written in place with the pools."""
+    `v_scales`), written in place with the pools. `kernel` is the engine's
+    attention variant (`nn.functional.attention.PAGED_KERNELS`)."""
 
     __slots__ = ("k_pool", "v_pool", "block_tables", "seq_lens", "active",
-                 "block_size", "k_scales", "v_scales")
+                 "block_size", "k_scales", "v_scales", "kernel")
 
     def __init__(self, k_pool, v_pool, block_tables, seq_lens, active,
-                 block_size, k_scales=None, v_scales=None):
+                 block_size, k_scales=None, v_scales=None,
+                 kernel="blockwise"):
         self.k_pool = k_pool
         self.v_pool = v_pool
         self.block_tables = block_tables
@@ -131,11 +133,13 @@ class PagedCacheView:
         self.block_size = int(block_size)
         self.k_scales = k_scales
         self.v_scales = v_scales
+        self.kernel = kernel
 
     def updated(self, k_pool, v_pool, k_scales=None, v_scales=None):
         return PagedCacheView(k_pool, v_pool, self.block_tables,
                               self.seq_lens, self.active, self.block_size,
-                              k_scales=k_scales, v_scales=v_scales)
+                              k_scales=k_scales, v_scales=v_scales,
+                              kernel=self.kernel)
 
 
 def is_int8(dtype):

@@ -103,13 +103,20 @@ Multi-tenant serving (serving/tenancy.py), as the reference's:
     values into the parameters' own storage, so the captured graphs serve
     the new weights without a recapture.
 
-Pools of another float type (``kv_dtype`` fp32 under a bf16 model, bf16
-under an fp32 one) hold the reference's ``.astype``: every write casts the
-model's K/V to the pools' type (round to nearest even) and the paged
+Pools of another float type (``kv_dtype`` any of fp32, bf16 and float16
+other than the model's) hold the reference's ``.astype``: every write casts
+the model's K/V to the pools' type (round to nearest even) and the paged
 kernel reads them into fp32 scores. The admission budget counts the pools'
-own bytes (`pool_bytes_per_block`). float16 pools and the kernel variant
-switch (``attention_kernel=``) are refused with NotImplementedError
-(ROADMAP Queue 1 item 3).
+own bytes (`pool_bytes_per_block`: 2 a value for bf16 and float16).
+
+``attention_kernel=`` (None: ``FLAGS_serve_attention_kernel``, default
+``"blockwise"``) takes the reference's names, resolved once per engine and
+reported as ``stats()["attention_kernel"]``: ``"pallas"`` and
+``"blockwise"`` run the hand-written paged kernel, ``"reference"`` the
+dense-gather oracle (PyTorch ops), reached only when named; another name
+raises ValueError. The reference keys its stored decode executable on the
+name; the port stores none (each engine builds its graphs), so no state
+carries it.
 
 The hung-step watchdog (``FLAGS_serve_step_timeout_ms``, 0 = disarmed)
 bounds every decode and prefill: the host waits on the step's output
@@ -175,6 +182,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import add_launches, capture_graph, warm_up
+from ..nn.functional.attention import resolve_paged_kernel
 from .cache import (BlockAllocator, PagedCacheView, PagedKVCache, is_int8,
                     scatter_prefill)
 from ..ops import guardian
@@ -285,18 +293,17 @@ def _pct(samples, p):
 
 def _pool_dtype(kv_dtype, model_dtype):
     """The pools' dtype for the engine's `kv_dtype` (None: the model's;
-    ``"int8"`` / ``torch.int8``; float32 or bfloat16 as a torch dtype or
-    its name). float16 and other types raise NotImplementedError."""
+    ``"int8"`` / ``torch.int8``; float32, bfloat16 or float16 as a torch
+    dtype or its name). Other types raise ValueError."""
     if kv_dtype is None:
         return model_dtype
     if is_int8(kv_dtype):
         return torch.int8
-    dtype = getattr(torch, kv_dtype) if isinstance(kv_dtype, str) \
+    dtype = getattr(torch, kv_dtype, None) if isinstance(kv_dtype, str) \
         else kv_dtype
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: the port's pools are float32, bfloat16 "
-            "or int8; float16 pools are ROADMAP.md Queue 1 item 3(g)")
+    if dtype not in (torch.float32, torch.bfloat16, torch.float16):
+        raise ValueError(f"kv_dtype {kv_dtype!r}: the port's pools are "
+                         "float32, bfloat16, float16 or int8")
     return dtype
 
 
@@ -451,10 +458,11 @@ class LLMEngine:
             pass                      # or engine.run()
 
     ``device=None`` means ``cuda`` and raises where there is no card; the
-    model's parameters must already live on that device. Greedy decoding
-    (temperature 0, the default) is exact; the pools take the model's
-    parameter dtype, the other float type with ``kv_dtype=torch.float32``
-    or ``torch.bfloat16``, or int8 with ``kv_dtype="int8"`` (or
+    model's parameters must already live on that device (fp32, bf16 or
+    float16). Greedy decoding (temperature 0, the default) is exact; the
+    pools take the model's parameter dtype, another float type with
+    ``kv_dtype=torch.float32``, ``torch.bfloat16`` or ``torch.float16``, or
+    int8 with ``kv_dtype="int8"`` (or
     ``torch.int8``): one byte per cached element, dequantized inside the
     paged kernel, so the same pool bytes admit about twice the streams of
     bf16.
@@ -472,11 +480,8 @@ class LLMEngine:
                  attention_kernel=None, enable_prefix_cache=False,
                  max_adapters=0, adapter_rank=4, hot_swap=False,
                  logprobs_topk=0, pipeline_decode=False, device=None):
-        if attention_kernel is not None:
-            raise NotImplementedError(
-                "paddle_tpu_torch's LLMEngine does not port "
-                "attention_kernel= (the kernel variant switch stays in the "
-                "JAX package for now)")
+        # the attention variant, resolved once for the engine's life
+        self._attn_kernel = resolve_paged_kernel(attention_kernel)
         device = resolve_device(device)
         param = next(model.parameters())
         kv = _pool_dtype(kv_dtype, param.dtype)
@@ -1122,6 +1127,7 @@ class LLMEngine:
         snap["kv_blocks"] = self.cache.num_blocks
         snap["block_size"] = self.block_size
         snap["kv_dtype"] = str(self.cache.dtype).replace("torch.", "")
+        snap["attention_kernel"] = self._attn_kernel
         snap["device"] = str(self.device)
         if self._prefix is not None:
             snap["prefix_entries"] = self._prefix.entries
@@ -1494,7 +1500,8 @@ class LLMEngine:
         return [PagedCacheView(self._k_pools[l], self._v_pools[l], tables,
                                lens, active, self.block_size,
                                k_scales=self._k_scales[l] if quant else None,
-                               v_scales=self._v_scales[l] if quant else None)
+                               v_scales=self._v_scales[l] if quant else None,
+                               kernel=self._attn_kernel)
                 for l in range(self._k_pools.shape[0])]
 
     def _decode_forward(self, slots, views):

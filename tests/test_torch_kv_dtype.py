@@ -21,8 +21,9 @@ twins do the same, and its kernels take those pools on the card:
     differ from XLA's in the last bits before the cast), `stats()["kv_dtype"]`
     the reference's, and at equal pool bytes the bf16 pools admit twice
     the fp32 pools' blocks;
-  * the kernel routes take mixed pools up to the card check (meta tensors)
-    and refuse float16 pools with NotImplementedError, as the engine does.
+  * the kernel routes take mixed pools, float16 pools among them, up to
+    the card check (meta tensors), and the engine builds and serves over
+    float16 pools as the JAX engine does.
 """
 from __future__ import annotations
 
@@ -187,20 +188,30 @@ def test_fused_kernel_route_takes_pools_of_the_other_type(q_dtype,
 
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 def test_kernel_routes_refuse_float16_pools(q_dtype):
-    with pytest.raises(NotImplementedError, match="3\\(g\\)"):
+    """float16 pools under fp32 or bf16 q (the case once refused) pass
+    every check of the three kernel routes and reach the card check; the
+    codes the C entries get name the pools' own type."""
+    with pytest.raises(RuntimeError, match="expected a CUDA tensor"):
         pa.paged_decode_append(*_meta_append(q_dtype, torch.float16))
     q, _, _, pool, pool2, tables, lens, _, bs = _meta_append(q_dtype,
                                                              torch.float16)
-    with pytest.raises(NotImplementedError, match="3\\(g\\)"):
+    with pytest.raises(RuntimeError, match="expected a CUDA tensor"):
         pa.paged_attention(q.contiguous(), pool, pool2, tables, lens, bs)
+    assert pa._pool_kind(q, pool, pool2, False) == 2
+    assert pa.append_name(q_dtype, torch.float16) == \
+        "paged_decode_append_to_fp16"
     layers = [torch.zeros((8, 2, 64), dtype=q_dtype, device="meta")] * 2
     pools = torch.zeros((2, 7, 4, 2, 64), dtype=torch.float16,
                         device="meta")
-    with pytest.raises(NotImplementedError, match="3\\(g\\)"):
+    with pytest.raises(RuntimeError, match="expected a CUDA tensor"):
         ps.prefill_scatter(pools, pools.clone(), layers, layers,
                            torch.zeros(2, dtype=torch.int32, device="meta"),
                            torch.zeros((), dtype=torch.int32, device="meta"),
                            4)
+    assert ps._dtype_code(pools, layers) == \
+        3 + 3 * 2 + (0 if q_dtype == torch.float32 else 1)
+    assert ps.scatter_name(q_dtype, torch.float16) == \
+        "prefill_scatter_to_fp16"
 
 
 @pytest.mark.parametrize("row_dtype, pool_dtype",
@@ -216,8 +227,9 @@ def test_scatter_kernel_route_takes_pools_of_the_other_type(row_dtype,
                            torch.zeros(2, dtype=torch.int32, device="meta"),
                            torch.zeros((), dtype=torch.int32, device="meta"),
                            4)
+    # 3 + 3 x the pools' code + the rows' code (kernels/_dtype.py)
     assert ps._dtype_code(pools, layers) == \
-        (2 if row_dtype == torch.float32 else 3)
+        (6 if row_dtype == torch.float32 else 4)
 
 
 # ---------------------------------------------------------------------------
@@ -318,5 +330,22 @@ def test_pool_bytes_count_the_pools_own_type(models):
 
 
 def test_float16_pools_are_refused(models):
-    with pytest.raises(NotImplementedError, match="3\\(g\\)"):
-        LLMEngine(models[1], device="cpu", kv_dtype=torch.float16)
+    """An fp32 model over float16 pools (the case once refused): the
+    engine builds, counts 2 bytes a pooled value, and serves the JAX
+    engine's greedy streams with kv_dtype float16."""
+    jm, tm = models
+    prompts = [_prompt(n, seed=4) for n in (9, 6, 11)]
+    je = JLLMEngine(jm, kv_dtype=jnp.float16, **ENGINE)
+    te = LLMEngine(tm, device="cpu", kv_dtype=torch.float16, **ENGINE)
+    assert te.cache.k_pools.dtype == torch.float16
+    cfg = tm.config
+    dims = (cfg.num_hidden_layers, cfg.num_attention_heads,
+            cfg.hidden_size // cfg.num_attention_heads, 4)
+    assert pool_bytes_per_block(*dims, dtype=torch.float16) == \
+        pool_bytes_per_block(*dims, dtype=torch.bfloat16)
+    jr = [je.add_request(p, max_new_tokens=7) for p in prompts]
+    tr = [te.add_request(p, max_new_tokens=7) for p in prompts]
+    je.run()
+    te.run()
+    assert [r.generated for r in tr] == [r.generated for r in jr]
+    assert te.stats()["kv_dtype"] == je.stats()["kv_dtype"] == "float16"

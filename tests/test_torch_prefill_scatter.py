@@ -342,7 +342,8 @@ def _check_all(a):
 
 
 @pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_well_formed_kernel_call_passes_the_checks(dtype, int8):
     _check_all(_meta_args(dtype, int8))
 
@@ -373,8 +374,9 @@ REFUSALS = {
     "misaligned rows": (_misaligned, ValueError),
     "rows not contiguous in a head": (_head_strided, ValueError),
     "another row stride": (_other_row_stride, ValueError),
+    # K rows in fp16 beside V rows in bf16: rows of two types
     "fp16 rows": (_set("k_layers", lambda a: [x.half() for x in
-                                              a["k_layers"]]), TypeError),
+                                              a["k_layers"]]), ValueError),
     "pools of another type": (_set("k_pools",
                                    lambda a: a["k_pools"].float()),
                               TypeError),

@@ -392,8 +392,24 @@ def test_engine_without_device_raises_here(models):
 @pytest.mark.parametrize("kw", [dict(kv_dtype=torch.float16),
                                 dict(attention_kernel="pallas")])
 def test_unported_options_raise(models, kw):
-    with pytest.raises(NotImplementedError):
-        LLMEngine(models[1], device="cpu", **kw)
+    """float16 pools and the attention-kernel switch, once refused: the
+    engine builds with each and serves the JAX engine's greedy streams
+    under the same option."""
+    jm, tm = models
+    jkw = {k: (jnp.float16 if v is torch.float16 else v)
+           for k, v in kw.items()}
+    prompts = [_prompt(n, seed=5) for n in (7, 12, 4)]
+    je = JLLMEngine(jm, max_batch_size=2, block_size=4, **jkw)
+    te = LLMEngine(tm, device="cpu", max_batch_size=2, block_size=4, **kw)
+    jr = [je.add_request(p, max_new_tokens=6) for p in prompts]
+    tr = [te.add_request(p, max_new_tokens=6) for p in prompts]
+    je.run()
+    te.run()
+    assert [r.generated for r in tr] == [r.generated for r in jr]
+    if "attention_kernel" in kw:
+        assert te.stats()["attention_kernel"] == "pallas"
+    else:
+        assert te.cache.k_pools.dtype == torch.float16
 
 
 def test_adapter_request_without_adapters_refused(models):

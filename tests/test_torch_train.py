@@ -354,8 +354,7 @@ def test_not_ported_options_raise():
                     grad_clip=tclip.ClipGradByGlobalNorm(1.0)))
     assert Adam(parameters=tm.parameters(),
                 weight_decay=0.01).regularization.coeff == 0.01
-    # float16 reaches the card's kernels only to raise there (ROADMAP.md
-    # item 3(g)); amp takes bf16 and float16 only
+    # amp takes bf16 and float16 only
     with pytest.raises(ValueError, match="bfloat16 or float16"):
         amp.auto_cast(dtype="int8")
     # a schedule must be an LRScheduler (ported); any other callable is

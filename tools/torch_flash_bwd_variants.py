@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time design variants of the bf16 flash backward kernels on one card.
+"""Time design variants of the bf16 (or f16) flash backward kernels on one
+card.
 
-    python3 tools/torch_flash_bwd_variants.py
+    python3 tools/torch_flash_bwd_variants.py [--dtype float16]
 
 Builds variants of ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` side by
 side with nvcc under ``build/flash_bwd_variants/`` and prints what ptxas
@@ -19,11 +20,14 @@ says of their wgmma kernels (registers, spills, serialized wgmma):
   sequence   tiles in sequence, the two score products waited for
              together;
   dv_early   as source, with dV += P^T dO issued as soon as P^T is packed,
-             so that dS^T is computed while it runs.
+             so that dS^T is computed while it runs;
+  no_fit     as source without the f16 kernels' dS row factor (`fit_f16`):
+             the same code in bf16; in f16 what the factor costs (it is
+             right only while no |dS| passes 65504, as at these cases).
 
-Each variant is held against the plain twins with `chip_smoke.py`'s bf16
-criteria, then dQ and dK/dV are timed at the training shape (8, 1024, 12,
-64) bf16 causal in turns (each variant, then in reverse) within one
+Each variant is held against the plain twins with `chip_smoke.py`'s
+criteria for the type, then dQ and dK/dV are timed at the training shape
+(8, 1024, 12, 64) causal in turns (each variant, then in reverse) within one
 process, and at D = 128 ((8, 1024, 6, 128)) once each. The card's name and
 power limit come first. Needs a Hopper card, nvcc and the repository's
 root as the working directory.
@@ -57,8 +61,8 @@ _DKV_LOOP = re.compile(r"  // Tile by tile, as the dQ kernel:.*?"
 
 def _dq_scores(j):
     """Issue tile `j`'s S and dP (not committed)."""
-    return f"""    issue_ss<D>(sc, q_addr, smem_u32(sm.k[({j}) % kStages][0]));
-    issue_ss<D>(dp, g_addr, smem_u32(sm.v[({j}) % kStages][0]));
+    return f"""    issue_ss<T, D>(sc, q_addr, smem_u32(sm.k[({j}) % kStages][0]));
+    issue_ss<T, D>(dp, g_addr, smem_u32(sm.v[({j}) % kStages][0]));
 """
 
 
@@ -83,8 +87,8 @@ def _dq_grad(j):
 
 def _dkv_scores(j):
     """Issue tile `j`'s S^T and dP^T (not committed)."""
-    return f"""    issue_ss<D>(sc, k_addr, smem_u32(sm.q[({j}) % kStages][0]));
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[({j}) % kStages][0]));
+    return f"""    issue_ss<T, D>(sc, k_addr, smem_u32(sm.q[({j}) % kStages][0]));
+    issue_ss<T, D>(dp, v_addr, smem_u32(sm.g[({j}) % kStages][0]));
 """
 
 
@@ -177,33 +181,36 @@ def _sequence(wait, scores, elementwise, pack, accumulate, fences):
 """
 
 
+_FIT_DQ = "    if constexpr (kIsHalf<T>) fit_f16(sc, ds_mul, dq_acc);\n"
+_FIT_DKV = "    if constexpr (kIsHalf<T>) fit_f16(dp, ds_mul, dk_acc);\n"
 _DQ = ("mbar_wait(&sm.qg_full, 0);", ("wait_kv", _dq_scores), _dq_grad,
-       "    pack(da, sc);\n", "issue_dq", "    fence_regs(dq_acc);\n")
+       _FIT_DQ + "    pack<T>(da, sc);\n", "issue_dq",
+       "    fence_regs(dq_acc);\n")
 _DKV = ("mbar_wait(&sm.kv_full, 0);", ("wait_qg", _dkv_scores),
         lambda j: _dkv_probs(j) + _dkv_grads(j),
-        "    pack(pa, sc);\n    pack(da, dp);\n", "issue_dkv",
-        "    fence_regs(dk_acc);\n    fence_regs(dv_acc);\n")
+        _FIT_DKV + "    pack<T>(pa, sc);\n    pack<T>(da, dp);\n",
+        "issue_dkv", "    fence_regs(dk_acc);\n    fence_regs(dv_acc);\n")
 _DV_EARLY = """  mbar_wait(&sm.kv_full, 0);
   for (int j = 0; j < n_tiles; ++j) {
     zero(sc);
     zero(dp);
     wait_qg(j);
     wgmma_fence();
-    issue_ss<D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
+    issue_ss<T, D>(sc, k_addr, smem_u32(sm.q[j % kStages][0]));
     wgmma_commit();
-    issue_ss<D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
+    issue_ss<T, D>(dp, v_addr, smem_u32(sm.g[j % kStages][0]));
     wgmma_commit();
     wgmma_wait<1>();
     fence_regs(sc);
-""" + _dkv_probs("j") + """    pack(pa, sc);
+""" + _dkv_probs("j") + """    pack<T>(pa, sc);
     wgmma_wait<0>();
     fence_regs(dp);
     wgmma_fence();
-    issue_rs<D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
+    issue_rs<T, D>(dv_acc, pa, smem_u32(sm.g[j % kStages][0]));
     wgmma_commit();
-""" + _dkv_grads("j") + """    pack(da, dp);
+""" + _dkv_grads("j") + _FIT_DKV + """    pack<T>(da, dp);
     wgmma_fence();
-    issue_rs<D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
+    issue_rs<T, D>(dk_acc, da, smem_u32(sm.q[j % kStages][0]));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dk_acc);
@@ -237,11 +244,16 @@ def _loops(src, kind):
 def variants():
     src = (CSRC / "flash_attention_bwd.cu").read_text()
     piped1 = _loops(src, _pipelined)
+    no_fit = src
+    for line in (_FIT_DQ, _FIT_DKV):
+        assert no_fit.count(line) == 1, line
+        no_fit = no_fit.replace(line, "")
     return {"source": src,
             "piped2": _bounds(piped1, "2", "D == 64 ? 2 : 1"),
             "piped1": piped1,
             "sequence": _loops(src, _sequence),
-            "dv_early": _sub(_DKV_LOOP, src, _DV_EARLY)}
+            "dv_early": _sub(_DKV_LOOP, src, _DV_EARLY),
+            "no_fit": no_fit}
 
 
 def build(sources):
@@ -262,14 +274,15 @@ def build(sources):
             raise RuntimeError(f"{name}: nvcc failed\n{log}")
         kernel = None
         for line in log.splitlines():
-            found = re.search(r"flash_bwd_(dq|dkv)_kernel_wgmmaILi(\d+)ELb(\d)",
-                              line)
+            found = re.search(r"flash_bwd_(dq|dkv)_kernel_wgmmaI\w*?"
+                              r"(6__half|13__nv_bfloat16)Li(\d+)ELb(\d)", line)
+            if found:
+                what = (f"{found.group(1)} {found.group(2).lstrip('0123456789')}"
+                        f" D={found.group(3)} causal={found.group(4)}")
             if found and "Compiling entry" in line:
-                kernel = f"{found.group(1)} D={found.group(2)} causal=" \
-                         f"{found.group(3)}"
+                kernel = what
             elif found and "serialized" in line:
-                print(f"ptxas {name}: {found.group(1)} D={found.group(2)} "
-                      f"causal={found.group(3)}: wgmma serialized "
+                print(f"ptxas {name}: {what}: wgmma serialized "
                       "(insufficient registers)")
             elif kernel and ("registers" in line or "spill" in line):
                 print(f"ptxas {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
@@ -285,7 +298,9 @@ def main():
     print(f"card: {cs._card()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
     libs = build(variants())
-    bf16 = torch.bfloat16
+    bf16 = torch.float16 if sys.argv[1:] == ["--dtype", "float16"] \
+        else torch.bfloat16
+    name16 = str(bf16)[6:]
     train = cs._fused_qkv(1024, bf16, seed=11, batch=8)
     wide = cs._fused_qkv(1024, bf16, seed=5, heads=6, head_dim=128, batch=8)
     for name, lib in libs.items():
@@ -304,15 +319,15 @@ def main():
         dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args), iters=50)[0]
         dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args),
                         iters=50)[0]
-        print(f"time {name} (8, 1024, 12, 64) bf16 causal: dq {dq:.5f} ms, "
-              f"dkv {dkv:.5f} ms", flush=True)
+        print(f"time {name} (8, 1024, 12, 64) {name16} causal: dq "
+              f"{dq:.5f} ms, dkv {dkv:.5f} ms", flush=True)
     args = cs._flash_bwd_inputs(*wide, True, seed=6)
     for name in libs:
         _build._LIBS["flash_attention_bwd"] = libs[name]
         dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args))[0]
         dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args))[0]
-        print(f"time {name} (8, 1024, 6, 128) bf16 causal: dq {dq:.5f} ms, "
-              f"dkv {dkv:.5f} ms", flush=True)
+        print(f"time {name} (8, 1024, 6, 128) {name16} causal: dq "
+              f"{dq:.5f} ms, dkv {dkv:.5f} ms", flush=True)
     _build._LIBS.pop("flash_attention_bwd")
 
 

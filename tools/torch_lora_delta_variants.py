@@ -49,14 +49,20 @@ import chip_smoke as cs  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import lora_delta as ld  # noqa: E402
 
-XA = """    if (p.fast) {
+XA = """    if constexpr (sizeof(T) == 2) {
+      if (p.fast) {
+        tile_xa16<T, true>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
+      } else {
+        tile_xa16<T, false>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
+      }
+    } else if (p.fast) {
       tile_xa<true>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
     } else {
       tile_xa<false>(part_w, x0, A, p, kb, nrows, warp, nw, lane, then);
     }"""
 XA_SKIPPED = """    then();
     for (int o = lane; o < kTileRows * kRankBlock; o += 32) part_w[o] = 0.01;"""
-TB = "      mma_bf16(c, a0, transpose8(bp[j][0]), transpose8(bp[j][1]));\n"
+TB = "      mma16<T>(c, a0, transpose8(bp[j][0]), transpose8(bp[j][1]));\n"
 TB_SKIPPED = "      c[0] = a0[0]; c[1] = bp[j][0]; c[2] = a0[1]; c[3] = bp[j][1];\n"
 
 # name -> ((old, new) substitutions, computes the delta)

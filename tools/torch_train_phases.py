@@ -2,8 +2,8 @@
 
     python3 tools/torch_train_phases.py [phase ...]
 
-phases: train_amp, train_optimizers, train_scaler, train_resume (all of
-them, in that order, by default). Builds the kernels, checks the AdamW
+phases: train_amp, train_optimizers, train_scaler, train_resume,
+train_fp16 (all of them, in that order, by default). Builds the kernels, checks the AdamW
 update kernel against its twin (its time is train_optimizers' yardstick),
 then runs each phase as `chip_smoke.py` does and prints its wall time
 (~100 s of command time for all four on an H100). A fresh process, so
@@ -27,7 +27,8 @@ def main():
     phases = {"train_amp": cs.train_amp,
               "train_optimizers": lambda: cs.train_optimizers(row["ms"]),
               "train_scaler": cs.train_scaler,
-              "train_resume": cs.train_resume}
+              "train_resume": cs.train_resume,
+              "train_fp16": cs.train_fp16}
     for name in sys.argv[1:] or list(phases):
         t = time.perf_counter()
         phases[name]()
