@@ -270,6 +270,7 @@ from __future__ import annotations
 
 import copy
 import ctypes
+import gc
 import json
 import os
 import re
@@ -676,57 +677,71 @@ def _time_flash(q, k, v, err):
                      f"{str(q.dtype)[6:]} causal"}
 
 
-def check_flash():
+def check_flash(dtype=torch.bfloat16):
+    """The flash forward against its fp32 twin over its cases, then timed
+    at the serving and training shapes beside SDPA: bf16 (``dtype``'s
+    default) with the fp32 cases first, or float16 (F16: its row is
+    named by `_row_name`)."""
+    f16 = dtype == F16
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
-        for n in (40, 1024):
+    for dt in (dtype,) if f16 else (torch.float32, dtype):
+        name = str(dt)[6:]
+        for n in (8, 40, 65, 1024) if f16 else (40, 1024):
             for causal in (True, False):
-                errs[dtype, n, causal] = _check_flash_case(
+                errs[dt, n, causal] = _check_flash_case(
                     f"flash {name} n={n} causal={causal}",
-                    *_fused_qkv(n, dtype, seed=n), causal)
+                    *_fused_qkv(n, dt, seed=60 + n if f16 else n), causal)
         # the training path's batch 8 at its shape, and a ragged batch 3:
         # every block past the first batch reads at its batch stride
-        errs[dtype, "train"] = _check_flash_case(
+        errs[dt, "train"] = _check_flash_case(
             f"flash {name} (8, 1024, {HEADS}, {HEAD_DIM}) causal=True",
-            *_fused_qkv(1024, dtype, seed=11, batch=8), True)
-        _check_flash_case(f"flash {name} (3, 40, {HEADS}, {HEAD_DIM}) "
-                          "causal=False",
-                          *_fused_qkv(40, dtype, seed=10, batch=3), False)
+            *_fused_qkv(1024, dt, seed=11, batch=8), True)
+        if not f16:
+            _check_flash_case(f"flash {name} (3, 40, {HEADS}, {HEAD_DIM}) "
+                              "causal=False",
+                              *_fused_qkv(40, dt, seed=10, batch=3), False)
         # off the serving path but compiled in: head_dim 128, and
         # non-causal attention over more keys than queries
         _check_flash_case(f"flash {name} n=40 causal=True D=128",
-                          *_fused_qkv(40, dtype, seed=7, heads=4,
+                          *_fused_qkv(40, dt, seed=7, heads=4,
                                       head_dim=128), True)
-        q = _fused_qkv(40, dtype, seed=8)[0]
-        _, k, v = _fused_qkv(100, dtype, seed=9)
+        q = _fused_qkv(40, dt, seed=8)[0]
+        _, k, v = _fused_qkv(100, dt, seed=9)
         _check_flash_case(f"flash {name} n=40 m=100 causal=False", q, k, v,
                           False)
-    dtype = torch.bfloat16
-    # bf16 tile edges and a length that is no power of two: TMA's zero
-    # fill past n and the diagonal mask at every offset within a tile (8,
-    # 16: the smallest prefill buckets)
-    for n in (8, 16, 17, 64, 65, 1000):
-        for causal in (True, False):
-            _check_flash_case(f"flash bfloat16 n={n} causal={causal}",
-                              *_fused_qkv(n, dtype, seed=30 + n), causal)
+    name = str(dtype)[6:]
+    if not f16:
+        # bf16 tile edges and a length that is no power of two: TMA's zero
+        # fill past n and the diagonal mask at every offset within a tile
+        # (8, 16: the smallest prefill buckets)
+        for n in (8, 16, 17, 64, 65, 1000):
+            for causal in (True, False):
+                _check_flash_case(f"flash bfloat16 n={n} causal={causal}",
+                                  *_fused_qkv(n, dtype, seed=30 + n), causal)
     # k and v at 16-byte aligned, non-zero offsets into a wider buffer
-    _check_flash_case("flash bfloat16 n=200 causal=True k, v offset views",
-                      *_offset_qkv(200, seed=31), True)
-    # main-path shapes, bf16 causal: the serving path's 1024 prefill bucket
+    _check_flash_case(f"flash {name} n=200 causal=True k, v offset views",
+                      *_offset_qkv(200, seed=31, dtype=dtype), True)
+    # main-path shapes, causal: the serving path's 1024 prefill bucket
     # (the row's numbers) and the training path's batch of 8 x 1024
     # (`at_train_shape`)
     row = _time_flash(*_fused_qkv(1024, dtype, seed=1024),
                       errs[dtype, 1024, True])
     row["at_train_shape"] = _time_flash(
         *_fused_qkv(1024, dtype, seed=11, batch=8), errs[dtype, "train"])
+    row.update(route="cuda",
+               source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
+               replaces="paddle_tpu/kernels/flash_attention.py:90 "
+                        "_fwd_kernel")
+    if f16:
+        row.update(name=_row_name("flash_attention_fwd", F16),
+                   counter="flash_attention_fwd")
+        print(f"  flash float16 fwd ms: serve {row['ms']:.4f}, train "
+              f"{row['at_train_shape']['ms']:.4f}")
+        return row
     print(f"  flash bfloat16 fwd ms: serve {row['ms']:.4f}, train "
           f"{row['at_train_shape']['ms']:.4f}; the earlier design, written "
           f"in, not measured in this run: {json.dumps(FLASH_FWD_PREV_MS)}")
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "paddle_tpu/kernels/flash_attention.py:90 _fwd_kernel",
-            **row}
+    return {"name": "flash_attention_fwd", **row}
 
 
 def _paged_state(layers, lens, dtype, seed, slots=8, bs=16, m=64,
@@ -1491,47 +1506,105 @@ def _flash_bwd_bound(b, n, h, d, elem, causal, dkv):
     return _bound_ms(nbytes, (8 if dkv else 6) * d * pairs, torch.bfloat16)
 
 
-def check_flash_bwd():
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
+def _check_f16_large_do():
+    """The f16 backward's large-dO cases (F16_LARGE_DO): |dP - Delta|
+    past 10^4 and, non-causal, |dS| past 65504 while the fp32 twin's
+    gradients fit in f16, so the kernels' dS factor has to act; the
+    outputs must be finite and within the f16 criteria."""
+    for causal, (q_gain, k_gain, gain) in F16_LARGE_DO.items():
+        shape = (1, 128, HEADS, HEAD_DIM)
+        q, k, v = _f16_numpy(shape, 21, 3)
+        q, k = (q.float() * q_gain).to(F16), (k.float() * k_gain).to(F16)
+        (do,) = _f16_numpy(shape, 22, 1, gain)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        delta = fa.flash_attention_delta(out, do)
+        args = (q, k, v, do, lse, delta, causal, 0.125)
+        _, _, _, p_, ds = fa._bwd_probs(*args)
+        dp_delta = float((ds.abs() / p_.clamp_min(1e-30))[p_ > 1e-3].max())
+        ds_max = float(ds.abs().max())
+        del p_, ds
+        refs = [fa.flash_attention_bwd_dq_reference(*args),
+                *fa.flash_attention_bwd_dkv_reference(*args)]
+        fits = all(float(r.float().abs().max()) < 65504.0 for r in refs)
+        print(f"  flash bwd float16 large dO (q x {q_gain}, k x {k_gain}, "
+              f"dO x {gain}, causal={causal}): max |dP - Delta| "
+              f"{dp_delta:.1f}, max |dS| {ds_max:.1f} (f16's largest "
+              f"65504); the fp32 twin's dQ, dK, dV "
+              f"{'fit' if fits else 'do not fit'} in f16")
+        assert dp_delta >= 1e4 and fits, (dp_delta, fits)
+        assert causal or ds_max > 65504.0, ds_max
+        dq = fa.flash_attention_bwd_dq(*args)
+        dk, dv = fa.flash_attention_bwd_dkv(*args)
+        tols = fa.flash_bwd_f16_tol(*args)
+        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+            tag = f"flash bwd float16 large dO causal={causal} {name}"
+            assert bool(torch.isfinite(got.float()).all()), tag
+            _close(tag, got, want, tols[name])
+            fro = fa.rel_fro(got, want)
+            print(f"  {tag}: relative Frobenius error {fro:.3e} (at most "
+                  f"{fa.FLASH_BWD_F16_FRO_RTOL})")
+            assert fro <= fa.FLASH_BWD_F16_FRO_RTOL, (tag, fro)
+
+
+def check_flash_bwd(dtype=torch.bfloat16):
+    """dQ and dK/dV against their fp32 twins over their cases, then timed
+    at the training shape beside SDPA's backward (dQ, dK and dV in one
+    call): bf16 (``dtype``'s default) with the fp32 cases first, or
+    float16 (F16) with the large-dO cases (the dS factor's) and a dO gain
+    at the training shape; its rows are named by `_row_name`."""
+    f16 = dtype == F16
+    for dt in (dtype,) if f16 else (torch.float32, dtype):
+        name = str(dt)[6:]
         for n in (40, 1024):
             for causal in (True, False):
                 _check_flash_bwd_case(f"flash bwd {name} n={n} causal={causal}",
-                                      *_fused_qkv(n, dtype, seed=n), causal)
+                                      *_fused_qkv(n, dt, seed=n), causal)
         _check_flash_bwd_case(f"flash bwd {name} n=40 causal=True D=128",
-                              *_fused_qkv(40, dtype, seed=7, heads=4,
+                              *_fused_qkv(40, dt, seed=7, heads=4,
                                           head_dim=128), True)
         _check_flash_bwd_case(f"flash bwd {name} (3, 40, {HEADS}, "
                               f"{HEAD_DIM}) causal=False",
-                              *_fused_qkv(40, dtype, seed=10, batch=3), False)
-        q = _fused_qkv(40, dtype, seed=8)[0]
-        _, k, v = _fused_qkv(100, dtype, seed=9)
-        _check_flash_bwd_case(f"flash bwd {name} n=40 m=100 causal=False", q,
-                              k, v, False)
-    dtype = torch.bfloat16
-    # bf16 tile edges and a length that is no power of two: TMA's zero
-    # fill past n, the masks of the diagonal and edge tiles, D = 128 at a
-    # ragged length, k and v at 16-byte aligned offsets into a wider buffer
-    for n in (8, 64, 65, 1000):
-        for causal in (True, False):
-            _check_flash_bwd_case(f"flash bwd bfloat16 n={n} causal={causal}",
-                                  *_fused_qkv(n, dtype, seed=30 + n), causal)
-    _check_flash_bwd_case("flash bwd bfloat16 n=200 causal=False D=128",
-                          *_fused_qkv(200, dtype, seed=32, heads=4,
-                                      head_dim=128), False)
-    _check_flash_bwd_case("flash bwd bfloat16 n=200 causal=True k, v offset "
-                          "views", *_offset_qkv(200, seed=31), True)
-    _check_flash_bwd_refuses_misaligned_do()
-    # main-path shape: a training step's attention, causal; fp32 here, bf16
-    # below with the timings
-    _check_flash_bwd_case(f"flash bwd float32 (8, 1024, {HEADS}, {HEAD_DIM}) "
-                          "causal",
-                          *_fused_qkv(1024, torch.float32, seed=11, batch=8),
-                          True, seed=12)
-    b, n, dtype = 8, 1024, torch.bfloat16
+                              *_fused_qkv(40, dt, seed=10, batch=3), False)
+        if not f16:
+            q = _fused_qkv(40, dt, seed=8)[0]
+            _, k, v = _fused_qkv(100, dt, seed=9)
+            _check_flash_bwd_case(f"flash bwd {name} n=40 m=100 "
+                                  "causal=False", q, k, v, False)
+    name = str(dtype)[6:]
+    if not f16:
+        # bf16 tile edges and a length that is no power of two: TMA's zero
+        # fill past n, the masks of the diagonal and edge tiles, D = 128 at
+        # a ragged length
+        for n in (8, 64, 65, 1000):
+            for causal in (True, False):
+                _check_flash_bwd_case(
+                    f"flash bwd bfloat16 n={n} causal={causal}",
+                    *_fused_qkv(n, dtype, seed=30 + n), causal)
+        _check_flash_bwd_case("flash bwd bfloat16 n=200 causal=False D=128",
+                              *_fused_qkv(200, dtype, seed=32, heads=4,
+                                          head_dim=128), False)
+    # k and v at 16-byte aligned offsets into a wider buffer
+    _check_flash_bwd_case(f"flash bwd {name} n=200 causal=True k, v offset "
+                          "views", *_offset_qkv(200, seed=31, dtype=dtype),
+                          True)
+    _check_flash_bwd_refuses_misaligned_do(dtype)
+    b, n = 8, 1024
     q, k, v = _fused_qkv(n, dtype, seed=11, batch=b)
+    if f16:
+        _check_f16_large_do()
+        _check_flash_bwd_case(f"flash bwd float16 ({b}, {n}) causal, dO "
+                              f"gain {F16_TRAIN_DO_GAIN}", q, k, v, True,
+                              seed=12, gain=F16_TRAIN_DO_GAIN)
+    else:
+        # main-path shape: a training step's attention, causal; fp32 here,
+        # bf16 below with the timings
+        _check_flash_bwd_case(f"flash bwd float32 ({b}, {n}, {HEADS}, "
+                              f"{HEAD_DIM}) causal",
+                              *_fused_qkv(n, torch.float32, seed=11,
+                                          batch=b), True, seed=12)
+    short = "float16" if f16 else "bf16"
     err_dq, err_dkv = _check_flash_bwd_case(
-        f"flash bwd bf16 ({b}, {n}, {HEADS}, {HEAD_DIM}) causal", q, k, v,
+        f"flash bwd {short} ({b}, {n}, {HEADS}, {HEAD_DIM}) causal", q, k, v,
         True, seed=12)
     args = _flash_bwd_inputs(q, k, v, True, seed=12)
     # yardstick: SDPA's backward, one call for dQ, dK and dV together
@@ -1542,7 +1615,7 @@ def check_flash_bwd():
     lib_do = args[3].transpose(1, 2)
     library_ms = _cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), lib_do, retain_graph=True))
-    shape = f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) bf16 causal"
+    shape = f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) {short} causal"
     pairs = b * HEADS * (n * (n + 1) // 2)
     rows = []
     for dkv, fn, ref, err in (
@@ -1550,32 +1623,44 @@ def check_flash_bwd():
              fa.flash_attention_bwd_dq_reference, err_dq),
             (True, fa.flash_attention_bwd_dkv,
              fa.flash_attention_bwd_dkv_reference, err_dkv)):
-        bound, by = _flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv)
-        kind = "dkv" if dkv else "dq"
-        ms, host_ms = _timed(lambda: fn(*args))
-        flops = (8 if dkv else 6) * HEAD_DIM * pairs
-        rows.append({
-            "name": f"flash_attention_bwd_{kind}", "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": ("paddle_tpu/kernels/flash_attention.py:223 "
-                         "_dkv_kernel" if dkv else
-                         "paddle_tpu/kernels/flash_attention.py:184 "
-                         "_dq_kernel"),
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "plain_ms": _cuda_ms(lambda: ref(*args), iters=5),
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-            "tflops": flops / (ms * 1e-3) / 1e12,
-            "tile": "64 rows per CTA (1 consumer warpgroup) x 64-row "
-                    "streamed tiles, 3-stage ring",
-            "shape": shape})
+        bound = _flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv)
+        counter = f"flash_attention_bwd_{'dkv' if dkv else 'dq'}"
+        replaces = "paddle_tpu/kernels/flash_attention.py:" + (
+            "223 _dkv_kernel" if dkv else "184 _dq_kernel")
+        if f16:
+            row = _f16_row(
+                _row_name(counter, F16), counter,
+                "paddle_tpu_torch/csrc/flash_attention_bwd.cu", replaces,
+                lambda fn=fn: fn(*args), lambda ref=ref: ref(*args), None, 0,
+                0, err, shape,
+                note="library_ms: SDPA's backward in f16 (dQ, dK and dV in "
+                     "one call)", bound=bound)
+            row["library_ms"] = library_ms
+        else:
+            ms, host_ms = _timed(lambda: fn(*args))
+            row = {
+                "name": counter, "route": "cuda",
+                "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+                "replaces": replaces, "max_abs_err": err, "ms": ms,
+                "host_ms": host_ms,
+                "plain_ms": _cuda_ms(lambda: ref(*args), iters=5),
+                "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": library_ms,
+                "tile": "64 rows per CTA (1 consumer warpgroup) x 64-row "
+                        "streamed tiles, 3-stage ring",
+                "shape": shape}
+        row["tflops"] = (8 if dkv else 6) * HEAD_DIM * pairs \
+            / (row["ms"] * 1e-3) / 1e12
+        rows.append(row)
     pair_ms = rows[0]["ms"] + rows[1]["ms"]
-    print(f"  flash bwd bf16 pair at the training shape: dq "
+    print(f"  flash bwd {short} pair at the training shape: dq "
           f"{rows[0]['ms']:.4f} + dkv {rows[1]['ms']:.4f} = {pair_ms:.4f} ms; "
           f"SDPA's backward (dQ, dK, dV in one call) {library_ms:.4f} ms: "
           f"{pair_ms / library_ms:.3f}x")
-    print("  flash bwd bf16, the earlier design, written in, not measured in "
-          f"this run: {json.dumps(FLASH_BWD_PREV_MS)}; per training step "
-          f"{json.dumps(TRAIN_BWD_GROUPS_PREV_MS)}")
+    if not f16:
+        print("  flash bwd bf16, the earlier design, written in, not measured "
+              f"in this run: {json.dumps(FLASH_BWD_PREV_MS)}; per training "
+              f"step {json.dumps(TRAIN_BWD_GROUPS_PREV_MS)}")
     return rows
 
 
@@ -4812,6 +4897,10 @@ def train_amp(batch=8, seq=1024, dtype="bfloat16"):
     tag = "train_amp" if dtype == "bfloat16" else "train_fp16"
     try:
         for level in ("O1", "O2"):
+            # the phase's own peak: what earlier phases left to the cyclic
+            # collector (their engines and models, patched methods) goes
+            # first
+            gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             graph, eager = _amp_pair(cfg, level, dtype)
@@ -5350,126 +5439,6 @@ def _f16_row(name, counter, source, replaces, kernel, twin, library, nbytes,
     return row
 
 
-def _check_f16_flash():
-    """The f16 flash forward and backward against their fp32 twins
-    (`flash_fwd_f16_tol`, `flash_bwd_f16_tol` and the Frobenius limits)
-    over the bf16 kernels' cases, the large-dO cases, and timed at the
-    serving and training shapes beside SDPA in f16."""
-    errs = {}
-    for n in (8, 40, 65, 1024):
-        for causal in (True, False):
-            errs[n, causal] = _check_flash_case(
-                f"flash float16 n={n} causal={causal}",
-                *_fused_qkv(n, F16, seed=60 + n), causal)
-    errs["train"] = _check_flash_case(
-        f"flash float16 (8, 1024, {HEADS}, {HEAD_DIM}) causal=True",
-        *_fused_qkv(1024, F16, seed=11, batch=8), True)
-    _check_flash_case("flash float16 n=40 causal=True D=128",
-                      *_fused_qkv(40, F16, seed=7, heads=4, head_dim=128),
-                      True)
-    q = _fused_qkv(40, F16, seed=8)[0]
-    _, k, v = _fused_qkv(100, F16, seed=9)
-    _check_flash_case("flash float16 n=40 m=100 causal=False", q, k, v, False)
-    _check_flash_case("flash float16 n=200 causal=True k, v offset views",
-                      *_offset_qkv(200, seed=31, dtype=F16), True)
-    fwd = _time_flash(*_fused_qkv(1024, F16, seed=1024), errs[1024, True])
-    fwd["at_train_shape"] = _time_flash(
-        *_fused_qkv(1024, F16, seed=11, batch=8), errs["train"])
-    fwd.update(name=_row_name("flash_attention_fwd", F16),
-               counter="flash_attention_fwd",
-               source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-               replaces="paddle_tpu/kernels/flash_attention.py:90 "
-                        "_fwd_kernel", route="cuda")
-    print(f"  flash float16 fwd ms: serve {fwd['ms']:.4f}, train "
-          f"{fwd['at_train_shape']['ms']:.4f}")
-    for n in (40, 1024):
-        for causal in (True, False):
-            _check_flash_bwd_case(f"flash bwd float16 n={n} causal={causal}",
-                                  *_fused_qkv(n, F16, seed=n), causal)
-    _check_flash_bwd_case("flash bwd float16 n=40 causal=True D=128",
-                          *_fused_qkv(40, F16, seed=7, heads=4,
-                                      head_dim=128), True)
-    _check_flash_bwd_case(f"flash bwd float16 (3, 40, {HEADS}, {HEAD_DIM}) "
-                          "causal=False",
-                          *_fused_qkv(40, F16, seed=10, batch=3), False)
-    _check_flash_bwd_case("flash bwd float16 n=200 causal=True k, v offset "
-                          "views", *_offset_qkv(200, seed=31, dtype=F16),
-                          True)
-    _check_flash_bwd_refuses_misaligned_do(F16)
-    for causal, (q_gain, k_gain, gain) in F16_LARGE_DO.items():
-        shape = (1, 128, HEADS, HEAD_DIM)
-        q, k, v = _f16_numpy(shape, 21, 3)
-        q, k = (q.float() * q_gain).to(F16), (k.float() * k_gain).to(F16)
-        (do,) = _f16_numpy(shape, 22, 1, gain)
-        out, lse = fa.flash_attention_fwd(q, k, v, causal)
-        delta = fa.flash_attention_delta(out, do)
-        args = (q, k, v, do, lse, delta, causal, 0.125)
-        _, _, _, p_, ds = fa._bwd_probs(*args)
-        dp_delta = float((ds.abs() / p_.clamp_min(1e-30))[p_ > 1e-3].max())
-        ds_max = float(ds.abs().max())
-        del p_, ds
-        refs = [fa.flash_attention_bwd_dq_reference(*args),
-                *fa.flash_attention_bwd_dkv_reference(*args)]
-        fits = all(float(r.float().abs().max()) < 65504.0 for r in refs)
-        print(f"  flash bwd float16 large dO (q x {q_gain}, k x {k_gain}, "
-              f"dO x {gain}, causal={causal}): max |dP - Delta| "
-              f"{dp_delta:.1f}, max |dS| {ds_max:.1f} (f16's largest "
-              f"65504); the fp32 twin's dQ, dK, dV "
-              f"{'fit' if fits else 'do not fit'} in f16")
-        assert dp_delta >= 1e4 and fits, (dp_delta, fits)
-        assert causal or ds_max > 65504.0, ds_max
-        dq = fa.flash_attention_bwd_dq(*args)
-        dk, dv = fa.flash_attention_bwd_dkv(*args)
-        tols = fa.flash_bwd_f16_tol(*args)
-        for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-            tag = f"flash bwd float16 large dO causal={causal} {name}"
-            assert bool(torch.isfinite(got.float()).all()), tag
-            _close(tag, got, want, tols[name])
-            fro = fa.rel_fro(got, want)
-            print(f"  {tag}: relative Frobenius error {fro:.3e} (at most "
-                  f"{fa.FLASH_BWD_F16_FRO_RTOL})")
-            assert fro <= fa.FLASH_BWD_F16_FRO_RTOL, (tag, fro)
-    b, n = 8, 1024
-    q, k, v = _fused_qkv(n, F16, seed=11, batch=b)
-    _check_flash_bwd_case(f"flash bwd float16 ({b}, {n}) causal, dO gain "
-                          f"{F16_TRAIN_DO_GAIN}", q, k, v, True, seed=12,
-                          gain=F16_TRAIN_DO_GAIN)
-    err_dq, err_dkv = _check_flash_bwd_case(
-        f"flash bwd float16 ({b}, {n}, {HEADS}, {HEAD_DIM}) causal", q, k, v,
-        True, seed=12)
-    args = _flash_bwd_inputs(q, k, v, True, seed=12)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    lib_out = torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True)
-    lib_do = args[3].transpose(1, 2)
-    library_ms = _cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), lib_do, retain_graph=True))
-    pairs = b * HEADS * (n * (n + 1) // 2)
-    rows = [fwd]
-    for dkv, fn, ref, err in (
-            (False, fa.flash_attention_bwd_dq,
-             fa.flash_attention_bwd_dq_reference, err_dq),
-            (True, fa.flash_attention_bwd_dkv,
-             fa.flash_attention_bwd_dkv_reference, err_dkv)):
-        counter = f"flash_attention_bwd_{'dkv' if dkv else 'dq'}"
-        row = _f16_row(
-            _row_name(counter, F16), counter,
-            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
-            "paddle_tpu/kernels/flash_attention.py:" + (
-                "223 _dkv_kernel" if dkv else "184 _dq_kernel"),
-            lambda fn=fn: fn(*args), lambda ref=ref: ref(*args), None, 0, 0,
-            err, f"q,k,v,dO ({b}, {n}, {HEADS}, {HEAD_DIM}) float16 causal",
-            note="library_ms: SDPA's backward in f16 (dQ, dK and dV in one "
-                 "call)",
-            bound=_flash_bwd_bound(b, n, HEADS, HEAD_DIM, 2, True, dkv))
-        row["library_ms"] = library_ms
-        row["tflops"] = (8 if dkv else 6) * HEAD_DIM * pairs \
-            / (row["ms"] * 1e-3) / 1e12
-        rows.append(row)
-    return rows
-
-
 def _check_f16_paged():
     """The fused decode step in f16: f16 q over f16 pools and over int8
     pools against the twin (`_check_append_case`: pools bit for bit, 50
@@ -5779,8 +5748,8 @@ def check_float16():
     kernels). Returns {path: rows}, each row's launches to be read from
     that path's run."""
     t0 = time.perf_counter()
-    flash = _check_f16_flash()
-    rows = {"serve_fp16": [flash[0]], "train_fp16": flash[1:]}
+    rows = {"serve_fp16": [check_flash(F16)],
+            "train_fp16": check_flash_bwd(F16)}
     for part in (_check_f16_paged(), _check_f16_scatter()):
         for path, more in part.items():
             rows.setdefault(path, []).extend(more)
@@ -5947,6 +5916,18 @@ def train_fp16(batch=8, seq=1024):
     return paths
 
 
+def _phase_memory(phase):
+    """After `phase`: the device memory still allocated once the cyclic
+    collector has run (what the script or the port holds into the next
+    phase), beside what was allocated before the collection."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"memory after {phase}: {torch.cuda.memory_allocated() / 2**30:.3f}"
+          f" GiB allocated ({before / 2**30:.3f} before gc.collect)",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is "
@@ -5992,30 +5973,46 @@ def main():
             "generate": [check_keyed_draw_rows()]}
     for path, more in check_float16().items():
         rows.setdefault(path, []).extend(more)
+    _phase_memory("the kernels phase")
     paths = {}
     paths["serve"], bf16_greedy, model = serve()
+    _phase_memory("serve")
     paths["serve_int8"] = serve_int8(bf16_greedy)
+    _phase_memory("serve_int8")
     paths["serve_pipelined"] = serve_pipelined(model)
     paths["serve_pipelined_int8"] = serve_pipelined(model, kv_dtype="int8")
     del model
+    _phase_memory("serve_pipelined (both)")
     paths["serve_tenancy"] = serve_tenancy()
+    _phase_memory("serve_tenancy")
     paths.update(serve_kv_mixed())
+    _phase_memory("serve_kv_mixed")
     paths["generate"] = generate_phase()
+    _phase_memory("generate")
     paths["serve_resilience"] = serve_resilience()
+    _phase_memory("serve_resilience")
     serve_resume()
     parity()
     parity(kv_dtype="int8")
+    _phase_memory("serve_resume, parity")
     paths["train"] = train()
+    _phase_memory("train")
     train_parity()
+    _phase_memory("train_parity")
     paths["train_amp"] = train_amp()["O1"]
+    _phase_memory("train_amp")
     adamw_row = next(row for row in rows["train"]
                      if row["name"] == "adam_update")
     train_optimizers(adamw_row["ms"])
+    _phase_memory("train_optimizers")
     paths["train_scaler"] = train_scaler()
     paths["train_resume"] = train_resume()
     paths["fused_ln"] = fused_ln_phase()
+    _phase_memory("train_scaler, train_resume, fused_ln")
     paths.update(serve_fp16())
+    _phase_memory("serve_fp16")
     paths.update(train_fp16())
+    _phase_memory("train_fp16")
     paths["fused_ln_fp16"] = fused_ln_phase(dtype=F16)
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and

@@ -73,7 +73,20 @@
 //     before the rounding, the row's accumulator is rescaled when it
 //     drops, and the row's output is divided by it. Powers of two are
 //     exact, so where no row passes kDsMax the result is that of the plain
-//     rounding (`fit_f16`). bf16 has fp32's range and skips it.
+//     rounding. The guard costs almost nothing while no factor drops: a
+//     warp (16 whole rows) whose rows are all at factor 1 forms dS as
+//     bf16 does, keeping each thread's largest |dS| on the way, and takes
+//     one vote: is any value at least kF16Round (32760), that is, would
+//     any round to 2^15 or more in f16 (a necessary condition of |dS| >
+//     kDsMax)? Only then, and on every tile once one of its rows has
+//     dropped its factor, does the warp take the row maxima and drop
+//     factors (`fit_f16`); the dQ kernel folds the factors into the
+//     product that forms dS. The outputs are those of the fit on every
+//     tile, bit for bit. The test runs on the fp32 values before the
+//     packing: a vote on the packed values has to hold both sets through
+//     it, and that cost more registers than its shorter reduction saved
+//     (tools/torch_flash_bwd_variants.py, `packed_test`). bf16 has
+//     fp32's range and skips it.
 //
 // fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): the first design,
 // products in fp32 FMA on the CUDA cores, kept by design: the fp32 checks on
@@ -454,38 +467,46 @@ __device__ __forceinline__ void pack(uint32_t (&dst)[16],
 
 // f16's dS ceiling: a row's |dS| times its ds_mul stays at most this
 constexpr float kDsMax = 32768.f;
+// the least magnitude that rounds to 2^15 or more in f16 (the midpoint of
+// 32752 and 2^15 rounds to the even 2^15): the guard's common-path test,
+// a necessary condition of |dS| > kDsMax
+constexpr float kF16Round = 32760.f;
 
-// f16 only: this thread's values of a 64 x 64 tile of dS (rows row0 and
-// row0 + 8: element i is row (i / 2) % 2, the accumulator layout; the 4
-// lanes of a row are adjacent) times each row's power of two mul[r],
-// which drops first, with the row of the 64 x N accumulator `acc`, where
-// the tile's |dS| of that row times mul[r] passes kDsMax
+// f16 only, the guard's rare path: this thread's values of a 64 x 64 tile
+// of dS (rows row0 and row0 + 8: element i is row (i / 2) % 2, the
+// accumulator layout; the 4 lanes of a row are adjacent), each row already
+// times its power of two mul[r]. Where the tile's |dS| of row r passes
+// kDsMax, mul[r] drops by the largest power of two that brings it under,
+// and the row of ds and of the 64 x N accumulator `acc` is multiplied by
+// the drop. Returns whether a row of the warp is below factor 1 (the same
+// in every lane).
 template <int N>
-__device__ __forceinline__ void fit_f16(float (&ds)[32], float (&mul)[2],
+__device__ __forceinline__ bool fit_f16(float (&ds)[32], float (&mul)[2],
                                         float (&acc)[N]) {
   float mx[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
     mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], fabsf(ds[i]));
   }
+  float f[2] = {1.f, 1.f};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float big = mx[r] * mul[r];
-    if (big > kDsMax) {        // the same in the row's 4 lanes
+    if (mx[r] > kDsMax) {      // the same in the row's 4 lanes
       int e;
-      frexpf(big / kDsMax, &e);            // big / kDsMax <= 2^e
-      const float f = ldexpf(1.f, -e);
-      mul[r] *= f;
+      frexpf(mx[r] / kDsMax, &e);          // mx / kDsMax <= 2^e
+      f[r] = ldexpf(1.f, -e);
+      mul[r] *= f[r];
 #pragma unroll
       for (int i = 0; i < N; ++i) {
-        if ((i / 2) % 2 == r) acc[i] *= f;
+        if ((i / 2) % 2 == r) acc[i] *= f[r];
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) ds[i] *= mul[(i / 2) % 2];
+  for (int i = 0; i < 32; ++i) ds[i] *= f[(i / 2) % 2];
+  return __any_sync(0xffffffffu, mul[0] != 1.f || mul[1] != 1.f);
 }
 
 // rows `row0` and `row0 + 8` of a 64 x D accumulator, times mul[0] and
@@ -508,8 +529,12 @@ __device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
   }
 }
 
+// CTAs an SM that ptxas leaves room for: at D = 64, bf16 takes 3 dQ CTAs
+// and 2 dK/dV CTAs without being told; f16 is told so, since ptxas would
+// otherwise spend registers on the dS guard past that
 template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
+__global__ void
+__launch_bounds__(kWgmmaThreads, kIsHalf<T> && D == 64 ? 3 : 1)
 flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
@@ -594,6 +619,7 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   float dp[32];        // dP of the tile
   uint32_t da[16];     // dS / scale (times ds_mul), T pairs
   float ds_mul[2] = {1.f, 1.f};   // f16: the rows' dS factors (fit_f16)
+  bool scaled = false;   // f16: a row of the warp is below factor 1
   const uint32_t q_addr = smem_u32(sm.q[0]);
   const uint32_t g_addr = smem_u32(sm.g[0]);
 
@@ -642,9 +668,27 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     wgmma_wait<0>();
     fence_regs(dp);
+    if constexpr (kIsHalf<T>) {
+      // f16: each row's factor in the product that forms its dS (at
+      // factor 1 the same rounding as below; a power of two is exact),
+      // and this thread's largest |dS| on the way; one vote of the warp
+      // takes the fit where a value would round to 2^15 or more, and on
+      // every tile once a row of the warp is below factor 1
+      const float ndlt[2] = {-dlt[0] * ds_mul[0], -dlt[1] * ds_mul[1]};
+      float big = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
-    if constexpr (kIsHalf<T>) fit_f16(sc, ds_mul, dq_acc);
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] *= fmaf(dp[i], ds_mul[r], ndlt[r]);
+        big = fmaxf(big, fabsf(sc[i]));
+      }
+      if (__any_sync(0xffffffffu, scaled || big >= kF16Round)) {
+        scaled = fit_f16(sc, ds_mul, dq_acc);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
+    }
     pack<T>(da, sc);
     wgmma_fence();
     issue_dq(j);
@@ -660,7 +704,8 @@ flash_bwd_dq_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
 }
 
 template <typename T, int D, bool kCausal>
-__global__ void __launch_bounds__(kWgmmaThreads, 1)
+__global__ void
+__launch_bounds__(kWgmmaThreads, kIsHalf<T> && D == 64 ? 2 : 1)
 flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
@@ -752,6 +797,7 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   uint32_t pa[16];     // P^T, T pairs
   uint32_t da[16];     // dS^T / scale (times ds_mul), T pairs
   float ds_mul[2] = {1.f, 1.f};   // f16: the key rows' dS factors
+  bool scaled = false;   // f16: a key row of the warp is below factor 1
   const uint32_t k_addr = smem_u32(sm.k[0]);
   const uint32_t v_addr = smem_u32(sm.v[0]);
 
@@ -808,12 +854,29 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
     }
     wgmma_wait<0>();
     fence_regs(dp);
+    if constexpr (kIsHalf<T>) {
+      // f16: the dQ kernel's guard, the rows' factors applied in the fit
+      // alone (Delta is by column here, so in the product that forms
+      // dS^T they would cost a multiply a value on every tile)
+      float big = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int col = 8 * (i / 4) + col0 + (i % 2);
-      dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + col0 + (i % 2);
+        dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+        big = fmaxf(big, fabsf(dp[i]));
+      }
+      if (__any_sync(0xffffffffu, scaled || big >= kF16Round)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] *= ds_mul[(i / 2) % 2];
+        scaled = fit_f16(dp, ds_mul, dk_acc);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + col0 + (i % 2);
+        dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+      }
     }
-    if constexpr (kIsHalf<T>) fit_f16(dp, ds_mul, dk_acc);
     pack<T>(pa, sc);
     pack<T>(da, dp);
     wgmma_fence();

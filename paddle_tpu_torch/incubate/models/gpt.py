@@ -31,6 +31,7 @@ from collections import OrderedDict
 from dataclasses import dataclass
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -410,7 +411,11 @@ class _Generation:
         b, p, n_new, self.sampled, self.top_k, self.top_p, self.temp = sig
         cfg = model.config
         w = model.gpt.wte.weight
-        self.model, self.b, self.p, self.n_new = model, b, p, n_new
+        # weakly: the model's `_gen_cache` holds this program, so a strong
+        # reference would make a cycle that keeps the model, its buffers
+        # and its graph alive past its last user reference
+        self._model = weakref.ref(model)
+        self.b, self.p, self.n_new = b, p, n_new
         head_dim = cfg.hidden_size // cfg.num_attention_heads
         shape = (cfg.num_hidden_layers, b, p + n_new,
                  cfg.num_attention_heads, head_dim)
@@ -423,6 +428,10 @@ class _Generation:
         self.ones = torch.ones(b, dtype=torch.float32, device=w.device)
         self.graph = None
         self.launched = None
+
+    @property
+    def model(self):
+        return self._model()
 
     def pick(self, logits, step):
         """Each row's next token, int32 ``[B]``, from fp32-able logits

@@ -174,6 +174,7 @@ import contextlib
 import functools
 import math
 import time
+import weakref
 import zlib
 from collections import deque
 
@@ -194,6 +195,21 @@ from .scheduler import (Request, Scheduler, RUNNING, FINISHED, FAILED,
 from .tenancy import AdapterSet, PrefixCache
 
 __all__ = ["LLMEngine", "ServeStats"]
+
+
+def _weak_method(method):
+    """`method`, a bound method of an engine, as a function that holds the
+    engine weakly: a program the engine keeps (the CPU's decode and
+    prefill programs call its methods) then makes no reference cycle with
+    it, so its pools go with its last reference, not at the next cyclic
+    collection."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        return ref()(*args, **kwargs)
+
+    return call
+
 
 # recent step-time samples averaged into the admission-time wait estimate
 _EST_WINDOW = 32
@@ -1397,9 +1413,11 @@ class LLMEngine:
         full head's (``sampled``) or the greedy head's."""
         self._stats.prefill_compiles += 1
         caches = self._model.gen_caches(1)
-        forward = functools.partial(self._prefill_forward, bucket, caches)
+        forward = functools.partial(_weak_method(self._prefill_forward),
+                                    bucket, caches)
         head_fns = {} if self._prefill_heads is not None else {
-            sampled: functools.partial(self._prefill_head, sampled)
+            sampled: functools.partial(_weak_method(self._prefill_head),
+                                       sampled)
             for sampled in (True, False)}
         self._stage_prefill((), np.zeros(self.max_blocks_per_seq, np.int32),
                             self.max_batch_size, 0.0, 0, 1.0, 1.0, 0, 0)
@@ -1558,8 +1576,8 @@ class LLMEngine:
         views = self._paged_views(*slots[1:4])
         self._stats.decode_compiles += 1
         if self.device.type != "cuda":
-            self._decode_program = functools.partial(self._decode_code, slots,
-                                                     views)
+            self._decode_program = functools.partial(
+                _weak_method(self._decode_code), slots, views)
             return
         if warm:
             def step():

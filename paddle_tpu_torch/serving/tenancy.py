@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 import zlib
 
 import numpy as np
@@ -302,9 +303,15 @@ def _targets(model):
 def _hook(model, layer, tname):
     """The forward hook of one target projection: with the model armed
     (`AdapterSet.arm`), add each row's delta to the output in place; else
-    leave it untouched."""
+    leave it untouched. The hook holds the model weakly: the model holds
+    the hook, and a strong reference would keep the model (its weights,
+    its `generate` programs) alive past its last user reference, until
+    the next cyclic collection."""
+    owner = weakref.ref(model)
+
     def hook(module, inputs, output):
-        armed = model._tenancy_armed
+        model = owner()
+        armed = None if model is None else model._tenancy_armed
         if armed is None:
             return None
         ad, idx = armed

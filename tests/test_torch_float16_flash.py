@@ -13,14 +13,18 @@ once with numpy and fed to both.
     the fp32 paths within 1e-4;
   * the f16 kernels' own arithmetic in plain torch (P and dS rounded to f16
     before the tensor cores, subnormals included; dS under the kernels'
-    per-row power-of-two factor, `fit_f16` in csrc/flash_attention_bwd.cu)
+    per-row power-of-two factor and its guard, `f16_big` and `fit_f16` in
+    csrc/flash_attention_bwd.cu, `_fit_rows` here)
     passes the f16 criteria (`flash_fwd_f16_tol`, `flash_bwd_f16_tol` and
     the Frobenius limits) with margin against the JAX package's fp32
     attention, and fails them when P and dS keep 3 mantissa bits;
   * a dO large enough that dS passes f16's largest value (65504) where
     dQ, dK and dV still fit (a GradScaler's scaled loss): dS rounded to
     f16 as it is overflows, the kernels' factor keeps every gradient
-    finite and within the criteria.
+    finite and within the criteria;
+  * the guard's rule at its edges (2^15 in f16 rounding and in fp32,
+    65504, inf; the fp32 test against the packed f16 bits), the plain rounding where no tile triggers it, and the
+    earlier design's outputs (`_fit_rows_fp32`) wherever rows drop.
 The card holds the kernels themselves to the same criteria
 (`chip_smoke.py`).
 """
@@ -177,19 +181,83 @@ def test_f16_forward_criteria_bite_on_p_rounding(n, d, causal, gain):
     assert fro > 1, (excess, fro)
 
 
-def _fit_rows(ds, round_op, tile=64):
+# the f16 kernels' dS guard (csrc/flash_attention_bwd.cu): kDsMax, the
+# least magnitude that rounds to 2^15 or more in f16 (kF16Round), the rows
+# of a warp, and the f16 bits of 2^15
+KDS_MAX = 2.0 ** 15
+F16_ROUND = 32760.0
+WARP_ROWS = 16
+F16_2_15 = 0x7800
+
+
+def _vote_rows(y):
+    """The kernels' test, by row of `y` [..., rows, cols]: whether a value
+    of the row has magnitude kF16Round or more, that is, would round to
+    2^15 or more in f16 (NaN aside: fmaxf passes it over)."""
+    return (y.abs() >= F16_ROUND).any(-1)
+
+
+def _f16_big(y):
+    """The same test on the values packed to f16, as a vote on the packed
+    words would read their bits: |h| + 0x0800 sets bit 15."""
+    bits = y.to(torch.float16).view(torch.int16).to(torch.int32) & 0x7FFF
+    return ((bits + (0x8000 - F16_2_15)) & 0x8000).ne(0).any(-1)
+
+
+def _warp_any(flags, warp=WARP_ROWS):
+    """`flags` [..., rows] -> whether any row of each row's warp holds
+    it: rows in groups of 16 from the first, as the kernels' four warps
+    take a 64-row tile (one vote a warp)."""
+    rows = flags.shape[-1]
+    pad = flags.new_zeros(*flags.shape[:-1], -rows % warp)
+    grouped = torch.cat([flags, pad], -1).unflatten(-1, (-1, warp))
+    return grouped.any(-1, keepdim=True).expand_as(grouped) \
+        .flatten(-2)[..., :rows]
+
+
+def _fit_rows(ds, round_op, tile=64, factors=None):
     """dS as the f16 kernels hand it to the tensor cores, in fp32: rows
-    streamed in tiles of 64 along the last dimension, each row's
-    power-of-two factor dropping where a tile's |dS| times it passes 2^15
-    (`fit_f16`); each tile rounded at the factor of its turn, then divided
-    back (exact: powers of two)."""
+    streamed in tiles of 64 along the last dimension, in warps of 16
+    rows. Each row keeps a power-of-two factor, 1 at first; a tile's
+    values of a row are formed times it (`y`). A warp with every row at
+    factor 1 tests y (`_vote_rows`) and takes one vote; where no row
+    finds a value it goes on, else, and on every tile once a row
+    of the warp is below factor 1 (`scaled`), each row whose fp32 |y|
+    passes 2^15 (kDsMax) drops its factor by the largest power of two that
+    brings it under (`fit_f16`; frexp of inf gives 1: an inf dS stays
+    inf). Each tile is rounded by `round_op` at the factor of its turn,
+    then divided back (exact: powers of two). A list `factors` gets the
+    rows' factors after each tile."""
+    out = torch.empty_like(ds)
+    mul = torch.ones(ds.shape[:-1])
+    scaled = torch.zeros(ds.shape[:-1], dtype=torch.bool)
+    for t0 in range(0, ds.shape[-1], tile):
+        y = ds[..., t0:t0 + tile] * mul[..., None]
+        fit = scaled | _warp_any(_vote_rows(y))
+        big = y.abs().amax(-1)
+        _, e = torch.frexp(big / KDS_MAX)
+        f = torch.where(fit & (big > KDS_MAX),
+                        torch.ldexp(torch.ones_like(mul), -e),
+                        torch.ones_like(mul))
+        mul = mul * f
+        scaled = _warp_any(mul != 1)
+        if factors is not None:
+            factors.append(mul)
+        out[..., t0:t0 + tile] = round_op(y * f[..., None]) / mul[..., None]
+    return out
+
+
+def _fit_rows_fp32(ds, round_op, tile=64):
+    """The earlier design's dS (its `fit_f16` on every tile): each row's
+    factor drops where a tile's fp32 |dS| times it passes 2^15, with no
+    packed test before."""
     out = torch.empty_like(ds)
     mul = torch.ones(ds.shape[:-1])
     for t0 in range(0, ds.shape[-1], tile):
         blk = ds[..., t0:t0 + tile]
         big = blk.abs().amax(-1) * mul
-        _, e = torch.frexp(big / 2.0 ** 15)
-        mul = torch.where(big > 2.0 ** 15,
+        _, e = torch.frexp(big / KDS_MAX)
+        mul = torch.where(big > KDS_MAX,
                           mul * torch.ldexp(torch.ones_like(mul), -e), mul)
         out[..., t0:t0 + tile] = round_op(blk * mul[..., None]) \
             / mul[..., None]
@@ -295,6 +363,104 @@ def test_f16_backward_large_do_needs_the_ds_factor(causal):
         assert bool(torch.isfinite(got.float()).all()), name
         excess, fro = _bwd_criteria(name, got, r, tols)
         assert excess <= 0.5 and fro <= 0.75, (name, excess, fro)
+
+
+# the guard at its edges: a value of dS, then whether the packed test
+# fires, the row's factor after the tile, and the value handed back (its
+# f16 rounding at that factor, divided back)
+GUARD_EDGES = [
+    (32759.998046875, False, 1.0, 32752.0),   # rounds below 2^15
+    (32760.0, True, 1.0, 32768.0),            # rounds to 2^15; fp32 not over
+    (32768.0, True, 1.0, 32768.0),            # 2^15 itself: not over
+    (32768.00390625, True, 0.5, 32768.0),     # just over 2^15 in fp32
+    (65504.0, True, 0.5, 65504.0),            # f16's largest
+    (65520.0, True, 0.5, 65536.0),            # rounds to inf in f16
+    (float("inf"), True, 1.0, float("inf")),  # inf stays inf
+]
+
+
+@pytest.mark.parametrize("value,vote,mul,back", GUARD_EDGES)
+def test_f16_guard_rule_at_its_edges(value, vote, mul, back):
+    """One tile of two warps (32 rows of 64 values of 1.5), the edge value
+    in row 3: the test fires for row 3 exactly where f16 rounding reaches
+    2^15 (as the rounded value's magnitude and the packed bits say too),
+    row 3's factor drops only where its fp32 value passes
+    2^15 as well, its warp's other rows and the other warp keep factor 1
+    and the plain rounding, and the next tile runs at the dropped factor
+    (1000 there rounds as it does at factor 1: powers of two are exact)."""
+    ds = torch.full((32, 128), 1.5)
+    ds[3, 5] = value
+    ds[3, 70] = 1000.0                   # the second tile, row 3
+    y = ds[:, :64]
+    assert _vote_rows(y).tolist() == [i == 3 and vote for i in range(32)]
+    rounded = y.to(torch.float16).float().abs()
+    assert _vote_rows(y).tolist() == (rounded >= KDS_MAX).any(-1).tolist()
+    assert _f16_big(y).tolist() == _vote_rows(y).tolist()
+    factors = []
+    out = _fit_rows(ds, _round_f16, factors=factors)
+    assert [f.tolist() for f in factors] == \
+        [[mul if i == 3 else 1.0 for i in range(32)]] * 2
+    assert float(out[3, 5]) == back
+    plain = _round_f16(ds)
+    rest = torch.ones_like(ds, dtype=torch.bool)
+    rest[3, 5] = False
+    assert torch.equal(out[rest], plain[rest])
+    assert float(out[3, 70]) == 1000.0
+
+
+def test_f16_guard_vote_is_necessary_for_a_drop():
+    """Over a dense sweep of fp32 values around 2^15 and 65504 (and up to
+    2^17), the test fires exactly where the value rounds to 2^15 or more
+    in f16 (the packed bits say the same), and every value whose fp32
+    magnitude passes 2^15 (the drop rule) fires it: the vote never hides
+    a drop."""
+    grid = torch.cat([torch.linspace(32700, 32800, 20001),
+                      torch.linspace(65400, 65600, 20001),
+                      torch.linspace(2.0 ** 14, 2.0 ** 17, 40001)])
+    vals = torch.cat([grid, -grid])
+    fires = _vote_rows(vals[:, None])
+    rounded = vals.to(torch.float16).float().abs()
+    assert fires.tolist() == (rounded >= KDS_MAX).tolist()
+    assert fires.tolist() == _f16_big(vals[:, None]).tolist()
+    assert bool(fires[vals.abs() > KDS_MAX].all())
+
+
+@pytest.mark.parametrize("rows", [16, 40])
+def test_f16_guard_is_the_plain_rounding_without_a_trigger(rows):
+    """Where no tile's value rounds to 2^15 (the common path: the
+    packed words go to the tensor cores as bf16's do), and where one
+    rounds to 2^15 without passing it in fp32, the fitted dS equals the
+    plain f16 rounding bit for bit."""
+    rng = np.random.default_rng(rows)
+    ds = torch.from_numpy((rng.standard_normal((1, 2, rows, 200)) * 3000)
+                          .astype(np.float32))
+    assert float(ds.abs().max()) < 32760.0
+    assert torch.equal(_fit_rows(ds, _round_f16), _round_f16(ds))
+    ds[0, 1, rows - 1, 150] = 32768.0
+    ds[0, 0, 2, 10] = -32760.0
+    assert torch.equal(_fit_rows(ds, _round_f16), _round_f16(ds))
+
+
+@pytest.mark.parametrize("gain", [1.0, 300.0, 3000.0, 12000.0])
+@pytest.mark.parametrize("causal", [True, False])
+def test_f16_guard_matches_the_fp32_rule_wherever_rows_drop(causal, gain):
+    """The test and vote decide only whether a warp looks at its fp32 row
+    maxima, so dQ's and dK's operands equal the earlier design's
+    (`_fit_rows_fp32`: the fp32 rule on every tile) bit for bit at every
+    gain, also where rows drop their factor (the larger gains)."""
+    n, d = 256, 64
+    q, k, v = _f16((1, n, 2, d), seed=31)
+    q = (q.float() * 2).to(torch.float16)
+    (g,) = _f16((1, n, 2, d), seed=32, count=1, gain=gain)
+    args, _ = _bwd_case(q, k, v, g, causal, 1.0 / math.sqrt(d))
+    _, _, _, _, ds = tfa._bwd_probs(*args)
+    drops = 0
+    for rows in (ds, ds.transpose(-1, -2)):
+        got = _fit_rows(rows, _round_f16)
+        want = _fit_rows_fp32(rows, _round_f16)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        drops += int((rows.abs().amax(-1) > KDS_MAX).sum())
+    assert (drops > 0) == (gain >= 12000.0), drops
 
 
 def test_f16_criteria_are_bf16_s_scaled_by_the_unit_roundoff():

@@ -6,12 +6,18 @@ card.
 
 Builds variants of ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` side by
 side with nvcc under ``build/flash_bwd_variants/`` and prints what ptxas
-says of their wgmma kernels (registers, spills, serialized wgmma):
+says of their wgmma kernels (registers, spills, serialized wgmma) and, for
+the f16 kernels, their SASS instructions by mnemonic:
 
   source     the file as it is: both kernels under
              ``__launch_bounds__(160, 1)`` take their tiles in sequence and
              commit the two score products apart, so that P's exponentials
-             run while the second product is on the tensor cores;
+             run while the second product is on the tensor cores; in f16
+             at D = 64 under (160, 3) (dQ) and (160, 2) (dK/dV), the dS
+             guard keeps each thread's largest |dS| while forming it and
+             takes one warp vote (any |dS| >= 32760: would round to 2^15
+             or more), the fp32 row maxima only where the vote or an
+             earlier drop asks for them;
   piped2     the first design: each kernel pipelined across tiles (tile j's
              score products issued with tile j-1's accumulating ones), dQ
              under (160, 2), dK/dV under (160, 2) at D = 64 and (160, 1) at
@@ -21,13 +27,28 @@ says of their wgmma kernels (registers, spills, serialized wgmma):
              together;
   dv_early   as source, with dV += P^T dO issued as soon as P^T is packed,
              so that dS^T is computed while it runs;
-  no_fit     as source without the f16 kernels' dS row factor (`fit_f16`):
-             the same code in bf16; in f16 what the factor costs (it is
-             right only while no |dS| passes 65504, as at these cases).
+  fit_pr20   the earlier f16 dS guard (its text is held here,
+             `_FIT_PR20`) under (160, 1): the fp32 row max, 4 shuffles and
+             32 multiplies on every tile; the loop variants above carry it
+             too;
+  packed_test  as source with the vote on the packed f16 values (a packed
+             max in two chains, `_F16_BIG`), the fp32 values held through
+             it for the fit;
+  source_free  as source under (160, 1), ptxas left free;
+  no_fit     as source without the f16 dS guard, under (160, 1): the same
+             code in bf16; in f16 what the guard costs (it is right only
+             while no |dS| passes 65504).
+
+bf16 builds source, the loop variants and no_fit. ``--dtype float16``
+builds source, fit_pr20, packed_test, source_free and no_fit; it also holds source's outputs to fit_pr20's bit for
+bit at the training shape and at a dO gain that makes rows drop their
+factor (`DROP_GAIN`, where it also says how many rows pass 2^15), and
+times the three variants there too.
 
 Each variant is held against the plain twins with `chip_smoke.py`'s
 criteria for the type, then dQ and dK/dV are timed at the training shape
-(8, 1024, 12, 64) causal in turns (each variant, then in reverse) within one
+(8, 1024, 12, 64) causal in turns (each variant, then in reverse) with
+SDPA's backward of the same type (dQ, dK and dV in one call) within one
 process, and at D = 128 ((8, 1024, 6, 128)) once each. The card's name and
 power limit come first. Needs a Hopper card, nvcc and the repository's
 root as the working directory.
@@ -51,6 +72,9 @@ from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
 CSRC = ROOT / "paddle_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "flash_bwd_variants"
+# the dO gain of the f16 case whose rows drop their dS factor: the
+# training-shape check's gain (F16_TRAIN_DO_GAIN) times 40
+DROP_GAIN = cs.F16_TRAIN_DO_GAIN * 40
 _BOUNDS = re.compile(r"__launch_bounds__\(kWgmmaThreads, [^)]*\)\n"
                      r"(flash_bwd_(dq|dkv)_kernel_wgmma)")
 _DQ_LOOP = re.compile(r"  // Tile by tile: S and dP are committed apart.*?"
@@ -181,8 +205,140 @@ def _sequence(wait, scores, elementwise, pack, accumulate, fences):
 """
 
 
-_FIT_DQ = "    if constexpr (kIsHalf<T>) fit_f16(sc, ds_mul, dq_acc);\n"
-_FIT_DKV = "    if constexpr (kIsHalf<T>) fit_f16(dp, ds_mul, dk_acc);\n"
+# the f16 dS guard before the packed test (its function and its two call
+# sites, as they stood): the fp32 row max on every tile
+_FIT_PR20 = """// f16 only: this thread's values of a 64 x 64 tile of dS (rows row0 and
+// row0 + 8: element i is row (i / 2) % 2, the accumulator layout; the 4
+// lanes of a row are adjacent) times each row's power of two mul[r],
+// which drops first, with the row of the 64 x N accumulator `acc`, where
+// the tile's |dS| of that row times mul[r] passes kDsMax
+template <int N>
+__device__ __forceinline__ void fit_f16_pr20(float (&ds)[32],
+                                             float (&mul)[2],
+                                             float (&acc)[N]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], fabsf(ds[i]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float big = mx[r] * mul[r];
+    if (big > kDsMax) {        // the same in the row's 4 lanes
+      int e;
+      frexpf(big / kDsMax, &e);            // big / kDsMax <= 2^e
+      const float f = ldexpf(1.f, -e);
+      mul[r] *= f;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        if ((i / 2) % 2 == r) acc[i] *= f;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) ds[i] *= mul[(i / 2) % 2];
+}
+
+"""
+_FIT_DQ = "    if constexpr (kIsHalf<T>) fit_f16_pr20(sc, ds_mul, dq_acc);\n"
+_FIT_DKV = "    if constexpr (kIsHalf<T>) fit_f16_pr20(dp, ds_mul, dk_acc);\n"
+_DQ_PLAIN = """#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
+"""
+_DKV_PLAIN = """#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+    }
+"""
+# the test on the packed values (`packed_test`): the f16 pairs'
+# magnitudes by packed max in two chains, then bit 15 of each half plus
+# 0x0800
+_F16_BIG = """// f16 only, the guard's common path: whether any of this thread's 16
+// packed f16 pairs holds a value of magnitude 2^15 or more (inf and NaN
+// too). Any |dS| > kDsMax rounds to such a value, so where no lane of a
+// warp finds one, no row of the warp needs a smaller factor. The pairs'
+// magnitudes are reduced by packed max (HMNMX2 with |.|) in two chains
+// (one register each: the words stay live as the next product's
+// operand); a half of the max is >= 2^15 (bits 0x7800) when adding
+// 0x0800 to it sets its bit 15 (no carry leaves a half: at most 0x7fff +
+// 0x0800).
+__device__ __forceinline__ bool f16_big(const uint32_t (&w)[16]) {
+  const __half2* h = reinterpret_cast<const __half2*>(w);
+  __half2 m0 = __habs2(h[0]);
+  __half2 m1 = __habs2(h[1]);
+#pragma unroll
+  for (int i = 2; i < 16; i += 2) {
+    m0 = __hmax2(m0, __habs2(h[i]));
+    m1 = __hmax2(m1, __habs2(h[i + 1]));
+  }
+  const __half2 m = __hmax2(m0, m1);
+  const uint32_t bits = *reinterpret_cast<const uint32_t*>(&m);
+  return ((bits + 0x08000800u) & 0x80008000u) != 0u;
+}
+
+"""
+# each design's code between a kernel's `fence_regs(dp);` after the score
+# products and its accumulating products, by kernel
+_REGIONS = {
+    "fit_pr20": {"dq": _DQ_PLAIN + _FIT_DQ + "    pack<T>(da, sc);\n",
+                 "dkv": _DKV_PLAIN + _FIT_DKV
+                 + "    pack<T>(pa, sc);\n    pack<T>(da, dp);\n"},
+    "no_fit": {"dq": _DQ_PLAIN + "    pack<T>(da, sc);\n",
+               "dkv": _DKV_PLAIN + "    pack<T>(pa, sc);\n"
+                      "    pack<T>(da, dp);\n"},
+    "packed_test": {"dq": """    if constexpr (kIsHalf<T>) {
+      // f16: each row's factor in the product that forms its dS (at
+      // factor 1 the same rounding as below; a power of two is exact)
+      const float ndlt[2] = {-dlt[0] * ds_mul[0], -dlt[1] * ds_mul[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] *= fmaf(dp[i], ds_mul[r], ndlt[r]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
+    }
+    pack<T>(da, sc);
+    if constexpr (kIsHalf<T>) {
+      // f16: one vote of the warp over its packed values; the fit and a
+      // second packing where a value reaches 2^15, and on every tile once
+      // a row of the warp is below factor 1
+      if (__any_sync(0xffffffffu, scaled || f16_big(da))) {
+        scaled = fit_f16(sc, ds_mul, dq_acc);
+        pack<T>(da, sc);
+      }
+    }
+""", "dkv": """#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int col = 8 * (i / 4) + col0 + (i % 2);
+      dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+    }
+    pack<T>(pa, sc);
+    pack<T>(da, dp);
+    if constexpr (kIsHalf<T>) {
+      // f16: the dQ kernel's guard, the rows' factors applied in it alone
+      // (Delta is by column here, so in the product that forms dS^T they
+      // would cost a multiply a value on every tile)
+      if (__any_sync(0xffffffffu, scaled || f16_big(da))) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] *= ds_mul[(i / 2) % 2];
+        scaled = fit_f16(dp, ds_mul, dk_acc);
+        pack<T>(da, dp);
+      }
+    }
+"""},}
+_HELPERS = {"fit_pr20": _FIT_PR20, "packed_test": _F16_BIG}
+# a kernel's region: from `fence_regs(dp);` (not crossing another) to its
+# accumulating products
+_REGION = {k: re.compile(r"(    fence_regs\(dp\);\n)((?:(?!fence_regs\(dp\)).)*?)"
+                         rf"(    wgmma_fence\(\);\n    issue_{k}\(j\);)", re.S)
+           for k in ("dq", "dkv")}
+# where a held helper goes: before the kernels' store helper
+_FIT_AT = "// rows `row0` and `row0 + 8` of a 64 x D accumulator"
 _DQ = ("mbar_wait(&sm.qg_full, 0);", ("wait_kv", _dq_scores), _dq_grad,
        _FIT_DQ + "    pack<T>(da, sc);\n", "issue_dq",
        "    fence_regs(dq_acc);\n")
@@ -229,8 +385,8 @@ def _bounds(src, dq, dkv):
     return out
 
 
-def _sub(pattern, src, text):
-    out, count = pattern.subn(lambda _: text, src)
+def _sub(pattern, src, text, fn=None):
+    out, count = pattern.subn(fn or (lambda _: text), src)
     assert count == 1, count
     return out
 
@@ -241,19 +397,67 @@ def _loops(src, kind):
     return _sub(_DKV_LOOP, _sub(_DQ_LOOP, src, kind(*_DQ)), kind(*_DKV))
 
 
-def variants():
+def _design(src, name):
+    """`src` with both kernels' dS code written as design `name` (a key
+    of _REGIONS) and the design's helper before the store helper."""
+    for kernel, pattern in _REGION.items():
+        src = _sub(pattern, src, None, lambda m, k=kernel: m.group(1)
+                   + _REGIONS[name][k] + m.group(3))
+    if name in _HELPERS:
+        assert src.count(_FIT_AT) == 1
+        src = src.replace(_FIT_AT, _HELPERS[name] + _FIT_AT)
+    return src
+
+
+def variants(half):
+    """name -> source text: in f16 (`half`) source, the other designs of
+    the guard, source_free and no_fit; in bf16 source, the loop variants
+    and no_fit."""
     src = (CSRC / "flash_attention_bwd.cu").read_text()
-    piped1 = _loops(src, _pipelined)
-    no_fit = src
-    for line in (_FIT_DQ, _FIT_DKV):
-        assert no_fit.count(line) == 1, line
-        no_fit = no_fit.replace(line, "")
-    return {"source": src,
-            "piped2": _bounds(piped1, "2", "D == 64 ? 2 : 1"),
-            "piped1": piped1,
-            "sequence": _loops(src, _sequence),
-            "dv_early": _sub(_DKV_LOOP, src, _DV_EARLY),
-            "no_fit": no_fit}
+    pr20 = _design(src, "fit_pr20")
+    out = {"source": src}
+    if half:
+        # the earlier designs under the bounds they were measured with
+        out["fit_pr20"] = _bounds(_design(src, "fit_pr20"), "1", "1")
+        out["packed_test"] = _design(src, "packed_test")
+        # ptxas left free: every wgmma kernel under (160, 1)
+        out["source_free"] = _bounds(src, "1", "1")
+    else:
+        piped1 = _loops(pr20, _pipelined)
+        out.update(piped2=_bounds(piped1, "2", "D == 64 ? 2 : 1"),
+                   piped1=piped1, sequence=_loops(pr20, _sequence),
+                   dv_early=_sub(_DKV_LOOP, pr20, _DV_EARLY))
+    out["no_fit"] = _bounds(_design(src, "no_fit"), "1", "1")
+    return out
+
+
+_SASS_OPS = ("HMNMX2", "VOTE", "SHFL", "FMNMX", "FMUL", "FFMA", "F2FP",
+             "HGMMA", "BRA")
+
+
+def _sass(name, lib):
+    """Instructions of the f16 wgmma kernels of `lib` by mnemonic (those
+    of _SASS_OPS), or a note where the toolkit has no cuobjdump."""
+    tool = _build.toolkit_tool("cuobjdump")
+    if tool is None:
+        print(f"sass {name}: not available (no cuobjdump)")
+        return
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    for part in sass.split("Function :")[1:]:
+        head = part.splitlines()[0]
+        found = re.search(r"flash_bwd_(dq|dkv)_kernel_wgmmaI6__halfLi(\d+)"
+                          r"ELb(\d)", head)
+        if not found:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_.]+)", part)
+        counts = {op: sum(o.split(".")[0] == op for o in ops)
+                  for op in _SASS_OPS}
+        print(f"sass {name}: {found.group(1)} half D={found.group(2)} "
+              f"causal={found.group(3)}: {len(ops)} instructions, "
+              + ", ".join(f"{op} {n}" for op, n in counts.items()),
+              flush=True)
 
 
 def build(sources):
@@ -271,7 +475,10 @@ def build(sources):
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
+            if name == "source":
+                raise RuntimeError(f"{name}: nvcc failed\n{log}")
+            print(f"build {name}: nvcc failed, left out\n{log[-2000:]}")
+            continue
         kernel = None
         for line in log.splitlines():
             found = re.search(r"flash_bwd_(dq|dkv)_kernel_wgmmaI\w*?"
@@ -292,35 +499,117 @@ def build(sources):
     return libs
 
 
+def _outputs(args):
+    dq = fa.flash_attention_bwd_dq(*args)
+    dk, dv = fa.flash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    return dq, dk, dv
+
+
+def _same_bits(libs, a, b, args, tag):
+    """Whether variants `a` and `b` give dQ, dK and dV of equal bits."""
+    got = {}
+    for name in (a, b):
+        _build._LIBS["flash_attention_bwd"] = libs[name]
+        got[name] = _outputs(args)
+    differ = [int((x.view(torch.int16) != y.view(torch.int16)).sum())
+              for x, y in zip(got[a], got[b])]
+    print(f"bits {a} vs {b} {tag}: differing elements of dq, dk, dv "
+          f"{differ} of {got[a][0].numel()} each", flush=True)
+    assert differ == [0, 0, 0], (tag, differ)
+
+
+def _drop_case(libs, train):
+    """The training shape with dO times DROP_GAIN: how many rows pass 2^15,
+    whether the twin's gradients fit in f16, source against fit_pr20 bit
+    for bit (and against the twins where they fit), then the variants
+    timed in turns."""
+    args = cs._flash_bwd_inputs(*train, True, seed=12, gain=DROP_GAIN)
+    _, _, _, _, ds = fa._bwd_probs(*args)
+    big = ds.abs()
+    rows_q = int((big.amax(-1) > 2.0 ** 15).sum())
+    rows_k = int((big.amax(-2) > 2.0 ** 15).sum())
+    ds_max = float(big.max())
+    del ds, big
+    refs = [fa.flash_attention_bwd_dq_reference(*args),
+            *fa.flash_attention_bwd_dkv_reference(*args)]
+    fits = all(float(r.float().abs().max()) < 65504.0 for r in refs)
+    del refs
+    tag = f"(8, 1024, 12, 64) causal, dO x {DROP_GAIN}"
+    print(f"drop case {tag}: max |dS / scale| {ds_max:.1f}; rows past 2^15: "
+          f"{rows_q} query rows (dQ), {rows_k} key rows (dK) of "
+          f"{8 * 12 * 1024} each; the twin's dq, dk, dv "
+          f"{'fit' if fits else 'do not fit'} in f16", flush=True)
+    if fits:
+        for name in ("source", "fit_pr20"):
+            _build._LIBS["flash_attention_bwd"] = libs[name]
+            cs._check_flash_bwd_case(f"{name} {tag}", *train, True, seed=12,
+                                     gain=DROP_GAIN)
+    _same_bits(libs, "source", "fit_pr20", args, tag)
+    for name in list(libs) + list(libs)[::-1]:
+        _build._LIBS["flash_attention_bwd"] = libs[name]
+        dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args), iters=50)[0]
+        dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args),
+                        iters=50)[0]
+        print(f"time {name} {tag}: dq {dq:.5f} ms, dkv {dkv:.5f} ms"
+              + (" (outputs not finite: no guard)" if name == "no_fit"
+                 else ""), flush=True)
+
+
+def _sdpa_bwd(args):
+    """A function that runs SDPA's backward (dQ, dK and dV in one call) on
+    the case's q, k, v and dO."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in args[:3])
+    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
+                                                           is_causal=True)
+    do = args[3].transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
+                                       retain_graph=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     print(f"card: {cs._card()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
-    libs = build(variants())
-    bf16 = torch.float16 if sys.argv[1:] == ["--dtype", "float16"] \
-        else torch.bfloat16
-    name16 = str(bf16)[6:]
-    train = cs._fused_qkv(1024, bf16, seed=11, batch=8)
-    wide = cs._fused_qkv(1024, bf16, seed=5, heads=6, head_dim=128, batch=8)
+    half = sys.argv[1:] == ["--dtype", "float16"]
+    libs = build(variants(half))
+    if half:
+        for name in libs:
+            _sass(name, OUT / f"lib{name}.so")
+    dtype = torch.float16 if half else torch.bfloat16
+    name16 = str(dtype)[6:]
+    train = cs._fused_qkv(1024, dtype, seed=11, batch=8)
+    wide = cs._fused_qkv(1024, dtype, seed=5, heads=6, head_dim=128, batch=8)
     for name, lib in libs.items():
         _build._LIBS["flash_attention_bwd"] = lib
         cs._check_flash_bwd_case(f"{name} n=65 causal",
-                                 *cs._fused_qkv(65, bf16, seed=95), True)
+                                 *cs._fused_qkv(65, dtype, seed=95), True)
         cs._check_flash_bwd_case(f"{name} D=128 n=200",
-                                 *cs._fused_qkv(200, bf16, seed=32, heads=4,
+                                 *cs._fused_qkv(200, dtype, seed=32, heads=4,
                                                 head_dim=128), False)
         cs._check_flash_bwd_case(f"{name} (8, 1024, 12, 64) causal", *train,
                                  True, seed=12)
     args = cs._flash_bwd_inputs(*train, True, seed=12)
+    if half:
+        _same_bits(libs, "source", "fit_pr20", args, "(8, 1024, 12, 64) "
+                   "causal")
+    sdpa = _sdpa_bwd(args)
     order = list(libs) + list(libs)[::-1]
     for name in order:
         _build._LIBS["flash_attention_bwd"] = libs[name]
         dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args), iters=50)[0]
         dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args),
                         iters=50)[0]
+        lib = cs._timed(sdpa, iters=50)[0]
         print(f"time {name} (8, 1024, 12, 64) {name16} causal: dq "
-              f"{dq:.5f} ms, dkv {dkv:.5f} ms", flush=True)
+              f"{dq:.5f} ms, dkv {dkv:.5f} ms, pair {dq + dkv:.5f} ms; "
+              f"SDPA's backward {lib:.5f} ms: {(dq + dkv) / lib:.3f}x",
+              flush=True)
+    del sdpa
+    if half:
+        _drop_case(libs, train)
     args = cs._flash_bwd_inputs(*wide, True, seed=6)
     for name in libs:
         _build._LIBS["flash_attention_bwd"] = libs[name]
