@@ -60,7 +60,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                lists (fp32 and bf16 without masters, aligned and
                misaligned, a decay-skip set): parameters, masters and
                moments bit for bit with the twin over 3 steps, timed
-               beside PyTorch's fused AdamW (another formula); the
+               beside PyTorch's fused AdamW (another formula); its guard
+               forms (the probe, the update gated on the flag) bit for
+               bit with the twin's on the same lists and at GPT-2 124M,
+               with finite gradients, a NaN gradient and an lr of inf;
+               the guard's multi-tensor finite check (with and without
+               the unscale) and guarded copy on ragged, misaligned lists
+               of fp32, bf16 and f16, bit for bit with their twins, timed
+               at the train_guard path's GPT-2 124M shapes; the
                prompt's K/V scatter (every layer in one launch, fp and
                int8 pools) at buckets 16, 128 and 1024 with the forward's
                strided views, lengths 1, 15, 16, 17, 128, 990 and 1024, a
@@ -222,7 +229,20 @@ Phases, in order; any failure raises and the script exits non-zero:
                kernel row; train_scaler — an eager GradScaler loop under
                O1: an inf in one gradient moves no parameter or
                accumulator, the loss scale follows the reference's
-               transition at every step; train_resume — a child process
+               transition at every step; train_guard — the numeric
+               guard (FLAGS_check_numerics): an eager AdamW
+               (multi_precision) bf16 loop and the same through
+               TrainStep's graph, an inf gradient (in the graph through a
+               device scalar its backward reads) and an lr of inf (finite
+               gradients) each a bitwise no-op on every parameter, master
+               and moment, steps_skipped counting them; the O1 GradScaler
+               loop (fp32 weights, Momentum: the guard's check and copy
+               kernels) whose scaler.step and scaler.update raise nothing
+               under set_sync_debug_mode("error"), the scale by the
+               reference's rule; one FLAGS_check_nan_inf step naming the
+               op its NaN came out of; the guarded graph against the
+               unguarded one in turns (step p50, device ms);
+               train_resume — a child process
                trains 4 steps under a StepCheckpointer and is killed
                (SIGKILL), a fresh one restores and runs steps 5-8: losses
                and parameters bit for bit with an uninterrupted run;
@@ -256,10 +276,11 @@ The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
 draw, the sampler's filter, the prompt's K/V scatter, the adapter delta),
 the training kernels (flash backward dQ and dK/dV, fused cross-entropy
-forward and backward, the AdamW update) and the fused bias-residual
+forward and backward, the AdamW update and its guard forms, the guard's
+finite check and copy) and the fused bias-residual
 LayerNorm within FLASH_TOL / PAGED_TOL / PAGED_INT8_TOL / CE_LOSS_TOL /
-CE_GRAD_TOL / LN_TOL / `lora_delta_tol` (the decode write, the scatter and
-the update exactly), and the
+CE_GRAD_TOL / LN_TOL / `lora_delta_tol` (the decode write, the scatter,
+the update and the guard's kernels exactly), and the
 bf16 flash forward and backward within their own
 stated criteria (kept beside the kernels in
 `paddle_tpu_torch/kernels/flash_attention.py`). The script then prints one
@@ -290,12 +311,13 @@ from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               gpt2_124m)
 from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.kernels import (_build, capture_graph,
+from paddle_tpu_torch.kernels import (_build, add_launches, capture_graph,
                                       cross_entropy as ce,
                                       flash_attention as fa, fused_ln as fln,
                                       launch_counts, paged_attention as pa,
                                       reset_launch_counts, warm_up)
 from paddle_tpu_torch.kernels import adam_update as au
+from paddle_tpu_torch.kernels import finite_check as fc
 from paddle_tpu_torch.kernels._dtype import SHORT_NAMES
 from paddle_tpu_torch.kernels import keyed_draw as kd
 from paddle_tpu_torch.kernels import kv_append as kva
@@ -303,7 +325,7 @@ from paddle_tpu_torch.kernels import lora_delta as ld
 from paddle_tpu_torch.kernels import prefill_scatter as ps
 from paddle_tpu_torch.kernels import sampler_filter as sf
 from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-from paddle_tpu_torch.ops import guardian
+from paddle_tpu_torch.ops import guardian, numerics
 from paddle_tpu_torch.optimizer import (SGD, Adadelta, Adagrad, Adam, Adamax,
                                         AdamW, L2Decay, Lamb, Lars, Momentum,
                                         RMSProp)
@@ -1803,62 +1825,405 @@ def _check_adam_case(tag, shapes, dtype, masters, decays, offset=0):
     return err, kern
 
 
-def check_adam_update():
-    """The multi-tensor AdamW update at GPT-2 124M's 148 tensors (bf16
-    params with fp32 masters, every tensor decaying, as the train phase
-    runs it), plus fp32 without masters and bf16 without masters on
-    ragged shapes with a decay-skip set, aligned and misaligned."""
+def _int_bits(t):
+    """`t`'s bits as integers of its width (NaNs compare equal)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _differ_bits(a, b):
+    """Elements of the tensors of `a` whose bits differ from `b`'s (None
+    entries skipped)."""
+    return sum(int((_int_bits(x) != _int_bits(y)).sum())
+               for x, y in zip(a, b) if x is not None)
+
+
+def _check_adam_guard(tag, shapes, dtype, masters, decays, offset=0):
+    """The guard's probe and gated apply, kernel against twin from one
+    state, bit for bit, with finite gradients, a NaN in the last tensor's
+    last gradient element and an lr of inf: the flag is set exactly where
+    the step is not finite, the probe writes nothing, the apply is the
+    plain update where the flag is clear and writes nothing where it is
+    set. Returns the largest error against the twin (`_max_err`)."""
+    lr = torch.full((), ADAM_LRS[0], device="cuda")
+    t = torch.full((), 2.0, device="cuda")
+    err = 0.0
+    for poison in ("none", "grad", "lr"):
+        kern = list(_adam_state(shapes, dtype, masters, seed=5,
+                                offset=offset))
+        if poison == "grad":
+            kern[1][-1].view(-1)[-1] = float("nan")
+        lr.fill_(float("inf") if poison == "lr" else ADAM_LRS[0])
+        twin = [[None if x is None else x.clone() for x in xs]
+                for xs in kern]
+        before = [[None if x is None else x.clone() for x in xs]
+                  for xs in kern]
+        flags = [torch.zeros((), dtype=torch.int32, device="cuda")
+                 for _ in range(2)]
+        for guard in ("probe", "apply"):
+            for fn, state, flag in ((au.adam_update, kern, flags[0]),
+                                    (au.adam_update_reference, twin,
+                                     flags[1])):
+                fn(*state, decays, lr, t, 0.9, 0.999, 1e-8, 0.01,
+                   guard=guard, flag=flag)
+            if guard == "probe":
+                got = [int(f) for f in flags]
+                assert got == [int(poison != "none")] * 2, (tag, poison, got)
+                moved = sum(_differ_bits(a, b) for a, b in zip(kern, before))
+                assert moved == 0, (tag, poison, moved)
+        differ = sum(_differ_bits(a, b) for a, b in zip(kern, twin))
+        moved = sum(_differ_bits(a, b) for a, b in zip(kern, before))
+        err = max(err, *(_max_err([x for x in a if x is not None],
+                                  [y for y in b if y is not None])
+                         for a, b in zip(kern, twin)))
+        assert differ == 0 and err == 0.0, (tag, poison, differ, err)
+        assert (moved == 0) == (poison != "none"), (tag, poison, moved)
+    torch.cuda.synchronize()
+    print(f"  adam_update {tag}: probe and gated apply, finite / NaN grad / "
+          f"lr inf: flags and state bit for bit with the twin, skipped "
+          f"steps write nothing")
+    return err
+
+
+def _adam_cases(dtype):
+    """The plain and the guarded checks of `dtype` on the ragged shapes
+    (fp32 and bf16 or f16 without masters, aligned and misaligned; with
+    masters), then on GPT-2 124M's 148 tensors with masters, every tensor
+    decaying; returns the last plain case's (error, state), the decays
+    and the guarded checks' largest error."""
     model = GPTForCausalLM(gpt2_124m(), device="cuda", seed=0)
     shapes = [tuple(p.shape) for p in model.parameters()]
     del model
     ragged = [(7, 13), (768,), (5,), (3, 4, 5), (1,), (2, 8195)]
     skip = [i % 2 == 0 for i in range(len(ragged))]
-    for dtype in (torch.float32, torch.bfloat16):
+    name = "bf16" if dtype == torch.bfloat16 else str(dtype)[6:]
+    guard_err = 0.0
+    for dt in ((torch.float32, dtype) if dtype == torch.bfloat16
+               else (dtype,)):
         for offset in (0, 1):
-            _check_adam_case(f"{str(dtype)[6:]} no masters, ragged shapes, "
-                             f"offset {offset}", ragged, dtype, False, skip,
-                             offset)
-    _check_adam_case("bf16 + masters, ragged shapes", ragged,
-                     torch.bfloat16, True, skip)
+            tag = (f"{str(dt)[6:]} no masters, ragged shapes, offset "
+                   f"{offset}")
+            _check_adam_case(tag, ragged, dt, False, skip, offset)
+            guard_err = max(guard_err, _check_adam_guard(
+                tag, ragged, dt, False, skip, offset))
+    _check_adam_case(f"{name} + masters, ragged shapes", ragged, dtype,
+                     True, skip)
+    guard_err = max(guard_err, _check_adam_guard(
+        f"{name} + masters, ragged shapes", ragged, dtype, True, skip))
     decays = [True] * len(shapes)
-    err, state = _check_adam_case(
-        f"bf16 + masters, GPT-2 124M ({len(shapes)} tensors, "
-        f"{sum(int(np.prod(s)) for s in shapes)} elements)", shapes,
-        torch.bfloat16, True, decays)
+    tag = f"{name} + masters, GPT-2 124M ({len(shapes)} tensors"
+    if dtype == torch.bfloat16:
+        tag += f", {sum(int(np.prod(s)) for s in shapes)} elements"
+    guard_err = max(guard_err, _check_adam_guard(tag + ")", shapes, dtype,
+                                                 True, decays))
+    return (_check_adam_case(tag + ")", shapes, dtype, True, decays),
+            decays, guard_err)
+
+
+ADAM_REPLACES = ("no Pallas counterpart: the jitted batch update of "
+                 "paddle_tpu/optimizer/optimizer.py:131-197 over the rule "
+                 "of paddle_tpu/optimizer/optimizers.py:76-148 (XLA ops)")
+GUARD_REPLACES = ("no Pallas counterpart: the guard's finite_all + "
+                  "where(finite, new, old) folded into the jitted update, "
+                  "paddle_tpu/optimizer/optimizer.py:131-197 (XLA ops)")
+
+
+def check_adam_update(dtype=torch.bfloat16):
+    """The multi-tensor AdamW update and its guarded forms (`_adam_cases`)
+    against the twin; timed at GPT-2 124M (148 tensors, `dtype` params
+    with fp32 masters, every tensor decaying, as the train phases run it).
+    bf16: returns the update's row and the probe's and the gated apply's;
+    float16: the update's f16 row."""
+    (err, state), decays, guard_err = _adam_cases(dtype)
     params, grads, m1, m2, mw = state
     lr = torch.full((), TRAIN_LR, device="cuda")
     t = torch.full((), 4.0, device="cuda")
     args = (params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8,
             0.01)
     nbytes = au.update_bytes(params, mw)
+    steps = [torch.full((), 4.0, device="cuda") for _ in params]
+    if dtype == F16:
+        m1h, m2h = [m.half() for m in m1], [m.half() for m in m2]
+        params_h = [p.clone() for p in params]
+        other_ms = _cuda_ms(lambda: torch._fused_adamw_(
+            params_h, grads, m1h, m2h, [], steps, lr=TRAIN_LR, beta1=0.9,
+            beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
+            maximize=False))
+        return [_f16_row(
+            _row_name("adam_update", F16), "adam_update",
+            "paddle_tpu_torch/csrc/adam_update.cu",
+            "no Pallas counterpart: the jitted batch update of paddle_tpu/"
+            "optimizer/optimizer.py:131-197 (XLA ops)",
+            lambda: au.adam_update(*args),
+            lambda: au.adam_update_reference(*args), None, nbytes,
+            15 * sum(p.numel() for p in params), err,
+            f"GPT-2 124M's {len(params)} tensors, f16 params + fp32 masters "
+            f"and moments, every tensor decaying",
+            note=f"library_ms null: no PyTorch call computes Paddle's "
+                 f"formula; torch._fused_adamw_ at f16 (params, grads and "
+                 f"moments f16, another formula): {other_ms:.4f} ms")]
     # ~15 fp32 operations an element (two moments, decay, sqrt, divide)
-    bound, by = _bound_ms(nbytes, 15 * sum(p.numel() for p in params),
-                          torch.float32)
+    n = sum(p.numel() for p in params)
+    bound, by = _bound_ms(nbytes, 15 * n, torch.float32)
     ms, host_ms = _timed(lambda: au.adam_update(*args))
     plain_ms = _cuda_ms(lambda: au.adam_update_reference(*args), iters=5)
     # a yardstick of PyTorch's own fused AdamW at the same shapes: another
     # formula (epsilon after the bias correction), so not library_ms
-    steps = [torch.full((), 4.0, device="cuda") for _ in params]
     grads32 = [g.float() for g in grads]
-    other_ms = _cuda_ms(lambda: torch._fused_adamw_(
-        mw, grads32, m1, m2, [], steps, lr=TRAIN_LR,
-        beta1=0.9, beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
-        maximize=False))
-    return {"name": "adam_update", "route": "cuda",
+    fused = lambda **kw: torch._fused_adamw_(  # noqa: E731
+        mw, grads32, m1, m2, [], steps, lr=TRAIN_LR, beta1=0.9, beta2=0.999,
+        weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False, **kw)
+    other_ms = _cuda_ms(fused)
+    shape = (f"GPT-2 124M's {len(params)} tensors, bf16 params + fp32 "
+             f"masters and moments, every tensor decaying")
+    rows = [{"name": "adam_update", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/adam_update.cu",
+             "replaces": ADAM_REPLACES,
+             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None, "bytes": nbytes, "shape": shape,
+             "note": ("library_ms null: no PyTorch call computes Paddle's "
+                      "formula (torch._fused_adamw_ adds epsilon after the "
+                      f"bias correction); that call at the same shapes, "
+                      f"fp32 grads: {other_ms:.4f} ms, another formula")}]
+    # the guard's two forms, the flag clear (the apply then writes)
+    flag = torch.zeros((), dtype=torch.int32, device="cuda")
+    found = torch.zeros((), device="cuda")
+    guarded_other = _cuda_ms(lambda: fused(found_inf=found))
+    for guard, nbytes_g in (("probe", au.probe_bytes(params, mw)),
+                            ("apply", nbytes + 4)):
+        kern = lambda: au.adam_update(*args, guard=guard,  # noqa: E731
+                                      flag=flag)
+        twin = lambda: au.adam_update_reference(  # noqa: E731
+            *args, guard=guard, flag=flag)
+        ms, host_ms = _timed(kern)
+        plain_ms = _cuda_ms(twin, iters=5)
+        bound, by = _bound_ms(nbytes_g, 15 * n, torch.float32)
+        rows.append({
+            "name": f"adam_update_{guard}", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/adam_update.cu",
-            "replaces": ("no Pallas counterpart: the jitted batch update of "
-                         "paddle_tpu/optimizer/optimizer.py:131-197 over "
-                         "the rule of paddle_tpu/optimizer/optimizers.py:"
-                         "76-148 (XLA ops)"),
-            "max_abs_err": err, "ms": ms, "host_ms": host_ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": None, "bytes": nbytes,
-            "shape": (f"GPT-2 124M's {len(params)} tensors, bf16 params + "
-                      f"fp32 masters and moments, every tensor decaying"),
-            "note": ("library_ms null: no PyTorch call computes Paddle's "
-                     "formula (torch._fused_adamw_ adds epsilon after the "
-                     f"bias correction); that call at the same shapes, "
-                     f"fp32 grads: {other_ms:.4f} ms, another formula")}
+            "replaces": GUARD_REPLACES, "max_abs_err": guard_err,
+            "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "bytes": nbytes_g,
+            "shape": shape + ", flag clear",
+            "note": ("library_ms null: torch._fused_adamw_'s found_inf "
+                     "checks no new state and its formula is another; that "
+                     f"call with found_inf at the same shapes, fp32 grads: "
+                     f"{guarded_other:.4f} ms")})
+        print(f"  adam_update_{guard}: {ms:.5f} ms (host {host_ms:.5f}), "
+              f"twin {plain_ms:.5f} ms, bound {bound:.5f} ms ({by})")
+    flag.fill_(1)
+    skipped_ms = _cuda_ms(lambda: au.adam_update(*args, guard="apply",
+                                                 flag=flag))
+    print(f"  adam_update_apply with the flag set (every CTA returns): "
+          f"{skipped_ms:.5f} ms")
+    return rows
+
+
+def _finite_lists(dtypes, offset, seed, gain=1.0):
+    """Ragged lists of each dtype (views `offset` elements into their
+    storage; the last of each dtype transposed, so dense but not
+    contiguous), normal values times `gain`."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shapes = [(7, 13), (768,), (5,), (3, 4, 5), (1,), (2, 8195), (16384,),
+              (16385,), (517, 33)]
+    out = []
+    for dt in dtypes:
+        for s in shapes:
+            n = int(np.prod(s))
+            flat = torch.randn(n + offset, generator=g, device="cuda") * gain
+            out.append(flat.to(dt)[offset:].view(s))
+        out[-1] = out[-1].t()
+    return out
+
+
+def _check_finite_kernels():
+    """multi_tensor_finite (with and without the unscale) and
+    multi_tensor_copy_if against their twins, bit for bit: ragged lists
+    mixing fp32, bf16, f16 and float64, aligned and misaligned, a
+    transposed tensor of each dtype, all finite and with a NaN, an inf or
+    a -inf in one element, the flag clear and set."""
+    cases = 0
+    for offset in (0, 1):
+        for poison in (None, float("nan"), float("inf"), float("-inf")):
+            for unscale in (False, True):
+                # gain 1e3: within f16's range, and the unscale by 2^-15
+                # reaches its subnormals
+                kern = _finite_lists(fc.DTYPES, offset, seed=9, gain=1e3)
+                if poison is not None:
+                    bad = kern[cases % len(kern)]
+                    bad[(-1,) * bad.dim()] = poison
+                twin = [x.clone() for x in kern]
+                flags = [torch.zeros((), dtype=torch.int32, device="cuda")
+                         for _ in range(2)]
+                inv = 1.0 / torch.full((), 2.0 ** 15, device="cuda") \
+                    if unscale else None
+                fc.multi_tensor_finite(kern, flags[0], inv)
+                fc.multi_tensor_finite_reference(twin, flags[1], inv)
+                got = [int(f) for f in flags]
+                assert got == [int(poison is not None)] * 2, (offset, got)
+                assert _differ_bits(kern, twin) == 0, (offset, poison)
+                cases += 1
+        for flag_value in (0, 1):
+            dst = _finite_lists(fc.DTYPES, offset, seed=10)
+            src = _finite_lists(fc.DTYPES, offset, seed=11)
+            twin = [x.clone() for x in dst]
+            before = [x.clone() for x in dst]
+            flag = torch.full((), flag_value, dtype=torch.int32,
+                              device="cuda")
+            fc.multi_tensor_copy_if(dst, src, flag)
+            fc.multi_tensor_copy_if_reference(twin, src, flag)
+            assert _differ_bits(dst, twin) == 0, (offset, flag_value)
+            assert _differ_bits(dst, before if flag_value else src) == 0
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"  finite_check: {cases} cases (fp32, bf16, f16, float64 ragged "
+          f"lists with a transposed tensor each, offsets 0 and 1, finite / "
+          f"NaN / inf / -inf, the unscale, the copy with the flag clear and "
+          f"set) bit for bit with the twins")
+
+
+def _max_err(a, b):
+    """The largest |x - y| over the elements of the tensors of lists `a`
+    and `b`, where their bits differ (inf where one is not finite); 0.0
+    where every element has the same bits."""
+    err = 0.0
+    for x, y in zip(a, b):
+        same = _int_bits(x) == _int_bits(y)
+        if bool(same.all()):
+            continue
+        d = (x.double() - y.double()).abs().nan_to_num(float("inf"))
+        err = max(err, float(d.masked_fill(same, 0).max()))
+    return err
+
+
+def _held_to_twin(tag, kern, twin, tensors, poison, want=None):
+    """Run `kern` and `twin` (each ``fn(tensors, flag)``) on copies of
+    `tensors`, the last element of the last tensor set to `poison` where
+    it is not None, from a clear flag: the flags must be equal and say
+    whether `poison` is finite, the tensors' bits equal (and equal to
+    `want`'s where it is given). Returns the largest error
+    (`_max_err`)."""
+    sides = [[t.clone() for t in tensors] for _ in range(2)]
+    flags = [torch.zeros((), dtype=torch.int32, device="cuda")
+             for _ in range(2)]
+    for side in sides:
+        if poison is not None:
+            side[-1][(-1,) * side[-1].dim()] = poison
+    kern(sides[0], flags[0])
+    twin(sides[1], flags[1])
+    got = [int(f) for f in flags]
+    want_flag = int(poison is not None and not np.isfinite(poison))
+    assert got == [want_flag] * 2, (tag, poison, got)
+    err = _max_err(sides[0], sides[1])
+    assert err == 0.0 and _differ_bits(sides[0], sides[1]) == 0, (
+        tag, poison, err)
+    assert want is None or _differ_bits(sides[0], want) == 0, tag
+    return err
+
+
+def check_finite_check():
+    """The guard's check and copy (`_check_finite_kernels`), then at the
+    train_guard path's shapes (GPT-2 124M's fp32 gradients, parameters and
+    Momentum velocities): each kernel against its twin on copies of the
+    same lists, bit for bit, with the flag clear and set (the unscale at
+    the scaler's 2^-15, the check over the gradients and the new state,
+    each finite and with an inf; the copy under a clear and a set flag),
+    then each timed: the O1 GradScaler's unscale, the Momentum guard's
+    check over the gradients and the new parameters and velocities, and
+    its copy of the new parameters and velocities."""
+    _check_finite_kernels()
+    model = GPTForCausalLM(gpt2_124m(), device="cuda", seed=0)
+    params = [p.detach() for p in model.parameters()]
+    del model
+    g = torch.Generator(device="cuda").manual_seed(12)
+    grads = [torch.randn(p.shape, generator=g, device="cuda") * 1e-2
+             for p in params]
+    velocity = [torch.randn(p.shape, generator=g, device="cuda") * 1e-3
+                for p in params]
+    n = sum(p.numel() for p in params)
+    src = [p.clone() for p in params] + [v.clone() for v in velocity]
+    dst = [p.clone() for p in params] + [v.clone() for v in velocity]
+    checked = grads + src
+    inv_scale = 1.0 / torch.full((), 2.0 ** 15, device="cuda")
+    errs = {}
+    for poison in (None, float("inf")):
+        errs["multi_tensor_finite_unscale", poison] = _held_to_twin(
+            "unscale", lambda ts, f: fc.multi_tensor_finite(ts, f, inv_scale),
+            lambda ts, f: fc.multi_tensor_finite_reference(ts, f, inv_scale),
+            grads, poison)
+        errs["multi_tensor_finite", poison] = _held_to_twin(
+            "check", fc.multi_tensor_finite,
+            fc.multi_tensor_finite_reference, checked, poison)
+    for flag_value in (0, 1):
+        flag = torch.full((), flag_value, dtype=torch.int32, device="cuda")
+        errs["multi_tensor_copy_if", flag_value] = _held_to_twin(
+            f"copy_if, flag {flag_value}",
+            lambda ts, f: fc.multi_tensor_copy_if(ts, src, flag),
+            lambda ts, f: fc.multi_tensor_copy_if_reference(ts, src, flag),
+            dst, None, want=dst if flag_value else src)
+    torch.cuda.synchronize()
+    print(f"  finite_check at GPT-2 124M ({len(grads)} gradients, "
+          f"{len(checked)} checked, {len(dst)} copied; {n} elements a "
+          f"list): the unscale by 2^-15 and the check, finite and with an "
+          f"inf, the copy with the flag clear and set, bit for bit with "
+          f"the twins")
+    flag = torch.zeros((), dtype=torch.int32, device="cuda")
+    found = torch.zeros((), device="cuda")
+    inv = torch.ones((), device="cuda")
+    # the library call nearest the plain check: it also writes each
+    # element (times 1 here)
+    check_write_ms = _cuda_ms(
+        lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+            checked, found, inv))
+    cases = (
+        ("multi_tensor_finite_unscale", grads,
+         lambda: fc.multi_tensor_finite(grads, flag, inv),
+         lambda: fc.multi_tensor_finite_reference(grads, flag, inv),
+         lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+             grads, found, inv), 8 * n,
+         f"GPT-2 124M's {len(grads)} fp32 gradients (the O1 GradScaler's "
+         f"unscale_), timed at scale 1, held to the twin at 2^-15", None),
+        ("multi_tensor_finite", checked,
+         lambda: fc.multi_tensor_finite(checked, flag),
+         lambda: fc.multi_tensor_finite_reference(checked, flag), None,
+         12 * n, f"GPT-2 124M's fp32 gradients, new parameters and new "
+         f"velocities ({len(checked)} tensors: the guarded Momentum's "
+         f"check)", f"library_ms null: no one PyTorch call checks without "
+         f"writing; torch._amp_foreach_non_finite_check_and_unscale_ over "
+         f"the same list (scale 1, so it also writes each element): "
+         f"{check_write_ms:.4f} ms"),
+        ("multi_tensor_copy_if", dst,
+         lambda: fc.multi_tensor_copy_if(dst, src, flag),
+         lambda: fc.multi_tensor_copy_if_reference(dst, src, flag),
+         lambda: torch._foreach_copy_(dst, src), 16 * n,
+         f"GPT-2 124M's new fp32 parameters and velocities ({len(dst)} "
+         f"tensors: the guarded Momentum's copy), flag clear; library_ms: "
+         f"torch._foreach_copy_ (unconditional)", None))
+    rows = []
+    for name, tensors, kern, twin, library, nbytes, shape, note in cases:
+        ms, host_ms = _timed(kern)
+        plain_ms = _cuda_ms(twin, iters=5)
+        library_ms = _cuda_ms(library) if library is not None else None
+        bound, by = _bound_ms(nbytes, 2 * n, torch.float32)
+        err = max(v for k, v in errs.items() if k[0] == name)
+        print(f"  {name}: {ms:.5f} ms (host {host_ms:.5f}), twin "
+              f"{plain_ms:.5f} ms, library "
+              f"{'null' if library_ms is None else f'{library_ms:.5f} ms'}"
+              f", bound {bound:.5f} ms ({by}), max_abs_err {err}")
+        row = {"name": name, "route": "cuda",
+               "source": "paddle_tpu_torch/csrc/finite_check.cu",
+               "replaces": GUARD_REPLACES, "max_abs_err": err, "ms": ms,
+               "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": by, "library_ms": library_ms, "bytes": nbytes,
+               "shape": shape}
+        if note:
+            row["note"] = note
+        rows.append(row)
+    assert int(flag) == 0 and int(found) == 0
+    return rows
+
 
 def _keyed_state(s, v, seed, sampled):
     """Raw fp32 logits [s, v] (scale of GPT-2's), a filtered copy with the
@@ -4987,8 +5352,7 @@ def _update_program(opt, params):
 
     warm_up(update)
     torch.cuda.synchronize()
-    graph, _, _ = capture_graph(update)
-    return graph.replay
+    return capture_graph(update)[0]
 
 
 def train_optimizers(adamw_row_ms, batch=8, seq=1024):
@@ -5150,6 +5514,290 @@ def train_scaler(batch=8, seq=1024, dtype="bfloat16"):
           f"overflows of its own) moved none of the parameters and "
           f"accumulators; step p50 {float(np.median(times)):.3f} ms (host "
           f"clock, each synchronized)")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the numeric guard at full width
+# ---------------------------------------------------------------------------
+
+# steps of the guarded loops, the step whose gradient gets an inf (through a
+# device scalar in the graph) and the step whose lr is inf (finite
+# gradients: the new state overflows); the turns of the guard's cost
+GUARD_STEPS = 5
+GUARD_INF_STEP = 2
+GUARD_SPIKE_STEP = 4
+GUARD_TURNS = ("plain", "guarded", "guarded", "plain")
+GUARD_TURN_STEPS = 5
+# the launch counters only the guarded paths reach
+GUARD_KERNELS = ("adam_update_probe", "adam_update_apply",
+                 "multi_tensor_finite", "multi_tensor_finite_unscale",
+                 "multi_tensor_copy_if")
+
+
+class _GradFactor(torch.autograd.Function):
+    """The identity forward; the backward multiplies the gradient by a
+    device scalar, so a NaN there poisons every gradient of a step while
+    its loss stays finite (and a CUDA graph reads the scalar each
+    replay)."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.save_for_backward(factor)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (factor,) = ctx.saved_tensors
+        return grad * factor.to(grad.dtype), None
+
+
+def _guarded_steps(tag, model, opt, run):
+    """GUARD_STEPS steps of `run(step)` (a float loss): the inf step and
+    the lr-spike step must leave every parameter, master and moment as it
+    was, bit for bit; the others must move them. Returns the losses."""
+    losses = []
+    for step in range(1, GUARD_STEPS + 1):
+        opt.set_lr(float("inf") if step == GUARD_SPIKE_STEP else TRAIN_LR)
+        bad = step in (GUARD_INF_STEP, GUARD_SPIKE_STEP)
+        before = [t.clone() for t in _state_bits(model, opt)]
+        losses.append(run(step))
+        differ, total = _count_differing(before, _state_bits(model, opt))
+        assert (differ == 0) == bad, (tag, step, differ, total)
+        del before
+    opt.set_lr(TRAIN_LR)
+    print(f"train_guard {tag}: losses " + ", ".join(
+        f"{x:.5f}" for x in losses) + f"; steps {GUARD_INF_STEP} (an inf "
+        f"gradient) and {GUARD_SPIKE_STEP} (lr inf, finite gradients) left "
+        f"every parameter, master and moment bit for bit, the others moved "
+        f"them; _step_count {opt._step_count}")
+    assert opt._step_count == GUARD_STEPS, opt._step_count
+    assert np.isfinite(losses).all(), losses
+    return losses
+
+
+def _unguarded_copy(cfg, model, opt, scaler):
+    """A copy of `model` with its gradients, a Momentum of `opt`'s
+    settings over it with `opt`'s state, and a GradScaler with `scaler`'s
+    state: one unguarded step from where the guarded loop stands."""
+    twin = GPTForCausalLM(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        for p, q in zip(model.parameters(), twin.parameters()):
+            q.copy_(p)
+            q.grad = p.grad.clone()
+    twin_opt = Momentum(learning_rate=1e-3, momentum=0.9,
+                        parameters=twin.parameters())
+    twin_opt.set_state_dict(opt.state_dict())
+    twin_scaler = amp.GradScaler(**SCALER_KW)
+    twin_scaler.load_state_dict(scaler.state_dict())
+    return twin, twin_opt, twin_scaler
+
+
+def _guard_no_sync(cfg, ids, labels, crit):
+    """The O1 GradScaler loop (fp32 GPT-2 124M, Momentum: the guard's check
+    and copy kernels, the unscale kernel) with `scaler.step` and
+    `scaler.update` under ``torch.cuda.set_sync_debug_mode("error")``: an
+    inf in one gradient at SCALER_INF_STEP; the state bit for bit where a
+    step was skipped, the scale, good and bad counts the reference's
+    transition. The last (finite) step is held to an unguarded Momentum
+    and GradScaler started from the same state (`_unguarded_copy`): every
+    parameter and velocity bit for bit."""
+    model = GPTForCausalLM(cfg, device="cuda", seed=0)
+    opt = Momentum(learning_rate=1e-3, momentum=0.9,
+                   parameters=model.parameters())
+    scaler = amp.GradScaler(**SCALER_KW)
+    want = (SCALER_KW["init_loss_scaling"], 0, 0)
+    seen, skipped = [], 0
+    for step in range(1, SCALER_STEPS + 1):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = crit(model(ids), labels)
+        scaler.scale(loss).backward()
+        if step == SCALER_INF_STEP:
+            with numerics.suspended():
+                model.gpt.h[-1].mlp.fc_in.weight.grad[3, 7] = float("inf")
+        before = [t.clone() for t in _state_bits(model, opt)]
+        twin = _unguarded_copy(cfg, model, opt, scaler) \
+            if step == SCALER_STEPS else None
+        # the device is idle here, so no batch of checks in flight can
+        # make a boundary wait: a sync below is the guard's own
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            scaler.step(opt)
+            found_t = scaler._found_inf
+            scaler.update()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        found = bool(found_t)
+        opt.clear_grad()
+        if twin is not None:
+            twin_model, twin_opt, twin_scaler = twin
+            # a comparison: its launches are taken back out of the counts
+            counted = launch_counts()
+            set_flags({"FLAGS_check_numerics": False})
+            try:
+                twin_scaler.step(twin_opt)
+                twin_scaler.update()
+            finally:
+                set_flags({"FLAGS_check_numerics": True})
+                add_launches({name: counted[name] - n
+                              for name, n in launch_counts().items()})
+            assert not found and twin_opt._step_count == opt._step_count
+            apart = _differ_bits(_state_bits(model, opt),
+                                 _state_bits(twin_model, twin_opt))
+            assert apart == 0, apart
+            print(f"train_guard no_sync: step {step}, guarded against an "
+                  f"unguarded Momentum and GradScaler from the same state: "
+                  f"every parameter and velocity bit for bit")
+            del twin, twin_model, twin_opt, twin_scaler
+        differ, total = _count_differing(before, _state_bits(model, opt))
+        assert (differ == 0) == found, (step, found, differ, total)
+        assert found or step != SCALER_INF_STEP, step
+        skipped += found
+        got = scaler.state_dict()
+        got = (got["scale"], got["good_steps"], got["bad_steps"])
+        want = _scaler_rule(want, found)
+        seen.append(got)
+        assert got == want, (step, got, want)
+        assert np.isfinite(float(loss.detach()))
+    assert opt._step_count == SCALER_STEPS, opt._step_count
+    print(f"train_guard no_sync: O1 bf16 GradScaler loop over fp32 GPT-2 "
+          f"124M with Momentum, scaler.step and scaler.update under "
+          f"set_sync_debug_mode('error') raised nothing; (scale, good, bad) "
+          + ", ".join(str(t) for t in seen) + f" = the reference's "
+          f"transition; {skipped} skipped step(s) (the inf at step "
+          f"{SCALER_INF_STEP}) moved nothing; _step_count {opt._step_count}")
+    return skipped
+
+
+def _guard_strict(model, ids, labels, crit):
+    """One eager step of `model` under FLAGS_check_nan_inf with a NaN in
+    its final LayerNorm's weight: raises FloatingPointError naming the
+    first op whose output holds it."""
+    weight = model.gpt.ln_f.weight
+    good = weight.detach().clone()
+    with torch.no_grad():
+        weight.fill_(float("nan"))
+    set_flags({"FLAGS_check_numerics": False, "FLAGS_check_nan_inf": True})
+    try:
+        crit(model(ids), labels).backward()
+    except FloatingPointError as err:
+        message = str(err)
+    else:
+        raise AssertionError("the strict mode let a NaN output through")
+    finally:
+        set_flags({"FLAGS_check_nan_inf": False})
+        with torch.no_grad():
+            weight.copy_(good)
+        model.zero_grad(set_to_none=True)
+    op = re.fullmatch(r"Operator '(\w+)' output contains NaN/Inf", message)
+    assert op, message
+    print(f"train_guard strict: FLAGS_check_nan_inf, a NaN in ln_f.weight: "
+          f"FloatingPointError({message!r})")
+    return op.group(1)
+
+
+def train_guard(batch=8, seq=1024):
+    """The numeric guard (FLAGS_check_numerics) at GPT-2 124M's full width,
+    batch `batch` x `seq`: an eager AdamW(multi_precision) bf16 loop and
+    the same through TrainStep's graph (an inf gradient through a device
+    scalar the captured backward reads, an lr of inf through the lr
+    scalar), each skipped step a bitwise no-op, steps_skipped counting
+    them; the O1 GradScaler loop that never syncs (`_guard_no_sync`); the
+    strict mode naming an op (`_guard_strict`); the guard's cost, the
+    guarded TrainStep graph against the unguarded one in turns (step p50,
+    device ms a step). Returns the phase's launch counts."""
+    t0 = time.perf_counter()
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    ids, labels = _train_batch(cfg, seed=3)
+    crit = GPTPretrainingCriterion()
+    reset_launch_counts()
+    guardian.reset_guardian_stats()
+    guardian.reset_thread_state()
+    set_flags({"FLAGS_use_fused_cross_entropy": True,
+               "FLAGS_check_numerics": True})
+    try:
+        models, opts = [], []
+        for _ in range(2):
+            models.append(GPTForCausalLM(cfg, device="cuda",
+                                         seed=0).to(torch.bfloat16))
+            models[-1].train()
+            opts.append(AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                              parameters=models[-1].parameters(),
+                              multi_precision=True))
+        e_model, g_model = models
+        e_opt, g_opt = opts
+
+        def eager_step(step):
+            loss = crit(e_model(ids), labels)
+            loss.backward()
+            if step == GUARD_INF_STEP:
+                with numerics.suspended():
+                    e_model.gpt.h[-1].mlp.fc_in.weight.grad[3, 7] = \
+                        float("inf")
+            e_opt.step()
+            e_opt.clear_grad()
+            return float(loss.detach())
+
+        eager = _guarded_steps("eager", e_model, e_opt, eager_step)
+        factor = torch.ones((), device=ids.device)
+        g_step = TrainStep(g_model, lambda out, y: _GradFactor.apply(
+            crit(out, y), factor), g_opt)
+
+        def graph_step(step):
+            with numerics.suspended():
+                factor.fill_(float("nan") if step == GUARD_INF_STEP else 1.0)
+            return float(g_step(ids, labels))
+
+        graph = _guarded_steps("graph", g_model, g_opt, graph_step)
+        guardian.flush()
+        stats = guardian.guardian_stats()
+        print(f"train_guard: eager loop (backward + step) and graph losses "
+              f"equal: {eager == graph}; graph builds {g_step._builds}; "
+              f"guardian_stats " + json.dumps(stats))
+        assert g_step._builds == 1, g_step._builds
+        assert stats["steps_skipped"] == 4, stats
+        assert stats["steps_guarded"] == 2 * GUARD_STEPS, stats
+        assert stats["nonfinite_outputs"] == 0, stats
+        skipped = _guard_no_sync(cfg, ids, labels, crit)
+        guardian.flush()
+        stats = guardian.guardian_stats()
+        assert stats["steps_skipped"] == 4 + skipped, stats
+        assert stats["scaler_backoffs"] == skipped, stats
+        op = _guard_strict(e_model, ids, labels, crit)
+        set_flags({"FLAGS_check_numerics": True})
+        # the guard's cost: the guarded graph against an unguarded one over
+        # the eager loop's model, in turns
+        p_step = None
+        turns = []
+        tokens = batch * seq
+        flops = g_model.flops_per_token(seq)
+        for kind in GUARD_TURNS:
+            set_flags({"FLAGS_check_numerics": kind == "guarded"})
+            if kind == "plain" and p_step is None:
+                p_step = TrainStep(e_model, crit, e_opt)
+            fn = (lambda: g_step(ids, labels)) if kind == "guarded" \
+                else (lambda: p_step(ids, labels))
+            turns.append(_turn(kind, fn, GUARD_TURN_STEPS, tokens, flops))
+        guardian.flush()
+        for kind in ("plain", "guarded"):
+            mine = [t for t in turns if t["turn"] == kind]
+            print(f"train_guard turns, {kind}: step p50 " + " / ".join(
+                f"{t['p50_ms']:.3f}" for t in mine) + " ms; device "
+                + " / ".join(f"{t['device_ms']:.3f}" for t in mine)
+                + " ms a step")
+        print("train_guard turns: " + json.dumps(turns))
+        assert g_step._builds == 1 and p_step._builds == 1
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False,
+                   "FLAGS_check_numerics": False,
+                   "FLAGS_check_nan_inf": False})
+    counts = launch_counts()
+    for name in GUARD_KERNELS:
+        assert counts[name] > 0, (name, counts)
+    print(f"train_guard: strict mode named '{op}'; launches "
+          f"{json.dumps({k: counts[k] for k in GUARD_KERNELS})}; "
+          f"{time.perf_counter() - t0:.1f} s wall")
     return counts
 
 
@@ -5653,49 +6301,6 @@ def _check_f16_ln():
         f"library_ms: F.layer_norm(x + bias + residual)")
 
 
-def _check_f16_adam():
-    model = GPTForCausalLM(gpt2_124m(), device="cuda", seed=0)
-    shapes = [tuple(p.shape) for p in model.parameters()]
-    del model
-    ragged = [(7, 13), (768,), (5,), (3, 4, 5), (1,), (2, 8195)]
-    skip = [i % 2 == 0 for i in range(len(ragged))]
-    for offset in (0, 1):
-        _check_adam_case(f"float16 no masters, ragged shapes, offset "
-                         f"{offset}", ragged, F16, False, skip, offset)
-    _check_adam_case("float16 + masters, ragged shapes", ragged, F16, True,
-                     skip)
-    decays = [True] * len(shapes)
-    err, state = _check_adam_case(
-        f"float16 + masters, GPT-2 124M ({len(shapes)} tensors)", shapes,
-        F16, True, decays)
-    params, grads, m1, m2, mw = state
-    lr = torch.full((), TRAIN_LR, device="cuda")
-    t = torch.full((), 4.0, device="cuda")
-    args = (params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8,
-            0.01)
-    nbytes = au.update_bytes(params, mw)
-    steps = [torch.full((), 4.0, device="cuda") for _ in params]
-    m1h, m2h = [m.half() for m in m1], [m.half() for m in m2]
-    params_h = [p.clone() for p in params]
-    other_ms = _cuda_ms(lambda: torch._fused_adamw_(
-        params_h, grads, m1h, m2h, [], steps, lr=TRAIN_LR, beta1=0.9,
-        beta2=0.999, weight_decay=0.01, eps=1e-8, amsgrad=False,
-        maximize=False))
-    return _f16_row(
-        _row_name("adam_update", F16), "adam_update",
-        "paddle_tpu_torch/csrc/adam_update.cu",
-        "no Pallas counterpart: the jitted batch update of paddle_tpu/"
-        "optimizer/optimizer.py:131-197 (XLA ops)",
-        lambda: au.adam_update(*args),
-        lambda: au.adam_update_reference(*args), None, nbytes,
-        15 * sum(p.numel() for p in params), err,
-        f"GPT-2 124M's {len(params)} tensors, f16 params + fp32 masters "
-        f"and moments, every tensor decaying",
-        note=f"library_ms null: no PyTorch call computes Paddle's formula; "
-             f"torch._fused_adamw_ at f16 (params, grads and moments f16, "
-             f"another formula): {other_ms:.4f} ms")
-
-
 def _check_f16_lora():
     err = None
     for rank in LORA_RANKS:
@@ -5754,7 +6359,7 @@ def check_float16():
         for path, more in part.items():
             rows.setdefault(path, []).extend(more)
     rows["train_fp16_ce"] = _check_f16_ce()
-    rows["train_fp16"].append(_check_f16_adam())
+    rows["train_fp16"].extend(check_adam_update(F16))
     rows["fused_ln_fp16"] = [_check_f16_ln()]
     rows["serve_tenancy_fp16"] = [_check_f16_lora()]
     print(f"  float16 kernels: {time.perf_counter() - t0:.1f} s wall")
@@ -5962,10 +6567,12 @@ def main():
                        "write folded in (paged_decode_append); this row "
                        "times it alone, and its launches there are 0")
     append_cast, scatter_cast = check_append_cast(), check_scatter_cast()
+    adam_rows = check_adam_update()
     rows = {"serve": [check_flash(), paged, fused, check_keyed_draw(),
                       check_sampler_filter(), scatter],
             "serve_int8": [paged_int8, fused_int8, scatter_int8],
-            "train": check_flash_bwd() + check_ce() + [check_adam_update()],
+            "train": check_flash_bwd() + check_ce() + adam_rows[:1],
+            "train_guard": adam_rows[1:] + check_finite_check(),
             "fused_ln": [check_fused_ln()],
             "serve_tenancy": [check_lora_delta()],
             "serve_kv_mixed_bfloat16": [append_cast[0], scatter_cast[0]],
@@ -6006,6 +6613,8 @@ def main():
     train_optimizers(adamw_row["ms"])
     _phase_memory("train_optimizers")
     paths["train_scaler"] = train_scaler()
+    paths["train_guard"] = train_guard()
+    _phase_memory("train_guard")
     paths["train_resume"] = train_resume()
     paths["fused_ln"] = fused_ln_phase()
     _phase_memory("train_scaler, train_resume, fused_ln")
@@ -6032,7 +6641,7 @@ def main():
             for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
     names = [row["name"] for row in rows]
-    assert len(rows) == 41 and len(set(names)) == len(names) and all(
+    assert len(rows) == 46 and len(set(names)) == len(names) and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "counter", "route", "source", "replaces", "launches",
             "max_abs_err",

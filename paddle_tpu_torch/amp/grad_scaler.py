@@ -1,31 +1,43 @@
 """GradScaler: dynamic loss scaling.
 
-Counterpart of `paddle_tpu/amp/grad_scaler.py` with ``FLAGS_check_numerics``
-off (`:115-139`; the numeric guard's in-graph skip is ROADMAP Queue 1 item
-5). The scale (fp32), the good-step and bad-step counts (int32) and the
-found-inf flag (bool) are 0-d tensors on the device of the first loss the
-scaler scales, made from the constructor's numbers then:
+Counterpart of `paddle_tpu/amp/grad_scaler.py` (`:115-140`). The scale
+(fp32), the good-step and bad-step counts (int32) and the found-inf flag
+(int32, nonzero where a gradient was not finite) are 0-d tensors on the
+device of the first loss the scaler scales, made from the constructor's
+numbers then:
 
 - `scale(loss)` multiplies by the scale cast to the loss's dtype;
 - `unscale_(optimizer)` sets found-inf from the gradients (any element
-  not finite), then multiplies each gradient in place by ``1 / scale``
-  cast to the gradient's dtype (`:106-110`), one multi-tensor op per
-  dtype;
-- `step(optimizer)` unscales if that was not done, reads found-inf once
-  (the one host sync a step) and runs ``optimizer.step()`` only where it
-  is clear, so a step with an inf or a NaN leaves parameters and
-  accumulators as they were;
+  not finite) and multiplies each gradient in place by ``1 / scale``
+  cast to the gradient's dtype (`:106-110`), in one pass
+  (`kernels.finite_check.multi_tensor_finite` with its scale: one launch
+  per gradient dtype on the card);
+- `step(optimizer)` unscales if that was not done. With the numeric guard
+  off it reads found-inf once (the one host sync a step) and runs
+  ``optimizer.step()`` only where it is clear, so a step with an inf or a
+  NaN leaves parameters and accumulators as they were. With the guard on
+  (``FLAGS_check_numerics``, `ops.guardian.skip_step_enabled`) it runs
+  ``optimizer.step()`` unconditionally and reads nothing: the optimizer's
+  guarded update skips the step on the same non-finite gradients;
 - `update()` runs the transition (`ops.guardian.update_scaler_state`) on
   the device: ``decr_every_n_nan_or_inf`` bad steps in a row shrink the
   scale by ``decr_ratio`` (to no less than 1), ``incr_every_n_steps``
-  good ones grow it by ``incr_ratio``.
+  good ones grow it by ``incr_ratio``; under the guard it queues the
+  transition (`guardian.note_scaler`) so a backoff is counted at the next
+  boundary. Nothing syncs.
 
-None of this is an op to `auto_cast`: it runs under `amp.suspended()`.
+An enabled scaler's `scale` and `step` mark the thread
+(`guardian.mark_scaler_active`): a non-finite forward output there is
+counted, not raised. None of this is an op to `auto_cast`: it runs under
+`amp.suspended()`; nor, but for `scale`'s product (the reference's
+``scale_loss`` op), to the per-op checks (`ops.numerics.suspended()`).
 """
 from __future__ import annotations
 
 import torch
 
+from ..kernels.finite_check import multi_tensor_finite
+from ..ops import guardian, numerics
 from ..ops.guardian import update_scaler_state
 from .auto_cast import suspended
 
@@ -63,6 +75,7 @@ class GradScaler:
     def scale(self, var):
         if not self._enable:
             return var
+        guardian.mark_scaler_active()
         with suspended():
             return var * self._on(var.device)[0].to(var.dtype)
 
@@ -77,18 +90,12 @@ class GradScaler:
                                "optimizer since the last update()")
         grads = [p.grad for p in optimizer._parameter_list
                  if p.grad is not None]
-        with suspended():
+        with suspended(), numerics.suspended():
             if grads:
                 scale = self._on(grads[0].device)[0]
-                maxima = torch._foreach_norm(grads, float("inf"),
-                                             dtype=torch.float32)
-                self._found_inf = ~torch.isfinite(torch.stack(maxima)).all()
-                inv = 1.0 / scale
-                by_dtype = {}
-                for g in grads:
-                    by_dtype.setdefault(g.dtype, []).append(g)
-                for dtype, gs in by_dtype.items():
-                    torch._foreach_mul_(gs, inv.to(dtype))
+                self._found_inf = torch.zeros((), dtype=torch.int32,
+                                              device=scale.device)
+                multi_tensor_finite(grads, self._found_inf, 1.0 / scale)
             else:
                 self._found_inf = None
         self._unscaled = True
@@ -97,10 +104,12 @@ class GradScaler:
         if not self._enable:
             optimizer.step()
             return
+        guardian.mark_scaler_active()
         if not self._unscaled:
             self.unscale_(optimizer)
         self._unscaled = False
-        if self._found_inf is None or not bool(self._found_inf):
+        if guardian.skip_step_enabled() or self._found_inf is None \
+                or not bool(self._found_inf):
             optimizer.step()
 
     @torch.no_grad()
@@ -113,12 +122,14 @@ class GradScaler:
         if not self._dynamic or self._state is None:
             return
         scale, good, bad = self._state
-        if found is None:
-            found = torch.zeros((), dtype=torch.bool, device=scale.device)
-        with suspended():
+        with suspended(), numerics.suspended():
+            found = torch.zeros((), dtype=torch.bool, device=scale.device) \
+                if found is None else found != 0
             new = update_scaler_state(
                 scale, good, bad, found, self._incr_ratio, self._decr_ratio,
                 self._incr_every_n_steps, self._decr_every_n_nan_or_inf)
+            if guardian.enabled():
+                guardian.note_scaler(scale, new[0])
             for old, value in zip(self._state, new):
                 old.copy_(value)
 

@@ -22,15 +22,13 @@
 // master (or p) and writes m1, m2, the master and p: 28 bytes for bf16 or
 // f16 parameters with fp32 masters, 28 for fp32 parameters, 22 for bf16 or
 // f16 without masters, against ~12 flops. GPT-2 124M's 124,475,904 elements are 3.49 GB,
-// ~1.04 ms at 3.35 TB/s. So the design is one streaming pass:
-//   * a table of the tensors (pointers, sizes, flags, the first chunk of
-//     each) travels in the kernel's parameters (`__grid_constant__`, read
-//     in place from the constant bank; up to kMaxTensors a launch, ~27 KB
-//     of the 32 KB that CUDA 12.1+ allows), so a capture records it by
-//     value and nothing is uploaded per launch;
-//   * each CTA takes one fixed chunk of kChunk elements of one tensor,
-//     found by a binary search over the first chunks (the same for every
-//     thread of the CTA);
+// ~1.04 ms at 3.35 TB/s. So the design is one streaming pass, the one
+// multi_tensor.cuh sets out (finite_check.cu runs it too):
+//   * a table of the tensors (pointers, and the plan: sizes, flags, the
+//     first chunk of each) travels in the kernel's parameters
+//     (`__grid_constant__`; up to kMaxTensors a launch, ~27 KB of the
+//     32 KB that CUDA 12.1+ allows);
+//   * each CTA takes one fixed chunk of kChunk elements of one tensor;
 //   * each thread moves 4 elements at a time, with 16-byte (fp32) and
 //     8-byte (bf16, f16) vector accesses where every pointer of the tensor is
 //     aligned for them, element by element otherwise and at the tail;
@@ -39,20 +37,42 @@
 // The arithmetic is written with the _rn intrinsics, so nothing is
 // contracted into an FMA: the kernel gives the plain PyTorch twin's values
 // bit for bit (powf is the function PyTorch's pow calls).
+//
+// The numeric guard (FLAGS_check_numerics; the reference's where(finite,
+// new, old) over the whole step, paddle_tpu/optimizer/optimizer.py:131-197)
+// takes two more forms of the same kernel, chosen by `mode`:
+//   * probe (kProbe): each element's new m1, m2, master and p (rounded to
+//     T) computed as the update computes them, nothing written; a CTA
+//     whose g or new values hold a NaN or an inf ORs 1 into an int32
+//     device flag (one __syncthreads_or, one atomicOr a CTA). Reads 14
+//     bytes an element with bf16 params and fp32 masters: g, m1, m2 and
+//     the master;
+//   * apply (kApply): the update, except that each CTA reads the flag
+//     first and returns when it is set.
+// The caller zeroes the flag, launches every probe of the step (each dtype
+// group, each kMaxTensors slice) and then every apply, so the predicate is
+// one for the whole step. Why two passes: no grid barrier can keep 124M
+// elements' new values in registers until the predicate is known.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "multi_tensor.cuh"
+
 namespace {
 
-constexpr int kMaxTensors = 512;
-constexpr int kThreads = 256;
-constexpr int kVec = 4;
-constexpr int kChunk = 16384;   // elements a CTA; a multiple of kVec
+using mt::kMaxTensors;
+using mt::kThreads;
+using mt::kVec;
+using mt::narrow;
+using mt::widen;
 
-constexpr unsigned char kDecay = 1;     // AdamW decay applies
-constexpr unsigned char kAligned = 2;   // vector accesses are aligned
+constexpr unsigned char kDecay = 1;     // AdamW decay applies (flags bit 0)
+
+constexpr int kPlain = 0;   // the update
+constexpr int kProbe = 1;   // the new values' finiteness into the flag
+constexpr int kApply = 2;   // the update where the flag is clear
 
 struct Table {
   void* param[kMaxTensors];
@@ -60,10 +80,7 @@ struct Table {
   float* m1[kMaxTensors];
   float* m2[kMaxTensors];
   float* master[kMaxTensors];    // nullptr: the tensor has no master
-  long long numel[kMaxTensors];
-  int first_chunk[kMaxTensors + 1];
-  unsigned char flags[kMaxTensors];
-  int n;
+  mt::Plan plan;
 };
 
 struct Consts {
@@ -113,25 +130,6 @@ __device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-template <>
-__device__ __forceinline__ __half from_float<__half>(float x) {
-  return __float2half_rn(x);
-}
-
 // the step's per-launch scalars, from the device scalars lr and t
 struct Step {
   float lr_t;    // lr * sqrt(1 - b2^t) / (1 - b1^t)
@@ -149,30 +147,31 @@ __device__ __forceinline__ void update(const Consts& c, const Step& s,
   float base = w;
   if (decay) {
     base = __fmul_rn(base, s.keep);
-    if (!has_master) base = to_float(from_float<T>(base));
+    if (!has_master) base = widen(narrow<T>(base));
   }
   const float denom = __fadd_rn(__fsqrt_rn(m2), c.eps);
   w = __fsub_rn(base, __fdiv_rn(__fmul_rn(s.lr_t, m1), denom));
 }
 
+// whether an element's gradient and new state are all finite: g, m1, m2,
+// the master (where there is one) and p as it would be stored in T
 template <typename T>
+__device__ __forceinline__ bool all_finite(float g, float m1, float m2,
+                                           float w, bool has_master) {
+  return isfinite(g) && isfinite(m1) && isfinite(m2) &&
+         (!has_master || isfinite(w)) && isfinite(widen(narrow<T>(w)));
+}
+
+template <typename T, int kMode>
 __global__ void __launch_bounds__(kThreads)
 adam_update_kernel(const __grid_constant__ Table tab,
                    const float* __restrict__ lr_ptr,
-                   const float* __restrict__ t_ptr, const Consts c) {
-  const int chunk = blockIdx.x;
-  // the last tensor whose first chunk is at or before this one (empty
-  // tensors are left out of the table by the caller)
-  int lo = 0, hi = tab.n - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) >> 1;
-    if (tab.first_chunk[mid] <= chunk) lo = mid; else hi = mid - 1;
-  }
-  const int i = lo;
-  const long long numel = tab.numel[i];
-  const long long start =
-      static_cast<long long>(chunk - tab.first_chunk[i]) * kChunk;
-  const long long end = start + kChunk < numel ? start + kChunk : numel;
+                   const float* __restrict__ t_ptr, const Consts c,
+                   int* __restrict__ flag) {
+  if (kMode == kApply && *flag) return;
+  const mt::Span sp = mt::span_of(tab.plan);
+  const int i = sp.i;
+  const long long start = sp.start, end = sp.end;
 
   const float lr = *lr_ptr;
   const float t = *t_ptr;
@@ -187,9 +186,10 @@ adam_update_kernel(const __grid_constant__ Table tab,
   float* __restrict__ m2 = tab.m2[i];
   float* __restrict__ master = tab.master[i];
   const bool has_master = master != nullptr;
-  const bool decay = tab.flags[i] & kDecay;
-  const bool vec = tab.flags[i] & kAligned;
+  const bool decay = tab.plan.flags[i] & kDecay;
+  const bool vec = tab.plan.flags[i] & mt::kAligned;
 
+  bool bad = false;
   for (long long at = start + static_cast<long long>(threadIdx.x) * kVec;
        at < end; at += static_cast<long long>(kThreads) * kVec) {
     if (vec && at + kVec <= end) {
@@ -201,23 +201,53 @@ adam_update_kernel(const __grid_constant__ Table tab,
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
         update<T>(c, s, gv[e], a[e], b[e], w[e], decay, has_master);
+        if (kMode == kProbe) {
+          bad |= !all_finite<T>(gv[e], a[e], b[e], w[e], has_master);
+        }
       }
-      store4(m1 + at, a);
-      store4(m2 + at, b);
-      if (has_master) store4(master + at, w);
-      store4(p + at, w);
+      if (kMode != kProbe) {
+        store4(m1 + at, a);
+        store4(m2 + at, b);
+        if (has_master) store4(master + at, w);
+        store4(p + at, w);
+      }
     } else {
       const long long stop = at + kVec < end ? at + kVec : end;
       for (long long k = at; k < stop; ++k) {
         float a = m1[k], b = m2[k];
-        float w = has_master ? master[k] : to_float(p[k]);
-        update<T>(c, s, to_float(g[k]), a, b, w, decay, has_master);
-        m1[k] = a;
-        m2[k] = b;
-        if (has_master) master[k] = w;
-        p[k] = from_float<T>(w);
+        float w = has_master ? master[k] : widen(p[k]);
+        const float gk = widen(g[k]);
+        update<T>(c, s, gk, a, b, w, decay, has_master);
+        if (kMode == kProbe) {
+          bad |= !all_finite<T>(gk, a, b, w, has_master);
+        } else {
+          m1[k] = a;
+          m2[k] = b;
+          if (has_master) master[k] = w;
+          p[k] = narrow<T>(w);
+        }
       }
     }
+  }
+  if (kMode == kProbe) {
+    // every thread of the CTA reaches this barrier: only kApply returns
+    // early
+    if (__syncthreads_or(bad) && threadIdx.x == 0) atomicOr(flag, 1);
+  }
+}
+
+template <typename T>
+void launch(int mode, dim3 grid, cudaStream_t s, const Table& tab,
+            const float* lr, const float* t, const Consts& c, int* flag) {
+  if (mode == kProbe) {
+    adam_update_kernel<T, kProbe><<<grid, kThreads, 0, s>>>(tab, lr, t, c,
+                                                           flag);
+  } else if (mode == kApply) {
+    adam_update_kernel<T, kApply><<<grid, kThreads, 0, s>>>(tab, lr, t, c,
+                                                           flag);
+  } else {
+    adam_update_kernel<T, kPlain><<<grid, kThreads, 0, s>>>(tab, lr, t, c,
+                                                           flag);
   }
 }
 
@@ -225,7 +255,7 @@ adam_update_kernel(const __grid_constant__ Table tab,
 
 extern "C" int paddle_adam_update_max_tensors() { return kMaxTensors; }
 
-extern "C" int paddle_adam_update_chunk() { return kChunk; }
+extern "C" int paddle_adam_update_chunk() { return mt::kChunk; }
 
 // One launch over n tensors (1 <= n <= kMaxTensors, none empty). dtype: 0 =
 // float32, 1 = bfloat16, 2 = float16 (every param and grad; another code
@@ -233,40 +263,36 @@ extern "C" int paddle_adam_update_chunk() { return kChunk; }
 // fp32 of each tensor's numel, masters[i] null where tensor i has none.
 // first_chunk has n + 1 entries: tensor i owns chunks [first_chunk[i],
 // first_chunk[i + 1]) of kChunk elements. flags: bit 0 decay, bit 1
-// aligned for vector accesses. lr and t: device fp32 scalars. Returns a
-// cudaError_t.
+// aligned for vector accesses. lr and t: device fp32 scalars. mode: 0 the
+// update, 1 the probe, 2 the update gated on `flag` (an int32 device scalar,
+// which modes 1 and 2 need and mode 0 ignores). Returns a cudaError_t.
 extern "C" int paddle_adam_update(
     int n, void* const* params, const void* const* grads, float* const* m1,
     float* const* m2, float* const* masters, const long long* numel,
     const int* first_chunk, const unsigned char* flags, const float* lr,
     const float* t, float b1, float b2, float omb1, float omb2, float eps,
-    float coeff, int dtype, void* stream) {
-  if (n <= 0 || n > kMaxTensors || first_chunk[n] <= 0) {
+    float coeff, int mode, int* flag, int dtype, void* stream) {
+  Table tab;
+  if (mode < kPlain || mode > kApply || (mode != kPlain && flag == nullptr) ||
+      !mt::fill_plan(tab.plan, n, numel, first_chunk, flags)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Table tab;
-  tab.n = n;
   for (int i = 0; i < n; ++i) {
     tab.param[i] = params[i];
     tab.grad[i] = grads[i];
     tab.m1[i] = m1[i];
     tab.m2[i] = m2[i];
     tab.master[i] = masters[i];
-    tab.numel[i] = numel[i];
-    tab.first_chunk[i] = first_chunk[i];
-    tab.flags[i] = flags[i];
   }
-  tab.first_chunk[n] = first_chunk[n];
   const Consts c{b1, b2, omb1, omb2, eps, coeff};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(first_chunk[n]);
   if (dtype == 0) {
-    adam_update_kernel<float><<<grid, kThreads, 0, s>>>(tab, lr, t, c);
+    launch<float>(mode, grid, s, tab, lr, t, c, flag);
   } else if (dtype == 1) {
-    adam_update_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(tab, lr, t,
-                                                                c);
+    launch<__nv_bfloat16>(mode, grid, s, tab, lr, t, c, flag);
   } else if (dtype == 2) {
-    adam_update_kernel<__half><<<grid, kThreads, 0, s>>>(tab, lr, t, c);
+    launch<__half>(mode, grid, s, tab, lr, t, c, flag);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

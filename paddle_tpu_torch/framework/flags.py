@@ -19,10 +19,25 @@ defaults:
 - ``FLAGS_serve_attention_kernel`` ("blockwise"): the serving engine's
   paged attention variant when ``LLMEngine(attention_kernel=None)``, one
   of ``("pallas", "blockwise", "reference")``
-  (`nn.functional.attention.resolve_paged_kernel`).
+  (`nn.functional.attention.resolve_paged_kernel`);
+- ``FLAGS_check_numerics`` (False): the numeric guard (`ops.guardian`):
+  every optimizer's update becomes a bitwise no-op where a gradient or
+  the new state is not finite (the step count still advances), a
+  `GradScaler` step never reads found-inf on the host, and each op's
+  output is checked lazily (`ops.numerics`), a non-finite one raising
+  `FloatingPointError` at the next step boundary;
+- ``FLAGS_check_numerics_level`` (0): 0 raises on a non-finite forward
+  output, 1 or more warns;
+- ``FLAGS_check_nan_inf`` (False): the strict debug mode: every op's
+  inexact outputs are checked with a host sync and a non-finite one
+  raises naming the op (`ops.numerics`); it takes precedence over
+  ``FLAGS_check_numerics``;
+- ``FLAGS_check_nan_inf_level`` (0): 0 raises, 1 or more warns.
 
 Flags are process-wide, as in the reference. Naming any other flag raises,
-so a setting the port does not read never passes silently.
+so a setting the port does not read never passes silently. Setting one of
+the two check flags also turns the per-op check on or off for the calling
+thread (`ops.numerics.sync_thread`).
 """
 from __future__ import annotations
 
@@ -35,7 +50,11 @@ _FLAGS = {"FLAGS_use_flash_attention": True,
           "FLAGS_use_fused_cross_entropy": False,
           "FLAGS_use_fused_layer_norm": True,
           "FLAGS_serve_step_timeout_ms": 0,
-          "FLAGS_serve_attention_kernel": "blockwise"}
+          "FLAGS_serve_attention_kernel": "blockwise",
+          "FLAGS_check_numerics": False,
+          "FLAGS_check_numerics_level": 0,
+          "FLAGS_check_nan_inf": False,
+          "FLAGS_check_nan_inf_level": 0}
 
 
 def _known(name):
@@ -52,6 +71,9 @@ def set_flags(flags: dict):
         _known(name)
     with _lock:
         _FLAGS.update(flags)
+    if "FLAGS_check_numerics" in flags or "FLAGS_check_nan_inf" in flags:
+        from ..ops import numerics
+        numerics.sync_thread()
 
 
 def get_flags(flags):

@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from ...device import resolve_device
-from ...kernels import add_launches, capture_graph, warm_up
+from ...kernels import capture_graph, warm_up
 from ...kernels.keyed_draw import keyed_draw
 from ...nn import functional as F
 
@@ -426,8 +426,7 @@ class _Generation:
         self.step = torch.zeros((), dtype=torch.int64, device=w.device)
         self.seeds = torch.zeros(b, dtype=torch.int32, device=w.device)
         self.ones = torch.ones(b, dtype=torch.float32, device=w.device)
-        self.graph = None
-        self.launched = None
+        self.graph = None       # the captured step's replay function
 
     @property
     def model(self):
@@ -491,7 +490,7 @@ class _Generation:
         capture one step."""
         warm_up(self.decode_step)
         self.step.fill_(1)
-        self.graph, _, self.launched = capture_graph(self.decode_step)
+        self.graph = capture_graph(self.decode_step)[0]
 
     def run(self, ids, seed, eager=False):
         self.prefill(ids, seed)
@@ -499,8 +498,7 @@ class _Generation:
             if self.graph is None:
                 self.capture()
             for _ in range(self.n_new - 1):
-                self.graph.replay()
-                add_launches(self.launched)
+                self.graph()
         else:
             for _ in range(self.n_new - 1):
                 self.decode_step()

@@ -41,13 +41,38 @@ regularizer, while its `Optimizer.step` applies both; ``grad_clip=`` means
 the optimizer clips wherever it updates, so the port applies both here
 and is held to the reference's eager loop (ROADMAP.md Queue 3 logs the
 reference's step as a fault).
+
+The numeric flags, read at each call and part of the graph's key (so
+flipping one builds the graph again, as the reference's optimizer keys its
+jitted update on the guard):
+
+- ``FLAGS_check_numerics`` (`ops.guardian.mode` "check"): the step's update is
+  the optimizer's guarded one (``_update(..., guard="check")``, a bad
+  step a bitwise no-op), and the step also computes the loss's
+  finiteness; each call queues both (`guardian.note_step("train_step",
+  ...)`) and ends at the boundary `guardian.maybe_flush()`, syncing
+  nothing. A non-finite loss raises `FloatingPointError` at a later
+  boundary (level 0) or warns (level 1), as the reference's eager loop
+  with the flag on does for its forward outputs.
+- ``FLAGS_check_nan_inf`` (mode "strict"): the update writes only where
+  the loss is finite (the optimizer's flag set from the loss,
+  ``guard="strict"``);
+  after the step one sync reads the loss's finiteness and a non-finite
+  one raises `FloatingPointError` with the parameters and the
+  accumulators as they were. The reference keeps its parameters but lands
+  that step's accumulators, whose buffers it donated (ROADMAP.md Queue 3).
+
+Under either flag no op of the step is checked on its own (the capture
+drops them on the card; `ops.numerics.suspended` on the CPU), as the
+reference's trace drops them.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import amp
-from ..kernels import add_launches, capture_graph, warm_up
+from ..kernels import capture_graph, warm_up
+from ..ops import guardian, numerics
 
 __all__ = ["TrainStep"]
 
@@ -72,26 +97,53 @@ class TrainStep:
         return [(p, torch.zeros_like(p) if g is None else g)
                 for p, g in zip(self._params, grads)]
 
-    def _apply(self, params_grads):
-        """The optimizer's regularizer, clip and update over
-        `params_grads`, from the scalars it holds."""
+    def _step_code(self, args, guard):
+        """Forward, loss, gradients and the optimizer's step under the
+        numeric mode `guard` (`guardian.mode`); returns the
+        detached loss and the guard's bool checks (None without a guard):
+        ``[step finite, loss finite]`` under "check", ``[loss finite]``
+        under "strict"."""
+        loss = self._loss(args)
+        params_grads = self._grads(loss)
         opt = self.optimizer
         with torch.no_grad(), amp.suspended():
-            opt._update(opt._prepare(params_grads))
+            params_grads = opt._prepare(params_grads)
+            if guard is None:
+                opt._update(params_grads)
+                return loss.detach(), None
+            device = self._params[0].device
+            fwd_finite = torch.isfinite(loss.detach()).all()
+            if guard == "check":
+                opt._update(params_grads, guard="check")
+                return loss.detach(), torch.stack(
+                    [opt._guard_flag(device).eq(0), fwd_finite])
+            opt._guard_flag(device).copy_(~fwd_finite)
+            opt._update(params_grads, guard="strict")
+            return loss.detach(), fwd_finite.reshape(1)
 
-    def _step_code(self, args):
-        """Forward, loss, gradients and the optimizer's step; returns the
-        detached loss."""
-        loss = self._loss(args)
-        self._apply(self._grads(loss))
-        return loss.detach()
+    def _finish(self, guard, checks):
+        """After a step: queue the guard's outcome, or raise on a
+        non-finite loss in the strict mode."""
+        if guard == "check":
+            guardian.note_step("train_step", checks[0], checks[1],
+                               step_index=self.optimizer._step_count)
+            guardian.maybe_flush()
+        elif guard == "strict" and not bool(checks[0]):
+            raise FloatingPointError(
+                "TrainStep produced a non-finite loss (FLAGS_check_nan_inf); "
+                "the parameters and the optimizer's accumulators were not "
+                "updated: run the step eagerly to find the op")
 
     def _step_eager(self, *args):
         """One step without a graph (the CPU's step)."""
+        guard = guardian.mode()
         opt = self.optimizer
-        opt._create_accumulators(self._params)
-        opt._begin_step({p.device for p in self._params})
-        return self._step_code(args)
+        with numerics.suspended():
+            opt._create_accumulators(self._params)
+            opt._begin_step({p.device for p in self._params})
+            loss, checks = self._step_code(args, guard)
+        self._finish(guard, checks)
+        return loss
 
     def __call__(self, *args):
         if not self._params or self._params[0].device.type != "cuda":
@@ -100,22 +152,27 @@ class TrainStep:
         args = [torch.as_tensor(a, device=device) for a in args]
         opt = self.optimizer
         opt._create_accumulators(self._params)
+        guard = guardian.mode()
         key = (tuple((a.shape, a.dtype) for a in args),
-               tuple(p.data_ptr() for p in self._params))
-        if key != self._key:
-            self._build(args)
-            self._key = key
-        for buf, a in zip(self._static, args):
-            buf.copy_(a)
-        opt._begin_step((device,))
-        self._graph.replay()
-        add_launches(self._record)
-        return self._static_loss.clone()
+               tuple(p.data_ptr() for p in self._params), guard)
+        with numerics.suspended():
+            if key != self._key:
+                self._build(args, guard)
+                self._key = key
+            for buf, a in zip(self._static, args):
+                buf.copy_(a)
+            opt._begin_step((device,))
+            self._graph()
+            loss = self._static_loss.clone()
+            checks = None if self._static_checks is None \
+                else self._static_checks.clone()
+        self._finish(guard, checks)
+        return loss
 
-    def _build(self, args):
+    def _build(self, args, guard):
         """Capture forward, backward and update over static copies of
         `args` (see the module docstring)."""
-        self._graph = self._static_loss = None
+        self._graph = self._static_loss = self._static_checks = None
         self._builds += 1
         device = self._params[0].device
         if len({p.device for p in self._params}) != 1:
@@ -123,6 +180,7 @@ class TrainStep:
                                       "one device")
         opt = self.optimizer
         opt._device_scalars(device)
+        opt._guard_flag(device)
         self._static = [a.clone() for a in args]
 
         def warm():
@@ -134,7 +192,8 @@ class TrainStep:
             opt._create_accumulators(scratch)
             try:
                 with torch.no_grad(), amp.suspended():
-                    opt._update([(s, torch.zeros_like(s)) for s in scratch])
+                    opt._update([(s, torch.zeros_like(s)) for s in scratch],
+                                guard=guard)
             finally:
                 for slot in opt._accumulators.values():
                     for s in scratch:
@@ -143,9 +202,9 @@ class TrainStep:
         warm_up(warm, device)
         torch.cuda.synchronize(device)
         try:
-            graph, self._static_loss, self._record = capture_graph(
-                lambda: self._step_code(self._static))
+            self._graph, (self._static_loss, self._static_checks) = \
+                capture_graph(lambda: self._step_code(self._static, guard))
         except Exception as err:
             raise RuntimeError(f"TrainStep: capturing the training step in "
                                f"a CUDA graph failed: {err}") from err
-        self._graph = graph
+

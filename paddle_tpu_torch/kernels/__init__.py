@@ -9,25 +9,27 @@ capture's wrappers counted (and takes it back out, since a capture
 launches nothing), and `add_launches` adds that record once per replay.
 `warm_up` and `capture_graph` are the port's one way to build a graph
 program (the serving engine's decode and prefill programs, `TrainStep`,
-`generate`): an eager run on a side stream, then one capture.
+`generate`): an eager run on a side stream, then one capture, whose
+replay function adds the capture's launches each time it runs.
 """
 from __future__ import annotations
 
 import torch
 
-from . import (adam_update, cross_entropy, flash_attention, fused_ln,
-               keyed_draw, lora_delta, paged_attention, prefill_scatter,
-               sampler_filter)
+from . import (adam_update, cross_entropy, finite_check, flash_attention,
+               fused_ln, keyed_draw, lora_delta, paged_attention,
+               prefill_scatter, sampler_filter)
 
-__all__ = ["adam_update", "cross_entropy", "flash_attention", "fused_ln",
-           "keyed_draw", "lora_delta", "paged_attention", "prefill_scatter",
-           "sampler_filter", "launch_counts",
+__all__ = ["adam_update", "cross_entropy", "finite_check",
+           "flash_attention", "fused_ln", "keyed_draw", "lora_delta",
+           "paged_attention", "prefill_scatter", "sampler_filter",
+           "launch_counts",
            "reset_launch_counts", "captured_launches", "add_launches",
            "warm_up", "capture_graph"]
 
 _MODULES = (flash_attention, paged_attention, cross_entropy, fused_ln,
             keyed_draw, sampler_filter, adam_update, prefill_scatter,
-            lora_delta)
+            lora_delta, finite_check)
 
 
 def launch_counts():
@@ -79,10 +81,10 @@ def warm_up(fn, device=None):
 
 def capture_graph(fn, pool=None):
     """Capture fn() in a new CUDA graph (in memory pool `pool`, a private
-    one when None) and return ``(graph, fn's result, record)``, `record`
-    the launches its wrappers counted (`captured_launches`): each
-    ``graph.replay()`` runs them once, counted by ``add_launches(record)``.
-    The capture waits for the device first (``torch.cuda.graph``)."""
+    one when None) and return ``(replay, fn's result)``: each ``replay()``
+    runs the graph once and adds the launches its wrappers counted while
+    it was captured (`captured_launches`). The capture waits for the
+    device first (``torch.cuda.graph``)."""
     graph = torch.cuda.CUDAGraph()
 
     def capture():
@@ -90,4 +92,9 @@ def capture_graph(fn, pool=None):
             return fn()
 
     out, record = captured_launches(capture)
-    return graph, out, record
+
+    def replay():
+        graph.replay()
+        add_launches(record)
+
+    return replay, out

@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build_all", "lib_path", "load",
 
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_decode",
            "cross_entropy", "fused_ln", "keyed_draw", "sampler_filter",
-           "adam_update", "prefill_scatter", "lora_delta")
+           "adam_update", "prefill_scatter", "lora_delta", "finite_check")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "paddle_tpu_torch"

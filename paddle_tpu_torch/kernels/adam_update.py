@@ -26,6 +26,14 @@ are device scalars the kernel reads when it runs, so a CUDA graph replay
 follows what the host set) or raises; on CPU tensors it runs
 `adam_update_reference`, the rule tensor by tensor. Launches count under
 ``adam_update``.
+
+The numeric guard's two forms (``FLAGS_check_numerics``, `GUARDS`), each
+with an int32 device `flag`: ``guard="probe"`` writes nothing and ORs 1
+into the flag where a gradient or a new value (m1, m2, the master, p in
+its dtype) is not finite; ``guard="apply"`` is the update where the flag
+is 0 and nothing where it is not. Their launches count under
+``adam_update_probe`` and ``adam_update_apply``. The twin's forms read the
+flag on the device (`torch.where`), so neither syncs.
 """
 from __future__ import annotations
 
@@ -35,24 +43,35 @@ import struct
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["adam_update", "adam_update_reference", "adam_rule",
-           "chunk_plan", "update_bytes", "launches", "DTYPES", "CHUNK",
-           "MAX_TENSORS"]
+           "chunk_plan", "plan_args", "load_planned", "update_bytes",
+           "probe_bytes", "launches", "DTYPES", "CHUNK", "MAX_TENSORS",
+           "ALIGNED", "GUARDS"]
 
 DTYPES = FLOAT_DTYPES
-# elements a CTA takes, and tensors a launch; the same as the source's
-# kChunk and kMaxTensors (checked when the library loads)
+# elements a CTA takes, and tensors a launch; the same as kChunk and
+# kMaxTensors of csrc/multi_tensor.cuh, the streaming pass this kernel and
+# kernels.finite_check's share (checked when each library loads)
 CHUNK = 16384
 MAX_TENSORS = 512
+# a tensor's flags bit: its pointers allow the kernels' 4-element vector
+# accesses (mt::kAligned); bit 0 is this kernel's AdamW decay
+ALIGNED = 2
+
+# the guard's forms and their codes in the C entry (0: the plain update)
+GUARDS = {"probe": 1, "apply": 2}
 
 # kernel launches since import (or the last reset by the caller), by kernel
-launches = {"adam_update": 0}
+launches = {"adam_update": 0, "adam_update_probe": 0,
+            "adam_update_apply": 0}
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_float] * 6
-             + [ctypes.c_int, ctypes.c_void_p])
+             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p])
 
 
 def _f32(value):
@@ -86,18 +105,27 @@ def adam_rule(p, g, m1, m2, master, lr, t, beta1, beta2, epsilon,
 
 @torch.no_grad()
 def adam_update_reference(params, grads, m1s, m2s, masters, decays, lr, t,
-                          beta1, beta2, epsilon, coeff):
+                          beta1, beta2, epsilon, coeff, guard=None,
+                          flag=None):
     """Plain PyTorch twin: `adam_rule` tensor by tensor, written back in
-    place."""
+    place; with `guard`, the probe (the flag ORed with 1 where a gradient
+    or a new value is not finite) or the update where `flag` is 0."""
     for p, g, m1, m2, master, decay in zip(params, grads, m1s, m2s, masters,
                                            decays):
         new_p, m1n, m2n, new_master = adam_rule(
             p, g, m1, m2, master, lr, t, beta1, beta2, epsilon, coeff, decay)
-        m1.copy_(m1n)
-        m2.copy_(m2n)
+        new = [(m1, m1n), (m2, m2n), (p, new_p)]
         if master is not None:
-            master.copy_(new_master)
-        p.copy_(new_p)
+            new.append((master, new_master))
+        if guard == "probe":
+            bad = ~torch.isfinite(g).all()
+            for _, value in new:
+                bad |= ~torch.isfinite(value).all()
+            flag.bitwise_or_(bad.to(flag.dtype))
+            continue
+        for old, value in new:
+            old.copy_(value if guard is None
+                      else torch.where(flag != 0, old, value))
 
 
 def chunk_plan(numels, chunk=CHUNK):
@@ -107,6 +135,32 @@ def chunk_plan(numels, chunk=CHUNK):
     for n in numels:
         first.append(first[-1] + -(-n // chunk))
     return first
+
+
+def plan_args(numels, flags):
+    """The plan arguments of a multi-tensor C entry for tensors of
+    `numels` (none empty, at most `MAX_TENSORS`) with their `flags`
+    bytes: ``(numel[n], first_chunk[n + 1], flags[n])`` as ctypes
+    arrays."""
+    k = len(numels)
+    return ((ctypes.c_longlong * k)(*numels),
+            (ctypes.c_int * (k + 1))(*chunk_plan(numels)),
+            (ctypes.c_ubyte * k)(*flags))
+
+
+def load_planned(name):
+    """The library of source `name`, after checking that its
+    ``paddle_<name>_chunk()`` and ``paddle_<name>_max_tensors()`` are
+    `CHUNK` and `MAX_TENSORS`, the plan `plan_args` builds."""
+    lib = _build.load(name)
+    for query, want in ((f"paddle_{name}_chunk", CHUNK),
+                        (f"paddle_{name}_max_tensors", MAX_TENSORS)):
+        fn = getattr(lib, query)
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{query}() is {fn()}, the wrapper expects "
+                               f"{want}")
+    return lib
 
 
 def update_bytes(params, masters):
@@ -119,6 +173,16 @@ def update_bytes(params, masters):
         elem = p.element_size()
         base = 4 + 4 if master is not None else elem
         total += p.numel() * (elem + 8 + 8 + base + elem)
+    return total
+
+
+def probe_bytes(params, masters):
+    """Bytes the probe must read: each element's gradient (the param's
+    dtype), its fp32 m1 and m2, and its master (fp32) or the param."""
+    total = 0
+    for p, master in zip(params, masters):
+        elem = p.element_size()
+        total += p.numel() * (elem + 8 + (4 if master is not None else elem))
     return total
 
 
@@ -172,15 +236,7 @@ _LIB = []
 
 def _lib_fn():
     if not _LIB:
-        lib = _build.load("adam_update")
-        for name, want in (("paddle_adam_update_chunk", CHUNK),
-                           ("paddle_adam_update_max_tensors", MAX_TENSORS)):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            if fn() != want:
-                raise RuntimeError(f"{name}() is {fn()}, the wrapper "
-                                   f"expects {want}")
-        fn = lib.paddle_adam_update
+        fn = load_planned("adam_update").paddle_adam_update
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         _LIB.append(fn)
@@ -189,20 +245,32 @@ def _lib_fn():
 
 @torch.no_grad()
 def adam_update(params, grads, m1s, m2s, masters, decays, lr, t, beta1,
-                beta2, epsilon, coeff):
+                beta2, epsilon, coeff, guard=None, flag=None):
     """Update every ``params[i]`` (fp32, bf16 or f16, one dtype), its fp32
     moments ``m1s[i]``, ``m2s[i]`` and master ``masters[i]`` (None for
     none) in place from ``grads[i]`` (the params' dtype), with AdamW's
     decay ``coeff`` where ``decays[i]``; lr and t are one-element fp32
-    tensors on the params' device."""
+    tensors on the params' device. `guard` "probe" or "apply" takes the
+    guard's forms over the int32 one-element device tensor `flag` (module
+    docstring)."""
     if not params:
         return
+    if guard is not None and (guard not in GUARDS or flag is None
+                              or flag.dtype != torch.int32
+                              or flag.numel() != 1
+                              or flag.device != params[0].device):
+        raise ValueError(f"guard must be one of {tuple(GUARDS)} with an "
+                         f"int32 one-element flag on the params' device, "
+                         f"got {guard!r} and {flag!r}")
     if params[0].device.type == "cpu":
         adam_update_reference(params, grads, m1s, m2s, masters, decays, lr,
-                              t, beta1, beta2, epsilon, coeff)
+                              t, beta1, beta2, epsilon, coeff, guard, flag)
         return
     _check(params, grads, m1s, m2s, masters, decays, lr, t)
     fn = _lib_fn()
+    name = "adam_update" if guard is None else f"adam_update_{guard}"
+    mode = 0 if guard is None else GUARDS[guard]
+    flag_ptr = ctypes.c_void_p(None if flag is None else flag.data_ptr())
     live = [i for i, p in enumerate(params) if p.numel()]
     consts = (_f32(beta1), _f32(beta2), _f32(1 - beta1), _f32(1 - beta2),
               _f32(epsilon), _f32(coeff))
@@ -217,18 +285,17 @@ def adam_update(params, grads, m1s, m2s, masters, decays, lr, t, beta1,
                        for i in idx]
             arrays = [ptrs(*[None if x is None else x.data_ptr()
                              for x in col]) for col in zip(*tensors)]
-            numels = [params[i].numel() for i in idx]
-            first = chunk_plan(numels)
             flags = [(1 if decays[i] else 0)
-                     | (2 if _aligned(*tensors[j]) else 0)
+                     | (ALIGNED if _aligned(*tensors[j]) else 0)
                      for j, i in enumerate(idx)]
-            err = fn(k, *arrays, (ctypes.c_longlong * k)(*numels),
-                     (ctypes.c_int * (k + 1))(*first),
-                     (ctypes.c_ubyte * k)(*flags),
+            err = fn(k, *arrays,
+                     *plan_args([params[i].numel() for i in idx], flags),
                      ctypes.c_void_p(lr.data_ptr()),
-                     ctypes.c_void_p(t.data_ptr()), *consts, dtype,
-                     ctypes.c_void_p(stream))
+                     ctypes.c_void_p(t.data_ptr()), *consts, mode,
+                     flag_ptr, dtype, ctypes.c_void_p(stream))
             if err != 0:
-                raise RuntimeError(f"adam_update launch failed: cudaError "
+                raise RuntimeError(f"{name} launch failed: cudaError "
                                    f"{err}")
-            launches["adam_update"] += 1
+            launches[name] += 1
+            if guard != "probe":
+                numerics.check(name, *(params[i] for i in idx))

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from ..framework.flags import get_flags
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
@@ -160,6 +161,7 @@ def cross_entropy_fwd(logits, labels):
     if err != 0:
         raise RuntimeError(f"cross_entropy_fwd launch failed: cudaError {err}")
     launches["cross_entropy_fwd"] += 1
+    numerics.check("cross_entropy_fwd", loss, lse)
     return loss, lse
 
 
@@ -192,6 +194,7 @@ def cross_entropy_bwd(logits, labels, lse, g):
     if err != 0:
         raise RuntimeError(f"cross_entropy_bwd launch failed: cudaError {err}")
     launches["cross_entropy_bwd"] += 1
+    numerics.check("cross_entropy_bwd", dlogits)
     return dlogits
 
 

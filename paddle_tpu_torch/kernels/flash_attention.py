@@ -42,6 +42,7 @@ import math
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
 
@@ -379,6 +380,7 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
                  ctypes.c_void_p(stream))
     _raise_for(err, "flash_attention_fwd")
     launches["flash_attention_fwd"] += 1
+    numerics.check("flash_attention_fwd", out, lse)
     return out, lse
 
 
@@ -467,6 +469,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
                  int(bool(causal)), code, ctypes.c_void_p(stream))
     _raise_for(err, f"flash_attention_bwd_{name}")
     launches[f"flash_attention_bwd_{name}"] += 1
+    numerics.check(f"flash_attention_bwd_{name}", *outs)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, scale):

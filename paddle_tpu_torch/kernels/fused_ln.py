@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from ..framework.flags import get_flags
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
@@ -134,6 +135,7 @@ def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
     if err != 0:
         raise RuntimeError(f"fused_ln launch failed: cudaError {err}")
     launches["fused_ln"] += 1
+    numerics.check("fused_ln", out)
     return out
 
 

@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from . import _build
 
 __all__ = ["keyed_draw", "keyed_draw_reference", "threefry2x32",
@@ -274,5 +275,6 @@ def keyed_draw(raw, filtered, temperature, seeds, positions, out=None,
                  row_stride, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"keyed_draw launch failed: cudaError {err}")
+    # no `numerics.check`: the outputs are token ids, not floats
     launches["keyed_draw_rows" if row_stride else "keyed_draw"] += 1
     return out

@@ -40,6 +40,7 @@ import ctypes
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
 
@@ -275,4 +276,5 @@ def lora_delta(y, x, a, b, scale, idx, layer):
     if err != 0:
         raise RuntimeError(f"lora_delta launch failed: cudaError {err}")
     launches["lora_delta"] += 1
+    numerics.check("lora_delta", y)
     return y

@@ -50,6 +50,7 @@ import math
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from ..quantization.kv_cache import dequantize
 from . import _build
 from ._dtype import FLOAT_DTYPES, SHORT_NAMES, dtype_code, pool_code
@@ -288,6 +289,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, lens, block_size,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    numerics.check(name, out)
     return out
 
 
@@ -393,4 +395,5 @@ def paged_decode_append(q, k_new, v_new, k_pool, v_pool, block_tables,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    numerics.check(name, out)
     return out

@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from ..device import require_hopper
+from ..ops import numerics
 from ..quantization.kv_cache import quantize_scatter
 from . import _build
 from ._dtype import FLOAT_DTYPES, SHORT_NAMES, dtype_code
@@ -255,6 +256,7 @@ def prefill_scatter(k_pools, v_pools, k_layers, v_layers, block_row, length,
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     launches[name] += 1
+    numerics.check(name, k_pools, v_pools, k_scales, v_scales)
 
 
 def run(fn, k_pools, v_pools, k_layers, v_layers, block_row, length,

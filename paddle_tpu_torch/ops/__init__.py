@@ -1,6 +1,7 @@
-"""Operator-level services of the port. So far `guardian`: the fault
-injector (the serving engine's chaos hooks) and the loss-scale transition
-of `amp.GradScaler`."""
-from . import guardian  # noqa: F401
+"""Operator-level services of the port: `guardian` (the numeric guard's
+predicate, its lazy check queue and statistics, the fault injector, the
+loss-scale transition of `amp.GradScaler`) and `numerics` (the per-op
+checks of ``FLAGS_check_nan_inf`` and ``FLAGS_check_numerics``)."""
+from . import guardian, numerics  # noqa: F401
 
-__all__ = ["guardian"]
+__all__ = ["guardian", "numerics"]

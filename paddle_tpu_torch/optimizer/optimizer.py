@@ -17,6 +17,26 @@ step count; the update reads lr and the step from two fp32 device scalars
 (`_device_scalars`), which `_begin_step` fills by value before each launch
 or graph replay.
 
+The numeric guard (``FLAGS_check_numerics``, `ops.guardian`): with
+`guardian.skip_step_enabled()`, `_update(..., guard="check")` zeroes an
+int32 device flag per device (`_guard_flag`, made once like the scalars),
+computes the new state of every group without writing it, ORs into the
+flag whether any gradient (after the regularizer and the clip) or new
+parameter, master or accumulator is not finite, across all the step's
+dtype groups (the guard takes parameters on one device, as `TrainStep`'s
+graph does), and only then writes every group where the flag is clear:
+a bad step changes no bit of the state, and the step count still
+advances. Adam and AdamW probe and apply with their kernel's two
+forms; the others compute their new state out of place
+(`_update_group` on copies), check it with
+`kernels.finite_check.multi_tensor_finite` and copy it in with
+`multi_tensor_copy_if`. ``guard="strict"`` (`jit.TrainStep` under
+``FLAGS_check_nan_inf``) writes where a flag its caller set is clear. The
+guard's names are `guardian.mode`'s.
+`step` queues the outcome (`guardian.note_step`) and ends at the
+boundary `guardian.maybe_flush()`; nothing syncs. With the guard off the
+update is the unguarded one, launch for launch.
+
 ``weight_decay=<float>`` means `L2Decay(weight_decay)`; a regularizer
 object is taken as it is. State-dict keys are ``<param name>_<accumulator
 name>``, ``LR_Scheduler`` and ``_step_count``, the reference's; a
@@ -31,6 +51,8 @@ from collections import defaultdict
 import torch
 
 from .. import amp
+from ..kernels.finite_check import multi_tensor_copy_if, multi_tensor_finite
+from ..ops import guardian, numerics
 from .lr import LRScheduler
 from .regularizer import L2Decay, apply_all
 
@@ -78,6 +100,8 @@ class Optimizer:
         self._step_count = 0
         # device -> (lr, t): the fp32 scalars the update reads
         self._scalars = {}
+        # device -> the guard's int32 flag (nonzero: skip the step)
+        self._flags = {}
 
     # -- learning rate ------------------------------------------------------
     def get_lr(self):
@@ -119,6 +143,16 @@ class Optimizer:
             lr_dev.fill_(lr)
             t_dev.fill_(self._step_count)
 
+    def _guard_flag(self, device):
+        """The guard's int32 flag on `device` (made once per device; a
+        CUDA graph keeps reading it): nonzero where the step must not
+        write."""
+        device = torch.device(device)
+        if device not in self._flags:
+            self._flags[device] = torch.zeros((), dtype=torch.int32,
+                                              device=device)
+        return self._flags[device]
+
     # -- accumulators -------------------------------------------------------
     def _add_accumulator(self, name, param, fill_value=0.0, dtype=None):
         """Make accumulator `name` of `param` once: `fill_value` in `dtype`
@@ -142,10 +176,48 @@ class Optimizer:
         {new accumulators})``, without side effects."""
         raise NotImplementedError
 
-    def _update(self, params_grads):
-        """Update every ``(param, grad)`` pair in place, from the device
-        scalars of `_begin_step`; the optimizer's accumulators exist."""
+    def _update_group(self, device, keys, ps, gs, accs):
+        """The multi-tensor update of one (device, dtype) group: write the
+        new values into `ps` and ``accs[name]`` (lists in the order of
+        `keys`, the group's parameters, which name each tensor's own
+        settings) from `gs`, in place."""
         raise NotImplementedError
+
+    def _group_accs(self, ps):
+        """``{accumulator name: [tensor of each of ps]}``."""
+        return {name: [slot[p] for p in ps]
+                for name, slot in self._accumulators.items()
+                if ps and all(p in slot for p in ps)}
+
+    def _update(self, params_grads, guard=None):
+        """Update every ``(param, grad)`` pair in place, from the device
+        scalars of `_begin_step`; the optimizer's accumulators exist.
+        `guard`: None, "check" or "strict" (`guardian.mode`; module
+        docstring)."""
+        groups = self._groups(params_grads)
+        if guard is None:
+            for device, _, ps, gs in groups:
+                self._update_group(device, ps, ps, gs, self._group_accs(ps))
+            return
+        staged = []
+        for device, _, ps, gs in groups:
+            accs = self._group_accs(ps)
+            olds = list(ps) + [t for ts in accs.values() for t in ts]
+            news = [torch.empty_like(t) for t in olds]
+            torch._foreach_copy_(news, olds)
+            new_accs, at = {}, len(ps)
+            for name, ts in accs.items():
+                new_accs[name] = news[at:at + len(ts)]
+                at += len(ts)
+            self._update_group(device, ps, news[:len(ps)], gs, new_accs)
+            staged.append((device, olds, news, gs))
+        if guard == "check":
+            for d in {d for d, _, _, _ in staged}:
+                self._guard_flag(d).zero_()
+            for d, _, news, gs in staged:
+                multi_tensor_finite(list(gs) + news, self._guard_flag(d))
+        for d, olds, news, _ in staged:
+            multi_tensor_copy_if(olds, news, self._guard_flag(d))
 
     def _groups(self, params_grads):
         """``(device, dtype, params, grads)`` for each (device, parameter
@@ -174,21 +246,35 @@ class Optimizer:
     @torch.no_grad()
     def step(self):
         """Regularize and clip the gradients (where a regularizer or a clip
-        is set) and update every parameter that has one. An `amp.auto_cast`
-        around the call does not reach the update."""
+        is set) and update every parameter that has one (under the guard,
+        only where the step is finite), then resolve the guard's checks
+        that are ready. An `amp.auto_cast` around the call does not reach
+        the update, nor do the per-op checks (`ops.numerics`)."""
         params_grads = [(p, p.grad) for p in self._parameter_list
                         if p.grad is not None]
-        if not params_grads:
-            return
-        with amp.suspended():
-            self._apply_optimize(self._prepare(params_grads))
+        if params_grads:
+            with amp.suspended(), numerics.suspended():
+                self._apply_optimize(self._prepare(params_grads))
+        guardian.maybe_flush()
 
     @torch.no_grad()
     def _apply_optimize(self, params_grads):
-        """One update of each ``(param, grad)`` pair, as they are given."""
+        """One update of each ``(param, grad)`` pair, as they are given;
+        under the guard, the checked update and its outcome queued."""
         self._create_accumulators([p for p, _ in params_grads])
-        self._begin_step({p.device for p, _ in params_grads})
-        self._update(params_grads)
+        devices = {p.device for p, _ in params_grads}
+        guarded = guardian.skip_step_enabled()
+        if guarded and len(devices) > 1:
+            raise NotImplementedError("the numeric guard takes parameters "
+                                      "on one device")
+        self._begin_step(devices)
+        if not guarded:
+            self._update(params_grads)
+            return
+        self._update(params_grads, guard="check")
+        guardian.note_step("eager_step",
+                           self._guard_flag(next(iter(devices))).eq(0),
+                           step_index=self._step_count)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -11,16 +11,19 @@ Each optimizer has two code paths:
 
 - `_single_update(p, g, accs, lr, step)`, the rule on one tensor with
   plain torch ops and no side effects: the plain version;
-- `_update(params_grads)`, the same operations in the same order over
-  each (device, parameter dtype) group at once as multi-tensor ops
-  (``torch._foreach_*``, `torch._foreach_norm` for Lamb's and Lars'
-  per-tensor norms), written into the parameters and accumulators in
-  place. This is what `step` and `jit.TrainStep` run.
+- `_update_group(device, keys, ps, gs, accs)`, the same operations in
+  the same order over one (device, parameter dtype) group at once as
+  multi-tensor ops (``torch._foreach_*``, `torch._foreach_norm` for
+  Lamb's and Lars' per-tensor norms), written into `ps` and `accs` in
+  place: the parameters and accumulators themselves, or under the
+  numeric guard copies of them (`Optimizer._update`). This is what
+  `step` and `jit.TrainStep` run.
 
 On the CPU the two are equal bit for bit (the multi-tensor ops run the
 same kernels tensor by tensor there); the tests hold them so. The
 reference computes these rules with XLA ops, not in a Pallas kernel, so
-none has a hand-written kernel; `Adam` and `AdamW` have theirs.
+none has a hand-written kernel of its own (the guard's check and copy are
+`kernels.finite_check`); `Adam` and `AdamW` have theirs.
 
 Adam and AdamW. The rule differs from `torch.optim.AdamW`'s: epsilon is
 added to sqrt(m2) before bias correction, which goes into the step size
@@ -37,7 +40,8 @@ applies). Moments are fp32 whatever the parameter's dtype; with
 copy, updated in fp32 and written back cast to the parameter's dtype. An
 update over a list makes one `kernels.adam_update.adam_update` call per
 group: one kernel launch on the card (per 512 tensors), the rule tensor by
-tensor on the CPU. ``lazy_mode`` changes nothing for dense gradients, and
+tensor on the CPU; under the guard, every group's probe, then every
+group's gated apply. ``lazy_mode`` changes nothing for dense gradients, and
 AdamW stores ``lr_ratio`` without applying it, as the reference does
 (ROADMAP.md Queue 3).
 """
@@ -107,11 +111,11 @@ class SGD(Optimizer):
         lr, _ = _scalars(p, lr, step)
         return p - lr.to(p.dtype) * g.to(p.dtype), {}
 
-    def _update(self, params_grads):
-        for device, dtype, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            torch._foreach_sub_(ps, torch._foreach_mul(_as_dtype(gs, dtype),
-                                                       lr.to(dtype)))
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, _ = self._device_scalars(device)
+        dtype = ps[0].dtype
+        torch._foreach_sub_(ps, torch._foreach_mul(_as_dtype(gs, dtype),
+                                                   lr.to(dtype)))
 
 
 class Momentum(Optimizer):
@@ -138,21 +142,21 @@ class Momentum(Optimizer):
         upd = g + self._momentum * v_new if self._use_nesterov else v_new
         return p - lr.to(p.dtype) * upd.to(p.dtype), {"velocity": v_new}
 
-    def _update(self, params_grads):
-        for device, dtype, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            vs = [self._accumulators["velocity"][p] for p in ps]
-            gs = _as_dtype(gs, dtype)
-            # out of place: on the CPU the in-place multi-tensor product
-            # by a number rounds the number to a bf16 velocity's dtype
-            v_new = torch._foreach_mul(vs, self._momentum)
-            torch._foreach_add_(v_new, gs)
-            torch._foreach_copy_(vs, v_new)
-            upd = vs
-            if self._use_nesterov:
-                upd = torch._foreach_mul(vs, self._momentum)
-                torch._foreach_add_(upd, gs)
-            torch._foreach_sub_(ps, torch._foreach_mul(upd, lr.to(dtype)))
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, _ = self._device_scalars(device)
+        dtype = ps[0].dtype
+        vs = accs["velocity"]
+        gs = _as_dtype(gs, dtype)
+        # out of place: on the CPU the in-place multi-tensor product by a
+        # number rounds the number to a bf16 velocity's dtype
+        v_new = torch._foreach_mul(vs, self._momentum)
+        torch._foreach_add_(v_new, gs)
+        torch._foreach_copy_(vs, v_new)
+        upd = vs
+        if self._use_nesterov:
+            upd = torch._foreach_mul(vs, self._momentum)
+            torch._foreach_add_(upd, gs)
+        torch._foreach_sub_(ps, torch._foreach_mul(upd, lr.to(dtype)))
 
 
 class Adam(Optimizer):
@@ -194,17 +198,30 @@ class Adam(Optimizer):
             out["master_weight"] = new_master
         return new_p, out
 
-    def _update(self, params_grads):
+    def _update(self, params_grads, guard=None):
         accs = self._accumulators
+        calls = []
         for device, dtype, ps, gs in self._groups(params_grads):
             lr, t = self._device_scalars(device)
-            adam_update(
+            calls.append((device, (
                 ps, [g.to(dtype).contiguous() for g in gs],
                 [accs["moment1"][p] for p in ps],
                 [accs["moment2"][p] for p in ps],
                 [accs["master_weight"].get(p) for p in ps],
                 [self._decays(p) for p in ps], lr, t, self._beta1,
-                self._beta2, self._epsilon, self._coeff)
+                self._beta2, self._epsilon, self._coeff)))
+        if guard is None:
+            for _, args in calls:
+                adam_update(*args)
+            return
+        if guard == "check":
+            for device in {device for device, _ in calls}:
+                self._guard_flag(device).zero_()
+            for device, args in calls:
+                adam_update(*args, guard="probe",
+                            flag=self._guard_flag(device))
+        for device, args in calls:
+            adam_update(*args, guard="apply", flag=self._guard_flag(device))
 
 
 class AdamW(Adam):
@@ -280,30 +297,28 @@ class Lamb(Optimizer):
         new_p = pf - lr * trust * r
         return new_p.to(p.dtype), {"moment1": m1, "moment2": m2}
 
-    def _update(self, params_grads):
+    def _update_group(self, device, keys, ps, gs, accs):
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, t = self._device_scalars(device)
-            m1s = [self._accumulators["moment1"][p] for p in ps]
-            m2s = [self._accumulators["moment2"][p] for p in ps]
-            gfs, pfs = _as_dtype(gs), _as_dtype(ps)
-            _ema_(m1s, b1, gfs)
-            _ema_sq_(m2s, b2, gfs)
-            r = torch._foreach_div(m1s, 1 - torch.pow(b1, t))
-            den = torch._foreach_sqrt(torch._foreach_div(
-                m2s, 1 - torch.pow(b2, t)))
-            torch._foreach_add_(den, eps)
-            torch._foreach_div_(r, den)
-            decay = [i for i, p in enumerate(ps) if self._decays(p)]
-            if decay:
-                torch._foreach_add_([r[i] for i in decay], torch._foreach_mul(
-                    [pfs[i] for i in decay], self._wd))
-            w_norm = torch.stack(torch._foreach_norm(pfs))
-            r_norm = torch.stack(torch._foreach_norm(r))
-            trust = torch.where((w_norm > 0) & (r_norm > 0),
-                                w_norm / r_norm, 1.0)
-            torch._foreach_mul_(r, list((lr * trust).unbind()))
-            _subtract_into(ps, pfs, r)
+        lr, t = self._device_scalars(device)
+        m1s, m2s = accs["moment1"], accs["moment2"]
+        gfs, pfs = _as_dtype(gs), _as_dtype(ps)
+        _ema_(m1s, b1, gfs)
+        _ema_sq_(m2s, b2, gfs)
+        r = torch._foreach_div(m1s, 1 - torch.pow(b1, t))
+        den = torch._foreach_sqrt(torch._foreach_div(
+            m2s, 1 - torch.pow(b2, t)))
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(r, den)
+        decay = [i for i, p in enumerate(keys) if self._decays(p)]
+        if decay:
+            torch._foreach_add_([r[i] for i in decay], torch._foreach_mul(
+                [pfs[i] for i in decay], self._wd))
+        w_norm = torch.stack(torch._foreach_norm(pfs))
+        r_norm = torch.stack(torch._foreach_norm(r))
+        trust = torch.where((w_norm > 0) & (r_norm > 0),
+                            w_norm / r_norm, 1.0)
+        torch._foreach_mul_(r, list((lr * trust).unbind()))
+        _subtract_into(ps, pfs, r)
 
 
 class RMSProp(Optimizer):
@@ -345,27 +360,25 @@ class RMSProp(Optimizer):
         out["momentum_acc"] = mom
         return (p.to(_F32) - mom).to(p.dtype), out
 
-    def _update(self, params_grads):
-        acc = self._accumulators
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            gfs = _as_dtype(gs)
-            ms = [acc["mean_square"][p] for p in ps]
-            _ema_sq_(ms, self._rho, gfs)
-            if self._centered:
-                mg = [acc["mean_grad"][p] for p in ps]
-                _ema_(mg, self._rho, gfs)
-                denom = torch._foreach_sub(ms, torch._foreach_mul(mg, mg))
-                torch._foreach_add_(denom, self._epsilon)
-            else:
-                denom = torch._foreach_add(ms, self._epsilon)
-            torch._foreach_sqrt_(denom)
-            step = torch._foreach_mul(gfs, lr)
-            torch._foreach_div_(step, denom)
-            mom = [acc["momentum_acc"][p] for p in ps]
-            torch._foreach_mul_(mom, self._momentum)
-            torch._foreach_add_(mom, step)
-            _subtract_into(ps, _as_dtype(ps), mom)
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, _ = self._device_scalars(device)
+        gfs = _as_dtype(gs)
+        ms = accs["mean_square"]
+        _ema_sq_(ms, self._rho, gfs)
+        if self._centered:
+            mg = accs["mean_grad"]
+            _ema_(mg, self._rho, gfs)
+            denom = torch._foreach_sub(ms, torch._foreach_mul(mg, mg))
+            torch._foreach_add_(denom, self._epsilon)
+        else:
+            denom = torch._foreach_add(ms, self._epsilon)
+        torch._foreach_sqrt_(denom)
+        step = torch._foreach_mul(gfs, lr)
+        torch._foreach_div_(step, denom)
+        mom = accs["momentum_acc"]
+        torch._foreach_mul_(mom, self._momentum)
+        torch._foreach_add_(mom, step)
+        _subtract_into(ps, _as_dtype(ps), mom)
 
 
 class Adagrad(Optimizer):
@@ -392,17 +405,16 @@ class Adagrad(Optimizer):
         new_p = p.to(_F32) - lr * gf / (torch.sqrt(m) + self._epsilon)
         return new_p.to(p.dtype), {"moment": m}
 
-    def _update(self, params_grads):
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            gfs = _as_dtype(gs)
-            ms = [self._accumulators["moment"][p] for p in ps]
-            torch._foreach_add_(ms, torch._foreach_mul(gfs, gfs))
-            den = torch._foreach_sqrt(ms)
-            torch._foreach_add_(den, self._epsilon)
-            step = torch._foreach_mul(gfs, lr)
-            torch._foreach_div_(step, den)
-            _subtract_into(ps, _as_dtype(ps), step)
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, _ = self._device_scalars(device)
+        gfs = _as_dtype(gs)
+        ms = accs["moment"]
+        torch._foreach_add_(ms, torch._foreach_mul(gfs, gfs))
+        den = torch._foreach_sqrt(ms)
+        torch._foreach_add_(den, self._epsilon)
+        step = torch._foreach_mul(gfs, lr)
+        torch._foreach_div_(step, den)
+        _subtract_into(ps, _as_dtype(ps), step)
 
 
 class Adadelta(Optimizer):
@@ -436,21 +448,18 @@ class Adadelta(Optimizer):
         return new_p.to(p.dtype), {"avg_squared_grad": asg,
                                    "avg_squared_update": asu}
 
-    def _update(self, params_grads):
-        acc = self._accumulators
+    def _update_group(self, device, keys, ps, gs, accs):
         eps = self._epsilon
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            gfs = _as_dtype(gs)
-            asg = [acc["avg_squared_grad"][p] for p in ps]
-            asu = [acc["avg_squared_update"][p] for p in ps]
-            _ema_sq_(asg, self._rho, gfs)
-            update = torch._foreach_sqrt(torch._foreach_add(asu, eps))
-            torch._foreach_mul_(update, gfs)
-            torch._foreach_div_(update, torch._foreach_sqrt(
-                torch._foreach_add(asg, eps)))
-            _ema_sq_(asu, self._rho, update)
-            _subtract_into(ps, _as_dtype(ps), torch._foreach_mul(update, lr))
+        lr, _ = self._device_scalars(device)
+        gfs = _as_dtype(gs)
+        asg, asu = accs["avg_squared_grad"], accs["avg_squared_update"]
+        _ema_sq_(asg, self._rho, gfs)
+        update = torch._foreach_sqrt(torch._foreach_add(asu, eps))
+        torch._foreach_mul_(update, gfs)
+        torch._foreach_div_(update, torch._foreach_sqrt(
+            torch._foreach_add(asg, eps)))
+        _ema_sq_(asu, self._rho, update)
+        _subtract_into(ps, _as_dtype(ps), torch._foreach_mul(update, lr))
 
 
 class Adamax(Optimizer):
@@ -481,19 +490,16 @@ class Adamax(Optimizer):
         new_p = p.to(_F32) - lr_t * m / (u + self._epsilon)
         return new_p.to(p.dtype), {"moment": m, "inf_norm": u}
 
-    def _update(self, params_grads):
-        acc = self._accumulators
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, t = self._device_scalars(device)
-            gfs = _as_dtype(gs)
-            ms = [acc["moment"][p] for p in ps]
-            us = [acc["inf_norm"][p] for p in ps]
-            _ema_(ms, self._beta1, gfs)
-            torch._foreach_mul_(us, self._beta2)
-            torch._foreach_maximum_(us, torch._foreach_abs(gfs))
-            step = torch._foreach_mul(ms, lr / (1 - torch.pow(self._beta1, t)))
-            torch._foreach_div_(step, torch._foreach_add(us, self._epsilon))
-            _subtract_into(ps, _as_dtype(ps), step)
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, t = self._device_scalars(device)
+        gfs = _as_dtype(gs)
+        ms, us = accs["moment"], accs["inf_norm"]
+        _ema_(ms, self._beta1, gfs)
+        torch._foreach_mul_(us, self._beta2)
+        torch._foreach_maximum_(us, torch._foreach_abs(gfs))
+        step = torch._foreach_mul(ms, lr / (1 - torch.pow(self._beta1, t)))
+        torch._foreach_div_(step, torch._foreach_add(us, self._epsilon))
+        _subtract_into(ps, _as_dtype(ps), step)
 
 
 class Lars(Optimizer):
@@ -542,25 +548,24 @@ class Lars(Optimizer):
         v_new = self._momentum * accs["velocity"] + lr * local_lr * upd
         return (pf - v_new).to(p.dtype), {"velocity": v_new}
 
-    def _update(self, params_grads):
-        for device, _, ps, gs in self._groups(params_grads):
-            lr, _ = self._device_scalars(device)
-            wds = [self._decay(p) for p in ps]
-            gfs, pfs = _as_dtype(gs), _as_dtype(ps)
-            p_norms = torch._foreach_norm(pfs)
-            g_norms = torch._foreach_norm(gfs)
-            den = torch._foreach_mul(p_norms, wds)
-            torch._foreach_add_(den, g_norms)
-            torch._foreach_add_(den, self._epsilon)
-            ratio = torch._foreach_div(torch._foreach_mul(p_norms,
-                                                          self._coeff), den)
-            p_norm, g_norm = torch.stack(p_norms), torch.stack(g_norms)
-            local_lr = torch.where((p_norm > 0) & (g_norm > 0),
-                                   torch.stack(ratio), 1.0)
-            upd = torch._foreach_mul(pfs, wds)
-            torch._foreach_add_(upd, gfs)
-            torch._foreach_mul_(upd, list((lr * local_lr).unbind()))
-            vs = [self._accumulators["velocity"][p] for p in ps]
-            torch._foreach_mul_(vs, self._momentum)
-            torch._foreach_add_(vs, upd)
-            _subtract_into(ps, pfs, vs)
+    def _update_group(self, device, keys, ps, gs, accs):
+        lr, _ = self._device_scalars(device)
+        wds = [self._decay(p) for p in keys]
+        gfs, pfs = _as_dtype(gs), _as_dtype(ps)
+        p_norms = torch._foreach_norm(pfs)
+        g_norms = torch._foreach_norm(gfs)
+        den = torch._foreach_mul(p_norms, wds)
+        torch._foreach_add_(den, g_norms)
+        torch._foreach_add_(den, self._epsilon)
+        ratio = torch._foreach_div(torch._foreach_mul(p_norms, self._coeff),
+                                   den)
+        p_norm, g_norm = torch.stack(p_norms), torch.stack(g_norms)
+        local_lr = torch.where((p_norm > 0) & (g_norm > 0),
+                               torch.stack(ratio), 1.0)
+        upd = torch._foreach_mul(pfs, wds)
+        torch._foreach_add_(upd, gfs)
+        torch._foreach_mul_(upd, list((lr * local_lr).unbind()))
+        vs = accs["velocity"]
+        torch._foreach_mul_(vs, self._momentum)
+        torch._foreach_add_(vs, upd)
+        _subtract_into(ps, pfs, vs)

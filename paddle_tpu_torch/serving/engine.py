@@ -182,7 +182,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels import add_launches, capture_graph, warm_up
+from ..kernels import capture_graph, warm_up
 from ..nn.functional.attention import resolve_paged_kernel
 from .cache import (BlockAllocator, PagedCacheView, PagedKVCache, is_int8,
                     scatter_prefill)
@@ -1451,13 +1451,7 @@ class LLMEngine:
         go to buffers made outside it, and the next replay reads them
         from there), so the graphs may replay in any order, one at a
         time."""
-        graph, _, launched = capture_graph(fn, self._pf_pool)
-
-        def replay():
-            graph.replay()
-            add_launches(launched)
-
-        return replay
+        return capture_graph(fn, self._pf_pool)[0]
 
     def _decode_step(self):
         """One token for every slot through the decode program (inactive
@@ -1586,18 +1580,15 @@ class LLMEngine:
                     self._decode_head(slots, logits, sampled)
 
             warm_up(step, self.device)
-        forward, logits, fwd_launched = capture_graph(
+        forward, logits = capture_graph(
             functools.partial(self._decode_forward, slots, views))
         heads = {sampled: capture_graph(functools.partial(
-            self._decode_head, slots, logits, sampled))
+            self._decode_head, slots, logits, sampled))[0]
             for sampled in (True, False)}
 
         def replay(sampled):
-            head, _, head_launched = heads[sampled]
-            forward.replay()
-            head.replay()
-            add_launches(fwd_launched)
-            add_launches(head_launched)
+            forward()
+            heads[sampled]()
             return logits
 
         self._decode_program = replay

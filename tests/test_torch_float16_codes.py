@@ -18,19 +18,21 @@ import pytest
 import torch
 
 from paddle_tpu_torch.kernels import (_build, _dtype, adam_update,
-                                      cross_entropy, flash_attention,
-                                      fused_ln, lora_delta, paged_attention,
-                                      prefill_scatter)
+                                      cross_entropy, finite_check,
+                                      flash_attention, fused_ln, lora_delta,
+                                      paged_attention, prefill_scatter)
 
 META = "meta"
 DTYPES = (torch.float32, torch.bfloat16, torch.float16)
-MODULES = (adam_update, cross_entropy, flash_attention, fused_ln,
-           lora_delta, paged_attention, prefill_scatter)
+MODULES = (adam_update, cross_entropy, finite_check, flash_attention,
+           fused_ln, lora_delta, paged_attention, prefill_scatter)
 # what the size queries of the libraries answer
 _CONSTANTS = {"paddle_prefill_scatter_max_layers": prefill_scatter.MAX_LAYERS,
               "paddle_prefill_scatter_max_heads": prefill_scatter.MAX_HEADS,
               "paddle_adam_update_chunk": adam_update.CHUNK,
-              "paddle_adam_update_max_tensors": adam_update.MAX_TENSORS}
+              "paddle_adam_update_max_tensors": adam_update.MAX_TENSORS,
+              "paddle_finite_check_chunk": adam_update.CHUNK,
+              "paddle_finite_check_max_tensors": adam_update.MAX_TENSORS}
 
 
 class _Entry:
@@ -91,6 +93,8 @@ def test_the_codes_are_the_sources():
     assert _dtype.CODES == {torch.float32: 0, torch.bfloat16: 1,
                             torch.float16: 2}
     assert _dtype.pool_code(torch.int8) == 3
+    assert _dtype.wide_code(torch.float64) == _dtype.FLOAT64 == 4
+    assert all(_dtype.wide_code(d) == _dtype.dtype_code(d) for d in DTYPES)
     with pytest.raises(TypeError):
         _dtype.dtype_code(torch.float64)
 
@@ -178,19 +182,94 @@ def test_fused_ln(calls, dtype, affine_dtype):
         (_want(dtype), _want(affine_dtype))
 
 
+@pytest.mark.parametrize("guard", [None, "probe", "apply"])
 @pytest.mark.parametrize("masters", [False, True])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_adam_update(calls, dtype, masters):
+def test_adam_update(calls, dtype, masters, guard):
     params = [torch.zeros(n, dtype=dtype, device=META) for n in (5, 4096)]
     grads = [torch.zeros_like(p) for p in params]
     fp32 = [[torch.zeros(p.shape, device=META) for p in params]
             for _ in range(3)]
     scalar = torch.zeros(1, device=META)
+    flag = None if guard is None else torch.zeros((), dtype=torch.int32,
+                                                  device=META)
     adam_update.adam_update(params, grads, fp32[0], fp32[1],
                             fp32[2] if masters else [None] * 2,
                             [True, False], scalar, scalar.clone(), 0.9,
-                            0.999, 1e-8, 0.01)
-    assert _codes(calls, "paddle_adam_update", -2) == (_want(dtype),)
+                            0.999, 1e-8, 0.01, guard=guard, flag=flag)
+    mode = 0 if guard is None else adam_update.GUARDS[guard]
+    assert _codes(calls, "paddle_adam_update", -4, -2) == (mode,
+                                                           _want(dtype))
+    name = "adam_update" if guard is None else f"adam_update_{guard}"
+    assert adam_update.launches[name] > 0
+
+
+@pytest.mark.parametrize("unscale", [False, True])
+def test_multi_tensor_finite(calls, unscale):
+    """One launch per dtype of a mixed list, each with its code."""
+    tensors = [torch.zeros(n, dtype=dtype, device=META)
+               for n in (3, 70000) for dtype in DTYPES]
+    flag = torch.zeros((), dtype=torch.int32, device=META)
+    scale = torch.zeros((), device=META) if unscale else None
+    finite_check.multi_tensor_finite(tensors, flag, scale)
+    got = [a for n, a in calls if n == "paddle_multi_tensor_finite"]
+    assert [(int(a[0]), int(a[-2])) for a in got] == [
+        (2, _want(d)) for d in DTYPES]
+    name = "multi_tensor_finite_unscale" if unscale \
+        else "multi_tensor_finite"
+    assert finite_check.launches[name] >= len(DTYPES)
+
+
+def test_multi_tensor_copy_if(calls):
+    dsts = [torch.zeros(n, dtype=dtype, device=META)
+            for n in (3, 70000) for dtype in DTYPES]
+    srcs = [torch.zeros_like(t) for t in dsts]
+    finite_check.multi_tensor_copy_if(
+        dsts, srcs, torch.zeros((), dtype=torch.int32, device=META))
+    got = [a for n, a in calls if n == "paddle_multi_tensor_copy_if"]
+    assert [(int(a[0]), int(a[-2])) for a in got] == [
+        (2, _want(d)) for d in DTYPES]
+
+
+@pytest.mark.parametrize("unscale", [False, True])
+def test_multi_tensor_finite_dense_layouts_and_float64(calls, unscale):
+    """A transposed (dense, not contiguous) tensor goes to the kernel by
+    the start of its elements, float64 with code 4; a strided slice is
+    refused before any launch."""
+    grads = [torch.zeros(6, 4, device=META).t(),
+             torch.zeros(3, 5, 7, dtype=torch.float64,
+                         device=META).permute(2, 0, 1)]
+    flag = torch.zeros((), dtype=torch.int32, device=META)
+    scale = torch.zeros((), device=META) if unscale else None
+    finite_check.multi_tensor_finite(grads, flag, scale)
+    got = [a for n, a in calls if n == "paddle_multi_tensor_finite"]
+    assert [(int(a[0]), int(a[-2])) for a in got] == [(1, 0),
+                                                      (1, _dtype.FLOAT64)]
+    assert [a[2][0] for a in got] == [24, 105]
+    with pytest.raises(ValueError, match="dense in memory"):
+        finite_check.multi_tensor_finite(
+            [torch.zeros(6, 8, device=META)[:, ::2]], flag, scale)
+    with pytest.raises(TypeError, match="finite-check kernels take"):
+        finite_check.multi_tensor_finite(
+            [torch.zeros(4, dtype=torch.int32, device=META)], flag, scale)
+    assert len([n for n, _ in calls
+                if n == "paddle_multi_tensor_finite"]) == 2
+
+
+def test_multi_tensor_copy_if_dense_layouts(calls):
+    """Pairs laid out alike (both transposed, float64 too) go to the
+    kernel; a pair laid out apart is refused."""
+    flag = torch.zeros((), dtype=torch.int32, device=META)
+    dsts = [torch.zeros(6, 4, device=META).t(),
+            torch.zeros(5, 3, dtype=torch.float64, device=META).t()]
+    srcs = [torch.empty_like(t) for t in dsts]
+    assert [s.stride() for s in srcs] == [d.stride() for d in dsts]
+    finite_check.multi_tensor_copy_if(dsts, srcs, flag)
+    got = [a for n, a in calls if n == "paddle_multi_tensor_copy_if"]
+    assert [int(a[-2]) for a in got] == [0, _dtype.FLOAT64]
+    with pytest.raises(ValueError, match="laid out alike"):
+        finite_check.multi_tensor_copy_if(
+            dsts[:1], [torch.zeros(4, 6, device=META)], flag)
 
 
 @pytest.mark.parametrize("form", lora_delta.FORMS)

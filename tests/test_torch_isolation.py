@@ -61,6 +61,8 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.amp.auto_cast",
                 "paddle_tpu_torch.amp.grad_scaler",
                 "paddle_tpu_torch.ops.guardian",
+                "paddle_tpu_torch.ops.numerics",
+                "paddle_tpu_torch.kernels.finite_check",
                 "paddle_tpu_torch.framework.io",
                 "paddle_tpu_torch.incubate.checkpoint"}
     assert expected <= set(res["imported"])

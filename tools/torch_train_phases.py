@@ -2,8 +2,8 @@
 
     python3 tools/torch_train_phases.py [phase ...]
 
-phases: train_amp, train_optimizers, train_scaler, train_resume,
-train_fp16 (all of them, in that order, by default). Builds the kernels, checks the AdamW
+phases: train_amp, train_optimizers, train_scaler, train_guard,
+train_resume, train_fp16 (all of them, in that order, by default). Builds the kernels, checks the AdamW
 update kernel against its twin (its time is train_optimizers' yardstick),
 then runs each phase as `chip_smoke.py` does and prints its wall time
 (~100 s of command time for all four on an H100). A fresh process, so
@@ -23,10 +23,11 @@ def main():
     t0 = time.perf_counter()
     secs, _ = cs._build.build_all()
     print(f"build {secs:.1f} s")
-    row = cs.check_adam_update()
+    row = cs.check_adam_update()[0]
     phases = {"train_amp": cs.train_amp,
               "train_optimizers": lambda: cs.train_optimizers(row["ms"]),
               "train_scaler": cs.train_scaler,
+              "train_guard": cs.train_guard,
               "train_resume": cs.train_resume,
               "train_fp16": cs.train_fp16}
     for name in sys.argv[1:] or list(phases):
