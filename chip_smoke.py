@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                keyed draw's INT32 instructions where cuobjdump exists;
   3. kernels — hold each kernel against its plain PyTorch twin on the card
                at its paths' shapes (the flash forward at the serving and
-               the training shape) and at ragged ones, batched and not, in
+               the training shape; it and fused LN also through their
+               `torch.ops.paddle_tpu_torch` ops, which a saved program
+               calls, bit for bit with the direct calls) and at ragged ones, batched and not, in
                fp32 (TF32 off) and bf16, within the tolerances stated
                below; time
                the kernel, the twin and one PyTorch library call that
@@ -246,6 +248,21 @@ Phases, in order; any failure raises and the script exits non-zero:
                trains 4 steps under a StepCheckpointer and is killed
                (SIGKILL), a fresh one restores and runs steps 5-8: losses
                and parameters bit for bit with an uninterrupted run;
+  7c. the deployment tier — export: bf16 GPT-2 124M saved by `jit.save`
+               at [1, 1024] (a torch.export program whose attention is the
+               flash op) and `jit.load`ed: logits bit for bit with the
+               eager model's, 12 flash launches a call, save and load
+               seconds, first and warm call ms; predictor: `GPTDecodeStep`
+               saved at B = 8, a 96-token prompt, 64 new tokens (buffers of
+               160 positions), the prompt prefilled eagerly, then 63 tokens
+               through `create_predictor(Config(path)).run` (fp32, numpy
+               in and out), the loaded layer and the eager step in turns
+               token by token (ms a token each): every fp32 loop's greedy
+               tokens equal `generate`'s, the bf16 loaded layer's the eager
+               step's; async_save: the bf16 TrainStep with AdamW saved by
+               `io.async_save` after step 2 while steps 3-5 run, the file
+               bit for bit with step 2's state (blocking, wait() and a
+               plain save's ms, bytes);
   8. fused_ln — `incubate.nn.FusedBiasDropoutResidualLayerNorm(768)` in
                bf16 on [8, 1024, 768] activations, forward and backward
                for some iterations, one fused_ln launch per forward; then
@@ -293,6 +310,7 @@ import copy
 import ctypes
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -641,19 +659,28 @@ def _fused_qkv(n, dtype, seed, heads=HEADS, head_dim=HEAD_DIM, batch=1):
 def _check_flash_case(tag, q, k, v, causal):
     """The forward against its twin: out within `flash_fwd_tol`, in bf16
     and f16 also within their relative Frobenius limit
-    (`fa.flash_fro_rtol`), lse within LSE_TOL."""
+    (`fa.flash_fro_rtol`), lse within LSE_TOL; the same for the kernel
+    called as the op ``torch.ops.paddle_tpu_torch.flash_attention_fwd``
+    (what a saved program calls), whose outputs must also be the direct
+    call's bit for bit."""
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    op_out, op_lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, causal, scale)
     torch.cuda.synchronize()
-    err = _close(tag + " out", out, ref, flash_fwd_tol(v))
     limit = fa.flash_fro_rtol(q.dtype)
-    if limit is not None:
-        fro = fa.rel_fro(out, ref)
-        print(f"  {tag} out: relative Frobenius error {fro:.3e} (at most "
-              f"{limit})")
-        assert fro <= limit, (tag, fro)
-    _close(tag + " lse", lse, ref_lse, LSE_TOL)
-    return err
+    errs = []
+    for how, (o, l) in (("", (out, lse)), (" (op)", (op_out, op_lse))):
+        errs.append(_close(tag + how + " out", o, ref, flash_fwd_tol(v)))
+        if limit is not None:
+            fro = fa.rel_fro(o, ref)
+            print(f"  {tag}{how} out: relative Frobenius error {fro:.3e} "
+                  f"(at most {limit})")
+            assert fro <= limit, (tag, how, fro)
+        _close(tag + how + " lse", l, ref_lse, LSE_TOL)
+    assert torch.equal(op_out, out) and torch.equal(op_lse, lse), tag
+    return errs[0]
 
 
 def _offset_qkv(n, seed, heads=HEADS, head_dim=HEAD_DIM,
@@ -1418,10 +1445,15 @@ def check_fused_ln():
         args = _ln_inputs(r, d, dtype, seed=20 + i, affine_dtype=adt)
         out = fln.fused_ln_fwd(*args)
         ref = fln.fused_ln_reference(*args)
+        # the kernel as the op a saved program calls: the same bits
+        op_out = torch.ops.paddle_tpu_torch.fused_ln_fwd(*args, 1e-5)
         torch.cuda.synchronize()
         assert out.dtype == dtype and torch.isfinite(out.float()).all()
-        e = _close(f"fused_ln {str(dtype)[6:]} ({r}, {d}) affine "
-                   f"{str(adt or dtype)[6:]}", out, ref, LN_TOL[dtype])
+        tag = f"fused_ln {str(dtype)[6:]} ({r}, {d}) affine " \
+              f"{str(adt or dtype)[6:]}"
+        e = _close(tag, out, ref, LN_TOL[dtype])
+        _close(tag + " (op)", op_out, ref, LN_TOL[dtype])
+        assert torch.equal(op_out, out), tag
         if i == 0:
             err = e
     # main-path shape [8192, 768] bf16; 4 input sets (x, residual and the
@@ -5951,6 +5983,323 @@ def train_resume():
 
 
 # ---------------------------------------------------------------------------
+# phase 7c: the deployment tier (jit.save / jit.load, the inference
+# Predictor) and async_save
+# ---------------------------------------------------------------------------
+
+EXPORT_SEQ = 1024
+EXPORT_WARM_CALLS = 20
+# the decode step's Predictor at the reference bench's shape (bench.py:526):
+# 8 prompts of 96 tokens, 64 new ones, static buffers of 160 positions
+PRED_B, PRED_P, PRED_N = 8, 96, 64
+PRED_T = PRED_P + PRED_N
+ASYNC_SAVE_AT, ASYNC_SAVE_STEPS = 2, 5
+
+
+def _scratch_dir(prefix):
+    """A fresh directory under the checkout's build/ (which .gitignore
+    lists): the phases' files, removed by the caller."""
+    import tempfile
+    return tempfile.mkdtemp(prefix=prefix,
+                            dir=Path(__file__).resolve().parent / "build")
+
+
+def _p50_ms(fn, calls):
+    """The median host ms of `calls` synchronized calls of fn()."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def export_phase():
+    """bf16 GPT-2 124M on the card through `jit.save(model, path,
+    input_spec=[InputSpec([1, EXPORT_SEQ], "int64")])` (a `torch.export`
+    program whose attention is the flash op) and `jit.load`: the loaded
+    layer's logits equal the eager model's bit for bit, and each call
+    launches the flash forward 12 times (the hand-written kernel is in the
+    saved program). Prints the save and load seconds, the first call's ms
+    and the warm ms a call (p50 of EXPORT_WARM_CALLS). Returns the launch
+    counts of one call of the loaded layer."""
+    import shutil
+    from paddle_tpu_torch import jit
+    model = _gpt(torch.bfloat16).eval()
+    ids = torch.tensor(np.random.default_rng(11).integers(
+        0, 50257, (1, EXPORT_SEQ)), device="cuda")
+    directory = _scratch_dir("export_")
+    try:
+        t0 = time.perf_counter()
+        path = jit.save(model, os.path.join(directory, "gpt2_124m"),
+                        input_spec=[jit.InputSpec([1, EXPORT_SEQ], "int64")])
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        layer = jit.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert layer.has_forward, layer.export_error
+    nodes = [str(n.target) for n in layer.program.graph.nodes]
+    flash_nodes = nodes.count("paddle_tpu_torch.flash_attention_fwd.default")
+    assert flash_nodes == 12 and layer.device == torch.device("cuda", 0), \
+        (flash_nodes, layer.device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    got = layer(ids)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 12 \
+        and sum(counts.values()) == 12, counts
+    with torch.no_grad():
+        want = model(ids)
+    differ = int((got != want).sum())
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert differ == 0, (differ, float((got.float() - want.float()).abs()
+                                       .max()))
+    warm_ms = _p50_ms(lambda: layer(ids), EXPORT_WARM_CALLS)
+    with torch.no_grad():
+        eager_ms = _p50_ms(lambda: model(ids), EXPORT_WARM_CALLS)
+    print(f"export: bf16 GPT-2 124M forward [1, {EXPORT_SEQ}] through "
+          f"jit.save ({save_s:.2f} s, {nbytes / 2**20:.1f} MiB: weights "
+          f"and the torch.export program) and jit.load ({load_s:.2f} s; "
+          f"{flash_nodes} flash_attention_fwd op nodes): first call "
+          f"{first_ms:.2f} ms, warm {warm_ms:.3f} ms a call (p50 of "
+          f"{EXPORT_WARM_CALLS}; the eager model {eager_ms:.3f}); launches "
+          f"a call {json.dumps({k: n for k, n in counts.items() if n})}; "
+          f"logits equal to the eager model's bit for bit ({differ} of "
+          f"{got.numel()} differ)")
+    return counts
+
+
+def _pack_static(caches, dtype, device):
+    """The prefill's per-layer (k, v) ``[B, P, H, D]`` packed into zeroed
+    static buffers ``[L, B, PRED_T, H, D]``."""
+    b, p, h, d = caches[0][0].shape
+    shape = (len(caches), b, PRED_T, h, d)
+    kb = torch.zeros(shape, dtype=dtype, device=device)
+    vb = torch.zeros(shape, dtype=dtype, device=device)
+    for layer, (k, v) in enumerate(caches):
+        kb[layer, :, :p] = k
+        vb[layer, :, :p] = v
+    return kb, vb
+
+
+@torch.no_grad()
+def _decode_loops(model, ids, loops):
+    """Prefill `ids` eagerly through the dynamic cache (the flash kernel),
+    then PRED_N - 1 greedy tokens through each of `loops` (name ->
+    ``(step, host)``: ``step(tok [B, 1] int64, kb, vb, pos int32) ->
+    (logits, kb, vb)`` on its own buffers, numpy arrays where `host`,
+    else device tensors), in turns token by token. Returns ``({name:
+    tokens [B, PRED_N]}, {name: ms a token}, launch counts of the
+    prefill)``."""
+    reset_launch_counts()
+    logits, caches = model(ids, caches=model.gen_caches(PRED_B))
+    counts = launch_counts()
+    kb, vb = _pack_static(caches, model.gpt.wte.weight.dtype, "cuda")
+    first = logits[:, -1, :].argmax(-1)
+    first_host = first.cpu().numpy()
+    state = {}
+    for name, (_, host) in loops.items():
+        state[name] = ((first_host, kb.cpu().numpy(), vb.cpu().numpy())
+                       if host else (first, kb.clone(), vb.clone()))
+    tokens = {name: [first_host] for name in loops}
+    times = {name: [] for name in loops}
+    for i in range(PRED_N - 1):
+        for name, (step, host) in loops.items():
+            tok, k, v = state[name]
+            if host:
+                args = (tok[:, None].astype(np.int64), k, v,
+                        np.asarray(PRED_P + i, np.int32))
+            else:
+                args = (tok[:, None], k, v,
+                        torch.tensor(PRED_P + i, dtype=torch.int32,
+                                     device="cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, k, v = step(*args)
+            tok = lg[:, -1, :].argmax(-1)
+            if not host:
+                tok_host = tok.cpu()        # the loop's own sync
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            state[name] = (tok, k, v)
+            tokens[name].append(tok if host else tok_host.numpy())
+    return ({name: np.stack(t, 1) for name, t in tokens.items()},
+            {name: float(np.median(t)) for name, t in times.items()}, counts)
+
+
+def predictor_phase():
+    """`GPTDecodeStep` of GPT-2 124M saved by `jit.save` ([B, 1] int64
+    tokens, [12, B, 160, 12, 64] K and V buffers, a 0-d int32 position) at
+    B = PRED_B, a PRED_P-token prompt and PRED_N new tokens (bench.py's
+    Predictor shape). fp32: the prompt prefilled eagerly (the flash
+    kernel), then PRED_N - 1 tokens through `create_predictor(Config(path))
+    .run([...])` (numpy in and out, the buffers crossing the host each
+    token), through `jit.load`'s layer on device tensors and through the
+    eager step, in turns token by token: all three equal
+    `model.generate(ids, max_new_tokens=PRED_N)`'s greedy tokens. bf16: the
+    loaded layer's tokens equal the eager step's. Prints the ms a token of
+    each loop. Returns the launch counts of the fp32 prefill (the decode
+    step itself runs torch ops only, as the reference's XLA einsums)."""
+    import shutil
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.incubate.models import GPTDecodeStep
+    ids = torch.tensor(np.random.default_rng(12).integers(
+        0, 50257, (PRED_B, PRED_P)), device="cuda")
+    out, counts = {}, None
+    directory = _scratch_dir("predictor_")
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            model = _gpt(dtype).eval()
+            cfg = model.config
+            heads = cfg.num_attention_heads
+            buf = [cfg.num_hidden_layers, PRED_B, PRED_T, heads,
+                   cfg.hidden_size // heads]
+            step = GPTDecodeStep(model)
+            t0 = time.perf_counter()
+            path = jit.save(step, os.path.join(directory, f"decode_{name}"),
+                            input_spec=[jit.InputSpec([PRED_B, 1], "int64"),
+                                        jit.InputSpec(buf, dtype),
+                                        jit.InputSpec(buf, dtype),
+                                        jit.InputSpec([], "int32")])
+            save_s = time.perf_counter() - t0
+            layer = jit.load(path)
+            assert layer.has_forward, layer.export_error
+            loops = {"eager": (step, False),
+                     "loaded": (layer, False)}
+            if dtype == torch.float32:
+                pred = inference.create_predictor(inference.Config(path))
+                loops["predictor"] = (lambda *a: pred.run(list(a)), True)
+            tokens, ms, prefill = _decode_loops(model, ids, loops)
+            if dtype == torch.float32:
+                counts = prefill
+                assert prefill["flash_attention_fwd"] == 12, prefill
+                want = model.generate(ids, max_new_tokens=PRED_N).cpu()
+                for loop, got in tokens.items():
+                    assert np.array_equal(got, want.numpy()), \
+                        (name, loop, int((got != want.numpy()).sum()))
+                held = "equal generate's for every loop"
+            else:
+                assert np.array_equal(tokens["loaded"], tokens["eager"]), \
+                    int((tokens["loaded"] != tokens["eager"]).sum())
+                held = "the loaded layer's equal the eager step's"
+            out[name] = ms
+            print(f"predictor ({name}): GPTDecodeStep saved in {save_s:.2f}"
+                  f" s; B={PRED_B}, prompt {PRED_P}, {PRED_N} new tokens, "
+                  f"buffers {buf}: ms a token, in turns token by token, "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                  + f"; {PRED_N - 1} decode tokens each, greedy tokens "
+                  f"{held}")
+            del model, step, layer, loops
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return counts
+
+
+def _host_copy(obj):
+    """`obj` with every tensor copied to the CPU (a snapshot)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
+def _differing_leaves(got, want, where=""):
+    """Where two nested objects differ: tensors by dtype, shape and bits,
+    the rest by ==."""
+    if isinstance(want, torch.Tensor):
+        same = isinstance(got, torch.Tensor) and got.dtype == want.dtype \
+            and got.shape == want.shape and torch.equal(got, want)
+        return [] if same else [where]
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [where]
+        return [w for k in want
+                for w in _differing_leaves(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [where]
+        return [w for i, (g, x) in enumerate(zip(got, want))
+                for w in _differing_leaves(g, x, f"{where}/{i}")]
+    return [] if got == want else [where]
+
+
+def async_save_phase(batch=8, seq=1024):
+    """The bf16 GPT-2 124M TrainStep with AdamW(multi_precision) (train's
+    configuration, batch 8 x 1024, fused CE): after step ASYNC_SAVE_AT,
+    `io.async_save({"model": ..., "opt": ...}, path)`, then steps up to
+    ASYNC_SAVE_STEPS run while the writer thread writes, then `wait()`;
+    the loaded file equals the state at step ASYNC_SAVE_AT bit for bit,
+    though the parameters moved on under it. Prints the caller's blocking
+    ms, wait()'s ms, the bytes written and a plain `io.save` of the same
+    object's blocking ms. Returns the launch counts of the steps."""
+    import shutil
+    cfg = gpt2_124m(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    model.train()
+    opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01,
+                parameters=model.parameters(), multi_precision=True)
+    step = TrainStep(model, GPTPretrainingCriterion(), opt)
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    directory = _scratch_dir("async_save_")
+    try:
+        reset_launch_counts()
+        losses = [float(step(*_train_batch(cfg, seed=200 + i, batch=batch,
+                                           seq=seq)))
+                  for i in range(1, ASYNC_SAVE_AT + 1)]
+        torch.cuda.synchronize()
+        obj = {"model": model.state_dict(), "opt": opt.state_dict()}
+        want = _host_copy(obj)
+        path = os.path.join(directory, "step2.pdckpt")
+        t0 = time.perf_counter()
+        handle = io.async_save(obj, path)
+        block_ms = (time.perf_counter() - t0) * 1e3
+        losses += [float(step(*_train_batch(cfg, seed=200 + i, batch=batch,
+                                            seq=seq)))
+                   for i in range(ASYNC_SAVE_AT + 1, ASYNC_SAVE_STEPS + 1)]
+        done_before = handle.done()
+        t0 = time.perf_counter()
+        handle.wait()
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        nbytes = os.path.getsize(path)
+        moved = _differing_leaves(_host_copy(model.state_dict()),
+                                  want["model"])
+        differ = _differing_leaves(io.load(path), want)
+        t0 = time.perf_counter()
+        io.save(obj, os.path.join(directory, "plain.pdckpt"))
+        plain_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        set_flags({"FLAGS_use_fused_cross_entropy": False})
+        shutil.rmtree(directory, ignore_errors=True)
+    print(f"async_save: bf16 GPT-2 124M TrainStep + AdamW(multi_precision), "
+          f"steps 1-{ASYNC_SAVE_STEPS} losses "
+          + ", ".join(f"{x:.6f}" for x in losses)
+          + f"; async_save after step {ASYNC_SAVE_AT}: {nbytes} bytes, the "
+          f"caller blocked {block_ms:.1f} ms, steps {ASYNC_SAVE_AT + 1}-"
+          f"{ASYNC_SAVE_STEPS} ran meanwhile (the write "
+          f"{'had ended' if done_before else 'still ran'} after them), "
+          f"wait() {wait_ms:.1f} ms; a plain io.save of the same object "
+          f"blocked {plain_ms:.1f} ms; the file's tensors differ from step "
+          f"{ASYNC_SAVE_AT}'s at {len(differ)} leaves ({len(moved)} of "
+          f"{len(want['model'])} parameters moved on after it)")
+    assert differ == [], differ[:10]
+    assert len(moved) > 0 and all(np.isfinite(losses)), (moved, losses)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 8: the fused bias-residual LayerNorm layer at GPT-2 width
 # ---------------------------------------------------------------------------
 
@@ -6616,8 +6965,15 @@ def main():
     paths["train_guard"] = train_guard()
     _phase_memory("train_guard")
     paths["train_resume"] = train_resume()
+    _phase_memory("train_scaler, train_resume")
+    paths["export"] = export_phase()
+    _phase_memory("export")
+    paths["predictor"] = predictor_phase()
+    _phase_memory("predictor")
+    paths["async_save"] = async_save_phase()
+    _phase_memory("async_save")
     paths["fused_ln"] = fused_ln_phase()
-    _phase_memory("train_scaler, train_resume, fused_ln")
+    _phase_memory("fused_ln")
     paths.update(serve_fp16())
     _phase_memory("serve_fp16")
     paths.update(train_fp16())

@@ -19,3 +19,5 @@ from __future__ import annotations
 from .device import default_device, resolve_device, require_hopper  # noqa: F401
 
 __all__ = ["default_device", "resolve_device", "require_hopper"]
+
+__version__ = "0.1.0"       # the JAX package's version, which it ports

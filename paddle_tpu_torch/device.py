@@ -10,6 +10,7 @@ check their wrappers make before a launch.
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 __all__ = ["default_device", "resolve_device", "require_hopper"]
 
@@ -34,7 +35,12 @@ def resolve_device(device=None):
 
 def require_hopper(t):
     """Raise unless tensor `t` lives on a compute-capability 9.0 (Hopper)
-    card: the kernels are compiled for ``sm_90a`` only."""
+    card: the kernels are compiled for ``sm_90a`` only. Raise as well on a
+    fake tensor (a trace, such as `torch.export`'s): a wrapper launches
+    through ctypes, which a trace cannot record."""
+    if is_fake(t):
+        raise RuntimeError("kernel wrappers cannot be traced; only "
+                           "registered torch.library ops can")
     if t.device.type != "cuda":
         raise RuntimeError(f"expected a CUDA tensor, got one on {t.device}")
     cap = torch.cuda.get_device_capability(t.device)

@@ -25,7 +25,10 @@ byte-identically. Those files are JSON (`framework.io.save_json`).
 
 Every restore skips a snapshot that fails its integrity check for the next
 older one, and refuses (`CheckpointCorruptError`) where snapshots exist
-but none is intact. `async_save` waits for ROADMAP.md Queue 1 item 5.
+but none is intact. These classes save synchronously, as the reference's
+do; `framework.io.async_save` writes the same format on a writer thread
+for a caller that overlaps the write with its next steps, and its
+files load through `framework.io.load` like theirs.
 """
 from __future__ import annotations
 

@@ -23,7 +23,7 @@ through the dynamic-cache path (the flash kernel on the card), fills the
 static buffers, and runs the decode steps as one CUDA graph per signature
 on the card (the same code eagerly on the CPU); its sampled pick draws
 through the keyed-draw kernel. `GPTDecodeStep` is one static-cache decode
-step as a module.
+step as a module, which `jit.save` exports for `inference.Predictor`.
 """
 from __future__ import annotations
 
@@ -48,6 +48,13 @@ __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTBlock", "GPTModel",
 
 # how many `generate` programs (signatures) a model keeps, the last used
 GEN_CACHE_SIZE = 4
+
+_FLOAT_TYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64)
+# the static-cache decode's mask value, the reference's -1e9 in each float
+# type (-inf in float16), as host floats computed once here: a CUDA graph
+# capture takes no host-to-device copy, and `torch.export` keeps them
+# constants of the program
+_DECODE_NEG = {dt: float(torch.tensor(-1e9).to(dt)) for dt in _FLOAT_TYPES}
 
 
 @dataclass
@@ -103,6 +110,10 @@ class GPTAttention(nn.Module):
                                   device=device)
         self.dropout_p = config.attention_probs_dropout_prob
         self.resid_dropout = nn.Dropout(config.hidden_dropout_prob)
+        # sqrt(head_dim) rounded to each float type, as host floats (see
+        # _DECODE_NEG): the static-cache decode's score divisor
+        self._root = {dt: float(torch.tensor(float(self.head_dim), dtype=dt)
+                                .sqrt()) for dt in _FLOAT_TYPES}
 
     def forward(self, x, cache=None):
         b, n = x.shape[0], x.shape[1]
@@ -146,14 +157,11 @@ class GPTAttention(nn.Module):
         v_buf.index_copy_(1, rows, v.to(v_buf.dtype))
         t = k_buf.shape[1]
         qh = q.transpose(1, 2)                               # [B, H, n, D]
-        # sqrt(head_dim) rounded to q's dtype, as a host scalar (a CUDA
-        # graph capture takes no host-to-device copy)
-        root = float(torch.tensor(float(self.head_dim), dtype=q.dtype).sqrt())
-        scores = (qh @ k_buf.permute(0, 2, 3, 1)) / root
+        # sqrt(head_dim) rounded to q's dtype
+        scores = (qh @ k_buf.permute(0, 2, 3, 1)) / self._root[q.dtype]
         valid = torch.arange(t, device=q.device)[None, :] <= rows[:, None]
         # -1e9 in q's dtype, as the reference's: -inf in float16
-        neg = float(torch.tensor(-1e9).to(scores.dtype))
-        scores = scores.masked_fill(~valid, neg)
+        scores = scores.masked_fill(~valid, _DECODE_NEG[scores.dtype])
         probs = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         out = probs @ v_buf.permute(0, 2, 1, 3).to(q.dtype)  # [B, H, n, D]
         out = self.out_proj(out.transpose(1, 2).reshape(b, n,
@@ -510,8 +518,10 @@ class GPTDecodeStep(nn.Module):
     D], v_bufs, pos) -> (logits [B, 1, V], new_k, new_v)``, the
     reference's `GPTDecodeStep`. The step writes this token's K and V into
     the buffers in place, so `new_k` / `new_v` are `k_bufs` / `v_bufs`
-    (the reference returns fresh arrays). Saving it as an artifact (the
-    reference's ``jit.save``) is not ported (ROADMAP Queue 1 item 5)."""
+    (the reference returns fresh arrays). `jit.save` exports it with `pos`
+    a 0-d int32 tensor (``InputSpec([], "int32")``): the program keeps the
+    writes as writes into its inputs, and `inference.Predictor` serves
+    it, the reference's deploy route for decoding."""
 
     def __init__(self, model: GPTForCausalLM):
         super().__init__()

@@ -25,9 +25,14 @@ v ``[B, N, H, D]``; lse ``[B*H, N]`` float32.
   to the fp32 FMA kernels; the criteria against the fp32 twins are
   `flash_bwd_bf16_tol` / `FLASH_BWD_BF16_FRO_RTOL` and `flash_bwd_f16_tol`
   / `FLASH_BWD_F16_FRO_RTOL`.
+- `flash_attention_fwd_op` is the forward as the `torch.library` op
+  ``paddle_tpu_torch::flash_attention_fwd`` (the kernel on CUDA tensors,
+  the twin on CPU tensors, a fake that gives the outputs' layout), which
+  `torch.export` records as one node: a program saved by `jit.save`
+  replays the kernel.
 - `FlashAttention` / `flash_attention_bnhd` is the differentiable entry:
   the same Function on both devices, so a CPU test sees the graph the card
-  sees.
+  sees; its forward calls the op.
 
 Unlike the TPU kernels, no minimum length or multiple-of-128 rule applies:
 the CUDA kernels mask their own ragged edges, so every prefill bucket (8 to
@@ -46,7 +51,8 @@ from ..ops import numerics
 from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
 
-__all__ = ["flash_attention_fwd", "flash_attention_reference",
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_op",
+           "flash_attention_reference",
            "flash_fwd_bf16_tol", "rel_fro",
            "FLASH_FWD_BF16_ATOL_PER_V", "FLASH_FWD_BF16_RTOL",
            "FLASH_FWD_BF16_FRO_RTOL", "flash_bwd_bf16_tol",
@@ -348,11 +354,9 @@ def _raise_for(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def flash_attention_fwd(q, k, v, causal, scale=None):
-    """FlashAttention forward over ``[B, N, H, D]`` q, k, v. Returns
-    ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal, scale)
+def _launch_fwd(q, k, v, causal, scale):
+    """The forward kernel on CUDA tensors (checked, launched, counted):
+    ``(out, lse)``. Raises on what the kernel does not take."""
     _check(q, k, v, causal)
     _check_kernel_inputs(q, k, v)
     b, n, h, d = q.shape
@@ -380,8 +384,46 @@ def flash_attention_fwd(q, k, v, causal, scale=None):
                  ctypes.c_void_p(stream))
     _raise_for(err, "flash_attention_fwd")
     launches["flash_attention_fwd"] += 1
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, causal, scale=None):
+    """FlashAttention forward over ``[B, N, H, D]`` q, k, v. Returns
+    ``(out [B, N, H, D] in q's dtype, lse [B*H, N] float32)``."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal, scale)
+    out, lse = _launch_fwd(q, k, v, causal, scale)
     numerics.check("flash_attention_fwd", out, lse)
     return out, lse
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool,
+                           scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """`flash_attention_fwd` as the op
+    ``paddle_tpu_torch::flash_attention_fwd``, the form `torch.export`
+    records, so a saved program replays the kernel: on CUDA tensors the
+    kernel (counted), on CPU tensors the twin. Under `ops.numerics`'
+    dispatch mode the op's outputs are checked under its name by the mode
+    itself, which sees the op."""
+    return _launch_fwd(q, k, v, causal, scale)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _flash_attention_fwd_cpu(q, k, v, causal, scale):
+    return flash_attention_reference(q, k, v, causal, scale)
+
+
+@flash_attention_fwd_op.register_fake
+def _flash_attention_fwd_fake(q, k, v, causal, scale):
+    """The outputs' layout: out ``[B, N, H, D]`` contiguous in q's dtype,
+    lse ``[B*H, N]`` contiguous float32."""
+    _check(q, k, v, causal)
+    b, n, h, d = q.shape
+    return (q.new_empty((b, n, h, d)),
+            q.new_empty((b * h, n), dtype=torch.float32))
 
 
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -522,13 +564,18 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal, scale=None):
 
 
 class FlashAttention(torch.autograd.Function):
-    """Differentiable flash attention: `flash_attention_fwd` forward,
-    `flash_attention_bwd` backward (kernels on the card, plain twins on
-    the CPU). Saves q, k, v, out and the fp32 lse; nothing of size N x M."""
+    """Differentiable flash attention: the forward through the op
+    `flash_attention_fwd_op` (so `torch.export` keeps the kernel in a saved
+    program), `flash_attention_bwd` backward (kernels on the card, plain
+    twins on the CPU). Saves q, k, v, out and the fp32 lse; nothing of
+    size N x M."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        if scale is None:
+            scale = 1.0 / math.sqrt(q.shape[-1])
+        out, lse = flash_attention_fwd_op(q, k, v, bool(causal),
+                                          float(scale))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out

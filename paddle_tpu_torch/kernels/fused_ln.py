@@ -13,10 +13,13 @@ in x's dtype, with fp32 statistics whatever the input type (two-pass
 variance: the mean first, then the mean of the centred squares).
 
 On CUDA tensors `fused_ln_fwd` launches ``csrc/fused_ln.cu`` or raises; on
-CPU tensors it runs `fused_ln_reference`. The backward differentiates the
-plain formula on the saved inputs, as the reference's `custom_vjp` does
-(`jax.vjp` over `_reference`): that is XLA code there, not a TPU kernel, so
-it stays PyTorch ops on both devices. Launches count under ``fused_ln``.
+CPU tensors it runs `fused_ln_reference`. `fused_ln_fwd_op` is the same
+function as the `torch.library` op ``paddle_tpu_torch::fused_ln_fwd`` (a
+fake gives its output's layout), which `torch.export` records as one node,
+so a program saved by `jit.save` replays the kernel. The backward
+differentiates the plain formula on the saved inputs, as the reference's
+`custom_vjp` does (`jax.vjp` over `_reference`): that is XLA code there,
+not a TPU kernel, so it stays PyTorch ops on both devices. Launches count under ``fused_ln``.
 """
 from __future__ import annotations
 
@@ -31,8 +34,8 @@ from . import _build
 from ._dtype import FLOAT_DTYPES, dtype_code
 
 __all__ = ["fused_bias_residual_layer_norm", "FusedBiasResidualLayerNorm",
-           "fused_ln_fwd", "fused_ln_reference", "is_eligible", "launches",
-           "DTYPES"]
+           "fused_ln_fwd", "fused_ln_fwd_op", "fused_ln_reference",
+           "is_eligible", "launches", "DTYPES"]
 
 DTYPES = FLOAT_DTYPES
 
@@ -85,11 +88,9 @@ def fused_ln_reference(x, residual, bias, scale, shift, eps=1e-5):
     return y.to(x.dtype)
 
 
-def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
-    """``LN(x + bias + residual) * scale + shift`` ``[R, d]`` in x's
-    dtype."""
-    if x.device.type == "cpu":
-        return fused_ln_reference(x, residual, bias, scale, shift, eps)
+def _launch(x, residual, bias, scale, shift, eps):
+    """The kernel on CUDA tensors (checked, launched, counted); raises on
+    what it does not take."""
     _check(x, residual, bias, scale, shift)
     r, d = x.shape
     if x.dtype not in DTYPES or residual.dtype != x.dtype:
@@ -135,20 +136,56 @@ def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
     if err != 0:
         raise RuntimeError(f"fused_ln launch failed: cudaError {err}")
     launches["fused_ln"] += 1
+    return out
+
+
+def fused_ln_fwd(x, residual, bias, scale, shift, eps=1e-5):
+    """``LN(x + bias + residual) * scale + shift`` ``[R, d]`` in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return fused_ln_reference(x, residual, bias, scale, shift, eps)
+    out = _launch(x, residual, bias, scale, shift, eps)
     numerics.check("fused_ln", out)
     return out
 
 
+@torch.library.custom_op("paddle_tpu_torch::fused_ln_fwd", mutates_args=(),
+                         device_types="cuda")
+def fused_ln_fwd_op(x: torch.Tensor, residual: torch.Tensor,
+                    bias: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, eps: float) -> torch.Tensor:
+    """`fused_ln_fwd` as the op ``paddle_tpu_torch::fused_ln_fwd``, the
+    form `torch.export` records, so a saved program replays the kernel:
+    on CUDA tensors the kernel (counted), on CPU tensors the twin. Under
+    `ops.numerics`' dispatch mode the mode itself checks the op's output
+    under its name."""
+    return _launch(x, residual, bias, scale, shift, eps)
+
+
+@fused_ln_fwd_op.register_kernel("cpu")
+def _fused_ln_fwd_cpu(x, residual, bias, scale, shift, eps):
+    return fused_ln_reference(x, residual, bias, scale, shift, eps)
+
+
+@fused_ln_fwd_op.register_fake
+def _fused_ln_fwd_fake(x, residual, bias, scale, shift, eps):
+    """The output's layout: ``[R, d]`` contiguous in x's dtype."""
+    _check(x, residual, bias, scale, shift)
+    return x.new_empty(x.shape)
+
+
 class FusedBiasResidualLayerNorm(torch.autograd.Function):
-    """`fused_ln_fwd` forward; the backward differentiates
-    `fused_ln_reference` on the saved inputs (the reference's VJP) and
-    returns the gradients of x, residual, bias, scale and shift."""
+    """`fused_ln_fwd` forward, through its op `fused_ln_fwd_op` (so
+    `torch.export` keeps the kernel in a saved program); the backward
+    differentiates `fused_ln_reference` on the saved inputs (the
+    reference's VJP) and returns the gradients of x, residual, bias, scale
+    and shift."""
 
     @staticmethod
     def forward(ctx, x, residual, bias, scale, shift, eps):
         ctx.save_for_backward(x, residual, bias, scale, shift)
         ctx.eps = eps
-        return fused_ln_fwd(x, residual, bias, scale, shift, eps)
+        return fused_ln_fwd_op(x, residual, bias, scale, shift, float(eps))
 
     @staticmethod
     def backward(ctx, g):

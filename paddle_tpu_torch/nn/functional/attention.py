@@ -31,6 +31,11 @@ __all__ = ["scaled_dot_product_attention", "paged_decode_attention",
 PAGED_KERNELS = ("pallas", "blockwise", "reference")
 
 _NEG_INF = -1e30
+# -1e30 in each float type (-inf in float16), as host floats computed
+# once: `torch.export` keeps them constants of a traced program
+_NEG_BY_TYPE = {dt: float(torch.tensor(_NEG_INF).to(dt))
+                for dt in (torch.float32, torch.bfloat16, torch.float16,
+                           torch.float64)}
 
 
 def _plain_attention(q, k, v, mask, is_causal, scale, dropout_p=0.0):
@@ -40,7 +45,7 @@ def _plain_attention(q, k, v, mask, is_causal, scale, dropout_p=0.0):
     scores = (qt @ kt.transpose(-1, -2)) * scale            # [B, H, N, M]
     n, m = scores.shape[-2], scores.shape[-1]
     # -1e30 in the scores' dtype, as the reference's: -inf in float16
-    neg = float(torch.tensor(_NEG_INF).to(scores.dtype))
+    neg = _NEG_BY_TYPE[scores.dtype]
     if is_causal:
         q_pos = torch.arange(n, device=q.device)[:, None] + (m - n)
         k_pos = torch.arange(m, device=q.device)[None, :]

@@ -20,9 +20,10 @@ with `--prefix` the prefix cache is on and the 8 prompts share their
 first 128 tokens, so all but each adapter's first are prefix hits, which
 chew their tails before the profiled steps) under torch.profiler and
 prints one JSON line: the card's name and power limit, the device kernels
-and copies a step, device ms a step, and ms and launches a step by kernel
+and copies a step, device ms a step, ms and launches a step by kernel
 (names cut to 90 characters; kernels whose names agree that far add
-up). The same seeds give both checkouts the same
+up), and, after the engine has run every request to its end, a SHA-256
+of the 8 token streams. The same seeds give both checkouts the same
 model, prompts and tokens. Run it on two checkouts in turns (parent,
 change, change, parent) to compare their replays within one call. Needs a
 CUDA card and nvcc.
@@ -30,6 +31,7 @@ CUDA card and nvcc.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import subprocess
 import sys
@@ -73,6 +75,7 @@ def main():
     for i, name in enumerate(names):
         engine.register_adapter(name, seed=i + 1, scale=4.0)
     rng = np.random.default_rng(0)
+    reqs = []
     shared = np.random.default_rng(1).integers(0, 50257, 128).tolist()
     for i in range(8):
         sampling = dict(temperature=0.8, top_k=40, top_p=0.95, seed=i) \
@@ -82,8 +85,8 @@ def main():
         prompt = rng.integers(0, 50257, 200).tolist()
         if args.prefix:
             prompt[:128] = shared
-        engine.add_request(prompt, max_new_tokens=150 if args.prefix else 32,
-                           **sampling)
+        reqs.append(engine.add_request(
+            prompt, max_new_tokens=150 if args.prefix else 32, **sampling))
     # prefills, the graph's build, the prefix hits' 72 chew steps, then 4
     # plain replays
     for _ in range(77 if args.prefix else 5):
@@ -114,12 +117,15 @@ def main():
             ms + evt.self_device_time_total / 1e3 / per, count + n)
     device_ms = sum(ms for ms, _ in by_kernel.values())
     assert device_ms > 0, "the profiler saw no device time"
+    engine.run()
+    streams = json.dumps([list(r.generated) for r in reqs])
     print(json.dumps({
         "root": args.root, "card": card, "kv_dtype": args.kv_dtype or "bf16",
         "sampled": args.sampled, "adapters": args.adapters,
         "prefix": args.prefix, "steps": per, "kernels_per_step": kernels,
         "copies_per_step": copies, "device_ms_per_step": device_ms,
         "wall_ms_per_step": wall_ms,
+        "streams_sha256": hashlib.sha256(streams.encode()).hexdigest(),
         "by_kernel": {name: [round(ms, 5), n] for name, (ms, n) in
                       sorted(by_kernel.items(), key=lambda kv: -kv[1][0])}}))
 

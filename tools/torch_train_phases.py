@@ -1,12 +1,15 @@
-"""Run the training-remainder phases of `chip_smoke.py` alone on the card:
+"""Run the training-remainder and deployment phases of `chip_smoke.py`
+alone on the card:
 
     python3 tools/torch_train_phases.py [phase ...]
 
 phases: train_amp, train_optimizers, train_scaler, train_guard,
-train_resume, train_fp16 (all of them, in that order, by default). Builds the kernels, checks the AdamW
-update kernel against its twin (its time is train_optimizers' yardstick),
-then runs each phase as `chip_smoke.py` does and prints its wall time
-(~100 s of command time for all four on an H100). A fresh process, so
+train_resume, train_fp16, export, predictor, async_save (all of them, in
+that order, by default). Builds the kernels, then runs each phase as
+`chip_smoke.py` does (train_optimizers first checks the AdamW update
+kernel against its twin: its time is the phase's yardstick), each
+followed by the smoke's memory line, and prints its wall time (~100 s of
+command time for the first four on an H100). A fresh process, so
 the profiler counts every kernel of the updates, which late in a full
 `chip_smoke.py` run it may not.
 """
@@ -23,16 +26,20 @@ def main():
     t0 = time.perf_counter()
     secs, _ = cs._build.build_all()
     print(f"build {secs:.1f} s")
-    row = cs.check_adam_update()[0]
     phases = {"train_amp": cs.train_amp,
-              "train_optimizers": lambda: cs.train_optimizers(row["ms"]),
+              "train_optimizers": lambda: cs.train_optimizers(
+                  cs.check_adam_update()[0]["ms"]),
               "train_scaler": cs.train_scaler,
               "train_guard": cs.train_guard,
               "train_resume": cs.train_resume,
-              "train_fp16": cs.train_fp16}
+              "train_fp16": cs.train_fp16,
+              "export": cs.export_phase,
+              "predictor": cs.predictor_phase,
+              "async_save": cs.async_save_phase}
     for name in sys.argv[1:] or list(phases):
         t = time.perf_counter()
         phases[name]()
+        cs._phase_memory(name)
         print(f"{name}: {time.perf_counter() - t:.1f} s", flush=True)
     print(f"total {time.perf_counter() - t0:.1f} s")
 
