@@ -287,7 +287,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                step, MFU, peak memory; the eager O1 loop under
                GradScaler, an inf at step 3, (scale, good, bad) by the
                reference's rule, the global norms), a plain f16 model
-               with the fused CE; fused_ln in f16.
+               with the fused CE; fused_ln in f16;
+ 10. vit     — the reference's config 5 (bench.py:444-510): ViT-L/16
+               (image 224, patch 16, E 1024, depth 24, 16 heads of 64,
+               MLP 4096, 1000 classes) in bf16 with AdamW(1e-4,
+               multi_precision) through `TrainStep(..., donate="all")`'s
+               graph on a batch of 32, the fused model
+               (`FusedTransformerEncoderLayer`) from the unfused one's
+               weights (`nn.TransformerEncoderLayer`) mapped: the first
+               step's losses within VIT_LOSS_ULPS bf16 steps, the fused
+               graph bit for bit with `_step_eager` after 3 steps, 8
+               counted steps a path (72 flash launches a step, finite
+               falling losses, images/s, step p50 / p99, MFU), the paths in
+               turns (the fused / unfused ratio reported), a profiled step
+               each (device ms, kernels), peak memory; the eval forward at
+               batch 32 (24 flash launches); card against CPU in fp32 at
+               depth 2, batch 2 (logits, one step's parameters); ViT-B/16
+               through jit.save / jit.load at [8, 3, 224, 224], logits bit
+               for bit, 12 flash launches a call. The kernels phase holds
+               the flash pair at ViT-L/16's shape (32, 197, 16, 64),
+               non-causal, and times it (rows ``<counter>@vit``).
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
@@ -1715,6 +1734,88 @@ def check_flash_bwd(dtype=torch.bfloat16):
         print("  flash bwd bf16, the earlier design, written in, not measured "
               f"in this run: {json.dumps(FLASH_BWD_PREV_MS)}; per training "
               f"step {json.dumps(TRAIN_BWD_GROUPS_PREV_MS)}")
+    return rows
+
+
+# ViT-L/16's attention (the vit phase's): batch 32, 196 patches and the
+# class token, 16 heads of 64, bf16, non-causal
+VIT_ATTN = (32, 197, 16, 64)
+VIT_REPLACES = {
+    "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:90 "
+                           "_fwd_kernel",
+    "flash_attention_bwd_dq": "paddle_tpu/kernels/flash_attention.py:184 "
+                              "_dq_kernel",
+    "flash_attention_bwd_dkv": "paddle_tpu/kernels/flash_attention.py:223 "
+                               "_dkv_kernel"}
+
+
+def check_flash_vit():
+    """The flash forward, dQ and dK/dV at ViT-L/16's shape (VIT_ATTN,
+    non-causal, a length no multiple of a tile), against their twins
+    within the bf16 criteria (and in fp32 at the vit phase's card-vs-CPU
+    batch of 2), then timed beside their twins and SDPA (the forward; the
+    backward with dQ, dK and dV in one call) with the non-causal bounds
+    (4 D FLOPs a (query, key) pair forward, 6 D dQ, 8 D dK/dV). Rows
+    ``<counter>@vit``; their launches are the vit phase's."""
+    b, n, h, d = VIT_ATTN
+    tag = f"({b}, {n}, {h}, {d}) causal=False"
+    for dt, batch in ((torch.float32, 2), (torch.bfloat16, b)):
+        q, k, v = _fused_qkv(n, dt, seed=197, heads=h, head_dim=d,
+                             batch=batch)
+        name = f"flash {str(dt)[6:]} ViT-L/16 ({batch}, {n}, {h}, {d})"
+        err_fwd = _check_flash_case(f"{name} causal=False", q, k, v, False)
+        err_dq, err_dkv = _check_flash_bwd_case(f"{name} bwd causal=False",
+                                                q, k, v, False, seed=198)
+    args = _flash_bwd_inputs(q, k, v, False, seed=198)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd_lib = _cuda_ms(lambda: sdpa(qt, kt, vt))
+    lib_out = sdpa(qt, kt, vt)
+    bwd_lib = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), args[3].transpose(1, 2), retain_graph=True))
+    fwd_bound = _bound_ms(b * (4 * n * h * d * 2 + h * n * 4),
+                          4 * b * h * n * n * d, torch.bfloat16)
+    cases = (
+        ("flash_attention_fwd", err_fwd,
+         lambda: fa.flash_attention_fwd(q, k, v, False),
+         lambda: fa.flash_attention_reference(q, k, v, False), fwd_bound,
+         fwd_lib, 4, "flash_attention_fwd.cu"),
+        ("flash_attention_bwd_dq", err_dq,
+         lambda: fa.flash_attention_bwd_dq(*args),
+         lambda: fa.flash_attention_bwd_dq_reference(*args),
+         _flash_bwd_bound(b, n, h, d, 2, False, False), bwd_lib, 6,
+         "flash_attention_bwd.cu"),
+        ("flash_attention_bwd_dkv", err_dkv,
+         lambda: fa.flash_attention_bwd_dkv(*args),
+         lambda: fa.flash_attention_bwd_dkv_reference(*args),
+         _flash_bwd_bound(b, n, h, d, 2, False, True), bwd_lib, 8,
+         "flash_attention_bwd.cu"))
+    rows = []
+    for counter, err, kernel, twin, bound, library, per_pair, src in cases:
+        ms, host_ms = _timed(kernel)
+        row = {"name": f"{counter}@vit", "counter": counter, "route": "cuda",
+               "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": VIT_REPLACES[counter], "max_abs_err": err,
+               "ms": ms, "host_ms": host_ms,
+               "plain_ms": _cuda_ms(twin, iters=5), "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": library,
+               "tflops": per_pair * d * b * h * n * n / (ms * 1e-3) / 1e12,
+               "shape": f"q,k,v ({b}, {n}, {h}, {d}) bf16 {tag}"}
+        if counter != "flash_attention_fwd":
+            row["note"] = ("library_ms: SDPA's backward, dQ, dK and dV in "
+                           "one call")
+        print(f"  {row['name']} at ViT-L/16's shape: {ms:.5f} ms (host "
+              f"{host_ms:.5f}), {row['tflops']:.1f} TFLOP/s, twin "
+              f"{row['plain_ms']:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}), SDPA {library:.5f} ms")
+        rows.append(row)
+    pair = rows[1]["ms"] + rows[2]["ms"]
+    print(f"  flash at ViT-L/16's shape: forward {rows[0]['ms']:.5f} ms "
+          f"against SDPA's {fwd_lib:.5f} ({rows[0]['ms'] / fwd_lib:.3f}x); "
+          f"dq + dkv {pair:.5f} ms against SDPA's backward {bwd_lib:.5f} "
+          f"({pair / bwd_lib:.3f}x)")
     return rows
 
 
@@ -6870,6 +6971,359 @@ def train_fp16(batch=8, seq=1024):
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 10: vit — the reference's config 5 (ViT-L/16 training, fused vs
+# unfused: bench.py:444-510) and the ViT's inference
+# ---------------------------------------------------------------------------
+
+VIT_BATCH = 32
+VIT_LR = 1e-4
+# the counted window (its losses on the repeated batch must fall), the
+# steps held bit for bit graph against eager, the timed turns
+VIT_STEPS = 8
+VIT_BITWISE_STEPS = 3
+VIT_TURNS = ("fused", "unfused", "unfused", "fused")
+VIT_TURN_STEPS = 4
+VIT_FLASH_A_STEP = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+                    "flash_attention_bwd_dkv": 24}
+# the first step's loss, fused against unfused on the same weights, bf16:
+# both paths compute the same function with their matmuls grouped apart
+# (one qkv product against three), so activations round to bf16 apart in
+# a few elements; the loss is itself a bf16 value (one step 2^-5 at 4-8,
+# 2^-4 at 8-16). Held within VIT_LOSS_ULPS bf16 steps at the loss.
+VIT_LOSS_ULPS = 4
+# card against CPU, fp32 (TF32 off), ViT-L width at depth 2, batch 2:
+# logits (about 1 in size) differ by summation order only, through two
+# blocks of widths 1024 and 4096; one AdamW step's parameters as the train
+# parity phase holds GPT (TRAIN_PARITY_*: 1e-5, an element whose gradient
+# is within rounding of 0 may step the other way by 2 lr, at most
+# TRAIN_PARITY_FLIP_SHARE of them), and the key biases, whose gradient is
+# 0 but for rounding (the softmax cancels them), within one lr of where
+# they started on each side
+VIT_PARITY_DEPTH, VIT_PARITY_BATCH = 2, 2
+VIT_LOGITS_TOL = (1e-4, 1e-4)
+VIT_EXPORT_BATCH = 8
+
+
+def _bf16_ulp(x):
+    """bf16's step at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7)
+
+
+def _map_unfused_into_fused(fused, plain):
+    """The unfused ViT's weights into the fused one (the mapping of
+    tests/test_vision_models.py:86-124 in the port's layouts: q, k, v
+    ``[out, in]`` stacked into ``qkv_weight [3, H, D, E]``, the other
+    Linear weights transposed to ``[in, out]``)."""
+    with torch.no_grad():
+        for dst, src in [(fused.patch_embed.proj, plain.patch_embed.proj),
+                         (fused.norm, plain.norm), (fused.head, plain.head)]:
+            dst.weight.copy_(src.weight)
+            dst.bias.copy_(src.bias)
+        fused.cls_token.copy_(plain.cls_token)
+        fused.pos_embed.copy_(plain.pos_embed)
+        for fb, pb in zip(fused.blocks, plain.blocks):
+            at, ff, sa = fb.fused_attn, fb.ffn, pb.self_attn
+            h, d = at.num_heads, at.head_dim
+            projs = (sa.q_proj, sa.k_proj, sa.v_proj)
+            at.qkv_weight.copy_(torch.stack(
+                [lin.weight.reshape(h, d, -1) for lin in projs]))
+            at.qkv_bias.copy_(torch.stack(
+                [lin.bias.reshape(h, d) for lin in projs]))
+            at.linear_weight.copy_(sa.out_proj.weight.t())
+            at.linear_bias.copy_(sa.out_proj.bias)
+            at.pre_ln_scale.copy_(pb.norm1.weight)
+            at.pre_ln_bias.copy_(pb.norm1.bias)
+            ff.ln1_scale.copy_(pb.norm2.weight)
+            ff.ln1_bias.copy_(pb.norm2.bias)
+            ff.linear1_weight.copy_(pb.linear1.weight.t())
+            ff.linear1_bias.copy_(pb.linear1.bias)
+            ff.linear2_weight.copy_(pb.linear2.weight.t())
+            ff.linear2_bias.copy_(pb.linear2.bias)
+
+
+def _vit_trainer(model):
+    """`model` with config 5's optimizer and step: AdamW(1e-4,
+    multi_precision) and `TrainStep` over the port's cross-entropy."""
+    from paddle_tpu_torch.nn import functional as tF
+    opt = AdamW(learning_rate=VIT_LR, parameters=model.parameters(),
+                multi_precision=True)
+    return opt, TrainStep(model, lambda o, y: tF.cross_entropy(o, y), opt,
+                          donate="all")
+
+
+def _vit_batch(batch, dtype, device, seed=0, img=224, classes=1000):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((batch, 3, img, img)),
+                     dtype=torch.float32).to(device, dtype)
+    y = torch.tensor(rng.integers(0, classes, (batch,)), device=device)
+    return x, y
+
+
+def _key_bias_rows(name):
+    """Where parameter `name` holds key biases (axis 0), or None."""
+    if name.endswith("qkv_bias"):
+        return [1]
+    if name.endswith("k_proj.bias"):
+        return slice(None)
+    return None
+
+
+def _vit_parity(fused):
+    """ViT-L width at depth VIT_PARITY_DEPTH, fp32: eval logits and one
+    `TrainStep` (a graph on the card, eager on the CPU) from one state,
+    card against CPU."""
+    from paddle_tpu_torch.vision.models import vit_l_16
+    tag = "fused" if fused else "unfused"
+    cpu = vit_l_16(use_fused_attn=fused, depth=VIT_PARITY_DEPTH,
+                   device="cpu", seed=5)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x, y = _vit_batch(VIT_PARITY_BATCH, torch.float32, "cpu", seed=6)
+    for m in (cpu, gpu):
+        m.eval()
+    with torch.no_grad():
+        want, got = cpu(x), gpu(x.cuda()).cpu()
+    err = _close(f"vit parity {tag} logits card vs CPU", got, want,
+                 VIT_LOGITS_TOL)
+    start = {n: p.detach().clone() for n, p in cpu.named_parameters()}
+    losses = []
+    for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        m.train()
+        _, step = _vit_trainer(m)
+        losses.append(float(step(x.to(dev), y.to(dev))))
+    assert abs(losses[0] - losses[1]) <= TRAIN_PARITY_LOSS_ATOL, losses
+    param_err, flipped, total, key_moved = 0.0, 0, 0, 0.0
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        got, want = pg.detach().cpu(), pc.detach()
+        rows = _key_bias_rows(name)
+        if rows is not None:
+            for side in (got, want):
+                key_moved = max(key_moved, float(
+                    (side[rows] - start[name][rows]).abs().max()))
+            keep = torch.ones(got.shape[0], dtype=torch.bool)
+            keep[rows] = False
+            got, want = got[keep], want[keep]
+        diff = (got - want).abs()
+        if diff.numel():
+            param_err = max(param_err, float(diff.max()))
+        flipped += int((diff > TRAIN_PARITY_PARAM_ATOL).sum())
+        total += diff.numel()
+    assert key_moved <= VIT_LR * (1 + 1e-3), key_moved
+    assert param_err <= 2 * VIT_LR, param_err
+    assert flipped <= TRAIN_PARITY_FLIP_SHARE * total, (flipped, total)
+    print(f"vit parity {tag}: ViT-L width, depth {VIT_PARITY_DEPTH}, batch "
+          f"{VIT_PARITY_BATCH}, fp32: logits max_abs_err {err:.3e}; one "
+          f"step's loss card {losses[0]:.6f} vs CPU {losses[1]:.6f}; max "
+          f"param err {param_err:.3e}, {flipped} of {total} elements beyond "
+          f"{TRAIN_PARITY_PARAM_ATOL:g} (at most "
+          f"{TRAIN_PARITY_FLIP_SHARE:g} of them, each within {2 * VIT_LR:g});"
+          f" key biases moved at most {key_moved:.3e} (lr {VIT_LR:g})")
+
+
+def _vit_export():
+    """ViT-B/16 bf16 in eval through `jit.save` at [VIT_EXPORT_BATCH, 3,
+    224, 224] and `jit.load`: the loaded program's logits bit for bit with
+    the eager model's, 12 flash forward launches a call. Returns the
+    launch counts of one call."""
+    import shutil
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.vision.models import vit_b_16
+    model = vit_b_16(device="cuda", seed=7).to(torch.bfloat16).eval()
+    x, _ = _vit_batch(VIT_EXPORT_BATCH, torch.bfloat16, "cuda", seed=8)
+    directory = _scratch_dir("vit_export_")
+    try:
+        t0 = time.perf_counter()
+        path = jit.save(model, os.path.join(directory, "vit_b_16"),
+                        input_spec=[jit.InputSpec(tuple(x.shape),
+                                                  "bfloat16")])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layer = jit.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert layer.has_forward, layer.export_error
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = layer(x)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["flash_attention_fwd"] == 12 \
+        and sum(counts.values()) == 12, counts
+    with torch.no_grad():
+        want = model(x)
+    differ = int((got != want).sum())
+    assert differ == 0, (differ, float((got.float() - want.float()).abs()
+                                       .max()))
+    warm_ms = _p50_ms(lambda: layer(x), 10)
+    print(f"vit export: bf16 ViT-B/16 eval [{VIT_EXPORT_BATCH}, 3, 224, 224]"
+          f" through jit.save ({save_s:.2f} s) and jit.load ({load_s:.2f} "
+          f"s): 12 flash launches a call, warm {warm_ms:.3f} ms a call; "
+          f"logits equal to the eager model's bit for bit ({differ} of "
+          f"{got.numel()} differ)")
+    return counts
+
+
+def vit_phase():
+    """Config 5 at full width: ViT-L/16 (image 224, patch 16, E 1024,
+    depth 24, 16 heads of 64, MLP 4096, 1000 classes) in bf16, the unfused
+    model from seed 0 and the fused one from its weights mapped, each with
+    AdamW(1e-4, multi_precision) through `TrainStep`'s graph on a batch of
+    32 from a seed: the first step's losses (fused vs unfused), the fused
+    graph against `_step_eager` bit for bit after 3 steps, a counted window
+    of 8 steps a path (72 flash launches a step, falling losses), turns,
+    profiles and peak memory; card against CPU at depth 2 in fp32; the
+    eval forward at batch 32; ViT-B/16 through jit.save / jit.load.
+    Returns the launch counts by path: vit (the fused window), vit_unfused,
+    vit_eval (one eval forward), vit_export (one loaded call)."""
+    from paddle_tpu_torch.vision.models import vit_l_16
+    t0 = time.perf_counter()
+    # cuDNN's patch-projection backward may add in any order otherwise;
+    # the graph and the eager step are held bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    paths = {}
+    plain = vit_l_16(use_fused_attn=False, device="cuda", seed=0)
+    fused = vit_l_16(use_fused_attn=True, device="cuda", seed=1)
+    _map_unfused_into_fused(fused, plain)
+    models = {"fused": fused.to(torch.bfloat16),
+              "unfused": plain.to(torch.bfloat16)}
+    eager = copy.deepcopy(models["fused"])
+    x, y = _vit_batch(VIT_BATCH, torch.bfloat16, "cuda")
+    flops = models["fused"].flops_per_image(training=True)
+    steps = {tag: _vit_trainer(m)[1] for tag, m in models.items()}
+    e_opt, e_step = _vit_trainer(eager)
+    runs = {tag: (lambda s=s: s(x, y)) for tag, s in steps.items()}
+    run_eager = lambda: e_step._step_eager(x, y)      # noqa: E731
+    build_s, first = {}, {}
+    for tag, run in runs.items():
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        first[tag] = float(run())
+        build_s[tag] = time.perf_counter() - t1
+    ulps = VIT_LOSS_ULPS * _bf16_ulp(first["unfused"])
+    print(f"vit: ViT-L/16 bf16 AdamW(multi_precision) batch {VIT_BATCH}; "
+          f"graph builds {build_s['fused']:.2f} s fused, "
+          f"{build_s['unfused']:.2f} s unfused (warm-up + capture + step "
+          f"1); first step's loss fused {first['fused']:.5f} vs unfused "
+          f"{first['unfused']:.5f} (|diff| at most {VIT_LOSS_ULPS} bf16 "
+          f"steps, {ulps:g})")
+    assert np.isfinite(list(first.values())).all(), first
+    assert abs(first["fused"] - first["unfused"]) <= ulps, first
+    pairs = [(first["fused"], float(run_eager()))] + [
+        (float(runs["fused"]()), float(run_eager()))
+        for _ in range(VIT_BITWISE_STEPS - 1)]
+    g_opt = steps["fused"].optimizer
+    differ, total = _count_differing(_state_bits(models["fused"], g_opt),
+                                     _state_bits(eager, e_opt))
+    print(f"vit: {VIT_BITWISE_STEPS} steps of the fused graph and of the "
+          f"eager step from one state: losses " + ", ".join(
+              f"{a:.6f}/{b:.6f}" for a, b in pairs) + f"; {differ} of "
+          f"{total} elements of parameters, masters and moments differ")
+    assert all(a == b for a, b in pairs), pairs
+    assert differ == 0, (differ, total)
+    del eager, e_opt, e_step, run_eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for tag, run in runs.items():
+        losses, times = [], []
+        reset_launch_counts()
+        for _ in range(VIT_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(run()))
+            times.append((time.perf_counter() - t1) * 1e3)
+        counts = launch_counts()
+        paths["vit" if tag == "fused" else "vit_unfused"] = counts
+        for name, per_step in VIT_FLASH_A_STEP.items():
+            assert counts[name] == per_step * VIT_STEPS, (tag, counts)
+        assert steps[tag]._builds == 1, steps[tag]._builds
+        assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+        p50 = float(np.median(times))
+        print(f"vit {tag}: {VIT_STEPS} graph steps, losses "
+              + ", ".join(f"{v:.4f}" for v in losses) + f"; step p50 "
+              f"{p50:.3f} ms, p99 {float(np.percentile(times, 99)):.3f}; "
+              f"{VIT_BATCH / (p50 / 1e3):.1f} images/s; MFU "
+              f"{VIT_BATCH / (p50 / 1e3) * flops / PEAK_FLOPS[torch.bfloat16]:.4f}"
+              f" ({flops} FLOPs/image vs 989e12 FLOP/s); flash launches a "
+              f"step " + json.dumps({n: counts[n] / VIT_STEPS
+                                     for n in VIT_FLASH_A_STEP}))
+    turns = [_turn(tag, runs[tag], VIT_TURN_STEPS, VIT_BATCH, flops)
+             for tag in VIT_TURNS]
+    ips = {}
+    for tag in ("fused", "unfused"):
+        mine = [t for t in turns if t["turn"] == tag]
+        ips[tag] = float(np.mean([t["tokens_per_s"] for t in mine]))
+        print(f"vit turns, {tag}: step p50 " + " / ".join(
+            f"{t['p50_ms']:.3f}" for t in mine) + " ms; device " + " / ".join(
+            f"{t['device_ms']:.3f}" for t in mine) + " ms a step; images/s "
+            + " / ".join(f"{t['tokens_per_s']:.1f}" for t in mine)
+            + "; MFU " + " / ".join(f"{t['mfu']:.4f}" for t in mine))
+    print(f"vit: fused / unfused images/s {ips['fused'] / ips['unfused']:.4f}"
+          f" (the reference's criterion, fused >= unfused: reported, not "
+          f"gated)")
+    for tag, run in runs.items():
+        totals = {}
+        _breakdown(f"vit {tag} graph", run, totals=totals)
+        print(f"vit {tag}: {totals.get('kernels', 0):.1f} kernels and "
+              f"{totals.get('device_ms', 0.0):.3f} ms device time a step "
+              "(profiled)")
+    for tag, run in runs.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        float(run())
+        peak = torch.cuda.max_memory_allocated()
+        print(f"vit {tag}: max_memory_allocated {peak / 2**30:.3f} GiB over "
+              f"a step in a fresh reading, {(peak - before) / 2**30:.3f} GiB "
+              f"above the {before / 2**30:.3f} allocated before it (both "
+              f"models, masters and moments live; the graphs' activations "
+              f"sit in their pools: reserved "
+              f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB)")
+
+    for tag, model in models.items():
+        model.eval()
+        totals = {}
+        with torch.no_grad():
+            reset_launch_counts()
+            logits = model(x)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            wall_ms = _p50_ms(lambda m=model: m(x), 10)
+            # device time from the profiler: the eager forward's host
+            # falls behind its device, so events around queued calls
+            # would count the gaps
+            _breakdown(f"vit eval {tag}", lambda m=model: m(x), top=4,
+                       totals=totals)
+        assert counts["flash_attention_fwd"] == 24, counts
+        assert tuple(logits.shape) == (VIT_BATCH, 1000) and bool(
+            torch.isfinite(logits.float()).all())
+        if tag == "fused":
+            paths["vit_eval"] = counts
+        ms = totals.get("device_ms", 0.0)
+        print(f"vit eval {tag}: forward at batch {VIT_BATCH} {wall_ms:.3f} "
+              f"ms a batch (p50, host clock, synchronized), "
+              f"{VIT_BATCH / (wall_ms / 1e3):.1f} images/s; {ms:.3f} ms of "
+              f"device time over {totals.get('kernels', 0):.0f} kernels "
+              f"(profiled; busy {ms / wall_ms:.3f} of the p50); 24 flash "
+              "launches a forward")
+    del models, steps, runs, fused, plain, g_opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for fused_path in (True, False):
+        _vit_parity(fused_path)
+    paths["vit_export"] = _vit_export()
+    print(f"vit: {time.perf_counter() - t0:.1f} s wall")
+    return paths
+
+
 def _phase_memory(phase):
     """After `phase`: the device memory still allocated once the cyclic
     collector has run (what the script or the port holds into the next
@@ -6926,7 +7380,8 @@ def main():
             "serve_tenancy": [check_lora_delta()],
             "serve_kv_mixed_bfloat16": [append_cast[0], scatter_cast[0]],
             "serve_kv_mixed_float32": [append_cast[1], scatter_cast[1]],
-            "generate": [check_keyed_draw_rows()]}
+            "generate": [check_keyed_draw_rows()],
+            "vit": check_flash_vit()}
     for path, more in check_float16().items():
         rows.setdefault(path, []).extend(more)
     _phase_memory("the kernels phase")
@@ -6979,12 +7434,16 @@ def main():
     paths.update(train_fp16())
     _phase_memory("train_fp16")
     paths["fused_ln_fp16"] = fused_ln_phase(dtype=F16)
+    _phase_memory("fused_ln_fp16")
+    paths.update(vit_phase())
+    _phase_memory("vit")
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and
     # fused with the write, the int8 serving run for the int8 paged decode,
     # alone and fused, the measured training steps for the training
     # kernels, the fused_ln phase for fused_ln; an f16 instantiation's from
-    # its float16 path), read under the row's launch counter (its name, or
+    # its float16 path; a row at ViT-L/16's shape from the vit phase's fused
+    # window), read under the row's launch counter (its name, or
     # `counter` where the name adds the input type); every path's counts
     # are listed beside
     for path, path_rows in rows.items():
@@ -6997,7 +7456,7 @@ def main():
             for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
     names = [row["name"] for row in rows]
-    assert len(rows) == 46 and len(set(names)) == len(names) and all(
+    assert len(rows) == 49 and len(set(names)) == len(names) and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "counter", "route", "source", "replaces", "launches",
             "max_abs_err",

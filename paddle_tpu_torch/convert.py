@@ -5,11 +5,20 @@ the JAX model's ``named_parameters()`` as numpy arrays (for example
 ``{n: np.asarray(p._value) for n, p in jax_model.named_parameters()}``)
 load into the port's module of the same structure. Names match one to one;
 only `nn.Linear` weights change layout (paddle stores ``[in, out]``, torch
-``[out, in]``). The modules carried so far: `GPTForCausalLM` and
-`incubate.nn.FusedBiasDropoutResidualLayerNorm` (``linear_bias``,
-``ln_scale``, ``ln_bias``). `load_jax_optimizer_state` carries a JAX
-optimizer's accumulators and step count the same way, so a parity run can
-continue from one state on both sides.
+``[out, in]``); every other parameter keeps its layout. The modules carried
+so far: `GPTForCausalLM`; `nn.MultiHeadAttention`, the
+`nn.TransformerEncoder(Layer)` / `TransformerDecoder(Layer)` stacks and
+`nn.Transformer` (their projections are `nn.Linear`s); the
+`incubate.nn` fused family, `FusedBiasDropoutResidualLayerNorm`,
+`FusedMultiHeadAttention`, `FusedFeedForward`,
+`FusedTransformerEncoderLayer`, `FusedMultiTransformer` and `FusedLinear`
+(raw parameters in Paddle's layout: ``qkv_weight [3, H, D, E]``,
+``linear_weight [in, out]``, copied as they are); and
+`vision.models.VisionTransformer` on either path (the patch projection is
+an `nn.Conv2d`, whose ``[out, in, kh, kw]`` is Paddle's layout too).
+`load_jax_optimizer_state` carries a JAX optimizer's accumulators and step
+count the same way, so a parity run can continue from one state on both
+sides.
 """
 from __future__ import annotations
 

@@ -65,6 +65,11 @@ jitted update on the guard):
 Under either flag no op of the step is checked on its own (the capture
 drops them on the card; `ops.numerics.suspended` on the CPU), as the
 reference's trace drops them.
+
+``donate`` is the reference's argument (which buffers its jitted step
+donates: the accumulators by default, the parameters too with ``"all"``).
+The port's step updates parameters and accumulators in place whatever it
+says, which is what donation buys there, so it is taken and not read.
 """
 from __future__ import annotations
 
@@ -78,7 +83,7 @@ __all__ = ["TrainStep"]
 
 
 class TrainStep:
-    def __init__(self, model, loss_fn, optimizer):
+    def __init__(self, model, loss_fn, optimizer, donate=True):
         self.model = model
         self.loss_fn = loss_fn
         self.optimizer = optimizer

@@ -83,11 +83,15 @@ def _linear(tm):
 
 def _hand_grads(jm, tm):
     """The port's gradients onto the JAX parameters, in the JAX layout
-    (Linear weights transposed) and dtype."""
+    (Linear weights transposed) and dtype, as copies: on the CPU
+    `jnp.asarray` of a numpy view aliases the torch gradient's memory and
+    JAX reads it when its asynchronous computation runs, which can be
+    after the port's scaler has unscaled that gradient in place (or
+    `clear_grad` has freed it) on a loaded machine."""
     linear = _linear(tm)
     grads = {n: p.grad for n, p in tm.named_parameters()}
     for n, jp in jm.named_parameters():
-        g = grads[n].detach().float().numpy()
+        g = np.array(grads[n].detach().float().numpy(), copy=True)
         g = g.T if n in linear else g
         jp.grad = paddle.Tensor(jnp.asarray(g).astype(jp._value.dtype))
 
