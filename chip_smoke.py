@@ -307,6 +307,26 @@ Phases, in order; any failure raises and the script exits non-zero:
                for bit, 12 flash launches a call. The kernels phase holds
                the flash pair at ViT-L/16's shape (32, 197, 16, 64),
                non-causal, and times it (rows ``<counter>@vit``).
+ 11. resnet  — the reference's config 1 (BASELINE.json: ResNet-50
+               ImageNet, single-device dygraph): `resnet50(1000)` at 224 x
+               224, batch 128 from a seed, fp32 parameters under amp O1 in
+               bf16 (convolutions and the head in bf16, batch norms in
+               fp32), Momentum(0.1, 0.9, L2Decay(1e-4)) through
+               `TrainStep`'s graph, cuDNN deterministic: the build and the
+               first loss (near ln 1000), the graph bit for bit with
+               `_step_eager` after 3 steps over parameters, velocities and
+               every batch norm's running statistics, a counted window of
+               8 steps (one build, no port kernel launched, the last loss
+               below the first step's, images/s, step p50 / p99, MFU from
+               the convolutions' and linears' shapes), a profiled step by
+               group, graph and eager in turns, peak memory; the O1 eval
+               forward at batch 128; the eval ResNet-50 through jit.save /
+               jit.load, logits bit for bit; ResNet-18 card against CPU in
+               fp32 (logits, one step's parameters and running
+               statistics); every other zoo constructor's eval forward at
+               batch 2, card against CPU. No kernel row: the reference
+               computes convolutions, batch norms and pools in XLA, and
+               the port in cuDNN and torch's own kernels.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
@@ -4975,12 +4995,14 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("scan", ("scan",)))
 
 
-def _breakdown(tag, fn, per=1, top=8, totals=None):
-    """fn() under torch.profiler: device time by kernel group and the
-    device's busy share of the wall time, per one of the `per` steps fn
-    runs, and the kernels (and copies) it launched per step. Returns the
-    groups' ms per step (None where the profiler saw no device time); a
-    `totals` dict gets the step's kernels and device ms."""
+def _breakdown(tag, fn, per=1, top=8, totals=None, groups=None):
+    """fn() under torch.profiler: device time by kernel group (`groups`,
+    STEP_GROUPS by default) and the device's busy share of the wall time,
+    per one of the `per` steps fn runs, and the kernels (and copies) it
+    launched per step. Returns the groups' ms per step (None where the
+    profiler saw no device time); a `totals` dict gets the step's kernels
+    and device ms."""
+    groups_of = STEP_GROUPS if groups is None else groups
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -4995,7 +5017,7 @@ def _breakdown(tag, fn, per=1, top=8, totals=None):
             continue
         ms = evt.self_device_time_total / 1e3 / per
         kernels.append((ms, evt.count / per, evt.key))
-        group = next((g for g, pats in STEP_GROUPS
+        group = next((g for g, pats in groups_of
                       if any(pat in evt.key for pat in pats)), "other")
         groups[group] = groups.get(group, 0.0) + ms
     device_ms = sum(groups.values())
@@ -5052,10 +5074,11 @@ def _differing(a, b):
 
 
 def _state_bits(model, opt):
-    """Every parameter and accumulator tensor of `model` under `opt`."""
+    """Every parameter, accumulator and buffer tensor of `model` under
+    `opt` (the buffers: a batch norm's running statistics)."""
     return [p.detach() for p in model.parameters()] + [
         slot[p] for slot in opt._accumulators.values()
-        for p in model.parameters() if p in slot]
+        for p in model.parameters() if p in slot] + list(model.buffers())
 
 
 def _count_differing(a, b):
@@ -7324,6 +7347,367 @@ def vit_phase():
     return paths
 
 
+# phase 11: resnet — the reference's config 1 (ResNet-50 ImageNet training,
+# single-device dygraph: BASELINE.json) and the conv-net zoo on the card
+# ---------------------------------------------------------------------------
+
+RESNET_BATCH = 128
+RESNET_IMG = 224
+# config 1's optimizer: Momentum(0.1, 0.9) with L2Decay(1e-4)
+RESNET_LR, RESNET_MOMENTUM, RESNET_DECAY = 0.1, 0.9, 1e-4
+RESNET_STEPS = 8
+RESNET_BITWISE_STEPS = 3
+RESNET_TURNS = ("graph", "eager", "eager", "graph")
+RESNET_TURN_STEPS = 4
+RESNET_EXPORT_BATCH = 8
+# card against CPU, fp32 (TF32 off): ResNet-18 at 64 x 64, batch 16 (its
+# layer4 batch norms see 64 values a channel), 1000 classes. Logits within
+# RESNET_LOGITS_RTOL of their largest magnitude (summation order only);
+# one step's update of each parameter (lr 0.1 times a gradient of up to
+# ~100 at init, whose fp32 rounding seventeen batch norms amplify on the
+# way to conv1: 3.2e-3 seen there, card against CPU) within
+# RESNET_UPDATE_FRO_RTOL of it by relative Frobenius norm, and each
+# running statistic within RESNET_LOGITS_RTOL of its largest magnitude
+RESNET_PARITY_IMG, RESNET_PARITY_BATCH = 64, 16
+RESNET_LOGITS_RTOL = 1e-4
+RESNET_UPDATE_FRO_RTOL = 1e-2
+# every other zoo constructor: one eval forward at batch 2, card against
+# CPU (fp32, TF32 off), within RESNET_LOGITS_RTOL of the logits' largest
+# magnitude (deep nets at their init give logits of 1e-11 to 1)
+RESNET_ZOO = {
+    "resnet18": 224, "resnet34": 224, "resnet101": 224, "resnet152": 224,
+    "wide_resnet50_2": 224, "wide_resnet101_2": 224,
+    "resnext50_32x4d": 224, "resnext50_64x4d": 224,
+    "resnext101_32x4d": 224, "resnext101_64x4d": 224,
+    "resnext152_32x4d": 224, "resnext152_64x4d": 224, "LeNet": 28,
+    "vgg11": 224, "vgg13": 224, "vgg16": 224, "vgg19": 224,
+    "mobilenet_v1": 224, "mobilenet_v2": 224, "mobilenet_v3_small": 224,
+    "mobilenet_v3_large": 224, "alexnet": 224, "densenet121": 224,
+    "densenet161": 224, "densenet169": 224, "densenet201": 224,
+    "densenet264": 224, "googlenet": 224, "inception_v3": 299,
+    "shufflenet_v2_x0_25": 224, "shufflenet_v2_x0_33": 224,
+    "shufflenet_v2_x0_5": 224, "shufflenet_v2_x1_0": 224,
+    "shufflenet_v2_x1_5": 224, "shufflenet_v2_x2_0": 224,
+    "shufflenet_v2_swish": 224, "squeezenet1_0": 224, "squeezenet1_1": 224}
+# a ResNet step's device time by group (first match wins)
+RESNET_GROUPS = (
+    ("layout transforms", ("nchwToNhwc", "nhwcToNchw", "ranspose")),
+    ("cuDNN convolutions, cuBLAS head", ("conv", "Conv", "xmma", "fprop",
+                                         "dgrad", "wgrad", "implicit",
+                                         "gemm", "Gemm", "nvjet",
+                                         "cutlass")),
+    ("batch norm", ("bn_", "batch_norm", "BatchNorm", "batchnorm")),
+    ("Momentum update and L2Decay (multi-tensor)", ("multi_tensor_apply",)),
+    ("pooling", ("pool", "Pool")),
+    ("elementwise (casts, ReLU, adds)", ("elementwise", "Elementwise")),
+    ("reductions", ("reduce_kernel",)))
+
+
+def _resnet_flops(model, img, in_chans=3):
+    """FLOPs of one image's training step from the shapes its convolutions
+    and linears see: 2 · MACs forward, x3 for forward and backward."""
+    from paddle_tpu_torch import nn as tnn
+    macs = []
+
+    def hook(mod, inputs, out):
+        if isinstance(mod, torch.nn.Linear):
+            macs.append(mod.in_features * mod.out_features)
+        else:
+            w = mod.weight
+            macs.append(out[0].numel() * math.prod(w.shape[1:]))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (tnn.Conv2D, torch.nn.Linear))]
+    training = model.training
+    model.eval()                # a training forward would move the stats
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, in_chans, img, img,
+                              device=next(model.parameters()).device))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return 3 * 2 * sum(macs)
+
+
+def _resnet_trainer(model):
+    """`model` with config 1's optimizer and cross-entropy through
+    `TrainStep`."""
+    from paddle_tpu_torch.nn import functional as tF
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.parameters(),
+                   weight_decay=L2Decay(RESNET_DECAY))
+    return opt, TrainStep(model, lambda o, y: tF.cross_entropy(o, y), opt)
+
+
+def _o1(fn):
+    """fn() under config 1's amp: O1 in bf16."""
+    def run():
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return fn()
+    return run
+
+
+def _resnet_parity():
+    """ResNet-18 in fp32, card against CPU: eval logits, then one
+    `TrainStep` (the card's graph, the CPU's eager step) from one state:
+    parameters and running statistics."""
+    from paddle_tpu_torch.vision.models import resnet18
+    cpu = resnet18(device="cpu", seed=11)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    x, y = _vit_batch(RESNET_PARITY_BATCH, torch.float32, "cpu", seed=12,
+                      img=RESNET_PARITY_IMG)
+    for m in (cpu, gpu):
+        m.eval()
+    with torch.no_grad():
+        want, got = cpu(x), gpu(x.cuda()).cpu()
+    scale = float(want.abs().max())
+    err = _close("resnet parity logits card vs CPU", got, want,
+                 (RESNET_LOGITS_RTOL * scale, 0.0))
+    start = [p.detach().clone() for p in cpu.parameters()]
+    losses = []
+    for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
+        m.train()
+        _, step = _resnet_trainer(m)
+        losses.append(float(step(x.to(dev), y.to(dev))))
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), losses
+    update_err = stat_err = 0.0
+    for (name, pc), pg, p0 in zip(cpu.named_parameters(), gpu.parameters(),
+                                  start):
+        want = pc.detach() - p0
+        got = pg.detach().cpu() - p0
+        err_p = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert err_p <= RESNET_UPDATE_FRO_RTOL, (name, err_p)
+        update_err = max(update_err, err_p)
+    for (name, bc), bg in zip(cpu.named_buffers(), gpu.buffers()):
+        err_b = float((bg.cpu() - bc).abs().max() / bc.abs().max())
+        assert err_b <= RESNET_LOGITS_RTOL, (name, err_b)
+        stat_err = max(stat_err, err_b)
+    print(f"resnet parity: ResNet-18, {RESNET_PARITY_IMG} x "
+          f"{RESNET_PARITY_IMG}, batch {RESNET_PARITY_BATCH}, fp32: logits "
+          f"max_abs_err {err:.3e} (largest {scale:.3e}); one step's loss "
+          f"card {losses[0]:.6f} vs CPU {losses[1]:.6f}; each parameter's "
+          f"update within {update_err:.3e} by relative Frobenius norm (at "
+          f"most {RESNET_UPDATE_FRO_RTOL:g}); running statistics within "
+          f"{stat_err:.3e} of their largest magnitude")
+
+
+def _resnet_zoo():
+    """One eval forward of every other constructor at batch 2, card
+    against CPU in fp32. Returns the worst error relative to the logits'
+    largest magnitude."""
+    from paddle_tpu_torch.vision import models as tmodels
+    worst = 0.0
+    t0 = time.perf_counter()
+    for i, (name, img) in enumerate(RESNET_ZOO.items()):
+        # drawn on the card (fast), copied to the CPU
+        gpu = getattr(tmodels, name)(device="cuda", seed=20 + i).eval()
+        cpu = copy.deepcopy(gpu).to("cpu")
+        chans = 1 if name == "LeNet" else 3
+        x = torch.tensor(np.random.default_rng(i).standard_normal(
+            (2, chans, img, img)), dtype=torch.float32)
+        with torch.no_grad():
+            want, got = cpu(x), gpu(x.cuda())
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        assert len(got) == (3 if name == "googlenet" else 1), name
+        for w, g in zip(want, got):
+            scale = float(w.abs().max())
+            assert scale > 0 and bool(torch.isfinite(g).all()), name
+            err = float((g.cpu() - w).abs().max()) / scale
+            assert err <= RESNET_LOGITS_RTOL, (name, err)
+            worst = max(worst, err)
+        del cpu, gpu
+    print(f"resnet zoo: {len(RESNET_ZOO)} constructors, one eval forward "
+          f"each at batch 2 (224 x 224; Inception-v3 299, LeNet 1 x 28 x "
+          f"28), card against CPU in fp32: worst error {worst:.3e} of the "
+          f"logits' largest magnitude (at most {RESNET_LOGITS_RTOL:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    return worst
+
+
+def _resnet_export(model):
+    """The evaluating ResNet-50 (fp32) through `jit.save` at
+    [RESNET_EXPORT_BATCH, 3, 224, 224] and `jit.load`: the loaded
+    program's logits bit for bit with the eager model's."""
+    import shutil
+    from paddle_tpu_torch import jit
+    x, _ = _vit_batch(RESNET_EXPORT_BATCH, torch.float32, "cuda", seed=13)
+    directory = _scratch_dir("resnet_export_")
+    try:
+        t0 = time.perf_counter()
+        path = jit.save(model, os.path.join(directory, "resnet50"),
+                        input_spec=[jit.InputSpec(tuple(x.shape),
+                                                  "float32")])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        layer = jit.load(path)
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert layer.has_forward, layer.export_error
+    got = layer(x)
+    with torch.no_grad():
+        want = model(x)
+    differ = int((got != want).sum())
+    assert differ == 0, (differ, float((got - want).abs().max()))
+    warm_ms = _p50_ms(lambda: layer(x), 10)
+    print(f"resnet export: fp32 ResNet-50 eval [{RESNET_EXPORT_BATCH}, 3, "
+          f"224, 224] through jit.save ({save_s:.2f} s) and jit.load "
+          f"({load_s:.2f} s): warm {warm_ms:.3f} ms a call; logits equal "
+          f"to the eager model's bit for bit ({differ} of {got.numel()} "
+          f"differ)")
+
+
+def resnet_phase():
+    """Config 1 at full width: ResNet-50 (224 x 224, 1000 classes) from
+    seed 0, fp32 parameters under amp O1 in bf16, Momentum(0.1, 0.9,
+    L2Decay(1e-4)) through `TrainStep`'s graph on a batch of 128 from a
+    seed, cuDNN deterministic: the build and the first loss, the graph
+    against `_step_eager` bit for bit after 3 steps (parameters,
+    velocities and every batch norm's running statistics), a counted
+    window of 8 steps (one build, its last loss below the first step's,
+    images/s, step p50 / p99, MFU by the convolutions' and linears'
+    shapes), a profiled step by group, graph and eager in turns, peak
+    memory; the eval forward at
+    batch 128; the eval ResNet-50 through jit.save / jit.load; ResNet-18
+    card against CPU in fp32; every other zoo constructor's eval forward,
+    card against CPU. Returns the window's launch counts (no kernel of
+    the port lies on this path: all zero)."""
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    model = resnet50(device="cuda", seed=0)
+    model.train()
+    eager = copy.deepcopy(model)
+    flops = _resnet_flops(model, RESNET_IMG)
+    x, y = _vit_batch(RESNET_BATCH, torch.float32, "cuda", img=RESNET_IMG)
+    g_opt, g_step = _resnet_trainer(model)
+    e_opt, e_step = _resnet_trainer(eager)
+    run = _o1(lambda: g_step(x, y))
+    run_eager = _o1(lambda: e_step._step_eager(x, y))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before_build = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    first = float(run())
+    build_s = time.perf_counter() - t1
+    build_peak = torch.cuda.max_memory_allocated()
+    print(f"resnet: ResNet-50 fp32 under O1 bf16, Momentum({RESNET_LR}, "
+          f"{RESNET_MOMENTUM}, L2Decay({RESNET_DECAY:g})), batch "
+          f"{RESNET_BATCH} x 3 x {RESNET_IMG} x {RESNET_IMG}; graph build "
+          f"{build_s:.2f} s (warm-up + capture + step 1); first loss "
+          f"{first:.5f} (ln 1000 = {math.log(1000):.5f})")
+    assert math.isfinite(first) and abs(first - math.log(1000)) < 3, first
+    pairs = [(first, float(run_eager()))] + [
+        (float(run()), float(run_eager()))
+        for _ in range(RESNET_BITWISE_STEPS - 1)]
+    differ, total = _count_differing(_state_bits(model, g_opt),
+                                     _state_bits(eager, e_opt))
+    n_buffers = sum(b.numel() for b in model.buffers())
+    print(f"resnet: {RESNET_BITWISE_STEPS} steps of the graph and of the "
+          f"eager step from one state: losses " + ", ".join(
+              f"{a:.6f}/{b:.6f}" for a, b in pairs) + f"; {differ} of "
+          f"{total} elements of parameters, velocities and running "
+          f"statistics ({n_buffers} of them) differ")
+    assert all(a == b for a, b in pairs), pairs
+    assert differ == 0, (differ, total)
+
+    losses, times = [], []
+    reset_launch_counts()
+    for _ in range(RESNET_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(run()))
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = launch_counts()
+    assert g_step._builds == 1, g_step._builds
+    assert not any(counts.values()), counts
+    # lr 0.1 without a warm-up on one repeated batch: the loss overshoots
+    # inside the window once the velocity has built up, so the window is
+    # held to the first step's loss, not to its own first
+    assert np.isfinite(losses).all() and losses[-1] < first, (first, losses)
+    p50 = float(np.median(times))
+    ips = RESNET_BATCH / (p50 / 1e3)
+    print(f"resnet: {RESNET_STEPS} graph steps, losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + f"; step p50 "
+          f"{p50:.3f} ms, p99 {float(np.percentile(times, 99)):.3f}; "
+          f"{ips:.1f} images/s; MFU {ips * flops / PEAK_FLOPS[torch.bfloat16]:.4f}"
+          f" ({flops} FLOPs an image a step by the convolutions' and "
+          f"linears' shapes vs 989e12 FLOP/s); one build; no port kernel "
+          f"on the path (launch counts all 0)")
+    totals = {}
+    _breakdown("resnet graph", run, top=10, totals=totals,
+               groups=RESNET_GROUPS)
+    print(f"resnet graph: {totals.get('kernels', 0):.1f} kernels and "
+          f"{totals.get('device_ms', 0.0):.3f} ms device time a step "
+          "(profiled)")
+    totals = {}
+    _breakdown("resnet eager", run_eager, top=4, totals=totals,
+               groups=RESNET_GROUPS)
+    turns = [_turn(tag, {"graph": run, "eager": run_eager}[tag],
+                   RESNET_TURN_STEPS, RESNET_BATCH, flops)
+             for tag in RESNET_TURNS]
+    for tag in ("graph", "eager"):
+        mine = [t for t in turns if t["turn"] == tag]
+        print(f"resnet turns, {tag}: step p50 " + " / ".join(
+            f"{t['p50_ms']:.3f}" for t in mine) + " ms; device " + " / ".join(
+            f"{t['device_ms']:.3f}" for t in mine) + " ms a step; images/s "
+            + " / ".join(
+                f"{t['tokens_per_s']:.1f}" for t in mine) + "; MFU "
+            + " / ".join(f"{t['mfu']:.4f}" for t in mine))
+    del eager, e_opt, e_step, run_eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    float(run())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"resnet: max_memory_allocated {build_peak / 2**30:.3f} GiB over "
+          f"the build and step 1 (the eager warm-up's activations, then "
+          f"the graph's pool), {(build_peak - before_build) / 2**30:.3f} GiB"
+          f" above the {before_build / 2**30:.3f} allocated before it (both"
+          f" models); over a later graph step "
+          f"{peak / 2**30:.3f} GiB, {(peak - before) / 2**30:.3f} above the "
+          f"{before / 2**30:.3f} before it (the activations sit in the "
+          f"graph's pool: reserved {torch.cuda.memory_reserved() / 2**30:.3f}"
+          f" GiB)")
+
+    model.eval()
+    totals = {}
+    with torch.no_grad():
+        evaluate = _o1(lambda: model(x))
+        logits = evaluate()
+        wall_ms = _p50_ms(evaluate, 10)
+        _breakdown("resnet eval", evaluate, top=4, totals=totals,
+                   groups=RESNET_GROUPS)
+    assert tuple(logits.shape) == (RESNET_BATCH, 1000) and bool(
+        torch.isfinite(logits.float()).all())
+    ms = totals.get("device_ms", 0.0)
+    print(f"resnet eval: O1 forward at batch {RESNET_BATCH} {wall_ms:.3f} ms "
+          f"a batch (p50, host clock, synchronized), "
+          f"{RESNET_BATCH / (wall_ms / 1e3):.1f} images/s; {ms:.3f} ms of "
+          f"device time over {totals.get('kernels', 0):.0f} kernels "
+          f"(profiled; busy {ms / wall_ms:.3f} of the p50)")
+    _resnet_export(model)
+    del g_opt, g_step, run, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _resnet_parity()
+    _resnet_zoo()
+    torch.backends.cudnn.deterministic = deterministic
+    print(f"resnet: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 def _phase_memory(phase):
     """After `phase`: the device memory still allocated once the cyclic
     collector has run (what the script or the port holds into the next
@@ -7437,6 +7821,8 @@ def main():
     _phase_memory("fused_ln_fp16")
     paths.update(vit_phase())
     _phase_memory("vit")
+    paths["resnet"] = resnet_phase()
+    _phase_memory("resnet")
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and
     # fused with the write, the int8 serving run for the int8 paged decode,

@@ -19,6 +19,14 @@ an `nn.Conv2d`, whose ``[out, in, kh, kw]`` is Paddle's layout too).
 `load_jax_optimizer_state` carries a JAX optimizer's accumulators and step
 count the same way, so a parity run can continue from one state on both
 sides.
+
+Buffers travel with the parameters: `arrays` holds the JAX model's
+``named_buffers()`` too (a batch norm's ``_mean`` / ``_variance``), under
+the same names as the port's persistent buffers, and a name missing from
+either side raises as a parameter's does. The conv nets of
+`vision.models` are carried so (their convolutions' ``[out, in / groups,
+*k]`` weights are Paddle's layout too, and a Momentum velocity on them
+needs no transpose).
 """
 from __future__ import annotations
 
@@ -35,41 +43,56 @@ def _linear_weights(model):
             if isinstance(mod, nn.Linear)}
 
 
+def _persistent_buffers(model):
+    """``{name: buffer}`` of `model`'s buffers that its state dict holds."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, b in mod._buffers.items():
+            if b is not None and name not in mod._non_persistent_buffers_set:
+                out[f"{prefix}.{name}" if prefix else name] = b
+    return out
+
+
 def jax_state_values(model: nn.Module, arrays):
-    """`arrays` (``{name: np.ndarray}``, the JAX model's named parameters)
-    as a list in `model`'s ``parameters()`` order and layout (Linear
-    weights transposed to ``[out, in]``), the form `LLMEngine.stage_weights`
-    takes. Raises KeyError on a missing or extra name and ValueError on a
-    shape mismatch."""
+    """`arrays` (``{name: np.ndarray}``, the JAX model's named parameters
+    and buffers) as a list in `model`'s ``parameters()`` order and layout
+    (Linear weights transposed to ``[out, in]``), then its persistent
+    buffers in ``named_buffers()`` order: the form
+    `LLMEngine.stage_weights` takes (a GPT has no buffers). Raises
+    KeyError on a missing or extra name and ValueError on a shape
+    mismatch."""
     linear_weights = _linear_weights(model)
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    extra = sorted(set(arrays) - set(params))
+    state = {**dict(model.named_parameters()), **_persistent_buffers(model)}
+    missing = sorted(set(state) - set(arrays))
+    extra = sorted(set(arrays) - set(state))
     if missing or extra:
         raise KeyError(f"state mismatch: missing {missing}, extra {extra}")
-    staged = {}
-    for name, p in params.items():
+    staged = []
+    for name, t in state.items():
         arr = np.asarray(arrays[name])
         if name in linear_weights:
             arr = arr.T
-        if tuple(arr.shape) != tuple(p.shape):
-            raise ValueError(f"{name}: expected shape {tuple(p.shape)}, got "
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{name}: expected shape {tuple(t.shape)}, got "
                              f"{tuple(arr.shape)}"
                              + (" after transposing [in, out] -> [out, in]"
                                 if name in linear_weights else ""))
-        staged[name] = arr
-    return [staged[name] for name in params]
+        staged.append(arr)
+    return staged
 
 
 def load_jax_state(model: nn.Module, arrays):
-    """Copy `arrays` (``{name: np.ndarray}``) into `model`'s parameters, in
-    place, casting to each parameter's dtype and device. Raises KeyError on
-    a missing or extra name and ValueError on a shape mismatch; nothing is
-    copied unless every name and shape checks out."""
+    """Copy `arrays` (``{name: np.ndarray}``, parameters and buffers) into
+    `model`'s parameters and persistent buffers, in place, casting to each
+    one's dtype and device. Raises KeyError on a missing or extra name and
+    ValueError on a shape mismatch; nothing is copied unless every name and
+    shape checks out."""
     values = jax_state_values(model, arrays)
+    targets = list(dict(model.named_parameters()).values()) + list(
+        _persistent_buffers(model).values())
     with torch.no_grad():
-        for p, arr in zip(model.parameters(), values):
-            p.copy_(torch.tensor(arr))
+        for t, arr in zip(targets, values):
+            t.copy_(torch.tensor(arr))
     return model
 
 

@@ -19,10 +19,15 @@ input signature (shapes, dtypes, device) builds it: static input buffers,
 one eager warm-up of the forward and backward on a side stream (it loads
 cuBLAS and the kernels' libraries before capture; the update then runs on
 one scratch element of each parameter dtype, so nothing of the model
-moves), and one
-capture of forward, loss, `torch.autograd.grad` and the optimizer's
-update. Each call then copies the inputs into the buffers, counts the step
-and fills the optimizer's lr and step scalars by value
+moves; the model's floating buffers, a batch norm's running statistics,
+are copied before it and back after it, so a build moves none of them),
+and one capture of forward, loss, `torch.autograd.grad` and the
+optimizer's update. The graph holds the buffers as it holds the
+parameters: a training batch norm moves its ``_mean`` / ``_variance`` in
+place on every replay, once a step, as the eager step and the
+reference's step (which threads them through as ``new_b``) do. Each
+call then copies the inputs into the static inputs, counts the step and
+fills the optimizer's lr and step scalars by value
 (`Optimizer._begin_step`), replays, and returns a clone of the static
 loss, which the next replay overwrites. A new signature builds a new graph,
 as the reference's `jax.jit` retraces; so does a parameter whose storage
@@ -72,6 +77,8 @@ The port's step updates parameters and accumulators in place whatever it
 says, which is what donation buys there, so it is taken and not read.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -159,7 +166,9 @@ class TrainStep:
         opt._create_accumulators(self._params)
         guard = guardian.mode()
         key = (tuple((a.shape, a.dtype) for a in args),
-               tuple(p.data_ptr() for p in self._params), guard)
+               tuple(p.data_ptr() for p in self._params),
+               # read anew: `model.to` replaces buffer tensors
+               tuple(b.data_ptr() for b in self.model.buffers()), guard)
         with numerics.suspended():
             if key != self._key:
                 self._build(args, guard)
@@ -173,6 +182,20 @@ class TrainStep:
                 else self._static_checks.clone()
         self._finish(guard, checks)
         return loss
+
+    @contextlib.contextmanager
+    def _buffers_kept(self):
+        """The model's floating buffers as they were before the block:
+        the warm-up's forward would move a batch norm's running statistics
+        once more than the steps do."""
+        saved = [(b, b.clone()) for b in self.model.buffers()
+                 if b.is_floating_point()]
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for b, value in saved:
+                    b.copy_(value)
 
     def _build(self, args, guard):
         """Capture forward, backward and update over static copies of
@@ -204,7 +227,8 @@ class TrainStep:
                     for s in scratch:
                         slot.pop(s, None)
 
-        warm_up(warm, device)
+        with self._buffers_kept():
+            warm_up(warm, device)
         torch.cuda.synchronize(device)
         try:
             self._graph, (self._static_loss, self._static_checks) = \

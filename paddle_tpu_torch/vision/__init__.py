@@ -1,6 +1,8 @@
-"""paddle.vision's counterpart, PyTorch port: so far the Vision
-Transformer of `models` (`paddle_tpu/vision/models/vit.py`)."""
+"""paddle.vision's counterpart, PyTorch port: so far the model zoo of
+`models` (`paddle_tpu/vision/models`: the conv nets and the Vision
+Transformer)."""
 from . import models  # noqa: F401
-from .models import VisionTransformer, vit_b_16, vit_l_16, vit_l_32  # noqa: F401
+from .models import *  # noqa: F401,F403
+from .models import __all__ as _models
 
-__all__ = ["models", "VisionTransformer", "vit_b_16", "vit_l_16", "vit_l_32"]
+__all__ = ["models", *_models]
