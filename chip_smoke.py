@@ -323,10 +323,35 @@ Phases, in order; any failure raises and the script exits non-zero:
                forward at batch 128; the eval ResNet-50 through jit.save /
                jit.load, logits bit for bit; ResNet-18 card against CPU in
                fp32 (logits, one step's parameters and running
-               statistics); every other zoo constructor's eval forward at
-               batch 2, card against CPU. No kernel row: the reference
-               computes convolutions, batch norms and pools in XLA, and
-               the port in cuDNN and torch's own kernels.
+               statistics, and both fp32 updates' distances from the
+               same step in float64 on the CPU); every other zoo
+               constructor's eval forward at batch 2, card against CPU.
+               No kernel row: the reference computes convolutions, batch
+               norms and pools in XLA, and the port in cuDNN and torch's
+               own kernels.
+ 12. gpt3_dp — the reference's config 3 (BASELINE.json: GPT-3 1.3B, Fleet
+               data parallel) at world size 1. First the kernels at its
+               shapes: the bf16 flash forward, dQ and dK/dV at (4, 2048,
+               16, 128) causal against their twins, timed beside SDPA
+               (rows ``<counter>@gpt3``), and the AdamW update at
+               gpt3_1p3b's 292 tensors (1,315,819,520 elements) bit for
+               bit with its twin over 3 steps, timed (``adam_update@gpt3``).
+               Then `init_parallel_env()` with no arguments: NCCL; every
+               primitive on CUDA tensors gives the world-1 answer; one
+               all_reduce captured in a CUDA graph replays right. Then
+               `gpt3_1p3b()` in bf16 (random weights from a seed, dropout
+               0, the fused CE) through `fleet.init(is_collective=True)`,
+               `distributed_model`, `distributed_optimizer(AdamW(1e-4,
+               weight_decay=0.01, multi_precision=True))` and one
+               `TrainStep` graph on batches of 4 x 2048 that
+               `DistributedBatchSampler` deals from a synthetic token set
+               made from a seed: the graph bit for bit with the eager
+               step over 2 steps at full width and depth 4; at full depth
+               2 warm-up steps (the first builds) and 5 counted ones (one
+               build, 24 launches of each flash kernel a step, one of
+               each CE kernel and of the update; finite losses, the first
+               near ln V, falling), step p50 / p99, device ms a step,
+               kernels a step, tokens/s, MFU, peak memory.
 
 The kernels phase covers the serving kernels (flash forward, paged decode
 with fp and with int8 pools, alone and with the decode write, the keyed
@@ -360,13 +385,16 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch import amp
+from paddle_tpu_torch import distributed as dist
+from paddle_tpu_torch.distributed import fleet
 from paddle_tpu_torch.framework import io, set_flags
 from paddle_tpu_torch.incubate.checkpoint import (ServeCheckpointer,
                                                   StepCheckpointer)
 from paddle_tpu_torch.incubate.models import (GPTForCausalLM,
                                               GPTPretrainingCriterion,
-                                              gpt2_124m)
+                                              gpt2_124m, gpt3_1p3b)
 from paddle_tpu_torch.incubate.nn import FusedBiasDropoutResidualLayerNorm
+from paddle_tpu_torch.io import DistributedBatchSampler
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.kernels import (_build, add_launches, capture_graph,
                                       cross_entropy as ce,
@@ -1760,7 +1788,8 @@ def check_flash_bwd(dtype=torch.bfloat16):
 # ViT-L/16's attention (the vit phase's): batch 32, 196 patches and the
 # class token, 16 heads of 64, bf16, non-causal
 VIT_ATTN = (32, 197, 16, 64)
-VIT_REPLACES = {
+# the TPU kernel each flash row at another shape replaces
+FLASH_REPLACES = {
     "flash_attention_fwd": "paddle_tpu/kernels/flash_attention.py:90 "
                            "_fwd_kernel",
     "flash_attention_bwd_dq": "paddle_tpu/kernels/flash_attention.py:184 "
@@ -1769,16 +1798,76 @@ VIT_REPLACES = {
                                "_dkv_kernel"}
 
 
+def _flash_shape_rows(q, k, v, causal, seed, errs, suffix, where):
+    """The bf16 flash forward, dQ and dK/dV at q's shape timed beside their
+    twins and SDPA (the forward; the backward with dQ, dK and dV in one
+    call), with their bounds (4 D FLOPs an unmasked (query, key) pair
+    forward, 6 D dQ, 8 D dK/dV). `errs`: each kernel's max_abs_err from
+    its check; rows ``<counter>@<suffix>``."""
+    b, n, h, d = q.shape
+    args = _flash_bwd_inputs(q, k, v, causal, seed=seed)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        fwd_lib = _cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal))
+    lib_out = sdpa(qt, kt, vt, is_causal=causal)
+    bwd_lib = _cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), args[3].transpose(1, 2), retain_graph=True))
+    pairs = b * h * (n * (n + 1) // 2 if causal else n * n)
+    fwd_bound = _bound_ms(b * (4 * n * h * d * 2 + h * n * 4),
+                          4 * d * pairs, torch.bfloat16)
+    cases = (
+        ("flash_attention_fwd", lambda: fa.flash_attention_fwd(q, k, v,
+                                                               causal),
+         lambda: fa.flash_attention_reference(q, k, v, causal), fwd_bound,
+         fwd_lib, 4, "flash_attention_fwd.cu"),
+        ("flash_attention_bwd_dq",
+         lambda: fa.flash_attention_bwd_dq(*args),
+         lambda: fa.flash_attention_bwd_dq_reference(*args),
+         _flash_bwd_bound(b, n, h, d, 2, causal, False), bwd_lib, 6,
+         "flash_attention_bwd.cu"),
+        ("flash_attention_bwd_dkv",
+         lambda: fa.flash_attention_bwd_dkv(*args),
+         lambda: fa.flash_attention_bwd_dkv_reference(*args),
+         _flash_bwd_bound(b, n, h, d, 2, causal, True), bwd_lib, 8,
+         "flash_attention_bwd.cu"))
+    rows = []
+    for (counter, kernel, twin, bound, library, per_pair, src), err in zip(
+            cases, errs):
+        ms, host_ms = _timed(kernel)
+        row = {"name": f"{counter}@{suffix}", "counter": counter,
+               "route": "cuda", "source": f"paddle_tpu_torch/csrc/{src}",
+               "replaces": FLASH_REPLACES[counter], "max_abs_err": err,
+               "ms": ms, "host_ms": host_ms,
+               "plain_ms": _cuda_ms(twin, iters=5), "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": library,
+               "tflops": per_pair * d * pairs / (ms * 1e-3) / 1e12,
+               "shape": f"q,k,v ({b}, {n}, {h}, {d}) bf16 "
+                        f"causal={causal}"}
+        if counter != "flash_attention_fwd":
+            row["note"] = ("library_ms: SDPA's backward, dQ, dK and dV in "
+                           "one call")
+        print(f"  {row['name']} at {where}: {ms:.5f} ms (host "
+              f"{host_ms:.5f}), {row['tflops']:.1f} TFLOP/s, twin "
+              f"{row['plain_ms']:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}), SDPA {library:.5f} ms")
+        rows.append(row)
+    pair = rows[1]["ms"] + rows[2]["ms"]
+    print(f"  flash at {where}: forward {rows[0]['ms']:.5f} ms against "
+          f"SDPA's {fwd_lib:.5f} ({rows[0]['ms'] / fwd_lib:.3f}x); dq + dkv "
+          f"{pair:.5f} ms against SDPA's backward {bwd_lib:.5f} "
+          f"({pair / bwd_lib:.3f}x)")
+    return rows
+
+
 def check_flash_vit():
     """The flash forward, dQ and dK/dV at ViT-L/16's shape (VIT_ATTN,
     non-causal, a length no multiple of a tile), against their twins
     within the bf16 criteria (and in fp32 at the vit phase's card-vs-CPU
-    batch of 2), then timed beside their twins and SDPA (the forward; the
-    backward with dQ, dK and dV in one call) with the non-causal bounds
-    (4 D FLOPs a (query, key) pair forward, 6 D dQ, 8 D dK/dV). Rows
+    batch of 2), then timed (`_flash_shape_rows`). Rows
     ``<counter>@vit``; their launches are the vit phase's."""
     b, n, h, d = VIT_ATTN
-    tag = f"({b}, {n}, {h}, {d}) causal=False"
     for dt, batch in ((torch.float32, 2), (torch.bfloat16, b)):
         q, k, v = _fused_qkv(n, dt, seed=197, heads=h, head_dim=d,
                              batch=batch)
@@ -1786,57 +1875,8 @@ def check_flash_vit():
         err_fwd = _check_flash_case(f"{name} causal=False", q, k, v, False)
         err_dq, err_dkv = _check_flash_bwd_case(f"{name} bwd causal=False",
                                                 q, k, v, False, seed=198)
-    args = _flash_bwd_inputs(q, k, v, False, seed=198)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
-                  for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    with torch.no_grad():
-        fwd_lib = _cuda_ms(lambda: sdpa(qt, kt, vt))
-    lib_out = sdpa(qt, kt, vt)
-    bwd_lib = _cuda_ms(lambda: torch.autograd.grad(
-        lib_out, (qt, kt, vt), args[3].transpose(1, 2), retain_graph=True))
-    fwd_bound = _bound_ms(b * (4 * n * h * d * 2 + h * n * 4),
-                          4 * b * h * n * n * d, torch.bfloat16)
-    cases = (
-        ("flash_attention_fwd", err_fwd,
-         lambda: fa.flash_attention_fwd(q, k, v, False),
-         lambda: fa.flash_attention_reference(q, k, v, False), fwd_bound,
-         fwd_lib, 4, "flash_attention_fwd.cu"),
-        ("flash_attention_bwd_dq", err_dq,
-         lambda: fa.flash_attention_bwd_dq(*args),
-         lambda: fa.flash_attention_bwd_dq_reference(*args),
-         _flash_bwd_bound(b, n, h, d, 2, False, False), bwd_lib, 6,
-         "flash_attention_bwd.cu"),
-        ("flash_attention_bwd_dkv", err_dkv,
-         lambda: fa.flash_attention_bwd_dkv(*args),
-         lambda: fa.flash_attention_bwd_dkv_reference(*args),
-         _flash_bwd_bound(b, n, h, d, 2, False, True), bwd_lib, 8,
-         "flash_attention_bwd.cu"))
-    rows = []
-    for counter, err, kernel, twin, bound, library, per_pair, src in cases:
-        ms, host_ms = _timed(kernel)
-        row = {"name": f"{counter}@vit", "counter": counter, "route": "cuda",
-               "source": f"paddle_tpu_torch/csrc/{src}",
-               "replaces": VIT_REPLACES[counter], "max_abs_err": err,
-               "ms": ms, "host_ms": host_ms,
-               "plain_ms": _cuda_ms(twin, iters=5), "bound_ms": bound[0],
-               "bound_by": bound[1], "library_ms": library,
-               "tflops": per_pair * d * b * h * n * n / (ms * 1e-3) / 1e12,
-               "shape": f"q,k,v ({b}, {n}, {h}, {d}) bf16 {tag}"}
-        if counter != "flash_attention_fwd":
-            row["note"] = ("library_ms: SDPA's backward, dQ, dK and dV in "
-                           "one call")
-        print(f"  {row['name']} at ViT-L/16's shape: {ms:.5f} ms (host "
-              f"{host_ms:.5f}), {row['tflops']:.1f} TFLOP/s, twin "
-              f"{row['plain_ms']:.4f} ms, bound {bound[0]:.5f} ms "
-              f"({bound[1]}), SDPA {library:.5f} ms")
-        rows.append(row)
-    pair = rows[1]["ms"] + rows[2]["ms"]
-    print(f"  flash at ViT-L/16's shape: forward {rows[0]['ms']:.5f} ms "
-          f"against SDPA's {fwd_lib:.5f} ({rows[0]['ms'] / fwd_lib:.3f}x); "
-          f"dq + dkv {pair:.5f} ms against SDPA's backward {bwd_lib:.5f} "
-          f"({pair / bwd_lib:.3f}x)")
-    return rows
+    return _flash_shape_rows(q, k, v, False, 198, (err_fwd, err_dq, err_dkv),
+                             "vit", "ViT-L/16's shape")
 
 
 def _ce_inputs(r, v, dtype, seed, pad_cols=0):
@@ -7466,11 +7506,18 @@ def _resnet_parity():
     err = _close("resnet parity logits card vs CPU", got, want,
                  (RESNET_LOGITS_RTOL * scale, 0.0))
     start = [p.detach().clone() for p in cpu.parameters()]
+    # the same step in float64 on the CPU: the yardstick both fp32 updates
+    # are measured against
+    cpu64 = copy.deepcopy(cpu).double()
     losses = []
     for m, dev in ((gpu, "cuda"), (cpu, "cpu")):
         m.train()
         _, step = _resnet_trainer(m)
         losses.append(float(step(x.to(dev), y.to(dev))))
+    cpu64.train()
+    _, step64 = _resnet_trainer(cpu64)
+    loss64 = float(step64(x.double(), y))
+    _resnet_float64_distances(cpu64, cpu, gpu, start, losses, loss64)
     assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1]), losses
     update_err = stat_err = 0.0
     for (name, pc), pg, p0 in zip(cpu.named_parameters(), gpu.parameters(),
@@ -7491,6 +7538,38 @@ def _resnet_parity():
           f"update within {update_err:.3e} by relative Frobenius norm (at "
           f"most {RESNET_UPDATE_FRO_RTOL:g}); running statistics within "
           f"{stat_err:.3e} of their largest magnitude")
+
+
+def _resnet_float64_distances(cpu64, cpu, gpu, start, losses, loss64):
+    """Each fp32 update (the card's, the CPU's) against the float64
+    step's, by relative Frobenius norm: per parameter (the worst and the
+    median) and over all parameters at once; printed, not bounded (the
+    step's own bound is RESNET_UPDATE_FRO_RTOL, card against CPU)."""
+    per = {"card": [], "CPU": []}
+    total = {"card": 0.0, "CPU": 0.0}
+    norm2 = 0.0
+    for (name, p64), pc, pg, p0 in zip(cpu64.named_parameters(),
+                                       cpu.parameters(), gpu.parameters(),
+                                       start):
+        base = p0.double()
+        want = p64.detach() - base
+        norm = float(want.norm())
+        norm2 += norm ** 2
+        for side, p in (("card", pg.detach().cpu()), ("CPU", pc.detach())):
+            diff = float(((p.double() - base) - want).norm())
+            per[side].append((diff / max(norm, 1e-300), name))
+            total[side] += diff ** 2
+    parts = []
+    for side in ("card", "CPU"):
+        errs = sorted(per[side])
+        parts.append(
+            f"{side} fp32 worst {errs[-1][0]:.3e} ({errs[-1][1]}), median "
+            f"{errs[len(errs) // 2][0]:.3e}, all parameters "
+            f"{math.sqrt(total[side] / norm2):.3e}")
+    print(f"resnet parity vs float64: one step's update of each fp32 run "
+          f"against the same step in float64 on the CPU (loss {loss64:.9f}; "
+          f"card {losses[0]:.9f}, CPU {losses[1]:.9f}), relative Frobenius "
+          f"norm: " + "; ".join(parts))
 
 
 def _resnet_zoo():
@@ -7708,6 +7787,293 @@ def resnet_phase():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12: data-parallel training, the reference's config 3 (GPT-3 1.3B)
+# ---------------------------------------------------------------------------
+
+# config 3's attention: batch 4 x 2048 tokens, 16 heads of 128, causal
+GPT3_ATTN = (4, 2048, 16, 128)
+GPT3_WARMUP, GPT3_STEPS = 2, 5
+# the graph against the eager step, bit for bit: steps, at full width with
+# the depth cut (two full-depth sets of state beside the graph's pools
+# would take ~42 GB)
+GPT3_BITWISE_LAYERS, GPT3_BITWISE_STEPS = 4, 2
+# the synthetic token set: sequences of 2049 ids from a seed, drawn from
+# the vocabulary's first GPT3_TOKEN_IDS ids (a skewed set, so that the
+# loss falls over a few steps)
+GPT3_SEQUENCES, GPT3_TOKEN_IDS = 8, 4096
+GPT3_KERNELS = {"flash_attention_fwd": 24, "flash_attention_bwd_dq": 24,
+                "flash_attention_bwd_dkv": 24, "cross_entropy_fwd": 1,
+                "cross_entropy_bwd": 1, "adam_update": 1}
+
+
+def check_flash_gpt3():
+    """The bf16 flash forward, dQ and dK/dV at config 3's shape
+    (GPT3_ATTN, causal) against their fp32 twins within the bf16
+    criteria, then timed (`_flash_shape_rows`). Rows ``<counter>@gpt3``;
+    their launches are the gpt3_dp phase's."""
+    b, n, h, d = GPT3_ATTN
+    q, k, v = _fused_qkv(n, torch.bfloat16, seed=2048, heads=h, head_dim=d,
+                         batch=b)
+    name = f"flash bf16 gpt3_1p3b ({b}, {n}, {h}, {d}) causal=True"
+    err_fwd = _check_flash_case(name, q, k, v, True)
+    err_dq, err_dkv = _check_flash_bwd_case(f"{name} bwd", q, k, v, True,
+                                            seed=2049)
+    return _flash_shape_rows(q, k, v, True, 2049, (err_fwd, err_dq, err_dkv),
+                             "gpt3", "config 3's shape")
+
+
+def check_adam_gpt3():
+    """The AdamW update at gpt3_1p3b's tensor list (bf16 parameters, fp32
+    masters and moments, every tensor decaying, as the gpt3_dp phase runs
+    it) against its twin bit for bit over 3 steps (`_check_adam_case`;
+    both states at once, ~42 GB), then timed. Row ``adam_update@gpt3``."""
+    model = GPTForCausalLM(gpt3_1p3b(), device="cuda", seed=0)
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    torch.cuda.empty_cache()
+    n = sum(int(np.prod(s)) for s in shapes)
+    tag = f"bf16 + masters, gpt3_1p3b ({len(shapes)} tensors, {n} elements)"
+    decays = [True] * len(shapes)
+    err, state = _check_adam_case(tag, shapes, torch.bfloat16, True, decays)
+    torch.cuda.empty_cache()
+    params, grads, m1, m2, mw = state
+    lr = torch.full((), TRAIN_LR, device="cuda")
+    t = torch.full((), 4.0, device="cuda")
+    args = (params, grads, m1, m2, mw, decays, lr, t, 0.9, 0.999, 1e-8,
+            0.01)
+    nbytes = au.update_bytes(params, mw)
+    bound, by = _bound_ms(nbytes, 15 * n, torch.float32)
+    ms, host_ms = _timed(lambda: au.adam_update(*args), iters=10)
+    plain_ms = _cuda_ms(lambda: au.adam_update_reference(*args), iters=2,
+                        warmup=1)
+    row = {"name": "adam_update@gpt3", "counter": "adam_update",
+           "route": "cuda", "source": "paddle_tpu_torch/csrc/adam_update.cu",
+           "replaces": ADAM_REPLACES, "max_abs_err": err, "ms": ms,
+           "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "bytes": nbytes,
+           "shape": f"gpt3_1p3b's {len(shapes)} tensors ({n} elements), "
+                    f"bf16 params + fp32 masters and moments, every tensor "
+                    f"decaying",
+           "note": "library_ms null: no PyTorch call computes Paddle's "
+                   "formula (torch._fused_adamw_ adds epsilon after the "
+                   "bias correction)"}
+    print(f"  adam_update at gpt3_1p3b: {ms:.4f} ms (host {host_ms:.4f}), "
+          f"twin {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes} "
+          f"bytes)")
+    return [row]
+
+
+def _nccl_world1():
+    """`init_parallel_env()` with no arguments on the card: NCCL, one
+    rank. Each primitive on CUDA tensors gives the world-1 answer; one
+    all_reduce captured in a CUDA graph (with a copy before it and a
+    product after it) replays to the right values."""
+    env = dist.init_parallel_env()
+    backend = dist.get_backend()
+    print(f"gpt3_dp: init_parallel_env() -> backend {backend}, rank "
+          f"{env.rank} of {env.world_size}, card {env.device_id}")
+    assert backend == "nccl" and env.world_size == 1, backend
+    x = torch.arange(1, 7, dtype=torch.float32, device="cuda")
+    for op in ("sum", "max", "min", "prod", "avg"):
+        for dtype in (torch.float32, torch.bfloat16):
+            t = x.to(dtype)
+            dist.all_reduce(t, op=op)
+            assert torch.equal(t, x.to(dtype)), (op, dtype, t)
+    t = x.clone()
+    task = dist.all_reduce(t, sync_op=False)
+    task.wait()
+    assert torch.equal(t, x)
+    t = x.clone()
+    dist.broadcast(t, src=0)
+    assert torch.equal(t, x)
+    got, cat = [], torch.zeros_like(x)
+    dist.all_gather(got, x)
+    dist.all_gather(cat, x)
+    assert len(got) == 1 and torch.equal(got[0], x) and torch.equal(cat, x)
+    out = torch.zeros_like(x)
+    dist.reduce_scatter(out, [x])
+    assert torch.equal(out, x)
+    dist.reduce_scatter(out, [x, 2 * x])
+    assert torch.equal(out, 3 * x)
+    out = torch.zeros_like(x)
+    dist.scatter(out, [x], src=0)
+    assert torch.equal(out, x)
+    outs = []
+    dist.alltoall([x], outs)
+    assert torch.equal(outs[0], x)
+    out = torch.zeros_like(x)
+    dist.alltoall_single(x, out)
+    assert torch.equal(out, x)
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    assert objs == [{"rank": 0}]
+    inbox = torch.zeros_like(x)
+    dist.send(x, dst=0)
+    dist.recv(inbox, src=0)
+    assert torch.equal(inbox, x)
+    dist.barrier()
+
+    src = torch.randn(1 << 20, device="cuda")
+    buf = torch.empty_like(src)
+
+    def program():
+        buf.copy_(src)
+        dist.all_reduce(buf)
+        return buf.mul_(2)
+
+    warm_up(program)
+    torch.cuda.synchronize()
+    replay, out = capture_graph(program)
+    for _ in range(3):
+        src.normal_()
+        replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, 2 * src)
+    eager_ms, graph_ms = _cuda_ms(program), _cuda_ms(replay)
+    print(f"gpt3_dp: every primitive gives the world-1 answer on CUDA "
+          f"tensors over NCCL (fp32 and bf16 all_reduce by sum, max, min, "
+          f"prod, avg); one all_reduce of 4 MiB captured in a CUDA graph "
+          f"with a copy before it and a product after it: 3 replays right, "
+          f"{graph_ms:.4f} ms a replay against {eager_ms:.4f} ms eager")
+
+
+def _gpt3_batches(ids, labels, steps):
+    """`steps` batches of GPT3_ATTN[0] sequences, dealt by
+    DistributedBatchSampler over the token set epoch after epoch."""
+    sampler = DistributedBatchSampler(range(len(ids)),
+                                      batch_size=GPT3_ATTN[0], shuffle=True)
+    out, epoch = [], 0
+    while len(out) < steps:
+        sampler.set_epoch(epoch)
+        epoch += 1
+        for batch in sampler:
+            idx = torch.tensor(batch, device=ids.device)
+            out.append((ids[idx], labels[idx]))
+    return out[:steps]
+
+
+def _gpt3_fleet(cfg):
+    """gpt3_1p3b of `cfg` in bf16 from seed 0 through fleet: the model,
+    the optimizer (`distributed_optimizer` of AdamW(multi_precision)) and
+    its TrainStep over `distributed_model`."""
+    inner = GPTForCausalLM(cfg, device="cuda", seed=0).to(torch.bfloat16)
+    inner.train()
+    model = fleet.distributed_model(inner)
+    opt = fleet.distributed_optimizer(AdamW(
+        learning_rate=TRAIN_LR, weight_decay=0.01,
+        parameters=inner.parameters(), multi_precision=True))
+    return inner, opt, TrainStep(model, GPTPretrainingCriterion(), opt)
+
+
+def gpt3_dp_phase():
+    """The reference's config 3 at world size 1: NCCL's primitives and a
+    captured all_reduce, then gpt3_1p3b (bf16, batch 4 x 2048, fused CE,
+    AdamW(multi_precision)) through fleet's collective mode and one
+    TrainStep graph: the graph bit for bit with the eager step at depth
+    GPT3_BITWISE_LAYERS, then at full depth GPT3_WARMUP steps and
+    GPT3_STEPS counted ones. Returns the counted steps' launches."""
+    t0 = time.perf_counter()
+    _nccl_world1()
+    fleet.init(is_collective=True)
+    hcg = fleet.get_hybrid_communicate_group()
+    assert hcg.get_data_parallel_world_size() == 1
+    set_flags({"FLAGS_use_fused_cross_entropy": True})
+    dropout0 = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    cfg = gpt3_1p3b(**dropout0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, GPT3_TOKEN_IDS,
+                           (GPT3_SEQUENCES, cfg.max_position_embeddings + 1),
+                           generator=g, device="cuda")
+    ids, labels = tokens[:, :-1].contiguous(), tokens[:, 1:].contiguous()
+    batches = _gpt3_batches(ids, labels, GPT3_WARMUP + GPT3_STEPS)
+    b, seq = ids[:GPT3_ATTN[0]].shape
+
+    pair = [_gpt3_fleet(gpt3_1p3b(num_hidden_layers=GPT3_BITWISE_LAYERS,
+                                  **dropout0)) for _ in range(2)]
+    losses = [(float(pair[0][2](*batches[i])),
+               float(pair[1][2]._step_eager(*batches[i])))
+              for i in range(GPT3_BITWISE_STEPS)]
+    differ, total = _count_differing(_state_bits(*pair[0][:2]),
+                                     _state_bits(*pair[1][:2]))
+    print(f"gpt3_dp: graph vs eager at full width, {GPT3_BITWISE_LAYERS} "
+          f"layers, {GPT3_BITWISE_STEPS} steps: losses " + ", ".join(
+              f"{a:.6f}/{c:.6f}" for a, c in losses)
+          + f"; {differ} of {total} elements of parameters, masters and "
+          f"moments differ")
+    assert all(a == c for a, c in losses) and differ == 0, (losses, differ)
+    del pair
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    inner, opt, step = _gpt3_fleet(cfg)
+    n_params = inner.num_params()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    t_build = time.perf_counter()
+    losses = [float(step(*batches[0]))]
+    build_s = time.perf_counter() - t_build
+    build_gib = (torch.cuda.memory_reserved() - reserved) / 2**30
+    losses += [float(step(*x)) for x in batches[1:GPT3_WARMUP]]
+    reset_launch_counts()
+    times = []
+    for x in batches[GPT3_WARMUP:]:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        losses.append(float(step(*x)))
+        times.append((time.perf_counter() - t1) * 1e3)
+    counts = launch_counts()
+    for name, per_step in GPT3_KERNELS.items():
+        assert counts[name] == per_step * GPT3_STEPS, (name, counts)
+    ln_v = float(np.log(cfg.vocab_size))
+    assert step._builds == 1, step._builds
+    assert all(np.isfinite(losses)), losses
+    assert abs(losses[0] - ln_v) <= 0.5 and losses[-1] < losses[0], losses
+    run = lambda: step(*batches[-1])             # noqa: E731
+    device_ms, host_ms = _timed(run, iters=GPT3_STEPS, warmup=0)
+    totals = {}
+    _breakdown("gpt3_dp graph", run, totals=totals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    float(run())
+    peak = torch.cuda.max_memory_allocated()
+    tokens_per_step = b * seq
+    flops = inner.flops_per_token(seq)
+    p50 = float(np.median(times))
+    p99 = float(np.percentile(times, 99))
+    tps = tokens_per_step / (p50 / 1e3)
+    print(f"gpt3_dp: gpt3_1p3b ({n_params} parameters) bf16, fleet "
+          f"collective mode, AdamW(multi_precision), batch {b} x {seq} "
+          f"through DistributedBatchSampler, one TrainStep graph; build "
+          f"{build_s:.2f} s (warm-up + capture, {build_gib:.3f} GiB more "
+          f"reserved); losses {losses[0]:.4f} (first; ln V {ln_v:.4f}) -> "
+          + ", ".join(f"{x:.4f}" for x in losses[1:]))
+    print(f"gpt3_dp: step ms p50 {p50:.3f}, p99 {p99:.3f} (min "
+          f"{min(times):.3f}, max {max(times):.3f}) over {GPT3_STEPS} steps; "
+          f"device {device_ms:.3f} ms a step (host {host_ms:.3f} ms a call "
+          f"behind the sleep: the replays fill the launch queue, so it "
+          f"includes waits); {totals.get('kernels', 0):.1f} kernels a step "
+          f"(profiler, {totals.get('device_ms', 0.0):.3f} ms device time); "
+          f"{tps:.1f} tokens/s; MFU {tps * flops / PEAK_FLOPS[torch.bfloat16]:.4f} "
+          f"({flops} FLOPs/token vs 989e12 FLOP/s)")
+    print(f"gpt3_dp: max_memory_allocated {peak / 2**30:.3f} GiB over a "
+          f"step ({before / 2**30:.3f} GiB allocated before it: weights, "
+          f"masters, moments); reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.3f} GiB (the graph's "
+          f"activations sit in its pool)")
+    print(f"gpt3_dp: launches a step " + json.dumps(
+        {k: counts[k] / GPT3_STEPS for k in GPT3_KERNELS}))
+    set_flags({"FLAGS_use_fused_cross_entropy": False})
+    del inner, opt, step, run
+    # the fleet holds the last distributed optimizer (the reference's
+    # state passthrough) and its groups: a fresh one leaves nothing behind
+    fleet._get_fleet().__init__()
+    dist.destroy_process_group()
+    print(f"gpt3_dp: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 def _phase_memory(phase):
     """After `phase`: the device memory still allocated once the cyclic
     collector has run (what the script or the port holds into the next
@@ -7823,13 +8189,18 @@ def main():
     _phase_memory("vit")
     paths["resnet"] = resnet_phase()
     _phase_memory("resnet")
+    rows["gpt3_dp"] = check_flash_gpt3() + check_adam_gpt3()
+    _phase_memory("the gpt3_dp kernel checks")
+    paths["gpt3_dp"] = gpt3_dp_phase()
+    _phase_memory("gpt3_dp")
     # each row's launches come from the path it belongs to (the bf16
     # serving run for flash forward and the fp paged decode, alone and
     # fused with the write, the int8 serving run for the int8 paged decode,
     # alone and fused, the measured training steps for the training
     # kernels, the fused_ln phase for fused_ln; an f16 instantiation's from
     # its float16 path; a row at ViT-L/16's shape from the vit phase's fused
-    # window), read under the row's launch counter (its name, or
+    # window; a row at config 3's shape from the gpt3_dp phase's counted
+    # steps), read under the row's launch counter (its name, or
     # `counter` where the name adds the input type); every path's counts
     # are listed beside
     for path, path_rows in rows.items():
@@ -7842,7 +8213,7 @@ def main():
             for path, counts in paths.items()}
     alone = ("paged_decode", "paged_decode_int8")
     names = [row["name"] for row in rows]
-    assert len(rows) == 49 and len(set(names)) == len(names) and all(
+    assert len(rows) == 53 and len(set(names)) == len(names) and all(
         (row["launches"] == 0) == (row["name"] in alone) for row in rows), rows
     keys = ("name", "counter", "route", "source", "replaces", "launches",
             "max_abs_err",

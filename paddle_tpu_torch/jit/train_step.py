@@ -9,7 +9,9 @@ as the reference's traced step does), and returns the loss as a fresh
 tensor. The step is the optimizer's own, as its eager `step` runs it: the
 regularizer, then the gradient clip (a global norm stays on the device),
 then the multi-tensor update (`Optimizer._prepare`, `_update`), outside
-any `amp.auto_cast` the call is made in (the forward runs under it).
+any `amp.auto_cast` the call is made in (the forward runs under it). A
+`distributed.DataParallel` model averages the gradients over its group
+between the backward and the regularizer (its `_reduce_grads`).
 Gradients go straight from autograd to the update, so no ``.grad`` is left
 behind. With ``loss_fn=None`` the model returns the loss from all of
 `args`.
@@ -117,6 +119,11 @@ class TrainStep:
         under "strict"."""
         loss = self._loss(args)
         params_grads = self._grads(loss)
+        # a data-parallel model's gradient sync, before the regularizer
+        # and the clip (`distributed.DataParallel`)
+        reduce_grads = getattr(self.model, "_reduce_grads", None)
+        if reduce_grads is not None:
+            params_grads = reduce_grads(params_grads)
         opt = self.optimizer
         with torch.no_grad(), amp.suspended():
             params_grads = opt._prepare(params_grads)

@@ -4,9 +4,11 @@ alone on the card:
     python3 tools/torch_train_phases.py [phase ...]
 
 phases: train_amp, train_optimizers, train_scaler, train_guard,
-train_resume, train_fp16, export, predictor, async_save, vit, resnet
-(all of them, in that order, by default; vit first checks and times the
-flash pair at ViT-L/16's shape, `check_flash_vit`). Builds the kernels, then runs each phase as
+train_resume, train_fp16, export, predictor, async_save, vit, resnet,
+gpt3_dp (all of them, in that order, by default; vit first checks and
+times the flash pair at ViT-L/16's shape, `check_flash_vit`; gpt3_dp the
+flash kernels and the AdamW update at config 3's shapes,
+`check_flash_gpt3` and `check_adam_gpt3`). Builds the kernels, then runs each phase as
 `chip_smoke.py` does (train_optimizers first checks the AdamW update
 kernel against its twin: its time is the phase's yardstick), each
 followed by the smoke's memory line, and prints its wall time (~100 s of
@@ -38,7 +40,10 @@ def main():
               "predictor": cs.predictor_phase,
               "async_save": cs.async_save_phase,
               "vit": lambda: (cs.check_flash_vit(), cs.vit_phase()),
-              "resnet": cs.resnet_phase}
+              "resnet": cs.resnet_phase,
+              "gpt3_dp": lambda: (cs.check_flash_gpt3(),
+                                  cs.check_adam_gpt3(),
+                                  cs.gpt3_dp_phase())}
     for name in sys.argv[1:] or list(phases):
         t = time.perf_counter()
         phases[name]()
