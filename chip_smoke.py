@@ -793,6 +793,55 @@ def _time_flash(q, k, v, err):
                      f"{str(q.dtype)[6:]} causal"}
 
 
+# the D = 128 kernels' tile edges (128 q rows a CTA forward, 128 keys a CTA
+# for dK/dV, 64 a consumer warpgroup): lengths that cut a 128-row tile,
+# leave the second warpgroup's rows partly or wholly past the end, or end
+# one short of config 3's sequence
+FLASH_D128_LENGTHS = (65, 129, 200, 2047)
+
+
+def _twice_equal(tag, fn):
+    """Two launches of fn on the same inputs give the same bits."""
+    first = [t.clone() for t in fn()]
+    second = fn()
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b))
+               for a, b in zip(first, second)), tag
+    print(f"  {tag}: two launches bit for bit equal")
+
+
+def _check_flash_d128(dtype):
+    """The forward at head_dim 128 (two consumer warpgroups a CTA) against
+    its twin: FLASH_D128_LENGTHS causal and not, a non-causal 40 x 300, a
+    batch of 3 read through the fused qkv strides, and two launches bit
+    for bit equal."""
+    name = str(dtype)[6:]
+    for n in FLASH_D128_LENGTHS:
+        for causal in (True, False):
+            qkv = _fused_qkv(n, dtype, seed=400 + n, heads=4, head_dim=128)
+            _check_flash_case(f"flash {name} n={n} causal={causal} D=128",
+                              *qkv, causal)
+    q = _fused_qkv(40, dtype, seed=41, heads=4, head_dim=128)[0]
+    _, k, v = _fused_qkv(300, dtype, seed=42, heads=4, head_dim=128)
+    _check_flash_case(f"flash {name} n=40 m=300 causal=False D=128", q, k, v,
+                      False)
+    _check_flash_case(f"flash {name} (3, 200, 4, 128) causal=True",
+                      *_fused_qkv(200, dtype, seed=43, heads=4, head_dim=128,
+                                  batch=3), True)
+    # more 128-row tiles than the card has SMs: a CTA walks several
+    for causal in (True, False):
+        _check_flash_case(f"flash {name} (8, 1000, 16, 128) causal={causal}",
+                          *_fused_qkv(1000, dtype, seed=45, heads=16,
+                                      head_dim=128, batch=8), causal)
+    q = _fused_qkv(40, dtype, seed=46, heads=32, head_dim=128, batch=8)[0]
+    _, k, v = _fused_qkv(300, dtype, seed=47, heads=32, head_dim=128,
+                         batch=8)
+    _check_flash_case(f"flash {name} (8, 40, 32, 128) m=300 causal=False", q,
+                      k, v, False)
+    _twice_equal(f"flash {name} n=2047 causal=True D=128",
+                 lambda: fa.flash_attention_fwd(*qkv, True))
+
+
 def check_flash(dtype=torch.bfloat16):
     """The flash forward against its fp32 twin over its cases, then timed
     at the serving and training shapes beside SDPA: bf16 (``dtype``'s
@@ -837,6 +886,7 @@ def check_flash(dtype=torch.bfloat16):
     # k and v at 16-byte aligned, non-zero offsets into a wider buffer
     _check_flash_case(f"flash {name} n=200 causal=True k, v offset views",
                       *_offset_qkv(200, seed=31, dtype=dtype), True)
+    _check_flash_d128(dtype)
     # main-path shapes, causal: the serving path's 1024 prefill bucket
     # (the row's numbers) and the training path's batch of 8 x 1024
     # (`at_train_shape`)
@@ -1196,28 +1246,31 @@ def _check_append_case(pool_dtype, new_dtype, bs=16):
     return err
 
 
-def check_paged_append():
+def check_paged_append(dtype=torch.bfloat16):
     """The fused decode step (`paged_decode_append`: the write, then the
     attention, one launch) against its twin composition (`_check_append_
-    case`) for fp32 and bf16 pools and int8 pools with bf16 and fp32 rows.
-    Returns the fp (bf16 pools) and int8 (bf16 rows) rows, timed at the
-    serving path's shape in turns with the paged kernel alone on the same
-    state (fused, paged, paged, fused): their difference is what the
-    write adds to the launch."""
+    case`: pools bit for bit, 50 launches each). bf16: fp32 and bf16
+    pools and int8 pools with bf16 and fp32 rows; returns the fp (bf16
+    pools) and int8 (bf16 rows) rows, timed at the serving path's shape
+    (12 layers' pools rotating) in turns with the paged kernel alone on
+    the same state (fused, paged, paged, fused): their difference is what
+    the write adds to the launch. float16 (F16): f16 q over f16 pools and
+    over int8 pools, timed beside the twin and the library yardstick, and
+    the four cast pairs by `check_append_cast`; returns {path: rows}."""
+    f16 = dtype == F16
     bs = 16
-    errs = {pair: _check_append_case(*pair)
-            for pair in ((torch.bfloat16, torch.bfloat16),
-                         (torch.float32, torch.float32),
-                         (torch.int8, torch.bfloat16),
-                         (torch.int8, torch.float32))}
-    # main-path shape, bf16 rows: 12 layers' pools rotate, as a decode
-    # step's 12 layers read and write 12 pools
-    rows, layers = [], 12
+    pairs = (((F16, F16), (torch.int8, F16)) if f16 else
+             ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+              (torch.int8, torch.bfloat16), (torch.int8, torch.float32)))
+    errs = {pair: _check_append_case(*pair) for pair in pairs}
+    # main-path shape: 12 layers' pools rotate, as a decode step's 12
+    # layers read and write 12 pools
+    rows, out, layers = [], {}, 12
     eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
                                               KV_APPEND_ACTIVE)]
-    for pool_dtype in (torch.bfloat16, torch.int8):
+    for pool_dtype in (dtype, torch.int8):
         q, k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
-            layers, pool_dtype, torch.bfloat16, seed=6)
+            layers, pool_dtype, dtype, seed=6)
         int8 = ks is not None
         eff = torch.where(active, lens, 0)
         q_alone = q.contiguous()
@@ -1244,15 +1297,9 @@ def check_paged_append():
             return pa.paged_decode_reference(q, kpl, vpl, tables, eff, bs,
                                              *scales)
 
-        f1, host_1 = _timed(rotating(fused))
-        p1, _ = _timed(rotating(alone))
-        p2, _ = _timed(rotating(alone))
-        f2, host_2 = _timed(rotating(fused))
-        plain_ms = _cuda_ms(rotating(twin))
-        if int8:
-            # no single PyTorch call requantizes a block
-            library_ms = None
-        else:
+        # int8: no single PyTorch call requantizes a block
+        library = None
+        if not int8:
             # yardstick: the two index_put_ calls of the fp write, with the
             # write positions computed beforehand, then a gather and SDPA
             wb = torch.where(active, tables[torch.arange(8, device="cuda"),
@@ -1262,7 +1309,7 @@ def check_paged_append():
             mask = (torch.arange(t_max, device="cuda")[None, :]
                     <= eff[:, None])[:, None, None, :]
 
-            def library(kpl, vpl):
+            def lib(kpl, vpl):
                 kpl.index_put_((wb, wo), k)
                 vpl.index_put_((wb, wo), v)
                 kg = kpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
@@ -1272,9 +1319,33 @@ def check_paged_append():
                 return torch.nn.functional.scaled_dot_product_attention(
                     q[:, :, None, :], kg, vg, attn_mask=mask)
 
-            library_ms = _cuda_ms(rotating(library))
+            library = rotating(lib)
         paged_b = _paged_work(eff_lens, q, tables, int8)
         append_b = _kv_append_work(int8, 2)
+        err = errs[pool_dtype, dtype]
+        if f16:
+            counter = pa.append_name(F16, pool_dtype)
+            out["serve_int8_fp16" if int8 else "serve_fp16"] = [_f16_row(
+                _row_name(counter, F16), counter,
+                "paddle_tpu_torch/csrc/paged_decode.cu",
+                "paddle_tpu/kernels/pallas/paged_attention.py:167 "
+                "_decode_kernel" + (" (quantized=True)" if int8 else "")
+                + " with the decode write before it (XLA ops, no Pallas "
+                "kernel)", rotating(fused), rotating(twin), library,
+                paged_b[0] + append_b[0], paged_b[1] + append_b[1], err,
+                f"S=8 H=12 D=64 bs=16 M=64, 513 blocks, lens "
+                f"{KV_APPEND_LENS}, active {KV_APPEND_ACTIVE}, f16 q and "
+                f"rows, " + ("int8 pools + fp32 scales; library_ms null: no "
+                             "one PyTorch call requantizes a block" if int8
+                             else "f16 pools; library_ms: two index_put_, a "
+                                  "gather and SDPA"))]
+            continue
+        f1, host_1 = _timed(rotating(fused))
+        p1, _ = _timed(rotating(alone))
+        p2, _ = _timed(rotating(alone))
+        f2, host_2 = _timed(rotating(fused))
+        plain_ms = _cuda_ms(rotating(twin))
+        library_ms = None if int8 else _cuda_ms(library)
         bound, by = _bound_ms(paged_b[0] + append_b[0],
                               paged_b[1] + append_b[1], torch.bfloat16)
         name = "paged_decode_append_int8" if int8 else "paged_decode_append"
@@ -1295,7 +1366,7 @@ def check_paged_append():
                          "paddle_tpu/nn/functional/attention.py:253-271 "
                          ".at[write_block, write_off].set (XLA ops, no "
                          "Pallas kernel)"),
-            "max_abs_err": errs[pool_dtype, torch.bfloat16], "ms": ms,
+            "max_abs_err": err, "ms": ms,
             "host_ms": (host_1 + host_2) / 2, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
             "alone_ms": alone_ms, "append_ms": ms - alone_ms,
@@ -1307,6 +1378,13 @@ def check_paged_append():
                           "one PyTorch call requantizes a block" if int8 else
                           "bf16 pools; library_ms: two index_put_, a "
                           "gather and SDPA"))})
+    if f16:
+        for row, (pool_dtype, q_dtype) in zip(
+                check_append_cast(F16_CAST_PAIRS, suffix=True),
+                F16_CAST_PAIRS):
+            out.setdefault(f"serve_kv_{SHORT_NAMES[q_dtype]}_"
+                           f"{SHORT_NAMES[pool_dtype]}", []).append(row)
+        return out
     return rows
 
 
@@ -1386,46 +1464,90 @@ def _check_scatter_case(bucket, length, dtype, int8, bs=16,
     return tag
 
 
-def check_prefill_scatter():
+def check_prefill_scatter(dtype=torch.bfloat16):
     """The prompt's K/V scatter (one launch for every layer, K and V)
     against its twin, bit for bit on every block but 0 and block 0
-    untouched, at SCATTER_CASES for bf16 rows (the serving path's) and at
+    untouched. bf16 (the serving path's rows): at SCATTER_CASES, at
     bucket 128 for fp32 rows, fp and int8 pools, and with int8 pools at
-    SCATTER_WIDE (head_dim 128, 32-token blocks; bf16 and fp32 rows).
-    Returns the two rows, timed at a full 1024-token bucket with bf16
-    rows, in turns with the first design (commit c3b6374,
-    tools/torch_prefill_scatter_twopass.cu: int8 blocks read twice)."""
+    SCATTER_WIDE (head_dim 128, 32-token blocks; bf16 and fp32 rows);
+    returns the two rows, timed at a full 1024-token bucket, in turns with
+    the first design (commit c3b6374, tools/torch_prefill_scatter_
+    twopass.cu: int8 blocks read twice). float16 (F16): SCATTER_CASES into
+    f16 and int8 pools, int8 pools at SCATTER_WIDE, timed at the full
+    bucket beside the twin and (f16 pools) two index_put_ a layer, and the
+    four cast pairs by `check_scatter_cast`; returns {path: rows}."""
+    f16 = dtype == F16
     bs = 16
     tags = []
     for int8 in (False, True):
         for bucket, lengths in SCATTER_CASES:
             for length in lengths:
-                tags.append(_check_scatter_case(bucket, length,
-                                                torch.bfloat16, int8))
-        for length in SCATTER_CASES[1][1]:
-            tags.append(_check_scatter_case(128, length, torch.float32,
-                                            int8))
+                tags.append(_check_scatter_case(bucket, length, dtype, int8))
+        if not f16:
+            for length in SCATTER_CASES[1][1]:
+                tags.append(_check_scatter_case(128, length, torch.float32,
+                                                int8))
     wide_bucket, wide_bs, wide_lengths = SCATTER_WIDE
-    for dtype in (torch.bfloat16, torch.float32):
+    for dt in (dtype,) if f16 else (torch.bfloat16, torch.float32):
         for length in wide_lengths:
-            tags.append(_check_scatter_case(wide_bucket, length, dtype, True,
+            tags.append(_check_scatter_case(wide_bucket, length, dt, True,
                                             bs=wide_bs, head_dim=128))
-    print(f"  prefill_scatter: {len(tags)} cases bit-identical to the twin "
-          f"on blocks 1.. and block 0 untouched (buckets and lengths "
-          f"{json.dumps(SCATTER_CASES)} in bf16, bucket 128 in fp32, fp "
-          f"and int8 pools; int8 pools at head_dim 128, bs {wide_bs}, "
-          f"bucket {wide_bucket}, lengths {list(wide_lengths)}, bf16 and "
-          "fp32 rows)")
-    rows = []
+    if f16:
+        print(f"  prefill_scatter float16 rows: {len(tags)} cases "
+              f"bit-identical to the twin on blocks 1.. and block 0 "
+              f"untouched")
+    else:
+        print(f"  prefill_scatter: {len(tags)} cases bit-identical to the "
+              f"twin on blocks 1.. and block 0 untouched (buckets and "
+              f"lengths {json.dumps(SCATTER_CASES)} in bf16, bucket 128 in "
+              f"fp32, fp and int8 pools; int8 pools at head_dim 128, bs "
+              f"{wide_bs}, bucket {wide_bucket}, lengths "
+              f"{list(wide_lengths)}, bf16 and fp32 rows)")
+    rows, turns, out = [], {}, {}
     bucket = length = 1024
-    twopass = _TOOL_LIBS["torch_prefill_scatter_twopass"] \
-        .paddle_prefill_scatter
-    turns = {}
     for int8 in (False, True):
-        k, v, pools, scales, row = _scatter_state(bucket, torch.bfloat16,
-                                                  int8, seed=7)
+        k, v, pools, scales, row = _scatter_state(bucket, dtype, int8, seed=7)
         n = torch.full((), length, dtype=torch.int32, device="cuda")
         args = (*pools, k, v, row, n, bs, *scales)
+        library = None
+        if not int8:
+            # the nearest calls: two index_put_ a layer, the positions
+            # computed beforehand
+            pos = torch.arange(length, device="cuda")
+            blocks, offs = row.long()[pos // bs], pos % bs
+
+            def library():
+                for layer in range(SCATTER_LAYERS):
+                    pools[0][layer].index_put_((blocks, offs), k[layer])
+                    pools[1][layer].index_put_((blocks, offs), v[layer])
+
+        used = int((row != 0).sum())        # blocks whose scales it writes
+        nbytes = ps.scatter_bytes(length, SCATTER_LAYERS, HEADS, HEAD_DIM, 2,
+                                  int8, used)
+        # int8: about 6 fp32 operations an element (abs, max, multiply,
+        # round, two clamps)
+        flops = 6 * 2 * SCATTER_LAYERS * length * HEADS * HEAD_DIM if int8 \
+            else 0
+        replaces = ("no Pallas counterpart: paddle_tpu/serving/cache.py:237 "
+                    "scatter_prefill" + (" over paddle_tpu/quantization/"
+                                         "kv_cache.py:90 quantize_scatter"
+                                         if int8 else "") + " (XLA ops)")
+        if f16:
+            counter = ps.scatter_name(F16, torch.int8 if int8 else F16)
+            out["serve_int8_fp16" if int8 else "serve_fp16"] = [_f16_row(
+                _row_name(counter, F16), counter,
+                "paddle_tpu_torch/csrc/prefill_scatter.cu", replaces,
+                lambda: ps.prefill_scatter(*args),
+                lambda: ps.prefill_scatter_reference(*args), library,
+                nbytes, flops, 0.0,
+                f"12 layers of f16 rows [1024, 12, 64] (strided views of "
+                f"[1024, 3, 12, 64]), length 1024, bs=16, a block row of "
+                f"64, " + ("int8 pools + fp32 scales; library_ms null: no "
+                           "one PyTorch call quantizes a block" if int8 else
+                           "f16 pools; library_ms: two index_put_ a layer"))]
+            continue
+        twopass = _TOOL_LIBS["torch_prefill_scatter_twopass"] \
+            .paddle_prefill_scatter
 
         def first():
             assert ps.run(twopass, *args) == 0
@@ -1439,37 +1561,13 @@ def check_prefill_scatter():
         host_ms = times[1][1]
         plain_ms = _cuda_ms(lambda: ps.prefill_scatter_reference(*args),
                             iters=5)
-        if int8:
-            library_ms = None
-        else:
-            # the nearest calls: two index_put_ a layer, the positions
-            # computed beforehand
-            pos = torch.arange(length, device="cuda")
-            blocks, offs = row.long()[pos // bs], pos % bs
-
-            def library():
-                for layer in range(SCATTER_LAYERS):
-                    pools[0][layer].index_put_((blocks, offs), k[layer])
-                    pools[1][layer].index_put_((blocks, offs), v[layer])
-
-            library_ms = _cuda_ms(library)
-        used = int((row != 0).sum())        # blocks whose scales it writes
-        nbytes = ps.scatter_bytes(length, SCATTER_LAYERS, HEADS, HEAD_DIM, 2,
-                                  int8, used)
-        # int8: about 6 fp32 operations an element (abs, max, multiply,
-        # round, two clamps)
-        flops = 6 * 2 * SCATTER_LAYERS * length * HEADS * HEAD_DIM if int8 \
-            else 0
+        library_ms = None if int8 else _cuda_ms(library)
         bound, by = _bound_ms(nbytes, flops, torch.float32)
         name = "prefill_scatter_int8" if int8 else "prefill_scatter"
         rows.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/prefill_scatter.cu",
-            "replaces": ("no Pallas counterpart: paddle_tpu/serving/cache.py"
-                         ":237 scatter_prefill over paddle_tpu/quantization/"
-                         "kv_cache.py:90 quantize_scatter (XLA ops)" if int8
-                         else "no Pallas counterpart: paddle_tpu/serving/"
-                         "cache.py:237 scatter_prefill (XLA ops)"),
+            "replaces": replaces,
             "max_abs_err": 0.0, "ms": ms, "host_ms": host_ms,
             "turns_ms": turns["int8" if int8 else "fp"],
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
@@ -1482,6 +1580,13 @@ def check_prefill_scatter():
                           "bf16 pools; library_ms: two index_put_ a layer")),
             "note": "turns_ms: the first design (commit c3b6374), this, "
                     "this, the first"})
+    if f16:
+        for row, (pool_dtype, row_dtype) in zip(
+                check_scatter_cast(F16_CAST_PAIRS, suffix=True),
+                F16_CAST_PAIRS):
+            out.setdefault(f"serve_kv_{SHORT_NAMES[row_dtype]}_"
+                           f"{SHORT_NAMES[pool_dtype]}", []).append(row)
+        return out
     print("PREFILL_SCATTER_TURNS_MS (first design, this, this, first design; "
           "the first design is commit c3b6374's, "
           "tools/torch_prefill_scatter_twopass.cu): " + json.dumps(turns))
@@ -1497,52 +1602,86 @@ def _ln_inputs(r, d, dtype, seed, affine_dtype=None):
     return x, res, bias, scale, shift
 
 
-def check_fused_ln():
-    # the main-path shape in both types, a ragged R = 777, affine terms in
-    # the other type (bf16 activations under fp32 parameters, and the
-    # reverse), the narrowest width and one wider than 4096 (two groups of
-    # 4 per thread)
-    cases = [(8192, 768, torch.bfloat16, None), (8192, 768, torch.float32,
-                                                 None),
-             (777, 768, torch.bfloat16, None), (777, 768, torch.float32, None),
-             (777, 768, torch.bfloat16, torch.float32),
-             (777, 768, torch.float32, torch.bfloat16),
-             (5, 128, torch.bfloat16, None), (33, 4224, torch.float32, None)]
-    for i, (r, d, dtype, adt) in enumerate(cases):
-        args = _ln_inputs(r, d, dtype, seed=20 + i, affine_dtype=adt)
+# fused_ln's cases (R, D, activations' type, affine terms' type or None:
+# the same) and the seeds of the first case and of the timed input sets,
+# by the type checked. bf16: the main-path shape in both types, a ragged
+# R = 777, affine terms in the other type (bf16 activations under fp32
+# parameters, and the reverse), the narrowest width and one wider than
+# 4096 (two groups of 4 per thread). f16: the main-path shape, R = 777,
+# fp32 affine terms, the narrowest and the widest.
+LN_CASES = {
+    torch.bfloat16: ([(8192, 768, torch.bfloat16, None),
+                      (8192, 768, torch.float32, None),
+                      (777, 768, torch.bfloat16, None),
+                      (777, 768, torch.float32, None),
+                      (777, 768, torch.bfloat16, torch.float32),
+                      (777, 768, torch.float32, torch.bfloat16),
+                      (5, 128, torch.bfloat16, None),
+                      (33, 4224, torch.float32, None)], 20, 40),
+    torch.float16: ([(8192, 768, torch.float16, None),
+                     (777, 768, torch.float16, None),
+                     (777, 768, torch.float16, torch.float32),
+                     (5, 128, torch.float16, None),
+                     (33, 4224, torch.float16, None)], 50, 60)}
+
+
+def check_fused_ln(dtype=torch.bfloat16):
+    """fused_ln against its twin over LN_CASES[dtype] (in bf16 also called
+    as the op a saved program calls: the same bits), then timed at the
+    main-path shape [8192, 768] in `dtype` beside the twin and
+    F.layer_norm(x + bias + residual); an f16 row is named by
+    `_row_name`."""
+    cases, seed, timed_seed = LN_CASES[dtype]
+    f16 = dtype == F16
+    for i, (r, d, dt, adt) in enumerate(cases):
+        args = _ln_inputs(r, d, dt, seed=seed + i, affine_dtype=adt)
         out = fln.fused_ln_fwd(*args)
         ref = fln.fused_ln_reference(*args)
-        # the kernel as the op a saved program calls: the same bits
-        op_out = torch.ops.paddle_tpu_torch.fused_ln_fwd(*args, 1e-5)
+        if not f16:
+            # the kernel as the op a saved program calls: the same bits
+            op_out = torch.ops.paddle_tpu_torch.fused_ln_fwd(*args, 1e-5)
         torch.cuda.synchronize()
-        assert out.dtype == dtype and torch.isfinite(out.float()).all()
-        tag = f"fused_ln {str(dtype)[6:]} ({r}, {d}) affine " \
-              f"{str(adt or dtype)[6:]}"
-        e = _close(tag, out, ref, LN_TOL[dtype])
-        _close(tag + " (op)", op_out, ref, LN_TOL[dtype])
-        assert torch.equal(op_out, out), tag
+        assert out.dtype == dt and torch.isfinite(out.float()).all()
+        tag = f"fused_ln {str(dt)[6:]} ({r}, {d}) affine " \
+              f"{str(adt or dt)[6:]}"
+        e = _close(tag, out, ref, LN_TOL[dt])
+        if not f16:
+            _close(tag + " (op)", op_out, ref, LN_TOL[dt])
+            assert torch.equal(op_out, out), tag
         if i == 0:
             err = e
-    # main-path shape [8192, 768] bf16; 4 input sets (x, residual and the
+    # main-path shape [8192, 768]; 4 input sets (x, residual and the
     # output: 151 MB, three times the L2) rotate so each launch reads cold
     # activations, as a layer's LayerNorm does
-    r, d, dtype, sets = 8192, 768, torch.bfloat16, 4
-    inputs = [_ln_inputs(r, d, dtype, seed=40 + i) for i in range(sets)]
+    r, d, sets = 8192, 768, 4
+    inputs = [_ln_inputs(r, d, dtype, seed=timed_seed + i)
+              for i in range(sets)]
     it = iter(range(10 ** 9))
 
     def rotating(fn):
         return lambda: fn(*inputs[next(it) % sets])
 
-    ms, host_ms = _timed(rotating(fln.fused_ln_fwd))
-    plain_ms = _cuda_ms(rotating(fln.fused_ln_reference))
-    library_ms = _cuda_ms(rotating(
+    library = rotating(
         lambda x, res, b, sc, sh: torch.nn.functional.layer_norm(
-            x + b + res, (d,), sc, sh, 1e-5)))
+            x + b + res, (d,), sc, sh, 1e-5))
     elem = 2
     nbytes = 3 * r * d * elem + 3 * d * elem
     # ~10 fp32 operations per element (2 adds, mean, centre, square-add,
     # scale, affine)
-    bound, by = _bound_ms(nbytes, 10 * r * d, torch.float32)
+    flops = 10 * r * d
+    if f16:
+        return _f16_row(
+            _row_name("fused_ln", F16), "fused_ln",
+            "paddle_tpu_torch/csrc/fused_ln.cu",
+            "paddle_tpu/kernels/fused_ln.py:59 _kernel",
+            rotating(fln.fused_ln_fwd), rotating(fln.fused_ln_reference),
+            library, nbytes, flops, err,
+            f"x, residual ({r}, {d}) float16, bias/scale/shift float16; "
+            f"library_ms: F.layer_norm(x + bias + residual)")
+    ms, host_ms = _timed(rotating(fln.fused_ln_fwd))
+    plain_ms = _cuda_ms(rotating(fln.fused_ln_reference))
+    library_ms = _cuda_ms(library)
+    bound, by = _bound_ms(nbytes, flops, torch.float32)
     return {"name": "fused_ln", "route": "cuda",
             "source": "paddle_tpu_torch/csrc/fused_ln.cu",
             "replaces": "paddle_tpu/kernels/fused_ln.py:59 _kernel",
@@ -1627,19 +1766,20 @@ def _flash_bwd_bound(b, n, h, d, elem, causal, dkv):
     return _bound_ms(nbytes, (8 if dkv else 6) * d * pairs, torch.bfloat16)
 
 
-def _check_f16_large_do():
-    """The f16 backward's large-dO cases (F16_LARGE_DO): |dP - Delta|
-    past 10^4 and, non-causal, |dS| past 65504 while the fp32 twin's
-    gradients fit in f16, so the kernels' dS factor has to act; the
-    outputs must be finite and within the f16 criteria."""
+def _check_f16_large_do(head_dim=HEAD_DIM):
+    """The f16 backward's large-dO cases (F16_LARGE_DO) at [1, 128, 12,
+    head_dim]: |dP - Delta| past 10^4 and, non-causal, |dS| past 65504
+    while the fp32 twin's gradients fit in f16, so the kernels' dS factor
+    has to act; the outputs must be finite and within the f16 criteria."""
+    dtag = "" if head_dim == HEAD_DIM else f" D={head_dim}"
     for causal, (q_gain, k_gain, gain) in F16_LARGE_DO.items():
-        shape = (1, 128, HEADS, HEAD_DIM)
+        shape = (1, 128, HEADS, head_dim)
         q, k, v = _f16_numpy(shape, 21, 3)
         q, k = (q.float() * q_gain).to(F16), (k.float() * k_gain).to(F16)
         (do,) = _f16_numpy(shape, 22, 1, gain)
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
         delta = fa.flash_attention_delta(out, do)
-        args = (q, k, v, do, lse, delta, causal, 0.125)
+        args = (q, k, v, do, lse, delta, causal, head_dim ** -0.5)
         _, _, _, p_, ds = fa._bwd_probs(*args)
         dp_delta = float((ds.abs() / p_.clamp_min(1e-30))[p_ > 1e-3].max())
         ds_max = float(ds.abs().max())
@@ -1647,8 +1787,8 @@ def _check_f16_large_do():
         refs = [fa.flash_attention_bwd_dq_reference(*args),
                 *fa.flash_attention_bwd_dkv_reference(*args)]
         fits = all(float(r.float().abs().max()) < 65504.0 for r in refs)
-        print(f"  flash bwd float16 large dO (q x {q_gain}, k x {k_gain}, "
-              f"dO x {gain}, causal={causal}): max |dP - Delta| "
+        print(f"  flash bwd float16 large dO{dtag} (q x {q_gain}, k x "
+              f"{k_gain}, dO x {gain}, causal={causal}): max |dP - Delta| "
               f"{dp_delta:.1f}, max |dS| {ds_max:.1f} (f16's largest "
               f"65504); the fp32 twin's dQ, dK, dV "
               f"{'fit' if fits else 'do not fit'} in f16")
@@ -1658,13 +1798,48 @@ def _check_f16_large_do():
         dk, dv = fa.flash_attention_bwd_dkv(*args)
         tols = fa.flash_bwd_f16_tol(*args)
         for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
-            tag = f"flash bwd float16 large dO causal={causal} {name}"
+            tag = f"flash bwd float16 large dO{dtag} causal={causal} {name}"
             assert bool(torch.isfinite(got.float()).all()), tag
             _close(tag, got, want, tols[name])
             fro = fa.rel_fro(got, want)
             print(f"  {tag}: relative Frobenius error {fro:.3e} (at most "
                   f"{fa.FLASH_BWD_F16_FRO_RTOL})")
             assert fro <= fa.FLASH_BWD_F16_FRO_RTOL, (tag, fro)
+
+
+def _check_flash_bwd_d128(dtype):
+    """dQ and dK/dV at head_dim 128 (dK/dV: two consumer warpgroups a CTA)
+    against their twins: FLASH_D128_LENGTHS causal and not, a non-causal
+    40 x 300, a batch of 3 read through the fused qkv strides, two
+    launches bit for bit equal, and in f16 the dS guard's large-dO
+    cases."""
+    name = str(dtype)[6:]
+    for n in FLASH_D128_LENGTHS:
+        for causal in (True, False):
+            qkv = _fused_qkv(n, dtype, seed=500 + n, heads=4, head_dim=128)
+            _check_flash_bwd_case(f"flash bwd {name} n={n} causal={causal} "
+                                  "D=128", *qkv, causal, seed=n)
+    q = _fused_qkv(40, dtype, seed=51, heads=4, head_dim=128)[0]
+    _, k, v = _fused_qkv(300, dtype, seed=52, heads=4, head_dim=128)
+    _check_flash_bwd_case(f"flash bwd {name} n=40 m=300 causal=False D=128",
+                          q, k, v, False, seed=53)
+    _check_flash_bwd_case(f"flash bwd {name} (3, 200, 4, 128) causal=True",
+                          *_fused_qkv(200, dtype, seed=54, heads=4,
+                                      head_dim=128, batch=3), True, seed=55)
+    # more 128-key blocks than the card has SMs: a CTA walks several
+    for causal in (True, False):
+        _check_flash_bwd_case(f"flash bwd {name} (8, 1000, 16, 128) "
+                              f"causal={causal}",
+                              *_fused_qkv(1000, dtype, seed=58, heads=16,
+                                          head_dim=128, batch=8), causal,
+                              seed=59)
+    args = _flash_bwd_inputs(*qkv, True, seed=2047)
+    _twice_equal(f"flash bwd {name} n=2047 causal=True D=128 dkv",
+                 lambda: fa.flash_attention_bwd_dkv(*args))
+    _twice_equal(f"flash bwd {name} n=2047 causal=True D=128 dq",
+                 lambda: [fa.flash_attention_bwd_dq(*args)])
+    if dtype == F16:
+        _check_f16_large_do(head_dim=128)
 
 
 def check_flash_bwd(dtype=torch.bfloat16):
@@ -1708,6 +1883,7 @@ def check_flash_bwd(dtype=torch.bfloat16):
     _check_flash_bwd_case(f"flash bwd {name} n=200 causal=True k, v offset "
                           "views", *_offset_qkv(200, seed=31, dtype=dtype),
                           True)
+    _check_flash_bwd_d128(dtype)
     _check_flash_bwd_refuses_misaligned_do(dtype)
     b, n = 8, 1024
     q, k, v = _fused_qkv(n, dtype, seed=11, batch=b)
@@ -1906,20 +2082,26 @@ def _check_ce_case(tag, logits, labels, grad):
     return err_fwd, err_bwd
 
 
-def check_ce():
+def check_ce(dtype=torch.bfloat16):
+    """The fused cross-entropy kernels against their twins, bf16 (with the
+    fp32 cases first) or float16, then timed at the main-path shape beside
+    F.cross_entropy and its autograd backward; f16 rows are named by
+    `_row_name`."""
+    f16 = dtype == F16
     # R = 777 rows: not a multiple of any tile; V = 3000 and 50257 leave a
     # ragged vocabulary tail, 50304 is the model's padded vocabulary
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype)[6:]
+    for dt in (dtype,) if f16 else (torch.float32, dtype):
+        name = str(dt)[6:]
         for v in (3000, 50257, 50304):
             _check_ce_case(f"ce {name} R=777 V={v}",
-                           *_ce_inputs(777, v, dtype, seed=v))
+                           *_ce_inputs(777, v, dt, seed=v))
         _check_ce_case(f"ce {name} R=777 V=50257 row stride 50262",
-                       *_ce_inputs(777, 50257, dtype, seed=1, pad_cols=5))
-    # main-path shape: the logits of 8 x 1024 tokens, bf16
-    r, v, dtype = 8192, 50304, torch.bfloat16
+                       *_ce_inputs(777, 50257, dt, seed=1, pad_cols=5))
+    # main-path shape: the logits of 8 x 1024 tokens
+    r, v = 8192, 50304
+    short = "float16" if f16 else "bf16"
     logits, labels, grad = _ce_inputs(r, v, dtype, seed=2)
-    err_fwd, err_bwd = _check_ce_case(f"ce bf16 R={r} V={v}", logits,
+    err_fwd, err_bwd = _check_ce_case(f"ce {short} R={r} V={v}", logits,
                                       labels, grad)
     _, lse = ce.cross_entropy_fwd(logits, labels)
     # yardsticks the port never calls: F.cross_entropy(reduction="none")
@@ -1929,14 +2111,13 @@ def check_ce():
     lib_logits = logits.detach().requires_grad_(True)
     lib_loss = torch.nn.functional.cross_entropy(
         lib_logits, lib_labels, reduction="none", ignore_index=-100)
-    fwd_lib = _cuda_ms(lambda: torch.nn.functional.cross_entropy(
-        logits, lib_labels, reduction="none", ignore_index=-100))
-    bwd_lib = _cuda_ms(lambda: torch.autograd.grad(
-        lib_loss, lib_logits, grad, retain_graph=True))
+    fwd_lib = lambda: torch.nn.functional.cross_entropy(  # noqa: E731
+        logits, lib_labels, reduction="none", ignore_index=-100)
+    bwd_lib = lambda: torch.autograd.grad(  # noqa: E731
+        lib_loss, lib_logits, grad, retain_graph=True)
     elem = logits.element_size()
-    shape = f"logits ({r}, {v}) bf16"
     rows = []
-    for kind, fn, ref, err, lib_ms, nbytes in (
+    for kind, fn, ref, err, lib, nbytes in (
             ("fwd", lambda: ce.cross_entropy_fwd(logits, labels),
              lambda: ce.cross_entropy_fwd_reference(logits, labels),
              err_fwd, fwd_lib, r * v * elem + r * 8 + 2 * r * 4),
@@ -1944,21 +2125,31 @@ def check_ce():
              lambda: ce.cross_entropy_bwd_reference(logits, labels, lse,
                                                     grad),
              err_bwd, bwd_lib, 2 * r * v * elem + r * (8 + 4 + 4))):
+        counter = f"cross_entropy_{kind}"
+        replaces = ("paddle_tpu/kernels/cross_entropy.py:77 _fwd_kernel"
+                    if kind == "fwd" else
+                    "paddle_tpu/kernels/cross_entropy.py:107 _bwd_kernel")
         # about 4 fp32 operations per element (max, subtract, exp, add)
+        if f16:
+            rows.append(_f16_row(
+                _row_name(counter, F16), counter,
+                "paddle_tpu_torch/csrc/cross_entropy.cu", replaces, fn, ref,
+                lib, nbytes, 4 * r * v, err,
+                f"logits ({r}, {v}) float16; library_ms: F.cross_entropy "
+                f"(reduction none" + (")" if kind == "fwd" else
+                                      ") and its autograd backward")))
+            continue
         bound, by = _bound_ms(nbytes, 4 * r * v, torch.float32)
         ms, host_ms = _timed(fn)
         rows.append({
-            "name": f"cross_entropy_{kind}", "route": "cuda",
+            "name": counter, "route": "cuda",
             "source": "paddle_tpu_torch/csrc/cross_entropy.cu",
-            "replaces": ("paddle_tpu/kernels/cross_entropy.py:77 _fwd_kernel"
-                         if kind == "fwd" else
-                         "paddle_tpu/kernels/cross_entropy.py:107 "
-                         "_bwd_kernel"),
+            "replaces": replaces,
             "max_abs_err": err, "ms": ms, "host_ms": host_ms,
             "plain_ms": _cuda_ms(ref, iters=5), "bound_ms": bound,
-            "bound_by": by, "library_ms": lib_ms, "shape": shape})
+            "bound_by": by, "library_ms": _cuda_ms(lib),
+            "shape": f"logits ({r}, {v}) bf16"})
     return rows
-
 
 
 def _adam_state(shapes, dtype, masters, seed, offset=0):
@@ -2960,32 +3151,81 @@ def _lora_bound(idx, n, d_out, rank):
     return (nbytes, *_bound_ms(nbytes, flops, torch.float32))
 
 
-def check_lora_delta():
+def _lora_ops(y, x, a, b, scale, idx, form, layer):
+    """The op sequence the reference's einsums become in PyTorch, in place
+    on y: the yardstick of `library_ms`."""
+    if form == "decode":
+        # the reference's decode form: each row gathers its factors
+        sel = idx.long()
+        t = torch.bmm(x[:, None, :], a[sel, layer])
+        u = torch.bmm(t, b[sel, layer])[:, 0]
+        y.add_(u * scale[sel].to(y.dtype)[:, None])
+    else:
+        # its prefill form: one slot, read on the device
+        sel = idx[:1].long()
+        u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
+        y.add_(u * scale[sel].to(y.dtype))
+
+
+def _lora_f16_row(err, layer=3):
+    """The f16 row: decode and prefill at the 2304 width, rank 16, timed
+    beside the twin and the op sequence (`_f16_row`)."""
+    rows = {}
+    for form in ("decode", "prefill"):
+        n = LORA_ROWS[form]
+        y, x, a, b, scale = _lora_state(n, 2304, F16, seed=11)
+        idx = _lora_idx(form, n)
+        args = (y, x, a, b, scale, idx, layer)
+        nbytes, _, _ = _lora_bound(idx, n, 2304, LORA_RANK)
+        flops = 2 * int((idx != 0).sum()) * (768 + 2304) * LORA_RANK
+        rows[form] = _f16_row(
+            _row_name("lora_delta", F16), "lora_delta",
+            "paddle_tpu_torch/csrc/lora_delta.cu",
+            "no Pallas counterpart: paddle_tpu/serving/tenancy.py:526 "
+            "_adapter_forward (XLA einsums)",
+            lambda args=args: ld.lora_delta(*args),
+            lambda args=args: ld.lora_delta_reference(*args),
+            lambda args=args, form=form: _lora_ops(*args[:6], form, layer),
+            nbytes, flops, err,
+            f"{form} ({ld.lora_form(idx)} form): x [{n}, 768] -> y "
+            f"[{n}, 2304] f16, rank {LORA_RANK}, K = 3; library_ms: the "
+            f"reference's op sequence")
+    row = rows["decode"]
+    pre = rows["prefill"]
+    row.update(prefill_ms=pre["ms"], prefill_library_ms=pre["library_ms"],
+               prefill_bound_ms=pre["bound_ms"])
+    return row
+
+
+def check_lora_delta(dtype=torch.bfloat16):
     """The batched adapter delta (one launch a projection, in place)
     against its twin in both forms: the row form at the decode shape (8
     slots, adapters 0/1/2 mixed) and the tile form at the prefill shape
     (1024 rows of one slot, the index read with stride 0; a base-tenant
     bucket; a ragged 37-row prompt), both projections' widths, bf16 and
-    fp32, ranks 16 and 4, and the timing data, within `lora_delta_tol`
-    (derived from both computations' roundings) and base rows bit for bit
-    (`_check_lora_case`, which prints each case's distance from fp64 sums
-    and from the first design). Timed (bf16, rank 16, both
-    widths) in turns with the first design (commit 17bc302,
-    tools/torch_lora_delta_pr15.cu) and the op sequence the reference's
-    einsums become in PyTorch (gathers of A and B, two bmm, the scale's
-    gather, a multiply and an add), the yardstick of `library_ms`."""
+    fp32 (or float16 alone), ranks 16 and 4, and the timing data, within
+    `lora_delta_tol` (derived from both computations' roundings) and base
+    rows bit for bit (`_check_lora_case`, which prints each case's
+    distance from fp64 sums and from the first design). bf16: timed
+    (rank 16, both widths) in turns with the first design (commit
+    17bc302, tools/torch_lora_delta_pr15.cu) and the op sequence the
+    reference's einsums become in PyTorch (`_lora_ops`: gathers of A and
+    B, two bmm, the scale's gather, a multiply and an add), the yardstick
+    of `library_ms`; float16: `_lora_f16_row`."""
     t_check = time.perf_counter()
     err = None
     from_exact = [0, 0]
-    for dtype in (torch.bfloat16, torch.float32):
+    for dt in (dtype,) if dtype == F16 else (torch.bfloat16, torch.float32):
         for rank in LORA_RANKS:
             for d_out in (2304, 768):
                 for form in ("decode", "prefill", "prefill_base",
                              "prefill_ragged"):
-                    e, ex = _check_lora_case(form, d_out, dtype, rank)
+                    e, ex = _check_lora_case(form, d_out, dt, rank)
                     from_exact = [a + b for a, b in zip(from_exact, ex)]
                     if err is None:
                         err = e
+    if dtype == F16:
+        return _lora_f16_row(err)
     # the timing data below (seed 11), where the earlier bound (one
     # rounding of 2^-8 a step) saw the tile form past it at 3 elements
     for form in ("decode", "prefill"):
@@ -3005,22 +3245,9 @@ def check_lora_delta():
                                             seed=11)
             idx = _lora_idx(form, n)
             args = (y, x, a, b, scale, idx, layer)
-
-            def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
-                if form == "decode":
-                    # the reference's decode form: each row gathers its
-                    # factors
-                    sel = idx.long()
-                    t = torch.bmm(x[:, None, :], a[sel, layer])
-                    u = torch.bmm(t, b[sel, layer])[:, 0]
-                    y.add_(u * scale[sel].to(y.dtype)[:, None])
-                else:
-                    # its prefill form: one slot, read on the device
-                    sel = idx[:1].long()
-                    u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
-                    y.add_(u * scale[sel].to(y.dtype))
-
-            calls = {"ops": ops, "first": lambda args=args: first(*args),
+            calls = {"ops": lambda args=args, form=form: _lora_ops(
+                         *args[:6], form, layer),
+                     "first": lambda args=args: first(*args),
                      "form": lambda args=args: ld.lora_delta(*args)}
             times = [_timed(calls[who]) for who in LORA_TURNS]
 
@@ -6600,267 +6827,6 @@ def _f16_row(name, counter, source, replaces, kernel, twin, library, nbytes,
     return row
 
 
-def _check_f16_paged():
-    """The fused decode step in f16: f16 q over f16 pools and over int8
-    pools against the twin (`_check_append_case`: pools bit for bit, 50
-    launches each), timed at the serving shape (12 layers' pools rotating)
-    beside the twin and the library yardstick; the four cast pairs by
-    `check_append_cast`. Returns {path: rows}."""
-    bs, layers = 16, 12
-    eff_lens = [l if a else 0 for l, a in zip(KV_APPEND_LENS,
-                                              KV_APPEND_ACTIVE)]
-    out = {}
-    for pool_dtype, path in ((F16, "serve_fp16"),
-                             (torch.int8, "serve_int8_fp16")):
-        err = _check_append_case(pool_dtype, F16)
-        q, k, v, kp, vp, ks, vs, tables, lens, active = _kv_append_state(
-            layers, pool_dtype, F16, seed=6)
-        int8 = ks is not None
-        eff = torch.where(active, lens, 0)
-        it = iter(range(10 ** 9))
-
-        def rotating(fn):
-            def call():
-                layer = next(it) % layers
-                scales = (ks[layer], vs[layer]) if int8 else ()
-                return fn(kp[layer], vp[layer], *scales)
-            return call
-
-        def fused(kpl, vpl, *scales):
-            return pa.paged_decode_append(q, k, v, kpl, vpl, tables, lens,
-                                          active, bs, *scales)
-
-        def twin(kpl, vpl, *scales):
-            kva.kv_append_reference(k, v, kpl, vpl, tables, lens, active, bs,
-                                    *scales)
-            return pa.paged_decode_reference(q, kpl, vpl, tables, eff, bs,
-                                             *scales)
-
-        library = None
-        if not int8:
-            wb = torch.where(active, tables[torch.arange(8, device="cuda"),
-                                            eff.long() // bs].long(), 0)
-            wo = eff.long() % bs
-            t_max = tables.shape[1] * bs
-            mask = (torch.arange(t_max, device="cuda")[None, :]
-                    <= eff[:, None])[:, None, None, :]
-
-            def lib(kpl, vpl):
-                kpl.index_put_((wb, wo), k)
-                vpl.index_put_((wb, wo), v)
-                kg = kpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
-                    .transpose(1, 2)
-                vg = vpl[tables.long()].reshape(8, t_max, HEADS, HEAD_DIM) \
-                    .transpose(1, 2)
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q[:, :, None, :], kg, vg, attn_mask=mask)
-
-            library = rotating(lib)
-        paged_b = _paged_work(eff_lens, q, tables, int8)
-        append_b = _kv_append_work(int8, 2)
-        counter = pa.append_name(F16, pool_dtype)
-        out[path] = [_f16_row(
-            _row_name(counter, F16), counter,
-            "paddle_tpu_torch/csrc/paged_decode.cu",
-            "paddle_tpu/kernels/pallas/paged_attention.py:167 _decode_kernel"
-            + (" (quantized=True)" if int8 else "")
-            + " with the decode write before it (XLA ops, no Pallas kernel)",
-            rotating(fused), rotating(twin), library,
-            paged_b[0] + append_b[0], paged_b[1] + append_b[1], err,
-            f"S=8 H=12 D=64 bs=16 M=64, 513 blocks, lens {KV_APPEND_LENS}, "
-            f"active {KV_APPEND_ACTIVE}, f16 q and rows, "
-            + ("int8 pools + fp32 scales; library_ms null: no one PyTorch "
-               "call requantizes a block" if int8 else
-               "f16 pools; library_ms: two index_put_, a gather and SDPA"))]
-    for row, (pool_dtype, q_dtype) in zip(
-            check_append_cast(F16_CAST_PAIRS, suffix=True), F16_CAST_PAIRS):
-        out.setdefault(f"serve_kv_{SHORT_NAMES[q_dtype]}_{SHORT_NAMES[pool_dtype]}",
-                       []).append(row)
-    return out
-
-
-def _check_f16_scatter():
-    """The prompt scatter of f16 rows against its twin, bit for bit on
-    every block but 0: SCATTER_CASES into f16 and int8 pools, int8 pools at
-    SCATTER_WIDE; timed at a full 1024 bucket beside the twin and (f16
-    pools) two index_put_ a layer; the four cast pairs by
-    `check_scatter_cast`. Returns {path: rows}."""
-    bs, n_cases = 16, 0
-    for int8 in (False, True):
-        for bucket, lengths in SCATTER_CASES:
-            for length in lengths:
-                _check_scatter_case(bucket, length, F16, int8)
-                n_cases += 1
-    wide_bucket, wide_bs, wide_lengths = SCATTER_WIDE
-    for length in wide_lengths:
-        _check_scatter_case(wide_bucket, length, F16, True, bs=wide_bs,
-                            head_dim=128)
-        n_cases += 1
-    print(f"  prefill_scatter float16 rows: {n_cases} cases bit-identical "
-          f"to the twin on blocks 1.. and block 0 untouched")
-    out = {}
-    bucket = length = 1024
-    for int8, path in ((False, "serve_fp16"), (True, "serve_int8_fp16")):
-        k, v, pools, scales, row = _scatter_state(bucket, F16, int8, seed=7)
-        n = torch.full((), length, dtype=torch.int32, device="cuda")
-        args = (*pools, k, v, row, n, bs, *scales)
-        library = None
-        if not int8:
-            pos = torch.arange(length, device="cuda")
-            blocks, offs = row.long()[pos // bs], pos % bs
-
-            def library():
-                for layer in range(SCATTER_LAYERS):
-                    pools[0][layer].index_put_((blocks, offs), k[layer])
-                    pools[1][layer].index_put_((blocks, offs), v[layer])
-
-        used = int((row != 0).sum())
-        nbytes = ps.scatter_bytes(length, SCATTER_LAYERS, HEADS, HEAD_DIM, 2,
-                                  int8, used)
-        flops = 6 * 2 * SCATTER_LAYERS * length * HEADS * HEAD_DIM if int8 \
-            else 0
-        counter = ps.scatter_name(F16, torch.int8 if int8 else F16)
-        out[path] = [_f16_row(
-            _row_name(counter, F16), counter,
-            "paddle_tpu_torch/csrc/prefill_scatter.cu",
-            "no Pallas counterpart: paddle_tpu/serving/cache.py:237 "
-            "scatter_prefill" + (" over paddle_tpu/quantization/kv_cache.py"
-                                 ":90 quantize_scatter" if int8 else "")
-            + " (XLA ops)", lambda: ps.prefill_scatter(*args),
-            lambda: ps.prefill_scatter_reference(*args), library, nbytes,
-            flops, 0.0,
-            f"12 layers of f16 rows [1024, 12, 64] (strided views of "
-            f"[1024, 3, 12, 64]), length 1024, bs=16, a block row of 64, "
-            + ("int8 pools + fp32 scales; library_ms null: no one PyTorch "
-               "call quantizes a block" if int8 else
-               "f16 pools; library_ms: two index_put_ a layer"))]
-    for row, (pool_dtype, row_dtype) in zip(
-            check_scatter_cast(F16_CAST_PAIRS, suffix=True), F16_CAST_PAIRS):
-        out.setdefault(f"serve_kv_{SHORT_NAMES[row_dtype]}_{SHORT_NAMES[pool_dtype]}",
-                       []).append(row)
-    return out
-
-
-def _check_f16_ce():
-    for v in (3000, 50257, 50304):
-        _check_ce_case(f"ce float16 R=777 V={v}",
-                       *_ce_inputs(777, v, F16, seed=v))
-    _check_ce_case("ce float16 R=777 V=50257 row stride 50262",
-                   *_ce_inputs(777, 50257, F16, seed=1, pad_cols=5))
-    r, v = 8192, 50304
-    logits, labels, grad = _ce_inputs(r, v, F16, seed=2)
-    err_fwd, err_bwd = _check_ce_case(f"ce float16 R={r} V={v}", logits,
-                                      labels, grad)
-    _, lse = ce.cross_entropy_fwd(logits, labels)
-    lib_labels = labels.masked_fill(labels < 0, -100)
-    lib_logits = logits.detach().requires_grad_(True)
-    lib_loss = torch.nn.functional.cross_entropy(
-        lib_logits, lib_labels, reduction="none", ignore_index=-100)
-    rows = []
-    for kind, fn, ref, lib, err, nbytes in (
-            ("fwd", lambda: ce.cross_entropy_fwd(logits, labels),
-             lambda: ce.cross_entropy_fwd_reference(logits, labels),
-             lambda: torch.nn.functional.cross_entropy(
-                 logits, lib_labels, reduction="none", ignore_index=-100),
-             err_fwd, r * v * 2 + r * 8 + 2 * r * 4),
-            ("bwd", lambda: ce.cross_entropy_bwd(logits, labels, lse, grad),
-             lambda: ce.cross_entropy_bwd_reference(logits, labels, lse,
-                                                    grad),
-             lambda: torch.autograd.grad(lib_loss, lib_logits, grad,
-                                         retain_graph=True),
-             err_bwd, 2 * r * v * 2 + r * (8 + 4 + 4))):
-        counter = f"cross_entropy_{kind}"
-        rows.append(_f16_row(
-            _row_name(counter, F16), counter,
-            "paddle_tpu_torch/csrc/cross_entropy.cu",
-            "paddle_tpu/kernels/cross_entropy.py:" + (
-                "77 _fwd_kernel" if kind == "fwd" else "107 _bwd_kernel"),
-            fn, ref, lib, nbytes, 4 * r * v, err,
-            f"logits ({r}, {v}) float16; library_ms: F.cross_entropy "
-            f"(reduction none" + (")" if kind == "fwd" else
-                                  ") and its autograd backward")))
-    return rows
-
-
-def _check_f16_ln():
-    cases = [(8192, 768, None), (777, 768, None), (777, 768, torch.float32),
-             (5, 128, None), (33, 4224, None)]
-    for i, (r, d, adt) in enumerate(cases):
-        args = _ln_inputs(r, d, F16, seed=50 + i, affine_dtype=adt)
-        out = fln.fused_ln_fwd(*args)
-        ref = fln.fused_ln_reference(*args)
-        torch.cuda.synchronize()
-        assert out.dtype == F16 and torch.isfinite(out.float()).all()
-        e = _close(f"fused_ln float16 ({r}, {d}) affine "
-                   f"{str(adt or F16)[6:]}", out, ref, LN_TOL[F16])
-        if i == 0:
-            err = e
-    r, d, sets = 8192, 768, 4
-    inputs = [_ln_inputs(r, d, F16, seed=60 + i) for i in range(sets)]
-    it = iter(range(10 ** 9))
-
-    def rotating(fn):
-        return lambda: fn(*inputs[next(it) % sets])
-
-    return _f16_row(
-        _row_name("fused_ln", F16), "fused_ln",
-        "paddle_tpu_torch/csrc/fused_ln.cu",
-        "paddle_tpu/kernels/fused_ln.py:59 _kernel",
-        rotating(fln.fused_ln_fwd), rotating(fln.fused_ln_reference),
-        rotating(lambda x, res, b, sc, sh: torch.nn.functional.layer_norm(
-            x + b + res, (d,), sc, sh, 1e-5)),
-        3 * r * d * 2 + 3 * d * 2, 10 * r * d, err,
-        f"x, residual ({r}, {d}) float16, bias/scale/shift float16; "
-        f"library_ms: F.layer_norm(x + bias + residual)")
-
-
-def _check_f16_lora():
-    err = None
-    for rank in LORA_RANKS:
-        for d_out in (2304, 768):
-            for form in ("decode", "prefill", "prefill_base",
-                         "prefill_ragged"):
-                e, _ = _check_lora_case(form, d_out, F16, rank)
-                if err is None:
-                    err = e
-    layer, rows = 3, {}
-    for form in ("decode", "prefill"):
-        n = LORA_ROWS[form]
-        y, x, a, b, scale = _lora_state(n, 2304, F16, seed=11)
-        idx = _lora_idx(form, n)
-        args = (y, x, a, b, scale, idx, layer)
-
-        def ops(y=y, x=x, a=a, b=b, scale=scale, idx=idx, form=form):
-            if form == "decode":
-                sel = idx.long()
-                t = torch.bmm(x[:, None, :], a[sel, layer])
-                u = torch.bmm(t, b[sel, layer])[:, 0]
-                y.add_(u * scale[sel].to(y.dtype)[:, None])
-            else:
-                sel = idx[:1].long()
-                u = (x @ a[:, layer][sel][0]) @ b[:, layer][sel][0]
-                y.add_(u * scale[sel].to(y.dtype))
-
-        nbytes, _, _ = _lora_bound(idx, n, 2304, LORA_RANK)
-        flops = 2 * int((idx != 0).sum()) * (768 + 2304) * LORA_RANK
-        rows[form] = _f16_row(
-            _row_name("lora_delta", F16), "lora_delta",
-            "paddle_tpu_torch/csrc/lora_delta.cu",
-            "no Pallas counterpart: paddle_tpu/serving/tenancy.py:526 "
-            "_adapter_forward (XLA einsums)",
-            lambda args=args: ld.lora_delta(*args),
-            lambda args=args: ld.lora_delta_reference(*args), ops, nbytes,
-            flops, err,
-            f"{form} ({ld.lora_form(idx)} form): x [{n}, 768] -> y "
-            f"[{n}, 2304] f16, rank {LORA_RANK}, K = 3; library_ms: the "
-            f"reference's op sequence")
-    row = rows["decode"]
-    pre = rows["prefill"]
-    row.update(prefill_ms=pre["ms"], prefill_library_ms=pre["library_ms"],
-               prefill_bound_ms=pre["bound_ms"])
-    return row
-
-
 def check_float16():
     """Every f16 instantiation against its twin and timed (phase 9's
     kernels). Returns {path: rows}, each row's launches to be read from
@@ -6868,13 +6834,13 @@ def check_float16():
     t0 = time.perf_counter()
     rows = {"serve_fp16": [check_flash(F16)],
             "train_fp16": check_flash_bwd(F16)}
-    for part in (_check_f16_paged(), _check_f16_scatter()):
+    for part in (check_paged_append(F16), check_prefill_scatter(F16)):
         for path, more in part.items():
             rows.setdefault(path, []).extend(more)
-    rows["train_fp16_ce"] = _check_f16_ce()
+    rows["train_fp16_ce"] = check_ce(F16)
     rows["train_fp16"].extend(check_adam_update(F16))
-    rows["fused_ln_fp16"] = [_check_f16_ln()]
-    rows["serve_tenancy_fp16"] = [_check_f16_lora()]
+    rows["fused_ln_fp16"] = [check_fused_ln(F16)]
+    rows["serve_tenancy_fp16"] = [check_lora_delta(F16)]
     print(f"  float16 kernels: {time.perf_counter() - t0:.1f} s wall")
     return rows
 

@@ -88,6 +88,35 @@
 //     (tools/torch_flash_bwd_variants.py, `packed_test`). bf16 has
 //     fp32's range and skips it.
 //
+// dK/dV at D = 128 (`flash_bwd_dkv_kernel_wgmma_d128<T, kCausal, ...>`,
+// bf16 and f16): the one-warpgroup kernel above took 130 KB of shared
+// memory and 225 registers (255 in f16) at D = 128, one CTA an SM, each
+// streamed Q/dO tile serving 64 key rows (0.402 ms at (4, 2048, 16, 128)
+// causal, 35% of its bound). The D = 128 kernel:
+//   * a CTA of three warpgroups: two consumers of 64 key rows each (the
+//     block's K and V, 64 KB) and a producer whose first warp streams the
+//     Q/dO tiles of 64 queries (two stages, 32 KB each) with their lse
+//     and Delta. setmaxnreg: 240 registers a consumer thread, 24 a
+//     producer's; ptxas keeps dK, dV, S^T, dP^T and the packed P^T, dS^T
+//     with no spills in all four instantiations, the f16 dS guard
+//     (unchanged) included. Every streamed byte serves 128 key rows;
+//   * each consumer takes the D = 64 kernel's steps tile by tile in two
+//     turns at the tensor cores (named barriers 1 and 2, as in the D = 128
+//     forward): S^T and dP^T, then dV += P^T dO and dK += dS^T Q. A tile
+//     without work for a warpgroup (the causal diagonal's first tile for
+//     the upper 64 keys, every tile where its keys are past m) takes both
+//     turns without products, so a ragged block whose second warpgroup
+//     lies past m computes and stores nothing there. Pipelining across
+//     tiles (the last tile's dV, dK with this tile's scores, one turn a
+//     tile) made ptxas serialize the wgmmas for want of registers and
+//     took 0.545 ms (tools/torch_flash_bwd_variants.py);
+//   * persistent: one CTA an SM walks work items ((b, h), 128 keys) head
+//     by head, the heaviest causal block of a head first, dealt in rounds
+//     forward and backward by turns (static: deterministic, no atomics).
+//     The producer loads the next item's K, V and first Q/dO tiles while
+//     the consumers store dK and dV; a head's items together keep its
+//     Q, dO, lse and Delta within L2.
+//
 // fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): the first design,
 // products in fp32 FMA on the CUDA cores, kept by design: the fp32 checks on
 // the card (training parity against the CPU, the backward's fp32 cases)
@@ -895,6 +924,335 @@ flash_bwd_dkv_kernel_wgmma(const __grid_constant__ CUtensorMap q_map,
   store_rows<T, D>(dv + out, dv_acc, row0, m, heads, col0, one);
 }
 
+// ---------------------------------------------------------------------------
+// dK/dV in bf16 and f16 at D = 128: two consumer warpgroups share every
+// streamed Q/dO tile
+// ---------------------------------------------------------------------------
+
+// The D = 128 kernel's configuration (tools/torch_flash_bwd_variants.py
+// builds others in turns): ring depth, and whether the consumers take
+// turns at the tensor cores
+constexpr int kDkv128Stages = 2;
+constexpr bool kDkv128PingPong = true;
+constexpr bool kDkv128Persistent = true;
+
+// two consumer warpgroups (64 key rows each) and a producer warpgroup
+constexpr int kDkv128Threads = 3 * 128;
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// named barriers: consumer warpgroup w waits on kBarTurn + w for its turn
+constexpr int kBarTurn = 1;
+
+// Shared memory of a dK/dV CTA at D = 128: the two 64-row halves of its K
+// and V tiles, and the ring of Q/dO tiles with their queries' lse (times
+// log2 e) and Delta
+template <int kS>
+struct __align__(1024) DkvSmem128 {
+  uint16_t k[2][2][kRows * kPanel];
+  uint16_t v[2][2][kRows * kPanel];
+  uint16_t q[kS][2][kRows * kPanel];
+  uint16_t g[kS][2][kRows * kPanel];
+  float lse2[kS][kRows];
+  float delta[kS][kRows];
+  uint64_t kv_full;
+  uint64_t kv_empty;
+  uint64_t qg_full[kS];
+  uint64_t empty[kS];
+};
+
+template <typename T, bool kCausal, int kS, bool kPingPong>
+__global__ void __launch_bounds__(kDkv128Threads, 1)
+flash_bwd_dkv_kernel_wgmma_d128(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap g_map,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T* __restrict__ dk, T* __restrict__ dv,
+                                int n, int m, int heads, int batch_heads,
+                                float scale) {
+  constexpr int D = 128;
+  using Smem = DkvSmem128<kS>;
+  constexpr uint32_t kTileBytes = 2 * kPanelBytes;   // 64 rows x 128
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  // The CTA's work items, each ((b, h), 128 key rows): item t is key
+  // block t % n_kb of head t / n_kb. A head's blocks run together, so its
+  // Q, dO, lse and Delta come from HBM once and from L2 for the rest, the
+  // heaviest causal block (the first keys) first; rounds of gridDim.x
+  // items go to the CTAs in order and in reverse by turns, as in the
+  // D = 128 forward.
+  const int n_kb = (m + 2 * kRows - 1) / (2 * kRows);
+  const int n_items = n_kb * batch_heads;
+  struct Item {
+    int b, h, bh, k0, t_begin, n_tiles;
+  };
+  auto item = [&](int r, Item& it) {
+    const int c = (r % 2 == 0) ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+    const int t = r * gridDim.x + c;
+    if (t >= n_items) return false;
+    it.bh = t / n_kb;
+    const int kb = t - it.bh * n_kb;
+    it.b = it.bh / heads;
+    it.h = it.bh - it.b * heads;
+    it.k0 = kb * 2 * kRows;
+    // causal (n == m): no query tile above the block's diagonal attends
+    it.t_begin = kCausal ? 2 * kb : 0;
+    it.n_tiles = (n + kRows - 1) / kRows - it.t_begin;
+    return true;
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_empty, 8);            // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&sm.qg_full[s], 1 + 32);   // TMA's bytes + the lse/Delta
+      mbar_init(&sm.empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer warpgroup: its first warp's lane 0 issues every copy,
+    // its 32 lanes store each tile's lse and Delta (0 past n) and arrive
+    // on the tile's full barrier
+    setmaxnreg_dec<kProducerRegs>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x / 32 == 8) {
+      Item it;
+      int g = 0;     // the CTA's Q/dO tiles before this item
+      for (int r = 0; item(r, it); ++r) {
+        if (lane == 0) {
+          // the consumers are done with the last item's K and V
+          if (r > 0) mbar_wait(&sm.kv_empty, (r - 1) & 1);
+          mbar_expect_tx(&sm.kv_full, 4 * kTileBytes);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              tma_load(sm.k[half][p], &k_map, &sm.kv_full, p * kPanel, it.h,
+                       it.k0 + half * kRows, it.b);
+              tma_load(sm.v[half][p], &v_map, &sm.kv_full, p * kPanel, it.h,
+                       it.k0 + half * kRows, it.b);
+            }
+          }
+        }
+        const float* lse_row = lse + static_cast<int64_t>(it.bh) * n;
+        const float* delta_row = delta + static_cast<int64_t>(it.bh) * n;
+        for (int j = 0; j < it.n_tiles; ++j) {
+          const int s = (g + j) % kS;
+          const int t0 = (it.t_begin + j) * kRows;
+          if (g + j >= kS) {
+            // the consumers have released the tile this stage held
+            mbar_wait(&sm.empty[s], (((g + j) / kS) + 1) & 1);
+          }
+          if (lane == 0) {
+            mbar_expect_tx(&sm.qg_full[s], 2 * kTileBytes);
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              tma_load(sm.q[s][p], &q_map, &sm.qg_full[s], p * kPanel, it.h,
+                       t0, it.b);
+              tma_load(sm.g[s][p], &g_map, &sm.qg_full[s], p * kPanel, it.h,
+                       t0, it.b);
+            }
+          }
+#pragma unroll
+          for (int rr = lane; rr < kRows; rr += 32) {
+            const bool ok = t0 + rr < n;
+            sm.lse2[s][rr] = ok ? lse_row[t0 + rr] * kLog2e : 0.f;
+            sm.delta[s][rr] = ok ? delta_row[t0 + rr] : 0.f;
+          }
+          mbar_arrive(&sm.qg_full[s]);
+        }
+        g += it.n_tiles;
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // consumer warpgroup wg: key rows kw .. kw + 63 of each item; this
+    // thread's two rows in the wgmma accumulator layout are row0 and
+    // row0 + 8
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int col0 = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+
+    float dk_acc[D / 2], dv_acc[D / 2];
+    // S^T of the tile, then its P^T in fp32; dP^T of the tile, then its
+    // dS^T / scale (each product's first k-step overwrites them: zeroed
+    // once, so that they are never read undefined)
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    uint32_t pa[16];     // P^T, T pairs
+    uint32_t da[16];     // dS^T / scale (times ds_mul), T pairs
+    const uint32_t k_addr = smem_u32(sm.k[wg][0]);
+    const uint32_t v_addr = smem_u32(sm.v[wg][0]);
+
+    // turns at the tensor cores, as in the D = 128 forward: warpgroup 0
+    // issues its products, then warpgroup 1, and so on
+    auto turn_begin = [&]() {
+      if constexpr (kPingPong) bar_sync(kBarTurn + wg, 256);
+    };
+    auto turn_end = [&]() {
+      if constexpr (kPingPong) bar_arrive(kBarTurn + 1 - wg, 256);
+    };
+    // Q/dO tile gj (counted over the CTA's items) may be overwritten; the
+    // item's K and V, once this warpgroup's last S^T and dP^T are in
+    auto release = [&](int gj) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[gj % kS]);
+    };
+    auto release_kv = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.kv_empty);
+    };
+
+    // warpgroup 0 takes the first turn
+    if (kPingPong && wg == 1) bar_arrive(kBarTurn, 256);
+    Item it;
+    int g = 0;
+    for (int r = 0; item(r, it); ++r) {
+      const int kw = it.k0 + wg * kRows;
+      const int row0 = kw + 16 * warp + lane / 4;
+      float ds_mul[2] = {1.f, 1.f};   // f16: the key rows' dS factors
+      bool scaled = false;   // f16: a key row of the warp is below factor 1
+      zero(dk_acc);
+      zero(dv_acc);
+      mbar_wait(&sm.kv_full, r & 1);
+      if (kw >= m) release_kv();
+      // Tile by tile, as the D = 64 kernel, in two turns: S^T and dP^T
+      // (committed apart, so that P^T's exponentials run while dP^T is on
+      // the tensor cores), then dV += P^T dO and dK += dS^T Q. A tile with
+      // no work for this warpgroup (the causal diagonal's first tile for
+      // the upper 64 keys, every tile where its keys are past m) takes
+      // both turns without products. Accumulator layout: element i is key
+      // row0 + 8 * ((i / 2) % 2), query t0 + 8 * (i / 4) + col0 + i % 2.
+      for (int j = 0; j < it.n_tiles; ++j) {
+        const int s = (g + j) % kS;
+        const int t0 = (it.t_begin + j) * kRows;
+        mbar_wait(&sm.qg_full[s], ((g + j) / kS) & 1);
+        if (kw >= m || (kCausal && t0 + kRows <= kw)) {
+          turn_begin();
+          turn_end();
+          turn_begin();
+          turn_end();
+          release(g + j);
+          continue;
+        }
+        const bool edge = t0 + kRows > n || kw + kRows > m ||
+                          (kCausal && t0 < kw + kRows);
+        turn_begin();
+        wgmma_fence();
+        issue_ss<T, D>(sc, k_addr, smem_u32(sm.q[s][0]));   // S^T = K Q^T
+        wgmma_commit();
+        issue_ss<T, D>(dp, v_addr, smem_u32(sm.g[s][0]));   // dP^T = V dO^T
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        if (edge) {
+          // masked: 2^-inf = 0 below
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = row0 + 8 * ((i / 2) % 2);
+            const int query = t0 + 8 * (i / 4) + col0 + (i % 2);
+            if (query >= n || key >= m || (kCausal && query < key)) {
+              sc[i] = -INFINITY;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = 8 * (i / 4) + col0 + (i % 2);
+          sc[i] = ex2(fmaf(sc[i], scale_log2, -sm.lse2[s][col]));
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        if (j == it.n_tiles - 1) release_kv();
+        if constexpr (kIsHalf<T>) {
+          // f16: the D = 64 kernel's guard, unchanged
+          float big = 0.f;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = 8 * (i / 4) + col0 + (i % 2);
+            dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+            big = fmaxf(big, fabsf(dp[i]));
+          }
+          if (__any_sync(0xffffffffu, scaled || big >= kF16Round)) {
+#pragma unroll
+            for (int i = 0; i < 32; ++i) dp[i] *= ds_mul[(i / 2) % 2];
+            scaled = fit_f16(dp, ds_mul, dk_acc);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int col = 8 * (i / 4) + col0 + (i % 2);
+            dp[i] = sc[i] * (dp[i] - sm.delta[s][col]);
+          }
+        }
+        pack<T>(pa, sc);
+        pack<T>(da, dp);
+        turn_begin();
+        wgmma_fence();
+        issue_rs<T, D>(dv_acc, pa, smem_u32(sm.g[s][0]));   // dV += P^T dO
+        issue_rs<T, D>(dk_acc, da, smem_u32(sm.q[s][0]));   // dK += dS^T Q
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(dk_acc);
+        fence_regs(dv_acc);
+        release(g + j);
+      }
+      g += it.n_tiles;
+
+      const int64_t out =
+          ((static_cast<int64_t>(it.b) * m + row0) * heads + it.h) * D;
+      const float dk_mul[2] = {scale / ds_mul[0], scale / ds_mul[1]};
+      const float one[2] = {1.f, 1.f};
+      store_rows<T, D>(dk + out, dk_acc, row0, m, heads, col0, dk_mul);
+      store_rows<T, D>(dv + out, dv_acc, row0, m, heads, col0, one);
+    }
+    // the last bar_arrive of warpgroup 1 on warpgroup 0's barrier
+    if (kPingPong && wg == 0) bar_sync(kBarTurn, 256);
+  }
+}
+
+template <typename T, bool kCausal>
+cudaError_t launch_dkv_d128(const CUtensorMap* maps, const float* lse,
+                            const float* delta, T* dk, T* dv, int batch,
+                            int n, int m, int heads, float scale,
+                            cudaStream_t stream) {
+  auto* kernel = flash_bwd_dkv_kernel_wgmma_d128<T, kCausal, kDkv128Stages,
+                                                 kDkv128PingPong>;
+  const int smem = static_cast<int>(sizeof(DkvSmem128<kDkv128Stages>)) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int items = batch * heads * ((m + 2 * kRows - 1) / (2 * kRows));
+  int ctas = items;
+  if (kDkv128Persistent) {
+    // one CTA an SM, each walking its share of the items
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    ctas = items < sms ? items : sms;
+  }
+  kernel<<<ctas, kDkv128Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, delta, dk, dv, n, m, heads,
+      batch * heads, scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool kCausal>
 cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
                                 const float* lse, const float* delta,
@@ -908,14 +1266,19 @@ cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
   T* o1 = static_cast<T*>(out1);
   cudaError_t err;
   if (dkv) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkv_kernel_wgmma<T, D, kCausal>
-        <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
-                                                maps[3], lse, delta, o0, o1,
-                                                n, m, heads, scale);
+    if constexpr (D == 128) {
+      return launch_dkv_d128<T, kCausal>(maps, lse, delta, o0, o1, batch, n,
+                                         m, heads, scale, stream);
+    } else {
+      err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dkv_kernel_wgmma<T, D, kCausal>
+          <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                  maps[3], lse, delta, o0,
+                                                  o1, n, m, heads, scale);
+    }
   } else {
     err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -998,6 +1361,26 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
                                  n, m, heads, head_dim, s, scale, causal, cs);
 }
 
+template <typename T, int D, bool kCausal>
+cudaError_t bwd_info(int dkv, int* out) {
+  if (!dkv) {
+    return kernel_info(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
+                       kWgmmaThreads,
+                       static_cast<int>(sizeof(DqSmem<D>)) + 1024, out);
+  }
+  if constexpr (D == 128) {
+    return kernel_info(
+        flash_bwd_dkv_kernel_wgmma_d128<T, kCausal, kDkv128Stages,
+                                        kDkv128PingPong>,
+        kDkv128Threads,
+        static_cast<int>(sizeof(DkvSmem128<kDkv128Stages>)) + 1024, out);
+  } else {
+    return kernel_info(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
+                       kWgmmaThreads,
+                       static_cast<int>(sizeof(DkvSmem<D>)) + 1024, out);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 = float32 (fp32 FMA kernels), 1 = bfloat16, 2 = float16 (wgmma +
@@ -1008,6 +1391,33 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
 // delta are contiguous [batch*heads, n] fp32. Returns a cudaError_t; for
 // bf16 and f16 also 100000 when the CUDA driver has no cuTensorMapEncodeTiled, and
 // 200000 + its CUresult when an encode fails.
+// What the tensor-core kernel (dQ, or dK/dV where `dkv`) of (head_dim,
+// dtype 1 or 2, causal) takes on this card: out[0] CTAs an SM at its
+// launch's shared memory, out[1] registers a thread at launch, out[2]
+// local (spilled) bytes a thread, out[3] dynamic shared memory bytes,
+// out[4] threads a CTA (`kernel_info`). Returns a cudaError_t.
+extern "C" int paddle_flash_attention_bwd_info(int dkv, int head_dim,
+                                               int dtype, int causal,
+                                               int* out) {
+  if ((head_dim != 64 && head_dim != 128) || dtype < 1 || dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err;
+  if (dtype == 1) {
+    err = head_dim == 64
+              ? (causal ? bwd_info<__nv_bfloat16, 64, true>(dkv, out)
+                        : bwd_info<__nv_bfloat16, 64, false>(dkv, out))
+              : (causal ? bwd_info<__nv_bfloat16, 128, true>(dkv, out)
+                        : bwd_info<__nv_bfloat16, 128, false>(dkv, out));
+  } else {
+    err = head_dim == 64 ? (causal ? bwd_info<__half, 64, true>(dkv, out)
+                                   : bwd_info<__half, 64, false>(dkv, out))
+                         : (causal ? bwd_info<__half, 128, true>(dkv, out)
+                                   : bwd_info<__half, 128, false>(dkv, out));
+  }
+  return static_cast<int>(err);
+}
+
 extern "C" int paddle_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* g,
     const void* lse, const void* delta, void* dq, int batch, int n, int m,

@@ -50,9 +50,52 @@
 // In f16, P below 2^-14 rounds to a subnormal and below 2^-24 to 0 (bf16
 // keeps fp32's range); the tolerance against the fp32 twin counts that
 // (kernels/flash_attention.py `flash_fwd_f16_tol`).
-// What the design leaves for later: no second consumer warpgroup to
-// ping-pong with (one's softmax under the other's products), and O is
-// stored with 4-byte stores rather than through shared memory and TMA.
+// That design is kept at D = 64 (GPT-2, ViT, serving), where its 72 KB of
+// shared memory let 3 CTAs share an SM. At D = 128 the same template took
+// 145 KB, so one CTA an SM: one warpgroup of 154 registers, no spills,
+// and nothing to run while its softmax waited on its products (0.256 ms
+// at (4, 2048, 16, 128) causal, 1.83x SDPA; PERF.md section 6).
+//
+// D = 128 (`flash_fwd_kernel_wgmma_d128<T, kCausal, ...>`, bf16 and f16):
+//   * a CTA of three warpgroups: two consumers of 64 q rows each and a
+//     producer. setmaxnreg gives the consumers 240 registers and the
+//     producer 24 (launched at 168: __launch_bounds__(384, 1)). Both
+//     consumers read every K/V tile, so each byte of K and V brought into
+//     shared memory serves 128 rows;
+//   * K/V tiles of 128 keys (two TMA boxes a 64-column panel) in a
+//     two-stage ring, K and V with their own full and empty barriers: a
+//     consumer releases K_j once S_j is in and V_j once P_j V_j is, so the
+//     producer refills K a turn earlier (3 stages of one barrier each
+//     took the same time as 2 of these). Q is one 32 KB tile;
+//   * S = Q K^T is wgmma m64n128k16 from shared memory; the in-warpgroup
+//     pipeline, the log2-domain online softmax, l summed from fp32 P, P as
+//     the register operand of O += P V, the masks and lse are the D = 64
+//     kernel's. The softmax keeps its dependency chains short (masks set
+//     apart on edge tiles only, each row's max and sum in four partial
+//     chains, the scale in the exponent's FFMA): with the D = 64 form the
+//     exponentials held the products back by 30% (a probe with no softmax
+//     at all ran in 0.110 ms against 0.157; with the short chains 0.132);
+//   * epilogue: O / l rounded to T into a 32 KB tile in shared memory in
+//     the 128-byte swizzle, then one thread of the warpgroup stores it by
+//     TMA (rows past n are not written) while the next item starts (6%
+//     faster than 4-byte stores from registers); lse as the D = 64
+//     kernel's;
+//   * turns at the tensor cores: warpgroup w waits on named barrier 1 + w
+//     (bar.sync) before it issues S_j and P_{j-1} V_{j-1}, and arrives on
+//     the other's (bar.arrive) after, so one warpgroup's softmax runs
+//     while the other's products do. Both take n_tiles + 1 turns an item:
+//     a warpgroup with fewer tiles (rows past n) takes turns without
+//     products, each after the tile has landed, and releases every tile
+//     in order;
+//   * persistent: one CTA an SM walks work items ((b, h), 128 q rows)
+//     head by head, the longest causal tile of a head first, in rounds
+//     dealt to the CTAs forward and backward by turns (a static schedule:
+//     no atomics, so the output is the same bit for bit on every launch).
+//     The producer loads the next item's K_0 and Q while the consumers
+//     finish the last item's products and store O. Walking the heads
+//     together keeps the K/V being read within L2: with every head at
+//     once (item = head fastest) the reads went to HBM and the kernel
+//     took 557 MB / 3.35 TB/s (PERF.md section 6).
 //
 // fp32 inputs keep the first design (`flash_fwd_kernel`, fp32 FMA on the
 // CUDA cores, K/V staged in shared memory as fp32): the fp32 checks on the
@@ -521,13 +564,467 @@ cudaError_t launch_wgmma_kernel(const CUtensorMap* maps, void* o, void* lse,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and f16 at D = 128: two consumer warpgroups share every K/V tile
+// ---------------------------------------------------------------------------
+
+// The D = 128 kernel's configuration (tools/torch_flash_fwd_variants.py
+// builds others in turns): keys per K/V tile (64 or 128), ring depth,
+// whether the consumers take turns at the tensor cores, and whether one
+// CTA an SM walks the work items (else one CTA an item)
+constexpr int kFwd128Keys = 128;
+constexpr int kFwd128Stages = 2;
+constexpr bool kFwd128PingPong = true;
+constexpr bool kFwd128Persistent = true;
+
+// two consumer warpgroups (64 q rows each) and a producer warpgroup
+constexpr int kFwd128Threads = 3 * 128;
+// registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65536
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+// named barriers: consumer warpgroup w waits on kBarTurn + w for its turn,
+// and its threads meet on kBarStore + w around its O tile's store
+constexpr int kBarTurn = 1;
+constexpr int kBarStore = 3;
+
+// Shared memory of one CTA: the two 64-row halves of its Q tile and of
+// its O tile, and the K/V ring of kN-key tiles (a panel of a tile is kN
+// rows x 128 B: 128-key
+// tiles are two TMA boxes a panel, one above the other, which the 128-byte
+// swizzle lays out as one 128-row box)
+template <int kN, int kS>
+struct __align__(1024) FwdSmem128 {
+  uint16_t q[2][2][kRows * kPanel];
+  uint16_t o[2][2][kRows * kPanel];   // each warpgroup's O tile, to store
+  uint16_t k[kS][2][kN * kPanel];
+  uint16_t v[kS][2][kN * kPanel];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t k_full[kS];
+  uint64_t v_full[kS];
+  uint64_t k_empty[kS];
+  uint64_t v_empty[kS];
+};
+
+template <typename T, bool kCausal, int kN, int kS, bool kPingPong>
+__global__ void __launch_bounds__(kFwd128Threads, 1)
+flash_fwd_kernel_wgmma_d128(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap o_map,
+                            float* __restrict__ lse,
+                            int n, int m, int heads, int batch_heads,
+                            float scale_log2) {
+  constexpr int D = 128;
+  using Smem = FwdSmem128<kN, kS>;
+  // one 64-column panel of a K or V tile, and a whole tile
+  constexpr uint32_t kKvPanelBytes = kN * kPanel * 2;
+  constexpr uint32_t kKvBytes = 2 * kKvPanelBytes;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  // The CTA's work items, each ((b, h), 128 q rows): item t is q tile
+  // (n_q - 1 - t % n_q) of head t / n_q. A head's tiles run together, so
+  // its K and V come from HBM once and from L2 for the rest (every head
+  // at once would not fit in L2), the longest causal tile first. Round r
+  // of gridDim.x items goes to the CTAs in order when r is even and in
+  // reverse when odd, a static schedule whose causal sums stay level.
+  // One CTA an item is the plain grid.
+  const int n_q = (n + 2 * kRows - 1) / (2 * kRows);
+  const int n_items = n_q * batch_heads;
+  struct Item {
+    int b, h, bh, q0, n_tiles;
+  };
+  auto item = [&](int r, Item& it) {
+    const int c = (r % 2 == 0) ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+    const int t = r * gridDim.x + c;
+    if (t >= n_items) return false;
+    it.bh = t / n_q;
+    it.b = it.bh / heads;
+    it.h = it.bh - it.b * heads;
+    it.q0 = (n_q - 1 - (t - it.bh * n_q)) * 2 * kRows;
+    const int kv_end = kCausal ? min(m, it.q0 + 2 * kRows) : m;
+    it.n_tiles = (kv_end + kN - 1) / kN;     // the item's K/V tiles
+    return true;
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_empty, 8);        // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&sm.k_full[s], 1);
+      mbar_init(&sm.v_full[s], 1);
+      mbar_init(&sm.k_empty[s], 8);
+      mbar_init(&sm.v_empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      Item it;
+      // K/V tile g (counted over the CTA's items) into stage g % kS
+      auto load = [&](uint16_t (&dst)[kS][2][kN * kPanel], uint64_t* full,
+                      uint64_t* empty, const CUtensorMap* map, int g,
+                      int j) {
+        const int s = g % kS;
+        if (g >= kS) {
+          // the consumers have released the tile this stage held
+          mbar_wait(&empty[s], ((g / kS) + 1) & 1);
+        }
+        mbar_expect_tx(&full[s], kKvBytes);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+#pragma unroll
+          for (int r = 0; r < kN / kRows; ++r) {
+            tma_load(&dst[s][p][r * kRows * kPanel], map, &full[s],
+                     p * kPanel, it.h, j * kN + r * kRows, it.b);
+          }
+        }
+      };
+      int g = 0;
+      for (int r = 0; item(r, it); ++r) {
+        // K_0 first: the Q buffer frees only once the last item's last
+        // S is in
+        load(sm.k, sm.k_full, sm.k_empty, &k_map, g, 0);
+        if (r > 0) mbar_wait(&sm.q_empty, (r - 1) & 1);
+        mbar_expect_tx(&sm.q_full, 4 * kPanelBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            tma_load(sm.q[half][p], &q_map, &sm.q_full, p * kPanel, it.h,
+                     it.q0 + half * kRows, it.b);
+          }
+        }
+        // K_j, then V_{j-1}: the consumers release K_j once S_j is in,
+        // and V_j only once P_j V_j is, a turn later
+        for (int j = 1; j <= it.n_tiles; ++j) {
+          if (j < it.n_tiles) {
+            load(sm.k, sm.k_full, sm.k_empty, &k_map, g + j, j);
+          }
+          load(sm.v, sm.v_full, sm.v_empty, &v_map, g + j - 1, j - 1);
+        }
+        g += it.n_tiles;
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int col0 = 2 * (lane % 4);
+    const uint32_t q_addr = smem_u32(sm.q[wg][0]);
+
+    float o_acc[D / 2];
+    float m_run[2];
+    float l_run[2];
+    // S of the newest tile, then its P in fp32 (each S's first k-step
+    // overwrites it: zeroed once, so that it is never read undefined)
+    float sc[kN / 2];
+    uint32_t pa[kN / 4];   // P of the tile whose P V is next, T pairs
+#pragma unroll
+    for (int i = 0; i < kN / 2; ++i) sc[i] = 0.f;
+    int g = 0;             // the CTA's K/V tiles before this item
+    int qw = 0;            // this warpgroup's first q row in the item
+    int row0 = 0;          // this thread's rows: row0 and row0 + 8
+
+    // Turns at the tensor cores: warpgroup 0 issues its products, then
+    // warpgroup 1, then 0 again, so that one's softmax runs while the
+    // other's products do. A turn waits on the warpgroup's own barrier,
+    // which the other warpgroup's end of turn (bar.arrive) completes.
+    auto turn_begin = [&]() {
+      if constexpr (kPingPong) bar_sync(kBarTurn + wg, 256);
+    };
+    auto turn_end = [&]() {
+      if constexpr (kPingPong) bar_arrive(kBarTurn + 1 - wg, 256);
+    };
+    // the item's tile j: its K, or V, has landed. Waited for before
+    // wgmma_fence and the turn: a spin loop between the fence and the
+    // wgmmas makes ptxas serialize them.
+    auto wait_k = [&](int j) {
+      mbar_wait(&sm.k_full[(g + j) % kS], ((g + j) / kS) & 1);
+    };
+    auto wait_v = [&](int j) {
+      mbar_wait(&sm.v_full[(g + j) % kS], ((g + j) / kS) & 1);
+    };
+    // S_j = Q K_j^T over D in steps of 16 (issued, not committed)
+    auto issue_s = [&](int j) {
+      const uint32_t k_addr = smem_u32(sm.k[(g + j) % kS][0]);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t col = (kk % 4) * 32;
+        wgmma_ss<T, kN>(sc,
+                        smem_desc(q_addr + (kk / 4) * kPanelBytes + col, 16,
+                                  1024),
+                        smem_desc(k_addr + (kk / 4) * kKvPanelBytes + col, 16,
+                                  1024),
+                        kk > 0);
+      }
+    };
+    // O += P_j V_j over the tile's keys in steps of 16 (2 KB of V rows):
+    // P's registers for keys 16 kk .. 16 kk + 15 are pa[4 kk .. 4 kk + 3]
+    auto issue_pv = [&](int j) {
+      const uint32_t v_addr = smem_u32(sm.v[(g + j) % kS][0]);
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        const uint32_t a[4] = {pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                               pa[4 * kk + 3]};
+        wgmma_rs<T, D>(o_acc, a,
+                       smem_desc(v_addr + kk * 2048, kKvPanelBytes, 1024));
+      }
+    };
+    // the item's tile j: its K, or V, may be overwritten; the Q tile, once
+    // this warpgroup's last S of the item is in
+    auto release_k = [&](int j) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.k_empty[(g + j) % kS]);
+    };
+    auto release_v = [&](int j) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.v_empty[(g + j) % kS]);
+    };
+    auto release_q = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.q_empty);
+    };
+    // online softmax of tile j on sc, in place: sc[i] is row row0 + 8 *
+    // ((i / 2) % 2), key j * kN + 8 * (i / 4) + col0 + i % 2. The D = 64
+    // kernel's arithmetic with shorter dependency chains: masked keys are
+    // set apart on edge tiles only, each row's max and sum run in four
+    // partial chains, and the scale rides in the exponent's FFMA
+    // (m_run is in the log2 domain, the scores are raw).
+    auto softmax = [&](int j, float (&alpha)[2]) {
+      const int key0 = j * kN;
+      if (key0 + kN > m || (kCausal && key0 + kN > qw)) {
+#pragma unroll
+        for (int i = 0; i < kN / 2; ++i) {
+          const int row = row0 + 8 * ((i / 2) % 2);
+          const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
+          if (key >= m || (kCausal && key > row)) sc[i] = -INFINITY;
+        }
+      }
+      float mx[2][4];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) mx[c / 4][c % 4] = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        float& x = mx[(i / 2) % 2][(i / 4) % 4];
+        x = fmaxf(x, sc[i]);
+      }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+        // the 4 lanes of a row are adjacent
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float m_new = fmaxf(m_run[r], x * scale_log2);
+        // a row with no unmasked key yet keeps p = 0 and alpha = 0
+        // without evaluating -inf - -inf
+        base[r] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[r] = ex2(m_run[r] - base[r]);
+        m_run[r] = m_new;
+      }
+      float rs[2][4] = {};
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) {
+        // masked: 2^-inf = 0
+        sc[i] = ex2(fmaf(sc[i], scale_log2, -base[(i / 2) % 2]));
+        rs[(i / 2) % 2][(i / 4) % 4] += sc[i];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l_run[r] = l_run[r] * alpha[r] +
+                   ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+      }
+    };
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int i = 0; i < kN / 4; ++i) {
+        pa[i] = Elem<T>::pack(sc[2 * i], sc[2 * i + 1]);
+      }
+    };
+
+    // warpgroup 0 takes the first turn
+    if (kPingPong && wg == 1) bar_arrive(kBarTurn, 256);
+    Item it;
+    for (int r = 0; item(r, it); ++r) {
+      // this warpgroup's q rows qw .. qw + 63, and its tiles: the item's
+      // first n_w (none past n)
+      qw = it.q0 + wg * kRows;
+      row0 = qw + 16 * warp + lane / 4;
+      const int kv_end_w = kCausal ? min(m, qw + kRows) : m;
+      const int n_w = qw < n ? (kv_end_w + kN - 1) / kN : 0;
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        m_run[i] = -INFINITY;
+        l_run[i] = 0.f;
+      }
+      // Each warpgroup takes n_tiles + 1 turns an item. With tiles of its
+      // own (n_w > 0): S_0; then S_j with P_{j-1} V_{j-1} (tile j's
+      // softmax runs while that product is still on the tensor cores;
+      // only then is O rescaled for tile j); then the last P V. The tiles
+      // it has none of (the causal diagonal's last 64 keys, or all where
+      // its rows are past n) are turns without products, each after the
+      // tile has landed, so that every consumer warp releases every tile
+      // in order.
+      mbar_wait(&sm.q_full, r & 1);
+      int j_done = 0;
+      if (n_w > 0) {
+        float alpha[2];
+        wait_k(0);
+        turn_begin();
+        wgmma_fence();
+        issue_s(0);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        release_k(0);
+        if (n_w == 1) release_q();
+        softmax(0, alpha);
+        pack_p();
+        for (int j = 1; j < n_w; ++j) {
+          wait_k(j);
+          wait_v(j - 1);
+          turn_begin();
+          wgmma_fence();
+          issue_s(j);
+          wgmma_commit();
+          issue_pv(j - 1);
+          wgmma_commit();
+          turn_end();
+          wgmma_wait<1>();         // S_j is in; P_{j-1} V_{j-1} may still run
+          fence_regs(sc);
+          release_k(j);
+          if (j == n_w - 1) release_q();
+          softmax(j, alpha);
+          wgmma_wait<0>();
+          fence_regs(o_acc);
+          fence_regs(sc);          // pa is rewritten only after the wait
+          release_v(j - 1);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+          pack_p();
+        }
+        wait_v(n_w - 1);
+        turn_begin();
+        wgmma_fence();
+        issue_pv(n_w - 1);
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        release_v(n_w - 1);
+        j_done = n_w;
+      } else {
+        release_q();
+        turn_begin();
+        turn_end();
+      }
+      for (int j = j_done; j < it.n_tiles; ++j) {
+        wait_k(j);
+        wait_v(j);
+        turn_begin();
+        turn_end();
+        release_k(j);
+        release_v(j);
+      }
+
+      // epilogue through shared memory: the warpgroup's 64 x 128 O tile
+      // in the 128-byte swizzle (16-byte chunk c of row r at chunk
+      // c ^ (r % 8)), then one thread's TMA store (rows past n are not
+      // written), which runs on while the next item starts
+      const bool issuer = threadIdx.x % 128 == 0;
+      if (issuer) bulk_wait_read<0>();   // the last item's store has read it
+      bar_sync(kBarStore + wg, 128);
+      uint8_t* ob = reinterpret_cast<uint8_t*>(sm.o[wg][0]);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float l = l_run[rr];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = 16 * warp + lane / 4 + 8 * rr;
+        const float l_safe = fmaxf(l, 1e-30f);
+        const float inv = 1.f / l_safe;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          const uint32_t off = (jj / 8) * kPanelBytes + r * 128 +
+                               (((jj % 8) ^ (r % 8)) * 16) + col0 * 2;
+          *reinterpret_cast<uint32_t*>(ob + off) =
+              Elem<T>::pack(o_acc[4 * jj + 2 * rr] * inv,
+                            o_acc[4 * jj + 2 * rr + 1] * inv);
+        }
+        const int row = row0 + 8 * rr;
+        if (row < n && lane % 4 == 0) {
+          lse[static_cast<int64_t>(it.bh) * n + row] =
+              m_run[rr] * kLn2 + logf(l_safe);
+        }
+      }
+      fence_proxy_async();
+      bar_sync(kBarStore + wg, 128);
+      if (issuer) {
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          tma_store(&o_map, sm.o[wg][p], p * kPanel, it.h, qw, it.b);
+        }
+        bulk_commit();
+      }
+      g += it.n_tiles;
+    }
+    // the last bar_arrive of warpgroup 1 on warpgroup 0's barrier
+    if (kPingPong && wg == 0) bar_sync(kBarTurn, 256);
+    // the last store has run before the CTA's shared memory is freed
+    if (threadIdx.x % 128 == 0) bulk_wait_all();
+  }
+}
+
+// maps: q, k, v and the output O
+template <typename T, bool kCausal>
+cudaError_t launch_wgmma_d128(const CUtensorMap* maps, void* lse, int batch,
+                              int n, int m, int heads, float scale,
+                              cudaStream_t stream) {
+  auto* kernel =
+      flash_fwd_kernel_wgmma_d128<T, kCausal, kFwd128Keys, kFwd128Stages,
+                                  kFwd128PingPong>;
+  const int smem =
+      static_cast<int>(sizeof(FwdSmem128<kFwd128Keys, kFwd128Stages>)) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int items = batch * heads * ((n + 2 * kRows - 1) / (2 * kRows));
+  int ctas = items;
+  if (kFwd128Persistent) {
+    // one CTA an SM, each walking its share of the items
+    int device = 0, sms = 0;
+    err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    ctas = items < sms ? items : sms;
+  }
+  kernel<<<ctas, kFwd128Threads, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<float*>(lse), n, m,
+      heads, batch * heads, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 // the maps over q, k and v, then the instantiation for causal and D
 template <typename T>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  void* lse, int batch, int n, int m, int heads, int head_dim,
                  const int64_t* st, float scale, int causal,
                  cudaStream_t stream) {
-  CUtensorMap maps[3];
+  CUtensorMap maps[4];
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {n, m, m};
   for (int i = 0; i < 3; ++i) {
@@ -537,16 +1034,23 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     if (err != 0) return err;
   }
   cudaError_t launched;
+  if (head_dim == 128) {
+    // the D = 128 kernel stores O through TMA: the contiguous output
+    const int err = encode_map(&maps[3], Elem<T>::kMap, o, head_dim, heads, n,
+                               batch, static_cast<int64_t>(n) * heads * 128,
+                               heads * 128, 128);
+    if (err != 0) return err;
+  }
   if (head_dim == 64) {
     launched = causal ? launch_wgmma_kernel<T, 64, true>(
                             maps, o, lse, batch, n, m, heads, scale, stream)
                       : launch_wgmma_kernel<T, 64, false>(
                             maps, o, lse, batch, n, m, heads, scale, stream);
   } else {
-    launched = causal ? launch_wgmma_kernel<T, 128, true>(
-                            maps, o, lse, batch, n, m, heads, scale, stream)
-                      : launch_wgmma_kernel<T, 128, false>(
-                            maps, o, lse, batch, n, m, heads, scale, stream);
+    launched = causal ? launch_wgmma_d128<T, true>(maps, lse, batch, n, m,
+                                                   heads, scale, stream)
+                      : launch_wgmma_d128<T, false>(maps, lse, batch, n, m,
+                                                    heads, scale, stream);
   }
   return static_cast<int>(launched);
 }
@@ -561,6 +1065,37 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
 // (v: ...). Returns a cudaError_t; for bf16 and f16 also 100000 when the
 // CUDA driver has no cuTensorMapEncodeTiled, and 200000 + its CUresult when
 // an encode fails.
+// What the tensor-core kernel of (head_dim, dtype 1 or 2, causal) takes on
+// this card: out[0] CTAs an SM at its launch's shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[1] registers a
+// thread at launch, out[2] local (spilled) bytes a thread, out[3] dynamic
+// shared memory bytes, out[4] threads a CTA. Returns a cudaError_t.
+extern "C" int paddle_flash_attention_fwd_info(int head_dim, int dtype,
+                                               int causal, int* out) {
+  if ((head_dim != 64 && head_dim != 128) || dtype < 1 || dtype > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem64 = static_cast<int>(sizeof(FwdSmem<64>)) + 1024;
+  const int smem128 =
+      static_cast<int>(sizeof(FwdSmem128<kFwd128Keys, kFwd128Stages>)) + 1024;
+#define FWD_INFO(T, C)                                                        \
+  head_dim == 64                                                              \
+      ? kernel_info(flash_fwd_kernel_wgmma<T, 64, C>, kWgmmaThreads, smem64,  \
+                    out)                                                      \
+      : kernel_info(flash_fwd_kernel_wgmma_d128<T, C, kFwd128Keys,            \
+                                                kFwd128Stages,                \
+                                                kFwd128PingPong>,             \
+                    kFwd128Threads, smem128, out)
+  cudaError_t err;
+  if (dtype == 1) {
+    err = causal ? FWD_INFO(__nv_bfloat16, true) : FWD_INFO(__nv_bfloat16, false);
+  } else {
+    err = causal ? FWD_INFO(__half, true) : FWD_INFO(__half, false);
+  }
+#undef FWD_INFO
+  return static_cast<int>(err);
+}
+
 extern "C" int paddle_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int batch, int n, int m, int heads, int head_dim,

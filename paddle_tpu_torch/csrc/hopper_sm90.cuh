@@ -106,6 +106,37 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// TMA store: the box at (c0, c1, c2, c3) of `map` from shared memory at
+// `src` (elements past the tensor's bounds are not written), in this
+// thread's bulk group
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+// until every one of this thread's bulk groups is complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes become visible to the async proxy
+// (a TMA store that reads them)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // wgmma shared-memory matrix descriptor, 128-byte swizzle. Offsets in
 // bytes: `lbo` the stride between 64-column blocks along M/N (MN-major
 // operands only), `sbo` the stride between 8-row groups.
@@ -172,6 +203,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
       : D32_OUTS                                                               \
       : "l"(desc_a), "l"(desc_b), "r"(accumulate))
 
+#define SM90_WGMMA_SS_N128(AB)                                                 \
+  asm volatile(                                                                \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                             \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "             \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, " \
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, " \
+      "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"      \
+      : D64_OUTS                                                               \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+
 #define SM90_WGMMA_RS_N64(AB)                                                  \
   asm volatile(                                                                \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                             \
@@ -208,6 +251,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
   }
 }
 
+// d (+)= A B, 64 x N x 16 for N = 64 or 128: A and B (of type T) from
+// shared memory, both K-major
+template <typename T, int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (N == 64) {
+    wgmma_ss_n64<T>(d, desc_a, desc_b, accumulate);
+  } else {
+    static_assert(N == 128, "64 or 128 columns");
+    if constexpr (kIsHalf<T>) {
+      SM90_WGMMA_SS_N128("f16");
+    } else {
+      SM90_WGMMA_SS_N128("bf16");
+    }
+  }
+}
+
 // d += A B, 64 x N x 16: A (4 registers of T pairs) from registers, B
 // from shared memory, MN-major (transposed)
 template <typename T, int N>
@@ -231,10 +291,33 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 #undef SM90_WGMMA_SS_N64
+#undef SM90_WGMMA_SS_N128
 #undef SM90_WGMMA_RS_N64
 #undef SM90_WGMMA_RS_N128
 #undef D32_OUTS
 #undef D64_OUTS
+
+// Warp specialization (the D = 128 flash kernels): a warpgroup's share of
+// the SM's registers, moved between warpgroups at run time. Every thread of
+// the warpgroup executes it, on a path that never rejoins the other roles'.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Named barriers (id 0 is __syncthreads'): bar_sync waits until `threads`
+// threads have reached barrier `id` by bar_sync or bar_arrive; bar_arrive
+// counts this thread and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
 
 // 2^x in one MUFU.EX2 (exp2f adds range and denormal fix-ups); 2^-inf = 0
 __device__ __forceinline__ float ex2(float x) {
@@ -243,6 +326,29 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+
+// What `kernel` takes on this card when launched with `threads` threads
+// and `smem` bytes of dynamic shared memory: out[0] CTAs an SM, out[1]
+// registers a thread (at launch: before any setmaxnreg), out[2] local bytes
+// a thread (spills), out[3] smem, out[4] threads
+template <typename Kernel>
+cudaError_t kernel_info(Kernel* kernel, int threads, int smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  out[0] = blocks;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = smem;
+  out[4] = threads;
+  return err;
+}
 
 // cuTensorMapEncodeTiled, reached through the runtime so that the library
 // needs no link against libcuda

@@ -182,6 +182,76 @@ def test_bf16_tolerance_bites_on_p_rounding(n, d, causal):
     assert fro > 1 and (excess > 1 or not causal), (excess, fro)
 
 
+def _online_forward(q, k, v, causal, scale, round_p, width):
+    """The tensor-core kernel's online form in plain torch, key tile by key
+    tile of `width` (64: the D = 64 kernel's and the 64-key variant's; 128:
+    the D = 128 kernel's): fp32 S from bf16 q, k; P = exp(S - the running
+    max) rounded by `round_p` before O += P V, l summed from the fp32 P,
+    O and l rescaled in fp32 when the max moves; O / l rounded to bf16
+    once, lse = max + log l (fp32)."""
+    qt, kt, vt = (t.transpose(1, 2).float() for t in (q, k, v))
+    b, h, n, d = qt.shape
+    m = kt.shape[2]
+    rows = torch.arange(n).reshape(n, 1)
+    m_run = torch.full((b, h, n, 1), float("-inf"))
+    l_run = torch.zeros((b, h, n, 1))
+    o = torch.zeros((b, h, n, d))
+    for k0 in range(0, m, width):
+        s = (qt @ kt[:, :, k0:k0 + width].transpose(-1, -2)) * scale
+        if causal:
+            keys = torch.arange(k0, min(k0 + width, m)).reshape(1, -1)
+            s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        # a row with no unmasked key yet keeps p = 0 and alpha = 0
+        base = torch.where(torch.isinf(m_new), torch.zeros_like(m_new),
+                           m_new)
+        alpha = torch.exp(m_run - base)
+        p = torch.exp(s - base)                   # masked: exactly 0
+        l_run = l_run * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + round_p(p) @ vt[:, :, k0:k0 + width]
+        m_run = m_new
+    out = (o / l_run).transpose(1, 2).to(torch.bfloat16)
+    return out, (m_run + torch.log(l_run)).reshape(b * h, n)
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("n", [200, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_online_key_tiles_keep_the_bf16_margin_at_d128(width, n, causal):
+    """At head_dim 128 the forward rounds P against the running max of
+    each key tile, 64 or 128 keys wide, and rescales O in fp32 as the max
+    moves: both widths pass the unchanged bf16 criteria with margin
+    against the JAX package's fp32 attention, on lengths that cut a
+    128-row tile (200) and that fill it (384); P rounded to 3 mantissa
+    bits in the same online form still fails them."""
+    b, h, d = 1, 2, 128
+    rng = np.random.default_rng(300 + n + width)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                .astype(np.float32)).to(torch.bfloat16)
+               for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv = (jnp.asarray(t.float().numpy()) for t in (q, k, v))
+    if n % 128 == 0:
+        ref, ref_lse = jfa._flash_fwd(jq, jk, jv, causal, scale,
+                                      block_q=128, block_k=128,
+                                      interpret=True)
+        ref_lse = torch.from_numpy(np.array(ref_lse, dtype=np.float32))
+    else:
+        ref = _plain_attention(jq, jk, jv, None, causal, scale)
+        ref_lse = None
+    ref = torch.from_numpy(np.array(ref, dtype=np.float32))
+    good, lse = _online_forward(q, k, v, causal, scale, _round_bf16, width)
+    coarse, _ = _online_forward(q, k, v, causal, scale, _round_e4m3_like,
+                                width)
+    excess, fro = _bf16_criteria(good, ref, v)
+    assert excess <= 0.5 and fro <= 0.75, (excess, fro)
+    if ref_lse is not None:
+        np.testing.assert_allclose(lse.numpy(), ref_lse.numpy()[..., 0],
+                                   **TOL)
+    excess, fro = _bf16_criteria(coarse, ref, v)
+    assert fro > 1 and (excess > 1 or not causal), (excess, fro)
+
+
 def _bf16_buffer(*shape):
     return torch.zeros(shape, dtype=torch.bfloat16)
 

@@ -216,6 +216,107 @@ def test_bf16_backward_criteria_bite_on_operand_rounding(n, d, causal):
         assert excess > 1 and fro > 1, (name, excess, fro)
 
 
+def _online_lse(q, k, causal, scale, width):
+    """The forward kernel's lse in its online form: the running max and the
+    fp32 sum rescaled key tile by key tile of `width`."""
+    qt, kt = (t.transpose(1, 2).float() for t in (q, k))
+    b, h, n, _ = qt.shape
+    m = kt.shape[2]
+    rows = torch.arange(n).reshape(n, 1)
+    m_run = torch.full((b, h, n, 1), float("-inf"))
+    l_run = torch.zeros((b, h, n, 1))
+    for k0 in range(0, m, width):
+        s = (qt @ kt[:, :, k0:k0 + width].transpose(-1, -2)) * scale
+        if causal:
+            keys = torch.arange(k0, min(k0 + width, m)).reshape(1, -1)
+            s = s.masked_fill(keys > rows, float("-inf"))
+        m_new = torch.maximum(m_run, s.amax(-1, keepdim=True))
+        l_run = (l_run * torch.exp(m_run - m_new)
+                 + torch.exp(s - m_new).sum(-1, keepdim=True))
+        m_run = m_new
+    return (m_run + torch.log(l_run)).reshape(b * h, n)
+
+
+def _tiled_dkv(q, k, v, do, lse, delta, causal, scale, round_op, width):
+    """The dK/dV kernel's arithmetic in its tiled form: per key block of
+    `width` (64: the D = 64 kernel's; 128: the D = 128 kernel's two
+    warpgroups), streamed 64-query tiles; P = exp(scale S - lse) and dS =
+    P (dP - Delta) in fp32, rounded by `round_op` before dV += P^T dO and
+    dK += dS^T Q, which add in fp32 tile by tile; one bf16 rounding of
+    each output."""
+    qt, kt, vt, gt = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    b, h, n, d = qt.shape
+    m = kt.shape[2]
+    lse = lse.reshape(b, h, n, 1)
+    delta = delta.reshape(b, h, n, 1)
+    dk = torch.zeros((b, h, m, d))
+    dv = torch.zeros((b, h, m, d))
+    for k0 in range(0, m, width):
+        keys = torch.arange(k0, min(k0 + width, m)).reshape(1, -1)
+        kb, vb = kt[:, :, k0:k0 + width], vt[:, :, k0:k0 + width]
+        for t0 in range(0, n, 64):
+            rows = torch.arange(t0, min(t0 + 64, n)).reshape(-1, 1)
+            qq, gg = qt[:, :, t0:t0 + 64], gt[:, :, t0:t0 + 64]
+            p = torch.exp((qq @ kb.transpose(-1, -2)) * scale
+                          - lse[:, :, t0:t0 + 64])
+            if causal:
+                p = p.masked_fill(keys > rows, 0.0)
+            ds = p * (gg @ vb.transpose(-1, -2) - delta[:, :, t0:t0 + 64])
+            dv[:, :, k0:k0 + width] += round_op(p).transpose(-1, -2) @ gg
+            dk[:, :, k0:k0 + width] += (round_op(ds).transpose(-1, -2)
+                                        @ qq)
+    return [(g * f).transpose(1, 2).to(torch.bfloat16)
+            for g, f in ((dk, scale), (dv, 1.0))]
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("n", [200, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_dkv_keeps_the_bf16_margin_at_d128(width, n, causal):
+    """At head_dim 128, dK and dV from key blocks of 64 or 128 keys (the
+    D = 128 kernel's two warpgroups share each 64-query tile), fed the
+    forward's online lse (key tiles of the same width) and a Delta from
+    its bf16 output: both widths pass the unchanged bf16 backward criteria
+    with margin against the JAX package's fp32 backward, on lengths that
+    cut a 128-key block (200) and that fill it (384); P and dS rounded to
+    3 mantissa bits in the same form still fail them."""
+    b, h, d = 1, 2, 128
+    rng = np.random.default_rng(400 + n + width)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    if n % 128 == 0:
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, causal, scale, block_q=128,
+                                      block_k=128, interpret=True)
+        ref = jfa._flash_bwd(jq, jk, jv, j_out, j_lse, jg, causal, scale,
+                             block_q=128, block_k=128, interpret=True)
+    else:
+        _, vjp = jax.vjp(
+            lambda qq, kk, vv: _plain_attention(qq, kk, vv, None, causal,
+                                                scale), jq, jk, jv)
+        ref = vjp(jg)
+    ref = [torch.from_numpy(np.array(r, dtype=np.float32)) for r in ref[1:]]
+    lse = _online_lse(q, k, causal, scale, width)
+    out, _ = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    delta = tfa.flash_attention_delta(out.to(torch.bfloat16), do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    tols = tfa.flash_bwd_bf16_tol(*args)
+    good = _tiled_dkv(*args, _round_bf16, width)
+    coarse = _tiled_dkv(*args, _round_e4m3_like, width)
+    for name, g, c, r in zip(("dk", "dv"), good, coarse, ref):
+        atol, rtol = tols[name]
+        limit = atol + rtol * r.abs()
+        excess = ((g.float() - r).abs() / limit).max().item()
+        fro = tfa.rel_fro(g, r) / tfa.FLASH_BWD_BF16_FRO_RTOL
+        assert excess <= 0.5 and fro <= 0.75, (name, excess, fro)
+        excess = ((c.float() - r).abs() / limit).max().item()
+        fro = tfa.rel_fro(c, r) / tfa.FLASH_BWD_BF16_FRO_RTOL
+        assert excess > 1 and fro > 1, (name, excess, fro)
+
+
 def test_bwd_tma_rule_takes_strided_do_and_fused_views_names_do():
     """The bf16 backward kernels read q, k, v and dO through TMA: the fused
     qkv views of GPT-2's projection ([B, N, 3, 12, 64]) and a gradient laid

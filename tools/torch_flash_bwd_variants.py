@@ -3,11 +3,33 @@
 card.
 
     python3 tools/torch_flash_bwd_variants.py [--dtype float16]
+    python3 tools/torch_flash_bwd_variants.py --d128 [--parent DIR]
+                                              [--extra NAME=FILE ...]
 
 Builds variants of ``paddle_tpu_torch/csrc/flash_attention_bwd.cu`` side by
 side with nvcc under ``build/flash_bwd_variants/`` and prints what ptxas
 says of their wgmma kernels (registers, spills, serialized wgmma) and, for
-the f16 kernels, their SASS instructions by mnemonic:
+the f16 kernels, their SASS instructions by mnemonic. Every run also builds
+the parent commit's source (``parent``: `torch_flash_fwd_variants.py`'s
+``--parent`` directory, filled from git where missing, with an info entry
+appended) and ends with dQ and dK/dV at config 3's shape (4, 2048, 16, 128)
+and at (8, 1024, 6, 128), causal, timed in turns with SDPA's backward.
+
+``--d128`` builds parent, source and the D = 128 dK/dV kernel's variants
+(``stages3``: a 3-stage Q/dO ring; ``no_pingpong``: the two consumer
+warpgroups without turns at the tensor cores; ``grid``: one CTA a work
+item instead of one CTA an SM; ``prefetch_lse``: the tile's lse values
+loaded into registers before the turn; ``probe_noload`` and ``probe_noelem``,
+timed only: no Q/dO copies, or no elementwise work between the
+products; with ``--extra NAME=FILE``, repeatable, another version of the
+source), prints each library's info
+entry (CTAs an SM, registers, local bytes), checks each in a child process
+under a time limit at D = 128 over the 128-key tiles' edges (bf16 and f16,
+the f16 dS guard's large-dO cases, two launches bit for bit equal), and
+times the survivors in turns at config 3's shape and at each D = 64
+main-path shape (`TIMED_D128`), whose D = 64 kernels the variants share.
+
+The variants of the default run:
 
   source     the file as it is: both kernels under
              ``__launch_bounds__(160, 1)`` take their tiles in sequence and
@@ -55,6 +77,7 @@ root as the working directory.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import re
 import subprocess
@@ -63,10 +86,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+import torch_flash_fwd_variants as fv  # noqa: E402
 from paddle_tpu_torch.kernels import _build  # noqa: E402
 from paddle_tpu_torch.kernels import flash_attention as fa  # noqa: E402
 
@@ -376,6 +401,114 @@ _DV_EARLY = """  mbar_wait(&sm.kv_full, 0);
 """
 
 
+# an info entry for the parent's kernels: the interface of the source's
+# `paddle_flash_attention_bwd_info`
+_PARENT_BWD_INFO = fv._INFO_HELPER + """
+template <typename T, int D, bool C>
+static int parent_bwd_info(int dkv, int* out) {
+  if (dkv) {
+    return static_cast<int>(variant_kernel_info(
+        flash_bwd_dkv_kernel_wgmma<T, D, C>, kWgmmaThreads,
+        static_cast<int>(sizeof(DkvSmem<D>)) + 1024, out));
+  }
+  return static_cast<int>(variant_kernel_info(
+      flash_bwd_dq_kernel_wgmma<T, D, C>, kWgmmaThreads,
+      static_cast<int>(sizeof(DqSmem<D>)) + 1024, out));
+}
+
+extern "C" int paddle_flash_attention_bwd_info(int dkv, int head_dim,
+                                               int dtype, int causal,
+                                               int* out) {
+  if (dtype == 1) {
+    if (head_dim == 64) {
+      return causal ? parent_bwd_info<__nv_bfloat16, 64, true>(dkv, out)
+                    : parent_bwd_info<__nv_bfloat16, 64, false>(dkv, out);
+    }
+    return causal ? parent_bwd_info<__nv_bfloat16, 128, true>(dkv, out)
+                  : parent_bwd_info<__nv_bfloat16, 128, false>(dkv, out);
+  }
+  if (head_dim == 64) {
+    return causal ? parent_bwd_info<__half, 64, true>(dkv, out)
+                  : parent_bwd_info<__half, 64, false>(dkv, out);
+  }
+  return causal ? parent_bwd_info<__half, 128, true>(dkv, out)
+                : parent_bwd_info<__half, 128, false>(dkv, out);
+}
+"""
+
+
+def _parent(parent):
+    """The parent commit's source with its info entry."""
+    return (parent / "flash_attention_bwd.cu").read_text() + _PARENT_BWD_INFO
+
+
+# timing-only probes of the D = 128 dK/dV kernel (their outputs are wrong
+# by design): the producer arrives on each Q/dO full barrier without a
+# copy (`probe_noload`), or the consumers pack S^T and dP^T as they come,
+# with no exponentials, masks or dS (`probe_noelem`)
+_PROBES_D128 = {"noload": [(
+    """            mbar_expect_tx(&sm.qg_full[s], 2 * kTileBytes);
+#pragma unroll
+            for (int p = 0; p < 2; ++p) {
+              tma_load(sm.q[s][p], &q_map, &sm.qg_full[s], p * kPanel, it.h,
+                       t0, it.b);
+              tma_load(sm.g[s][p], &g_map, &sm.qg_full[s], p * kPanel, it.h,
+                       t0, it.b);
+            }""", "            mbar_arrive(&sm.qg_full[s]);")]}
+# the D = 128 dK/dV kernel with the tile's 16 lse values this thread reads
+# loaded into registers before its turn (`prefetch_lse`)
+_PREFETCH_LSE = [(
+    """        const bool edge = t0 + kRows > n || kw + kRows > m ||
+                          (kCausal && t0 < kw + kRows);
+""", """        const bool edge = t0 + kRows > n || kw + kRows > m ||
+                          (kCausal && t0 < kw + kRows);
+        float lse_t[16];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const float2 v =
+              *reinterpret_cast<const float2*>(&sm.lse2[s][8 * c + col0]);
+          lse_t[2 * c] = v.x;
+          lse_t[2 * c + 1] = v.y;
+        }
+"""), ("""          const int col = 8 * (i / 4) + col0 + (i % 2);
+          sc[i] = ex2(fmaf(sc[i], scale_log2, -sm.lse2[s][col]));""",
+       """          sc[i] = ex2(fmaf(sc[i], scale_log2, -lse_t[2 * (i / 4) + i % 2]));""")]
+_ELEMENTWISE_D128 = re.compile(
+    r"(        fence_regs\(sc\);\n)        if \(edge\) \{.*?"
+    r"(        wgmma_wait<0>\(\);\n        fence_regs\(dp\);\n"
+    r"        if \(j == it\.n_tiles - 1\) release_kv\(\);\n)"
+    r"        if constexpr \(kIsHalf<T>\) \{.*?\n        \}\n"
+    r"        pack<T>\(pa, sc\);", re.S)
+
+
+def d128_variants(parent, extra=()):
+    """name -> source text of the --d128 run; `extra`: (name, path) pairs
+    of other versions of the source to build beside them."""
+    src = (CSRC / "flash_attention_bwd.cu").read_text()
+    out = {"parent": _parent(parent), "source": src,
+           "stages3": fv._sub_const(src, "kDkv128Stages", "3"),
+           "no_pingpong": fv._sub_const(src, "kDkv128PingPong", "false"),
+           "grid": fv._sub_const(src, "kDkv128Persistent", "false")}
+    at = src.index("flash_bwd_dkv_kernel_wgmma_d128(const")
+    body = src[at:]
+    for old, new in _PROBES_D128["noload"]:
+        assert body.count(old) == 1, old
+        body = body.replace(old, new)
+    out["probe_noload"] = src[:at] + body
+    body = src[at:]
+    for old, new in _PREFETCH_LSE:
+        assert body.count(old) == 1, old
+        body = body.replace(old, new)
+    out["prefetch_lse"] = src[:at] + body
+    body, count = _ELEMENTWISE_D128.subn(r"\1\2        pack<T>(pa, sc);",
+                                         src[at:])
+    assert count == 1, count
+    out["probe_noelem"] = src[:at] + body
+    for name, path in extra:
+        out[name] = Path(path).read_text()
+    return out
+
+
 def _bounds(src, dq, dkv):
     def sub(match):
         blocks = dq if match.group(2) == "dq" else dkv
@@ -409,13 +542,13 @@ def _design(src, name):
     return src
 
 
-def variants(half):
+def variants(half, parent):
     """name -> source text: in f16 (`half`) source, the other designs of
     the guard, source_free and no_fit; in bf16 source, the loop variants
-    and no_fit."""
+    and no_fit; in both the parent's."""
     src = (CSRC / "flash_attention_bwd.cu").read_text()
     pr20 = _design(src, "fit_pr20")
-    out = {"source": src}
+    out = {"source": src, "parent": _parent(parent)}
     if half:
         # the earlier designs under the bounds they were measured with
         out["fit_pr20"] = _bounds(_design(src, "fit_pr20"), "1", "1")
@@ -460,43 +593,14 @@ def _sass(name, lib):
               flush=True)
 
 
-def build(sources):
-    """Compile every variant at once; returns name -> loaded library."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, text in sources.items():
-        src = OUT / f"{name}.cu"
-        src.write_text(text)
-        cmd = [_build._nvcc(), *_build._FLAGS, "-Xptxas=-v", f"-I{CSRC}",
-               "-o", str(OUT / f"lib{name}.so"), str(src)]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            if name == "source":
-                raise RuntimeError(f"{name}: nvcc failed\n{log}")
-            print(f"build {name}: nvcc failed, left out\n{log[-2000:]}")
-            continue
-        kernel = None
-        for line in log.splitlines():
-            found = re.search(r"flash_bwd_(dq|dkv)_kernel_wgmmaI\w*?"
-                              r"(6__half|13__nv_bfloat16)Li(\d+)ELb(\d)", line)
-            if found:
-                what = (f"{found.group(1)} {found.group(2).lstrip('0123456789')}"
-                        f" D={found.group(3)} causal={found.group(4)}")
-            if found and "Compiling entry" in line:
-                kernel = what
-            elif found and "serialized" in line:
-                print(f"ptxas {name}: {what}: wgmma serialized "
-                      "(insufficient registers)")
-            elif kernel and ("registers" in line or "spill" in line):
-                print(f"ptxas {name}: {kernel}: {line.split(':', 1)[-1].strip()}")
-                if "registers" in line:
-                    kernel = None
-        libs[name] = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-    return libs
+def build(sources, parent):
+    """Compile every variant at once (name -> text; ``parent`` against the
+    parent's own header in directory `parent`); returns name -> loaded
+    library."""
+    paths = fv.build({name: (text, parent if name == "parent" else CSRC)
+                      for name, text in sources.items()}, OUT,
+                     r"(_Z\w*flash_bwd_\w*_kernel_wgmma\w*)")
+    return {name: ctypes.CDLL(str(path)) for name, path in paths.items()}
 
 
 def _outputs(args):
@@ -558,30 +662,144 @@ def _drop_case(libs, train):
 
 def _sdpa_bwd(args):
     """A function that runs SDPA's backward (dQ, dK and dV in one call) on
-    the case's q, k, v and dO."""
+    the case's q, k, v and dO (causal as the case's)."""
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in args[:3])
-    out = torch.nn.functional.scaled_dot_product_attention(qt, kt, vt,
-                                                           is_causal=True)
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=args[6])
     do = args[3].transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), do,
                                        retain_graph=True)
 
 
+# the --d128 run's in-turns timings: (shape, causal, dtype). Config 3's
+# shape, then every main-path shape of the D = 64 kernels (GPT-2
+# training, ViT-L/16, f16 training), whose code the variants share
+TIMED_D128 = ((fv.GPT3, True, torch.bfloat16),
+              (fv.GPT2, True, torch.bfloat16),
+              ((32, 197, 16, 64), False, torch.bfloat16),
+              (fv.GPT2, True, torch.float16),
+              (fv.GPT3, True, torch.float16))
+
+
+def time_turns(libs, timed, iters=50):
+    """dQ and dK/dV of every library at each case of `timed` ((shape,
+    causal, dtype)), in turns (each, then in reverse), SDPA's backward (dQ,
+    dK and dV in one call) beside each."""
+    for shape, causal, dtype in timed:
+        b, n, h, d = shape
+        qkv = cs._fused_qkv(n, dtype, seed=n + d, heads=h, head_dim=d,
+                            batch=b)
+        args = cs._flash_bwd_inputs(*qkv, causal, seed=n + d + 1)
+        sdpa = _sdpa_bwd(args)
+        pairs = b * h * (n * (n + 1) // 2 if causal else n * n)
+        bounds = [cs._flash_bwd_bound(b, n, h, d, 2, causal, dkv)[0]
+                  for dkv in (False, True)]
+        for name in list(libs) + list(libs)[::-1]:
+            _build._LIBS["flash_attention_bwd"] = libs[name]
+            dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args),
+                           iters=iters)[0]
+            dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args),
+                            iters=iters)[0]
+            lib = cs._timed(sdpa, iters=iters)[0]
+            print(f"time {name} {shape} {str(dtype)[6:]} causal={causal}: "
+                  f"dq {dq:.5f} ms "
+                  f"({6 * d * pairs / (dq * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{bounds[0] / dq:.3f} of its bound), dkv {dkv:.5f} ms "
+                  f"({8 * d * pairs / (dkv * 1e-3) / 1e12:.1f} TFLOP/s, "
+                  f"{bounds[1] / dkv:.3f} of its bound), pair "
+                  f"{dq + dkv:.5f} ms; SDPA's backward {lib:.5f} ms: "
+                  f"{(dq + dkv) / lib:.3f}x", flush=True)
+        del sdpa, args
+
+
+def check_d128(name):
+    """dQ and dK/dV of library `name` against their fp32 twins at D = 128
+    over the 128-key tiles' edges (chip_smoke.py's criteria), f16 too with
+    the dS guard's large-dO cases, and twice bit for bit at config 3's
+    shape."""
+    _build._LIBS["flash_attention_bwd"] = ctypes.CDLL(
+        str(OUT / f"lib{name}.so"))
+    bf16, d = torch.bfloat16, 128
+    for n in (65, 129, 200, 2047):
+        for causal in (True, False):
+            cs._check_flash_bwd_case(
+                f"{name} n={n} causal={causal} D=128",
+                *cs._fused_qkv(n, bf16, seed=500 + n, heads=4, head_dim=d),
+                causal, seed=n)
+    q = cs._fused_qkv(40, bf16, seed=51, heads=4, head_dim=d)[0]
+    _, k, v = cs._fused_qkv(300, bf16, seed=52, heads=4, head_dim=d)
+    cs._check_flash_bwd_case(f"{name} n=40 m=300 causal=False D=128", q, k,
+                             v, False, seed=53)
+    cs._check_flash_bwd_case(f"{name} (3, 200, 4, 128) causal=True",
+                             *cs._fused_qkv(200, bf16, seed=54, heads=4,
+                                            head_dim=d, batch=3), True,
+                             seed=55)
+    for causal in (True, False):
+        cs._check_flash_bwd_case(f"{name} (8, 1000, 16, 128) causal={causal}",
+                                 *cs._fused_qkv(1000, bf16, seed=58,
+                                                heads=16, head_dim=d,
+                                                batch=8), causal, seed=59)
+    for causal in (True, False):
+        cs._check_flash_bwd_case(
+            f"{name} float16 n=200 causal={causal} D=128",
+            *cs._fused_qkv(200, torch.float16, seed=56, heads=4, head_dim=d),
+            causal, seed=57)
+    cs._check_f16_large_do(head_dim=d)
+    b, n, h, d = fv.GPT3
+    args = cs._flash_bwd_inputs(
+        *cs._fused_qkv(n, bf16, seed=2048, heads=h, head_dim=d, batch=b),
+        True, seed=2049)
+    cs._check_flash_bwd_case(f"{name} {fv.GPT3} causal",
+                             *args[:3], True, seed=2049)
+    cs._twice_equal(f"{name} {fv.GPT3} dkv",
+                     lambda: fa.flash_attention_bwd_dkv(*args))
+    cs._twice_equal(f"{name} {fv.GPT3} dq",
+                     lambda: [fa.flash_attention_bwd_dq(*args)])
+
+
+def main_d128(parent, extra):
+    libs = build(d128_variants(parent, extra), parent)
+    for name, lib in libs.items():
+        fv.print_info(name, lib, "paddle_flash_attention_bwd_info",
+                      [(dkv, dd, 1, 1) for dkv in (0, 1) for dd in (64, 128)]
+                      + [(1, 128, 2, 1), (1, 128, 1, 0)])
+    passed = fv.run_checks([k for k in libs if not k.startswith("probe_")],
+                           script=__file__)
+    time_turns({k: libs[k] for k in libs
+                if k in passed or k.startswith("probe_")}, TIMED_D128)
+
+
 def main():
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--dtype", default="bfloat16",
+                        choices=("bfloat16", "float16"))
+    parser.add_argument("--d128", action="store_true")
+    parser.add_argument("--parent", default=str(fv.PARENT))
+    parser.add_argument("--parent-rev", default="HEAD~1")
+    parser.add_argument("--check")
+    parser.add_argument("--extra", action="append", default=[])
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
+    if opts.check:
+        check_d128(opts.check)
+        return
     print(f"card: {cs._card()}; torch {torch.__version__}, cuda "
           f"{torch.version.cuda}", flush=True)
-    half = sys.argv[1:] == ["--dtype", "float16"]
-    libs = build(variants(half))
+    parent = fv.parent_dir(opts.parent, opts.parent_rev)
+    if opts.d128:
+        main_d128(parent, [item.split("=", 1) for item in opts.extra])
+        _build._LIBS.pop("flash_attention_bwd")
+        return
+    half = opts.dtype == "float16"
+    libs = build(variants(half, parent), parent)
     if half:
         for name in libs:
             _sass(name, OUT / f"lib{name}.so")
     dtype = torch.float16 if half else torch.bfloat16
     name16 = str(dtype)[6:]
     train = cs._fused_qkv(1024, dtype, seed=11, batch=8)
-    wide = cs._fused_qkv(1024, dtype, seed=5, heads=6, head_dim=128, batch=8)
     for name, lib in libs.items():
         _build._LIBS["flash_attention_bwd"] = lib
         cs._check_flash_bwd_case(f"{name} n=65 causal",
@@ -610,13 +828,8 @@ def main():
     del sdpa
     if half:
         _drop_case(libs, train)
-    args = cs._flash_bwd_inputs(*wide, True, seed=6)
-    for name in libs:
-        _build._LIBS["flash_attention_bwd"] = libs[name]
-        dq = cs._timed(lambda: fa.flash_attention_bwd_dq(*args))[0]
-        dkv = cs._timed(lambda: fa.flash_attention_bwd_dkv(*args))[0]
-        print(f"time {name} (8, 1024, 6, 128) {name16} causal: dq "
-              f"{dq:.5f} ms, dkv {dkv:.5f} ms", flush=True)
+    time_turns(libs, ((fv.GPT3, True, dtype),
+                      ((8, 1024, 6, 128), True, dtype)))
     _build._LIBS.pop("flash_attention_bwd")
 
 
