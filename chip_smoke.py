@@ -4466,11 +4466,9 @@ def serve_tenancy():
             for i in range(8)]
         for _ in range(5):
             engine.step()
-        totals = {}
-        _breakdown(f"{tag} decode replay ({name})",
-                   lambda e=engine: [e.step() for _ in range(4)], per=4,
-                   totals=totals)
-        replay[name] = totals
+        replay[name] = _whole_trace(
+            f"{tag} decode replay ({name})",
+            lambda e=engine: [e.step() for _ in range(4)], per=4)
         engine.run()
         assert all(r.state == "FINISHED" for r in rr)
     if replay["no tenancy"].get("device_ms"):
@@ -4481,7 +4479,8 @@ def serve_tenancy():
                        for k in ("adapters armed", "no tenancy"))
         assert round(armed) == round(none) + 2 * layers, replay
     print(f"{tag}: replayed greedy decode step, 8 slots: "
-          + json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()}
+          + json.dumps({k: {kk: round(v[kk], 4) for kk in
+                            ("kernels", "copies", "device_ms")}
                         for k, v in replay.items()}))
     lap("copy and replay")
 
@@ -5262,23 +5261,32 @@ STEP_GROUPS = (("flash_attention_fwd", ("flash_fwd_kernel",)),
                ("scan", ("scan",)))
 
 
+PROFILE_MARGIN_S = 0.05
+
+
 def _breakdown(tag, fn, per=1, top=8, totals=None, groups=None):
     """fn() under torch.profiler: device time by kernel group (`groups`,
     STEP_GROUPS by default) and the device's busy share of the wall time,
     per one of the `per` steps fn runs, and the kernels (and copies) it
     launched per step. Returns the groups' ms per step (None where the
     profiler saw no device time); a `totals` dict gets the step's kernels
-    and device ms."""
+    and device ms and each group's launches in the whole window
+    (`launches`)."""
     groups_of = STEP_GROUPS if groups is None else groups
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        # the profiler keeps only the device events whose times, on the
+        # host's clock, fall inside its window: idle margins keep the
+        # first and last kernels inside should the two clocks drift apart
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / per
-    groups, kernels = {}, []
+        time.sleep(PROFILE_MARGIN_S)
+    groups, kernels, launches = {}, [], {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -5287,13 +5295,14 @@ def _breakdown(tag, fn, per=1, top=8, totals=None, groups=None):
         group = next((g for g, pats in groups_of
                       if any(pat in evt.key for pat in pats)), "other")
         groups[group] = groups.get(group, 0.0) + ms
+        launches[group] = launches.get(group, 0) + evt.count
     device_ms = sum(groups.values())
     n_copies = sum(count for _, count, name in kernels
                    if name.startswith(("Memcpy", "Memset")))
     n_kernels = sum(count for _, count, _ in kernels) - n_copies
     if totals is not None:
         totals.update(kernels=n_kernels, copies=n_copies,
-                      device_ms=device_ms)
+                      device_ms=device_ms, launches=launches)
     if device_ms == 0:
         print(f"{tag}: the profiler saw no device time; breakdown not "
               "measured")
@@ -5306,6 +5315,30 @@ def _breakdown(tag, fn, per=1, top=8, totals=None, groups=None):
     for ms, count, name in sorted(kernels, reverse=True)[:top]:
         print(f"  {ms:9.3f} ms  {count:7.1f} x  {name[:100]}")
     return groups
+
+
+def _whole_trace(tag, fn, per, tries=3):
+    """`_breakdown(tag, fn, per)`'s totals from a trace that saw every
+    launch the wrappers counted in its window: each group of STEP_GROUPS
+    that names a counter as often as that counter moved. The profiler
+    can drop a run of events (a decode replay once showed 2.5 of its 4
+    steps), so a trace that misses any is taken again, each time on
+    `fn`'s next `per` steps, at most `tries` times; the last one's
+    shortfall raises."""
+    for attempt in range(1, tries + 1):
+        before = launch_counts()
+        totals = {}
+        _breakdown(tag, fn, per=per, totals=totals)
+        counted = {name: n - before[name]
+                   for name, n in launch_counts().items()
+                   if n != before[name] and name in dict(STEP_GROUPS)}
+        seen = {name: totals.get("launches", {}).get(name, 0)
+                for name in counted}
+        if not totals.get("device_ms") or seen == counted:
+            return totals
+        print(f"{tag}: trace {attempt} missed events: the profiler saw "
+              f"{json.dumps(seen)} of the wrappers' {json.dumps(counted)}")
+    raise AssertionError(f"{tag}: {tries} traces each missed events")
 
 
 def _loss_and_wte_grad(model, crit, ids, labels, fused):
