@@ -595,6 +595,26 @@ def _sass_counts(name, ops):
     assert all(counts.values()), counts
 
 
+def _flash_d128_info():
+    """What the D = 128 flash backward kernels take on this card, by the
+    source's info entry (`paddle_flash_attention_bwd_info`): CTAs an SM at
+    the launch's shared memory, registers a thread at launch (before
+    setmaxnreg), local (spilled) bytes a thread, shared memory and threads
+    a CTA; dQ beside dK/dV, bf16 and f16, causal and not."""
+    fn = _build.load("flash_attention_bwd").paddle_flash_attention_bwd_info
+    for dkv, kind in ((0, "dq"), (1, "dkv")):
+        for dtype, name in ((1, "bf16"), (2, "float16")):
+            for causal in (1, 0):
+                out = (ctypes.c_int * 5)()
+                err = fn(ctypes.c_int(dkv), ctypes.c_int(128),
+                         ctypes.c_int(dtype), ctypes.c_int(causal), out)
+                assert err == 0, (kind, name, causal, err)
+                print(f"build: flash bwd {kind} D=128 {name} causal={causal}:"
+                      f" {out[0]} CTAs an SM, {out[1]} registers at launch, "
+                      f"{out[2]} local bytes, {out[3]} B of shared memory, "
+                      f"{out[4]} threads")
+
+
 def _sass_int_ops(name, entry):
     """The INT32 instructions in the SASS of kernel `entry` (a substring of
     its mangled name) of library `name`, by mnemonic, and the funnel
@@ -1808,11 +1828,13 @@ def _check_f16_large_do(head_dim=HEAD_DIM):
 
 
 def _check_flash_bwd_d128(dtype):
-    """dQ and dK/dV at head_dim 128 (dK/dV: two consumer warpgroups a CTA)
-    against their twins: FLASH_D128_LENGTHS causal and not, a non-causal
-    40 x 300, a batch of 3 read through the fused qkv strides, two
-    launches bit for bit equal, and in f16 the dS guard's large-dO
-    cases."""
+    """dQ and dK/dV at head_dim 128 (each kernel two consumer warpgroups a
+    CTA, persistent) against their twins: FLASH_D128_LENGTHS causal and
+    not, a non-causal 40 x 300 (dQ's second warpgroup without rows), a
+    batch of 3 read through the fused qkv strides, (8, 1000, 16, 128)
+    (1024 work items of 128 rows or keys, more than the card's SMs, the
+    last of each head ragged in its second warpgroup), two launches bit
+    for bit equal, and in f16 the dS guard's large-dO cases."""
     name = str(dtype)[6:]
     for n in FLASH_D128_LENGTHS:
         for causal in (True, False):
@@ -1826,7 +1848,8 @@ def _check_flash_bwd_d128(dtype):
     _check_flash_bwd_case(f"flash bwd {name} (3, 200, 4, 128) causal=True",
                           *_fused_qkv(200, dtype, seed=54, heads=4,
                                       head_dim=128, batch=3), True, seed=55)
-    # more 128-key blocks than the card has SMs: a CTA walks several
+    # more 128-row (dQ) and 128-key (dK/dV) blocks than the card has SMs:
+    # a CTA walks several
     for causal in (True, False):
         _check_flash_bwd_case(f"flash bwd {name} (8, 1000, 16, 128) "
                               f"causal={causal}",
@@ -8107,6 +8130,7 @@ def main():
                 print(f"  ptxas {name} {entry}: {line.strip()}")
     _sass_counts("flash_attention_fwd", ("HGMMA", "UTMALDG"))
     _sass_counts("flash_attention_bwd", ("HGMMA", "UTMALDG"))
+    _flash_d128_info()
     _sass_counts("paged_decode", ("LDGSTS",))
     _sass_int_ops("keyed_draw", "keyed_draw_kernel")
     print("kernels vs plain twins:")

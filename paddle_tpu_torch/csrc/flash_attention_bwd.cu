@@ -25,8 +25,9 @@
 // Design, as the TPU decomposition: two kernels and no atomics, so the
 // result is deterministic.
 //
-// bf16 and f16 (`flash_bwd_dq_kernel_wgmma<T>`, `flash_bwd_dkv_kernel_wgmma<T>`,
-// one source, the element type T a template parameter): one CTA
+// bf16 and f16 at D = 64 (`flash_bwd_dq_kernel_wgmma<T>`,
+// `flash_bwd_dkv_kernel_wgmma<T>`, one source, the element type T a
+// template parameter; D = 128 has kernels of its own, below): one CTA
 // per ((b, h), 64 rows) of one consumer warpgroup and one producer warp, as
 // the forward. The producer issues TMA loads (the forward's 4-D tensor maps
 // [D, H, N, B], 128-byte swizzle, 64 x 64 boxes; hopper_sm90.cuh) of the
@@ -116,6 +117,33 @@
 //     The producer loads the next item's K, V and first Q/dO tiles while
 //     the consumers store dK and dV; a head's items together keep its
 //     Q, dO, lse and Delta within L2.
+//
+// dQ at D = 128 (`flash_bwd_dq_kernel_wgmma_d128<T, kCausal, ...>`, bf16
+// and f16): the D = 64 template at D = 128 took 160 registers and 133 KB
+// of shared memory, one CTA an SM, each streamed K/V tile serving 64 query
+// rows (0.257 ms at (4, 2048, 16, 128) causal, 41% of its bound). The
+// D = 128 kernel is the dK/dV kernel's design turned around:
+//   * a CTA of three warpgroups: two consumers of 64 query rows each (the
+//     block's Q and dO, 64 KB, and a 32 KB dQ tile to store) and a
+//     producer whose one thread streams the K/V tiles of 64 keys (two
+//     stages, 32 KB each), 162 KB a CTA; setmaxnreg 240 / 24.
+//     A consumer keeps dQ, S, dP and the packed dS in registers; every
+//     streamed K/V byte serves 128 query rows;
+//   * each consumer takes the D = 64 kernel's steps tile by tile in two
+//     turns at the tensor cores (named barriers 1 and 2): S and dP
+//     (committed apart, so that P's exponentials run while dP is on the
+//     tensor cores), then dQ += dS K. A tile without work for a
+//     warpgroup (the causal diagonal's last 64 keys for the lower 64 rows,
+//     every tile where its rows are past n) takes both turns without
+//     products. The f16 dS guard is the D = 64 kernel's, and each row adds
+//     its key tiles in the same order, so dQ is that kernel's bit for bit;
+//   * persistent: one CTA an SM walks work items ((b, h), 128 query rows)
+//     head by head, a head's heaviest causal block (its last queries)
+//     first, dealt in rounds forward and backward by turns (static:
+//     deterministic, no atomics). The producer loads the next item's
+//     first K/V tile, then its Q and dO, while the consumers finish and
+//     store dQ: through shared memory by one TMA store a warpgroup (a dQ
+//     tensor map), which runs on into the next item.
 //
 // fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkv_kernel`): the first design,
 // products in fp32 FMA on the CUDA cores, kept by design: the fp32 checks on
@@ -936,13 +964,16 @@ constexpr int kDkv128Stages = 2;
 constexpr bool kDkv128PingPong = true;
 constexpr bool kDkv128Persistent = true;
 
-// two consumer warpgroups (64 key rows each) and a producer warpgroup
-constexpr int kDkv128Threads = 3 * 128;
+// both D = 128 kernels: two consumer warpgroups (64 rows each) and a
+// producer warpgroup
+constexpr int kThreads128 = 3 * 128;
 // registers a thread after setmaxnreg: 128 x 24 + 256 x 240 <= 65536
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
-// named barriers: consumer warpgroup w waits on kBarTurn + w for its turn
+// named barriers: consumer warpgroup w waits on kBarTurn + w for its turn,
+// and (dQ) its threads meet on kBarStore + w around its dQ tile's store
 constexpr int kBarTurn = 1;
+constexpr int kBarStore = 3;
 
 // Shared memory of a dK/dV CTA at D = 128: the two 64-row halves of its K
 // and V tiles, and the ring of Q/dO tiles with their queries' lse (times
@@ -962,7 +993,7 @@ struct __align__(1024) DkvSmem128 {
 };
 
 template <typename T, bool kCausal, int kS, bool kPingPong>
-__global__ void __launch_bounds__(kDkv128Threads, 1)
+__global__ void __launch_bounds__(kThreads128, 1)
 flash_bwd_dkv_kernel_wgmma_d128(const __grid_constant__ CUtensorMap q_map,
                                 const __grid_constant__ CUtensorMap k_map,
                                 const __grid_constant__ CUtensorMap v_map,
@@ -1224,6 +1255,20 @@ flash_bwd_dkv_kernel_wgmma_d128(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// CTAs of a D = 128 launch over `items` work items: one an SM, each
+// walking its share of the items (`persistent`), else one an item
+inline cudaError_t grid_128(int items, bool persistent, int* ctas) {
+  *ctas = items;
+  if (!persistent) return cudaSuccess;
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *ctas = items < sms ? items : sms;
+  return cudaSuccess;
+}
+
 template <typename T, bool kCausal>
 cudaError_t launch_dkv_d128(const CUtensorMap* maps, const float* lse,
                             const float* delta, T* dk, T* dv, int batch,
@@ -1235,21 +1280,357 @@ cudaError_t launch_dkv_d128(const CUtensorMap* maps, const float* lse,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int items = batch * heads * ((m + 2 * kRows - 1) / (2 * kRows));
-  int ctas = items;
-  if (kDkv128Persistent) {
-    // one CTA an SM, each walking its share of the items
-    int device = 0, sms = 0;
-    err = cudaGetDevice(&device);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-    if (err != cudaSuccess) return err;
-    ctas = items < sms ? items : sms;
-  }
-  kernel<<<ctas, kDkv128Threads, smem, stream>>>(
+  int ctas = 0;
+  err = grid_128(batch * heads * ((m + 2 * kRows - 1) / (2 * kRows)),
+                 kDkv128Persistent, &ctas);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, kThreads128, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, delta, dk, dv, n, m, heads,
       batch * heads, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dQ in bf16 and f16 at D = 128: two consumer warpgroups share every
+// streamed K/V tile
+// ---------------------------------------------------------------------------
+
+// The D = 128 dQ kernel's configuration (tools/torch_flash_bwd_variants.py
+// builds others in turns): ring depth, whether the consumers take turns at
+// the tensor cores, whether one CTA an SM walks the work items (else one
+// CTA an item), whether a head's items run together (else the heads
+// interleave), and whether dQ is stored by TMA through shared memory (else
+// by 4-byte stores from the accumulator)
+constexpr int kDq128Stages = 2;
+constexpr bool kDq128PingPong = true;
+constexpr bool kDq128Persistent = true;
+constexpr bool kDq128HeadMajor = true;
+constexpr bool kDq128TmaStore = true;
+
+// Shared memory of a dQ CTA at D = 128: the two 64-row halves of its Q and
+// dO tiles, each warpgroup's dQ tile to store, and the ring of K/V tiles of
+// 64 keys
+template <int kS>
+struct __align__(1024) DqSmem128 {
+  uint16_t q[2][2][kRows * kPanel];
+  uint16_t g[2][2][kRows * kPanel];
+  uint16_t dq[2][2][kRows * kPanel];
+  uint16_t k[kS][2][kRows * kPanel];
+  uint16_t v[kS][2][kRows * kPanel];
+  uint64_t qg_full;
+  uint64_t qg_empty;
+  uint64_t kv_full[kS];
+  uint64_t empty[kS];
+};
+
+template <typename T, bool kCausal, int kS, bool kPingPong>
+__global__ void __launch_bounds__(kThreads128, 1)
+flash_bwd_dq_kernel_wgmma_d128(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap g_map,
+                               const __grid_constant__ CUtensorMap dq_map,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               T* __restrict__ dq, int n, int m, int heads,
+                               int batch_heads, float scale) {
+  constexpr int D = 128;
+  using Smem = DqSmem128<kS>;
+  constexpr uint32_t kTileBytes = 2 * kPanelBytes;   // 64 rows x 128
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t pad = (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + pad);
+
+  // The CTA's work items, each ((b, h), 128 query rows): item t is query
+  // block (n_qb - 1 - t % n_qb) of head t / n_qb. A head's blocks run
+  // together, so its K, V, lse and Delta come from HBM once and from L2
+  // for the rest, the heaviest causal block (the last queries) first;
+  // rounds of gridDim.x items go to the CTAs in order and in reverse by
+  // turns, as in the D = 128 forward.
+  const int n_qb = (n + 2 * kRows - 1) / (2 * kRows);
+  const int n_items = n_qb * batch_heads;
+  struct Item {
+    int b, h, bh, q0, n_tiles;
+  };
+  auto item = [&](int r, Item& it) {
+    const int c = (r % 2 == 0) ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+    const int t = r * gridDim.x + c;
+    if (t >= n_items) return false;
+    int qb;
+    if constexpr (kDq128HeadMajor) {
+      it.bh = t / n_qb;
+      qb = t - it.bh * n_qb;
+    } else {
+      qb = t / batch_heads;
+      it.bh = t - qb * batch_heads;
+    }
+    it.b = it.bh / heads;
+    it.h = it.bh - it.b * heads;
+    it.q0 = (n_qb - 1 - qb) * 2 * kRows;
+    // causal: no row of the block attends past its last row
+    const int kv_end = kCausal ? min(m, it.q0 + 2 * kRows) : m;
+    it.n_tiles = (kv_end + kRows - 1) / kRows;
+    return true;
+  };
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qg_full, 1);
+    mbar_init(&sm.qg_empty, 8);            // lane 0 of each consumer warp
+#pragma unroll
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&sm.kv_full[s], 1);
+      mbar_init(&sm.empty[s], 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // the producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 256) {
+      Item it;
+      // the item's K/V tile j, the CTA's tile gj, into stage gj % kS
+      auto load_kv = [&](int gj, int j) {
+        const int s = gj % kS;
+        if (gj >= kS) {
+          // the consumers have released the tile this stage held
+          mbar_wait(&sm.empty[s], ((gj / kS) + 1) & 1);
+        }
+        mbar_expect_tx(&sm.kv_full[s], 2 * kTileBytes);
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          tma_load(sm.k[s][p], &k_map, &sm.kv_full[s], p * kPanel, it.h,
+                   j * kRows, it.b);
+          tma_load(sm.v[s][p], &v_map, &sm.kv_full[s], p * kPanel, it.h,
+                   j * kRows, it.b);
+        }
+      };
+      int g = 0;     // the CTA's K/V tiles before this item
+      for (int r = 0; item(r, it); ++r) {
+        // K/V tile 0 first: the Q and dO buffers free only once the last
+        // item's last S and dP are in
+        load_kv(g, 0);
+        if (r > 0) mbar_wait(&sm.qg_empty, (r - 1) & 1);
+        mbar_expect_tx(&sm.qg_full, 8 * kPanelBytes);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            tma_load(sm.q[half][p], &q_map, &sm.qg_full, p * kPanel, it.h,
+                     it.q0 + half * kRows, it.b);
+            tma_load(sm.g[half][p], &g_map, &sm.qg_full, p * kPanel, it.h,
+                     it.q0 + half * kRows, it.b);
+          }
+        }
+        for (int j = 1; j < it.n_tiles; ++j) load_kv(g + j, j);
+        g += it.n_tiles;
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // consumer warpgroup wg: query rows qw .. qw + 63 of each item; this
+    // thread's two rows in the wgmma accumulator layout are row0 and
+    // row0 + 8
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int col0 = 2 * (lane % 4);
+    const float scale_log2 = scale * kLog2e;
+    const uint32_t q_addr = smem_u32(sm.q[wg][0]);
+    const uint32_t g_addr = smem_u32(sm.g[wg][0]);
+
+    float dq_acc[D / 2];
+    // S of the tile, then P, then dS / scale, in fp32; dP of the tile
+    // (each product's first k-step overwrites them: zeroed once, so that
+    // they are never read undefined)
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    uint32_t da[16];     // dS / scale (times ds_mul), T pairs
+
+    // turns at the tensor cores, as in the D = 128 forward: warpgroup 0
+    // issues its products, then warpgroup 1, and so on
+    auto turn_begin = [&]() {
+      if constexpr (kPingPong) bar_sync(kBarTurn + wg, 256);
+    };
+    auto turn_end = [&]() {
+      if constexpr (kPingPong) bar_arrive(kBarTurn + 1 - wg, 256);
+    };
+    // K/V tile gj (counted over the CTA's items) may be overwritten; the
+    // item's Q and dO, once this warpgroup's last S and dP are in
+    auto release = [&](int gj) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.empty[gj % kS]);
+    };
+    auto release_qg = [&]() {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&sm.qg_empty);
+    };
+
+    // warpgroup 0 takes the first turn
+    if (kPingPong && wg == 1) bar_arrive(kBarTurn, 256);
+    Item it;
+    int g = 0;
+    for (int r = 0; item(r, it); ++r) {
+      // this warpgroup's rows and its tiles: the item's first n_w (none
+      // where its rows are past n)
+      const int qw = it.q0 + wg * kRows;
+      const int row0 = qw + 16 * warp + lane / 4;
+      const int kv_end_w = kCausal ? min(m, qw + kRows) : m;
+      const int n_w = qw < n ? (kv_end_w + kRows - 1) / kRows : 0;
+      float lse2[2], dlt[2];     // lse * log2 e and Delta of the two rows
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int row = row0 + 8 * rr;
+        const int64_t at = static_cast<int64_t>(it.bh) * n + row;
+        lse2[rr] = row < n ? lse[at] * kLog2e : 0.f;
+        dlt[rr] = row < n ? delta[at] : 0.f;
+      }
+      float ds_mul[2] = {1.f, 1.f};   // f16: the rows' dS factors (fit_f16)
+      bool scaled = false;   // f16: a row of the warp is below factor 1
+      zero(dq_acc);
+      mbar_wait(&sm.qg_full, r & 1);
+      if (n_w == 0) release_qg();
+      // Tile by tile, as the D = 64 kernel, in two turns: S and dP
+      // (committed apart, so that P's exponentials run while dP is on the
+      // tensor cores), then dQ += dS K. A tile with no work for this
+      // warpgroup (the causal diagonal's last 64 keys for the lower 64
+      // rows, every tile where its rows are past n) takes both turns
+      // without products, after the tile has landed, so that every
+      // consumer warp releases every tile in order. Accumulator layout:
+      // sc[i] is row row0 + 8 * ((i / 2) % 2), key j * 64 + 8 * (i / 4) +
+      // col0 + i % 2.
+      for (int j = 0; j < it.n_tiles; ++j) {
+        const int s = (g + j) % kS;
+        mbar_wait(&sm.kv_full[s], ((g + j) / kS) & 1);
+        if (j >= n_w) {
+          turn_begin();
+          turn_end();
+          turn_begin();
+          turn_end();
+          release(g + j);
+          continue;
+        }
+        const int key0 = j * kRows;
+        const bool edge = key0 + kRows > m || (kCausal && key0 + kRows > qw);
+        turn_begin();
+        wgmma_fence();
+        issue_ss<T, D>(sc, q_addr, smem_u32(sm.k[s][0]));   // S = Q K^T
+        wgmma_commit();
+        issue_ss<T, D>(dp, g_addr, smem_u32(sm.v[s][0]));   // dP = dO V^T
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        if (edge) {
+          // masked: 2^-inf = 0 below
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = key0 + 8 * (i / 4) + col0 + (i % 2);
+            if (key >= m || (kCausal && key > row0 + 8 * ((i / 2) % 2))) {
+              sc[i] = -INFINITY;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          sc[i] = ex2(fmaf(sc[i], scale_log2, -lse2[(i / 2) % 2]));
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        if (j == n_w - 1) release_qg();
+        if constexpr (kIsHalf<T>) {
+          // f16: the D = 64 kernel's guard, unchanged
+          const float ndlt[2] = {-dlt[0] * ds_mul[0], -dlt[1] * ds_mul[1]};
+          float big = 0.f;
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int rr = (i / 2) % 2;
+            sc[i] *= fmaf(dp[i], ds_mul[rr], ndlt[rr]);
+            big = fmaxf(big, fabsf(sc[i]));
+          }
+          if (__any_sync(0xffffffffu, scaled || big >= kF16Round)) {
+            scaled = fit_f16(sc, ds_mul, dq_acc);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) sc[i] *= dp[i] - dlt[(i / 2) % 2];
+        }
+        pack<T>(da, sc);
+        turn_begin();
+        wgmma_fence();
+        issue_rs<T, D>(dq_acc, da, smem_u32(sm.k[s][0]));   // dQ += dS K
+        wgmma_commit();
+        turn_end();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        release(g + j);
+      }
+      g += it.n_tiles;
+
+      const float mul[2] = {scale / ds_mul[0], scale / ds_mul[1]};
+      if constexpr (kDq128TmaStore) {
+        // through shared memory: the warpgroup's 64 x 128 dQ tile in the
+        // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)),
+        // then one thread's TMA store (rows past n are not written), which
+        // runs on while the next item starts
+        const bool issuer = threadIdx.x % 128 == 0;
+        if (issuer) bulk_wait_read<0>();   // the last item's store has read it
+        bar_sync(kBarStore + wg, 128);
+        uint8_t* ob = reinterpret_cast<uint8_t*>(sm.dq[wg][0]);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int rw = 16 * warp + lane / 4 + 8 * rr;
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const uint32_t off = (jj / 8) * kPanelBytes + rw * 128 +
+                                 (((jj % 8) ^ (rw % 8)) * 16) + col0 * 2;
+            *reinterpret_cast<uint32_t*>(ob + off) =
+                Elem<T>::pack(dq_acc[4 * jj + 2 * rr] * mul[rr],
+                              dq_acc[4 * jj + 2 * rr + 1] * mul[rr]);
+          }
+        }
+        fence_proxy_async();
+        bar_sync(kBarStore + wg, 128);
+        if (issuer && qw < n) {
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            tma_store(&dq_map, sm.dq[wg][p], p * kPanel, it.h, qw, it.b);
+          }
+          bulk_commit();
+        }
+      } else {
+        store_rows<T, D>(
+            dq + ((static_cast<int64_t>(it.b) * n + row0) * heads + it.h) * D,
+            dq_acc, row0, n, heads, col0, mul);
+      }
+    }
+    // the last bar_arrive of warpgroup 1 on warpgroup 0's barrier
+    if (kPingPong && wg == 0) bar_sync(kBarTurn, 256);
+    // the last store has run before the CTA's shared memory is freed
+    if (kDq128TmaStore && threadIdx.x % 128 == 0) bulk_wait_all();
+  }
+}
+
+// maps: q, k, v, dO and the output dQ
+template <typename T, bool kCausal>
+cudaError_t launch_dq_d128(const CUtensorMap* maps, const float* lse,
+                           const float* delta, T* dq, int batch, int n, int m,
+                           int heads, float scale, cudaStream_t stream) {
+  auto* kernel = flash_bwd_dq_kernel_wgmma_d128<T, kCausal, kDq128Stages,
+                                                kDq128PingPong>;
+  const int smem = static_cast<int>(sizeof(DqSmem128<kDq128Stages>)) + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  err = grid_128(batch * heads * ((n + 2 * kRows - 1) / (2 * kRows)),
+                 kDq128Persistent, &ctas);
+  if (err != cudaSuccess) return err;
+  kernel<<<ctas, kThreads128, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], lse, delta, dq, n, m,
+      heads, batch * heads, scale);
   return cudaGetLastError();
 }
 
@@ -1259,17 +1640,19 @@ cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
                                 void* out0, void* out1, int batch, int n,
                                 int m, int heads, float scale,
                                 cudaStream_t stream) {
-  const int smem = static_cast<int>(dkv ? sizeof(DkvSmem<D>)
-                                        : sizeof(DqSmem<D>)) + 1024;
-  const dim3 grid(batch * heads, ((dkv ? m : n) + kRows - 1) / kRows);
   T* o0 = static_cast<T*>(out0);
   T* o1 = static_cast<T*>(out1);
-  cudaError_t err;
-  if (dkv) {
-    if constexpr (D == 128) {
-      return launch_dkv_d128<T, kCausal>(maps, lse, delta, o0, o1, batch, n,
-                                         m, heads, scale, stream);
-    } else {
+  if constexpr (D == 128) {
+    return dkv ? launch_dkv_d128<T, kCausal>(maps, lse, delta, o0, o1, batch,
+                                             n, m, heads, scale, stream)
+               : launch_dq_d128<T, kCausal>(maps, lse, delta, o0, batch, n,
+                                            m, heads, scale, stream);
+  } else {
+    const int smem = static_cast<int>(dkv ? sizeof(DkvSmem<D>)
+                                          : sizeof(DqSmem<D>)) + 1024;
+    const dim3 grid(batch * heads, ((dkv ? m : n) + kRows - 1) / kRows);
+    cudaError_t err;
+    if (dkv) {
       err = cudaFuncSetAttribute(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  smem);
@@ -1278,18 +1661,18 @@ cudaError_t launch_wgmma_kernel(bool dkv, const CUtensorMap* maps,
           <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
                                                   maps[3], lse, delta, o0,
                                                   o1, n, m, heads, scale);
+    } else {
+      err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return err;
+      flash_bwd_dq_kernel_wgmma<T, D, kCausal>
+          <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
+                                                  maps[3], lse, delta, o0, n,
+                                                  m, heads, scale);
     }
-  } else {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    flash_bwd_dq_kernel_wgmma<T, D, kCausal>
-        <<<grid, kWgmmaThreads, smem, stream>>>(maps[0], maps[1], maps[2],
-                                                maps[3], lse, delta, o0, n,
-                                                m, heads, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -1307,18 +1690,25 @@ cudaError_t launch_wgmma(bool dkv, const CUtensorMap* maps, const void* lse,
                                                    scale, stream);
 }
 
-// the maps over q, k, v, dO (rows n, m, m, n), then the instantiation
+// the maps over q, k, v, dO (rows n, m, m, n) and, for the D = 128 dQ
+// kernel's TMA store, over the contiguous dQ; then the instantiation
 template <typename T>
 int launch_tc(bool dkv, const void* const (&ptrs)[4], const void* lse,
               const void* delta, void* out0, void* out1, int batch, int n,
               int m, int heads, int head_dim, const long long* s,
               float scale, int causal, cudaStream_t cs) {
   const int rows[4] = {n, m, m, n};
-  CUtensorMap maps[4];
+  CUtensorMap maps[5];
   for (int i = 0; i < 4; ++i) {
     const int err = encode_map(&maps[i], Elem<T>::kMap, ptrs[i], head_dim,
                                heads, rows[i], batch, s[3 * i],
                                s[3 * i + 1], s[3 * i + 2]);
+    if (err != 0) return err;
+  }
+  if (!dkv && head_dim == 128) {
+    const int64_t row = static_cast<int64_t>(heads) * head_dim;
+    const int err = encode_map(&maps[4], Elem<T>::kMap, out0, head_dim,
+                               heads, n, batch, row * n, row, head_dim);
     if (err != 0) return err;
   }
   const cudaError_t launched =
@@ -1363,18 +1753,25 @@ int dispatch(bool dkv, const void* q, const void* k, const void* v,
 
 template <typename T, int D, bool kCausal>
 cudaError_t bwd_info(int dkv, int* out) {
-  if (!dkv) {
-    return kernel_info(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
-                       kWgmmaThreads,
-                       static_cast<int>(sizeof(DqSmem<D>)) + 1024, out);
-  }
   if constexpr (D == 128) {
+    if (!dkv) {
+      return kernel_info(
+          flash_bwd_dq_kernel_wgmma_d128<T, kCausal, kDq128Stages,
+                                         kDq128PingPong>,
+          kThreads128,
+          static_cast<int>(sizeof(DqSmem128<kDq128Stages>)) + 1024, out);
+    }
     return kernel_info(
         flash_bwd_dkv_kernel_wgmma_d128<T, kCausal, kDkv128Stages,
                                         kDkv128PingPong>,
-        kDkv128Threads,
+        kThreads128,
         static_cast<int>(sizeof(DkvSmem128<kDkv128Stages>)) + 1024, out);
   } else {
+    if (!dkv) {
+      return kernel_info(flash_bwd_dq_kernel_wgmma<T, D, kCausal>,
+                         kWgmmaThreads,
+                         static_cast<int>(sizeof(DqSmem<D>)) + 1024, out);
+    }
     return kernel_info(flash_bwd_dkv_kernel_wgmma<T, D, kCausal>,
                        kWgmmaThreads,
                        static_cast<int>(sizeof(DkvSmem<D>)) + 1024, out);

@@ -317,6 +317,85 @@ def test_tiled_dkv_keeps_the_bf16_margin_at_d128(width, n, causal):
         assert excess > 1 and fro > 1, (name, excess, fro)
 
 
+def _tiled_dq(q, k, v, do, lse, delta, causal, scale, round_op, width):
+    """The dQ kernel's arithmetic in its tiled form: per query block of
+    `width` rows (64: the D = 64 kernel's; 128: the D = 128 kernel's two
+    warpgroups sharing each K/V tile), streamed 64-key tiles up to the
+    block's diagonal; P = exp(scale S - lse) and dS = P (dP - Delta) in
+    fp32, dS rounded by `round_op` before dQ += dS K, which adds in fp32
+    tile by tile; one bf16 rounding of dQ, times scale."""
+    qt, kt, vt, gt = (t.transpose(1, 2).float() for t in (q, k, v, do))
+    b, h, n, d = qt.shape
+    m = kt.shape[2]
+    lse = lse.reshape(b, h, n, 1)
+    delta = delta.reshape(b, h, n, 1)
+    dq = torch.zeros((b, h, n, d))
+    for q0 in range(0, n, width):
+        rows = torch.arange(q0, min(q0 + width, n)).reshape(-1, 1)
+        qq, gg = qt[:, :, q0:q0 + width], gt[:, :, q0:q0 + width]
+        kv_end = min(m, q0 + width) if causal else m
+        for k0 in range(0, kv_end, 64):
+            keys = torch.arange(k0, min(k0 + 64, m)).reshape(1, -1)
+            kb, vb = kt[:, :, k0:k0 + 64], vt[:, :, k0:k0 + 64]
+            p = torch.exp((qq @ kb.transpose(-1, -2)) * scale
+                          - lse[:, :, q0:q0 + width])
+            if causal:
+                p = p.masked_fill(keys > rows, 0.0)
+            ds = p * (gg @ vb.transpose(-1, -2) - delta[:, :, q0:q0 + width])
+            dq[:, :, q0:q0 + width] += round_op(ds) @ kb
+    return (dq * scale).transpose(1, 2).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("width", [64, 128])
+@pytest.mark.parametrize("n", [200, 384])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tiled_dq_keeps_the_bf16_margin_at_d128(width, n, causal):
+    """At head_dim 128, dQ from query blocks of 64 or 128 rows (the D = 128
+    kernel's two warpgroups share each streamed 64-key K/V tile), fed the
+    forward's online lse (key tiles of the same width) and a Delta from
+    its bf16 output: both widths pass the unchanged bf16 backward criteria
+    with margin (at most 3/4 of each) against the JAX package's fp32
+    backward, on lengths that cut a 128-row block (200) and that fill it
+    (384); dS rounded to 3 mantissa bits in the same form still fails
+    them. A row adds its key tiles in one order whatever the block's
+    width, so the widths differ only in the lse; the largest element-wise
+    share, 0.55 at n = 200 causal (query 1, two keys), comes from the
+    Delta of the bf16 output, which no tiling changes."""
+    b, h, d = 1, 2, 128
+    rng = np.random.default_rng(500 + n + width)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((b, n, h, d))
+                                    .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    if n % 128 == 0:
+        j_out, j_lse = jfa._flash_fwd(jq, jk, jv, causal, scale, block_q=128,
+                                      block_k=128, interpret=True)
+        ref = jfa._flash_bwd(jq, jk, jv, j_out, j_lse, jg, causal, scale,
+                             block_q=128, block_k=128, interpret=True)
+    else:
+        _, vjp = jax.vjp(
+            lambda qq, kk, vv: _plain_attention(qq, kk, vv, None, causal,
+                                                scale), jq, jk, jv)
+        ref = vjp(jg)
+    ref = torch.from_numpy(np.array(ref[0], dtype=np.float32))
+    lse = _online_lse(q, k, causal, scale, width)
+    out, _ = tfa.flash_attention_reference(q.float(), k.float(), v.float(),
+                                           causal, scale)
+    delta = tfa.flash_attention_delta(out.to(torch.bfloat16), do)
+    args = (q, k, v, do, lse, delta, causal, scale)
+    atol, rtol = tfa.flash_bwd_bf16_tol(*args)["dq"]
+    limit = atol + rtol * ref.abs()
+    good = _tiled_dq(*args, _round_bf16, width)
+    excess = ((good.float() - ref).abs() / limit).max().item()
+    fro = tfa.rel_fro(good, ref) / tfa.FLASH_BWD_BF16_FRO_RTOL
+    assert excess <= 0.75 and fro <= 0.75, (excess, fro)
+    coarse = _tiled_dq(*args, _round_e4m3_like, width)
+    excess = ((coarse.float() - ref).abs() / limit).max().item()
+    fro = tfa.rel_fro(coarse, ref) / tfa.FLASH_BWD_BF16_FRO_RTOL
+    assert excess > 1 and fro > 1, (excess, fro)
+
+
 def test_bwd_tma_rule_takes_strided_do_and_fused_views_names_do():
     """The bf16 backward kernels read q, k, v and dO through TMA: the fused
     qkv views of GPT-2's projection ([B, N, 3, 12, 64]) and a gradient laid

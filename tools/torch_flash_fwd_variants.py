@@ -12,7 +12,7 @@ Builds, side by side with nvcc under ``build/flash_fwd_variants/``:
                 ``build/flash_parent/``; where that directory is missing it
                 is filled from git, ``git show REV:paddle_tpu_torch/csrc/...``
                 with ``--parent-rev``, default HEAD~1), with an info entry
-                appended (`_PARENT_FWD_INFO`);
+                appended where it has none (`_PARENT_FWD_INFO`);
   source        ``paddle_tpu_torch/csrc/flash_attention_fwd.cu`` as it is;
   keys64        the D = 128 kernel with 64-key K/V tiles in a 4-stage ring;
   no_pingpong   the two consumer warpgroups without turns at the tensor
@@ -170,9 +170,10 @@ def variants(parent, extra=()):
     """name -> (source text, include directory); `extra`: (name, path)
     pairs of other versions of the source to build beside them."""
     src = (CSRC / "flash_attention_fwd.cu").read_text()
-    out = {"parent": ((parent / "flash_attention_fwd.cu").read_text()
-                      + _PARENT_FWD_INFO, parent),
-           "source": (src, CSRC)}
+    text = (parent / "flash_attention_fwd.cu").read_text()
+    if "paddle_flash_attention_fwd_info" not in text:
+        text += _PARENT_FWD_INFO
+    out = {"parent": (text, parent), "source": (src, CSRC)}
     keys64 = _sub_const(src, "kFwd128Keys", "64")
     out["keys64"] = (_sub_const(keys64, "kFwd128Stages", "4"), CSRC)
     out["no_pingpong"] = (_sub_const(src, "kFwd128PingPong", "false"), CSRC)
