@@ -329,6 +329,27 @@ Phases, in order; any failure raises and the script exits non-zero:
                No kernel row: the reference computes convolutions, batch
                norms and pools in XLA, and the port in cuDNN and torch's
                own kernels.
+ 11b. vision_data — ROADMAP item 8(a): `vision.ops` and
+               `nn.functional.vision` card against CPU in fp32 (TF32 off),
+               each timed: roi_align at [2, 256, 200, 304] with 512 RoIs
+               (7 x 7, ratio 2) and its feature gradient, roi_pool and
+               psroi_pool at [2, 64 | 392, 50, 76] with 128 RoIs,
+               grid_sample (bilinear and nearest x zeros, border and
+               reflection x align_corners) at [8, 3, 224, 224],
+               deform_conv2d v2 at [8, 256, 56, 56], 3 x 3 -> 256, and
+               its four gradients. Then config 1 fed by the port's
+               DataLoader: 640 synthetic uint8 images of 256 x 320 in a
+               `DatasetFolder` (RandomResizedCrop(224),
+               RandomHorizontalFlip, Transpose, Normalize), batches of
+               128 from min(8, cpus - 1) forkserver workers landing on
+               the card: the first batch bit for bit with the same batch
+               built on the CPU as worker 0 builds it, no worker holding
+               a CUDA context, a graph build and 8 counted steps of
+               resnet50 through the resnet phase's O1 `TrainStep`
+               (finite losses, every batch's labels the sampler's), with
+               images/s, step p50 / p99, the time blocked in next() and
+               the device's busy share beside the resnet phase's fixed
+               batch figures. No kernel row and no speed asserted.
  12. gpt3_dp — the reference's config 3 (BASELINE.json: GPT-3 1.3B, Fleet
                data parallel) at world size 1. First the kernels at its
                shapes: the bf16 flash forward, dQ and dK/dV at (4, 2048,
@@ -7465,6 +7486,12 @@ RESNET_GROUPS = (
     ("reductions", ("reduce_kernel",)))
 
 
+# the resnet phase's counted window on its fixed batch (step p50 / p99,
+# images/s, the profiled step's device ms), which the vision_data phase
+# prints beside its loader-fed window
+RESNET_WINDOW = {}
+
+
 def _resnet_flops(model, img, in_chans=3):
     """FLOPs of one image's training step from the shapes its convolutions
     and linears see: 2 · MACs forward, x3 for forward and backward."""
@@ -7734,6 +7761,8 @@ def resnet_phase():
     assert np.isfinite(losses).all() and losses[-1] < first, (first, losses)
     p50 = float(np.median(times))
     ips = RESNET_BATCH / (p50 / 1e3)
+    RESNET_WINDOW.update(p50_ms=p50, p99_ms=float(np.percentile(times, 99)),
+                         images_per_s=ips)
     print(f"resnet: {RESNET_STEPS} graph steps, losses "
           + ", ".join(f"{v:.4f}" for v in losses) + f"; step p50 "
           f"{p50:.3f} ms, p99 {float(np.percentile(times, 99)):.3f}; "
@@ -7747,6 +7776,7 @@ def resnet_phase():
     print(f"resnet graph: {totals.get('kernels', 0):.1f} kernels and "
           f"{totals.get('device_ms', 0.0):.3f} ms device time a step "
           "(profiled)")
+    RESNET_WINDOW["device_ms"] = totals.get("device_ms", 0.0)
     totals = {}
     _breakdown("resnet eager", run_eager, top=4, totals=totals,
                groups=RESNET_GROUPS)
@@ -7807,6 +7837,366 @@ def resnet_phase():
     torch.backends.cudnn.deterministic = deterministic
     print(f"resnet: {time.perf_counter() - t0:.1f} s wall")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 11b: vision_data — ROADMAP item 8(a) on the card: the dense vision
+# ops card against CPU, and config 1 fed by the DataLoader
+# ---------------------------------------------------------------------------
+
+# the synthetic image folder: uint8 HWC .npy images made from a seed,
+# VDATA_CLASSES class directories (labels 0..15), ~157 MB in all
+VDATA_IMAGES, VDATA_CLASSES, VDATA_HW, VDATA_SEED = 640, 16, (256, 320), 0
+VDATA_STEPS = 8
+# the loader alone, fed with-replacement samples of the folder: batches
+# of which the first `workers` only start the workers
+VDATA_STREAM_BATCHES = 24
+# ImageNet's channel mean and std on a uint8 scale
+VDATA_MEAN = (123.675, 116.28, 103.53)
+VDATA_STD = (58.395, 57.12, 57.375)
+# card against CPU in fp32 (TF32 off): an output within VDATA_OUT_RTOL of
+# the CPU's largest magnitude (the same products in another order), a
+# gradient and deform_conv2d's output within VDATA_GRAD_RTOL (atomic
+# accumulation in the gathers' backward; the contraction's blocking over
+# 2304 terms)
+VDATA_OUT_RTOL, VDATA_GRAD_RTOL = 1e-5, 1e-4
+
+
+def _vdata_check(name, fn, inputs, wrt=(), out_rtol=VDATA_OUT_RTOL,
+                 out_atol=0.0):
+    """fn on the card and on the CPU from the same inputs (CPU tensors):
+    the output (within out_rtol of the CPU's largest magnitude, plus
+    out_atol), and the gradient of sum(out · w) (w from a seed) for each
+    input in `wrt` (within VDATA_GRAD_RTOL of its largest magnitude); the
+    card's device ms of a forward (and of a forward and backward) by
+    `_timed`, with the host's ms beside it."""
+    results = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev, copy=True).requires_grad_(i in wrt)
+                for i, t in enumerate(inputs)]
+        out = fn(*args)
+        res = [out.detach().cpu()]
+        if wrt:
+            w = torch.randn(out.shape, generator=torch.Generator()
+                            .manual_seed(1)).to(dev)
+            res += [g.cpu() for g in torch.autograd.grad(
+                (out * w).sum(), [args[i] for i in wrt])]
+        results[dev] = res
+    for k, (got, want) in enumerate(zip(results["cuda"], results["cpu"])):
+        what = "out" if k == 0 else f"grad of input {wrt[k - 1]}"
+        rtol = out_rtol if k == 0 else VDATA_GRAD_RTOL
+        atol = out_atol if k == 0 else 0.0
+        scale = float(want.abs().max())
+        _close(f"vision_data {name} {what} card vs CPU (bound {rtol:g} of "
+               f"the largest magnitude {scale:.3e} + {atol:.3e})", got, want,
+               (rtol * scale + atol, 0.0))
+    args = [t.cuda() for t in inputs]
+    ms, host_ms = _timed(lambda: fn(*args), iters=10)
+    line = f"  vision_data {name}: forward {ms:.3f} ms device ({host_ms:.3f}" \
+           f" ms host)"
+    if wrt:
+        grad_args = [a.requires_grad_(i in wrt) for i, a in enumerate(args)]
+
+        def fwd_bwd():
+            out = fn(*grad_args)
+            torch.autograd.grad(out.sum(), [grad_args[i] for i in wrt])
+
+        ms, host_ms = _timed(fwd_bwd, iters=10)
+        line += f", forward + backward {ms:.3f} ms ({host_ms:.3f} ms host)"
+    print(line)
+
+
+def _coord_atol(x, grid):
+    """What torch's bilinear `grid_sample` may differ by, card against
+    CPU, beyond rounding: its CUDA kernel contracts the unnormalizing
+    multiply-add into an FMA, so a sample coordinate may differ by an ulp
+    of the largest coordinate, which moves each of the two weights by as
+    much; a sample then moves by up to that times the largest difference
+    between neighbouring pixels, per axis."""
+    cmax = float((grid.abs().max() + 1) * 0.5 * max(x.shape[-2:]))
+    ulp = 2.0 ** (math.floor(math.log2(cmax)) - 23)
+    nbr = max(float((x[..., 1:, :] - x[..., :-1, :]).abs().max()),
+              float((x[..., 1:] - x[..., :-1]).abs().max()))
+    return 2 * nbr * ulp
+
+
+def _vdata_boxes(gen, r, h, w, scale):
+    """r xyxy boxes inside an h x w map (in image units: / scale)."""
+    xy = torch.rand(r, 2, generator=gen) * torch.tensor([w * 0.9, h * 0.9])
+    wh = torch.rand(r, 2, generator=gen) * torch.tensor([w / 3, h / 3]) + 1
+    return torch.cat([xy, xy + wh], 1) / scale
+
+
+def _vdata_ops():
+    """The dense ops of `vision.ops` and `nn.functional.vision` on the
+    card against the CPU, in fp32, timed."""
+    from paddle_tpu_torch.nn import functional as tF
+    from paddle_tpu_torch.vision import ops as vops
+    gen = torch.Generator().manual_seed(VDATA_SEED)
+    # roi_align at an FPN level's shape: stride 4 of an 800 x 1216 image
+    feat = torch.randn(2, 256, 200, 304, generator=gen)
+    boxes = _vdata_boxes(gen, 512, 200, 304, 0.25)
+    num = torch.tensor([256, 256])
+    _vdata_check("roi_align [2, 256, 200, 304], 512 RoIs, 7 x 7, ratio 2",
+                 lambda x, b: vops.roi_align(x, b, num, 7, 0.25, 2),
+                 [feat, boxes], wrt=(0,))
+    # roi_pool and psroi_pool at stride 16 of the same image
+    feat = torch.randn(2, 64, 50, 76, generator=gen)
+    boxes = _vdata_boxes(gen, 128, 50, 76, 1 / 16)
+    num = torch.tensor([64, 64])
+    _vdata_check("roi_pool [2, 64, 50, 76], 128 RoIs, 7 x 7",
+                 lambda x, b: vops.roi_pool(x, b, num, 7, 1 / 16),
+                 [feat, boxes])
+    feat = torch.randn(2, 7 * 7 * 8, 50, 76, generator=gen)
+    _vdata_check("psroi_pool [2, 392, 50, 76], 128 RoIs, 7 x 7",
+                 lambda x, b: vops.psroi_pool(x, b, num, 7, 1 / 16),
+                 [feat, boxes])
+    # grid_sample on a batch of images through random affine grids that
+    # reach past the borders
+    img = torch.randn(8, 3, 224, 224, generator=gen)
+    theta = torch.randn(8, 2, 3, generator=gen) * 0.3 + torch.tensor(
+        [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    for align in (True, False):
+        grid = tF.affine_grid(theta, [8, 3, 224, 224], align_corners=align)
+        for mode in ("bilinear", "nearest"):
+            for pad in ("zeros", "border", "reflection"):
+                # the port's nearest gather computes its coordinates in
+                # separate IEEE ops on either device: no extra bound
+                _vdata_check(
+                    f"grid_sample [8, 3, 224, 224] {mode} {pad} "
+                    f"align_corners={align}",
+                    lambda x, g, m=mode, p=pad, a=align: tF.grid_sample(
+                        x, g, m, p, a), [img, grid],
+                    out_atol=_coord_atol(img, grid) if mode == "bilinear"
+                    else 0.0)
+    # deform_conv2d v2 at ResNet's layer-2 width
+    x = torch.randn(8, 256, 56, 56, generator=gen)
+    offset = torch.randn(8, 18, 56, 56, generator=gen) * 2
+    mask = torch.rand(8, 9, 56, 56, generator=gen)
+    weight = torch.randn(256, 256, 3, 3, generator=gen) * 0.02
+    _vdata_check("deform_conv2d v2 [8, 256, 56, 56], 3 x 3 -> 256",
+                 lambda a, o, w, m: vops.deform_conv2d(a, o, w, None,
+                                                       padding=1, mask=m),
+                 [x, offset, weight, mask], wrt=(0, 1, 2, 3),
+                 out_rtol=VDATA_GRAD_RTOL)
+
+
+def _vdata_folder(directory):
+    """VDATA_IMAGES uint8 HWC images from VDATA_SEED as .npy files in
+    VDATA_CLASSES class directories; returns their bytes."""
+    rng = np.random.default_rng(VDATA_SEED)
+    for c in range(VDATA_CLASSES):
+        os.makedirs(os.path.join(directory, f"n{c:04d}"))
+    nbytes = 0
+    for i in range(VDATA_IMAGES):
+        img = rng.integers(0, 256, (*VDATA_HW, 3), dtype=np.uint8)
+        np.save(os.path.join(directory, f"n{i % VDATA_CLASSES:04d}",
+                             f"{i:05d}.npy"), img)
+        nbytes += img.nbytes
+    return nbytes
+
+
+def _cuda_app_pids():
+    """The pids nvidia-smi lists as holding a CUDA context (none where
+    the container hides them)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return {int(p) for p in out.stdout.split() if p.strip().isdigit()}
+
+
+def vision_data_phase():
+    """ROADMAP item 8(a) on the card. The dense vision ops card against
+    CPU (`_vdata_ops`). Then config 1 fed by the port's DataLoader: a
+    `DatasetFolder` of synthetic images (RandomResizedCrop(224),
+    RandomHorizontalFlip, Transpose, Normalize) through
+    `DataLoader(batch_size=128, shuffle=True, drop_last=True,
+    num_workers=min(8, cpus - 1))` from `framework.seed`, its batches on
+    the card: the first batch bit for bit with the same batch built in
+    this process on the CPU as worker 0 builds it (`num_workers=0`, the
+    worker's seed, one torch thread); no worker holds a CUDA context; a
+    graph build and VDATA_STEPS counted steps of resnet50 through the
+    resnet phase's O1 `TrainStep` and Momentum (finite losses, each
+    batch's labels the ones its sampler indices name): images/s, step p50
+    / p99, the p50 of the time blocked in ``next()`` and the device's busy
+    share (CUDA events around each step), beside the resnet phase's fixed
+    batch figures, and the steps but the longest wait's; then the loader
+    alone (`_vdata_stream`). No speed is asserted. Returns the window's
+    launch counts (no kernel of the port lies on this path: all zero)."""
+    import multiprocessing
+    import shutil
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.io import DataLoader, default_collate_fn
+    from paddle_tpu_torch.vision import datasets as tdatasets
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _vdata_ops()
+    print(f"vision_data: dense ops {time.perf_counter() - t0:.1f} s; card "
+          f"{_card()}")
+
+    directory = _scratch_dir("vision_data_")
+    try:
+        t1 = time.perf_counter()
+        nbytes = _vdata_folder(directory)
+        print(f"vision_data: {VDATA_IMAGES} uint8 images {VDATA_HW[0]} x "
+              f"{VDATA_HW[1]} x 3 in {VDATA_CLASSES} classes, "
+              f"{nbytes / 1e6:.1f} MB of .npy written in "
+              f"{time.perf_counter() - t1:.2f} s")
+        transform = T.Compose([T.RandomResizedCrop(RESNET_IMG),
+                               T.RandomHorizontalFlip(), T.Transpose(),
+                               T.Normalize(VDATA_MEAN, VDATA_STD)])
+        data = tdatasets.DatasetFolder(directory, transform=transform)
+        workers = min(8, os.cpu_count() - 1)
+        framework.seed(VDATA_SEED)
+        loader = DataLoader(data, batch_size=RESNET_BATCH, shuffle=True,
+                            drop_last=True, num_workers=workers)
+        steps = 1 + VDATA_STEPS            # the graph build, then counted
+        epochs = -(-steps // len(loader))
+        # each epoch's sampler indices: the draws the loader makes from
+        # numpy's global generator at each epoch's start
+        np.random.seed(VDATA_SEED)
+        indices = [b for _ in range(epochs) for b in loader.batch_sampler]
+        np.random.seed(VDATA_SEED)
+        print(f"vision_data: os.cpu_count() {os.cpu_count()}, "
+              f"{workers} workers, {len(loader)} batches of {RESNET_BATCH} "
+              f"an epoch, {epochs} epochs")
+
+        model = resnet50(device="cuda", seed=0)
+        model.train()
+        _, step = _resnet_trainer(model)
+        iters = []
+
+        def batches():
+            for _ in range(epochs):
+                iters.append(iter(loader))
+                yield from iters[-1]
+
+        stream = batches()
+        losses, times, waits, device_ms, labels = [], [], [], [], []
+        reset_launch_counts()
+        for k in range(steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, y = next(stream)
+            t2 = time.perf_counter()
+            if k == 0:
+                _vdata_first_batch(data, indices[0], x, y, default_collate_fn)
+                pids = {p.pid for p in multiprocessing.active_children()}
+                held = pids & _cuda_app_pids()
+                print(f"vision_data: {len(pids)} worker processes, "
+                      f"{len(held)} of them holding a CUDA context")
+                assert not held, held
+            labels.append(y)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = step(x, y)
+            end.record()
+            losses.append(float(loss))
+            t3 = time.perf_counter()
+            if k:
+                times.append((t3 - t1) * 1e3)
+                waits.append((t2 - t1) * 1e3)
+                device_ms.append(start.elapsed_time(end))
+        counts = launch_counts()
+        for it in iters:
+            it.close()
+        stream = _vdata_stream(data, workers)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    assert step._builds == 1, step._builds
+    assert np.isfinite(losses).all(), losses
+    assert not any(counts.values()), counts
+    for k, y in enumerate(labels):
+        want = [data.samples[i][1] for i in indices[k]]
+        assert y.tolist() == want, (k, y.tolist(), want)
+    p50 = float(np.median(times))
+    window_s = sum(times) / 1e3
+    busy = sum(device_ms) / 1e3 / window_s
+    nan = float("nan")
+    fixed = RESNET_WINDOW
+    fixed_busy = fixed.get("device_ms", nan) / fixed.get("p50_ms", nan)
+    print(f"vision_data: ResNet-50 O1 fed by the DataLoader, {VDATA_STEPS} "
+          f"graph steps after the build, losses " + ", ".join(
+              f"{v:.4f}" for v in losses[1:]) + f"; step p50 {p50:.3f} ms, "
+          f"p99 {float(np.percentile(times, 99)):.3f}; "
+          f"{VDATA_STEPS * RESNET_BATCH / window_s:.1f} images/s over the "
+          f"window ({RESNET_BATCH / (p50 / 1e3):.1f} at the p50); blocked in "
+          f"next() p50 {float(np.median(waits)):.3f} ms, max "
+          f"{max(waits):.3f}; device busy {busy:.3f} of the window (CUDA "
+          f"events around each step: the input copy and the graph, "
+          f"{float(np.median(device_ms)):.3f} ms p50); the resnet phase's "
+          f"fixed batch in this run: step p50 {fixed.get('p50_ms', nan):.3f}"
+          f" ms, p99 {fixed.get('p99_ms', nan):.3f}, "
+          f"{fixed.get('images_per_s', nan):.1f} images/s, busy "
+          f"{fixed_busy:.3f} (profiled device ms over the p50); labels as "
+          f"the sampler's indices name them in every batch; one build; no "
+          f"port kernel on the path (launch counts all 0)")
+    edge = int(np.argmax(waits))
+    where = (f"the first of epoch {(edge + 1) // len(loader) + 1}, from "
+             f"workers started anew" if (edge + 1) % len(loader) == 0
+             else "within an epoch")
+    rest = [t for k, t in enumerate(times) if k != edge]
+    print(f"vision_data: the longest wait in next() is batch {edge + 1}'s "
+          f"({waits[edge]:.1f} ms; {where}); the other {len(rest)} steps' "
+          f"p50 {float(np.median(rest)):.3f} ms, "
+          f"{len(rest) * RESNET_BATCH / (sum(rest) / 1e3):.1f} images/s")
+    print(stream)
+    del model, step
+    print(f"vision_data: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
+def _vdata_stream(data, workers):
+    """The loader alone, nothing consuming its batches on the card: one
+    pass over VDATA_STREAM_BATCHES batches drawn with replacement. Returns
+    the line that reports its first batch's latency (workers starting)
+    and its images/s once every worker has delivered a batch."""
+    from paddle_tpu_torch.io import BatchSampler, DataLoader, RandomSampler
+    sampler = BatchSampler(sampler=RandomSampler(
+        data, replacement=True,
+        num_samples=VDATA_STREAM_BATCHES * RESNET_BATCH),
+        batch_size=RESNET_BATCH, drop_last=True)
+    loader = DataLoader(data, batch_sampler=sampler, num_workers=workers)
+    t0 = time.perf_counter()
+    arrivals = []
+    for x, _ in loader:
+        torch.cuda.current_stream().synchronize()   # the batch has landed
+        arrivals.append(time.perf_counter())
+    steady = arrivals[workers:]
+    rate = (len(steady) - 1) * RESNET_BATCH / (steady[-1] - steady[0])
+    return (f"vision_data: the loader alone, {len(arrivals)} batches of "
+            f"{RESNET_BATCH} onto the card from {workers} workers: first "
+            f"batch {arrivals[0] - t0:.3f} s after iter(), then "
+            f"{rate:.1f} images/s from batch {workers + 1} on "
+            f"({(steady[-1] - steady[0]) * 1e3 / (len(steady) - 1):.1f} ms"
+            f" a batch)")
+
+
+def _vdata_first_batch(data, batch_indices, x, y, collate):
+    """The loader's first batch (on the card) bit for bit with the same
+    batch built here on the CPU as worker 0 builds it: numpy's global
+    generator at worker 0's seed (the base seed of the process's first
+    loader: seed · 1000003 + 0 · 10007), one torch thread."""
+    state = np.random.get_state()
+    threads = torch.get_num_threads()
+    np.random.seed((VDATA_SEED * 1000003) % (2 ** 31))
+    torch.set_num_threads(1)
+    try:
+        want_x, want_y = collate([data[i] for i in batch_indices])
+    finally:
+        torch.set_num_threads(threads)
+        np.random.set_state(state)
+    assert x.device.type == "cuda" and y.device.type == "cuda"
+    differ = int((x.cpu() != want_x).sum())
+    print(f"vision_data: first batch {tuple(x.shape)} {x.dtype} on the card, "
+          f"{differ} of {x.numel()} elements differ from the CPU build; "
+          f"labels equal: {bool(torch.equal(y.cpu(), want_y))}")
+    assert differ == 0 and torch.equal(y.cpu(), want_y)
 
 
 # ---------------------------------------------------------------------------
@@ -8212,6 +8602,8 @@ def main():
     _phase_memory("vit")
     paths["resnet"] = resnet_phase()
     _phase_memory("resnet")
+    paths["vision_data"] = vision_data_phase()
+    _phase_memory("vision_data")
     rows["gpt3_dp"] = check_flash_gpt3() + check_adam_gpt3()
     _phase_memory("the gpt3_dp kernel checks")
     paths["gpt3_dp"] = gpt3_dp_phase()

@@ -28,10 +28,10 @@ import math
 import torch
 from torch import nn
 
-from ...device import resolve_device
 from ...incubate.nn.fused_transformer import FusedTransformerEncoderLayer
 from ...nn import initializer as I
 from ...nn.layer.transformer import TransformerEncoderLayer, linear
+from ._common import device_and_generator
 
 __all__ = ["PatchEmbed", "VisionTransformer", "vit_b_16", "vit_l_16",
            "vit_l_32"]
@@ -66,8 +66,8 @@ class VisionTransformer(nn.Module):
                  mlp_ratio=4.0, dropout=0.0, attention_dropout=0.0,
                  use_fused_attn=True, device=None, seed=0):
         super().__init__()
-        device = resolve_device(device)
-        gen = torch.Generator(device=device).manual_seed(int(seed))
+        kw = device_and_generator(device, seed)
+        device, gen = kw["device"], kw["generator"]
         self.embed_dim = embed_dim
         self.num_classes = num_classes
         self.patch_embed = PatchEmbed(img_size, patch_size, in_chans,

@@ -64,5 +64,13 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
                 "paddle_tpu_torch.ops.numerics",
                 "paddle_tpu_torch.kernels.finite_check",
                 "paddle_tpu_torch.framework.io",
-                "paddle_tpu_torch.incubate.checkpoint"}
+                "paddle_tpu_torch.incubate.checkpoint",
+                "paddle_tpu_torch.framework.random",
+                "paddle_tpu_torch.io.dataset",
+                "paddle_tpu_torch.io.dataloader",
+                "paddle_tpu_torch.nn.functional.vision",
+                "paddle_tpu_torch.vision.transforms",
+                "paddle_tpu_torch.vision.transforms.functional",
+                "paddle_tpu_torch.vision.datasets",
+                "paddle_tpu_torch.vision.ops"}
     assert expected <= set(res["imported"])

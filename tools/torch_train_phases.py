@@ -5,7 +5,8 @@ alone on the card:
 
 phases: train_amp, train_optimizers, train_scaler, train_guard,
 train_resume, train_fp16, export, predictor, async_save, vit, resnet,
-gpt3_dp (all of them, in that order, by default; vit first checks and
+vision_data, gpt3_dp (all of them, in that order, by default; vit first
+checks and
 times the flash pair at ViT-L/16's shape, `check_flash_vit`; gpt3_dp the
 flash kernels and the AdamW update at config 3's shapes,
 `check_flash_gpt3` and `check_adam_gpt3`). Builds the kernels, then runs each phase as
@@ -41,6 +42,7 @@ def main():
               "async_save": cs.async_save_phase,
               "vit": lambda: (cs.check_flash_vit(), cs.vit_phase()),
               "resnet": cs.resnet_phase,
+              "vision_data": cs.vision_data_phase,
               "gpt3_dp": lambda: (cs.check_flash_gpt3(),
                                   cs.check_adam_gpt3(),
                                   cs.gpt3_dp_phase())}
